@@ -1,0 +1,87 @@
+"""The Hopper flash-attention kernel against its plain version, on the card.
+
+These tests need an NVIDIA GPU with nvcc and skip elsewhere. The file
+imports no JAX, so on a GPU machine without JAX it runs as
+
+    python -m pytest --noconftest -m cuda tests/test_torch_attention_cuda.py -q
+
+Tolerances: both sides accumulate in f32 from the same inputs and differ
+in summation order (~1e-6 relative); bf16 outputs may then round one
+bf16 step apart, hence 2^-7 relative.
+"""
+
+import pytest
+import torch
+
+from comfyui_distributed_tpu_torch.ops import attention as attn
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [
+    # (B, N, M, H, D): main-path shapes, then ragged edges of the tiling
+    (2, 1296, 1296, 10, 64),
+    (2, 1296, 77, 10, 64),
+    (2, 324, 324, 20, 64),
+    (2, 324, 77, 20, 64),
+    (1, 5184, 5184, 1, 512),
+    (1, 1, 1, 1, 64),
+    (3, 65, 63, 2, 64),
+    (1, 33, 31, 1, 512),
+    (2, 70, 100, 2, 512),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel is CUDA C++ with no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b, n, m, h, d", SHAPES)
+def test_kernel_matches_plain(cuda, b, n, m, h, d, dtype):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n * 31 + m)
+    q, k, v = (
+        torch.randn(s, generator=gen, device=cuda).to(dtype)
+        for s in ((b, n, h, d), (b, m, h, d), (b, m, h, d))
+    )
+    before = attn.flash_attention.launches
+    out = attn.dot_product_attention(q, k, v)
+    assert attn.flash_attention.launches == before + 1
+    ref = attn.flash_attention_reference(q, k, v)
+    rtol, atol = (2.0**-7, 1e-3) if dtype == torch.bfloat16 else (1e-5, 2e-5)
+    assert out.dtype == dtype and out.shape == (b, n, h, d)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+def test_kernel_reads_strided_heads(cuda):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    fused = torch.randn((2, 100, 3, 4, 64), generator=gen, device=cuda).bfloat16()
+    q, k, v = fused.unbind(2)
+    torch.testing.assert_close(
+        attn.flash_attention(q, k, v).float(),
+        attn.flash_attention_reference(q, k, v).float(),
+        rtol=2.0**-7, atol=1e-3,
+    )
+
+
+@pytest.mark.parametrize("d", [64, 512])
+def test_kernel_reads_unaligned_rows(cuda, d):
+    # rows 2 bytes off a 16-byte boundary, with a (d + 1)-element row
+    # stride: the tensor-core kernel's 16-byte copies cannot read these,
+    # the FMA kernel takes them
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(11)
+    wide = torch.randn((3, 2, 90, 3, d + 1), generator=gen, device=cuda).bfloat16()
+    q, k, v = (t[..., 1:] for t in wide.unbind(0))
+    assert q.data_ptr() % 16 != 0 and q.stride(2) == d + 1
+    torch.testing.assert_close(
+        attn.flash_attention(q, k, v).float(),
+        attn.flash_attention_reference(q, k, v).float(),
+        rtol=2.0**-7, atol=1e-3,
+    )
