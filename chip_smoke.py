@@ -11,17 +11,26 @@ Phases, each printing lines tagged with its name:
 2. build   - nvcc builds comfyui_distributed_tpu_torch/csrc/
              flash_attention.cu from this checkout.
 3. kernel  - the kernel against its plain PyTorch version at every
-             attention shape of the main path (bf16), in f32, on strided
-             and on small ragged inputs; CUDA-event device times of the
-             kernel, the plain version, one PyTorch SDPA call (a yardstick
-             the port never calls) and the bound for the same work.
+             attention shape of the main path (bf16), in f32, on the fused
+             strided qkv view, on small ragged inputs and at the edges of
+             the wgmma instance's key tiles (one head of one batch);
+             CUDA-event device times of the kernel, the plain version, one
+             PyTorch SDPA call (a yardstick the port never calls) and the
+             bound for the same work. Each line names the instance the
+             router took, its key tile and query rows per block, the
+             blocks launched, the blocks resident per SM and the waves.
+   tiles   - every compiled key tile of the wgmma instance timed at each
+             D=64 shape of the path, beside the router's choice.
+   host    - the wrapper's host cost per call: 10 x 100 calls timed on the
+             host clock while a spin kernel holds the stream.
 4. main    - workflows/distributed-upscale.json through the port's
              GraphExecutor: SDXL at full width with seeded random weights
              (and a seeded non-zero out_conv, so the UNet's output counts),
              bf16, a seeded 512x512 image, 20 euler steps over four
              576-px padded tiles → 1024x1024. Run twice; each run must
              launch the attention kernel exactly as often as the path's
-             shapes say.
+             shapes say, each instance as often as the router sends
+             those shapes to it.
 5. kernels - one JSON line per the port's kernel contract.
 
 The card's nvidia-smi line and then {"ok": true, "device": ...} close
@@ -48,6 +57,8 @@ IMAGE_PX = 512  # the workflow's LoadImage input, replaced by a seeded image
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # f32: outside the tensor cores
 PEAK_BYTES = 3.35e12
 SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's 1.98 GHz boost clock
+# key counts at the edges of the wgmma instance's key tiles (80, 112, 144)
+EDGE_KEYS = (1, 77, 79, 80, 81, 143, 144, 145, 324, 1296)
 
 
 def _require(ok: bool, message: str) -> None:
@@ -115,12 +126,60 @@ def _attention_shapes(unet_cfg, vae_cfg, te_len: int, latent_hw: int, evals: int
     return shapes
 
 
+def _expected_by_instance(attn, shapes, torch) -> dict:
+    """Launches per tile of each kernel instance: every shape's count,
+    under the instance the router picks for contiguous bf16 inputs of
+    that shape (meta tensors: shapes and strides, no memory)."""
+    counts = dict.fromkeys(attn.INSTANCES, 0)
+    for _label, (b, n, h, d), m, per_tile in shapes:
+        q = torch.empty((b, n, h, d), dtype=torch.bfloat16, device="meta")
+        kv = torch.empty((b, m, h, d), dtype=torch.bfloat16, device="meta")
+        counts[attn.plan(q, kv, kv).instance] += per_tile
+    return counts
+
+
 def _bounds(q_shape, m: int, dtype: str):
     b, n, h, d = q_shape
     itemsize = 2 if dtype == "bfloat16" else 4
     ops = 4.0 * b * h * n * m * d
     nbytes = float(2 * b * n * h * d + 2 * b * m * h * d) * itemsize
     return ops / PEAK_OPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def _time_wgmma_tiles(torch, attn, label, q, k, v, chosen) -> str:
+    """Device ms of every compiled key tile of the wgmma instance at one
+    shape, with its masked share; '*' marks the router's."""
+    m = k.shape[1]
+    parts = []
+    for keys in attn.WGMMA_KEY_TILES:
+        plan = attn.Plan("wgmma", keys, attn.WGMMA_ROWS)
+        ms = _time_ms(torch, lambda: attn.flash_attention(q, k, v, with_plan=plan))
+        mark = "*" if plan == chosen else ""
+        parts.append(f"{mark}k{keys} {ms:.5f} ms {plan.masked_share(m):.3f} masked")
+    return f"[tiles] {label}: " + ", ".join(parts)
+
+
+def _host_us_per_call(torch, attn, q, k, v, batches: int = 10, calls: int = 100) -> str:
+    """The wrapper's host time per call: each batch of `calls` launches
+    queues behind a spin kernel long enough to cover them, so the host
+    never waits for the device and only its own work is timed."""
+    samples, plan_samples = [], []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(5 * SPIN_CYCLES)
+        started = time.perf_counter()
+        for _ in range(calls):
+            attn.flash_attention(q, k, v)
+        samples.append((time.perf_counter() - started) / calls * 1e6)
+        started = time.perf_counter()
+        for _ in range(calls):
+            attn.plan(q, k, v)
+        plan_samples.append((time.perf_counter() - started) / calls * 1e6)
+    torch.cuda.synchronize()
+    return (f"[host] flash_attention q={tuple(q.shape)} M={k.shape[1]}: "
+            f"{statistics.median(samples):.2f} us per call on the host (median of {batches} "
+            f"x {calls}, min {min(samples):.2f}), of which plan() "
+            f"{statistics.median(plan_samples):.2f} us")
 
 
 def main() -> int:
@@ -196,6 +255,11 @@ def main() -> int:
         ("ragged 81x77", (1, 81, 2, 64), 77, "bfloat16", 0, False),
         ("ragged 200x190 D512 f32", (1, 200, 1, 512), 190, "float32", 0, False),
     ]
+    checks += [(f"edge 200x{m} B*H=1", (1, 200, 1, 64), m, "bfloat16", 0, False)
+               for m in EDGE_KEYS]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tile_lines = []
+    host_inputs = None
     for label, q_shape, m, dtype, count, strided in checks:
         tdtype = getattr(torch, dtype)
         if strided:  # q, k, v as views into one fused [B, N, 3, H, D] buffer
@@ -217,14 +281,29 @@ def main() -> int:
         library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
         ops_ms, bytes_ms = _bounds(q.shape, k.shape[1], dtype)
         bound_ms = max(ops_ms, bytes_ms)
+        b, n, h, d = q.shape
+        plan = attn.plan(q, k, v)
+        per_sm = attn.blocks_per_sm(plan, q.dtype, d)
+        ctas = plan.ctas(b, n, h)
         print(f"[kernel] {label} {dtype} q={tuple(q.shape)} M={k.shape[1]} launches/tile={count} "
               f"max_abs_err={err:.3g} tol=|d|<={atol:g}+{rtol:g}|ref| {'ok' if ok else 'FAIL'} "
               f"kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
-              f"bound_ms={bound_ms:.5f} ({'operations' if ops_ms >= bytes_ms else 'bytes'})")
+              f"bound_ms={bound_ms:.5f} ({'operations' if ops_ms >= bytes_ms else 'bytes'}) "
+              f"instance={plan.instance} keys/tile={plan.keys_per_tile} "
+              f"masked={plan.masked_share(m):.4f} rows/cta={plan.rows_per_cta} ctas={ctas} "
+              f"ctas/sm={per_sm} waves={ctas / (per_sm * sms):.3f}")
+        if plan.instance == "wgmma" and count:
+            tile_lines.append(_time_wgmma_tiles(torch, attn, label, q, k, v, plan))
+            if host_inputs is None or q.numel() > host_inputs[0].numel():
+                host_inputs = (q, k, v)
         _require(ok, f"kernel disagrees with its plain version at {label} ({err:.3g})")
         for key, val in (("ms", kernel_ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
                          ("bound_ms", bound_ms), ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
             totals[key] += count * val
+
+    for line in tile_lines:
+        print(line)
+    print(_host_us_per_call(torch, attn, *host_inputs))
 
     # --- 4. main path --------------------------------------------------------
     prompt = copy.deepcopy(workflow)
@@ -249,26 +328,34 @@ def main() -> int:
     executor = GraphExecutor(context)
     outputs = []
     launches = 0
+    expected_by_instance = {
+        name: n_tiles * count
+        for name, count in _expected_by_instance(attn, shapes, torch).items()
+    }
     for run in (1, 2):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        attn.flash_attention.launches = 0
+        attn.reset_launch_counts()
         started = time.perf_counter()
         executor.execute(prompt)
         image = executor.last_results["5"][0]
         torch.cuda.synchronize()
         seconds = time.perf_counter() - started
         launches = attn.flash_attention.launches
+        by_instance = dict(attn.flash_attention.launches_by_instance)
         peak = torch.cuda.max_memory_allocated()
         print(f"[main] run {run}: {seconds:.2f} s, {n_tiles / seconds:.4f} tiles/s, "
               f"peak {peak / 2**30:.2f} GiB, flash_attention launches {launches} "
-              f"(expected {n_tiles} x {per_tile}), node times {executor.last_timings}")
+              f"(expected {n_tiles} x {per_tile}), by instance {by_instance} "
+              f"(expected {expected_by_instance}), node times {executor.last_timings}")
         out_px = 2 * IMAGE_PX
         _require(tuple(image.shape) == (1, out_px, out_px, 3), f"output shape {tuple(image.shape)}")
         _require(bool(torch.isfinite(image).all()), "non-finite output")
         _require(float(image.min()) >= 0.0 and float(image.max()) <= 1.0, "output outside [0, 1]")
         _require(launches == n_tiles * per_tile,
                  f"{launches} attention launches, expected {n_tiles * per_tile}")
+        _require(by_instance == expected_by_instance,
+                 f"launches by instance {by_instance}, expected {expected_by_instance}")
         outputs.append(image)
     rerun_diff = float((outputs[0] - outputs[1]).abs().max())
     print(f"[main] output {tuple(outputs[1].shape)} in [{float(outputs[1].min()):.4f}, "
@@ -285,6 +372,7 @@ def main() -> int:
         "source": "comfyui_distributed_tpu_torch/csrc/flash_attention.cu",
         "replaces": "comfyui_distributed_tpu/ops/attention.py:80",
         "launches": launches,
+        "launches_by_instance": by_instance,
         "max_abs_err": max_err,
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],

@@ -2,8 +2,9 @@
 
 Each source under `csrc/` compiles with nvcc for Hopper (`sm_90a`) into
 `build/` (listed in .gitignore). The library is named by the source's
-content hash, so an edited source rebuilds and an unchanged one loads as
-is. Nothing here runs at import time: a kernel builds on its first
+content hash and that of every other file under `csrc/` (the headers it
+includes), so an edited source or header rebuilds and an unchanged tree
+loads as is. Nothing here runs at import time: a kernel builds on its first
 launch, which is why `python3 chip_smoke.py` from a fresh checkout
 builds everything it needs.
 """
@@ -52,12 +53,26 @@ def nvcc_path() -> str:
     )
 
 
+def source_digest() -> str:
+    """Hash of every file under csrc/, names and contents: a source
+    rebuilds when it or any header it may include changes."""
+    sha = hashlib.sha1()
+    for root, dirs, files in os.walk(CSRC_DIR):
+        dirs.sort()
+        for name in sorted(files):
+            path = os.path.join(root, name)
+            sha.update(os.path.relpath(path, CSRC_DIR).encode() + b"\0")
+            with open(path, "rb") as fh:
+                sha.update(fh.read())
+    return sha.hexdigest()[:12]
+
+
 def build(source_name: str) -> BuildResult:
-    """Compile `csrc/<source_name>` unless a library of its current
-    content is already in build/; returns where the library is."""
+    """Compile `csrc/<source_name>` unless a library of the current
+    content of `csrc/` is already in build/; returns where the library
+    is."""
     src = os.path.join(CSRC_DIR, source_name)
-    with open(src, "rb") as fh:
-        digest = hashlib.sha1(fh.read()).hexdigest()[:12]
+    digest = source_digest()
     stem = os.path.splitext(source_name)[0]
     out = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     if os.path.exists(out):

@@ -9,12 +9,15 @@
 // a sequential grid axis; here one thread block owns a (batch*head, Q tile)
 // pair and loops over the K/V tiles itself.
 //
-// What bounds it on an H100, per main-path shape (4*B*H*N*M*D operations
-// against the bytes of q, k, v and o read or written once):
-//   UNet self-attention, N = M = 1296 or 324, D = 64: operations at 1296,
-//   bytes at 324; cross-attention, M = 77: bytes; VAE mid-block, N = M =
-//   5184, D = 512, one head: operations.
-// Everything below shares three choices about that bound:
+// What bounds it on an H100 (SXM, published peaks: 989 TFLOP/s bf16,
+// 3.35 TB/s), per main-path shape, 4*B*H*N*M*D operations against the bytes
+// of q, k, v and o read or written once:
+//   self@1296  [2,1296,10,64] x 1296  operations  8.7 us
+//   cross@1296 [2,1296,10,64] x 77    bytes       2.1 us
+//   self@324   [2,324,20,64]  x 324   bytes       2.0 us
+//   cross@324  [2,324,20,64]  x 77    bytes       1.2 us
+//   vae@5184   [1,5184,1,512] x 5184  operations  55.7 us
+// Every kernel below shares three choices about that bound:
 //   * the running max, sum and accumulator never leave registers; the only
 //     device-memory traffic is one read of each tile and one write of o.
 //   * ragged lengths cost nothing extra: K/V rows past M load as zeros and
@@ -22,40 +25,60 @@
 //     zeros and are never stored.
 //   * head dims are template instances, no lane padding (the TPU kernel
 //     padded D to 128 for its lanes).
+// The instance is chosen by the caller (ops/attention.py::plan) and passed
+// in as a code; an instance or tile shape not compiled here returns -1.
 //
-// Two kernels:
+// flash_attention_fwd_wgmma_kernel, bf16, D = 64 (instance 2; the 2800
+// UNet calls of a tile): warp-specialised, on Hopper's asynchronous units.
+//   * A block is one consumer warpgroup (64 query rows) and one producer
+//     warpgroup whose registers setmaxnreg cuts to 24, handing them to the
+//     consumer (232); two blocks share an SM. Two consumer warpgroups per
+//     block (128 rows, one block per SM) were slower at every shape of the
+//     path and were dropped.
+//   * One producer thread loads the Q tile once and keeps K and V tiles in
+//     flight, each through a ring of two stages with full/empty mbarriers
+//     of its own, so a K stage is refilled as soon as its scores are in.
+//     Every load is one TMA copy of a box of a 4-D tensor map over the
+//     caller's [B, N|M, H, 64] view (its own strides), 128-byte swizzled,
+//     the layout wgmma reads; rows past N or M come in as zeros within
+//     their own batch and head.
+//   * S = Q K^T by wgmma m64nKk16 with both operands in shared memory
+//     (K-major); the online softmax in registers, in exp2 units; O += P V
+//     by wgmma m64n64k16, P from registers and V from shared memory
+//     (MN-major, transposed). Within the warpgroup the products overlap the
+//     softmax: Q K^T of tile i + 1 runs while the accumulator is rescaled,
+//     P V of tile i while the softmax of tile i + 1 runs. The last tile is
+//     peeled off the loop, so ptxas sees every committed group waited for
+//     on every path and does not serialise the wgmma pipeline.
+//   * The key tile K is a template parameter (80, 112 or 144), chosen per
+//     call so that few key slots are masked: M = 77 takes one tile of 80,
+//     M = 324 three of 112, M = 1296 nine of 144 (4 %, 4 % and 0 % masked,
+//     against 40 %, 16 % and 0 % for 64-key tiles).
+//   * P goes into P V as two bf16 products, bf16(P) and bf16(P - bf16(P)):
+//     16 bits of P where one bf16 keeps 8. One bf16 P missed the plain
+//     version by more than one bf16 step of the output where few keys share
+//     the weight (M = 77); the split costs half again the tensor-core work.
+//   * The output is stored from registers, 4 bytes a thread per row pair.
+
+// flash_attention_fwd_mma_kernel, bf16, D = 512 (instance 1; the VAE's
+// mid-block): mma.sync m16n8k16 (bf16 in, f32 accumulate). A 16 x 512 f32
+// accumulator per warp would need 256 registers a thread, so the head dim
+// is cut into 4 slices of 128: the 8 warps of a block are 2 row groups x 4
+// slices. Each slice adds up Q K^T over its 128 dims; the four partial
+// scores meet in shared memory (16 KB) and are summed in slice order, so
+// the four warps of a row group hold the same scores, run the same softmax
+// and each multiply P (split in two bf16 as above) by its slice of V.
+// 32-key tiles copied one ahead by cp.async into two buffers, rows padded by
+// 16 bytes so that the fragment loads are free of bank conflicts; 179 KB of
+// dynamic shared memory.
 //
-// flash_attention_fwd_mma_kernel, bf16 (every call of the path): the
-// products run on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
-// accumulate). Each warp owns 16 query rows and a slice of D; K and V stream
-// through shared memory as bf16 in tiles that cp.async copies one tile ahead
-// of their use (two buffers each), rows padded by 16 bytes so that the
-// fragment loads (32-bit loads for Q and K, ldmatrix.trans for V) are free of
-// bank conflicts. Each warp keeps its Q fragments in registers for the whole
-// loop, and the score fragment of Q K^T is re-packed in registers as the A
-// operand of P V, so scores never go through memory (but see D = 512).
-//   D = 64:  4 warps x 16 rows, one slice of 64; 64-key tiles; 46 KB of
-//            shared memory, ~100 registers, so several blocks share an SM.
-//   D = 512: a 16 x 512 f32 accumulator per warp would need 256 registers a
-//            thread, so the head dim is cut into 4 slices of 128: the 8 warps
-//            of a block are 2 row groups x 4 slices. Each slice adds up Q K^T
-//            over its 128 dims; the four partial scores meet in shared memory
-//            (16 KB) and are summed in slice order, so the four warps of a row
-//            group hold the same scores, run the same softmax and each
-//            multiply P by its slice of V. 32-key tiles; 179 KB of dynamic
-//            shared memory (above the 48 KB default, opened with
-//            cudaFuncSetAttribute).
-// The TPU kernel multiplies P by V in f32. One bf16 P would keep 8 of P's
-// bits and miss the plain version by more than one bf16 step of the output
-// where few keys share the weight (M = 77), so P goes in as bf16(P) plus bf16
-// of the rest: two products that carry 16 bits (V is bf16 already, so
-// exact), for half again the tensor-core work. The kernel needs 16-byte
-// aligned rows (its 16-byte copies); other views take the kernel below.
+// Both tensor-core kernels need 16-byte aligned rows (TMA and 16-byte
+// copies); other views take the kernel below.
 //
-// flash_attention_fwd_kernel, f32 (either D) and unaligned bf16: dot
-// products with f32 FMAs from shared memory. Q, K and V tiles are staged as
-// f32 (bf16 widened on load), rows padded by 4 floats so every operand read
-// is a conflict-free 16-byte load feeding four FMAs.
+// flash_attention_fwd_kernel, f32 (either D) and unaligned bf16 (instance
+// 0): dot products with f32 FMAs from shared memory. Q, K and V tiles are
+// staged as f32 (bf16 widened on load), rows padded by 4 floats so every
+// operand read is a conflict-free 16-byte load feeding four FMAs.
 //   D = 64:  64-row Q tile, 64-row K/V tiles, 4 threads per query row,
 //            52 KB of dynamic shared memory.
 //   D = 512: the Q tile shrinks to 32 rows with 8 threads per row, each
@@ -65,12 +88,48 @@
 // Off the tensor cores it stays far above the bound on the operation-bound
 // shapes; the path's bf16 calls do not reach it.
 
+#include <cuda.h>  // CUtensorMap and its enums only: libcuda is reached at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "hopper.cuh"
+
 namespace {
+
+// Instance codes, shared with ops/attention.py (INSTANCES).
+constexpr int kInstanceFma = 0;
+constexpr int kInstanceMma = 1;
+constexpr int kInstanceWgmma = 2;
+
+// Everything one call needs. `strides` holds the batch, token and head
+// strides (in elements) of q, k, v and o, in that order.
+struct Call {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  int device, batch, n, m, heads;
+  const long long* strides;
+  float scale;
+  cudaStream_t stream;
+};
+
+// Opens `bytes` of dynamic shared memory to `kernel` on `device`, once per
+// device: `done` holds one bit per device already set up.
+template <typename Kernel>
+cudaError_t allow_shared_once(std::atomic<unsigned long long>& done, Kernel kernel, size_t bytes,
+                              int device) {
+  const unsigned long long bit = 1ull << (device & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
 
 constexpr int kThreads = 256;
 
@@ -243,23 +302,25 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int batch, int n, int m,
-           int heads, const long long* strides, float scale, cudaStream_t stream) {
+int run_fma(const Call& c, int* occupancy) {
   constexpr size_t smem = shared_bytes<D>();
+  static std::atomic<unsigned long long> configured{0};
   auto kernel = flash_attention_fwd_kernel<T, D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err = allow_shared_once(configured, kernel, smem, c.device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + TileShape<D>::kQ - 1) / TileShape<D>::kQ, batch * heads);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), n, m, heads, strides[0], strides[1], strides[2], strides[3],
-      strides[4], strides[5], strides[6], strides[7], strides[8], strides[9], strides[10],
-      strides[11], scale);
+  if (occupancy)
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, kThreads, smem));
+  const long long* st = c.strides;
+  const dim3 grid((c.n + TileShape<D>::kQ - 1) / TileShape<D>::kQ, c.batch * c.heads);
+  kernel<<<grid, kThreads, smem, c.stream>>>(
+      static_cast<const T*>(c.q), static_cast<const T*>(c.k), static_cast<const T*>(c.v),
+      static_cast<T*>(c.o), c.n, c.m, c.heads, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], st[9], st[10], st[11], c.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- tensor-core kernel: bf16 ----------------------------------------------
+// ---- mma.sync kernel: bf16, D = 512 ----------------------------------------
 //
 // Fragment layouts of mma.sync m16n8k16 (PTX ISA), for lane = 4 * g + t:
 //   A (16 x 16, row-major), 4 registers of 2 bf16: rows g | g + 8 | g | g + 8,
@@ -272,12 +333,6 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
 // each slice D / kSlices of the head dim (of Q K^T's sum and of the output).
 template <int D>
 struct MmaShape;
-template <>
-struct MmaShape<64> {
-  static constexpr int kRowGroups = 4;
-  static constexpr int kSlices = 1;
-  static constexpr int kKeys = 64;  // key rows per K/V tile
-};
 template <>
 struct MmaShape<512> {
   static constexpr int kRowGroups = 2;
@@ -549,37 +604,416 @@ __global__ void __launch_bounds__(32 * MmaShape<D>::kRowGroups * MmaShape<D>::kS
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int batch, int n, int m,
-               int heads, const long long* strides, float scale, cudaStream_t stream) {
+int run_mma(const Call& c, int* occupancy) {
   using S = MmaShape<D>;
   constexpr size_t smem = mma_shared_bytes<D>();
+  constexpr int threads = 32 * S::kRowGroups * S::kSlices;
+  static std::atomic<unsigned long long> configured{0};
   auto kernel = flash_attention_fwd_mma_kernel<D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err = allow_shared_once(configured, kernel, smem, c.device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (occupancy)
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, threads, smem));
+  const long long* st = c.strides;
   constexpr int rows = 16 * S::kRowGroups;
-  const dim3 grid((n + rows - 1) / rows, batch * heads);
-  kernel<<<grid, 32 * S::kRowGroups * S::kSlices, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), n, m, heads,
-      strides[0], strides[1], strides[2], strides[3], strides[4], strides[5], strides[6],
-      strides[7], strides[8], strides[9], strides[10], strides[11],
-      scale * 1.4426950408889634f);  // exp(x) = exp2(x log2 e)
+  const dim3 grid((c.n + rows - 1) / rows, c.batch * c.heads);
+  kernel<<<grid, threads, smem, c.stream>>>(
+      static_cast<const __nv_bfloat16*>(c.q), static_cast<const __nv_bfloat16*>(c.k),
+      static_cast<const __nv_bfloat16*>(c.v), static_cast<__nv_bfloat16*>(c.o), c.n, c.m,
+      c.heads, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
+      st[11], c.scale * 1.4426950408889634f);  // exp(x) = exp2(x log2 e)
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tensor-core kernel reads q, k and v in 16-byte pieces and writes o in
-// 4-byte pieces: every row it touches has to start on such a boundary.
-bool mma_aligned(const void* q, const void* k, const void* v, const void* o,
-                 const long long* strides) {
-  const uintptr_t in = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                       reinterpret_cast<uintptr_t>(v);
-  if ((in & 15u) != 0 || (reinterpret_cast<uintptr_t>(o) & 3u) != 0) return false;
+// ---- warp-specialised kernel: bf16, D = 64 ----------------------------------
+
+constexpr int kWgD = 64;               // head dim: one 128-byte swizzled row
+constexpr int kWgRowBytes = 2 * kWgD;
+constexpr int kWgRows = 64;            // query rows per block: one consumer warpgroup
+constexpr int kWgThreads = 256;        // the consumer warpgroup, then the producer's
+constexpr int kWgStages = 2;           // depth of the K ring and of the V ring
+// Registers a thread at launch (two blocks per SM fill the register file),
+// and after the producer warpgroup has given all but 24 back to the
+// consumers.
+constexpr int kWgBlocksPerSm = 2;
+constexpr int kWgLaunchRegs = 128;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 232;
+static_assert((kConsumerRegs + kProducerRegs) * 128 <= kWgLaunchRegs * kWgThreads &&
+                  kWgLaunchRegs * kWgThreads * kWgBlocksPerSm <= 65536,
+              "registers handed to the consumers must be ones the producer gave back");
+
+template <int KEYS>
+struct WgShape {
+  static constexpr int kTileBytes = KEYS * kWgRowBytes;
+  // 1024 bytes of slack to align the tiles to the swizzle atom, the Q tile,
+  // and the stages' K and V tiles
+  static constexpr size_t kSmem = 1024 + kWgRows * kWgRowBytes + 2 * kWgStages * kTileBytes;
+  static_assert(KEYS % 16 == 0 && KEYS <= 256, "wgmma N and P V's k-steps");
+};
+
+// 2^x by the special-function unit alone (MUFU.EX2, relative error about
+// 2^-22); results below 2^-126 flush to zero, which the softmax's sums
+// and products cannot see.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one tile of scores, in place: sc becomes P in
+// log2 units against the updated row max; row_sum is rescaled and grows
+// by the tile's sum; `correction` is what the accumulator must be
+// multiplied by before P V of this tile is added. Keys at or past `m`
+// score -inf; only the last tile can hold them, so the others skip the
+// test. The row max and sum run as four independent chains per row, not
+// one chain through all of the tile's columns.
+template <int KEYS>
+__device__ __forceinline__ void softmax_tile(float (&sc)[KEYS / 2], float (&row_max)[2],
+                                             float (&row_sum)[2], float (&correction)[2],
+                                             int k0, int m, int t, float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < KEYS / 2; ++i) sc[i] *= scale_log2;
+  if (k0 + KEYS > m) {
+#pragma unroll
+    for (int j = 0; j < KEYS / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k0 + 8 * j + 2 * t + (e & 1) >= m) sc[4 * j + e] = -INFINITY;
+  }
+  float part[2][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) part[0][c] = part[1][c] = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < KEYS / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      part[e >> 1][(2 * j + e) & 3] = fmaxf(part[e >> 1][(2 * j + e) & 3], sc[4 * j + e]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float tile_max = fmaxf(fmaxf(part[r][0], part[r][1]), fmaxf(part[r][2], part[r][3]));
+    // the four lanes of a row hold its columns; the tile's first column is
+    // always valid, so the new max is finite and exp2 of -inf is 0
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
+    const float new_max = fmaxf(row_max[r], tile_max);
+    correction[r] = exp2_approx(row_max[r] - new_max);
+    row_max[r] = new_max;
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) part[0][c] = part[1][c] = 0.f;
+#pragma unroll
+  for (int j = 0; j < KEYS / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[4 * j + e] = exp2_approx(sc[4 * j + e] - row_max[e >> 1]);
+      part[e >> 1][(2 * j + e) & 3] += sc[4 * j + e];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    row_sum[r] = row_sum[r] * correction[r] + ((part[r][0] + part[r][1]) + (part[r][2] + part[r][3]));
+}
+
+// P as the A operand of P V, in bf16 head and tail: score columns 16kk ..
+// 16kk + 15 (n-blocks 2kk, 2kk + 1) are the A fragment of k-step kk.
+template <int KEYS>
+__device__ __forceinline__ void split_p(const float (&sc)[KEYS / 2], uint32_t (&head)[KEYS / 16][4],
+                                        uint32_t (&tail)[KEYS / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KEYS / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], head[kk][r], tail[kk][r]);
+}
+
+// S = Q K^T over D = 64 for one key tile: four k-steps of 16, each 32
+// bytes along the swizzled rows (2 in the descriptors' 16-byte units).
+template <int KEYS>
+__device__ __forceinline__ void issue_scores(float (&sc)[KEYS / 2], uint64_t q_desc,
+                                             uint64_t k_desc) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) hopper::WgmmaSS<KEYS>::run(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+  hopper::wgmma_commit();
+}
+
+// O += P V for one key tile: P from registers (head, then tail added
+// first), V's k-step kk 16 rows of 128 bytes (128 descriptor units) on.
+template <int KEYS>
+__device__ __forceinline__ void issue_pv(float (&acc)[32], uint32_t (&head)[KEYS / 16][4],
+                                         uint32_t (&tail)[KEYS / 16][4], uint64_t v_desc) {
+  hopper::fence_registers(acc);
+  hopper::fence_registers(head);
+  hopper::fence_registers(tail);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KEYS / 16; ++kk) {
+    hopper::wgmma_m64n64k16_rs(acc, tail[kk], v_desc + 128 * kk);
+    hopper::wgmma_m64n64k16_rs(acc, head[kk], v_desc + 128 * kk);
+  }
+  hopper::wgmma_commit();
+}
+
+// The accumulator's rows g and g + 8 times their softmax corrections.
+__device__ __forceinline__ void rescale_rows(float (&acc)[32], const float (&correction)[2]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    acc[4 * j + 0] *= correction[0];
+    acc[4 * j + 1] *= correction[0];
+    acc[4 * j + 2] *= correction[1];
+    acc[4 * j + 3] *= correction[1];
+  }
+}
+
+template <int KEYS>
+__global__ void __launch_bounds__(kWgThreads, kWgBlocksPerSm)
+    flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                     const __grid_constant__ CUtensorMap k_map,
+                                     const __grid_constant__ CUtensorMap v_map,
+                                     __nv_bfloat16* __restrict__ o, int n, int m, int heads,
+                                     long long o_sb, long long o_sn, long long o_sh,
+                                     float scale_log2) {
+  constexpr int TILE = WgShape<KEYS>::kTileBytes;
+  extern __shared__ uint8_t wg_smem[];
+  __shared__ uint64_t k_full[kWgStages], k_empty[kWgStages];
+  __shared__ uint64_t v_full[kWgStages], v_empty[kWgStages], q_full;
+  uint8_t* qs = wg_smem + ((1024 - (hopper::smem_addr(wg_smem) & 1023)) & 1023);
+  uint8_t* ks = qs + kWgRows * kWgRowBytes;  // the K ring
+  uint8_t* vs = ks + kWgStages * TILE;        // the V ring
+
+  const int b = blockIdx.y / heads;
+  const int h = blockIdx.y % heads;
+  const int q0 = blockIdx.x * kWgRows;
+  const int tiles = (m + KEYS - 1) / KEYS;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&k_empty[s], 4);  // one arrival per consumer warp
+      hopper::mbar_init(&v_empty[s], 4);
+    }
+    hopper::mbar_init(&q_full, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // producer: one thread issues every copy, coordinates (d, h, row, b).
+    // K tile j and V tile j take stage j % 2 of their own rings: K is free
+    // once its scores are in, a product before V is.
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 128) {
+      hopper::mbar_arrive_expect_tx(&q_full, kWgRows * kWgRowBytes);
+      hopper::tma_load_4d(qs, &q_map, &q_full, 0, h, q0, b);
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % kWgStages;
+        const uint32_t free_parity = ((j / kWgStages) & 1) ^ 1;
+        hopper::mbar_wait(&k_empty[s], free_parity);
+        hopper::mbar_arrive_expect_tx(&k_full[s], TILE);
+        hopper::tma_load_4d(ks + s * TILE, &k_map, &k_full[s], 0, h, j * KEYS, b);
+        hopper::mbar_wait(&v_empty[s], free_parity);
+        hopper::mbar_arrive_expect_tx(&v_full[s], TILE);
+        hopper::tma_load_4d(vs + s * TILE, &v_map, &v_full[s], 0, h, j * KEYS, b);
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    // the consumer warpgroup: 64 query rows; this thread holds rows g and
+    // g + 8 of its warp's 16, columns 2t, 2t + 1 of every 8 (wgmma's
+    // accumulator layout, the same as mma.sync's m16n8 per warp)
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const uint64_t q_desc = hopper::smem_desc(qs);
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    float row_max[2] = {-INFINITY, -INFINITY};
+    float row_sum[2] = {0.f, 0.f};  // this lane's columns only, summed at the end
+    float correction[2];
+    float sc[KEYS / 2];
+    uint32_t head[KEYS / 16][4], tail[KEYS / 16][4];  // P of the tile in flight
+
+    // prologue: the first tile's scores and P
+    hopper::mbar_wait(&q_full, 0);
+    hopper::mbar_wait(&k_full[0], 0);
+    issue_scores<KEYS>(sc, q_desc, hopper::smem_desc(ks));
+    hopper::wgmma_wait<0>();
+    hopper::fence_registers(sc);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&k_empty[0]);
+    softmax_tile<KEYS>(sc, row_max, row_sum, correction, 0, m, t, scale_log2);
+    split_p<KEYS>(sc, head, tail);
+
+    // Tile i: Q K^T of tile i + 1 runs on the tensor cores while the
+    // accumulator is rescaled, and P V of tile i while the softmax of tile
+    // i + 1 runs; P of tile i + 1 replaces tile i's once P V is done. The
+    // last tile is peeled off, so that every wgmma group the loop commits
+    // is waited for on every path through it, which ptxas needs in order
+    // not to serialise the products.
+    for (int i = 0; i + 1 < tiles; ++i) {
+      const int s = i % kWgStages;
+      const int s1 = (i + 1) % kWgStages;
+      hopper::mbar_wait(&k_full[s1], ((i + 1) / kWgStages) & 1);
+      issue_scores<KEYS>(sc, q_desc, hopper::smem_desc(ks + s1 * TILE));
+      rescale_rows(acc, correction);
+      hopper::mbar_wait(&v_full[s], (i / kWgStages) & 1);
+      issue_pv<KEYS>(acc, head, tail, hopper::smem_desc(vs + s * TILE));
+      hopper::wgmma_wait<1>();  // the scores of tile i + 1 are in; P V runs on
+      hopper::fence_registers(sc);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&k_empty[s1]);
+      softmax_tile<KEYS>(sc, row_max, row_sum, correction, (i + 1) * KEYS, m, t, scale_log2);
+      hopper::wgmma_wait<0>();
+      hopper::fence_registers(acc);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&v_empty[s]);
+      split_p<KEYS>(sc, head, tail);
+    }
+    {
+      const int last = tiles - 1;
+      rescale_rows(acc, correction);
+      hopper::mbar_wait(&v_full[last % kWgStages], (last / kWgStages) & 1);
+      issue_pv<KEYS>(acc, head, tail, hopper::smem_desc(vs + (last % kWgStages) * TILE));
+      hopper::wgmma_wait<0>();
+      hopper::fence_registers(acc);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 1);
+      row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + 16 * warp + g + 8 * r;
+      if (row >= n) continue;
+      __nv_bfloat16* orow =
+          o + b * o_sb + static_cast<long long>(row) * o_sn + h * o_sh + 2 * t;
+      const float inv = 1.f / row_sum[r];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no link against libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &status);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    return status == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map over one bf16 [B, rows, H, 64] view, dimensions ordered (d, h,
+// row, b) from the innermost: for the contiguous and fused-qkv layouts the
+// strides then grow outwards. A box is `box_rows` rows of one head, 128
+// bytes each, so shared memory receives a row-major [box_rows][64] tile.
+bool encode_map(CUtensorMap* map, const void* ptr, int batch, int rows, int heads,
+                long long sb, long long sn, long long sh, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {kWgD, static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(sn) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {kWgD, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int KEYS>
+int run_wgmma(const Call& c, int* occupancy) {
+  constexpr size_t smem = WgShape<KEYS>::kSmem;
+  static std::atomic<unsigned long long> configured{0};
+  auto kernel = flash_attention_fwd_wgmma_kernel<KEYS>;
+  cudaError_t err = allow_shared_once(configured, kernel, smem, c.device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (occupancy)
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, kWgThreads, smem));
+  const long long* st = c.strides;
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_map(&q_map, c.q, c.batch, c.n, c.heads, st[0], st[1], st[2], kWgRows) ||
+      !encode_map(&k_map, c.k, c.batch, c.m, c.heads, st[3], st[4], st[5], KEYS) ||
+      !encode_map(&v_map, c.v, c.batch, c.m, c.heads, st[6], st[7], st[8], KEYS))
+    return -2;
+  const dim3 grid((c.n + kWgRows - 1) / kWgRows, c.batch * c.heads);
+  kernel<<<grid, kWgThreads, smem, c.stream>>>(q_map, k_map, v_map,
+                                              static_cast<__nv_bfloat16*>(c.o), c.n, c.m,
+                                              c.heads, st[9], st[10], st[11],
+                                              c.scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core kernels read q, k and v in 16-byte pieces (TMA boxes or
+// cp.async) and write o in 4-byte pieces: every row they touch has to start
+// on such a boundary.
+bool tensor_core_aligned(const Call& c) {
+  const uintptr_t in = reinterpret_cast<uintptr_t>(c.q) | reinterpret_cast<uintptr_t>(c.k) |
+                       reinterpret_cast<uintptr_t>(c.v);
+  if ((in & 15u) != 0 || (reinterpret_cast<uintptr_t>(c.o) & 3u) != 0) return false;
   for (int i = 0; i < 9; ++i)
-    if (strides[i] % 8 != 0) return false;
+    if (c.strides[i] % 8 != 0) return false;
   for (int i = 9; i < 12; ++i)
-    if (strides[i] % 2 != 0) return false;
+    if (c.strides[i] % 2 != 0) return false;
   return true;
+}
+
+// Launches (occupancy null) or sizes (occupancy set) one instance; -1 when
+// the instance, dtype, head dim, key tile and rows per block name nothing
+// compiled here.
+int dispatch(int instance, int dtype, int head_dim, int keys, int rows, const Call& c,
+             int* occupancy) {
+  if (instance == kInstanceFma) {
+    if (head_dim == 64 && keys == TileShape<64>::kK && rows == TileShape<64>::kQ)
+      return dtype == 0 ? run_fma<float, 64>(c, occupancy)
+                        : dtype == 1 ? run_fma<__nv_bfloat16, 64>(c, occupancy) : -1;
+    if (head_dim == 512 && keys == TileShape<512>::kK && rows == TileShape<512>::kQ)
+      return dtype == 0 ? run_fma<float, 512>(c, occupancy)
+                        : dtype == 1 ? run_fma<__nv_bfloat16, 512>(c, occupancy) : -1;
+    return -1;
+  }
+  if (dtype != 1) return -1;
+  if (!occupancy && !tensor_core_aligned(c)) return -3;
+  if (instance == kInstanceMma && head_dim == 512 && keys == MmaShape<512>::kKeys &&
+      rows == 16 * MmaShape<512>::kRowGroups)
+    return run_mma<512>(c, occupancy);
+  if (instance != kInstanceWgmma || head_dim != kWgD || rows != kWgRows) return -1;
+  if (keys == 80) return run_wgmma<80>(c, occupancy);
+  if (keys == 112) return run_wgmma<112>(c, occupancy);
+  if (keys == 144) return run_wgmma<144>(c, occupancy);
+  return -1;
+}
+
+cudaError_t use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess || current == device) return err;
+  return cudaSetDevice(device);
 }
 
 }  // namespace
@@ -587,26 +1021,34 @@ bool mma_aligned(const void* q, const void* k, const void* v, const void* o,
 // q: [B, N, H, D], k and v: [B, M, H, D], o: [B, N, H, D], all with a
 // contiguous last dim; `strides` holds the batch, token and head strides (in
 // elements) of q, k, v and o, in that order. dtype 0 = float32, 1 = bfloat16.
-// Returns 0, a cudaError_t from the launch, or -1 for an unsupported
-// dtype/head-dim pair. Launches on `stream` and does not synchronise.
-extern "C" int cdt_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                       int dtype, int head_dim, int device, int batch, int n,
-                                       int m, int heads, const long long* strides, float scale,
+// `instance`, `keys_per_tile` and `rows_per_block` are the caller's plan.
+// Returns 0, a cudaError_t from the launch, -1 for a plan not compiled here,
+// -2 when a TMA tensor map cannot be encoded, or -3 for a view the planned
+// tensor-core instance cannot read. Launches on `stream` and does not
+// synchronise.
+extern "C" int cdt_flash_attention_fwd(int instance, const void* q, const void* k, const void* v,
+                                       void* o, int dtype, int head_dim, int device, int batch,
+                                       int n, int m, int heads, const long long* strides,
+                                       float scale, int keys_per_tile, int rows_per_block,
                                        void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64)
-    return launch<float, 64>(q, k, v, o, batch, n, m, heads, strides, scale, s);
-  if (dtype == 0 && head_dim == 512)
-    return launch<float, 512>(q, k, v, o, batch, n, m, heads, strides, scale, s);
-  if (dtype == 1 && head_dim == 64 && mma_aligned(q, k, v, o, strides))
-    return launch_mma<64>(q, k, v, o, batch, n, m, heads, strides, scale, s);
-  if (dtype == 1 && head_dim == 512 && mma_aligned(q, k, v, o, strides))
-    return launch_mma<512>(q, k, v, o, batch, n, m, heads, strides, scale, s);
-  if (dtype == 1 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, batch, n, m, heads, strides, scale, s);
-  if (dtype == 1 && head_dim == 512)
-    return launch<__nv_bfloat16, 512>(q, k, v, o, batch, n, m, heads, strides, scale, s);
-  return -1;
+  const Call c{q, k, v, o, device, batch, n, m, heads, strides, scale,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch(instance, dtype, head_dim, keys_per_tile, rows_per_block, c, nullptr);
+}
+
+// Blocks of the planned instance that fit on one SM of `device` at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 for a plan not
+// compiled here, or minus a cudaError_t.
+extern "C" int cdt_flash_attention_blocks_per_sm(int instance, int dtype, int head_dim,
+                                                 int keys_per_tile, int rows_per_block,
+                                                 int device) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const Call c{nullptr, nullptr, nullptr, nullptr, device, 0, 0, 0, 0, nullptr, 0.f, nullptr};
+  int blocks = 0;
+  const int rc = dispatch(instance, dtype, head_dim, keys_per_tile, rows_per_block, c, &blocks);
+  if (rc != 0) return rc < 0 ? rc : -rc;
+  return blocks;
 }

@@ -30,6 +30,9 @@ SHAPES = [
     (2, 70, 100, 2, 512),
 ]
 
+# key counts at the edges of the wgmma instance's key tiles (80, 112, 144)
+EDGE_KEYS = (1, 77, 79, 80, 81, 143, 144, 145, 324, 1296)
+
 
 @pytest.fixture
 def cuda():
@@ -49,9 +52,13 @@ def test_kernel_matches_plain(cuda, b, n, m, h, d, dtype):
         torch.randn(s, generator=gen, device=cuda).to(dtype)
         for s in ((b, n, h, d), (b, m, h, d), (b, m, h, d))
     )
+    instance = attn.plan(q, k, v).instance
+    assert instance == ("fma" if dtype == torch.float32 else "wgmma" if d == 64 else "mma")
     before = attn.flash_attention.launches
+    by_instance = attn.flash_attention.launches_by_instance[instance]
     out = attn.dot_product_attention(q, k, v)
     assert attn.flash_attention.launches == before + 1
+    assert attn.flash_attention.launches_by_instance[instance] == by_instance + 1
     ref = attn.flash_attention_reference(q, k, v)
     rtol, atol = (2.0**-7, 1e-3) if dtype == torch.bfloat16 else (1e-5, 2e-5)
     assert out.dtype == dtype and out.shape == (b, n, h, d)
@@ -63,6 +70,7 @@ def test_kernel_reads_strided_heads(cuda):
     gen.manual_seed(7)
     fused = torch.randn((2, 100, 3, 4, 64), generator=gen, device=cuda).bfloat16()
     q, k, v = fused.unbind(2)
+    assert attn.plan(q, k, v).instance == "wgmma"
     torch.testing.assert_close(
         attn.flash_attention(q, k, v).float(),
         attn.flash_attention_reference(q, k, v).float(),
@@ -80,6 +88,52 @@ def test_kernel_reads_unaligned_rows(cuda, d):
     wide = torch.randn((3, 2, 90, 3, d + 1), generator=gen, device=cuda).bfloat16()
     q, k, v = (t[..., 1:] for t in wide.unbind(0))
     assert q.data_ptr() % 16 != 0 and q.stride(2) == d + 1
+    torch.testing.assert_close(
+        attn.flash_attention(q, k, v).float(),
+        attn.flash_attention_reference(q, k, v).float(),
+        rtol=2.0**-7, atol=1e-3,
+    )
+
+
+def _wgmma_matches_plain(cuda, b, n, m, h, p, seed):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    q, k, v = (
+        torch.randn(s, generator=gen, device=cuda).bfloat16()
+        for s in ((b, n, h, 64), (b, m, h, 64), (b, m, h, 64))
+    )
+    assert attn.plan(q, k, v).instance == "wgmma"
+    before = attn.flash_attention.launches_by_instance["wgmma"]
+    out = attn.flash_attention(q, k, v, with_plan=p)
+    assert attn.flash_attention.launches_by_instance["wgmma"] == before + 1
+    torch.testing.assert_close(
+        out.float(), attn.flash_attention_reference(q, k, v).float(), rtol=2.0**-7, atol=1e-3
+    )
+
+
+@pytest.mark.parametrize("m", EDGE_KEYS)
+def test_wgmma_key_tile_edges(cuda, m):
+    # the router's key tile for M, one head of one batch (B * H = 1), and
+    # N = 200, not a multiple of the block's 64 query rows
+    _wgmma_matches_plain(cuda, 1, 200, m, 1, None, seed=m)
+
+
+@pytest.mark.parametrize("keys", attn.WGMMA_KEY_TILES)
+def test_wgmma_every_compiled_tile(cuda, keys):
+    # every compiled key tile, over several tiles with a ragged last
+    p = attn.Plan("wgmma", keys, attn.WGMMA_ROWS)
+    _wgmma_matches_plain(cuda, 2, 300, 333, 3, p, seed=keys)
+
+
+def test_wgmma_reads_rows_on_16_not_128_byte_boundaries(cuda):
+    # rows start 16 bytes into a 144-byte pitch: TMA's 16-byte rule holds,
+    # the 128-byte swizzle atom is not aligned to them in device memory
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(13)
+    wide = torch.randn((3, 2, 150, 3, 72), generator=gen, device=cuda).bfloat16()
+    q, k, v = (t[..., 8:] for t in wide.unbind(0))
+    assert q.data_ptr() % 128 == 16 and q.stride(2) == 72
+    assert attn.plan(q, k, v).instance == "wgmma"
     torch.testing.assert_close(
         attn.flash_attention(q, k, v).float(),
         attn.flash_attention_reference(q, k, v).float(),

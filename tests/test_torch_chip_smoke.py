@@ -15,6 +15,7 @@ import torch
 import chip_smoke
 from comfyui_distributed_tpu_torch.models import layers, vae
 from comfyui_distributed_tpu_torch.models.registry import create_model, get_config
+from comfyui_distributed_tpu_torch.ops import attention as attn
 from comfyui_distributed_tpu_torch.ops.samplers import get_sigmas
 
 
@@ -46,6 +47,16 @@ def test_attention_shapes_match_one_sdxl_tile_on_meta(recorded_calls):
         expected[(q, m)] += per_tile * 2 // evals if q[0] == 2 else per_tile
     assert recorded_calls == expected
     assert sum(per_tile for *_, per_tile in shapes) == 2802
+
+
+def test_expected_launches_by_instance_follow_the_shapes():
+    """The main phase asserts these per tile: the UNet's 2800 D=64 calls
+    on the wgmma instance, the VAE's 2 D=512 calls on mma.sync."""
+    evals = get_sigmas("karras", 20, 0.35).shape[0] - 1
+    shapes = chip_smoke._attention_shapes(get_config("sdxl"), get_config("vae-sd"), 77, 72, evals)
+    assert chip_smoke._expected_by_instance(attn, shapes, torch) == {
+        "wgmma": 2800, "mma": 2, "fma": 0,
+    }
 
 
 def test_bounds_follow_the_published_peaks():
