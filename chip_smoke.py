@@ -12,15 +12,20 @@ Phases, each printing lines tagged with its name:
              flash_attention.cu from this checkout.
 3. kernel  - the kernel against its plain PyTorch version at every
              attention shape of the main path (bf16), in f32, on the fused
-             strided qkv view, on small ragged inputs and at the edges of
-             the wgmma instance's key tiles (one head of one batch);
-             CUDA-event device times of the kernel, the plain version, one
-             PyTorch SDPA call (a yardstick the port never calls) and the
-             bound for the same work. Each line names the instance the
-             router took, its key tile and query rows per block, the
-             blocks launched, the blocks resident per SM and the waves.
+             strided qkv view, on small ragged inputs, at the edges of
+             the wgmma instance's key tiles (one head of one batch), at
+             the edges of the D=512 instance's row blocks and key tiles
+             (B*H = 2*2), on D=512 strided and 16-byte (not 128-byte)
+             aligned views, and at the VAE shape of a 1024-px tile
+             (vae@18496, off the workflow's path); CUDA-event device times
+             of the kernel, the plain version, one PyTorch SDPA call (a
+             yardstick the port never calls) and the bound for the same
+             work. Each line names the instance the router took, its key
+             tile, query rows per block and key splits, the blocks
+             launched, the blocks resident per SM and the waves.
    tiles   - every compiled key tile of the wgmma instance timed at each
-             D=64 shape of the path, beside the router's choice.
+             D=64 shape of the path, and every key split of the D=512
+             instance at vae@5184, beside the router's choice.
    host    - the wrapper's host cost per call: 10 x 100 calls timed on the
              host clock while a spin kernel holds the stream.
 4. main    - workflows/distributed-upscale.json through the port's
@@ -59,6 +64,15 @@ PEAK_BYTES = 3.35e12
 SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's 1.98 GHz boost clock
 # key counts at the edges of the wgmma instance's key tiles (80, 112, 144)
 EDGE_KEYS = (1, 77, 79, 80, 81, 143, 144, 145, 324, 1296)
+# query and key counts at the edges of the wgmma512 instance's 64-row
+# blocks and 32-key tiles
+EDGE_ROWS_512 = (1, 63, 65, 200)
+EDGE_KEYS_512 = (1, 31, 32, 33)
+# key splits timed at vae@5184 on the `[tiles]` line
+SPLITS_TIMED = tuple(range(1, 9))
+# the VAE mid-block of SDXL's native 1024-px tile with 32-px padding:
+# a 136 x 136 latent
+VAE_1024_TOKENS = 136 * 136
 
 
 def _require(ok: bool, message: str) -> None:
@@ -146,16 +160,16 @@ def _bounds(q_shape, m: int, dtype: str):
     return ops / PEAK_OPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
-def _time_wgmma_tiles(torch, attn, label, q, k, v, chosen) -> str:
-    """Device ms of every compiled key tile of the wgmma instance at one
-    shape, with its masked share; '*' marks the router's."""
+def _time_plans(torch, attn, label, q, k, v, plans, chosen) -> str:
+    """Device ms of each plan (a compiled key tile and key split) at one
+    shape, with its masked share and blocks; '*' marks the router's."""
     m = k.shape[1]
     parts = []
-    for keys in attn.WGMMA_KEY_TILES:
-        plan = attn.Plan("wgmma", keys, attn.WGMMA_ROWS)
+    for plan in plans:
         ms = _time_ms(torch, lambda: attn.flash_attention(q, k, v, with_plan=plan))
         mark = "*" if plan == chosen else ""
-        parts.append(f"{mark}k{keys} {ms:.5f} ms {plan.masked_share(m):.3f} masked")
+        parts.append(f"{mark}k{plan.keys_per_tile} s{plan.splits} {ms:.5f} ms "
+                     f"{plan.masked_share(m):.3f} masked ctas={plan.ctas(*q.shape[:3])}")
     return f"[tiles] {label}: " + ", ".join(parts)
 
 
@@ -247,22 +261,35 @@ def main() -> int:
     max_err = 0.0
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
               "ops_ms": 0.0, "bytes_ms": 0.0}
-    checks = [(label, q, m, "bfloat16", count, False) for label, q, m, count in shapes]
+    checks = [(label, q, m, "bfloat16", count, "contiguous") for label, q, m, count in shapes]
     self_lo = [s for s in shapes if s[0].startswith("self@")][-1]  # the deepest level
     checks += [
-        (f"{self_lo[0]} f32", self_lo[1], self_lo[2], "float32", 0, False),
-        (f"{self_lo[0]} strided", self_lo[1], self_lo[2], "bfloat16", 0, True),
-        ("ragged 81x77", (1, 81, 2, 64), 77, "bfloat16", 0, False),
-        ("ragged 200x190 D512 f32", (1, 200, 1, 512), 190, "float32", 0, False),
+        (f"{self_lo[0]} f32", self_lo[1], self_lo[2], "float32", 0, "contiguous"),
+        (f"{self_lo[0]} strided", self_lo[1], self_lo[2], "bfloat16", 0, "fused"),
+        ("ragged 81x77", (1, 81, 2, 64), 77, "bfloat16", 0, "contiguous"),
+        ("ragged 200x190 D512 f32", (1, 200, 1, 512), 190, "float32", 0, "contiguous"),
     ]
-    checks += [(f"edge 200x{m} B*H=1", (1, 200, 1, 64), m, "bfloat16", 0, False)
+    checks += [(f"edge 200x{m} B*H=1", (1, 200, 1, 64), m, "bfloat16", 0, "contiguous")
                for m in EDGE_KEYS]
+    checks += [(f"edge D512 {n}x{m} B*H=2*2", (2, n, 2, 512), m, "bfloat16", 0, "contiguous")
+               for n in EDGE_ROWS_512 for m in EDGE_KEYS_512]
+    checks += [
+        ("D512 strided", (2, 150, 2, 512), 150, "bfloat16", 0, "fused"),
+        ("D512 rows 16 bytes off 128", (2, 100, 2, 512), 100, "bfloat16", 0, "offset"),
+        (f"vae@{VAE_1024_TOKENS} (1024-px tile)", (1, VAE_1024_TOKENS, 1, 512), VAE_1024_TOKENS,
+         "bfloat16", 0, "contiguous"),
+    ]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     tile_lines = []
     host_inputs = None
-    for label, q_shape, m, dtype, count, strided in checks:
+    for label, q_shape, m, dtype, count, layout in checks:
         tdtype = getattr(torch, dtype)
-        if strided:  # q, k, v as views into one fused [B, N, 3, H, D] buffer
+        if layout == "offset":  # rows 16 bytes into a pitch of D + 8 elements
+            b, n, h, d = q_shape
+            wide = torch.randn((3, b, n, h, d + 8), generator=gen, device="cuda").to(tdtype)
+            q, k, v = (t[..., 8:] for t in wide.unbind(0))
+            _require(q.data_ptr() % 128 == 16, "the offset view starts 16 bytes off 128")
+        elif layout == "fused":  # q, k, v as views into one fused [B, N, 3, H, D] buffer
             b, n, h, d = q_shape
             fused = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").to(tdtype)
             q, k, v = fused.unbind(2)
@@ -282,7 +309,7 @@ def main() -> int:
         ops_ms, bytes_ms = _bounds(q.shape, k.shape[1], dtype)
         bound_ms = max(ops_ms, bytes_ms)
         b, n, h, d = q.shape
-        plan = attn.plan(q, k, v)
+        plan = attn.plan(q, k, v, sms)
         per_sm = attn.blocks_per_sm(plan, q.dtype, d)
         ctas = plan.ctas(b, n, h)
         print(f"[kernel] {label} {dtype} q={tuple(q.shape)} M={k.shape[1]} launches/tile={count} "
@@ -290,12 +317,18 @@ def main() -> int:
               f"kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
               f"bound_ms={bound_ms:.5f} ({'operations' if ops_ms >= bytes_ms else 'bytes'}) "
               f"instance={plan.instance} keys/tile={plan.keys_per_tile} "
-              f"masked={plan.masked_share(m):.4f} rows/cta={plan.rows_per_cta} ctas={ctas} "
-              f"ctas/sm={per_sm} waves={ctas / (per_sm * sms):.3f}")
+              f"masked={plan.masked_share(m):.4f} rows/cta={plan.rows_per_cta} "
+              f"splits={plan.splits} ctas={ctas} ctas/sm={per_sm} "
+              f"waves={ctas / (per_sm * sms):.3f}")
         if plan.instance == "wgmma" and count:
-            tile_lines.append(_time_wgmma_tiles(torch, attn, label, q, k, v, plan))
+            plans = [attn.Plan("wgmma", keys, attn.WGMMA_ROWS) for keys in attn.WGMMA_KEY_TILES]
+            tile_lines.append(_time_plans(torch, attn, label, q, k, v, plans, plan))
             if host_inputs is None or q.numel() > host_inputs[0].numel():
                 host_inputs = (q, k, v)
+        if plan.instance == "wgmma512" and count:
+            plans = [attn.Plan("wgmma512", attn.WGMMA512_KEYS, attn.WGMMA_ROWS, splits)
+                     for splits in SPLITS_TIMED if splits <= plan.key_tiles(m)]
+            tile_lines.append(_time_plans(torch, attn, label, q, k, v, plans, plan))
         _require(ok, f"kernel disagrees with its plain version at {label} ({err:.3g})")
         for key, val in (("ms", kernel_ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
                          ("bound_ms", bound_ms), ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):

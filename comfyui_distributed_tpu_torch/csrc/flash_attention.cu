@@ -60,20 +60,39 @@
 //     the weight (M = 77); the split costs half again the tensor-core work.
 //   * The output is stored from registers, 4 bytes a thread per row pair.
 
-// flash_attention_fwd_mma_kernel, bf16, D = 512 (instance 1; the VAE's
-// mid-block): mma.sync m16n8k16 (bf16 in, f32 accumulate). A 16 x 512 f32
-// accumulator per warp would need 256 registers a thread, so the head dim
-// is cut into 4 slices of 128: the 8 warps of a block are 2 row groups x 4
-// slices. Each slice adds up Q K^T over its 128 dims; the four partial
-// scores meet in shared memory (16 KB) and are summed in slice order, so
-// the four warps of a row group hold the same scores, run the same softmax
-// and each multiply P (split in two bf16 as above) by its slice of V.
-// 32-key tiles copied one ahead by cp.async into two buffers, rows padded by
-// 16 bytes so that the fragment loads are free of bank conflicts; 179 KB of
-// dynamic shared memory.
-//
-// Both tensor-core kernels need 16-byte aligned rows (TMA and 16-byte
-// copies); other views take the kernel below.
+// flash_attention_fwd_wgmma512_kernel, bf16, D = 512 (instance 3; the
+// VAE's mid-block, 55.7 us of operations at vae@5184), with
+// flash_attention_fwd_merge_kernel: the same port of the TPU kernel,
+// warp-specialised like the D = 64 kernel, 384 threads, one block per SM.
+//   * A 64 x 512 f32 accumulator does not fit one warpgroup's registers,
+//     so a block is two consumer warpgroups of 64 query rows each owning
+//     256 of the 512 output dims (64 x 256 f32: 128 registers a thread),
+//     and one producer warpgroup; setmaxnreg moves the registers from the
+//     producer (24) to the consumers (240).
+//   * Q K^T is computed once per block and key tile: each consumer adds
+//     it up over its own 256 dims (16 wgmma m64n32k16 from shared
+//     memory), and the two halves meet in shared memory behind one named
+//     barrier of the 256 consumer threads. O += P V by wgmma m64n256k16,
+//     P from registers (split in two bf16 as above), V from shared memory
+//     as four 64-column swizzled tiles that the descriptor's leading byte
+//     offset steps over.
+//   * The Q tile (64 KB) stays resident; 32-key K and V tiles (32 KB each)
+//     come through rings of two stages fed by one producer thread, each
+//     tile as eight TMA boxes of 64 columns. 225 KB of shared memory.
+//   * The card is filled by splitting the keys: 81 blocks of 64 rows at
+//     vae@5184 would use 61 % of the 132 SMs for one long wave. The router
+//     splits each row block's key tiles over S blocks (ops/attention.py::
+//     plan); each split writes its unnormalised f32 output, row max and
+//     row sum to a scratch buffer the caller allocates, and the merge
+//     kernel adds them in split order, o = sum 2^(m_s - m) o_s /
+//     sum 2^(m_s - m) l_s, and writes bf16 once. With S = 1 the main
+//     kernel normalises and stores itself.
+//   * Ragged N and M, any B and H, strided views: as in the D = 64 kernel
+//     (TMA zero-fills rows past N or M, masked keys score -inf, rows past
+//     N are not stored).
+
+// Both tensor-core kernels need 16-byte aligned rows (TMA); other views
+// take the kernel below.
 //
 // flash_attention_fwd_kernel, f32 (either D) and unaligned bf16 (instance
 // 0): dot products with f32 FMAs from shared memory. Q, K and V tiles are
@@ -102,17 +121,19 @@ namespace {
 
 // Instance codes, shared with ops/attention.py (INSTANCES).
 constexpr int kInstanceFma = 0;
-constexpr int kInstanceMma = 1;
 constexpr int kInstanceWgmma = 2;
+constexpr int kInstanceWgmma512 = 3;
 
 // Everything one call needs. `strides` holds the batch, token and head
-// strides (in elements) of q, k, v and o, in that order.
+// strides (in elements) of q, k, v and o, in that order; `scratch` and
+// `splits` are read by the D = 512 instance alone.
 struct Call {
   const void* q;
   const void* k;
   const void* v;
   void* o;
-  int device, batch, n, m, heads;
+  void* scratch;
+  int device, batch, n, m, heads, splits;
   const long long* strides;
   float scale;
   cudaStream_t stream;
@@ -320,38 +341,7 @@ int run_fma(const Call& c, int* occupancy) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- mma.sync kernel: bf16, D = 512 ----------------------------------------
-//
-// Fragment layouts of mma.sync m16n8k16 (PTX ISA), for lane = 4 * g + t:
-//   A (16 x 16, row-major), 4 registers of 2 bf16: rows g | g + 8 | g | g + 8,
-//     columns 2t, 2t + 1 | 2t, 2t + 1 | 2t + 8, 2t + 9 | 2t + 8, 2t + 9.
-//   B (16 x 8, k x n), 2 registers: k = 2t, 2t + 1 | 2t + 8, 2t + 9; n = g.
-//   C (16 x 8 f32), 4 floats: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
-// The lower half of a register holds the element with the lower index.
-
-// A block is kRowGroups x kSlices warps: each row group owns 16 query rows,
-// each slice D / kSlices of the head dim (of Q K^T's sum and of the output).
-template <int D>
-struct MmaShape;
-template <>
-struct MmaShape<512> {
-  static constexpr int kRowGroups = 2;
-  static constexpr int kSlices = 4;
-  static constexpr int kKeys = 32;
-};
-
-// Q tile, two K and two V tiles (bf16, rows padded by 8 elements), and the
-// slices' partial scores where there is more than one slice.
-template <int D>
-constexpr size_t mma_shared_bytes() {
-  using S = MmaShape<D>;
-  return static_cast<size_t>(16 * S::kRowGroups + 4 * S::kKeys) * (D + 8) * 2 +
-         (S::kSlices > 1 ? static_cast<size_t>(S::kRowGroups * S::kSlices) * 16 * S::kKeys * 4 : 0);
-}
-
-__device__ __forceinline__ uint32_t shared_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// ---- warp-specialised kernel: bf16, D = 64 ----------------------------------
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -366,267 +356,6 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& head, u
   head = *reinterpret_cast<const uint32_t*>(&h);
   tail = pack_bf16(x0 - hf.x, x1 - hf.y);
 }
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 8 bf16 matrices, transposed: lanes 8j .. 8j + 7 give the row
-// addresses of matrix j, and register j of lane 4g + t receives its elements
-// (2t, g) and (2t + 1, g).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
-}
-
-// Starts the copy of rows [row0, row0 + ROWS) of one head into a padded bf16
-// tile, 16 bytes per cp.async; rows at or past `limit` are filled with zeros
-// (a source size of 0, reading nothing).
-template <int ROWS, int D, int THREADS>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                long long row_stride, int row0, int limit) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += THREADS) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    const bool valid = row0 + r < limit;
-    const __nv_bfloat16* from =
-        valid ? src + static_cast<long long>(row0 + r) * row_stride + 8 * c : src;
-    const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst + r * (D + 8) + 8 * c));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(to), "l"(from),
-                 "r"(valid ? 16 : 0));
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(32 * MmaShape<D>::kRowGroups * MmaShape<D>::kSlices)
-    flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                                   const __nv_bfloat16* __restrict__ k,
-                                   const __nv_bfloat16* __restrict__ v,
-                                   __nv_bfloat16* __restrict__ o, int n, int m, int heads,
-                                   long long q_sb, long long q_sn, long long q_sh, long long k_sb,
-                                   long long k_sm, long long k_sh, long long v_sb, long long v_sm,
-                                   long long v_sh, long long o_sb, long long o_sn, long long o_sh,
-                                   float scale_log2) {
-  constexpr int SL = MmaShape<D>::kSlices;
-  constexpr int KEYS = MmaShape<D>::kKeys;
-  constexpr int ROWS = 16 * MmaShape<D>::kRowGroups;
-  constexpr int THREADS = 32 * MmaShape<D>::kRowGroups * SL;
-  constexpr int LD = D + 8;           // padded shared row in bf16: rows 4 banks apart
-  constexpr int DS = D / SL;          // this warp's slice of the head dim
-  constexpr int KS = DS / 16;         // k-steps of Q K^T over the slice
-  constexpr int NS = KEYS / 8;        // score n-tiles per key tile
-  constexpr int PS = KEYS / 16;       // k-steps of P V over a key tile
-  constexpr int NO = DS / 8;          // output n-tiles of the slice
-  extern __shared__ float4 mma_smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(mma_smem);
-  __nv_bfloat16* ks = qs + ROWS * LD;   // two buffers
-  __nv_bfloat16* vs = ks + 2 * KEYS * LD;
-  float* partial = reinterpret_cast<float*>(vs + 2 * KEYS * LD);
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int group = warp / SL;
-  const int d0 = (warp % SL) * DS;
-  const int b = blockIdx.y / heads;
-  const int h = blockIdx.y % heads;
-  const int q0 = blockIdx.x * ROWS;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-  const int tiles = (m + KEYS - 1) / KEYS;
-
-  load_tile_async<ROWS, D, THREADS>(qs, q + b * q_sb + h * q_sh, q_sn, q0, n);
-  load_tile_async<KEYS, D, THREADS>(ks, kb, k_sm, 0, m);
-  load_tile_async<KEYS, D, THREADS>(vs, vb, v_sm, 0, m);
-  cp_async_commit();
-
-  // rows g and g + 8 of this warp's 16; scores are kept in log2 units
-  uint32_t qa[KS][4];
-  float acc[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float row_max[2] = {-INFINITY, -INFINITY};
-  float row_sum[2] = {0.f, 0.f};  // this lane's columns only, summed at the end
-
-  for (int i = 0; i < tiles; ++i) {
-    const int k0 = i * KEYS;
-    // the next tile's copy runs while this one is used
-    if (i + 1 < tiles) {
-      const int next = (i + 1) & 1;
-      load_tile_async<KEYS, D, THREADS>(ks + next * KEYS * LD, kb, k_sm, k0 + KEYS, m);
-      load_tile_async<KEYS, D, THREADS>(vs + next * KEYS * LD, vb, v_sm, k0 + KEYS, m);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (i == 0) {
-      const __nv_bfloat16* qw = qs + (16 * group + g) * LD + d0 + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        qa[kk][0] = shared_u32(qw + 16 * kk);
-        qa[kk][1] = shared_u32(qw + 8 * LD + 16 * kk);
-        qa[kk][2] = shared_u32(qw + 16 * kk + 8);
-        qa[kk][3] = shared_u32(qw + 8 * LD + 16 * kk + 8);
-      }
-    }
-    const __nv_bfloat16* kt = ks + (i & 1) * KEYS * LD;
-    const __nv_bfloat16* vt = vs + (i & 1) * KEYS * LD;
-
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* krow = kt + (8 * j + g) * LD + d0 + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        mma_bf16(s[j], qa[kk], shared_u32(krow + 16 * kk), shared_u32(krow + 16 * kk + 8));
-    }
-    if constexpr (SL > 1) {
-      // each slice summed Q K^T over its part of D: add the parts, in slice
-      // order, so every warp of a row group holds the same scores
-      float* mine = partial + (warp * NS * 4) * 32 + lane;
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mine[(4 * j + e) * 32] = s[j][e];
-      __syncthreads();
-      const float* rows = partial + (group * SL * NS * 4) * 32 + lane;
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = 0.f;
-#pragma unroll
-          for (int sl = 0; sl < SL; ++sl) x += rows[(sl * NS * 4 + 4 * j + e) * 32];
-          s[j][e] = x;
-        }
-    }
-
-    float tile_max[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = (k0 + 8 * j + 2 * t + (e & 1) < m) ? s[j][e] * scale_log2 : -INFINITY;
-        s[j][e] = x;
-        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], x);
-      }
-    }
-    float correction[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      // the four lanes of a row hold its columns; the tile's first column is
-      // always valid, so the new max is finite and exp2 of -inf gives 0
-      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
-      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
-      const float new_max = fmaxf(row_max[r], tile_max[r]);
-      correction[r] = exp2f(row_max[r] - new_max);
-      row_max[r] = new_max;
-      row_sum[r] *= correction[r];
-    }
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(s[j][e] - row_max[e >> 1]);
-        row_sum[e >> 1] += s[j][e];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      acc[j][0] *= correction[0];
-      acc[j][1] *= correction[0];
-      acc[j][2] *= correction[1];
-      acc[j][3] *= correction[1];
-    }
-
-    // acc += P V: score n-tiles 2kk and 2kk + 1 are the A fragment of keys
-    // 16kk .. 16kk + 15, as P's head and tail in bf16; ldmatrix.trans reads
-    // V's B fragments for two output n-tiles at once (matrix j: keys
-    // + 8 (j & 1), dims + 8 (j >> 1)).
-#pragma unroll
-    for (int kk = 0; kk < PS; ++kk) {
-      uint32_t head[4], tail[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], head[0], tail[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], head[1], tail[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], head[2], tail[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], head[3], tail[3]);
-      const __nv_bfloat16* vrow =
-          vt + (16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7)) * LD + d0 + 8 * (lane >> 4);
-#pragma unroll
-      for (int jp = 0; jp < NO / 2; ++jp) {
-        uint32_t vb4[4];
-        ldmatrix_x4_trans(vb4, vrow + 16 * jp);
-        mma_bf16(acc[2 * jp], tail, vb4[0], vb4[1]);
-        mma_bf16(acc[2 * jp], head, vb4[0], vb4[1]);
-        mma_bf16(acc[2 * jp + 1], tail, vb4[2], vb4[3]);
-        mma_bf16(acc[2 * jp + 1], head, vb4[2], vb4[3]);
-      }
-    }
-    __syncthreads();  // this tile's buffers (and the partial scores) are free
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 1);
-    row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + 16 * group + g + 8 * r;
-    if (row >= n) continue;
-    __nv_bfloat16* orow =
-        o + b * o_sb + static_cast<long long>(row) * o_sn + h * o_sh + d0 + 2 * t;
-    const float inv = 1.f / row_sum[r];
-#pragma unroll
-    for (int j = 0; j < NO; ++j)
-      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-          pack_bf16(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
-  }
-}
-
-template <int D>
-int run_mma(const Call& c, int* occupancy) {
-  using S = MmaShape<D>;
-  constexpr size_t smem = mma_shared_bytes<D>();
-  constexpr int threads = 32 * S::kRowGroups * S::kSlices;
-  static std::atomic<unsigned long long> configured{0};
-  auto kernel = flash_attention_fwd_mma_kernel<D>;
-  cudaError_t err = allow_shared_once(configured, kernel, smem, c.device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (occupancy)
-    return static_cast<int>(
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, threads, smem));
-  const long long* st = c.strides;
-  constexpr int rows = 16 * S::kRowGroups;
-  const dim3 grid((c.n + rows - 1) / rows, c.batch * c.heads);
-  kernel<<<grid, threads, smem, c.stream>>>(
-      static_cast<const __nv_bfloat16*>(c.q), static_cast<const __nv_bfloat16*>(c.k),
-      static_cast<const __nv_bfloat16*>(c.v), static_cast<__nv_bfloat16*>(c.o), c.n, c.m,
-      c.heads, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-      st[11], c.scale * 1.4426950408889634f);  // exp(x) = exp2(x log2 e)
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---- warp-specialised kernel: bf16, D = 64 ----------------------------------
 
 constexpr int kWgD = 64;               // head dim: one 128-byte swizzled row
 constexpr int kWgRowBytes = 2 * kWgD;
@@ -757,9 +486,10 @@ __device__ __forceinline__ void issue_pv(float (&acc)[32], uint32_t (&head)[KEYS
 }
 
 // The accumulator's rows g and g + 8 times their softmax corrections.
-__device__ __forceinline__ void rescale_rows(float (&acc)[32], const float (&correction)[2]) {
+template <int N>
+__device__ __forceinline__ void rescale_rows(float (&acc)[N], const float (&correction)[2]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     acc[4 * j + 0] *= correction[0];
     acc[4 * j + 1] *= correction[0];
     acc[4 * j + 2] *= correction[1];
@@ -903,6 +633,322 @@ __global__ void __launch_bounds__(kWgThreads, kWgBlocksPerSm)
   }
 }
 
+// ---- warp-specialised kernel: bf16, D = 512 ---------------------------------
+
+constexpr int kD512 = 512;
+constexpr int kD512Half = kD512 / 2;        // output dims of one consumer warpgroup
+constexpr int kD512Chunks = kD512 / kWgD;   // 64-column swizzled tiles per row of Q, K or V
+constexpr int kD512Rows = 64;              // query rows per block
+constexpr int kD512Threads = 384;          // two consumer warpgroups, then the producer's
+constexpr int kD512Stages = 2;             // depth of the K ring and of the V ring
+// One block per SM: 168 registers a thread at launch; the producer gives
+// all but 24 back and each consumer takes 240.
+constexpr int kD512LaunchRegs = 168;
+constexpr int kD512ConsumerRegs = 240;
+static_assert((2 * kD512ConsumerRegs + kProducerRegs) * 128 <= kD512LaunchRegs * kD512Threads &&
+                  kD512LaunchRegs * kD512Threads <= 65536,
+              "registers handed to the consumers must be ones the producer gave back");
+
+template <int KEYS>
+struct D512Shape {
+  static constexpr int kChunkBytes = KEYS * kWgRowBytes;       // one [KEYS][64] column tile
+  static constexpr int kTileBytes = kD512Chunks * kChunkBytes;   // one K or V tile
+  static constexpr int kQBytes = kD512Rows * kD512 * 2;
+  // the partial scores, by tile parity and consumer: KEYS / 2 floats a thread
+  static constexpr int kExchangeBytes = 2 * 2 * 128 * (KEYS / 2) * 4;
+  // 1024 bytes of slack to align the tiles to the swizzle atom
+  static constexpr size_t kSmem = 1024 + kQBytes + 2 * kD512Stages * kTileBytes + kExchangeBytes;
+  static_assert(KEYS % 16 == 0 && kChunkBytes % 1024 == 0, "P V's k-steps, swizzle atoms");
+  static_assert(kSmem <= 232448 - 128, "227 KB of shared memory a block, barriers included");
+};
+
+// S = Q K^T over one consumer's 256 dims for one key tile: 16 k-steps of
+// 16, k-step kk in column tile kk / 4 at 32 bytes x (kk % 4) (2 descriptor
+// units each) along its swizzled rows.
+template <int KEYS>
+__device__ __forceinline__ void issue_scores_half(float (&sc)[KEYS / 2], uint64_t q_desc,
+                                                  uint64_t k_desc) {
+  constexpr int kQChunk = kD512Rows * kWgRowBytes / 16;   // column tile stride, in descriptor units
+  constexpr int kKChunk = D512Shape<KEYS>::kChunkBytes / 16;
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD512Half / 16; ++kk)
+    hopper::WgmmaSS<KEYS>::run(sc, q_desc + (kk / 4) * kQChunk + 2 * (kk % 4),
+                               k_desc + (kk / 4) * kKChunk + 2 * (kk % 4), kk);
+  hopper::wgmma_commit();
+}
+
+// O += P V over one consumer's 256 dims: one m64n256k16 per k-step and
+// half of P, its V operand four column tiles wide (the descriptor's
+// leading offset steps between them), k-step kk 16 rows of 128 bytes on.
+template <int KEYS>
+__device__ __forceinline__ void issue_pv_half(float (&acc)[128], uint32_t (&head)[KEYS / 16][4],
+                                              uint32_t (&tail)[KEYS / 16][4], uint64_t v_desc) {
+  hopper::fence_registers(acc);
+  hopper::fence_registers(head);
+  hopper::fence_registers(tail);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KEYS / 16; ++kk) {
+    hopper::wgmma_m64n256k16_rs(acc, tail[kk], v_desc + 128 * kk);
+    hopper::wgmma_m64n256k16_rs(acc, head[kk], v_desc + 128 * kk);
+  }
+  hopper::wgmma_commit();
+}
+
+// rescale_rows for the 64 x 256 accumulator, skipped by a warp none of
+// whose rows' max grew with the last tile (every correction is then
+// exactly 2^0 = 1): after the first few tiles of a long row most tiles
+// leave the max where it was, and the 128 multiplies a thread are the
+// largest share of the loop's instructions.
+__device__ __forceinline__ void rescale_rows_if_needed(float (&acc)[128],
+                                                       const float (&correction)[2]) {
+  if (__any_sync(0xffffffffu, correction[0] != 1.f || correction[1] != 1.f))
+    rescale_rows(acc, correction);
+}
+
+// Both consumers add up the two halves of S: each writes its partial
+// scores to its own slot of the exchange buffer (one per tile parity, so
+// a slot is rewritten only after both have passed the next tile's
+// barrier), waits at named barrier 1 for the 256 consumer threads (the
+// producer warpgroup never joins it), and adds the other's. Thread i of
+// each consumer holds the same rows and columns, and a + b = b + a, so
+// both end with the same scores and run the same softmax.
+template <int KEYS>
+__device__ __forceinline__ void exchange_scores(float (&sc)[KEYS / 2], float4* xs, int parity,
+                                                int consumer, int tid) {
+  constexpr int kVec = KEYS / 8;  // float4s a thread
+  float4* mine = xs + (2 * parity + consumer) * kVec * 128 + tid;
+  const float4* theirs = xs + (2 * parity + (consumer ^ 1)) * kVec * 128 + tid;
+#pragma unroll
+  for (int i = 0; i < kVec; ++i)
+    mine[i * 128] = make_float4(sc[4 * i], sc[4 * i + 1], sc[4 * i + 2], sc[4 * i + 3]);
+  hopper::named_barrier_sync<1, 256>();
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    const float4 x = theirs[i * 128];
+    sc[4 * i] += x.x;
+    sc[4 * i + 1] += x.y;
+    sc[4 * i + 2] += x.z;
+    sc[4 * i + 3] += x.w;
+  }
+}
+
+// The block of query rows blockIdx.x, key split blockIdx.y of gridDim.y,
+// batch-head blockIdx.z. With one split the output is normalised and
+// stored in bf16; with more, the unnormalised f32 output and each row's
+// max (log2 units) and sum go to `scratch` for the merge kernel:
+// [splits][B*H][n][512] partial outputs, then [splits][B*H][n][2] stats.
+template <int KEYS>
+__global__ void __launch_bounds__(kD512Threads, 1)
+    flash_attention_fwd_wgmma512_kernel(const __grid_constant__ CUtensorMap q_map,
+                                        const __grid_constant__ CUtensorMap k_map,
+                                        const __grid_constant__ CUtensorMap v_map,
+                                        __nv_bfloat16* __restrict__ o, float* __restrict__ scratch,
+                                        int n, int m, int heads, long long o_sb, long long o_sn,
+                                        long long o_sh, float scale_log2) {
+  using S = D512Shape<KEYS>;
+  constexpr int TILE = S::kTileBytes;
+  constexpr int CHUNK = S::kChunkBytes;
+  extern __shared__ uint8_t wg_smem[];
+  __shared__ uint64_t k_full[kD512Stages], k_empty[kD512Stages];
+  __shared__ uint64_t v_full[kD512Stages], v_empty[kD512Stages], q_full;
+  uint8_t* qs = wg_smem + ((1024 - (hopper::smem_addr(wg_smem) & 1023)) & 1023);
+  uint8_t* ks = qs + S::kQBytes;             // the K ring
+  uint8_t* vs = ks + kD512Stages * TILE;       // the V ring
+  float4* xs = reinterpret_cast<float4*>(vs + kD512Stages * TILE);
+
+  const int splits = gridDim.y;
+  const int split = blockIdx.y;
+  const int bh = blockIdx.z;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int q0 = blockIdx.x * kD512Rows;
+  // this split's key tiles [first, first + tiles): the caller keeps
+  // splits <= all tiles, so none is empty
+  const int all_tiles = (m + KEYS - 1) / KEYS;
+  const int first = static_cast<int>(static_cast<long long>(split) * all_tiles / splits);
+  const int tiles = static_cast<int>(static_cast<long long>(split + 1) * all_tiles / splits) - first;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kD512Stages; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&k_empty[s], 8);  // one arrival per consumer warp
+      hopper::mbar_init(&v_empty[s], 8);
+    }
+    hopper::mbar_init(&q_full, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // producer: one thread issues every copy, coordinates (d, h, row, b),
+    // each tile as eight boxes of 64 columns, one [rows][64] tile each
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      hopper::mbar_arrive_expect_tx(&q_full, S::kQBytes);
+      for (int c = 0; c < kD512Chunks; ++c)
+        hopper::tma_load_4d(qs + c * kD512Rows * kWgRowBytes, &q_map, &q_full, kWgD * c, h, q0, b);
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % kD512Stages;
+        const uint32_t free_parity = ((j / kD512Stages) & 1) ^ 1;
+        const int row = (first + j) * KEYS;
+        hopper::mbar_wait(&k_empty[s], free_parity);
+        hopper::mbar_arrive_expect_tx(&k_full[s], TILE);
+        for (int c = 0; c < kD512Chunks; ++c)
+          hopper::tma_load_4d(ks + s * TILE + c * CHUNK, &k_map, &k_full[s], kWgD * c, h, row, b);
+        hopper::mbar_wait(&v_empty[s], free_parity);
+        hopper::mbar_arrive_expect_tx(&v_full[s], TILE);
+        for (int c = 0; c < kD512Chunks; ++c)
+          hopper::tma_load_4d(vs + s * TILE + c * CHUNK, &v_map, &v_full[s], kWgD * c, h, row, b);
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<kD512ConsumerRegs>();
+    // consumer `consumer` owns dims [256 consumer, 256 consumer + 256): of
+    // Q K^T's sum and of the output. Within it, the layout of the D = 64
+    // kernel: rows g and g + 8 of this warp's 16, columns 2t, 2t + 1 of
+    // every 8. The consumer index comes through a shuffle so that the
+    // compiler knows it is warp-uniform and keeps the descriptors, which
+    // derive from it, in uniform registers.
+    const int consumer = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int half = consumer * (kD512Half / kWgD);  // this consumer's first column tile
+    const uint64_t q_desc = hopper::smem_desc(qs + half * kD512Rows * kWgRowBytes);
+    // stage s of the K and V rings is TILE bytes (TILE / 16 descriptor
+    // units) past stage 0
+    const uint64_t k_desc = hopper::smem_desc(ks + half * CHUNK);
+    const uint64_t v_desc = hopper::smem_desc(vs + half * CHUNK, CHUNK);
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    float row_max[2] = {-INFINITY, -INFINITY};
+    float row_sum[2] = {0.f, 0.f};  // this lane's columns only, summed at the end
+    float correction[2];
+    float sc[KEYS / 2];
+    uint32_t head[KEYS / 16][4], tail[KEYS / 16][4];  // P of the tile in flight
+
+    // prologue: the first tile's scores and P
+    hopper::mbar_wait(&q_full, 0);
+    hopper::mbar_wait(&k_full[0], 0);
+    issue_scores_half<KEYS>(sc, q_desc, k_desc);
+    hopper::wgmma_wait<0>();
+    hopper::fence_registers(sc);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&k_empty[0]);
+    exchange_scores<KEYS>(sc, xs, 0, consumer, tid);
+    softmax_tile<KEYS>(sc, row_max, row_sum, correction, first * KEYS, m, t, scale_log2);
+    split_p<KEYS>(sc, head, tail);
+
+    // The loop of the D = 64 kernel: Q K^T of tile i + 1 overlaps the
+    // rescale, P V of tile i the exchange and softmax of tile i + 1; the
+    // last tile is peeled off so ptxas keeps the wgmma pipeline. (P is
+    // split after P V's wait: writing a register P V reads, even a copy
+    // after the wait, makes ptxas serialise the products, note C7513.)
+    for (int i = 0; i + 1 < tiles; ++i) {
+      const int s = i % kD512Stages;
+      const int s1 = (i + 1) % kD512Stages;
+      hopper::mbar_wait(&k_full[s1], ((i + 1) / kD512Stages) & 1);
+      issue_scores_half<KEYS>(sc, q_desc, k_desc + s1 * (TILE / 16));
+      rescale_rows_if_needed(acc, correction);
+      hopper::mbar_wait(&v_full[s], (i / kD512Stages) & 1);
+      issue_pv_half<KEYS>(acc, head, tail, v_desc + s * (TILE / 16));
+      hopper::wgmma_wait<1>();  // the scores of tile i + 1 are in; P V runs on
+      hopper::fence_registers(sc);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&k_empty[s1]);
+      exchange_scores<KEYS>(sc, xs, (i + 1) & 1, consumer, tid);
+      softmax_tile<KEYS>(sc, row_max, row_sum, correction, (first + i + 1) * KEYS, m, t,
+                         scale_log2);
+      hopper::wgmma_wait<0>();
+      hopper::fence_registers(acc);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&v_empty[s]);
+      split_p<KEYS>(sc, head, tail);
+    }
+    {
+      const int last = tiles - 1;
+      rescale_rows_if_needed(acc, correction);
+      hopper::mbar_wait(&v_full[last % kD512Stages], (last / kD512Stages) & 1);
+      issue_pv_half<KEYS>(acc, head, tail, v_desc + (last % kD512Stages) * (TILE / 16));
+      hopper::wgmma_wait<0>();
+      hopper::fence_registers(acc);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 1);
+      row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 2);
+    }
+    const long long rows = static_cast<long long>(gridDim.z) * n;  // rows of one split
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + 16 * warp + g + 8 * r;
+      if (row >= n) continue;
+      const int col = consumer * kD512Half + 2 * t;
+      if (splits == 1) {
+        __nv_bfloat16* orow = o + b * o_sb + static_cast<long long>(row) * o_sn + h * o_sh + col;
+        const float inv = 1.f / row_sum[r];
+#pragma unroll
+        for (int j = 0; j < kD512Half / 8; ++j)
+          *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+              pack_bf16(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+      } else {
+        const long long slot = split * rows + static_cast<long long>(bh) * n + row;
+        float* part = scratch + slot * kD512 + col;
+#pragma unroll
+        for (int j = 0; j < kD512Half / 8; ++j)
+          *reinterpret_cast<float2*>(part + 8 * j) =
+              make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+        if (consumer == 0 && t == 0)
+          reinterpret_cast<float2*>(scratch + splits * rows * kD512)[slot] =
+              make_float2(row_max[r], row_sum[r]);
+      }
+    }
+  }
+}
+
+// Merges the key splits of the kernel above: for query row blockIdx.x of
+// batch-head blockIdx.y, o = sum_s 2^(m_s - m) o_s / sum_s 2^(m_s - m) l_s
+// with m = max_s m_s, added in split order; thread i owns dims 4i .. 4i + 3.
+// Every split held at least one key, so every m_s is finite.
+__global__ void __launch_bounds__(kD512 / 4)
+    flash_attention_fwd_merge_kernel(const float* __restrict__ scratch,
+                                     __nv_bfloat16* __restrict__ o, int n, int heads, int splits,
+                                     long long o_sb, long long o_sn, long long o_sh) {
+  const int row = blockIdx.x;
+  const int bh = blockIdx.y;
+  const long long rows = static_cast<long long>(gridDim.y) * n;
+  const long long slot = static_cast<long long>(bh) * n + row;
+  const float2* stats = reinterpret_cast<const float2*>(scratch + splits * rows * kD512);
+  float mx = -INFINITY;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, stats[s * rows + slot].x);
+  float sum = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < splits; ++s) {
+    const float2 st = stats[s * rows + slot];
+    const float w = exp2f(st.x - mx);
+    sum += w * st.y;
+    const float4 part =
+        reinterpret_cast<const float4*>(scratch + (s * rows + slot) * kD512)[threadIdx.x];
+    acc.x += w * part.x;
+    acc.y += w * part.y;
+    acc.z += w * part.z;
+    acc.w += w * part.w;
+  }
+  const float inv = 1.f / sum;
+  uint32_t* out = reinterpret_cast<uint32_t*>(o + (bh / heads) * o_sb +
+                                              static_cast<long long>(row) * o_sn +
+                                              (bh % heads) * o_sh + 4 * threadIdx.x);
+  out[0] = pack_bf16(acc.x * inv, acc.y * inv);
+  out[1] = pack_bf16(acc.z * inv, acc.w * inv);
+}
+
 // cuTensorMapEncodeTiled, reached through the runtime so that the library
 // needs no link against libcuda.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -925,15 +971,16 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D map over one bf16 [B, rows, H, 64] view, dimensions ordered (d, h,
-// row, b) from the innermost: for the contiguous and fused-qkv layouts the
-// strides then grow outwards. A box is `box_rows` rows of one head, 128
-// bytes each, so shared memory receives a row-major [box_rows][64] tile.
-bool encode_map(CUtensorMap* map, const void* ptr, int batch, int rows, int heads,
+// A 4-D map over one bf16 [B, rows, H, head_dim] view, dimensions ordered
+// (d, h, row, b) from the innermost: for the contiguous and fused-qkv
+// layouts the strides then grow outwards. A box is 64 columns of
+// `box_rows` rows of one head, 128 bytes a row, so shared memory receives
+// a row-major [box_rows][64] tile.
+bool encode_map(CUtensorMap* map, const void* ptr, int batch, int rows, int heads, int head_dim,
                 long long sb, long long sn, long long sh, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
-  const cuuint64_t dims[4] = {kWgD, static_cast<cuuint64_t>(heads),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(sn) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
@@ -957,9 +1004,9 @@ int run_wgmma(const Call& c, int* occupancy) {
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, kWgThreads, smem));
   const long long* st = c.strides;
   CUtensorMap q_map, k_map, v_map;
-  if (!encode_map(&q_map, c.q, c.batch, c.n, c.heads, st[0], st[1], st[2], kWgRows) ||
-      !encode_map(&k_map, c.k, c.batch, c.m, c.heads, st[3], st[4], st[5], KEYS) ||
-      !encode_map(&v_map, c.v, c.batch, c.m, c.heads, st[6], st[7], st[8], KEYS))
+  if (!encode_map(&q_map, c.q, c.batch, c.n, c.heads, kWgD, st[0], st[1], st[2], kWgRows) ||
+      !encode_map(&k_map, c.k, c.batch, c.m, c.heads, kWgD, st[3], st[4], st[5], KEYS) ||
+      !encode_map(&v_map, c.v, c.batch, c.m, c.heads, kWgD, st[6], st[7], st[8], KEYS))
     return -2;
   const dim3 grid((c.n + kWgRows - 1) / kWgRows, c.batch * c.heads);
   kernel<<<grid, kWgThreads, smem, c.stream>>>(q_map, k_map, v_map,
@@ -969,9 +1016,43 @@ int run_wgmma(const Call& c, int* occupancy) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tensor-core kernels read q, k and v in 16-byte pieces (TMA boxes or
-// cp.async) and write o in 4-byte pieces: every row they touch has to start
-// on such a boundary.
+// The D = 512 kernel over `c.splits` key splits, then, for more than one,
+// the merge; -1 for a split count that would leave a split without keys
+// or a missing scratch buffer.
+template <int KEYS>
+int run_wgmma512(const Call& c, int* occupancy) {
+  constexpr size_t smem = D512Shape<KEYS>::kSmem;
+  static std::atomic<unsigned long long> configured{0};
+  auto kernel = flash_attention_fwd_wgmma512_kernel<KEYS>;
+  cudaError_t err = allow_shared_once(configured, kernel, smem, c.device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (occupancy)
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, kD512Threads, smem));
+  const int tiles = (c.m + KEYS - 1) / KEYS;
+  if (c.splits < 1 || c.splits > tiles || c.splits > 65535 || (c.splits > 1 && !c.scratch))
+    return -1;
+  const long long* st = c.strides;
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_map(&q_map, c.q, c.batch, c.n, c.heads, kD512, st[0], st[1], st[2], kD512Rows) ||
+      !encode_map(&k_map, c.k, c.batch, c.m, c.heads, kD512, st[3], st[4], st[5], KEYS) ||
+      !encode_map(&v_map, c.v, c.batch, c.m, c.heads, kD512, st[6], st[7], st[8], KEYS))
+    return -2;
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(c.o);
+  float* scratch = static_cast<float*>(c.scratch);
+  const dim3 grid((c.n + kD512Rows - 1) / kD512Rows, c.splits, c.batch * c.heads);
+  kernel<<<grid, kD512Threads, smem, c.stream>>>(q_map, k_map, v_map, o, scratch, c.n, c.m, c.heads,
+                                               st[9], st[10], st[11],
+                                               c.scale * 1.4426950408889634f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || c.splits == 1) return static_cast<int>(err);
+  flash_attention_fwd_merge_kernel<<<dim3(c.n, c.batch * c.heads), kD512 / 4, 0, c.stream>>>(
+      scratch, o, c.n, c.heads, c.splits, st[9], st[10], st[11]);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core kernels read q, k and v in 16-byte TMA boxes and write o
+// in 4-byte pieces: every row they touch has to start on such a boundary.
 bool tensor_core_aligned(const Call& c) {
   const uintptr_t in = reinterpret_cast<uintptr_t>(c.q) | reinterpret_cast<uintptr_t>(c.k) |
                        reinterpret_cast<uintptr_t>(c.v);
@@ -985,7 +1066,8 @@ bool tensor_core_aligned(const Call& c) {
 
 // Launches (occupancy null) or sizes (occupancy set) one instance; -1 when
 // the instance, dtype, head dim, key tile and rows per block name nothing
-// compiled here.
+// compiled here (or, for the D = 512 instance, the split count is out of
+// range).
 int dispatch(int instance, int dtype, int head_dim, int keys, int rows, const Call& c,
              int* occupancy) {
   if (instance == kInstanceFma) {
@@ -999,9 +1081,8 @@ int dispatch(int instance, int dtype, int head_dim, int keys, int rows, const Ca
   }
   if (dtype != 1) return -1;
   if (!occupancy && !tensor_core_aligned(c)) return -3;
-  if (instance == kInstanceMma && head_dim == 512 && keys == MmaShape<512>::kKeys &&
-      rows == 16 * MmaShape<512>::kRowGroups)
-    return run_mma<512>(c, occupancy);
+  if (instance == kInstanceWgmma512 && head_dim == kD512 && rows == kD512Rows && keys == 32)
+    return run_wgmma512<32>(c, occupancy);
   if (instance != kInstanceWgmma || head_dim != kWgD || rows != kWgRows) return -1;
   if (keys == 80) return run_wgmma<80>(c, occupancy);
   if (keys == 112) return run_wgmma<112>(c, occupancy);
@@ -1021,19 +1102,22 @@ cudaError_t use_device(int device) {
 // q: [B, N, H, D], k and v: [B, M, H, D], o: [B, N, H, D], all with a
 // contiguous last dim; `strides` holds the batch, token and head strides (in
 // elements) of q, k, v and o, in that order. dtype 0 = float32, 1 = bfloat16.
-// `instance`, `keys_per_tile` and `rows_per_block` are the caller's plan.
+// `instance`, `keys_per_tile`, `rows_per_block` and `splits` are the
+// caller's plan; with more than one split, `scratch` holds
+// splits * B * H * N * (D + 2) floats for the D = 512 instance's partial
+// outputs and row statistics (the kernel allocates nothing).
 // Returns 0, a cudaError_t from the launch, -1 for a plan not compiled here,
 // -2 when a TMA tensor map cannot be encoded, or -3 for a view the planned
 // tensor-core instance cannot read. Launches on `stream` and does not
 // synchronise.
 extern "C" int cdt_flash_attention_fwd(int instance, const void* q, const void* k, const void* v,
-                                       void* o, int dtype, int head_dim, int device, int batch,
-                                       int n, int m, int heads, const long long* strides,
-                                       float scale, int keys_per_tile, int rows_per_block,
-                                       void* stream) {
+                                       void* o, void* scratch, int dtype, int head_dim,
+                                       int device, int batch, int n, int m, int heads,
+                                       const long long* strides, float scale, int keys_per_tile,
+                                       int rows_per_block, int splits, void* stream) {
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Call c{q, k, v, o, device, batch, n, m, heads, strides, scale,
+  const Call c{q, k, v, o, scratch, device, batch, n, m, heads, splits, strides, scale,
                static_cast<cudaStream_t>(stream)};
   return dispatch(instance, dtype, head_dim, keys_per_tile, rows_per_block, c, nullptr);
 }
@@ -1046,7 +1130,8 @@ extern "C" int cdt_flash_attention_blocks_per_sm(int instance, int dtype, int he
                                                  int device) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  const Call c{nullptr, nullptr, nullptr, nullptr, device, 0, 0, 0, 0, nullptr, 0.f, nullptr};
+  const Call c{nullptr, nullptr, nullptr, nullptr, nullptr, device, 0, 0, 0, 0, 1,
+               nullptr, 0.f, nullptr};
   int blocks = 0;
   const int rc = dispatch(instance, dtype, head_dim, keys_per_tile, rows_per_block, c, &blocks);
   if (rc != 0) return rc < 0 ? rc : -rc;

@@ -32,6 +32,10 @@ SHAPES = [
 
 # key counts at the edges of the wgmma instance's key tiles (80, 112, 144)
 EDGE_KEYS = (1, 77, 79, 80, 81, 143, 144, 145, 324, 1296)
+# query and key counts at the edges of the wgmma512 instance's 64-row
+# blocks and 32-key tiles
+EDGE_ROWS_512 = (1, 63, 65, 200)
+EDGE_KEYS_512 = (1, 31, 32, 33)
 
 
 @pytest.fixture
@@ -53,7 +57,7 @@ def test_kernel_matches_plain(cuda, b, n, m, h, d, dtype):
         for s in ((b, n, h, d), (b, m, h, d), (b, m, h, d))
     )
     instance = attn.plan(q, k, v).instance
-    assert instance == ("fma" if dtype == torch.float32 else "wgmma" if d == 64 else "mma")
+    assert instance == ("fma" if dtype == torch.float32 else "wgmma" if d == 64 else "wgmma512")
     before = attn.flash_attention.launches
     by_instance = attn.flash_attention.launches_by_instance[instance]
     out = attn.dot_product_attention(q, k, v)
@@ -139,3 +143,70 @@ def test_wgmma_reads_rows_on_16_not_128_byte_boundaries(cuda):
         attn.flash_attention_reference(q, k, v).float(),
         rtol=2.0**-7, atol=1e-3,
     )
+
+
+def _wgmma512_matches_plain(cuda, b, n, m, h, p, seed, qkv=None):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    if qkv is None:
+        qkv = (
+            torch.randn(s, generator=gen, device=cuda).bfloat16()
+            for s in ((b, n, h, 512), (b, m, h, 512), (b, m, h, 512))
+        )
+    q, k, v = qkv
+    assert attn.plan(q, k, v).instance == "wgmma512"
+    before = attn.flash_attention.launches_by_instance["wgmma512"]
+    out = attn.flash_attention(q, k, v, with_plan=p)
+    assert attn.flash_attention.launches_by_instance["wgmma512"] == before + 1
+    torch.testing.assert_close(
+        out.float(), attn.flash_attention_reference(q, k, v).float(), rtol=2.0**-7, atol=1e-3
+    )
+    return q, k, v, out
+
+
+@pytest.mark.parametrize("m", EDGE_KEYS_512)
+@pytest.mark.parametrize("n", EDGE_ROWS_512)
+def test_wgmma512_tile_edges(cuda, n, m):
+    # the router's plan, B * H = 2 * 2, at the edges of the row blocks and
+    # key tiles: few keys share the weight, where one bf16 P would miss
+    _wgmma512_matches_plain(cuda, 2, n, m, 2, None, seed=n * 7 + m)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 10])
+def test_wgmma512_every_split(cuda, splits):
+    # the compiled key tile over 10 tiles with a ragged last, split over
+    # 1 to 10 blocks (every split keeps at least one tile)
+    p = attn.Plan("wgmma512", attn.WGMMA512_KEYS, attn.WGMMA_ROWS, splits)
+    q, k, v, out = _wgmma512_matches_plain(cuda, 2, 130, 300, 2, p, seed=splits)
+    # and against the plain version of the same splits and merge
+    torch.testing.assert_close(
+        out.float(), attn.split_attention_reference(q, k, v, splits).float(),
+        rtol=2.0**-7, atol=1e-3,
+    )
+
+
+def test_wgmma512_refuses_more_splits_than_key_tiles(cuda):
+    q = torch.zeros((1, 64, 1, 512), device=cuda, dtype=torch.bfloat16)
+    p = attn.Plan("wgmma512", attn.WGMMA512_KEYS, attn.WGMMA_ROWS, 3)
+    with pytest.raises(RuntimeError, match="more key splits than key tiles"):
+        attn.flash_attention(q, q, q, with_plan=p)  # M = 64: two key tiles
+
+
+def test_wgmma512_reads_strided_heads(cuda):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(17)
+    fused = torch.randn((2, 150, 3, 2, 512), generator=gen, device=cuda).bfloat16()
+    q, k, v = fused.unbind(2)
+    p = attn.Plan("wgmma512", attn.WGMMA512_KEYS, attn.WGMMA_ROWS, 2)
+    _wgmma512_matches_plain(cuda, 2, 150, 150, 2, None, seed=0, qkv=(q, k, v))
+    _wgmma512_matches_plain(cuda, 2, 150, 150, 2, p, seed=0, qkv=(q, k, v))
+
+
+def test_wgmma512_reads_rows_on_16_not_128_byte_boundaries(cuda):
+    # rows start 16 bytes into a 1040-byte pitch
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(19)
+    wide = torch.randn((3, 2, 100, 2, 520), generator=gen, device=cuda).bfloat16()
+    q, k, v = (t[..., 8:] for t in wide.unbind(0))
+    assert q.data_ptr() % 128 == 16 and q.stride(2) == 520
+    _wgmma512_matches_plain(cuda, 2, 100, 100, 2, None, seed=0, qkv=(q, k, v))

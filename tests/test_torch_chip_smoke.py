@@ -51,11 +51,11 @@ def test_attention_shapes_match_one_sdxl_tile_on_meta(recorded_calls):
 
 def test_expected_launches_by_instance_follow_the_shapes():
     """The main phase asserts these per tile: the UNet's 2800 D=64 calls
-    on the wgmma instance, the VAE's 2 D=512 calls on mma.sync."""
+    on the wgmma instance, the VAE's 2 D=512 calls on wgmma512."""
     evals = get_sigmas("karras", 20, 0.35).shape[0] - 1
     shapes = chip_smoke._attention_shapes(get_config("sdxl"), get_config("vae-sd"), 77, 72, evals)
     assert chip_smoke._expected_by_instance(attn, shapes, torch) == {
-        "wgmma": 2800, "mma": 2, "fma": 0,
+        "wgmma": 2800, "wgmma512": 2, "fma": 0,
     }
 
 
