@@ -31,12 +31,24 @@ Phases, each printing lines tagged with its name:
 4. main    - workflows/distributed-upscale.json through the port's
              GraphExecutor: SDXL at full width with seeded random weights
              (and a seeded non-zero out_conv, so the UNet's output counts),
-             bf16, a seeded 512x512 image, 20 euler steps over four
-             576-px padded tiles → 1024x1024. Run twice; each run must
-             launch the attention kernel exactly as often as the path's
-             shapes say, each instance as often as the router sends
-             those shapes to it.
-5. kernels - one JSON line per the port's kernel contract.
+             bf16, a seeded 512x512 image (8-bit levels, so it survives a
+             PNG), 20 euler steps over four 576-px padded tiles →
+             1024x1024. Run twice; each run must launch the attention
+             kernel exactly as often as the path's shapes say, each
+             instance as often as the router sends those shapes to it.
+   elastic - the same, unmodified workflow over HTTP: a master and one
+             worker (w1) DistributedServer in this process, on one loop
+             and two localhost ports, sharing phase 4's model; the
+             seeded image is LoadImage's input.png, SaveImage writes the
+             output. POST /distributed/queue with workers ["w1"], twice.
+             Each run must complete every tile exactly once between
+             master and w1 (w1 at least once over the runs), launch the
+             attention kernel as phase 4 does, and agree with phase 4's
+             tiles composited the way the elastic master composites
+             them (in sorted order, CDT_DETERMINISTIC_BLEND=1; phase 4
+             itself takes a weighted average at the seams).
+5. kernels - one JSON line per the port's kernel contract; `launches`
+             counts the elastic run (both participants).
 
 The card's nvidia-smi line and then {"ok": true, "device": ...} close
 the output. Without a CUDA device, or without the port's package beside
@@ -45,13 +57,16 @@ this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import asyncio
 import copy
 import json
 import math
 import os
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -73,6 +88,11 @@ SPLITS_TIMED = tuple(range(1, 9))
 # the VAE mid-block of SDXL's native 1024-px tile with 32-px padding:
 # a 136 x 136 latent
 VAE_1024_TOKENS = 136 * 136
+# two runs of one seed may differ by this much (max |diff| on [0, 1])
+RERUN_TOLERANCE = 0.05
+ELASTIC_RUNS = 2
+ELASTIC_RUN_TIMEOUT_S = 300.0
+USDU_NODE = "5"
 
 
 def _require(ok: bool, message: str) -> None:
@@ -196,6 +216,220 @@ def _host_us_per_call(torch, attn, q, k, v, batches: int = 10, calls: int = 100)
             f"{statistics.median(plan_samples):.2f} us")
 
 
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _usdu_options(workflow) -> dict:
+    """The USDU node's literal inputs, with its defaults for the rest."""
+    from comfyui_distributed_tpu_torch.graph import NODE_REGISTRY
+    from comfyui_distributed_tpu_torch.graph.prompt import is_link
+
+    node = workflow[USDU_NODE]
+    schema = NODE_REGISTRY[node["class_type"]].INPUT_TYPES()
+    opts = {name: spec[1]["default"] for section in ("required", "optional")
+            for name, spec in schema.get(section, {}).items()
+            if len(spec) > 1 and isinstance(spec[1], dict) and "default" in spec[1]}
+    opts.update({k: v for k, v in node["inputs"].items() if not is_link(v)})
+    return opts
+
+
+def _local_reference(torch, bundle, workflow, image):
+    """The workflow's tiles processed here with the local path's tile
+    processor and noise, composited two ways: (the elastic master's
+    feathered lerp in sorted tile order, the local path's weighted
+    average)."""
+    from comfyui_distributed_tpu_torch.models import pipeline as pl
+    from comfyui_distributed_tpu_torch.ops import tiles as tile_ops
+    from comfyui_distributed_tpu_torch.ops import upscale as up
+
+    o = _usdu_options(workflow)
+    with torch.inference_mode():
+        pos, neg = (up.prep_cond_for_tiles(
+            pl.encode_text_pooled(bundle, [workflow[workflow[USDU_NODE]["inputs"][side][0]]
+                                           ["inputs"]["text"]]), None)
+            for side in ("positive", "negative"))
+        upscaled, grid, extracted = up.prepare_upscaled_tiles(
+            image, float(o["upscale_by"]), int(o["tile_width"]), int(o["tile_padding"]),
+            o["upscale_method"], int(o["tile_height"]), mask_blur=int(o["mask_blur"]),
+            uniform=bool(o["force_uniform_tiles"]),
+        )
+        process = up._process_tile_fn(bundle, grid, int(o["steps"]), o["sampler_name"],
+                                      o["scheduler"], float(o["cfg"]), float(o["denoise"]))
+        noise = up.default_noise(int(o["seed"]), bundle.device)
+        tiles = torch.stack([process(t, g, noise, pos, neg, yx)
+                             for g, (t, yx) in enumerate(zip(extracted, grid.positions))])
+        lerp = tile_ops.DeterministicHostCanvas(upscaled, grid)
+        for tile, (y, x) in zip(tiles, grid.positions):
+            lerp.blend(tile, y, x)
+        return lerp.result().float(), tile_ops.blend_tiles(tiles, grid).float()
+
+
+def _wait_done(request_json, url: str, deadline: float) -> dict:
+    """Poll GET /history/{prompt_id} until the prompt is done."""
+    while True:
+        status, history = request_json("GET", url, timeout=30)
+        if status == 200 and history.get("done"):
+            return history
+        _require(time.monotonic() < deadline, f"{url} not done before the deadline")
+        time.sleep(0.05)
+
+
+def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device: str,
+                   expected_launches: int | None = None, expected_by_instance: dict | None = None,
+                   local_tiles_per_s: float | None = None, runs: int = ELASTIC_RUNS) -> dict:
+    """Run the workflow over HTTP on a master and a worker server in this
+    process (see the module docstring) and check every run; prints the
+    [elastic] lines and returns the last run's attention launches. With
+    `expected_launches` None (no card) the launch counts go unchecked."""
+    from comfyui_distributed_tpu_torch.api.server import DistributedServer
+    from comfyui_distributed_tpu_torch.ops import attention as attn
+    from comfyui_distributed_tpu_torch.utils import config as config_mod
+    from comfyui_distributed_tpu_torch.utils import image as img_utils
+    from comfyui_distributed_tpu_torch.utils.async_helpers import ServerLoopThread
+    from comfyui_distributed_tpu_torch.utils.network import request_json
+
+    cuda = device.startswith("cuda")
+    reference, reference_avg = _local_reference(torch, bundle, workflow, image)
+    avg_diff = float((reference_avg - local_out.float()).abs().max())
+    print(f"[elastic] reference: the {ckpt} tiles processed locally, weighted average vs "
+          f"phase 4's output max |diff| {avg_diff:.3g}")
+    _require(avg_diff <= RERUN_TOLERANCE, "the local reference tiles are not phase 4's")
+    tiles_by: dict[str, int] = {}
+    result = {}
+    with tempfile.TemporaryDirectory(prefix="cdt_elastic_") as tmp:
+        in_dir, out_dir = os.path.join(tmp, "input"), os.path.join(tmp, "output")
+        os.makedirs(in_dir)
+        load_name = workflow["4"]["inputs"]["image"]
+        with open(os.path.join(in_dir, load_name), "wb") as fh:
+            fh.write(img_utils.encode_png(image[0]))
+        master_port, worker_port = _free_port(), _free_port()
+        config_path = os.path.join(tmp, "config.json")
+        config_mod.save_config({
+            "master": {"host": "127.0.0.1"},
+            "workers": [{"id": "w1", "name": "w1", "type": "remote", "host": "127.0.0.1",
+                         "port": worker_port, "enabled": True}],
+            "settings": {"input_dir": in_dir, "output_dir": out_dir},
+        }, config_path)
+        loop = ServerLoopThread()
+        loop.start()
+        master = DistributedServer(port=master_port, is_worker=False, config_path=config_path,
+                                   device=device)
+        worker = DistributedServer(port=worker_port, is_worker=True, config_path=config_path,
+                                   device=device)
+        for server in (master, worker):
+            server.execution_context.pipelines[ckpt] = bundle  # shared weights
+        blend_env = os.environ.get("CDT_DETERMINISTIC_BLEND")
+        os.environ["CDT_DETERMINISTIC_BLEND"] = "1"
+        try:
+            async def boot():
+                await master.start()
+                await worker.start()
+
+            asyncio.run_coroutine_threadsafe(boot(), loop.loop).result(timeout=60)
+            base = f"http://127.0.0.1:{master_port}"
+            for run in range(1, runs + 1):
+                if cuda:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                attn.reset_launch_counts()
+                started = time.perf_counter()
+                status, queued = request_json("POST", f"{base}/distributed/queue", {
+                    "prompt": workflow, "client_id": "chip_smoke", "workers": ["w1"],
+                }, timeout=120)
+                _require(status == 200, f"/distributed/queue answered {status}: {queued}")
+                _require(queued.get("workers") == ["w1"],
+                         f"w1 was not dispatched (probe or dispatch failed): {queued}")
+                deadline = time.monotonic() + ELASTIC_RUN_TIMEOUT_S
+                history = _wait_done(request_json, f"{base}/history/{queued['prompt_id']}",
+                                     deadline)
+                worker_history = _wait_done(
+                    request_json,
+                    f"http://127.0.0.1:{worker_port}/history/{queued['trace_id']}_w0", deadline)
+                if cuda:
+                    torch.cuda.synchronize()
+                seconds = time.perf_counter() - started
+                _require(history.get("error") is None, f"master prompt failed: {history}")
+                _require(worker_history.get("error") is None,
+                         f"worker prompt failed: {worker_history}")
+                launches = attn.flash_attention.launches
+                by_instance = dict(attn.flash_attention.launches_by_instance)
+                peak = torch.cuda.max_memory_allocated() if cuda else 0
+                record = master.job_store.finished[queued["job_ids"][USDU_NODE]]
+                n_tiles = record["total"]
+                done = [t for t, _ in record["completions"]]
+                by = {}
+                for _, who in record["completions"]:
+                    by[who] = by.get(who, 0) + 1
+                    tiles_by[who] = tiles_by.get(who, 0) + 1
+                stages = master.execution_context.extras.get("stage_seconds", {})
+                worker_stages = worker.execution_context.extras.get("stage_seconds", {})
+                rate = f"{n_tiles / seconds:.4f} tiles/s"
+                if local_tiles_per_s is not None:
+                    rate += f" (phase 4: {local_tiles_per_s:.4f})"
+                print(f"[elastic] run {run}: {seconds:.2f} s, {rate}; tiles completed: master "
+                      f"{by.get('master', 0)}, w1 {by.get('w1', 0)} (order {record['completions']},"
+                      f" duplicates dropped {record['duplicates']}); flash_attention launches "
+                      f"{launches}, by instance {by_instance}; peak {peak / 2**30:.2f} GiB; "
+                      f"worker tile bytes received {record['received_bytes']}")
+                print(f"[elastic] run {run} stage seconds: master "
+                      f"{_rounded(stages.get('master', {}))}; w1 "
+                      f"{_rounded(worker_stages.get('worker', {}))}")
+                _require(sorted(done) == list(range(n_tiles)),
+                         f"tiles completed {sorted(done)}, expected each of {n_tiles} once")
+                _require(set(by) <= {"master", "w1"}, f"unexpected participants {sorted(by)}")
+                _require("w1" in record["finished_workers"], "w1's final flush never arrived")
+                if expected_launches is not None:
+                    _require(launches == expected_launches,
+                             f"{launches} attention launches, expected {expected_launches}")
+                    _require(by_instance == expected_by_instance,
+                             f"launches by instance {by_instance}, expected {expected_by_instance}")
+                out = master.get_job(queued["prompt_id"]).outputs["6"][0]["images"]
+                _require(out.device.type == torch.device(device).type,
+                         f"the output was computed on {out.device}, not {device}")
+                _require(tuple(out.shape) == tuple(reference.shape),
+                         f"output shape {tuple(out.shape)}, expected {tuple(reference.shape)}")
+                _require(bool(torch.isfinite(out).all()), "non-finite output")
+                _require(float(out.min()) >= 0.0 and float(out.max()) <= 1.0,
+                         "output outside [0, 1]")
+                saved = os.path.join(out_dir, history["outputs"]["6"]["images"][0])
+                with open(saved, "rb") as fh:
+                    saved_shape = img_utils.decode_png_u8(fh.read()).shape
+                _require(saved_shape == tuple(reference.shape[1:]),
+                         f"saved {saved_shape}, expected {tuple(reference.shape[1:])}")
+                diff = float((out.float() - reference.to(out.device)).abs().max())
+                phase4 = float((out.float() - local_out.float().to(out.device)).abs().max())
+                print(f"[elastic] run {run} output {tuple(out.shape)} in [{float(out.min()):.4f}, "
+                      f"{float(out.max()):.4f}]; max |diff| vs phase 4's tiles composited alike "
+                      f"{diff:.3g} (tolerance {RERUN_TOLERANCE}); vs phase 4's weighted-average "
+                      f"output {phase4:.3g}")
+                _require(diff <= RERUN_TOLERANCE,
+                         "the elastic output disagrees with phase 4's tiles")
+                result = {"launches": launches, "launches_by_instance": by_instance}
+        finally:
+            if blend_env is None:
+                os.environ.pop("CDT_DETERMINISTIC_BLEND", None)
+            else:
+                os.environ["CDT_DETERMINISTIC_BLEND"] = blend_env
+
+            async def teardown():
+                await master.stop()
+                await worker.stop()
+
+            try:
+                asyncio.run_coroutine_threadsafe(teardown(), loop.loop).result(timeout=60)
+            finally:
+                loop.stop()
+    _require(tiles_by.get("w1", 0) >= 1, f"w1 completed no tile in {runs} runs: {tiles_by}")
+    return result
+
+
+def _rounded(seconds: dict) -> dict:
+    return {stage: round(value, 4) for stage, value in sorted(seconds.items())}
+
+
 def main() -> int:
     import torch
 
@@ -211,6 +445,7 @@ def main() -> int:
     from comfyui_distributed_tpu_torch.ops import attention as attn
     from comfyui_distributed_tpu_torch.ops.samplers import get_sigmas
     from comfyui_distributed_tpu_torch.ops.upscale import plan_grid
+    from comfyui_distributed_tpu_torch.utils import image as img_utils
 
     # --- 1. device ---------------------------------------------------------
     smi = _nvidia_smi()
@@ -342,9 +577,10 @@ def main() -> int:
     prompt = copy.deepcopy(workflow)
     del prompt["4"], prompt["6"]  # LoadImage → a seeded image; no SaveImage
     rng = np.random.default_rng(SEED)
-    prompt["5"]["inputs"]["image"] = torch.from_numpy(
-        rng.random((1, IMAGE_PX, IMAGE_PX, 3), dtype=np.float32)
-    ).to("cuda")
+    # on 8-bit levels, so the elastic phase's input.png holds exactly this
+    seeded = img_utils.u8_to_f32(img_utils.f32_to_u8(
+        rng.random((1, IMAGE_PX, IMAGE_PX, 3), dtype=np.float32)))
+    prompt["5"]["inputs"]["image"] = torch.from_numpy(seeded).to("cuda")
     ckpt = prompt["1"]["inputs"]["ckpt_name"]
     started = time.perf_counter()
     bundle = pl.load_pipeline(ckpt, seed=0, device="cuda")
@@ -394,18 +630,28 @@ def main() -> int:
     print(f"[main] output {tuple(outputs[1].shape)} in [{float(outputs[1].min()):.4f}, "
           f"{float(outputs[1].max()):.4f}], mean {float(outputs[1].mean()):.4f}; "
           f"run 1 vs run 2 max |diff| {rerun_diff:.3g}")
-    _require(rerun_diff <= 0.05, "two runs of one seed disagree")
+    _require(rerun_diff <= RERUN_TOLERANCE, "two runs of one seed disagree")
+
+    # --- 4b. elastic -----------------------------------------------------------
+    elastic = _elastic_phase(
+        torch, bundle, ckpt, workflow, prompt["5"]["inputs"]["image"], outputs[1], "cuda",
+        expected_launches=n_tiles * per_tile, expected_by_instance=expected_by_instance,
+        local_tiles_per_s=n_tiles / seconds,
+    )
 
     # --- 5. kernels ----------------------------------------------------------
     print("[kernels] ms, plain_ms, library_ms and bound_ms are per tile: each main-path "
-          "shape's time times its launches per tile, summed")
+          "shape's time times its launches per tile, summed; launches: the last elastic run, "
+          "master and w1 together (launches_main: phase 4's last run)")
     kernels = {"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
         "source": "comfyui_distributed_tpu_torch/csrc/flash_attention.cu",
         "replaces": "comfyui_distributed_tpu/ops/attention.py:80",
-        "launches": launches,
-        "launches_by_instance": by_instance,
+        "launches": elastic["launches"],
+        "launches_by_instance": elastic["launches_by_instance"],
+        "launches_main": launches,
+        "launches_by_instance_main": by_instance,
         "max_abs_err": max_err,
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -78,7 +79,8 @@ def build(source_name: str) -> BuildResult:
     if os.path.exists(out):
         return BuildResult(out, 0.0, "")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
+    # unique per process and thread: two builders never write one file
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     started = time.perf_counter()
     proc = subprocess.run(
         [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],

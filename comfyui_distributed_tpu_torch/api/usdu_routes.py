@@ -1,0 +1,179 @@
+"""USDU routes: the tile work-queue protocol.
+
+The port's own copy of the static-mode endpoints of
+comfyui_distributed_tpu/api/usdu_routes.py, with the same request and
+response field names:
+
+    POST /distributed/heartbeat      per-tile worker liveness
+    POST /distributed/request_image  pull the next tile index
+    POST /distributed/submit_tiles   push processed tiles (a flush)
+    POST /distributed/return_tiles   hand back an interrupted grant
+    POST /distributed/job_status     ready/progress poll
+
+Tiles travel as JSON entries carrying base64 PNG data URLs. A job that
+completed and was cleaned up reads as drained, and its late tiles are
+dropped as duplicates, so a worker that arrives after the end stops at
+once (the JAX routes answer 404 after the creation grace, which the
+worker's pull policy retries for minutes). Handlers
+await the store directly on the loop; they never go through
+run_async_in_server_loop, which would deadlock the loop they run on.
+Left out: fencing epochs (409 stale_epoch), the standby gate, the
+fleet-telemetry piggyback, cross-job grants, preemption and the
+dynamic-mode submit_image.
+"""
+
+from __future__ import annotations
+
+from ..utils.constants import JOB_INIT_GRACE_SECONDS, QUEUE_POLL_INTERVAL_SECONDS
+from ..utils.exceptions import JobQueueError
+from ..utils.logging import debug_log
+from .httpd import Request, Response, Router, json_response
+
+
+def register(router: Router, server) -> None:
+    routes = UsduRoutes(server)
+    router.add_post("/distributed/heartbeat", routes.heartbeat)
+    router.add_post("/distributed/request_image", routes.request_image)
+    router.add_post("/distributed/submit_tiles", routes.submit_tiles)
+    router.add_post("/distributed/return_tiles", routes.return_tiles)
+    router.add_post("/distributed/job_status", routes.job_status)
+
+
+def _job_and_worker(body) -> tuple[str, str] | None:
+    if not isinstance(body, dict) or "job_id" not in body or "worker_id" not in body:
+        return None
+    return str(body["job_id"]), str(body["worker_id"])
+
+
+_MISSING_IDS = {"error": "job_id and worker_id required"}
+
+
+class UsduRoutes:
+    def __init__(self, server):
+        self.server = server
+
+    async def _live_job(self, job_id: str):
+        """The job, parking up to the creation grace for one not created
+        yet; None at once for a job that finished."""
+        store = self.server.job_store
+        if job_id in store.finished:
+            return None
+        return await store.wait_for_tile_job(job_id, JOB_INIT_GRACE_SECONDS)
+
+    async def heartbeat(self, request: Request) -> Response:
+        ids = _job_and_worker(request.json())
+        if ids is None:
+            return json_response(_MISSING_IDS, 400)
+        ok = await self.server.job_store.heartbeat(*ids)
+        return json_response({"status": "ok" if ok else "unknown_job"})
+
+    async def request_image(self, request: Request) -> Response:
+        """Pull work: {tile_idx | None, estimated_remaining,
+        batched_static}, plus `cancelled`/`cancel_reason` when the job was
+        cancelled and `deadline_remaining` when it has a deadline."""
+        ids = _job_and_worker(request.json())
+        if ids is None:
+            return json_response(_MISSING_IDS, 400)
+        job_id, worker_id = ids
+        store = self.server.job_store
+        job = await self._live_job(job_id)
+        if job is not None:
+            try:
+                task_id = await store.pull_task(job_id, worker_id,
+                                                timeout=QUEUE_POLL_INTERVAL_SECONDS)
+            except JobQueueError:  # cleaned up since
+                job = None
+        if job is None:
+            if job_id in store.finished:
+                return json_response({"tile_idx": None, "estimated_remaining": 0,
+                                      "batched_static": True})
+            return json_response({"error": "no such job"}, 404)
+        response = {
+            "tile_idx": task_id,
+            "estimated_remaining": await store.remaining(job_id),
+            "batched_static": job.batched,
+        }
+        if job.cancelled:
+            response["cancelled"] = True
+            response["cancel_reason"] = job.cancel_reason
+        deadline_remaining = job.deadline_remaining()
+        if deadline_remaining is not None:
+            response["deadline_remaining"] = round(deadline_remaining, 3)
+        return json_response(response)
+
+    async def submit_tiles(self, request: Request) -> Response:
+        """{job_id, worker_id, tiles: [entry...], is_final_flush}, entry =
+        {tile_idx, batch_idx, global_idx, x, y, extracted_w/h, image:
+        data URL}; entries are grouped per tile_idx into one result each."""
+        body = request.json()
+        ids = _job_and_worker(body)
+        if ids is None:
+            return json_response(_MISSING_IDS, 400)
+        job_id, worker_id = ids
+        tiles = body.get("tiles", [])
+        if not isinstance(tiles, list):
+            return json_response({"error": "tiles must be a list"}, 400)
+        grouped: dict[int, list[dict]] = {}
+        received = 0
+        for entry in tiles:
+            if not isinstance(entry, dict) or "tile_idx" not in entry \
+                    or not isinstance(entry.get("image"), str):
+                return json_response({"error": "bad tile entry"}, 400)
+            grouped.setdefault(int(entry["tile_idx"]), []).append(entry)
+            received += len(entry["image"])
+        store = self.server.job_store
+        job = await self._live_job(job_id)
+        if job is not None:
+            try:
+                accepted = await store.submit_flush(job_id, worker_id, grouped,
+                                                    received_bytes=received)
+            except JobQueueError:  # cleaned up since
+                job = None
+        if job is None:
+            if store.drop_late(job_id, len(grouped)):
+                return json_response({"status": "ok", "accepted": 0})
+            return json_response({"error": "no such job"}, 404)
+        if body.get("is_final_flush"):
+            await store.mark_worker_done(job_id, worker_id)
+        debug_log(f"submit_tiles job={job_id} worker={worker_id} tiles={len(grouped)} "
+                  f"accepted={accepted}")
+        return json_response({"status": "ok", "accepted": accepted})
+
+    async def return_tiles(self, request: Request) -> Response:
+        """{job_id, worker_id, tile_idxs}: an interrupted worker hands back
+        the unprocessed rest of its grant so those tiles requeue now."""
+        body = request.json()
+        ids = _job_and_worker(body)
+        if ids is None:
+            return json_response(_MISSING_IDS, 400)
+        idxs = body.get("tile_idxs", [])
+        try:
+            idxs = [int(t) for t in idxs] if isinstance(idxs, list) else None
+        except (TypeError, ValueError):
+            idxs = None
+        if idxs is None:
+            return json_response({"error": "tile_idxs must be a list of ints"}, 400)
+        released = await self.server.job_store.release_tasks(*ids, idxs)
+        return json_response({"status": "ok", "released": released})
+
+    async def job_status(self, request: Request) -> Response:
+        body = request.json()
+        if not isinstance(body, dict) or "job_id" not in body:
+            return json_response({"error": "job_id required"}, 400)
+        store = self.server.job_store
+        job = await store.get_tile_job(str(body["job_id"]))
+        if job is None:
+            # a job the orchestration announced (it made its collector)
+            # reads as ready before the master's loop creates the tile
+            # queue: the worker's first pull parks until it exists
+            return json_response({"ready": str(body["job_id"]) in store.collectors})
+        return json_response({
+            "ready": True,
+            "total": job.total_tasks,
+            "completed": len(job.completed),
+            "remaining": job.pending.qsize(),
+            "cancelled": job.cancelled,
+            "cancel_reason": job.cancel_reason,
+            "quarantined_tiles": sorted(job.quarantined_tiles),
+            "deadline_remaining": job.deadline_remaining(),
+        })

@@ -8,8 +8,9 @@ nodes_core.py. Data contracts:
     CONDITIONING       — ops.conditioning.Conditioning
     IMAGE              — [B, H, W, C] float tensor in [0, 1]
 
-PIL is imported inside LoadImage/SaveImage only: the machine that runs
-the card may not have it, and the path it runs does not need it.
+LoadImage and SaveImage read and write PNG through the port's own codec
+(utils/image.py): the machine that runs the card has no PIL. PreviewImage
+is the terminal sink a worker's pruned prompt ends in.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from ..models import pipeline as pl
+from ..utils import image as img_utils
 from .io_dirs import get_output_dir, next_counter, resolve_input_path
 from .registry import register_node
 
@@ -73,14 +75,8 @@ class LoadImage:
     NEVER_CACHE = True  # the file can change between runs
 
     def load(self, image: str, context=None):
-        from PIL import Image
-
-        with Image.open(resolve_input_path(str(image), context)) as img:
-            if img.mode not in ("RGB", "RGBA", "L"):
-                img = img.convert("RGB")
-            arr = np.asarray(img, dtype=np.uint8).astype(np.float32) / 255.0
-        if arr.ndim == 2:
-            arr = arr[..., None]
+        with open(resolve_input_path(str(image), context), "rb") as fh:
+            arr = img_utils.decode_png(fh.read())  # [H, W, 1|3|4] in [0, 1]
         # mask = 1 - alpha (ComfyUI's polarity: transparent → regenerate);
         # no alpha → all zeros
         mask = 1.0 - arr[..., 3] if arr.shape[-1] == 4 else np.zeros(arr.shape[:2], np.float32)
@@ -107,16 +103,30 @@ class SaveImage:
     OUTPUT_NODE = True
 
     def save(self, images, filename_prefix="output", context=None):
-        from PIL import Image
-
         out_dir = get_output_dir(context)
         os.makedirs(out_dir, exist_ok=True)
         start = next_counter(out_dir, filename_prefix, "png")
-        arr = torch.as_tensor(images).detach().float().cpu().numpy()
-        u8 = (np.clip(arr, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+        arr = img_utils.ensure_numpy(images)
         saved = []
-        for i in range(u8.shape[0]):
+        for i in range(arr.shape[0]):
             name = f"{filename_prefix}_{start + i:05d}.png"
-            Image.fromarray(u8[i]).save(os.path.join(out_dir, name), format="PNG", compress_level=4)
+            with open(os.path.join(out_dir, name), "wb") as fh:
+                fh.write(img_utils.encode_png(arr[i], compress_level=4))
             saved.append(name)
         return ({"ui": {"images": saved}, "images": images},)
+
+
+@register_node
+class PreviewImage:
+    """Terminal sink: persists nothing (a worker's pruned prompt ends here)."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {"images": ("IMAGE",)}}
+
+    RETURN_TYPES = ()
+    FUNCTION = "preview"
+    OUTPUT_NODE = True
+
+    def preview(self, images, context=None):
+        return ({"ui": {"images": []}, "images": images},)

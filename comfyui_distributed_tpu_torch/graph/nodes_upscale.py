@@ -1,11 +1,18 @@
-"""UltimateSDUpscaleDistributed node: the local branch.
+"""UltimateSDUpscaleDistributed node.
 
 Counterpart of comfyui_distributed_tpu/graph/nodes_upscale.py with the
 same node surface (image + model/conditioning/vae + sampling knobs +
-tile geometry in, upscaled image out). With no workers enabled the node
-runs ops/upscale.run_upscale on the context's device. The elastic
-worker and master branches and the upscale-model pre-pass are not
-ported yet and raise.
+tile geometry in, upscaled image out) and the same routing, in static
+(tile-queue) mode:
+
+- no workers enabled → ops/upscale.run_upscale on the context's device;
+- a worker's rewritten prompt (is_worker) → graph/usdu_elastic.py::
+  run_worker_loop, which pulls tiles from the master over HTTP;
+- a master with enabled workers and a server → run_master_elastic.
+
+Not ported yet, each raising with its ROADMAP item: the dynamic
+(whole-image queue) mode for large batches, the upscale-model
+pre-pass, and the mesh tier.
 """
 
 from __future__ import annotations
@@ -18,9 +25,13 @@ from ..ops import upscale as upscale_ops
 from ..ops.samplers import SAMPLER_NAMES
 from .registry import register_node
 
-_ELASTIC_TODO = (
-    "the elastic USDU tier is not ported to the PyTorch package yet "
-    "(ROADMAP.md, Queue 1: elastic USDU tier and the HTTP server)"
+_DYNAMIC_TODO = (
+    "dynamic (whole-image queue) USDU mode is not ported yet (ROADMAP.md, Queue 1, "
+    "item 1: the elastic tier's remainder)"
+)
+_UPSCALE_MODEL_TODO = (
+    "model-based pre-upscale (UpscaleModelLoader) is not ported yet (ROADMAP.md, "
+    "Queue 1, item 5: models/upscaler.py)"
 )
 
 
@@ -78,11 +89,7 @@ class UltimateSDUpscaleDistributed:
         if sampler_name not in SAMPLER_NAMES:
             raise ValueError(f"unknown sampler {sampler_name!r}")
         if upscale_model is not None:
-            raise NotImplementedError(
-                "model-based pre-upscale (UpscaleModelLoader) is not ported yet"
-            )
-        if is_worker or (enabled_worker_ids and getattr(context, "server", None) is not None):
-            raise NotImplementedError(_ELASTIC_TODO)
+            raise NotImplementedError(_UPSCALE_MODEL_TODO)
         if vae is not None and vae.vae is not model.vae:
             # a VAE from another bundle replaces the model's for the tile
             # encode/decode (run_upscale reads the VAE off the bundle)
@@ -90,13 +97,32 @@ class UltimateSDUpscaleDistributed:
                 model, vae=vae.vae, latent_channels=vae.latent_channels,
                 latent_scale=vae.latent_scale,
             )
-        out = upscale_ops.run_upscale(
+        # mode selection, made alike on master and workers from shared
+        # inputs: dynamic for large batches, static (tile queue) otherwise
+        batch = int(image.shape[0])
+        enabled = list(enabled_worker_ids or [])
+        elastic = is_worker or (enabled and getattr(context, "server", None) is not None)
+        if elastic and batch > 1 and batch >= int(dynamic_threshold):
+            raise NotImplementedError(_DYNAMIC_TODO)
+        common = dict(
             bundle=model, image=image, pos=positive, neg=negative,
-            mesh=getattr(context, "mesh", None),
             upscale_by=float(upscale_by), tile=int(tile_width), tile_h=int(tile_height),
             padding=int(tile_padding), steps=int(steps), sampler=sampler_name,
             scheduler=scheduler, cfg=float(cfg), denoise=float(denoise), seed=int(seed),
             upscale_method=upscale_method, mask_blur=int(mask_blur),
             tiled_decode=bool(tiled_decode), uniform=bool(force_uniform_tiles),
+            context=context,
         )
-        return (out,)
+        if is_worker:
+            from .usdu_elastic import run_worker_loop
+
+            run_worker_loop(job_id=job_id, worker_id=worker_id, master_url=master_url,
+                            mesh=getattr(context, "mesh", None), **common)
+            return (image,)
+        if elastic:
+            from .usdu_elastic import run_master_elastic
+
+            return (run_master_elastic(job_id=job_id, enabled_worker_ids=enabled,
+                                       mesh=getattr(context, "mesh", None), **common),)
+        del common["context"]
+        return (upscale_ops.run_upscale(mesh=getattr(context, "mesh", None), **common),)

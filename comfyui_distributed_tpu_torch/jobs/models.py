@@ -1,0 +1,80 @@
+"""Job state dataclasses (the port's own copy of the fields of
+comfyui_distributed_tpu/jobs/models.py that its store keeps).
+
+Left out with the store operations that use them: fencing epochs, the
+journal, preemption checkpoints, the cross-job tier, the cache settle
+and adapters.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import time
+from typing import Any
+
+
+@dataclasses.dataclass
+class CollectorJob:
+    """A job the orchestration announced: it creates one per distributed
+    node before dispatch, so a worker's job-status poll finds the job
+    known. Gathering images into it is the collector node's, a later
+    slice."""
+
+    job_id: str
+    created_at: float = dataclasses.field(default_factory=time.monotonic)
+
+
+@dataclasses.dataclass
+class TileJob:
+    """Static-mode USDU: a queue of tile indices for one upscale job."""
+
+    job_id: str
+    total_tasks: int
+    pending: asyncio.Queue = dataclasses.field(default_factory=asyncio.Queue)
+    results: asyncio.Queue = dataclasses.field(default_factory=asyncio.Queue)
+    # global tile index → result payload (master-side dedup/blend input)
+    completed: dict[int, Any] = dataclasses.field(default_factory=dict)
+    # every accepted completion in order, (task id, worker id): the
+    # record of which participant produced each tile (duplicates are
+    # dropped before they get here)
+    completions: list[tuple[int, str]] = dataclasses.field(default_factory=list)
+    # duplicate submissions dropped (first result wins)
+    duplicates: int = 0
+    # bytes of tile payloads received over HTTP
+    received_bytes: int = 0
+    # worker_id → last heartbeat monotonic time
+    worker_status: dict[str, float] = dataclasses.field(default_factory=dict)
+    # worker_id → task ids currently assigned (for requeue)
+    assigned: dict[str, set[int]] = dataclasses.field(default_factory=dict)
+    # (worker_id, task_id) → assignment monotonic time
+    assigned_at: dict[tuple[str, int], float] = dataclasses.field(default_factory=dict)
+    finished_workers: set[str] = dataclasses.field(default_factory=set)
+    created_at: float = dataclasses.field(default_factory=time.monotonic)
+    # batched static mode: one task id covers the whole image batch
+    batched: bool = True
+    # end-to-end deadline: seconds granted at init and the monotonic
+    # cutoff derived from it (None = none)
+    deadline_s: float | None = None
+    deadline_at: float | None = None
+    # terminal cancellation: pulls read as drained, submissions drop
+    cancelled: bool = False
+    cancel_reason: str = ""
+    # task id → failed delivery attempts (timeout requeues); a task at
+    # the attempt budget is quarantined out of the pull set
+    attempts: dict[int, int] = dataclasses.field(default_factory=dict)
+    quarantined_tiles: set[int] = dataclasses.field(default_factory=set)
+
+    def heartbeat(self, worker_id: str) -> None:
+        self.worker_status[worker_id] = time.monotonic()
+
+    def deadline_expired(self, now: float | None = None) -> bool:
+        if self.deadline_at is None:
+            return False
+        return (now if now is not None else time.monotonic()) > self.deadline_at
+
+    def deadline_remaining(self, now: float | None = None) -> float | None:
+        if self.deadline_at is None:
+            return None
+        now = now if now is not None else time.monotonic()
+        return max(0.0, self.deadline_at - now)

@@ -1,0 +1,449 @@
+"""The JobStore: lock-guarded registry of in-flight distributed jobs.
+
+The port's own copy of the operations of comfyui_distributed_tpu/jobs/
+store.py that the elastic loops and the routes call, with the same
+semantics:
+
+- a job is created by the master's loop (`init_tile_job`); a worker's
+  pull or submit that arrives first parks on a per-job creation future
+  up to a grace period, never a poll loop;
+- pulls pop one task id (no placement policy: a batch is one tile); an
+  EMPTY pull still heartbeats, since a worker draining the tail is alive;
+- completions are idempotent: the first result wins and duplicates (a
+  requeued-then-recovered worker's late submission) are dropped;
+- the timeout scan snapshots under the lock and probes stale workers
+  outside it (a worker busy on a tile is given grace); their tiles go
+  back to the queue, and a tile that exhausts its attempt budget is
+  quarantined instead;
+- cancellation refunds every pending and in-flight tile; later pulls
+  read as drained and later submissions drop.
+
+Left out: fencing epochs, the write-ahead journal, preemption, the
+cross-job tier, the cache settle, placement and fault injection.
+
+Every accepted completion is recorded with its participant
+(`TileJob.completions`); on cleanup a job's record moves to
+`finished`, which keeps the last FINISHED_KEPT jobs.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+from typing import Any, Awaitable, Callable, Optional
+
+from ..utils.exceptions import JobQueueError
+from ..utils.logging import debug_log, log
+from .models import CollectorJob, TileJob
+
+FINISHED_KEPT = 64
+# deadlines noted for jobs not created yet (job ids arrive from the network)
+PENDING_DEADLINES_KEPT = 512
+
+
+class JobStore:
+    def __init__(self, max_attempts: Optional[int] = None,
+                 poison_policy: Optional[str] = None) -> None:
+        from ..utils import constants
+
+        self.lock = asyncio.Lock()
+        self.collectors: dict[str, CollectorJob] = {}
+        self.tile_jobs: dict[str, TileJob] = {}
+        self.max_attempts = constants.TILE_MAX_ATTEMPTS if max_attempts is None else max_attempts
+        self.poison_policy = constants.POISON_POLICY if poison_policy is None else poison_policy
+        # job_id → deadline seconds noted by the orchestration before the
+        # master's init_tile_job runs; bounded, popped at init
+        self._pending_deadlines: dict[str, float] = {}
+        # job_id → [(loop, future)] waiters parked until creation
+        self._tile_waiters: dict[str, list[tuple[Any, Any]]] = {}
+        # job_id → {"total", "completions", "duplicates",
+        # "received_bytes", "finished_workers"} of cleaned-up jobs,
+        # oldest evicted first
+        self.finished: dict[str, dict[str, Any]] = {}
+
+    # --- creation signalling ----------------------------------------------
+
+    @staticmethod
+    def _wake(waiters: list[tuple[Any, Any]]) -> None:
+        """Resolve parked creation futures on their own loops."""
+
+        def resolve(fut):
+            if not fut.done():
+                fut.set_result(True)
+
+        for loop, fut in waiters:
+            try:
+                loop.call_soon_threadsafe(resolve, fut)
+            except RuntimeError:
+                pass  # the waiter's loop already closed; its wait timed out
+
+    async def wait_for_tile_job(self, job_id: str, grace_seconds: float) -> Optional[TileJob]:
+        """The job as soon as it exists, parking on its creation signal up
+        to `grace_seconds`; None if still absent at the deadline."""
+        loop = asyncio.get_running_loop()
+        fut = loop.create_future()
+        async with self.lock:
+            job = self.tile_jobs.get(job_id)
+            if job is not None or grace_seconds <= 0:
+                return job
+            self._tile_waiters.setdefault(job_id, []).append((loop, fut))
+        try:
+            try:
+                await asyncio.wait_for(fut, grace_seconds)
+            except asyncio.TimeoutError:
+                pass
+        finally:
+            async with self.lock:
+                pending = self._tile_waiters.get(job_id)
+                if pending is not None and (loop, fut) in pending:
+                    pending.remove((loop, fut))
+                    if not pending:
+                        del self._tile_waiters[job_id]
+        async with self.lock:
+            return self.tile_jobs.get(job_id)
+
+    # --- collector jobs ---------------------------------------------------
+
+    async def ensure_collector(self, job_id: str) -> CollectorJob:
+        async with self.lock:
+            job = self.collectors.get(job_id)
+            if job is None:
+                job = CollectorJob(job_id=job_id)
+                self.collectors[job_id] = job
+            return job
+
+    # --- tile jobs ----------------------------------------------------------
+
+    def note_job_deadline(self, job_id: str, deadline_s: Any) -> None:
+        """Record a deadline (seconds from now) for a job not created yet;
+        malformed or non-positive values are ignored, the table bounded."""
+        try:
+            deadline_s = float(deadline_s)
+        except (TypeError, ValueError):
+            return
+        if deadline_s <= 0:
+            return
+        self._pending_deadlines.pop(job_id, None)
+        while len(self._pending_deadlines) >= PENDING_DEADLINES_KEPT:
+            self._pending_deadlines.pop(next(iter(self._pending_deadlines)))
+        self._pending_deadlines[job_id] = deadline_s
+
+    async def init_tile_job(self, job_id: str, task_ids: list[int], batched: bool = True,
+                            deadline_s: Optional[float] = None) -> TileJob:
+        from ..utils.constants import JOB_DEADLINE_DEFAULT_SECONDS
+
+        async with self.lock:
+            if job_id in self.tile_jobs:
+                return self.tile_jobs[job_id]
+            if deadline_s is None:
+                deadline_s = self._pending_deadlines.pop(job_id, None)
+            if deadline_s is None and JOB_DEADLINE_DEFAULT_SECONDS > 0:
+                deadline_s = JOB_DEADLINE_DEFAULT_SECONDS
+            job = TileJob(job_id=job_id, total_tasks=len(task_ids), batched=batched)
+            if deadline_s is not None and deadline_s > 0:
+                job.deadline_s = float(deadline_s)
+                job.deadline_at = time.monotonic() + float(deadline_s)
+            for tid in task_ids:
+                job.pending.put_nowait(tid)
+            self.tile_jobs[job_id] = job
+            self._wake(self._tile_waiters.pop(job_id, []))
+        return job
+
+    async def get_tile_job(self, job_id: str) -> Optional[TileJob]:
+        async with self.lock:
+            return self.tile_jobs.get(job_id)
+
+    async def pull_task(self, job_id: str, worker_id: str, timeout: float = 0.1) -> Optional[int]:
+        """Pop the next pending task id for a worker (None = drained).
+        Records the assignment and a heartbeat; an empty pull heartbeats
+        too."""
+        job = await self.get_tile_job(job_id)
+        if job is None:
+            raise JobQueueError(f"no such job {job_id!r}")
+        if job.deadline_expired() and not job.cancelled:
+            # the overdue job expires the moment anyone asks it for work
+            await self.cancel_job(job_id, reason="deadline")
+        if job.cancelled:
+            async with self.lock:
+                job.heartbeat(worker_id)
+            return None
+        try:
+            task_id = await asyncio.wait_for(job.pending.get(), timeout)
+            # skip stale copies of tiles quarantined since they were queued
+            while task_id in job.quarantined_tiles:
+                task_id = job.pending.get_nowait()
+        except (asyncio.TimeoutError, asyncio.QueueEmpty):
+            async with self.lock:
+                job.heartbeat(worker_id)
+            return None
+        async with self.lock:
+            job.heartbeat(worker_id)
+            if job.cancelled:
+                return None  # raced the cancel: the task is part of the refund
+            job.assigned.setdefault(worker_id, set()).add(task_id)
+            job.assigned_at[(worker_id, task_id)] = time.monotonic()
+        return task_id
+
+    async def pull_tasks(self, job_id: str, worker_id: str, timeout: float = 0.1,
+                         limit: Optional[int] = None) -> list[int]:
+        """A grant: without a placement policy it is one task, exactly
+        `pull_task` (the JAX store's behaviour without placement)."""
+        first = await self.pull_task(job_id, worker_id, timeout)
+        return [] if first is None else [first]
+
+    async def submit_result(self, job_id: str, worker_id: str, task_id: int, payload: Any) -> bool:
+        """Record one completed task; False if it is a duplicate (already
+        done: first result wins) or the job was cancelled."""
+        job = await self.get_tile_job(job_id)
+        if job is None:
+            raise JobQueueError(f"no such job {job_id!r}")
+        async with self.lock:
+            job.heartbeat(worker_id)
+            if job.cancelled:
+                return False
+            job.assigned.get(worker_id, set()).discard(task_id)
+            job.assigned_at.pop((worker_id, task_id), None)
+            if task_id in job.completed:
+                job.duplicates += 1
+                debug_log(f"duplicate result for {job_id}:{task_id} from {worker_id}")
+                return False
+            job.completed[task_id] = payload
+            job.completions.append((int(task_id), worker_id))
+            # a late copy finishing after its tile was quarantined
+            # settles it for real
+            job.quarantined_tiles.discard(task_id)
+        await job.results.put((task_id, payload))
+        return True
+
+    async def submit_flush(self, job_id: str, worker_id: str, grouped: dict[int, Any],
+                           received_bytes: int = 0) -> int:
+        """Record several tiles that travelled in one submit request;
+        returns how many were accepted. `received_bytes` counts the
+        request's tile payloads."""
+        job = await self.get_tile_job(job_id)
+        if job is None:
+            raise JobQueueError(f"no such job {job_id!r}")
+        async with self.lock:
+            job.received_bytes += int(received_bytes)
+        accepted = 0
+        for task_id, payload in grouped.items():
+            if await self.submit_result(job_id, worker_id, int(task_id), payload):
+                accepted += 1
+        return accepted
+
+    async def mark_worker_done(self, job_id: str, worker_id: str) -> None:
+        job = await self.get_tile_job(job_id)
+        if job is None:
+            return
+        async with self.lock:
+            job.finished_workers.add(worker_id)
+
+    async def heartbeat(self, job_id: str, worker_id: str) -> bool:
+        job = await self.get_tile_job(job_id)
+        if job is None:
+            return False
+        async with self.lock:
+            job.heartbeat(worker_id)
+        return True
+
+    async def remaining(self, job_id: str) -> int:
+        job = await self.get_tile_job(job_id)
+        return 0 if job is None else job.pending.qsize()
+
+    async def is_complete(self, job_id: str) -> bool:
+        job = await self.get_tile_job(job_id)
+        if job is None:
+            return False
+        async with self.lock:
+            # quarantined tiles are settled (degraded), not outstanding
+            return len(job.completed) + len(job.quarantined_tiles) >= job.total_tasks
+
+    async def job_lifecycle(self, job_id: str) -> Optional[dict[str, Any]]:
+        """Consistent lifecycle snapshot: terminal flags, quarantined
+        tiles, the remaining deadline, attempts per tile."""
+        job = await self.get_tile_job(job_id)
+        if job is None:
+            return None
+        async with self.lock:
+            return {
+                "cancelled": job.cancelled,
+                "cancel_reason": job.cancel_reason,
+                "quarantined": sorted(job.quarantined_tiles),
+                "deadline_s": job.deadline_s,
+                "deadline_remaining": job.deadline_remaining(),
+                "attempts": {int(t): int(n) for t, n in sorted(job.attempts.items())},
+            }
+
+    async def cleanup_tile_job(self, job_id: str) -> None:
+        async with self.lock:
+            job = self.tile_jobs.pop(job_id, None)
+            if job is None:
+                return
+            self.finished.pop(job_id, None)
+            while len(self.finished) >= FINISHED_KEPT:
+                self.finished.pop(next(iter(self.finished)))
+            self.finished[job_id] = {
+                "total": job.total_tasks,
+                "completions": list(job.completions),
+                "duplicates": job.duplicates,
+                "received_bytes": job.received_bytes,
+                "finished_workers": sorted(job.finished_workers),
+            }
+
+    def drop_late(self, job_id: str, n_tiles: int) -> bool:
+        """Count a submission for a job already cleaned up as `n_tiles`
+        dropped duplicates; False if the job is not among the finished."""
+        record = self.finished.get(job_id)
+        if record is None:
+            return False
+        record["duplicates"] += int(n_tiles)
+        return True
+
+    # --- lifecycle: cancel + deadline sweep ---------------------------------
+
+    async def cancel_job(self, job_id: str, reason: str = "client") -> Optional[dict[str, Any]]:
+        """Terminal cancellation: drain the pending queue and revoke every
+        in-flight assignment under one lock hold. Returns the refund
+        accounting (None = no such job; idempotent on repeat)."""
+        job = await self.get_tile_job(job_id)
+        if job is None:
+            return None
+        async with self.lock:
+            if job.cancelled:
+                return {"job_id": job_id, "reason": job.cancel_reason, "already_cancelled": True,
+                        "pending_refunded": 0, "in_flight_refunded": 0, "workers": []}
+            job.cancelled = True
+            job.cancel_reason = str(reason)
+            pending_refunded = 0
+            while True:
+                try:
+                    job.pending.get_nowait()
+                except asyncio.QueueEmpty:
+                    break
+                pending_refunded += 1
+            in_flight: dict[str, list[int]] = {}
+            for wid, tasks in sorted(job.assigned.items()):
+                incomplete = sorted(t for t in tasks if t not in job.completed)
+                if incomplete:
+                    in_flight[wid] = incomplete
+            job.assigned.clear()
+            job.assigned_at.clear()
+            in_flight_refunded = sum(len(v) for v in in_flight.values())
+        log(f"job {job_id} cancelled ({reason}): refunded {pending_refunded} pending + "
+            f"{in_flight_refunded} in-flight tile(s) across {len(in_flight)} worker(s)")
+        return {"job_id": job_id, "reason": str(reason), "already_cancelled": False,
+                "pending_refunded": pending_refunded, "in_flight_refunded": in_flight_refunded,
+                "workers": sorted(in_flight)}
+
+    async def sweep_deadlines(self) -> list[str]:
+        """Expire every job whose deadline has passed; returns the ids
+        this sweep expired."""
+        now = time.monotonic()
+        async with self.lock:
+            overdue = [jid for jid, job in self.tile_jobs.items()
+                       if not job.cancelled and job.deadline_expired(now)]
+        expired = []
+        for job_id in overdue:
+            result = await self.cancel_job(job_id, reason="deadline")
+            if result is not None and not result["already_cancelled"]:
+                expired.append(job_id)
+        return expired
+
+    # --- timeout / requeue --------------------------------------------------
+
+    async def requeue_timed_out(self, job_id: str, timeout_seconds: float,
+                                probe_busy: Optional[Callable[[str], Awaitable[bool]]] = None
+                                ) -> list[int]:
+        """Requeue tasks of workers whose heartbeat is older than
+        `timeout_seconds`. A stale worker that `probe_busy` finds busy
+        gets a fresh heartbeat instead (busy-probe grace); a probe that
+        raises is retried once."""
+        job = await self.get_tile_job(job_id)
+        if job is None:
+            return []
+        now = time.monotonic()
+        async with self.lock:
+            stale = [wid for wid, beat in job.worker_status.items()
+                     if now - beat > timeout_seconds and wid not in job.finished_workers
+                     and job.assigned.get(wid)]
+        requeued: list[int] = []
+        for wid in stale:
+            busy = False
+            if probe_busy is not None:
+                for attempt in range(2):
+                    try:
+                        busy = await probe_busy(wid)
+                        break
+                    except Exception as exc:  # noqa: BLE001 - a probe is best effort
+                        log(f"busy-probe for stale worker {wid} failed "
+                            f"(attempt {attempt + 1}/2): {exc}")
+            async with self.lock:
+                if busy:
+                    job.heartbeat(wid)
+                    debug_log(f"worker {wid} busy on probe; heartbeat grace")
+                    continue
+                requeued.extend(self._requeue_worker_locked(job, wid))
+        return requeued
+
+    def _requeue_worker_locked(self, job: TileJob, worker_id: str) -> list[int]:
+        """Put a dead worker's incomplete tasks back on the queue, each
+        charged one attempt; a task at the attempt budget is quarantined
+        instead. Caller holds self.lock."""
+        if job.cancelled:
+            return []
+        tasks = job.assigned.pop(worker_id, set())
+        for tid in tasks:
+            job.assigned_at.pop((worker_id, tid), None)
+        incomplete = sorted(t for t in tasks if t not in job.completed)
+        poisoned = []
+        for tid in incomplete:
+            job.attempts[tid] = job.attempts.get(tid, 0) + 1
+            if job.attempts[tid] >= max(1, self.max_attempts):
+                poisoned.append(tid)
+        if poisoned:
+            job.quarantined_tiles.update(poisoned)
+            log(f"POISON: tile(s) {poisoned} on job {job.job_id} exhausted {self.max_attempts} "
+                f"attempt(s); quarantined out of the pull set (policy={self.poison_policy})")
+        requeued = [t for t in incomplete if t not in poisoned]
+        for tid in requeued:
+            job.pending.put_nowait(tid)
+        if requeued:
+            log(f"requeued {len(requeued)} task(s) from worker {worker_id} on job {job.job_id}")
+        return incomplete
+
+    async def release_tasks(self, job_id: str, worker_id: str, task_ids: list[int]) -> list[int]:
+        """Hand back claimed-but-unprocessed tasks (an interrupted worker's
+        grant) so they requeue now; only tasks assigned to this worker and
+        not completed go back."""
+        job = await self.get_tile_job(job_id)
+        if job is None or job.cancelled:
+            return []
+        released: list[int] = []
+        async with self.lock:
+            if job.cancelled:
+                return []
+            assigned = job.assigned.get(worker_id, set())
+            for tid in sorted(int(t) for t in task_ids):
+                if tid in assigned and tid not in job.completed:
+                    assigned.discard(tid)
+                    job.assigned_at.pop((worker_id, tid), None)
+                    job.pending.put_nowait(tid)
+                    released.append(tid)
+        if released:
+            log(f"worker {worker_id} returned {len(released)} task(s) on job {job_id}: {released}")
+        return released
+
+    # --- observability --------------------------------------------------------
+
+    async def stats(self) -> dict[str, int]:
+        async with self.lock:
+            in_flight = sum(
+                len([t for t in tasks if t not in job.completed])
+                for job in self.tile_jobs.values() for tasks in job.assigned.values()
+            )
+            return {
+                "tile_jobs": len(self.tile_jobs),
+                "collectors": len(self.collectors),
+                "queue_depth": sum(job.pending.qsize() for job in self.tile_jobs.values()),
+                "in_flight": in_flight,
+            }

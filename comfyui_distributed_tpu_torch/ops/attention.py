@@ -30,6 +30,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+import threading
 
 import torch
 
@@ -62,6 +63,11 @@ MAX_KEY_SPLITS = 16
 _SPLIT_COST = 0.08
 
 _library = None  # (ctypes functions, BuildResult) once built and loaded
+# one build and load per process, however many threads launch first
+_library_lock = threading.Lock()
+# the launch counts are read-modify-writes shared by every thread that
+# runs a model (a master and a worker in one process)
+_counts_lock = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,20 +157,25 @@ def load_library():
     ((`cdt_flash_attention_fwd`, `cdt_flash_attention_blocks_per_sm`) as
     ctypes functions, BuildResult)."""
     global _library
-    if _library is None:
-        result = _build.build("flash_attention.cu")
-        lib = ctypes.CDLL(result.path)
-        fwd = lib.cdt_flash_attention_fwd
-        fwd.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-            + [ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        )
-        fwd.restype = ctypes.c_int
-        occupancy = lib.cdt_flash_attention_blocks_per_sm
-        occupancy.argtypes = [ctypes.c_int] * 6
-        occupancy.restype = ctypes.c_int
-        _library = ((fwd, occupancy), result)
+    with _library_lock:
+        if _library is None:
+            _library = _load()
     return _library
+
+
+def _load():
+    result = _build.build("flash_attention.cu")
+    lib = ctypes.CDLL(result.path)
+    fwd = lib.cdt_flash_attention_fwd
+    fwd.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        + [ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    )
+    fwd.restype = ctypes.c_int
+    occupancy = lib.cdt_flash_attention_blocks_per_sm
+    occupancy.argtypes = [ctypes.c_int] * 6
+    occupancy.restype = ctypes.c_int
+    return (fwd, occupancy), result
 
 
 def blocks_per_sm(p: Plan, dtype: torch.dtype, head_dim: int, device: int = 0) -> int:
@@ -315,14 +326,22 @@ def flash_attention(
     if rc != 0:
         reason = _LAUNCH_ERRORS.get(rc, f"CUDA error {rc}")
         raise RuntimeError(f"flash_attention launch failed ({p}): {reason}")
-    flash_attention.launches += 1
-    flash_attention.launches_by_instance[p.instance] += 1
+    count_launch(p.instance)
     return out
 
 
+def count_launch(instance: str) -> None:
+    """Add one launch of `instance` to `flash_attention.launches` and
+    `flash_attention.launches_by_instance`, under a lock."""
+    with _counts_lock:
+        flash_attention.launches += 1
+        flash_attention.launches_by_instance[instance] += 1
+
+
 def reset_launch_counts() -> None:
-    flash_attention.launches = 0
-    flash_attention.launches_by_instance = dict.fromkeys(INSTANCES, 0)
+    with _counts_lock:
+        flash_attention.launches = 0
+        flash_attention.launches_by_instance = dict.fromkeys(INSTANCES, 0)
 
 
 reset_launch_counts()

@@ -151,3 +151,96 @@ def blend_tiles(tiles: torch.Tensor, grid: TileGrid) -> torch.Tensor:
         weights[:, y:y + grid.padded_h, x:x + grid.padded_w, :] += mask.float()
     blended = canvas / torch.clamp(weights, min=1e-8)
     return blended[:, p:p + grid.image_h, p:p + grid.image_w, :].to(tiles.dtype)
+
+
+# --- incremental canvases (the elastic tier) ----------------------------------
+# Tiles arrive one at a time, over HTTP or from the master's own
+# sampling, and are alpha-composited onto the padded base image with the
+# feather mask: region = region * (1 - m) + tile * m. Unlike blend_tiles'
+# weighted average this is order-dependent where tiles overlap, as in
+# the JAX package's elastic tier.
+
+
+def feathered_blend_inplace(canvas: np.ndarray, tile: np.ndarray, mask: np.ndarray,
+                            y: int, x: int) -> None:
+    """canvas[:, y:y+th, x:x+tw, :] = lerp(canvas, tile, mask), in place;
+    float32 throughout, each product and sum rounded on its own (the
+    numpy path of comfyui_distributed_tpu/native/__init__.py, which the
+    JAX package pins equal to its C++ kernel)."""
+    if canvas.dtype != np.float32 or not canvas.flags["C_CONTIGUOUS"]:
+        raise ValueError("the canvas must be a C-contiguous float32 array")
+    tile = np.ascontiguousarray(tile, dtype=np.float32)
+    mask = np.ascontiguousarray(mask, dtype=np.float32)
+    _, th, tw, _ = tile.shape
+    region = canvas[:, y:y + th, x:x + tw, :]
+    m = mask[None, :, :, None]
+    region *= 1.0 - m
+    region += tile * m
+
+
+class IncrementalCanvas:
+    """Composite tiles one at a time onto a canvas padded once, on the
+    base image's device; crop once at the end."""
+
+    def __init__(self, images: torch.Tensor, grid: TileGrid):
+        self.grid = grid
+        self.padded = pad_image_for_grid(images, grid).clone()
+        self._mask = feather_mask(grid, dtype=images.dtype, device=images.device)[None, :, :, None]
+
+    def blend(self, tile: torch.Tensor, y: int, x: int) -> None:
+        """Composite one [B, th+2p, tw+2p, C] tile at unpadded origin (y, x)."""
+        g = self.grid
+        region = self.padded[:, y:y + g.padded_h, x:x + g.padded_w, :]
+        region.copy_(region * (1.0 - self._mask) + tile.to(region) * self._mask)
+
+    def result(self) -> torch.Tensor:
+        p = self.grid.padding
+        return self.padded[:, p:p + self.grid.image_h, p:p + self.grid.image_w, :]
+
+
+class HostIncrementalCanvas:
+    """The host twin of IncrementalCanvas for the HTTP tier: tiles arrive
+    host-side (decoded from PNG), so they composite into a numpy canvas,
+    which moves to the base image's device once, in result()."""
+
+    def __init__(self, images: torch.Tensor, grid: TileGrid):
+        self.grid = grid
+        self.device = images.device
+        padded = pad_image_for_grid(images, grid).detach().float().cpu().numpy()
+        self.padded = np.ascontiguousarray(padded, dtype=np.float32)
+        self._mask = _feather_mask_np(grid.padded_h, grid.padded_w, grid.feather).astype(np.float32)
+
+    def blend(self, tile, y: int, x: int) -> None:
+        if isinstance(tile, torch.Tensor):
+            tile = tile.detach().float().cpu().numpy()
+        feathered_blend_inplace(self.padded, np.asarray(tile, dtype=np.float32), self._mask,
+                                int(y), int(x))
+
+    def result(self) -> torch.Tensor:
+        p = self.grid.padding
+        out = self.padded[:, p:p + self.grid.image_h, p:p + self.grid.image_w, :]
+        return torch.from_numpy(np.ascontiguousarray(out)).to(self.device)
+
+
+class DeterministicHostCanvas:
+    """Order-canonical twin of HostIncrementalCanvas: buffers every tile
+    and composites them in sorted (y, x) order at result(), so the image
+    does not depend on which participant finished which tile first
+    (CDT_DETERMINISTIC_BLEND=1). Costs one tile set of host memory."""
+
+    def __init__(self, images: torch.Tensor, grid: TileGrid):
+        self.grid = grid
+        self._base = images
+        self._tiles: dict[tuple[int, int], np.ndarray] = {}
+
+    def blend(self, tile, y: int, x: int) -> None:
+        if isinstance(tile, torch.Tensor):
+            tile = tile.detach().float().cpu().numpy()
+        # (y, x) is unique per tile, so a tile blended twice keeps one copy
+        self._tiles[(int(y), int(x))] = np.asarray(tile, dtype=np.float32)
+
+    def result(self) -> torch.Tensor:
+        inner = HostIncrementalCanvas(self._base, self.grid)
+        for (y, x), tile in sorted(self._tiles.items()):
+            inner.blend(tile, y, x)
+        return inner.result()

@@ -1,0 +1,269 @@
+"""Tiles per second of the upscale workflow on one card, three ways.
+
+    python -m comfyui_distributed_tpu_torch.profile_elastic [--runs N]
+
+Queues workflows/distributed-upscale.json (SDXL, seeded random weights,
+a seeded 512x512 input.png, four 576-px padded tiles) on a master
+DistributedServer in this process through POST /distributed/queue, in
+three modes:
+
+- local:       no workers; the master runs every tile itself;
+- in-process:  worker w1 is a second server in this process, on the
+               master's loop, sharing its model (one interpreter lock
+               for both);
+- subprocess:  worker w2 is `python -m comfyui_distributed_tpu_torch
+               --worker` in its own process, with its own copy of the
+               same seeded weights, on the same card.
+
+One warm-up run per mode, then the modes in turns (local, in-process,
+subprocess, subprocess, in-process, local, ...) until each has --runs
+timed runs: the host clock from the POST to the master's finished
+history. Prints the card (name and power limit), each run's wall,
+tiles/s and tiles per participant, and each mode's median. Both elastic
+modes composite in sorted tile order (CDT_DETERMINISTIC_BLEND=1), so
+their outputs must agree within 0.05; the local mode's weighted-average
+blend differs at the seams and is not compared. `--platform cpu` with
+`--model tiny-unet --image-px 64 --tile 64 --padding 16 --steps 1`
+rehearses it without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import os
+import socket
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from .api.server import DistributedServer
+from .models import pipeline as pl
+from .ops.upscale import plan_grid
+from .utils import config as config_mod
+from .utils import image as img_utils
+from .utils.async_helpers import ServerLoopThread
+from .utils.network import request_json
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SEED = 20261016
+MODES = {"local": None, "in-process": "w1", "subprocess": "w2"}
+RUN_TIMEOUT_S = 600.0
+TOLERANCE = 0.05
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _wait(predicate, what: str, timeout: float, proc=None):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if proc is not None and proc.poll() is not None:
+            raise RuntimeError(f"{what}: the worker process exited with {proc.returncode}")
+        try:
+            value = predicate()
+        except OSError:
+            value = None
+        if value:
+            return value
+        time.sleep(0.05)
+    raise RuntimeError(f"{what}: not within {timeout:.0f} s")
+
+
+def _workflow(args) -> dict:
+    with open(os.path.join(REPO, "workflows", "distributed-upscale.json"), encoding="utf-8") as fh:
+        workflow = json.load(fh)
+    workflow["1"]["inputs"]["ckpt_name"] = args.model
+    usdu = workflow["5"]["inputs"]
+    for key, value in (("steps", args.steps), ("tile_width", args.tile),
+                       ("tile_height", args.tile), ("tile_padding", args.padding)):
+        if value is not None:
+            usdu[key] = value
+    return workflow
+
+
+def _card(device: str) -> str:
+    if not device.startswith("cuda"):
+        return "no card (cpu)"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _run_once(base: str, master, workflow: dict, workers: list[str], device: str,
+              worker_base: str | None):
+    """One queued workflow: (seconds, completions, output tensor). With a
+    worker, its prompt must finish too, without an error."""
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+    started = time.perf_counter()
+    status, queued = request_json("POST", f"{base}/distributed/queue", {
+        "prompt": workflow, "client_id": "profile_elastic", "workers": workers,
+    }, timeout=120)
+    if status != 200 or queued.get("workers") != workers:
+        raise RuntimeError(f"queue answered {status}: {queued} (workers {workers} expected)")
+
+    def done():
+        code, history = request_json("GET", f"{base}/history/{queued['prompt_id']}", timeout=30)
+        return history if code == 200 and history.get("done") else None
+
+    history = _wait(done, f"prompt {queued['prompt_id']}", RUN_TIMEOUT_S)
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - started
+    if history.get("error"):
+        raise RuntimeError(f"prompt failed: {history['error']}")
+    if worker_base is not None:
+        url = f"{worker_base}/history/{queued['trace_id']}_w0"
+
+        def worker_done():
+            code, worker_history = request_json("GET", url, timeout=30)
+            return worker_history if code == 200 and worker_history.get("done") else None
+
+        worker_history = _wait(worker_done, url, RUN_TIMEOUT_S)
+        if worker_history.get("error"):
+            raise RuntimeError(f"worker prompt failed: {worker_history['error']}")
+    job_id = next(iter(queued["job_ids"].values()))
+    record = master.job_store.finished.get(job_id)  # absent on the local path
+    completions = record["completions"] if record else []
+    if record and sorted(t for t, _ in completions) != list(range(record["total"])):
+        raise RuntimeError(f"tiles not completed exactly once: {completions}")
+    out = master.get_job(queued["prompt_id"]).outputs["6"][0]["images"]
+    return seconds, completions, out
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--runs", type=int, default=3, help="timed runs per mode")
+    parser.add_argument("--platform", choices=("cuda", "cpu"), default="cuda")
+    parser.add_argument("--model", default="sdxl")
+    parser.add_argument("--image-px", type=int, default=512)
+    parser.add_argument("--tile", type=int, default=None)
+    parser.add_argument("--padding", type=int, default=None)
+    parser.add_argument("--steps", type=int, default=None)
+    args = parser.parse_args(argv)
+    device = args.platform
+    if device == "cuda" and not torch.cuda.is_available():
+        print("profile_elastic: no CUDA device", file=sys.stderr)
+        return 1
+    print(f"[card] {_card(device)}")
+    os.environ["CDT_DETERMINISTIC_BLEND"] = "1"
+    workflow = _workflow(args)
+    usdu = workflow["5"]["inputs"]
+    n_tiles = plan_grid(args.image_px, args.image_px, float(usdu["upscale_by"]),
+                        int(usdu["tile_width"]), int(usdu["tile_padding"]),
+                        int(usdu["tile_height"]))[2].num_tiles
+    bundle = pl.load_pipeline(args.model, seed=0, device=device)
+    rng = np.random.default_rng(SEED)
+    pixels = rng.random((args.image_px, args.image_px, 3), dtype=np.float32)
+    with tempfile.TemporaryDirectory(prefix="cdt_profile_elastic_") as tmp:
+        in_dir = os.path.join(tmp, "input")
+        os.makedirs(in_dir)
+        with open(os.path.join(in_dir, workflow["4"]["inputs"]["image"]), "wb") as fh:
+            fh.write(img_utils.encode_png(pixels))
+        ports = {name: _free_port() for name in ("master", "w1", "w2")}
+        config_path = os.path.join(tmp, "config.json")
+        config_mod.save_config({
+            "master": {"host": "127.0.0.1"},
+            "workers": [{"id": wid, "name": wid, "type": "local", "host": "127.0.0.1",
+                         "port": ports[wid], "enabled": True} for wid in ("w1", "w2")],
+            "settings": {"input_dir": in_dir, "output_dir": os.path.join(tmp, "output")},
+        }, config_path)
+        log_path = os.path.join(tmp, "w2.log")
+        log = open(log_path, "wb")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "comfyui_distributed_tpu_torch", "--port", str(ports["w2"]),
+             "--worker", "--config", config_path, "--platform", device],
+            cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": REPO},
+        )
+        loop = ServerLoopThread()
+        loop.start()
+        master = DistributedServer(port=ports["master"], is_worker=False,
+                                   config_path=config_path, device=device)
+        in_process = DistributedServer(port=ports["w1"], is_worker=True,
+                                       config_path=config_path, device=device)
+        for server in (master, in_process):
+            server.execution_context.pipelines[args.model] = bundle
+        try:
+            async def boot():
+                await master.start()
+                await in_process.start()
+
+            asyncio.run_coroutine_threadsafe(boot(), loop.loop).result(timeout=60)
+            base = f"http://127.0.0.1:{ports['master']}"
+            _wait(lambda: request_json("GET", f"http://127.0.0.1:{ports['w2']}/prompt",
+                                       timeout=5)[0] == 200, "worker w2 start", 300, proc)
+            names = list(MODES)
+
+            def run(name):
+                worker = MODES[name]
+                return _run_once(base, master, workflow, [worker] if worker else [], device,
+                                 f"http://127.0.0.1:{ports[worker]}" if worker else None)
+
+            for name in names:  # warm-up: first launches, allocator, cuDNN plans
+                print(f"[warm-up] {name}: {run(name)[0]:.2f} s")
+            order = []
+            while len(order) < args.runs * len(names):
+                order += names if len(order) // len(names) % 2 == 0 else names[::-1]
+            walls: dict[str, list[float]] = {name: [] for name in names}
+            worker_tiles = dict.fromkeys(names, 0)
+            outputs: dict[str, torch.Tensor] = {}
+            for name in order[:args.runs * len(names)]:
+                seconds, completions, out = run(name)
+                walls[name].append(seconds)
+                outputs[name] = out
+                by = {}
+                for _, who in completions:
+                    by[who] = by.get(who, 0) + 1
+                worker_tiles[name] += by.get(MODES[name], 0)
+                print(f"[run] {name}: {seconds:.3f} s, {n_tiles / seconds:.4f} tiles/s, "
+                      f"tiles by {by or {'master': f'{n_tiles} (local path)'}}")
+            diff = float((outputs["in-process"].float() - outputs["subprocess"].float())
+                         .abs().max())
+            print(f"[check] in-process vs subprocess output max |diff| {diff:.3g} "
+                  f"(tolerance {TOLERANCE})")
+            if diff > TOLERANCE:
+                raise RuntimeError("the two elastic modes disagree")
+            for name, worker in MODES.items():
+                if worker and not worker_tiles[name]:
+                    raise RuntimeError(f"{worker} completed no tile in the {name} runs: they "
+                                       "measured the master alone")
+            for name in names:
+                median = statistics.median(walls[name])
+                print(f"[summary] {name}: median {median:.3f} s over {len(walls[name])} runs, "
+                      f"{n_tiles / median:.4f} tiles/s (walls "
+                      f"{', '.join(f'{w:.3f}' for w in walls[name])})")
+        finally:
+            async def teardown():
+                await master.stop()
+                await in_process.stop()
+
+            try:
+                asyncio.run_coroutine_threadsafe(teardown(), loop.loop).result(timeout=60)
+            finally:
+                loop.stop()
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=30)
+                log.close()
+                if proc.returncode not in (0, -15):
+                    with open(log_path, "rb") as fh:
+                        print(fh.read()[-4000:].decode(errors="replace"), file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

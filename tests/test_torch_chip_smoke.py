@@ -4,11 +4,16 @@ On the card the smoke run asserts that each run of the workflow launches
 the attention kernel exactly as often as `_attention_shapes` says. Here
 full-width SDXL runs on the `meta` device (shapes only, no memory) with
 a router that records every attention call, so that count is held to
-what the models really do.
+what the models really do. The elastic phase runs here whole, on
+tiny-unet and the CPU: its servers, its HTTP round trips and its checks.
 """
 
 import collections
+import copy
+import json
+import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -16,7 +21,14 @@ import chip_smoke
 from comfyui_distributed_tpu_torch.models import layers, vae
 from comfyui_distributed_tpu_torch.models.registry import create_model, get_config
 from comfyui_distributed_tpu_torch.ops import attention as attn
+from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
+from comfyui_distributed_tpu_torch.models import pipeline as tpl
 from comfyui_distributed_tpu_torch.ops.samplers import get_sigmas
+from comfyui_distributed_tpu_torch.utils import image as timg
+
+from test_torch_parity import one_torch_thread  # noqa: F401  (fixture)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -70,3 +82,71 @@ def test_smoke_run_refuses_without_cuda(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main() != 0
     assert capsys.readouterr().out == ""
+
+
+
+def _tiny_workflow():
+    with open(os.path.join(REPO, "workflows", "distributed-upscale.json"), encoding="utf-8") as fh:
+        workflow = json.load(fh)
+    workflow["1"]["inputs"]["ckpt_name"] = "tiny-unet"
+    workflow["5"]["inputs"].update(steps=1, tile_width=64, tile_height=64, tile_padding=16)
+    return workflow
+
+
+def test_usdu_options_are_the_nodes_inputs_with_its_defaults():
+    opts = chip_smoke._usdu_options(_tiny_workflow())
+    assert opts["tile_width"] == 64 and opts["seed"] == 7 and opts["steps"] == 1
+    assert opts["mask_blur"] == 8 and opts["force_uniform_tiles"] is True
+    assert opts["upscale_method"] == "bicubic" and "image" not in opts
+
+
+def test_elastic_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread):
+    """The phase as the card runs it, on tiny-unet: the local reference
+    equals phase 4's output, every run completes each tile exactly once,
+    and the output agrees with the reference. On the CPU no attention
+    kernel launches, so the launch checks are off."""
+    workflow = _tiny_workflow()
+    bundle = tpl.load_pipeline("tiny-unet", seed=0, device="cpu")
+    with torch.no_grad():
+        weight = bundle.unet.out_conv.weight
+        weight.copy_(torch.randn(weight.shape, generator=torch.Generator().manual_seed(0)) * 0.1)
+    rng = np.random.default_rng(1)
+    image = torch.from_numpy(timg.u8_to_f32(timg.f32_to_u8(
+        rng.random((1, 64, 64, 3), dtype=np.float32))))
+    prompt = copy.deepcopy(workflow)
+    del prompt["4"], prompt["6"]
+    prompt["5"]["inputs"]["image"] = image
+    context = ExecutionContext(device="cpu")
+    context.pipelines["tiny-unet"] = bundle
+    executor = GraphExecutor(context)
+    executor.execute(prompt)
+    local = executor.last_results["5"][0]
+    result = chip_smoke._elastic_phase(torch, bundle, "tiny-unet", workflow, image, local, "cpu")
+    lines = [line for line in capsys.readouterr().out.splitlines()
+             if line.startswith("[elastic]")]
+    assert result["launches"] == 0
+    assert len(lines) == 1 + 3 * chip_smoke.ELASTIC_RUNS
+    assert "max |diff| 0" in lines[0]  # the reference tiles are phase 4's
+    assert all("tiles completed: master" in line for line in lines[1::3])
+    assert all("stage seconds: master" in line for line in lines[2::3])
+
+
+def test_elastic_phase_fails_when_the_worker_is_not_dispatched(monkeypatch,
+                                                               one_torch_thread):
+    """A worker the probe finds offline makes the phase fail, not fall
+    back to a master-only run."""
+    from comfyui_distributed_tpu_torch.api.orchestration import queue_orchestration
+
+    async def nobody(workers, concurrency=8):
+        return []
+
+    monkeypatch.setattr(queue_orchestration, "select_active_workers", nobody)
+    workflow = _tiny_workflow()
+    bundle = tpl.load_pipeline("tiny-unet", seed=0, device="cpu")
+    image = torch.zeros((1, 64, 64, 3))
+    reference, _ = chip_smoke._local_reference(torch, bundle, workflow, image)
+    local = torch.zeros((1, 128, 128, 3))
+    monkeypatch.setattr(chip_smoke, "_local_reference",
+                        lambda *args: (reference, local))
+    with pytest.raises(RuntimeError, match="w1 was not dispatched"):
+        chip_smoke._elastic_phase(torch, bundle, "tiny-unet", workflow, image, local, "cpu")

@@ -1,9 +1,11 @@
-"""The PyTorch port imports no JAX, no flax and nothing of the JAX package.
+"""The PyTorch port imports no JAX, no flax and nothing of the JAX package,
+and no aiohttp and no PIL (the card's machine has neither).
 
 tests/conftest.py imports jax at collection, so the runtime check runs
-in a fresh interpreter. The static scan reads the port's sources (and
-chip_smoke.py, which drives the port on the card) for imports of
-`comfyui_distributed_tpu` that are not `comfyui_distributed_tpu_torch`.
+in a fresh interpreter, where importing aiohttp or PIL raises. The
+static scan reads the port's sources (and chip_smoke.py, which drives
+the port on the card) for imports of `comfyui_distributed_tpu` that are
+not `comfyui_distributed_tpu_torch`, and of aiohttp and PIL.
 """
 
 import ast
@@ -15,14 +17,22 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "comfyui_distributed_tpu_torch")
 
 _CHECK = """
-import importlib, pkgutil, sys
+import importlib, importlib.abc, pkgutil, sys
+
+class Blocked(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("aiohttp", "PIL"):
+            raise ImportError(name + " is blocked: the card's machine has none")
+        return None
+
+sys.meta_path.insert(0, Blocked())
 import comfyui_distributed_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax",
-             "comfyui_distributed_tpu"))
+             "comfyui_distributed_tpu", "aiohttp", "PIL"))
 print("modules=%d" % len(names))
 print("outside=" + ",".join(bad))
 """
@@ -36,8 +46,16 @@ def test_importing_every_port_module_leaves_jax_out():
     )
     assert proc.returncode == 0, proc.stderr
     lines = dict(line.split("=", 1) for line in proc.stdout.splitlines() if "=" in line)
-    assert int(lines["modules"]) >= 20  # executor, nodes, models, ops all imported
+    assert int(lines["modules"]) >= 40  # executor, nodes, models, ops, server, elastic tier
     assert lines["outside"] == "", f"the port pulled in {lines['outside']}"
+
+
+def test_the_server_and_the_elastic_tier_are_among_the_imported_modules():
+    names = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for module in ("api/server.py", "api/httpd.py", "api/usdu_routes.py", "api/job_routes.py",
+                   "api/orchestration/dispatch.py", "graph/usdu_elastic.py",
+                   "graph/tile_pipeline.py", "jobs/store.py", "utils/image.py", "__main__.py"):
+        assert os.path.join("comfyui_distributed_tpu_torch", module) in names
 
 
 def _imported_modules(path):
@@ -65,9 +83,9 @@ def test_port_sources_import_nothing_of_the_jax_package():
         n_files += 1
         for module in _imported_modules(path):
             top = module.split(".")[0]
-            if top in ("jax", "jaxlib", "flax", "comfyui_distributed_tpu"):
+            if top in ("jax", "jaxlib", "flax", "comfyui_distributed_tpu", "aiohttp", "PIL"):
                 offenders.append(f"{os.path.relpath(path, REPO)}: {module}")
-    assert n_files >= 20
+    assert n_files >= 40
     assert offenders == []
 
 

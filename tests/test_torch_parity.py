@@ -8,9 +8,33 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from comfyui_distributed_tpu.models import registry as jreg
 from comfyui_distributed_tpu.models.io import flatten_params
+from comfyui_distributed_tpu_torch.utils.async_helpers import ServerLoopThread
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread per torch call, for tests that run several
+    Python threads calling torch at once (master, worker, pipeline
+    stages): each call's default team of one thread per core would
+    oversubscribe the cores of every test process beside them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def port_loop():
+    """The port's own control-plane loop (tests/conftest.py's server_loop
+    drives the JAX package's)."""
+    loop = ServerLoopThread(name="port-test-loop")
+    loop.start()
+    yield loop
+    loop.stop()
 
 
 def f32(config):

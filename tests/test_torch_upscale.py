@@ -285,13 +285,21 @@ def test_load_and_save_image_nodes_through_the_executor(slice_pair, tmp_path, mo
 
 
 def test_usdu_node_raises_on_unported_branches(slice_pair):
+    """The elastic worker and master branches run now (tests/
+    test_torch_elastic.py); the dynamic whole-image mode, the upscale
+    model and the mesh tier still raise, naming their ROADMAP items."""
     _, tb, _, _, image, _ = slice_pair
     node = tnodes.UltimateSDUpscaleDistributed()
     args = dict(image=torch.from_numpy(image), model=tb, positive=None, negative=None, vae=tb)
-    with pytest.raises(NotImplementedError, match="elastic USDU tier"):
-        node.run(**args, is_worker=True)
+    batch = dict(args, image=torch.from_numpy(np.repeat(image, 8, axis=0)))
+    with pytest.raises(NotImplementedError, match="dynamic .*ROADMAP"):
+        node.run(**batch, is_worker=True)
+    with pytest.raises(NotImplementedError, match="UpscaleModelLoader.*ROADMAP"):
+        node.run(**args, upscale_model=object())
     with pytest.raises(NotImplementedError, match="multi-device tile tier"):
         node.run(**args, context=ExecutionContext(device="cpu", mesh=object()))
+    with pytest.raises(NotImplementedError, match="multi-device tile tier"):
+        node.run(**args, is_worker=True, context=ExecutionContext(device="cpu", mesh=object()))
     with pytest.raises(ValueError, match="unknown sampler"):
         node.run(**args, sampler_name="eulr")
 
