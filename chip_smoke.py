@@ -11,7 +11,11 @@ Phases, each printing lines tagged with its name:
 2. build   - nvcc builds comfyui_distributed_tpu_torch/csrc/
              flash_attention.cu from this checkout.
 3. kernel  - the kernel against its plain PyTorch version at every
-             attention shape of the main path (bf16), in f32, on the fused
+             attention shape of the upscale and txt2img paths (bf16);
+             at D=40, 80 and 160 also f32, an unaligned and a strided view
+             and the edges of the mma instance's tiles (N, M in EDGE_MMA,
+             one head of one batch, fewer timing samples); for D=64 and
+             512 also: in f32, on the fused
              strided qkv view, on small ragged inputs, at the edges of
              the wgmma instance's key tiles (one head of one batch), at
              the edges of the D=512 instance's row blocks and key tiles
@@ -47,8 +51,23 @@ Phases, each printing lines tagged with its name:
              tiles composited the way the elastic master composites
              them (in sorted order, CDT_DETERMINISTIC_BLEND=1; phase 4
              itself takes a weighted average at the seams).
-5. kernels - one JSON line per the port's kernel contract; `launches`
-             counts the elastic run (both participants).
+   txt2img - seed-parallel generation on SD1.5 at full width (seeded
+             random weights, a seeded non-zero out_conv, bf16): phase 4's
+             SDXL is freed; workflows/distributed-txt2img.json, unmodified,
+             through a local GraphExecutor at seeds 42 and 43 (no workers,
+             no SaveImage), then POSTed twice to /distributed/queue with
+             workers ["w1"], a master and a w1 server in this process. The
+             collector's batch must be [2, 512, 512, 3] in [0, 1], the
+             master's image within RERUN_TOLERANCE of seed 42's local run,
+             w1's (an 8-bit PNG envelope) of seed 43's plus half a level,
+             the two images apart, and each run must launch the attention
+             kernel 1282 times (640 mma and 1 wgmma512 per participant).
+   phases  - each phase's seconds.
+5. kernels - one JSON line per the port's kernel contract: entry
+             flash_attention over the upscale path (`launches`: the elastic
+             run, both participants), entry flash_attention_mma over the
+             txt2img path (`launches`: the last txt2img run's mma
+             launches, both participants).
 
 The card's nvidia-smi line and then {"ok": true, "device": ...} close
 the output. Without a CUDA device, or without the port's package beside
@@ -93,6 +112,15 @@ RERUN_TOLERANCE = 0.05
 ELASTIC_RUNS = 2
 ELASTIC_RUN_TIMEOUT_S = 300.0
 USDU_NODE = "5"
+# query and key counts at the edges of the mma instance's 16-row warps,
+# 64-row blocks and 64-key tiles (and M = 77, the text tokens)
+EDGE_MMA = (1, 15, 16, 17, 63, 64, 65, 77, 200)
+# workflows/distributed-txt2img.json's nodes
+T2I_LATENT_NODE, T2I_SEED_NODE, T2I_SAMPLER_NODE = "4", "5", "6"
+T2I_COLLECTOR_NODE, T2I_SAVE_NODE = "8", "9"
+TXT2IMG_RUNS = 2
+# a worker image travels as an 8-bit PNG: half a level of rounding
+PNG_STEP = 0.5 / 255
 
 
 def _require(ok: bool, message: str) -> None:
@@ -132,31 +160,42 @@ def _time_ms(torch, fn, reps: int = 15, inner: int = 10) -> float:
     return statistics.median(samples)
 
 
-def _attention_shapes(unet_cfg, vae_cfg, te_len: int, latent_hw: int, evals: int):
-    """(label, q shape [B, N, H, D], M, launches per tile) of every
-    attention call one tile makes: CFG doubles the UNet batch; each
-    level with transformers runs depth x (res blocks down + res blocks
-    + 1 up) blocks, the mid block max(depth, 1); each block one self-
-    and one cross-attention; the VAE one mid-block attention in encode
-    and one in decode."""
+def _heads(unet_cfg, width: int) -> tuple[int, int]:
+    """(heads, head dim) of a transformer of `width` channels: a fixed
+    head dim (SDXL's convention), else a fixed head count (SD1.5's)."""
+    if unet_cfg.head_dim:
+        return width // unet_cfg.head_dim, unet_cfg.head_dim
+    return unet_cfg.num_heads, width // unet_cfg.num_heads
+
+
+def _attention_shapes(unet_cfg, vae_cfg, te_len: int, latent_hw: int, evals: int,
+                      vae_calls: int = 2):
+    """(label, q shape [B, N, H, D], M, launches per run) of every
+    attention call one tile (or image) makes: CFG doubles the UNet batch;
+    each level with transformers runs depth x (res blocks down + res
+    blocks + 1 up) blocks; the mid block, at the last level's width and
+    side, max(depth, 1); each block one self- and one cross-attention;
+    the VAE `vae_calls` mid-block attentions (2: encode and decode, as a
+    tile; 1: decode only, as txt2img)."""
     shapes = []
     ch = unet_cfg.model_channels
     last = len(unet_cfg.channel_mult) - 1
+    levels = {}
     for level, mult in enumerate(unet_cfg.channel_mult):
         depth = unet_cfg.transformer_depth[level]
-        blocks = depth * (2 * unet_cfg.num_res_blocks + 1)
-        if level == last:
-            blocks += max(depth, 1)
-        if not blocks:
-            continue
         side = latent_hw // 2**level
-        width = ch * mult
-        q = (2, side * side, width // unet_cfg.head_dim, unet_cfg.head_dim)
+        if depth:
+            levels[(side, ch * mult)] = depth * (2 * unet_cfg.num_res_blocks + 1)
+        if level == last:
+            mid = (side, ch * mult)
+            levels[mid] = levels.get(mid, 0) + max(depth, 1)
+    for (side, width), blocks in levels.items():
+        q = (2, side * side, *_heads(unet_cfg, width))
         shapes.append((f"self@{side * side}", q, side * side, blocks * evals))
         shapes.append((f"cross@{side * side}", q, te_len, blocks * evals))
     n = latent_hw * latent_hw
     width = vae_cfg.base_channels * vae_cfg.channel_mult[-1]
-    shapes.append((f"vae@{n}", (1, n, 1, width), n, 2))
+    shapes.append((f"vae@{n}", (1, n, 1, width), n, vae_calls))
     return shapes
 
 
@@ -170,6 +209,43 @@ def _expected_by_instance(attn, shapes, torch) -> dict:
         kv = torch.empty((b, m, h, d), dtype=torch.bfloat16, device="meta")
         counts[attn.plan(q, kv, kv).instance] += per_tile
     return counts
+
+
+def _txt2img_shapes(workflow):
+    """`_attention_shapes` of one image of the txt2img workflow: its
+    checkpoint's UNet (SD1.5: the SD VAE, CLIP-L's 77 tokens), the
+    EmptyLatentImage's size, the KSampler's evaluations, and one VAE
+    decode."""
+    from comfyui_distributed_tpu_torch.models.registry import get_config
+    from comfyui_distributed_tpu_torch.ops.samplers import get_sigmas
+
+    vae_cfg = get_config("vae-sd")
+    sampler = workflow[T2I_SAMPLER_NODE]["inputs"]
+    evals = get_sigmas(sampler["scheduler"], int(sampler["steps"]),
+                       float(sampler["denoise"])).shape[0] - 1
+    latent_hw = int(workflow[T2I_LATENT_NODE]["inputs"]["height"]) // vae_cfg.downscale
+    return _attention_shapes(get_config(workflow["1"]["inputs"]["ckpt_name"]), vae_cfg,
+                             get_config("clip-l").max_length, latent_hw, evals, vae_calls=1)
+
+
+def _expected_instance(attn, head_dim: int, dtype: str, layout: str) -> str:
+    """The instance a check's inputs must reach: the FMA kernel for f32 and
+    unaligned views, else the tensor-core instance of the head dim."""
+    if dtype == "float32" or layout == "unaligned":
+        return "fma"
+    if head_dim in attn.MMA_HEAD_DIMS:
+        return "mma"
+    return "wgmma" if head_dim == 64 else "wgmma512"
+
+
+def _seed_out_conv(torch, bundle, gen) -> None:
+    """A seeded non-zero out_conv (N(0, 1/fan_in)), so the UNet's output
+    counts: random-init bundles start it at zero, as the JAX package
+    does."""
+    out_w = bundle.unet.out_conv.weight
+    with torch.no_grad():
+        out_w.copy_(torch.randn(out_w.shape, generator=gen, device=out_w.device)
+                    / math.sqrt(out_w[0].numel()))
 
 
 def _bounds(q_shape, m: int, dtype: str):
@@ -426,6 +502,174 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
     return result
 
 
+def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int | None = None,
+                   expected_by_instance: dict | None = None, runs: int = TXT2IMG_RUNS) -> dict:
+    """Seed-parallel txt2img over HTTP (see the module docstring): local
+    references at the master's seed and w1's, then the unmodified
+    workflow POSTed `runs` times to a master with worker w1, both servers
+    in this process sharing `bundle`. Prints the [txt2img] lines and
+    returns the last run's attention launches. With `expected_launches`
+    None (no card) the launch counts go unchecked."""
+    from comfyui_distributed_tpu_torch.api.server import DistributedServer
+    from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
+    from comfyui_distributed_tpu_torch.ops import attention as attn
+    from comfyui_distributed_tpu_torch.utils import config as config_mod
+    from comfyui_distributed_tpu_torch.utils import image as img_utils
+    from comfyui_distributed_tpu_torch.utils.async_helpers import ServerLoopThread
+    from comfyui_distributed_tpu_torch.utils.network import request_json
+
+    cuda = device.startswith("cuda")
+    ckpt = workflow["1"]["inputs"]["ckpt_name"]
+    seed = int(workflow[T2I_SEED_NODE]["inputs"]["seed"])
+    latent = workflow[T2I_LATENT_NODE]["inputs"]
+    size = (int(latent["height"]), int(latent["width"]), 3)
+
+    def counts():
+        return attn.flash_attention.launches, dict(attn.flash_attention.launches_by_instance)
+
+    def check_launches(launches, by_instance, participants):
+        if expected_launches is None:
+            return
+        want = {name: n * participants // 2 for name, n in expected_by_instance.items()}
+        _require(launches == expected_launches * participants // 2,
+                 f"{launches} attention launches, expected {expected_launches * participants // 2}")
+        _require(by_instance == want, f"launches by instance {by_instance}, expected {want}")
+
+    # local references: the workflow without workers or SaveImage, at the
+    # master's seed and at w1's (seed + worker index 0 + 1)
+    context = ExecutionContext(device=device)
+    context.pipelines[ckpt] = bundle
+    executor = GraphExecutor(context)
+    local = {}
+    for s in (seed, seed + 1):
+        prompt = copy.deepcopy(workflow)
+        del prompt[T2I_SAVE_NODE]
+        prompt[T2I_SEED_NODE]["inputs"]["seed"] = s
+        if cuda:
+            torch.cuda.synchronize()
+        attn.reset_launch_counts()
+        started = time.perf_counter()
+        executor.execute(prompt)
+        images = executor.last_results[T2I_COLLECTOR_NODE][0]
+        if cuda:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - started
+        launches, by_instance = counts()
+        print(f"[txt2img] local run, seed {s}: {seconds:.2f} s, {images.shape[0] / seconds:.4f} "
+              f"images/s; flash_attention launches {launches}, by instance {by_instance}; node "
+              f"times {executor.last_timings}")
+        _require(tuple(images.shape) == (1, *size), f"local output shape {tuple(images.shape)}")
+        _require(bool(torch.isfinite(images).all()), "non-finite local output")
+        check_launches(launches, by_instance, 1)
+        local[s] = images[0].float()
+    result = {}
+    with tempfile.TemporaryDirectory(prefix="cdt_txt2img_") as tmp:
+        out_dir = os.path.join(tmp, "output")
+        master_port, worker_port = _free_port(), _free_port()
+        config_path = os.path.join(tmp, "config.json")
+        config_mod.save_config({
+            "master": {"host": "127.0.0.1"},
+            "workers": [{"id": "w1", "name": "w1", "type": "remote", "host": "127.0.0.1",
+                         "port": worker_port, "enabled": True}],
+            "settings": {"input_dir": tmp, "output_dir": out_dir},
+        }, config_path)
+        loop = ServerLoopThread()
+        loop.start()
+        master = DistributedServer(port=master_port, is_worker=False, config_path=config_path,
+                                   device=device)
+        worker = DistributedServer(port=worker_port, is_worker=True, config_path=config_path,
+                                   device=device)
+        for server in (master, worker):
+            server.execution_context.pipelines[ckpt] = bundle  # shared weights
+        try:
+            async def boot():
+                await master.start()
+                await worker.start()
+
+            asyncio.run_coroutine_threadsafe(boot(), loop.loop).result(timeout=60)
+            base = f"http://127.0.0.1:{master_port}"
+            for run in range(1, runs + 1):
+                # every run samples: the servers' node caches would hand a
+                # repeated prompt its last images
+                for server in (master, worker):
+                    server.execution_context.extras.pop("node_cache", None)
+                if cuda:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                attn.reset_launch_counts()
+                started = time.perf_counter()
+                status, queued = request_json("POST", f"{base}/distributed/queue", {
+                    "prompt": workflow, "client_id": "chip_smoke", "workers": ["w1"],
+                }, timeout=120)
+                _require(status == 200, f"/distributed/queue answered {status}: {queued}")
+                _require(queued.get("workers") == ["w1"],
+                         f"w1 was not dispatched (probe or dispatch failed): {queued}")
+                deadline = time.monotonic() + ELASTIC_RUN_TIMEOUT_S
+                history = _wait_done(request_json, f"{base}/history/{queued['prompt_id']}",
+                                     deadline)
+                worker_history = _wait_done(
+                    request_json,
+                    f"http://127.0.0.1:{worker_port}/history/{queued['trace_id']}_w0", deadline)
+                if cuda:
+                    torch.cuda.synchronize()
+                seconds = time.perf_counter() - started
+                _require(history.get("error") is None, f"master prompt failed: {history}")
+                _require(worker_history.get("error") is None,
+                         f"worker prompt failed: {worker_history}")
+                _require(history["timings"].get(T2I_SAMPLER_NODE, 0.0) > 0.0
+                         and worker_history["timings"].get(T2I_SAMPLER_NODE, 0.0) > 0.0,
+                         "a participant's KSampler did not run")
+                launches, by_instance = counts()
+                peak = torch.cuda.max_memory_allocated() if cuda else 0
+                job = master.job_store.collectors[queued["job_ids"][T2I_COLLECTOR_NODE]]
+                out = master.get_job(queued["prompt_id"]).outputs[T2I_SAVE_NODE][0]["images"]
+                master_s = sum(history["timings"].values())
+                worker_s = sum(worker_history["timings"].values())
+                print(f"[txt2img] run {run}: {seconds:.2f} s, {out.shape[0] / seconds:.4f} "
+                      f"images/s; node seconds summed: master {master_s:.2f} (collector "
+                      f"{history['timings'].get(T2I_COLLECTOR_NODE, 0.0):.2f}), w1 "
+                      f"{worker_s:.2f}; flash_attention launches {launches}, by instance "
+                      f"{by_instance}; peak {peak / 2**30:.2f} GiB; w1 envelopes "
+                      f"{job.received}, bytes received {job.received_bytes}")
+                _require(tuple(out.shape) == (2, *size), f"output shape {tuple(out.shape)}")
+                _require(out.device.type == torch.device(device).type,
+                         f"the output was computed on {out.device}, not {device}")
+                _require(bool(torch.isfinite(out).all()), "non-finite output")
+                _require(float(out.min()) >= 0.0 and float(out.max()) <= 1.0,
+                         "output outside [0, 1]")
+                _require(job.received == {"w1": 1} and job.finished_workers == {"w1"},
+                         f"w1's envelopes: {job.received}, finished {job.finished_workers}")
+                saved = history["outputs"][T2I_SAVE_NODE]["images"]
+                _require(len(saved) == 2, f"saved {saved}")
+                for name in saved:
+                    with open(os.path.join(out_dir, name), "rb") as fh:
+                        _require(img_utils.decode_png_u8(fh.read()).shape == size,
+                                 f"{name} is not {size}")
+                d0 = float((out[0].float() - local[seed].to(out.device)).abs().max())
+                d1 = float((out[1].float() - local[seed + 1].to(out.device)).abs().max())
+                d01 = float((out[0] - out[1]).float().abs().max())
+                print(f"[txt2img] run {run} output {tuple(out.shape)} in "
+                      f"[{float(out.min()):.4f}, {float(out.max()):.4f}]; max |diff| image 0 vs "
+                      f"the local seed {seed} {d0:.3g} (tolerance {RERUN_TOLERANCE}), image 1 vs "
+                      f"the local seed {seed + 1} {d1:.3g} (tolerance "
+                      f"{RERUN_TOLERANCE + PNG_STEP:.4f}), image 0 vs 1 {d01:.3g} (> 0.05)")
+                _require(d0 <= RERUN_TOLERANCE, "the master's image is not the local seed's")
+                _require(d1 <= RERUN_TOLERANCE + PNG_STEP, "w1's image is not the local seed's")
+                _require(d01 > 0.05, "the master's and w1's images do not differ")
+                check_launches(launches, by_instance, 2)
+                result = {"launches": launches, "launches_by_instance": by_instance}
+        finally:
+            async def teardown():
+                await master.stop()
+                await worker.stop()
+
+            try:
+                asyncio.run_coroutine_threadsafe(teardown(), loop.loop).result(timeout=60)
+            finally:
+                loop.stop()
+    return result
+
+
 def _rounded(seconds: dict) -> dict:
     return {stage: round(value, 4) for stage, value in sorted(seconds.items())}
 
@@ -466,6 +710,7 @@ def main() -> int:
             print(f"[build] ptxas: {line.strip()}")
 
     # --- 3. kernel vs plain --------------------------------------------------
+    phase_started = time.perf_counter()
     workflow_path = os.path.join(REPO, "workflows", "distributed-upscale.json")
     with open(workflow_path, encoding="utf-8") as fh:
         workflow = json.load(fh)
@@ -478,6 +723,9 @@ def main() -> int:
     per_tile = sum(count for *_, count in shapes)
     n_tiles = plan_grid(IMAGE_PX, IMAGE_PX, float(usdu["upscale_by"]), int(usdu["tile_width"]),
                         int(usdu["tile_padding"]), int(usdu["tile_height"]))[2].num_tiles
+    with open(os.path.join(REPO, "workflows", "distributed-txt2img.json"), encoding="utf-8") as fh:
+        t2i_workflow = json.load(fh)
+    t2i_shapes = _txt2img_shapes(t2i_workflow)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -493,61 +741,86 @@ def main() -> int:
     # differ in summation order (~1e-6 relative); in bf16 the final
     # rounding can then land one bf16 step (2^-8 relative) apart
     tolerance = {"bfloat16": (2.0**-7, 1e-3), "float32": (1e-5, 2e-5)}
-    max_err = 0.0
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-              "ops_ms": 0.0, "bytes_ms": 0.0}
-    checks = [(label, q, m, "bfloat16", count, "contiguous") for label, q, m, count in shapes]
+    # per main-path unit: the SDXL upscale's tile, the txt2img image
+    totals = {path: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                     "ops_ms": 0.0, "bytes_ms": 0.0} for path in ("upscale", "txt2img")}
+    max_err = dict.fromkeys(attn.INSTANCES, 0.0)
+    # (label, q shape, M, dtype, (path, launches per unit) or None, layout)
+    checks = [(label, q, m, "bfloat16", ("upscale", count), "contiguous")
+              for label, q, m, count in shapes]
     self_lo = [s for s in shapes if s[0].startswith("self@")][-1]  # the deepest level
     checks += [
-        (f"{self_lo[0]} f32", self_lo[1], self_lo[2], "float32", 0, "contiguous"),
-        (f"{self_lo[0]} strided", self_lo[1], self_lo[2], "bfloat16", 0, "fused"),
-        ("ragged 81x77", (1, 81, 2, 64), 77, "bfloat16", 0, "contiguous"),
-        ("ragged 200x190 D512 f32", (1, 200, 1, 512), 190, "float32", 0, "contiguous"),
+        (f"{self_lo[0]} f32", self_lo[1], self_lo[2], "float32", None, "contiguous"),
+        (f"{self_lo[0]} strided", self_lo[1], self_lo[2], "bfloat16", None, "fused"),
+        ("ragged 81x77", (1, 81, 2, 64), 77, "bfloat16", None, "contiguous"),
+        ("ragged 200x190 D512 f32", (1, 200, 1, 512), 190, "float32", None, "contiguous"),
     ]
-    checks += [(f"edge 200x{m} B*H=1", (1, 200, 1, 64), m, "bfloat16", 0, "contiguous")
+    checks += [(f"edge 200x{m} B*H=1", (1, 200, 1, 64), m, "bfloat16", None, "contiguous")
                for m in EDGE_KEYS]
-    checks += [(f"edge D512 {n}x{m} B*H=2*2", (2, n, 2, 512), m, "bfloat16", 0, "contiguous")
+    checks += [(f"edge D512 {n}x{m} B*H=2*2", (2, n, 2, 512), m, "bfloat16", None, "contiguous")
                for n in EDGE_ROWS_512 for m in EDGE_KEYS_512]
     checks += [
-        ("D512 strided", (2, 150, 2, 512), 150, "bfloat16", 0, "fused"),
-        ("D512 rows 16 bytes off 128", (2, 100, 2, 512), 100, "bfloat16", 0, "offset"),
+        ("D512 strided", (2, 150, 2, 512), 150, "bfloat16", None, "fused"),
+        ("D512 rows 16 bytes off 128", (2, 100, 2, 512), 100, "bfloat16", None, "offset"),
         (f"vae@{VAE_1024_TOKENS} (1024-px tile)", (1, VAE_1024_TOKENS, 1, 512), VAE_1024_TOKENS,
-         "bfloat16", 0, "contiguous"),
+         "bfloat16", None, "contiguous"),
     ]
+    # txt2img on SD1.5: its shapes, then f32, an unaligned, a strided view
+    # and the edges of the mma instance's 16-row warps, 64-row blocks and
+    # 64-key tiles at every new head dim
+    checks += [(f"txt2img {label}", q, m, "bfloat16", ("txt2img", count), "contiguous")
+               for label, q, m, count in t2i_shapes]
+    for d in attn.MMA_HEAD_DIMS:
+        checks += [
+            (f"D{d} ragged 1000x777 f32", (1, 1000, 2, d), 777, "float32", None, "contiguous"),
+            (f"D{d} unaligned 300x300", (2, 300, 2, d), 300, "bfloat16", None, "unaligned"),
+            (f"D{d} strided 150x150", (2, 150, 4, d), 150, "bfloat16", None, "fused"),
+        ]
+        checks += [(f"edge D{d} {n}x{m} B*H=1", (1, n, 1, d), m, "bfloat16", None, "edge")
+                   for n in EDGE_MMA for m in EDGE_MMA]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     tile_lines = []
     host_inputs = None
-    for label, q_shape, m, dtype, count, layout in checks:
+    for label, q_shape, m, dtype, unit, layout in checks:
         tdtype = getattr(torch, dtype)
+        b, n, h, d = q_shape
         if layout == "offset":  # rows 16 bytes into a pitch of D + 8 elements
-            b, n, h, d = q_shape
             wide = torch.randn((3, b, n, h, d + 8), generator=gen, device="cuda").to(tdtype)
             q, k, v = (t[..., 8:] for t in wide.unbind(0))
             _require(q.data_ptr() % 128 == 16, "the offset view starts 16 bytes off 128")
+        elif layout == "unaligned":  # rows 2 bytes off 16, a pitch of D + 1 elements
+            wide = torch.randn((3, b, n, h, d + 1), generator=gen, device="cuda").to(tdtype)
+            q, k, v = (t[..., 1:] for t in wide.unbind(0))
+            _require(q.data_ptr() % 16 != 0, "the unaligned view starts off 16 bytes")
         elif layout == "fused":  # q, k, v as views into one fused [B, N, 3, H, D] buffer
-            b, n, h, d = q_shape
             fused = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").to(tdtype)
             q, k, v = fused.unbind(2)
         else:
             q, k, v = inputs(q_shape, m, tdtype)
+        plan = attn.plan(q, k, v, sms)
+        expected = _expected_instance(attn, d, dtype, layout)
+        _require(plan.instance == expected,
+                 f"{label}: the router chose {plan.instance}, expected {expected}")
         out = attn.flash_attention(q, k, v)
         ref = attn.flash_attention_reference(q, k, v)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
         rtol, atol = tolerance[dtype]
         ok = bool(torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol))
-        max_err = max(max_err, err)
-        kernel_ms = _time_ms(torch, lambda: attn.flash_attention(q, k, v))
-        plain_ms = _time_ms(torch, lambda: attn.flash_attention_reference(q, k, v))
+        max_err[plan.instance] = max(max_err[plan.instance], err)
+        # the edges are many and small: fewer samples
+        reps = (3, 3) if layout == "edge" else (15, 10)
+        kernel_ms = _time_ms(torch, lambda: attn.flash_attention(q, k, v), *reps)
+        plain_ms = _time_ms(torch, lambda: attn.flash_attention_reference(q, k, v), *reps)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), *reps)
         ops_ms, bytes_ms = _bounds(q.shape, k.shape[1], dtype)
         bound_ms = max(ops_ms, bytes_ms)
-        b, n, h, d = q.shape
-        plan = attn.plan(q, k, v, sms)
         per_sm = attn.blocks_per_sm(plan, q.dtype, d)
         ctas = plan.ctas(b, n, h)
-        print(f"[kernel] {label} {dtype} q={tuple(q.shape)} M={k.shape[1]} launches/tile={count} "
+        count = unit[1] if unit else 0
+        print(f"[kernel] {label} {dtype} q={tuple(q.shape)} M={k.shape[1]} "
+              f"launches/{'image' if unit and unit[0] == 'txt2img' else 'tile'}={count} "
               f"max_abs_err={err:.3g} tol=|d|<={atol:g}+{rtol:g}|ref| {'ok' if ok else 'FAIL'} "
               f"kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
               f"bound_ms={bound_ms:.5f} ({'operations' if ops_ms >= bytes_ms else 'bytes'}) "
@@ -555,25 +828,28 @@ def main() -> int:
               f"masked={plan.masked_share(m):.4f} rows/cta={plan.rows_per_cta} "
               f"splits={plan.splits} ctas={ctas} ctas/sm={per_sm} "
               f"waves={ctas / (per_sm * sms):.3f}")
-        if plan.instance == "wgmma" and count:
+        if unit and unit[0] == "upscale" and plan.instance == "wgmma":
             plans = [attn.Plan("wgmma", keys, attn.WGMMA_ROWS) for keys in attn.WGMMA_KEY_TILES]
             tile_lines.append(_time_plans(torch, attn, label, q, k, v, plans, plan))
             if host_inputs is None or q.numel() > host_inputs[0].numel():
                 host_inputs = (q, k, v)
-        if plan.instance == "wgmma512" and count:
+        if unit and unit[0] == "upscale" and plan.instance == "wgmma512":
             plans = [attn.Plan("wgmma512", attn.WGMMA512_KEYS, attn.WGMMA_ROWS, splits)
                      for splits in SPLITS_TIMED if splits <= plan.key_tiles(m)]
             tile_lines.append(_time_plans(torch, attn, label, q, k, v, plans, plan))
         _require(ok, f"kernel disagrees with its plain version at {label} ({err:.3g})")
-        for key, val in (("ms", kernel_ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
-                         ("bound_ms", bound_ms), ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
-            totals[key] += count * val
+        if unit and (unit[0] == "upscale" or plan.instance == "mma"):
+            for key, val in (("ms", kernel_ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                             ("bound_ms", bound_ms), ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
+                totals[unit[0]][key] += count * val
 
     for line in tile_lines:
         print(line)
     print(_host_us_per_call(torch, attn, *host_inputs))
+    phase_seconds = {"kernel": time.perf_counter() - phase_started}
 
     # --- 4. main path --------------------------------------------------------
+    phase_started = time.perf_counter()
     prompt = copy.deepcopy(workflow)
     del prompt["4"], prompt["6"]  # LoadImage → a seeded image; no SaveImage
     rng = np.random.default_rng(SEED)
@@ -584,9 +860,7 @@ def main() -> int:
     ckpt = prompt["1"]["inputs"]["ckpt_name"]
     started = time.perf_counter()
     bundle = pl.load_pipeline(ckpt, seed=0, device="cuda")
-    out_w = bundle.unet.out_conv.weight
-    with torch.no_grad():
-        out_w.copy_(torch.randn(out_w.shape, generator=gen, device="cuda") / math.sqrt(out_w[0].numel()))
+    _seed_out_conv(torch, bundle, gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for m in (bundle.unet, bundle.vae, bundle.text_encoder,
                                        bundle.text_encoder_2) for p in m.parameters())
@@ -631,35 +905,82 @@ def main() -> int:
           f"{float(outputs[1].max()):.4f}], mean {float(outputs[1].mean()):.4f}; "
           f"run 1 vs run 2 max |diff| {rerun_diff:.3g}")
     _require(rerun_diff <= RERUN_TOLERANCE, "two runs of one seed disagree")
+    phase_seconds["main"] = time.perf_counter() - phase_started
 
     # --- 4b. elastic -----------------------------------------------------------
+    phase_started = time.perf_counter()
     elastic = _elastic_phase(
         torch, bundle, ckpt, workflow, prompt["5"]["inputs"]["image"], outputs[1], "cuda",
         expected_launches=n_tiles * per_tile, expected_by_instance=expected_by_instance,
         local_tiles_per_s=n_tiles / seconds,
     )
+    phase_seconds["elastic"] = time.perf_counter() - phase_started
+
+    # --- 4c. txt2img -------------------------------------------------------------
+    phase_started = time.perf_counter()
+    # SDXL's weights are not needed again
+    del bundle, context, executor, outputs, image, prompt
+    torch.cuda.empty_cache()
+    t2i_ckpt = t2i_workflow["1"]["inputs"]["ckpt_name"]
+    started = time.perf_counter()
+    t2i_bundle = pl.load_pipeline(t2i_ckpt, seed=0, device="cuda")
+    _seed_out_conv(torch, t2i_bundle, gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for m in (t2i_bundle.unet, t2i_bundle.vae, t2i_bundle.text_encoder)
+                   for p in m.parameters())
+    print(f"[txt2img] {t2i_ckpt}: {n_params / 1e9:.3f}B parameters, seeded random init on the "
+          f"card in {time.perf_counter() - started:.1f} s (compute dtype "
+          f"{get_config(t2i_ckpt).dtype})")
+    per_image = sum(count for *_, count in t2i_shapes)
+    t2i_expected = {name: 2 * count for name, count in
+                    _expected_by_instance(attn, t2i_shapes, torch).items()}
+    txt2img = _txt2img_phase(torch, t2i_bundle, t2i_workflow, "cuda",
+                             expected_launches=2 * per_image, expected_by_instance=t2i_expected)
+    phase_seconds["txt2img"] = time.perf_counter() - phase_started
+    print("[phases] seconds: " + ", ".join(f"{name} {sec:.1f}" for name, sec in
+                                           phase_seconds.items()))
 
     # --- 5. kernels ----------------------------------------------------------
-    print("[kernels] ms, plain_ms, library_ms and bound_ms are per tile: each main-path "
-          "shape's time times its launches per tile, summed; launches: the last elastic run, "
-          "master and w1 together (launches_main: phase 4's last run)")
-    kernels = {"kernels": [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "comfyui_distributed_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "comfyui_distributed_tpu/ops/attention.py:80",
-        "launches": elastic["launches"],
-        "launches_by_instance": elastic["launches_by_instance"],
-        "launches_main": launches,
-        "launches_by_instance_main": by_instance,
-        "max_abs_err": max_err,
-        "ms": totals["ms"],
-        "plain_ms": totals["plain_ms"],
-        "bound_ms": totals["bound_ms"],
-        "bound_by": "operations" if totals["ops_ms"] >= totals["bytes_ms"] else "bytes",
-        "library_ms": totals["library_ms"],
-        "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
-    }]}
+    print("[kernels] flash_attention: ms, plain_ms, library_ms and bound_ms are per SDXL tile "
+          "(each upscale shape's time times its launches per tile, summed); launches: the last "
+          "elastic run, master and w1 together (launches_main: phase 4's last run). "
+          "flash_attention_mma: the same per 512-px SD1.5 image over the shapes the mma "
+          "instance takes; launches: the last txt2img run, master and w1 together")
+    source = "comfyui_distributed_tpu_torch/csrc/flash_attention.cu"
+    replaces = "comfyui_distributed_tpu/ops/attention.py:80"
+
+    def numbers(path):
+        t = totals[path]
+        return {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes",
+                "library_ms": t["library_ms"]}
+
+    kernels = {"kernels": [
+        {
+            "name": "flash_attention",
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": elastic["launches"],
+            "launches_by_instance": elastic["launches_by_instance"],
+            "launches_main": launches,
+            "launches_by_instance_main": by_instance,
+            "max_abs_err": max(max_err[i] for i in ("wgmma", "wgmma512", "fma")),
+            **numbers("upscale"),
+            "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
+        },
+        {
+            "name": "flash_attention_mma",
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": txt2img["launches_by_instance"]["mma"],
+            "launches_by_instance": txt2img["launches_by_instance"],
+            "max_abs_err": max_err["mma"],
+            **numbers("txt2img"),
+            "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
+        },
+    ]}
     print(json.dumps(kernels))
     print(_nvidia_smi())
     print(json.dumps({"ok": True, "device": {

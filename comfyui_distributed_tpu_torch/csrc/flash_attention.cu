@@ -17,6 +17,11 @@
 //   self@324   [2,324,20,64]  x 324   bytes       2.0 us
 //   cross@324  [2,324,20,64]  x 77    bytes       1.2 us
 //   vae@5184   [1,5184,1,512] x 5184  operations  55.7 us
+// and of one 512-px SD1.5 image (txt2img):
+//   self@4096  [2,4096,8,40]  x 4096  operations 43.4 us
+//   self@1024  [2,1024,8,80]  x 1024  operations  5.4 us
+//   self@256   [2,256,8,160]  x 256   bytes       1.6 us
+//   cross@4096, @1024, @256 (M = 77)  bytes       3.2, 1.7, 1.0 us
 // Every kernel below shares three choices about that bound:
 //   * the running max, sum and accumulator never leave registers; the only
 //     device-memory traffic is one read of each tile and one write of o.
@@ -24,7 +29,8 @@
 //     their scores are set to -inf before the max; Q rows past N load as
 //     zeros and are never stored.
 //   * head dims are template instances, no lane padding (the TPU kernel
-//     padded D to 128 for its lanes).
+//     padded D to 128 for its lanes; only D = 40's Q K^T runs 8 zero
+//     columns wider, for mma's k = 16).
 // The instance is chosen by the caller (ops/attention.py::plan) and passed
 // in as a code; an instance or tile shape not compiled here returns -1.
 //
@@ -91,15 +97,42 @@
 //     (TMA zero-fills rows past N or M, masked keys score -inf, rows past
 //     N are not stored).
 
-// Both tensor-core kernels need 16-byte aligned rows (TMA); other views
-// take the kernel below.
+// flash_attention_fwd_mma_kernel, bf16, D = 40, 80 and 160 (instance 1;
+// SD1.5's self- and cross-attention, 640 calls of a 512-px image): the
+// same port on the warp-level tensor cores, mma.sync m16n8k16 with f32
+// accumulators, fed by cp.async. A simple kernel, not yet redesigned for
+// Hopper's asynchronous units.
+//   * A block is four warps, 64 query rows, 16 per warp; K and V come in
+//     64-key tiles through two shared-memory buffers, the next tile's copy
+//     in flight while the current one is used. 16-byte cp.async chunks
+//     (5, 10 or 20 a row); keys past M and query rows past N load as
+//     zeros (a source size of 0).
+//   * D = 40 is not a multiple of mma's k = 16: Q K^T runs over 48
+//     columns, the Q and K tiles' columns 40 .. 47 zeroed once, which adds
+//     nothing to a dot product (the TPU wrapper pads D to 128 the same
+//     way). P V's n-tiles are 8 wide, so V and O keep their 40 columns.
+//   * Shared rows are padded to D rounded up to 16, plus 8 elements (56,
+//     88, 168): the eight rows a fragment load touches then start on eight
+//     different 4-bank groups, so every read is free of bank conflicts.
+//   * The Q fragments are read from shared memory per k-step of Q K^T,
+//     not kept in registers: at D = 160 the 64 x 160 f32 accumulator is
+//     already 80 registers a thread.
+//   * The online softmax in registers, in exp2 units; P goes into P V as
+//     two bf16 products (head and tail), as in the wgmma kernels; V's B
+//     fragments by ldmatrix.trans.
+
+// The tensor-core kernels need 16-byte aligned rows (TMA, cp.async); other
+// views take the kernel below.
 //
-// flash_attention_fwd_kernel, f32 (either D) and unaligned bf16 (instance
+// flash_attention_fwd_kernel, f32 (any D) and unaligned bf16 (instance
 // 0): dot products with f32 FMAs from shared memory. Q, K and V tiles are
 // staged as f32 (bf16 widened on load), rows padded by 4 floats so every
 // operand read is a conflict-free 16-byte load feeding four FMAs.
 //   D = 64:  64-row Q tile, 64-row K/V tiles, 4 threads per query row,
 //            52 KB of dynamic shared memory.
+//   D = 40:  128-row Q tile, 2 threads per row (40 = 5 float4 groups of
+//            two threads), 44 KB.
+//   D = 80, 160: as D = 64; 63 KB and 123 KB.
 //   D = 512: the Q tile shrinks to 32 rows with 8 threads per row, each
 //            holding 64 accumulator floats in registers; Q, K and V tiles of
 //            32 x 516 floats take 198 KB of dynamic shared memory. Every
@@ -121,6 +154,7 @@ namespace {
 
 // Instance codes, shared with ops/attention.py (INSTANCES).
 constexpr int kInstanceFma = 0;
+constexpr int kInstanceMma = 1;
 constexpr int kInstanceWgmma = 2;
 constexpr int kInstanceWgmma512 = 3;
 
@@ -166,7 +200,22 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
 template <int D>
 struct TileShape;
 template <>
+struct TileShape<40> {
+  static constexpr int kQ = 128;
+  static constexpr int kK = 64;
+};
+template <>
 struct TileShape<64> {
+  static constexpr int kQ = 64;
+  static constexpr int kK = 64;
+};
+template <>
+struct TileShape<80> {
+  static constexpr int kQ = 64;
+  static constexpr int kK = 64;
+};
+template <>
+struct TileShape<160> {
   static constexpr int kQ = 64;
   static constexpr int kK = 64;
 };
@@ -633,6 +682,279 @@ __global__ void __launch_bounds__(kWgThreads, kWgBlocksPerSm)
   }
 }
 
+// ---- tensor-core kernel: bf16, D = 40, 80, 160 (mma.sync) --------------------
+//
+// Fragment layouts of mma.sync m16n8k16 (PTX ISA), for lane = 4 * g + t:
+//   A (16 x 16, row-major), 4 registers of 2 bf16: rows g | g + 8 | g | g + 8,
+//     columns 2t, 2t + 1 | 2t, 2t + 1 | 2t + 8, 2t + 9 | 2t + 8, 2t + 9.
+//   B (16 x 8, k x n), 2 registers: k = 2t, 2t + 1 | 2t + 8, 2t + 9; n = g.
+//   C (16 x 8 f32), 4 floats: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+// The lower half of a register holds the element with the lower index.
+
+constexpr int kMmaRowGroups = 4;              // warps, 16 query rows each
+constexpr int kMmaRows = 16 * kMmaRowGroups;  // query rows per block
+constexpr int kMmaThreads = 32 * kMmaRowGroups;
+constexpr int kMmaKeys = 64;                  // keys per K/V tile
+
+template <int D>
+struct MmaShape {
+  static_assert(D % 8 == 0 && D <= 256, "P V's n-tiles and 16-byte chunks");
+  static constexpr int kQk = (D + 15) / 16 * 16;  // Q K^T's width: D rounded up to k = 16
+  static constexpr int kLd = kQk + 8;             // padded shared row, in bf16
+  // the Q tile and two K and two V tiles
+  static constexpr size_t kSmem = static_cast<size_t>(kMmaRows + 4 * kMmaKeys) * kLd * 2;
+  static_assert((kLd / 2) % 8 == 4, "8 rows of a fragment on 8 different 4-bank groups");
+  static_assert(kSmem <= 232448, "227 KB of shared memory a block");
+};
+
+__device__ __forceinline__ uint32_t shared_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 8 x 8 bf16 matrices, transposed: lanes 8j .. 8j + 7 give the row
+// addresses of matrix j, and register j of lane 4g + t receives its
+// elements (2t, g) and (2t + 1, g). x4 reads four matrices, x2 two
+// (lanes 0 .. 15 give the addresses).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+}
+
+// Starts the copy of rows [row0, row0 + ROWS) of one head (D columns) into
+// a tile of row pitch LD, 16 bytes per cp.async; rows at or past `limit`
+// are filled with zeros (a source size of 0, reading nothing).
+template <int ROWS, int D, int LD>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                                long long row_stride, int row0, int limit) {
+  constexpr int kChunks = D / 8;
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += kMmaThreads) {
+    const int r = i / kChunks;
+    const int c = i % kChunks;
+    const bool valid = row0 + r < limit;
+    const __nv_bfloat16* from =
+        valid ? src + static_cast<long long>(row0 + r) * row_stride + 8 * c : src;
+    const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst + r * LD + 8 * c));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(to), "l"(from),
+                 "r"(valid ? 16 : 0));
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                                   const __nv_bfloat16* __restrict__ k,
+                                   const __nv_bfloat16* __restrict__ v,
+                                   __nv_bfloat16* __restrict__ o, int n, int m, int heads,
+                                   long long q_sb, long long q_sn, long long q_sh, long long k_sb,
+                                   long long k_sm, long long k_sh, long long v_sb, long long v_sm,
+                                   long long v_sh, long long o_sb, long long o_sn, long long o_sh,
+                                   float scale_log2) {
+  using S = MmaShape<D>;
+  constexpr int LD = S::kLd;
+  constexpr int KS = S::kQk / 16;   // k-steps of Q K^T
+  constexpr int NS = kMmaKeys / 8;  // score n-tiles per key tile
+  constexpr int PS = kMmaKeys / 16; // k-steps of P V over a key tile
+  constexpr int NO = D / 8;         // output n-tiles
+  extern __shared__ float4 mma_smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  __nv_bfloat16* ks = qs + kMmaRows * LD;  // two buffers
+  __nv_bfloat16* vs = ks + 2 * kMmaKeys * LD;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int b = blockIdx.y / heads;
+  const int h = blockIdx.y % heads;
+  const int q0 = blockIdx.x * kMmaRows;
+  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
+  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
+  const int tiles = (m + kMmaKeys - 1) / kMmaKeys;
+
+  if constexpr (S::kQk != D) {
+    // Q K^T's padding columns of the Q tile and both K buffers, zeroed
+    // once: the copies below never write them
+    constexpr int kPad = S::kQk - D;
+    for (int i = threadIdx.x; i < (kMmaRows + 2 * kMmaKeys) * kPad; i += kMmaThreads)
+      qs[(i / kPad) * LD + D + i % kPad] = __float2bfloat16(0.f);
+  }
+  load_tile_async<kMmaRows, D, LD>(qs, q + b * q_sb + h * q_sh, q_sn, q0, n);
+  load_tile_async<kMmaKeys, D, LD>(ks, kb, k_sm, 0, m);
+  load_tile_async<kMmaKeys, D, LD>(vs, vb, v_sm, 0, m);
+  cp_async_commit();
+
+  // rows g and g + 8 of this warp's 16; scores are kept in log2 units
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float row_max[2] = {-INFINITY, -INFINITY};
+  float row_sum[2] = {0.f, 0.f};  // this lane's columns only, summed at the end
+  const __nv_bfloat16* qw = qs + (16 * warp + g) * LD + 2 * t;
+
+  for (int i = 0; i < tiles; ++i) {
+    const int k0 = i * kMmaKeys;
+    // the next tile's copy runs while this one is used
+    if (i + 1 < tiles) {
+      const int next = (i + 1) & 1;
+      load_tile_async<kMmaKeys, D, LD>(ks + next * kMmaKeys * LD, kb, k_sm, k0 + kMmaKeys, m);
+      load_tile_async<kMmaKeys, D, LD>(vs + next * kMmaKeys * LD, vb, v_sm, k0 + kMmaKeys, m);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* kt = ks + (i & 1) * kMmaKeys * LD;
+    const __nv_bfloat16* vt = vs + (i & 1) * kMmaKeys * LD;
+
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint32_t qa[4] = {shared_u32(qw + 16 * kk), shared_u32(qw + 8 * LD + 16 * kk),
+                              shared_u32(qw + 16 * kk + 8), shared_u32(qw + 8 * LD + 16 * kk + 8)};
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const __nv_bfloat16* krow = kt + (8 * j + g) * LD + 16 * kk + 2 * t;
+        mma_bf16(s[j], qa, shared_u32(krow), shared_u32(krow + 8));
+      }
+    }
+
+    float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = (k0 + 8 * j + 2 * t + (e & 1) < m) ? s[j][e] * scale_log2 : -INFINITY;
+        s[j][e] = x;
+        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], x);
+      }
+    }
+    float correction[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // the four lanes of a row hold its columns; the tile's first column is
+      // always valid, so the new max is finite and exp2 of -inf gives 0
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
+      const float new_max = fmaxf(row_max[r], tile_max[r]);
+      correction[r] = exp2_approx(row_max[r] - new_max);
+      row_max[r] = new_max;
+      row_sum[r] *= correction[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2_approx(s[j][e] - row_max[e >> 1]);
+        row_sum[e >> 1] += s[j][e];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      acc[j][0] *= correction[0];
+      acc[j][1] *= correction[0];
+      acc[j][2] *= correction[1];
+      acc[j][3] *= correction[1];
+    }
+
+    // acc += P V: score n-tiles 2kk and 2kk + 1 are the A fragment of keys
+    // 16kk .. 16kk + 15, as P's head and tail in bf16; ldmatrix.trans reads
+    // V's B fragments, two output n-tiles at once (matrix j: keys
+    // + 8 (j & 1), dims + 8 (j >> 1)), the last one alone when D / 8 is odd.
+#pragma unroll
+    for (int kk = 0; kk < PS; ++kk) {
+      uint32_t head[4], tail[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], head[0], tail[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], head[1], tail[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], head[2], tail[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], head[3], tail[3]);
+      const __nv_bfloat16* vrow =
+          vt + (16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7)) * LD + 8 * (lane >> 4);
+#pragma unroll
+      for (int jp = 0; jp < NO / 2; ++jp) {
+        uint32_t vb4[4];
+        ldmatrix_x4_trans(vb4, vrow + 16 * jp);
+        mma_bf16(acc[2 * jp], tail, vb4[0], vb4[1]);
+        mma_bf16(acc[2 * jp], head, vb4[0], vb4[1]);
+        mma_bf16(acc[2 * jp + 1], tail, vb4[2], vb4[3]);
+        mma_bf16(acc[2 * jp + 1], head, vb4[2], vb4[3]);
+      }
+      if constexpr (NO % 2 == 1) {
+        uint32_t vb2[2];
+        ldmatrix_x2_trans(vb2, vt + (16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7)) * LD +
+                                   8 * (NO - 1));
+        mma_bf16(acc[NO - 1], tail, vb2[0], vb2[1]);
+        mma_bf16(acc[NO - 1], head, vb2[0], vb2[1]);
+      }
+    }
+    __syncthreads();  // this tile's buffers are free for the copy after next
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 1);
+    row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * warp + g + 8 * r;
+    if (row >= n) continue;
+    __nv_bfloat16* orow = o + b * o_sb + static_cast<long long>(row) * o_sn + h * o_sh + 2 * t;
+    const float inv = 1.f / row_sum[r];
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+          pack_bf16(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+  }
+}
+
+template <int D>
+int run_mma(const Call& c, int* occupancy) {
+  constexpr size_t smem = MmaShape<D>::kSmem;
+  static std::atomic<unsigned long long> configured{0};
+  auto kernel = flash_attention_fwd_mma_kernel<D>;
+  cudaError_t err = allow_shared_once(configured, kernel, smem, c.device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (occupancy)
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, kMmaThreads, smem));
+  const long long* st = c.strides;
+  const dim3 grid((c.n + kMmaRows - 1) / kMmaRows, c.batch * c.heads);
+  kernel<<<grid, kMmaThreads, smem, c.stream>>>(
+      static_cast<const __nv_bfloat16*>(c.q), static_cast<const __nv_bfloat16*>(c.k),
+      static_cast<const __nv_bfloat16*>(c.v), static_cast<__nv_bfloat16*>(c.o), c.n, c.m, c.heads,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+      c.scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---- warp-specialised kernel: bf16, D = 512 ---------------------------------
 
 constexpr int kD512 = 512;
@@ -1051,8 +1373,9 @@ int run_wgmma512(const Call& c, int* occupancy) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tensor-core kernels read q, k and v in 16-byte TMA boxes and write o
-// in 4-byte pieces: every row they touch has to start on such a boundary.
+// The tensor-core kernels read q, k and v in 16-byte pieces (TMA boxes or
+// cp.async chunks) and write o in 4-byte pieces: every row they touch has
+// to start on such a boundary.
 bool tensor_core_aligned(const Call& c) {
   const uintptr_t in = reinterpret_cast<uintptr_t>(c.q) | reinterpret_cast<uintptr_t>(c.k) |
                        reinterpret_cast<uintptr_t>(c.v);
@@ -1068,19 +1391,37 @@ bool tensor_core_aligned(const Call& c) {
 // the instance, dtype, head dim, key tile and rows per block name nothing
 // compiled here (or, for the D = 512 instance, the split count is out of
 // range).
+// The FMA kernel at head dim D, if the plan names its compiled tile.
+template <int D>
+int dispatch_fma(int dtype, int keys, int rows, const Call& c, int* occupancy) {
+  if (keys != TileShape<D>::kK || rows != TileShape<D>::kQ) return -1;
+  return dtype == 0 ? run_fma<float, D>(c, occupancy)
+                    : dtype == 1 ? run_fma<__nv_bfloat16, D>(c, occupancy) : -1;
+}
+
 int dispatch(int instance, int dtype, int head_dim, int keys, int rows, const Call& c,
              int* occupancy) {
   if (instance == kInstanceFma) {
-    if (head_dim == 64 && keys == TileShape<64>::kK && rows == TileShape<64>::kQ)
-      return dtype == 0 ? run_fma<float, 64>(c, occupancy)
-                        : dtype == 1 ? run_fma<__nv_bfloat16, 64>(c, occupancy) : -1;
-    if (head_dim == 512 && keys == TileShape<512>::kK && rows == TileShape<512>::kQ)
-      return dtype == 0 ? run_fma<float, 512>(c, occupancy)
-                        : dtype == 1 ? run_fma<__nv_bfloat16, 512>(c, occupancy) : -1;
-    return -1;
+    switch (head_dim) {
+      case 40: return dispatch_fma<40>(dtype, keys, rows, c, occupancy);
+      case 64: return dispatch_fma<64>(dtype, keys, rows, c, occupancy);
+      case 80: return dispatch_fma<80>(dtype, keys, rows, c, occupancy);
+      case 160: return dispatch_fma<160>(dtype, keys, rows, c, occupancy);
+      case 512: return dispatch_fma<512>(dtype, keys, rows, c, occupancy);
+      default: return -1;
+    }
   }
   if (dtype != 1) return -1;
   if (!occupancy && !tensor_core_aligned(c)) return -3;
+  if (instance == kInstanceMma) {
+    if (keys != kMmaKeys || rows != kMmaRows) return -1;
+    switch (head_dim) {
+      case 40: return run_mma<40>(c, occupancy);
+      case 80: return run_mma<80>(c, occupancy);
+      case 160: return run_mma<160>(c, occupancy);
+      default: return -1;
+    }
+  }
   if (instance == kInstanceWgmma512 && head_dim == kD512 && rows == kD512Rows && keys == 32)
     return run_wgmma512<32>(c, occupancy);
   if (instance != kInstanceWgmma || head_dim != kWgD || rows != kWgRows) return -1;

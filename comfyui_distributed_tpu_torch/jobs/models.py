@@ -16,13 +16,20 @@ from typing import Any
 
 @dataclasses.dataclass
 class CollectorJob:
-    """A job the orchestration announced: it creates one per distributed
-    node before dispatch, so a worker's job-status poll finds the job
-    known. Gathering images into it is the collector node's, a later
-    slice."""
+    """Per-job image gathering state (seed-parallel generation). The
+    orchestration creates one per distributed node before dispatch, so a
+    worker's job-status poll finds the job known; workers' image
+    envelopes queue here for the master's DistributedCollector."""
 
     job_id: str
+    queue: asyncio.Queue = dataclasses.field(default_factory=asyncio.Queue)
     created_at: float = dataclasses.field(default_factory=time.monotonic)
+    # worker_id → number of items received
+    received: dict[str, int] = dataclasses.field(default_factory=dict)
+    # workers whose is_last item arrived
+    finished_workers: set[str] = dataclasses.field(default_factory=set)
+    # bytes of image data URLs received
+    received_bytes: int = 0
 
 
 @dataclasses.dataclass

@@ -16,7 +16,12 @@ semantics:
   back to the queue, and a tile that exhausts its attempt budget is
   quarantined instead;
 - cancellation refunds every pending and in-flight tile; later pulls
-  read as drained and later submissions drop.
+  read as drained and later submissions drop;
+- a collector job gathers workers' image envelopes in a queue; an
+  envelope that arrives before the orchestration announced its job
+  parks on the creation signal up to the grace, then creates the job
+  itself. `cleanup_collector` exists, but as in the JAX package no
+  caller removes a collector job when its prompt ends.
 
 Left out: fencing epochs, the write-ahead journal, preemption, the
 cross-job tier, the cache settle, placement and fault injection.
@@ -56,6 +61,7 @@ class JobStore:
         self._pending_deadlines: dict[str, float] = {}
         # job_id → [(loop, future)] waiters parked until creation
         self._tile_waiters: dict[str, list[tuple[Any, Any]]] = {}
+        self._collector_waiters: dict[str, list[tuple[Any, Any]]] = {}
         # job_id → {"total", "completions", "duplicates",
         # "received_bytes", "finished_workers"} of cleaned-up jobs,
         # oldest evicted first
@@ -77,16 +83,19 @@ class JobStore:
             except RuntimeError:
                 pass  # the waiter's loop already closed; its wait timed out
 
-    async def wait_for_tile_job(self, job_id: str, grace_seconds: float) -> Optional[TileJob]:
-        """The job as soon as it exists, parking on its creation signal up
-        to `grace_seconds`; None if still absent at the deadline."""
+    async def _park_until_created(self, waiters: dict[str, list[tuple[Any, Any]]],
+                                  registry: dict[str, Any], job_id: str,
+                                  grace_seconds: float) -> Any:
+        """registry[job_id] as soon as it exists, parking on its creation
+        signal up to `grace_seconds`; None if still absent at the
+        deadline."""
         loop = asyncio.get_running_loop()
         fut = loop.create_future()
         async with self.lock:
-            job = self.tile_jobs.get(job_id)
+            job = registry.get(job_id)
             if job is not None or grace_seconds <= 0:
                 return job
-            self._tile_waiters.setdefault(job_id, []).append((loop, fut))
+            waiters.setdefault(job_id, []).append((loop, fut))
         try:
             try:
                 await asyncio.wait_for(fut, grace_seconds)
@@ -94,13 +103,19 @@ class JobStore:
                 pass
         finally:
             async with self.lock:
-                pending = self._tile_waiters.get(job_id)
+                pending = waiters.get(job_id)
                 if pending is not None and (loop, fut) in pending:
                     pending.remove((loop, fut))
                     if not pending:
-                        del self._tile_waiters[job_id]
+                        del waiters[job_id]
         async with self.lock:
-            return self.tile_jobs.get(job_id)
+            return registry.get(job_id)
+
+    async def wait_for_tile_job(self, job_id: str, grace_seconds: float) -> Optional[TileJob]:
+        """The job as soon as it exists, parking on its creation signal up
+        to `grace_seconds`; None if still absent at the deadline."""
+        return await self._park_until_created(self._tile_waiters, self.tile_jobs, job_id,
+                                              grace_seconds)
 
     # --- collector jobs ---------------------------------------------------
 
@@ -110,7 +125,38 @@ class JobStore:
             if job is None:
                 job = CollectorJob(job_id=job_id)
                 self.collectors[job_id] = job
+                self._wake(self._collector_waiters.pop(job_id, []))
             return job
+
+    async def wait_for_collector(self, job_id: str, grace_seconds: float) -> CollectorJob:
+        """Result-submission side: wait up to the grace for the
+        orchestration to create the job, then create it here (the master
+        may still be validating its own prompt). Parks on the creation
+        signal, not a poll loop."""
+        job = await self._park_until_created(self._collector_waiters, self.collectors, job_id,
+                                             grace_seconds)
+        if job is not None:
+            return job
+        return await self.ensure_collector(job_id)
+
+    async def put_collector_result(self, job_id: str, item: dict[str, Any],
+                                   received_bytes: int = 0) -> None:
+        """Queue one envelope for the master's collector; counts it for its
+        worker, and an `is_last` envelope marks the worker finished."""
+        job = await self.ensure_collector(job_id)
+        worker_id = str(item.get("worker_id", ""))
+        async with self.lock:
+            job.received[worker_id] = job.received.get(worker_id, 0) + 1
+            job.received_bytes += int(received_bytes)
+            # queued before the worker reads as finished: a drain that sees
+            # every worker finished and the queue empty has every item
+            job.queue.put_nowait(item)
+            if item.get("is_last"):
+                job.finished_workers.add(worker_id)
+
+    async def cleanup_collector(self, job_id: str) -> None:
+        async with self.lock:
+            self.collectors.pop(job_id, None)
 
     # --- tile jobs ----------------------------------------------------------
 

@@ -1,12 +1,18 @@
 """The model bundle, text conditioning and the guided model function.
 
 Counterpart of the parts of comfyui_distributed_tpu/models/pipeline.py
-that the SDXL upscale path runs: `load_pipeline` (seeded random init;
-reading real checkpoints comes with a later slice), the dual-tower
-SDXL text encoding, and the eps model function with the adm vector
-(pooled text + six Fourier size embeddings) under plain CFG. Modules
+that the SDXL upscale and the SD1.5 txt2img paths run: `load_pipeline`
+(seeded random init; reading real checkpoints comes with a later
+slice), single-tower (SD1.5) and dual-tower (SDXL) text encoding, the
+eps model function with the adm vector (pooled text + six Fourier size
+embeddings) under plain CFG, and `img2img_latents` / `txt2img`. Modules
 hold their own parameters, so the functions take the bundle where the
 JAX ones take (bundle, params).
+
+Initial noise: `jax.random` and `torch.Generator` give different
+numbers for one seed, so `img2img_latents` takes a `noise` tensor; the
+tests hand it the JAX package's own draw. Its default is standard
+normals from a generator on the bundle's device seeded with `seed`.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ import dataclasses
 import torch
 
 from ..ops import samplers as smp
-from ..ops.conditioning import Conditioning
+from ..ops.conditioning import Conditioning, as_conditioning
 from .io import random_init_
 from .layers import timestep_embedding
 from .registry import DUAL_TEXT_ENCODERS, create_model, get_config, model_family
@@ -202,3 +208,76 @@ def guided_model(bundle: PipelineBundle, cfg_scale: float):
     JAX package (PAG, SAG, PerpNeg, DualCFG, RescaleCFG, SLG) are not
     ported yet; bundles here carry none."""
     return smp.cfg_model(_make_model_fn(bundle), cfg_scale)
+
+
+# --- sampling --------------------------------------------------------------
+
+def default_noise(seed: int, shape: tuple, device) -> torch.Tensor:
+    """Standard-normal f32 initial noise from a generator on `device`
+    seeded with `seed`."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+
+
+@torch.no_grad()
+def img2img_latents(
+    bundle: PipelineBundle,
+    latents: torch.Tensor,
+    context_pos,
+    context_neg,
+    steps: int = 20,
+    sampler: str = "euler",
+    scheduler: str = "karras",
+    cfg_scale: float = 7.0,
+    denoise: float = 0.5,
+    seed: int = 0,
+    noise: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Latent-space img2img (the JAX package's `img2img_latents`): noise
+    the latents to sigma[denoise], sample back down under CFG. From
+    zero latents at denoise 1 this is txt2img's sampling. The contexts are
+    Conditionings or bare [B, T, D] tensors. Returns f32 latents on the
+    bundle's device. `noise` (the latents' shape) replaces
+    `default_noise(seed, ...)`."""
+    param = model_schedule_info(bundle)
+    sigmas = smp.get_model_sigmas(param, scheduler, int(steps), denoise=float(denoise))
+    sigmas = sigmas.to(bundle.device)
+    latents = torch.as_tensor(latents).to(device=bundle.device, dtype=torch.float32)
+    if noise is None:
+        noise = default_noise(seed, tuple(latents.shape), bundle.device)
+    noise = torch.as_tensor(noise).to(device=bundle.device, dtype=torch.float32)
+    if noise.shape != latents.shape:
+        raise ValueError(f"noise {tuple(noise.shape)} does not match latents {tuple(latents.shape)}")
+    x = smp.noise_latents(param, latents, noise, sigmas[0])
+    cond = (as_conditioning(context_pos), as_conditioning(context_neg))
+    return smp.sample(guided_model(bundle, float(cfg_scale)), x, sigmas, cond, sampler)
+
+
+@torch.no_grad()
+def txt2img(
+    bundle: PipelineBundle,
+    prompt: str,
+    negative_prompt: str = "",
+    height: int = 512,
+    width: int = 512,
+    steps: int = 20,
+    sampler: str = "euler",
+    scheduler: str = "karras",
+    cfg_scale: float = 7.0,
+    seed: int = 0,
+    batch: int = 1,
+    noise: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Text → [batch, H, W, 3] images in [0, 1]: `img2img_latents` from
+    zero latents at denoise 1, then the VAE decode (the graph's
+    EmptyLatentImage → KSampler → VAEDecode)."""
+    pos = encode_text_pooled(bundle, [prompt] * batch)
+    neg = encode_text_pooled(bundle, [negative_prompt] * batch)
+    latents = torch.zeros(
+        (batch, height // bundle.latent_scale, width // bundle.latent_scale,
+         bundle.latent_channels), device=bundle.device,
+    )
+    z = img2img_latents(bundle, latents, pos, neg, steps, sampler, scheduler, cfg_scale,
+                        1.0, seed, noise)
+    return bundle.vae.decode(z)

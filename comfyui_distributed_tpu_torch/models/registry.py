@@ -1,10 +1,11 @@
 """Model registry: the named configs the ported slice runs.
 
 The port's own copy of the entries of comfyui_distributed_tpu/models/
-registry.py that the SDXL upscale path needs: `sdxl` with its VAE and
-two text encoders, and the tiny instances of the same code that the
-CPU tests hold against the JAX package. Other families come with their
-slices.
+registry.py that the ported paths need: `sdxl` with its VAE and two
+text encoders (the upscale workflow), `sd15` with the SD VAE and CLIP-L
+(the txt2img workflow), and the tiny instances of the same code that
+the CPU tests hold against the JAX package. Other families come with
+their slices.
 """
 
 from __future__ import annotations
@@ -18,6 +19,18 @@ from .unet import UNet, UNetConfig
 from .vae import VAE, VAEConfig
 
 MODEL_REGISTRY: dict[str, dict[str, Any]] = {
+    # SD1.5: 8 heads at every level, so head dims 40, 80 and 160 (the JAX
+    # entry's `remat` is a training knob the port does not carry)
+    "sd15": {
+        "family": "unet",
+        "config": UNetConfig(
+            model_channels=320,
+            channel_mult=(1, 2, 4, 4),
+            transformer_depth=(1, 1, 1, 0),
+            context_dim=768,
+            num_heads=8,
+        ),
+    },
     "sdxl": {
         "family": "unet",
         "config": UNetConfig(
@@ -59,6 +72,8 @@ MODEL_REGISTRY: dict[str, dict[str, Any]] = {
         "family": "vae",
         "config": VAEConfig(base_channels=16, channel_mult=(1, 2), num_res_blocks=1),
     },
+    # single-tower UNets' encoder: the final layer and the final LayerNorm
+    "clip-l": {"family": "text_encoder", "config": TextEncoderConfig()},
     "clip-l-sdxl": {
         "family": "text_encoder",
         "config": TextEncoderConfig(penultimate_hidden=True),

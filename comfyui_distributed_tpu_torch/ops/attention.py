@@ -10,10 +10,14 @@ the other: the device of the input decides.
 The kernel is the port of comfyui_distributed_tpu/ops/attention.py::
 flash_attention. Unlike the TPU kernel it takes ragged N and M, so it
 carries every attention call of the SDXL upscale path (UNet self- and
-cross-attention at D=64, VAE mid-block at D=512). The source compiles
-three kernels; `plan` picks one, with its key tile, query rows per
-block and key splits, for each call:
+cross-attention at D=64, VAE mid-block at D=512) and of SD1.5's txt2img
+(D=40, 80 and 160, which the TPU wrapper pads to 128; the softmax scale
+stays 1/sqrt(D) of the real head dim). The source compiles four
+kernels; `plan` picks one, with its key tile, query rows per block and
+key splits, for each call:
 
+- "mma": bf16, D=40, 80 or 160, rows 16-byte aligned. mma.sync tensor
+  cores fed by cp.async, 64 query rows per block, 64-key tiles.
 - "wgmma": bf16, D=64, rows 16-byte aligned. Warp-specialised for
   Hopper: TMA loads, wgmma products, 64 query rows per block (one
   consumer warpgroup), a key tile of 80, 112 or 144.
@@ -39,16 +43,21 @@ from .. import _build
 # head dims the kernels are instantiated for (template parameters in
 # csrc/flash_attention.cu); the other model families' head dims are
 # later instantiations
-KERNEL_HEAD_DIMS = (64, 512)
+KERNEL_HEAD_DIMS = (40, 64, 80, 160, 512)
+# head dims of the mma instance
+MMA_HEAD_DIMS = (40, 80, 160)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # instance codes of csrc/flash_attention.cu
-INSTANCES = {"fma": 0, "wgmma": 2, "wgmma512": 3}
+INSTANCES = {"fma": 0, "mma": 1, "wgmma": 2, "wgmma512": 3}
 # compiled key tiles of the wgmma instance: wgmma's N is a multiple of 8
 # up to 256 and P V steps keys by 16
 WGMMA_KEY_TILES = (80, 112, 144)
+# the mma instance's one tile: keys per K/V tile, query rows per block
+MMA_KEYS = 64
+MMA_ROWS = 64
 # compiled tiles of the FMA kernel, by head dim: (keys, query rows)
-_FMA_TILES = {64: (64, 64), 512: (32, 32)}
+_FMA_TILES = {40: (64, 128), 64: (64, 64), 80: (64, 64), 160: (64, 64), 512: (32, 32)}
 # query rows per block of the wgmma instances (one consumer warpgroup's)
 WGMMA_ROWS = 64
 # the D=512 instance's key tile: two stages of 32-key K and V tiles and
@@ -118,9 +127,10 @@ def key_splits(row_blocks: int, tiles: int, sms: int = H100_SMS) -> int:
 
 
 def _tensor_core_aligned(*tensors: torch.Tensor) -> bool:
-    """TMA needs every row of q, k and v to start on a 16-byte boundary:
-    the base address and the batch, token and head strides (bf16:
-    multiples of 8 elements)."""
+    """TMA and cp.async need every row of q, k and v to start on a
+    16-byte boundary: the base address and the batch, token and head
+    strides (bf16: multiples of 8 elements; a D=40 row is 80 bytes, five
+    16-byte chunks, so contiguous D=40 views pass)."""
     for t in tensors:
         sb, sn, sh, _ = t.stride()
         if t.data_ptr() % 16 or sb % 8 or sn % 8 or sh % 8:
@@ -133,11 +143,14 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sms: int = H100_SMS)
     `flash_attention` on a card of `sms` SMs.
 
     A pure function of the inputs' dtype, shapes, strides and alignment.
-    Aligned bf16 at D=64 goes to the wgmma instance, aligned bf16 at
-    D=512 to wgmma512, everything else to the FMA kernel."""
+    Aligned bf16 at D=40, 80 or 160 goes to the mma instance, at D=64 to
+    the wgmma instance, at D=512 to wgmma512, everything else to the FMA
+    kernel."""
     b, n, h, d = q.shape
     m = k.shape[1]
     if q.dtype == torch.bfloat16 and _tensor_core_aligned(q, k, v):
+        if d in MMA_HEAD_DIMS:
+            return Plan("mma", MMA_KEYS, MMA_ROWS)
         if d == 64:
             return Plan("wgmma", _wgmma_key_tile(m), WGMMA_ROWS)
         if d == 512:

@@ -77,6 +77,9 @@ JOB_INIT_GRACE_SECONDS = _env_float("CDT_JOB_INIT_GRACE", 10.0)
 JOB_READY_POLL_ATTEMPTS = _env_int("CDT_JOB_READY_POLLS", 20)
 JOB_READY_POLL_INTERVAL = _env_float("CDT_JOB_READY_POLL_INTERVAL", 1.0)
 QUEUE_POLL_INTERVAL_SECONDS = _env_float("CDT_QUEUE_POLL_INTERVAL", 0.1)
+# The master's collector waits for worker images in this many slices of
+# the worker timeout, checking for an interrupt between them.
+COLLECTOR_WAIT_SLICES = _env_int("CDT_COLLECTOR_WAIT_SLICES", 20)
 
 # --- network -------------------------------------------------------------
 DEFAULT_MASTER_PORT = _env_int("CDT_MASTER_PORT", 8188)

@@ -89,7 +89,7 @@ def test_plain_version_keeps_bf16_dtype():
 @pytest.mark.parametrize(
     "q_shape, k_shape, dtype, match",
     [
-        ((1, 8, 2, 80), (1, 8, 2, 80), torch.float32, "head dims"),
+        ((1, 8, 2, 48), (1, 8, 2, 48), torch.float32, "head dims"),
         ((1, 8, 2, 64), (1, 8, 2, 64), torch.float16, "float32 or bfloat16"),
         ((1, 8, 2, 64), (1, 8, 3, 64), torch.float32, "disagree"),
         ((1, 8, 64), (1, 8, 64), torch.float32, r"\[B, N, H, D\]"),
@@ -151,7 +151,7 @@ def test_launch_counts_lose_nothing_under_threads():
         sys.setswitchinterval(interval)
     assert attn.flash_attention.launches == 8000
     assert dict(attn.flash_attention.launches_by_instance) == {
-        "fma": 0, "wgmma": 4000, "wgmma512": 4000}
+        "fma": 0, "mma": 0, "wgmma": 4000, "wgmma512": 4000}
     attn.reset_launch_counts()
     assert attn.flash_attention.launches == 0
     assert type(attn.flash_attention.launches_by_instance) is dict

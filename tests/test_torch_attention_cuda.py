@@ -28,6 +28,15 @@ SHAPES = [
     (3, 65, 63, 2, 64),
     (1, 33, 31, 1, 512),
     (2, 70, 100, 2, 512),
+    # SD1.5's txt2img at 512 px: D = 40, 80, 160 on the mma instance
+    (2, 4096, 4096, 8, 40),
+    (2, 4096, 77, 8, 40),
+    (2, 1024, 1024, 8, 80),
+    (2, 1024, 77, 8, 80),
+    (2, 256, 256, 8, 160),
+    (2, 256, 77, 8, 160),
+    (2, 64, 64, 8, 160),
+    (2, 64, 77, 8, 160),
 ]
 
 # key counts at the edges of the wgmma instance's key tiles (80, 112, 144)
@@ -36,6 +45,9 @@ EDGE_KEYS = (1, 77, 79, 80, 81, 143, 144, 145, 324, 1296)
 # blocks and 32-key tiles
 EDGE_ROWS_512 = (1, 63, 65, 200)
 EDGE_KEYS_512 = (1, 31, 32, 33)
+# query and key counts at the edges of the mma instance's 16-row warps,
+# 64-row blocks and 64-key tiles
+EDGE_MMA = (1, 15, 16, 17, 63, 64, 65, 77, 200)
 
 
 @pytest.fixture
@@ -57,7 +69,8 @@ def test_kernel_matches_plain(cuda, b, n, m, h, d, dtype):
         for s in ((b, n, h, d), (b, m, h, d), (b, m, h, d))
     )
     instance = attn.plan(q, k, v).instance
-    assert instance == ("fma" if dtype == torch.float32 else "wgmma" if d == 64 else "wgmma512")
+    assert instance == ("fma" if dtype == torch.float32 else "wgmma" if d == 64
+                        else "wgmma512" if d == 512 else "mma")
     before = attn.flash_attention.launches
     by_instance = attn.flash_attention.launches_by_instance[instance]
     out = attn.dot_product_attention(q, k, v)
@@ -82,7 +95,7 @@ def test_kernel_reads_strided_heads(cuda):
     )
 
 
-@pytest.mark.parametrize("d", [64, 512])
+@pytest.mark.parametrize("d", [40, 64, 80, 160, 512])
 def test_kernel_reads_unaligned_rows(cuda, d):
     # rows 2 bytes off a 16-byte boundary, with a (d + 1)-element row
     # stride: the tensor-core kernel's 16-byte copies cannot read these,
@@ -92,6 +105,7 @@ def test_kernel_reads_unaligned_rows(cuda, d):
     wide = torch.randn((3, 2, 90, 3, d + 1), generator=gen, device=cuda).bfloat16()
     q, k, v = (t[..., 1:] for t in wide.unbind(0))
     assert q.data_ptr() % 16 != 0 and q.stride(2) == d + 1
+    assert attn.plan(q, k, v).instance == "fma"
     torch.testing.assert_close(
         attn.flash_attention(q, k, v).float(),
         attn.flash_attention_reference(q, k, v).float(),
@@ -210,3 +224,37 @@ def test_wgmma512_reads_rows_on_16_not_128_byte_boundaries(cuda):
     q, k, v = (t[..., 8:] for t in wide.unbind(0))
     assert q.data_ptr() % 128 == 16 and q.stride(2) == 520
     _wgmma512_matches_plain(cuda, 2, 100, 100, 2, None, seed=0, qkv=(q, k, v))
+
+
+def _mma_matches_plain(cuda, q, k, v):
+    assert attn.plan(q, k, v).instance == "mma"
+    before = attn.flash_attention.launches_by_instance["mma"]
+    out = attn.flash_attention(q, k, v)
+    assert attn.flash_attention.launches_by_instance["mma"] == before + 1
+    torch.testing.assert_close(
+        out.float(), attn.flash_attention_reference(q, k, v).float(), rtol=2.0**-7, atol=1e-3
+    )
+
+
+@pytest.mark.parametrize("d", attn.MMA_HEAD_DIMS)
+@pytest.mark.parametrize("m", EDGE_MMA)
+@pytest.mark.parametrize("n", EDGE_MMA)
+def test_mma_tile_edges(cuda, n, m, d):
+    # one head of one batch, at the edges of the row blocks and key tiles
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n * 1009 + m * 7 + d)
+    q, k, v = (
+        torch.randn(s, generator=gen, device=cuda).bfloat16()
+        for s in ((1, n, 1, d), (1, m, 1, d), (1, m, 1, d))
+    )
+    _mma_matches_plain(cuda, q, k, v)
+
+
+@pytest.mark.parametrize("d", attn.MMA_HEAD_DIMS)
+def test_mma_reads_strided_heads(cuda, d):
+    # q, k and v as views into one fused [B, N, 3, H, D] buffer: a D = 40
+    # head starts 80 bytes after the last
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(23 + d)
+    fused = torch.randn((2, 150, 3, 4, d), generator=gen, device=cuda).bfloat16()
+    _mma_matches_plain(cuda, *fused.unbind(2))

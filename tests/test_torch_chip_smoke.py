@@ -67,8 +67,50 @@ def test_expected_launches_by_instance_follow_the_shapes():
     evals = get_sigmas("karras", 20, 0.35).shape[0] - 1
     shapes = chip_smoke._attention_shapes(get_config("sdxl"), get_config("vae-sd"), 77, 72, evals)
     assert chip_smoke._expected_by_instance(attn, shapes, torch) == {
-        "wgmma": 2800, "wgmma512": 2, "fma": 0,
+        "wgmma": 2800, "wgmma512": 2, "fma": 0, "mma": 0,
     }
+
+
+def _txt2img_workflow():
+    with open(os.path.join(REPO, "workflows", "distributed-txt2img.json"), encoding="utf-8") as fh:
+        return json.load(fh)
+
+
+def test_attention_shapes_match_one_sd15_image_on_meta(recorded_calls):
+    """sd15 has num_heads, not head_dim: 8 heads of 40, 80 and 160. One
+    CFG-batched UNet evaluation and one VAE decode at 512 px, on meta."""
+    with torch.device("meta"):
+        unet, autoencoder = create_model("sd15"), create_model("vae-sd")
+        unet(torch.empty(2, 64, 64, 4), torch.empty(2), torch.empty(2, 77, 768))
+        autoencoder.decode(torch.empty(1, 64, 64, 4))
+    shapes = chip_smoke._txt2img_shapes(_txt2img_workflow())
+    assert shapes == chip_smoke._attention_shapes(get_config("sd15"), get_config("vae-sd"), 77,
+                                                  64, 20, vae_calls=1)
+    expected = collections.Counter()
+    for _label, q, m, per_image in shapes:
+        expected[(q, m)] += per_image // 20 if q[0] == 2 else per_image
+    assert recorded_calls == expected
+    assert sum(per_image for *_, per_image in shapes) == 641
+    assert {q[3] for _label, q, *_ in shapes} == {40, 80, 160, 512}
+
+
+def test_expected_txt2img_launches_by_instance():
+    """The txt2img phase asserts these per image: 640 UNet calls on the
+    mma instance, the VAE decode's one on wgmma512."""
+    shapes = chip_smoke._txt2img_shapes(_txt2img_workflow())
+    assert chip_smoke._expected_by_instance(attn, shapes, torch) == {
+        "mma": 640, "wgmma512": 1, "wgmma": 0, "fma": 0,
+    }
+
+
+@pytest.mark.parametrize("d, dtype, layout, instance", [
+    (40, "bfloat16", "contiguous", "mma"), (160, "bfloat16", "fused", "mma"),
+    (80, "bfloat16", "edge", "mma"), (80, "float32", "contiguous", "fma"),
+    (40, "bfloat16", "unaligned", "fma"), (64, "bfloat16", "fused", "wgmma"),
+    (512, "bfloat16", "offset", "wgmma512"), (512, "float32", "contiguous", "fma"),
+])
+def test_expected_instance_of_a_check(d, dtype, layout, instance):
+    assert chip_smoke._expected_instance(attn, d, dtype, layout) == instance
 
 
 def test_bounds_follow_the_published_peaks():
@@ -150,3 +192,52 @@ def test_elastic_phase_fails_when_the_worker_is_not_dispatched(monkeypatch,
                         lambda *args: (reference, local))
     with pytest.raises(RuntimeError, match="w1 was not dispatched"):
         chip_smoke._elastic_phase(torch, bundle, "tiny-unet", workflow, image, local, "cpu")
+
+
+def _tiny_txt2img_workflow():
+    workflow = _txt2img_workflow()
+    workflow["1"]["inputs"]["ckpt_name"] = "tiny-unet"
+    workflow["4"]["inputs"].update(width=32, height=32)
+    workflow["6"]["inputs"]["steps"] = 2
+    return workflow
+
+
+def test_txt2img_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread):
+    """The phase as the card runs it, on tiny-unet at 32 px: the local
+    runs at seeds 42 and 43, then two runs over HTTP whose batch holds the
+    master's image and w1's. On the CPU no kernel launches, so the launch
+    checks are off."""
+    bundle = tpl.load_pipeline("tiny-unet", seed=0, device="cpu")
+    chip_smoke._seed_out_conv(torch, bundle, torch.Generator().manual_seed(0))
+    result = chip_smoke._txt2img_phase(torch, bundle, _tiny_txt2img_workflow(), "cpu")
+    lines = [line for line in capsys.readouterr().out.splitlines()
+             if line.startswith("[txt2img]")]
+    assert result["launches"] == 0
+    assert len(lines) == 2 + 2 * chip_smoke.TXT2IMG_RUNS
+    assert "seed 42" in lines[0] and "seed 43" in lines[1]
+    assert all("w1 envelopes {'w1': 1}" in line for line in lines[2::2])
+    assert all("image 0 vs the local seed 42 0 " in line for line in lines[3::2])
+
+
+def test_txt2img_phase_fails_when_the_worker_is_not_dispatched(monkeypatch, one_torch_thread):
+    from comfyui_distributed_tpu_torch.api.orchestration import queue_orchestration
+
+    async def nobody(workers, concurrency=8):
+        return []
+
+    monkeypatch.setattr(queue_orchestration, "select_active_workers", nobody)
+    bundle = tpl.load_pipeline("tiny-unet", seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="w1 was not dispatched"):
+        chip_smoke._txt2img_phase(torch, bundle, _tiny_txt2img_workflow(), "cpu")
+
+
+def test_txt2img_phase_fails_when_the_images_do_not_differ(monkeypatch, one_torch_thread):
+    """A worker that sampled the master's seed (no offset) gives the
+    master's image twice: the phase must fail, not pass on two copies."""
+    from comfyui_distributed_tpu_torch.graph import nodes_core
+
+    monkeypatch.setattr(nodes_core.SeedSpec, "effective_seed", lambda self: self.base_seed)
+    bundle = tpl.load_pipeline("tiny-unet", seed=0, device="cpu")
+    chip_smoke._seed_out_conv(torch, bundle, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="w1's image is not the local seed's"):
+        chip_smoke._txt2img_phase(torch, bundle, _tiny_txt2img_workflow(), "cpu")

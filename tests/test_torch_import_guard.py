@@ -54,7 +54,8 @@ def test_the_server_and_the_elastic_tier_are_among_the_imported_modules():
     names = {os.path.relpath(p, REPO) for p in _port_sources()}
     for module in ("api/server.py", "api/httpd.py", "api/usdu_routes.py", "api/job_routes.py",
                    "api/orchestration/dispatch.py", "graph/usdu_elastic.py",
-                   "graph/tile_pipeline.py", "jobs/store.py", "utils/image.py", "__main__.py"):
+                   "graph/tile_pipeline.py", "jobs/store.py", "utils/image.py", "__main__.py",
+                   "graph/nodes_distributed.py", "parallel/collective.py"):
         assert os.path.join("comfyui_distributed_tpu_torch", module) in names
 
 
