@@ -12,11 +12,13 @@ Phases, each printing lines tagged with its name:
              flash_attention.cu from this checkout.
 3. kernel  - the kernel against its plain PyTorch version at every
              attention shape of the upscale and txt2img paths (bf16);
-             at D=40, 80 and 160 also f32, an unaligned and a strided view
-             and the edges of the mma instance's tiles (N, M in EDGE_MMA,
-             one head of one batch, fewer timing samples); for D=64 and
-             512 also: in f32, on the fused
-             strided qkv view, on small ragged inputs, at the edges of
+             at D=40, 80 and 160 also f32, an unaligned, a strided and a
+             16-not-128-byte aligned view and the edges of the wgmma
+             instance's 64-row blocks and key tiles (N in EDGE_ROWS_WG, M
+             in EDGE_KEYS_WG, one head of one batch, fewer timing
+             samples; at D=40 also those of the two-consumer blocks,
+             EDGE_ROWS_PINGPONG and EDGE_KEYS_PINGPONG); for D=64 and
+             512 also: in f32, on the fused strided qkv view, on small ragged inputs, at the edges of
              the wgmma instance's key tiles (one head of one batch), at
              the edges of the D=512 instance's row blocks and key tiles
              (B*H = 2*2), on D=512 strided and 16-byte (not 128-byte)
@@ -27,9 +29,10 @@ Phases, each printing lines tagged with its name:
              work. Each line names the instance the router took, its key
              tile, query rows per block and key splits, the blocks
              launched, the blocks resident per SM and the waves.
-   tiles   - every compiled key tile of the wgmma instance timed at each
-             D=64 shape of the path, and every key split of the D=512
-             instance at vae@5184, beside the router's choice.
+   tiles   - every compiled plan of the wgmma instance (key tile and
+             query rows a block) timed at each D=40/64/80/160 shape of
+             both paths, and every key split of the D=512 instance at
+             vae@5184, beside the router's choice.
    host    - the wrapper's host cost per call: 10 x 100 calls timed on the
              host clock while a spin kernel holds the stream.
 4. main    - workflows/distributed-upscale.json through the port's
@@ -61,13 +64,16 @@ Phases, each printing lines tagged with its name:
              master's image within RERUN_TOLERANCE of seed 42's local run,
              w1's (an 8-bit PNG envelope) of seed 43's plus half a level,
              the two images apart, and each run must launch the attention
-             kernel 1282 times (640 mma and 1 wgmma512 per participant).
+             kernel 1282 times (640 wgmma and 1 wgmma512 per
+             participant). The master's collector must leave no job
+             behind; w1's envelope counts are read from its finished
+             record.
    phases  - each phase's seconds.
 5. kernels - one JSON line per the port's kernel contract: entry
              flash_attention over the upscale path (`launches`: the elastic
-             run, both participants), entry flash_attention_mma over the
-             txt2img path (`launches`: the last txt2img run's mma
-             launches, both participants).
+             run, both participants), entry flash_attention_txt2img over
+             the txt2img path's D=40/80/160 shapes (`launches`: the last
+             txt2img run's wgmma launches, both participants).
 
 The card's nvidia-smi line and then {"ok": true, "device": ...} close
 the output. Without a CUDA device, or without the port's package beside
@@ -95,6 +101,10 @@ IMAGE_PX = 512  # the workflow's LoadImage input, replaced by a seeded image
 # H100 SXM published dense peaks at its 700 W limit (NVIDIA data sheet)
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # f32: outside the tensor cores
 PEAK_BYTES = 3.35e12
+# exp2 results per clock per SM on the special-function unit at compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput): every score of the softmax costs one
+EXP2_PER_CLOCK_PER_SM = 16
 SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's 1.98 GHz boost clock
 # key counts at the edges of the wgmma instance's key tiles (80, 112, 144)
 EDGE_KEYS = (1, 77, 79, 80, 81, 143, 144, 145, 324, 1296)
@@ -107,14 +117,23 @@ SPLITS_TIMED = tuple(range(1, 9))
 # the VAE mid-block of SDXL's native 1024-px tile with 32-px padding:
 # a 136 x 136 latent
 VAE_1024_TOKENS = 136 * 136
-# two runs of one seed may differ by this much (max |diff| on [0, 1])
+# two runs of one seed may differ by this much (max |diff| on [0, 1]);
+# two seeds' images must differ by more, in max and in mean |diff|
 RERUN_TOLERANCE = 0.05
 ELASTIC_RUNS = 2
 ELASTIC_RUN_TIMEOUT_S = 300.0
 USDU_NODE = "5"
-# query and key counts at the edges of the mma instance's 16-row warps,
-# 64-row blocks and 64-key tiles (and M = 77, the text tokens)
-EDGE_MMA = (1, 15, 16, 17, 63, 64, 65, 77, 200)
+# query and key counts at the edges of the wgmma instance's 64-row blocks
+# and of its key tiles at D = 40, 80 and 160 (64, 80, 128; M = 77, the
+# text tokens)
+EDGE_ROWS_WG = (1, 63, 64, 65, 200)
+EDGE_KEYS_WG = (1, 63, 64, 65, 77, 79, 80, 81, 127, 128, 129)
+# and at D = 40, whose keys past 80 take two consumers a block: the edges
+# of their 128-row blocks (consumer 1 on rows 64-127) and 128-key tiles
+EDGE_ROWS_PINGPONG = (127, 128, 129)
+EDGE_KEYS_PINGPONG = (257,)
+# SD1.5's head dims (8 heads at every level of its UNet)
+TXT2IMG_HEAD_DIMS = (40, 80, 160)
 # workflows/distributed-txt2img.json's nodes
 T2I_LATENT_NODE, T2I_SEED_NODE, T2I_SAMPLER_NODE = "4", "5", "6"
 T2I_COLLECTOR_NODE, T2I_SAVE_NODE = "8", "9"
@@ -128,12 +147,17 @@ def _require(ok: bool, message: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {message}")
 
 
-def _nvidia_smi() -> str:
+def _nvidia_smi(query: str = "name,power.limit") -> str:
     proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return proc.stdout.strip().splitlines()[0]
+
+
+def _max_sm_clock_mhz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm, "1980 MHz")."""
+    return float(_nvidia_smi("clocks.max.sm").split()[0])
 
 
 def _time_ms(torch, fn, reps: int = 15, inner: int = 10) -> float:
@@ -233,9 +257,7 @@ def _expected_instance(attn, head_dim: int, dtype: str, layout: str) -> str:
     unaligned views, else the tensor-core instance of the head dim."""
     if dtype == "float32" or layout == "unaligned":
         return "fma"
-    if head_dim in attn.MMA_HEAD_DIMS:
-        return "mma"
-    return "wgmma" if head_dim == 64 else "wgmma512"
+    return "wgmma512" if head_dim == 512 else "wgmma"
 
 
 def _seed_out_conv(torch, bundle, gen) -> None:
@@ -248,23 +270,35 @@ def _seed_out_conv(torch, bundle, gen) -> None:
                     / math.sqrt(out_w[0].numel()))
 
 
-def _bounds(q_shape, m: int, dtype: str):
+def _bounds(q_shape, m: int, dtype: str, sms: int, clock_mhz: float) -> dict:
+    """The least time in ms the card could take for one call, by what
+    bounds it: the tensor-core (or f32) operations 4 B H N M D at the
+    published peak, the bytes of q, k, v and o moved once at the memory
+    rate, and the B H N M exponentials of the softmax at 16 a clock on
+    each of `sms` SMs at the maximum SM clock."""
     b, n, h, d = q_shape
     itemsize = 2 if dtype == "bfloat16" else 4
     ops = 4.0 * b * h * n * m * d
     nbytes = float(2 * b * n * h * d + 2 * b * m * h * d) * itemsize
-    return ops / PEAK_OPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    exps = float(b * h * n * m)
+    return {"operations": ops / PEAK_OPS[dtype] * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3,
+            "exponentials": exps / (sms * EXP2_PER_CLOCK_PER_SM * clock_mhz * 1e6) * 1e3}
+
+
+def _bound_by(terms: dict) -> str:
+    return max(terms, key=terms.get)
 
 
 def _time_plans(torch, attn, label, q, k, v, plans, chosen) -> str:
-    """Device ms of each plan (a compiled key tile and key split) at one
-    shape, with its masked share and blocks; '*' marks the router's."""
+    """Device ms of each plan (a compiled key tile, query rows per block,
+    key split) at one shape, with its masked share and blocks; '*' marks
+    the router's."""
     m = k.shape[1]
     parts = []
     for plan in plans:
         ms = _time_ms(torch, lambda: attn.flash_attention(q, k, v, with_plan=plan))
         mark = "*" if plan == chosen else ""
-        parts.append(f"{mark}k{plan.keys_per_tile} s{plan.splits} {ms:.5f} ms "
+        parts.append(f"{mark}k{plan.keys_per_tile} r{plan.rows_per_cta} s{plan.splits} {ms:.5f} ms "
                      f"{plan.masked_share(m):.3f} masked ctas={plan.ctas(*q.shape[:3])}")
     return f"[tiles] {label}: " + ", ".join(parts)
 
@@ -621,7 +655,9 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
                          "a participant's KSampler did not run")
                 launches, by_instance = counts()
                 peak = torch.cuda.max_memory_allocated() if cuda else 0
-                job = master.job_store.collectors[queued["job_ids"][T2I_COLLECTOR_NODE]]
+                # the master's collector cleans its job up once drained: its
+                # counts are in the store's finished records
+                record = master.job_store.finished[queued["job_ids"][T2I_COLLECTOR_NODE]]
                 out = master.get_job(queued["prompt_id"]).outputs[T2I_SAVE_NODE][0]["images"]
                 master_s = sum(history["timings"].values())
                 worker_s = sum(worker_history["timings"].values())
@@ -630,15 +666,19 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
                       f"{history['timings'].get(T2I_COLLECTOR_NODE, 0.0):.2f}), w1 "
                       f"{worker_s:.2f}; flash_attention launches {launches}, by instance "
                       f"{by_instance}; peak {peak / 2**30:.2f} GiB; w1 envelopes "
-                      f"{job.received}, bytes received {job.received_bytes}")
+                      f"{record['received']}, bytes received {record['received_bytes']}; "
+                      f"collector jobs left {len(master.job_store.collectors)}")
                 _require(tuple(out.shape) == (2, *size), f"output shape {tuple(out.shape)}")
                 _require(out.device.type == torch.device(device).type,
                          f"the output was computed on {out.device}, not {device}")
                 _require(bool(torch.isfinite(out).all()), "non-finite output")
                 _require(float(out.min()) >= 0.0 and float(out.max()) <= 1.0,
                          "output outside [0, 1]")
-                _require(job.received == {"w1": 1} and job.finished_workers == {"w1"},
-                         f"w1's envelopes: {job.received}, finished {job.finished_workers}")
+                _require(record["received"] == {"w1": 1} and record["finished_workers"] == ["w1"],
+                         f"w1's envelopes: {record['received']}, finished "
+                         f"{record['finished_workers']}")
+                _require(not master.job_store.collectors,
+                         f"collector jobs outlive their prompts: {sorted(master.job_store.collectors)}")
                 saved = history["outputs"][T2I_SAVE_NODE]["images"]
                 _require(len(saved) == 2, f"saved {saved}")
                 for name in saved:
@@ -647,15 +687,18 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
                                  f"{name} is not {size}")
                 d0 = float((out[0].float() - local[seed].to(out.device)).abs().max())
                 d1 = float((out[1].float() - local[seed + 1].to(out.device)).abs().max())
-                d01 = float((out[0] - out[1]).float().abs().max())
+                d01 = (out[0] - out[1]).float().abs()
+                d01_max, d01_mean = float(d01.max()), float(d01.mean())
                 print(f"[txt2img] run {run} output {tuple(out.shape)} in "
                       f"[{float(out.min()):.4f}, {float(out.max()):.4f}]; max |diff| image 0 vs "
                       f"the local seed {seed} {d0:.3g} (tolerance {RERUN_TOLERANCE}), image 1 vs "
                       f"the local seed {seed + 1} {d1:.3g} (tolerance "
-                      f"{RERUN_TOLERANCE + PNG_STEP:.4f}), image 0 vs 1 {d01:.3g} (> 0.05)")
+                      f"{RERUN_TOLERANCE + PNG_STEP:.4f}), image 0 vs 1 max {d01_max:.3g} and "
+                      f"mean {d01_mean:.3g} (each > {RERUN_TOLERANCE})")
                 _require(d0 <= RERUN_TOLERANCE, "the master's image is not the local seed's")
                 _require(d1 <= RERUN_TOLERANCE + PNG_STEP, "w1's image is not the local seed's")
-                _require(d01 > 0.05, "the master's and w1's images do not differ")
+                _require(d01_max > RERUN_TOLERANCE and d01_mean > RERUN_TOLERANCE,
+                         "the master's and w1's images do not differ")
                 check_launches(launches, by_instance, 2)
                 result = {"launches": launches, "launches_by_instance": by_instance}
         finally:
@@ -743,8 +786,11 @@ def main() -> int:
     tolerance = {"bfloat16": (2.0**-7, 1e-3), "float32": (1e-5, 2e-5)}
     # per main-path unit: the SDXL upscale's tile, the txt2img image
     totals = {path: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                     "ops_ms": 0.0, "bytes_ms": 0.0} for path in ("upscale", "txt2img")}
-    max_err = dict.fromkeys(attn.INSTANCES, 0.0)
+                     "operations": 0.0, "bytes": 0.0, "exponentials": 0.0}
+              for path in ("upscale", "txt2img")}
+    # the largest error of the checks of each kernels entry: the txt2img
+    # head dims on the tensor cores, and everything else
+    max_err = {"upscale": 0.0, "txt2img": 0.0}
     # (label, q shape, M, dtype, (path, launches per unit) or None, layout)
     checks = [(label, q, m, "bfloat16", ("upscale", count), "contiguous")
               for label, q, m, count in shapes]
@@ -765,20 +811,27 @@ def main() -> int:
         (f"vae@{VAE_1024_TOKENS} (1024-px tile)", (1, VAE_1024_TOKENS, 1, 512), VAE_1024_TOKENS,
          "bfloat16", None, "contiguous"),
     ]
-    # txt2img on SD1.5: its shapes, then f32, an unaligned, a strided view
-    # and the edges of the mma instance's 16-row warps, 64-row blocks and
-    # 64-key tiles at every new head dim
+    # txt2img on SD1.5: its shapes, then f32, an unaligned, a strided and
+    # a 16-not-128-byte aligned view and the edges of the wgmma instance's
+    # 64-row blocks and key tiles at each of its head dims
     checks += [(f"txt2img {label}", q, m, "bfloat16", ("txt2img", count), "contiguous")
                for label, q, m, count in t2i_shapes]
-    for d in attn.MMA_HEAD_DIMS:
+    for d in TXT2IMG_HEAD_DIMS:
         checks += [
             (f"D{d} ragged 1000x777 f32", (1, 1000, 2, d), 777, "float32", None, "contiguous"),
             (f"D{d} unaligned 300x300", (2, 300, 2, d), 300, "bfloat16", None, "unaligned"),
             (f"D{d} strided 150x150", (2, 150, 4, d), 150, "bfloat16", None, "fused"),
+            (f"D{d} rows 16 bytes off 128", (2, 100, 2, d), 100, "bfloat16", None, "offset"),
         ]
+        rows, keys = EDGE_ROWS_WG, EDGE_KEYS_WG
+        if d in attn.WGMMA_PINGPONG_KEYS:
+            rows, keys = rows + EDGE_ROWS_PINGPONG, keys + EDGE_KEYS_PINGPONG
         checks += [(f"edge D{d} {n}x{m} B*H=1", (1, n, 1, d), m, "bfloat16", None, "edge")
-                   for n in EDGE_MMA for m in EDGE_MMA]
+                   for n in rows for m in keys]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = _max_sm_clock_mhz()
+    print(f"[device] {sms} SMs, maximum SM clock {clock_mhz:g} MHz (nvidia-smi clocks.max.sm): "
+          f"exp2 bound {EXP2_PER_CLOCK_PER_SM} a clock an SM")
     tile_lines = []
     host_inputs = None
     for label, q_shape, m, dtype, unit, layout in checks:
@@ -807,15 +860,16 @@ def main() -> int:
         err = float((out.float() - ref.float()).abs().max())
         rtol, atol = tolerance[dtype]
         ok = bool(torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol))
-        max_err[plan.instance] = max(max_err[plan.instance], err)
+        entry = "txt2img" if d in TXT2IMG_HEAD_DIMS and plan.instance == "wgmma" else "upscale"
+        max_err[entry] = max(max_err[entry], err)
         # the edges are many and small: fewer samples
         reps = (3, 3) if layout == "edge" else (15, 10)
         kernel_ms = _time_ms(torch, lambda: attn.flash_attention(q, k, v), *reps)
         plain_ms = _time_ms(torch, lambda: attn.flash_attention_reference(q, k, v), *reps)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), *reps)
-        ops_ms, bytes_ms = _bounds(q.shape, k.shape[1], dtype)
-        bound_ms = max(ops_ms, bytes_ms)
+        terms = _bounds(q.shape, k.shape[1], dtype, sms, clock_mhz)
+        bound_ms = max(terms.values())
         per_sm = attn.blocks_per_sm(plan, q.dtype, d)
         ctas = plan.ctas(b, n, h)
         count = unit[1] if unit else 0
@@ -823,13 +877,15 @@ def main() -> int:
               f"launches/{'image' if unit and unit[0] == 'txt2img' else 'tile'}={count} "
               f"max_abs_err={err:.3g} tol=|d|<={atol:g}+{rtol:g}|ref| {'ok' if ok else 'FAIL'} "
               f"kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
-              f"bound_ms={bound_ms:.5f} ({'operations' if ops_ms >= bytes_ms else 'bytes'}) "
+              f"bound_ms={bound_ms:.5f} ({_bound_by(terms)}; operations "
+              f"{terms['operations']:.5f}, bytes {terms['bytes']:.5f}, exponentials "
+              f"{terms['exponentials']:.5f}) "
               f"instance={plan.instance} keys/tile={plan.keys_per_tile} "
               f"masked={plan.masked_share(m):.4f} rows/cta={plan.rows_per_cta} "
               f"splits={plan.splits} ctas={ctas} ctas/sm={per_sm} "
               f"waves={ctas / (per_sm * sms):.3f}")
-        if unit and unit[0] == "upscale" and plan.instance == "wgmma":
-            plans = [attn.Plan("wgmma", keys, attn.WGMMA_ROWS) for keys in attn.WGMMA_KEY_TILES]
+        if unit and plan.instance == "wgmma":
+            plans = attn.wgmma_plans(d)
             tile_lines.append(_time_plans(torch, attn, label, q, k, v, plans, plan))
             if host_inputs is None or q.numel() > host_inputs[0].numel():
                 host_inputs = (q, k, v)
@@ -838,9 +894,9 @@ def main() -> int:
                      for splits in SPLITS_TIMED if splits <= plan.key_tiles(m)]
             tile_lines.append(_time_plans(torch, attn, label, q, k, v, plans, plan))
         _require(ok, f"kernel disagrees with its plain version at {label} ({err:.3g})")
-        if unit and (unit[0] == "upscale" or plan.instance == "mma"):
+        if unit and (unit[0] == "upscale" or plan.instance == "wgmma"):
             for key, val in (("ms", kernel_ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
-                             ("bound_ms", bound_ms), ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
+                             ("bound_ms", bound_ms), *terms.items()):
                 totals[unit[0]][key] += count * val
 
     for line in tile_lines:
@@ -944,15 +1000,18 @@ def main() -> int:
     print("[kernels] flash_attention: ms, plain_ms, library_ms and bound_ms are per SDXL tile "
           "(each upscale shape's time times its launches per tile, summed); launches: the last "
           "elastic run, master and w1 together (launches_main: phase 4's last run). "
-          "flash_attention_mma: the same per 512-px SD1.5 image over the shapes the mma "
-          "instance takes; launches: the last txt2img run, master and w1 together")
+          "flash_attention_txt2img: the same per 512-px SD1.5 image over the D=40/80/160 shapes "
+          "the wgmma instance takes; launches: its launches in the last txt2img run, master "
+          "and w1 together; bound_by: the largest of the summed operations, bytes and "
+          "exponentials terms")
     source = "comfyui_distributed_tpu_torch/csrc/flash_attention.cu"
     replaces = "comfyui_distributed_tpu/ops/attention.py:80"
 
     def numbers(path):
         t = totals[path]
         return {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes",
+                "bound_by": _bound_by({key: t[key] for key in ("operations", "bytes",
+                                                               "exponentials")}),
                 "library_ms": t["library_ms"]}
 
     kernels = {"kernels": [
@@ -965,18 +1024,18 @@ def main() -> int:
             "launches_by_instance": elastic["launches_by_instance"],
             "launches_main": launches,
             "launches_by_instance_main": by_instance,
-            "max_abs_err": max(max_err[i] for i in ("wgmma", "wgmma512", "fma")),
+            "max_abs_err": max_err["upscale"],
             **numbers("upscale"),
             "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
         },
         {
-            "name": "flash_attention_mma",
+            "name": "flash_attention_txt2img",
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": txt2img["launches_by_instance"]["mma"],
+            "launches": txt2img["launches_by_instance"]["wgmma"],
             "launches_by_instance": txt2img["launches_by_instance"],
-            "max_abs_err": max_err["mma"],
+            "max_abs_err": max_err["txt2img"],
             **numbers("txt2img"),
             "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
         },

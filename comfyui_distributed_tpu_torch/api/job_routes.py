@@ -7,7 +7,10 @@ job_routes.py, without the scheduler's admission lanes and adapters:
                                     → {status, prompt_id, workers, job_ids}
     POST /distributed/job_complete  {job_id, worker_id, batch_idx, image
                                     (base64 PNG data URL), is_last, empty?}
-                                    → {status}; 400 on a bad envelope or an
+                                    → {status}: "ok", or "late" for a job
+                                    the master's collector has already
+                                    drained and cleaned up (the envelope is
+                                    dropped); 400 on a bad envelope or an
                                     undecodable image
     POST /distributed/prepare_job   {job_id} → {status}: announce a collector job
 
@@ -87,14 +90,14 @@ class JobRoutes:
         job_id = str(body["job_id"])
         store = self.server.job_store
         await store.wait_for_collector(job_id, JOB_INIT_GRACE_SECONDS)
-        await store.put_collector_result(job_id, {
+        queued = await store.put_collector_result(job_id, {
             "tensor": tensor,
             "worker_id": str(body["worker_id"]),
             "batch_idx": int(body["batch_idx"]),
             "is_last": bool(body.get("is_last", False)),
             "empty": bool(body.get("empty", False)),
         }, received_bytes=len(body["image"]))
-        return json_response({"status": "ok"})
+        return json_response({"status": "ok" if queued else "late"})
 
     async def prepare_job(self, request: Request) -> Response:
         body = request.json()

@@ -10,18 +10,25 @@
 // pair and loops over the K/V tiles itself.
 //
 // What bounds it on an H100 (SXM, published peaks: 989 TFLOP/s bf16,
-// 3.35 TB/s), per main-path shape, 4*B*H*N*M*D operations against the bytes
-// of q, k, v and o read or written once:
-//   self@1296  [2,1296,10,64] x 1296  operations  8.7 us
-//   cross@1296 [2,1296,10,64] x 77    bytes       2.1 us
-//   self@324   [2,324,20,64]  x 324   bytes       2.0 us
-//   cross@324  [2,324,20,64]  x 77    bytes       1.2 us
+// 3.35 TB/s; exp2 on the special-function unit at 16 a clock an SM, 132
+// SMs at 1980 MHz), per main-path shape: 4*B*H*N*M*D operations, the
+// bytes of q, k, v and o read or written once, and B*H*N*M exponentials:
+//   self@1296  [2,1296,10,64] x 1296  operations   8.7 us (exp2 8.0)
+//   cross@1296 [2,1296,10,64] x 77    bytes        2.1 us
+//   self@324   [2,324,20,64]  x 324   bytes        2.0 us
+//   cross@324  [2,324,20,64]  x 77    bytes        1.2 us
 //   vae@5184   [1,5184,1,512] x 5184  operations  55.7 us
 // and of one 512-px SD1.5 image (txt2img):
-//   self@4096  [2,4096,8,40]  x 4096  operations 43.4 us
-//   self@1024  [2,1024,8,80]  x 1024  operations  5.4 us
-//   self@256   [2,256,8,160]  x 256   bytes       1.6 us
-//   cross@4096, @1024, @256 (M = 77)  bytes       3.2, 1.7, 1.0 us
+//   self@4096  [2,4096,8,40]  x 4096  exponentials 64.2 us (operations 43.4)
+//   self@1024  [2,1024,8,80]  x 1024  operations   5.4 us (exp2 4.0)
+//   self@256   [2,256,8,160]  x 256   bytes        1.6 us
+//   cross@4096, @1024, @256 (M = 77)  bytes        3.2, 1.7, 1.0 us
+// At D = 40 the softmax's exp2 costs more than the products: the design
+// has to hide it behind them, not only feed the tensor cores. Measured
+// beside these, D = 40 is also bound by its K and V deliveries: with 64
+// query rows a block (two blocks an SM) self@4096 took 0.26 ms, and no
+// less with parts of the compute taken out; two consumers sharing each
+// K and V tile took 0.18 ms (PERF.md, PR 6).
 // Every kernel below shares three choices about that bound:
 //   * the running max, sum and accumulator never leave registers; the only
 //     device-memory traffic is one read of each tile and one write of o.
@@ -30,46 +37,76 @@
 //     zeros and are never stored.
 //   * head dims are template instances, no lane padding (the TPU kernel
 //     padded D to 128 for its lanes; only D = 40's Q K^T runs 8 zero
-//     columns wider, for mma's k = 16).
+//     columns wider, for wgmma's k = 16).
 // The instance is chosen by the caller (ops/attention.py::plan) and passed
 // in as a code; an instance or tile shape not compiled here returns -1.
 //
-// flash_attention_fwd_wgmma_kernel, bf16, D = 64 (instance 2; the 2800
-// UNet calls of a tile): warp-specialised, on Hopper's asynchronous units.
-//   * A block is one consumer warpgroup (64 query rows) and one producer
-//     warpgroup whose registers setmaxnreg cuts to 24, handing them to the
-//     consumer (232); two blocks share an SM. Two consumer warpgroups per
-//     block (128 rows, one block per SM) were slower at every shape of the
-//     path and were dropped.
+// flash_attention_fwd_wgmma_kernel<D, KEYS, CONSUMERS>, bf16, D = 40, 64,
+// 80 and 160 (instance 2; the 2800 UNet calls of an SDXL tile at D = 64,
+// the 640 of an SD1.5 image at D = 40/80/160): warp-specialised, on
+// Hopper's asynchronous units.
+//   * A block is CONSUMERS (one or two) consumer warpgroups of 64 query
+//     rows each and one producer warpgroup whose registers setmaxnreg
+//     cuts to 24, handing them to the consumers (232 a thread with one
+//     consumer and two blocks an SM, 240 with two and one block). Two
+//     consumers take turns at the tensor cores (FA3's ping-pong, named
+//     barriers 1 and 2), so one's softmax runs under the other's
+//     products, and share each K and V tile, which halves the deliveries
+//     per query row. The router takes them at D = 40 wherever the keys
+//     outgrow one 80-key tile (self@4096); elsewhere one consumer, two
+//     blocks an SM.
+//   * The head dim is cut into column chunks, each its own TMA box and
+//     swizzled with a span of its own width in bytes (HeadChunks): D = 40
+//     [32 cols, 64-byte swizzle | 16, 32-byte], D = 64 [64, 128-byte], D =
+//     80 [64 | 16], D = 160 [64 | 64 | 32]. A wgmma then reads whole swizzled rows, and no product's N
+//     cuts a swizzle atom. D = 40's last chunk covers columns 40 .. 47,
+//     which TMA fills with zeros (the map's inner extent is 40): Q K^T
+//     gets its k = 48 with nothing written by threads, and P V eight zero
+//     columns that are not stored. (One 64-column box for each of D = 40's
+//     Q, K and V was slower: more bytes into shared memory for the same
+//     rows; PERF.md, PR 6.)
 //   * One producer thread loads the Q tile once and keeps K and V tiles in
 //     flight, each through a ring of two stages with full/empty mbarriers
 //     of its own, so a K stage is refilled as soon as its scores are in.
-//     Every load is one TMA copy of a box of a 4-D tensor map over the
-//     caller's [B, N|M, H, 64] view (its own strides), 128-byte swizzled,
-//     the layout wgmma reads; rows past N or M come in as zeros within
-//     their own batch and head.
+//     (Three stages, or four for the two-consumer block, measured no
+//     faster: the rings are not what binds; PERF.md, PR 6.)
+//     Every box comes from a 4-D tensor map over the caller's [B, N|M, H,
+//     D] view (its own strides), one map per chunk width and operand;
+//     rows past N or M come in as zeros within their own batch and head.
 //   * S = Q K^T by wgmma m64nKk16 with both operands in shared memory
-//     (K-major); the online softmax in registers, in exp2 units; O += P V
-//     by wgmma m64n64k16, P from registers and V from shared memory
-//     (MN-major, transposed). Within the warpgroup the products overlap the
-//     softmax: Q K^T of tile i + 1 runs while the accumulator is rescaled,
-//     P V of tile i while the softmax of tile i + 1 runs. The last tile is
-//     peeled off the loop, so ptxas sees every committed group waited for
-//     on every path and does not serialise the wgmma pipeline.
-//   * The key tile K is a template parameter (80, 112 or 144), chosen per
-//     call so that few key slots are masked: M = 77 takes one tile of 80,
-//     M = 324 three of 112, M = 1296 nine of 144 (4 %, 4 % and 0 % masked,
-//     against 40 %, 16 % and 0 % for 64-key tiles).
+//     (K-major), one k-step of 16 columns at a time inside one chunk: 3,
+//     4, 5 and 10 k-steps at D = 40, 64, 80, 160. The online softmax in
+//     registers, in exp2 units, the scale folded into each exponent as
+//     one FMA. O += P V by wgmma from registers (P) and
+//     shared memory (V, MN-major, transposed), one product per chunk
+//     group and k-step, N the group's width: 32 + 16, 64, 64 + 16, or
+//     128 (two 64-column chunks through the descriptor's leading byte
+//     offset) + 32; each group accumulates into its own run of one
+//     accumulator laid out as m64n(48|64|80|160).
+//   * Within a warpgroup the products overlap the softmax: Q K^T of tile
+//     i + 1 runs while the accumulator is rescaled, P V of tile i while
+//     the softmax of tile i + 1 runs. The last tile is peeled off the
+//     loop, so ptxas sees every committed group waited for on every path
+//     and does not serialise the wgmma pipeline.
+//   * The key tile KEYS is a template parameter, chosen per call so that
+//     few key slots are masked: M = 77 one tile of 80; M = 4096 and 1024
+//     tiles of 128 (D = 40, 80); M = 256 and 64 tiles of 64 (D = 160,
+//     whose 80 accumulator registers a 128-key tile would crowd); M = 324
+//     and 1296 tiles of 112 and 144 (D = 64).
 //   * P goes into P V as two bf16 products, bf16(P) and bf16(P - bf16(P)):
-//     16 bits of P where one bf16 keeps 8. One bf16 P missed the plain
-//     version by more than one bf16 step of the output where few keys share
-//     the weight (M = 77); the split costs half again the tensor-core work.
+//     16 bits of P where one bf16 keeps 8, as the TPU kernel keeps P V in
+//     f32. One bf16 P missed the plain version by more than one bf16 step
+//     of the output where few keys share the weight (M = 77); the split
+//     costs half again the tensor-core work (at D = 40 about 78 us of
+//     tensor work at peak against the exp2's 64 us). The split is six
+//     instructions a pair of scores (pack, shift, mask, two subtracts,
+//     pack).
 //   * The output is stored from registers, 4 bytes a thread per row pair.
 
 // flash_attention_fwd_wgmma512_kernel, bf16, D = 512 (instance 3; the
 // VAE's mid-block, 55.7 us of operations at vae@5184), with
 // flash_attention_fwd_merge_kernel: the same port of the TPU kernel,
-// warp-specialised like the D = 64 kernel, 384 threads, one block per SM.
+// warp-specialised like the kernel above, 384 threads, one block per SM.
 //   * A 64 x 512 f32 accumulator does not fit one warpgroup's registers,
 //     so a block is two consumer warpgroups of 64 query rows each owning
 //     256 of the 512 output dims (64 x 256 f32: 128 registers a thread),
@@ -97,31 +134,7 @@
 //     (TMA zero-fills rows past N or M, masked keys score -inf, rows past
 //     N are not stored).
 
-// flash_attention_fwd_mma_kernel, bf16, D = 40, 80 and 160 (instance 1;
-// SD1.5's self- and cross-attention, 640 calls of a 512-px image): the
-// same port on the warp-level tensor cores, mma.sync m16n8k16 with f32
-// accumulators, fed by cp.async. A simple kernel, not yet redesigned for
-// Hopper's asynchronous units.
-//   * A block is four warps, 64 query rows, 16 per warp; K and V come in
-//     64-key tiles through two shared-memory buffers, the next tile's copy
-//     in flight while the current one is used. 16-byte cp.async chunks
-//     (5, 10 or 20 a row); keys past M and query rows past N load as
-//     zeros (a source size of 0).
-//   * D = 40 is not a multiple of mma's k = 16: Q K^T runs over 48
-//     columns, the Q and K tiles' columns 40 .. 47 zeroed once, which adds
-//     nothing to a dot product (the TPU wrapper pads D to 128 the same
-//     way). P V's n-tiles are 8 wide, so V and O keep their 40 columns.
-//   * Shared rows are padded to D rounded up to 16, plus 8 elements (56,
-//     88, 168): the eight rows a fragment load touches then start on eight
-//     different 4-bank groups, so every read is free of bank conflicts.
-//   * The Q fragments are read from shared memory per k-step of Q K^T,
-//     not kept in registers: at D = 160 the 64 x 160 f32 accumulator is
-//     already 80 registers a thread.
-//   * The online softmax in registers, in exp2 units; P goes into P V as
-//     two bf16 products (head and tail), as in the wgmma kernels; V's B
-//     fragments by ldmatrix.trans.
-
-// The tensor-core kernels need 16-byte aligned rows (TMA, cp.async); other
+// The tensor-core kernels need 16-byte aligned rows (TMA); other
 // views take the kernel below.
 //
 // flash_attention_fwd_kernel, f32 (any D) and unaligned bf16 (instance
@@ -154,7 +167,6 @@ namespace {
 
 // Instance codes, shared with ops/attention.py (INSTANCES).
 constexpr int kInstanceFma = 0;
-constexpr int kInstanceMma = 1;
 constexpr int kInstanceWgmma = 2;
 constexpr int kInstanceWgmma512 = 3;
 
@@ -390,7 +402,7 @@ int run_fma(const Call& c, int* occupancy) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- warp-specialised kernel: bf16, D = 64 ----------------------------------
+// ---- warp-specialised kernel: bf16, D = 40, 64, 80, 160 ----------------------
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -398,37 +410,111 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // x0, x1 = head + tail with head = bf16(x) and tail = bf16(x - head): the
-// pair carries 16 significant bits, where one bf16 carries 8.
+// pair carries 16 significant bits, where one bf16 carries 8. The head's
+// two halves widen back to f32 by a shift and a mask (a bf16 is the top
+// half of an f32): six instructions a pair.
 __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& head, uint32_t& tail) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  head = *reinterpret_cast<const uint32_t*>(&h);
-  tail = pack_bf16(x0 - hf.x, x1 - hf.y);
+  head = pack_bf16(x0, x1);
+  tail = pack_bf16(x0 - __uint_as_float(head << 16), x1 - __uint_as_float(head & 0xffff0000u));
 }
 
-constexpr int kWgD = 64;               // head dim: one 128-byte swizzled row
-constexpr int kWgRowBytes = 2 * kWgD;
-constexpr int kWgRows = 64;            // query rows per block: one consumer warpgroup
-constexpr int kWgThreads = 256;        // the consumer warpgroup, then the producer's
-constexpr int kWgStages = 2;           // depth of the K ring and of the V ring
-// Registers a thread at launch (two blocks per SM fill the register file),
-// and after the producer warpgroup has given all but 24 back to the
-// consumers.
-constexpr int kWgBlocksPerSm = 2;
-constexpr int kWgLaunchRegs = 128;
+constexpr int kWgRows = 64;     // query rows of one consumer warpgroup
+constexpr int kWgStages = 2;    // depth of the K ring and of the V ring
 constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 232;
-static_assert((kConsumerRegs + kProducerRegs) * 128 <= kWgLaunchRegs * kWgThreads &&
-                  kWgLaunchRegs * kWgThreads * kWgBlocksPerSm <= 65536,
-              "registers handed to the consumers must be ones the producer gave back");
 
-template <int KEYS>
+// The head dim as column chunks. Chunk c covers columns [col0(c), col0(c)
+// + cols(c)), comes in as its own TMA box and is swizzled with a span of
+// its width in bytes (2 cols(c): 128, 64 or 32), so that a wgmma reads
+// whole swizzled rows and no N of a product cuts a swizzle atom. Chunks
+// run widest first, so each starts on its own swizzle atom. Chunks of one
+// width share a tensor map (`map`). Q K^T steps through the chunks 16
+// columns at a time; P V takes a run of chunks of one width as one wgmma
+// (`group`), N the run's columns, stepping between 64-column chunks by the
+// descriptor's leading byte offset, each group into its own run of the
+// accumulator. D = 40's second chunk covers columns 32 .. 47: its map's
+// inner extent is 40, so TMA fills columns 40 .. 47 with zeros, which give
+// Q K^T its k = 48 and P V eight zero columns that are not stored.
+template <int D>
+struct HeadChunks;
+template <>
+struct HeadChunks<40> {  // [32 | 16]
+  static constexpr int kChunks = 2, kMaps = 2, kGroups = 2;
+  __host__ __device__ static constexpr int cols(int c) { return c == 0 ? 32 : 16; }
+  __host__ __device__ static constexpr int map(int c) { return c; }
+  __host__ __device__ static constexpr int group_first(int g) { return g; }
+  __host__ __device__ static constexpr int group_chunks(int) { return 1; }
+};
+template <>
+struct HeadChunks<64> {  // [64]
+  static constexpr int kChunks = 1, kMaps = 1, kGroups = 1;
+  __host__ __device__ static constexpr int cols(int) { return 64; }
+  __host__ __device__ static constexpr int map(int) { return 0; }
+  __host__ __device__ static constexpr int group_first(int) { return 0; }
+  __host__ __device__ static constexpr int group_chunks(int) { return 1; }
+};
+template <>
+struct HeadChunks<80> {  // [64 | 16]
+  static constexpr int kChunks = 2, kMaps = 2, kGroups = 2;
+  __host__ __device__ static constexpr int cols(int c) { return c == 0 ? 64 : 16; }
+  __host__ __device__ static constexpr int map(int c) { return c; }
+  __host__ __device__ static constexpr int group_first(int g) { return g; }
+  __host__ __device__ static constexpr int group_chunks(int) { return 1; }
+};
+template <>
+struct HeadChunks<160> {  // [64 | 64 | 32]
+  static constexpr int kChunks = 3, kMaps = 2, kGroups = 2;
+  __host__ __device__ static constexpr int cols(int c) { return c < 2 ? 64 : 32; }
+  __host__ __device__ static constexpr int map(int c) { return c < 2 ? 0 : 1; }
+  __host__ __device__ static constexpr int group_first(int g) { return g == 0 ? 0 : 2; }
+  __host__ __device__ static constexpr int group_chunks(int g) { return g == 0 ? 2 : 1; }
+};
+
+// The first column of chunk c; of c = kChunks, the columns all chunks cover.
+template <int D>
+__host__ __device__ constexpr int chunk_col0(int c) {
+  int col = 0;
+  for (int i = 0; i < c; ++i) col += HeadChunks<D>::cols(i);
+  return col;
+}
+
+// One block: CONSUMERS consumer warpgroups of 64 query rows each, then one
+// producer warpgroup whose registers setmaxnreg cuts to 24, handing them
+// to the consumers. One consumer: 256 threads, 128 registers a thread at
+// launch, two blocks an SM, 232 registers a consumer thread; two: 384
+// threads, 168 at launch, one block an SM, 240.
+template <int D, int KEYS, int CONSUMERS>
 struct WgShape {
-  static constexpr int kTileBytes = KEYS * kWgRowBytes;
+  static constexpr int kCols = chunk_col0<D>(HeadChunks<D>::kChunks);  // 48, 64, 80, 160
+  static constexpr int kRows = kWgRows * CONSUMERS;                     // query rows a block
+  static constexpr int kThreads = 128 * (CONSUMERS + 1);
+  static_assert(CONSUMERS == 1 || CONSUMERS == 2, "one or two consumer warpgroups");
+  static constexpr int kBlocksPerSm = CONSUMERS == 1 ? 2 : 1;
+  static constexpr int kLaunchRegs = CONSUMERS == 1 ? 128 : 168;
+  static constexpr int kConsumerRegs = CONSUMERS == 1 ? 232 : 240;
+  static constexpr int kQBytes = kRows * 2 * kCols;
+  // one K or V tile as its boxes deliver it, and the ring's stride
+  static constexpr int kTileBytes = KEYS * 2 * kCols;
+  static constexpr int kStageBytes = (kTileBytes + 1023) / 1024 * 1024;
   // 1024 bytes of slack to align the tiles to the swizzle atom, the Q tile,
   // and the stages' K and V tiles
-  static constexpr size_t kSmem = 1024 + kWgRows * kWgRowBytes + 2 * kWgStages * kTileBytes;
+  static constexpr size_t kSmem =
+      1024 + (kQBytes + 1023) / 1024 * 1024 + 2 * kWgStages * static_cast<size_t>(kStageBytes);
   static_assert(KEYS % 16 == 0 && KEYS <= 256, "wgmma N and P V's k-steps");
+  static_assert(kSmem <= 232448 - 128, "227 KB of shared memory a block, barriers included");
+  static_assert((kConsumerRegs * CONSUMERS + kProducerRegs) * 128 <= kLaunchRegs * kThreads &&
+                    kLaunchRegs * kThreads * kBlocksPerSm <= 65536,
+                "registers handed to the consumers must be ones the producer gave back");
+
+  // byte offset of chunk c in a tile of `rows` rows: the chunks before it
+  __host__ __device__ static constexpr int chunk_offset(int rows, int c) {
+    return rows * 2 * chunk_col0<D>(c);
+  }
+};
+
+// One tensor map per chunk width and operand.
+template <int D>
+struct WgMaps {
+  CUtensorMap q[HeadChunks<D>::kMaps], k[HeadChunks<D>::kMaps], v[HeadChunks<D>::kMaps];
 };
 
 // 2^x by the special-function unit alone (MUFU.EX2, relative error about
@@ -446,13 +532,14 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // multiplied by before P V of this tile is added. Keys at or past `m`
 // score -inf; only the last tile can hold them, so the others skip the
 // test. The row max and sum run as four independent chains per row, not
-// one chain through all of the tile's columns.
+// one chain through all of the tile's columns. The max is taken over
+// the raw scores (the scale is positive, so it picks the same column)
+// and the scale is folded into each exponent as one FMA:
+// 2^(s scale_log2 - max).
 template <int KEYS>
 __device__ __forceinline__ void softmax_tile(float (&sc)[KEYS / 2], float (&row_max)[2],
                                              float (&row_sum)[2], float (&correction)[2],
                                              int k0, int m, int t, float scale_log2) {
-#pragma unroll
-  for (int i = 0; i < KEYS / 2; ++i) sc[i] *= scale_log2;
   if (k0 + KEYS > m) {
 #pragma unroll
     for (int j = 0; j < KEYS / 8; ++j)
@@ -460,14 +547,16 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[KEYS / 2], float (&row_
       for (int e = 0; e < 4; ++e)
         if (k0 + 8 * j + 2 * t + (e & 1) >= m) sc[4 * j + e] = -INFINITY;
   }
+  // chain (2 j + e) & 3 of row e >> 1 starts at j < 2
   float part[2][4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) part[0][c] = part[1][c] = -INFINITY;
 #pragma unroll
   for (int j = 0; j < KEYS / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      part[e >> 1][(2 * j + e) & 3] = fmaxf(part[e >> 1][(2 * j + e) & 3], sc[4 * j + e]);
+    for (int e = 0; e < 4; ++e) {
+      float& p = part[e >> 1][(2 * j + e) & 3];
+      p = j < 2 ? sc[4 * j + e] : fmaxf(p, sc[4 * j + e]);
+    }
+  float neg_max[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float tile_max = fmaxf(fmaxf(part[r][0], part[r][1]), fmaxf(part[r][2], part[r][3]));
@@ -475,18 +564,18 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[KEYS / 2], float (&row_
     // always valid, so the new max is finite and exp2 of -inf is 0
     tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
     tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-    const float new_max = fmaxf(row_max[r], tile_max);
+    const float new_max = fmaxf(row_max[r], tile_max * scale_log2);
     correction[r] = exp2_approx(row_max[r] - new_max);
     row_max[r] = new_max;
+    neg_max[r] = -new_max;
   }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) part[0][c] = part[1][c] = 0.f;
 #pragma unroll
   for (int j = 0; j < KEYS / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      sc[4 * j + e] = exp2_approx(sc[4 * j + e] - row_max[e >> 1]);
-      part[e >> 1][(2 * j + e) & 3] += sc[4 * j + e];
+      sc[4 * j + e] = exp2_approx(fmaf(sc[4 * j + e], scale_log2, neg_max[e >> 1]));
+      float& p = part[e >> 1][(2 * j + e) & 3];
+      p = j < 2 ? sc[4 * j + e] : p + sc[4 * j + e];
     }
   }
 #pragma unroll
@@ -506,30 +595,57 @@ __device__ __forceinline__ void split_p(const float (&sc)[KEYS / 2], uint32_t (&
       split_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], head[kk][r], tail[kk][r]);
 }
 
-// S = Q K^T over D = 64 for one key tile: four k-steps of 16, each 32
-// bytes along the swizzled rows (2 in the descriptors' 16-byte units).
-template <int KEYS>
-__device__ __forceinline__ void issue_scores(float (&sc)[KEYS / 2], uint64_t q_desc,
-                                             uint64_t k_desc) {
+// S = Q K^T for one key tile: k-steps of 16 columns, each inside one
+// chunk, 32 bytes along its swizzled rows (2 descriptor units) apart;
+// `k_stage` moves the K descriptors to the tile's stage.
+template <int D, int KEYS>
+__device__ __forceinline__ void issue_scores(float (&sc)[KEYS / 2],
+                                             const uint64_t (&q_desc)[HeadChunks<D>::kChunks],
+                                             const uint64_t (&k_desc)[HeadChunks<D>::kChunks],
+                                             uint32_t k_stage) {
   hopper::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) hopper::WgmmaSS<KEYS>::run(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+  for (int c = 0; c < HeadChunks<D>::kChunks; ++c)
+#pragma unroll
+    for (int kk = 0; kk < HeadChunks<D>::cols(c) / 16; ++kk)
+      hopper::WgmmaSS<KEYS>::run(sc, q_desc[c] + 2 * kk, k_desc[c] + k_stage + 2 * kk, c + kk);
   hopper::wgmma_commit();
 }
 
+// O += P V over P V group G: the columns of its chunks, N of them, into
+// their run of the accumulator. The accumulator is laid out as one m64n
+// (all chunks' columns) accumulator, columns 8j .. 8j + 7 in registers
+// 4j .. 4j + 3, so a group's registers are the run from its first column.
+// V's k-step kk is 16 rows of the group's row bytes on.
+template <int D, int G, int N>
+__device__ __forceinline__ void pv_group(float (&acc)[N], const uint32_t (&head)[4],
+                                         const uint32_t (&tail)[4], uint64_t v_desc, int kk) {
+  using C = HeadChunks<D>;
+  constexpr int first = C::group_first(G);
+  constexpr int width = C::cols(first) * C::group_chunks(G);
+  float(&run)[width / 2] = *reinterpret_cast<float(*)[width / 2]>(acc + chunk_col0<D>(first) / 2);
+  const uint64_t desc = v_desc + 2 * C::cols(first) * kk;
+  hopper::WgmmaRS<width>::run(run, tail, desc);
+  hopper::WgmmaRS<width>::run(run, head, desc);
+}
+
 // O += P V for one key tile: P from registers (head, then tail added
-// first), V's k-step kk 16 rows of 128 bytes (128 descriptor units) on.
-template <int KEYS>
-__device__ __forceinline__ void issue_pv(float (&acc)[32], uint32_t (&head)[KEYS / 16][4],
-                                         uint32_t (&tail)[KEYS / 16][4], uint64_t v_desc) {
+// first), V from the tile's stage (`v_stage`), one wgmma per group and
+// k-step, each of the group's width.
+template <int D, int KEYS, int N>
+__device__ __forceinline__ void issue_pv(float (&acc)[N], uint32_t (&head)[KEYS / 16][4],
+                                         uint32_t (&tail)[KEYS / 16][4],
+                                         const uint64_t (&v_desc)[HeadChunks<D>::kGroups],
+                                         uint32_t v_stage) {
   hopper::fence_registers(acc);
   hopper::fence_registers(head);
   hopper::fence_registers(tail);
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < KEYS / 16; ++kk) {
-    hopper::wgmma_m64n64k16_rs(acc, tail[kk], v_desc + 128 * kk);
-    hopper::wgmma_m64n64k16_rs(acc, head[kk], v_desc + 128 * kk);
+    pv_group<D, 0>(acc, head[kk], tail[kk], v_desc[0] + v_stage, kk);
+    if constexpr (HeadChunks<D>::kGroups > 1)
+      pv_group<D, 1>(acc, head[kk], tail[kk], v_desc[1] + v_stage, kk);
   }
   hopper::wgmma_commit();
 }
@@ -546,81 +662,118 @@ __device__ __forceinline__ void rescale_rows(float (&acc)[N], const float (&corr
   }
 }
 
-template <int KEYS>
-__global__ void __launch_bounds__(kWgThreads, kWgBlocksPerSm)
-    flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
-                                     const __grid_constant__ CUtensorMap k_map,
-                                     const __grid_constant__ CUtensorMap v_map,
+template <int D, int KEYS, int CONSUMERS>
+__global__ void __launch_bounds__(WgShape<D, KEYS, CONSUMERS>::kThreads,
+                                  WgShape<D, KEYS, CONSUMERS>::kBlocksPerSm)
+    flash_attention_fwd_wgmma_kernel(const __grid_constant__ WgMaps<D> maps,
                                      __nv_bfloat16* __restrict__ o, int n, int m, int heads,
                                      long long o_sb, long long o_sn, long long o_sh,
                                      float scale_log2) {
-  constexpr int TILE = WgShape<KEYS>::kTileBytes;
+  using S = WgShape<D, KEYS, CONSUMERS>;
+  using C = HeadChunks<D>;
+  constexpr int STAGE = S::kStageBytes;
   extern __shared__ uint8_t wg_smem[];
   __shared__ uint64_t k_full[kWgStages], k_empty[kWgStages];
   __shared__ uint64_t v_full[kWgStages], v_empty[kWgStages], q_full;
   uint8_t* qs = wg_smem + ((1024 - (hopper::smem_addr(wg_smem) & 1023)) & 1023);
-  uint8_t* ks = qs + kWgRows * kWgRowBytes;  // the K ring
-  uint8_t* vs = ks + kWgStages * TILE;        // the V ring
+  uint8_t* ks = qs + (S::kQBytes + 1023) / 1024 * 1024;  // the K ring
+  uint8_t* vs = ks + kWgStages * STAGE;                   // the V ring
 
   const int b = blockIdx.y / heads;
   const int h = blockIdx.y % heads;
-  const int q0 = blockIdx.x * kWgRows;
+  const int q0 = blockIdx.x * S::kRows;
   const int tiles = (m + KEYS - 1) / KEYS;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kWgStages; ++s) {
       hopper::mbar_init(&k_full[s], 1);
       hopper::mbar_init(&v_full[s], 1);
-      hopper::mbar_init(&k_empty[s], 4);  // one arrival per consumer warp
-      hopper::mbar_init(&v_empty[s], 4);
+      hopper::mbar_init(&k_empty[s], 4 * CONSUMERS);  // one arrival per consumer warp
+      hopper::mbar_init(&v_empty[s], 4 * CONSUMERS);
     }
     hopper::mbar_init(&q_full, 1);
     hopper::mbar_fence_init();
   }
   __syncthreads();
 
-  if (threadIdx.x >= 128) {
-    // producer: one thread issues every copy, coordinates (d, h, row, b).
-    // K tile j and V tile j take stage j % 2 of their own rings: K is free
-    // once its scores are in, a product before V is.
+  if (threadIdx.x >= 128 * CONSUMERS) {
+    // producer: one thread issues every copy, coordinates (d, h, row, b),
+    // one box per chunk. K tile j and V tile j take stage j % 2 of their
+    // own rings: K is free once its scores are in, V once a product is.
     hopper::setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == 128) {
-      hopper::mbar_arrive_expect_tx(&q_full, kWgRows * kWgRowBytes);
-      hopper::tma_load_4d(qs, &q_map, &q_full, 0, h, q0, b);
+    if (threadIdx.x == 128 * CONSUMERS) {
+      hopper::mbar_arrive_expect_tx(&q_full, S::kQBytes);
+#pragma unroll
+      for (int c = 0; c < C::kChunks; ++c)
+        hopper::tma_load_4d(qs + S::chunk_offset(S::kRows, c), &maps.q[C::map(c)], &q_full,
+                            chunk_col0<D>(c), h, q0, b);
       for (int j = 0; j < tiles; ++j) {
         const int s = j % kWgStages;
         const uint32_t free_parity = ((j / kWgStages) & 1) ^ 1;
         hopper::mbar_wait(&k_empty[s], free_parity);
-        hopper::mbar_arrive_expect_tx(&k_full[s], TILE);
-        hopper::tma_load_4d(ks + s * TILE, &k_map, &k_full[s], 0, h, j * KEYS, b);
+        hopper::mbar_arrive_expect_tx(&k_full[s], S::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < C::kChunks; ++c)
+          hopper::tma_load_4d(ks + s * STAGE + S::chunk_offset(KEYS, c), &maps.k[C::map(c)],
+                              &k_full[s], chunk_col0<D>(c), h, j * KEYS, b);
         hopper::mbar_wait(&v_empty[s], free_parity);
-        hopper::mbar_arrive_expect_tx(&v_full[s], TILE);
-        hopper::tma_load_4d(vs + s * TILE, &v_map, &v_full[s], 0, h, j * KEYS, b);
+        hopper::mbar_arrive_expect_tx(&v_full[s], S::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < C::kChunks; ++c)
+          hopper::tma_load_4d(vs + s * STAGE + S::chunk_offset(KEYS, c), &maps.v[C::map(c)],
+                              &v_full[s], chunk_col0<D>(c), h, j * KEYS, b);
       }
     }
   } else {
-    hopper::setmaxnreg_inc<kConsumerRegs>();
-    // the consumer warpgroup: 64 query rows; this thread holds rows g and
-    // g + 8 of its warp's 16, columns 2t, 2t + 1 of every 8 (wgmma's
-    // accumulator layout, the same as mma.sync's m16n8 per warp)
-    const int warp = threadIdx.x / 32;
+    hopper::setmaxnreg_inc<S::kConsumerRegs>();
+    // consumer `consumer` owns query rows [64 consumer, 64 consumer + 64)
+    // of the block; this thread holds rows g and g + 8 of its warp's 16,
+    // columns 2t, 2t + 1 of every 8 (wgmma's accumulator layout, the same
+    // as mma.sync's m16n8 per warp). The consumer index comes through a
+    // shuffle so that the compiler knows it is warp-uniform.
+    const int consumer = CONSUMERS == 1 ? 0 : __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+    const int warp = (threadIdx.x % 128) / 32;
     const int lane = threadIdx.x % 32;
     const int g = lane / 4;
     const int t = lane % 4;
-    const uint64_t q_desc = hopper::smem_desc(qs);
-    float acc[32];
+    // descriptors of stage 0; stage s is s x STAGE bytes (STAGE / 16
+    // descriptor units) on
+    uint64_t q_desc[C::kChunks], k_desc[C::kChunks], v_desc[C::kGroups];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    for (int c = 0; c < C::kChunks; ++c) {
+      q_desc[c] = hopper::smem_desc(
+          qs + S::chunk_offset(S::kRows, c) + consumer * kWgRows * 2 * C::cols(c), 2 * C::cols(c));
+      k_desc[c] = hopper::smem_desc(ks + S::chunk_offset(KEYS, c), 2 * C::cols(c));
+    }
+#pragma unroll
+    for (int gr = 0; gr < C::kGroups; ++gr) {
+      const int first = C::group_first(gr);
+      v_desc[gr] = hopper::smem_desc(vs + S::chunk_offset(KEYS, first), 2 * C::cols(first),
+                                     C::group_chunks(gr) > 1 ? KEYS * 2 * C::cols(first) : 0);
+    }
+    float acc[S::kCols / 2];
+#pragma unroll
+    for (int i = 0; i < S::kCols / 2; ++i) acc[i] = 0.f;
     float row_max[2] = {-INFINITY, -INFINITY};
     float row_sum[2] = {0.f, 0.f};  // this lane's columns only, summed at the end
     float correction[2];
     float sc[KEYS / 2];
     uint32_t head[KEYS / 16][4], tail[KEYS / 16][4];  // P of the tile in flight
 
+    // Several consumers take turns at the tensor cores (FA3's ping-pong):
+    // each issues a tile's Q K^T and P V only after the one before it has
+    // issued its own, at named barrier 1 + its index (two consumers, 256
+    // threads: one arrives, the other waits), so that one's softmax runs
+    // while another's products do. The last consumer lets the first go
+    // first.
+    constexpr bool kTurns = CONSUMERS > 1;
+    const uint32_t my_turn = 1 + consumer, next_turn = 1 + (consumer + 1) % CONSUMERS;
+    if (kTurns && consumer == CONSUMERS - 1) hopper::named_barrier_arrive<256>(next_turn);
+
     // prologue: the first tile's scores and P
     hopper::mbar_wait(&q_full, 0);
     hopper::mbar_wait(&k_full[0], 0);
-    issue_scores<KEYS>(sc, q_desc, hopper::smem_desc(ks));
+    issue_scores<D, KEYS>(sc, q_desc, k_desc, 0);
     hopper::wgmma_wait<0>();
     hopper::fence_registers(sc);
     __syncwarp();
@@ -638,10 +791,12 @@ __global__ void __launch_bounds__(kWgThreads, kWgBlocksPerSm)
       const int s = i % kWgStages;
       const int s1 = (i + 1) % kWgStages;
       hopper::mbar_wait(&k_full[s1], ((i + 1) / kWgStages) & 1);
-      issue_scores<KEYS>(sc, q_desc, hopper::smem_desc(ks + s1 * TILE));
+      if (kTurns) hopper::named_barrier_sync<256>(my_turn);
+      issue_scores<D, KEYS>(sc, q_desc, k_desc, s1 * (STAGE / 16));
       rescale_rows(acc, correction);
       hopper::mbar_wait(&v_full[s], (i / kWgStages) & 1);
-      issue_pv<KEYS>(acc, head, tail, hopper::smem_desc(vs + s * TILE));
+      issue_pv<D, KEYS>(acc, head, tail, v_desc, s * (STAGE / 16));
+      if (kTurns) hopper::named_barrier_arrive<256>(next_turn);
       hopper::wgmma_wait<1>();  // the scores of tile i + 1 are in; P V runs on
       hopper::fence_registers(sc);
       __syncwarp();
@@ -657,7 +812,11 @@ __global__ void __launch_bounds__(kWgThreads, kWgBlocksPerSm)
       const int last = tiles - 1;
       rescale_rows(acc, correction);
       hopper::mbar_wait(&v_full[last % kWgStages], (last / kWgStages) & 1);
-      issue_pv<KEYS>(acc, head, tail, hopper::smem_desc(vs + (last % kWgStages) * TILE));
+      if (kTurns) hopper::named_barrier_sync<256>(my_turn);
+      issue_pv<D, KEYS>(acc, head, tail, v_desc, (last % kWgStages) * (STAGE / 16));
+      // the last turn of each consumer lets the next take its own; the last
+      // consumer's would be one too many (its first arrive was the extra)
+      if (kTurns && consumer != CONSUMERS - 1) hopper::named_barrier_arrive<256>(next_turn);
       hopper::wgmma_wait<0>();
       hopper::fence_registers(acc);
     }
@@ -669,297 +828,27 @@ __global__ void __launch_bounds__(kWgThreads, kWgBlocksPerSm)
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int row = q0 + 16 * warp + g + 8 * r;
+      const int row = q0 + kWgRows * consumer + 16 * warp + g + 8 * r;
       if (row >= n) continue;
       __nv_bfloat16* orow =
           o + b * o_sb + static_cast<long long>(row) * o_sn + h * o_sh + 2 * t;
       const float inv = 1.f / row_sum[r];
+      // D / 8 column blocks: D = 40's zero columns 40 .. 47 stay unstored
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<uint32_t*>(orow + 8 * j) =
             pack_bf16(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
     }
   }
 }
 
-// ---- tensor-core kernel: bf16, D = 40, 80, 160 (mma.sync) --------------------
-//
-// Fragment layouts of mma.sync m16n8k16 (PTX ISA), for lane = 4 * g + t:
-//   A (16 x 16, row-major), 4 registers of 2 bf16: rows g | g + 8 | g | g + 8,
-//     columns 2t, 2t + 1 | 2t, 2t + 1 | 2t + 8, 2t + 9 | 2t + 8, 2t + 9.
-//   B (16 x 8, k x n), 2 registers: k = 2t, 2t + 1 | 2t + 8, 2t + 9; n = g.
-//   C (16 x 8 f32), 4 floats: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
-// The lower half of a register holds the element with the lower index.
-
-constexpr int kMmaRowGroups = 4;              // warps, 16 query rows each
-constexpr int kMmaRows = 16 * kMmaRowGroups;  // query rows per block
-constexpr int kMmaThreads = 32 * kMmaRowGroups;
-constexpr int kMmaKeys = 64;                  // keys per K/V tile
-
-template <int D>
-struct MmaShape {
-  static_assert(D % 8 == 0 && D <= 256, "P V's n-tiles and 16-byte chunks");
-  static constexpr int kQk = (D + 15) / 16 * 16;  // Q K^T's width: D rounded up to k = 16
-  static constexpr int kLd = kQk + 8;             // padded shared row, in bf16
-  // the Q tile and two K and two V tiles
-  static constexpr size_t kSmem = static_cast<size_t>(kMmaRows + 4 * kMmaKeys) * kLd * 2;
-  static_assert((kLd / 2) % 8 == 4, "8 rows of a fragment on 8 different 4-bank groups");
-  static_assert(kSmem <= 232448, "227 KB of shared memory a block");
-};
-
-__device__ __forceinline__ uint32_t shared_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 8 x 8 bf16 matrices, transposed: lanes 8j .. 8j + 7 give the row
-// addresses of matrix j, and register j of lane 4g + t receives its
-// elements (2t, g) and (2t + 1, g). x4 reads four matrices, x2 two
-// (lanes 0 .. 15 give the addresses).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const __nv_bfloat16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
-}
-
-// Starts the copy of rows [row0, row0 + ROWS) of one head (D columns) into
-// a tile of row pitch LD, 16 bytes per cp.async; rows at or past `limit`
-// are filled with zeros (a source size of 0, reading nothing).
-template <int ROWS, int D, int LD>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                long long row_stride, int row0, int limit) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kMmaThreads) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    const bool valid = row0 + r < limit;
-    const __nv_bfloat16* from =
-        valid ? src + static_cast<long long>(row0 + r) * row_stride + 8 * c : src;
-    const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst + r * LD + 8 * c));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(to), "l"(from),
-                 "r"(valid ? 16 : 0));
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                                   const __nv_bfloat16* __restrict__ k,
-                                   const __nv_bfloat16* __restrict__ v,
-                                   __nv_bfloat16* __restrict__ o, int n, int m, int heads,
-                                   long long q_sb, long long q_sn, long long q_sh, long long k_sb,
-                                   long long k_sm, long long k_sh, long long v_sb, long long v_sm,
-                                   long long v_sh, long long o_sb, long long o_sn, long long o_sh,
-                                   float scale_log2) {
-  using S = MmaShape<D>;
-  constexpr int LD = S::kLd;
-  constexpr int KS = S::kQk / 16;   // k-steps of Q K^T
-  constexpr int NS = kMmaKeys / 8;  // score n-tiles per key tile
-  constexpr int PS = kMmaKeys / 16; // k-steps of P V over a key tile
-  constexpr int NO = D / 8;         // output n-tiles
-  extern __shared__ float4 mma_smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(mma_smem);
-  __nv_bfloat16* ks = qs + kMmaRows * LD;  // two buffers
-  __nv_bfloat16* vs = ks + 2 * kMmaKeys * LD;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int b = blockIdx.y / heads;
-  const int h = blockIdx.y % heads;
-  const int q0 = blockIdx.x * kMmaRows;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-  const int tiles = (m + kMmaKeys - 1) / kMmaKeys;
-
-  if constexpr (S::kQk != D) {
-    // Q K^T's padding columns of the Q tile and both K buffers, zeroed
-    // once: the copies below never write them
-    constexpr int kPad = S::kQk - D;
-    for (int i = threadIdx.x; i < (kMmaRows + 2 * kMmaKeys) * kPad; i += kMmaThreads)
-      qs[(i / kPad) * LD + D + i % kPad] = __float2bfloat16(0.f);
-  }
-  load_tile_async<kMmaRows, D, LD>(qs, q + b * q_sb + h * q_sh, q_sn, q0, n);
-  load_tile_async<kMmaKeys, D, LD>(ks, kb, k_sm, 0, m);
-  load_tile_async<kMmaKeys, D, LD>(vs, vb, v_sm, 0, m);
-  cp_async_commit();
-
-  // rows g and g + 8 of this warp's 16; scores are kept in log2 units
-  float acc[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float row_max[2] = {-INFINITY, -INFINITY};
-  float row_sum[2] = {0.f, 0.f};  // this lane's columns only, summed at the end
-  const __nv_bfloat16* qw = qs + (16 * warp + g) * LD + 2 * t;
-
-  for (int i = 0; i < tiles; ++i) {
-    const int k0 = i * kMmaKeys;
-    // the next tile's copy runs while this one is used
-    if (i + 1 < tiles) {
-      const int next = (i + 1) & 1;
-      load_tile_async<kMmaKeys, D, LD>(ks + next * kMmaKeys * LD, kb, k_sm, k0 + kMmaKeys, m);
-      load_tile_async<kMmaKeys, D, LD>(vs + next * kMmaKeys * LD, vb, v_sm, k0 + kMmaKeys, m);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* kt = ks + (i & 1) * kMmaKeys * LD;
-    const __nv_bfloat16* vt = vs + (i & 1) * kMmaKeys * LD;
-
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const uint32_t qa[4] = {shared_u32(qw + 16 * kk), shared_u32(qw + 8 * LD + 16 * kk),
-                              shared_u32(qw + 16 * kk + 8), shared_u32(qw + 8 * LD + 16 * kk + 8)};
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const __nv_bfloat16* krow = kt + (8 * j + g) * LD + 16 * kk + 2 * t;
-        mma_bf16(s[j], qa, shared_u32(krow), shared_u32(krow + 8));
-      }
-    }
-
-    float tile_max[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = (k0 + 8 * j + 2 * t + (e & 1) < m) ? s[j][e] * scale_log2 : -INFINITY;
-        s[j][e] = x;
-        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], x);
-      }
-    }
-    float correction[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      // the four lanes of a row hold its columns; the tile's first column is
-      // always valid, so the new max is finite and exp2 of -inf gives 0
-      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
-      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
-      const float new_max = fmaxf(row_max[r], tile_max[r]);
-      correction[r] = exp2_approx(row_max[r] - new_max);
-      row_max[r] = new_max;
-      row_sum[r] *= correction[r];
-    }
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2_approx(s[j][e] - row_max[e >> 1]);
-        row_sum[e >> 1] += s[j][e];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      acc[j][0] *= correction[0];
-      acc[j][1] *= correction[0];
-      acc[j][2] *= correction[1];
-      acc[j][3] *= correction[1];
-    }
-
-    // acc += P V: score n-tiles 2kk and 2kk + 1 are the A fragment of keys
-    // 16kk .. 16kk + 15, as P's head and tail in bf16; ldmatrix.trans reads
-    // V's B fragments, two output n-tiles at once (matrix j: keys
-    // + 8 (j & 1), dims + 8 (j >> 1)), the last one alone when D / 8 is odd.
-#pragma unroll
-    for (int kk = 0; kk < PS; ++kk) {
-      uint32_t head[4], tail[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], head[0], tail[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], head[1], tail[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], head[2], tail[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], head[3], tail[3]);
-      const __nv_bfloat16* vrow =
-          vt + (16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7)) * LD + 8 * (lane >> 4);
-#pragma unroll
-      for (int jp = 0; jp < NO / 2; ++jp) {
-        uint32_t vb4[4];
-        ldmatrix_x4_trans(vb4, vrow + 16 * jp);
-        mma_bf16(acc[2 * jp], tail, vb4[0], vb4[1]);
-        mma_bf16(acc[2 * jp], head, vb4[0], vb4[1]);
-        mma_bf16(acc[2 * jp + 1], tail, vb4[2], vb4[3]);
-        mma_bf16(acc[2 * jp + 1], head, vb4[2], vb4[3]);
-      }
-      if constexpr (NO % 2 == 1) {
-        uint32_t vb2[2];
-        ldmatrix_x2_trans(vb2, vt + (16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7)) * LD +
-                                   8 * (NO - 1));
-        mma_bf16(acc[NO - 1], tail, vb2[0], vb2[1]);
-        mma_bf16(acc[NO - 1], head, vb2[0], vb2[1]);
-      }
-    }
-    __syncthreads();  // this tile's buffers are free for the copy after next
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 1);
-    row_sum[r] += __shfl_xor_sync(0xffffffffu, row_sum[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + 16 * warp + g + 8 * r;
-    if (row >= n) continue;
-    __nv_bfloat16* orow = o + b * o_sb + static_cast<long long>(row) * o_sn + h * o_sh + 2 * t;
-    const float inv = 1.f / row_sum[r];
-#pragma unroll
-    for (int j = 0; j < NO; ++j)
-      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-          pack_bf16(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
-  }
-}
-
-template <int D>
-int run_mma(const Call& c, int* occupancy) {
-  constexpr size_t smem = MmaShape<D>::kSmem;
-  static std::atomic<unsigned long long> configured{0};
-  auto kernel = flash_attention_fwd_mma_kernel<D>;
-  cudaError_t err = allow_shared_once(configured, kernel, smem, c.device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (occupancy)
-    return static_cast<int>(
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, kMmaThreads, smem));
-  const long long* st = c.strides;
-  const dim3 grid((c.n + kMmaRows - 1) / kMmaRows, c.batch * c.heads);
-  kernel<<<grid, kMmaThreads, smem, c.stream>>>(
-      static_cast<const __nv_bfloat16*>(c.q), static_cast<const __nv_bfloat16*>(c.k),
-      static_cast<const __nv_bfloat16*>(c.v), static_cast<__nv_bfloat16*>(c.o), c.n, c.m, c.heads,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      c.scale * 1.4426950408889634f);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ---- warp-specialised kernel: bf16, D = 512 ---------------------------------
 
 constexpr int kD512 = 512;
 constexpr int kD512Half = kD512 / 2;        // output dims of one consumer warpgroup
-constexpr int kD512Chunks = kD512 / kWgD;   // 64-column swizzled tiles per row of Q, K or V
+constexpr int kD512ChunkCols = 64;          // columns of one 128-byte-swizzled tile
+constexpr int kD512RowBytes = 2 * kD512ChunkCols;
+constexpr int kD512Chunks = kD512 / kD512ChunkCols;  // such tiles per row of Q, K or V
 constexpr int kD512Rows = 64;              // query rows per block
 constexpr int kD512Threads = 384;          // two consumer warpgroups, then the producer's
 constexpr int kD512Stages = 2;             // depth of the K ring and of the V ring
@@ -973,7 +862,7 @@ static_assert((2 * kD512ConsumerRegs + kProducerRegs) * 128 <= kD512LaunchRegs *
 
 template <int KEYS>
 struct D512Shape {
-  static constexpr int kChunkBytes = KEYS * kWgRowBytes;       // one [KEYS][64] column tile
+  static constexpr int kChunkBytes = KEYS * kD512RowBytes;     // one [KEYS][64] column tile
   static constexpr int kTileBytes = kD512Chunks * kChunkBytes;   // one K or V tile
   static constexpr int kQBytes = kD512Rows * kD512 * 2;
   // the partial scores, by tile parity and consumer: KEYS / 2 floats a thread
@@ -990,7 +879,7 @@ struct D512Shape {
 template <int KEYS>
 __device__ __forceinline__ void issue_scores_half(float (&sc)[KEYS / 2], uint64_t q_desc,
                                                   uint64_t k_desc) {
-  constexpr int kQChunk = kD512Rows * kWgRowBytes / 16;   // column tile stride, in descriptor units
+  constexpr int kQChunk = kD512Rows * kD512RowBytes / 16;  // column tile stride, in descriptor units
   constexpr int kKChunk = D512Shape<KEYS>::kChunkBytes / 16;
   hopper::wgmma_fence();
 #pragma unroll
@@ -1012,8 +901,8 @@ __device__ __forceinline__ void issue_pv_half(float (&acc)[128], uint32_t (&head
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < KEYS / 16; ++kk) {
-    hopper::wgmma_m64n256k16_rs(acc, tail[kk], v_desc + 128 * kk);
-    hopper::wgmma_m64n256k16_rs(acc, head[kk], v_desc + 128 * kk);
+    hopper::WgmmaRS<256>::run(acc, tail[kk], v_desc + 128 * kk);
+    hopper::WgmmaRS<256>::run(acc, head[kk], v_desc + 128 * kk);
   }
   hopper::wgmma_commit();
 }
@@ -1111,7 +1000,8 @@ __global__ void __launch_bounds__(kD512Threads, 1)
     if (threadIdx.x == 256) {
       hopper::mbar_arrive_expect_tx(&q_full, S::kQBytes);
       for (int c = 0; c < kD512Chunks; ++c)
-        hopper::tma_load_4d(qs + c * kD512Rows * kWgRowBytes, &q_map, &q_full, kWgD * c, h, q0, b);
+        hopper::tma_load_4d(qs + c * kD512Rows * kD512RowBytes, &q_map, &q_full, kD512ChunkCols * c,
+                            h, q0, b);
       for (int j = 0; j < tiles; ++j) {
         const int s = j % kD512Stages;
         const uint32_t free_parity = ((j / kD512Stages) & 1) ^ 1;
@@ -1119,11 +1009,13 @@ __global__ void __launch_bounds__(kD512Threads, 1)
         hopper::mbar_wait(&k_empty[s], free_parity);
         hopper::mbar_arrive_expect_tx(&k_full[s], TILE);
         for (int c = 0; c < kD512Chunks; ++c)
-          hopper::tma_load_4d(ks + s * TILE + c * CHUNK, &k_map, &k_full[s], kWgD * c, h, row, b);
+          hopper::tma_load_4d(ks + s * TILE + c * CHUNK, &k_map, &k_full[s], kD512ChunkCols * c, h,
+                              row, b);
         hopper::mbar_wait(&v_empty[s], free_parity);
         hopper::mbar_arrive_expect_tx(&v_full[s], TILE);
         for (int c = 0; c < kD512Chunks; ++c)
-          hopper::tma_load_4d(vs + s * TILE + c * CHUNK, &v_map, &v_full[s], kWgD * c, h, row, b);
+          hopper::tma_load_4d(vs + s * TILE + c * CHUNK, &v_map, &v_full[s], kD512ChunkCols * c, h,
+                              row, b);
       }
     }
   } else {
@@ -1140,12 +1032,12 @@ __global__ void __launch_bounds__(kD512Threads, 1)
     const int lane = tid % 32;
     const int g = lane / 4;
     const int t = lane % 4;
-    const int half = consumer * (kD512Half / kWgD);  // this consumer's first column tile
-    const uint64_t q_desc = hopper::smem_desc(qs + half * kD512Rows * kWgRowBytes);
+    const int half = consumer * (kD512Half / kD512ChunkCols);  // this consumer's first column tile
+    const uint64_t q_desc = hopper::smem_desc(qs + half * kD512Rows * kD512RowBytes);
     // stage s of the K and V rings is TILE bytes (TILE / 16 descriptor
     // units) past stage 0
     const uint64_t k_desc = hopper::smem_desc(ks + half * CHUNK);
-    const uint64_t v_desc = hopper::smem_desc(vs + half * CHUNK, CHUNK);
+    const uint64_t v_desc = hopper::smem_desc(vs + half * CHUNK, 128, CHUNK);
     float acc[128];
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = 0.f;
@@ -1295,46 +1187,56 @@ EncodeTiled encode_tiled() {
 
 // A 4-D map over one bf16 [B, rows, H, head_dim] view, dimensions ordered
 // (d, h, row, b) from the innermost: for the contiguous and fused-qkv
-// layouts the strides then grow outwards. A box is 64 columns of
-// `box_rows` rows of one head, 128 bytes a row, so shared memory receives
-// a row-major [box_rows][64] tile.
+// layouts the strides then grow outwards. A box is `box_cols` columns (64,
+// 32 or 16: 128, 64 or 32 bytes, swizzled with that span) of `box_rows`
+// rows of one head, so shared memory receives a row-major [box_rows]
+// [box_cols] tile; columns past head_dim arrive as zeros.
 bool encode_map(CUtensorMap* map, const void* ptr, int batch, int rows, int heads, int head_dim,
-                long long sb, long long sn, long long sh, int box_rows) {
+                long long sb, long long sn, long long sh, int box_rows, int box_cols) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
+  const CUtensorMapSwizzle swizzle = box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(sn) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kWgD, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1, static_cast<cuuint32_t>(box_rows),
+                             1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int KEYS>
+template <int D, int KEYS, int CONSUMERS>
 int run_wgmma(const Call& c, int* occupancy) {
-  constexpr size_t smem = WgShape<KEYS>::kSmem;
+  using S = WgShape<D, KEYS, CONSUMERS>;
+  using C = HeadChunks<D>;
   static std::atomic<unsigned long long> configured{0};
-  auto kernel = flash_attention_fwd_wgmma_kernel<KEYS>;
-  cudaError_t err = allow_shared_once(configured, kernel, smem, c.device);
+  auto kernel = flash_attention_fwd_wgmma_kernel<D, KEYS, CONSUMERS>;
+  cudaError_t err = allow_shared_once(configured, kernel, S::kSmem, c.device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (occupancy)
     return static_cast<int>(
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, kWgThreads, smem));
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, S::kThreads, S::kSmem));
   const long long* st = c.strides;
-  CUtensorMap q_map, k_map, v_map;
-  if (!encode_map(&q_map, c.q, c.batch, c.n, c.heads, kWgD, st[0], st[1], st[2], kWgRows) ||
-      !encode_map(&k_map, c.k, c.batch, c.m, c.heads, kWgD, st[3], st[4], st[5], KEYS) ||
-      !encode_map(&v_map, c.v, c.batch, c.m, c.heads, kWgD, st[6], st[7], st[8], KEYS))
-    return -2;
-  const dim3 grid((c.n + kWgRows - 1) / kWgRows, c.batch * c.heads);
-  kernel<<<grid, kWgThreads, smem, c.stream>>>(q_map, k_map, v_map,
-                                              static_cast<__nv_bfloat16*>(c.o), c.n, c.m,
-                                              c.heads, st[9], st[10], st[11],
-                                              c.scale * 1.4426950408889634f);
+  WgMaps<D> maps;
+  for (int i = 0; i < C::kMaps; ++i) {
+    int cols = 0;  // the width of the chunks that share map i
+    for (int ch = 0; ch < C::kChunks; ++ch)
+      if (C::map(ch) == i) cols = C::cols(ch);
+    if (!encode_map(&maps.q[i], c.q, c.batch, c.n, c.heads, D, st[0], st[1], st[2], S::kRows, cols) ||
+        !encode_map(&maps.k[i], c.k, c.batch, c.m, c.heads, D, st[3], st[4], st[5], KEYS, cols) ||
+        !encode_map(&maps.v[i], c.v, c.batch, c.m, c.heads, D, st[6], st[7], st[8], KEYS, cols))
+      return -2;
+  }
+  const dim3 grid((c.n + S::kRows - 1) / S::kRows, c.batch * c.heads);
+  kernel<<<grid, S::kThreads, S::kSmem, c.stream>>>(maps, static_cast<__nv_bfloat16*>(c.o), c.n,
+                                                    c.m, c.heads, st[9], st[10], st[11],
+                                                    c.scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1356,9 +1258,12 @@ int run_wgmma512(const Call& c, int* occupancy) {
     return -1;
   const long long* st = c.strides;
   CUtensorMap q_map, k_map, v_map;
-  if (!encode_map(&q_map, c.q, c.batch, c.n, c.heads, kD512, st[0], st[1], st[2], kD512Rows) ||
-      !encode_map(&k_map, c.k, c.batch, c.m, c.heads, kD512, st[3], st[4], st[5], KEYS) ||
-      !encode_map(&v_map, c.v, c.batch, c.m, c.heads, kD512, st[6], st[7], st[8], KEYS))
+  if (!encode_map(&q_map, c.q, c.batch, c.n, c.heads, kD512, st[0], st[1], st[2], kD512Rows,
+                  kD512ChunkCols) ||
+      !encode_map(&k_map, c.k, c.batch, c.m, c.heads, kD512, st[3], st[4], st[5], KEYS,
+                  kD512ChunkCols) ||
+      !encode_map(&v_map, c.v, c.batch, c.m, c.heads, kD512, st[6], st[7], st[8], KEYS,
+                  kD512ChunkCols))
     return -2;
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(c.o);
   float* scratch = static_cast<float*>(c.scratch);
@@ -1373,9 +1278,9 @@ int run_wgmma512(const Call& c, int* occupancy) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tensor-core kernels read q, k and v in 16-byte pieces (TMA boxes or
-// cp.async chunks) and write o in 4-byte pieces: every row they touch has
-// to start on such a boundary.
+// The tensor-core kernels read q, k and v in 16-byte pieces (TMA boxes)
+// and write o in 4-byte pieces: every row they touch has to start on such
+// a boundary.
 bool tensor_core_aligned(const Call& c) {
   const uintptr_t in = reinterpret_cast<uintptr_t>(c.q) | reinterpret_cast<uintptr_t>(c.k) |
                        reinterpret_cast<uintptr_t>(c.v);
@@ -1399,6 +1304,34 @@ int dispatch_fma(int dtype, int keys, int rows, const Call& c, int* occupancy) {
                     : dtype == 1 ? run_fma<__nv_bfloat16, D>(c, occupancy) : -1;
 }
 
+// The warp-specialised kernel at head dim D, key tile `keys` and `rows`
+// query rows a block (64 per consumer warpgroup), if compiled.
+int dispatch_wgmma(int head_dim, int keys, int rows, const Call& c, int* occupancy) {
+  if (rows == kWgRows) {
+    switch (head_dim) {
+      case 40:
+        return keys == 80 ? run_wgmma<40, 80, 1>(c, occupancy) : -1;
+      case 64:
+        if (keys == 80) return run_wgmma<64, 80, 1>(c, occupancy);
+        if (keys == 112) return run_wgmma<64, 112, 1>(c, occupancy);
+        if (keys == 144) return run_wgmma<64, 144, 1>(c, occupancy);
+        return -1;
+      case 80:
+        if (keys == 80) return run_wgmma<80, 80, 1>(c, occupancy);
+        if (keys == 128) return run_wgmma<80, 128, 1>(c, occupancy);
+        return -1;
+      case 160:
+        if (keys == 64) return run_wgmma<160, 64, 1>(c, occupancy);
+        if (keys == 80) return run_wgmma<160, 80, 1>(c, occupancy);
+        return -1;
+      default:
+        return -1;
+    }
+  }
+  if (head_dim == 40 && rows == 2 * kWgRows && keys == 128) return run_wgmma<40, 128, 2>(c, occupancy);
+  return -1;
+}
+
 int dispatch(int instance, int dtype, int head_dim, int keys, int rows, const Call& c,
              int* occupancy) {
   if (instance == kInstanceFma) {
@@ -1413,21 +1346,9 @@ int dispatch(int instance, int dtype, int head_dim, int keys, int rows, const Ca
   }
   if (dtype != 1) return -1;
   if (!occupancy && !tensor_core_aligned(c)) return -3;
-  if (instance == kInstanceMma) {
-    if (keys != kMmaKeys || rows != kMmaRows) return -1;
-    switch (head_dim) {
-      case 40: return run_mma<40>(c, occupancy);
-      case 80: return run_mma<80>(c, occupancy);
-      case 160: return run_mma<160>(c, occupancy);
-      default: return -1;
-    }
-  }
   if (instance == kInstanceWgmma512 && head_dim == kD512 && rows == kD512Rows && keys == 32)
     return run_wgmma512<32>(c, occupancy);
-  if (instance != kInstanceWgmma || head_dim != kWgD || rows != kWgRows) return -1;
-  if (keys == 80) return run_wgmma<80>(c, occupancy);
-  if (keys == 112) return run_wgmma<112>(c, occupancy);
-  if (keys == 144) return run_wgmma<144>(c, occupancy);
+  if (instance == kInstanceWgmma) return dispatch_wgmma(head_dim, keys, rows, c, occupancy);
   return -1;
 }
 

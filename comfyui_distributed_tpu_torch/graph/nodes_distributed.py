@@ -17,7 +17,11 @@ DistributedCollector.
 
 Unlike the JAX drain, which stops as soon as every worker has sent its
 last envelope, this one also empties the queue first: a worker's earlier
-images can still be queued behind its last one.
+images can still be queued behind its last one. And unlike the JAX
+master, which leaves its collector job and queue in the store for good,
+this one cleans its job up once it has collected (or given up): the
+store keeps its counts among the finished jobs and drops an envelope
+that arrives later as late.
 
 Not ported, each raising with its ROADMAP item: the mesh branch (a
 per-participant SeedSpec; Queue 1 item 2), audio payloads
@@ -253,9 +257,15 @@ class DistributedCollector:
 
     def _collect_master(self, images, job_id: str, enabled_worker_ids: list[str], context):
         server = getattr(context, "server", None)
-        if not enabled_worker_ids or server is None:
+        if server is None:
             return (images, None)
-        collected = self._drain_worker_results(server, job_id, enabled_worker_ids, context)
+        try:
+            if not enabled_worker_ids:
+                return (images, None)
+            collected = self._drain_worker_results(server, job_id, enabled_worker_ids, context)
+        finally:
+            # the orchestration made this job for the prompt: it ends here
+            run_async_in_server_loop(server.job_store.cleanup_collector(job_id), timeout=30)
         batches: dict[int, np.ndarray] = {0: img_utils.ensure_numpy(images)}
         order = {wid: i + 1 for i, wid in enumerate(enabled_worker_ids)}
         per_worker: dict[str, list[tuple[int, np.ndarray]]] = {}
@@ -301,6 +311,8 @@ class DistributedCollector:
 
         async def get_one():
             job = await store.wait_for_collector(job_id, JOB_INIT_GRACE_SECONDS)
+            if job is None:  # drained and cleaned up before: nothing more comes
+                return None, expected, True
             try:
                 item = await asyncio.wait_for(job.queue.get(), slice_s)
             except asyncio.TimeoutError:

@@ -20,15 +20,19 @@ semantics:
 - a collector job gathers workers' image envelopes in a queue; an
   envelope that arrives before the orchestration announced its job
   parks on the creation signal up to the grace, then creates the job
-  itself. `cleanup_collector` exists, but as in the JAX package no
-  caller removes a collector job when its prompt ends.
+  itself. The master's collector removes its job once it has drained it
+  (`cleanup_collector`); its counts move to `finished`, its id to a
+  bounded set of its own (tile jobs do not evict it), and an envelope
+  for it that arrives later is dropped as late, not queued on a job
+  created anew. (The JAX package never calls `cleanup_collector`: there
+  every collector job and its queue outlive their prompt.)
 
 Left out: fencing epochs, the write-ahead journal, preemption, the
 cross-job tier, the cache settle, placement and fault injection.
 
 Every accepted completion is recorded with its participant
 (`TileJob.completions`); on cleanup a job's record moves to
-`finished`, which keeps the last FINISHED_KEPT jobs.
+`finished`, which keeps the last FINISHED_KEPT jobs of both kinds.
 """
 
 from __future__ import annotations
@@ -42,6 +46,9 @@ from ..utils.logging import debug_log, log
 from .models import CollectorJob, TileJob
 
 FINISHED_KEPT = 64
+# ids of cleaned-up collector jobs kept to recognise a late envelope: ids
+# only, so many more than FINISHED_KEPT's records
+CLEANED_COLLECTORS_KEPT = 4096
 # deadlines noted for jobs not created yet (job ids arrive from the network)
 PENDING_DEADLINES_KEPT = 512
 
@@ -62,10 +69,14 @@ class JobStore:
         # job_id → [(loop, future)] waiters parked until creation
         self._tile_waiters: dict[str, list[tuple[Any, Any]]] = {}
         self._collector_waiters: dict[str, list[tuple[Any, Any]]] = {}
-        # job_id → {"total", "completions", "duplicates",
-        # "received_bytes", "finished_workers"} of cleaned-up jobs,
-        # oldest evicted first
+        # job_id → the record of a cleaned-up job, oldest evicted first:
+        # {"total", "completions", "duplicates", "received_bytes",
+        # "finished_workers"} of a tile job, {"received", "received_bytes",
+        # "finished_workers", "late"} of a collector job
         self.finished: dict[str, dict[str, Any]] = {}
+        # ids of cleaned-up collector jobs, oldest evicted first (an
+        # ordered set): an envelope for one of them is late
+        self._cleaned_collectors: dict[str, None] = {}
 
     # --- creation signalling ----------------------------------------------
 
@@ -119,33 +130,55 @@ class JobStore:
 
     # --- collector jobs ---------------------------------------------------
 
+    def _collector_locked(self, job_id: str) -> CollectorJob:
+        job = self.collectors.get(job_id)
+        if job is None:
+            job = CollectorJob(job_id=job_id)
+            self.collectors[job_id] = job
+            self._wake(self._collector_waiters.pop(job_id, []))
+        return job
+
     async def ensure_collector(self, job_id: str) -> CollectorJob:
         async with self.lock:
-            job = self.collectors.get(job_id)
-            if job is None:
-                job = CollectorJob(job_id=job_id)
-                self.collectors[job_id] = job
-                self._wake(self._collector_waiters.pop(job_id, []))
-            return job
+            return self._collector_locked(job_id)
 
-    async def wait_for_collector(self, job_id: str, grace_seconds: float) -> CollectorJob:
+    async def wait_for_collector(self, job_id: str,
+                                 grace_seconds: float) -> Optional[CollectorJob]:
         """Result-submission side: wait up to the grace for the
         orchestration to create the job, then create it here (the master
         may still be validating its own prompt). Parks on the creation
-        signal, not a poll loop."""
+        signal, not a poll loop. None, at once, for a job already cleaned
+        up: an envelope for it is late."""
+        async with self.lock:
+            if job_id in self._cleaned_collectors and job_id not in self.collectors:
+                return None
         job = await self._park_until_created(self._collector_waiters, self.collectors, job_id,
                                              grace_seconds)
         if job is not None:
             return job
-        return await self.ensure_collector(job_id)
+        async with self.lock:
+            if job_id in self._cleaned_collectors:
+                return None  # cleaned up while this envelope waited
+            return self._collector_locked(job_id)
 
     async def put_collector_result(self, job_id: str, item: dict[str, Any],
-                                   received_bytes: int = 0) -> None:
+                                   received_bytes: int = 0) -> bool:
         """Queue one envelope for the master's collector; counts it for its
-        worker, and an `is_last` envelope marks the worker finished."""
-        job = await self.ensure_collector(job_id)
+        worker, and an `is_last` envelope marks the worker finished. False
+        for a job already cleaned up: the envelope is late, counted in the
+        job's finished record while it is kept, and dropped, and no job is
+        created anew."""
         worker_id = str(item.get("worker_id", ""))
         async with self.lock:
+            job = self.collectors.get(job_id)
+            if job is None and job_id in self._cleaned_collectors:
+                record = self.finished.get(job_id)
+                if record is not None:
+                    record["late"] = record.get("late", 0) + 1
+                debug_log(f"collector {job_id}: dropped a late envelope from {worker_id}")
+                return False
+            if job is None:
+                job = self._collector_locked(job_id)
             job.received[worker_id] = job.received.get(worker_id, 0) + 1
             job.received_bytes += int(received_bytes)
             # queued before the worker reads as finished: a drain that sees
@@ -153,10 +186,32 @@ class JobStore:
             job.queue.put_nowait(item)
             if item.get("is_last"):
                 job.finished_workers.add(worker_id)
+        return True
 
     async def cleanup_collector(self, job_id: str) -> None:
+        """Remove a drained collector job; its counts move to `finished`."""
         async with self.lock:
-            self.collectors.pop(job_id, None)
+            job = self.collectors.pop(job_id, None)
+            if job is None:
+                return
+            self._cleaned_collectors.pop(job_id, None)
+            while len(self._cleaned_collectors) >= CLEANED_COLLECTORS_KEPT:
+                self._cleaned_collectors.pop(next(iter(self._cleaned_collectors)))
+            self._cleaned_collectors[job_id] = None
+            self._remember_finished_locked(job_id, {
+                "received": dict(job.received),
+                "received_bytes": job.received_bytes,
+                "finished_workers": sorted(job.finished_workers),
+                "late": 0,
+            })
+
+    def _remember_finished_locked(self, job_id: str, record: dict[str, Any]) -> None:
+        """Keep a cleaned-up job's record, evicting the oldest past
+        FINISHED_KEPT. Caller holds self.lock."""
+        self.finished.pop(job_id, None)
+        while len(self.finished) >= FINISHED_KEPT:
+            self.finished.pop(next(iter(self.finished)))
+        self.finished[job_id] = record
 
     # --- tile jobs ----------------------------------------------------------
 
@@ -325,16 +380,13 @@ class JobStore:
             job = self.tile_jobs.pop(job_id, None)
             if job is None:
                 return
-            self.finished.pop(job_id, None)
-            while len(self.finished) >= FINISHED_KEPT:
-                self.finished.pop(next(iter(self.finished)))
-            self.finished[job_id] = {
+            self._remember_finished_locked(job_id, {
                 "total": job.total_tasks,
                 "completions": list(job.completions),
                 "duplicates": job.duplicates,
                 "received_bytes": job.received_bytes,
                 "finished_workers": sorted(job.finished_workers),
-            }
+            })
 
     def drop_late(self, job_id: str, n_tiles: int) -> bool:
         """Count a submission for a job already cleaned up as `n_tiles`

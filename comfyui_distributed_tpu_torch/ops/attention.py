@@ -12,15 +12,16 @@ flash_attention. Unlike the TPU kernel it takes ragged N and M, so it
 carries every attention call of the SDXL upscale path (UNet self- and
 cross-attention at D=64, VAE mid-block at D=512) and of SD1.5's txt2img
 (D=40, 80 and 160, which the TPU wrapper pads to 128; the softmax scale
-stays 1/sqrt(D) of the real head dim). The source compiles four
-kernels; `plan` picks one, with its key tile, query rows per block and
+stays 1/sqrt(D) of the real head dim). The source compiles three
+instances; `plan` picks one, with its key tile, query rows per block and
 key splits, for each call:
 
-- "mma": bf16, D=40, 80 or 160, rows 16-byte aligned. mma.sync tensor
-  cores fed by cp.async, 64 query rows per block, 64-key tiles.
-- "wgmma": bf16, D=64, rows 16-byte aligned. Warp-specialised for
-  Hopper: TMA loads, wgmma products, 64 query rows per block (one
-  consumer warpgroup), a key tile of 80, 112 or 144.
+- "wgmma": bf16, D=40, 64, 80 or 160, rows 16-byte aligned.
+  Warp-specialised for Hopper: TMA loads, wgmma products, the head dim
+  in column chunks of their own swizzle, 64 query rows per consumer
+  warpgroup, the key tile by D that leaves the fewest slots masked
+  (WGMMA_KEY_TILES); at D=40, where the keys outgrow that tile, two
+  consumers taking turns at the tensor cores (WGMMA_PINGPONG_KEYS).
 - "wgmma512": bf16, D=512, aligned. Warp-specialised, two consumer
   warpgroups sharing 64 query rows (256 output dims each), 32-key tiles,
   each row block's keys split over as many blocks as fill the card best;
@@ -44,18 +45,24 @@ from .. import _build
 # csrc/flash_attention.cu); the other model families' head dims are
 # later instantiations
 KERNEL_HEAD_DIMS = (40, 64, 80, 160, 512)
-# head dims of the mma instance
-MMA_HEAD_DIMS = (40, 80, 160)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # instance codes of csrc/flash_attention.cu
-INSTANCES = {"fma": 0, "mma": 1, "wgmma": 2, "wgmma512": 3}
-# compiled key tiles of the wgmma instance: wgmma's N is a multiple of 8
-# up to 256 and P V steps keys by 16
-WGMMA_KEY_TILES = (80, 112, 144)
-# the mma instance's one tile: keys per K/V tile, query rows per block
-MMA_KEYS = 64
-MMA_ROWS = 64
+INSTANCES = {"fma": 0, "wgmma": 2, "wgmma512": 3}
+# compiled key tiles of the wgmma instance with one consumer warpgroup, by
+# head dim: wgmma's N is a multiple of 8 up to 256 and P V steps keys by
+# 16. Each D's tiles give its path's key counts few masked slots: M = 77
+# one tile of 80, M = 1024 tiles of 128 (D = 80), M = 256 and 64 tiles of
+# 64 (D = 160, whose registers a 128-key tile would crowd), M = 324 and
+# 1296 (D = 64) tiles of 112 and 144.
+WGMMA_KEY_TILES = {40: (80,), 64: (80, 112, 144), 80: (80, 128), 160: (64, 80)}
+# the wgmma instance with two consumer warpgroups of 64 query rows in one
+# block (one block an SM) taking turns at the tensor cores, so that one's
+# softmax runs under the other's products (FA3's ping-pong), by head dim:
+# its key tile. At D=40, where the softmax's exp2 binds, it beat one
+# consumer a block (two blocks an SM) at self@4096 (PERF.md, PR 6); the
+# router takes it wherever the keys outgrow one consumer's tiles.
+WGMMA_PINGPONG_KEYS = {40: 128}
 # compiled tiles of the FMA kernel, by head dim: (keys, query rows)
 _FMA_TILES = {40: (64, 128), 64: (64, 64), 80: (64, 64), 160: (64, 64), 512: (32, 32)}
 # query rows per block of the wgmma instances (one consumer warpgroup's)
@@ -104,10 +111,29 @@ class Plan:
 
 
 @functools.lru_cache(maxsize=256)
-def _wgmma_key_tile(m: int) -> int:
-    """The compiled key tile that gives M the fewest key slots; of two
-    with as many, the larger (fewer tiles)."""
-    return min(WGMMA_KEY_TILES, key=lambda t: (-(-m // t) * t, -t))
+def _wgmma_key_tile(d: int, m: int) -> int:
+    """The key tile compiled at head dim D that gives M the fewest key
+    slots; of two with as many, the larger (fewer tiles)."""
+    return min(WGMMA_KEY_TILES[d], key=lambda t: (-(-m // t) * t, -t))
+
+
+def wgmma_plans(d: int) -> list[Plan]:
+    """Every compiled plan of the wgmma instance at head dim D: each key
+    tile with one consumer warpgroup, then the two-consumer variant."""
+    plans = [Plan("wgmma", keys, WGMMA_ROWS) for keys in WGMMA_KEY_TILES[d]]
+    if d in WGMMA_PINGPONG_KEYS:
+        plans.append(Plan("wgmma", WGMMA_PINGPONG_KEYS[d], 2 * WGMMA_ROWS))
+    return plans
+
+
+def _wgmma_plan(d: int, m: int) -> Plan:
+    """Two consumers a block where D has them and M outgrows one
+    consumer's key tiles; else one consumer with the key tile of the
+    fewest slots."""
+    keys = WGMMA_PINGPONG_KEYS.get(d)
+    if keys and m > max(WGMMA_KEY_TILES[d]):
+        return Plan("wgmma", keys, 2 * WGMMA_ROWS)
+    return Plan("wgmma", _wgmma_key_tile(d, m), WGMMA_ROWS)
 
 
 @functools.lru_cache(maxsize=256)
@@ -127,10 +153,10 @@ def key_splits(row_blocks: int, tiles: int, sms: int = H100_SMS) -> int:
 
 
 def _tensor_core_aligned(*tensors: torch.Tensor) -> bool:
-    """TMA and cp.async need every row of q, k and v to start on a
-    16-byte boundary: the base address and the batch, token and head
-    strides (bf16: multiples of 8 elements; a D=40 row is 80 bytes, five
-    16-byte chunks, so contiguous D=40 views pass)."""
+    """TMA needs every row of q, k and v to start on a 16-byte boundary:
+    the base address and the batch, token and head strides (bf16:
+    multiples of 8 elements; a D=40 row is 80 bytes, five 16-byte
+    chunks, so contiguous D=40 views pass)."""
     for t in tensors:
         sb, sn, sh, _ = t.stride()
         if t.data_ptr() % 16 or sb % 8 or sn % 8 or sh % 8:
@@ -143,16 +169,13 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sms: int = H100_SMS)
     `flash_attention` on a card of `sms` SMs.
 
     A pure function of the inputs' dtype, shapes, strides and alignment.
-    Aligned bf16 at D=40, 80 or 160 goes to the mma instance, at D=64 to
-    the wgmma instance, at D=512 to wgmma512, everything else to the FMA
-    kernel."""
+    Aligned bf16 at D=40, 64, 80 or 160 goes to the wgmma instance, at
+    D=512 to wgmma512, everything else to the FMA kernel."""
     b, n, h, d = q.shape
     m = k.shape[1]
     if q.dtype == torch.bfloat16 and _tensor_core_aligned(q, k, v):
-        if d in MMA_HEAD_DIMS:
-            return Plan("mma", MMA_KEYS, MMA_ROWS)
-        if d == 64:
-            return Plan("wgmma", _wgmma_key_tile(m), WGMMA_ROWS)
+        if d in WGMMA_KEY_TILES:
+            return _wgmma_plan(d, m)
         if d == 512:
             row_blocks = -(-n // WGMMA_ROWS) * b * h
             tiles = -(-m // WGMMA512_KEYS)

@@ -151,7 +151,7 @@ def test_launch_counts_lose_nothing_under_threads():
         sys.setswitchinterval(interval)
     assert attn.flash_attention.launches == 8000
     assert dict(attn.flash_attention.launches_by_instance) == {
-        "fma": 0, "mma": 0, "wgmma": 4000, "wgmma512": 4000}
+        "fma": 0, "wgmma": 4000, "wgmma512": 4000}
     attn.reset_launch_counts()
     assert attn.flash_attention.launches == 0
     assert type(attn.flash_attention.launches_by_instance) is dict

@@ -28,7 +28,7 @@ SHAPES = [
     (3, 65, 63, 2, 64),
     (1, 33, 31, 1, 512),
     (2, 70, 100, 2, 512),
-    # SD1.5's txt2img at 512 px: D = 40, 80, 160 on the mma instance
+    # SD1.5's txt2img at 512 px: D = 40, 80, 160 on the wgmma instance
     (2, 4096, 4096, 8, 40),
     (2, 4096, 77, 8, 40),
     (2, 1024, 1024, 8, 80),
@@ -45,9 +45,15 @@ EDGE_KEYS = (1, 77, 79, 80, 81, 143, 144, 145, 324, 1296)
 # blocks and 32-key tiles
 EDGE_ROWS_512 = (1, 63, 65, 200)
 EDGE_KEYS_512 = (1, 31, 32, 33)
-# query and key counts at the edges of the mma instance's 16-row warps,
-# 64-row blocks and 64-key tiles
-EDGE_MMA = (1, 15, 16, 17, 63, 64, 65, 77, 200)
+# query and key counts at the edges of the wgmma instance's 64-row blocks
+# and its key tiles at D = 40, 80 and 160 (64, 80, 128)
+EDGE_ROWS_WG = (1, 63, 64, 65, 200)
+EDGE_KEYS_WG = (1, 63, 64, 65, 77, 79, 80, 81, 127, 128, 129)
+# query and key counts at the edges of D = 40's two-consumer blocks (128
+# rows, consumer 1 on rows 64-127) and 128-key tiles
+EDGE_ROWS_PINGPONG = (1, 63, 64, 65, 127, 128, 129, 200)
+EDGE_KEYS_PINGPONG = (1, 77, 127, 128, 129, 257)
+TXT2IMG_HEAD_DIMS = (40, 80, 160)
 
 
 @pytest.fixture
@@ -69,8 +75,8 @@ def test_kernel_matches_plain(cuda, b, n, m, h, d, dtype):
         for s in ((b, n, h, d), (b, m, h, d), (b, m, h, d))
     )
     instance = attn.plan(q, k, v).instance
-    assert instance == ("fma" if dtype == torch.float32 else "wgmma" if d == 64
-                        else "wgmma512" if d == 512 else "mma")
+    assert instance == ("fma" if dtype == torch.float32 else "wgmma512" if d == 512
+                        else "wgmma")
     before = attn.flash_attention.launches
     by_instance = attn.flash_attention.launches_by_instance[instance]
     out = attn.dot_product_attention(q, k, v)
@@ -136,7 +142,7 @@ def test_wgmma_key_tile_edges(cuda, m):
     _wgmma_matches_plain(cuda, 1, 200, m, 1, None, seed=m)
 
 
-@pytest.mark.parametrize("keys", attn.WGMMA_KEY_TILES)
+@pytest.mark.parametrize("keys", attn.WGMMA_KEY_TILES[64])
 def test_wgmma_every_compiled_tile(cuda, keys):
     # every compiled key tile, over several tiles with a ragged last
     p = attn.Plan("wgmma", keys, attn.WGMMA_ROWS)
@@ -226,35 +232,79 @@ def test_wgmma512_reads_rows_on_16_not_128_byte_boundaries(cuda):
     _wgmma512_matches_plain(cuda, 2, 100, 100, 2, None, seed=0, qkv=(q, k, v))
 
 
-def _mma_matches_plain(cuda, q, k, v):
-    assert attn.plan(q, k, v).instance == "mma"
-    before = attn.flash_attention.launches_by_instance["mma"]
-    out = attn.flash_attention(q, k, v)
-    assert attn.flash_attention.launches_by_instance["mma"] == before + 1
+def _headdim_matches_plain(cuda, q, k, v, p=None):
+    assert attn.plan(q, k, v).instance == "wgmma"
+    before = attn.flash_attention.launches_by_instance["wgmma"]
+    out = attn.flash_attention(q, k, v, with_plan=p)
+    assert attn.flash_attention.launches_by_instance["wgmma"] == before + 1
     torch.testing.assert_close(
         out.float(), attn.flash_attention_reference(q, k, v).float(), rtol=2.0**-7, atol=1e-3
     )
 
 
-@pytest.mark.parametrize("d", attn.MMA_HEAD_DIMS)
-@pytest.mark.parametrize("m", EDGE_MMA)
-@pytest.mark.parametrize("n", EDGE_MMA)
-def test_mma_tile_edges(cuda, n, m, d):
-    # one head of one batch, at the edges of the row blocks and key tiles
+@pytest.mark.parametrize("d", TXT2IMG_HEAD_DIMS)
+@pytest.mark.parametrize("m", EDGE_KEYS_WG)
+@pytest.mark.parametrize("n", EDGE_ROWS_WG)
+def test_wgmma_head_dim_tile_edges(cuda, n, m, d):
+    # one head of one batch, at the edges of the row blocks and of the key
+    # tiles the router picks at this head dim
     gen = torch.Generator(device=cuda)
     gen.manual_seed(n * 1009 + m * 7 + d)
     q, k, v = (
         torch.randn(s, generator=gen, device=cuda).bfloat16()
         for s in ((1, n, 1, d), (1, m, 1, d), (1, m, 1, d))
     )
-    _mma_matches_plain(cuda, q, k, v)
+    _headdim_matches_plain(cuda, q, k, v)
 
 
-@pytest.mark.parametrize("d", attn.MMA_HEAD_DIMS)
-def test_mma_reads_strided_heads(cuda, d):
+@pytest.mark.parametrize("d, p", [(d, p) for d in TXT2IMG_HEAD_DIMS for p in attn.wgmma_plans(d)],
+                         ids=lambda x: str(x) if isinstance(x, int) else f"k{x.keys_per_tile}"
+                                                                      f"r{x.rows_per_cta}")
+def test_wgmma_head_dim_every_compiled_plan(cuda, d, p):
+    # every compiled key tile and consumer count, over several key tiles
+    # with a ragged last and N a multiple of no block
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(d * 31 + p.keys_per_tile + p.rows_per_cta)
+    q, k, v = (
+        torch.randn(s, generator=gen, device=cuda).bfloat16()
+        for s in ((2, 300, 3, d), (2, 333, 3, d), (2, 333, 3, d))
+    )
+    _headdim_matches_plain(cuda, q, k, v, p)
+
+
+@pytest.mark.parametrize("m", EDGE_KEYS_PINGPONG)
+@pytest.mark.parametrize("n", EDGE_ROWS_PINGPONG)
+def test_wgmma_two_consumer_tile_edges(cuda, n, m):
+    # D = 40's two-consumer plan at the edges of its blocks and key tiles,
+    # one head of one batch: consumer 1 with no, some or all rows valid,
+    # one key tile (the first is also the last) or several
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n * 1013 + m)
+    q, k, v = (
+        torch.randn(s, generator=gen, device=cuda).bfloat16()
+        for s in ((1, n, 1, 40), (1, m, 1, 40), (1, m, 1, 40))
+    )
+    p = attn.Plan("wgmma", attn.WGMMA_PINGPONG_KEYS[40], 2 * attn.WGMMA_ROWS)
+    _headdim_matches_plain(cuda, q, k, v, p)
+
+
+@pytest.mark.parametrize("d", TXT2IMG_HEAD_DIMS)
+def test_wgmma_head_dim_reads_strided_heads(cuda, d):
     # q, k and v as views into one fused [B, N, 3, H, D] buffer: a D = 40
     # head starts 80 bytes after the last
     gen = torch.Generator(device=cuda)
     gen.manual_seed(23 + d)
     fused = torch.randn((2, 150, 3, 4, d), generator=gen, device=cuda).bfloat16()
-    _mma_matches_plain(cuda, *fused.unbind(2))
+    _headdim_matches_plain(cuda, *fused.unbind(2))
+
+
+@pytest.mark.parametrize("d", TXT2IMG_HEAD_DIMS)
+def test_wgmma_head_dim_reads_rows_on_16_not_128_byte_boundaries(cuda, d):
+    # rows start 16 bytes into a (D + 8)-element pitch: TMA's 16-byte rule
+    # holds, the swizzle atoms are not aligned to them in device memory
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(29 + d)
+    wide = torch.randn((3, 2, 100, 2, d + 8), generator=gen, device=cuda).bfloat16()
+    q, k, v = (t[..., 8:] for t in wide.unbind(0))
+    assert q.data_ptr() % 128 == 16 and q.stride(2) == d + 8
+    _headdim_matches_plain(cuda, q, k, v)

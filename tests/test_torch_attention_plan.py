@@ -82,7 +82,7 @@ def test_plan_routes_and_tiles(case):
     assert p.ctas(b, n, h) * p.rows_per_cta >= n * b * h * p.splits
     assert 1 <= p.splits <= p.key_tiles(m)
     if instance == "wgmma":
-        assert keys in attn.WGMMA_KEY_TILES and keys % 16 == 0
+        assert keys in attn.WGMMA_KEY_TILES[d] and keys % 16 == 0
 
 
 @pytest.mark.parametrize(

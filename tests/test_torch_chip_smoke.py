@@ -67,7 +67,7 @@ def test_expected_launches_by_instance_follow_the_shapes():
     evals = get_sigmas("karras", 20, 0.35).shape[0] - 1
     shapes = chip_smoke._attention_shapes(get_config("sdxl"), get_config("vae-sd"), 77, 72, evals)
     assert chip_smoke._expected_by_instance(attn, shapes, torch) == {
-        "wgmma": 2800, "wgmma512": 2, "fma": 0, "mma": 0,
+        "wgmma": 2800, "wgmma512": 2, "fma": 0,
     }
 
 
@@ -95,17 +95,17 @@ def test_attention_shapes_match_one_sd15_image_on_meta(recorded_calls):
 
 
 def test_expected_txt2img_launches_by_instance():
-    """The txt2img phase asserts these per image: 640 UNet calls on the
-    mma instance, the VAE decode's one on wgmma512."""
+    """The txt2img phase asserts these per image: 640 UNet calls at D=40,
+    80 and 160 on the wgmma instance, the VAE decode's one on wgmma512."""
     shapes = chip_smoke._txt2img_shapes(_txt2img_workflow())
     assert chip_smoke._expected_by_instance(attn, shapes, torch) == {
-        "mma": 640, "wgmma512": 1, "wgmma": 0, "fma": 0,
+        "wgmma": 640, "wgmma512": 1, "fma": 0,
     }
 
 
 @pytest.mark.parametrize("d, dtype, layout, instance", [
-    (40, "bfloat16", "contiguous", "mma"), (160, "bfloat16", "fused", "mma"),
-    (80, "bfloat16", "edge", "mma"), (80, "float32", "contiguous", "fma"),
+    (40, "bfloat16", "contiguous", "wgmma"), (160, "bfloat16", "fused", "wgmma"),
+    (80, "bfloat16", "edge", "wgmma"), (80, "float32", "contiguous", "fma"),
     (40, "bfloat16", "unaligned", "fma"), (64, "bfloat16", "fused", "wgmma"),
     (512, "bfloat16", "offset", "wgmma512"), (512, "float32", "contiguous", "fma"),
 ])
@@ -114,10 +114,21 @@ def test_expected_instance_of_a_check(d, dtype, layout, instance):
 
 
 def test_bounds_follow_the_published_peaks():
-    ops_ms, bytes_ms = chip_smoke._bounds((2, 1296, 10, 64), 1296, "bfloat16")
-    assert ops_ms == pytest.approx(4 * 2 * 10 * 1296 * 1296 * 64 / 989e12 * 1e3)
-    assert bytes_ms == pytest.approx(4 * 2 * 1296 * 10 * 64 * 2 / 3.35e12 * 1e3)
-    assert ops_ms > bytes_ms  # self-attention at 1296 tokens: operations bound
+    terms = chip_smoke._bounds((2, 1296, 10, 64), 1296, "bfloat16", sms=132, clock_mhz=1980)
+    assert terms["operations"] == pytest.approx(4 * 2 * 10 * 1296 * 1296 * 64 / 989e12 * 1e3)
+    assert terms["bytes"] == pytest.approx(4 * 2 * 1296 * 10 * 64 * 2 / 3.35e12 * 1e3)
+    assert terms["exponentials"] == pytest.approx(2 * 10 * 1296 * 1296 / (132 * 16 * 1980e6) * 1e3)
+    # self-attention at 1296 tokens and D=64: operations bound
+    assert chip_smoke._bound_by(terms) == "operations"
+    # self@4096 at D=40: 268.4 M scores, one exp2 each at 16 a clock on
+    # 132 SMs at 1980 MHz, 64.2 us, above the operations' 43.4 us
+    terms = chip_smoke._bounds((2, 4096, 8, 40), 4096, "bfloat16", sms=132, clock_mhz=1980)
+    assert terms["exponentials"] == pytest.approx(0.0642, abs=5e-5)
+    assert terms["operations"] == pytest.approx(0.0434, abs=5e-5)
+    assert chip_smoke._bound_by(terms) == "exponentials"
+    # cross-attention against 77 text tokens: bytes bound
+    terms = chip_smoke._bounds((2, 4096, 8, 40), 77, "bfloat16", sms=132, clock_mhz=1980)
+    assert chip_smoke._bound_by(terms) == "bytes"
 
 
 def test_smoke_run_refuses_without_cuda(capsys, monkeypatch):
@@ -215,7 +226,8 @@ def test_txt2img_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread):
     assert result["launches"] == 0
     assert len(lines) == 2 + 2 * chip_smoke.TXT2IMG_RUNS
     assert "seed 42" in lines[0] and "seed 43" in lines[1]
-    assert all("w1 envelopes {'w1': 1}" in line for line in lines[2::2])
+    assert all("w1 envelopes {'w1': 1}" in line and "collector jobs left 0" in line
+               for line in lines[2::2])
     assert all("image 0 vs the local seed 42 0 " in line for line in lines[3::2])
 
 

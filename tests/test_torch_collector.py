@@ -156,9 +156,54 @@ def test_distributed_queue_gathers_the_master_and_the_worker(cluster, bundle):
     assert not torch.equal(images[0], images[1])  # distinct seeds, distinct images
     torch.testing.assert_close(images[0], _local(bundle, 11)[0], atol=0, rtol=0)
     torch.testing.assert_close(images[1], _local(bundle, 12)[0], atol=PNG_STEP + 1e-7, rtol=0)
-    job = master.job_store.collectors[queued["job_ids"]["8"]]
-    assert job.received == {"w1": 1} and job.finished_workers == {"w1"}
-    assert job.received_bytes > 0 and job.queue.empty()
+    # the master's collector cleaned its job up: the counts are its record
+    assert not master.job_store.collectors
+    record = master.job_store.finished[queued["job_ids"]["8"]]
+    assert record["received"] == {"w1": 1} and record["finished_workers"] == ["w1"]
+    assert record["received_bytes"] > 0 and record["late"] == 0
+
+
+def test_collector_jobs_end_with_their_prompts_where_the_jax_store_keeps_them(
+        cluster, server_loop, port_loop):
+    """Three prompts through a master and w1: the master's collector
+    removes each job once drained, so the store holds none, and a late
+    envelope for a finished job is dropped without making the job again.
+    The JAX master's collector, given the same three drained jobs, leaves
+    all three in its store (a deliberate divergence, ROADMAP Queue 3)."""
+    from comfyui_distributed_tpu.graph.nodes_distributed import (
+        DistributedCollector as JaxCollector,
+    )
+    from comfyui_distributed_tpu.jobs.store import JobStore as JaxJobStore
+
+    master, _ = cluster
+    base = f"http://127.0.0.1:{master.port}"
+    job_ids = []
+    for seed in (1, 2, 3):
+        status, queued = request_json("POST", f"{base}/distributed/queue", {
+            "prompt": _txt2img_prompt(seed), "client_id": "test", "workers": ["w1"]}, timeout=30)
+        assert status == 200 and queued["workers"] == ["w1"]
+        assert _wait_done(f"{base}/history/{queued['prompt_id']}")["error"] is None
+        job_ids.append(queued["job_ids"]["8"])
+    assert master.job_store.collectors == {}
+    assert all(master.job_store.finished[j]["received"] == {"w1": 1} for j in job_ids)
+    assert _post(master, _envelope(0.2, job_id=job_ids[0])) == (200, {"status": "late"})
+    assert master.job_store.collectors == {}
+    assert master.job_store.finished[job_ids[0]]["late"] == 1
+
+    jax_store = JaxJobStore()
+    server = types.SimpleNamespace(job_store=jax_store)
+    context = types.SimpleNamespace(check_interrupted=lambda: None, config={}, server=server)
+    image = np.full((1, 8, 8, 3), 0.5, np.float32)
+    for job_id in job_ids:
+        for coro in (jax_store.ensure_collector(job_id),
+                     jax_store.put_collector_result(job_id, {
+                         "tensor": image[0], "worker_id": "w1", "batch_idx": 0,
+                         "is_last": True})):
+            asyncio.run_coroutine_threadsafe(coro, server_loop.loop).result(timeout=10)
+        out = JaxCollector().run(image, job_id=job_id, enabled_worker_ids=["w1"],
+                                 context=context)[0]
+        assert tuple(out.shape) == (2, 8, 8, 3)
+    assert sorted(jax_store.collectors) == sorted(job_ids)
 
 
 @pytest.fixture
@@ -295,6 +340,29 @@ def test_collector_store_sequence_equals_the_jax_stores(server_loop, port_loop):
     assert results[0] == results[1]
     assert results[1] == ("late", ["late"], {"w1": 3, "w2": 1}, ["w1", "w2"],
                           [("w1", 0), ("w2", 0), ("w1", 1), ("w1", 1)])
+
+
+def test_a_late_envelope_stays_late_once_its_record_is_evicted(master_only, port_loop):
+    """The collector drains "job" and cleans it up; then as many tile jobs
+    finish as `finished` keeps, which evicts the collector's record. An
+    envelope for "job" that arrives after that is still late: the store
+    makes no job for it."""
+    from comfyui_distributed_tpu_torch.jobs import store as store_mod
+
+    store = master_only.job_store
+    assert _post(master_only, _envelope(0.2))[0] == 200
+    assert tuple(_collect(master_only, ["w1"]).shape) == (2, 8, 8, 3)
+    assert store.collectors == {} and store.finished["job"]["received"] == {"w1": 1}
+
+    async def churn():
+        for i in range(store_mod.FINISHED_KEPT):
+            await store.init_tile_job(f"tiles{i}", [0])
+            await store.cleanup_tile_job(f"tiles{i}")
+
+    asyncio.run_coroutine_threadsafe(churn(), port_loop.loop).result(timeout=10)
+    assert "job" not in store.finished
+    assert _post(master_only, _envelope(0.3)) == (200, {"status": "late"})
+    assert store.collectors == {}
 
 
 def test_an_empty_batch_finishes_the_worker_at_once(master_only):
