@@ -11,7 +11,9 @@ Phases, each printing lines tagged with its name:
 2. build   - nvcc builds comfyui_distributed_tpu_torch/csrc/
              flash_attention.cu from this checkout.
 3. kernel  - the kernel against its plain PyTorch version at every
-             attention shape of the upscale and txt2img paths (bf16);
+             attention shape of the upscale path and of each seed-parallel
+             workflow (bf16; each shape once, with its launches per tile or
+             image on every path that runs it);
              at D=40, 80 and 160 also f32, an unaligned, a strided and a
              16-not-128-byte aligned view and the edges of the wgmma
              instance's 64-row blocks and key tiles (N in EDGE_ROWS_WG, M
@@ -68,12 +70,32 @@ Phases, each printing lines tagged with its name:
              participant). The master's collector must leave no job
              behind; w1's envelope counts are read from its finished
              record.
+   2pass, pag, inpaint, sd21
+           - the other bundled seed-parallel workflows (SD_WORKFLOWS), each
+             as txt2img but POSTed once, its nodes found by class: two-pass
+             (CLIPSetLastLayer, KSamplerAdvanced 0-14 with leftover noise,
+             14-20 without), PAG and inpaint on the same SD1.5 weights, then
+             SD2.1-768-v (sd21, OpenCLIP-H, v-prediction, 768 px) in its own
+             seeded bundle, SD1.5 freed first. Inpaint's LoadImage reads a
+             seeded 512x512 input.png with a transparent square in the
+             middle. Per workflow, on the local run at seed 42: two-pass
+             equals one KSampler over the whole schedule (RERUN_TOLERANCE);
+             PAG differs from the workflow without it by at least one 8-bit
+             level (PAG_MIN_DIFF); inpaint's
+             sampled latent equals VAEEncodeForInpaint's exactly where its
+             mask is 0, and its images-apart check reads the grown mask's
+             pixels. Launches a run by instance from `_txt2img_shapes`: a
+             PAG image adds 620 batch-1 calls (no mid-block self-attention),
+             an inpaint image a VAE encode, an SD2.1 image runs D=64 on
+             wgmma at 9216, 2304, 576 and 144 tokens.
    phases  - each phase's seconds.
 5. kernels - one JSON line per the port's kernel contract: entry
              flash_attention over the upscale path (`launches`: the elastic
              run, both participants), entry flash_attention_txt2img over
              the txt2img path's D=40/80/160 shapes (`launches`: the last
-             txt2img run's wgmma launches, both participants).
+             txt2img run's wgmma launches, both participants), and an
+             entry flash_attention_<workflow> for each of SD_WORKFLOWS over
+             every attention shape of its image (`launches`: its run).
 
 The card's nvidia-smi line and then {"ok": true, "device": ...} close
 the output. Without a CUDA device, or without the port's package beside
@@ -134,12 +156,27 @@ EDGE_ROWS_PINGPONG = (127, 128, 129)
 EDGE_KEYS_PINGPONG = (257,)
 # SD1.5's head dims (8 heads at every level of its UNet)
 TXT2IMG_HEAD_DIMS = (40, 80, 160)
-# workflows/distributed-txt2img.json's nodes
-T2I_LATENT_NODE, T2I_SEED_NODE, T2I_SAMPLER_NODE = "4", "5", "6"
-T2I_COLLECTOR_NODE, T2I_SAVE_NODE = "8", "9"
 TXT2IMG_RUNS = 2
+# the seed-parallel workflows after txt2img, each run once over HTTP, by
+# phase: two-pass (CLIPSetLastLayer, KSamplerAdvanced), PAG, inpaint
+# (LoadImage's input.png with a transparent square) and SD2.1-768-v
+SD_WORKFLOWS = {
+    "2pass": "distributed-txt2img-2pass.json",
+    "pag": "distributed-txt2img-pag.json",
+    "inpaint": "distributed-inpaint.json",
+    "sd21": "distributed-txt2img-sd21.json",
+}
+SD_WORKFLOW_RUNS = 1
+# the side of the inpaint input's transparent square, as a share of the
+# image's side (a quarter of the area)
+INPAINT_HOLE = 0.5
+# sampler nodes, whose evaluations call the UNet
+SAMPLERS = ("KSampler", "KSamplerAdvanced")
 # a worker image travels as an 8-bit PNG: half a level of rounding
 PNG_STEP = 0.5 / 255
+# PAG must change the image by at least one 8-bit level somewhere (a
+# rerun of one seed on the card changes nothing)
+PAG_MIN_DIFF = 1.0 / 255
 
 
 def _require(ok: bool, message: str) -> None:
@@ -193,18 +230,20 @@ def _heads(unet_cfg, width: int) -> tuple[int, int]:
 
 
 def _attention_shapes(unet_cfg, vae_cfg, te_len: int, latent_hw: int, evals: int,
-                      vae_calls: int = 2):
+                      vae_calls: int = 2, perturbed_evals: int = 0):
     """(label, q shape [B, N, H, D], M, launches per run) of every
     attention call one tile (or image) makes: CFG doubles the UNet batch;
     each level with transformers runs depth x (res blocks down + res
     blocks + 1 up) blocks; the mid block, at the last level's width and
     side, max(depth, 1); each block one self- and one cross-attention;
     the VAE `vae_calls` mid-block attentions (2: encode and decode, as a
-    tile; 1: decode only, as txt2img)."""
+    tile or an inpaint image; 1: decode only, as txt2img). Each of the
+    `perturbed_evals` PAG passes runs the UNet again at batch 1 without
+    the mid block's self-attention (identity there: no call)."""
     shapes = []
     ch = unet_cfg.model_channels
     last = len(unet_cfg.channel_mult) - 1
-    levels = {}
+    levels, mids = {}, {}
     for level, mult in enumerate(unet_cfg.channel_mult):
         depth = unet_cfg.transformer_depth[level]
         side = latent_hw // 2**level
@@ -212,11 +251,20 @@ def _attention_shapes(unet_cfg, vae_cfg, te_len: int, latent_hw: int, evals: int
             levels[(side, ch * mult)] = depth * (2 * unet_cfg.num_res_blocks + 1)
         if level == last:
             mid = (side, ch * mult)
-            levels[mid] = levels.get(mid, 0) + max(depth, 1)
+            mids[mid] = max(depth, 1)
+            levels[mid] = levels.get(mid, 0) + mids[mid]
     for (side, width), blocks in levels.items():
         q = (2, side * side, *_heads(unet_cfg, width))
         shapes.append((f"self@{side * side}", q, side * side, blocks * evals))
         shapes.append((f"cross@{side * side}", q, te_len, blocks * evals))
+    if perturbed_evals:
+        for (side, width), blocks in levels.items():
+            q = (1, side * side, *_heads(unet_cfg, width))
+            self_blocks = blocks - mids.get((side, width), 0)
+            if self_blocks:
+                shapes.append((f"batch-1 self@{side * side}", q, side * side,
+                               self_blocks * perturbed_evals))
+            shapes.append((f"batch-1 cross@{side * side}", q, te_len, blocks * perturbed_evals))
     n = latent_hw * latent_hw
     width = vae_cfg.base_channels * vae_cfg.channel_mult[-1]
     shapes.append((f"vae@{n}", (1, n, 1, width), n, vae_calls))
@@ -235,21 +283,66 @@ def _expected_by_instance(attn, shapes, torch) -> dict:
     return counts
 
 
-def _txt2img_shapes(workflow):
-    """`_attention_shapes` of one image of the txt2img workflow: its
-    checkpoint's UNet (SD1.5: the SD VAE, CLIP-L's 77 tokens), the
-    EmptyLatentImage's size, the KSampler's evaluations, and one VAE
-    decode."""
-    from comfyui_distributed_tpu_torch.models.registry import get_config
+def _node_ids(workflow, class_type: str) -> list[str]:
+    """The ids of the workflow's nodes of one class, in id order."""
+    return sorted((k for k, v in workflow.items() if v["class_type"] == class_type), key=int)
+
+
+def _node_id(workflow, class_type: str) -> str:
+    """The id of the workflow's one node of a class."""
+    ids = _node_ids(workflow, class_type)
+    _require(len(ids) == 1, f"the workflow has {len(ids)} {class_type} nodes, expected one")
+    return ids[0]
+
+
+def _image_px(workflow, image_px: int = IMAGE_PX) -> tuple[int, int]:
+    """(height, width) of the workflow's image: its EmptyLatentImage's
+    size, or the LoadImage input's (`image_px` square) where it has none."""
+    latent = _node_ids(workflow, "EmptyLatentImage")
+    if latent:
+        inputs = workflow[latent[0]]["inputs"]
+        return int(inputs["height"]), int(inputs["width"])
+    return image_px, image_px
+
+
+def _sampler_evals(workflow) -> int:
+    """UNet evaluations (CFG-batched) of one image: each KSampler's
+    schedule, each KSamplerAdvanced's window."""
+    from comfyui_distributed_tpu_torch.models.pipeline import advanced_window_sigmas
     from comfyui_distributed_tpu_torch.ops.samplers import get_sigmas
 
+    evals = 0
+    for node_id in _node_ids(workflow, "KSampler"):
+        inputs = workflow[node_id]["inputs"]
+        evals += get_sigmas(inputs["scheduler"], int(inputs["steps"]),
+                            float(inputs["denoise"])).shape[0] - 1
+    for node_id in _node_ids(workflow, "KSamplerAdvanced"):
+        inputs = workflow[node_id]["inputs"]
+        evals += advanced_window_sigmas(
+            "eps", inputs["scheduler"], int(inputs["steps"]), int(inputs["start_at_step"]),
+            int(inputs["end_at_step"]), inputs["return_with_leftover_noise"] == "disable",
+        ).shape[0] - 1
+    return evals
+
+
+def _txt2img_shapes(workflow, image_px: int = IMAGE_PX):
+    """`_attention_shapes` of one image of a seed-parallel SD workflow:
+    its checkpoint's UNet and text encoder (SD1.5: CLIP-L's 77 tokens;
+    SD2.1: OpenCLIP-H's 77), the SD VAE, the image's size, the samplers'
+    evaluations (each with a batch-1 pass under PAG), and the VAE's calls
+    (one decode, one encode per VAEEncodeForInpaint)."""
+    from comfyui_distributed_tpu_torch.models.registry import DEFAULT_TEXT_ENCODERS, get_config
+
+    ckpt = workflow[_node_id(workflow, "CheckpointLoaderSimple")]["inputs"]["ckpt_name"]
     vae_cfg = get_config("vae-sd")
-    sampler = workflow[T2I_SAMPLER_NODE]["inputs"]
-    evals = get_sigmas(sampler["scheduler"], int(sampler["steps"]),
-                       float(sampler["denoise"])).shape[0] - 1
-    latent_hw = int(workflow[T2I_LATENT_NODE]["inputs"]["height"]) // vae_cfg.downscale
-    return _attention_shapes(get_config(workflow["1"]["inputs"]["ckpt_name"]), vae_cfg,
-                             get_config("clip-l").max_length, latent_hw, evals, vae_calls=1)
+    height, width = _image_px(workflow, image_px)
+    _require(height == width, f"a {height}x{width} image: the shapes assume a square")
+    evals = _sampler_evals(workflow)
+    perturbed = evals if _node_ids(workflow, "PerturbedAttentionGuidance") else 0
+    te_len = get_config(DEFAULT_TEXT_ENCODERS.get(ckpt, "clip-l")).max_length
+    return _attention_shapes(get_config(ckpt), vae_cfg, te_len, height // vae_cfg.downscale,
+                             evals, vae_calls=1 + len(_node_ids(workflow, "VAEEncodeForInpaint")),
+                             perturbed_evals=perturbed)
 
 
 def _expected_instance(attn, head_dim: int, dtype: str, layout: str) -> str:
@@ -536,16 +629,73 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
     return result
 
 
+def _inpaint_input(px: int, seed: int):
+    """A seeded px x px RGBA image on 8-bit levels (so a PNG holds it
+    exactly), opaque but for a transparent square in the middle,
+    INPAINT_HOLE of the side: LoadImage's mask (1 - alpha) is 1 there."""
+    import numpy as np
+
+    from comfyui_distributed_tpu_torch.utils import image as img_utils
+
+    rng = np.random.default_rng(seed)
+    rgba = img_utils.u8_to_f32(img_utils.f32_to_u8(rng.random((px, px, 4), dtype=np.float32)))
+    rgba[..., 3] = 1.0
+    lo = round(px * (1.0 - INPAINT_HOLE) / 2)
+    rgba[lo:px - lo, lo:px - lo, 3] = 0.0
+    return rgba
+
+
+def _without_pag(workflow):
+    """The workflow with its PerturbedAttentionGuidance node taken out:
+    its consumers take the node's own model input."""
+    prompt = copy.deepcopy(workflow)
+    pag = _node_id(prompt, "PerturbedAttentionGuidance")
+    source = prompt.pop(pag)["inputs"]["model"]
+    for node in prompt.values():
+        for name, value in node["inputs"].items():
+            if isinstance(value, list) and value[:1] == [pag]:
+                node["inputs"][name] = source
+    return prompt
+
+
+def _one_ksampler(workflow):
+    """The two-pass workflow with its KSamplerAdvanced chain replaced by
+    one KSampler over the whole schedule from the first pass's inputs,
+    under the same id as the last pass (its consumers keep their link)."""
+    prompt = copy.deepcopy(workflow)
+    passes = _node_ids(prompt, "KSamplerAdvanced")
+    first = prompt[passes[0]]["inputs"]
+    for node_id in passes:
+        del prompt[node_id]
+    prompt[passes[-1]] = {"class_type": "KSampler", "inputs": {
+        "model": first["model"], "seed": first["noise_seed"], "steps": first["steps"],
+        "cfg": first["cfg"], "sampler_name": first["sampler_name"],
+        "scheduler": first["scheduler"], "positive": first["positive"],
+        "negative": first["negative"], "latent_image": first["latent_image"], "denoise": 1.0,
+    }}
+    return prompt
+
+
 def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int | None = None,
-                   expected_by_instance: dict | None = None, runs: int = TXT2IMG_RUNS) -> dict:
-    """Seed-parallel txt2img over HTTP (see the module docstring): local
-    references at the master's seed and w1's, then the unmodified
+                   expected_by_instance: dict | None = None, runs: int = TXT2IMG_RUNS,
+                   tag: str = "txt2img", image_px: int = IMAGE_PX) -> dict:
+    """Seed-parallel generation over HTTP (see the module docstring):
+    local references at the master's seed and w1's, then the unmodified
     workflow POSTed `runs` times to a master with worker w1, both servers
-    in this process sharing `bundle`. Prints the [txt2img] lines and
+    in this process sharing `bundle`. Its nodes are found by class. A
+    LoadImage reads a seeded `_inpaint_input` of `image_px`, written to
+    the input directory both servers share. Per workflow, on the local
+    run at the master's seed: two-pass equals one KSampler over the whole
+    schedule; PAG differs from the workflow without it; inpaint keeps
+    the encoded latent exactly where its mask is 0, and the images-apart
+    check reads the grown mask's pixels only. Prints the [tag] lines and
     returns the last run's attention launches. With `expected_launches`
     None (no card) the launch counts go unchecked."""
+    import numpy as np
+
     from comfyui_distributed_tpu_torch.api.server import DistributedServer
     from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
+    from comfyui_distributed_tpu_torch.graph.nodes_core import grow_mask
     from comfyui_distributed_tpu_torch.ops import attention as attn
     from comfyui_distributed_tpu_torch.utils import config as config_mod
     from comfyui_distributed_tpu_torch.utils import image as img_utils
@@ -553,10 +703,14 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
     from comfyui_distributed_tpu_torch.utils.network import request_json
 
     cuda = device.startswith("cuda")
-    ckpt = workflow["1"]["inputs"]["ckpt_name"]
-    seed = int(workflow[T2I_SEED_NODE]["inputs"]["seed"])
-    latent = workflow[T2I_LATENT_NODE]["inputs"]
-    size = (int(latent["height"]), int(latent["width"]), 3)
+    label = f"[{tag}]"
+    ckpt = workflow[_node_id(workflow, "CheckpointLoaderSimple")]["inputs"]["ckpt_name"]
+    seed_node = _node_id(workflow, "DistributedSeed")
+    collector = _node_id(workflow, "DistributedCollector")
+    save = _node_id(workflow, "SaveImage")
+    samplers = [n for cls in SAMPLERS for n in _node_ids(workflow, cls)]
+    seed = int(workflow[seed_node]["inputs"]["seed"])
+    size = (*_image_px(workflow, image_px), 3)
 
     def counts():
         return attn.flash_attention.launches, dict(attn.flash_attention.launches_by_instance)
@@ -569,43 +723,91 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
                  f"{launches} attention launches, expected {expected_launches * participants // 2}")
         _require(by_instance == want, f"launches by instance {by_instance}, expected {want}")
 
-    # local references: the workflow without workers or SaveImage, at the
-    # master's seed and at w1's (seed + worker index 0 + 1)
-    context = ExecutionContext(device=device)
-    context.pipelines[ckpt] = bundle
-    executor = GraphExecutor(context)
-    local = {}
-    for s in (seed, seed + 1):
-        prompt = copy.deepcopy(workflow)
-        del prompt[T2I_SAVE_NODE]
-        prompt[T2I_SEED_NODE]["inputs"]["seed"] = s
-        if cuda:
-            torch.cuda.synchronize()
-        attn.reset_launch_counts()
-        started = time.perf_counter()
-        executor.execute(prompt)
-        images = executor.last_results[T2I_COLLECTOR_NODE][0]
-        if cuda:
-            torch.cuda.synchronize()
-        seconds = time.perf_counter() - started
-        launches, by_instance = counts()
-        print(f"[txt2img] local run, seed {s}: {seconds:.2f} s, {images.shape[0] / seconds:.4f} "
-              f"images/s; flash_attention launches {launches}, by instance {by_instance}; node "
-              f"times {executor.last_timings}")
-        _require(tuple(images.shape) == (1, *size), f"local output shape {tuple(images.shape)}")
-        _require(bool(torch.isfinite(images).all()), "non-finite local output")
-        check_launches(launches, by_instance, 1)
-        local[s] = images[0].float()
     result = {}
-    with tempfile.TemporaryDirectory(prefix="cdt_txt2img_") as tmp:
-        out_dir = os.path.join(tmp, "output")
+    with tempfile.TemporaryDirectory(prefix=f"cdt_{tag}_") as tmp:
+        in_dir, out_dir = os.path.join(tmp, "input"), os.path.join(tmp, "output")
+        os.makedirs(in_dir)
+        settings = {"input_dir": in_dir, "output_dir": out_dir}
+        # the pixels the images-apart check reads: all, or an inpaint's
+        # grown mask (both images keep the rest)
+        region = None
+        for load in _node_ids(workflow, "LoadImage"):
+            rgba = _inpaint_input(size[0], SEED)
+            with open(os.path.join(in_dir, workflow[load]["inputs"]["image"]), "wb") as fh:
+                fh.write(img_utils.encode_png(rgba))
+            hard = torch.from_numpy((1.0 - rgba[..., 3] > 0.5).astype(np.float32))[None]
+            for enc in _node_ids(workflow, "VAEEncodeForInpaint"):
+                grow = int(workflow[enc]["inputs"]["grow_mask_by"])
+                region = grow_mask(hard, grow)[0].to(device) > 0
+
+        # local references: the workflow without workers or SaveImage
+        context = ExecutionContext(device=device, config={"settings": settings})
+        context.pipelines[ckpt] = bundle
+        executor = GraphExecutor(context)
+
+        def local_run(prompt, what: str):
+            prompt = copy.deepcopy(prompt)
+            del prompt[save]
+            # every node runs, as on the servers below: a cached
+            # VAEEncodeForInpaint would launch no attention
+            context.extras.pop("node_cache", None)
+            if cuda:
+                torch.cuda.synchronize()
+            attn.reset_launch_counts()
+            started = time.perf_counter()
+            executor.execute(prompt)
+            images = executor.last_results[collector][0]
+            if cuda:
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - started
+            launches, by_instance = counts()
+            print(f"{label} local run, {what}: {seconds:.2f} s, {images.shape[0] / seconds:.4f} "
+                  f"images/s; flash_attention launches {launches}, by instance {by_instance}; "
+                  f"node times {executor.last_timings}")
+            _require(tuple(images.shape) == (1, *size), f"local output shape {tuple(images.shape)}")
+            _require(bool(torch.isfinite(images).all()), "non-finite local output")
+            return images[0].float(), launches, by_instance
+
+        local = {}
+        for s in (seed, seed + 1):
+            prompt = copy.deepcopy(workflow)
+            prompt[seed_node]["inputs"]["seed"] = s
+            local[s], launches, by_instance = local_run(prompt, f"seed {s}")
+            check_launches(launches, by_instance, 1)
+            if s != seed:
+                continue
+            for enc in _node_ids(workflow, "VAEEncodeForInpaint"):
+                encoded = executor.last_results[enc][0]
+                sampled = executor.last_results[samplers[-1]][0]["samples"]
+                keep = encoded["noise_mask"][..., 0] == 0.0
+                exact = bool(torch.equal(sampled[keep], encoded["samples"][keep]))
+                print(f"{label} seed {s}: the sampled latent equals VAEEncodeForInpaint's at "
+                      f"the {int(keep.sum())} of {keep.numel()} latent pixels outside the mask: "
+                      f"{exact}; inside, max |diff| "
+                      f"{float((sampled[~keep] - encoded['samples'][~keep]).abs().max()):.3g}")
+                _require(bool(keep.any()) and bool((~keep).any()),
+                         "the latent mask is all one value")
+                _require(exact, "sampling changed the latent outside the inpaint mask")
+        if _node_ids(workflow, "KSamplerAdvanced"):
+            single, _, _ = local_run(_one_ksampler(workflow), f"seed {seed}, one KSampler")
+            diff = float((single - local[seed]).abs().max())
+            print(f"{label} seed {seed}: the two passes vs one KSampler over the whole schedule "
+                  f"max |diff| {diff:.3g} (tolerance {RERUN_TOLERANCE})")
+            _require(diff <= RERUN_TOLERANCE, "the two passes are not one KSampler's trajectory")
+        if _node_ids(workflow, "PerturbedAttentionGuidance"):
+            plain, _, _ = local_run(_without_pag(workflow), f"seed {seed}, without PAG")
+            diff = float((plain - local[seed]).abs().max())
+            print(f"{label} seed {seed}: PAG vs without max |diff| {diff:.3g} (at least "
+                  f"{PAG_MIN_DIFF:.4f}, one 8-bit level)")
+            _require(diff >= PAG_MIN_DIFF, "PAG does not change the image")
+
         master_port, worker_port = _free_port(), _free_port()
         config_path = os.path.join(tmp, "config.json")
         config_mod.save_config({
             "master": {"host": "127.0.0.1"},
             "workers": [{"id": "w1", "name": "w1", "type": "remote", "host": "127.0.0.1",
                          "port": worker_port, "enabled": True}],
-            "settings": {"input_dir": tmp, "output_dir": out_dir},
+            "settings": settings,
         }, config_path)
         loop = ServerLoopThread()
         loop.start()
@@ -650,20 +852,20 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
                 _require(history.get("error") is None, f"master prompt failed: {history}")
                 _require(worker_history.get("error") is None,
                          f"worker prompt failed: {worker_history}")
-                _require(history["timings"].get(T2I_SAMPLER_NODE, 0.0) > 0.0
-                         and worker_history["timings"].get(T2I_SAMPLER_NODE, 0.0) > 0.0,
-                         "a participant's KSampler did not run")
+                _require(all(history["timings"].get(n, 0.0) > 0.0
+                             and worker_history["timings"].get(n, 0.0) > 0.0 for n in samplers),
+                         "a participant's sampler did not run")
                 launches, by_instance = counts()
                 peak = torch.cuda.max_memory_allocated() if cuda else 0
                 # the master's collector cleans its job up once drained: its
                 # counts are in the store's finished records
-                record = master.job_store.finished[queued["job_ids"][T2I_COLLECTOR_NODE]]
-                out = master.get_job(queued["prompt_id"]).outputs[T2I_SAVE_NODE][0]["images"]
+                record = master.job_store.finished[queued["job_ids"][collector]]
+                out = master.get_job(queued["prompt_id"]).outputs[save][0]["images"]
                 master_s = sum(history["timings"].values())
                 worker_s = sum(worker_history["timings"].values())
-                print(f"[txt2img] run {run}: {seconds:.2f} s, {out.shape[0] / seconds:.4f} "
+                print(f"{label} run {run}: {seconds:.2f} s, {out.shape[0] / seconds:.4f} "
                       f"images/s; node seconds summed: master {master_s:.2f} (collector "
-                      f"{history['timings'].get(T2I_COLLECTOR_NODE, 0.0):.2f}), w1 "
+                      f"{history['timings'].get(collector, 0.0):.2f}), w1 "
                       f"{worker_s:.2f}; flash_attention launches {launches}, by instance "
                       f"{by_instance}; peak {peak / 2**30:.2f} GiB; w1 envelopes "
                       f"{record['received']}, bytes received {record['received_bytes']}; "
@@ -679,7 +881,7 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
                          f"{record['finished_workers']}")
                 _require(not master.job_store.collectors,
                          f"collector jobs outlive their prompts: {sorted(master.job_store.collectors)}")
-                saved = history["outputs"][T2I_SAVE_NODE]["images"]
+                saved = history["outputs"][save]["images"]
                 _require(len(saved) == 2, f"saved {saved}")
                 for name in saved:
                     with open(os.path.join(out_dir, name), "rb") as fh:
@@ -688,19 +890,23 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
                 d0 = float((out[0].float() - local[seed].to(out.device)).abs().max())
                 d1 = float((out[1].float() - local[seed + 1].to(out.device)).abs().max())
                 d01 = (out[0] - out[1]).float().abs()
+                where = "all pixels"
+                if region is not None:
+                    d01, where = d01[region], f"the grown mask's {int(region.sum())} pixels"
                 d01_max, d01_mean = float(d01.max()), float(d01.mean())
-                print(f"[txt2img] run {run} output {tuple(out.shape)} in "
+                print(f"{label} run {run} output {tuple(out.shape)} in "
                       f"[{float(out.min()):.4f}, {float(out.max()):.4f}]; max |diff| image 0 vs "
                       f"the local seed {seed} {d0:.3g} (tolerance {RERUN_TOLERANCE}), image 1 vs "
                       f"the local seed {seed + 1} {d1:.3g} (tolerance "
-                      f"{RERUN_TOLERANCE + PNG_STEP:.4f}), image 0 vs 1 max {d01_max:.3g} and "
-                      f"mean {d01_mean:.3g} (each > {RERUN_TOLERANCE})")
+                      f"{RERUN_TOLERANCE + PNG_STEP:.4f}), image 0 vs 1 over {where} max "
+                      f"{d01_max:.3g} and mean {d01_mean:.3g} (each > {RERUN_TOLERANCE})")
                 _require(d0 <= RERUN_TOLERANCE, "the master's image is not the local seed's")
                 _require(d1 <= RERUN_TOLERANCE + PNG_STEP, "w1's image is not the local seed's")
                 _require(d01_max > RERUN_TOLERANCE and d01_mean > RERUN_TOLERANCE,
                          "the master's and w1's images do not differ")
                 check_launches(launches, by_instance, 2)
-                result = {"launches": launches, "launches_by_instance": by_instance}
+                result = {"launches": launches, "launches_by_instance": by_instance,
+                          "images_per_s": out.shape[0] / seconds, "peak_gib": peak / 2**30}
         finally:
             async def teardown():
                 await master.stop()
@@ -769,6 +975,14 @@ def main() -> int:
     with open(os.path.join(REPO, "workflows", "distributed-txt2img.json"), encoding="utf-8") as fh:
         t2i_workflow = json.load(fh)
     t2i_shapes = _txt2img_shapes(t2i_workflow)
+    sd_workflows = {}
+    for tag, name in SD_WORKFLOWS.items():
+        with open(os.path.join(REPO, "workflows", name), encoding="utf-8") as fh:
+            sd_workflows[tag] = json.load(fh)
+    # every main-path unit's shapes: the SDXL upscale's tile, each seed-
+    # parallel workflow's image
+    path_shapes = {"upscale": shapes, "txt2img": t2i_shapes,
+                   **{tag: _txt2img_shapes(wf) for tag, wf in sd_workflows.items()}}
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -784,16 +998,25 @@ def main() -> int:
     # differ in summation order (~1e-6 relative); in bf16 the final
     # rounding can then land one bf16 step (2^-8 relative) apart
     tolerance = {"bfloat16": (2.0**-7, 1e-3), "float32": (1e-5, 2e-5)}
-    # per main-path unit: the SDXL upscale's tile, the txt2img image
+    # per main-path unit: the SDXL upscale's tile, a workflow's image
     totals = {path: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                      "operations": 0.0, "bytes": 0.0, "exponentials": 0.0}
-              for path in ("upscale", "txt2img")}
+              for path in path_shapes}
     # the largest error of the checks of each kernels entry: the txt2img
-    # head dims on the tensor cores, and everything else
-    max_err = {"upscale": 0.0, "txt2img": 0.0}
-    # (label, q shape, M, dtype, (path, launches per unit) or None, layout)
-    checks = [(label, q, m, "bfloat16", ("upscale", count), "contiguous")
-              for label, q, m, count in shapes]
+    # head dims on the tensor cores, everything else under upscale, and
+    # each later workflow's own shapes
+    max_err = dict.fromkeys(path_shapes, 0.0)
+    # each main-path shape once, with its launches per unit on every path
+    # that runs it: (label, q shape, M) → {path: launches per unit}
+    main_shapes = {}
+    for path, path_list in path_shapes.items():
+        for label, q, m, count in path_list:
+            key = (f"{label}" if path == "upscale" else f"{path} {label}", q, m)
+            key = next((k for k in main_shapes if k[1:] == (q, m)), key)
+            main_shapes.setdefault(key, {})[path] = count
+    # (label, q shape, M, dtype, {path: launches per unit} or None, layout)
+    checks = [(label, q, m, "bfloat16", units, "contiguous")
+              for (label, q, m), units in main_shapes.items() if "upscale" in units]
     self_lo = [s for s in shapes if s[0].startswith("self@")][-1]  # the deepest level
     checks += [
         (f"{self_lo[0]} f32", self_lo[1], self_lo[2], "float32", None, "contiguous"),
@@ -811,11 +1034,12 @@ def main() -> int:
         (f"vae@{VAE_1024_TOKENS} (1024-px tile)", (1, VAE_1024_TOKENS, 1, 512), VAE_1024_TOKENS,
          "bfloat16", None, "contiguous"),
     ]
-    # txt2img on SD1.5: its shapes, then f32, an unaligned, a strided and
-    # a 16-not-128-byte aligned view and the edges of the wgmma instance's
-    # 64-row blocks and key tiles at each of its head dims
-    checks += [(f"txt2img {label}", q, m, "bfloat16", ("txt2img", count), "contiguous")
-               for label, q, m, count in t2i_shapes]
+    # the seed-parallel workflows' shapes (SD1.5 at batch 2 and, under
+    # PAG, batch 1; SD2.1 at 768 px), then at each txt2img head dim f32,
+    # an unaligned, a strided and a 16-not-128-byte aligned view and the
+    # edges of the wgmma instance's 64-row blocks and key tiles
+    checks += [(label, q, m, "bfloat16", units, "contiguous")
+               for (label, q, m), units in main_shapes.items() if "upscale" not in units]
     for d in TXT2IMG_HEAD_DIMS:
         checks += [
             (f"D{d} ragged 1000x777 f32", (1, 1000, 2, d), 777, "float32", None, "contiguous"),
@@ -834,7 +1058,7 @@ def main() -> int:
           f"exp2 bound {EXP2_PER_CLOCK_PER_SM} a clock an SM")
     tile_lines = []
     host_inputs = None
-    for label, q_shape, m, dtype, unit, layout in checks:
+    for label, q_shape, m, dtype, units, layout in checks:
         tdtype = getattr(torch, dtype)
         b, n, h, d = q_shape
         if layout == "offset":  # rows 16 bytes into a pitch of D + 8 elements
@@ -861,7 +1085,8 @@ def main() -> int:
         rtol, atol = tolerance[dtype]
         ok = bool(torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol))
         entry = "txt2img" if d in TXT2IMG_HEAD_DIMS and plan.instance == "wgmma" else "upscale"
-        max_err[entry] = max(max_err[entry], err)
+        for path in {entry} | {p for p in (units or {}) if p not in ("upscale", "txt2img")}:
+            max_err[path] = max(max_err[path], err)
         # the edges are many and small: fewer samples
         reps = (3, 3) if layout == "edge" else (15, 10)
         kernel_ms = _time_ms(torch, lambda: attn.flash_attention(q, k, v), *reps)
@@ -872,9 +1097,8 @@ def main() -> int:
         bound_ms = max(terms.values())
         per_sm = attn.blocks_per_sm(plan, q.dtype, d)
         ctas = plan.ctas(b, n, h)
-        count = unit[1] if unit else 0
         print(f"[kernel] {label} {dtype} q={tuple(q.shape)} M={k.shape[1]} "
-              f"launches/{'image' if unit and unit[0] == 'txt2img' else 'tile'}={count} "
+              f"launches/unit={units or {}} "
               f"max_abs_err={err:.3g} tol=|d|<={atol:g}+{rtol:g}|ref| {'ok' if ok else 'FAIL'} "
               f"kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
               f"bound_ms={bound_ms:.5f} ({_bound_by(terms)}; operations "
@@ -884,20 +1108,24 @@ def main() -> int:
               f"masked={plan.masked_share(m):.4f} rows/cta={plan.rows_per_cta} "
               f"splits={plan.splits} ctas={ctas} ctas/sm={per_sm} "
               f"waves={ctas / (per_sm * sms):.3f}")
-        if unit and plan.instance == "wgmma":
+        if units and plan.instance == "wgmma":
             plans = attn.wgmma_plans(d)
             tile_lines.append(_time_plans(torch, attn, label, q, k, v, plans, plan))
-            if host_inputs is None or q.numel() > host_inputs[0].numel():
+            # the largest SD1.5 or SDXL call: the [host] line keeps its shape
+            if "sd21" not in units and (host_inputs is None
+                                        or q.numel() > host_inputs[0].numel()):
                 host_inputs = (q, k, v)
-        if unit and unit[0] == "upscale" and plan.instance == "wgmma512":
+        if units and "upscale" in units and plan.instance == "wgmma512":
             plans = [attn.Plan("wgmma512", attn.WGMMA512_KEYS, attn.WGMMA_ROWS, splits)
                      for splits in SPLITS_TIMED if splits <= plan.key_tiles(m)]
             tile_lines.append(_time_plans(torch, attn, label, q, k, v, plans, plan))
         _require(ok, f"kernel disagrees with its plain version at {label} ({err:.3g})")
-        if unit and (unit[0] == "upscale" or plan.instance == "wgmma"):
+        for path, count in (units or {}).items():
+            if path == "txt2img" and plan.instance != "wgmma":
+                continue  # txt2img's entry: the D=40/80/160 shapes only
             for key, val in (("ms", kernel_ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
                              ("bound_ms", bound_ms), *terms.items()):
-                totals[unit[0]][key] += count * val
+                totals[path][key] += count * val
 
     for line in tile_lines:
         print(line)
@@ -993,6 +1221,36 @@ def main() -> int:
     txt2img = _txt2img_phase(torch, t2i_bundle, t2i_workflow, "cuda",
                              expected_launches=2 * per_image, expected_by_instance=t2i_expected)
     phase_seconds["txt2img"] = time.perf_counter() - phase_started
+
+    # --- 4d. the other seed-parallel SD workflows ----------------------------------
+    # two-pass, PAG and inpaint on the same SD1.5 weights; then SD2.1-768-v
+    # on its own, seeded like the others, SD1.5 freed first
+    sd_results = {}
+    bundle = t2i_bundle
+    del t2i_bundle
+    for tag, wf in sd_workflows.items():
+        phase_started = time.perf_counter()
+        ckpt = wf[_node_id(wf, "CheckpointLoaderSimple")]["inputs"]["ckpt_name"]
+        if ckpt != bundle.model_name:
+            del bundle
+            torch.cuda.empty_cache()
+            started = time.perf_counter()
+            bundle = pl.load_pipeline(ckpt, seed=0, device="cuda")
+            _seed_out_conv(torch, bundle, gen)
+            torch.cuda.synchronize()
+            n_params = sum(p.numel() for m in (bundle.unet, bundle.vae, bundle.text_encoder)
+                           for p in m.parameters())
+            print(f"[{tag}] {ckpt}: {n_params / 1e9:.3f}B parameters, seeded random init on "
+                  f"the card in {time.perf_counter() - started:.1f} s (compute dtype "
+                  f"{get_config(ckpt).dtype}, text encoder {bundle.te_name})")
+        per_image = sum(count for *_, count in path_shapes[tag])
+        expected = {name: 2 * count for name, count in
+                    _expected_by_instance(attn, path_shapes[tag], torch).items()}
+        sd_results[tag] = _txt2img_phase(torch, bundle, wf, "cuda", 2 * per_image, expected,
+                                         runs=SD_WORKFLOW_RUNS, tag=tag)
+        phase_seconds[tag] = time.perf_counter() - phase_started
+    del bundle
+    torch.cuda.empty_cache()
     print("[phases] seconds: " + ", ".join(f"{name} {sec:.1f}" for name, sec in
                                            phase_seconds.items()))
 
@@ -1003,7 +1261,9 @@ def main() -> int:
           "flash_attention_txt2img: the same per 512-px SD1.5 image over the D=40/80/160 shapes "
           "the wgmma instance takes; launches: its launches in the last txt2img run, master "
           "and w1 together; bound_by: the largest of the summed operations, bytes and "
-          "exponentials terms")
+          "exponentials terms. flash_attention_<workflow>: the same per image over every "
+          "attention shape of that workflow (VAE included); launches: its run over HTTP, "
+          "master and w1 together")
     source = "comfyui_distributed_tpu_torch/csrc/flash_attention.cu"
     replaces = "comfyui_distributed_tpu/ops/attention.py:80"
 
@@ -1039,6 +1299,19 @@ def main() -> int:
             **numbers("txt2img"),
             "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
         },
+    ] + [
+        {
+            "name": f"flash_attention_{tag}",
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": sd_results[tag]["launches"],
+            "launches_by_instance": sd_results[tag]["launches_by_instance"],
+            "max_abs_err": max_err[tag],
+            **numbers(tag),
+            "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
+        }
+        for tag in sd_workflows
     ]}
     print(json.dumps(kernels))
     print(_nvidia_smi())

@@ -3,7 +3,7 @@
 Importing the package registers the ported nodes.
 """
 
-from . import nodes_core, nodes_distributed, nodes_upscale  # noqa: F401  (register nodes)
+from . import nodes_core, nodes_distributed, nodes_loaders, nodes_upscale  # noqa: F401
 from .executor import ExecutionContext, GraphExecutor, validate_prompt
 from .registry import NODE_REGISTRY, register_node
 

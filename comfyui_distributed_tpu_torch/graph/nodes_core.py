@@ -1,18 +1,22 @@
-"""Core workflow nodes of the upscale and txt2img workflows: checkpoint
-→ text encode → empty latent → sample → decode, image load and save.
+"""Core workflow nodes of the upscale, txt2img, two-pass and inpaint
+workflows: checkpoint → clip-skip → text encode → empty latent or
+inpaint encode → sample (KSampler, KSamplerAdvanced) → decode, image
+load and save.
 
 Counterparts of the same-named nodes in comfyui_distributed_tpu/graph/
 nodes_core.py. Data contracts:
 
     MODEL / CLIP / VAE — views over a models.pipeline.PipelineBundle
     CONDITIONING       — ops.conditioning.Conditioning
-    LATENT             — {"samples": [B, h, w, C]} dict (ComfyUI parity)
+    LATENT             — {"samples": [B, h, w, C]} dict (ComfyUI parity),
+                         optionally with "noise_mask" (1 = regenerate)
     IMAGE              — [B, H, W, C] float tensor in [0, 1]
+    MASK               — [B, H, W] float tensor in [0, 1]
 
 A `SeedSpec` flows out of DistributedSeed: the base seed plus, on a
 worker of the elastic tier, its index. The JAX package's mesh branch (a
 per-participant SeedSpec sampled as one SPMD program) is not ported: the
-multi-GPU tier is ROADMAP.md Queue 1 item 2, and such a spec raises.
+multi-GPU tier is ROADMAP.md Queue 1 item 6, and such a spec raises.
 
 LoadImage and SaveImage read and write PNG through the port's own codec
 (utils/image.py): the machine that runs the card has no PIL. PreviewImage
@@ -27,15 +31,17 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..models import pipeline as pl
+from ..ops.upscale import resize_image
 from ..utils import image as img_utils
 from .io_dirs import get_output_dir, next_counter, resolve_input_path
 from .registry import register_node
 
 
 _MESH_UNPORTED = ("per-participant seeds on a device mesh are not ported yet (ROADMAP.md, "
-                  "Queue 1 item 2: the multi-GPU tier)")
+                  "Queue 1 item 6: the multi-GPU tier)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +103,34 @@ class CLIPTextEncode:
 
 
 @register_node
+class CLIPSetLastLayer:
+    """Clip-skip: the conditioning context stops `stop_at_clip_layer`
+    blocks from the end of every CLIP tower (-1 = the full stack, -2 =
+    the classic "clip skip 2"); the pooled vector keeps the full stack.
+    Returns a new bundle: the one the executor caches stays as it is."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "clip": ("CLIP",),
+                "stop_at_clip_layer": ("INT", {"default": -1}),
+            }
+        }
+
+    RETURN_TYPES = ("CLIP",)
+    FUNCTION = "set_last_layer"
+
+    def set_last_layer(self, clip: pl.PipelineBundle, stop_at_clip_layer=-1, context=None):
+        stop = int(stop_at_clip_layer)
+        if stop >= 0:
+            raise ValueError(
+                "stop_at_clip_layer counts from the end and must be negative (-1 = last layer)"
+            )
+        return (dataclasses.replace(clip, clip_skip=-stop - 1),)
+
+
+@register_node
 class EmptyLatentImage:
     @classmethod
     def INPUT_TYPES(cls):
@@ -119,20 +153,30 @@ class EmptyLatentImage:
         return ({"samples": samples, "width": int(width), "height": int(height), "empty": True},)
 
 
+def _mask_to_latent(mask, lh: int, lw: int) -> torch.Tensor:
+    """MASK ([H, W], [B, H, W] or [B, H, W, 1]; 1 = regenerate) →
+    [B, lh, lw, 1] in [0, 1], resized with jax.image.resize's
+    antialiased linear weights (ops/upscale.py::resize_image)."""
+    m = torch.as_tensor(mask).float()
+    if m.ndim == 4:
+        m = m[..., 0]
+    if m.ndim == 2:
+        m = m[None]
+    if tuple(m.shape[1:]) != (lh, lw):
+        m = resize_image(m[..., None], lh, lw, "bilinear")[..., 0]
+    return torch.clamp(m, 0.0, 1.0)[..., None]
+
+
 def _prep_latents(bundle: pl.PipelineBundle, latent_image: dict):
-    """KSampler's input normalisation: a placeholder (`empty`) latent is
-    rebuilt to the bundle's latent layout if it differs, and the extras
-    the output carries forward are collected (the `empty` marker is
-    not). A noise mask (inpainting) and a fixed batch seed
-    (LatentBatchSeedBehavior) raise: neither is ported."""
-    if latent_image.get("noise_mask") is not None:
-        raise NotImplementedError(
-            "inpainting (a LATENT with noise_mask) is not ported yet (ROADMAP.md, Queue 1 "
-            "item 5: the rest of the sampler, guidance and node catalogue)"
-        )
+    """KSampler's and KSamplerAdvanced's input normalisation: a
+    placeholder (`empty`) latent is rebuilt to the bundle's latent layout
+    if it differs, a noise mask is brought to latent resolution, and the
+    extras the output carries forward are collected (the `empty` marker
+    is not; a noise mask is, so a chained pass stays masked). A fixed
+    batch seed (LatentBatchSeedBehavior) raises: it is not ported."""
     if latent_image.get("batch_index_fixed"):
         raise NotImplementedError(
-            "LatentBatchSeedBehavior 'fixed' is not ported yet (ROADMAP.md, Queue 1 item 5)"
+            "LatentBatchSeedBehavior 'fixed' is not ported yet (ROADMAP.md, Queue 1 item 2)"
         )
     latents = latent_image["samples"]
     if latent_image.get("empty") and "width" in latent_image:
@@ -140,8 +184,11 @@ def _prep_latents(bundle: pl.PipelineBundle, latent_image: dict):
                  latent_image["width"] // bundle.latent_scale, bundle.latent_channels)
         if tuple(latents.shape) != shape:
             latents = torch.zeros(shape, device=bundle.device)
+    noise_mask = latent_image.get("noise_mask")
+    if noise_mask is not None:
+        noise_mask = _mask_to_latent(noise_mask, latents.shape[1], latents.shape[2])
     extras = {k: v for k, v in latent_image.items() if k not in ("samples", "empty")}
-    return latents, extras
+    return latents, noise_mask, extras
 
 
 @register_node
@@ -172,11 +219,70 @@ class KSampler:
         spec = resolve_seed(seed)
         if spec.per_participant:
             raise NotImplementedError(_MESH_UNPORTED)
-        latents, extras = _prep_latents(model, latent_image)
+        latents, noise_mask, extras = _prep_latents(model, latent_image)
         out = pl.img2img_latents(
             model, latents, positive, negative, steps=int(steps), sampler=sampler_name,
             scheduler=scheduler, cfg_scale=float(cfg), denoise=float(denoise),
-            seed=spec.effective_seed(),
+            seed=spec.effective_seed(), noise_mask=noise_mask,
+        )
+        return ({**extras, "samples": out},)
+
+
+def _flag(value, name: str) -> bool:
+    value = str(value)
+    if value not in ("enable", "disable"):
+        raise ValueError(f"{name} must be 'enable' or 'disable'")
+    return value == "enable"
+
+
+@register_node
+class KSamplerAdvanced:
+    """Windowed-schedule sampler: steps [start_at_step, end_at_step] of
+    the full schedule, optionally without adding noise (the refine pass
+    of a two-pass workflow, which takes a latent with leftover noise) and
+    optionally leaving leftover noise for a later pass
+    (return_with_leftover_noise "enable")."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "model": ("MODEL",),
+                "add_noise": ("STRING", {"default": "enable"}),
+                "noise_seed": ("INT", {"default": 0}),
+                "steps": ("INT", {"default": 20}),
+                "cfg": ("FLOAT", {"default": 7.0}),
+                "sampler_name": ("STRING", {"default": "euler"}),
+                "scheduler": ("STRING", {"default": "karras"}),
+                "positive": ("CONDITIONING",),
+                "negative": ("CONDITIONING",),
+                "latent_image": ("LATENT",),
+                "start_at_step": ("INT", {"default": 0}),
+                "end_at_step": ("INT", {"default": 10000}),
+                "return_with_leftover_noise": ("STRING", {"default": "disable"}),
+            }
+        }
+
+    RETURN_TYPES = ("LATENT",)
+    FUNCTION = "sample"
+
+    def sample(self, model: pl.PipelineBundle, add_noise, noise_seed, steps: int, cfg: float,
+               sampler_name: str, scheduler: str, positive, negative, latent_image: dict,
+               start_at_step: int = 0, end_at_step: int = 10000,
+               return_with_leftover_noise="disable", context=None):
+        do_noise = _flag(add_noise, "add_noise")
+        force_full = not _flag(return_with_leftover_noise, "return_with_leftover_noise")
+        spec = resolve_seed(noise_seed)
+        # a pass that adds no noise is deterministic in its input: the JAX
+        # package runs it on one device even under a mesh
+        if spec.per_participant and do_noise:
+            raise NotImplementedError(_MESH_UNPORTED)
+        latents, noise_mask, extras = _prep_latents(model, latent_image)
+        out = pl.img2img_latents_advanced(
+            model, latents, positive, negative, steps=int(steps), sampler=sampler_name,
+            scheduler=scheduler, cfg_scale=float(cfg), seed=spec.effective_seed(),
+            start_at_step=int(start_at_step), end_at_step=int(end_at_step),
+            add_noise=do_noise, force_full_denoise=force_full, noise_mask=noise_mask,
         )
         return ({**extras, "samples": out},)
 
@@ -193,6 +299,62 @@ class VAEDecode:
     def decode(self, samples: dict, vae: pl.PipelineBundle, context=None):
         with torch.no_grad():
             return (vae.vae.decode(samples["samples"].to(vae.device)),)
+
+
+def grow_mask(hard: torch.Tensor, g: int) -> torch.Tensor:
+    """[B, H, W] 0/1 mask dilated by a g x g max window over [i -
+    ceil((g-1)/2), i + floor((g-1)/2)]: for even g one pixel further
+    toward -y/-x, as the reference's convolution padding has it, so the
+    padding is explicit (a symmetric pool is wrong). The window holds its
+    centre and the mask is >= 0, so zeros pad as -inf would."""
+    if g <= 0:
+        return hard
+    lo, hi = g // 2, (g - 1) // 2
+    return F.max_pool2d(F.pad(hard[:, None], (lo, hi, lo, hi)), g, stride=1)[:, 0]
+
+
+@register_node
+class VAEEncodeForInpaint:
+    """Encode pixels for inpainting: the masked pixels are set to
+    mid-gray before the encode, and the mask, grown by `grow_mask_by`
+    pixels, rides along at latent resolution as the latent's noise_mask
+    (1 = regenerate)."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "pixels": ("IMAGE",),
+                "vae": ("VAE",),
+                "mask": ("MASK",),
+            },
+            "optional": {"grow_mask_by": ("INT", {"default": 6})},
+        }
+
+    RETURN_TYPES = ("LATENT",)
+    FUNCTION = "encode"
+
+    def encode(self, pixels, vae: pl.PipelineBundle, mask, grow_mask_by=6, context=None):
+        pixels = pixels.to(vae.device).float()
+        b, h, w, _ = pixels.shape
+        m = torch.as_tensor(mask).to(vae.device).float()
+        if m.ndim == 2:
+            m = m[None]
+        if tuple(m.shape[1:]) != (h, w):
+            m = resize_image(m[..., None], h, w, "bilinear")[..., 0]
+        # the gray fill takes the un-grown hard mask; only the emitted
+        # noise_mask is grown
+        hard = (torch.clamp(m, 0.0, 1.0) > 0.5).float()
+        grown = grow_mask(hard, int(grow_mask_by))
+        neutral = pixels * (1.0 - hard[..., None]) + 0.5 * hard[..., None]
+        with torch.no_grad():
+            z = vae.vae.encode(neutral)
+        return ({
+            "samples": z,
+            "noise_mask": _mask_to_latent(grown, z.shape[1], z.shape[2]),
+            "width": int(w),
+            "height": int(h),
+        },)
 
 
 @register_node

@@ -24,9 +24,9 @@ store keeps its counts among the finished jobs and drops an envelope
 that arrives later as late.
 
 Not ported, each raising with its ROADMAP item: the mesh branch (a
-per-participant SeedSpec; Queue 1 item 2), audio payloads
-(`utils/audio_payload.py`, AudioBatchDivider; Queue 1 item 6) and the
-collector's load-balance mode (Queue 1 item 1).
+per-participant SeedSpec; Queue 1 item 6), audio payloads
+(`utils/audio_payload.py`, AudioBatchDivider; Queue 1 item 5) and the
+collector's load-balance mode (Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -51,9 +51,9 @@ from .nodes_core import _MESH_UNPORTED, SeedSpec
 from .registry import register_node
 
 _AUDIO_UNPORTED = ("AUDIO through the collector is not ported yet (utils/audio_payload.py; "
-                   "ROADMAP.md, Queue 1 item 6)")
+                   "ROADMAP.md, Queue 1 item 5)")
 _LOAD_BALANCE_UNPORTED = ("the collector's load-balance mode is not ported yet (ROADMAP.md, "
-                          "Queue 1 item 1: load-balance mode)")
+                          "Queue 1 item 3: load-balance mode)")
 
 
 @register_node

@@ -27,11 +27,11 @@ from .registry import register_node
 
 _DYNAMIC_TODO = (
     "dynamic (whole-image queue) USDU mode is not ported yet (ROADMAP.md, Queue 1, "
-    "item 1: the elastic tier's remainder)"
+    "item 3: the elastic tier's remainder)"
 )
 _UPSCALE_MODEL_TODO = (
     "model-based pre-upscale (UpscaleModelLoader) is not ported yet (ROADMAP.md, "
-    "Queue 1, item 5: models/upscaler.py)"
+    "Queue 1, item 2: models/upscaler.py)"
 )
 
 

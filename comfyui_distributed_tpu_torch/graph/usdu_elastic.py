@@ -67,8 +67,8 @@ from .tile_pipeline import GrantSampler, StageTotals, TilePipeline
 from .tile_pipeline import stage_span as _stage
 
 _UNPORTED = {
-    "mesh": "the multi-device tile tier is not ported yet (ROADMAP.md, Queue 1: multi-GPU tier)",
-    "tiled_decode": "tiled VAE decode is not ported yet (ROADMAP.md, Queue 1, item 5)",
+    "mesh": "the multi-device tile tier is not ported yet (ROADMAP.md, Queue 1 item 6: the multi-GPU tier)",
+    "tiled_decode": "tiled VAE decode is not ported yet (ROADMAP.md, Queue 1 item 2)",
 }
 
 # Heartbeat suppression after consecutive failures: a master outage must
@@ -103,7 +103,7 @@ class HTTPWorkClient:
     patient capped backoff for the pull, the default HTTP policy for
     submits (safe: the master drops duplicate results). One master URL;
     the failover list, shard routing and fencing epochs are ROADMAP
-    Queue 1, item 1's remainder."""
+    Queue 1, item 3."""
 
     def __init__(self, master_url: str, job_id: str, worker_id: str):
         urls = parse_master_urls(master_url)

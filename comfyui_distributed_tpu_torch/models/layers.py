@@ -112,7 +112,12 @@ class AttentionBlock(nn.Module):
         self.to_v = Dense(context_dim, inner, bias=False, dtype=dtype)
         self.to_out = Dense(inner, inner, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor | None = None,
+                identity_self: bool = False) -> torch.Tensor:
+        """`identity_self` makes self-attention the identity, out_i = v_i
+        (the PAG perturbation): no scores, no attention launch."""
+        if identity_self and context is None:
+            return self.to_out(self.to_v(x))
         ctx = x if context is None else context
         q = self.to_q(x)
         k = self.to_k(ctx)
@@ -163,8 +168,11 @@ class TransformerBlock(nn.Module):
         self.LayerNorm_2 = LayerNorm32(dim, dtype)
         self.ff = FeedForward(dim, dtype)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor | None) -> torch.Tensor:
-        x = x + self.attn1(self.LayerNorm_0(x))
+    def forward(self, x: torch.Tensor, context: torch.Tensor | None,
+                pag: bool = False) -> torch.Tensor:
+        """`pag` runs attn1 as identity attention (the PAG perturbed
+        pass), with the same parameters."""
+        x = x + self.attn1(self.LayerNorm_0(x), identity_self=pag)
         x = x + self.attn2(self.LayerNorm_1(x), context)
         return x + self.ff(self.LayerNorm_2(x))
 
@@ -185,11 +193,12 @@ class SpatialTransformer(nn.Module):
         self.depth = depth
         self.proj_out = Dense(channels, channels, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor | None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor | None,
+                pag: bool = False) -> torch.Tensor:
         b, c, h, w = x.shape
         tokens = self.proj_in(self.norm(x).permute(0, 2, 3, 1)).reshape(b, h * w, c)
         for i in range(self.depth):
-            tokens = getattr(self, f"block_{i}")(tokens, context)
+            tokens = getattr(self, f"block_{i}")(tokens, context, pag=pag)
         out = self.proj_out(tokens.reshape(b, h, w, c)).permute(0, 3, 1, 2)
         return out + x
 

@@ -1,18 +1,23 @@
 """The model bundle, text conditioning and the guided model function.
 
 Counterpart of the parts of comfyui_distributed_tpu/models/pipeline.py
-that the SDXL upscale and the SD1.5 txt2img paths run: `load_pipeline`
-(seeded random init; reading real checkpoints comes with a later
-slice), single-tower (SD1.5) and dual-tower (SDXL) text encoding, the
-eps model function with the adm vector (pooled text + six Fourier size
-embeddings) under plain CFG, and `img2img_latents` / `txt2img`. Modules
-hold their own parameters, so the functions take the bundle where the
-JAX ones take (bundle, params).
+that the ported paths run: `load_pipeline` (seeded random init; reading
+real checkpoints comes with a later slice), single-tower (SD1.5, SD2.1)
+and dual-tower (SDXL) text encoding with clip-skip, the model function
+(eps or v prediction, the adm vector of pooled text and six Fourier size
+embeddings), CFG with the PAG patch, and `img2img_latents` /
+`img2img_latents_advanced` (KSamplerAdvanced's window) / `txt2img`, each
+with the inpainting noise mask. Modules hold their own parameters, so
+the functions take the bundle where the JAX ones take (bundle, params).
+
+Node patches (CLIPSetLastLayer's clip-skip, PerturbedAttentionGuidance's
+PAGSpec) return a new bundle through `dataclasses.replace`: the modules
+are shared, the bundle a graph executor caches is never changed.
 
 Initial noise: `jax.random` and `torch.Generator` give different
-numbers for one seed, so `img2img_latents` takes a `noise` tensor; the
-tests hand it the JAX package's own draw. Its default is standard
-normals from a generator on the bundle's device seeded with `seed`.
+numbers for one seed, so the samplers take a `noise` tensor; the tests
+hand it the JAX package's own draw. Its default is standard normals
+from a generator on the bundle's device seeded with `seed`.
 """
 
 from __future__ import annotations
@@ -25,7 +30,13 @@ from ..ops import samplers as smp
 from ..ops.conditioning import Conditioning, as_conditioning
 from .io import random_init_
 from .layers import timestep_embedding
-from .registry import DUAL_TEXT_ENCODERS, create_model, get_config, model_family
+from .registry import (
+    DEFAULT_TEXT_ENCODERS,
+    DUAL_TEXT_ENCODERS,
+    create_model,
+    get_config,
+    model_family,
+)
 from .text_encoder import TextEncoder, Tokenizer
 from .unet import UNet
 from .vae import VAE
@@ -48,6 +59,20 @@ class PipelineBundle:
     tokenizer_2: Tokenizer | None = None
     te_name: str | None = None
     te2_name: str | None = None
+    # clip-skip (CLIPSetLastLayer): how many final blocks the towers'
+    # hidden output leaves out; None = each tower's configured default
+    clip_skip: int | None = None
+    # PerturbedAttentionGuidance patch (UNet family); None = no PAG pass
+    pag: "PAGSpec | None" = None
+
+
+@dataclasses.dataclass(frozen=True)
+class PAGSpec:
+    """Perturbed-attention guidance: the guided result gains
+    scale * (cond - cond with the middle block's self-attention as
+    identity)."""
+
+    scale: float = 3.0
 
 
 def _family_vae_name(model_name: str) -> str:
@@ -73,6 +98,8 @@ def load_pipeline(model_name: str = "tiny-unet", seed: int = 0, device="cuda") -
     device = torch.device(device)
     if model_name in DUAL_TEXT_ENCODERS:
         te_name, te2_name = DUAL_TEXT_ENCODERS[model_name]
+    elif model_name in DEFAULT_TEXT_ENCODERS:
+        te_name, te2_name = DEFAULT_TEXT_ENCODERS[model_name], None
     else:
         te_name, te2_name = ("tiny-te" if model_name.startswith("tiny") else "clip-l"), None
     vae_name = _family_vae_name(model_name)
@@ -113,20 +140,23 @@ def load_pipeline(model_name: str = "tiny-unet", seed: int = 0, device="cuda") -
 
 # --- conditioning --------------------------------------------------------
 
-def _encode_tower(encoder: TextEncoder, tokenizer: Tokenizer, texts: list[str], device):
+def _encode_tower(encoder: TextEncoder, tokenizer: Tokenizer, texts: list[str], device,
+                  skip_last: int | None):
     tokens = torch.as_tensor(tokenizer.encode_batch(texts), dtype=torch.long, device=device)
-    return encoder(tokens, eos_id=tokenizer.eos_id)
+    return encoder(tokens, eos_id=tokenizer.eos_id, skip_last=skip_last)
 
 
 @torch.no_grad()
 def _encode_raw(bundle: PipelineBundle, texts: list[str]):
     """Prompts → (hidden [B, T, context_dim], pooled [B, P]). Dual-tower
     bundles concatenate both hidden states on features and take the
-    pooled vector from the second (projected) tower."""
-    hidden, pooled = _encode_tower(bundle.text_encoder, bundle.tokenizer, texts, bundle.device)
+    pooled vector from the second (projected) tower. The bundle's
+    clip-skip applies to every tower."""
+    hidden, pooled = _encode_tower(bundle.text_encoder, bundle.tokenizer, texts, bundle.device,
+                                   bundle.clip_skip)
     if bundle.text_encoder_2 is not None:
         hidden2, pooled = _encode_tower(
-            bundle.text_encoder_2, bundle.tokenizer_2, texts, bundle.device
+            bundle.text_encoder_2, bundle.tokenizer_2, texts, bundle.device, bundle.clip_skip
         )
         hidden = torch.cat([hidden.float(), hidden2.float()], dim=-1)
     ctx_dim = get_config(bundle.model_name).context_dim
@@ -150,10 +180,10 @@ def encode_text_pooled(bundle: PipelineBundle, texts: list[str]) -> Conditioning
 
 def model_schedule_info(bundle: PipelineBundle) -> str:
     """The backbone's parameterization, which picks the sigma table and
-    the noising rule; the ported UNets are eps-prediction."""
+    the noising rule: "eps" or "v" (SD2.x-768 class), both on the VP
+    table."""
     param = get_config(bundle.model_name).parameterization
-    if param != "eps":
-        raise NotImplementedError(f"{param!r}-prediction models are not ported yet")
+    smp.require_vp(param)
     return param
 
 
@@ -187,27 +217,48 @@ def _adm_vector(bundle: PipelineBundle, cond: Conditioning, x: torch.Tensor) -> 
     return pooled
 
 
-def _make_model_fn(bundle: PipelineBundle):
+def _make_model_fn(bundle: PipelineBundle, pag: bool = False):
     """eps model function: VP input scaling, sigma → timestep, context
-    broadcast to the latent batch, and the adm vector."""
+    broadcast to the latent batch, and the adm vector. A v-prediction
+    backbone's output is converted to eps. `pag` runs the UNet's PAG
+    pass (identity self-attention in the middle block)."""
+    is_v = model_schedule_info(bundle) == "v"
 
     def model_fn(x: torch.Tensor, sigma_batch: torch.Tensor, cond) -> torch.Tensor:
         context = cond.context if isinstance(cond, Conditioning) else cond
         if context.shape[0] != x.shape[0] and x.shape[0] % context.shape[0] == 0:
             context = context.repeat_interleave(x.shape[0] // context.shape[0], dim=0)
         y = _adm_vector(bundle, cond, x) if isinstance(cond, Conditioning) else None
-        c_in = (1.0 / torch.sqrt(sigma_batch**2 + 1.0)).reshape((-1,) + (1,) * (x.ndim - 1))
-        out = bundle.unet(x * c_in, smp.sigma_to_timestep(sigma_batch), context, y=y)
+        sig = sigma_batch.reshape((-1,) + (1,) * (x.ndim - 1))
+        c_in = 1.0 / torch.sqrt(sig**2 + 1.0)
+        out = bundle.unet(x * c_in, smp.sigma_to_timestep(sigma_batch), context, y=y, pag=pag)
+        if is_v:
+            # with the VP scalings, denoised = x/(s^2+1) - v*s/sqrt(s^2+1);
+            # exactly, for the sampler's denoised = x - s*eps:
+            # eps = x*s/(s^2+1) + v/sqrt(s^2+1)
+            out = x * (sig / (sig**2 + 1.0)) + out / torch.sqrt(sig**2 + 1.0)
         return out.to(x.dtype)
 
     return model_fn
 
 
+def reject_existing_guidance_patches(bundle: PipelineBundle, node_name: str) -> None:
+    """A second guidance patch node on one model fails when the graph is
+    built, naming the first (the JAX package's six patches cannot
+    combine; the port has PAG)."""
+    if bundle.pag is not None:
+        raise ValueError(f"{node_name} cannot combine with PerturbedAttentionGuidance on the "
+                         "same model")
+
+
 def guided_model(bundle: PipelineBundle, cfg_scale: float):
-    """Plain CFG over the bundle's model. The guidance patches of the
-    JAX package (PAG, SAG, PerpNeg, DualCFG, RescaleCFG, SLG) are not
-    ported yet; bundles here carry none."""
-    return smp.cfg_model(_make_model_fn(bundle), cfg_scale)
+    """CFG over the bundle's model, plus PAG when the bundle carries a
+    PAGSpec (the PerturbedAttentionGuidance node)."""
+    base_fn = _make_model_fn(bundle)
+    if bundle.pag is not None:
+        return smp.pag_cfg_model(base_fn, _make_model_fn(bundle, pag=True), cfg_scale,
+                                 float(bundle.pag.scale))
+    return smp.cfg_model(base_fn, cfg_scale)
 
 
 # --- sampling --------------------------------------------------------------
@@ -218,6 +269,33 @@ def default_noise(seed: int, shape: tuple, device) -> torch.Tensor:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+
+
+def _latents_and_noise(bundle: PipelineBundle, latents, noise, seed: int):
+    latents = torch.as_tensor(latents).to(device=bundle.device, dtype=torch.float32)
+    if noise is None:
+        noise = default_noise(seed, tuple(latents.shape), bundle.device)
+    noise = torch.as_tensor(noise).to(device=bundle.device, dtype=torch.float32)
+    if noise.shape != latents.shape:
+        raise ValueError(f"noise {tuple(noise.shape)} does not match latents {tuple(latents.shape)}")
+    return latents, noise
+
+
+def _masked_sample(bundle: PipelineBundle, cfg_scale: float, param: str, latents: torch.Tensor,
+                   noise: torch.Tensor, x: torch.Tensor, sigmas: torch.Tensor, cond,
+                   sampler: str, noise_mask) -> torch.Tensor:
+    """Guidance, the inpainting pin where a noise mask is given, the
+    trajectory, and the mask composite: the sampling core of
+    `img2img_latents` and `img2img_latents_advanced`."""
+    model = guided_model(bundle, float(cfg_scale))
+    if noise_mask is not None:
+        mask = torch.clamp(torch.as_tensor(noise_mask).to(bundle.device, torch.float32), 0.0, 1.0)
+        model = smp.masked_inpaint_model(model, param, latents, noise, mask)
+    cond = tuple(as_conditioning(c) for c in cond)
+    out = smp.sample(model, x, sigmas, cond, sampler)
+    if noise_mask is not None:
+        out = out * mask + latents * (1.0 - mask)
+    return out
 
 
 @torch.no_grad()
@@ -233,25 +311,81 @@ def img2img_latents(
     denoise: float = 0.5,
     seed: int = 0,
     noise: torch.Tensor | None = None,
+    noise_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Latent-space img2img (the JAX package's `img2img_latents`): noise
     the latents to sigma[denoise], sample back down under CFG. From
     zero latents at denoise 1 this is txt2img's sampling. The contexts are
     Conditionings or bare [B, T, D] tensors. Returns f32 latents on the
     bundle's device. `noise` (the latents' shape) replaces
-    `default_noise(seed, ...)`."""
+    `default_noise(seed, ...)`. `noise_mask` ([B, h, w, 1], 1 =
+    regenerate) keeps the rest of the latents (inpainting)."""
     param = model_schedule_info(bundle)
     sigmas = smp.get_model_sigmas(param, scheduler, int(steps), denoise=float(denoise))
     sigmas = sigmas.to(bundle.device)
-    latents = torch.as_tensor(latents).to(device=bundle.device, dtype=torch.float32)
-    if noise is None:
-        noise = default_noise(seed, tuple(latents.shape), bundle.device)
-    noise = torch.as_tensor(noise).to(device=bundle.device, dtype=torch.float32)
-    if noise.shape != latents.shape:
-        raise ValueError(f"noise {tuple(noise.shape)} does not match latents {tuple(latents.shape)}")
+    latents, noise = _latents_and_noise(bundle, latents, noise, seed)
     x = smp.noise_latents(param, latents, noise, sigmas[0])
-    cond = (as_conditioning(context_pos), as_conditioning(context_neg))
-    return smp.sample(guided_model(bundle, float(cfg_scale)), x, sigmas, cond, sampler)
+    return _masked_sample(bundle, cfg_scale, param, latents, noise, x, sigmas,
+                          (context_pos, context_neg), sampler, noise_mask)
+
+
+def advanced_window_sigmas(parameterization: str, scheduler: str, steps: int,
+                           start_at_step: int, end_at_step: int,
+                           force_full_denoise: bool) -> torch.Tensor:
+    """KSamplerAdvanced's schedule: the full [steps+1] grid windowed to
+    [start, end] (both clamped to the grid), with the last sigma forced
+    to 0 when the caller wants a full denoise despite stopping early."""
+    full = smp.get_model_sigmas(parameterization, scheduler, int(steps))
+    start = min(max(int(start_at_step), 0), int(steps))
+    end = min(max(int(end_at_step), start), int(steps))
+    window = full[start:end + 1].clone()
+    if force_full_denoise and window.shape[0] > 1:
+        window[-1] = 0.0
+    return window
+
+
+@torch.no_grad()
+def img2img_latents_advanced(
+    bundle: PipelineBundle,
+    latents: torch.Tensor,
+    context_pos,
+    context_neg,
+    steps: int = 20,
+    sampler: str = "euler",
+    scheduler: str = "karras",
+    cfg_scale: float = 7.0,
+    seed: int = 0,
+    start_at_step: int = 0,
+    end_at_step: int = 10000,
+    add_noise: bool = True,
+    force_full_denoise: bool = True,
+    noise_mask: torch.Tensor | None = None,
+    noise: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """KSamplerAdvanced's core: sample the [start_at_step, end_at_step]
+    window of the full schedule. Without `add_noise` (the refine pass of
+    a two-pass workflow) the trajectory starts from the latents as given
+    and a masked pin uses zero noise; without `force_full_denoise` the
+    output keeps the window's leftover noise."""
+    param = model_schedule_info(bundle)
+    window = advanced_window_sigmas(param, scheduler, steps, start_at_step, end_at_step,
+                                    force_full_denoise).to(bundle.device)
+    if add_noise:
+        latents, noise = _latents_and_noise(bundle, latents, noise, seed)
+        x = smp.noise_latents(param, latents, noise, window[0])
+    else:
+        latents = torch.as_tensor(latents).to(device=bundle.device, dtype=torch.float32)
+        noise = torch.zeros_like(latents)
+        x = latents
+    if window.shape[0] < 2:
+        # nothing to sample, but the mask still keeps its region
+        if noise_mask is not None:
+            mask = torch.clamp(torch.as_tensor(noise_mask).to(bundle.device, torch.float32),
+                               0.0, 1.0)
+            return x * mask + latents * (1.0 - mask)
+        return x
+    return _masked_sample(bundle, cfg_scale, param, latents, noise, x, window,
+                          (context_pos, context_neg), sampler, noise_mask)
 
 
 @torch.no_grad()

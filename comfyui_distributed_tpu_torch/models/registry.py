@@ -3,9 +3,10 @@
 The port's own copy of the entries of comfyui_distributed_tpu/models/
 registry.py that the ported paths need: `sdxl` with its VAE and two
 text encoders (the upscale workflow), `sd15` with the SD VAE and CLIP-L
-(the txt2img workflow), and the tiny instances of the same code that
-the CPU tests hold against the JAX package. Other families come with
-their slices.
+(the txt2img, two-pass, PAG and inpaint workflows), `sd21` and
+`sd21-base` with OpenCLIP-H (the SD2.1 workflow), and the tiny
+instances of the same code that the CPU tests hold against the JAX
+package. Other families come with their slices.
 """
 
 from __future__ import annotations
@@ -42,6 +43,30 @@ MODEL_REGISTRY: dict[str, dict[str, Any]] = {
             adm_in_channels=2816,
         ),
     },
+    # SD2.1-768-v: SD1.x topology with OpenCLIP-H conditioning (context
+    # 1024), 64-wide heads, velocity prediction
+    "sd21": {
+        "family": "unet",
+        "config": UNetConfig(
+            model_channels=320,
+            channel_mult=(1, 2, 4, 4),
+            transformer_depth=(1, 1, 1, 0),
+            context_dim=1024,
+            head_dim=64,
+            parameterization="v",
+        ),
+    },
+    # SD2.1-base (512 px): the same network, eps prediction
+    "sd21-base": {
+        "family": "unet",
+        "config": UNetConfig(
+            model_channels=320,
+            channel_mult=(1, 2, 4, 4),
+            transformer_depth=(1, 1, 1, 0),
+            context_dim=1024,
+            head_dim=64,
+        ),
+    },
     "tiny-unet": {
         "family": "unet",
         "config": UNetConfig(
@@ -67,6 +92,19 @@ MODEL_REGISTRY: dict[str, dict[str, Any]] = {
             adm_in_channels=96 + 6 * 256,
         ),
     },
+    # tiny v-prediction variant: the v → eps conversion on every path
+    "tiny-unet-v": {
+        "family": "unet",
+        "config": UNetConfig(
+            model_channels=32,
+            channel_mult=(1, 2),
+            num_res_blocks=1,
+            transformer_depth=(1, 1),
+            context_dim=64,
+            num_heads=2,
+            parameterization="v",
+        ),
+    },
     "vae-sd": {"family": "vae", "config": VAEConfig()},
     "tiny-vae": {
         "family": "vae",
@@ -84,6 +122,16 @@ MODEL_REGISTRY: dict[str, dict[str, Any]] = {
             width=1280, layers=32, heads=20, activation="gelu",
             penultimate_hidden=True, proj_dim=1280,
             pad_token_id=0,  # open_clip.tokenize pads with 0, not EOS
+        ),
+    },
+    # OpenCLIP ViT-H/14 text tower (SD2.x): its penultimate context goes
+    # through the final LayerNorm
+    "clip-h": {
+        "family": "text_encoder",
+        "config": TextEncoderConfig(
+            width=1024, layers=24, heads=16, activation="gelu",
+            penultimate_hidden=True, proj_dim=1024,
+            final_ln_on_hidden=True, pad_token_id=0,
         ),
     },
     "tiny-te": {
@@ -110,6 +158,13 @@ MODEL_REGISTRY: dict[str, dict[str, Any]] = {
 DUAL_TEXT_ENCODERS: dict[str, tuple[str, str]] = {
     "sdxl": ("clip-l-sdxl", "clip-g"),
     "tiny-unet-adm": ("tiny-te-l", "tiny-te-g"),
+}
+
+# Single-encoder models whose encoder is not CLIP-L (tiny models take
+# tiny-te)
+DEFAULT_TEXT_ENCODERS: dict[str, str] = {
+    "sd21": "clip-h",
+    "sd21-base": "clip-h",
 }
 
 _CONSTRUCTORS = {"unet": UNet, "vae": VAE, "text_encoder": TextEncoder}

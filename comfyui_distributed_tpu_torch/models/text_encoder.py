@@ -6,10 +6,11 @@ output at the first EOS token (projected for OpenCLIP towers). The
 causal attention stays plain PyTorch, as the JAX package computes it
 outside its Pallas kernel: at T=77 it is a small explicit product.
 
-Only the configured default of clip-skip is ported (the penultimate
-block for SDXL's encoders); the CLIPSetLastLayer override and SD2's
-layer-normed penultimate context come with the node catalogue and the
-SD2 family.
+Clip-skip: each tower has a configured default (the penultimate block
+for SDXL's and SD2's encoders, the full stack for CLIP-L), and `forward`
+takes the CLIPSetLastLayer override, `skip_last`, with the JAX package's
+semantics. SD2's OpenCLIP-H applies the final LayerNorm to its
+penultimate context (`final_ln_on_hidden`); SDXL's encoders do not.
 """
 
 from __future__ import annotations
@@ -38,6 +39,10 @@ class TextEncoderConfig:
     # SDXL's encoders expose the PENULTIMATE block's hidden states as the
     # context; pooled always comes from the full stack
     penultimate_hidden: bool = False
+    # SD2 (OpenCLIP-H) applies the final LayerNorm to the penultimate
+    # hidden state it hands out as context; SDXL's encoders do not.
+    # Ignored unless penultimate_hidden
+    final_ln_on_hidden: bool = False
     # token id padding after EOS; None = pad with EOS (CLIP-L), OpenCLIP
     # towers pad with 0
     pad_token_id: Optional[int] = None
@@ -121,23 +126,42 @@ class TextEncoder(nn.Module):
         if cfg.proj_dim is not None:
             self.text_projection = nn.Parameter(torch.empty(cfg.width, cfg.proj_dim))
 
-    def forward(self, tokens: torch.Tensor, eos_id: int) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, tokens: torch.Tensor, eos_id: int,
+                skip_last: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
         """[B, T] token ids → (hidden [B, T, width], pooled [B, width or
         proj_dim]), both f32. `eos_id` marks the pooled position (its
-        first occurrence)."""
+        first occurrence).
+
+        `skip_last` (clip-skip) is how many final blocks the hidden
+        output leaves out: None = the configured default (1 for a
+        penultimate tower, else 0), 0 = the full stack. The pooled
+        vector always comes from the full stack. A tower that natively
+        uses the full stack applies the final LayerNorm to the
+        intermediate state; a penultimate tower keeps its
+        `final_ln_on_hidden`. A skip deeper than the tower falls back to
+        the last layer after the final LayerNorm."""
         cfg = self.config
         b, t = tokens.shape
+        default_skip = 1 if cfg.penultimate_hidden else 0
+        skip = default_skip if skip_last is None else max(int(skip_last), 0)
+        force_post_ln = skip >= cfg.layers
+        if force_post_ln:
+            skip = 0
         x = (self.token_embedding(tokens) + self.position_embedding[None, :t]).to(cfg.compute_dtype)
         causal = torch.tril(torch.ones((t, t), dtype=torch.bool, device=tokens.device))
         intermediate = None
         for i in range(cfg.layers):
-            if i == cfg.layers - 1:
+            if skip and i == cfg.layers - skip:
                 intermediate = x
             x = getattr(self, f"block_{i}")(x, causal)
-        x = self.final_ln(x.float())
+        pre_ln = x.float()
+        x = self.final_ln(pre_ln)
         eos_pos = torch.argmax((tokens == eos_id).to(torch.int32), dim=1)
         pooled = x[torch.arange(b, device=tokens.device), eos_pos]
         if cfg.proj_dim is not None:
             pooled = pooled @ self.text_projection
-        # SDXL's towers hand out the penultimate state without the final LN
-        return (intermediate.float() if cfg.penultimate_hidden else x), pooled
+        apply_ln = cfg.final_ln_on_hidden if cfg.penultimate_hidden else True
+        if skip:
+            hidden = intermediate.float()
+            return (self.final_ln(hidden) if apply_ln else hidden), pooled
+        return (x if apply_ln or force_post_ln else pre_ln), pooled

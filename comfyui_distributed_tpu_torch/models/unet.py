@@ -6,9 +6,11 @@ with spatial transformers cross-attending to the text context, skip
 connections across the U. Latents enter and leave as [B, H, W, C] (the
 JAX layout); inside, activations are NCHW for cuDNN's convolutions.
 
-FreeU, ControlNet residuals, PAG and SAG are not ported yet; a config
-that asks for FreeU, or a call that passes `control`, `pag` or
-`sag_capture`, raises.
+`pag=True` is the PAG perturbed pass: the middle block's self-attention
+becomes the identity (out = V through the output projection), and those
+calls launch no attention kernel. FreeU, ControlNet residuals and SAG
+are not ported yet; a config that asks for FreeU, or a call that passes
+`control` or `sag_capture`, raises.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ class UNet(nn.Module):
         if config.freeu is not None:
             raise NotImplementedError(
                 "FreeU is not ported to the PyTorch UNet yet (ROADMAP.md, "
-                "Queue 1: the rest of the sampler, guidance and node catalogue)"
+                "Queue 1 item 2: the rest of the sampler, guidance and node catalogue)"
             )
         self.config = cfg = config
         dt = cfg.compute_dtype
@@ -136,14 +138,14 @@ class UNet(nn.Module):
         context: torch.Tensor,    # [B, T, context_dim]
         y: torch.Tensor | None = None,  # [B, adm_in_channels]
         control: torch.Tensor | None = None,
-        pag: bool = False,
+        pag: bool = False,  # identity self-attention in the middle block
         sag_capture: bool = False,
     ) -> torch.Tensor:
         """→ [B, H, W, C_out] in f32."""
-        if control is not None or pag or sag_capture:
+        if control is not None or sag_capture:
             raise NotImplementedError(
-                "ControlNet residuals, PAG and SAG are not ported to the PyTorch UNet "
-                "yet (ROADMAP.md, Queue 1: the rest of the sampler, guidance and node "
+                "ControlNet residuals and SAG are not ported to the PyTorch UNet yet "
+                "(ROADMAP.md, Queue 1 item 2: the rest of the sampler, guidance and node "
                 "catalogue)"
             )
         cfg = self.config
@@ -171,7 +173,7 @@ class UNet(nn.Module):
                 skips.append(h)
 
         h = self.mid_res_0(h, emb)
-        h = self.mid_attn(h, context)
+        h = self.mid_attn(h, context, pag=pag)
         h = self.mid_res_1(h, emb)
 
         for level in reversed(range(len(cfg.channel_mult))):

@@ -8,8 +8,12 @@ PyTorch runs eagerly.
 Model contract: `model_fn(x, sigma_batch, cond) -> eps` (VP noise
 prediction); `denoised(x, sigma) = x - sigma * eps`.
 
-Only `euler` and the `karras` schedule family the workflow uses are
-ported; the other samplers are named and raise.
+Only `euler` and the `karras` schedule family the workflows use are
+ported; the other samplers are named and raise. The VP families are
+ported: eps- and v-prediction share the sigma table and the noising
+rule (the model function converts v to eps). Guidance: plain CFG and
+perturbed-attention guidance (PAG); inpainting pins the unmasked region
+(`masked_inpaint_model`).
 """
 
 from __future__ import annotations
@@ -51,8 +55,8 @@ def _spaced_from_table(all_sigmas: np.ndarray, scheduler: str, total_steps: int)
     if scheduler != "karras":
         raise NotImplementedError(
             f"scheduler {scheduler!r} is not ported to the PyTorch package yet "
-            "(ROADMAP.md, Queue 1: the rest of the sampler, guidance and node "
-            "catalogue); use 'karras'"
+            "(ROADMAP.md, Queue 1 item 2: the rest of the sampler, guidance and "
+            "node catalogue); use 'karras'"
         )
     return karras_sigmas(float(all_sigmas[0]), float(all_sigmas[-1]), total_steps)
 
@@ -68,23 +72,47 @@ def get_sigmas(scheduler: str, steps: int, denoise: float = 1.0) -> torch.Tensor
     return torch.from_numpy(np.concatenate([sigmas, np.zeros((1,))]).astype(np.float32))
 
 
+# the parameterizations of the VP families: one sigma table, one noising
+# rule; the model function turns a v prediction into eps
+VP_PARAMETERIZATIONS = ("eps", "v")
+
+
+def require_vp(parameterization: str) -> None:
+    if parameterization not in VP_PARAMETERIZATIONS:
+        raise NotImplementedError(
+            f"{parameterization!r} models are not ported yet (ROADMAP.md, Queue 1 item 5: "
+            "other model families); the PyTorch package runs eps- and v-prediction UNets"
+        )
+
+
 def get_model_sigmas(parameterization: str, scheduler: str, steps: int,
                      denoise: float = 1.0) -> torch.Tensor:
-    """Family-aware schedule; the VP (eps) family only in this slice."""
-    if parameterization != "eps":
-        raise NotImplementedError(
-            f"{parameterization!r} models are not ported yet; the PyTorch "
-            "package runs eps-prediction UNets"
-        )
+    """Family-aware schedule: the VP table for eps and v models."""
+    require_vp(parameterization)
     return get_sigmas(scheduler, steps, denoise=denoise)
 
 
 def noise_latents(parameterization: str, latents: torch.Tensor, noise: torch.Tensor,
                   sigma0: torch.Tensor) -> torch.Tensor:
     """img2img/tile noising to the schedule start (VP: z + sigma * n)."""
-    if parameterization != "eps":
-        raise NotImplementedError(f"{parameterization!r} noising is not ported yet")
+    require_vp(parameterization)
     return latents + noise * sigma0
+
+
+def masked_inpaint_model(model_fn: ModelFn, parameterization: str, latents: torch.Tensor,
+                         noise: torch.Tensor, mask: torch.Tensor) -> ModelFn:
+    """Inpainting: before every evaluation the unmasked region (mask 0)
+    is pinned to the original `latents` re-noised to the current sigma
+    with the trajectory's own `noise`, so only the masked region (mask 1
+    = regenerate, ComfyUI's noise_mask polarity) evolves. Callers
+    composite `out * mask + latents * (1 - mask)` after sampling."""
+
+    def wrapped(x, sigma_batch, cond):
+        sig = sigma_batch.reshape((-1,) + (1,) * (x.ndim - 1))
+        ref = noise_latents(parameterization, latents, noise, sig)
+        return model_fn(x * mask + ref * (1.0 - mask), sigma_batch, cond)
+
+    return wrapped
 
 
 def sigma_to_timestep(sigma: torch.Tensor) -> torch.Tensor:
@@ -106,27 +134,54 @@ def _conds_batchable(pos: Conditioning, neg: Conditioning) -> bool:
     return pos.pooled is None or pos.pooled.shape == neg.pooled.shape
 
 
+def _cfg_eval(model_fn: ModelFn, cfg_scale: float, x, sigma, cond):
+    """One CFG evaluation → (eps_pos, guided eps). The two passes run as
+    one 2B-batched model call where they can."""
+    pos, neg = cond
+    if cfg_scale == 1.0:
+        eps_pos = model_fn(x, sigma, pos)
+        return eps_pos, eps_pos
+    if _conds_batchable(pos, neg):
+        both = Conditioning(
+            context=torch.cat([pos.context, neg.context], dim=0),
+            pooled=(None if pos.pooled is None
+                    else torch.cat([pos.pooled, neg.pooled], dim=0)),
+        )
+        eps_pos, eps_neg = model_fn(
+            torch.cat([x, x], dim=0), torch.cat([sigma, sigma], dim=0), both
+        ).chunk(2, dim=0)
+    else:
+        eps_pos = model_fn(x, sigma, pos)
+        eps_neg = model_fn(x, sigma, neg)
+    return eps_pos, eps_neg + cfg_scale * (eps_pos - eps_neg)
+
+
 def cfg_model(model_fn: ModelFn, cfg_scale: float) -> ModelFn:
-    """Classifier-free guidance; cond is the (positive, negative) pair.
-    The two passes run as one 2B-batched model call where they can."""
+    """Classifier-free guidance; cond is the (positive, negative) pair."""
 
     def guided(x, sigma, cond):
-        pos, neg = cond
-        if cfg_scale == 1.0:
-            return model_fn(x, sigma, pos)
-        if _conds_batchable(pos, neg):
-            both = Conditioning(
-                context=torch.cat([pos.context, neg.context], dim=0),
-                pooled=(None if pos.pooled is None
-                        else torch.cat([pos.pooled, neg.pooled], dim=0)),
-            )
-            eps_pos, eps_neg = model_fn(
-                torch.cat([x, x], dim=0), torch.cat([sigma, sigma], dim=0), both
-            ).chunk(2, dim=0)
-        else:
-            eps_pos = model_fn(x, sigma, pos)
-            eps_neg = model_fn(x, sigma, neg)
-        return eps_neg + cfg_scale * (eps_pos - eps_neg)
+        return _cfg_eval(model_fn, cfg_scale, x, sigma, cond)[1]
+
+    return guided
+
+
+def _perturbed_delta(pert_model_fn: ModelFn, x, sigma, pos, eps_pos, scale: float):
+    """scale * (eps_pos - eps_perturbed): one perturbed evaluation
+    against the positive conditioning."""
+    return scale * (eps_pos - pert_model_fn(x, sigma, pos))
+
+
+def pag_cfg_model(model_fn: ModelFn, pag_model_fn: ModelFn, cfg_scale: float,
+                  pag_scale: float) -> ModelFn:
+    """CFG plus perturbed-attention guidance (PAG, Ahn et al. 2024): the
+    result gains pag_scale * (cond - cond with the middle block's
+    self-attention as identity), `pag_model_fn` being that perturbed
+    model. One extra positive-cond evaluation a step, at batch B."""
+
+    def guided(x, sigma, cond):
+        pos, _neg = cond
+        eps_pos, base = _cfg_eval(model_fn, cfg_scale, x, sigma, cond)
+        return base + _perturbed_delta(pag_model_fn, x, sigma, pos, eps_pos, pag_scale)
 
     return guided
 
@@ -156,7 +211,7 @@ def sample(model_fn: ModelFn, x_init: torch.Tensor, sigmas: torch.Tensor, cond: 
     if sampler in SAMPLER_NAMES:
         raise NotImplementedError(
             f"sampler {sampler!r} is not ported to the PyTorch package yet "
-            "(ROADMAP.md, Queue 1: the rest of the sampler, guidance and node "
-            "catalogue); use 'euler'"
+            "(ROADMAP.md, Queue 1 item 2: the rest of the sampler, guidance and "
+            "node catalogue); use 'euler'"
         )
     raise ValueError(f"unknown sampler {sampler!r}; use {SAMPLER_NAMES}")

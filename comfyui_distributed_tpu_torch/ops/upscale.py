@@ -248,8 +248,8 @@ def run_upscale(
     by tile. `image` is [B, H, W, 3] in [0, 1] (tensor or numpy)."""
     if mesh is not None:
         raise NotImplementedError(
-            "the multi-device tile tier is not ported yet (ROADMAP.md, Queue 1: "
-            "multi-GPU tier)"
+            "the multi-device tile tier is not ported yet (ROADMAP.md, Queue 1 item 6: "
+            "the multi-GPU tier)"
         )
     if tiled_decode:
         raise NotImplementedError("tiled VAE decode is not ported yet")

@@ -1,2 +1,2 @@
 """Participant bookkeeping of the distributed tiers (the multi-GPU mesh
-is not ported yet: ROADMAP.md, Queue 1 item 2)."""
+is not ported yet: ROADMAP.md, Queue 1 item 6)."""

@@ -3,7 +3,7 @@
 The port's own copy of `reorder_participant_first` from
 comfyui_distributed_tpu/parallel/collective.py, pure Python. The rest of
 that module (`host_collect`, the mesh all-gather) belongs to the
-multi-GPU tier, ROADMAP.md Queue 1 item 2.
+multi-GPU tier, ROADMAP.md Queue 1 item 6.
 """
 
 from __future__ import annotations

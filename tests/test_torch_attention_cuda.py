@@ -308,3 +308,55 @@ def test_wgmma_head_dim_reads_rows_on_16_not_128_byte_boundaries(cuda, d):
     q, k, v = (t[..., 8:] for t in wide.unbind(0))
     assert q.data_ptr() % 128 == 16 and q.stride(2) == d + 8
     _headdim_matches_plain(cuda, q, k, v)
+
+
+# the later seed-parallel workflows' shapes: SD2.1-768-v's UNet at D=64
+# (5, 10 and 20 heads; 77 text tokens) and its VAE at 9216 tokens; PAG's
+# perturbed pass at batch 1 on SD1.5 (no mid-block self-attention)
+SD_WORKFLOW_SHAPES = [
+    (2, 9216, 9216, 5, 64), (2, 9216, 77, 5, 64), (2, 2304, 2304, 10, 64),
+    (2, 2304, 77, 10, 64), (2, 576, 576, 20, 64), (2, 576, 77, 20, 64),
+    (2, 144, 144, 20, 64), (2, 144, 77, 20, 64), (1, 9216, 9216, 1, 512),
+    (1, 4096, 4096, 8, 40), (1, 4096, 77, 8, 40), (1, 1024, 1024, 8, 80),
+    (1, 1024, 77, 8, 80), (1, 256, 256, 8, 160), (1, 256, 77, 8, 160), (1, 64, 77, 8, 160),
+]
+
+
+@pytest.mark.parametrize("b, n, m, h, d", SD_WORKFLOW_SHAPES)
+def test_kernel_matches_plain_at_the_sd_workflow_shapes(cuda, b, n, m, h, d):
+    # the router's plan, whatever it is, at the shapes as the workflows
+    # run them (bf16)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n * 37 + m + h)
+    q, k, v = (
+        torch.randn(s, generator=gen, device=cuda).bfloat16()
+        for s in ((b, n, h, d), (b, m, h, d), (b, m, h, d))
+    )
+    instance = "wgmma512" if d == 512 else "wgmma"
+    assert attn.plan(q, k, v).instance == instance
+    before = attn.flash_attention.launches_by_instance[instance]
+    out = attn.dot_product_attention(q, k, v)
+    assert attn.flash_attention.launches_by_instance[instance] == before + 1
+    torch.testing.assert_close(
+        out.float(), attn.flash_attention_reference(q, k, v).float(), rtol=2.0**-7, atol=1e-3
+    )
+
+
+@pytest.mark.parametrize("d", TXT2IMG_HEAD_DIMS)
+@pytest.mark.parametrize("m", (1, 77, 127, 128, 129, 257))
+@pytest.mark.parametrize("n", (1, 63, 64, 65, 127, 128, 129, 200))
+def test_batch_one_takes_the_plan_of_batch_two_and_matches(cuda, n, m, d):
+    # PAG's perturbed pass runs SD1.5's shapes at batch 1: the router's
+    # plan there, held at the edges of the blocks and key tiles with
+    # eight heads, is the one it takes at batch 2
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n * 1019 + m * 3 + d)
+    q, k, v = (
+        torch.randn(s, generator=gen, device=cuda).bfloat16()
+        for s in ((1, n, 8, d), (1, m, 8, d), (1, m, 8, d))
+    )
+    two = torch.empty((2, n, 8, d), device="meta", dtype=torch.bfloat16)
+    two_kv = torch.empty((2, m, 8, d), device="meta", dtype=torch.bfloat16)
+    p = attn.plan(q, k, v)
+    assert p == attn.plan(two, two_kv, two_kv)
+    _headdim_matches_plain(cuda, q, k, v, p)

@@ -3,6 +3,7 @@
 `plan` decides which compiled kernel takes a call, from the inputs'
 dtype, shapes, strides and alignment alone, so it is checked here
 without a card: every attention shape of the SDXL upscale path, the
+SD2.1 workflow's and PAG's batch-1 pass, the
 edges of the wgmma instance's key tiles, f32, an unaligned view, the
 VAE's D=512 at its row-block and key-tile edges and the key-split rule
 (on an H100's 132 SMs unless a case says otherwise). The kernels
@@ -61,6 +62,14 @@ CASES = {
             (200, 1, 1), (200, 31, 1), (200, 32, 1), (200, 33, 1),
         )
     },
+    # SD2.1-768-v: 144-key tiles fill 9216, 2304, 576 and 144 keys
+    # exactly; its VAE's 144 row blocks over 288 key tiles split six ways
+    **{
+        f"sd21 self@{n}": ((2, n, n, h, 64, torch.bfloat16, False), ("wgmma", 144, 64, 1))
+        for n, h in ((9216, 5), (2304, 10), (576, 20), (144, 20))
+    },
+    "sd21 cross@9216": ((2, 9216, 77, 5, 64, torch.bfloat16, False), ("wgmma", 80, 64, 1)),
+    "sd21 vae@9216": ((1, 9216, 9216, 1, 512, torch.bfloat16, False), ("wgmma512", 32, 64, 6)),
     # what the tensor-core kernels do not take
     "f32 D=64": ((2, 324, 324, 20, 64, torch.float32, False), ("fma", 64, 64, 1)),
     "f32 D=512": ((1, 200, 190, 1, 512, torch.float32, False), ("fma", 32, 32, 1)),
@@ -83,6 +92,18 @@ def test_plan_routes_and_tiles(case):
     assert 1 <= p.splits <= p.key_tiles(m)
     if instance == "wgmma":
         assert keys in attn.WGMMA_KEY_TILES[d] and keys % 16 == 0
+
+
+@pytest.mark.parametrize("n, m, d", [(4096, 4096, 40), (4096, 77, 40), (1024, 1024, 80),
+                                     (1024, 77, 80), (256, 256, 160), (256, 77, 160),
+                                     (64, 77, 160)])
+def test_pags_batch_one_pass_takes_the_plans_of_batch_two(n, m, d):
+    """PAG's perturbed pass runs SD1.5's shapes at batch 1 (no mid-block
+    self-attention): the wgmma instance's plan depends on D and M alone,
+    so each is a compiled plan, the one of the CFG pass at batch 2."""
+    one = attn.plan(*_views(1, n, m, 8, d))
+    assert one == attn.plan(*_views(2, n, m, 8, d)) and one in attn.wgmma_plans(d)
+    assert (one.rows_per_cta == 128) == (d == 40 and m > 80)  # two consumers
 
 
 @pytest.mark.parametrize(

@@ -253,3 +253,161 @@ def test_txt2img_phase_fails_when_the_images_do_not_differ(monkeypatch, one_torc
     chip_smoke._seed_out_conv(torch, bundle, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="w1's image is not the local seed's"):
         chip_smoke._txt2img_phase(torch, bundle, _tiny_txt2img_workflow(), "cpu")
+
+
+SD_WORKFLOW_FILES = ["distributed-txt2img.json", *chip_smoke.SD_WORKFLOWS.values()]
+
+
+def _workflow(name):
+    with open(os.path.join(REPO, "workflows", name), encoding="utf-8") as fh:
+        return json.load(fh)
+
+
+@pytest.mark.parametrize("name", SD_WORKFLOW_FILES)
+def test_the_phase_finds_each_sd_workflows_nodes_by_class(name):
+    """The workflows number their nodes differently (the seed is node 5
+    or 6; inpaint has no EmptyLatentImage): the phase looks them up by
+    class."""
+    workflow = _workflow(name)
+    found = {cls: chip_smoke._node_id(workflow, cls) for cls in (
+        "CheckpointLoaderSimple", "DistributedSeed", "DistributedCollector", "SaveImage")}
+    assert found["CheckpointLoaderSimple"] == "1"
+    assert workflow[found["DistributedCollector"]]["inputs"]["images"][0] == \
+        chip_smoke._node_id(workflow, "VAEDecode")
+    assert workflow[found["SaveImage"]]["inputs"]["images"] == [found["DistributedCollector"], 0]
+    samplers = [n for cls in chip_smoke.SAMPLERS for n in chip_smoke._node_ids(workflow, cls)]
+    assert all(workflow[n]["inputs"].get("seed", workflow[n]["inputs"].get("noise_seed"))
+               == [found["DistributedSeed"], 0] for n in samplers)
+    assert len(samplers) == (2 if "2pass" in name else 1)
+    side = 768 if "sd21" in name else 512
+    assert chip_smoke._image_px(workflow) == (side, side)
+    assert chip_smoke._sampler_evals(workflow) == 20
+    with pytest.raises(RuntimeError, match="2 KSamplerAdvanced nodes"):
+        chip_smoke._node_id(_workflow("distributed-txt2img-2pass.json"), "KSamplerAdvanced")
+
+
+@pytest.mark.parametrize("tag, per_instance", [
+    ("2pass", {"wgmma": 640, "wgmma512": 1, "fma": 0}),
+    ("pag", {"wgmma": 1260, "wgmma512": 1, "fma": 0}),
+    ("inpaint", {"wgmma": 640, "wgmma512": 2, "fma": 0}),
+    ("sd21", {"wgmma": 640, "wgmma512": 1, "fma": 0}),
+])
+def test_sd_workflow_launches_match_their_models_on_meta(tag, per_instance, recorded_calls):
+    """One CFG-batched UNet evaluation (and under PAG one perturbed
+    evaluation at batch 1), the VAE's decode (and inpaint's encode), on
+    meta: the calls `_txt2img_shapes` counts, 20 evaluations an image."""
+    workflow = _workflow(chip_smoke.SD_WORKFLOWS[tag])
+    ckpt = workflow["1"]["inputs"]["ckpt_name"]
+    side = chip_smoke._image_px(workflow)[0] // 8
+    ctx = get_config(ckpt).context_dim
+    with torch.device("meta"):
+        unet, autoencoder = create_model(ckpt), create_model("vae-sd")
+        unet(torch.empty(2, side, side, 4), torch.empty(2), torch.empty(2, 77, ctx))
+        if tag == "pag":
+            unet(torch.empty(1, side, side, 4), torch.empty(1), torch.empty(1, 77, ctx),
+                 pag=True)
+        if tag == "inpaint":
+            autoencoder.encode(torch.empty(1, 8 * side, 8 * side, 3))
+        autoencoder.decode(torch.empty(1, side, side, 4))
+    shapes = chip_smoke._txt2img_shapes(workflow)
+    expected = collections.Counter()
+    for _label, q, m, per_image in shapes:
+        expected[(q, m)] += per_image // 20 if q[3] != 512 else per_image
+    assert recorded_calls == expected
+    assert chip_smoke._expected_by_instance(attn, shapes, torch) == per_instance
+    if tag == "sd21":
+        assert {(q[1], q[2], q[3]) for _label, q, *_ in shapes if q[3] == 64} == {
+            (9216, 5, 64), (2304, 10, 64), (576, 20, 64), (144, 20, 64)}
+        assert ("vae@9216", (1, 9216, 1, 512), 9216, 1) in shapes
+    if tag == "pag":
+        batch1 = {(q, m) for _label, q, m, _ in shapes if q[0] == 1 and q[3] != 512}
+        assert ((1, 64, 8, 160), 64) not in batch1 and ((1, 64, 8, 160), 77) in batch1
+        assert len(batch1) == 7
+
+
+def _tiny_sd_workflow(tag):
+    workflow = _workflow(chip_smoke.SD_WORKFLOWS[tag])
+    workflow["1"]["inputs"]["ckpt_name"] = "tiny-unet-v" if tag == "sd21" else "tiny-unet"
+    for node_id in chip_smoke._node_ids(workflow, "EmptyLatentImage"):
+        workflow[node_id]["inputs"].update(width=32, height=32)
+    return workflow
+
+
+def _tiny_bundle(name):
+    bundle = tpl.load_pipeline(name, seed=0, device="cpu")
+    chip_smoke._seed_out_conv(torch, bundle, torch.Generator().manual_seed(0))
+    return bundle
+
+
+@pytest.fixture
+def counted_calls(monkeypatch):
+    """Every attention call counted as a launch (under "fma": the tiny
+    models' head dims have no tensor-core instance), as the card's
+    wrapper counts its kernel's."""
+
+    def counting(attention):
+        def call(q, k, v):
+            attn.count_launch("fma")
+            return attention(q, k, v)
+        return call
+
+    monkeypatch.setattr(layers, "dot_product_attention", counting(layers.dot_product_attention))
+    monkeypatch.setattr(vae, "dot_product_attention", counting(vae.dot_product_attention))
+    attn.reset_launch_counts()
+    yield
+    attn.reset_launch_counts()
+
+
+@pytest.mark.parametrize("tag", list(chip_smoke.SD_WORKFLOWS))
+def test_sd_workflow_phases_run_and_check_on_the_cpu(tag, capsys, one_torch_thread,
+                                                     counted_calls):
+    """Each later phase as the card runs it, on tiny models at 32 px:
+    the local references and the workflow's own check (two-pass equals
+    one KSampler, PAG differs from no PAG, inpaint keeps its latent
+    outside the mask), then a run over HTTP, each run with the attention
+    calls `_txt2img_shapes` counts."""
+    workflow = _tiny_sd_workflow(tag)
+    bundle = _tiny_bundle(workflow["1"]["inputs"]["ckpt_name"])
+    per_image = sum(count for *_, count in chip_smoke._txt2img_shapes(workflow, image_px=32))
+    result = chip_smoke._txt2img_phase(
+        torch, bundle, workflow, "cpu", 2 * per_image,
+        {"fma": 2 * per_image, "wgmma": 0, "wgmma512": 0}, runs=1, tag=tag, image_px=32)
+    lines = [line for line in capsys.readouterr().out.splitlines()
+             if line.startswith(f"[{tag}]")]
+    assert result["launches"] == 2 * per_image and result["images_per_s"] > 0
+    extra = {"2pass": "one KSampler over the whole schedule max |diff| 0 ",
+             "pag": "PAG vs without max |diff|", "inpaint": "outside the mask: True",
+             "sd21": None}[tag]
+    assert extra is None or any(extra in line for line in lines)
+    assert "w1 envelopes {'w1': 1}" in lines[-2] and "collector jobs left 0" in lines[-2]
+    assert "image 0 vs the local seed 42 0 " in lines[-1]
+    if tag == "inpaint":
+        assert "over the grown mask's" in lines[-1]
+
+
+def test_the_inpaint_input_has_a_transparent_square_a_quarter_of_the_area():
+    rgba = chip_smoke._inpaint_input(512, 1)
+    hole = rgba[..., 3] == 0.0
+    assert hole.sum() == 256 * 256 and hole[128:384, 128:384].all()
+    assert np.array_equal(timg.u8_to_f32(timg.f32_to_u8(rgba)), rgba)  # survives a PNG
+
+
+@pytest.mark.parametrize("broken, message", [
+    (lambda mask: None, "sampling changed the latent outside the inpaint mask"),
+    (torch.zeros_like, "the master's and w1's images do not differ"),
+])
+def test_the_inpaint_checks_fail_when_the_pin_is_broken(broken, message, monkeypatch,
+                                                        one_torch_thread):
+    """A pin that keeps nothing (no mask reaches the sampler) changes the
+    latent outside the mask; one that keeps everything (a zero mask)
+    gives both participants the encoded image: each check must fail."""
+    sample = tpl._masked_sample
+
+    def broken_sample(*args):
+        *head, noise_mask = args
+        return sample(*head, None if noise_mask is None else broken(noise_mask))
+
+    monkeypatch.setattr(tpl, "_masked_sample", broken_sample)
+    with pytest.raises(RuntimeError, match=message):
+        chip_smoke._txt2img_phase(torch, _tiny_bundle("tiny-unet"), _tiny_sd_workflow("inpaint"),
+                                  "cpu", runs=1, tag="inpaint", image_px=32)

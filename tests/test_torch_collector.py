@@ -453,7 +453,7 @@ def test_unported_branches_raise_and_the_small_nodes_work():
         collector.run(images, load_balance=True)
     assert collector.run(images, pass_through=True)[0] is images
     assert collector.run(images, enabled_worker_ids=["w1"])[0] is images  # no server: local
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         DistributedSeed().get_seed(3, context=types.SimpleNamespace(mesh=object()))
     assert DistributedSeed().get_seed(3, is_worker=True, worker_index=1)[0].effective_seed() == 5
     assert DistributedSeed().get_seed(3)[0].effective_seed() == 3

@@ -167,6 +167,7 @@ def test_unet_rejects_unported_patches():
         tpl.UNet(cfg)
     unet = tpl.UNet(f32(treg.get_config("tiny-unet")))
     x, t, ctx = torch.zeros((1, 8, 8, 4)), torch.zeros((1,)), torch.zeros((1, 16, 64))
-    for kwargs in ({"control": torch.zeros((1, 8, 8, 32))}, {"pag": True}, {"sag_capture": True}):
-        with pytest.raises(NotImplementedError, match="PAG and SAG"):
+    for kwargs in ({"control": torch.zeros((1, 8, 8, 32))}, {"sag_capture": True}):
+        with pytest.raises(NotImplementedError, match="ControlNet residuals and SAG"):
             unet(x, t, ctx, **kwargs)
+    assert unet(x, t, ctx, pag=True).shape == (1, 8, 8, 4)  # PAG is ported

@@ -94,3 +94,68 @@ def test_seeded_params_fill_every_leaf_of_flax_init(name):
     assert all(np.array_equal(a[k], b[k]) for k in a)
     if "params/out_conv/kernel" in a:
         assert np.abs(a["params/out_conv/kernel"]).max() > 0
+
+
+def jax_and_port_bundles(model_name, te_name="tiny-te", vae_name="tiny-vae", seed=0):
+    """(JAX bundle, port bundle on the CPU) of a tiny single-tower UNet
+    checkpoint in f32, with the same numpy-seeded weights in both: UNet
+    (its out_conv non-zero), VAE and text encoder. The registries hold
+    float32 configs only while the modules are built."""
+    from comfyui_distributed_tpu.models import pipeline as jpl
+    from comfyui_distributed_tpu.models import text_encoder as jte
+    from comfyui_distributed_tpu_torch.models import pipeline as tpl
+    from comfyui_distributed_tpu_torch.models import registry as treg
+    from comfyui_distributed_tpu_torch.models.io import from_jax_params
+
+    with pytest.MonkeyPatch.context() as mp:
+        for registry in (jreg.MODEL_REGISTRY, treg.MODEL_REGISTRY):
+            for name in (model_name, te_name, vae_name):
+                mp.setitem(registry, name, {**registry[name], "config": f32(registry[name]["config"])})
+        unet, vae, te = (jreg.create_model(n) for n in (model_name, vae_name, te_name))
+        te_cfg, vae_cfg = jreg.get_config(te_name), jreg.get_config(vae_name)
+        ctx_dim = jreg.get_config(model_name).context_dim
+        params = {
+            "unet": seeded_flax_params(unet, seed + 1, jnp.zeros((1, 16, 16, 4)), jnp.zeros((1,)),
+                                       jnp.zeros((1, te_cfg.max_length, ctx_dim))),
+            "vae": seeded_flax_params(vae, seed + 2, jnp.zeros((1, 32, 32, 3))),
+            "te": seeded_flax_params(te, seed + 3, jnp.zeros((1, te_cfg.max_length), jnp.int32)),
+        }
+        jb = jpl.PipelineBundle(
+            model_name=model_name, unet=unet, vae=vae, text_encoder=te, params=params,
+            tokenizer=jte.Tokenizer(max_length=te_cfg.max_length, pad_id=te_cfg.pad_token_id),
+            latent_channels=vae_cfg.latent_channels, latent_scale=vae_cfg.downscale,
+            te_name=te_name,
+        )
+        tb = tpl.load_pipeline(model_name, seed=0, device="cpu")
+    for part, module in (("unet", tb.unet), ("vae", tb.vae), ("te", tb.text_encoder)):
+        module.load_state_dict(from_jax_params(flatten_params(params[part]), module))
+    return jb, tb
+
+
+def jax_noise(seed, shape):
+    """The initial noise the JAX package's samplers draw for `seed`:
+    normal(split(key(seed))[0], shape), as numpy."""
+    noise_key, _ = jax.random.split(jax.random.key(seed))
+    return np.array(jax.random.normal(noise_key, shape))
+
+
+def run_workflow_in_both(workflow, jb, tb, monkeypatch, config=None):
+    """`workflow` through the JAX package's GraphExecutor on `jb` and the
+    port's on `tb`, its SaveImage turned into a PreviewImage (nothing
+    written) and the port drawing the JAX package's initial noise →
+    (JAX images, port images) as numpy."""
+    from comfyui_distributed_tpu.graph import executor as jexec
+    from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
+    from comfyui_distributed_tpu_torch.models import pipeline as tpl
+
+    workflow = {k: dict(v) for k, v in workflow.items()}
+    (sink,) = [k for k, v in workflow.items() if v["class_type"] == "SaveImage"]
+    workflow[sink] = {"class_type": "PreviewImage",
+                      "inputs": {"images": workflow[sink]["inputs"]["images"]}}
+    ckpt = workflow["1"]["inputs"]["ckpt_name"]
+    monkeypatch.setattr(tpl, "default_noise",
+                        lambda seed, shape, device: torch.from_numpy(jax_noise(seed, shape)))
+    jout = jexec.GraphExecutor(jexec.ExecutionContext(config=config, pipelines={ckpt: jb}))
+    tout = GraphExecutor(ExecutionContext(device="cpu", config=config, pipelines={ckpt: tb}))
+    return (np.asarray(jout.execute(workflow)[sink][0]["images"]),
+            tout.execute(workflow)[sink][0]["images"].numpy())

@@ -210,11 +210,8 @@ def test_unported_sampler_inputs_raise(tiny_bundle):
     latent = {"samples": torch.zeros((1, 4, 4, 4))}
     args = dict(model=tiny_bundle, steps=1, cfg=1.0, sampler_name="euler", scheduler="karras",
                 positive=None, negative=None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         KSampler().sample(seed=SeedSpec(1, per_participant=True), latent_image=latent, **args)
-    with pytest.raises(NotImplementedError, match="inpainting"):
-        KSampler().sample(seed=1, latent_image={**latent, "noise_mask": torch.ones(1, 4, 4)},
-                          **args)
     with pytest.raises(NotImplementedError, match="LatentBatchSeedBehavior"):
         KSampler().sample(seed=1, latent_image={**latent, "batch_index_fixed": True}, **args)
 
