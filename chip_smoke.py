@@ -88,6 +88,33 @@ Phases, each printing lines tagged with its name:
              PAG image adds 620 batch-1 calls (no mid-block self-attention),
              an inpaint image a VAE encode, an SD2.1 image runs D=64 on
              wgmma at 9216, 2304, 576 and 144 tokens.
+   ckpt    - real single-file checkpoints: SD1.5 (txt2img's sd15) and
+             SD2.1-768-v (sd21) bundles seeded at CKPT_SEED (not the
+             registry's default 0) with a seeded out_conv, written by the
+             port's synthesize_checkpoint and writer as
+             <tmp>/<ckpt>.safetensors in f16 (bytes, seconds, GB/s); the
+             unmodified txt2img and SD2.1 workflows POSTed once each to a
+             fresh master and w1 with CDT_CHECKPOINT_DIR=<tmp>, each server
+             loading the file (CheckpointLoaderSimple's seconds and GB/s).
+             Every parameter of both loaded bundles must be torch.equal to
+             the written weights rounded through f16 into the module's dtype;
+             image 0 within RERUN_TOLERANCE of a local run on those rounded
+             weights, and apart in max and mean from the same seed on the
+             default random init (the file was read); launches as txt2img's
+             and sd21's. The files are deleted.
+   samplers- on SD1.5 (seeded, a seeded out_conv) the unmodified txt2img
+             workflow locally at 20 steps with only sampler_name or
+             scheduler changed: the 11 samplers other than euler on karras,
+             the 7 schedulers other than karras on euler. Each image finite
+             in [0, 1], launching the kernel model_evals_per_scan x its calls
+             an evaluation (+ the decode); each stochastic sampler rerun at
+             seed 42 within RERUN_TOLERANCE and seed 43 apart. Then
+             HTTP_SAMPLER over HTTP: the txt2img workflow master + w1 (w1's
+             image within RERUN_TOLERANCE + PNG_STEP of the local seed 43:
+             step noise follows the participant's seed), and one elastic run
+             of the upscale workflow on a fresh seeded SDXL bundle, within
+             RERUN_TOLERANCE of the local tiles composited the elastic way
+             (step noise follows the global tile index).
    phases  - each phase's seconds.
 5. kernels - one JSON line per the port's kernel contract: entry
              flash_attention over the upscale path (`launches`: the elastic
@@ -95,7 +122,12 @@ Phases, each printing lines tagged with its name:
              the txt2img path's D=40/80/160 shapes (`launches`: the last
              txt2img run's wgmma launches, both participants), and an
              entry flash_attention_<workflow> for each of SD_WORKFLOWS over
-             every attention shape of its image (`launches`: its run).
+             every attention shape of its image (`launches`: its run), one
+             flash_attention_ckpt_<model> for each checkpoint file's workflow
+             (`launches`: its run) and flash_attention_samplers over one
+             SD1.5 image on SAMPLERS_ENTRY_SAMPLER (`launches`: that
+             sampler's local run in the samplers phase; the phase's total
+             stands on its [samplers] line).
 
 The card's nvidia-smi line and then {"ok": true, "device": ...} close
 the output. Without a CUDA device, or without the port's package beside
@@ -105,6 +137,7 @@ this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import copy
 import json
 import math
@@ -177,6 +210,17 @@ PNG_STEP = 0.5 / 255
 # PAG must change the image by at least one 8-bit level somewhere (a
 # rerun of one seed on the card changes nothing)
 PAG_MIN_DIFF = 1.0 / 255
+# the checkpoint phase: SD1.5 and SD2.1-768-v files written in f16 from
+# weights seeded at CKPT_SEED (the registry's default init is seed 0), by
+# kernels-line path, each loaded by a fresh master and w1 over HTTP
+CKPT_WORKFLOWS = {"ckpt_sd15": "distributed-txt2img.json",
+                  "ckpt_sd21": "distributed-txt2img-sd21.json"}
+CKPT_SEED = 7
+# the samplers phase: the stochastic sampler its HTTP runs take (txt2img
+# through the collector, the elastic upscale), and the sampler whose
+# image its kernels-line entry sums (second order: 39 evaluations)
+HTTP_SAMPLER = "euler_ancestral"
+SAMPLERS_ENTRY_SAMPLER = "heun"
 
 
 def _require(ok: bool, message: str) -> None:
@@ -307,21 +351,25 @@ def _image_px(workflow, image_px: int = IMAGE_PX) -> tuple[int, int]:
 
 def _sampler_evals(workflow) -> int:
     """UNet evaluations (CFG-batched) of one image: each KSampler's
-    schedule, each KSamplerAdvanced's window."""
+    schedule, each KSamplerAdvanced's window, by its sampler's
+    evaluations a sigma pair (a second-order sampler makes 2n - 1)."""
     from comfyui_distributed_tpu_torch.models.pipeline import advanced_window_sigmas
-    from comfyui_distributed_tpu_torch.ops.samplers import get_sigmas
+    from comfyui_distributed_tpu_torch.ops.samplers import get_sigmas, model_evals_per_scan
 
     evals = 0
     for node_id in _node_ids(workflow, "KSampler"):
         inputs = workflow[node_id]["inputs"]
-        evals += get_sigmas(inputs["scheduler"], int(inputs["steps"]),
-                            float(inputs["denoise"])).shape[0] - 1
+        pairs = get_sigmas(inputs["scheduler"], int(inputs["steps"]),
+                           float(inputs["denoise"])).shape[0] - 1
+        evals += model_evals_per_scan(inputs["sampler_name"], pairs)
     for node_id in _node_ids(workflow, "KSamplerAdvanced"):
         inputs = workflow[node_id]["inputs"]
-        evals += advanced_window_sigmas(
+        pairs = advanced_window_sigmas(
             "eps", inputs["scheduler"], int(inputs["steps"]), int(inputs["start_at_step"]),
             int(inputs["end_at_step"]), inputs["return_with_leftover_noise"] == "disable",
         ).shape[0] - 1
+        if pairs > 0:
+            evals += model_evals_per_scan(inputs["sampler_name"], pairs)
     return evals
 
 
@@ -480,26 +528,125 @@ def _wait_done(request_json, url: str, deadline: float) -> dict:
         time.sleep(0.05)
 
 
-def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device: str,
-                   expected_launches: int | None = None, expected_by_instance: dict | None = None,
-                   local_tiles_per_s: float | None = None, runs: int = ELASTIC_RUNS) -> dict:
-    """Run the workflow over HTTP on a master and a worker server in this
-    process (see the module docstring) and check every run; prints the
-    [elastic] lines and returns the last run's attention launches. With
-    `expected_launches` None (no card) the launch counts go unchecked."""
+@contextlib.contextmanager
+def _serving(tmp: str, settings: dict, device: str, pipelines: dict | None = None):
+    """A master and a worker (w1) DistributedServer in this process, on one
+    loop and two localhost ports, both reading `settings` (input and
+    output directories) and sharing `pipelines` (none: each server loads
+    its own checkpoint). Yields (master, w1, the master's URL, w1's
+    port); both stop on the way out."""
     from comfyui_distributed_tpu_torch.api.server import DistributedServer
-    from comfyui_distributed_tpu_torch.ops import attention as attn
     from comfyui_distributed_tpu_torch.utils import config as config_mod
-    from comfyui_distributed_tpu_torch.utils import image as img_utils
     from comfyui_distributed_tpu_torch.utils.async_helpers import ServerLoopThread
+
+    master_port, worker_port = _free_port(), _free_port()
+    config_path = os.path.join(tmp, "config.json")
+    config_mod.save_config({
+        "master": {"host": "127.0.0.1"},
+        "workers": [{"id": "w1", "name": "w1", "type": "remote", "host": "127.0.0.1",
+                     "port": worker_port, "enabled": True}],
+        "settings": settings,
+    }, config_path)
+    loop = ServerLoopThread()
+    loop.start()
+    master = DistributedServer(port=master_port, is_worker=False, config_path=config_path,
+                               device=device)
+    worker = DistributedServer(port=worker_port, is_worker=True, config_path=config_path,
+                               device=device)
+    for server in (master, worker):
+        server.execution_context.pipelines.update(pipelines or {})
+    try:
+        async def boot():
+            await master.start()
+            await worker.start()
+
+        asyncio.run_coroutine_threadsafe(boot(), loop.loop).result(timeout=60)
+        yield master, worker, f"http://127.0.0.1:{master_port}", worker_port
+    finally:
+        async def teardown():
+            await master.stop()
+            await worker.stop()
+
+        try:
+            asyncio.run_coroutine_threadsafe(teardown(), loop.loop).result(timeout=60)
+        finally:
+            loop.stop()
+
+
+def _queue(base: str, worker_port: int, workflow) -> tuple[dict, dict, dict]:
+    """POST the workflow to the master's /distributed/queue with workers
+    ["w1"] and wait until the master's and w1's prompts are done: (the
+    queue answer, the master's history, w1's history)."""
     from comfyui_distributed_tpu_torch.utils.network import request_json
 
+    status, queued = request_json("POST", f"{base}/distributed/queue", {
+        "prompt": workflow, "client_id": "chip_smoke", "workers": ["w1"],
+    }, timeout=120)
+    _require(status == 200, f"/distributed/queue answered {status}: {queued}")
+    _require(queued.get("workers") == ["w1"],
+             f"w1 was not dispatched (probe or dispatch failed): {queued}")
+    deadline = time.monotonic() + ELASTIC_RUN_TIMEOUT_S
+    history = _wait_done(request_json, f"{base}/history/{queued['prompt_id']}", deadline)
+    worker_history = _wait_done(
+        request_json, f"http://127.0.0.1:{worker_port}/history/{queued['trace_id']}_w0", deadline)
+    _require(history.get("error") is None, f"master prompt failed: {history}")
+    _require(worker_history.get("error") is None, f"worker prompt failed: {worker_history}")
+    return queued, history, worker_history
+
+
+def _launch_counts(attn) -> tuple[int, dict]:
+    return attn.flash_attention.launches, dict(attn.flash_attention.launches_by_instance)
+
+
+def _local_run(torch, attn, executor, workflow, label: str, what: str, device: str,
+               size: tuple):
+    """One local run of a seed-parallel workflow through `executor`,
+    SaveImage removed and every node run (a cached node would launch no
+    attention), its image of `size` (H, W, 3): (image 0 as f32,
+    launches, launches by instance, seconds). Prints the run's line."""
     cuda = device.startswith("cuda")
+    prompt = copy.deepcopy(workflow)
+    del prompt[_node_id(prompt, "SaveImage")]
+    executor.context.extras.pop("node_cache", None)
+    if cuda:
+        torch.cuda.synchronize()
+    attn.reset_launch_counts()
+    started = time.perf_counter()
+    executor.execute(prompt)
+    images = executor.last_results[_node_id(prompt, "DistributedCollector")][0]
+    if cuda:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - started
+    launches, by_instance = _launch_counts(attn)
+    print(f"{label} local run, {what}: {seconds:.2f} s, {images.shape[0] / seconds:.4f} "
+          f"images/s; flash_attention launches {launches}, by instance {by_instance}; "
+          f"node times {executor.last_timings}")
+    _require(tuple(images.shape) == (1, *size), f"local output shape {tuple(images.shape)}")
+    _require(bool(torch.isfinite(images).all()), "non-finite local output")
+    return images[0].float(), launches, by_instance, seconds
+
+
+def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device: str,
+                   expected_launches: int | None = None, expected_by_instance: dict | None = None,
+                   local_tiles_per_s: float | None = None, runs: int = ELASTIC_RUNS,
+                   tag: str = "elastic") -> dict:
+    """Run the workflow over HTTP on a master and a worker server in this
+    process (see the module docstring) and check every run; prints the
+    [tag] lines and returns the last run's attention launches. With
+    `expected_launches` None (no card) the launch counts go unchecked;
+    with `local_out` None the reference is not held against a local run
+    of the workflow (an earlier phase did that)."""
+    from comfyui_distributed_tpu_torch.ops import attention as attn
+    from comfyui_distributed_tpu_torch.utils import image as img_utils
+
+    cuda = device.startswith("cuda")
+    label = f"[{tag}]"
     reference, reference_avg = _local_reference(torch, bundle, workflow, image)
-    avg_diff = float((reference_avg - local_out.float()).abs().max())
-    print(f"[elastic] reference: the {ckpt} tiles processed locally, weighted average vs "
-          f"phase 4's output max |diff| {avg_diff:.3g}")
-    _require(avg_diff <= RERUN_TOLERANCE, "the local reference tiles are not phase 4's")
+    if local_out is not None:
+        avg_diff = float((reference_avg - local_out.float()).abs().max())
+        print(f"{label} reference: the {ckpt} tiles processed locally, weighted average vs "
+              f"phase 4's output max |diff| {avg_diff:.3g}")
+        _require(avg_diff <= RERUN_TOLERANCE, "the local reference tiles are not phase 4's")
     tiles_by: dict[str, int] = {}
     result = {}
     with tempfile.TemporaryDirectory(prefix="cdt_elastic_") as tmp:
@@ -508,123 +655,84 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
         load_name = workflow["4"]["inputs"]["image"]
         with open(os.path.join(in_dir, load_name), "wb") as fh:
             fh.write(img_utils.encode_png(image[0]))
-        master_port, worker_port = _free_port(), _free_port()
-        config_path = os.path.join(tmp, "config.json")
-        config_mod.save_config({
-            "master": {"host": "127.0.0.1"},
-            "workers": [{"id": "w1", "name": "w1", "type": "remote", "host": "127.0.0.1",
-                         "port": worker_port, "enabled": True}],
-            "settings": {"input_dir": in_dir, "output_dir": out_dir},
-        }, config_path)
-        loop = ServerLoopThread()
-        loop.start()
-        master = DistributedServer(port=master_port, is_worker=False, config_path=config_path,
-                                   device=device)
-        worker = DistributedServer(port=worker_port, is_worker=True, config_path=config_path,
-                                   device=device)
-        for server in (master, worker):
-            server.execution_context.pipelines[ckpt] = bundle  # shared weights
         blend_env = os.environ.get("CDT_DETERMINISTIC_BLEND")
         os.environ["CDT_DETERMINISTIC_BLEND"] = "1"
         try:
-            async def boot():
-                await master.start()
-                await worker.start()
-
-            asyncio.run_coroutine_threadsafe(boot(), loop.loop).result(timeout=60)
-            base = f"http://127.0.0.1:{master_port}"
-            for run in range(1, runs + 1):
-                if cuda:
-                    torch.cuda.synchronize()
-                    torch.cuda.reset_peak_memory_stats()
-                attn.reset_launch_counts()
-                started = time.perf_counter()
-                status, queued = request_json("POST", f"{base}/distributed/queue", {
-                    "prompt": workflow, "client_id": "chip_smoke", "workers": ["w1"],
-                }, timeout=120)
-                _require(status == 200, f"/distributed/queue answered {status}: {queued}")
-                _require(queued.get("workers") == ["w1"],
-                         f"w1 was not dispatched (probe or dispatch failed): {queued}")
-                deadline = time.monotonic() + ELASTIC_RUN_TIMEOUT_S
-                history = _wait_done(request_json, f"{base}/history/{queued['prompt_id']}",
-                                     deadline)
-                worker_history = _wait_done(
-                    request_json,
-                    f"http://127.0.0.1:{worker_port}/history/{queued['trace_id']}_w0", deadline)
-                if cuda:
-                    torch.cuda.synchronize()
-                seconds = time.perf_counter() - started
-                _require(history.get("error") is None, f"master prompt failed: {history}")
-                _require(worker_history.get("error") is None,
-                         f"worker prompt failed: {worker_history}")
-                launches = attn.flash_attention.launches
-                by_instance = dict(attn.flash_attention.launches_by_instance)
-                peak = torch.cuda.max_memory_allocated() if cuda else 0
-                record = master.job_store.finished[queued["job_ids"][USDU_NODE]]
-                n_tiles = record["total"]
-                done = [t for t, _ in record["completions"]]
-                by = {}
-                for _, who in record["completions"]:
-                    by[who] = by.get(who, 0) + 1
-                    tiles_by[who] = tiles_by.get(who, 0) + 1
-                stages = master.execution_context.extras.get("stage_seconds", {})
-                worker_stages = worker.execution_context.extras.get("stage_seconds", {})
-                rate = f"{n_tiles / seconds:.4f} tiles/s"
-                if local_tiles_per_s is not None:
-                    rate += f" (phase 4: {local_tiles_per_s:.4f})"
-                print(f"[elastic] run {run}: {seconds:.2f} s, {rate}; tiles completed: master "
-                      f"{by.get('master', 0)}, w1 {by.get('w1', 0)} (order {record['completions']},"
-                      f" duplicates dropped {record['duplicates']}); flash_attention launches "
-                      f"{launches}, by instance {by_instance}; peak {peak / 2**30:.2f} GiB; "
-                      f"worker tile bytes received {record['received_bytes']}")
-                print(f"[elastic] run {run} stage seconds: master "
-                      f"{_rounded(stages.get('master', {}))}; w1 "
-                      f"{_rounded(worker_stages.get('worker', {}))}")
-                _require(sorted(done) == list(range(n_tiles)),
-                         f"tiles completed {sorted(done)}, expected each of {n_tiles} once")
-                _require(set(by) <= {"master", "w1"}, f"unexpected participants {sorted(by)}")
-                _require("w1" in record["finished_workers"], "w1's final flush never arrived")
-                if expected_launches is not None:
-                    _require(launches == expected_launches,
-                             f"{launches} attention launches, expected {expected_launches}")
-                    _require(by_instance == expected_by_instance,
-                             f"launches by instance {by_instance}, expected {expected_by_instance}")
-                out = master.get_job(queued["prompt_id"]).outputs["6"][0]["images"]
-                _require(out.device.type == torch.device(device).type,
-                         f"the output was computed on {out.device}, not {device}")
-                _require(tuple(out.shape) == tuple(reference.shape),
-                         f"output shape {tuple(out.shape)}, expected {tuple(reference.shape)}")
-                _require(bool(torch.isfinite(out).all()), "non-finite output")
-                _require(float(out.min()) >= 0.0 and float(out.max()) <= 1.0,
-                         "output outside [0, 1]")
-                saved = os.path.join(out_dir, history["outputs"]["6"]["images"][0])
-                with open(saved, "rb") as fh:
-                    saved_shape = img_utils.decode_png_u8(fh.read()).shape
-                _require(saved_shape == tuple(reference.shape[1:]),
-                         f"saved {saved_shape}, expected {tuple(reference.shape[1:])}")
-                diff = float((out.float() - reference.to(out.device)).abs().max())
-                phase4 = float((out.float() - local_out.float().to(out.device)).abs().max())
-                print(f"[elastic] run {run} output {tuple(out.shape)} in [{float(out.min()):.4f}, "
-                      f"{float(out.max()):.4f}]; max |diff| vs phase 4's tiles composited alike "
-                      f"{diff:.3g} (tolerance {RERUN_TOLERANCE}); vs phase 4's weighted-average "
-                      f"output {phase4:.3g}")
-                _require(diff <= RERUN_TOLERANCE,
-                         "the elastic output disagrees with phase 4's tiles")
-                result = {"launches": launches, "launches_by_instance": by_instance}
+            with _serving(tmp, {"input_dir": in_dir, "output_dir": out_dir}, device,
+                          {ckpt: bundle}) as (master, worker, base, worker_port):
+                for run in range(1, runs + 1):
+                    if cuda:
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats()
+                    attn.reset_launch_counts()
+                    started = time.perf_counter()
+                    queued, history, _ = _queue(base, worker_port, workflow)
+                    if cuda:
+                        torch.cuda.synchronize()
+                    seconds = time.perf_counter() - started
+                    launches, by_instance = _launch_counts(attn)
+                    peak = torch.cuda.max_memory_allocated() if cuda else 0
+                    record = master.job_store.finished[queued["job_ids"][USDU_NODE]]
+                    n_tiles = record["total"]
+                    done = [t for t, _ in record["completions"]]
+                    by = {}
+                    for _, who in record["completions"]:
+                        by[who] = by.get(who, 0) + 1
+                        tiles_by[who] = tiles_by.get(who, 0) + 1
+                    stages = master.execution_context.extras.get("stage_seconds", {})
+                    worker_stages = worker.execution_context.extras.get("stage_seconds", {})
+                    rate = f"{n_tiles / seconds:.4f} tiles/s"
+                    if local_tiles_per_s is not None:
+                        rate += f" (phase 4: {local_tiles_per_s:.4f})"
+                    print(f"{label} run {run}: {seconds:.2f} s, {rate}; tiles completed: master "
+                          f"{by.get('master', 0)}, w1 {by.get('w1', 0)} (order "
+                          f"{record['completions']}, duplicates dropped {record['duplicates']});"
+                          f" flash_attention launches {launches}, by instance {by_instance}; "
+                          f"peak {peak / 2**30:.2f} GiB; worker tile bytes received "
+                          f"{record['received_bytes']}")
+                    print(f"{label} run {run} stage seconds: master "
+                          f"{_rounded(stages.get('master', {}))}; w1 "
+                          f"{_rounded(worker_stages.get('worker', {}))}")
+                    _require(sorted(done) == list(range(n_tiles)),
+                             f"tiles completed {sorted(done)}, expected each of {n_tiles} once")
+                    _require(set(by) <= {"master", "w1"}, f"unexpected participants {sorted(by)}")
+                    _require("w1" in record["finished_workers"], "w1's final flush never arrived")
+                    if expected_launches is not None:
+                        _require(launches == expected_launches,
+                                 f"{launches} attention launches, expected {expected_launches}")
+                        _require(by_instance == expected_by_instance,
+                                 f"launches by instance {by_instance}, expected "
+                                 f"{expected_by_instance}")
+                    out = master.get_job(queued["prompt_id"]).outputs["6"][0]["images"]
+                    _require(out.device.type == torch.device(device).type,
+                             f"the output was computed on {out.device}, not {device}")
+                    _require(tuple(out.shape) == tuple(reference.shape),
+                             f"output shape {tuple(out.shape)}, expected {tuple(reference.shape)}")
+                    _require(bool(torch.isfinite(out).all()), "non-finite output")
+                    _require(float(out.min()) >= 0.0 and float(out.max()) <= 1.0,
+                             "output outside [0, 1]")
+                    saved = os.path.join(out_dir, history["outputs"]["6"]["images"][0])
+                    with open(saved, "rb") as fh:
+                        saved_shape = img_utils.decode_png_u8(fh.read()).shape
+                    _require(saved_shape == tuple(reference.shape[1:]),
+                             f"saved {saved_shape}, expected {tuple(reference.shape[1:])}")
+                    diff = float((out.float() - reference.to(out.device)).abs().max())
+                    versus = ""
+                    if local_out is not None:
+                        phase4 = float((out.float() - local_out.float().to(out.device)).abs().max())
+                        versus = f"; vs phase 4's weighted-average output {phase4:.3g}"
+                    print(f"{label} run {run} output {tuple(out.shape)} in "
+                          f"[{float(out.min()):.4f}, {float(out.max()):.4f}]; max |diff| vs the "
+                          f"local tiles composited alike {diff:.3g} (tolerance "
+                          f"{RERUN_TOLERANCE}){versus}")
+                    _require(diff <= RERUN_TOLERANCE,
+                             "the elastic output disagrees with the local tiles")
+                    result = {"launches": launches, "launches_by_instance": by_instance}
         finally:
             if blend_env is None:
                 os.environ.pop("CDT_DETERMINISTIC_BLEND", None)
             else:
                 os.environ["CDT_DETERMINISTIC_BLEND"] = blend_env
-
-            async def teardown():
-                await master.stop()
-                await worker.stop()
-
-            try:
-                asyncio.run_coroutine_threadsafe(teardown(), loop.loop).result(timeout=60)
-            finally:
-                loop.stop()
     _require(tiles_by.get("w1", 0) >= 1, f"w1 completed no tile in {runs} runs: {tiles_by}")
     return result
 
@@ -693,14 +801,10 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
     None (no card) the launch counts go unchecked."""
     import numpy as np
 
-    from comfyui_distributed_tpu_torch.api.server import DistributedServer
     from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
     from comfyui_distributed_tpu_torch.graph.nodes_core import grow_mask
     from comfyui_distributed_tpu_torch.ops import attention as attn
-    from comfyui_distributed_tpu_torch.utils import config as config_mod
     from comfyui_distributed_tpu_torch.utils import image as img_utils
-    from comfyui_distributed_tpu_torch.utils.async_helpers import ServerLoopThread
-    from comfyui_distributed_tpu_torch.utils.network import request_json
 
     cuda = device.startswith("cuda")
     label = f"[{tag}]"
@@ -711,9 +815,6 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
     samplers = [n for cls in SAMPLERS for n in _node_ids(workflow, cls)]
     seed = int(workflow[seed_node]["inputs"]["seed"])
     size = (*_image_px(workflow, image_px), 3)
-
-    def counts():
-        return attn.flash_attention.launches, dict(attn.flash_attention.launches_by_instance)
 
     def check_launches(launches, by_instance, participants):
         if expected_launches is None:
@@ -746,27 +847,7 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
         executor = GraphExecutor(context)
 
         def local_run(prompt, what: str):
-            prompt = copy.deepcopy(prompt)
-            del prompt[save]
-            # every node runs, as on the servers below: a cached
-            # VAEEncodeForInpaint would launch no attention
-            context.extras.pop("node_cache", None)
-            if cuda:
-                torch.cuda.synchronize()
-            attn.reset_launch_counts()
-            started = time.perf_counter()
-            executor.execute(prompt)
-            images = executor.last_results[collector][0]
-            if cuda:
-                torch.cuda.synchronize()
-            seconds = time.perf_counter() - started
-            launches, by_instance = counts()
-            print(f"{label} local run, {what}: {seconds:.2f} s, {images.shape[0] / seconds:.4f} "
-                  f"images/s; flash_attention launches {launches}, by instance {by_instance}; "
-                  f"node times {executor.last_timings}")
-            _require(tuple(images.shape) == (1, *size), f"local output shape {tuple(images.shape)}")
-            _require(bool(torch.isfinite(images).all()), "non-finite local output")
-            return images[0].float(), launches, by_instance
+            return _local_run(torch, attn, executor, prompt, label, what, device, size)[:3]
 
         local = {}
         for s in (seed, seed + 1):
@@ -801,29 +882,8 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
                   f"{PAG_MIN_DIFF:.4f}, one 8-bit level)")
             _require(diff >= PAG_MIN_DIFF, "PAG does not change the image")
 
-        master_port, worker_port = _free_port(), _free_port()
-        config_path = os.path.join(tmp, "config.json")
-        config_mod.save_config({
-            "master": {"host": "127.0.0.1"},
-            "workers": [{"id": "w1", "name": "w1", "type": "remote", "host": "127.0.0.1",
-                         "port": worker_port, "enabled": True}],
-            "settings": settings,
-        }, config_path)
-        loop = ServerLoopThread()
-        loop.start()
-        master = DistributedServer(port=master_port, is_worker=False, config_path=config_path,
-                                   device=device)
-        worker = DistributedServer(port=worker_port, is_worker=True, config_path=config_path,
-                                   device=device)
-        for server in (master, worker):
-            server.execution_context.pipelines[ckpt] = bundle  # shared weights
-        try:
-            async def boot():
-                await master.start()
-                await worker.start()
-
-            asyncio.run_coroutine_threadsafe(boot(), loop.loop).result(timeout=60)
-            base = f"http://127.0.0.1:{master_port}"
+        with _serving(tmp, settings, device, {ckpt: bundle}) as (master, worker, base,
+                                                                 worker_port):
             for run in range(1, runs + 1):
                 # every run samples: the servers' node caches would hand a
                 # repeated prompt its last images
@@ -834,28 +894,14 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
                     torch.cuda.reset_peak_memory_stats()
                 attn.reset_launch_counts()
                 started = time.perf_counter()
-                status, queued = request_json("POST", f"{base}/distributed/queue", {
-                    "prompt": workflow, "client_id": "chip_smoke", "workers": ["w1"],
-                }, timeout=120)
-                _require(status == 200, f"/distributed/queue answered {status}: {queued}")
-                _require(queued.get("workers") == ["w1"],
-                         f"w1 was not dispatched (probe or dispatch failed): {queued}")
-                deadline = time.monotonic() + ELASTIC_RUN_TIMEOUT_S
-                history = _wait_done(request_json, f"{base}/history/{queued['prompt_id']}",
-                                     deadline)
-                worker_history = _wait_done(
-                    request_json,
-                    f"http://127.0.0.1:{worker_port}/history/{queued['trace_id']}_w0", deadline)
+                queued, history, worker_history = _queue(base, worker_port, workflow)
                 if cuda:
                     torch.cuda.synchronize()
                 seconds = time.perf_counter() - started
-                _require(history.get("error") is None, f"master prompt failed: {history}")
-                _require(worker_history.get("error") is None,
-                         f"worker prompt failed: {worker_history}")
                 _require(all(history["timings"].get(n, 0.0) > 0.0
                              and worker_history["timings"].get(n, 0.0) > 0.0 for n in samplers),
                          "a participant's sampler did not run")
-                launches, by_instance = counts()
+                launches, by_instance = _launch_counts(attn)
                 peak = torch.cuda.max_memory_allocated() if cuda else 0
                 # the master's collector cleans its job up once drained: its
                 # counts are in the store's finished records
@@ -907,16 +953,214 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
                 check_launches(launches, by_instance, 2)
                 result = {"launches": launches, "launches_by_instance": by_instance,
                           "images_per_s": out.shape[0] / seconds, "peak_gib": peak / 2**30}
-        finally:
-            async def teardown():
-                await master.stop()
-                await worker.stop()
-
-            try:
-                asyncio.run_coroutine_threadsafe(teardown(), loop.loop).result(timeout=60)
-            finally:
-                loop.stop()
     return result
+
+
+def _mismatched_parameters(torch, bundle, reference) -> list[str]:
+    """The parameters of `bundle` that are not torch.equal to
+    `reference`'s."""
+    wrong = []
+    for part, module in bundle.parts().items():
+        want = reference.parts()[part].state_dict()
+        wrong += [f"{part}.{name}" for name, value in module.state_dict().items()
+                  if not torch.equal(value, want[name])]
+    return wrong
+
+
+def _ckpt_phase(torch, gen, workflows: dict, device: str, expected: dict | None = None) -> dict:
+    """Real single-file checkpoints (see the module docstring): for each
+    workflow (by kernels-line path), its checkpoint written from weights
+    seeded at CKPT_SEED (with a seeded out_conv) as
+    `<tmp>/<ckpt>.safetensors` in f16, then the unmodified workflow POSTed
+    to a fresh master and w1 with CDT_CHECKPOINT_DIR=<tmp>, each server
+    loading the file. Every parameter of both loaded bundles must equal
+    the written weights rounded through f16 into the module's dtype;
+    image 0 must be the local run's on a bundle of those rounded weights
+    (RERUN_TOLERANCE), and apart, in max and mean, from the same seed on
+    the registry's default random init. `expected` maps a path to its
+    (launches, by instance) a run, unchecked when None (no card).
+    Returns each path's launches; the files are deleted."""
+    results = {}
+    env = os.environ.pop("CDT_CHECKPOINT_DIR", None)
+    try:
+        with tempfile.TemporaryDirectory(prefix="cdt_ckpt_") as tmp:
+            _ckpt_runs(torch, gen, workflows, device, expected, tmp, results)
+    finally:
+        if env is not None:
+            os.environ["CDT_CHECKPOINT_DIR"] = env
+    return results
+
+
+def _ckpt_runs(torch, gen, workflows: dict, device: str, expected: dict | None, tmp: str,
+               results: dict) -> None:
+    """`_ckpt_phase`'s runs, in `tmp`, CDT_CHECKPOINT_DIR unset around
+    them."""
+    from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
+    from comfyui_distributed_tpu_torch.models import pipeline as pl
+    from comfyui_distributed_tpu_torch.models import sd_checkpoint as sdc
+    from comfyui_distributed_tpu_torch.ops import attention as attn
+
+    cuda = device.startswith("cuda")
+    label = "[ckpt]"
+    settings = {"input_dir": os.path.join(tmp, "input"),
+                "output_dir": os.path.join(tmp, "output")}
+    for path_name, workflow in workflows.items():
+        loader = _node_id(workflow, "CheckpointLoaderSimple")
+        ckpt = workflow[loader]["inputs"]["ckpt_name"]
+        save = _node_id(workflow, "SaveImage")
+        size = (*_image_px(workflow), 3)
+        seed = int(workflow[_node_id(workflow, "DistributedSeed")]["inputs"]["seed"])
+
+        # the registry's default init, before the file exists
+        default_context = ExecutionContext(device=device, config={"settings": settings})
+        default, _, _, _ = _local_run(torch, attn, GraphExecutor(default_context), workflow,
+                                      label, f"{ckpt} seed {seed}, the default random init",
+                                      device, size)
+        del default_context
+
+        source = pl.load_pipeline(ckpt, seed=CKPT_SEED, device=device)
+        _seed_out_conv(torch, source, gen)
+        file = os.path.join(tmp, f"{ckpt}.safetensors")
+        if cuda:
+            torch.cuda.synchronize()
+        started = time.perf_counter()
+        nbytes = sdc.save_safetensors(sdc.synthesize_checkpoint(source), file,
+                                      dtype=torch.float16)
+        write_s = time.perf_counter() - started
+        # the weights a load gives: each written value, through f16, in
+        # its parameter's dtype
+        with torch.no_grad():
+            for module in source.parts().values():
+                for param in module.parameters():
+                    param.copy_(param.half().to(param.dtype))
+        direct_context = ExecutionContext(device=device, config={"settings": settings},
+                                          pipelines={ckpt: source})
+        direct, _, _, _ = _local_run(torch, attn, GraphExecutor(direct_context), workflow,
+                                     label, f"{ckpt} seed {seed}, the written weights direct",
+                                     device, size)
+        print(f"{label} {ckpt}: wrote {file} {nbytes} bytes (f16, seeded at {CKPT_SEED}) in "
+              f"{write_s:.2f} s ({nbytes / write_s / 1e9:.3f} GB/s)")
+
+        os.environ["CDT_CHECKPOINT_DIR"] = tmp
+        try:
+            with _serving(tmp, settings, device) as (master, worker, base, worker_port):
+                if cuda:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                attn.reset_launch_counts()
+                started = time.perf_counter()
+                queued, history, worker_history = _queue(base, worker_port, workflow)
+                if cuda:
+                    torch.cuda.synchronize()
+                seconds = time.perf_counter() - started
+                launches, by_instance = _launch_counts(attn)
+                peak = torch.cuda.max_memory_allocated() if cuda else 0
+                out = master.get_job(queued["prompt_id"]).outputs[save][0]["images"]
+                loads = {"master": history["timings"][loader],
+                         "w1": worker_history["timings"][loader]}
+                wrong = {who: _mismatched_parameters(torch, server.execution_context
+                                                     .pipelines[ckpt], source)
+                         for who, server in (("master", master), ("w1", worker))}
+        finally:
+            os.environ.pop("CDT_CHECKPOINT_DIR", None)
+        os.remove(file)
+        n_params = sum(p.numel() for m in source.parts().values()
+                       for p in m.parameters())
+        print(f"{label} {ckpt} run: {seconds:.2f} s, {out.shape[0] / seconds:.4f} images/s; "
+              f"file loads (CheckpointLoaderSimple node seconds): " + ", ".join(
+                  f"{who} {s:.2f} s ({nbytes / s / 1e9:.3f} GB/s)" for who, s in loads.items())
+              + f"; {n_params} parameters, not torch.equal to the written weights: master "
+              f"{len(wrong['master'])}, w1 {len(wrong['w1'])}; flash_attention launches "
+              f"{launches}, by instance {by_instance}; peak {peak / 2**30:.2f} GiB")
+        _require(not wrong["master"] and not wrong["w1"],
+                 f"loaded weights differ from the written ones: {wrong}")
+        _require(tuple(out.shape) == (2, *size), f"output shape {tuple(out.shape)}")
+        _require(bool(torch.isfinite(out).all()), "non-finite output")
+        _require(float(out.min()) >= 0.0 and float(out.max()) <= 1.0, "output outside [0, 1]")
+        d_direct = float((out[0].float() - direct.to(out.device)).abs().max())
+        apart = (out[0].float() - default.to(out.device)).abs()
+        print(f"{label} {ckpt} image 0 vs the written weights direct max |diff| "
+              f"{d_direct:.3g} (tolerance {RERUN_TOLERANCE}); vs the default random init "
+              f"max {float(apart.max()):.3g} and mean {float(apart.mean()):.3g} (each > "
+              f"{RERUN_TOLERANCE})")
+        _require(d_direct <= RERUN_TOLERANCE, "the served image is not the written weights'")
+        _require(float(apart.max()) > RERUN_TOLERANCE and float(apart.mean()) > RERUN_TOLERANCE,
+                 "the served image is the default random init's: the file was not read")
+        if expected is not None:
+            want_launches, want_by = expected[path_name]
+            _require(launches == want_launches and by_instance == want_by,
+                     f"{launches} attention launches by instance {by_instance}, expected "
+                     f"{want_launches}, {want_by}")
+        results[path_name] = {"launches": launches, "launches_by_instance": by_instance,
+                              "file_bytes": nbytes, "load_seconds": loads}
+        del source, direct_context
+
+
+def _samplers_phase(torch, bundle, workflow, device: str, check_launches: bool = False) -> dict:
+    """Every sampler and scheduler on the seed-parallel txt2img workflow,
+    locally (see the module docstring): each sampler but euler on the
+    workflow's scheduler, each scheduler but karras with euler. Each image
+    finite in [0, 1] with model_evals_per_scan's evaluations' launches
+    (`check_launches`: a card); a stochastic sampler's rerun at the seed
+    within RERUN_TOLERANCE and the next seed apart in max and mean.
+    Returns the phase's launches summed over its runs, and those of
+    SAMPLERS_ENTRY_SAMPLER's run alone (`entry_launches`,
+    `entry_by_instance`)."""
+    from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
+    from comfyui_distributed_tpu_torch.ops import attention as attn
+    from comfyui_distributed_tpu_torch.ops import samplers as smp
+
+    label = "[samplers]"
+    ckpt = workflow[_node_id(workflow, "CheckpointLoaderSimple")]["inputs"]["ckpt_name"]
+    ksampler = _node_id(workflow, "KSampler")
+    seed_node = _node_id(workflow, "DistributedSeed")
+    seed = int(workflow[seed_node]["inputs"]["seed"])
+    size = (*_image_px(workflow), 3)
+    base = workflow[ksampler]["inputs"]
+    variants = [{"sampler_name": s} for s in smp.SAMPLER_NAMES if s != base["sampler_name"]]
+    variants += [{"scheduler": s, "sampler_name": "euler"} for s in smp.SCHEDULER_NAMES
+                 if s != base["scheduler"]]
+    executor = GraphExecutor(ExecutionContext(device=device, pipelines={ckpt: bundle}))
+    total, by_total, seconds_by, entry = 0, {}, {}, None
+    for change in variants:
+        prompt = copy.deepcopy(workflow)
+        prompt[ksampler]["inputs"].update(change)
+        what = ", ".join(f"{k} {v}" for k, v in change.items())
+        runs = [(seed, "")]
+        if change["sampler_name"] in smp.STOCHASTIC_SAMPLERS:
+            runs += [(seed, ", rerun"), (seed + 1, "")]
+        images = []
+        for s, note in runs:
+            prompt[seed_node]["inputs"]["seed"] = s
+            image, launches, by_instance, seconds = _local_run(
+                torch, attn, executor, prompt, label, f"{what}, seed {s}{note}", device, size)
+            images.append(image)
+            seconds_by[f"{what}, seed {s}{note}"] = seconds
+            total += launches
+            by_total = {k: by_total.get(k, 0) + v for k, v in by_instance.items()}
+            if change == {"sampler_name": SAMPLERS_ENTRY_SAMPLER}:
+                entry = (launches, by_instance)
+            _require(float(image.min()) >= 0.0 and float(image.max()) <= 1.0,
+                     f"{what}: output outside [0, 1]")
+            if check_launches:
+                shapes = _txt2img_shapes(prompt)
+                want = _expected_by_instance(attn, shapes, torch)
+                _require(launches == sum(c for *_, c in shapes) and by_instance == want,
+                         f"{what}: {launches} attention launches by instance {by_instance}, "
+                         f"expected {want} ({_sampler_evals(prompt)} evaluations)")
+        if len(images) == 3:
+            rerun = float((images[1] - images[0]).abs().max())
+            apart = (images[2] - images[0]).abs()
+            print(f"{label} {what}: seed {seed} rerun max |diff| {rerun:.3g} (tolerance "
+                  f"{RERUN_TOLERANCE}); seed {seed + 1} vs {seed} max {float(apart.max()):.3g} "
+                  f"and mean {float(apart.mean()):.3g} (each > {RERUN_TOLERANCE})")
+            _require(rerun <= RERUN_TOLERANCE, f"{what}: a rerun of one seed disagrees")
+            _require(float(apart.max()) > RERUN_TOLERANCE
+                     and float(apart.mean()) > RERUN_TOLERANCE,
+                     f"{what}: two seeds give one image")
+    _require(entry is not None, f"no run of {SAMPLERS_ENTRY_SAMPLER}")
+    return {"launches": total, "launches_by_instance": by_total, "seconds": seconds_by,
+            "entry_launches": entry[0], "entry_by_instance": entry[1]}
 
 
 def _rounded(seconds: dict) -> dict:
@@ -936,7 +1180,7 @@ def main() -> int:
     from comfyui_distributed_tpu_torch.models import pipeline as pl
     from comfyui_distributed_tpu_torch.models.registry import get_config
     from comfyui_distributed_tpu_torch.ops import attention as attn
-    from comfyui_distributed_tpu_torch.ops.samplers import get_sigmas
+    from comfyui_distributed_tpu_torch.ops.samplers import get_sigmas, model_evals_per_scan
     from comfyui_distributed_tpu_torch.ops.upscale import plan_grid
     from comfyui_distributed_tpu_torch.utils import image as img_utils
 
@@ -967,8 +1211,12 @@ def main() -> int:
     sdxl, vae_cfg = get_config("sdxl"), get_config("vae-sd")
     te_len = get_config("clip-g").max_length
     tile_px = int(usdu["tile_width"]) + 2 * int(usdu["tile_padding"])
-    evals = get_sigmas(usdu["scheduler"], int(usdu["steps"]), float(usdu["denoise"])).shape[0] - 1
-    shapes = _attention_shapes(sdxl, vae_cfg, te_len, tile_px // vae_cfg.downscale, evals)
+    pairs = get_sigmas(usdu["scheduler"], int(usdu["steps"]), float(usdu["denoise"])).shape[0] - 1
+    shapes = _attention_shapes(sdxl, vae_cfg, te_len, tile_px // vae_cfg.downscale,
+                               model_evals_per_scan(usdu["sampler_name"], pairs))
+    # the samplers phase's elastic run: the same workflow on HTTP_SAMPLER
+    http_sampler_shapes = _attention_shapes(sdxl, vae_cfg, te_len, tile_px // vae_cfg.downscale,
+                                            model_evals_per_scan(HTTP_SAMPLER, pairs))
     per_tile = sum(count for *_, count in shapes)
     n_tiles = plan_grid(IMAGE_PX, IMAGE_PX, float(usdu["upscale_by"]), int(usdu["tile_width"]),
                         int(usdu["tile_padding"]), int(usdu["tile_height"]))[2].num_tiles
@@ -981,8 +1229,17 @@ def main() -> int:
             sd_workflows[tag] = json.load(fh)
     # every main-path unit's shapes: the SDXL upscale's tile, each seed-
     # parallel workflow's image
+    ckpt_workflows = {}
+    for path, name in CKPT_WORKFLOWS.items():
+        with open(os.path.join(REPO, "workflows", name), encoding="utf-8") as fh:
+            ckpt_workflows[path] = json.load(fh)
+    t2i_sampler = _node_id(t2i_workflow, "KSampler")
+    samplers_entry_workflow = copy.deepcopy(t2i_workflow)
+    samplers_entry_workflow[t2i_sampler]["inputs"]["sampler_name"] = SAMPLERS_ENTRY_SAMPLER
     path_shapes = {"upscale": shapes, "txt2img": t2i_shapes,
-                   **{tag: _txt2img_shapes(wf) for tag, wf in sd_workflows.items()}}
+                   **{tag: _txt2img_shapes(wf) for tag, wf in sd_workflows.items()},
+                   **{path: _txt2img_shapes(wf) for path, wf in ckpt_workflows.items()},
+                   "samplers": _txt2img_shapes(samplers_entry_workflow)}
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -1251,6 +1508,54 @@ def main() -> int:
         phase_seconds[tag] = time.perf_counter() - phase_started
     del bundle
     torch.cuda.empty_cache()
+
+    # --- 4e. ckpt: real single-file checkpoints over HTTP ------------------------
+    phase_started = time.perf_counter()
+
+    def per_run(path_name):
+        """(launches, by instance) of one run of a path: two images."""
+        return (2 * sum(count for *_, count in path_shapes[path_name]),
+                {name: 2 * count for name, count in
+                 _expected_by_instance(attn, path_shapes[path_name], torch).items()})
+
+    ckpt_results = _ckpt_phase(torch, gen, ckpt_workflows, "cuda",
+                               {path: per_run(path) for path in ckpt_workflows})
+    torch.cuda.empty_cache()
+    phase_seconds["ckpt"] = time.perf_counter() - phase_started
+
+    # --- 4f. samplers: every sampler and scheduler on SD1.5; HTTP_SAMPLER over
+    # the collector and over the elastic upscale ----------------------------------
+    phase_started = time.perf_counter()
+    bundle = pl.load_pipeline(t2i_ckpt, seed=0, device="cuda")
+    _seed_out_conv(torch, bundle, gen)
+    sampler_runs = [_samplers_phase(torch, bundle, t2i_workflow, "cuda", check_launches=True)]
+    http_workflow = copy.deepcopy(t2i_workflow)
+    http_workflow[t2i_sampler]["inputs"]["sampler_name"] = HTTP_SAMPLER
+    http_shapes = _txt2img_shapes(http_workflow)
+    sampler_runs.append(_txt2img_phase(
+        torch, bundle, http_workflow, "cuda", 2 * sum(count for *_, count in http_shapes),
+        {name: 2 * count for name, count in _expected_by_instance(attn, http_shapes, torch).items()},
+        runs=1, tag="samplers"))
+    del bundle
+    torch.cuda.empty_cache()
+    upscale_ckpt = workflow["1"]["inputs"]["ckpt_name"]
+    bundle = pl.load_pipeline(upscale_ckpt, seed=0, device="cuda")
+    _seed_out_conv(torch, bundle, gen)
+    http_upscale = copy.deepcopy(workflow)
+    http_upscale[USDU_NODE]["inputs"]["sampler_name"] = HTTP_SAMPLER
+    sampler_runs.append(_elastic_phase(
+        torch, bundle, upscale_ckpt, http_upscale, torch.from_numpy(seeded).to("cuda"), None,
+        "cuda", expected_launches=n_tiles * sum(count for *_, count in http_sampler_shapes),
+        expected_by_instance={name: n_tiles * count for name, count in _expected_by_instance(
+            attn, http_sampler_shapes, torch).items()}, runs=1, tag="samplers"))
+    del bundle
+    torch.cuda.empty_cache()
+    samplers_launches = sum(r["launches"] for r in sampler_runs)
+    samplers_by_instance = {name: sum(r["launches_by_instance"].get(name, 0) for r in sampler_runs)
+                            for name in attn.INSTANCES}
+    print(f"[samplers] seconds by run: {_rounded(sampler_runs[0]['seconds'])}; flash_attention "
+          f"launches over the phase {samplers_launches}, by instance {samplers_by_instance}")
+    phase_seconds["samplers"] = time.perf_counter() - phase_started
     print("[phases] seconds: " + ", ".join(f"{name} {sec:.1f}" for name, sec in
                                            phase_seconds.items()))
 
@@ -1263,7 +1568,10 @@ def main() -> int:
           "and w1 together; bound_by: the largest of the summed operations, bytes and "
           "exponentials terms. flash_attention_<workflow>: the same per image over every "
           "attention shape of that workflow (VAE included); launches: its run over HTTP, "
-          "master and w1 together")
+          "master and w1 together. flash_attention_ckpt_<model>: the same for the workflow "
+          "of that checkpoint file; launches: its run over HTTP. flash_attention_samplers: the "
+          f"same per SD1.5 image on {SAMPLERS_ENTRY_SAMPLER}; launches: that sampler's local "
+          "run in the samplers phase")
     source = "comfyui_distributed_tpu_torch/csrc/flash_attention.cu"
     replaces = "comfyui_distributed_tpu/ops/attention.py:80"
 
@@ -1312,6 +1620,31 @@ def main() -> int:
             "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
         }
         for tag in sd_workflows
+    ] + [
+        {
+            "name": f"flash_attention_{path}",
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": ckpt_results[path]["launches"],
+            "launches_by_instance": ckpt_results[path]["launches_by_instance"],
+            "max_abs_err": max_err[path],
+            **numbers(path),
+            "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
+        }
+        for path in ckpt_workflows
+    ] + [
+        {
+            "name": "flash_attention_samplers",
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": sampler_runs[0]["entry_launches"],
+            "launches_by_instance": sampler_runs[0]["entry_by_instance"],
+            "max_abs_err": max_err["samplers"],
+            **numbers("samplers"),
+            "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
+        },
     ]}
     print(json.dumps(kernels))
     print(_nvidia_smi())

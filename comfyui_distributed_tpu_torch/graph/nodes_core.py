@@ -1,12 +1,13 @@
 """Core workflow nodes of the upscale, txt2img, two-pass and inpaint
-workflows: checkpoint → clip-skip → text encode → empty latent or
-inpaint encode → sample (KSampler, KSamplerAdvanced) → decode, image
-load and save.
+workflows: checkpoint (and a standalone VAE) → clip-skip → text encode
+→ empty latent or inpaint encode → sample (KSampler, KSamplerAdvanced)
+→ decode, image load and save.
 
 Counterparts of the same-named nodes in comfyui_distributed_tpu/graph/
 nodes_core.py. Data contracts:
 
-    MODEL / CLIP / VAE — views over a models.pipeline.PipelineBundle
+    MODEL / CLIP / VAE — views over a models.pipeline.PipelineBundle (a
+                         VAE may also be VAELoader's VAEBundle)
     CONDITIONING       — ops.conditioning.Conditioning
     LATENT             — {"samples": [B, h, w, C]} dict (ComfyUI parity),
                          optionally with "noise_mask" (1 = regenerate)
@@ -87,6 +88,28 @@ class CheckpointLoaderSimple:
         # strip file extensions so ComfyUI workflow values map to registry names
         bundle = _get_bundle(context, os.path.splitext(str(ckpt_name))[0])
         return (bundle, bundle, bundle)
+
+
+@register_node
+class VAELoader:
+    """A standalone VAE: a registry VAE name (vae-sd, ...) whose weights
+    resolve through CDT_CHECKPOINT_DIR/<name>.{safetensors,ckpt} (a
+    standalone file's bare keys or a full checkpoint's first_stage_model
+    layout), else its seeded random init. Its output plugs into any VAE
+    input in place of the checkpoint's VAE; the USDU node swaps it into
+    a copy of the model's bundle (`dataclasses.replace`), so the cached
+    bundle keeps its own."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {"vae_name": ("STRING", {"default": "vae-sd"})}}
+
+    RETURN_TYPES = ("VAE",)
+    FUNCTION = "load_vae"
+
+    def load_vae(self, vae_name: str, context=None):
+        # workflows carry file names ("vae-sd.safetensors"): resolve by stem
+        return (pl.load_vae(os.path.splitext(str(vae_name))[0], device=_device(context)),)
 
 
 @register_node

@@ -22,7 +22,7 @@ from typing import Any
 
 from ..models import pipeline as pl
 from ..ops import upscale as upscale_ops
-from ..ops.samplers import SAMPLER_NAMES
+from ..ops.samplers import check_sampler_names
 from .registry import register_node
 
 _DYNAMIC_TODO = (
@@ -86,8 +86,7 @@ class UltimateSDUpscaleDistributed:
             is_worker=False, worker_id="", master_url="", job_id="",
             enabled_worker_ids=None, context=None, **_extra: Any):
         seed = getattr(seed, "base_seed", seed)  # accept SeedSpec links
-        if sampler_name not in SAMPLER_NAMES:
-            raise ValueError(f"unknown sampler {sampler_name!r}")
+        check_sampler_names(sampler_name, scheduler)
         if upscale_model is not None:
             raise NotImplementedError(_UPSCALE_MODEL_TODO)
         if vae is not None and vae.vae is not model.vae:

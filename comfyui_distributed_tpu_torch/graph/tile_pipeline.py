@@ -21,8 +21,8 @@ work moved to another stream would need an event the I/O thread waits
 on.
 
 Determinism: pipelining changes when tiles run, never their inputs:
-noise is drawn per GLOBAL tile index, so a requeued tile gives the same
-pixels wherever it runs.
+initial and step noise are drawn per GLOBAL tile index, so a requeued
+tile gives the same pixels wherever it runs.
 
 Interrupts: claimed-but-unsubmitted tiles go to the `release` callback
 on an interrupt (InterruptedError) so they requeue at once;

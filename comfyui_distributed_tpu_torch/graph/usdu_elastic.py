@@ -13,9 +13,9 @@ graph/usdu_elastic.py, for participants outside the master's process
           for requeued tiles → the composited canvas
 
 The tile processor is ops/upscale.py::_process_tile_fn with the same
-`noise` seam as `run_upscale`: the default draws a tile's noise from a
-generator seeded by (seed, global tile index), so a requeued tile is
-bit-identical wherever it runs. Worker tiles travel as 8-bit PNG data
+`noise` seam as `run_upscale`: the default draws a tile's initial and
+step noise from generators seeded by (seed, global tile index, stream),
+so a requeued tile is bit-identical wherever it runs. Worker tiles travel as 8-bit PNG data
 URLs and composite on the master's host canvas (ops/tiles.py); with
 CDT_DETERMINISTIC_BLEND=1 the canvas composites in sorted tile order, so
 the image does not depend on which participant finished first.

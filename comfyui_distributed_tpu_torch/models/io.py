@@ -11,7 +11,9 @@ onto a PyTorch parameter name by rule:
 - anything else (biases, position embeddings, the text projection)
   keeps its name and layout.
 
-Reading real SD safetensors comes with a later slice.
+Real single-file SD checkpoints (.safetensors, .ckpt) load through
+models/sd_checkpoint.py, whose key schedules name parameters by the same
+rule.
 """
 
 from __future__ import annotations

@@ -1,33 +1,43 @@
 """The model bundle, text conditioning and the guided model function.
 
 Counterpart of the parts of comfyui_distributed_tpu/models/pipeline.py
-that the ported paths run: `load_pipeline` (seeded random init; reading
-real checkpoints comes with a later slice), single-tower (SD1.5, SD2.1)
-and dual-tower (SDXL) text encoding with clip-skip, the model function
-(eps or v prediction, the adm vector of pooled text and six Fourier size
-embeddings), CFG with the PAG patch, and `img2img_latents` /
-`img2img_latents_advanced` (KSamplerAdvanced's window) / `txt2img`, each
-with the inpainting noise mask. Modules hold their own parameters, so
-the functions take the bundle where the JAX ones take (bundle, params).
+that the ported paths run: `load_pipeline` (a single-file SD1.x, SD2.x
+or SDXL checkpoint where one resolves, else seeded random init) and
+`load_vae`, single-tower (SD1.5, SD2.1) and dual-tower (SDXL) text
+encoding with clip-skip, the model function (eps or v prediction, the
+adm vector of pooled text and six Fourier size embeddings), CFG with the
+PAG patch, and `img2img_latents` / `img2img_latents_advanced`
+(KSamplerAdvanced's window) / `txt2img`, each with the inpainting noise
+mask. Modules hold their own parameters, so the functions take the
+bundle where the JAX ones take (bundle, params).
 
 Node patches (CLIPSetLastLayer's clip-skip, PerturbedAttentionGuidance's
 PAGSpec) return a new bundle through `dataclasses.replace`: the modules
 are shared, the bundle a graph executor caches is never changed.
 
-Initial noise: `jax.random` and `torch.Generator` give different
-numbers for one seed, so the samplers take a `noise` tensor; the tests
-hand it the JAX package's own draw. Its default is standard normals
-from a generator on the bundle's device seeded with `seed`.
+Noise: `jax.random` and `torch.Generator` give different numbers for one
+seed, so the samplers take a `noise` tensor (the initial noise) and a
+`step_noise` source (the stochastic samplers' draws); the tests hand
+them the JAX package's own. As the JAX package splits its key, the two
+are separate streams of the participant's seed: the initial noise
+standard normals from a generator seeded with `seed`, the step noise
+from one seeded with `stream_seed(seed, STEP_STREAM)`, both on the
+bundle's device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
+import time
 
 import torch
 
 from ..ops import samplers as smp
 from ..ops.conditioning import Conditioning, as_conditioning
+from ..utils.logging import log
+from . import sd_checkpoint as sdc
 from .io import random_init_
 from .layers import timestep_embedding
 from .registry import (
@@ -65,6 +75,14 @@ class PipelineBundle:
     # PerturbedAttentionGuidance patch (UNet family); None = no PAG pass
     pag: "PAGSpec | None" = None
 
+    def parts(self) -> dict[str, torch.nn.Module]:
+        """The modules by checkpoint part: unet, vae, te and, for a
+        dual-tower bundle, te2."""
+        parts = {"unet": self.unet, "vae": self.vae, "te": self.text_encoder}
+        if self.text_encoder_2 is not None:
+            parts["te2"] = self.text_encoder_2
+        return parts
+
 
 @dataclasses.dataclass(frozen=True)
 class PAGSpec:
@@ -75,25 +93,83 @@ class PAGSpec:
     scale: float = 3.0
 
 
+@dataclasses.dataclass
+class VAEBundle:
+    """A standalone VAE (VAELoader's output). It has the attributes the
+    VAE-consuming nodes read (`vae`, `device`, `latent_channels`,
+    `latent_scale`), so it replaces a checkpoint's VAE wherever one is
+    taken."""
+
+    vae: VAE
+    device: torch.device
+    latent_channels: int = 4
+    latent_scale: int = 8
+
+
 def _family_vae_name(model_name: str) -> str:
     return "tiny-vae" if model_name.startswith("tiny") else "vae-sd"
 
 
-def _build(name: str, device: torch.device, generator: torch.Generator):
+def _build(name: str, device: torch.device, generator: torch.Generator | None):
+    """The module for a registry name on `device`, its parameters drawn
+    from `generator`, or left unset for a checkpoint to fill (None)."""
     with torch.device("meta"):
         module = create_model(name)
     module = module.to_empty(device=device)
-    random_init_(module, generator)
+    if generator is not None:
+        random_init_(module, generator)
     return module.eval().requires_grad_(False)
 
 
-def load_pipeline(model_name: str = "tiny-unet", seed: int = 0, device="cuda") -> PipelineBundle:
-    """Build a pipeline with seeded random weights on `device` (the card
-    unless the caller asks for the CPU). Each module draws from its own
-    generator, seeded from `seed`, on the target device."""
+def _seed_generators(seed: int, device: torch.device):
+    """The generator of each module's random init: offset 0 the UNet, 1 the
+    VAE, 2 and 3 the text towers, each seeded from `seed` on `device`."""
+
+    def generator(offset: int) -> torch.Generator:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed) * 16 + offset)
+        return gen
+
+    return generator
+
+
+@contextlib.contextmanager
+def _loading(path: str, what: str):
+    """Logs a checkpoint file's bytes, seconds and rate once the block
+    that reads it has finished."""
+    log(f"loading checkpoint {path} for {what}")
+    started = time.perf_counter()
+    yield
+    seconds = time.perf_counter() - started
+    size = os.path.getsize(path)
+    log(f"loaded {path}: {size} bytes in {seconds:.2f} s ({size / max(seconds, 1e-9) / 1e9:.2f} "
+        "GB/s)")
+
+
+def _load_te_checkpoint(name: str, module: TextEncoder) -> None:
+    """Fill a text tower from `CDT_CHECKPOINT_DIR/<name>.*` (a standalone
+    CLIP file), where one resolves."""
+    path = sdc.find_checkpoint(name)
+    if not path:
+        return
+    with _loading(path, name), sdc.open_checkpoint(path) as state_dict:
+        sdc.load_clip_te_weights(state_dict, get_config(name), module)
+
+
+def load_pipeline(model_name: str = "tiny-unet", seed: int = 0, device="cuda",
+                  checkpoint: str | None = None) -> PipelineBundle:
+    """Build a pipeline on `device` (the card unless the caller asks for
+    the CPU). Its weights come from a single-file SD checkpoint where one
+    resolves: `checkpoint`, else `CDT_CHECKPOINT_DIR/<model_name>.*`
+    (models/sd_checkpoint.py::find_checkpoint); loading is strict. A text
+    tower the file does not carry is filled from
+    `CDT_CHECKPOINT_DIR/<encoder name>.*` where that exists. With no
+    checkpoint the weights are seeded random: each module draws from its
+    own generator, seeded from `seed`, on the target device."""
     if model_family(model_name) != "unet":
         raise NotImplementedError(
-            f"{model_name!r}: only UNet-family pipelines are ported so far"
+            f"{model_name!r}: only UNet-family pipelines are ported so far (ROADMAP.md, "
+            "Queue 1 item 5: other model families)"
         )
     device = torch.device(device)
     if model_name in DUAL_TEXT_ENCODERS:
@@ -103,26 +179,27 @@ def load_pipeline(model_name: str = "tiny-unet", seed: int = 0, device="cuda") -
     else:
         te_name, te2_name = ("tiny-te" if model_name.startswith("tiny") else "clip-l"), None
     vae_name = _family_vae_name(model_name)
+    ckpt_path = checkpoint or sdc.find_checkpoint(model_name)
+    # a checkpoint fills every parameter: no random draw for it to replace
+    generator = _seed_generators(seed, device)
+    init = (lambda offset: None) if ckpt_path else generator
 
-    def generator(offset: int) -> torch.Generator:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int(seed) * 16 + offset)
-        return gen
-
-    unet = _build(model_name, device, generator(0))
-    # zero-initialised as in the JAX package (its out_conv kernel_init):
-    # an untrained UNet predicts eps = 0
-    unet.out_conv.weight.zero_()
-    vae = _build(vae_name, device, generator(1))
-    te = _build(te_name, device, generator(2))
+    unet = _build(model_name, device, init(0))
+    if not ckpt_path:
+        # zero-initialised as in the JAX package (its out_conv kernel_init):
+        # an untrained UNet predicts eps = 0
+        unet.out_conv.weight.zero_()
+    vae = _build(vae_name, device, init(1))
+    te = _build(te_name, device, init(2))
     te_cfg = get_config(te_name)
     vae_cfg = get_config(vae_name)
     te2 = tok2 = None
     if te2_name:
-        te2 = _build(te2_name, device, generator(3))
+        te2 = _build(te2_name, device, init(3))
         te2_cfg = get_config(te2_name)
         tok2 = Tokenizer(max_length=te2_cfg.max_length, pad_id=te2_cfg.pad_token_id)
-    return PipelineBundle(
+
+    bundle = PipelineBundle(
         model_name=model_name,
         unet=unet,
         vae=vae,
@@ -136,6 +213,39 @@ def load_pipeline(model_name: str = "tiny-unet", seed: int = 0, device="cuda") -
         te_name=te_name,
         te2_name=te2_name,
     )
+    supplied: set[str] = set()
+    if ckpt_path:
+        with _loading(ckpt_path, model_name), sdc.open_checkpoint(ckpt_path) as state_dict:
+            sdc.load_sd_weights(state_dict, get_config(model_name), vae_cfg, te_cfg,
+                                bundle.parts(),
+                                te2_cfg=get_config(te2_name) if te2_name else None)
+            supplied = sdc.supplied_towers(state_dict)
+    # a separate text-encoder file fills a tower the checkpoint did not
+    # carry (a checkpoint's own, fine-tuned towers win)
+    for part, name in (("te", te_name), ("te2", te2_name)):
+        if name and part not in supplied:
+            _load_te_checkpoint(name, bundle.parts()[part])
+    return bundle
+
+
+def load_vae(vae_name: str = "vae-sd", seed: int = 0, device="cuda") -> VAEBundle:
+    """A standalone VAE on `device`: real weights where a checkpoint
+    resolves (`CDT_CHECKPOINT_DIR/<vae_name>.*`; a
+    standalone file's bare `encoder.` / `decoder.` keys or a full
+    checkpoint's `first_stage_model.*`), else the seeded random init
+    load_pipeline gives its VAE at `seed`."""
+    if model_family(vae_name) != "vae":
+        raise ValueError(f"{vae_name!r} is not an image-VAE config (family "
+                         f"{model_family(vae_name)!r}); use a vae-* registry name")
+    device = torch.device(device)
+    cfg = get_config(vae_name)
+    path = sdc.find_checkpoint(vae_name)
+    vae = _build(vae_name, device, None if path else _seed_generators(seed, device)(1))
+    if path:
+        with _loading(path, vae_name), sdc.open_checkpoint(path) as state_dict:
+            sdc.load_vae_weights(state_dict, cfg, vae)
+    return VAEBundle(vae=vae, device=device, latent_channels=cfg.latent_channels,
+                     latent_scale=cfg.downscale)
 
 
 # --- conditioning --------------------------------------------------------
@@ -271,6 +381,19 @@ def default_noise(seed: int, shape: tuple, device) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
 
 
+# the step-noise stream of a participant's seed (stream 0: initial noise)
+STEP_STREAM = 1
+
+
+def default_step_noise(seed: int, device) -> smp.StepNoise:
+    """The stochastic samplers' step noise: standard normals drawn in turn
+    from a generator on `device` seeded with stream_seed(seed,
+    STEP_STREAM)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(smp.stream_seed(seed, STEP_STREAM))
+    return smp.generator_step_noise(gen)
+
+
 def _latents_and_noise(bundle: PipelineBundle, latents, noise, seed: int):
     latents = torch.as_tensor(latents).to(device=bundle.device, dtype=torch.float32)
     if noise is None:
@@ -283,16 +406,17 @@ def _latents_and_noise(bundle: PipelineBundle, latents, noise, seed: int):
 
 def _masked_sample(bundle: PipelineBundle, cfg_scale: float, param: str, latents: torch.Tensor,
                    noise: torch.Tensor, x: torch.Tensor, sigmas: torch.Tensor, cond,
-                   sampler: str, noise_mask) -> torch.Tensor:
+                   sampler: str, step_noise: smp.StepNoise, noise_mask) -> torch.Tensor:
     """Guidance, the inpainting pin where a noise mask is given, the
-    trajectory, and the mask composite: the sampling core of
-    `img2img_latents` and `img2img_latents_advanced`."""
+    trajectory (with `step_noise` for a stochastic sampler), and the mask
+    composite: the sampling core of `img2img_latents` and
+    `img2img_latents_advanced`."""
     model = guided_model(bundle, float(cfg_scale))
     if noise_mask is not None:
         mask = torch.clamp(torch.as_tensor(noise_mask).to(bundle.device, torch.float32), 0.0, 1.0)
         model = smp.masked_inpaint_model(model, param, latents, noise, mask)
     cond = tuple(as_conditioning(c) for c in cond)
-    out = smp.sample(model, x, sigmas, cond, sampler)
+    out = smp.sample(model, x, sigmas, cond, sampler, step_noise)
     if noise_mask is not None:
         out = out * mask + latents * (1.0 - mask)
     return out
@@ -312,21 +436,24 @@ def img2img_latents(
     seed: int = 0,
     noise: torch.Tensor | None = None,
     noise_mask: torch.Tensor | None = None,
+    step_noise: smp.StepNoise | None = None,
 ) -> torch.Tensor:
     """Latent-space img2img (the JAX package's `img2img_latents`): noise
     the latents to sigma[denoise], sample back down under CFG. From
     zero latents at denoise 1 this is txt2img's sampling. The contexts are
     Conditionings or bare [B, T, D] tensors. Returns f32 latents on the
     bundle's device. `noise` (the latents' shape) replaces
-    `default_noise(seed, ...)`. `noise_mask` ([B, h, w, 1], 1 =
-    regenerate) keeps the rest of the latents (inpainting)."""
+    `default_noise(seed, ...)`, `step_noise` `default_step_noise(seed,
+    ...)`. `noise_mask` ([B, h, w, 1], 1 = regenerate) keeps the rest of
+    the latents (inpainting)."""
+    smp.check_sampler_names(sampler, scheduler)
     param = model_schedule_info(bundle)
     sigmas = smp.get_model_sigmas(param, scheduler, int(steps), denoise=float(denoise))
-    sigmas = sigmas.to(bundle.device)
     latents, noise = _latents_and_noise(bundle, latents, noise, seed)
     x = smp.noise_latents(param, latents, noise, sigmas[0])
     return _masked_sample(bundle, cfg_scale, param, latents, noise, x, sigmas,
-                          (context_pos, context_neg), sampler, noise_mask)
+                          (context_pos, context_neg), sampler,
+                          step_noise or default_step_noise(seed, bundle.device), noise_mask)
 
 
 def advanced_window_sigmas(parameterization: str, scheduler: str, steps: int,
@@ -361,15 +488,18 @@ def img2img_latents_advanced(
     force_full_denoise: bool = True,
     noise_mask: torch.Tensor | None = None,
     noise: torch.Tensor | None = None,
+    step_noise: smp.StepNoise | None = None,
 ) -> torch.Tensor:
     """KSamplerAdvanced's core: sample the [start_at_step, end_at_step]
     window of the full schedule. Without `add_noise` (the refine pass of
-    a two-pass workflow) the trajectory starts from the latents as given
-    and a masked pin uses zero noise; without `force_full_denoise` the
+    a two-pass workflow) the trajectory starts from the latents as given,
+    no initial noise is drawn and a masked pin uses zeros; a stochastic
+    sampler still draws its step noise. Without `force_full_denoise` the
     output keeps the window's leftover noise."""
+    smp.check_sampler_names(sampler, scheduler)
     param = model_schedule_info(bundle)
     window = advanced_window_sigmas(param, scheduler, steps, start_at_step, end_at_step,
-                                    force_full_denoise).to(bundle.device)
+                                    force_full_denoise)
     if add_noise:
         latents, noise = _latents_and_noise(bundle, latents, noise, seed)
         x = smp.noise_latents(param, latents, noise, window[0])
@@ -385,7 +515,8 @@ def img2img_latents_advanced(
             return x * mask + latents * (1.0 - mask)
         return x
     return _masked_sample(bundle, cfg_scale, param, latents, noise, x, window,
-                          (context_pos, context_neg), sampler, noise_mask)
+                          (context_pos, context_neg), sampler,
+                          step_noise or default_step_noise(seed, bundle.device), noise_mask)
 
 
 @torch.no_grad()
@@ -402,6 +533,7 @@ def txt2img(
     seed: int = 0,
     batch: int = 1,
     noise: torch.Tensor | None = None,
+    step_noise: smp.StepNoise | None = None,
 ) -> torch.Tensor:
     """Text → [batch, H, W, 3] images in [0, 1]: `img2img_latents` from
     zero latents at denoise 1, then the VAE decode (the graph's
@@ -413,5 +545,5 @@ def txt2img(
          bundle.latent_channels), device=bundle.device,
     )
     z = img2img_latents(bundle, latents, pos, neg, steps, sampler, scheduler, cfg_scale,
-                        1.0, seed, noise)
+                        1.0, seed, noise, step_noise=step_noise)
     return bundle.vae.decode(z)

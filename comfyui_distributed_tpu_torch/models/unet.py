@@ -66,7 +66,7 @@ class UNet(nn.Module):
         if config.freeu is not None:
             raise NotImplementedError(
                 "FreeU is not ported to the PyTorch UNet yet (ROADMAP.md, "
-                "Queue 1 item 2: the rest of the sampler, guidance and node catalogue)"
+                "Queue 1 item 2: the rest of the guidance and node catalogue)"
             )
         self.config = cfg = config
         dt = cfg.compute_dtype
@@ -145,8 +145,7 @@ class UNet(nn.Module):
         if control is not None or sag_capture:
             raise NotImplementedError(
                 "ControlNet residuals and SAG are not ported to the PyTorch UNet yet "
-                "(ROADMAP.md, Queue 1 item 2: the rest of the sampler, guidance and node "
-                "catalogue)"
+                "(ROADMAP.md, Queue 1 item 2: the rest of the guidance and node catalogue)"
             )
         cfg = self.config
         dt = cfg.compute_dtype

@@ -5,12 +5,14 @@ grid into padded tiles, and per tile VAE-encode, noise, sample under
 CFG, decode; then blend. Tiles run one after another on one device (the
 JAX package's scan at tile batch 1). The mesh tier is not ported yet.
 
-Per-tile noise comes from a callable `noise(tile_index, shape)`. Its
-default draws from a `torch.Generator` seeded by (seed, GLOBAL tile
-index), so a tile's noise does not depend on how tiles are grouped, as
-the JAX package's folded keys do not. `torch.Generator` and
-`jax.random` give different numbers; the tests hand the port the JAX
-package's own noise through this callable.
+Per-tile noise comes from a callable `noise(tile_index, shape)` (the
+initial noise); where it also has `step_noise(tile_index)`, that gives
+the stochastic samplers' step noise. The default, `TileNoise`, draws
+each from a `torch.Generator` seeded by (seed, GLOBAL tile index,
+stream), so a tile's noise does not depend on which participant runs it
+or how tiles are grouped, as the JAX package's keys folded with the tile
+index do not. `torch.Generator` and `jax.random` give different numbers;
+the tests hand the port the JAX package's own noise through this seam.
 """
 
 from __future__ import annotations
@@ -159,7 +161,8 @@ def prep_cond_for_tiles(cond, grid: tile_ops.TileGrid):
     not ported; text context and pooled vectors need no preparation."""
     if isinstance(cond, (list, tuple)):
         raise NotImplementedError(
-            "multi-entry conditioning (ConditioningCombine) is not ported yet"
+            "multi-entry conditioning (ConditioningCombine) is not ported yet (ROADMAP.md, "
+            "Queue 1 item 2: multi-entry and spatial conditioning)"
         )
     return as_conditioning(cond).clone()
 
@@ -169,28 +172,44 @@ def tile_cond(cond: Conditioning, y: int, x: int, grid: tile_ops.TileGrid) -> Co
     return cond.clone()
 
 
-def _tile_seed(seed: int, tile_index: int) -> int:
-    return (int(seed) * 1_000_003 + int(tile_index)) % (2**63)
+class TileNoise:
+    """A tile's noise by its GLOBAL index: calling it gives the initial
+    noise, standard normals from a generator seeded with stream_seed(seed,
+    tile index); `step_noise(tile_index)` the stochastic samplers' step
+    noise, from one seeded with stream_seed(seed, tile index,
+    STEP_STREAM)."""
+
+    def __init__(self, seed: int, device):
+        self.seed = int(seed)
+        self.device = device
+
+    def _generator(self, *indices: int) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(smp.stream_seed(self.seed, *indices))
+        return gen
+
+    def __call__(self, tile_index: int, shape: tuple) -> torch.Tensor:
+        return torch.randn(shape, generator=self._generator(tile_index), device=self.device,
+                           dtype=torch.float32)
+
+    def step_noise(self, tile_index: int) -> smp.StepNoise:
+        return smp.generator_step_noise(self._generator(tile_index, pl.STEP_STREAM))
 
 
-def default_noise(seed: int, device) -> NoiseFn:
-    """Standard-normal tile noise from a generator seeded by (seed,
-    global tile index)."""
-
-    def noise(tile_index: int, shape: tuple) -> torch.Tensor:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(_tile_seed(seed, tile_index))
-        return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-
-    return noise
+def default_noise(seed: int, device) -> TileNoise:
+    """The tiles' noise of `seed` on `device`."""
+    return TileNoise(seed, device)
 
 
 def _process_tile_fn(bundle: pl.PipelineBundle, grid: tile_ops.TileGrid, steps: int,
                      sampler: str, scheduler: str, cfg: float, denoise: float):
     """fn(tile, tile_index, noise, pos, neg, yx) → the processed tile;
-    pos/neg prepped by prep_cond_for_tiles."""
+    pos/neg prepped by prep_cond_for_tiles. `noise` is the tiles' noise
+    (see the module docstring): a stochastic sampler takes its
+    `step_noise(tile_index)`."""
+    smp.check_sampler_names(sampler, scheduler)
     param = pl.model_schedule_info(bundle)
-    sigmas = smp.get_model_sigmas(param, scheduler, steps, denoise=denoise).to(bundle.device)
+    sigmas = smp.get_model_sigmas(param, scheduler, steps, denoise=denoise)
     model_fn = pl.guided_model(bundle, cfg)
 
     def fn(tile, tile_index, noise, pos, neg, yx):
@@ -198,7 +217,9 @@ def _process_tile_fn(bundle: pl.PipelineBundle, grid: tile_ops.TileGrid, steps: 
         neg_t = tile_cond(neg, yx[0], yx[1], grid)
         z = bundle.vae.encode(tile)
         x = smp.noise_latents(param, z, noise(tile_index, tuple(z.shape)).to(z.device), sigmas[0])
-        z_out = smp.sample(model_fn, x, sigmas, (pos_t, neg_t), sampler)
+        step_noise = getattr(noise, "step_noise", None)
+        z_out = smp.sample(model_fn, x, sigmas, (pos_t, neg_t), sampler,
+                           step_noise(tile_index) if step_noise is not None else None)
         return bundle.vae.decode(z_out)
 
     return fn
@@ -252,7 +273,8 @@ def run_upscale(
             "the multi-GPU tier)"
         )
     if tiled_decode:
-        raise NotImplementedError("tiled VAE decode is not ported yet")
+        raise NotImplementedError("tiled VAE decode is not ported yet (ROADMAP.md, Queue 1 "
+                                  "item 2: tiled VAE)")
     image = torch.as_tensor(image, dtype=torch.float32).to(bundle.device)
     upscaled, grid, _ = prepare_upscaled_tiles(
         image, upscale_by, tile, padding, upscale_method, tile_h,

@@ -23,6 +23,7 @@ from comfyui_distributed_tpu_torch.models.registry import create_model, get_conf
 from comfyui_distributed_tpu_torch.ops import attention as attn
 from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
 from comfyui_distributed_tpu_torch.models import pipeline as tpl
+from comfyui_distributed_tpu_torch.ops import samplers as tsmp
 from comfyui_distributed_tpu_torch.ops.samplers import get_sigmas
 from comfyui_distributed_tpu_torch.utils import image as timg
 
@@ -411,3 +412,120 @@ def test_the_inpaint_checks_fail_when_the_pin_is_broken(broken, message, monkeyp
     with pytest.raises(RuntimeError, match=message):
         chip_smoke._txt2img_phase(torch, _tiny_bundle("tiny-unet"), _tiny_sd_workflow("inpaint"),
                                   "cpu", runs=1, tag="inpaint", image_px=32)
+
+
+# --- the checkpoint and samplers phases --------------------------------------------
+
+@pytest.mark.parametrize("sampler, evals", [
+    ("euler", 20), ("euler_ancestral", 20), ("dpmpp_2m_sde", 20), ("lcm", 20), ("heun", 39),
+    ("dpm_2", 39), ("dpm_2_ancestral", 39), ("dpmpp_2s_ancestral", 39), ("dpmpp_sde", 39),
+])
+def test_sampler_evals_count_second_order_samplers_twice(sampler, evals):
+    """A second-order sampler evaluates the UNet 2n - 1 times over n sigma
+    pairs (its last step, to sigma 0, is Euler); a two-pass workflow sums
+    its windows."""
+    workflow = _txt2img_workflow()
+    workflow["6"]["inputs"]["sampler_name"] = sampler
+    assert chip_smoke._sampler_evals(workflow) == evals
+    two_pass = _workflow("distributed-txt2img-2pass.json")
+    for node_id in chip_smoke._node_ids(two_pass, "KSamplerAdvanced"):
+        two_pass[node_id]["inputs"]["sampler_name"] = sampler
+    windows = (14, 6)
+    assert chip_smoke._sampler_evals(two_pass) == sum(
+        2 * n - 1 if evals == 39 else n for n in windows)
+
+
+def test_samplers_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread, counted_calls):
+    """The phase's local runs as the card runs them, on tiny-unet at 32 px
+    and 2 steps: every other sampler and scheduler once, each stochastic
+    sampler three times; every run launches the attention calls
+    `_txt2img_shapes` counts for its sampler."""
+    workflow = _tiny_txt2img_workflow()
+    result = chip_smoke._samplers_phase(torch, _tiny_bundle("tiny-unet"), workflow, "cpu")
+    lines = [line for line in capsys.readouterr().out.splitlines()
+             if line.startswith("[samplers]")]
+    stochastic = list(tsmp.STOCHASTIC_SAMPLERS)
+    variants = 11 + 7
+    assert len(result["seconds"]) == variants + 2 * len(stochastic)
+    assert len(lines) == variants + 2 * len(stochastic) + len(stochastic)
+
+    def per_image(sampler, scheduler="karras"):
+        prompt = copy.deepcopy(workflow)
+        prompt["6"]["inputs"].update(sampler_name=sampler, scheduler=scheduler)
+        return sum(count for *_, count in chip_smoke._txt2img_shapes(prompt, image_px=32))
+
+    samplers = [s for s in tsmp.SAMPLER_NAMES if s != "euler"]
+    want = sum(per_image(s) * (3 if s in stochastic else 1) for s in samplers)
+    want += sum(per_image("euler", s) for s in tsmp.SCHEDULER_NAMES if s != "karras")
+    # a second-order sampler: 2n - 1 UNet evaluations over n = 2 pairs
+    unet_calls = per_image("euler") - 1  # less the decode's one call
+    assert per_image("heun") == unet_calls // 2 * 3 + 1
+    assert result["launches"] == want == result["launches_by_instance"]["fma"]
+    # the kernels entry's run: SAMPLERS_ENTRY_SAMPLER's alone
+    entry = per_image(chip_smoke.SAMPLERS_ENTRY_SAMPLER)
+    assert result["entry_launches"] == entry == result["entry_by_instance"]["fma"]
+
+
+def test_the_http_sampler_runs_the_collector_and_the_elastic_tier_on_the_cpu(
+        capsys, one_torch_thread):
+    """HTTP_SAMPLER (stochastic) through the txt2img phase (w1's image is
+    the local run's at its own seed) and through the elastic phase with no
+    local run to hold the reference against (the tiles' step noise follows
+    their global index, wherever they run)."""
+    workflow = _tiny_txt2img_workflow()
+    workflow["6"]["inputs"]["sampler_name"] = chip_smoke.HTTP_SAMPLER
+    bundle = _tiny_bundle("tiny-unet")
+    chip_smoke._txt2img_phase(torch, bundle, workflow, "cpu", runs=1, tag="samplers")
+    upscale = _tiny_workflow()
+    upscale[chip_smoke.USDU_NODE]["inputs"]["sampler_name"] = chip_smoke.HTTP_SAMPLER
+    image = torch.from_numpy(timg.u8_to_f32(timg.f32_to_u8(
+        np.random.default_rng(0).random((1, 64, 64, 3), dtype=np.float32))))
+    chip_smoke._elastic_phase(torch, bundle, "tiny-unet", upscale, image, None, "cpu", runs=1,
+                              tag="samplers")
+    lines = [line for line in capsys.readouterr().out.splitlines()
+             if line.startswith("[samplers]")]
+    assert any("image 1 vs the local seed 43" in line for line in lines)
+    assert any("vs the local tiles composited alike" in line for line in lines)
+
+
+def _tiny_ckpt_workflows():
+    sd21 = _tiny_sd_workflow("sd21")
+    sd21[chip_smoke._node_id(sd21, "KSampler")]["inputs"]["steps"] = 2
+    return {"ckpt_sd15": _tiny_txt2img_workflow(), "ckpt_sd21": sd21}
+
+
+def test_ckpt_phase_writes_loads_and_checks_on_the_cpu(capsys, monkeypatch, one_torch_thread,
+                                                       counted_calls):
+    """The phase as the card runs it, on tiny models at 32 px: tiny-unet in
+    SD1.x's layout and tiny-unet-v with an OpenCLIP tower in SD2.x's, each
+    written in f16 by the port's writer, read and loaded by a fresh master
+    and w1 over HTTP: the weights equal, the image the direct run's and
+    not the default init's, the launches `_txt2img_shapes`'."""
+    from comfyui_distributed_tpu_torch.models import registry as treg
+
+    monkeypatch.setitem(treg.DEFAULT_TEXT_ENCODERS, "tiny-unet-v", "tiny-te-g")
+    monkeypatch.setenv("CDT_CHECKPOINT_DIR", "/nonexistent-elsewhere")
+    workflows = _tiny_ckpt_workflows()
+    expected = {}
+    for path, workflow in workflows.items():
+        per_image = sum(count for *_, count in chip_smoke._txt2img_shapes(workflow, image_px=32))
+        expected[path] = (2 * per_image, {"fma": 2 * per_image, "wgmma": 0, "wgmma512": 0})
+    results = chip_smoke._ckpt_phase(torch, torch.Generator().manual_seed(0), workflows, "cpu",
+                                     expected)
+    lines = [line for line in capsys.readouterr().out.splitlines() if line.startswith("[ckpt]")]
+    assert set(results) == set(workflows)
+    assert sum("not torch.equal to the written weights: master 0, w1 0" in line
+               for line in lines) == 2
+    assert sum("wrote" in line and "(f16" in line for line in lines) == 2
+    assert os.environ["CDT_CHECKPOINT_DIR"] == "/nonexistent-elsewhere"
+
+
+def test_ckpt_phase_fails_when_the_file_is_not_read(monkeypatch, one_torch_thread):
+    """A loader that ignores the file serves the default random init: the
+    weights check must fail."""
+    from comfyui_distributed_tpu_torch.models import sd_checkpoint as sdc
+
+    monkeypatch.setattr(sdc, "find_checkpoint", lambda name: None)
+    with pytest.raises(RuntimeError, match="loaded weights differ from the written ones"):
+        chip_smoke._ckpt_phase(torch, torch.Generator().manual_seed(0),
+                               {"ckpt_sd15": _tiny_txt2img_workflow()}, "cpu")

@@ -1,11 +1,13 @@
 """The PyTorch port imports no JAX, no flax and nothing of the JAX package,
-and no aiohttp and no PIL (the card's machine has neither).
+and no aiohttp, no PIL and no safetensors (the card's machine has none
+of them).
 
 tests/conftest.py imports jax at collection, so the runtime check runs
-in a fresh interpreter, where importing aiohttp or PIL raises. The
-static scan reads the port's sources (and chip_smoke.py, which drives
-the port on the card) for imports of `comfyui_distributed_tpu` that are
-not `comfyui_distributed_tpu_torch`, and of aiohttp and PIL.
+in a fresh interpreter, where importing aiohttp, PIL or safetensors
+raises. The static scan reads the port's sources (and chip_smoke.py,
+which drives the port on the card) for imports of
+`comfyui_distributed_tpu` that are not `comfyui_distributed_tpu_torch`,
+and of aiohttp, PIL and safetensors.
 """
 
 import ast
@@ -21,7 +23,7 @@ import importlib, importlib.abc, pkgutil, sys
 
 class Blocked(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("aiohttp", "PIL"):
+        if name.split(".")[0] in ("aiohttp", "PIL", "safetensors"):
             raise ImportError(name + " is blocked: the card's machine has none")
         return None
 
@@ -32,7 +34,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax",
-             "comfyui_distributed_tpu", "aiohttp", "PIL"))
+             "comfyui_distributed_tpu", "aiohttp", "PIL", "safetensors"))
 print("modules=%d" % len(names))
 print("outside=" + ",".join(bad))
 """
@@ -55,7 +57,8 @@ def test_the_server_and_the_elastic_tier_are_among_the_imported_modules():
     for module in ("api/server.py", "api/httpd.py", "api/usdu_routes.py", "api/job_routes.py",
                    "api/orchestration/dispatch.py", "graph/usdu_elastic.py",
                    "graph/tile_pipeline.py", "jobs/store.py", "utils/image.py", "__main__.py",
-                   "graph/nodes_distributed.py", "parallel/collective.py"):
+                   "graph/nodes_distributed.py", "parallel/collective.py",
+                   "models/sd_checkpoint.py"):
         assert os.path.join("comfyui_distributed_tpu_torch", module) in names
 
 
@@ -84,7 +87,8 @@ def test_port_sources_import_nothing_of_the_jax_package():
         n_files += 1
         for module in _imported_modules(path):
             top = module.split(".")[0]
-            if top in ("jax", "jaxlib", "flax", "comfyui_distributed_tpu", "aiohttp", "PIL"):
+            if top in ("jax", "jaxlib", "flax", "comfyui_distributed_tpu", "aiohttp", "PIL",
+                       "safetensors"):
                 offenders.append(f"{os.path.relpath(path, REPO)}: {module}")
     assert n_files >= 40
     assert offenders == []

@@ -96,38 +96,51 @@ def test_seeded_params_fill_every_leaf_of_flax_init(name):
         assert np.abs(a["params/out_conv/kernel"]).max() > 0
 
 
-def jax_and_port_bundles(model_name, te_name="tiny-te", vae_name="tiny-vae", seed=0):
-    """(JAX bundle, port bundle on the CPU) of a tiny single-tower UNet
-    checkpoint in f32, with the same numpy-seeded weights in both: UNet
-    (its out_conv non-zero), VAE and text encoder. The registries hold
-    float32 configs only while the modules are built."""
+def jax_and_port_bundles(model_name, te_name="tiny-te", vae_name="tiny-vae", seed=0,
+                         te2_name=None):
+    """(JAX bundle, port bundle on the CPU) of a tiny UNet checkpoint in
+    f32, with the same numpy-seeded weights in both: UNet (its out_conv
+    non-zero), VAE and text encoder(s); `te2_name` adds the second tower
+    of the SDXL layout. The registries hold float32 configs only while
+    the modules are built."""
     from comfyui_distributed_tpu.models import pipeline as jpl
     from comfyui_distributed_tpu.models import text_encoder as jte
     from comfyui_distributed_tpu_torch.models import pipeline as tpl
     from comfyui_distributed_tpu_torch.models import registry as treg
     from comfyui_distributed_tpu_torch.models.io import from_jax_params
 
+    names = [n for n in (model_name, te_name, vae_name, te2_name) if n]
     with pytest.MonkeyPatch.context() as mp:
         for registry in (jreg.MODEL_REGISTRY, treg.MODEL_REGISTRY):
-            for name in (model_name, te_name, vae_name):
+            for name in names:
                 mp.setitem(registry, name, {**registry[name], "config": f32(registry[name]["config"])})
         unet, vae, te = (jreg.create_model(n) for n in (model_name, vae_name, te_name))
         te_cfg, vae_cfg = jreg.get_config(te_name), jreg.get_config(vae_name)
         ctx_dim = jreg.get_config(model_name).context_dim
+        tokens = jnp.zeros((1, te_cfg.max_length), jnp.int32)
         params = {
             "unet": seeded_flax_params(unet, seed + 1, jnp.zeros((1, 16, 16, 4)), jnp.zeros((1,)),
                                        jnp.zeros((1, te_cfg.max_length, ctx_dim))),
             "vae": seeded_flax_params(vae, seed + 2, jnp.zeros((1, 32, 32, 3))),
-            "te": seeded_flax_params(te, seed + 3, jnp.zeros((1, te_cfg.max_length), jnp.int32)),
+            "te": seeded_flax_params(te, seed + 3, tokens),
         }
+        te2 = tok2 = None
+        if te2_name:
+            te2 = jreg.create_model(te2_name)
+            te2_cfg = jreg.get_config(te2_name)
+            params["te2"] = seeded_flax_params(te2, seed + 4, tokens)
+            tok2 = jte.Tokenizer(max_length=te2_cfg.max_length, pad_id=te2_cfg.pad_token_id)
         jb = jpl.PipelineBundle(
             model_name=model_name, unet=unet, vae=vae, text_encoder=te, params=params,
             tokenizer=jte.Tokenizer(max_length=te_cfg.max_length, pad_id=te_cfg.pad_token_id),
             latent_channels=vae_cfg.latent_channels, latent_scale=vae_cfg.downscale,
-            te_name=te_name,
+            te_name=te_name, text_encoder_2=te2, tokenizer_2=tok2, te2_name=te2_name,
         )
         tb = tpl.load_pipeline(model_name, seed=0, device="cpu")
-    for part, module in (("unet", tb.unet), ("vae", tb.vae), ("te", tb.text_encoder)):
+    parts = [("unet", tb.unet), ("vae", tb.vae), ("te", tb.text_encoder)]
+    if te2_name:
+        parts.append(("te2", tb.text_encoder_2))
+    for part, module in parts:
         module.load_state_dict(from_jax_params(flatten_params(params[part]), module))
     return jb, tb
 
@@ -159,3 +172,42 @@ def run_workflow_in_both(workflow, jb, tb, monkeypatch, config=None):
     tout = GraphExecutor(ExecutionContext(device="cpu", config=config, pipelines={ckpt: tb}))
     return (np.asarray(jout.execute(workflow)[sink][0]["images"]),
             tout.execute(workflow)[sink][0]["images"].numpy())
+
+
+def jax_step_noise(key, sampler):
+    """The step noise the JAX package's stochastic `sampler` draws from
+    `key` (its anc_key), as the port's StepNoise callable: each step
+    splits the chain's key two ways (three for dpmpp_sde), keeps the
+    first as the chain's and draws slot s from normal(subkey s + 1)."""
+    arity = 3 if sampler == "dpmpp_sde" else 2
+    subs = []
+    chain = [key]
+
+    def draw(step, slot, like):
+        while len(subs) <= step:
+            parts = jax.random.split(chain[0], arity)
+            chain[0] = parts[0]
+            subs.append(parts[1:])
+        return torch.from_numpy(np.array(
+            jax.random.normal(subs[step][slot], tuple(like.shape), jnp.float32))).to(like.device)
+
+    return draw
+
+
+class JaxTileNoise:
+    """The JAX package's tile noise as the port's tile-noise seam: tile
+    g's key is fold_in(key(seed), g), split into its initial noise key
+    and its samplers' step-noise key."""
+
+    def __init__(self, seed, sampler="euler"):
+        self.key = jax.random.key(seed)
+        self.sampler = sampler
+
+    def _keys(self, tile_index):
+        return jax.random.split(jax.random.fold_in(self.key, tile_index))
+
+    def __call__(self, tile_index, shape):
+        return torch.from_numpy(np.array(jax.random.normal(self._keys(tile_index)[0], shape)))
+
+    def step_noise(self, tile_index):
+        return jax_step_noise(self._keys(tile_index)[1], self.sampler)

@@ -133,10 +133,13 @@ def test_sigma_to_timestep_matches_jax():
 
 
 def test_unported_samplers_and_schedulers_raise():
-    with pytest.raises(NotImplementedError, match="normal"):
-        tsmp.get_sigmas("normal", 10)
-    with pytest.raises(NotImplementedError, match="heun"):
-        tsmp.sample(lambda x, s, c: x, torch.zeros(1), torch.zeros(2), None, "heun")
+    # every VP sampler and scheduler is ported; flow schedules are not
+    with pytest.raises(NotImplementedError, match="flow"):
+        tsmp.get_model_sigmas("flow", "normal", 10)
+    with pytest.raises(ValueError, match="unknown scheduler"):
+        tsmp.get_sigmas("linear", 10)
+    with pytest.raises(ValueError, match="requires step noise"):
+        tsmp.sample(lambda x, s, c: x, torch.zeros(1), torch.zeros(2), None, "euler_ancestral")
     with pytest.raises(ValueError, match="unknown sampler"):
         tsmp.sample(lambda x, s, c: x, torch.zeros(1), torch.zeros(2), None, "eulr")
 
