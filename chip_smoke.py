@@ -115,6 +115,34 @@ Phases, each printing lines tagged with its name:
              of the upscale workflow on a fresh seeded SDXL bundle, within
              RERUN_TOLERANCE of the local tiles composited the elastic way
              (step noise follows the global tile index).
+   usdu_full - on the samplers phase's SDXL, the upscale workflow with
+             what users wire into it, added in memory (`_usdu_full_workflow`:
+             UpscaleModelLoader 4x-generic into the USDU node,
+             ControlNetLoader tile + ControlNetApplyAdvanced on both
+             conditionings with LoadImage's image as the hint,
+             CLIPTextEncodeSDXL at 2048 px with a 1024-px target, tiled
+             decode); the upscaler's tail and the ControlNet's conv_out
+             seeded non-zero. Once locally (tiles/s, peak memory, the
+             upscale model's and the tiled decode's seconds; 5605 launches
+             a tile: 5600 wgmma for the batch-1 positive and negative
+             passes, 5 wgmma512 for the encode and four 80-latent decode
+             pieces), once with the ControlNet's conv_out zeroed (the same
+             launches, at least CONTROLNET_MIN_DIFF apart) and once at
+             strength 0 (printed: the batched CFG pair's distance from the
+             zero-residual run), and as master + w1 over HTTP: every
+             tile once, the output within RERUN_TOLERANCE of the local tiles
+             composited the elastic way, the two participants' pre-upscaled
+             images equal, and tile 0's tiled decode within
+             TILED_DECODE_TOLERANCE (mean |diff|) of its whole decode.
+   guidance - on SD1.5, the txt2img workflow locally at seed 42 under
+             FreeU_V2, FreeU, SelfAttentionGuidance and RescaleCFG (a patch
+             node before KSampler) and with an area entry (a second prompt
+             over the top half, progress [0, 0.5)), each finite in [0, 1],
+             at least GUIDANCE_MIN_DIFF from the unpatched image, launching
+             641 (FreeU, RescaleCFG), 1901 (SAG: a batch-1 capture pass with
+             a plain middle self-attention and a batch-1 degraded pass an
+             evaluation) or 1921 (area: three batch-1 passes) times; then
+             SAG as master + w1 through the collector, as txt2img.
    phases  - each phase's seconds.
 5. kernels - one JSON line per the port's kernel contract: entry
              flash_attention over the upscale path (`launches`: the elastic
@@ -127,7 +155,10 @@ Phases, each printing lines tagged with its name:
              (`launches`: its run) and flash_attention_samplers over one
              SD1.5 image on SAMPLERS_ENTRY_SAMPLER (`launches`: that
              sampler's local run in the samplers phase; the phase's total
-             stands on its [samplers] line).
+             stands on its [samplers] line), flash_attention_usdu_full per
+             usdu_full tile (`launches`: its local run) and
+             flash_attention_guidance per SAG image (`launches`: its local
+             image).
 
 The card's nvidia-smi line and then {"ok": true, "device": ...} close
 the output. Without a CUDA device, or without the port's package beside
@@ -221,6 +252,36 @@ CKPT_SEED = 7
 # image its kernels-line entry sums (second order: 39 evaluations)
 HTTP_SAMPLER = "euler_ancestral"
 SAMPLERS_ENTRY_SAMPLER = "heun"
+# the usdu_full phase: the upscale workflow with what users wire into it,
+# added in memory (the file is not edited): an upscale model before the
+# tiles, ControlNet tile (LoadImage's image as the hint) on both
+# conditionings, the positive as CLIPTextEncodeSDXL (2048-px size
+# conditioning, a 1024-px target) and tiled decode
+USDU_FULL_UPSCALER = "4x-generic"
+USDU_FULL_CONTROLNET = "tile"
+USDU_FULL_SIZE_COND = (2048, 1024)  # CLIPTextEncodeSDXL's size and target
+# the ControlNet must move the output by at least one 8-bit level
+CONTROLNET_MIN_DIFF = 1.0 / 255
+# mean |diff| of a tile's latents decoded in tiles (GroupNorm statistics
+# per piece) against the whole decode, on [0, 1] pixels. Derived on the
+# CPU before any chip run and never widened: tests/test_torch_tiled_
+# decode_tolerance.py holds it above the right tiled decode (means
+# 0.040-0.055 at 18 latents) and below one with its pieces misplaced
+# (0.124-0.140); the max bounds nothing (0.70-0.98 for the right decode)
+TILED_DECODE_TOLERANCE = 0.08
+# the guidance phase: txt2img with one patch node between the checkpoint
+# and KSampler, each at these inputs, and a positive combined with an
+# area entry over the image's top half, gated to progress [0, 0.5)
+GUIDANCE_PATCHES = {
+    "FreeU_V2": {"b1": 1.3, "b2": 1.4, "s1": 0.9, "s2": 0.2},
+    "FreeU": {"b1": 1.1, "b2": 1.2, "s1": 0.9, "s2": 0.2},
+    "SelfAttentionGuidance": {"scale": 0.5, "blur_sigma": 2.0},
+    "RescaleCFG": {"multiplier": 0.7},
+}
+AREA_PROMPT = "a red sailing boat"
+AREA_WINDOW = (0.0, 0.5)
+# each guidance image must move the unpatched one by an 8-bit level
+GUIDANCE_MIN_DIFF = 1.0 / 255
 
 
 def _require(ok: bool, message: str) -> None:
@@ -276,43 +337,55 @@ def _heads(unet_cfg, width: int) -> tuple[int, int]:
 def _attention_shapes(unet_cfg, vae_cfg, te_len: int, latent_hw: int, evals: int,
                       vae_calls: int = 2, perturbed_evals: int = 0):
     """(label, q shape [B, N, H, D], M, launches per run) of every
-    attention call one tile (or image) makes: CFG doubles the UNet batch;
-    each level with transformers runs depth x (res blocks down + res
-    blocks + 1 up) blocks; the mid block, at the last level's width and
-    side, max(depth, 1); each block one self- and one cross-attention;
-    the VAE `vae_calls` mid-block attentions (2: encode and decode, as a
-    tile or an inpaint image; 1: decode only, as txt2img). Each of the
-    `perturbed_evals` PAG passes runs the UNet again at batch 1 without
-    the mid block's self-attention (identity there: no call)."""
-    shapes = []
+    attention call one tile (or image) makes: `evals` CFG-batched UNet
+    evaluations (see `_unet_shapes`); `perturbed_evals` PAG passes at
+    batch 1; the VAE's `vae_calls` mid-block attentions (2: encode and
+    decode, as a tile or an inpaint image; 1: decode only, as txt2img)."""
+    hw = (latent_hw, latent_hw)
+    shapes = _unet_shapes(unet_cfg, te_len, hw, 2, evals)
+    if perturbed_evals:
+        shapes += _unet_shapes(unet_cfg, te_len, hw, 1, perturbed_evals, pag=True,
+                               tag="batch-1 ")
+    shapes.append(_vae_shape(vae_cfg, latent_hw, vae_calls))
+    return shapes
+
+
+def _unet_shapes(unet_cfg, te_len: int, hw: tuple, batch: int, evals: int,
+                 pag: bool = False, sag_capture: bool = False, tag: str = ""):
+    """(label, q shape, M, calls) of `evals` UNet evaluations at `batch` on
+    an h x w latent (each level halves it, rounding up): each level with
+    transformers runs depth x (res blocks down + res blocks + 1 up)
+    blocks, the middle block max(depth, 1) at the last level's width and
+    side; every block one self- and one cross-attention. As the UNet's
+    flags of the same names: under `pag` the middle block's
+    self-attentions make no call (identity), under `sag_capture` its
+    first one (taken plain)."""
     ch = unet_cfg.model_channels
     last = len(unet_cfg.channel_mult) - 1
-    levels, mids = {}, {}
+    shapes = []
+    h, w = hw
     for level, mult in enumerate(unet_cfg.channel_mult):
         depth = unet_cfg.transformer_depth[level]
-        side = latent_hw // 2**level
-        if depth:
-            levels[(side, ch * mult)] = depth * (2 * unet_cfg.num_res_blocks + 1)
+        blocks = depth * (2 * unet_cfg.num_res_blocks + 1) if depth else 0
+        self_blocks = blocks
         if level == last:
-            mid = (side, ch * mult)
-            mids[mid] = max(depth, 1)
-            levels[mid] = levels.get(mid, 0) + mids[mid]
-    for (side, width), blocks in levels.items():
-        q = (2, side * side, *_heads(unet_cfg, width))
-        shapes.append((f"self@{side * side}", q, side * side, blocks * evals))
-        shapes.append((f"cross@{side * side}", q, te_len, blocks * evals))
-    if perturbed_evals:
-        for (side, width), blocks in levels.items():
-            q = (1, side * side, *_heads(unet_cfg, width))
-            self_blocks = blocks - mids.get((side, width), 0)
+            mid = max(depth, 1)
+            blocks += mid
+            self_blocks = blocks - (mid if pag else 1 if sag_capture else 0)
+        if blocks:
+            q = (batch, h * w, *_heads(unet_cfg, ch * mult))
             if self_blocks:
-                shapes.append((f"batch-1 self@{side * side}", q, side * side,
-                               self_blocks * perturbed_evals))
-            shapes.append((f"batch-1 cross@{side * side}", q, te_len, blocks * perturbed_evals))
-    n = latent_hw * latent_hw
-    width = vae_cfg.base_channels * vae_cfg.channel_mult[-1]
-    shapes.append((f"vae@{n}", (1, n, 1, width), n, vae_calls))
+                shapes.append((f"{tag}self@{h * w}", q, h * w, self_blocks * evals))
+            shapes.append((f"{tag}cross@{h * w}", q, te_len, blocks * evals))
+        h, w = -(-h // 2), -(-w // 2)
     return shapes
+
+
+def _vae_shape(vae_cfg, latent_side: int, calls: int):
+    """The VAE's mid-block attention at a square latent of `latent_side`."""
+    n = latent_side * latent_side
+    width = vae_cfg.base_channels * vae_cfg.channel_mult[-1]
+    return (f"vae@{n}", (1, n, 1, width), n, calls)
 
 
 def _expected_by_instance(attn, shapes, torch) -> dict:
@@ -405,10 +478,7 @@ def _seed_out_conv(torch, bundle, gen) -> None:
     """A seeded non-zero out_conv (N(0, 1/fan_in)), so the UNet's output
     counts: random-init bundles start it at zero, as the JAX package
     does."""
-    out_w = bundle.unet.out_conv.weight
-    with torch.no_grad():
-        out_w.copy_(torch.randn(out_w.shape, generator=gen, device=out_w.device)
-                    / math.sqrt(out_w[0].numel()))
+    _seed_weight(torch, bundle.unet.out_conv.weight, gen)
 
 
 def _bounds(q_shape, m: int, dtype: str, sms: int, clock_mhz: float) -> dict:
@@ -1163,6 +1233,425 @@ def _samplers_phase(torch, bundle, workflow, device: str, check_launches: bool =
             "entry_launches": entry[0], "entry_by_instance": entry[1]}
 
 
+def _seed_weight(torch, weight, gen) -> None:
+    """`weight` drawn N(0, 1/fan_in) from `gen`, in place: the output convs
+    (the UNet's out_conv, the ControlNet's conv_out, the upscaler's tail)
+    start at zero, as the JAX package's do, and would hide their model."""
+    with torch.no_grad():
+        weight.copy_(torch.randn(weight.shape, generator=gen, device=weight.device)
+                     / math.sqrt(weight[0].numel()))
+
+
+def _usdu_full_workflow(workflow):
+    """The upscale workflow with USDU_FULL's nodes added in memory: an
+    UpscaleModelLoader into the USDU node's upscale_model, a
+    ControlNetLoader and ControlNetApplyAdvanced (strength 1 over the
+    whole schedule, LoadImage's image as the hint) on both
+    conditionings, the positive re-encoded by CLIPTextEncodeSDXL with the
+    same text, and tiled_decode."""
+    prompt = copy.deepcopy(workflow)
+    usdu = prompt[USDU_NODE]["inputs"]
+    loader = _node_id(prompt, "CheckpointLoaderSimple")
+    load_image = _node_id(prompt, "LoadImage")
+    positive, negative = usdu["positive"][0], usdu["negative"][0]
+    text = prompt[positive]["inputs"]["text"]
+    size, target = USDU_FULL_SIZE_COND
+    free = max(int(k) for k in prompt) + 1
+    upscaler, net, apply = (str(free + i) for i in range(3))
+    prompt[positive] = {"class_type": "CLIPTextEncodeSDXL", "inputs": {
+        "clip": prompt[positive]["inputs"]["clip"], "width": size, "height": size,
+        "crop_w": 0, "crop_h": 0, "target_width": target, "target_height": target,
+        "text_g": text, "text_l": text}}
+    prompt[upscaler] = {"class_type": "UpscaleModelLoader",
+                        "inputs": {"model_name": USDU_FULL_UPSCALER}}
+    prompt[net] = {"class_type": "ControlNetLoader", "inputs": {
+        "control_net_name": USDU_FULL_CONTROLNET, "model": [loader, 0]}}
+    prompt[apply] = {"class_type": "ControlNetApplyAdvanced", "inputs": {
+        "positive": [positive, 0], "negative": [negative, 0], "control_net": [net, 0],
+        "image": [load_image, 0], "strength": 1.0, "start_percent": 0.0, "end_percent": 1.0}}
+    usdu.update(positive=[apply, 0], negative=[apply, 1], upscale_model=[upscaler, 0],
+                tiled_decode=True)
+    return prompt
+
+
+def _usdu_full_shapes(workflow, image_px: int = IMAGE_PX):
+    """The attention calls of one usdu_full tile: the UNet at batch 1 for
+    the positive and again for the negative (a ControlNet keeps the CFG
+    pair apart) at each evaluation, the VAE encode of the padded tile,
+    and the tiled decode's pieces (ops/tiled_vae.py's 64-latent tiles
+    with 8 of overlap, or the whole tile where it fits one)."""
+    from comfyui_distributed_tpu_torch.models.registry import DUAL_TEXT_ENCODERS, get_config
+    from comfyui_distributed_tpu_torch.ops.samplers import get_sigmas, model_evals_per_scan
+    from comfyui_distributed_tpu_torch.ops.tiles import calculate_tiles
+
+    o = _usdu_options(workflow)
+    ckpt = workflow[_node_id(workflow, "CheckpointLoaderSimple")]["inputs"]["ckpt_name"]
+    unet_cfg, vae_cfg = get_config(ckpt), get_config("vae-sd")
+    te_len = get_config(DUAL_TEXT_ENCODERS[ckpt][1]).max_length
+    pairs = get_sigmas(o["scheduler"], int(o["steps"]), float(o["denoise"])).shape[0] - 1
+    evals = model_evals_per_scan(o["sampler_name"], pairs)
+    side = (int(o["tile_width"]) + 2 * int(o["tile_padding"])) // vae_cfg.downscale
+    shapes = _unet_shapes(unet_cfg, te_len, (side, side), 1, 2 * evals, tag="batch-1 ")
+    shapes.append(_vae_shape(vae_cfg, side, 1))
+    if side <= 64:
+        shapes.append(_vae_shape(vae_cfg, side, 1))
+    else:
+        grid = calculate_tiles(side, side, 64, 64, 8)
+        shapes.append(_vae_shape(vae_cfg, grid.padded_h, grid.num_tiles))
+    return shapes
+
+
+def _guidance_variants(workflow, image_px: int = IMAGE_PX) -> dict:
+    """name → the txt2img workflow with one GUIDANCE_PATCHES node between
+    the checkpoint and KSampler; "area": the positive combined with
+    AREA_PROMPT over the image's top half (ConditioningSetArea, strength
+    1), gated to AREA_WINDOW (ConditioningSetTimestepRange)."""
+    ksampler = _node_id(workflow, "KSampler")
+    loader = _node_id(workflow, "CheckpointLoaderSimple")
+    height, width = _image_px(workflow, image_px)
+    free = max(int(k) for k in workflow) + 1
+    variants = {}
+    for cls, inputs in GUIDANCE_PATCHES.items():
+        prompt = copy.deepcopy(workflow)
+        prompt[str(free)] = {"class_type": cls, "inputs": {"model": [loader, 0], **inputs}}
+        prompt[ksampler]["inputs"]["model"] = [str(free), 0]
+        variants[cls] = prompt
+    prompt = copy.deepcopy(workflow)
+    encode, area, window, combine = (str(free + i) for i in range(4))
+    positive = prompt[ksampler]["inputs"]["positive"]
+    clip = prompt[positive[0]]["inputs"]["clip"]
+    prompt[encode] = {"class_type": "CLIPTextEncode", "inputs": {"text": AREA_PROMPT,
+                                                                 "clip": clip}}
+    prompt[area] = {"class_type": "ConditioningSetArea", "inputs": {
+        "conditioning": [encode, 0], "width": width, "height": height // 2, "x": 0, "y": 0,
+        "strength": 1.0}}
+    prompt[window] = {"class_type": "ConditioningSetTimestepRange", "inputs": {
+        "conditioning": [area, 0], "start": AREA_WINDOW[0], "end": AREA_WINDOW[1]}}
+    prompt[combine] = {"class_type": "ConditioningCombine", "inputs": {
+        "conditioning_1": positive, "conditioning_2": [window, 0]}}
+    prompt[ksampler]["inputs"]["positive"] = [combine, 0]
+    variants["area"] = prompt
+    return variants
+
+
+def _guidance_shapes(variant: str, workflow, image_px: int = IMAGE_PX):
+    """The attention calls of one image of a guidance variant (see
+    `_guidance_variants`): plain CFG at batch 2 (FreeU, RescaleCFG); SAG
+    adds a batch-1 capture pass (its middle self-attention plain) and a
+    batch-1 degraded pass an evaluation; "area" runs three batch-1
+    passes, the whole latent for the positive's plain entry and the
+    negative and the area's crop (pixels // 8) for the other. One VAE
+    decode."""
+    from comfyui_distributed_tpu_torch.models.registry import DEFAULT_TEXT_ENCODERS, get_config
+
+    ckpt = workflow[_node_id(workflow, "CheckpointLoaderSimple")]["inputs"]["ckpt_name"]
+    unet_cfg, vae_cfg = get_config(ckpt), get_config("vae-sd")
+    te_len = get_config(DEFAULT_TEXT_ENCODERS.get(ckpt, "clip-l")).max_length
+    height, width = _image_px(workflow, image_px)
+    hw = (height // vae_cfg.downscale, width // vae_cfg.downscale)
+    _require(hw[0] == hw[1], f"a {height}x{width} image: the VAE shape assumes a square")
+    evals = _sampler_evals(workflow)
+    if variant == "area":
+        shapes = _unet_shapes(unet_cfg, te_len, hw, 1, 2 * evals, tag="batch-1 ")
+        shapes += _unet_shapes(unet_cfg, te_len, (hw[0] // 2, hw[1]), 1, evals,
+                               tag="area batch-1 ")
+    else:
+        shapes = _unet_shapes(unet_cfg, te_len, hw, 2, evals)
+        if variant == "SelfAttentionGuidance":
+            shapes += _unet_shapes(unet_cfg, te_len, hw, 1, evals, sag_capture=True,
+                                   tag="capture batch-1 ")
+            shapes += _unet_shapes(unet_cfg, te_len, hw, 1, evals, tag="batch-1 ")
+    shapes.append(_vae_shape(vae_cfg, hw[0], 1))
+    return shapes
+
+
+@contextlib.contextmanager
+def _recording(torch, module, name: str, device: str):
+    """`module.name` replaced, inside the block, by a wrapper that appends
+    (seconds, args, result) of each call to the yielded list, the device
+    synchronised on both sides of the call."""
+    original = getattr(module, name)
+    calls = []
+    cuda = device.startswith("cuda")
+
+    def wrapper(*args, **kwargs):
+        if cuda:
+            torch.cuda.synchronize()
+        started = time.perf_counter()
+        out = original(*args, **kwargs)
+        if cuda:
+            torch.cuda.synchronize()
+        calls.append((time.perf_counter() - started, args, out))
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, original)
+
+
+def _usdu_full_models(torch, bundle, gen, device: str) -> dict:
+    """The upscale model and the ControlNet of USDU_FULL, seeded by name on
+    `device` with their output convs seeded non-zero from `gen`, under
+    the keys their loader nodes look up."""
+    from comfyui_distributed_tpu_torch.models.controlnet import load_controlnet
+    from comfyui_distributed_tpu_torch.models.registry import get_config
+    from comfyui_distributed_tpu_torch.models.upscaler import load_upscale_model
+
+    channels = get_config(bundle.model_name).model_channels
+    upscaler = load_upscale_model(USDU_FULL_UPSCALER, device=device)
+    net = load_controlnet(USDU_FULL_CONTROLNET, channels, bundle.latent_scale, device=device)
+    _seed_weight(torch, upscaler.module.tail.weight, gen)
+    _seed_weight(torch, net.module.conv_out.weight, gen)
+    return {f"upscaler:{USDU_FULL_UPSCALER}": upscaler,
+            f"controlnet:{USDU_FULL_CONTROLNET}:{channels}:{bundle.latent_scale}": net}
+
+
+def _usdu_full_phase(torch, bundle, workflow, image, gen, device: str,
+                     expected_launches: int | None = None,
+                     expected_by_instance: dict | None = None,
+                     tiled_tolerance: float | None = None) -> dict:
+    """USDU with everything users wire into it (`_usdu_full_workflow`),
+    once locally through the GraphExecutor and once as master + w1 over
+    HTTP (see the module docstring). Checks: every tile completed once;
+    the HTTP output within RERUN_TOLERANCE of the local tiles composited
+    the elastic way; the master's and w1's pre-upscaled images equal; a
+    local run with the ControlNet's conv_out zeroed (same passes, same
+    launches) at least CONTROLNET_MIN_DIFF from the local output; the local tiles' latents decoded in tiles within
+    `tiled_tolerance` (mean |diff|) of their whole decode; the local run's
+    launches. With `expected_launches` None (no card) the launch counts go
+    unchecked. Returns the local run's launches."""
+    import numpy as np
+
+    from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
+    from comfyui_distributed_tpu_torch.graph import nodes_upscale
+    from comfyui_distributed_tpu_torch.ops import attention as attn
+    from comfyui_distributed_tpu_torch.ops import tiles as tile_ops
+    from comfyui_distributed_tpu_torch.ops import upscale as up
+    from comfyui_distributed_tpu_torch.utils import image as img_utils
+
+    cuda = device.startswith("cuda")
+    label = "[usdu_full]"
+    full = _usdu_full_workflow(workflow)
+    ckpt = full[_node_id(full, "CheckpointLoaderSimple")]["inputs"]["ckpt_name"]
+    load_image = _node_id(full, "LoadImage")
+    save = _node_id(full, "SaveImage")
+    apply = _node_id(full, "ControlNetApplyAdvanced")
+    pipelines = {ckpt: bundle, **_usdu_full_models(torch, bundle, gen, device)}
+    o = _usdu_options(full)
+
+    def local_prompt(strength: float):
+        prompt = copy.deepcopy(full)
+        del prompt[load_image], prompt[save]
+        prompt[USDU_NODE]["inputs"]["image"] = image
+        prompt[apply]["inputs"].update(image=image, strength=strength)
+        return prompt
+
+    executor = GraphExecutor(ExecutionContext(device=device, pipelines=dict(pipelines)))
+    tiles = {}
+    original_process = up._process_tile_fn
+
+    def recording_process(*args, **kwargs):
+        process = original_process(*args, **kwargs)
+
+        def run(tile, tile_index, *rest):
+            tiles[tile_index] = process(tile, tile_index, *rest)
+            return tiles[tile_index]
+
+        return run
+
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    up._process_tile_fn = recording_process
+    try:
+        with _recording(torch, nodes_upscale, "pre_upscale", device) as pre_calls, \
+                _recording(torch, up, "decode_tiled", device) as decode_calls:
+            attn.reset_launch_counts()
+            started = time.perf_counter()
+            executor.execute(local_prompt(1.0))
+            local = executor.last_results[USDU_NODE][0]
+            if cuda:
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - started
+            launches, by_instance = _launch_counts(attn)
+    finally:
+        up._process_tile_fn = original_process
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    pre_image = pre_calls[0][2][0]
+    upscaled, grid, _ = up.prepare_upscaled_tiles(
+        pre_image, 1.0, int(o["tile_width"]), int(o["tile_padding"]), o["upscale_method"],
+        int(o["tile_height"]), mask_blur=int(o["mask_blur"]),
+        uniform=bool(o["force_uniform_tiles"]))
+    n_tiles = grid.num_tiles
+    print(f"{label} local run: {seconds:.2f} s, {n_tiles / seconds:.4f} tiles/s; upscale model "
+          f"{pre_calls[0][0]:.3f} s ({tuple(image.shape)} → {tuple(pre_image.shape)}); tiled "
+          f"decode {sum(c[0] for c in decode_calls):.3f} s over {len(decode_calls)} tiles; "
+          f"flash_attention launches {launches}, by instance {by_instance}; peak "
+          f"{peak / 2**30:.2f} GiB; node times {executor.last_timings}")
+    _require(tuple(local.shape) == tuple(upscaled.shape), f"output shape {tuple(local.shape)}")
+    _require(bool(torch.isfinite(local).all()), "non-finite local output")
+    _require(float(local.min()) >= 0.0 and float(local.max()) <= 1.0, "output outside [0, 1]")
+    _require(sorted(tiles) == list(range(n_tiles)), f"local tiles {sorted(tiles)}")
+    if expected_launches is not None:
+        _require(launches == expected_launches and by_instance == expected_by_instance,
+                 f"{launches} attention launches by instance {by_instance}, expected "
+                 f"{expected_launches}, {expected_by_instance}")
+    # the tiled decode against the whole decode of the same latents
+    latents = decode_calls[0][1][1]
+    with torch.no_grad():
+        whole = bundle.vae.decode(latents).float()
+    tiled_diff = (decode_calls[0][2].float() - whole).abs()
+    print(f"{label} tile 0's latents {tuple(latents.shape)} decoded in tiles vs whole: max "
+          f"|diff| {float(tiled_diff.max()):.3g}, mean {float(tiled_diff.mean()):.3g} "
+          f"(tolerance on the mean {tiled_tolerance})")
+    if tiled_tolerance is not None:
+        _require(float(tiled_diff.mean()) <= tiled_tolerance,
+                 "the tiled decode is not within its tolerance of the whole decode")
+    # the ControlNet moves the output: a run whose ControlNet adds a zero
+    # residual (conv_out zeroed) keeps the same batch-1 passes and
+    # launches, so it differs from the local run in the residual alone; a
+    # run at strength 0 batches the CFG pair, and its distance from the
+    # zero-residual run is the batching's alone (printed, unchecked)
+    conv_out = pipelines[next(k for k in pipelines if k.startswith("controlnet:"))] \
+        .module.conv_out
+    seeded = [t.detach().clone() for t in conv_out.parameters()]
+    with torch.no_grad():
+        for t in conv_out.parameters():
+            t.zero_()
+    try:
+        executor.context.extras.pop("node_cache", None)
+        attn.reset_launch_counts()
+        executor.execute(local_prompt(1.0))
+        zero_residual = executor.last_results[USDU_NODE][0]
+        zero_launches, zero_by_instance = _launch_counts(attn)
+    finally:
+        with torch.no_grad():
+            for t, saved in zip(conv_out.parameters(), seeded):
+                t.copy_(saved)
+    executor.context.extras.pop("node_cache", None)
+    executor.execute(local_prompt(0.0))
+    no_control = executor.last_results[USDU_NODE][0]
+    control_diff = float((local.float() - zero_residual.float()).abs().max())
+    batching_diff = float((zero_residual.float() - no_control.float()).abs().max())
+    print(f"{label} ControlNet residual vs zero residual (conv_out zeroed, strength 1, "
+          f"{zero_launches} launches) max |diff| {control_diff:.3g} (at least "
+          f"{CONTROLNET_MIN_DIFF:.4f}); zero residual vs strength 0 (the CFG pair batched) "
+          f"max |diff| {batching_diff:.3g}; strength 1 vs 0 max |diff| "
+          f"{float((local.float() - no_control.float()).abs().max()):.3g}")
+    _require((zero_launches, zero_by_instance) == (launches, by_instance),
+             f"the zero-residual run launched {zero_launches} by instance {zero_by_instance}, "
+             f"the local run {launches} by instance {by_instance}")
+    _require(control_diff >= CONTROLNET_MIN_DIFF, "the ControlNet does not change the output")
+    reference = tile_ops.DeterministicHostCanvas(upscaled, grid)
+    for g in range(n_tiles):
+        reference.blend(tiles[g], *grid.positions[g])
+    reference = reference.result().float()
+
+    # master + w1 over HTTP
+    with tempfile.TemporaryDirectory(prefix="cdt_usdu_full_") as tmp:
+        in_dir, out_dir = os.path.join(tmp, "input"), os.path.join(tmp, "output")
+        os.makedirs(in_dir)
+        with open(os.path.join(in_dir, full[load_image]["inputs"]["image"]), "wb") as fh:
+            fh.write(img_utils.encode_png(np.asarray(image[0].float().cpu())))
+        blend_env = os.environ.get("CDT_DETERMINISTIC_BLEND")
+        os.environ["CDT_DETERMINISTIC_BLEND"] = "1"
+        try:
+            with _serving(tmp, {"input_dir": in_dir, "output_dir": out_dir}, device,
+                          pipelines) as (master, worker, base, worker_port), \
+                    _recording(torch, nodes_upscale, "pre_upscale", device) as http_pre:
+                if cuda:
+                    torch.cuda.synchronize()
+                attn.reset_launch_counts()
+                started = time.perf_counter()
+                queued, history, _ = _queue(base, worker_port, full)
+                if cuda:
+                    torch.cuda.synchronize()
+                http_seconds = time.perf_counter() - started
+                http_launches, http_by_instance = _launch_counts(attn)
+                record = master.job_store.finished[queued["job_ids"][USDU_NODE]]
+                out = master.get_job(queued["prompt_id"]).outputs[save][0]["images"]
+        finally:
+            if blend_env is None:
+                os.environ.pop("CDT_DETERMINISTIC_BLEND", None)
+            else:
+                os.environ["CDT_DETERMINISTIC_BLEND"] = blend_env
+    by = {}
+    for _, who in record["completions"]:
+        by[who] = by.get(who, 0) + 1
+    done = sorted(t for t, _ in record["completions"])
+    pre_diff = float((http_pre[0][2][0].float() - http_pre[1][2][0].float()).abs().max()) \
+        if len(http_pre) == 2 else float("nan")
+    diff = float((out.float() - reference.to(out.device)).abs().max())
+    print(f"{label} HTTP run: {http_seconds:.2f} s, {n_tiles / http_seconds:.4f} tiles/s; tiles "
+          f"completed: master {by.get('master', 0)}, w1 {by.get('w1', 0)} (order "
+          f"{record['completions']}); flash_attention launches {http_launches}, by instance "
+          f"{http_by_instance}; the master's and w1's pre-upscaled images max |diff| "
+          f"{pre_diff:.3g}; output vs the local tiles composited alike max |diff| {diff:.3g} "
+          f"(tolerance {RERUN_TOLERANCE})")
+    _require(done == list(range(n_tiles)), f"tiles completed {done}, expected each once")
+    _require(set(by) <= {"master", "w1"}, f"unexpected participants {sorted(by)}")
+    _require(len(http_pre) == 2, f"{len(http_pre)} pre-upscales, expected master and w1")
+    _require(pre_diff == 0.0, "the master's and w1's pre-upscaled images differ")
+    _require(tuple(out.shape) == tuple(reference.shape), f"HTTP output shape {tuple(out.shape)}")
+    _require(bool(torch.isfinite(out).all()), "non-finite HTTP output")
+    _require(diff <= RERUN_TOLERANCE, "the HTTP output disagrees with the local tiles")
+    if expected_launches is not None:
+        _require(http_launches == expected_launches and http_by_instance == expected_by_instance,
+                 f"HTTP run: {http_launches} attention launches by instance "
+                 f"{http_by_instance}, expected {expected_launches}, {expected_by_instance}")
+    return {"launches": launches, "launches_by_instance": by_instance,
+            "tiles_per_s": n_tiles / seconds, "peak_gib": peak / 2**30}
+
+
+def _guidance_phase(torch, bundle, workflow, device: str, expected: dict | None = None,
+                    image_px: int = IMAGE_PX) -> dict:
+    """The guidance patches and area conditioning on the txt2img workflow
+    (see `_guidance_variants`): a local image at its seed for each
+    variant, finite in [0, 1] and at least GUIDANCE_MIN_DIFF from the
+    unpatched image; the cached bundle unpatched after them; then SAG as
+    master + w1 through the collector (`_txt2img_phase`, one run).
+    `expected` maps a variant to its (launches, by instance) an image,
+    unchecked when None (no card). Returns each variant's local run."""
+    from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
+    from comfyui_distributed_tpu_torch.ops import attention as attn
+
+    label = "[guidance]"
+    ckpt = workflow[_node_id(workflow, "CheckpointLoaderSimple")]["inputs"]["ckpt_name"]
+    seed = int(workflow[_node_id(workflow, "DistributedSeed")]["inputs"]["seed"])
+    size = (*_image_px(workflow, image_px), 3)
+    executor = GraphExecutor(ExecutionContext(device=device, pipelines={ckpt: bundle}))
+    plain, _, _, _ = _local_run(torch, attn, executor, workflow, label,
+                                f"seed {seed}, unpatched", device, size)
+    results = {}
+    for name, prompt in _guidance_variants(workflow, image_px).items():
+        image, launches, by_instance, seconds = _local_run(
+            torch, attn, executor, prompt, label, f"{name}, seed {seed}", device, size)
+        diff = float((image - plain).abs().max())
+        print(f"{label} {name} vs unpatched max |diff| {diff:.3g} (at least "
+              f"{GUIDANCE_MIN_DIFF:.4f})")
+        _require(float(image.min()) >= 0.0 and float(image.max()) <= 1.0,
+                 f"{name}: output outside [0, 1]")
+        _require(diff >= GUIDANCE_MIN_DIFF, f"{name} does not change the image")
+        if expected is not None:
+            _require((launches, by_instance) == expected[name],
+                     f"{name}: {launches} attention launches by instance {by_instance}, "
+                     f"expected {expected[name]}")
+        results[name] = {"launches": launches, "launches_by_instance": by_instance,
+                         "seconds": seconds}
+    _require(bundle.unet.config.freeu is None and bundle.sag is None
+             and bundle.cfg_rescale is None, "a patch node changed the cached bundle")
+    sag = _guidance_variants(workflow, image_px)["SelfAttentionGuidance"]
+    per_run = None if expected is None else expected["SelfAttentionGuidance"]
+    results["http"] = _txt2img_phase(
+        torch, bundle, sag, device,
+        expected_launches=None if per_run is None else 2 * per_run[0],
+        expected_by_instance=None if per_run is None else
+        {k: 2 * v for k, v in per_run[1].items()}, runs=1, tag="guidance", image_px=image_px)
+    return results
+
+
 def _rounded(seconds: dict) -> dict:
     return {stage: round(value, 4) for stage, value in sorted(seconds.items())}
 
@@ -1236,10 +1725,17 @@ def main() -> int:
     t2i_sampler = _node_id(t2i_workflow, "KSampler")
     samplers_entry_workflow = copy.deepcopy(t2i_workflow)
     samplers_entry_workflow[t2i_sampler]["inputs"]["sampler_name"] = SAMPLERS_ENTRY_SAMPLER
+    # a usdu_full tile, a SAG image and an area image of the
+    # guidance phase (its FreeU and RescaleCFG images have txt2img's shapes)
+    guidance_shapes = {name: _guidance_shapes(name, t2i_workflow)
+                       for name in _guidance_variants(t2i_workflow)}
     path_shapes = {"upscale": shapes, "txt2img": t2i_shapes,
                    **{tag: _txt2img_shapes(wf) for tag, wf in sd_workflows.items()},
                    **{path: _txt2img_shapes(wf) for path, wf in ckpt_workflows.items()},
-                   "samplers": _txt2img_shapes(samplers_entry_workflow)}
+                   "samplers": _txt2img_shapes(samplers_entry_workflow),
+                   "usdu_full": _usdu_full_shapes(workflow),
+                   "guidance": guidance_shapes["SelfAttentionGuidance"],
+                   "guidance_area": guidance_shapes["area"]}
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -1548,14 +2044,38 @@ def main() -> int:
         "cuda", expected_launches=n_tiles * sum(count for *_, count in http_sampler_shapes),
         expected_by_instance={name: n_tiles * count for name, count in _expected_by_instance(
             attn, http_sampler_shapes, torch).items()}, runs=1, tag="samplers"))
-    del bundle
-    torch.cuda.empty_cache()
     samplers_launches = sum(r["launches"] for r in sampler_runs)
     samplers_by_instance = {name: sum(r["launches_by_instance"].get(name, 0) for r in sampler_runs)
                             for name in attn.INSTANCES}
     print(f"[samplers] seconds by run: {_rounded(sampler_runs[0]['seconds'])}; flash_attention "
           f"launches over the phase {samplers_launches}, by instance {samplers_by_instance}")
     phase_seconds["samplers"] = time.perf_counter() - phase_started
+
+    # --- 4g. usdu_full: the upscale workflow with an upscale model, ControlNet
+    # tile, CLIPTextEncodeSDXL and tiled decode, on the samplers phase's SDXL ---
+    phase_started = time.perf_counter()
+    full_shapes = path_shapes["usdu_full"]
+    usdu_full = _usdu_full_phase(
+        torch, bundle, workflow, torch.from_numpy(seeded).to("cuda"), gen, "cuda",
+        expected_launches=n_tiles * sum(count for *_, count in full_shapes),
+        expected_by_instance={name: n_tiles * count for name, count in _expected_by_instance(
+            attn, full_shapes, torch).items()},
+        tiled_tolerance=TILED_DECODE_TOLERANCE)
+    del bundle
+    torch.cuda.empty_cache()
+    phase_seconds["usdu_full"] = time.perf_counter() - phase_started
+
+    # --- 4h. guidance: FreeU, FreeU_V2, SAG, RescaleCFG and an area entry on SD1.5 ---
+    phase_started = time.perf_counter()
+    bundle = pl.load_pipeline(t2i_ckpt, seed=0, device="cuda")
+    _seed_out_conv(torch, bundle, gen)
+    guidance = _guidance_phase(torch, bundle, t2i_workflow, "cuda", expected={
+        name: (sum(count for *_, count in shapes_),
+               _expected_by_instance(attn, shapes_, torch))
+        for name, shapes_ in guidance_shapes.items()})
+    del bundle
+    torch.cuda.empty_cache()
+    phase_seconds["guidance"] = time.perf_counter() - phase_started
     print("[phases] seconds: " + ", ".join(f"{name} {sec:.1f}" for name, sec in
                                            phase_seconds.items()))
 
@@ -1571,7 +2091,10 @@ def main() -> int:
           "master and w1 together. flash_attention_ckpt_<model>: the same for the workflow "
           "of that checkpoint file; launches: its run over HTTP. flash_attention_samplers: the "
           f"same per SD1.5 image on {SAMPLERS_ENTRY_SAMPLER}; launches: that sampler's local "
-          "run in the samplers phase")
+          "run in the samplers phase. flash_attention_usdu_full: the same per usdu_full tile "
+          "(batch-1 UNet passes, the tiled decode's pieces); launches: its local run of 4 tiles. "
+          "flash_attention_guidance: the same per SD1.5 image under SelfAttentionGuidance; "
+          "launches: its local image")
     source = "comfyui_distributed_tpu_torch/csrc/flash_attention.cu"
     replaces = "comfyui_distributed_tpu/ops/attention.py:80"
 
@@ -1643,6 +2166,28 @@ def main() -> int:
             "launches_by_instance": sampler_runs[0]["entry_by_instance"],
             "max_abs_err": max_err["samplers"],
             **numbers("samplers"),
+            "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
+        },
+        {
+            "name": "flash_attention_usdu_full",
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": usdu_full["launches"],
+            "launches_by_instance": usdu_full["launches_by_instance"],
+            "max_abs_err": max_err["usdu_full"],
+            **numbers("usdu_full"),
+            "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
+        },
+        {
+            "name": "flash_attention_guidance",
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": guidance["SelfAttentionGuidance"]["launches"],
+            "launches_by_instance": guidance["SelfAttentionGuidance"]["launches_by_instance"],
+            "max_abs_err": max_err["guidance"],
+            **numbers("guidance"),
             "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
         },
     ]}

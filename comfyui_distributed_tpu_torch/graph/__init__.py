@@ -3,7 +3,13 @@
 Importing the package registers the ported nodes.
 """
 
-from . import nodes_core, nodes_distributed, nodes_loaders, nodes_upscale  # noqa: F401
+from . import (  # noqa: F401
+    nodes_controlnet,
+    nodes_core,
+    nodes_distributed,
+    nodes_loaders,
+    nodes_upscale,
+)
 from .executor import ExecutionContext, GraphExecutor, validate_prompt
 from .registry import NODE_REGISTRY, register_node
 

@@ -1,7 +1,10 @@
 """Core workflow nodes of the upscale, txt2img, two-pass and inpaint
 workflows: checkpoint (and a standalone VAE) → clip-skip → text encode
-→ empty latent or inpaint encode → sample (KSampler, KSamplerAdvanced)
-→ decode, image load and save.
+(CLIPTextEncode, CLIPTextEncodeSDXL with its size override,
+ConditioningConcat) → empty latent or encode (VAEEncode, VAEEncodeTiled,
+VAEEncodeForInpaint) → sample (KSampler, KSamplerAdvanced) → decode
+(VAEDecode, VAEDecodeTiled), the upscale model (UpscaleModelLoader,
+ImageUpscaleWithModel), image load and save.
 
 Counterparts of the same-named nodes in comfyui_distributed_tpu/graph/
 nodes_core.py. Data contracts:
@@ -35,7 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from ..models import pipeline as pl
-from ..ops.upscale import resize_image
+from ..models.upscaler import load_upscale_model
+from ..ops.conditioning import as_conditioning, map_conditioning
+from ..ops.resize import resize_image
+from ..ops.tiled_vae import decode_tiled, encode_tiled
 from ..utils import image as img_utils
 from .io_dirs import get_output_dir, next_counter, resolve_input_path
 from .registry import register_node
@@ -126,6 +132,72 @@ class CLIPTextEncode:
 
 
 @register_node
+class CLIPTextEncodeSDXL:
+    """SDXL's dual-prompt encoding: text_l through the CLIP-L tower,
+    text_g through CLIP-G, and the six size ints on the conditioning as
+    the adm size embeddings (orig h/w, crop t/l, target h/w), in place of
+    the KSampler default (zero crops, sizes from the latent)."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "clip": ("CLIP",),
+                "width": ("INT", {"default": 1024}),
+                "height": ("INT", {"default": 1024}),
+                "crop_w": ("INT", {"default": 0}),
+                "crop_h": ("INT", {"default": 0}),
+                "target_width": ("INT", {"default": 1024}),
+                "target_height": ("INT", {"default": 1024}),
+                "text_g": ("STRING", {"default": ""}),
+                "text_l": ("STRING", {"default": ""}),
+            }
+        }
+
+    RETURN_TYPES = ("CONDITIONING",)
+    FUNCTION = "encode"
+
+    def encode(self, clip: pl.PipelineBundle, width=1024, height=1024, crop_w=0, crop_h=0,
+               target_width=1024, target_height=1024, text_g="", text_l="", context=None):
+        size_cond = (int(height), int(width), int(crop_h), int(crop_w), int(target_height),
+                     int(target_width))
+        return (pl.encode_text_pooled_sdxl(clip, [str(text_g)], [str(text_l)],
+                                           size_cond=size_cond),)
+
+
+@register_node
+class ConditioningConcat:
+    """The two conditionings' tokens concatenated (the model attends to
+    both prompts in one pass); everything else, and every entry of a
+    list, from conditioning_to; only the first entry of a `from` list."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "conditioning_to": ("CONDITIONING",),
+                "conditioning_from": ("CONDITIONING",),
+            }
+        }
+
+    RETURN_TYPES = ("CONDITIONING",)
+    FUNCTION = "concat"
+
+    def concat(self, conditioning_to, conditioning_from, context=None):
+        src = conditioning_from
+        if isinstance(src, (list, tuple)):
+            src = src[0]
+        from_c = as_conditioning(src)
+
+        def patch(to_c):
+            to_c.context = torch.cat([to_c.context, from_c.context.to(to_c.context.device)],
+                                     dim=1)
+            return to_c
+
+        return (map_conditioning(conditioning_to, patch),)
+
+
+@register_node
 class CLIPSetLastLayer:
     """Clip-skip: the conditioning context stops `stop_at_clip_layer`
     blocks from the end of every CLIP tower (-1 = the full stack, -2 =
@@ -179,7 +251,7 @@ class EmptyLatentImage:
 def _mask_to_latent(mask, lh: int, lw: int) -> torch.Tensor:
     """MASK ([H, W], [B, H, W] or [B, H, W, 1]; 1 = regenerate) →
     [B, lh, lw, 1] in [0, 1], resized with jax.image.resize's
-    antialiased linear weights (ops/upscale.py::resize_image)."""
+    antialiased linear weights (ops/resize.py::resize_image)."""
     m = torch.as_tensor(mask).float()
     if m.ndim == 4:
         m = m[..., 0]
@@ -199,7 +271,7 @@ def _prep_latents(bundle: pl.PipelineBundle, latent_image: dict):
     batch seed (LatentBatchSeedBehavior) raises: it is not ported."""
     if latent_image.get("batch_index_fixed"):
         raise NotImplementedError(
-            "LatentBatchSeedBehavior 'fixed' is not ported yet (ROADMAP.md, Queue 1 item 2)"
+            "LatentBatchSeedBehavior 'fixed' is not ported yet (ROADMAP.md, Queue 1 item 2h)"
         )
     latents = latent_image["samples"]
     if latent_image.get("empty") and "width" in latent_image:
@@ -324,6 +396,68 @@ class VAEDecode:
             return (vae.vae.decode(samples["samples"].to(vae.device)),)
 
 
+@register_node
+class VAEDecodeTiled(VAEDecode):
+    """VAEDecode in latent tiles of tile_size / latent_scale (at least
+    16) with an eighth of that (at least 4) of overlap each side
+    (ops/tiled_vae.py)."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "samples": ("LATENT",),
+                "vae": ("VAE",),
+                "tile_size": ("INT", {"default": 512}),
+            }
+        }
+
+    FUNCTION = "decode_tiled"
+
+    def decode_tiled(self, samples: dict, vae, tile_size=512, context=None):
+        latent_tile = max(16, int(tile_size) // vae.latent_scale)
+        return (decode_tiled(vae.vae, samples["samples"].to(vae.device), tile=latent_tile,
+                             overlap=max(4, latent_tile // 8)),)
+
+
+@register_node
+class VAEEncode:
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {"pixels": ("IMAGE",), "vae": ("VAE",)}}
+
+    RETURN_TYPES = ("LATENT",)
+    FUNCTION = "encode"
+
+    def encode(self, pixels, vae, context=None):
+        with torch.no_grad():
+            return ({"samples": vae.vae.encode(torch.as_tensor(pixels).to(vae.device).float())},)
+
+
+@register_node
+class VAEEncodeTiled(VAEEncode):
+    """VAEEncode in pixel tiles of tile_size (at least 64) with an eighth
+    of that (at least 16) of overlap each side (ops/tiled_vae.py)."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "pixels": ("IMAGE",),
+                "vae": ("VAE",),
+                "tile_size": ("INT", {"default": 512}),
+            }
+        }
+
+    FUNCTION = "encode_tiled"
+
+    def encode_tiled(self, pixels, vae, tile_size=512, context=None):
+        pixel_tile = max(64, int(tile_size))
+        pixels = torch.as_tensor(pixels).to(vae.device).float()
+        return ({"samples": encode_tiled(vae.vae, pixels, tile=pixel_tile,
+                                         overlap=max(16, pixel_tile // 8))},)
+
+
 def grow_mask(hard: torch.Tensor, g: int) -> torch.Tensor:
     """[B, H, W] 0/1 mask dilated by a g x g max window over [i -
     ceil((g-1)/2), i + floor((g-1)/2)]: for even g one pixel further
@@ -430,6 +564,39 @@ class SaveImage:
                 fh.write(img_utils.encode_png(arr[i], compress_level=4))
             saved.append(name)
         return ({"ui": {"images": saved}, "images": images},)
+
+
+@register_node
+class UpscaleModelLoader:
+    """A seeded upscale model by name (its scale from the name, "4x-..."),
+    cached in the context under "upscaler:<name>"."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {"model_name": ("STRING", {"default": "4x-generic"})}}
+
+    RETURN_TYPES = ("UPSCALE_MODEL",)
+    FUNCTION = "load"
+
+    def load(self, model_name: str, context=None):
+        key = f"upscaler:{model_name}"
+        if key not in context.pipelines:
+            context.pipelines[key] = load_upscale_model(str(model_name), device=_device(context))
+        return (context.pipelines[key],)
+
+
+@register_node
+class ImageUpscaleWithModel:
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {"upscale_model": ("UPSCALE_MODEL",), "image": ("IMAGE",)}}
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "upscale"
+
+    def upscale(self, upscale_model, image, context=None):
+        with torch.no_grad():
+            return (upscale_model.upscale(image),)
 
 
 @register_node

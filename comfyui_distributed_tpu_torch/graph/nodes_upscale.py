@@ -10,9 +10,12 @@ tile geometry in, upscaled image out) and the same routing, in static
   run_worker_loop, which pulls tiles from the master over HTTP;
 - a master with enabled workers and a server → run_master_elastic.
 
+With an `upscale_model`, every participant runs the model on the same
+image and resizes it (cubic) to the exact target, and the tiles refine
+it at 1x (`pre_upscale`).
+
 Not ported yet, each raising with its ROADMAP item: the dynamic
-(whole-image queue) mode for large batches, the upscale-model
-pre-pass, and the mesh tier.
+(whole-image queue) mode for large batches, and the mesh tier.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Any
 
 from ..models import pipeline as pl
 from ..ops import upscale as upscale_ops
+from ..ops.resize import resize_image
 from ..ops.samplers import check_sampler_names
 from .registry import register_node
 
@@ -29,10 +33,21 @@ _DYNAMIC_TODO = (
     "dynamic (whole-image queue) USDU mode is not ported yet (ROADMAP.md, Queue 1, "
     "item 3: the elastic tier's remainder)"
 )
-_UPSCALE_MODEL_TODO = (
-    "model-based pre-upscale (UpscaleModelLoader) is not ported yet (ROADMAP.md, "
-    "Queue 1, item 2: models/upscaler.py)"
-)
+
+
+def pre_upscale(image, upscale_model, upscale_by: float):
+    """The upscale-model pre-pass → (image, upscale_by for the tiles):
+    the model's output resized (cubic, jax.image.resize's antialiased
+    Keys kernel when it shrinks) to round(side * upscale_by / 8) * 8,
+    the tiles then at 1x. Deterministic per model name, so every
+    participant makes the same image."""
+    _, h, w, _ = image.shape
+    target_h = int(round(h * float(upscale_by) / 8)) * 8
+    target_w = int(round(w * float(upscale_by) / 8)) * 8
+    out = upscale_model.upscale(image)
+    if out.shape[1] != target_h or out.shape[2] != target_w:
+        out = resize_image(out, target_h, target_w, "bicubic")
+    return out, 1.0
 
 
 @register_node
@@ -88,7 +103,7 @@ class UltimateSDUpscaleDistributed:
         seed = getattr(seed, "base_seed", seed)  # accept SeedSpec links
         check_sampler_names(sampler_name, scheduler)
         if upscale_model is not None:
-            raise NotImplementedError(_UPSCALE_MODEL_TODO)
+            image, upscale_by = pre_upscale(image, upscale_model, upscale_by)
         if vae is not None and vae.vae is not model.vae:
             # a VAE from another bundle replaces the model's for the tile
             # encode/decode (run_upscale reads the VAE off the bundle)

@@ -23,8 +23,9 @@ the image does not depend on which participant finished first.
 Left out, each with its ROADMAP item: the master-URL failover list,
 shard routing and fencing epochs, push grants (`GrantSignal`), the
 fleet-telemetry piggyback, the tile cache, adapters, the cross-job tier,
-the device canvas, the mesh, tiled decode and the dynamic (whole-image)
-mode.
+the device canvas, the mesh and the dynamic (whole-image) mode. Both
+roles prep the conditioning for tiles (ControlNet hints and masks
+windowed per tile) and take `tiled_decode`.
 
 Every function here enters `torch.inference_mode()` on its own thread:
 grad mode is thread-local, and the server runs them on its executor
@@ -66,10 +67,8 @@ from ..utils.network import build_worker_url, parse_master_urls, probe_worker, r
 from .tile_pipeline import GrantSampler, StageTotals, TilePipeline
 from .tile_pipeline import stage_span as _stage
 
-_UNPORTED = {
-    "mesh": "the multi-device tile tier is not ported yet (ROADMAP.md, Queue 1 item 6: the multi-GPU tier)",
-    "tiled_decode": "tiled VAE decode is not ported yet (ROADMAP.md, Queue 1 item 2)",
-}
+_MESH_UNPORTED = ("the multi-device tile tier is not ported yet (ROADMAP.md, Queue 1 item 6: "
+                  "the multi-GPU tier)")
 
 # Heartbeat suppression after consecutive failures: a master outage must
 # not turn each worker into a request flood while the pull path already
@@ -78,11 +77,9 @@ HEARTBEAT_BACKOFF_BASE_SECONDS = 1.0
 HEARTBEAT_BACKOFF_CAP_SECONDS = 30.0
 
 
-def _check_ported(mesh: Any, tiled_decode: bool) -> None:
+def _check_ported(mesh: Any) -> None:
     if mesh is not None:
-        raise NotImplementedError(_UNPORTED["mesh"])
-    if tiled_decode:
-        raise NotImplementedError(_UNPORTED["tiled_decode"])
+        raise NotImplementedError(_MESH_UNPORTED)
 
 
 def _publish_stage_totals(context, role: str, totals: StageTotals) -> None:
@@ -231,12 +228,14 @@ def _flush_threshold_bytes() -> int:
 
 
 def _tile_processor(bundle: pl.PipelineBundle, grid: tile_ops.TileGrid, steps: int,
-                    sampler: str, scheduler: str, cfg: float, denoise: float) -> Callable:
+                    sampler: str, scheduler: str, cfg: float, denoise: float,
+                    tiled_decode: bool = False) -> Callable:
     """fn(tile, tile_index, noise, pos, neg, yx) → processed tile: the
     local path's processor, in inference mode on whichever thread calls
     it. pos/neg are prepped by prep_cond_for_tiles."""
     process = upscale_ops._process_tile_fn(
-        bundle, grid, int(steps), sampler, scheduler, float(cfg), float(denoise)
+        bundle, grid, int(steps), sampler, scheduler, float(cfg), float(denoise),
+        bool(tiled_decode)
     )
 
     def fn(*args):
@@ -290,12 +289,13 @@ def run_worker_loop(
     sampling; results flush in size-aware batches with a heartbeat per
     processed tile (and idle heartbeats while a tile samples).
     CDT_PIPELINE=0 runs the stages serially."""
-    _check_ported(mesh, tiled_decode)
+    _check_ported(mesh)
     _, grid, extracted, pos, neg = _prepare(
         bundle, image, pos, neg, upscale_by, tile, padding, upscale_method, tile_h,
         mask_blur, uniform,
     )
-    process = _tile_processor(bundle, grid, steps, sampler, scheduler, cfg, denoise)
+    process = _tile_processor(bundle, grid, steps, sampler, scheduler, cfg, denoise,
+                              tiled_decode)
     grant_sampler = GrantSampler(
         process, extracted, grid.positions, pos, neg,
         noise or upscale_ops.default_noise(seed, bundle.device),
@@ -404,14 +404,15 @@ def run_master_elastic(
     """The master takes part in the tile queue and collects worker tiles;
     returns the composited [B, H, W, C] image on the bundle's device.
     Stale workers' tiles are requeued (busy-probe grace) and run locally."""
-    _check_ported(mesh, tiled_decode)
+    _check_ported(mesh)
     store = context.server.job_store
     config = getattr(context, "config", None) or {}
     upscaled, grid, extracted, pos, neg = _prepare(
         bundle, image, pos, neg, upscale_by, tile, padding, upscale_method, tile_h,
         mask_blur, uniform,
     )
-    process = _tile_processor(bundle, grid, steps, sampler, scheduler, cfg, denoise)
+    process = _tile_processor(bundle, grid, steps, sampler, scheduler, cfg, denoise,
+                              tiled_decode)
     noise = noise or upscale_ops.default_noise(seed, bundle.device)
     canvas_cls = (tile_ops.DeterministicHostCanvas if deterministic_blend()
                   else tile_ops.HostIncrementalCanvas)

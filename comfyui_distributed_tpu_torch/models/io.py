@@ -11,6 +11,9 @@ onto a PyTorch parameter name by rule:
 - anything else (biases, position embeddings, the text projection)
   keeps its name and layout.
 
+One rule carries every tree: the UNet, the VAE, the text encoders, the
+ControlNet and the upscale model.
+
 Real single-file SD checkpoints (.safetensors, .ckpt) load through
 models/sd_checkpoint.py, whose key schedules name parameters by the same
 rule.

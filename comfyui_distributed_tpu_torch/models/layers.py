@@ -113,9 +113,12 @@ class AttentionBlock(nn.Module):
         self.to_out = Dense(inner, inner, dtype=dtype)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor | None = None,
-                identity_self: bool = False) -> torch.Tensor:
+                identity_self: bool = False,
+                capture: list | None = None) -> torch.Tensor:
         """`identity_self` makes self-attention the identity, out_i = v_i
-        (the PAG perturbation): no scores, no attention launch."""
+        (the PAG perturbation): no scores, no attention launch. With a
+        `capture` list, self-attention appends its f32 softmax
+        probabilities [B, heads, N, N] to it (SAG's capture pass)."""
         if identity_self and context is None:
             return self.to_out(self.to_v(x))
         ctx = x if context is None else context
@@ -124,11 +127,21 @@ class AttentionBlock(nn.Module):
         v = self.to_v(ctx)
         b, n, inner = q.shape
         m = k.shape[1]
-        out = dot_product_attention(
-            q.view(b, n, self.num_heads, self.head_dim),
-            k.view(b, m, self.num_heads, self.head_dim),
-            v.view(b, m, self.num_heads, self.head_dim),
-        )
+        q = q.view(b, n, self.num_heads, self.head_dim)
+        k = k.view(b, m, self.num_heads, self.head_dim)
+        v = v.view(b, m, self.num_heads, self.head_dim)
+        if capture is not None and context is None:
+            # SAG needs the probabilities, which the flash kernel never
+            # forms: this one call is a plain PyTorch attention, as the
+            # JAX package computes it with jnp on every platform (its
+            # sow_attn). It mirrors the reference and is no fallback: the
+            # capture pass launches one attention kernel fewer.
+            scores = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float())
+            probs = torch.softmax(scores * (1.0 / math.sqrt(self.head_dim)), dim=-1)
+            capture.append(probs)
+            out = torch.einsum("bhnm,bmhd->bnhd", probs.to(v.dtype), v)
+        else:
+            out = dot_product_attention(q, k, v)
         return self.to_out(out.reshape(b, n, inner))
 
 
@@ -169,10 +182,11 @@ class TransformerBlock(nn.Module):
         self.ff = FeedForward(dim, dtype)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor | None,
-                pag: bool = False) -> torch.Tensor:
+                pag: bool = False, capture: list | None = None) -> torch.Tensor:
         """`pag` runs attn1 as identity attention (the PAG perturbed
-        pass), with the same parameters."""
-        x = x + self.attn1(self.LayerNorm_0(x), identity_self=pag)
+        pass), with the same parameters; `capture` collects attn1's
+        probabilities (SAG)."""
+        x = x + self.attn1(self.LayerNorm_0(x), identity_self=pag, capture=capture)
         x = x + self.attn2(self.LayerNorm_1(x), context)
         return x + self.ff(self.LayerNorm_2(x))
 
@@ -194,11 +208,14 @@ class SpatialTransformer(nn.Module):
         self.proj_out = Dense(channels, channels, dtype=dtype)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor | None,
-                pag: bool = False) -> torch.Tensor:
+                pag: bool = False, capture: list | None = None) -> torch.Tensor:
+        """`capture` collects block 0's self-attention probabilities
+        (the block ComfyUI's SAG reads)."""
         b, c, h, w = x.shape
         tokens = self.proj_in(self.norm(x).permute(0, 2, 3, 1)).reshape(b, h * w, c)
         for i in range(self.depth):
-            tokens = getattr(self, f"block_{i}")(tokens, context, pag=pag)
+            tokens = getattr(self, f"block_{i}")(tokens, context, pag=pag,
+                                                 capture=capture if i == 0 else None)
         out = self.proj_out(tokens.reshape(b, h, w, c)).permute(0, 3, 1, 2)
         return out + x
 

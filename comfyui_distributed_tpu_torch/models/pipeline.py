@@ -9,11 +9,16 @@ adm vector of pooled text and six Fourier size embeddings), CFG with the
 PAG patch, and `img2img_latents` / `img2img_latents_advanced`
 (KSamplerAdvanced's window) / `txt2img`, each with the inpainting noise
 mask. Modules hold their own parameters, so the functions take the
-bundle where the JAX ones take (bundle, params).
+bundle where the JAX ones take (bundle, params). The model function also
+takes ControlNet hints (gated by their sampling window), the SDXL size
+override of CLIPTextEncodeSDXL, and SAG's capture pass; `guided_model`
+composes CFG with one guidance patch: PAG, SAG or RescaleCFG.
 
 Node patches (CLIPSetLastLayer's clip-skip, PerturbedAttentionGuidance's
-PAGSpec) return a new bundle through `dataclasses.replace`: the modules
-are shared, the bundle a graph executor caches is never changed.
+PAGSpec, SelfAttentionGuidance's SAGSpec, RescaleCFG's multiplier,
+FreeU's UNet config) return a new bundle through `dataclasses.replace`:
+the modules and their parameters are shared, the bundle a graph executor
+caches is never changed.
 
 Noise: `jax.random` and `torch.Generator` give different numbers for one
 seed, so the samplers take a `noise` tensor (the initial noise) and a
@@ -36,6 +41,7 @@ import torch
 
 from ..ops import samplers as smp
 from ..ops.conditioning import Conditioning, as_conditioning
+from ..ops.resize import resize_image
 from ..utils.logging import log
 from . import sd_checkpoint as sdc
 from .io import random_init_
@@ -74,6 +80,10 @@ class PipelineBundle:
     clip_skip: int | None = None
     # PerturbedAttentionGuidance patch (UNet family); None = no PAG pass
     pag: "PAGSpec | None" = None
+    # SelfAttentionGuidance patch (UNet family); None = no SAG
+    sag: "SAGSpec | None" = None
+    # RescaleCFG patch: the std-rescale multiplier; None = plain CFG
+    cfg_rescale: float | None = None
 
     def parts(self) -> dict[str, torch.nn.Module]:
         """The modules by checkpoint part: unet, vae, te and, for a
@@ -91,6 +101,16 @@ class PAGSpec:
     identity)."""
 
     scale: float = 3.0
+
+
+@dataclasses.dataclass(frozen=True)
+class SAGSpec:
+    """Self-attention guidance (Hong et al. 2023): blur the uncond x0
+    estimate where the middle block's self-attention concentrates,
+    re-noise it, and guide away from that degraded prediction."""
+
+    scale: float = 0.5
+    blur_sigma: float = 2.0
 
 
 @dataclasses.dataclass
@@ -257,16 +277,18 @@ def _encode_tower(encoder: TextEncoder, tokenizer: Tokenizer, texts: list[str], 
 
 
 @torch.no_grad()
-def _encode_raw(bundle: PipelineBundle, texts: list[str]):
+def _encode_raw(bundle: PipelineBundle, texts: list[str], texts_2: list[str] | None = None):
     """Prompts → (hidden [B, T, context_dim], pooled [B, P]). Dual-tower
     bundles concatenate both hidden states on features and take the
-    pooled vector from the second (projected) tower. The bundle's
-    clip-skip applies to every tower."""
+    pooled vector from the second (projected) tower, which encodes
+    `texts_2` where given (CLIPTextEncodeSDXL's text_g), else `texts`.
+    The bundle's clip-skip applies to every tower."""
     hidden, pooled = _encode_tower(bundle.text_encoder, bundle.tokenizer, texts, bundle.device,
                                    bundle.clip_skip)
     if bundle.text_encoder_2 is not None:
         hidden2, pooled = _encode_tower(
-            bundle.text_encoder_2, bundle.tokenizer_2, texts, bundle.device, bundle.clip_skip
+            bundle.text_encoder_2, bundle.tokenizer_2, texts if texts_2 is None else texts_2,
+            bundle.device, bundle.clip_skip
         )
         hidden = torch.cat([hidden.float(), hidden2.float()], dim=-1)
     ctx_dim = get_config(bundle.model_name).context_dim
@@ -286,6 +308,19 @@ def encode_text_pooled(bundle: PipelineBundle, texts: list[str]) -> Conditioning
     return Conditioning(context=hidden, pooled=pooled)
 
 
+def encode_text_pooled_sdxl(bundle: PipelineBundle, texts_g: list[str], texts_l: list[str],
+                            size_cond: tuple | None = None) -> Conditioning:
+    """CLIPTextEncodeSDXL's encoding: `texts_l` through the first (CLIP-L)
+    tower, `texts_g` through the second (CLIP-G), and `size_cond` (the six
+    adm size ints) on the Conditioning. With one prompt for both it is
+    `encode_text_pooled`."""
+    if bundle.text_encoder_2 is None:
+        raise ValueError(f"{bundle.model_name}: CLIPTextEncodeSDXL needs a dual-tower "
+                         "(SDXL-layout) CLIP bundle")
+    hidden, pooled = _encode_raw(bundle, texts_l, texts_g)
+    return Conditioning(context=hidden, pooled=pooled, size_cond=size_cond)
+
+
 # --- model fn ------------------------------------------------------------
 
 def model_schedule_info(bundle: PipelineBundle) -> str:
@@ -300,16 +335,20 @@ def model_schedule_info(bundle: PipelineBundle) -> str:
 def _adm_vector(bundle: PipelineBundle, cond: Conditioning, x: torch.Tensor) -> torch.Tensor | None:
     """The UNet's `y`: pooled text, plus (real SDXL layout) six 256-d
     Fourier size embeddings of (orig_h, orig_w, crop_t, crop_l,
-    target_h, target_w) = the latent's pixel size with zero crops, the
-    KSampler default; repeated to x's batch."""
+    target_h, target_w): the entry's `size_cond` (CLIPTextEncodeSDXL),
+    else the latent's pixel size with zero crops, the KSampler default;
+    repeated to x's batch."""
     adm = get_config(bundle.model_name).adm_in_channels
     if not adm or cond.pooled is None:
         return None
     pooled = cond.pooled
     if adm - pooled.shape[-1] == 6 * 256:
-        h_px = float(x.shape[1] * bundle.latent_scale)
-        w_px = float(x.shape[2] * bundle.latent_scale)
-        vals = [h_px, w_px, 0.0, 0.0, h_px, w_px]
+        if cond.size_cond is not None:
+            vals = [float(v) for v in cond.size_cond]
+        else:
+            h_px = float(x.shape[1] * bundle.latent_scale)
+            w_px = float(x.shape[2] * bundle.latent_scale)
+            vals = [h_px, w_px, 0.0, 0.0, h_px, w_px]
         size_emb = timestep_embedding(
             torch.tensor(vals, dtype=torch.float32, device=pooled.device), 256
         ).reshape(1, -1)
@@ -327,48 +366,110 @@ def _adm_vector(bundle: PipelineBundle, cond: Conditioning, x: torch.Tensor) -> 
     return pooled
 
 
-def _make_model_fn(bundle: PipelineBundle, pag: bool = False):
-    """eps model function: VP input scaling, sigma → timestep, context
-    broadcast to the latent batch, and the adm vector. A v-prediction
-    backbone's output is converted to eps. `pag` runs the UNet's PAG
-    pass (identity self-attention in the middle block)."""
-    is_v = model_schedule_info(bundle) == "v"
+def percent_converter(bundle: PipelineBundle):
+    """The bundle's sampling-progress percent → sigma converter (the
+    timestep windows of conditioning and ControlNet hints)."""
+    param = model_schedule_info(bundle)
 
-    def model_fn(x: torch.Tensor, sigma_batch: torch.Tensor, cond) -> torch.Tensor:
-        context = cond.context if isinstance(cond, Conditioning) else cond
+    def p2s(percent: float) -> float:
+        return smp.percent_to_sigma(percent, param)
+
+    return p2s
+
+
+def _control_residual(cond: Conditioning, x: torch.Tensor, sigma_batch: torch.Tensor,
+                      p2s) -> torch.Tensor | None:
+    """The entry's ControlNet residual for latents x: the hint's features
+    resized (linear) to the latent, broadcast to x's batch, scaled by the
+    hint's strength; None without a hint, or outside its window."""
+    if cond.control_hint is None or cond.control_net is None:
+        return None
+    if cond.control_range is not None and not smp.in_window(sigma_batch, cond.control_range,
+                                                            p2s):
+        return None  # the JAX package multiplies by a zero gate: h + 0
+    feats = cond.control_net.encode(cond.control_hint)
+    if feats.shape[1] != x.shape[1] or feats.shape[2] != x.shape[2]:
+        feats = resize_image(feats, x.shape[1], x.shape[2], "bilinear")
+    if feats.shape[0] == 1 and x.shape[0] > 1:
+        feats = feats.expand((x.shape[0],) + tuple(feats.shape[1:]))
+    return feats * cond.control_strength
+
+
+def _make_model_fn(bundle: PipelineBundle, pag: bool = False, sag_capture: bool = False):
+    """eps model function: VP input scaling, sigma → timestep, context
+    broadcast to the latent batch, the adm vector and the ControlNet
+    residual. A v-prediction backbone's output is converted to eps. `pag`
+    runs the UNet's PAG pass (identity self-attention in the middle
+    block). `sag_capture` changes what the function returns: (eps, the
+    middle block's self-attention probabilities, (mid_h, mid_w)), the
+    form `sag_cfg_model` consumes. The sigma batch may be on the host."""
+    is_v = model_schedule_info(bundle) == "v"
+    p2s = percent_converter(bundle)
+
+    def model_fn(x: torch.Tensor, sigma_batch: torch.Tensor, cond):
+        entry = cond if isinstance(cond, Conditioning) else None
+        context = entry.context if entry is not None else cond
         if context.shape[0] != x.shape[0] and x.shape[0] % context.shape[0] == 0:
             context = context.repeat_interleave(x.shape[0] // context.shape[0], dim=0)
-        y = _adm_vector(bundle, cond, x) if isinstance(cond, Conditioning) else None
-        sig = sigma_batch.reshape((-1,) + (1,) * (x.ndim - 1))
+        y = control = None
+        if entry is not None:
+            y = _adm_vector(bundle, entry, x)
+            control = _control_residual(entry, x, sigma_batch, p2s)
+        t = smp.on_device(smp.sigma_to_timestep(sigma_batch), x)
+        sig = smp.on_device(sigma_batch, x).reshape((-1,) + (1,) * (x.ndim - 1))
         c_in = 1.0 / torch.sqrt(sig**2 + 1.0)
-        out = bundle.unet(x * c_in, smp.sigma_to_timestep(sigma_batch), context, y=y, pag=pag)
+        out = bundle.unet(x * c_in, t, context, y=y, control=control, pag=pag,
+                          sag_capture=sag_capture)
+        if sag_capture:
+            out, probs, mid_hw = out
         if is_v:
             # with the VP scalings, denoised = x/(s^2+1) - v*s/sqrt(s^2+1);
             # exactly, for the sampler's denoised = x - s*eps:
             # eps = x*s/(s^2+1) + v/sqrt(s^2+1)
             out = x * (sig / (sig**2 + 1.0)) + out / torch.sqrt(sig**2 + 1.0)
+        if sag_capture:
+            return out.to(x.dtype), probs, mid_hw
         return out.to(x.dtype)
 
     return model_fn
 
 
+def _guidance_patches(bundle: PipelineBundle) -> list[str]:
+    """The guidance patch nodes applied to the bundle, by node name."""
+    return [name for name, active in (
+        ("RescaleCFG", bundle.cfg_rescale is not None),
+        ("PerturbedAttentionGuidance", bundle.pag is not None),
+        ("SelfAttentionGuidance", bundle.sag is not None),
+    ) if active]
+
+
 def reject_existing_guidance_patches(bundle: PipelineBundle, node_name: str) -> None:
     """A second guidance patch node on one model fails when the graph is
-    built, naming the first (the JAX package's six patches cannot
-    combine; the port has PAG)."""
-    if bundle.pag is not None:
-        raise ValueError(f"{node_name} cannot combine with PerturbedAttentionGuidance on the "
-                         "same model")
+    built, naming the first: their compositions cannot combine."""
+    existing = _guidance_patches(bundle)
+    if existing:
+        raise ValueError(f"{node_name} cannot combine with {existing[0]} on the same model")
 
 
 def guided_model(bundle: PipelineBundle, cfg_scale: float):
-    """CFG over the bundle's model, plus PAG when the bundle carries a
-    PAGSpec (the PerturbedAttentionGuidance node)."""
+    """CFG over the bundle's model (with the per-entry composition of
+    multi-entry conditioning), plus the one guidance patch the bundle
+    carries: PAG, SAG or RescaleCFG. A hand-built bundle with two
+    raises."""
+    patches = _guidance_patches(bundle)
+    if len(patches) > 1:
+        raise ValueError(f"guidance patches cannot combine on one model: {patches}")
     base_fn = _make_model_fn(bundle)
+    p2s = percent_converter(bundle)
     if bundle.pag is not None:
         return smp.pag_cfg_model(base_fn, _make_model_fn(bundle, pag=True), cfg_scale,
-                                 float(bundle.pag.scale))
-    return smp.cfg_model(base_fn, cfg_scale)
+                                 float(bundle.pag.scale), p2s=p2s)
+    if bundle.sag is not None:
+        return smp.sag_cfg_model(base_fn, _make_model_fn(bundle, sag_capture=True), cfg_scale,
+                                 float(bundle.sag.scale), float(bundle.sag.blur_sigma), p2s=p2s)
+    if bundle.cfg_rescale is not None:
+        return smp.rescale_cfg_model(base_fn, cfg_scale, float(bundle.cfg_rescale), p2s=p2s)
+    return smp.cfg_model(base_fn, cfg_scale, p2s=p2s)
 
 
 # --- sampling --------------------------------------------------------------
@@ -415,7 +516,7 @@ def _masked_sample(bundle: PipelineBundle, cfg_scale: float, param: str, latents
     if noise_mask is not None:
         mask = torch.clamp(torch.as_tensor(noise_mask).to(bundle.device, torch.float32), 0.0, 1.0)
         model = smp.masked_inpaint_model(model, param, latents, noise, mask)
-    cond = tuple(as_conditioning(c) for c in cond)
+    cond = tuple(c if isinstance(c, (list, tuple)) else as_conditioning(c) for c in cond)
     out = smp.sample(model, x, sigmas, cond, sampler, step_noise)
     if noise_mask is not None:
         out = out * mask + latents * (1.0 - mask)

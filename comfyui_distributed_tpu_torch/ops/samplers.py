@@ -11,14 +11,20 @@ prediction); `denoised(x, sigma) = x - sigma * eps`.
 Every sampler and scheduler of the JAX package runs on the VP families:
 eps- and v-prediction share the sigma table and the noising rule (the
 model function converts v to eps). Rectified-flow models are not ported
-(`require_vp`). Guidance: plain CFG and perturbed-attention guidance
-(PAG); inpainting pins the unmasked region (`masked_inpaint_model`).
+(`require_vp`). Guidance: CFG with the per-entry composition of
+multi-entry, area, mask and timestep-window conditioning
+(`composite_eps`), perturbed-attention guidance (PAG), self-attention
+guidance (SAG) and RescaleCFG; inpainting pins the unmasked region
+(`masked_inpaint_model`).
 
 Scalars: each trajectory keeps its sigmas as f32 tensors on the host.
 The per-step scalar arithmetic (logs, clamps, ancestral splits) runs
 there in f32, as the JAX package's does on its f32 scalars, branches on
 host values (no device synchronisation), and the host 0-d tensors scale
-the latents on whatever device they live.
+the latents on whatever device they live. A model function gets its
+sigma batch on the host too: the timestep windows of conditioning and
+ControlNet hints are host comparisons (`in_window`), and `on_device`
+copies the batch where the latents are.
 
 Step noise: the stochastic samplers draw it from a `StepNoise` callable,
 `noise(step, slot, like)` → standard normals of `like`'s shape, called
@@ -35,8 +41,18 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from .conditioning import Conditioning
+from .conditioning import (
+    STATIC_FIELDS,
+    TENSOR_FIELDS,
+    as_conditioning,
+    concat_batch,
+    reject_unported,
+    resolve_area,
+)
+from .filters import gaussian_blur
+from .resize import resize_image
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor]
 StepNoise = Callable[[int, int, torch.Tensor], torch.Tensor]
@@ -261,7 +277,7 @@ def masked_inpaint_model(model_fn: ModelFn, parameterization: str, latents: torc
     composite `out * mask + latents * (1 - mask)` after sampling."""
 
     def wrapped(x, sigma_batch, cond):
-        sig = sigma_batch.reshape((-1,) + (1,) * (x.ndim - 1))
+        sig = on_device(sigma_batch, x).reshape((-1,) + (1,) * (x.ndim - 1))
         ref = noise_latents(parameterization, latents, noise, sig)
         return model_fn(x * mask + ref * (1.0 - mask), sigma_batch, cond)
 
@@ -275,31 +291,163 @@ def sigma_to_timestep(sigma: torch.Tensor) -> torch.Tensor:
     return torch.argmin(dist, dim=-1).float()
 
 
+# --- sigmas on the host ---------------------------------------------------
+
+def on_device(sigma_batch: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A host sigma batch on `like`'s device: an asynchronous copy, no
+    wait for the device's queue."""
+    return sigma_batch.to(device=like.device, non_blocking=True)
+
+
+def percent_to_sigma(percent: float, parameterization: str = "eps") -> float:
+    """Sampling-progress percent (0 = the schedule's start, 1 = its end)
+    → sigma on the VP table: inf at 0, 0 at 1."""
+    require_vp(parameterization)
+    p = float(percent)
+    if p <= 0.0:
+        return float("inf")
+    if p >= 1.0:
+        return 0.0
+    table = _vp_sigmas()
+    return float(table[round((1.0 - p) * (len(table) - 1))])
+
+
+def _default_p2s(percent: float) -> float:
+    return percent_to_sigma(percent, "eps")
+
+
+def in_window(sigma_batch: torch.Tensor, window: tuple, p2s=_default_p2s) -> bool:
+    """Whether sigma_batch[0] lies in the progress window [start, end):
+    sigma <= p2s(start) and sigma > p2s(end). The sampler builds the
+    batch on the host, so this reads no device. The bounds are rounded
+    to f32 first: the JAX package compares its f32 sigma with them as
+    f32, and a schedule's sigma can equal a bound only in f32."""
+    s0 = np.float32(float(sigma_batch[0]))
+    hi = np.float32(p2s(float(window[0])))
+    lo = np.float32(p2s(float(window[1])))
+    return bool(s0 <= hi and s0 > lo)
+
+
+# --- multi-entry composition ---------------------------------------------
+
+def _as_entries(cond) -> list:
+    """A CONDITIONING value as its list of entries."""
+    if isinstance(cond, (list, tuple)):
+        return list(cond)
+    return [cond]
+
+
+def _needs_composite(cond) -> bool:
+    """Whether a CONDITIONING value takes the per-entry path: several
+    entries, or one restricted by an area, a mask or a timestep window."""
+    entries = _as_entries(cond)
+    if len(entries) > 1:
+        return True
+    e = entries[0]
+    return (getattr(e, "area", None) is not None or getattr(e, "mask", None) is not None
+            or getattr(e, "timestep_range", None) is not None)
+
+
+def composite_eps(model_fn: ModelFn, x, sigma, cond, p2s=_default_p2s):
+    """Multi-entry composition (the JAX package's `composite_eps`): each
+    entry's prediction applies over its area (pixels // 8 in latents, or
+    a percentage of the latent; evaluated on the crop), weighted by its
+    strength x mask x timestep-window gate; the sum is divided by the
+    summed weights, and cells no entry covers get eps 0. Every entry is
+    evaluated every step, gated off or not, as the JAX package's single
+    program does."""
+    entries = _as_entries(cond)
+    acc = torch.zeros_like(x)
+    count = torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
+    for e in entries:
+        weight = float(getattr(e, "strength", 1.0))
+        mask = getattr(e, "mask", None)
+        if mask is not None:
+            m = torch.as_tensor(mask).to(device=x.device, dtype=x.dtype)
+            if m.ndim == 4:
+                m = m[..., 0]
+            if m.ndim == 2:
+                m = m[None]
+            if tuple(m.shape[1:]) != tuple(x.shape[1:3]):
+                m = resize_image(m[..., None], x.shape[1], x.shape[2], "bilinear")[..., 0]
+            wmap = torch.clamp(m.to(x.dtype), 0.0, 1.0)[..., None] * weight
+        else:
+            wmap = torch.full(x.shape[:-1] + (1,), weight, dtype=x.dtype, device=x.device)
+        window = getattr(e, "timestep_range", None)
+        if window is not None and not in_window(sigma, window, p2s):
+            wmap = wmap * 0.0
+        area = getattr(e, "area", None)
+        if area is None:
+            acc = acc + model_fn(x, sigma, e) * wmap
+            count = count + wmap.expand(count.shape)
+            continue
+        if area[0] == "percentage":
+            ah, aw, ay, ax = resolve_area(area, x.shape[1], x.shape[2])
+        else:
+            ah, aw, ay, ax = (int(v) // 8 for v in area)
+        # the origin clamped into the latent: an off-frame one would crop
+        # nothing
+        ay = min(max(ay, 0), x.shape[1] - 1)
+        ax = min(max(ax, 0), x.shape[2] - 1)
+        ah = max(1, min(ah, x.shape[1] - ay))
+        aw = max(1, min(aw, x.shape[2] - ax))
+        e_c = e
+        if getattr(e, "control_hint", None) is not None:
+            # the hint is in pixels: crop the matching pixel window
+            e_c = e.clone()
+            k = max(1, e.control_hint.shape[1] // x.shape[1])
+            e_c.control_hint = e.control_hint[:, ay * k:(ay + ah) * k, ax * k:(ax + aw) * k, :]
+        eps_c = model_fn(x[:, ay:ay + ah, ax:ax + aw, :], sigma, e_c)
+        w_c = wmap.expand(x.shape[:-1] + (1,))[:, ay:ay + ah, ax:ax + aw, :]
+        acc[:, ay:ay + ah, ax:ax + aw, :] += eps_c * w_c
+        count[:, ay:ay + ah, ax:ax + aw, :] += w_c
+    return acc / torch.clamp(count, min=1e-9)
+
+
 # --- CFG -----------------------------------------------------------------
 
-def _conds_batchable(pos: Conditioning, neg: Conditioning) -> bool:
-    """Whether cond and uncond can ride one 2B-batched model pass: the
-    same fields set, with the same shapes."""
-    if (pos.pooled is None) != (neg.pooled is None):
-        return False
-    if pos.context.shape != neg.context.shape:
-        return False
-    return pos.pooled is None or pos.pooled.shape == neg.pooled.shape
+def _reject_unsupported_cond(*conds) -> None:
+    """Fail on conditioning that no ported model consumes."""
+    for cond in conds:
+        for e in _as_entries(cond):
+            reject_unported(e)
 
 
-def _cfg_eval(model_fn: ModelFn, cfg_scale: float, x, sigma, cond):
-    """One CFG evaluation → (eps_pos, guided eps). The two passes run as
-    one 2B-batched model call where they can."""
+def _conds_batchable(pos, neg) -> bool:
+    """Whether cond and uncond can ride one 2B-batched model pass (the
+    JAX package's rule): neither carries a ControlNet, the static fields
+    agree and the same tensor fields are set, with the same shapes."""
+    pos, neg = as_conditioning(pos), as_conditioning(neg)
+    if pos.control_net is not None or neg.control_net is not None:
+        return False
+    if any(getattr(pos, name) != getattr(neg, name) for name in STATIC_FIELDS):
+        return False
+    for name in TENSOR_FIELDS:
+        a, b = getattr(pos, name), getattr(neg, name)
+        if (a is None) != (b is None) or (a is not None and a.shape != b.shape):
+            return False
+    return True
+
+
+def _cfg_eval(model_fn: ModelFn, cfg_scale: float, x, sigma, cond, p2s=_default_p2s):
+    """One CFG evaluation → (eps_pos, guided eps). Multi-entry or area,
+    mask or window restricted conditioning takes the per-entry path; the
+    two sides run as one 2B-batched model call where `_conds_batchable`
+    allows, else as two calls."""
     pos, neg = cond
+    _reject_unsupported_cond(pos, neg)
+    if _needs_composite(pos) or _needs_composite(neg):
+        eps_pos = composite_eps(model_fn, x, sigma, pos, p2s)
+        if cfg_scale == 1.0:
+            return eps_pos, eps_pos
+        eps_neg = composite_eps(model_fn, x, sigma, neg, p2s)
+        return eps_pos, eps_neg + cfg_scale * (eps_pos - eps_neg)
+    pos, neg = _as_entries(pos)[0], _as_entries(neg)[0]
     if cfg_scale == 1.0:
         eps_pos = model_fn(x, sigma, pos)
         return eps_pos, eps_pos
     if _conds_batchable(pos, neg):
-        both = Conditioning(
-            context=torch.cat([pos.context, neg.context], dim=0),
-            pooled=(None if pos.pooled is None
-                    else torch.cat([pos.pooled, neg.pooled], dim=0)),
-        )
+        both = concat_batch(as_conditioning(pos), as_conditioning(neg))
         eps_pos, eps_neg = model_fn(
             torch.cat([x, x], dim=0), torch.cat([sigma, sigma], dim=0), both
         ).chunk(2, dim=0)
@@ -309,23 +457,30 @@ def _cfg_eval(model_fn: ModelFn, cfg_scale: float, x, sigma, cond):
     return eps_pos, eps_neg + cfg_scale * (eps_pos - eps_neg)
 
 
-def cfg_model(model_fn: ModelFn, cfg_scale: float) -> ModelFn:
-    """Classifier-free guidance; cond is the (positive, negative) pair."""
+def cfg_model(model_fn: ModelFn, cfg_scale: float, p2s=_default_p2s) -> ModelFn:
+    """Classifier-free guidance; cond is the (positive, negative) pair.
+    `p2s` converts progress percents to sigmas for the timestep windows."""
 
     def guided(x, sigma, cond):
-        return _cfg_eval(model_fn, cfg_scale, x, sigma, cond)[1]
+        return _cfg_eval(model_fn, cfg_scale, x, sigma, cond, p2s)[1]
 
     return guided
 
 
-def _perturbed_delta(pert_model_fn: ModelFn, x, sigma, pos, eps_pos, scale: float):
+def _perturbed_delta(pert_model_fn: ModelFn, x, sigma, pos, eps_pos, scale: float,
+                     p2s=_default_p2s):
     """scale * (eps_pos - eps_perturbed): one perturbed evaluation
-    against the positive conditioning."""
-    return scale * (eps_pos - pert_model_fn(x, sigma, pos))
+    against the positive conditioning, composed per entry where it needs
+    that."""
+    if _needs_composite(pos):
+        eps_pert = composite_eps(pert_model_fn, x, sigma, pos, p2s)
+    else:
+        eps_pert = pert_model_fn(x, sigma, _as_entries(pos)[0])
+    return scale * (eps_pos - eps_pert)
 
 
 def pag_cfg_model(model_fn: ModelFn, pag_model_fn: ModelFn, cfg_scale: float,
-                  pag_scale: float) -> ModelFn:
+                  pag_scale: float, p2s=_default_p2s) -> ModelFn:
     """CFG plus perturbed-attention guidance (PAG, Ahn et al. 2024): the
     result gains pag_scale * (cond - cond with the middle block's
     self-attention as identity), `pag_model_fn` being that perturbed
@@ -333,8 +488,76 @@ def pag_cfg_model(model_fn: ModelFn, pag_model_fn: ModelFn, cfg_scale: float,
 
     def guided(x, sigma, cond):
         pos, _neg = cond
-        eps_pos, base = _cfg_eval(model_fn, cfg_scale, x, sigma, cond)
-        return base + _perturbed_delta(pag_model_fn, x, sigma, pos, eps_pos, pag_scale)
+        eps_pos, base = _cfg_eval(model_fn, cfg_scale, x, sigma, cond, p2s)
+        return base + _perturbed_delta(pag_model_fn, x, sigma, pos, eps_pos, pag_scale, p2s)
+
+    return guided
+
+
+def rescale_cfg_model(model_fn: ModelFn, cfg_scale: float, multiplier: float,
+                      p2s=_default_p2s) -> ModelFn:
+    """CFG with std rescaling (RescaleCFG; Lin et al., "Common Diffusion
+    Noise Schedules and Sample Steps are Flawed", 3.4): the guided and
+    the positive denoised outputs go to v space, the guided v is scaled
+    to the positive one's per-sample population std (not torch's default
+    unbiased std: the JAX package takes jnp.std), lerped by `multiplier`,
+    and brought back to eps."""
+
+    def guided(x, sigma, cond):
+        eps_pos, eps_cfg = _cfg_eval(model_fn, cfg_scale, x, sigma, cond, p2s)
+        sig = on_device(sigma, x).reshape((-1,) + (1,) * (x.ndim - 1))
+        x0_pos = x - sig * eps_pos
+        x0_cfg = x - sig * eps_cfg
+        xs = x / (sig * sig + 1.0)
+        scale = torch.sqrt(sig * sig + 1.0) / _floor(sig)
+        v_pos = (xs - (x - x0_pos)) * scale
+        v_cfg = (xs - (x - x0_cfg)) * scale
+        dims = tuple(range(1, x.ndim))
+        ro_pos = torch.std(v_pos, dim=dims, keepdim=True, correction=0)
+        ro_cfg = torch.clamp(torch.std(v_cfg, dim=dims, keepdim=True, correction=0), min=1e-8)
+        v_final = multiplier * (v_cfg * (ro_pos / ro_cfg)) + (1.0 - multiplier) * v_cfg
+        x0 = x - (xs - v_final * sig / torch.sqrt(sig * sig + 1.0))
+        return (x - x0) / _floor(sig)
+
+    return guided
+
+
+def sag_cfg_model(model_fn: ModelFn, capture_fn, cfg_scale: float, sag_scale: float,
+                  blur_sigma: float, p2s=_default_p2s) -> ModelFn:
+    """CFG plus self-attention guidance (SAG, Hong et al. 2023). A step:
+
+      1. the capture pass, `capture_fn(x, sigma, neg)` → (eps_uncond,
+         the middle block's first self-attention probabilities [B,
+         heads, N, N], (mid_h, mid_w));
+      2. the salience mask: the attention each middle token receives
+         (mean over heads, summed over queries) above 1, the uniform
+         level, resized nearest to the latent (jax.image.resize's
+         half-pixel sampling: "nearest-exact");
+      3. the uncond x0 estimate blurred (radius 4, `blur_sigma`) where
+         salient and re-noised with the same noise, x - x0;
+      4. out = cfg + sag_scale * (eps_uncond - eps_degraded).
+
+    Four model evaluations a step: the CFG pair, the capture and the
+    degraded pass. The negative must be a single entry."""
+
+    def guided(x, sigma, cond):
+        pos, neg = cond
+        if _needs_composite(neg):
+            raise ValueError("SelfAttentionGuidance needs a single negative conditioning "
+                             "entry (the degraded pass re-evaluates the uncond prediction)")
+        eps_pos, base = _cfg_eval(model_fn, cfg_scale, x, sigma, cond, p2s)
+        neg = _as_entries(neg)[0]
+        eps_u, probs, (mid_h, mid_w) = capture_fn(x, sigma, neg)
+        sig = on_device(sigma, x).reshape((-1,) + (1,) * (x.ndim - 1))
+        u_x0 = x - sig * eps_u
+        received = probs.mean(dim=1).sum(dim=1)  # [B, middle tokens]
+        mask = (received > 1.0).to(x.dtype).reshape(-1, 1, mid_h, mid_w)
+        mask = F.interpolate(mask, size=(x.shape[1], x.shape[2]),
+                             mode="nearest-exact").permute(0, 2, 3, 1)
+        blurred = gaussian_blur(u_x0, 4, blur_sigma)
+        degraded_x0 = blurred * mask + u_x0 * (1.0 - mask)
+        eps_d = model_fn(degraded_x0 + (x - u_x0), sigma, neg)
+        return base + sag_scale * (eps_u - eps_d)
 
     return guided
 
@@ -367,8 +590,10 @@ def _floor(t: torch.Tensor) -> torch.Tensor:
 
 
 def _denoised(model_fn: ModelFn, x: torch.Tensor, sigma: torch.Tensor, cond) -> torch.Tensor:
-    """x0 prediction from the eps model at a host scalar sigma."""
-    sig_batch = torch.full((x.shape[0],), float(sigma), device=x.device, dtype=torch.float32)
+    """x0 prediction from the eps model at a host scalar sigma. The model
+    gets the sigma batch on the host (`on_device` moves it), so its gates
+    read sigma with no device synchronisation."""
+    sig_batch = torch.full((x.shape[0],), float(sigma), dtype=torch.float32)
     eps = model_fn(x, sig_batch, cond)
     return x - sigma * eps
 

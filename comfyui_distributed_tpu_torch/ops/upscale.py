@@ -2,8 +2,11 @@
 
 Counterpart of comfyui_distributed_tpu/ops/upscale.py: resize, cut the
 grid into padded tiles, and per tile VAE-encode, noise, sample under
-CFG, decode; then blend. Tiles run one after another on one device (the
-JAX package's scan at tile batch 1). The mesh tier is not ported yet.
+CFG, decode (whole, or in latent tiles with `tiled_decode`); then blend.
+Tiles run one after another on one device (the JAX package's scan at
+tile batch 1). Conditioning is windowed to each tile: a ControlNet hint
+and a mask are resized to the upscaled image, padded like it and sliced
+at the tile's origin. The mesh tier is not ported yet.
 
 Per-tile noise comes from a callable `noise(tile_index, shape)` (the
 initial noise); where it also has `step_noise(tile_index)`, that gives
@@ -19,113 +22,16 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-import numpy as np
 import torch
 
 from ..models import pipeline as pl
 from . import samplers as smp
 from . import tiles as tile_ops
 from .conditioning import Conditioning, as_conditioning
+from .resize import resize_image
+from .tiled_vae import decode_tiled
 
 NoiseFn = Callable[[int, tuple], torch.Tensor]
-
-# user-facing upscale_method names → the jax.image.resize kernel the JAX
-# package routes them to; "area" is an exact box average
-RESIZE_METHODS = {
-    "bicubic": "cubic",
-    "bilinear": "linear",
-    "nearest": "nearest",
-    "nearest-exact": "nearest",
-    "lanczos": "lanczos3",
-}
-
-
-def _keys_cubic(x: np.ndarray) -> np.ndarray:
-    out = ((1.5 * x - 2.5) * x) * x + 1.0
-    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
-    return np.where(x >= 2.0, 0.0, out)
-
-
-def _triangle(x: np.ndarray) -> np.ndarray:
-    return np.maximum(0.0, 1.0 - np.abs(x))
-
-
-def _lanczos3(x: np.ndarray) -> np.ndarray:
-    radius = 3.0
-    y = radius * np.sin(np.pi * x) * np.sin(np.pi * x / radius)
-    with np.errstate(divide="ignore", invalid="ignore"):
-        out = np.where(x > 1e-3, y / np.where(x != 0, np.pi**2 * x**2, 1), 1.0)
-    return np.where(x > radius, 0.0, out)
-
-
-_KERNELS = {"cubic": _keys_cubic, "linear": _triangle, "lanczos3": _lanczos3}
-
-
-def _scale_weights(n_in: int, n_out: int, kernel: str) -> np.ndarray:
-    """[n_in, n_out] resampling weights of jax.image.resize (scale and
-    translate with antialiasing): half-pixel centres, the kernel widened
-    by the downscale factor, columns normalised, samples outside the
-    input zeroed."""
-    scale = n_out / n_in
-    inv_scale = 1.0 / scale
-    kernel_scale = max(inv_scale, 1.0)
-    sample_f = (np.arange(n_out) + 0.5) * inv_scale - 0.5
-    x = np.abs(sample_f[None, :] - np.arange(n_in)[:, None]) / kernel_scale
-    weights = _KERNELS[kernel](x)
-    total = weights.sum(axis=0, keepdims=True)
-    weights = np.where(
-        np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-        weights / np.where(total != 0, total, 1),
-        0.0,
-    )
-    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
-    return np.where(inside[None, :], weights, 0.0).astype(np.float32)
-
-
-def _area_weights(n_out: int, n_in: int) -> np.ndarray:
-    """[n_out, n_in] row-stochastic box weights (adaptive average pool)."""
-    scale = n_in / n_out
-    w = np.zeros((n_out, n_in), dtype=np.float32)
-    for i in range(n_out):
-        lo, hi = i * scale, (i + 1) * scale
-        for j in range(int(np.floor(lo)), min(int(np.ceil(hi)), n_in)):
-            cover = min(hi, j + 1) - max(lo, j)
-            if cover > 0:
-                w[i, j] = cover
-        w[i] /= max(w[i].sum(), 1e-12)
-    return w
-
-
-def resize_image(image: torch.Tensor, out_h: int, out_w: int, method_name: str) -> torch.Tensor:
-    """[B, H, W, C] → [B, out_h, out_w, C] with the JAX package's
-    sampling for each method name. Unknown names raise; identical sizes
-    return the input untouched. F.interpolate is not used: its bicubic
-    is the a=-0.75 kernel with other edge handling."""
-    if method_name != "area" and method_name not in RESIZE_METHODS:
-        raise ValueError(
-            f"unknown upscale_method {method_name!r}; use {sorted(RESIZE_METHODS) + ['area']}"
-        )
-    b, h, w, c = image.shape
-    if (h, w) == (out_h, out_w):
-        return image
-    if method_name == "area":
-        wh = torch.from_numpy(_area_weights(out_h, h)).to(image.device)
-        ww = torch.from_numpy(_area_weights(out_w, w)).to(image.device)
-        return torch.einsum("oh,bhwc,pw->bopc", wh, image.float(), ww)
-    kernel = RESIZE_METHODS[method_name]
-    if kernel == "nearest":
-        from ..models.layers import resize_nearest
-
-        return resize_nearest(image.permute(0, 3, 1, 2), (out_h, out_w)).permute(0, 2, 3, 1)
-    out = image.float()
-    if h != out_h:
-        wh = torch.from_numpy(_scale_weights(h, out_h, kernel)).to(image.device)
-        out = torch.einsum("bhwc,ho->bowc", out, wh)
-    if w != out_w:
-        ww = torch.from_numpy(_scale_weights(w, out_w, kernel)).to(image.device)
-        out = torch.einsum("bhwc,wp->bhpc", out, ww)
-    return out
-
 
 def plan_grid(image_h: int, image_w: int, upscale_by: float, tile_w: int, padding: int,
               tile_h: int | None = None, mask_blur: int = 0,
@@ -156,20 +62,51 @@ def prepare_upscaled_tiles(image: torch.Tensor, upscale_by: float, tile_w: int, 
     return upscaled, grid, tile_ops.extract_tiles(upscaled, grid)
 
 
+def _pad_plane_for_grid(plane: torch.Tensor, grid: tile_ops.TileGrid) -> torch.Tensor:
+    """A [B, H, W] or [B, H, W, C] plane padded as the image is
+    (tiles.py::pad_image_for_grid: the overhang edge-extended, then the
+    reflect ring)."""
+    if plane.ndim == 3:
+        return tile_ops.pad_image_for_grid(plane[..., None], grid)[..., 0]
+    return tile_ops.pad_image_for_grid(plane, grid)
+
+
 def prep_cond_for_tiles(cond, grid: tile_ops.TileGrid):
-    """Conditioning prepared for per-tile windows. Multi-entry lists are
-    not ported; text context and pooled vectors need no preparation."""
+    """Conditioning made ready for per-tile windows: a ControlNet hint and
+    a mask resized (linear) to the upscaled image and padded like it, so
+    `tile_cond` slices them at the tiles' own origins. A list preps per
+    entry. An area is refused, as in the JAX package: its per-tile
+    intersection is not carried on the tile path, and the full-image
+    area on a tile crop would be wrong coordinates."""
     if isinstance(cond, (list, tuple)):
-        raise NotImplementedError(
-            "multi-entry conditioning (ConditioningCombine) is not ported yet (ROADMAP.md, "
-            "Queue 1 item 2: multi-entry and spatial conditioning)"
-        )
-    return as_conditioning(cond).clone()
+        return [prep_cond_for_tiles(c, grid) for c in cond]
+    c = as_conditioning(cond).clone()
+    if c.area is not None:
+        raise ValueError("area-restricted conditioning is not supported by the USDU tile "
+                         "path; remove the ConditioningSetArea restriction for upscaling")
+    if c.control_hint is not None:
+        hint = resize_image(c.control_hint, grid.image_h, grid.image_w, "bilinear")
+        c.control_hint = _pad_plane_for_grid(hint, grid)
+    if c.mask is not None:
+        mask = resize_image(c.mask[..., None], grid.image_h, grid.image_w, "bilinear")[..., 0]
+        c.mask = _pad_plane_for_grid(mask, grid)
+    return c
 
 
-def tile_cond(cond: Conditioning, y: int, x: int, grid: tile_ops.TileGrid) -> Conditioning:
-    """A tile's window of conditioning prepped by prep_cond_for_tiles."""
-    return cond.clone()
+def tile_cond(cond, y: int, x: int, grid: tile_ops.TileGrid):
+    """A tile's window of conditioning prepped by `prep_cond_for_tiles`:
+    the hint and mask sliced at the tile's origin (y, x) in the padded
+    plane, padded tile size."""
+    if isinstance(cond, (list, tuple)):
+        return [tile_cond(c, y, x, grid) for c in cond]
+    if not isinstance(cond, Conditioning):
+        return cond
+    c = cond.clone()
+    if c.control_hint is not None:
+        c.control_hint = c.control_hint[:, y:y + grid.padded_h, x:x + grid.padded_w, :]
+    if c.mask is not None:
+        c.mask = c.mask[:, y:y + grid.padded_h, x:x + grid.padded_w]
+    return c
 
 
 class TileNoise:
@@ -202,11 +139,13 @@ def default_noise(seed: int, device) -> TileNoise:
 
 
 def _process_tile_fn(bundle: pl.PipelineBundle, grid: tile_ops.TileGrid, steps: int,
-                     sampler: str, scheduler: str, cfg: float, denoise: float):
+                     sampler: str, scheduler: str, cfg: float, denoise: float,
+                     tiled_decode: bool = False):
     """fn(tile, tile_index, noise, pos, neg, yx) → the processed tile;
     pos/neg prepped by prep_cond_for_tiles. `noise` is the tiles' noise
     (see the module docstring): a stochastic sampler takes its
-    `step_noise(tile_index)`."""
+    `step_noise(tile_index)`. `tiled_decode` decodes the tile's latents
+    in tiles (ops/tiled_vae.py, its defaults)."""
     smp.check_sampler_names(sampler, scheduler)
     param = pl.model_schedule_info(bundle)
     sigmas = smp.get_model_sigmas(param, scheduler, steps, denoise=denoise)
@@ -220,6 +159,8 @@ def _process_tile_fn(bundle: pl.PipelineBundle, grid: tile_ops.TileGrid, steps: 
         step_noise = getattr(noise, "step_noise", None)
         z_out = smp.sample(model_fn, x, sigmas, (pos_t, neg_t), sampler,
                            step_noise(tile_index) if step_noise is not None else None)
+        if tiled_decode:
+            return decode_tiled(bundle.vae, z_out)
         return bundle.vae.decode(z_out)
 
     return fn
@@ -228,12 +169,14 @@ def _process_tile_fn(bundle: pl.PipelineBundle, grid: tile_ops.TileGrid, steps: 
 @torch.no_grad()
 def upscale_single(bundle: pl.PipelineBundle, upscaled: torch.Tensor, pos, neg, seed: int,
                    grid: tile_ops.TileGrid, steps: int, sampler: str, scheduler: str,
-                   cfg: float, denoise: float, noise: NoiseFn | None = None) -> torch.Tensor:
+                   cfg: float, denoise: float, noise: NoiseFn | None = None,
+                   tiled_decode: bool = False) -> torch.Tensor:
     """All tiles processed on the bundle's device, one after another."""
     extracted = tile_ops.extract_tiles(upscaled, grid)  # [T, B, th, tw, C]
     pos = prep_cond_for_tiles(pos, grid)
     neg = prep_cond_for_tiles(neg, grid)
-    process = _process_tile_fn(bundle, grid, steps, sampler, scheduler, cfg, denoise)
+    process = _process_tile_fn(bundle, grid, steps, sampler, scheduler, cfg, denoise,
+                               tiled_decode)
     noise = noise or default_noise(seed, bundle.device)
     processed = torch.stack([
         process(tile, g, noise, pos, neg, yx)
@@ -272,9 +215,6 @@ def run_upscale(
             "the multi-device tile tier is not ported yet (ROADMAP.md, Queue 1 item 6: "
             "the multi-GPU tier)"
         )
-    if tiled_decode:
-        raise NotImplementedError("tiled VAE decode is not ported yet (ROADMAP.md, Queue 1 "
-                                  "item 2: tiled VAE)")
     image = torch.as_tensor(image, dtype=torch.float32).to(bundle.device)
     upscaled, grid, _ = prepare_upscaled_tiles(
         image, upscale_by, tile, padding, upscale_method, tile_h,
@@ -282,5 +222,5 @@ def run_upscale(
     )
     return upscale_single(
         bundle, upscaled, pos, neg, seed, grid, int(steps), sampler, scheduler,
-        float(cfg), float(denoise), noise=noise,
+        float(cfg), float(denoise), noise=noise, tiled_decode=bool(tiled_decode),
     )

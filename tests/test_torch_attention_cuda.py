@@ -319,6 +319,13 @@ SD_WORKFLOW_SHAPES = [
     (2, 144, 144, 20, 64), (2, 144, 77, 20, 64), (1, 9216, 9216, 1, 512),
     (1, 4096, 4096, 8, 40), (1, 4096, 77, 8, 40), (1, 1024, 1024, 8, 80),
     (1, 1024, 77, 8, 80), (1, 256, 256, 8, 160), (1, 256, 77, 8, 160), (1, 64, 77, 8, 160),
+    # the ControlNet-hinted SDXL tile's batch-1 passes and the
+    # tiled decode's 80-latent pieces; SAG's degraded pass (mid-block
+    # self-attention at batch 1); the area entry's 32 x 64 crop on SD1.5
+    (1, 1296, 1296, 10, 64), (1, 1296, 77, 10, 64), (1, 324, 324, 20, 64),
+    (1, 324, 77, 20, 64), (1, 6400, 6400, 1, 512), (1, 64, 64, 8, 160),
+    (1, 2048, 2048, 8, 40), (1, 2048, 77, 8, 40), (1, 512, 512, 8, 80), (1, 512, 77, 8, 80),
+    (1, 128, 128, 8, 160), (1, 128, 77, 8, 160), (1, 32, 32, 8, 160), (1, 32, 77, 8, 160),
 ]
 
 

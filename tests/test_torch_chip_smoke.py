@@ -529,3 +529,154 @@ def test_ckpt_phase_fails_when_the_file_is_not_read(monkeypatch, one_torch_threa
     with pytest.raises(RuntimeError, match="loaded weights differ from the written ones"):
         chip_smoke._ckpt_phase(torch, torch.Generator().manual_seed(0),
                                {"ckpt_sd15": _tiny_txt2img_workflow()}, "cpu")
+
+
+# --- usdu_full and guidance --------------------------------------------------------------------
+
+def test_usdu_full_launches_match_one_sdxl_tile_on_meta(recorded_calls):
+    """One evaluation's two batch-1 passes (a ControlNet keeps the CFG pair
+    apart), the tile's VAE encode and its tiled decode, on meta: the calls
+    `_usdu_full_shapes` counts, 20 evaluations a tile. The 72-latent tile
+    decodes in 2 x 2 pieces of 80 latents: 5605 launches a tile, 5600
+    wgmma and 5 wgmma512; 22420 a run of four tiles."""
+    from comfyui_distributed_tpu_torch.ops.tiled_vae import decode_tiled
+
+    with torch.device("meta"):
+        unet, autoencoder = create_model("sdxl"), create_model("vae-sd")
+        for _ in range(2):
+            unet(torch.empty(1, 72, 72, 4), torch.empty(1), torch.empty(1, 77, 2048),
+                 y=torch.empty(1, 2816), control=torch.empty(1, 72, 72, 320))
+        decode_tiled(autoencoder, autoencoder.encode(torch.empty(1, 576, 576, 3)))
+    workflow = chip_smoke._usdu_full_workflow(_workflow("distributed-upscale.json"))
+    shapes = chip_smoke._usdu_full_shapes(workflow)
+    expected = collections.Counter()
+    for _label, q, m, per_tile in shapes:
+        expected[(q, m)] += per_tile // 20 if q[3] == 64 else per_tile
+    assert recorded_calls == expected
+    assert ("vae@6400", (1, 6400, 1, 512), 6400, 4) in shapes
+    assert sum(per_tile for *_, per_tile in shapes) == 5605
+    assert chip_smoke._expected_by_instance(attn, shapes, torch) == {
+        "wgmma": 5600, "wgmma512": 5, "fma": 0}
+
+
+def test_the_usdu_full_workflow_wires_every_input_into_the_usdu_node():
+    base = _workflow("distributed-upscale.json")
+    full = chip_smoke._usdu_full_workflow(base)
+    usdu = full[chip_smoke.USDU_NODE]["inputs"]
+    assert full[usdu["upscale_model"][0]]["inputs"]["model_name"] == "4x-generic"
+    assert usdu["tiled_decode"] is True
+    apply = full[usdu["positive"][0]]
+    assert apply["class_type"] == "ControlNetApplyAdvanced" and usdu["negative"] == [
+        usdu["positive"][0], 1]
+    assert apply["inputs"]["image"] == ["4", 0] and apply["inputs"]["strength"] == 1.0
+    encode = full[apply["inputs"]["positive"][0]]
+    assert encode["class_type"] == "CLIPTextEncodeSDXL"
+    assert encode["inputs"]["text_g"] == base["2"]["inputs"]["text"]
+    assert (encode["inputs"]["width"], encode["inputs"]["target_width"]) == (2048, 1024)
+    assert base[chip_smoke.USDU_NODE]["inputs"].get("upscale_model") is None  # a copy
+
+
+@pytest.mark.parametrize("variant, per_image, per_instance", [
+    ("FreeU_V2", 641, {"wgmma": 640, "wgmma512": 1, "fma": 0}),
+    ("FreeU", 641, {"wgmma": 640, "wgmma512": 1, "fma": 0}),
+    ("SelfAttentionGuidance", 1901, {"wgmma": 1900, "wgmma512": 1, "fma": 0}),
+    ("RescaleCFG", 641, {"wgmma": 640, "wgmma512": 1, "fma": 0}),
+    ("area", 1921, {"wgmma": 1920, "wgmma512": 1, "fma": 0}),
+])
+def test_guidance_launches_match_sd15_on_meta(variant, per_image, per_instance, recorded_calls):
+    """One evaluation of each guidance variant on SD1.5 at 512 px, on meta:
+    plain CFG at batch 2; SAG adds the capture pass at batch 1 (its middle
+    self-attention plain: 31 calls) and the degraded pass (32); the area
+    image runs the whole latent twice at batch 1 and the 32 x 64 crop
+    once. Then the decode: the calls `_guidance_shapes` counts."""
+    workflow = chip_smoke._guidance_variants(_txt2img_workflow())[variant]
+    with torch.device("meta"):
+        unet, autoencoder = create_model("sd15"), create_model("vae-sd")
+
+        def run(batch, hw=(64, 64), **kwargs):
+            unet(torch.empty(batch, *hw, 4), torch.empty(batch), torch.empty(batch, 77, 768),
+                 **kwargs)
+
+        if variant == "area":
+            run(1), run(1), run(1, (32, 64))
+        else:
+            run(2)
+        if variant == "SelfAttentionGuidance":
+            run(1, sag_capture=True)
+            run(1)
+        autoencoder.decode(torch.empty(1, 64, 64, 4))
+    shapes = chip_smoke._guidance_shapes(variant, workflow)
+    expected = collections.Counter()
+    for _label, q, m, count in shapes:
+        expected[(q, m)] += count // 20 if q[3] != 512 else count
+    assert recorded_calls == expected
+    assert sum(count for *_, count in shapes) == per_image
+    assert chip_smoke._expected_by_instance(attn, shapes, torch) == per_instance
+    if variant == "area":
+        assert {(q, m) for _label, q, m, _ in shapes if q[1] in (2048, 512, 128, 32)} >= {
+            ((1, 2048, 8, 40), 2048), ((1, 512, 8, 80), 512), ((1, 128, 8, 160), 128),
+            ((1, 32, 8, 160), 32), ((1, 2048, 8, 40), 77)}
+
+
+def test_usdu_full_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread, counted_calls):
+    """The phase as the card runs it, on tiny-unet-adm (the SDXL layout):
+    the local run with the upscale model, ControlNet tile (its conv_out
+    seeded), CLIPTextEncodeSDXL and tiled decode, the zero-residual and
+    strength-0 runs, and master + w1 over HTTP, each with the calls `_usdu_full_shapes` counts
+    (a tiny tile fits one decode piece)."""
+    workflow = _tiny_workflow()
+    workflow["1"]["inputs"]["ckpt_name"] = "tiny-unet-adm"
+    bundle = _tiny_bundle("tiny-unet-adm")
+    image = torch.from_numpy(timg.u8_to_f32(timg.f32_to_u8(
+        np.random.default_rng(2).random((1, 64, 64, 3), dtype=np.float32))))
+    full = chip_smoke._usdu_full_workflow(workflow)
+    per_tile = sum(count for *_, count in chip_smoke._usdu_full_shapes(full))
+    result = chip_smoke._usdu_full_phase(
+        torch, bundle, workflow, image, torch.Generator().manual_seed(1), "cpu",
+        expected_launches=4 * per_tile,
+        expected_by_instance={"fma": 4 * per_tile, "wgmma": 0, "wgmma512": 0},
+        tiled_tolerance=chip_smoke.TILED_DECODE_TOLERANCE)
+    lines = [line for line in capsys.readouterr().out.splitlines()
+             if line.startswith("[usdu_full]")]
+    assert result["launches"] == 4 * per_tile and result["tiles_per_s"] > 0
+    assert len(lines) == 4
+    assert "upscale model" in lines[0] and "tiled decode" in lines[0]
+    assert "pre-upscaled images max |diff| 0;" in lines[3]
+
+
+@pytest.mark.parametrize("fault", ["conv_out left zero", "residual never reaches the UNet"])
+def test_usdu_full_phase_fails_when_the_controlnet_adds_nothing(fault, monkeypatch,
+                                                                one_torch_thread):
+    """A ControlNet whose output conv stays zero, or whose residual is
+    dropped before the UNet, changes nothing: the phase's ControlNet check
+    (against a zero-residual run on the same batch-1 passes) must fail."""
+    if fault == "conv_out left zero":
+        monkeypatch.setattr(chip_smoke, "_seed_weight", lambda torch, weight, gen: None)
+    else:
+        monkeypatch.setattr(tpl, "_control_residual", lambda *args, **kwargs: None)
+    workflow = _tiny_workflow()
+    workflow["1"]["inputs"]["ckpt_name"] = "tiny-unet-adm"
+    bundle = tpl.load_pipeline("tiny-unet-adm", seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="the ControlNet does not change the output"):
+        chip_smoke._usdu_full_phase(torch, bundle, workflow, torch.zeros((1, 64, 64, 3)),
+                                    torch.Generator().manual_seed(1), "cpu")
+
+
+def test_guidance_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread, counted_calls):
+    """The phase as the card runs it, on tiny-unet at 32 px: each variant's
+    local image apart from the unpatched one with the calls
+    `_guidance_shapes` counts, the cached bundle unpatched, and SAG over
+    the collector (w1's image its local seed 43's)."""
+    workflow = _tiny_txt2img_workflow()
+    bundle = _tiny_bundle("tiny-unet")
+    expected = {}
+    for name in chip_smoke._guidance_variants(workflow, 32):
+        n = sum(count for *_, count in chip_smoke._guidance_shapes(name, workflow, 32))
+        expected[name] = (n, {"fma": n, "wgmma": 0, "wgmma512": 0})
+    result = chip_smoke._guidance_phase(torch, bundle, workflow, "cpu", expected, image_px=32)
+    lines = [line for line in capsys.readouterr().out.splitlines()
+             if line.startswith("[guidance]")]
+    assert {name: r["launches"] for name, r in result.items() if name != "http"} == {
+        name: n for name, (n, _) in expected.items()}
+    assert sum("vs unpatched max |diff|" in line for line in lines) == 5
+    assert "collector jobs left 0" in lines[-2] and "image 0 vs the local seed 42 0 " in lines[-1]

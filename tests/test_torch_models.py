@@ -162,12 +162,15 @@ def test_random_init_is_seeded_and_out_conv_starts_at_zero():
 
 
 def test_unet_rejects_unported_patches():
-    cfg = dataclasses.replace(treg.get_config("tiny-unet"), freeu=(1.1, 1.2, 0.9, 0.2, False))
-    with pytest.raises(NotImplementedError, match="FreeU"):
-        tpl.UNet(cfg)
-    unet = tpl.UNet(f32(treg.get_config("tiny-unet")))
+    """No UNet patch is left unported: FreeU, ControlNet residuals, SAG's
+    capture pass and PAG all run (held against flax in
+    tests/test_torch_guidance.py and test_torch_controlnet.py)."""
+    cfg = dataclasses.replace(f32(treg.get_config("tiny-unet")), freeu=(1.1, 1.2, 0.9, 0.2, False))
     x, t, ctx = torch.zeros((1, 8, 8, 4)), torch.zeros((1,)), torch.zeros((1, 16, 64))
-    for kwargs in ({"control": torch.zeros((1, 8, 8, 32))}, {"sag_capture": True}):
-        with pytest.raises(NotImplementedError, match="ControlNet residuals and SAG"):
-            unet(x, t, ctx, **kwargs)
-    assert unet(x, t, ctx, pag=True).shape == (1, 8, 8, 4)  # PAG is ported
+    with torch.no_grad():
+        assert tpl.UNet(cfg)(x, t, ctx).shape == (1, 8, 8, 4)
+        unet = tpl.UNet(f32(treg.get_config("tiny-unet")))
+        assert unet(x, t, ctx, control=torch.zeros((1, 8, 8, 32))).shape == (1, 8, 8, 4)
+        out, probs, mid_hw = unet(x, t, ctx, sag_capture=True)
+        assert out.shape == (1, 8, 8, 4) and probs.shape == (1, 2, 16, 16) and mid_hw == (4, 4)
+        assert unet(x, t, ctx, pag=True).shape == (1, 8, 8, 4)

@@ -211,3 +211,41 @@ class JaxTileNoise:
 
     def step_noise(self, tile_index):
         return jax_step_noise(self._keys(tile_index)[1], self.sampler)
+
+
+def controlnet_pair(model_channels=32, downscale=8, seed=5):
+    """(JAX ControlNetBundle, port ControlNetBundle on the CPU) at f32 with
+    the same numpy-seeded weights, the output conv non-zero (a fresh
+    ControlNet adds zero)."""
+    from comfyui_distributed_tpu.models import controlnet as jcn
+    from comfyui_distributed_tpu_torch.models import controlnet as tcn
+    from comfyui_distributed_tpu_torch.models.io import from_jax_params
+
+    module = jcn.ControlNetEncoder(jcn.ControlNetConfig(
+        model_channels=model_channels, downscale=downscale, dtype="float32"))
+    params = seeded_flax_params(module, seed, jnp.zeros((1, 64, 64, 3)))
+    assert np.abs(np.asarray(params["params"]["conv_out"]["kernel"])).max() > 0
+    port = tcn.ControlNetEncoder(tcn.ControlNetConfig(model_channels=model_channels,
+                                                      downscale=downscale, dtype="float32"))
+    port.load_state_dict(from_jax_params(flatten_params(params), port))
+    return (jcn.ControlNetBundle(name="tile", module=module, params=params),
+            tcn.ControlNetBundle("tile", port.eval().requires_grad_(False), torch.device("cpu")))
+
+
+def upscaler_pair(name="4x-generic", seed=21):
+    """(JAX UpscaleModelBundle, port UpscaleModelBundle on the CPU) at f32
+    with the same numpy-seeded weights, the tail non-zero (a fresh
+    upscaler is exactly a linear resize)."""
+    from comfyui_distributed_tpu.models import upscaler as jupm
+    from comfyui_distributed_tpu_torch.models import upscaler as tupm
+    from comfyui_distributed_tpu_torch.models.io import from_jax_params
+
+    scale = tupm.scale_of(name)
+    module = jupm.SuperResolver(jupm.UpscalerConfig(scale=scale, dtype="float32"))
+    params = seeded_flax_params(module, seed, jnp.zeros((1, 16, 16, 3)))
+    assert np.abs(np.asarray(params["params"]["tail"]["kernel"])).max() > 0
+    port = tupm.SuperResolver(tupm.UpscalerConfig(scale=scale, dtype="float32"))
+    port.load_state_dict(from_jax_params(flatten_params(params), port))
+    return (jupm.UpscaleModelBundle(name=name, module=module, params=params, scale=scale),
+            tupm.UpscaleModelBundle(name, port.eval().requires_grad_(False), scale,
+                                    torch.device("cpu")))

@@ -36,6 +36,7 @@ from comfyui_distributed_tpu_torch.models.io import from_jax_params
 from comfyui_distributed_tpu_torch.ops import samplers as tsmp
 from comfyui_distributed_tpu_torch.ops import tiles as ttiles
 from comfyui_distributed_tpu_torch.ops import upscale as tup
+from comfyui_distributed_tpu_torch.ops.conditioning import Conditioning
 from comfyui_distributed_tpu_torch.utils.exceptions import PromptValidationError
 from test_torch_parity import f32, seeded_flax_params
 
@@ -288,17 +289,21 @@ def test_load_and_save_image_nodes_through_the_executor(slice_pair, tmp_path, mo
 
 
 def test_usdu_node_raises_on_unported_branches(slice_pair):
-    """The elastic worker and master branches run now (tests/
-    test_torch_elastic.py); the dynamic whole-image mode, the upscale
-    model and the mesh tier still raise, naming their ROADMAP items."""
+    """The elastic worker and master branches run (tests/
+    test_torch_elastic.py), and so do the upscale model and tiled decode
+    (test_torch_upscaler.py, test_torch_tiled_vae.py); the dynamic
+    whole-image mode and the mesh tier still raise, naming their ROADMAP
+    items, and an area-restricted conditioning is refused as the JAX
+    package refuses it on the tile path."""
     _, tb, _, _, image, _ = slice_pair
     node = tnodes.UltimateSDUpscaleDistributed()
     args = dict(image=torch.from_numpy(image), model=tb, positive=None, negative=None, vae=tb)
     batch = dict(args, image=torch.from_numpy(np.repeat(image, 8, axis=0)))
     with pytest.raises(NotImplementedError, match="dynamic .*ROADMAP"):
         node.run(**batch, is_worker=True)
-    with pytest.raises(NotImplementedError, match="UpscaleModelLoader.*ROADMAP"):
-        node.run(**args, upscale_model=object())
+    area = Conditioning(torch.zeros((1, 16, 160)), area=(32, 32, 0, 0))
+    with pytest.raises(ValueError, match="area-restricted"):
+        node.run(**dict(args, positive=area, negative=area))
     with pytest.raises(NotImplementedError, match="multi-device tile tier"):
         node.run(**args, context=ExecutionContext(device="cpu", mesh=object()))
     with pytest.raises(NotImplementedError, match="multi-device tile tier"):
