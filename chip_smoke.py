@@ -143,7 +143,36 @@ Phases, each printing lines tagged with its name:
              a plain middle self-attention and a batch-1 degraded pass an
              evaluation) or 1921 (area: three batch-1 passes) times; then
              SAG as master + w1 through the collector, as txt2img.
-   phases  - each phase's seconds.
+   custom  - on the guidance phase's SD1.5, workflows/distributed-flux-
+             custom-sampling.json with its Flux-only nodes replaced
+             (`_custom_workflow`: CheckpointLoaderSimple sd15, EmptyLatentImage
+             512x512) and its BasicGuider made each of CUSTOM_GUIDERS:
+             CFGGuider, PerpNegGuider, DualCFGGuider (regular); DistributedSeed
+             → RandomNoise, BasicScheduler, KSamplerSelect euler,
+             SamplerCustomAdvanced, VAEDecode and the collector stay. Each as
+             txt2img over HTTP (one run: each image against a local run at its
+             seed, launches from `_custom_shapes`: batch-3 UNet calls under
+             PerpNeg and DualCFG); then locally the schedule split by
+             SplitSigmas at CUSTOM_SPLIT with DisableNoise into the second
+             stage, within RERUN_TOLERANCE of one stage.
+   nodes   - one graph of every image, latent, mask and transform node
+             (`_nodes_workflow`; a LoadImage/LoadImageMask PNG and literal
+             seeded latents) on the card and on the CPU: every output of the
+             same shape, dtype and device type, f32 within NODES_TOLERANCE.
+   inpaint_model - sd15-inpaint (a 9-channel UNet, seeded) on an outpainting
+             graph (`_inpaint_model_workflow`: LoadImage → ImagePadForOutpaint
+             → InpaintModelConditioning → KSampler euler/karras 20 →
+             VAEDecode → collector) as txt2img over HTTP: 5 concat channels
+             on both conditionings, the original region changed less than
+             the outpainted one, the images apart over the outpainted pixels.
+   dynamic - SDXL again; workflows/distributed-upscale-video.json with its
+             image source made 8 seeded 192x384 frames (8 LoadImage files, 7
+             ImageBatch nodes): its own dynamic_threshold of 8 takes dynamic
+             mode. Master + w1 over HTTP: every frame once, w1 at least one,
+             each frame against `_process_whole_image` run here
+             (RERUN_TOLERANCE, plus PNG_STEP for w1's), no collector or tile
+             job left; the frames by participant printed.
+   phases  - each phase's seconds and their total.
 5. kernels - one JSON line per the port's kernel contract: entry
              flash_attention over the upscale path (`launches`: the elastic
              run, both participants), entry flash_attention_txt2img over
@@ -158,7 +187,10 @@ Phases, each printing lines tagged with its name:
              stands on its [samplers] line), flash_attention_usdu_full per
              usdu_full tile (`launches`: its local run) and
              flash_attention_guidance per SAG image (`launches`: its local
-             image).
+             image), flash_attention_custom and _custom_dualcfg per PerpNeg
+             and DualCFG image (`launches`: their HTTP runs),
+             flash_attention_dynamic per frame (`launches`: the HTTP run of 8
+             frames) and flash_attention_inpaint_model per image.
 
 The card's nvidia-smi line and then {"ok": true, "device": ...} close
 the output. Without a CUDA device, or without the port's package beside
@@ -235,7 +267,7 @@ SD_WORKFLOW_RUNS = 1
 # image's side (a quarter of the area)
 INPAINT_HOLE = 0.5
 # sampler nodes, whose evaluations call the UNet
-SAMPLERS = ("KSampler", "KSamplerAdvanced")
+SAMPLERS = ("KSampler", "KSamplerAdvanced", "SamplerCustomAdvanced")
 # a worker image travels as an 8-bit PNG: half a level of rounding
 PNG_STEP = 0.5 / 255
 # PAG must change the image by at least one 8-bit level somewhere (a
@@ -282,6 +314,37 @@ AREA_PROMPT = "a red sailing boat"
 AREA_WINDOW = (0.0, 0.5)
 # each guidance image must move the unpatched one by an 8-bit level
 GUIDANCE_MIN_DIFF = 1.0 / 255
+# the custom phase: workflows/distributed-flux-custom-sampling.json on SD1.5
+# (its Flux-only loaders, ModelSamplingFlux, FluxGuidance and the SD3 latent
+# replaced), with each guider in place of its BasicGuider; the guiders'
+# inputs and the extra prompts they take
+CUSTOM_WORKFLOW = "distributed-flux-custom-sampling.json"
+CUSTOM_GUIDERS = {
+    "CFGGuider": {"cfg": 7.0},
+    "PerpNegGuider": {"cfg": 7.0, "neg_scale": 1.0},
+    "DualCFGGuider": {"cfg_conds": 5.0, "cfg_cond2_negative": 7.0, "style": "regular"},
+}
+CUSTOM_NEGATIVE = "blurry, low quality, watermark"
+CUSTOM_COND2 = "an oil painting of a lighthouse in a storm"
+# guider → the batch of its UNet evaluations (CFG's pair; PerpNeg's and
+# DualCFG's three conditionings in one call)
+GUIDER_BATCH = {"BasicGuider": 1, "CFGGuider": 2, "PerpNegGuider": 3, "DualCFGGuider": 3}
+# the two-stage run: SplitSigmas at this step, DisableNoise into stage two
+CUSTOM_SPLIT = 10
+# the dynamic phase: workflows/distributed-upscale-video.json with its image
+# source made DYNAMIC_FRAMES seeded frames of DYNAMIC_FRAME_HW (H, W), each a
+# LoadImage file, joined by ImageBatch nodes: at the workflow's own
+# dynamic_threshold of 8 it takes dynamic (whole-frame) mode
+DYNAMIC_WORKFLOW = "distributed-upscale-video.json"
+DYNAMIC_FRAMES = 8
+DYNAMIC_FRAME_HW = (192, 384)
+# the inpaint_model phase: an sd15-inpaint graph users build for outpainting
+INPAINT_MODEL_CKPT = "sd15-inpaint"
+INPAINT_MODEL_PAD = {"left": 0, "top": 0, "right": 64, "bottom": 64, "feathering": 24}
+INPAINT_MODEL_PROMPTS = ("a castle on a hill, wide landscape", "blurry, low quality")
+# the nodes phase: one graph of every image, latent, mask and transform
+# node, on the card and on the CPU; f32 outputs within this of each other
+NODES_TOLERANCE = 1e-4
 
 
 def _require(ok: bool, message: str) -> None:
@@ -414,12 +477,18 @@ def _node_id(workflow, class_type: str) -> str:
 
 def _image_px(workflow, image_px: int = IMAGE_PX) -> tuple[int, int]:
     """(height, width) of the workflow's image: its EmptyLatentImage's
-    size, or the LoadImage input's (`image_px` square) where it has none."""
+    size, or the LoadImage input's (`image_px` square) where it has none,
+    grown by an ImagePadForOutpaint's pads."""
     latent = _node_ids(workflow, "EmptyLatentImage")
     if latent:
         inputs = workflow[latent[0]]["inputs"]
         return int(inputs["height"]), int(inputs["width"])
-    return image_px, image_px
+    height = width = image_px
+    for pad in _node_ids(workflow, "ImagePadForOutpaint"):
+        inputs = workflow[pad]["inputs"]
+        height += int(inputs["top"]) + int(inputs["bottom"])
+        width += int(inputs["left"]) + int(inputs["right"])
+    return height, width
 
 
 def _sampler_evals(workflow) -> int:
@@ -451,7 +520,8 @@ def _txt2img_shapes(workflow, image_px: int = IMAGE_PX):
     its checkpoint's UNet and text encoder (SD1.5: CLIP-L's 77 tokens;
     SD2.1: OpenCLIP-H's 77), the SD VAE, the image's size, the samplers'
     evaluations (each with a batch-1 pass under PAG), and the VAE's calls
-    (one decode, one encode per VAEEncodeForInpaint)."""
+    (one decode, one encode per VAEEncodeForInpaint, two per
+    InpaintModelConditioning)."""
     from comfyui_distributed_tpu_torch.models.registry import DEFAULT_TEXT_ENCODERS, get_config
 
     ckpt = workflow[_node_id(workflow, "CheckpointLoaderSimple")]["inputs"]["ckpt_name"]
@@ -461,9 +531,10 @@ def _txt2img_shapes(workflow, image_px: int = IMAGE_PX):
     evals = _sampler_evals(workflow)
     perturbed = evals if _node_ids(workflow, "PerturbedAttentionGuidance") else 0
     te_len = get_config(DEFAULT_TEXT_ENCODERS.get(ckpt, "clip-l")).max_length
+    encodes = (len(_node_ids(workflow, "VAEEncodeForInpaint"))
+               + 2 * len(_node_ids(workflow, "InpaintModelConditioning")))
     return _attention_shapes(get_config(ckpt), vae_cfg, te_len, height // vae_cfg.downscale,
-                             evals, vae_calls=1 + len(_node_ids(workflow, "VAEEncodeForInpaint")),
-                             perturbed_evals=perturbed)
+                             evals, vae_calls=1 + encodes, perturbed_evals=perturbed)
 
 
 def _expected_instance(attn, head_dim: int, dtype: str, layout: str) -> str:
@@ -866,7 +937,10 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
     run at the master's seed: two-pass equals one KSampler over the whole
     schedule; PAG differs from the workflow without it; inpaint keeps
     the encoded latent exactly where its mask is 0, and the images-apart
-    check reads the grown mask's pixels only. Prints the [tag] lines and
+    check reads the grown mask's pixels only; an InpaintModelConditioning
+    graph carries 5 concat channels on both sides, changes the outpainted
+    region more than the original one, and its images-apart check reads
+    the outpainted pixels. Prints the [tag] lines and
     returns the last run's attention launches. With `expected_launches`
     None (no card) the launch counts go unchecked."""
     import numpy as np
@@ -901,9 +975,9 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
         settings = {"input_dir": in_dir, "output_dir": out_dir}
         # the pixels the images-apart check reads: all, or an inpaint's
         # grown mask (both images keep the rest)
-        region = None
+        region, region_name = None, "the grown mask's"
         for load in _node_ids(workflow, "LoadImage"):
-            rgba = _inpaint_input(size[0], SEED)
+            rgba = _inpaint_input(image_px, SEED)
             with open(os.path.join(in_dir, workflow[load]["inputs"]["image"]), "wb") as fh:
                 fh.write(img_utils.encode_png(rgba))
             hard = torch.from_numpy((1.0 - rgba[..., 3] > 0.5).astype(np.float32))[None]
@@ -939,6 +1013,9 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
                 _require(bool(keep.any()) and bool((~keep).any()),
                          "the latent mask is all one value")
                 _require(exact, "sampling changed the latent outside the inpaint mask")
+            for imc in _node_ids(workflow, "InpaintModelConditioning"):
+                region = _inpaint_model_checks(torch, executor, workflow, imc, local[s], label)
+                region_name = "the outpainted"
         if _node_ids(workflow, "KSamplerAdvanced"):
             single, _, _ = local_run(_one_ksampler(workflow), f"seed {seed}, one KSampler")
             diff = float((single - local[seed]).abs().max())
@@ -1008,7 +1085,7 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
                 d01 = (out[0] - out[1]).float().abs()
                 where = "all pixels"
                 if region is not None:
-                    d01, where = d01[region], f"the grown mask's {int(region.sum())} pixels"
+                    d01, where = d01[region], f"{region_name} {int(region.sum())} pixels"
                 d01_max, d01_mean = float(d01.max()), float(d01.mean())
                 print(f"{label} run {run} output {tuple(out.shape)} in "
                       f"[{float(out.min()):.4f}, {float(out.max()):.4f}]; max |diff| image 0 vs "
@@ -1652,6 +1729,550 @@ def _guidance_phase(torch, bundle, workflow, device: str, expected: dict | None 
     return results
 
 
+def _inpaint_model_checks(torch, executor, workflow, imc: str, image, label: str):
+    """An InpaintModelConditioning graph's checks on its local run: both
+    conditionings carry the same 5 concat channels (the mask, then the
+    masked image's 4 latent channels), and against the decode of its
+    starting latents the image changes less where the outpainting mask is
+    0 than where it is 1. Returns the mask-1 pixels, which the
+    images-apart check reads."""
+    positive, negative, latent = executor.last_results[imc]
+    concat = positive.concat_latent
+    _require(concat is not None and tuple(concat.shape[1:3]) == tuple(latent["samples"].shape[1:3])
+             and concat.shape[-1] == 5, f"concat channels {None if concat is None else tuple(concat.shape)}")
+    _require(negative.concat_latent is concat, "the negative's concat channels are not the positive's")
+    pad = workflow[imc]["inputs"]["mask"][0]
+    mask = executor.last_results[pad][1][0].to(image.device)
+    vae = executor.context.pipelines[workflow[_node_id(workflow, "CheckpointLoaderSimple")]
+                                     ["inputs"]["ckpt_name"]].vae
+    with torch.no_grad():
+        start = vae.decode(latent["samples"])[0].float()
+    change = (image - start).abs().mean(dim=-1)
+    kept, new = change[mask == 0.0], change[mask == 1.0]
+    print(f"{label} concat channels {tuple(concat.shape)} on both sides; mean |change| against "
+          f"the decoded starting latents: {float(kept.mean()):.4f} over the {kept.numel()} "
+          f"original pixels (mask 0), {float(new.mean()):.4f} over the {new.numel()} "
+          f"outpainted ones (mask 1)")
+    _require(bool(kept.numel()) and bool(new.numel()), "the outpainting mask is all one value")
+    _require(float(kept.mean()) < float(new.mean()),
+             "the original region changed as much as the outpainted one")
+    return mask == 1.0
+
+
+def _relinked(workflow, relink: dict):
+    """The workflow with every link (node id, output) in `relink` replaced,
+    following chains."""
+    from comfyui_distributed_tpu_torch.graph.prompt import is_link
+
+    def target(link):
+        key = (str(link[0]), int(link[1]))
+        while key in relink:
+            key = relink[key]
+        return [key[0], key[1]]
+
+    for node in workflow.values():
+        node["inputs"] = {k: target(v) if is_link(v) else v for k, v in node["inputs"].items()}
+    return workflow
+
+
+def _custom_workflow(flux_workflow, guider: str, ckpt: str = "sd15", image_px: int = IMAGE_PX):
+    """The bundled Flux custom-sampling workflow on an SD checkpoint: its
+    UNETLoader becomes CheckpointLoaderSimple `ckpt` (whose CLIP and VAE
+    stand in for DualCLIPLoader's and VAELoader's), ModelSamplingFlux and
+    FluxGuidance drop out, EmptySD3LatentImage becomes EmptyLatentImage
+    at `image_px`, and `guider` (CUSTOM_GUIDERS) takes BasicGuider's place
+    with a negative prompt, an empty conditioning (PerpNeg) or a second
+    prompt (DualCFG) as it needs. DistributedSeed → RandomNoise,
+    BasicScheduler, KSamplerSelect, SamplerCustomAdvanced, VAEDecode,
+    DistributedCollector and SaveImage stay."""
+    wf = copy.deepcopy(flux_workflow)
+    ids = {cls: _node_id(wf, cls) for cls in (
+        "UNETLoader", "DualCLIPLoader", "VAELoader", "ModelSamplingFlux", "FluxGuidance",
+        "EmptySD3LatentImage", "BasicGuider", "CLIPTextEncode")}
+    loader = ids["UNETLoader"]
+    relink = {(ids["DualCLIPLoader"], 0): (loader, 1), (ids["VAELoader"], 0): (loader, 2),
+              (ids["ModelSamplingFlux"], 0): (loader, 0),
+              (ids["FluxGuidance"], 0): tuple(wf[ids["FluxGuidance"]]["inputs"]["conditioning"])}
+    for cls in ("DualCLIPLoader", "VAELoader", "ModelSamplingFlux", "FluxGuidance"):
+        del wf[ids[cls]]
+    wf[loader] = {"class_type": "CheckpointLoaderSimple", "inputs": {"ckpt_name": ckpt}}
+    latent = ids["EmptySD3LatentImage"]
+    wf[latent] = {"class_type": "EmptyLatentImage",
+                  "inputs": {"width": image_px, "height": image_px, "batch_size": 1}}
+    _relinked(wf, relink)
+    next_id = max(int(k) for k in wf) + 1
+
+    def text(prompt):
+        nonlocal next_id
+        node_id, next_id = str(next_id), next_id + 1
+        wf[node_id] = {"class_type": "CLIPTextEncode",
+                       "inputs": {"text": prompt, "clip": [loader, 1]}}
+        return [node_id, 0]
+
+    old = wf[ids["BasicGuider"]]["inputs"]
+    inputs = {"model": old["model"]}
+    if guider == "DualCFGGuider":
+        inputs.update(cond1=old["conditioning"], cond2=text(CUSTOM_COND2),
+                      negative=text(CUSTOM_NEGATIVE))
+    else:
+        inputs.update(positive=old["conditioning"], negative=text(CUSTOM_NEGATIVE))
+    if guider == "PerpNegGuider":
+        inputs["empty_conditioning"] = text("")
+    inputs.update(CUSTOM_GUIDERS[guider])
+    wf[ids["BasicGuider"]] = {"class_type": guider, "inputs": inputs}
+    return wf
+
+
+def _custom_two_stage(workflow, step: int | None = None):
+    """The custom workflow's schedule cut by SplitSigmas at `step`
+    (CUSTOM_SPLIT): its SamplerCustomAdvanced runs the high part, a
+    second one, fed by DisableNoise, resumes from its output over the low
+    part."""
+    step = CUSTOM_SPLIT if step is None else step
+    wf = copy.deepcopy(workflow)
+    first = _node_id(wf, "SamplerCustomAdvanced")
+    decode = _node_id(wf, "VAEDecode")
+    split, off, second = (str(max(int(k) for k in wf) + i) for i in (1, 2, 3))
+    wf[split] = {"class_type": "SplitSigmas",
+                 "inputs": {"sigmas": wf[first]["inputs"]["sigmas"], "step": step}}
+    wf[off] = {"class_type": "DisableNoise", "inputs": {}}
+    wf[second] = {"class_type": "SamplerCustomAdvanced", "inputs": {
+        **wf[first]["inputs"], "noise": [off, 0], "sigmas": [split, 1],
+        "latent_image": [first, 0]}}
+    wf[first]["inputs"]["sigmas"] = [split, 0]
+    wf[decode]["inputs"]["samples"] = [second, 0]
+    return wf
+
+
+def _custom_sigmas(workflow, link):
+    """The grid of a SIGMAS link: a BasicScheduler's, or a SplitSigmas
+    part of one (the shared point in both)."""
+    from comfyui_distributed_tpu_torch.ops.samplers import get_sigmas
+
+    node = workflow[str(link[0])]
+    inputs = node["inputs"]
+    if node["class_type"] == "BasicScheduler":
+        return get_sigmas(inputs["scheduler"], int(inputs["steps"]), float(inputs["denoise"]))
+    _require(node["class_type"] == "SplitSigmas", f"sigmas from {node['class_type']}")
+    sigmas, step = _custom_sigmas(workflow, inputs["sigmas"]), int(inputs["step"])
+    return sigmas[:step + 1] if int(link[1]) == 0 else sigmas[step:]
+
+
+def _custom_shapes(workflow, image_px: int = IMAGE_PX):
+    """The attention calls of one image of a custom-sampling workflow: each
+    SamplerCustomAdvanced's evaluations at its guider's batch
+    (GUIDER_BATCH), one more where its grid stops above sigma 0 (the x0
+    prediction of its denoised output), then one VAE decode; calls of
+    one shape summed."""
+    from comfyui_distributed_tpu_torch.models.registry import DEFAULT_TEXT_ENCODERS, get_config
+    from comfyui_distributed_tpu_torch.ops.samplers import model_evals_per_scan
+
+    ckpt = workflow[_node_id(workflow, "CheckpointLoaderSimple")]["inputs"]["ckpt_name"]
+    unet_cfg, vae_cfg = get_config(ckpt), get_config("vae-sd")
+    te_len = get_config(DEFAULT_TEXT_ENCODERS.get(ckpt, "clip-l")).max_length
+    height, width = _image_px(workflow, image_px)
+    side = height // vae_cfg.downscale
+    _require(height == width, f"a {height}x{width} image: the shapes assume a square")
+    merged = {}
+    for node_id in _node_ids(workflow, "SamplerCustomAdvanced"):
+        inputs = workflow[node_id]["inputs"]
+        guider = workflow[inputs["guider"][0]]["class_type"]
+        sampler = workflow[inputs["sampler"][0]]["inputs"]["sampler_name"]
+        sigmas = _custom_sigmas(workflow, inputs["sigmas"])
+        evals = model_evals_per_scan(sampler, sigmas.shape[0] - 1) + int(float(sigmas[-1]) > 0)
+        batch = GUIDER_BATCH[guider]
+        for label, q, m, count in _unet_shapes(unet_cfg, te_len, (side, side), batch, evals,
+                                               tag=f"batch-{batch} " if batch != 2 else ""):
+            key = (label, q, m)
+            merged[key] = merged.get(key, 0) + count
+    shapes = [(label, q, m, count) for (label, q, m), count in merged.items()]
+    shapes.append(_vae_shape(vae_cfg, side, 1))
+    return shapes
+
+
+def _custom_phase(torch, bundle, flux_workflow, device: str, expected: dict | None = None,
+                  image_px: int = IMAGE_PX) -> dict:
+    """The custom-sampling workflow on `bundle` with each guider of
+    CUSTOM_GUIDERS, each as master + w1 over HTTP through the collector
+    (`_txt2img_phase`, one run: each image against a local run at its
+    seed), then locally its schedule split in two stages (SplitSigmas at
+    CUSTOM_SPLIT, DisableNoise into the second) against the one-stage run.
+    `expected` maps a guider to (launches, by instance) an image,
+    unchecked when None (no card). Returns each guider's HTTP run and the
+    two-stage comparison; `expected["two_stage"]` holds that run's."""
+    from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
+    from comfyui_distributed_tpu_torch.ops import attention as attn
+
+    results = {}
+    for guider in CUSTOM_GUIDERS:
+        workflow = _custom_workflow(flux_workflow, guider, bundle.model_name, image_px)
+        per_image = None if expected is None else expected[guider]
+        results[guider] = _txt2img_phase(
+            torch, bundle, workflow, device,
+            expected_launches=None if per_image is None else 2 * per_image[0],
+            expected_by_instance=None if per_image is None else
+            {k: 2 * v for k, v in per_image[1].items()},
+            runs=1, tag=f"custom_{guider}", image_px=image_px)
+    label = "[custom]"
+    one = _custom_workflow(flux_workflow, "CFGGuider", bundle.model_name, image_px)
+    seed = int(one[_node_id(one, "DistributedSeed")]["inputs"]["seed"])
+    size = (*_image_px(one, image_px), 3)
+    executor = GraphExecutor(ExecutionContext(device=device,
+                                              pipelines={bundle.model_name: bundle}))
+    single, _, _, _ = _local_run(torch, attn, executor, one, label,
+                                 f"seed {seed}, one stage", device, size)
+    split, launches, by_instance, _ = _local_run(
+        torch, attn, executor, _custom_two_stage(one), label,
+        f"seed {seed}, SplitSigmas at {CUSTOM_SPLIT} then DisableNoise", device, size)
+    diff = float((split - single).abs().max())
+    print(f"{label} seed {seed}: two stages vs one stage max |diff| {diff:.3g} (tolerance "
+          f"{RERUN_TOLERANCE})")
+    _require(diff <= RERUN_TOLERANCE, "the two stages are not the one-stage trajectory")
+    if expected is not None:
+        _require((launches, by_instance) == expected["two_stage"],
+                 f"two stages: {launches} attention launches by instance {by_instance}, "
+                 f"expected {expected['two_stage']}")
+    results["two_stage"] = {"max_abs_diff": diff}
+    return results
+
+
+def _dynamic_workflow(video_workflow, frames: int = DYNAMIC_FRAMES):
+    """The bundled video-upscale workflow with its image source made
+    `frames` LoadImage nodes (frame_0.png, ...) joined by frames - 1
+    ImageBatch nodes into the batch the USDU node upscales."""
+    wf = copy.deepcopy(video_workflow)
+    load = _node_id(wf, "LoadImage")
+    usdu = _node_id(wf, "UltimateSDUpscaleDistributed")
+    wf[load]["inputs"]["image"] = "frame_0.png"
+    next_id, last = max(int(k) for k in wf) + 1, load
+    for i in range(1, frames):
+        image, batch = str(next_id), str(next_id + 1)
+        next_id += 2
+        wf[image] = {"class_type": "LoadImage", "inputs": {"image": f"frame_{i}.png"}}
+        wf[batch] = {"class_type": "ImageBatch",
+                     "inputs": {"image1": [last, 0], "image2": [image, 0]}}
+        last = batch
+    wf[usdu]["inputs"]["image"] = [last, 0]
+    return wf
+
+
+def _dynamic_frames(frames: int = DYNAMIC_FRAMES, frame_hw: tuple = DYNAMIC_FRAME_HW):
+    """Seeded [frames, H, W, 3] frames on 8-bit levels (a PNG holds them
+    exactly)."""
+    import numpy as np
+
+    from comfyui_distributed_tpu_torch.utils import image as img_utils
+
+    rng = np.random.default_rng(SEED + 1)
+    return img_utils.u8_to_f32(img_utils.f32_to_u8(
+        rng.random((frames, *frame_hw, 3), dtype=np.float32)))
+
+
+def _dynamic_shapes(workflow, frame_hw: tuple = DYNAMIC_FRAME_HW):
+    """The attention calls of one frame in dynamic mode: each of its tiles
+    (square, padded) encodes, samples under CFG and decodes, as a tile of
+    the upscale path (`_attention_shapes`), times the frame's tiles."""
+    from comfyui_distributed_tpu_torch.models.registry import get_config
+    from comfyui_distributed_tpu_torch.ops.samplers import get_sigmas, model_evals_per_scan
+    from comfyui_distributed_tpu_torch.ops.upscale import plan_grid
+
+    o = _usdu_options(workflow)
+    ckpt = workflow[_node_id(workflow, "CheckpointLoaderSimple")]["inputs"]["ckpt_name"]
+    unet_cfg, vae_cfg = get_config(ckpt), get_config("vae-sd")
+    te_len = get_config("clip-g").max_length
+    grid = plan_grid(*frame_hw, float(o["upscale_by"]), int(o["tile_width"]),
+                     int(o["tile_padding"]), int(o["tile_height"]))[2]
+    _require(grid.padded_h == grid.padded_w, "the tiles are not square")
+    pairs = get_sigmas(o["scheduler"], int(o["steps"]), float(o["denoise"])).shape[0] - 1
+    shapes = _attention_shapes(unet_cfg, vae_cfg, te_len, grid.padded_h // vae_cfg.downscale,
+                               model_evals_per_scan(o["sampler_name"], pairs))
+    return [(label, q, m, count * grid.num_tiles) for label, q, m, count in shapes]
+
+
+def _dynamic_reference(torch, bundle, workflow, frames):
+    """Each frame upscaled here, whole, by `_process_whole_image` with the
+    dynamic mode's frame noise: the reference whoever claims a frame."""
+    from comfyui_distributed_tpu_torch.graph import usdu_elastic
+    from comfyui_distributed_tpu_torch.models import pipeline as pl
+    from comfyui_distributed_tpu_torch.ops import upscale as up
+
+    o = _usdu_options(workflow)
+    with torch.inference_mode():
+        pos, neg = (pl.encode_text_pooled(bundle, [workflow[workflow[USDU_NODE]["inputs"][side][0]]
+                                                   ["inputs"]["text"]])
+                    for side in ("positive", "negative"))
+        upscaled, grid, _, pos, neg = usdu_elastic._prepare(
+            bundle, frames, pos, neg, float(o["upscale_by"]), int(o["tile_width"]),
+            int(o["tile_padding"]), o["upscale_method"], int(o["tile_height"]),
+            int(o["mask_blur"]), bool(o["force_uniform_tiles"]))
+        process = usdu_elastic._tile_processor(bundle, grid, int(o["steps"]), o["sampler_name"],
+                                               o["scheduler"], float(o["cfg"]), float(o["denoise"]))
+        return [usdu_elastic._process_whole_image(
+            upscaled[f:f + 1], pos, neg, grid, process,
+            up.FrameTileNoise(int(o["seed"]), f, bundle.device))[0].float()
+            for f in range(upscaled.shape[0])]
+
+
+def _dynamic_phase(torch, bundle, video_workflow, device: str,
+                   expected: tuple | None = None, frames: int = DYNAMIC_FRAMES,
+                   frame_hw: tuple = DYNAMIC_FRAME_HW) -> dict:
+    """The video workflow in dynamic mode as master + w1 over HTTP (see
+    `_dynamic_workflow`): every frame settled once, w1 at least one of
+    them, each frame within RERUN_TOLERANCE of `_dynamic_reference` (plus
+    PNG_STEP for w1's, which travel as 8-bit PNG), the master's store
+    left with no collector or tile job. `expected` is (launches, by
+    instance) a frame, unchecked when None (no card)."""
+    from comfyui_distributed_tpu_torch.ops import attention as attn
+    from comfyui_distributed_tpu_torch.utils import image as img_utils
+
+    cuda = device.startswith("cuda")
+    label = "[dynamic]"
+    workflow = _dynamic_workflow(video_workflow, frames)
+    ckpt = workflow[_node_id(workflow, "CheckpointLoaderSimple")]["inputs"]["ckpt_name"]
+    save = _node_id(workflow, "SaveImage")
+    pixels = _dynamic_frames(frames, frame_hw)
+    started = time.perf_counter()
+    reference = _dynamic_reference(torch, bundle, workflow, torch.from_numpy(pixels).to(device))
+    print(f"{label} reference: {frames} frames of {frame_hw[0]}x{frame_hw[1]} upscaled here "
+          f"whole in {time.perf_counter() - started:.2f} s")
+    with tempfile.TemporaryDirectory(prefix="cdt_dynamic_") as tmp:
+        in_dir, out_dir = os.path.join(tmp, "input"), os.path.join(tmp, "output")
+        os.makedirs(in_dir)
+        for i, frame in enumerate(pixels):
+            with open(os.path.join(in_dir, f"frame_{i}.png"), "wb") as fh:
+                fh.write(img_utils.encode_png(frame))
+        settings = {"input_dir": in_dir, "output_dir": out_dir}
+        with _serving(tmp, settings, device, {ckpt: bundle}) as (master, worker, base,
+                                                                 worker_port):
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            attn.reset_launch_counts()
+            started = time.perf_counter()
+            queued, history, _ = _queue(base, worker_port, workflow)
+            if cuda:
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - started
+            launches, by_instance = _launch_counts(attn)
+            peak = torch.cuda.max_memory_allocated() if cuda else 0
+            record = master.job_store.finished[queued["job_ids"][USDU_NODE]]
+            out = master.get_job(queued["prompt_id"]).outputs[save][0]["images"]
+            by_frame = dict(record["completions"])
+            print(f"{label} run: {seconds:.2f} s, {frames / seconds:.4f} frames/s; frames by "
+                  f"participant {[by_frame.get(f) for f in range(frames)]}; flash_attention "
+                  f"launches {launches}, by instance {by_instance}; peak {peak / 2**30:.2f} GiB; "
+                  f"bytes received {record['received_bytes']}; collector jobs left "
+                  f"{len(master.job_store.collectors)}, tile jobs left "
+                  f"{len(master.job_store.tile_jobs)}")
+            _require(sorted(f for f, _ in record["completions"]) == list(range(frames))
+                     and record["duplicates"] == 0,
+                     f"frames settled {record['completions']}, duplicates {record['duplicates']}")
+            _require("w1" in by_frame.values(), "w1 took no frame")
+            _require(not master.job_store.collectors and not master.job_store.tile_jobs,
+                     f"jobs outlive the prompt: collectors {sorted(master.job_store.collectors)}, "
+                     f"tile jobs {sorted(master.job_store.tile_jobs)}")
+            o = _usdu_options(workflow)
+            want = (frames, round(frame_hw[0] * float(o["upscale_by"]) / 8) * 8,
+                    round(frame_hw[1] * float(o["upscale_by"]) / 8) * 8, 3)
+            _require(tuple(out.shape) == want, f"output shape {tuple(out.shape)}, expected {want}")
+            _require(bool(torch.isfinite(out).all()), "non-finite output")
+            worst = 0.0
+            for f in range(frames):
+                diff = float((out[f].float() - reference[f].to(out.device)).abs().max())
+                bar = RERUN_TOLERANCE + (PNG_STEP if by_frame[f] == "w1" else 0.0)
+                print(f"{label} frame {f} ({by_frame[f]}): max |diff| vs the frame run here "
+                      f"{diff:.3g} (tolerance {bar:.4f})")
+                _require(diff <= bar, f"frame {f} is not the frame run here")
+                worst = max(worst, diff)
+            if expected is not None:
+                want_launches = (frames * expected[0],
+                                 {k: frames * v for k, v in expected[1].items()})
+                _require((launches, by_instance) == want_launches,
+                         f"{launches} attention launches by instance {by_instance}, expected "
+                         f"{want_launches}")
+    return {"launches": launches, "launches_by_instance": by_instance, "seconds": seconds,
+            "frames_per_s": frames / seconds, "peak_gib": peak / 2**30, "max_abs_diff": worst,
+            "w1_frames": sum(1 for who in by_frame.values() if who == "w1")}
+
+
+def _inpaint_model_workflow(ckpt: str = INPAINT_MODEL_CKPT, steps: int = 20):
+    """An outpainting graph on an inpainting checkpoint, as users build it:
+    LoadImage → ImagePadForOutpaint (INPAINT_MODEL_PAD) →
+    InpaintModelConditioning → KSampler (euler, karras, cfg 7, its seed
+    from DistributedSeed) → VAEDecode → DistributedCollector → SaveImage."""
+    pad = dict(INPAINT_MODEL_PAD)
+    return {
+        "1": {"class_type": "CheckpointLoaderSimple", "inputs": {"ckpt_name": ckpt}},
+        "2": {"class_type": "CLIPTextEncode",
+              "inputs": {"text": INPAINT_MODEL_PROMPTS[0], "clip": ["1", 1]}},
+        "3": {"class_type": "CLIPTextEncode",
+              "inputs": {"text": INPAINT_MODEL_PROMPTS[1], "clip": ["1", 1]}},
+        "4": {"class_type": "LoadImage", "inputs": {"image": "input.png"}},
+        "5": {"class_type": "ImagePadForOutpaint", "inputs": {"image": ["4", 0], **pad}},
+        "6": {"class_type": "InpaintModelConditioning", "inputs": {
+            "positive": ["2", 0], "negative": ["3", 0], "vae": ["1", 2], "pixels": ["5", 0],
+            "mask": ["5", 1]}},
+        "7": {"class_type": "DistributedSeed", "inputs": {"seed": 42}},
+        "8": {"class_type": "KSampler", "inputs": {
+            "model": ["1", 0], "seed": ["7", 0], "steps": steps, "cfg": 7.0,
+            "sampler_name": "euler", "scheduler": "karras", "positive": ["6", 0],
+            "negative": ["6", 1], "latent_image": ["6", 2], "denoise": 1.0}},
+        "9": {"class_type": "VAEDecode", "inputs": {"samples": ["8", 0], "vae": ["1", 2]}},
+        "10": {"class_type": "DistributedCollector", "inputs": {"images": ["9", 0]}},
+        "11": {"class_type": "SaveImage",
+               "inputs": {"images": ["10", 0], "filename_prefix": "outpaint"}},
+    }
+
+
+def _nodes_workflow(torch, device: str, image_name: str, latent, small_latent):
+    """One graph of every image, latent, mask and transform node of the
+    port, from a LoadImage file, LoadImageMask of the same file and
+    literal seeded latents on `device`; every chain ends in a
+    PreviewImage, so every node runs."""
+    px = {"width": 48, "height": 40}
+    g = {
+        "img": ("LoadImage", {"image": image_name}),
+        "alpha": ("LoadImageMask", {"image": image_name, "channel": "alpha"}),
+        "red": ("LoadImageMask", {"image": image_name, "channel": "red"}),
+        "empty": ("EmptyImage", {**px, "batch_size": 1, "color": 0x3366CC}),
+        "batch": ("ImageBatch", {"image1": ["img", 0], "image2": ["empty", 0]}),
+        "crop": ("ImageCrop", {"image": ["batch", 0], "width": 40, "height": 30, "x": 5, "y": 7}),
+        "pad": ("ImagePadForOutpaint", {"image": ["img", 0], "left": 8, "top": 0, "right": 16,
+                                        "bottom": 8, "feathering": 12}),
+        "scale": ("ImageScale", {"image": ["crop", 0], "upscale_method": "bicubic", **px,
+                                 "crop": "center"}),
+        "scaleby": ("ImageScaleBy", {"image": ["scale", 0], "upscale_method": "area",
+                                     "scale_by": 0.75}),
+        "invert": ("ImageInvert", {"image": ["scaleby", 0]}),
+        "blur": ("ImageBlur", {"image": ["pad", 0], "blur_radius": 3, "sigma": 1.5}),
+        "sharpen": ("ImageSharpen", {"image": ["blur", 0], "sharpen_radius": 2, "sigma": 1.0,
+                                     "alpha": 0.8}),
+        "flip": ("ImageFlip", {"image": ["sharpen", 0], "flip_method": "y-axis: horizontally"}),
+        "rotate": ("ImageRotate", {"image": ["flip", 0], "rotation": "90 degrees"}),
+        "blend": ("ImageBlend", {"image1": ["img", 0], "image2": ["rotate", 0],
+                                 "blend_factor": 0.4, "blend_mode": "soft_light"}),
+        # on the file's 8-bit levels: no level sits on a rounding edge, where
+        # the two devices' last bits could part
+        "quant": ("ImageQuantize", {"image": ["img", 0], "colors": 16, "dither": "none"}),
+        "tomask": ("ImageToMask", {"image": ["quant", 0], "channel": "green"}),
+        "solid": ("SolidMask", {"value": 0.7, **px}),
+        "invmask": ("InvertMask", {"mask": ["alpha", 0]}),
+        "cropmask": ("CropMask", {"mask": ["invmask", 0], "x": 4, "y": 4, "width": 20,
+                                  "height": 16}),
+        "maskcomp": ("MaskComposite", {"destination": ["tomask", 0], "source": ["cropmask", 0],
+                                       "x": 3, "y": 2, "operation": "xor"}),
+        "feather": ("FeatherMask", {"mask": ["maskcomp", 0], "left": 4, "top": 2, "right": 6,
+                                    "bottom": 0}),
+        "grow": ("GrowMask", {"mask": ["red", 0], "expand": 2, "tapered_corners": True}),
+        "thresh": ("ThresholdMask", {"mask": ["grow", 0], "value": 0.5}),
+        "masktoimg": ("MaskToImage", {"mask": ["feather", 0]}),
+        "compimg": ("ImageCompositeMasked", {"destination": ["img", 0],
+                                             "source": ["masktoimg", 0], "x": -6, "y": 10,
+                                             "resize_source": False, "mask": ["solid", 0]}),
+        "join": ("JoinImageWithAlpha", {"image": ["compimg", 0], "alpha": ["thresh", 0]}),
+        "split": ("SplitImageWithAlpha", {"image": ["join", 0]}),
+        "latent": ("LatentUpscale", {"samples": latent, "upscale_method": "bilinear",
+                                     "width": 96, "height": 64, "crop": "disabled"}),
+        "noisemask": ("SetLatentNoiseMask", {"samples": ["latent", 0], "mask": ["alpha", 0]}),
+        "upby": ("LatentUpscaleBy", {"samples": ["noisemask", 0],
+                                     "upscale_method": "nearest-exact", "scale_by": 1.5}),
+        "repeat": ("RepeatLatentBatch", {"samples": ["upby", 0], "amount": 3}),
+        "frombatch": ("LatentFromBatch", {"samples": ["repeat", 0], "batch_index": 1,
+                                          "length": 2}),
+        "lbatch": ("LatentBatch", {"samples1": ["frombatch", 0], "samples2": latent}),
+        "lcomp": ("LatentComposite", {"samples_to": ["lbatch", 0], "samples_from": small_latent,
+                                      "x": 16, "y": 8, "feather": 8}),
+        "lcompm": ("LatentCompositeMasked", {"destination": ["lcomp", 0],
+                                             "source": small_latent, "x": 24, "y": 0,
+                                             "resize_source": False, "mask": ["cropmask", 0]}),
+        "lflip": ("LatentFlip", {"samples": ["lcompm", 0], "flip_method": "x-axis: vertically"}),
+        "lrot": ("LatentRotate", {"samples": ["lflip", 0], "rotation": "270 degrees"}),
+        "lcrop": ("LatentCrop", {"samples": ["lrot", 0], "width": 64, "height": 48, "x": 8,
+                                 "y": 0}),
+        "lmul": ("LatentMultiply", {"samples": ["lcrop", 0], "multiplier": -0.5}),
+        "ladd": ("LatentAdd", {"samples1": ["lmul", 0], "samples2": ["lcrop", 0]}),
+        "lsub": ("LatentSubtract", {"samples1": ["ladd", 0], "samples2": ["lmul", 0]}),
+        "lblend": ("LatentBlend", {"samples1": ["lsub", 0], "samples2": ["lcrop", 0],
+                                   "blend_factor": 0.3}),
+        "linterp": ("LatentInterpolate", {"samples1": ["lblend", 0], "samples2": ["lmul", 0],
+                                          "ratio": 0.6}),
+        "seedb": ("LatentBatchSeedBehavior", {"samples": ["linterp", 0],
+                                              "seed_behavior": "fixed"}),
+    }
+    workflow = {name: {"class_type": cls, "inputs": inputs} for name, (cls, inputs) in g.items()}
+    for i, sink in enumerate(("invert", "split", "blend")):
+        workflow[f"preview{i}"] = {"class_type": "PreviewImage", "inputs": {"images": [sink, 0]}}
+    return workflow
+
+
+def _nodes_phase(torch, device: str) -> dict:
+    """`_nodes_workflow` through a GraphExecutor on `device` and on the
+    CPU from the same seeded inputs: every node's every output must
+    have the same structure, shape, dtype and device type as the CPU
+    run's on its device, f32 values within NODES_TOLERANCE."""
+    import numpy as np
+
+    from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
+    from comfyui_distributed_tpu_torch.utils import image as img_utils
+
+    label = "[nodes]"
+    rng = np.random.default_rng(SEED + 2)
+    rgba = img_utils.u8_to_f32(img_utils.f32_to_u8(rng.random((40, 48, 4), dtype=np.float32)))
+    latent = rng.standard_normal((1, 5, 6, 4), dtype=np.float32)
+    small = rng.standard_normal((1, 3, 3, 4), dtype=np.float32)
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="cdt_nodes_") as tmp:
+        with open(os.path.join(tmp, "rgba.png"), "wb") as fh:
+            fh.write(img_utils.encode_png(rgba))
+        for where in (device, "cpu"):
+            workflow = _nodes_workflow(
+                torch, where, "rgba.png", {"samples": torch.from_numpy(latent).to(where)},
+                {"samples": torch.from_numpy(small).to(where)})
+            executor = GraphExecutor(ExecutionContext(device=where,
+                                                      config={"settings": {"input_dir": tmp}}))
+            started = time.perf_counter()
+            executor.execute(workflow)
+            runs[where] = (workflow, executor.last_results, time.perf_counter() - started)
+    workflow, results, seconds = runs[device]
+    _, cpu_results, cpu_seconds = runs["cpu"]
+    checked, worst = 0, 0.0
+
+    def compare(got, ref, path):
+        nonlocal checked, worst
+        if isinstance(ref, dict):
+            _require(set(got) == set(ref), f"{path}: keys {sorted(got)} vs {sorted(ref)}")
+            for key in ref:
+                compare(got[key], ref[key], f"{path}[{key!r}]")
+        elif isinstance(ref, (list, tuple)):
+            _require(len(got) == len(ref), f"{path}: {len(got)} outputs vs {len(ref)}")
+            for i, (g, r) in enumerate(zip(got, ref)):
+                compare(g, r, f"{path}[{i}]")
+        elif isinstance(ref, torch.Tensor):
+            _require(isinstance(got, torch.Tensor) and tuple(got.shape) == tuple(ref.shape)
+                     and got.dtype == ref.dtype
+                     and got.device.type == torch.device(device).type,
+                     f"{path}: {type(got).__name__} {getattr(got, 'shape', None)} "
+                     f"{getattr(got, 'dtype', None)} on {getattr(got, 'device', None)} vs "
+                     f"{tuple(ref.shape)} {ref.dtype} (on {device})")
+            if ref.is_floating_point() and ref.numel():
+                diff = float((got.cpu().float() - ref.float()).abs().max())
+                worst = max(worst, diff)
+                _require(diff <= NODES_TOLERANCE, f"{path}: max |diff| {diff:.3g} vs the CPU")
+            checked += 1
+        else:
+            _require(got == ref, f"{path}: {got!r} vs {ref!r}")
+
+    for node_id, node in workflow.items():
+        compare(results[node_id], cpu_results[node_id], f"{node['class_type']} ({node_id})")
+    classes = sorted({node["class_type"] for node in workflow.values()})
+    print(f"{label} {len(workflow)} nodes of {len(classes)} classes on {device} in "
+          f"{seconds:.2f} s (the CPU: {cpu_seconds:.2f} s): {checked} tensors of the same "
+          f"shape, dtype and device type as the CPU run's, max |diff| {worst:.3g} (tolerance "
+          f"{NODES_TOLERANCE}); classes {classes}")
+    return {"nodes": len(workflow), "classes": classes, "tensors": checked,
+            "max_abs_diff": worst}
+
+
 def _rounded(seconds: dict) -> dict:
     return {stage: round(value, 4) for stage, value in sorted(seconds.items())}
 
@@ -1729,13 +2350,29 @@ def main() -> int:
     # guidance phase (its FreeU and RescaleCFG images have txt2img's shapes)
     guidance_shapes = {name: _guidance_shapes(name, t2i_workflow)
                        for name in _guidance_variants(t2i_workflow)}
+    # the custom phase's images by guider (PerpNeg and DualCFG at batch 3),
+    # a dynamic-mode frame of the video workflow, an outpainted
+    # sd15-inpaint image
+    with open(os.path.join(REPO, "workflows", CUSTOM_WORKFLOW), encoding="utf-8") as fh:
+        flux_custom = json.load(fh)
+    custom_shapes = {guider: _custom_shapes(_custom_workflow(flux_custom, guider))
+                     for guider in CUSTOM_GUIDERS}
+    custom_shapes["two_stage"] = _custom_shapes(_custom_two_stage(
+        _custom_workflow(flux_custom, "CFGGuider")))
+    with open(os.path.join(REPO, "workflows", DYNAMIC_WORKFLOW), encoding="utf-8") as fh:
+        video_workflow = json.load(fh)
+    inpaint_model_workflow = _inpaint_model_workflow()
     path_shapes = {"upscale": shapes, "txt2img": t2i_shapes,
                    **{tag: _txt2img_shapes(wf) for tag, wf in sd_workflows.items()},
                    **{path: _txt2img_shapes(wf) for path, wf in ckpt_workflows.items()},
                    "samplers": _txt2img_shapes(samplers_entry_workflow),
                    "usdu_full": _usdu_full_shapes(workflow),
                    "guidance": guidance_shapes["SelfAttentionGuidance"],
-                   "guidance_area": guidance_shapes["area"]}
+                   "guidance_area": guidance_shapes["area"],
+                   "custom": custom_shapes["PerpNegGuider"],
+                   "custom_dualcfg": custom_shapes["DualCFGGuider"],
+                   "dynamic": _dynamic_shapes(_dynamic_workflow(video_workflow)),
+                   "inpaint_model": _txt2img_shapes(inpaint_model_workflow)}
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -1864,9 +2501,10 @@ def main() -> int:
         if units and plan.instance == "wgmma":
             plans = attn.wgmma_plans(d)
             tile_lines.append(_time_plans(torch, attn, label, q, k, v, plans, plan))
-            # the largest SD1.5 or SDXL call: the [host] line keeps its shape
-            if "sd21" not in units and (host_inputs is None
-                                        or q.numel() > host_inputs[0].numel()):
+            # the largest call of the upscale or txt2img path: the [host]
+            # line keeps its shape
+            if {"upscale", "txt2img"} & set(units) and (host_inputs is None
+                                                        or q.numel() > host_inputs[0].numel()):
                 host_inputs = (q, k, v)
         if units and "upscale" in units and plan.instance == "wgmma512":
             plans = [attn.Plan("wgmma512", attn.WGMMA512_KEYS, attn.WGMMA_ROWS, splits)
@@ -2073,11 +2711,57 @@ def main() -> int:
         name: (sum(count for *_, count in shapes_),
                _expected_by_instance(attn, shapes_, torch))
         for name, shapes_ in guidance_shapes.items()})
+    # the custom phase runs on this SD1.5 bundle
+    phase_seconds["guidance"] = time.perf_counter() - phase_started
+
+    def per_unit(shapes_):
+        """(launches, by instance) of one image or frame of `shapes_`."""
+        return (sum(count for *_, count in shapes_), _expected_by_instance(attn, shapes_, torch))
+
+    # --- 4i. custom: the custom-sampling workflow on SD1.5 under CFGGuider,
+    # PerpNegGuider and DualCFGGuider over HTTP, and split in two stages ---
+    phase_started = time.perf_counter()
+    custom = _custom_phase(torch, bundle, flux_custom, "cuda",
+                           expected={name: per_unit(shapes_)
+                                     for name, shapes_ in custom_shapes.items()})
     del bundle
     torch.cuda.empty_cache()
-    phase_seconds["guidance"] = time.perf_counter() - phase_started
+    phase_seconds["custom"] = time.perf_counter() - phase_started
+
+    # --- 4j. nodes: every image, latent, mask and transform node on the card
+    # against the same graph on the CPU --------------------------------------
+    phase_started = time.perf_counter()
+    nodes = _nodes_phase(torch, "cuda")
+    phase_seconds["nodes"] = time.perf_counter() - phase_started
+
+    # --- 4k. inpaint_model: outpainting on sd15-inpaint (9-channel UNet) ---
+    phase_started = time.perf_counter()
+    bundle = pl.load_pipeline(INPAINT_MODEL_CKPT, seed=0, device="cuda")
+    _seed_out_conv(torch, bundle, gen)
+    print(f"[inpaint_model] {INPAINT_MODEL_CKPT}: UNet input conv "
+          f"{tuple(bundle.unet.input_conv.weight.shape)}")
+    launches_, by_instance_ = per_unit(path_shapes["inpaint_model"])
+    inpaint_model = _txt2img_phase(torch, bundle, inpaint_model_workflow, "cuda", 2 * launches_,
+                                   {k: 2 * v for k, v in by_instance_.items()}, runs=1,
+                                   tag="inpaint_model")
+    del bundle
+    torch.cuda.empty_cache()
+    phase_seconds["inpaint_model"] = time.perf_counter() - phase_started
+
+    # --- 4l. dynamic: the video workflow's frames, whole, over HTTP on SDXL ---
+    phase_started = time.perf_counter()
+    dynamic_ckpt = video_workflow[_node_id(video_workflow, "CheckpointLoaderSimple")]["inputs"][
+        "ckpt_name"]
+    bundle = pl.load_pipeline(dynamic_ckpt, seed=0, device="cuda")
+    _seed_out_conv(torch, bundle, gen)
+    dynamic = _dynamic_phase(torch, bundle, video_workflow, "cuda",
+                             expected=per_unit(path_shapes["dynamic"]))
+    del bundle
+    torch.cuda.empty_cache()
+    phase_seconds["dynamic"] = time.perf_counter() - phase_started
     print("[phases] seconds: " + ", ".join(f"{name} {sec:.1f}" for name, sec in
-                                           phase_seconds.items()))
+                                           phase_seconds.items())
+          + f"; total {sum(phase_seconds.values()):.1f}")
 
     # --- 5. kernels ----------------------------------------------------------
     print("[kernels] flash_attention: ms, plain_ms, library_ms and bound_ms are per SDXL tile "
@@ -2094,7 +2778,13 @@ def main() -> int:
           "run in the samplers phase. flash_attention_usdu_full: the same per usdu_full tile "
           "(batch-1 UNet passes, the tiled decode's pieces); launches: its local run of 4 tiles. "
           "flash_attention_guidance: the same per SD1.5 image under SelfAttentionGuidance; "
-          "launches: its local image")
+          "launches: its local image. flash_attention_custom: the same per SD1.5 image of the "
+          "custom-sampling workflow under PerpNegGuider (batch-3 UNet evaluations); launches: "
+          "its run over HTTP, master and w1 together; flash_attention_custom_dualcfg: the same "
+          "under DualCFGGuider. flash_attention_dynamic: the same per frame of the video "
+          "workflow in dynamic mode (two 448-px SDXL tiles); launches: its run over HTTP of "
+          f"{DYNAMIC_FRAMES} frames. flash_attention_inpaint_model: the same per outpainted "
+          "576-px sd15-inpaint image; launches: its run over HTTP")
     source = "comfyui_distributed_tpu_torch/csrc/flash_attention.cu"
     replaces = "comfyui_distributed_tpu/ops/attention.py:80"
 
@@ -2190,7 +2880,26 @@ def main() -> int:
             **numbers("guidance"),
             "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
         },
+    ] + [
+        {
+            "name": f"flash_attention_{path}",
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": run["launches"],
+            "launches_by_instance": run["launches_by_instance"],
+            "max_abs_err": max_err[path],
+            **numbers(path),
+            "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
+        }
+        for path, run in (("custom", custom["PerpNegGuider"]),
+                          ("custom_dualcfg", custom["DualCFGGuider"]),
+                          ("dynamic", dynamic), ("inpaint_model", inpaint_model))
     ]}
+    print(f"[summary] custom two stages max |diff| {custom['two_stage']['max_abs_diff']:.3g}; "
+          f"nodes {nodes['nodes']} ({len(nodes['classes'])} classes) max |diff| "
+          f"{nodes['max_abs_diff']:.3g}; dynamic: w1 took {dynamic['w1_frames']} of "
+          f"{DYNAMIC_FRAMES} frames, {dynamic['frames_per_s']:.4f} frames/s")
     print(json.dumps(kernels))
     print(_nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ comfyui_distributed_tpu/api/usdu_routes.py, with the same request and
 response field names:
 
     POST /distributed/heartbeat      per-tile worker liveness
-    POST /distributed/request_image  pull the next tile index
+    POST /distributed/request_image  pull the next tile (or frame) index
     POST /distributed/submit_tiles   push processed tiles (a flush)
+    POST /distributed/submit_image   push one processed frame (dynamic mode)
     POST /distributed/return_tiles   hand back an interrupted grant
     POST /distributed/job_status     ready/progress poll
 
@@ -18,12 +19,12 @@ worker's pull policy retries for minutes). Handlers
 await the store directly on the loop; they never go through
 run_async_in_server_loop, which would deadlock the loop they run on.
 Left out: fencing epochs (409 stale_epoch), the standby gate, the
-fleet-telemetry piggyback, cross-job grants, preemption and the
-dynamic-mode submit_image.
+fleet-telemetry piggyback, cross-job grants and preemption.
 """
 
 from __future__ import annotations
 
+from ..jobs.models import ImageJob
 from ..utils.constants import JOB_INIT_GRACE_SECONDS, QUEUE_POLL_INTERVAL_SECONDS
 from ..utils.exceptions import JobQueueError
 from ..utils.logging import debug_log
@@ -35,6 +36,7 @@ def register(router: Router, server) -> None:
     router.add_post("/distributed/heartbeat", routes.heartbeat)
     router.add_post("/distributed/request_image", routes.request_image)
     router.add_post("/distributed/submit_tiles", routes.submit_tiles)
+    router.add_post("/distributed/submit_image", routes.submit_image)
     router.add_post("/distributed/return_tiles", routes.return_tiles)
     router.add_post("/distributed/job_status", routes.job_status)
 
@@ -69,7 +71,8 @@ class UsduRoutes:
 
     async def request_image(self, request: Request) -> Response:
         """Pull work: {tile_idx | None, estimated_remaining,
-        batched_static}, plus `cancelled`/`cancel_reason` when the job was
+        batched_static} (`image_idx` in place of `tile_idx` for a
+        dynamic-mode job's frame), plus `cancelled`/`cancel_reason` when the job was
         cancelled and `deadline_remaining` when it has a deadline."""
         ids = _job_and_worker(request.json())
         if ids is None:
@@ -88,8 +91,9 @@ class UsduRoutes:
                 return json_response({"tile_idx": None, "estimated_remaining": 0,
                                       "batched_static": True})
             return json_response({"error": "no such job"}, 404)
+        key = "image_idx" if isinstance(job, ImageJob) else "tile_idx"
         response = {
-            "tile_idx": task_id,
+            key: task_id,
             "estimated_remaining": await store.remaining(job_id),
             "batched_static": job.batched,
         }
@@ -139,6 +143,40 @@ class UsduRoutes:
                   f"accepted={accepted}")
         return json_response({"status": "ok", "accepted": accepted})
 
+    async def submit_image(self, request: Request) -> Response:
+        """Dynamic mode: one whole processed frame, {job_id, worker_id,
+        image_idx, image: data URL, is_last}. The frame is the task's
+        result; a duplicate or a late frame is dropped, as tiles are."""
+        body = request.json()
+        ids = _job_and_worker(body)
+        if ids is None:
+            return json_response(_MISSING_IDS, 400)
+        if "image_idx" not in body or not isinstance(body.get("image"), str):
+            return json_response({"error": "image_idx and image required"}, 400)
+        try:
+            image_idx = int(body["image_idx"])
+        except (TypeError, ValueError):
+            return json_response({"error": "image_idx must be an int"}, 400)
+        job_id, worker_id = ids
+        store = self.server.job_store
+        job = await self._live_job(job_id)
+        if job is not None:
+            try:
+                payload = [{"batch_idx": 0, "image": body["image"], "whole_image": True}]
+                accepted = await store.submit_flush(job_id, worker_id, {image_idx: payload},
+                                                    received_bytes=len(body["image"]))
+            except JobQueueError:  # cleaned up since
+                job = None
+        if job is None:
+            if store.drop_late(job_id, 1):
+                return json_response({"status": "ok", "accepted": 0})
+            return json_response({"error": "no such job"}, 404)
+        if body.get("is_last"):
+            await store.mark_worker_done(job_id, worker_id)
+        debug_log(f"submit_image job={job_id} worker={worker_id} image={image_idx} "
+                  f"accepted={accepted}")
+        return json_response({"status": "ok", "accepted": accepted})
+
     async def return_tiles(self, request: Request) -> Response:
         """{job_id, worker_id, tile_idxs}: an interrupted worker hands back
         the unprocessed rest of its grant so those tiles requeue now."""
@@ -165,8 +203,11 @@ class UsduRoutes:
         if job is None:
             # a job the orchestration announced (it made its collector)
             # reads as ready before the master's loop creates the tile
-            # queue: the worker's first pull parks until it exists
-            return json_response({"ready": str(body["job_id"]) in store.collectors})
+            # queue: the worker's first pull parks until it exists. A job
+            # already finished reads as ready too: its pull answers
+            # drained at once
+            job_id = str(body["job_id"])
+            return json_response({"ready": job_id in store.collectors or job_id in store.finished})
         return json_response({
             "ready": True,
             "total": job.total_tasks,

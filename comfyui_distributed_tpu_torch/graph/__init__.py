@@ -6,8 +6,11 @@ Importing the package registers the ported nodes.
 from . import (  # noqa: F401
     nodes_controlnet,
     nodes_core,
+    nodes_custom_sampling,
     nodes_distributed,
     nodes_loaders,
+    nodes_mask,
+    nodes_transform,
     nodes_upscale,
 )
 from .executor import ExecutionContext, GraphExecutor, validate_prompt

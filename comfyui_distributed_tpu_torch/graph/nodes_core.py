@@ -1,10 +1,12 @@
-"""Core workflow nodes of the upscale, txt2img, two-pass and inpaint
-workflows: checkpoint (and a standalone VAE) → clip-skip → text encode
-(CLIPTextEncode, CLIPTextEncodeSDXL with its size override,
+"""Core workflow nodes: checkpoint (and a standalone VAE) → clip-skip →
+text encode (CLIPTextEncode, CLIPTextEncodeSDXL with its size override,
 ConditioningConcat) → empty latent or encode (VAEEncode, VAEEncodeTiled,
-VAEEncodeForInpaint) → sample (KSampler, KSamplerAdvanced) → decode
-(VAEDecode, VAEDecodeTiled), the upscale model (UpscaleModelLoader,
-ImageUpscaleWithModel), image load and save.
+VAEEncodeForInpaint, InpaintModelConditioning) → sample (KSampler,
+KSamplerAdvanced) → decode (VAEDecode, VAEDecodeTiled), the upscale model
+(UpscaleModelLoader, ImageUpscaleWithModel), image load and save; and
+the image and latent utilities (batch, crop, pad for outpainting, scale,
+invert, blur, sharpen; latent composite, repeat, slice, batch, upscale,
+noise mask).
 
 Counterparts of the same-named nodes in comfyui_distributed_tpu/graph/
 nodes_core.py. Data contracts:
@@ -40,7 +42,8 @@ import torch.nn.functional as F
 from ..models import pipeline as pl
 from ..models.upscaler import load_upscale_model
 from ..ops.conditioning import as_conditioning, map_conditioning
-from ..ops.resize import resize_image
+from ..ops.filters import gaussian_blur
+from ..ops.resize import center_crop_to_aspect, resize_image, resolve_resize_dims, scale_dims
 from ..ops.tiled_vae import decode_tiled, encode_tiled
 from ..utils import image as img_utils
 from .io_dirs import get_output_dir, next_counter, resolve_input_path
@@ -198,6 +201,151 @@ class ConditioningConcat:
 
 
 @register_node
+class ImageBatch:
+    """Two images joined on the batch axis; the second is centre-cropped
+    to the first's aspect and resized (bilinear) to its size where they
+    differ."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {"image1": ("IMAGE",), "image2": ("IMAGE",)}}
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "batch"
+
+    def batch(self, image1, image2, context=None):
+        if tuple(image1.shape[1:3]) != tuple(image2.shape[1:3]):
+            h, w = image1.shape[1], image1.shape[2]
+            (image2,) = center_crop_to_aspect([image2], h, w)
+            image2 = resize_image(image2, h, w, "bilinear")
+        return (torch.cat([image1, image2.to(image1.device, image1.dtype)], dim=0),)
+
+
+def _crop_window(h: int, w: int, x, y, width, height, unit: int = 1):
+    """(y0, y1, x0, x1) of a crop: the origin clamped into the frame,
+    the extent (at least one cell) clamped to what remains; pixel values
+    divided by `unit` (8 for latents)."""
+    x0 = min(max(int(x) // unit, 0), w - 1)
+    y0 = min(max(int(y) // unit, 0), h - 1)
+    x1 = min(x0 + max(int(width) // unit, 1), w)
+    y1 = min(y0 + max(int(height) // unit, 1), h)
+    return y0, y1, x0, x1
+
+
+@register_node
+class ImageCrop:
+    """A pixel region: x/y clamp into the frame, width/height to the
+    remaining extent."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "image": ("IMAGE",),
+                "width": ("INT", {"default": 512}),
+                "height": ("INT", {"default": 512}),
+                "x": ("INT", {"default": 0}),
+                "y": ("INT", {"default": 0}),
+            }
+        }
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "crop"
+
+    def crop(self, image, width=512, height=512, x=0, y=0, context=None):
+        y0, y1, x0, x1 = _crop_window(image.shape[1], image.shape[2], x, y, width, height)
+        return (image[:, y0:y1, x0:x1, :],)
+
+
+@register_node
+class LatentComposite:
+    """One latent pasted into another at a pixel offset (8 pixels a latent
+    cell, the node convention). `feather` pixels of linear ramp blend the
+    pasted region's edges that lie inside the destination; ramps of
+    opposite edges multiply."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "samples_to": ("LATENT",),
+                "samples_from": ("LATENT",),
+                "x": ("INT", {"default": 0}),
+                "y": ("INT", {"default": 0}),
+                "feather": ("INT", {"default": 0}),
+            }
+        }
+
+    RETURN_TYPES = ("LATENT",)
+    FUNCTION = "composite"
+
+    def composite(self, samples_to: dict, samples_from: dict, x=0, y=0, feather=0,
+                  context=None):
+        dst = samples_to["samples"]
+        src = samples_from["samples"].to(dst.device)
+        lx, ly = max(int(x), 0) // 8, max(int(y), 0) // 8
+        fe = max(int(feather), 0) // 8
+        h = min(src.shape[1], dst.shape[1] - ly)
+        w = min(src.shape[2], dst.shape[2] - lx)
+        out = dict(samples_to)
+        if h <= 0 or w <= 0:
+            return (out,)
+        region = src[:, :h, :w, :]
+        if fe > 0:
+            ramp_y = torch.ones(h, device=dst.device)
+            ramp_x = torch.ones(w, device=dst.device)
+            idx_y = torch.arange(h, dtype=torch.float32, device=dst.device)
+            idx_x = torch.arange(w, dtype=torch.float32, device=dst.device)
+            if ly > 0:
+                ramp_y = ramp_y * torch.clamp((idx_y + 1) / fe, 0.0, 1.0)
+            if ly + h < dst.shape[1]:
+                ramp_y = ramp_y * torch.clamp((h - idx_y) / fe, 0.0, 1.0)
+            if lx > 0:
+                ramp_x = ramp_x * torch.clamp((idx_x + 1) / fe, 0.0, 1.0)
+            if lx + w < dst.shape[2]:
+                ramp_x = ramp_x * torch.clamp((w - idx_x) / fe, 0.0, 1.0)
+            mask = (ramp_y[:, None] * ramp_x[None, :])[None, :, :, None]
+        else:
+            mask = 1.0
+        patch = dst[:, ly:ly + h, lx:lx + w, :]
+        merged = dst.clone()
+        merged[:, ly:ly + h, lx:lx + w, :] = region * mask + patch * (1.0 - mask)
+        out["samples"] = merged
+        return (out,)
+
+
+def _per_sample_mask(samples: dict):
+    """The latent's noise mask where it has one row per sample, else None."""
+    mask = samples.get("noise_mask")
+    if mask is not None and getattr(mask, "ndim", 0) >= 3 \
+            and mask.shape[0] == samples["samples"].shape[0]:
+        return mask
+    return None
+
+
+@register_node
+class RepeatLatentBatch:
+    """The latents repeated `amount` times on the batch axis; a
+    per-sample noise mask repeats with them."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {"samples": ("LATENT",), "amount": ("INT", {"default": 1})}}
+
+    RETURN_TYPES = ("LATENT",)
+    FUNCTION = "repeat"
+
+    def repeat(self, samples: dict, amount=1, context=None):
+        n = max(1, int(amount))
+        out = dict(samples)
+        out["samples"] = torch.cat([samples["samples"]] * n, dim=0)
+        mask = _per_sample_mask(samples)
+        if mask is not None:
+            out["noise_mask"] = torch.cat([mask] * n, dim=0)
+        return (out,)
+
+
+@register_node
 class CLIPSetLastLayer:
     """Clip-skip: the conditioning context stops `stop_at_clip_layer`
     blocks from the end of every CLIP tower (-1 = the full stack, -2 =
@@ -267,12 +415,8 @@ def _prep_latents(bundle: pl.PipelineBundle, latent_image: dict):
     placeholder (`empty`) latent is rebuilt to the bundle's latent layout
     if it differs, a noise mask is brought to latent resolution, and the
     extras the output carries forward are collected (the `empty` marker
-    is not; a noise mask is, so a chained pass stays masked). A fixed
-    batch seed (LatentBatchSeedBehavior) raises: it is not ported."""
-    if latent_image.get("batch_index_fixed"):
-        raise NotImplementedError(
-            "LatentBatchSeedBehavior 'fixed' is not ported yet (ROADMAP.md, Queue 1 item 2h)"
-        )
+    is not; a noise mask is, so a chained pass stays masked, and so is
+    LatentBatchSeedBehavior's `batch_index_fixed`)."""
     latents = latent_image["samples"]
     if latent_image.get("empty") and "width" in latent_image:
         shape = (latents.shape[0], latent_image["height"] // bundle.latent_scale,
@@ -319,6 +463,7 @@ class KSampler:
             model, latents, positive, negative, steps=int(steps), sampler=sampler_name,
             scheduler=scheduler, cfg_scale=float(cfg), denoise=float(denoise),
             seed=spec.effective_seed(), noise_mask=noise_mask,
+            batch_fixed_noise=bool(latent_image.get("batch_index_fixed", False)),
         )
         return ({**extras, "samples": out},)
 
@@ -378,6 +523,7 @@ class KSamplerAdvanced:
             scheduler=scheduler, cfg_scale=float(cfg), seed=spec.effective_seed(),
             start_at_step=int(start_at_step), end_at_step=int(end_at_step),
             add_noise=do_noise, force_full_denoise=force_full, noise_mask=noise_mask,
+            batch_fixed_noise=bool(latent_image.get("batch_index_fixed", False)),
         )
         return ({**extras, "samples": out},)
 
@@ -512,6 +658,370 @@ class VAEEncodeForInpaint:
             "width": int(w),
             "height": int(h),
         },)
+
+
+@register_node
+class ImagePadForOutpaint:
+    """The canvas extended with edge-replicated pixels, and the MASK of
+    the new region: 1 there, and inside the original image a squared
+    ramp that reaches `feathering` pixels in from each new edge."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "image": ("IMAGE",),
+                "left": ("INT", {"default": 0}),
+                "top": ("INT", {"default": 0}),
+                "right": ("INT", {"default": 0}),
+                "bottom": ("INT", {"default": 0}),
+                "feathering": ("INT", {"default": 40}),
+            }
+        }
+
+    RETURN_TYPES = ("IMAGE", "MASK")
+    FUNCTION = "expand"
+
+    def expand(self, image, left=0, top=0, right=0, bottom=0, feathering=40, context=None):
+        lf, tp, rt, bt = int(left), int(top), int(right), int(bottom)
+        fe = int(feathering)
+        padded = F.pad(image.permute(0, 3, 1, 2), (lf, rt, tp, bt),
+                       mode="replicate").permute(0, 2, 3, 1)
+        b, h, w, _ = padded.shape
+        mask = np.ones((h, w), np.float32)
+        y0, y1, x0, x1 = tp, h - bt, lf, w - rt
+        inner = np.zeros((y1 - y0, x1 - x0), np.float32)
+        if fe > 0:
+            # each original pixel's distance to the nearest new edge
+            yy = np.arange(y1 - y0, dtype=np.float32)[:, None]
+            xx = np.arange(x1 - x0, dtype=np.float32)[None, :]
+            d = np.full(inner.shape, np.inf, np.float32)
+            if tp:
+                d = np.minimum(d, yy)
+            if bt:
+                d = np.minimum(d, (y1 - y0 - 1) - yy)
+            if lf:
+                d = np.minimum(d, xx)
+            if rt:
+                d = np.minimum(d, (x1 - x0 - 1) - xx)
+            inner = (np.clip((fe - d) / fe, 0.0, 1.0) ** 2).astype(np.float32)
+        mask[y0:y1, x0:x1] = inner
+        mask_t = torch.from_numpy(mask).to(image.device)[None].expand(b, h, w).contiguous()
+        return (padded.contiguous(), mask_t)
+
+
+@register_node
+class SetLatentNoiseMask:
+    """An inpainting mask attached to latents as their noise_mask."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {"samples": ("LATENT",), "mask": ("MASK",)}}
+
+    RETURN_TYPES = ("LATENT",)
+    FUNCTION = "set_mask"
+
+    def set_mask(self, samples: dict, mask, context=None):
+        z = samples["samples"]
+        out = dict(samples)
+        out["noise_mask"] = _mask_to_latent(torch.as_tensor(mask).to(z.device), z.shape[1],
+                                            z.shape[2])
+        return (out,)
+
+
+def _crop_mode(crop) -> bool:
+    """True for crop "center", False for "disabled"; anything else raises."""
+    if str(crop) not in ("disabled", "center"):
+        raise ValueError(f"unknown crop mode {crop!r}; use disabled|center")
+    return str(crop) == "center"
+
+
+@register_node
+class ImageScale:
+    """An image resized to (width, height) with ops/resize.py's sampling
+    (a 0 side keeps the aspect), optionally centre-cropped to the target
+    aspect first, clipped to [0, 1]."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "image": ("IMAGE",),
+                "upscale_method": ("STRING", {"default": "bilinear"}),
+                "width": ("INT", {"default": 1024}),
+                "height": ("INT", {"default": 1024}),
+                "crop": ("STRING", {"default": "disabled"}),
+            }
+        }
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "scale"
+
+    def scale(self, image, upscale_method, width, height, crop="disabled", context=None):
+        height, width = resolve_resize_dims(image.shape[1], image.shape[2], int(width),
+                                            int(height))
+        if _crop_mode(crop):
+            (image,) = center_crop_to_aspect([image], height, width)
+        out = resize_image(image, height, width, str(upscale_method))
+        return (torch.clamp(out, 0.0, 1.0),)
+
+
+@register_node
+class ImageScaleBy:
+    """An image resized by a factor (ImageScale at the rounded size)."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "image": ("IMAGE",),
+                "upscale_method": ("STRING", {"default": "bilinear"}),
+                "scale_by": ("FLOAT", {"default": 1.0}),
+            }
+        }
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "scale"
+
+    def scale(self, image, upscale_method="bilinear", scale_by=1.0, context=None):
+        h, w = scale_dims(image.shape[1], image.shape[2], scale_by)
+        return ImageScale().scale(image, upscale_method, w, h)
+
+
+@register_node
+class ImageInvert:
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {"image": ("IMAGE",)}}
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "invert"
+
+    def invert(self, image, context=None):
+        return (1.0 - image,)
+
+
+@register_node
+class LatentUpscale:
+    """Latents resized to a pixel size (the latent grid is pixels // 8,
+    the node convention, whatever the bundle's VAE factor; a 0 side keeps
+    the aspect), optionally centre-cropped first; the noise mask
+    follows."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "samples": ("LATENT",),
+                "upscale_method": ("STRING", {"default": "nearest-exact"}),
+                "width": ("INT", {"default": 1024}),
+                "height": ("INT", {"default": 1024}),
+                "crop": ("STRING", {"default": "disabled"}),
+            }
+        }
+
+    RETURN_TYPES = ("LATENT",)
+    FUNCTION = "upscale"
+
+    def upscale(self, samples: dict, upscale_method="nearest-exact", width=1024, height=1024,
+                crop="disabled", context=None):
+        z = samples["samples"]
+        mask = samples.get("noise_mask")
+        h, w = z.shape[1], z.shape[2]
+        lh, lw = resolve_resize_dims(h, w, int(width) // 8, int(height) // 8)
+        if _crop_mode(crop):
+            # the mask joins the crop at the source grid
+            if mask is not None:
+                mask = _mask_to_latent(torch.as_tensor(mask).to(z.device), h, w)
+                z, mask = center_crop_to_aspect([z, mask], lh, lw)
+            else:
+                (z,) = center_crop_to_aspect([z], lh, lw)
+        out = dict(samples)
+        out["samples"] = resize_image(z, lh, lw, str(upscale_method))
+        out["width"] = lw * 8
+        out["height"] = lh * 8
+        if mask is not None:
+            out["noise_mask"] = _mask_to_latent(torch.as_tensor(mask).to(z.device), lh, lw)
+        return (out,)
+
+
+@register_node
+class LatentUpscaleBy:
+    """Latents resized by a factor (LatentUpscale at the rounded size)."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "samples": ("LATENT",),
+                "upscale_method": ("STRING", {"default": "nearest-exact"}),
+                "scale_by": ("FLOAT", {"default": 1.5}),
+            }
+        }
+
+    RETURN_TYPES = ("LATENT",)
+    FUNCTION = "upscale"
+
+    def upscale(self, samples: dict, upscale_method="nearest-exact", scale_by=1.5, context=None):
+        z = samples["samples"]
+        lh, lw = scale_dims(z.shape[1], z.shape[2], scale_by)
+        return LatentUpscale().upscale(samples, upscale_method, width=lw * 8, height=lh * 8)
+
+
+@register_node
+class LatentFromBatch:
+    """A contiguous run of a latent batch; a per-sample noise mask
+    follows."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "samples": ("LATENT",),
+                "batch_index": ("INT", {"default": 0}),
+                "length": ("INT", {"default": 1}),
+            }
+        }
+
+    RETURN_TYPES = ("LATENT",)
+    FUNCTION = "frombatch"
+
+    def frombatch(self, samples: dict, batch_index=0, length=1, context=None):
+        z = samples["samples"]
+        b = z.shape[0]
+        i0 = min(max(int(batch_index), 0), b - 1)
+        i1 = min(i0 + max(int(length), 1), b)
+        out = dict(samples)
+        out["samples"] = z[i0:i1]
+        mask = _per_sample_mask(samples)
+        if mask is not None:
+            out["noise_mask"] = mask[i0:i1]
+        return (out,)
+
+
+@register_node
+class LatentBatch:
+    """Two latents joined on the batch axis, the second resized
+    (bilinear) to the first's grid where they differ; a noise mask is
+    dropped (its rows no longer align)."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {"samples1": ("LATENT",), "samples2": ("LATENT",)}}
+
+    RETURN_TYPES = ("LATENT",)
+    FUNCTION = "batch"
+
+    def batch(self, samples1: dict, samples2: dict, context=None):
+        z1, z2 = samples1["samples"], samples2["samples"].to(samples1["samples"].device)
+        if tuple(z1.shape[1:3]) != tuple(z2.shape[1:3]):
+            z2 = resize_image(z2, z1.shape[1], z1.shape[2], "bilinear")
+        out = dict(samples1)
+        out["samples"] = torch.cat([z1, z2], dim=0)
+        out.pop("noise_mask", None)
+        return (out,)
+
+
+@register_node
+class ImageBlur:
+    """Gaussian blur (ops/filters.py)."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "image": ("IMAGE",),
+                "blur_radius": ("INT", {"default": 1}),
+                "sigma": ("FLOAT", {"default": 1.0}),
+            }
+        }
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "blur"
+
+    def blur(self, image, blur_radius=1, sigma=1.0, context=None):
+        if int(blur_radius) <= 0:
+            return (image,)
+        return (gaussian_blur(image, int(blur_radius), float(sigma)),)
+
+
+@register_node
+class ImageSharpen:
+    """Unsharp mask: image + alpha * (image - blur), clipped to [0, 1]."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "image": ("IMAGE",),
+                "sharpen_radius": ("INT", {"default": 1}),
+                "sigma": ("FLOAT", {"default": 1.0}),
+                "alpha": ("FLOAT", {"default": 1.0}),
+            }
+        }
+
+    RETURN_TYPES = ("IMAGE",)
+    FUNCTION = "sharpen"
+
+    def sharpen(self, image, sharpen_radius=1, sigma=1.0, alpha=1.0, context=None):
+        if int(sharpen_radius) <= 0:
+            return (image,)
+        blurred = gaussian_blur(image, int(sharpen_radius), float(sigma))
+        return (torch.clamp(image + float(alpha) * (image - blurred), 0.0, 1.0),)
+
+
+@register_node
+class InpaintModelConditioning:
+    """Conditioning for an inpainting checkpoint (sd15-inpaint, a 9-channel
+    UNet): the masked pixels set to mid-gray and encoded, the mask and
+    those latents joined as the conditioning's concat channels (on both
+    sides), the original pixels encoded as the starting latents, and
+    the mask optionally riding as the latent's noise_mask."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "positive": ("CONDITIONING",),
+                "negative": ("CONDITIONING",),
+                "vae": ("VAE",),
+                "pixels": ("IMAGE",),
+                "mask": ("MASK",),
+            },
+            "optional": {"noise_mask": ("BOOLEAN", {"default": True})},
+        }
+
+    RETURN_TYPES = ("CONDITIONING", "CONDITIONING", "LATENT")
+    RETURN_NAMES = ("positive", "negative", "latent")
+    FUNCTION = "encode"
+
+    def encode(self, positive, negative, vae, pixels, mask, noise_mask=True, context=None):
+        pixels = torch.as_tensor(pixels).to(vae.device).float()
+        _, h, w, _ = pixels.shape
+        m = torch.as_tensor(mask).to(vae.device).float()
+        if m.ndim == 4:
+            m = m[..., 0]
+        if m.ndim == 2:
+            m = m[None]
+        if tuple(m.shape[1:]) != (h, w):
+            m = resize_image(m[..., None], h, w, "bilinear")[..., 0]
+        m = torch.clamp(m, 0.0, 1.0)
+        hard = (m > 0.5).float()
+        neutral = (pixels - 0.5) * (1.0 - hard[..., None]) + 0.5
+        with torch.no_grad():
+            z_orig = vae.vae.encode(pixels)
+            z_masked = vae.vae.encode(neutral)
+        mask_lat = _mask_to_latent(m, z_orig.shape[1], z_orig.shape[2])
+        concat = torch.cat([mask_lat.to(z_masked.dtype), z_masked], dim=-1)
+
+        def patch(cond):
+            cond.concat_latent = concat
+            return cond
+
+        latent = {"samples": z_orig, "width": int(w), "height": int(h)}
+        if noise_mask:
+            latent["noise_mask"] = mask_lat
+        return (map_conditioning(positive, patch), map_conditioning(negative, patch), latent)
 
 
 @register_node

@@ -2,8 +2,8 @@
 
 The port's own copy of the SD model patches of comfyui_distributed_tpu/
 graph/nodes_loaders.py: FreeU, FreeU_V2, PerturbedAttentionGuidance,
-SelfAttentionGuidance and RescaleCFG, with the JAX nodes' inputs and
-defaults. A patch returns a new bundle through `dataclasses.replace`
+SelfAttentionGuidance, RescaleCFG and ModelSamplingDiscrete, with the
+JAX nodes' inputs and defaults. A patch returns a new bundle through `dataclasses.replace`
 (the modules and parameters are shared; FreeU's UNet is a view with its
 own config, `UNet.with_freeu`): the bundle the executor caches for the
 checkpoint, which other nodes and prompts use, keeps no patch. PAG, SAG
@@ -153,3 +153,31 @@ class RescaleCFG:
     def patch(self, model: pl.PipelineBundle, multiplier=0.7, context=None):
         pl.reject_existing_guidance_patches(model, "RescaleCFG")
         return (dataclasses.replace(model, cfg_rescale=float(multiplier)),)
+
+
+@register_node
+class ModelSamplingDiscrete:
+    """The VP parameterization the model is sampled with, in place of its
+    config's: "eps" or "v_prediction". zsnr rescaling is not implemented
+    and raises, as in the JAX package."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "model": ("MODEL",),
+                "sampling": ("STRING", {"default": "eps"}),
+                "zsnr": ("BOOLEAN", {"default": False}),
+            }
+        }
+
+    RETURN_TYPES = ("MODEL",)
+    FUNCTION = "patch"
+
+    def patch(self, model: pl.PipelineBundle, sampling="eps", zsnr=False, context=None):
+        mapping = {"eps": "eps", "v_prediction": "v"}
+        if str(sampling) not in mapping:
+            raise ValueError(f"sampling must be one of {sorted(mapping)}; got {sampling!r}")
+        if zsnr:
+            raise ValueError("zsnr rescaling is not implemented in this framework")
+        return (dataclasses.replace(model, parameterization_override=mapping[str(sampling)]),)

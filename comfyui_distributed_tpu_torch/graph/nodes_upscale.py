@@ -2,20 +2,23 @@
 
 Counterpart of comfyui_distributed_tpu/graph/nodes_upscale.py with the
 same node surface (image + model/conditioning/vae + sampling knobs +
-tile geometry in, upscaled image out) and the same routing, in static
-(tile-queue) mode:
+tile geometry in, upscaled image out) and the same routing:
 
 - no workers enabled → ops/upscale.run_upscale on the context's device;
 - a worker's rewritten prompt (is_worker) → graph/usdu_elastic.py::
   run_worker_loop, which pulls tiles from the master over HTTP;
 - a master with enabled workers and a server → run_master_elastic.
 
+An image batch of more than one frame and at least `dynamic_threshold`
+frames takes dynamic mode instead on both roles (run_worker_dynamic,
+run_master_dynamic: whole frames queued, each run by whoever pulls it).
+Master and workers decide it alike from the same inputs.
+
 With an `upscale_model`, every participant runs the model on the same
 image and resizes it (cubic) to the exact target, and the tiles refine
 it at 1x (`pre_upscale`).
 
-Not ported yet, each raising with its ROADMAP item: the dynamic
-(whole-image queue) mode for large batches, and the mesh tier.
+The mesh tier is not ported yet and raises with its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,11 +31,6 @@ from ..ops import upscale as upscale_ops
 from ..ops.resize import resize_image
 from ..ops.samplers import check_sampler_names
 from .registry import register_node
-
-_DYNAMIC_TODO = (
-    "dynamic (whole-image queue) USDU mode is not ported yet (ROADMAP.md, Queue 1, "
-    "item 3: the elastic tier's remainder)"
-)
 
 
 def pre_upscale(image, upscale_model, upscale_by: float):
@@ -112,12 +110,10 @@ class UltimateSDUpscaleDistributed:
                 latent_scale=vae.latent_scale,
             )
         # mode selection, made alike on master and workers from shared
-        # inputs: dynamic for large batches, static (tile queue) otherwise
-        batch = int(image.shape[0])
+        # inputs: dynamic (frame queue) for large batches, static (tile
+        # queue) otherwise
+        dynamic = int(image.shape[0]) > 1 and int(image.shape[0]) >= int(dynamic_threshold)
         enabled = list(enabled_worker_ids or [])
-        elastic = is_worker or (enabled and getattr(context, "server", None) is not None)
-        if elastic and batch > 1 and batch >= int(dynamic_threshold):
-            raise NotImplementedError(_DYNAMIC_TODO)
         common = dict(
             bundle=model, image=image, pos=positive, neg=negative,
             upscale_by=float(upscale_by), tile=int(tile_width), tile_h=int(tile_height),
@@ -128,15 +124,17 @@ class UltimateSDUpscaleDistributed:
             context=context,
         )
         if is_worker:
-            from .usdu_elastic import run_worker_loop
+            from .usdu_elastic import run_worker_dynamic, run_worker_loop
 
-            run_worker_loop(job_id=job_id, worker_id=worker_id, master_url=master_url,
-                            mesh=getattr(context, "mesh", None), **common)
+            worker_fn = run_worker_dynamic if dynamic else run_worker_loop
+            worker_fn(job_id=job_id, worker_id=worker_id, master_url=master_url,
+                      mesh=getattr(context, "mesh", None), **common)
             return (image,)
-        if elastic:
-            from .usdu_elastic import run_master_elastic
+        if enabled and getattr(context, "server", None) is not None:
+            from .usdu_elastic import run_master_dynamic, run_master_elastic
 
-            return (run_master_elastic(job_id=job_id, enabled_worker_ids=enabled,
-                                       mesh=getattr(context, "mesh", None), **common),)
+            master_fn = run_master_dynamic if dynamic else run_master_elastic
+            return (master_fn(job_id=job_id, enabled_worker_ids=enabled,
+                              mesh=getattr(context, "mesh", None), **common),)
         del common["context"]
         return (upscale_ops.run_upscale(mesh=getattr(context, "mesh", None), **common),)

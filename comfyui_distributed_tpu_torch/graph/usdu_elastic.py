@@ -1,8 +1,8 @@
-"""Elastic-tier USDU: master/worker tile-queue loops over HTTP.
+"""Elastic-tier USDU: master/worker loops over HTTP.
 
-The port's own copy of the static mode of comfyui_distributed_tpu/
-graph/usdu_elastic.py, for participants outside the master's process
-(or inside it, on their own server):
+The port's own copy of the static (tile-queue) and dynamic (frame-queue)
+modes of comfyui_distributed_tpu/graph/usdu_elastic.py, for participants
+outside the master's process (or inside it, on their own server):
 
   worker: poll job ready → pipelined pull/sample/encode/submit stages
           (graph/tile_pipeline.py), heartbeats from the I/O stage →
@@ -11,6 +11,15 @@ graph/usdu_elastic.py, for participants outside the master's process
           draining worker results → on drain, a collection phase with
           heartbeat-timeout requeue (busy-probe grace) → local fallback
           for requeued tiles → the composited canvas
+
+Dynamic mode, for image batches (video frames) at or past the node's
+`dynamic_threshold`, queues whole frames instead: a participant pulls a
+frame index, runs all of that frame's tiles (`_process_whole_image`)
+and submits the frame (`/distributed/submit_image`); the master takes
+part, requeues a silent worker's frames, and stacks the frames in
+order. A frame's tile noise is seeded by (seed, frame index, tile
+index, stream) (`upscale.FrameTileNoise`), so a frame comes out the same
+whoever claims it.
 
 The tile processor is ops/upscale.py::_process_tile_fn with the same
 `noise` seam as `run_upscale`: the default draws a tile's initial and
@@ -23,9 +32,9 @@ the image does not depend on which participant finished first.
 Left out, each with its ROADMAP item: the master-URL failover list,
 shard routing and fencing epochs, push grants (`GrantSignal`), the
 fleet-telemetry piggyback, the tile cache, adapters, the cross-job tier,
-the device canvas, the mesh and the dynamic (whole-image) mode. Both
-roles prep the conditioning for tiles (ControlNet hints and masks
-windowed per tile) and take `tiled_decode`.
+the device canvas and the mesh. Both roles prep the conditioning for
+tiles (ControlNet hints and masks windowed per tile) and take
+`tiled_decode`.
 
 Every function here enters `torch.inference_mode()` on its own thread:
 grad mode is thread-local, and the server runs them on its executor
@@ -80,6 +89,29 @@ HEARTBEAT_BACKOFF_CAP_SECONDS = 30.0
 def _check_ported(mesh: Any) -> None:
     if mesh is not None:
         raise NotImplementedError(_MESH_UNPORTED)
+
+
+def _finish_job(store, job_id: str) -> None:
+    """Remove the job from the store: the collector job the orchestration
+    announced for it (its workers' readiness poll), then the tile job,
+    whose record stays in `finished`."""
+    run_async_in_server_loop(store.cleanup_collector(job_id), timeout=30)
+    run_async_in_server_loop(store.cleanup_tile_job(job_id), timeout=30)
+
+
+def _busy_probe(config: dict):
+    """The requeue scan's probe: whether a stale worker of `config` is
+    online with a queue (busy on a long tile or frame: given grace)."""
+
+    async def probe_busy(worker_id: str) -> bool:
+        worker = next((w for w in config.get("workers", []) if str(w.get("id")) == worker_id),
+                      None)
+        if worker is None:
+            return False
+        result = await probe_worker(build_worker_url(worker))
+        return bool(result["online"] and (result["queue_remaining"] or 0) > 0)
+
+    return probe_busy
 
 
 def _publish_stage_totals(context, role: str, totals: StageTotals) -> None:
@@ -164,7 +196,9 @@ class HTTPWorkClient:
             self.job_cancelled = True
             self.cancel_reason = str(out.get("cancel_reason", ""))
             return None
-        return out if out.get("tile_idx") is not None else None
+        if out.get("tile_idx") is None and out.get("image_idx") is None:
+            return None
+        return out
 
     def submit_tiles(self, entries: list[dict], is_final: bool) -> None:
         """Ship a flush. Transport failures and 5xx answers retry; a 4xx is
@@ -180,6 +214,23 @@ class HTTPWorkClient:
                 ),
                 http_policy(), retryable=transport_errors() + (TransientServerError,),
                 label=f"submit_tiles:{self.worker_id}",
+            )
+
+        run_async_in_server_loop(send(), timeout=600)
+
+    def submit_image(self, image_idx: int, data_url: str, is_last: bool) -> None:
+        """Dynamic mode: ship one processed frame; retried as a flush is."""
+
+        async def send():
+            await retry_async(
+                lambda: self._post(
+                    "/distributed/submit_image",
+                    {"job_id": self.job_id, "worker_id": self.worker_id,
+                     "image_idx": int(image_idx), "image": data_url, "is_last": bool(is_last)},
+                    timeout=300.0,
+                ),
+                http_policy(), retryable=transport_errors() + (TransientServerError,),
+                label=f"submit_image:{self.worker_id}",
             )
 
         run_async_in_server_loop(send(), timeout=600)
@@ -448,14 +499,6 @@ def run_master_elastic(
                 ])
             blend_local(tile_idx, batch)
 
-    async def probe_busy(worker_id: str) -> bool:
-        worker = next((w for w in config.get("workers", []) if str(w.get("id")) == worker_id),
-                      None)
-        if worker is None:
-            return False
-        result = await probe_worker(build_worker_url(worker))
-        return bool(result["online"] and (result["queue_remaining"] or 0) > 0)
-
     def run_local(tile_idx: int):
         with _stage("sample", "master", tile_idx, totals=totals):
             result = process(extracted[tile_idx], tile_idx, noise, pos, neg,
@@ -510,7 +553,7 @@ def run_master_elastic(
         if len(done_tiles | quarantined) >= grid.num_tiles:
             break
         requeued = run_async_in_server_loop(
-            store.requeue_timed_out(job_id, timeout, probe_busy), timeout=60
+            store.requeue_timed_out(job_id, timeout, _busy_probe(config)), timeout=60
         )
         pending_now = run_async_in_server_loop(store.remaining(job_id), timeout=30)
         if requeued or pending_now:
@@ -546,7 +589,7 @@ def run_master_elastic(
         time.sleep(QUEUE_POLL_INTERVAL_SECONDS)
 
     state = lifecycle()
-    run_async_in_server_loop(store.cleanup_tile_job(job_id), timeout=30)
+    _finish_job(store, job_id)
     _publish_stage_totals(context, "master", totals)
     if state["cancelled"]:
         raise JobCancelled(job_id, state["cancel_reason"] or "cancel")
@@ -557,3 +600,202 @@ def run_master_elastic(
         log(f"USDU: job {job_id} completes DEGRADED: tile(s) {poisoned} quarantined "
             "(region blended from the base image)")
     return canvas.result().to(bundle.device)
+
+
+# --------------------------------------------------------------------------
+# dynamic (frame-queue) mode: image batches
+# --------------------------------------------------------------------------
+
+FrameNoise = Callable[[int], upscale_ops.NoiseFn]
+
+
+def _frame_noise(seed: int, device) -> FrameNoise:
+    """Frame index → that frame's tile noise (upscale.FrameTileNoise)."""
+    return lambda frame_index: upscale_ops.FrameTileNoise(seed, frame_index, device)
+
+
+def _process_whole_image(image_1: torch.Tensor, pos, neg, grid: tile_ops.TileGrid,
+                         process: Callable, noise: upscale_ops.NoiseFn) -> torch.Tensor:
+    """One [1, H, W, C] upscaled frame through all its tiles on this
+    participant, composited on the device → [1, H, W, C]. pos/neg are
+    prepped by prep_cond_for_tiles; `noise` is the frame's tile noise."""
+    extracted = tile_ops.extract_tiles(image_1, grid)
+    canvas = tile_ops.IncrementalCanvas(image_1, grid)
+    for tile_idx, (y, x) in enumerate(grid.positions):
+        canvas.blend(process(extracted[tile_idx], tile_idx, noise, pos, neg, (y, x)), y, x)
+    return canvas.result()
+
+
+@torch.inference_mode()
+def run_worker_dynamic(
+    bundle: pl.PipelineBundle,
+    image,
+    pos,
+    neg,
+    job_id: str,
+    worker_id: str,
+    master_url: str,
+    upscale_by: float,
+    tile: int,
+    padding: int,
+    steps: int,
+    sampler: str,
+    scheduler: str,
+    cfg: float,
+    denoise: float,
+    seed: int,
+    upscale_method: str = "bicubic",
+    mask_blur: int = 0,
+    uniform: bool = True,
+    tiled_decode: bool = False,
+    tile_h: int | None = None,
+    context=None,
+    client: Any = None,
+    mesh: Any = None,
+    noise: FrameNoise | None = None,
+) -> None:
+    """Pull frame indices until the master's queue drains; run each
+    frame's tiles here and submit the finished frame (an 8-bit PNG data
+    URL), heartbeating after each."""
+    _check_ported(mesh)
+    client = client or HTTPWorkClient(master_url, job_id, worker_id)
+    if not client.poll_ready():
+        raise WorkerError(f"job {job_id} never became ready", worker_id)
+    upscaled, grid, _, pos, neg = _prepare(
+        bundle, image, pos, neg, upscale_by, tile, padding, upscale_method, tile_h,
+        mask_blur, uniform,
+    )
+    process = _tile_processor(bundle, grid, steps, sampler, scheduler, cfg, denoise,
+                              tiled_decode)
+    noise = noise or _frame_noise(seed, bundle.device)
+    while True:
+        if context is not None:
+            context.check_interrupted()
+        work = client.request_tile()
+        if work is None:
+            break
+        image_idx = int(work.get("image_idx", work.get("tile_idx")))
+        out = _process_whole_image(upscaled[image_idx:image_idx + 1], pos, neg, grid,
+                                   process, noise(image_idx))
+        client.submit_image(image_idx,
+                            img_utils.encode_image_data_url(img_utils.ensure_numpy(out)[0]),
+                            is_last=int(work.get("estimated_remaining", 0)) == 0)
+        client.heartbeat()
+
+
+@torch.inference_mode()
+def run_master_dynamic(
+    bundle: pl.PipelineBundle,
+    image,
+    pos,
+    neg,
+    job_id: str,
+    enabled_worker_ids: list[str],
+    mesh: Any = None,
+    upscale_by: float = 2.0,
+    tile: int = 512,
+    padding: int = 32,
+    steps: int = 20,
+    sampler: str = "euler",
+    scheduler: str = "karras",
+    cfg: float = 7.0,
+    denoise: float = 0.35,
+    seed: int = 0,
+    upscale_method: str = "bicubic",
+    mask_blur: int = 0,
+    uniform: bool = True,
+    tiled_decode: bool = False,
+    tile_h: int | None = None,
+    context=None,
+    noise: FrameNoise | None = None,
+) -> torch.Tensor:
+    """The frame-queue master: it pulls and processes frames itself,
+    drains the workers' frames between its own, requeues a silent
+    worker's frames (busy-probe grace) and runs what is left at the
+    deadline; returns the [B, H, W, C] batch in frame order on the
+    bundle's device."""
+    _check_ported(mesh)
+    store = context.server.job_store
+    config = getattr(context, "config", None) or {}
+    batch = int(torch.as_tensor(image).shape[0])
+    upscaled, grid, _, pos, neg = _prepare(
+        bundle, image, pos, neg, upscale_by, tile, padding, upscale_method, tile_h,
+        mask_blur, uniform,
+    )
+    process = _tile_processor(bundle, grid, steps, sampler, scheduler, cfg, denoise,
+                              tiled_decode)
+    noise = noise or _frame_noise(seed, bundle.device)
+    timeout = worker_timeout_seconds(config)
+    run_async_in_server_loop(
+        store.init_tile_job(job_id, list(range(batch)), batched=False, kind="image"), timeout=30)
+    frames: dict[int, np.ndarray] = {}
+
+    def drain() -> None:
+        async def pop_all():
+            job = await store.get_tile_job(job_id)
+            items = []
+            while job is not None and not job.results.empty():
+                items.append(job.results.get_nowait())
+            return items
+
+        for image_idx, payload in run_async_in_server_loop(pop_all(), timeout=30):
+            if image_idx in frames or payload is None:
+                continue  # payload None: a frame of the master's, kept already
+            frames[image_idx] = img_utils.decode_image_data_url(payload[0]["image"])
+
+    def run_local(image_idx: int) -> None:
+        out = _process_whole_image(upscaled[image_idx:image_idx + 1], pos, neg, grid,
+                                   process, noise(image_idx))
+        frames[image_idx] = img_utils.ensure_numpy(out)[0]
+
+    def claim_and_process() -> bool:
+        image_idx = run_async_in_server_loop(
+            store.pull_task(job_id, "master", timeout=QUEUE_POLL_INTERVAL_SECONDS), timeout=30)
+        if image_idx is None:
+            return False
+        if image_idx not in frames:
+            run_local(image_idx)
+        run_async_in_server_loop(store.submit_result(job_id, "master", image_idx, None),
+                                 timeout=30)
+        drain()
+        return True
+
+    while claim_and_process():
+        if context is not None:
+            context.check_interrupted()
+
+    deadline = time.monotonic() + timeout * max(1, len(enabled_worker_ids))
+    cancelled = None
+    while len(frames) < batch:
+        if context is not None:
+            context.check_interrupted()
+        run_async_in_server_loop(store.sweep_deadlines(), timeout=30)
+        state = run_async_in_server_loop(store.job_lifecycle(job_id), timeout=30)
+        if state is not None and state["cancelled"]:
+            cancelled = state["cancel_reason"] or "cancel"
+            break
+        drain()
+        if len(frames) >= batch:
+            break
+        requeued = run_async_in_server_loop(
+            store.requeue_timed_out(job_id, timeout, _busy_probe(config)), timeout=60)
+        pending_now = run_async_in_server_loop(store.remaining(job_id), timeout=30)
+        if requeued or pending_now:
+            # a surviving worker may still take some of them first
+            while claim_and_process():
+                pass
+        if len(frames) >= batch:
+            break
+        if time.monotonic() > deadline:
+            missing = sorted(set(range(batch)) - set(frames))
+            log(f"USDU dynamic: deadline hit; processing {len(missing)} frame(s) locally")
+            for image_idx in missing:
+                run_local(image_idx)
+            break
+        time.sleep(QUEUE_POLL_INTERVAL_SECONDS)
+
+    _finish_job(store, job_id)
+    if cancelled is not None:
+        raise JobCancelled(job_id, cancelled)
+    stacked = np.stack([frames[i] for i in range(batch)], axis=0)
+    return torch.from_numpy(stacked).to(bundle.device)

@@ -85,3 +85,12 @@ class TileJob:
             return None
         now = now if now is not None else time.monotonic()
         return max(0.0, self.deadline_at - now)
+
+
+@dataclasses.dataclass
+class ImageJob(TileJob):
+    """Dynamic-mode USDU: a queue of whole-frame indices (an image batch
+    processed a frame per pull). The lifecycle is TileJob's; `batched`
+    means nothing here."""
+
+    batched: bool = False

@@ -43,7 +43,7 @@ from typing import Any, Awaitable, Callable, Optional
 
 from ..utils.exceptions import JobQueueError
 from ..utils.logging import debug_log, log
-from .models import CollectorJob, TileJob
+from .models import CollectorJob, ImageJob, TileJob
 
 FINISHED_KEPT = 64
 # ids of cleaned-up collector jobs kept to recognise a late envelope: ids
@@ -230,7 +230,10 @@ class JobStore:
         self._pending_deadlines[job_id] = deadline_s
 
     async def init_tile_job(self, job_id: str, task_ids: list[int], batched: bool = True,
-                            deadline_s: Optional[float] = None) -> TileJob:
+                            deadline_s: Optional[float] = None, kind: str = "tile") -> TileJob:
+        """Create the job: a TileJob of tile indices, or with kind "image"
+        an ImageJob of frame indices (dynamic mode). A job that exists is
+        returned as it is."""
         from ..utils.constants import JOB_DEADLINE_DEFAULT_SECONDS
 
         async with self.lock:
@@ -240,7 +243,8 @@ class JobStore:
                 deadline_s = self._pending_deadlines.pop(job_id, None)
             if deadline_s is None and JOB_DEADLINE_DEFAULT_SECONDS > 0:
                 deadline_s = JOB_DEADLINE_DEFAULT_SECONDS
-            job = TileJob(job_id=job_id, total_tasks=len(task_ids), batched=batched)
+            cls = TileJob if kind == "tile" else ImageJob
+            job = cls(job_id=job_id, total_tasks=len(task_ids), batched=batched)
             if deadline_s is not None and deadline_s > 0:
                 job.deadline_s = float(deadline_s)
                 job.deadline_at = time.monotonic() + float(deadline_s)

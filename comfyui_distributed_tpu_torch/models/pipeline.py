@@ -11,12 +11,16 @@ PAG patch, and `img2img_latents` / `img2img_latents_advanced`
 mask. Modules hold their own parameters, so the functions take the
 bundle where the JAX ones take (bundle, params). The model function also
 takes ControlNet hints (gated by their sampling window), the SDXL size
-override of CLIPTextEncodeSDXL, and SAG's capture pass; `guided_model`
-composes CFG with one guidance patch: PAG, SAG or RescaleCFG.
+override of CLIPTextEncodeSDXL, InpaintModelConditioning's concat
+channels (a 9-channel UNet's extra input) and SAG's capture pass;
+`guided_model` composes CFG with one guidance patch: PAG, SAG,
+RescaleCFG, PerpNeg or DualCFG. `sample_custom_sigmas` runs an explicit
+sigma grid (SamplerCustom and SamplerCustomAdvanced).
 
 Node patches (CLIPSetLastLayer's clip-skip, PerturbedAttentionGuidance's
 PAGSpec, SelfAttentionGuidance's SAGSpec, RescaleCFG's multiplier,
-FreeU's UNet config) return a new bundle through `dataclasses.replace`:
+FreeU's UNet config, PerpNegGuider's PerpNegSpec and DualCFGGuider's
+DualCFGSpec) return a new bundle through `dataclasses.replace`:
 the modules and their parameters are shared, the bundle a graph executor
 caches is never changed.
 
@@ -27,7 +31,9 @@ them the JAX package's own. As the JAX package splits its key, the two
 are separate streams of the participant's seed: the initial noise
 standard normals from a generator seeded with `seed`, the step noise
 from one seeded with `stream_seed(seed, STEP_STREAM)`, both on the
-bundle's device.
+bundle's device. A batch whose seed behaviour is fixed
+(LatentBatchSeedBehavior) repeats batch row 0's initial noise on every
+row, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -84,6 +90,13 @@ class PipelineBundle:
     sag: "SAGSpec | None" = None
     # RescaleCFG patch: the std-rescale multiplier; None = plain CFG
     cfg_rescale: float | None = None
+    # DualCFGGuider: positives are (cond1, cond2); None = plain CFG
+    dual_cfg: "DualCFGSpec | None" = None
+    # PerpNegGuider: positives are (positive, negative), the negative
+    # slot holds the empty conditioning; None = plain CFG
+    perp_neg: "PerpNegSpec | None" = None
+    # ModelSamplingDiscrete: "eps" or "v" in place of the config's
+    parameterization_override: str | None = None
 
     def parts(self) -> dict[str, torch.nn.Module]:
         """The modules by checkpoint part: unet, vae, te and, for a
@@ -111,6 +124,24 @@ class SAGSpec:
 
     scale: float = 0.5
     blur_sigma: float = 2.0
+
+
+@dataclasses.dataclass(frozen=True)
+class PerpNegSpec:
+    """PerpNegGuider: only the part of the negative orthogonal to the
+    positive pushes away (ops/samplers.py::perp_neg_model)."""
+
+    neg_scale: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class DualCFGSpec:
+    """DualCFGGuider: cond2 guided against the negative at
+    cfg_cond2_negative; the outer cfg_conds is the sampler's cfg
+    (ops/samplers.py::dual_cfg_model has the regular and nested forms)."""
+
+    cfg_cond2_negative: float
+    nested: bool = False
 
 
 @dataclasses.dataclass
@@ -181,17 +212,40 @@ def load_pipeline(model_name: str = "tiny-unet", seed: int = 0, device="cuda",
     """Build a pipeline on `device` (the card unless the caller asks for
     the CPU). Its weights come from a single-file SD checkpoint where one
     resolves: `checkpoint`, else `CDT_CHECKPOINT_DIR/<model_name>.*`
-    (models/sd_checkpoint.py::find_checkpoint); loading is strict. A text
-    tower the file does not carry is filled from
+    (models/sd_checkpoint.py::find_checkpoint); loading is strict, and a
+    file whose UNet takes 9 input channels loads as the family's
+    inpainting model (`sniff_model_name`). A text tower the file does not
+    carry is filled from
     `CDT_CHECKPOINT_DIR/<encoder name>.*` where that exists. With no
     checkpoint the weights are seeded random: each module draws from its
     own generator, seeded from `seed`, on the target device."""
+    device = torch.device(device)
+    ckpt_path = checkpoint or sdc.find_checkpoint(model_name)
+    with contextlib.ExitStack() as stack:
+        state_dict = None
+        if ckpt_path:
+            stack.enter_context(_loading(ckpt_path, model_name))
+            state_dict = stack.enter_context(sdc.open_checkpoint(ckpt_path))
+            # a 9-channel conv_in is the inpainting UNet of the family
+            model_name = sdc.sniff_model_name(state_dict, model_name)
+        bundle, supplied = _assemble(model_name, device, seed, state_dict)
+    # a separate text-encoder file fills a tower the checkpoint did not
+    # carry (a checkpoint's own, fine-tuned towers win)
+    for part, name in (("te", bundle.te_name), ("te2", bundle.te2_name)):
+        if name and part not in supplied:
+            _load_te_checkpoint(name, bundle.parts()[part])
+    return bundle
+
+
+def _assemble(model_name: str, device: torch.device, seed: int, state_dict):
+    """load_pipeline's bundle of `model_name` and the towers the checkpoint
+    supplied: filled from `state_dict` (an open single-file checkpoint)
+    where given, else seeded."""
     if model_family(model_name) != "unet":
         raise NotImplementedError(
             f"{model_name!r}: only UNet-family pipelines are ported so far (ROADMAP.md, "
             "Queue 1 item 5: other model families)"
         )
-    device = torch.device(device)
     if model_name in DUAL_TEXT_ENCODERS:
         te_name, te2_name = DUAL_TEXT_ENCODERS[model_name]
     elif model_name in DEFAULT_TEXT_ENCODERS:
@@ -199,13 +253,12 @@ def load_pipeline(model_name: str = "tiny-unet", seed: int = 0, device="cuda",
     else:
         te_name, te2_name = ("tiny-te" if model_name.startswith("tiny") else "clip-l"), None
     vae_name = _family_vae_name(model_name)
-    ckpt_path = checkpoint or sdc.find_checkpoint(model_name)
     # a checkpoint fills every parameter: no random draw for it to replace
     generator = _seed_generators(seed, device)
-    init = (lambda offset: None) if ckpt_path else generator
+    init = (lambda offset: None) if state_dict is not None else generator
 
     unet = _build(model_name, device, init(0))
-    if not ckpt_path:
+    if state_dict is None:
         # zero-initialised as in the JAX package (its out_conv kernel_init):
         # an untrained UNet predicts eps = 0
         unet.out_conv.weight.zero_()
@@ -234,18 +287,11 @@ def load_pipeline(model_name: str = "tiny-unet", seed: int = 0, device="cuda",
         te2_name=te2_name,
     )
     supplied: set[str] = set()
-    if ckpt_path:
-        with _loading(ckpt_path, model_name), sdc.open_checkpoint(ckpt_path) as state_dict:
-            sdc.load_sd_weights(state_dict, get_config(model_name), vae_cfg, te_cfg,
-                                bundle.parts(),
-                                te2_cfg=get_config(te2_name) if te2_name else None)
-            supplied = sdc.supplied_towers(state_dict)
-    # a separate text-encoder file fills a tower the checkpoint did not
-    # carry (a checkpoint's own, fine-tuned towers win)
-    for part, name in (("te", te_name), ("te2", te2_name)):
-        if name and part not in supplied:
-            _load_te_checkpoint(name, bundle.parts()[part])
-    return bundle
+    if state_dict is not None:
+        sdc.load_sd_weights(state_dict, get_config(model_name), vae_cfg, te_cfg, bundle.parts(),
+                            te2_cfg=get_config(te2_name) if te2_name else None)
+        supplied = sdc.supplied_towers(state_dict)
+    return bundle, supplied
 
 
 def load_vae(vae_name: str = "vae-sd", seed: int = 0, device="cuda") -> VAEBundle:
@@ -326,8 +372,8 @@ def encode_text_pooled_sdxl(bundle: PipelineBundle, texts_g: list[str], texts_l:
 def model_schedule_info(bundle: PipelineBundle) -> str:
     """The backbone's parameterization, which picks the sigma table and
     the noising rule: "eps" or "v" (SD2.x-768 class), both on the VP
-    table."""
-    param = get_config(bundle.model_name).parameterization
+    table; ModelSamplingDiscrete's override where it is set."""
+    param = bundle.parameterization_override or get_config(bundle.model_name).parameterization
     smp.require_vp(param)
     return param
 
@@ -395,10 +441,24 @@ def _control_residual(cond: Conditioning, x: torch.Tensor, sigma_batch: torch.Te
     return feats * cond.control_strength
 
 
+def _concat_channels(concat: torch.Tensor, x_in: torch.Tensor) -> torch.Tensor:
+    """InpaintModelConditioning's channels for the scaled latents x_in:
+    repeated to its batch and resized (linear) to its grid. They join
+    after the VP input scaling: only the noisy latents are scaled."""
+    extra = concat.to(device=x_in.device, dtype=x_in.dtype)
+    if extra.shape[0] != x_in.shape[0]:
+        extra = extra.repeat_interleave(x_in.shape[0] // extra.shape[0], dim=0)
+    if tuple(extra.shape[1:3]) != tuple(x_in.shape[1:3]):
+        extra = resize_image(extra, x_in.shape[1], x_in.shape[2], "bilinear").to(x_in.dtype)
+    return extra
+
+
 def _make_model_fn(bundle: PipelineBundle, pag: bool = False, sag_capture: bool = False):
     """eps model function: VP input scaling, sigma → timestep, context
     broadcast to the latent batch, the adm vector and the ControlNet
-    residual. A v-prediction backbone's output is converted to eps. `pag`
+    residual, and an entry's concat channels joined to the scaled input
+    (a 9-channel inpaint UNet). A v-prediction backbone's output is
+    converted to eps. `pag`
     runs the UNet's PAG pass (identity self-attention in the middle
     block). `sag_capture` changes what the function returns: (eps, the
     middle block's self-attention probabilities, (mid_h, mid_w)), the
@@ -418,7 +478,10 @@ def _make_model_fn(bundle: PipelineBundle, pag: bool = False, sag_capture: bool 
         t = smp.on_device(smp.sigma_to_timestep(sigma_batch), x)
         sig = smp.on_device(sigma_batch, x).reshape((-1,) + (1,) * (x.ndim - 1))
         c_in = 1.0 / torch.sqrt(sig**2 + 1.0)
-        out = bundle.unet(x * c_in, t, context, y=y, control=control, pag=pag,
+        x_in = x * c_in
+        if entry is not None and entry.concat_latent is not None:
+            x_in = torch.cat([x_in, _concat_channels(entry.concat_latent, x_in)], dim=-1)
+        out = bundle.unet(x_in, t, context, y=y, control=control, pag=pag,
                           sag_capture=sag_capture)
         if sag_capture:
             out, probs, mid_hw = out
@@ -438,8 +501,10 @@ def _guidance_patches(bundle: PipelineBundle) -> list[str]:
     """The guidance patch nodes applied to the bundle, by node name."""
     return [name for name, active in (
         ("RescaleCFG", bundle.cfg_rescale is not None),
+        ("DualCFGGuider", bundle.dual_cfg is not None),
         ("PerturbedAttentionGuidance", bundle.pag is not None),
         ("SelfAttentionGuidance", bundle.sag is not None),
+        ("PerpNegGuider", bundle.perp_neg is not None),
     ) if active]
 
 
@@ -454,13 +519,19 @@ def reject_existing_guidance_patches(bundle: PipelineBundle, node_name: str) -> 
 def guided_model(bundle: PipelineBundle, cfg_scale: float):
     """CFG over the bundle's model (with the per-entry composition of
     multi-entry conditioning), plus the one guidance patch the bundle
-    carries: PAG, SAG or RescaleCFG. A hand-built bundle with two
-    raises."""
+    carries: PAG, SAG, RescaleCFG, PerpNeg or DualCFG (these two take
+    their three conditionings as ((a, b), c)). A hand-built bundle with
+    two raises."""
     patches = _guidance_patches(bundle)
     if len(patches) > 1:
         raise ValueError(f"guidance patches cannot combine on one model: {patches}")
     base_fn = _make_model_fn(bundle)
     p2s = percent_converter(bundle)
+    if bundle.dual_cfg is not None:
+        return smp.dual_cfg_model(base_fn, cfg_scale, float(bundle.dual_cfg.cfg_cond2_negative),
+                                  p2s=p2s, nested=bool(bundle.dual_cfg.nested))
+    if bundle.perp_neg is not None:
+        return smp.perp_neg_model(base_fn, cfg_scale, float(bundle.perp_neg.neg_scale), p2s=p2s)
     if bundle.pag is not None:
         return smp.pag_cfg_model(base_fn, _make_model_fn(bundle, pag=True), cfg_scale,
                                  float(bundle.pag.scale), p2s=p2s)
@@ -482,6 +553,16 @@ def default_noise(seed: int, shape: tuple, device) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
 
 
+def batch_noise(seed: int, shape: tuple, device, fixed: bool = False) -> torch.Tensor:
+    """The initial noise of a batch: `default_noise` of its shape, or
+    with `fixed` (LatentBatchSeedBehavior "fixed") row 0's noise on
+    every row."""
+    if not fixed:
+        return default_noise(seed, shape, device)
+    one = default_noise(seed, (1,) + tuple(shape[1:]), device)
+    return one.expand(tuple(shape)).contiguous()
+
+
 # the step-noise stream of a participant's seed (stream 0: initial noise)
 STEP_STREAM = 1
 
@@ -495,10 +576,10 @@ def default_step_noise(seed: int, device) -> smp.StepNoise:
     return smp.generator_step_noise(gen)
 
 
-def _latents_and_noise(bundle: PipelineBundle, latents, noise, seed: int):
+def _latents_and_noise(bundle: PipelineBundle, latents, noise, seed: int, fixed: bool = False):
     latents = torch.as_tensor(latents).to(device=bundle.device, dtype=torch.float32)
     if noise is None:
-        noise = default_noise(seed, tuple(latents.shape), bundle.device)
+        noise = batch_noise(seed, tuple(latents.shape), bundle.device, fixed)
     noise = torch.as_tensor(noise).to(device=bundle.device, dtype=torch.float32)
     if noise.shape != latents.shape:
         raise ValueError(f"noise {tuple(noise.shape)} does not match latents {tuple(latents.shape)}")
@@ -538,6 +619,7 @@ def img2img_latents(
     noise: torch.Tensor | None = None,
     noise_mask: torch.Tensor | None = None,
     step_noise: smp.StepNoise | None = None,
+    batch_fixed_noise: bool = False,
 ) -> torch.Tensor:
     """Latent-space img2img (the JAX package's `img2img_latents`): noise
     the latents to sigma[denoise], sample back down under CFG. From
@@ -546,11 +628,12 @@ def img2img_latents(
     bundle's device. `noise` (the latents' shape) replaces
     `default_noise(seed, ...)`, `step_noise` `default_step_noise(seed,
     ...)`. `noise_mask` ([B, h, w, 1], 1 = regenerate) keeps the rest of
-    the latents (inpainting)."""
+    the latents (inpainting). `batch_fixed_noise` gives every batch row
+    row 0's initial noise (`batch_noise`)."""
     smp.check_sampler_names(sampler, scheduler)
     param = model_schedule_info(bundle)
     sigmas = smp.get_model_sigmas(param, scheduler, int(steps), denoise=float(denoise))
-    latents, noise = _latents_and_noise(bundle, latents, noise, seed)
+    latents, noise = _latents_and_noise(bundle, latents, noise, seed, batch_fixed_noise)
     x = smp.noise_latents(param, latents, noise, sigmas[0])
     return _masked_sample(bundle, cfg_scale, param, latents, noise, x, sigmas,
                           (context_pos, context_neg), sampler,
@@ -590,6 +673,7 @@ def img2img_latents_advanced(
     noise_mask: torch.Tensor | None = None,
     noise: torch.Tensor | None = None,
     step_noise: smp.StepNoise | None = None,
+    batch_fixed_noise: bool = False,
 ) -> torch.Tensor:
     """KSamplerAdvanced's core: sample the [start_at_step, end_at_step]
     window of the full schedule. Without `add_noise` (the refine pass of
@@ -598,26 +682,81 @@ def img2img_latents_advanced(
     sampler still draws its step noise. Without `force_full_denoise` the
     output keeps the window's leftover noise."""
     smp.check_sampler_names(sampler, scheduler)
+    window = advanced_window_sigmas(model_schedule_info(bundle), scheduler, steps, start_at_step,
+                                    end_at_step, force_full_denoise)
+    return _sample_window(bundle, latents, (context_pos, context_neg), window, sampler,
+                          cfg_scale, seed, add_noise, noise_mask, batch_fixed_noise, noise,
+                          step_noise)[0]
+
+
+def _sample_window(bundle: PipelineBundle, latents, cond, sigmas: torch.Tensor, sampler: str,
+                   cfg_scale: float, seed: int, add_noise: bool, noise_mask, batch_fixed_noise,
+                   noise, step_noise):
+    """`sampler` over the host grid `sigmas` from the latents, noised to
+    its first sigma with `add_noise`, else as they are (a masked pin then
+    uses zeros) → (output, the latents on the bundle's device, the mask
+    clamped to [0, 1] or None). A grid of one point samples nothing,
+    but the mask still keeps its region."""
     param = model_schedule_info(bundle)
-    window = advanced_window_sigmas(param, scheduler, steps, start_at_step, end_at_step,
-                                    force_full_denoise)
     if add_noise:
-        latents, noise = _latents_and_noise(bundle, latents, noise, seed)
-        x = smp.noise_latents(param, latents, noise, window[0])
+        latents, noise = _latents_and_noise(bundle, latents, noise, seed, batch_fixed_noise)
+        x = smp.noise_latents(param, latents, noise, sigmas[0])
     else:
         latents = torch.as_tensor(latents).to(device=bundle.device, dtype=torch.float32)
         noise = torch.zeros_like(latents)
         x = latents
-    if window.shape[0] < 2:
-        # nothing to sample, but the mask still keeps its region
-        if noise_mask is not None:
-            mask = torch.clamp(torch.as_tensor(noise_mask).to(bundle.device, torch.float32),
-                               0.0, 1.0)
-            return x * mask + latents * (1.0 - mask)
-        return x
-    return _masked_sample(bundle, cfg_scale, param, latents, noise, x, window,
-                          (context_pos, context_neg), sampler,
-                          step_noise or default_step_noise(seed, bundle.device), noise_mask)
+    mask = None
+    if noise_mask is not None:
+        mask = torch.clamp(torch.as_tensor(noise_mask).to(bundle.device, torch.float32), 0.0, 1.0)
+    if sigmas.shape[0] < 2:
+        return (x if mask is None else x * mask + latents * (1.0 - mask)), latents, mask
+    out = _masked_sample(bundle, cfg_scale, param, latents, noise, x, sigmas, cond, sampler,
+                         step_noise or default_step_noise(seed, bundle.device), noise_mask)
+    return out, latents, mask
+
+
+@torch.no_grad()
+def sample_custom_sigmas(
+    bundle: PipelineBundle,
+    latents: torch.Tensor,
+    context_pos,
+    context_neg,
+    sigmas,
+    sampler: str = "euler",
+    cfg_scale: float = 1.0,
+    seed: int = 0,
+    add_noise: bool = True,
+    noise_mask: torch.Tensor | None = None,
+    batch_fixed_noise: bool = False,
+    noise: torch.Tensor | None = None,
+    step_noise: smp.StepNoise | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """SamplerCustom's and SamplerCustomAdvanced's core: `sampler` over an
+    explicit sigma grid (a SIGMAS value) → (output, denoised_output).
+    Where the grid stops above sigma 0 (a leftover-noise stage), the
+    second is the model's x0 prediction at its last sigma, one more
+    guided evaluation; else it is the output. Without `add_noise` the
+    trajectory starts from the latents as given and a masked pin uses
+    zeros, as in `img2img_latents_advanced`."""
+    if sampler not in smp.SAMPLER_NAMES:
+        raise ValueError(f"unknown sampler {sampler!r}; use {smp.SAMPLER_NAMES}")
+    sigmas = torch.as_tensor(sigmas).detach().to("cpu", torch.float32)
+    cond = (context_pos, context_neg)
+    out, latents, mask = _sample_window(bundle, latents, cond, sigmas, sampler, cfg_scale, seed,
+                                        add_noise, noise_mask, batch_fixed_noise, noise,
+                                        step_noise)
+    if sigmas.shape[0] < 2:
+        return out, out
+    last = float(sigmas[-1])
+    if last == 0.0:
+        return out, out
+    model = guided_model(bundle, float(cfg_scale))
+    eps = model(out, torch.full((out.shape[0],), last, dtype=torch.float32),
+                tuple(c if isinstance(c, (list, tuple)) else as_conditioning(c) for c in cond))
+    denoised = out - sigmas[-1] * eps
+    if mask is not None:
+        denoised = denoised * mask + latents * (1.0 - mask)
+    return out, denoised
 
 
 @torch.no_grad()

@@ -3,7 +3,8 @@
 The port's own copy of the entries of comfyui_distributed_tpu/models/
 registry.py that the ported paths need: `sdxl` with its VAE and two
 text encoders (the upscale workflow), `sd15` with the SD VAE and CLIP-L
-(the txt2img, two-pass, PAG and inpaint workflows), `sd21` and
+(the txt2img, two-pass, PAG and inpaint workflows), `sd15-inpaint`
+(the 9-channel inpainting UNet of InpaintModelConditioning), `sd21` and
 `sd21-base` with OpenCLIP-H (the SD2.1 workflow), and the tiny
 instances of the same code that the CPU tests hold against the JAX
 package. Other families come with their slices.
@@ -25,6 +26,20 @@ MODEL_REGISTRY: dict[str, dict[str, Any]] = {
     "sd15": {
         "family": "unet",
         "config": UNetConfig(
+            model_channels=320,
+            channel_mult=(1, 2, 4, 4),
+            transformer_depth=(1, 1, 1, 0),
+            context_dim=768,
+            num_heads=8,
+        ),
+    },
+    # SD1.5 inpainting (the sd-v1-5-inpainting layout): input = the noisy
+    # latents (4), then InpaintModelConditioning's mask (1) and masked
+    # image latents (4)
+    "sd15-inpaint": {
+        "family": "unet",
+        "config": UNetConfig(
+            in_channels=9,
             model_channels=320,
             channel_mult=(1, 2, 4, 4),
             transformer_depth=(1, 1, 1, 0),
@@ -90,6 +105,20 @@ MODEL_REGISTRY: dict[str, dict[str, Any]] = {
             context_dim=160,
             num_heads=2,
             adm_in_channels=96 + 6 * 256,
+        ),
+    },
+    # tiny inpaint-model variant (9-channel input): the concat path of
+    # InpaintModelConditioning
+    "tiny-unet-inpaint": {
+        "family": "unet",
+        "config": UNetConfig(
+            in_channels=9,
+            model_channels=32,
+            channel_mult=(1, 2),
+            num_res_blocks=1,
+            transformer_depth=(1, 1),
+            context_dim=64,
+            num_heads=2,
         ),
     },
     # tiny v-prediction variant: the v → eps conversion on every path

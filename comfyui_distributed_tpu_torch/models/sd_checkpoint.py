@@ -456,6 +456,23 @@ def checkpoint_layout(state_dict: Mapping[str, torch.Tensor]) -> str:
     return "sd1"
 
 
+# the UNet's first conv in a single file, and the registry name a file of
+# each family loads as when that conv takes InpaintModelConditioning's 9
+# channels (noisy latents 4, mask 1, masked image latents 4)
+UNET_CONV_IN = "model.diffusion_model.input_blocks.0.0.weight"
+INPAINT_VARIANTS = {"sd15": "sd15-inpaint", "tiny-unet": "tiny-unet-inpaint"}
+
+
+def sniff_model_name(state_dict: Mapping[str, torch.Tensor], model_name: str) -> str:
+    """The registry name a file asked for as `model_name` loads as: its
+    inpainting variant (INPAINT_VARIANTS) where the file's UNet conv_in
+    takes 9 channels, else `model_name`."""
+    conv_in = state_dict.get(UNET_CONV_IN)
+    if conv_in is not None and conv_in.ndim == 4 and conv_in.shape[1] == 9:
+        return INPAINT_VARIANTS.get(model_name, model_name)
+    return model_name
+
+
 def sd_schedules(layout: str, unet_cfg, vae_cfg, te_cfg, te2_cfg=None) -> dict[str, list[Entry]]:
     """Each part's schedule in a single file of `layout`; te2 (SDXL's
     OpenCLIP bigG half) where `te2_cfg` is given."""

@@ -10,10 +10,13 @@ makes. The JAX package carries a ControlNet's weights as pytree leaves;
 here an entry holds the ControlNet bundle itself (a reference to its
 module: `clone` copies no weights).
 
-The Flux-family fields (reference latents, distilled guidance, model
-patches, inpaint-model concat channels) and unCLIP's are not ported: an
-entry that carries one of them is refused where it is sampled
-(`reject_unported`).
+InpaintModelConditioning's concat channels (`concat_latent`: the mask and
+the masked image's latents, joined to a 9-channel UNet's input) ride on
+the entry and follow its batch slices and area crops; the tile path
+refuses them, as the JAX package's does. The Flux-family fields
+(reference latents, distilled guidance, model patches) and unCLIP's are
+not ported: an entry that carries one of them is refused where it is
+sampled (`reject_unported`).
 """
 
 from __future__ import annotations
@@ -27,8 +30,7 @@ import torch.nn.functional as F
 from .resize import resize_image
 
 # fields of the JAX package's Conditioning that no ported model consumes yet
-UNPORTED_FIELDS = ("reference_latents", "guidance", "model_patches", "concat_latent",
-                   "unclip_embeds")
+UNPORTED_FIELDS = ("reference_latents", "guidance", "model_patches", "unclip_embeds")
 
 
 @dataclasses.dataclass
@@ -53,6 +55,9 @@ class Conditioning:
     gligen_embs / gligen_boxes / gligen_active: GLIGEN position
         conditioning, [N, D] embeddings with latent-unit boxes (h, w, y,
         x); a box off a tile goes inactive, it is not dropped.
+    concat_latent: [B, h, w, 1 + C] latent-resolution channels joined to
+        the model input after its VP scaling (InpaintModelConditioning:
+        the mask, then the masked image's latents).
     """
 
     context: torch.Tensor
@@ -69,6 +74,7 @@ class Conditioning:
     gligen_embs: Optional[torch.Tensor] = None
     gligen_boxes: Optional[tuple] = None
     gligen_active: Optional[tuple] = None
+    concat_latent: Optional[torch.Tensor] = None
 
     def clone(self) -> "Conditioning":
         # tensors are never written in place, so a shallow copy suffices;
@@ -78,7 +84,7 @@ class Conditioning:
 
 # the fields a batch concatenation joins, and the ones two entries must
 # share to ride one batched pass (the JAX pytree's leaves and aux data)
-TENSOR_FIELDS = ("context", "pooled", "control_hint", "mask", "gligen_embs")
+TENSOR_FIELDS = ("context", "pooled", "control_hint", "mask", "gligen_embs", "concat_latent")
 STATIC_FIELDS = ("control_strength", "control_net", "control_range", "area", "strength",
                  "timestep_range", "size_cond", "gligen_boxes", "gligen_active")
 
@@ -198,15 +204,17 @@ def slice_batch(cond: Conditioning, start: int, size: int) -> Conditioning:
     out.context = cut(cond.context)
     out.control_hint = cut(cond.control_hint)
     out.mask = cut(cond.mask)
+    out.concat_latent = cut(cond.concat_latent)
     return out
 
 
-def concat_batch(first: Conditioning, second: Conditioning) -> Conditioning:
-    """The entry of a two-sided batch [first; second]: every tensor field
-    concatenated on the batch axis, the static fields `first`'s (the
-    caller checks they agree)."""
+def concat_batch(first: Conditioning, *rest: Conditioning) -> Conditioning:
+    """The entry of a batch [first; rest...] (CFG's two sides, PerpNeg's
+    and DualCFG's three): every tensor field concatenated on the batch
+    axis, the static fields `first`'s (the caller checks they agree)."""
     out = first.clone()
     for name in TENSOR_FIELDS:
-        a, b = getattr(first, name), getattr(second, name)
-        setattr(out, name, None if a is None else torch.cat([a, b], dim=0))
+        a = getattr(first, name)
+        setattr(out, name, None if a is None
+                else torch.cat([a] + [getattr(c, name) for c in rest], dim=0))
     return out

@@ -3,9 +3,11 @@
 Counterpart of the resize of comfyui_distributed_tpu/ops/upscale.py:
 `jax.image.resize` (scale and translate: half-pixel centres, the kernel
 widened by the factor when it shrinks, renormalised at the edges) for
-each user-facing method name, and an exact box average for "area". The
-upscale path, the conditioning planes (hints, masks) and the upscale
-model's base image all resize through it.
+each user-facing method name, and an exact box average for "area"; and
+the size rules of the resize nodes (`resolve_resize_dims`, `scale_dims`,
+`center_crop_to_aspect`). The upscale path, the conditioning planes
+(hints, masks), the upscale model's base image and the image and latent
+resize nodes all resize through it.
 """
 
 from __future__ import annotations
@@ -109,3 +111,37 @@ def resize_image(image: torch.Tensor, out_h: int, out_w: int, method_name: str) 
         ww = torch.from_numpy(_scale_weights(w, out_w, kernel)).to(image.device)
         out = torch.einsum("bhwc,wp->bhpc", out, ww)
     return out
+
+
+def resolve_resize_dims(h: int, w: int, target_w: int, target_h: int) -> tuple[int, int]:
+    """(out_h, out_w) by ComfyUI's common_upscale rule: a 0 target side
+    keeps the source aspect (0 and 0 keep the size)."""
+    if target_w == 0 and target_h == 0:
+        return h, w
+    if target_w == 0:
+        return target_h, max(1, round(w * target_h / h))
+    if target_h == 0:
+        return max(1, round(h * target_w / w)), target_w
+    return target_h, target_w
+
+
+def scale_dims(h: int, w: int, factor: float) -> tuple[int, int]:
+    """(out_h, out_w) of a resize by a factor (the *UpscaleBy nodes):
+    rounded to the nearest, at least 1."""
+    return max(1, int(round(h * float(factor)))), max(1, int(round(w * float(factor))))
+
+
+def center_crop_to_aspect(planes: list, out_h: int, out_w: int) -> list:
+    """[B, H, W, ...] planes of one geometry centre-cropped to the
+    (out_h, out_w) aspect (common_upscale's crop "center"), all alike."""
+    h, w = planes[0].shape[1], planes[0].shape[2]
+    aspect = out_w / out_h
+    if w / h > aspect:
+        cw = max(1, round(h * aspect))
+        x0 = (w - cw) // 2
+        return [p[:, :, x0:x0 + cw] for p in planes]
+    if w / h < aspect:
+        ch = max(1, round(w / aspect))
+        y0 = (h - ch) // 2
+        return [p[:, y0:y0 + ch] for p in planes]
+    return list(planes)

@@ -14,7 +14,8 @@ model function converts v to eps). Rectified-flow models are not ported
 (`require_vp`). Guidance: CFG with the per-entry composition of
 multi-entry, area, mask and timestep-window conditioning
 (`composite_eps`), perturbed-attention guidance (PAG), self-attention
-guidance (SAG) and RescaleCFG; inpainting pins the unmasked region
+guidance (SAG), RescaleCFG, perpendicular negative guidance (PerpNeg) and
+dual-conditioning CFG (DualCFG); inpainting pins the unmasked region
 (`masked_inpaint_model`).
 
 Scalars: each trajectory keeps its sigmas as f32 tensors on the host.
@@ -392,9 +393,15 @@ def composite_eps(model_fn: ModelFn, x, sigma, cond, p2s=_default_p2s):
         ah = max(1, min(ah, x.shape[1] - ay))
         aw = max(1, min(aw, x.shape[2] - ax))
         e_c = e
+        concat = getattr(e, "concat_latent", None)
+        if concat is not None and tuple(concat.shape[1:3]) == tuple(x.shape[1:3]):
+            # the concat plane follows the crop: the model would otherwise
+            # squash the whole plane into the window
+            e_c = e.clone()
+            e_c.concat_latent = concat[:, ay:ay + ah, ax:ax + aw, :]
         if getattr(e, "control_hint", None) is not None:
             # the hint is in pixels: crop the matching pixel window
-            e_c = e.clone()
+            e_c = e_c.clone() if e_c is e else e_c
             k = max(1, e.control_hint.shape[1] // x.shape[1])
             e_c.control_hint = e.control_hint[:, ay * k:(ay + ah) * k, ax * k:(ax + aw) * k, :]
         eps_c = model_fn(x[:, ay:ay + ah, ax:ax + aw, :], sigma, e_c)
@@ -429,31 +436,34 @@ def _conds_batchable(pos, neg) -> bool:
     return True
 
 
+def _eps_each(model_fn: ModelFn, x, sigma, conds, p2s=_default_p2s) -> list:
+    """One prediction per CONDITIONING value: several in one batched model
+    call (2B for CFG's pair, 3B for PerpNeg's and DualCFG's three) where
+    none takes the per-entry path and every pair passes
+    `_conds_batchable`, else one call (or one per-entry composition)
+    each."""
+    composite = any(_needs_composite(c) for c in conds)
+    entries = [_as_entries(c)[0] for c in conds]
+    if len(conds) > 1 and not composite and all(
+            _conds_batchable(a, b) for i, a in enumerate(entries) for b in entries[i + 1:]):
+        n = len(entries)
+        joined = concat_batch(*(as_conditioning(e) for e in entries))
+        return list(model_fn(torch.cat([x] * n, dim=0), torch.cat([sigma] * n, dim=0),
+                             joined).chunk(n, dim=0))
+    return [composite_eps(model_fn, x, sigma, c, p2s) if _needs_composite(c)
+            else model_fn(x, sigma, _as_entries(c)[0]) for c in conds]
+
+
 def _cfg_eval(model_fn: ModelFn, cfg_scale: float, x, sigma, cond, p2s=_default_p2s):
-    """One CFG evaluation → (eps_pos, guided eps). Multi-entry or area,
-    mask or window restricted conditioning takes the per-entry path; the
-    two sides run as one 2B-batched model call where `_conds_batchable`
-    allows, else as two calls."""
+    """One CFG evaluation → (eps_pos, guided eps), through `_eps_each`:
+    the two sides as one 2B-batched model call where they batch, the
+    per-entry path where a side needs it; at cfg 1 the positive alone."""
     pos, neg = cond
     _reject_unsupported_cond(pos, neg)
-    if _needs_composite(pos) or _needs_composite(neg):
-        eps_pos = composite_eps(model_fn, x, sigma, pos, p2s)
-        if cfg_scale == 1.0:
-            return eps_pos, eps_pos
-        eps_neg = composite_eps(model_fn, x, sigma, neg, p2s)
-        return eps_pos, eps_neg + cfg_scale * (eps_pos - eps_neg)
-    pos, neg = _as_entries(pos)[0], _as_entries(neg)[0]
     if cfg_scale == 1.0:
-        eps_pos = model_fn(x, sigma, pos)
+        (eps_pos,) = _eps_each(model_fn, x, sigma, (pos,), p2s)
         return eps_pos, eps_pos
-    if _conds_batchable(pos, neg):
-        both = concat_batch(as_conditioning(pos), as_conditioning(neg))
-        eps_pos, eps_neg = model_fn(
-            torch.cat([x, x], dim=0), torch.cat([sigma, sigma], dim=0), both
-        ).chunk(2, dim=0)
-    else:
-        eps_pos = model_fn(x, sigma, pos)
-        eps_neg = model_fn(x, sigma, neg)
+    eps_pos, eps_neg = _eps_each(model_fn, x, sigma, (pos, neg), p2s)
     return eps_pos, eps_neg + cfg_scale * (eps_pos - eps_neg)
 
 
@@ -463,6 +473,66 @@ def cfg_model(model_fn: ModelFn, cfg_scale: float, p2s=_default_p2s) -> ModelFn:
 
     def guided(x, sigma, cond):
         return _cfg_eval(model_fn, cfg_scale, x, sigma, cond, p2s)[1]
+
+    return guided
+
+
+def dual_cfg_model(model_fn: ModelFn, cfg_conds: float, cfg_cond2_negative: float,
+                   p2s=_default_p2s, nested: bool = False) -> ModelFn:
+    """Dual-conditioning CFG (DualCFGGuider); cond is ((cond1, cond2),
+    negative):
+
+    regular:  mid = neg + cfg_cond2_negative * (eps2 - neg)
+              out = mid + cfg_conds * (eps1 - eps2)
+    nested:   inner = eps2 + cfg_conds * (eps1 - eps2)
+              out   = neg + cfg_cond2_negative * (inner - neg)
+
+    Regular with cond2 equal to the negative is plain CFG over (cond1,
+    negative) at cfg_conds; nested at cfg_conds 1 is plain CFG over
+    (cond1, negative) at cfg_cond2_negative, and runs as that 2B program.
+    Otherwise the three sides run as one 3B-batched call where they
+    batch (`_eps_each`)."""
+
+    def guided(x, sigma, cond):
+        (pos1, pos2), neg = cond
+        _reject_unsupported_cond(pos1, pos2, neg)
+        if nested and cfg_conds == 1.0:
+            # inner == eps1: plain CFG, no cond2 evaluation
+            return _cfg_eval(model_fn, cfg_cond2_negative, x, sigma, (pos1, neg), p2s)[1]
+        e1, e2, en = _eps_each(model_fn, x, sigma, (pos1, pos2, neg), p2s)
+        if nested:
+            inner = e2 + cfg_conds * (e1 - e2)
+            return en + cfg_cond2_negative * (inner - en)
+        mid = en + cfg_cond2_negative * (e2 - en)
+        return mid + cfg_conds * (e1 - e2)
+
+    return guided
+
+
+def perp_neg_model(model_fn: ModelFn, cfg_scale: float, neg_scale: float,
+                   p2s=_default_p2s) -> ModelFn:
+    """Perpendicular negative guidance (PerpNegGuider; Armandpour et al.
+    2023); cond is ((positive, negative), empty):
+
+        pos  = eps(positive) - eps(empty)
+        neg  = eps(negative) - eps(empty)
+        perp = neg - (<neg, pos> / |pos|^2) * pos     (per sample)
+        out  = eps(empty) + cfg_scale * (pos - neg_scale * perp)
+
+    Only the part of the negative orthogonal to the positive pushes away.
+    The three sides run as one 3B-batched call where they batch."""
+
+    def guided(x, sigma, cond):
+        (pos_c, neg_c), empty_c = cond
+        _reject_unsupported_cond(pos_c, neg_c, empty_c)
+        e_pos, e_neg, e_empty = _eps_each(model_fn, x, sigma, (pos_c, neg_c, empty_c), p2s)
+        pos = e_pos - e_empty
+        neg = e_neg - e_empty
+        dims = tuple(range(1, x.ndim))
+        dot = torch.sum(neg * pos, dim=dims, keepdim=True)
+        sq = torch.clamp(torch.sum(pos * pos, dim=dims, keepdim=True), min=1e-12)
+        perp = neg - (dot / sq) * pos
+        return e_empty + cfg_scale * (pos - neg_scale * perp)
 
     return guided
 

@@ -75,15 +75,22 @@ def prep_cond_for_tiles(cond, grid: tile_ops.TileGrid):
     """Conditioning made ready for per-tile windows: a ControlNet hint and
     a mask resized (linear) to the upscaled image and padded like it, so
     `tile_cond` slices them at the tiles' own origins. A list preps per
-    entry. An area is refused, as in the JAX package: its per-tile
-    intersection is not carried on the tile path, and the full-image
-    area on a tile crop would be wrong coordinates."""
+    entry. An area and inpaint-model concat channels are refused, as in
+    the JAX package: neither is windowed per tile, and the full-image
+    plane on a tile crop would be wrong coordinates."""
     if isinstance(cond, (list, tuple)):
         return [prep_cond_for_tiles(c, grid) for c in cond]
     c = as_conditioning(cond).clone()
     if c.area is not None:
         raise ValueError("area-restricted conditioning is not supported by the USDU tile "
                          "path; remove the ConditioningSetArea restriction for upscaling")
+    if c.concat_latent is not None:
+        # the concat plane would need windowing per tile at the bundle's
+        # latent scale, which the grid does not know: refused, as in the
+        # JAX package, rather than squashed whole into every tile
+        raise ValueError("inpaint-model concat conditioning (InpaintModelConditioning) is not "
+                         "supported by the USDU tile path; use VAEEncodeForInpaint or "
+                         "SetLatentNoiseMask for tiled upscaling")
     if c.control_hint is not None:
         hint = resize_image(c.control_hint, grid.image_h, grid.image_w, "bilinear")
         c.control_hint = _pad_plane_for_grid(hint, grid)
@@ -131,6 +138,19 @@ class TileNoise:
 
     def step_noise(self, tile_index: int) -> smp.StepNoise:
         return smp.generator_step_noise(self._generator(tile_index, pl.STEP_STREAM))
+
+
+class FrameTileNoise(TileNoise):
+    """The tile noise of one frame of a batch in dynamic mode, seeded by
+    (seed, frame index, tile index, stream): a frame's result does not
+    depend on which participant claims it."""
+
+    def __init__(self, seed: int, frame_index: int, device):
+        super().__init__(seed, device)
+        self.frame_index = int(frame_index)
+
+    def _generator(self, *indices: int) -> torch.Generator:
+        return super()._generator(self.frame_index, *indices)
 
 
 def default_noise(seed: int, device) -> TileNoise:

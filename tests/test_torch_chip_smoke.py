@@ -680,3 +680,152 @@ def test_guidance_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread, cou
         name: n for name, (n, _) in expected.items()}
     assert sum("vs unpatched max |diff|" in line for line in lines) == 5
     assert "collector jobs left 0" in lines[-2] and "image 0 vs the local seed 42 0 " in lines[-1]
+
+
+# --- the custom, dynamic, inpaint_model and nodes phases ------------------------------------
+
+def _flux_custom():
+    return _workflow(chip_smoke.CUSTOM_WORKFLOW)
+
+
+@pytest.mark.parametrize("guider, batch", [("CFGGuider", 2), ("PerpNegGuider", 3),
+                                           ("DualCFGGuider", 3)])
+def test_custom_shapes_match_one_sd15_image_on_meta(guider, batch, recorded_calls):
+    """The custom workflow on SD1.5: one evaluation is one UNet call at the
+    guider's batch (PerpNeg's and DualCFG's three conditionings in one
+    call), then the VAE decode; 20 evaluations an image."""
+    workflow = chip_smoke._custom_workflow(_flux_custom(), guider)
+    assert chip_smoke._node_ids(workflow, guider) and not chip_smoke._node_ids(workflow,
+                                                                                "UNETLoader")
+    with torch.device("meta"):
+        unet, autoencoder = create_model("sd15"), create_model("vae-sd")
+        unet(torch.empty(batch, 64, 64, 4), torch.empty(batch), torch.empty(batch, 77, 768))
+        autoencoder.decode(torch.empty(1, 64, 64, 4))
+    shapes = chip_smoke._custom_shapes(workflow)
+    expected = collections.Counter()
+    for _label, q, m, per_image in shapes:
+        expected[(q, m)] += per_image // 20 if q[3] != 512 else per_image
+    assert recorded_calls == expected
+    assert {q[0] for _label, q, *_ in shapes if q[3] != 512} == {batch}
+    assert chip_smoke._expected_by_instance(attn, shapes, torch) == {
+        "wgmma": 640, "wgmma512": 1, "fma": 0}
+    # split at 10: 10 + 10 evaluations and stage one's x0 prediction at
+    # its last sigma (above 0), one more
+    two = chip_smoke._custom_shapes(chip_smoke._custom_two_stage(workflow))
+    assert two == [(label, q, m, count * 21 // 20 if q[3] != 512 else count)
+                   for label, q, m, count in shapes]
+
+
+def test_dynamic_shapes_match_one_frame_on_meta(recorded_calls):
+    """A 192x384 frame at 2x is two 384-px tiles padded to 448: each an
+    encode, 20 CFG-batched SDXL evaluations and a decode."""
+    workflow = chip_smoke._dynamic_workflow(_workflow(chip_smoke.DYNAMIC_WORKFLOW))
+    assert len(chip_smoke._node_ids(workflow, "ImageBatch")) == 7
+    assert len(chip_smoke._node_ids(workflow, "LoadImage")) == 8
+    with torch.device("meta"):
+        unet, autoencoder = create_model("sdxl"), create_model("vae-sd")
+        unet(torch.empty(2, 56, 56, 4), torch.empty(2), torch.empty(2, 77, 2048),
+             y=torch.empty(2, 2816))
+        autoencoder.encode(torch.empty(1, 448, 448, 3))
+        autoencoder.decode(torch.empty(1, 56, 56, 4))
+    shapes = chip_smoke._dynamic_shapes(workflow)
+    expected = collections.Counter()
+    for _label, q, m, per_frame in shapes:
+        expected[(q, m)] += per_frame // 40 if q[3] != 512 else per_frame // 2
+    assert recorded_calls == expected
+    assert {(q[1], m) for _label, q, m, _ in shapes} >= {(784, 784), (784, 77), (196, 196),
+                                                         (3136, 3136)}
+
+
+def test_inpaint_model_shapes_match_one_outpainted_image_on_meta(recorded_calls):
+    """576 px (512 + 64): 20 CFG-batched evaluations of the 9-channel UNet,
+    two encodes (InpaintModelConditioning) and a decode."""
+    workflow = chip_smoke._inpaint_model_workflow()
+    assert chip_smoke._image_px(workflow) == (576, 576)
+    with torch.device("meta"):
+        unet, autoencoder = create_model("sd15-inpaint"), create_model("vae-sd")
+        unet(torch.empty(2, 72, 72, 9), torch.empty(2), torch.empty(2, 77, 768))
+        for _ in range(2):
+            autoencoder.encode(torch.empty(1, 576, 576, 3))
+        autoencoder.decode(torch.empty(1, 72, 72, 4))
+    shapes = chip_smoke._txt2img_shapes(workflow)
+    expected = collections.Counter()
+    for _label, q, m, per_image in shapes:
+        expected[(q, m)] += per_image // 20 if q[3] != 512 else per_image
+    assert recorded_calls == expected
+
+
+def test_custom_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread, counted_calls):
+    """The custom phase on tiny-unet at 32 px and 4 steps (split at 2):
+    each guider over HTTP against the local seeds, PerpNeg and DualCFG at
+    batch 3, and the two stages against one."""
+    flux = _flux_custom()
+    flux[chip_smoke._node_id(flux, "BasicScheduler")]["inputs"]["steps"] = 4
+    bundle = _tiny_bundle("tiny-unet")
+    expected = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(chip_smoke, "CUSTOM_SPLIT", 2)
+        for guider in [*chip_smoke.CUSTOM_GUIDERS, "two_stage"]:
+            workflow = chip_smoke._custom_workflow(
+                flux, "CFGGuider" if guider == "two_stage" else guider, "tiny-unet", 32)
+            if guider == "two_stage":
+                workflow = chip_smoke._custom_two_stage(workflow)
+            per_image = sum(count for *_, count in chip_smoke._custom_shapes(workflow,
+                                                                             image_px=32))
+            expected[guider] = (per_image, {"fma": per_image, "wgmma": 0, "wgmma512": 0})
+        result = chip_smoke._custom_phase(torch, bundle, flux, "cpu", expected, image_px=32)
+    out = capsys.readouterr().out
+    assert result["two_stage"]["max_abs_diff"] <= chip_smoke.RERUN_TOLERANCE
+    assert "two stages vs one stage" in out
+    for guider in chip_smoke.CUSTOM_GUIDERS:
+        assert result[guider]["launches"] == 2 * expected[guider][0]
+        assert f"[custom_{guider}] run 1" in out
+
+
+def test_dynamic_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread, counted_calls):
+    """The dynamic phase on tiny-unet: 8 frames of 24x32 upscaled 2x in
+    64-px tiles, one step, master + w1 over HTTP."""
+    video = _workflow(chip_smoke.DYNAMIC_WORKFLOW)
+    video["1"]["inputs"]["ckpt_name"] = "tiny-unet"
+    video["5"]["inputs"].update(steps=1, tile_width=64, tile_height=64, tile_padding=16)
+    bundle = _tiny_bundle("tiny-unet")
+    result = chip_smoke._dynamic_phase(torch, bundle, video, "cpu", frame_hw=(24, 32))
+    out = capsys.readouterr().out
+    assert result["w1_frames"] >= 1 and result["max_abs_diff"] <= chip_smoke.RERUN_TOLERANCE
+    assert "frames by participant" in out and "collector jobs left 0, tile jobs left 0" in out
+
+
+def test_inpaint_model_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread,
+                                                        counted_calls):
+    """The outpainting graph on tiny-unet-inpaint at 64 px (128 padded),
+    3 steps: its concat channels, the original region changed less than
+    the outpainted one, and the HTTP run against the local seeds."""
+    workflow = chip_smoke._inpaint_model_workflow("tiny-unet-inpaint", steps=3)
+    bundle = _tiny_bundle("tiny-unet-inpaint")
+    per_image = sum(count for *_, count in chip_smoke._txt2img_shapes(workflow, image_px=64))
+    result = chip_smoke._txt2img_phase(
+        torch, bundle, workflow, "cpu", 2 * per_image,
+        {"fma": 2 * per_image, "wgmma": 0, "wgmma512": 0}, runs=1, tag="inpaint_model",
+        image_px=64)
+    out = capsys.readouterr().out
+    assert result["launches"] == 2 * per_image
+    assert "concat channels (1, 64, 64, 5) on both sides" in out
+    assert "outpainted ones (mask 1)" in out and "over the outpainted " in out
+
+
+def test_nodes_phase_runs_and_checks_on_the_cpu(capsys):
+    result = chip_smoke._nodes_phase(torch, "cpu")
+    registry_new = {"ImageBatch", "ImageCrop", "ImagePadForOutpaint", "ImageScale",
+                    "ImageScaleBy", "ImageInvert", "ImageBlur", "ImageSharpen", "LatentComposite",
+                    "RepeatLatentBatch", "SetLatentNoiseMask", "LatentUpscale", "LatentUpscaleBy",
+                    "LatentFromBatch", "LatentBatch", "SolidMask", "InvertMask", "CropMask",
+                    "MaskToImage", "ImageToMask", "MaskComposite", "FeatherMask", "GrowMask",
+                    "ThresholdMask", "ImageCompositeMasked", "LatentCompositeMasked",
+                    "JoinImageWithAlpha", "SplitImageWithAlpha", "LatentFlip", "LatentRotate",
+                    "LatentCrop", "LatentBlend", "ImageFlip", "ImageRotate", "ImageBlend",
+                    "EmptyImage", "LoadImageMask", "LatentAdd", "LatentSubtract",
+                    "LatentMultiply", "LatentInterpolate", "ImageQuantize",
+                    "LatentBatchSeedBehavior"}
+    assert registry_new <= set(result["classes"])
+    assert result["max_abs_diff"] == 0.0 and result["tensors"] > 40
+    assert "[nodes]" in capsys.readouterr().out

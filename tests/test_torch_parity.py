@@ -117,9 +117,11 @@ def jax_and_port_bundles(model_name, te_name="tiny-te", vae_name="tiny-vae", see
         unet, vae, te = (jreg.create_model(n) for n in (model_name, vae_name, te_name))
         te_cfg, vae_cfg = jreg.get_config(te_name), jreg.get_config(vae_name)
         ctx_dim = jreg.get_config(model_name).context_dim
+        in_channels = jreg.get_config(model_name).in_channels  # 9: an inpainting UNet
         tokens = jnp.zeros((1, te_cfg.max_length), jnp.int32)
         params = {
-            "unet": seeded_flax_params(unet, seed + 1, jnp.zeros((1, 16, 16, 4)), jnp.zeros((1,)),
+            "unet": seeded_flax_params(unet, seed + 1, jnp.zeros((1, 16, 16, in_channels)),
+                                       jnp.zeros((1,)),
                                        jnp.zeros((1, te_cfg.max_length, ctx_dim))),
             "vae": seeded_flax_params(vae, seed + 2, jnp.zeros((1, 32, 32, 3))),
             "te": seeded_flax_params(te, seed + 3, tokens),

@@ -212,8 +212,12 @@ def test_unported_sampler_inputs_raise(tiny_bundle):
                 positive=None, negative=None)
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         KSampler().sample(seed=SeedSpec(1, per_participant=True), latent_image=latent, **args)
-    with pytest.raises(NotImplementedError, match="LatentBatchSeedBehavior"):
-        KSampler().sample(seed=1, latent_image={**latent, "batch_index_fixed": True}, **args)
+    # LatentBatchSeedBehavior "fixed" is ported: the flag rides through
+    # (tests/test_torch_transform_nodes.py holds its noise against JAX's)
+    cond = torch.zeros((1, 16, 64))
+    (out,) = KSampler().sample(seed=1, latent_image={**latent, "batch_index_fixed": True},
+                               **dict(args, positive=cond, negative=cond))
+    assert out["batch_index_fixed"] is True
 
 
 def _expected_torch_shapes(flax_shapes) -> dict[str, tuple]:

@@ -288,19 +288,24 @@ def test_load_and_save_image_nodes_through_the_executor(slice_pair, tmp_path, mo
     np.testing.assert_allclose(saved_arr, outputs["6"][0]["images"][0].numpy(), atol=0.5 / 255 + 1e-6)
 
 
-def test_usdu_node_raises_on_unported_branches(slice_pair):
+def test_usdu_node_raises_on_unported_branches(slice_pair, monkeypatch):
     """The elastic worker and master branches run (tests/
     test_torch_elastic.py), and so do the upscale model and tiled decode
-    (test_torch_upscaler.py, test_torch_tiled_vae.py); the dynamic
-    whole-image mode and the mesh tier still raise, naming their ROADMAP
-    items, and an area-restricted conditioning is refused as the JAX
-    package refuses it on the tile path."""
+    (test_torch_upscaler.py, test_torch_tiled_vae.py); a batch at the
+    dynamic threshold takes the dynamic (whole-frame) worker branch
+    (tests/test_torch_usdu_dynamic.py runs it); the mesh tier still
+    raises, naming its ROADMAP item, and an area-restricted conditioning
+    is refused as the JAX package refuses it on the tile path."""
+    from comfyui_distributed_tpu_torch.graph import usdu_elastic
+
     _, tb, _, _, image, _ = slice_pair
     node = tnodes.UltimateSDUpscaleDistributed()
     args = dict(image=torch.from_numpy(image), model=tb, positive=None, negative=None, vae=tb)
     batch = dict(args, image=torch.from_numpy(np.repeat(image, 8, axis=0)))
-    with pytest.raises(NotImplementedError, match="dynamic .*ROADMAP"):
-        node.run(**batch, is_worker=True)
+    taken = []
+    monkeypatch.setattr(usdu_elastic, "run_worker_dynamic", lambda **kw: taken.append(kw))
+    node.run(**batch, is_worker=True)
+    assert len(taken) == 1 and taken[0]["image"].shape[0] == 8
     area = Conditioning(torch.zeros((1, 16, 160)), area=(32, 32, 0, 0))
     with pytest.raises(ValueError, match="area-restricted"):
         node.run(**dict(args, positive=area, negative=area))
