@@ -102,6 +102,38 @@ Phases, each printing lines tagged with its name:
              weights, and apart in max and mean from the same seed on the
              default random init (the file was read); launches as txt2img's
              and sd21's. The files are deleted.
+   procs   - the deployment users run: the master a DistributedServer in
+             this process, w1 its own process launched through POST
+             /distributed/launch_worker (type local, cuda_device 0, its own
+             --config and an empty input directory), both loading SD1.5 and
+             SDXL files written as the ckpt phase writes them (f16, seeded at
+             CKPT_SEED) from CDT_CHECKPOINT_DIR; w1's CLI turns TF32 off as
+             phase 1 does here. Checks,
+             each on a [procs] line: the launch (w1 answers its probe, is
+             listed by /distributed/managed with its own PID and reports the
+             card; launch-to-ready seconds); the unmodified txt2img workflow
+             fanned out over the websocket (w1's ws_prompts counter must rise:
+             the HTTP fallback fails the phase), the batch [2, 512, 512, 3],
+             image 0 and 1 against local runs at seeds 42 and 43 on the
+             master's loaded weights, the master's launches one image's; the
+             same at seed 44 warm (images/s beside the txt2img phase's); load
+             balance (mode load_balance on w1, no master prompt and no master
+             launch, w1's image as it reached the master's store against
+             seed 43); a delegate-only master (no sampler in its prompt, no
+             launch, w1's one image); media sync (the unmodified inpaint
+             workflow: w1's empty input directory ends holding every file the
+             prompt names with the master's md5, and a second run uploads
+             nothing); the unmodified upscale workflow twice on SDXL (every
+             tile once, w1 at least one, each output within RERUN_TOLERANCE
+             of the local tiles composited the elastic way; tiles/s beside
+             the elastic phase's and phase 4's); a running elastic job
+             cancelled through /distributed/cancel/{job_id} (every pending
+             and in-flight tile refunded, the master's prompt ends
+             JobCancelled, an unknown job answers 404); clear_memory on w1
+             (its pipelines empty, the next run loads the file again and
+             matches); stop_worker (w1's port dead, its processes gone,
+             managed_processes empty). w1 is stopped on the way out whatever
+             happened.
    samplers- on SD1.5 (seeded, a seeded out_conv) the unmodified txt2img
              workflow locally at 20 steps with only sampler_name or
              scheduler changed: the 11 samplers other than euler on karras,
@@ -205,6 +237,7 @@ import copy
 import json
 import math
 import os
+import shutil
 import socket
 import statistics
 import subprocess
@@ -279,6 +312,10 @@ PAG_MIN_DIFF = 1.0 / 255
 CKPT_WORKFLOWS = {"ckpt_sd15": "distributed-txt2img.json",
                   "ckpt_sd21": "distributed-txt2img-sd21.json"}
 CKPT_SEED = 7
+# the procs phase: w1's launch to its first answered probe (it imports
+# torch, makes a CUDA context, finds the kernel library), and one run
+PROCS_LAUNCH_TIMEOUT_S = 240.0
+PROCS_RUN_TIMEOUT_S = 300.0
 # the samplers phase: the stochastic sampler its HTTP runs take (txt2img
 # through the collector, the elastic upscale), and the sampler whose
 # image its kernels-line entry sums (second order: 39 evaluations)
@@ -868,7 +905,8 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                           f"{RERUN_TOLERANCE}){versus}")
                     _require(diff <= RERUN_TOLERANCE,
                              "the elastic output disagrees with the local tiles")
-                    result = {"launches": launches, "launches_by_instance": by_instance}
+                    result = {"launches": launches, "launches_by_instance": by_instance,
+                              "tiles_per_s": n_tiles / seconds}
         finally:
             if blend_env is None:
                 os.environ.pop("CDT_DETERMINISTIC_BLEND", None)
@@ -1241,6 +1279,461 @@ def _ckpt_runs(torch, gen, workflows: dict, device: str, expected: dict | None, 
         results[path_name] = {"launches": launches, "launches_by_instance": by_instance,
                               "file_bytes": nbytes, "load_seconds": loads}
         del source, direct_context
+
+
+def _answers(request_json, url: str) -> bool:
+    """Whether GET `url` answers 200 (False while nothing listens)."""
+    try:
+        status, _ = request_json("GET", url, timeout=2)
+    except OSError:
+        return False
+    return status == 200
+
+
+def _dead(port: int) -> bool:
+    with socket.socket() as sock:
+        sock.settimeout(1.0)
+        return sock.connect_ex(("127.0.0.1", port)) != 0
+
+
+def _log_tail(path: str, lines: int = 40) -> str:
+    try:
+        with open(path, encoding="utf-8", errors="replace") as fh:
+            return "".join(fh.readlines()[-lines:])
+    except OSError as exc:
+        return f"(no log: {exc})"
+
+
+def _procs_phase(torch, gen, workflows: dict, image, device: str,
+                 expected: tuple | None = None, rates: dict | None = None,
+                 image_px: int = IMAGE_PX) -> dict:
+    """The deployment users run: the master in this process and w1 its own
+    process, launched through POST /distributed/launch_worker (see the
+    module docstring). `workflows` holds the txt2img, inpaint and upscale
+    workflows, run unmodified; `image` is the upscale input; `expected` is
+    (launches, by instance) of one txt2img image, unchecked when None (no
+    card); `rates` the in-process rates printed beside this phase's.
+    Returns the phase's numbers. w1 is stopped on the way out, whatever
+    happened."""
+    from comfyui_distributed_tpu_torch.api.orchestration import media_sync
+    from comfyui_distributed_tpu_torch.api.server import DistributedServer
+    from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
+    from comfyui_distributed_tpu_torch.models import pipeline as pl
+    from comfyui_distributed_tpu_torch.models import sd_checkpoint as sdc
+    from comfyui_distributed_tpu_torch.ops import attention as attn
+    from comfyui_distributed_tpu_torch.utils import config as config_mod
+    from comfyui_distributed_tpu_torch.utils import image as img_utils
+    from comfyui_distributed_tpu_torch.utils.async_helpers import ServerLoopThread
+    from comfyui_distributed_tpu_torch.utils.network import request_json
+    from comfyui_distributed_tpu_torch.workers import get_worker_manager
+    from comfyui_distributed_tpu_torch.workers.process_manager import (
+        descendants,
+        is_process_alive,
+    )
+
+    cuda = device.startswith("cuda")
+    label = "[procs]"
+    rates = rates or {}
+    results: dict = {}
+    saved_env = {k: os.environ.get(k) for k in ("CDT_CHECKPOINT_DIR", "CDT_LOG_DIR",
+                                                "CDT_DETERMINISTIC_BLEND")}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    tmp = tempfile.mkdtemp(prefix="cdt_procs_")
+    dirs = {name: os.path.join(tmp, name) for name in ("ckpt", "master_in", "master_out",
+                                                       "w1_in", "w1_out", "logs")}
+    for path in dirs.values():
+        os.makedirs(path)
+    manager = get_worker_manager()
+    master = loop = None
+    master_config = os.path.join(tmp, "master.json")
+    real_check, real_upload = media_sync._check_file, media_sync._upload_file
+    try:
+        # --- the checkpoint files both processes load ---
+        os.environ["CDT_CHECKPOINT_DIR"] = dirs["ckpt"]
+        os.environ["CDT_LOG_DIR"] = dirs["logs"]
+        loaders = {tag: _node_id(wf, "CheckpointLoaderSimple") for tag, wf in workflows.items()}
+        ckpts = {tag: wf[loaders[tag]]["inputs"]["ckpt_name"] for tag, wf in workflows.items()}
+        for ckpt in sorted(set(ckpts.values())):
+            source = pl.load_pipeline(ckpt, seed=CKPT_SEED, device=device)
+            _seed_out_conv(torch, source, gen)
+            path = os.path.join(dirs["ckpt"], f"{ckpt}.safetensors")
+            sync()
+            started = time.perf_counter()
+            nbytes = sdc.save_safetensors(sdc.synthesize_checkpoint(source), path,
+                                          dtype=torch.float16)
+            write_s = time.perf_counter() - started
+            print(f"{label} {ckpt}: wrote {os.path.basename(path)} {nbytes} bytes (f16, seeded "
+                  f"at {CKPT_SEED}, a seeded out_conv) in {write_s:.2f} s "
+                  f"({nbytes / write_s / 1e9:.3f} GB/s)")
+            del source
+            if cuda:
+                torch.cuda.empty_cache()
+
+        # --- configs: w1 a local worker on card 0 with its own config and an
+        # empty input directory ---
+        master_port, worker_port = _free_port(), _free_port()
+        w1_config = os.path.join(tmp, "w1.json")
+        config_mod.save_config({"settings": {"input_dir": dirs["w1_in"],
+                                             "output_dir": dirs["w1_out"]}}, w1_config)
+        extra_args = f"--config {w1_config}" + ("" if cuda else " --platform cpu")
+        config_mod.save_config({
+            "master": {"host": "127.0.0.1", "cuda_device": 0},
+            "workers": [{"id": "w1", "name": "w1", "type": "local", "host": "127.0.0.1",
+                         "port": worker_port, "cuda_device": 0, "enabled": True,
+                         "extra_args": extra_args}],
+            "settings": {"input_dir": dirs["master_in"], "output_dir": dirs["master_out"]},
+        }, master_config)
+        loop = ServerLoopThread(name="procs-master-loop")
+        loop.start()
+        master = DistributedServer(port=master_port, is_worker=False, config_path=master_config,
+                                   device=device)
+        asyncio.run_coroutine_threadsafe(master.start(), loop.loop).result(timeout=60)
+        base, w1_base = f"http://127.0.0.1:{master_port}", f"http://127.0.0.1:{worker_port}"
+
+        # --- 1. launch ---
+        started = time.perf_counter()
+        status, launched = request_json("POST", f"{base}/distributed/launch_worker",
+                                        {"worker_id": "w1"}, timeout=60)
+        _require(status == 200 and launched.get("pid"), f"launch_worker answered {status}: "
+                                                         f"{launched}")
+        pid = launched["pid"]
+        deadline = time.monotonic() + PROCS_LAUNCH_TIMEOUT_S
+        while not _answers(request_json, f"{w1_base}/prompt"):
+            _require(is_process_alive(pid), "w1 exited before it answered its probe:\n"
+                     + _log_tail(launched["log"]))
+            _require(time.monotonic() < deadline, f"w1 did not answer its probe within "
+                     f"{PROCS_LAUNCH_TIMEOUT_S} s:\n" + _log_tail(launched["log"]))
+            time.sleep(0.2)
+        ready_s = time.perf_counter() - started
+        _, managed = request_json("GET", f"{base}/distributed/managed", timeout=10)
+        _, info = request_json("GET", f"{w1_base}/distributed/system_info", timeout=10)
+        print(f"{label} launch: w1 pid {pid} (this process {os.getpid()}) answered its probe "
+              f"{ready_s:.2f} s after POST /distributed/launch_worker; managed "
+              f"{ {k: v.get('pid') for k, v in managed['managed'].items()} }; system_info "
+              f"device {info['device']}, cuda_devices {info['cuda_devices']}, pid {info['pid']}")
+        _require(managed["managed"].get("w1", {}).get("pid") == pid != os.getpid(),
+                 f"/distributed/managed does not list w1 as its own process: {managed}")
+        _require(info["pid"] == pid and info["is_worker"], f"w1's system_info: {info}")
+        _require(info["device"] == torch.device(device).type and (bool(info["cuda_devices"])
+                                                                   or not cuda),
+                 f"w1 does not run on the card: {info}")
+        request_json("POST", f"{base}/distributed/worker/clear_launching", {"worker_id": "w1"},
+                     timeout=10)
+        results["launch_to_ready_s"] = ready_s
+
+        def ws_prompts() -> int:
+            _, data = request_json("GET", f"{w1_base}/distributed/system_info", timeout=10)
+            return int(data["status"]["ws_prompts"])
+
+        def run(workflow, what: str, extra: dict | None = None):
+            """One POST /distributed/queue with workers ["w1"], waited for on
+            both participants; w1 must have taken its prompt over the
+            websocket. (queue answer, master history, w1 history, the master
+            prompt's output images, seconds, launches, by instance)."""
+            save = _node_id(workflow, "SaveImage")
+            taken = ws_prompts()
+            master.execution_context.extras.pop("node_cache", None)
+            sync()
+            attn.reset_launch_counts()
+            started_ = time.perf_counter()
+            status_, queued = request_json("POST", f"{base}/distributed/queue", {
+                "prompt": workflow, "client_id": "chip_smoke", "workers": ["w1"],
+                **(extra or {})}, timeout=120)
+            _require(status_ == 200, f"{what}: /distributed/queue answered {status_}: {queued}")
+            _require(queued.get("workers") == ["w1"], f"{what}: w1 was not dispatched: {queued}")
+            limit = time.monotonic() + PROCS_RUN_TIMEOUT_S
+            history = _wait_done(request_json, f"{base}/history/{queued['prompt_id']}", limit)
+            worker_history = _wait_done(
+                request_json, f"{w1_base}/history/{queued['trace_id']}_w0", limit)
+            sync()
+            seconds = time.perf_counter() - started_
+            launches_, by_instance_ = _launch_counts(attn)
+            _require(history.get("error") is None, f"{what}: the master's prompt failed: "
+                     f"{history.get('error')}")
+            _require(worker_history.get("error") is None, f"{what}: w1's prompt failed: "
+                     f"{worker_history.get('error')}")
+            _require(ws_prompts() == taken + 1,
+                     f"{what}: w1 did not take its prompt over the websocket (HTTP fallback)")
+            out = master.get_job(queued["prompt_id"]).outputs[save][0]["images"]
+            return queued, history, worker_history, out, seconds, launches_, by_instance_
+
+        def local_images(workflow, seeds, tag):
+            """The workflow at each seed, run here on the master's loaded
+            pipelines (the file's weights): image 0 of each."""
+            context = ExecutionContext(device=device, config={"settings": {
+                "input_dir": dirs["master_in"], "output_dir": dirs["master_out"]}},
+                pipelines=master.execution_context.pipelines)
+            executor = GraphExecutor(context)
+            seed_node = _node_id(workflow, "DistributedSeed")
+            out = {}
+            for s in seeds:
+                prompt = copy.deepcopy(workflow)
+                prompt[seed_node]["inputs"]["seed"] = s
+                out[s] = _local_run(torch, attn, executor, prompt, label, f"{tag} seed {s}",
+                                    device, (*_image_px(workflow, image_px), 3))[0]
+            return out
+
+        # --- 2. fan-out over the websocket: the txt2img workflow, SD1.5 file ---
+        t2i = workflows["txt2img"]
+        seed = int(t2i[_node_id(t2i, "DistributedSeed")]["inputs"]["seed"])
+        size = (*_image_px(t2i, image_px), 3)
+        warm = copy.deepcopy(t2i)
+        warm[_node_id(warm, "DistributedSeed")]["inputs"]["seed"] = seed + 2
+        fan = {}
+        for tag_, workflow_ in (("cold", t2i), ("warm", warm)):
+            fan[tag_] = run(workflow_, f"fan-out ({tag_})")
+        local = local_images(t2i, (seed, seed + 1, seed + 2, seed + 3), "txt2img")
+        loader = loaders["txt2img"]
+        for tag_, s in (("cold", seed), ("warm", seed + 2)):
+            queued, history, worker_history, out, seconds, launches, by_instance = fan[tag_]
+            d0 = float((out[0].float() - local[s].to(out.device)).abs().max())
+            d1 = float((out[1].float() - local[s + 1].to(out.device)).abs().max())
+            beside = (f" (in-process txt2img phase: {rates['txt2img']:.4f})"
+                      if "txt2img" in rates else "")
+            print(f"{label} fan-out {tag_} (seed {s}): {seconds:.2f} s, "
+                  f"{out.shape[0] / seconds:.4f} images/s{beside}; file loads "
+                  f"(CheckpointLoaderSimple seconds) master "
+                  f"{history['timings'].get(loader, 0.0):.2f}, w1 "
+                  f"{worker_history['timings'].get(loader, 0.0):.2f}; master launches "
+                  f"{launches}, by instance {by_instance}; output {tuple(out.shape)}; max |diff| "
+                  f"image 0 vs the local seed {s} {d0:.3g}, image 1 (w1) vs the local seed "
+                  f"{s + 1} {d1:.3g}")
+            _require(tuple(out.shape) == (2, *size), f"fan-out output {tuple(out.shape)}")
+            _require(bool(torch.isfinite(out).all()), "non-finite fan-out output")
+            _require(d0 <= RERUN_TOLERANCE, "the master's image is not the local seed's")
+            _require(d1 <= RERUN_TOLERANCE + PNG_STEP, "w1's image is not the local seed's")
+            if expected is not None:
+                _require((launches, by_instance) == expected,
+                         f"the master launched {launches} {by_instance}, not one image's "
+                         f"{expected}")
+        results["fan_out_images_per_s"] = 2 / fan["warm"][4]
+
+        # --- 3. load balance: one worker takes the whole prompt ---
+        before = (len(master._history), set(master.job_store.collectors))
+        attn.reset_launch_counts()
+        started = time.perf_counter()
+        status, answer = request_json("POST", f"{base}/distributed/queue", {
+            "prompt": t2i, "client_id": "chip_smoke", "workers": ["w1"],
+            "load_balance": True}, timeout=120)
+        _require(status == 200 and answer.get("mode") == "load_balance"
+                 and answer.get("worker") == "w1", f"load balance answered {status}: {answer}")
+        worker_history = _wait_done(request_json, f"{w1_base}/history/{answer['trace_id']}_lb",
+                                    time.monotonic() + PROCS_RUN_TIMEOUT_S)
+        seconds = time.perf_counter() - started
+        launches, _ = _launch_counts(attn)
+        _require(worker_history.get("error") is None, f"w1's load-balanced prompt failed: "
+                 f"{worker_history.get('error')}")
+        _require(len(master._history) == before[0] and master.queue_remaining == 0,
+                 "the master queued a prompt of its own under load balance")
+        new_jobs = sorted(set(master.job_store.collectors) - before[1])
+        _require(len(new_jobs) == 1, f"w1's image did not reach the master: jobs {new_jobs}")
+
+        async def take(job_id):
+            job = master.job_store.collectors[job_id]
+            item = job.queue.get_nowait()
+            await master.job_store.cleanup_collector(job_id)
+            return item
+
+        item = asyncio.run_coroutine_threadsafe(take(new_jobs[0]), loop.loop).result(timeout=30)
+        lb_image = torch.as_tensor(item["tensor"]).float()
+        d1 = float((lb_image - local[seed + 1].cpu()).abs().max())
+        print(f"{label} load balance: {seconds:.2f} s to w1's last envelope ({answer}); master "
+              f"prompts queued 0, launches {launches}; w1's image over HTTP vs the local seed "
+              f"{seed + 1} (worker_index 0) max |diff| {d1:.3g}")
+        _require(launches == 0, f"the master launched {launches} attention kernels")
+        _require(d1 <= RERUN_TOLERANCE + PNG_STEP, "w1's load-balanced image is not its seed's")
+
+        # --- 4. delegate-only master ---
+        status, _ = request_json("POST", f"{base}/distributed/config/setting",
+                                 {"name": "master_delegate_only", "value": True}, timeout=10)
+        _require(status == 200, "the delegate setting was refused")
+        queued, history, _, out, seconds, launches, _ = run(t2i, "delegate")
+        request_json("POST", f"{base}/distributed/config/setting",
+                     {"name": "master_delegate_only", "value": False}, timeout=10)
+        classes = sorted({n["class_type"] for n in master.get_job(queued["prompt_id"])
+                          .prompt.values()})
+        d1 = float((out[0].float() - local[seed + 1].to(out.device)).abs().max())
+        print(f"{label} delegate: {seconds:.2f} s; the master's prompt {classes}, launches "
+              f"{launches}; output {tuple(out.shape)}, w1's image vs the local seed {seed + 1} "
+              f"max |diff| {d1:.3g}")
+        _require(not set(classes) & set(SAMPLERS) and launches == 0,
+                 "the delegate master sampled")
+        _require(tuple(out.shape) == (1, *size), f"delegate output {tuple(out.shape)}")
+        _require(d1 <= RERUN_TOLERANCE + PNG_STEP, "the delegated image is not w1's seed's")
+
+        # --- 5. media sync into w1's empty input directory ---
+        inp = workflows["inpaint"]
+        for load in _node_ids(inp, "LoadImage"):
+            with open(os.path.join(dirs["master_in"], inp[load]["inputs"]["image"]), "wb") as fh:
+                fh.write(img_utils.encode_png(_inpaint_input(image_px, SEED)))
+        names = sorted({name for _, _, name in media_sync.find_media_references(inp)})
+        _require(os.listdir(dirs["w1_in"]) == [], "w1's input directory is not empty")
+        calls = {"checks": [], "uploads": []}
+
+        async def checking(worker, filename, md5):
+            matched = await real_check(worker, filename, md5)
+            calls["checks"].append((filename, matched))
+            return matched
+
+        async def uploading(worker, path, filename):
+            calls["uploads"].append(filename)
+            return await real_upload(worker, path, filename)
+
+        media_sync._check_file, media_sync._upload_file = checking, uploading
+        inp_seed = int(inp[_node_id(inp, "DistributedSeed")]["inputs"]["seed"])
+        inp_local = None
+        for attempt in (1, 2):
+            calls["checks"].clear()
+            calls["uploads"].clear()
+            _, _, _, out, seconds, _, _ = run(inp, f"media sync run {attempt}")
+            if inp_local is None:
+                inp_local = local_images(inp, (inp_seed, inp_seed + 1), "inpaint")
+            synced = {name: media_sync.file_md5(os.path.join(dirs["w1_in"], name))
+                      if os.path.isfile(os.path.join(dirs["w1_in"], name)) else None
+                      for name in names}
+            want = {name: media_sync.file_md5(os.path.join(dirs["master_in"], name))
+                    for name in names}
+            d0 = float((out[0].float() - inp_local[inp_seed].to(out.device)).abs().max())
+            d1 = float((out[1].float() - inp_local[inp_seed + 1].to(out.device)).abs().max())
+            print(f"{label} media sync run {attempt}: {seconds:.2f} s; check_file "
+                  f"{calls['checks']}, uploads {calls['uploads']}; w1's input directory "
+                  f"{sorted(os.listdir(dirs['w1_in']))}, md5 equal to the master's "
+                  f"{synced == want}; image 0 vs the local seed {inp_seed} {d0:.3g}, image 1 "
+                  f"(w1) vs the local seed {inp_seed + 1} {d1:.3g}")
+            _require(synced == want, f"w1's files {synced}, the master's {want}")
+            _require(d0 <= RERUN_TOLERANCE, "the master's inpaint image is not its seed's")
+            _require(d1 <= RERUN_TOLERANCE + PNG_STEP, "w1's inpaint image is not its seed's")
+            if attempt == 1:
+                _require(sorted(calls["uploads"]) == names, f"uploads {calls['uploads']}")
+            else:
+                _require(calls["uploads"] == [] and len(calls["checks"]) == len(names)
+                         and all(m for _, m in calls["checks"]),
+                         f"the second run uploaded again: {calls}")
+        media_sync._check_file, media_sync._upload_file = real_check, real_upload
+
+        # --- 6. elastic over the worker process: the upscale workflow, SDXL file ---
+        up = workflows["upscale"]
+        with open(os.path.join(dirs["master_in"], up["4"]["inputs"]["image"]), "wb") as fh:
+            fh.write(img_utils.encode_png(image[0].float().cpu().numpy()))
+        os.environ["CDT_DETERMINISTIC_BLEND"] = "1"
+        outs, tiles_by = [], {}
+        for attempt in (1, 2):
+            queued, history, worker_history, out, seconds, launches, by_instance = run(
+                up, f"elastic run {attempt}")
+            record = master.job_store.finished[queued["job_ids"][USDU_NODE]]
+            n_tiles = record["total"]
+            by = {}
+            for _, who in record["completions"]:
+                by[who] = by.get(who, 0) + 1
+                tiles_by[who] = tiles_by.get(who, 0) + 1
+            beside = ", ".join(f"{name} {rates[name]:.4f}" for name in ("elastic", "main")
+                               if name in rates)
+            print(f"{label} elastic run {attempt}: {seconds:.2f} s, {n_tiles / seconds:.4f} "
+                  f"tiles/s (in-process: {beside or 'not run'}); tiles completed: master "
+                  f"{by.get('master', 0)}, w1 {by.get('w1', 0)}; file loads master "
+                  f"{history['timings'].get(loaders['upscale'], 0.0):.2f} s, w1 "
+                  f"{worker_history['timings'].get(loaders['upscale'], 0.0):.2f} s; master "
+                  f"launches {launches}")
+            _require(sorted(t for t, _ in record["completions"]) == list(range(n_tiles)),
+                     f"tiles completed {record['completions']}, expected each once")
+            _require(set(by) <= {"master", "w1"}, f"unexpected participants {sorted(by)}")
+            outs.append(out)
+            results["elastic_tiles_per_s"] = n_tiles / seconds
+        _require(tiles_by.get("w1", 0) >= 1, f"w1 completed no tile: {tiles_by}")
+        reference, _ = _local_reference(torch, master.execution_context.pipelines[ckpts["upscale"]],
+                                        up, image)
+        for attempt, out in enumerate(outs, 1):
+            diff = float((out.float() - reference.to(out.device)).abs().max())
+            print(f"{label} elastic run {attempt} output {tuple(out.shape)}: max |diff| vs the "
+                  f"local tiles composited alike {diff:.3g} (tolerance {RERUN_TOLERANCE})")
+            _require(tuple(out.shape) == tuple(reference.shape), "elastic output shape")
+            _require(diff <= RERUN_TOLERANCE, "the elastic output disagrees with the local tiles")
+        os.environ.pop("CDT_DETERMINISTIC_BLEND", None)
+
+        # --- 7. cancel a running elastic job; clear_memory ---
+        status, queued = request_json("POST", f"{base}/distributed/queue", {
+            "prompt": up, "client_id": "chip_smoke", "workers": ["w1"]}, timeout=120)
+        _require(status == 200 and queued.get("workers") == ["w1"], f"queue: {queued}")
+        job_id = queued["job_ids"][USDU_NODE]
+        limit = time.monotonic() + PROCS_RUN_TIMEOUT_S
+        while True:
+            _, state = request_json("GET", f"{base}/distributed/queue_status/{job_id}",
+                                    timeout=10)
+            if state.get("tile_job"):
+                break
+            _require(time.monotonic() < limit, "the elastic job never started")
+            time.sleep(0.02)
+        status, accounting = request_json("POST", f"{base}/distributed/cancel/{job_id}",
+                                          {"reason": "chip_smoke"}, timeout=30)
+        _require(status == 200 and accounting.get("status") == "cancelled",
+                 f"cancel answered {status}: {accounting}")
+        history = _wait_done(request_json, f"{base}/history/{queued['prompt_id']}", limit)
+        worker_history = _wait_done(request_json, f"{w1_base}/history/{queued['trace_id']}_w0",
+                                    limit)
+        record = master.job_store.finished[job_id]
+        refunded = accounting["pending_refunded"] + accounting["in_flight_refunded"]
+        unknown = request_json("POST", f"{base}/distributed/cancel/no_such_job", {}, timeout=10)
+        print(f"{label} cancel: {accounting}; completed before the cancel "
+              f"{len(record['completions'])} of {record['total']}; the master's prompt "
+              f"{history.get('error')!r}; w1's prompt done, error {worker_history.get('error')!r}"
+              f"; an unknown job answers {unknown[0]}")
+        _require(refunded >= 1 and refunded + len(record["completions"]) == record["total"],
+                 "the cancel did not account every pending and in-flight tile")
+        _require("JobCancelled" in str(history.get("error")), "the master's prompt did not end "
+                 "cancelled")
+        _require(unknown[0] == 404, f"an unknown job answered {unknown}")
+        status, _ = request_json("POST", f"{w1_base}/distributed/clear_memory", {}, timeout=60)
+        _, info = request_json("GET", f"{w1_base}/distributed/system_info", timeout=10)
+        _require(status == 200 and info["status"]["pipelines"] == [],
+                 f"clear_memory left w1 holding {info['status']['pipelines']}")
+        _, _, worker_history, out, seconds, _, _ = run(t2i, "after clear_memory")
+        _, info = request_json("GET", f"{w1_base}/distributed/system_info", timeout=10)
+        d1 = float((out[1].float() - local[seed + 1].to(out.device)).abs().max())
+        reload_s = worker_history["timings"].get(loader, 0.0)
+        print(f"{label} clear_memory: w1's pipelines emptied; the next run loaded "
+              f"{info['status']['pipelines']} again in {reload_s:.2f} s; w1's image vs the "
+              f"local seed {seed + 1} max |diff| {d1:.3g}")
+        _require(ckpts["txt2img"] in info["status"]["pipelines"] and reload_s > 0.0,
+                 "w1 did not load its file again")
+        _require(d1 <= RERUN_TOLERANCE + PNG_STEP, "w1's image after clear_memory differs")
+
+        # --- 8. stop ---
+        tree = [pid] + descendants(pid)
+        status, stopped = request_json("POST", f"{base}/distributed/stop_worker",
+                                       {"worker_id": "w1"}, timeout=60)
+        _, managed = request_json("GET", f"{base}/distributed/managed", timeout=10)
+        # w1 is the master's child and reaped; a child of w1's left as a
+        # zombie for init to reap is not running
+        alive = [p for p in tree if (p == pid and os.path.exists(f"/proc/{p}"))
+                 or is_process_alive(p)]
+        print(f"{label} stop: {stopped}; w1's port dead {_dead(worker_port)}; its processes "
+              f"{tree} left in /proc {alive}; managed {managed['managed']}")
+        _require(status == 200 and stopped.get("stopped") is True, f"stop_worker: {stopped}")
+        _require(_dead(worker_port), "w1's port still answers")
+        _require(alive == [], f"w1's processes outlived the stop: {alive}")
+        _require(managed["managed"] == {}, f"managed_processes not empty: {managed}")
+        return results
+    finally:
+        media_sync._check_file, media_sync._upload_file = real_check, real_upload
+        if manager.managed_processes(master_config).get("w1"):
+            manager.stop_worker("w1", master_config)
+        if master is not None:
+            asyncio.run_coroutine_threadsafe(master.stop(), loop.loop).result(timeout=60)
+            master.execution_context.pipelines.clear()
+        if loop is not None:
+            loop.stop()
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        shutil.rmtree(tmp, ignore_errors=True)
+        if cuda:
+            torch.cuda.empty_cache()
 
 
 def _samplers_phase(torch, bundle, workflow, device: str, check_launches: bool = False) -> dict:
@@ -2584,6 +3077,7 @@ def main() -> int:
 
     # --- 4b. elastic -----------------------------------------------------------
     phase_started = time.perf_counter()
+    main_tiles_per_s = n_tiles / seconds
     elastic = _elastic_phase(
         torch, bundle, ckpt, workflow, prompt["5"]["inputs"]["image"], outputs[1], "cuda",
         expected_launches=n_tiles * per_tile, expected_by_instance=expected_by_instance,
@@ -2656,6 +3150,18 @@ def main() -> int:
                                {path: per_run(path) for path in ckpt_workflows})
     torch.cuda.empty_cache()
     phase_seconds["ckpt"] = time.perf_counter() - phase_started
+
+    # --- 4e'. procs: the master here, w1 its own process launched through
+    # /distributed/launch_worker, on SD1.5 and SDXL files --------------------------
+    phase_started = time.perf_counter()
+    procs = _procs_phase(
+        torch, gen, {"txt2img": t2i_workflow, "inpaint": sd_workflows["inpaint"],
+                     "upscale": workflow}, torch.from_numpy(seeded).to("cuda"), "cuda",
+        expected=(sum(count for *_, count in t2i_shapes),
+                  _expected_by_instance(attn, t2i_shapes, torch)),
+        rates={"txt2img": txt2img["images_per_s"], "elastic": elastic["tiles_per_s"],
+               "main": main_tiles_per_s})
+    phase_seconds["procs"] = time.perf_counter() - phase_started
 
     # --- 4f. samplers: every sampler and scheduler on SD1.5; HTTP_SAMPLER over
     # the collector and over the elastic upscale ----------------------------------
@@ -2896,6 +3402,9 @@ def main() -> int:
                           ("custom_dualcfg", custom["DualCFGGuider"]),
                           ("dynamic", dynamic), ("inpaint_model", inpaint_model))
     ]}
+    print(f"[summary] procs: w1 ready {procs['launch_to_ready_s']:.2f} s after its launch; "
+          f"fan-out {procs['fan_out_images_per_s']:.4f} images/s, elastic "
+          f"{procs['elastic_tiles_per_s']:.4f} tiles/s with w1 its own process")
     print(f"[summary] custom two stages max |diff| {custom['two_stage']['max_abs_diff']:.3g}; "
           f"nodes {nodes['nodes']} ({len(nodes['classes'])} classes) max |diff| "
           f"{nodes['max_abs_diff']:.3g}; dynamic: w1 took {dynamic['w1_frames']} of "

@@ -1,10 +1,12 @@
 """Queue-request payload parsing and validation.
 
 The port's own copy of comfyui_distributed_tpu/api/queue_request.py,
-without the scheduler's tenant/lane fields, adapters and load-balance
-extras: {"prompt" | "workflow": {...}, "workers" | "worker_ids": [...],
-"client_id": str, "deadline_s"?: seconds}; errors name the offending
-field.
+without the scheduler's tenant/lane fields and adapters: {"prompt" |
+"workflow": {...}, "workers" | "worker_ids": [...], "client_id": str,
+"deadline_s"?: seconds}; errors name the offending field. Every other
+key of the body lands in `extra` (e.g. "load_balance": true, which the
+orchestration reads), the JAX package's keys excluded as there, so the
+same body gives the same `extra` in both packages.
 """
 
 from __future__ import annotations
@@ -28,6 +30,13 @@ class QueueRequestPayload:
     # end-to-end deadline in seconds from arrival (None = none): rides
     # the job record, which expires overdue work
     deadline_s: float | None = None
+    extra: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+# the keys the JAX package parses (tenant, lane and adapters included):
+# none of them lands in `extra`
+_PARSED_KEYS = ("prompt", "workflow", "client_id", "workers", "worker_ids", "tenant", "lane",
+                "deadline_s", "adapters")
 
 
 def parse_deadline_seconds(value: Any) -> float | None:
@@ -64,4 +73,5 @@ def parse_queue_request_payload(body: Any) -> QueueRequestPayload:
         client_id=client_id,
         worker_ids=[str(w) for w in workers],
         deadline_s=parse_deadline_seconds(body.get("deadline_s")),
+        extra={k: v for k, v in body.items() if k not in _PARSED_KEYS},
     )

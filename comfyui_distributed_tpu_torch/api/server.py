@@ -4,9 +4,10 @@ The port's own copy of comfyui_distributed_tpu/api/server.py, on
 api/httpd.py instead of aiohttp. It owns:
 
 - the HTTP server with GET/POST /prompt, POST /interrupt,
-  GET /history/{prompt_id}, GET /distributed/system_info, and the
-  /distributed/* routes of the elastic tier (api/usdu_routes.py,
-  api/job_routes.py);
+  GET /history/{prompt_id}, and the /distributed/* routes: the jobs
+  (api/job_routes.py), the elastic tier (api/usdu_routes.py), the worker
+  processes, websocket dispatch and host info (api/worker_routes.py) and
+  the config (api/config_routes.py);
 - the prompt queue, consumed by one executor thread running the graph
   executor, so compute never blocks the loop; every prompt shares the
   server's `execution_context.pipelines` (loaded models) and `extras`
@@ -24,11 +25,13 @@ import asyncio
 import os
 import queue as thread_queue
 import threading
+import types
 from typing import Any, Optional
 
 import torch
 
 from ..graph import ExecutionContext, GraphExecutor, validate_prompt
+from ..graph.io_dirs import get_input_dir
 from ..jobs import JobStore
 from ..utils import config as config_mod
 from ..utils.async_helpers import set_server_loop
@@ -69,6 +72,8 @@ class DistributedServer:
         self._history: dict[str, PromptJob] = {}
         self._interrupt = threading.Event()
         self.execution_context = ExecutionContext(device=self.device)
+        # prompts taken over /distributed/worker_ws (not the HTTP fallback)
+        self.ws_prompts = 0
         self._register_routes()
 
     # --- config ----------------------------------------------------------
@@ -77,18 +82,28 @@ class DistributedServer:
     def config(self) -> dict[str, Any]:
         return config_mod.load_config(self.config_path)
 
+    def media_context(self) -> Any:
+        """What graph/io_dirs.py reads the media directories from: this
+        server's config, as its nodes see it."""
+        return types.SimpleNamespace(config=self.config)
+
+    def input_dir(self) -> str:
+        """Where this server's LoadImage reads and /upload/image writes."""
+        return get_input_dir(self.media_context())
+
     # --- routes ----------------------------------------------------------
 
     def _register_routes(self) -> None:
-        from . import job_routes, usdu_routes
+        from . import config_routes, job_routes, usdu_routes, worker_routes
 
         self.router.add_get("/prompt", self.handle_get_prompt)
         self.router.add_post("/prompt", self.handle_post_prompt)
         self.router.add_post("/interrupt", self.handle_interrupt)
         self.router.add_get("/history/{prompt_id}", self.handle_history)
-        self.router.add_get("/distributed/system_info", self.handle_system_info)
         job_routes.register(self.router, self)
         usdu_routes.register(self.router, self)
+        worker_routes.register(self.router, self)
+        config_routes.register(self.router, self)
 
     # --- prompt queue ----------------------------------------------------
 
@@ -130,26 +145,6 @@ class DistributedServer:
             "error": job.error,
             "outputs": _jsonable_outputs(job.outputs),
             "timings": job.timings,
-        })
-
-    async def handle_system_info(self, request: Request) -> Response:
-        """Role, device (the CUDA devices in place of the JAX package's TPU
-        topology) and live queue counts."""
-        stats = await self.job_store.stats()
-        devices = []
-        if self.device.startswith("cuda") and torch.cuda.is_available():
-            devices = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
-        return json_response({
-            "is_worker": self.is_worker,
-            "device": self.device,
-            "cuda_devices": devices,
-            "status": {
-                "queue_remaining": self.queue_remaining,
-                "tile_jobs": stats["tile_jobs"],
-                "collector_jobs": stats["collectors"],
-                "tile_queue_depth": stats["queue_depth"],
-                "in_flight_tiles": stats["in_flight"],
-            },
         })
 
     def get_job(self, prompt_id: str) -> Optional[PromptJob]:

@@ -23,10 +23,13 @@ this one cleans its job up once it has collected (or given up): the
 store keeps its counts among the finished jobs and drops an envelope
 that arrives later as late.
 
+The collector's `load_balance` widget is accepted and has no effect,
+as in the JAX node: load balancing is a field of the queue request,
+which the orchestration reads (api/orchestration/queue_orchestration.py).
+
 Not ported, each raising with its ROADMAP item: the mesh branch (a
-per-participant SeedSpec; Queue 1 item 6), audio payloads
-(`utils/audio_payload.py`, AudioBatchDivider; Queue 1 item 5) and the
-collector's load-balance mode (Queue 1 item 3).
+per-participant SeedSpec; Queue 1 item 6) and audio payloads
+(`utils/audio_payload.py`, AudioBatchDivider; Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -52,8 +55,6 @@ from .registry import register_node
 
 _AUDIO_UNPORTED = ("AUDIO through the collector is not ported yet (utils/audio_payload.py; "
                    "ROADMAP.md, Queue 1 item 5)")
-_LOAD_BALANCE_UNPORTED = ("the collector's load-balance mode is not ported yet (ROADMAP.md, "
-                          "Queue 1 item 3: load-balance mode)")
 
 
 @register_node
@@ -208,8 +209,6 @@ class DistributedCollector:
             raise NotImplementedError(_AUDIO_UNPORTED)
         if pass_through:
             return (images, None)
-        if load_balance:
-            raise NotImplementedError(_LOAD_BALANCE_UNPORTED)
         if is_worker:
             self._send_to_master(images, str(worker_id), str(master_url), str(job_id))
             return (images, None)

@@ -8,12 +8,13 @@ JSON algorithms:
   and everything upstream of them; downstream-only nodes (saves,
   previews) are dropped and a terminal PreviewImage is appended so the
   worker's executor has a sink.
+- prepare_delegate_master_prompt: a delegate-only master keeps its
+  collectors and what lies downstream of them, each collector fed by a
+  DistributedEmptyImage, so it renders nothing and collects the
+  workers' images.
 - generate_job_id_map / apply_participant_overrides: one job id per
   distributed node, and per participant the role, worker id, master URL,
   job id, seed index and per-worker value overrides.
-
-The delegate-only master rewrite (prepare_delegate_master_prompt) is
-not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ SEED_CLASSES = ("DistributedSeed",)
 VALUE_CLASSES = ("DistributedValue",)
 DISTRIBUTED_CLASSES = COLLECTOR_CLASSES + UPSCALER_CLASSES + SEED_CLASSES + VALUE_CLASSES
 TERMINAL_OUTPUT_CLASS = "PreviewImage"
+EMPTY_IMAGE_CLASS = "DistributedEmptyImage"
 
 
 def is_link(value: Any) -> bool:
@@ -85,6 +87,21 @@ class PromptIndex:
         self._upstream_cache[node_id] = result
         return result
 
+    def downstream_closure(self, node_id: str) -> frozenset[str]:
+        """All nodes reachable following output links (incl. the node)."""
+        consumers: dict[str, list[str]] = {}
+        for nid in self.prompt:
+            for up in self.direct_upstream(nid):
+                consumers.setdefault(up, []).append(nid)
+        seen: set[str] = set()
+        stack = [node_id]
+        while stack:
+            current = stack.pop()
+            if current not in seen:
+                seen.add(current)
+                stack.extend(consumers.get(current, []))
+        return frozenset(seen)
+
 
 def fresh_node_id(*prompts: Prompt) -> str:
     """An id unused in all given prompts."""
@@ -106,6 +123,33 @@ def prune_prompt_for_worker(prompt: Prompt, index: PromptIndex | None = None) ->
     sink_id = fresh_node_id(pruned, prompt)
     pruned[sink_id] = {"class_type": TERMINAL_OUTPUT_CLASS, "inputs": {"images": [anchors[0], 0]}}
     return pruned
+
+
+def prepare_delegate_master_prompt(prompt: Prompt, index: PromptIndex | None = None) -> Prompt:
+    """The orchestrator-only master's prompt: the collectors and their
+    downstream closure, each collector's `images` fed by an empty-image
+    placeholder; any other input linked to a dropped node is removed (the
+    node's default takes over)."""
+    index = index or PromptIndex(prompt)
+    collectors = index.nodes_of_class(*COLLECTOR_CLASSES)
+    if not collectors:
+        return copy.deepcopy(prompt)
+    keep: set[str] = set()
+    for collector in collectors:
+        keep |= index.downstream_closure(collector)
+    delegate = {nid: copy.deepcopy(prompt[nid]) for nid in keep}
+    placeholder_id = fresh_node_id(delegate, prompt)
+    delegate[placeholder_id] = {"class_type": EMPTY_IMAGE_CLASS, "inputs": {}}
+    for nid, node in delegate.items():
+        if nid == placeholder_id:
+            continue
+        for key, value in list(node.get("inputs", {}).items()):
+            if is_link(value) and value[0] not in delegate:
+                if node["class_type"] in COLLECTOR_CLASSES and key == "images":
+                    node["inputs"][key] = [placeholder_id, 0]
+                else:
+                    del node["inputs"][key]
+    return delegate
 
 
 def generate_job_id_map(prompt: Prompt, index: PromptIndex | None = None) -> dict[str, str]:

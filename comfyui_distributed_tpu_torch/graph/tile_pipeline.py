@@ -5,7 +5,8 @@ The port's own copy of comfyui_distributed_tpu/graph/tile_pipeline.py:
 - **GrantSampler** runs a grant (a list of tile indices) through the
   per-tile processor, one tile after another: the JAX CPU value of the
   tile batch, K = 1, and no mesh sharding. K > 1 tile batching is
-  ROADMAP Queue 4; the multi-GPU tier is Queue 1, item 6.
+  ROADMAP Queue 1 item 4 (step 5); the multi-GPU tier is Queue 1,
+  item 6.
 - **TilePipeline** is a three-stage pipeline over any grant source:
   pull prefetch (one grant ahead), device sampling, and host readback +
   encode + submit flush on an I/O thread, so the next tile's sampling is

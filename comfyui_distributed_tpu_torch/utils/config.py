@@ -3,23 +3,32 @@
 The port's own copy of the parts of comfyui_distributed_tpu/utils/
 config.py that the server and the elastic tier read: defaults merged
 recursively under the file's values (unknown keys kept), a read cache
-keyed by the file's mtime, and atomic writes. The path is the `path`
-argument, else CDT_CONFIG_PATH, else `cdt_torch_config.json` in the
-working directory.
+keyed by the file's mtime, atomic writes, and one mutex for every
+read-modify-write: `config_transaction` (the config routes, on the
+loop) and `locked_config` (the process manager's PID records, on
+threads) exclude each other, so neither loses the other's write. The
+path is the `path` argument, else CDT_CONFIG_PATH, else
+`cdt_torch_config.json` in the working directory.
 
-Workers are entries of config["workers"]: {"id", "name", "type"
-("local" for a process on this host, "remote" for one on another),
-"host", "port", "enabled"}. settings.input_dir and settings.output_dir
-point the media nodes at their directories.
+Workers are entries of config["workers"] (WORKER_TEMPLATE): "type" is
+"local" for a process the master launches on this host, "remote" for
+one on another; "cuda_device" is the card a local worker is pinned to
+(the upstream reference's own key, in place of the JAX package's
+`tpu_chips`); "extra_args" are appended to its command line.
+settings.input_dir and settings.output_dir point the media nodes at
+their directories; `managed_processes` holds the PIDs of launched
+workers.
 """
 
 from __future__ import annotations
 
+import asyncio
+import contextlib
 import copy
 import json
 import os
 import threading
-from typing import Any
+from typing import Any, AsyncIterator, Iterator
 
 from . import logging as dlog
 from .constants import HEARTBEAT_TIMEOUT_SECONDS
@@ -29,14 +38,31 @@ CONFIG_FILENAME = "cdt_torch_config.json"
 CDT_CONFIG_PATH = "CDT_CONFIG_PATH"
 
 DEFAULT_CONFIG: dict[str, Any] = {
-    "master": {"host": ""},
+    "master": {"host": "", "cuda_device": 0},
     "workers": [],
     "settings": {
         "debug": False,
+        "auto_launch_workers": False,
+        "stop_workers_on_master_exit": True,
+        "master_delegate_only": False,
+        "websocket_orchestration": True,
         "worker_timeout_seconds": HEARTBEAT_TIMEOUT_SECONDS,
         "probe_concurrency": 8,
         "prep_concurrency": 4,
+        "media_sync_concurrency": 2,
     },
+    "managed_processes": {},
+}
+
+WORKER_TEMPLATE: dict[str, Any] = {
+    "id": "",
+    "name": "",
+    "type": "local",
+    "host": "",
+    "port": 0,
+    "cuda_device": None,
+    "enabled": False,
+    "extra_args": "",
 }
 
 
@@ -66,6 +92,10 @@ class _Cache:
 
 
 _cache = _Cache()
+# The read-modify-write mutex: a threading.Lock (taken off the loop by
+# the async transaction) because transactions run on the server loop and
+# on plain threads alike.
+_txn_lock = threading.Lock()
 
 
 def load_config(path: str | None = None) -> dict[str, Any]:
@@ -104,6 +134,32 @@ def save_config(config: dict[str, Any], path: str | None = None) -> None:
         except OSError:
             _cache.mtime = None
         _cache.data = _merge_defaults(DEFAULT_CONFIG, config)
+
+
+@contextlib.contextmanager
+def locked_config(path: str | None = None) -> Iterator[dict[str, Any]]:
+    """Locked read-modify-write for threads; saves only if changed."""
+    with _txn_lock:
+        config = load_config(path)
+        snapshot = copy.deepcopy(config)
+        yield config
+        if config != snapshot:
+            save_config(config, path)
+
+
+@contextlib.asynccontextmanager
+async def config_transaction(path: str | None = None) -> AsyncIterator[dict[str, Any]]:
+    """`locked_config` for coroutines: the lock is taken on a thread, so
+    the loop never blocks on it."""
+    await asyncio.to_thread(_txn_lock.acquire)
+    try:
+        config = load_config(path)
+        snapshot = copy.deepcopy(config)
+        yield config
+        if config != snapshot:
+            save_config(config, path)
+    finally:
+        _txn_lock.release()
 
 
 def get_setting(name: str, default: Any = None, path: str | None = None) -> Any:

@@ -28,6 +28,11 @@ def _env_float(name: str, default: float) -> float:
 # --- roles ---------------------------------------------------------------
 # Worker processes carry this variable; it marks the server's role.
 WORKER_ENV_FLAG = "CDT_IS_WORKER"
+# A launched worker carries its master's PID here; the worker's
+# watchdog (workers/monitor.py) exits when that process is gone.
+MASTER_PID_ENV = "CDT_MASTER_PID"
+# The card a launched worker sees, from its config entry's cuda_device.
+CUDA_VISIBLE_DEVICES_ENV = "CUDA_VISIBLE_DEVICES"
 
 # --- heartbeat / liveness ------------------------------------------------
 HEARTBEAT_INTERVAL_SECONDS = _env_float("CDT_HEARTBEAT_INTERVAL", 5.0)
@@ -69,6 +74,18 @@ PIPELINE_ENABLED = os.environ.get("CDT_PIPELINE", "1") != "0"
 PIPELINE_DEPTH = _env_int("CDT_PIPELINE_DEPTH", 1)
 # Pull the next grant while the device samples the current one.
 PIPELINE_PREFETCH = os.environ.get("CDT_PIPELINE_PREFETCH", "1") != "0"
+
+# --- circuit breaker (resilience/health.py) ------------------------------
+CIRCUIT_SUSPECT_THRESHOLD = _env_int("CDT_CIRCUIT_SUSPECT_AFTER", 2)
+CIRCUIT_FAILURE_THRESHOLD = _env_int("CDT_CIRCUIT_FAILURES", 5)
+CIRCUIT_COOLDOWN_SECONDS = _env_float("CDT_CIRCUIT_COOLDOWN", 30.0)
+
+# --- media sync ----------------------------------------------------------
+MEDIA_SYNC_TIMEOUT_SECONDS = _env_float("CDT_MEDIA_SYNC_TIMEOUT", 120.0)
+
+# --- worker processes ----------------------------------------------------
+AUTO_LAUNCH_DELAY_SECONDS = _env_float("CDT_AUTO_LAUNCH_DELAY", 2.0)
+MONITOR_POLL_INTERVAL_SECONDS = _env_float("CDT_MONITOR_POLL_INTERVAL", 2.0)
 
 # --- job init races ------------------------------------------------------
 # How long a result submission or a pull waits for the master to create

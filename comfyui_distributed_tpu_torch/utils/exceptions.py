@@ -63,3 +63,7 @@ class PromptValidationError(DistributedError):
     def __init__(self, message: str, node_errors: dict | None = None):
         super().__init__(message)
         self.node_errors = node_errors or {}
+
+
+class ProcessError(DistributedError):
+    """A worker process launch or stop failed."""

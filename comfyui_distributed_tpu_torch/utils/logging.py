@@ -1,7 +1,9 @@
 """Logging with a hot-reloadable debug flag.
 
 The port's own copy of comfyui_distributed_tpu/utils/logging.py: `log`
-always prints, `debug_log` only while the debug flag is on. The flag
+always prints, `debug_log` only while the debug flag is on; both keep
+their last LOG_RING_LINES lines in memory (`recent_lines`, which
+/distributed/master_log serves). The flag
 comes from a reader (the config module installs one that reads the
 config file's settings.debug) and is re-read at most every
 DEBUG_FLAG_TTL_SECONDS, so toggling it reaches running processes.
@@ -9,6 +11,7 @@ DEBUG_FLAG_TTL_SECONDS, so toggling it reaches running processes.
 
 from __future__ import annotations
 
+import collections
 import sys
 import threading
 import time
@@ -17,6 +20,9 @@ from typing import Callable
 from .constants import DEBUG_FLAG_TTL_SECONDS
 
 PREFIX = "[Distributed-Torch]"
+LOG_RING_LINES = 1000
+
+_ring: collections.deque[str] = collections.deque(maxlen=LOG_RING_LINES)
 
 _lock = threading.Lock()
 _debug = {"value": False, "checked_at": float("-inf")}
@@ -47,10 +53,21 @@ def is_debug_enabled() -> bool:
     return value
 
 
+def _emit(line: str) -> None:
+    _ring.append(line)
+    print(line, file=sys.stdout, flush=True)
+
+
+def recent_lines(tail: int) -> list[str]:
+    """The last `tail` lines logged by this process."""
+    lines = list(_ring)
+    return lines[-tail:] if tail > 0 else []
+
+
 def log(message: str) -> None:
-    print(f"{PREFIX} {message}", file=sys.stdout, flush=True)
+    _emit(f"{PREFIX} {message}")
 
 
 def debug_log(message: str) -> None:
     if is_debug_enabled():
-        print(f"{PREFIX}[DEBUG] {message}", file=sys.stdout, flush=True)
+        _emit(f"{PREFIX}[DEBUG] {message}")

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import asyncio
 import http.client
+import ipaddress
 import json
 import urllib.error
 import urllib.request
@@ -51,6 +52,21 @@ def request_json(method: str, url: str, payload: Any = None, timeout: float = 30
         return status, json.loads(body) if body else None
     except ValueError:
         return status, None
+
+
+def request_bytes(method: str, url: str, data: bytes | None = None,
+                  headers: dict[str, str] | None = None, timeout: float = 30.0
+                  ) -> tuple[int, bytes]:
+    """One blocking HTTP request with a raw body; returns (status, the
+    response's bytes). Raises only transport errors."""
+    req = urllib.request.Request(url, data=data, headers=headers or {}, method=method)
+    try:
+        with _OPENER.open(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as err:
+        body = err.read()
+        err.close()
+        return err.code, body
 
 
 async def request_json_async(method: str, url: str, payload: Any = None,
@@ -101,6 +117,18 @@ def split_host_port(host: str, default_port: int | None = None) -> tuple[str, in
 
 
 _LOOPBACK_HOSTS = {"", "localhost", "127.0.0.1", "::1", "0.0.0.0"}
+
+
+def is_private_host(host: str) -> bool:
+    """A private (RFC 1918, loopback, link-local) address or localhost:
+    network_info ranks these first."""
+    name, _ = split_host_port(host)
+    if name in ("localhost", ""):
+        return True
+    try:
+        return ipaddress.ip_address(name).is_private
+    except ValueError:
+        return False
 
 
 def is_loopback_host(host: str) -> bool:

@@ -449,8 +449,17 @@ def test_unported_branches_raise_and_the_small_nodes_work():
     images = torch.zeros((1, 8, 8, 3))
     with pytest.raises(NotImplementedError, match="audio_payload"):
         collector.run(images, audio={"waveform": torch.zeros(1, 1, 4), "sample_rate": 8})
-    with pytest.raises(NotImplementedError, match="load-balance"):
-        collector.run(images, load_balance=True)
+    # the load_balance widget is accepted and has no effect, as in the JAX
+    # node: the same images come out of both packages' collectors
+    from comfyui_distributed_tpu.graph.nodes_distributed import (
+        DistributedCollector as JaxDistributedCollector,
+    )
+
+    pixels = np.random.default_rng(3).random((2, 8, 8, 3), dtype=np.float32)
+    port_out = collector.run(torch.from_numpy(pixels), load_balance=True)[0]
+    jax_out = JaxDistributedCollector().run(pixels, load_balance=True)[0]
+    np.testing.assert_array_equal(port_out.numpy(), np.asarray(jax_out))
+    np.testing.assert_array_equal(port_out.numpy(), pixels)
     assert collector.run(images, pass_through=True)[0] is images
     assert collector.run(images, enabled_worker_ids=["w1"])[0] is images  # no server: local
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):

@@ -1,13 +1,13 @@
 """The PyTorch port imports no JAX, no flax and nothing of the JAX package,
-and no aiohttp, no PIL and no safetensors (the card's machine has none
-of them).
+and no aiohttp, no PIL, no safetensors and no psutil (the card's machine
+has none of them).
 
 tests/conftest.py imports jax at collection, so the runtime check runs
-in a fresh interpreter, where importing aiohttp, PIL or safetensors
-raises. The static scan reads the port's sources (and chip_smoke.py,
-which drives the port on the card) for imports of
+in a fresh interpreter, where importing aiohttp, PIL, safetensors or
+psutil raises. The static scan reads the port's sources (and
+chip_smoke.py, which drives the port on the card) for imports of
 `comfyui_distributed_tpu` that are not `comfyui_distributed_tpu_torch`,
-and of aiohttp, PIL and safetensors.
+and of aiohttp, PIL, safetensors and psutil.
 """
 
 import ast
@@ -23,7 +23,7 @@ import importlib, importlib.abc, pkgutil, sys
 
 class Blocked(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("aiohttp", "PIL", "safetensors"):
+        if name.split(".")[0] in ("aiohttp", "PIL", "safetensors", "psutil"):
             raise ImportError(name + " is blocked: the card's machine has none")
         return None
 
@@ -34,7 +34,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax",
-             "comfyui_distributed_tpu", "aiohttp", "PIL", "safetensors"))
+             "comfyui_distributed_tpu", "aiohttp", "PIL", "safetensors", "psutil"))
 print("modules=%d" % len(names))
 print("outside=" + ",".join(bad))
 """
@@ -90,7 +90,7 @@ def test_port_sources_import_nothing_of_the_jax_package():
         for module in _imported_modules(path):
             top = module.split(".")[0]
             if top in ("jax", "jaxlib", "flax", "comfyui_distributed_tpu", "aiohttp", "PIL",
-                       "safetensors"):
+                       "safetensors", "psutil"):
                 offenders.append(f"{os.path.relpath(path, REPO)}: {module}")
     assert n_files >= 40
     assert offenders == []

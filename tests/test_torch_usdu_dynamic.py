@@ -9,7 +9,9 @@ same weights and the JAX package's folded frame keys (through the
 `noise` seam; decoded frames within one 8-bit level); a dead worker's
 frame recovered bit-equal; a frame's result independent of its claimer
 (a worker thread's frames within one PNG rounding of the frames run
-locally); and the video workflow as master + w1 over HTTP.
+locally); the video workflow as master + w1 over HTTP; and the
+collector job the orchestration announces for the USDU node, which the
+JAX dynamic master keeps and the port's removes.
 """
 
 import asyncio
@@ -343,3 +345,36 @@ def test_the_video_workflow_runs_dynamic_over_http(cluster):
     assert master.job_store.tile_jobs == {} and master.job_store.collectors == {}
     assert request_json("POST", f"{base}/distributed/job_status",
                         {"job_id": queued["job_ids"]["5"]}, timeout=10) == (200, {"ready": True})
+
+
+def test_the_jax_usdu_master_keeps_the_announced_collector_job(tiny_pair, port_loop,
+                                                               server_loop):
+    """The divergence the video-workflow test above shows on the port,
+    held against the reference: the orchestration announces a collector
+    job for the USDU node (ensure_collector) before the master runs. The
+    JAX dynamic master never removes it, so the job outlives the prompt in
+    its store; the port's master removes it with the tile job."""
+    from comfyui_distributed_tpu.graph import ExecutionContext as JaxExecutionContext
+    from comfyui_distributed_tpu.graph.usdu_elastic import run_master_dynamic as jax_master
+    from comfyui_distributed_tpu.jobs import JobStore as JaxJobStore
+    from comfyui_distributed_tpu.utils.async_helpers import (
+        run_async_in_server_loop as jax_run_async,
+    )
+
+    jb, tb, conds = tiny_pair
+    img = _frames(4, n=2)
+    jax_store, port_store = JaxJobStore(), JobStore()
+    jax_run_async(jax_store.ensure_collector("dj_kept"), timeout=30)
+    run_async_in_server_loop(port_store.ensure_collector("dj_kept"), timeout=30)
+    jax_out = jax_master(
+        jb, jnp.asarray(img), jnp.asarray(conds[0]), jnp.asarray(conds[1]), job_id="dj_kept",
+        enabled_worker_ids=[], context=JaxExecutionContext(
+            server=types.SimpleNamespace(job_store=jax_store), config={"workers": []}),
+        **GEOMETRY)
+    pos, neg = (torch.from_numpy(c) for c in conds)
+    port_out = tel.run_master_dynamic(tb, img, pos, neg, job_id="dj_kept",
+                                      enabled_worker_ids=[], context=_context(port_store),
+                                      **GEOMETRY)
+    assert np.asarray(jax_out).shape == tuple(port_out.shape) == (2, 128, 128, 3)
+    assert "dj_kept" in jax_store.collectors and jax_store.tile_jobs == {}
+    assert "dj_kept" not in port_store.collectors and port_store.tile_jobs == {}
