@@ -14,7 +14,9 @@ Phases, each printing lines tagged with its name:
              attention shape of the upscale path and of each seed-parallel
              workflow (bf16; each shape once, with its launches per tile or
              image on every path that runs it);
-             at D=40, 80 and 160 also f32, an unaligned, a strided and a
+             Flux's D=128 also at a ragged joint length (1008 px) and a
+             short key count at 24 heads;
+             at D=40, 80, 128 and 160 also f32, an unaligned, a strided and a
              16-not-128-byte aligned view and the edges of the wgmma
              instance's 64-row blocks and key tiles (N in EDGE_ROWS_WG, M
              in EDGE_KEYS_WG, one head of one batch, fewer timing
@@ -32,7 +34,7 @@ Phases, each printing lines tagged with its name:
              tile, query rows per block and key splits, the blocks
              launched, the blocks resident per SM and the waves.
    tiles   - every compiled plan of the wgmma instance (key tile and
-             query rows a block) timed at each D=40/64/80/160 shape of
+             query rows a block) timed at each D=40/64/80/128/160 shape of
              both paths, and every key split of the D=512 instance at
              vae@5184, beside the router's choice.
    host    - the wrapper's host cost per call: 10 x 100 calls timed on the
@@ -204,6 +206,27 @@ Phases, each printing lines tagged with its name:
              each frame against `_process_whole_image` run here
              (RERUN_TOLERANCE, plus PNG_STEP for w1's), no collector or tile
              job left; the frames by participant printed.
+   flux    - the four bundled Flux workflows (FLUX_WORKFLOWS), unmodified,
+             at full width: Flux-schnell and Flux-dev (12B, 19 double and
+             38 single blocks, D=128), T5-XXL at 512 tokens, CLIP-L, the
+             16-channel Flux VAE, 1024 px; seeded random weights drawn on
+             the card (`_flux_phase`). flux-schnell's bundle serves
+             txt2img-flux and is freed before flux-dev's is built, which
+             serves flux-custom-sampling (UNETLoader, DualCLIPLoader,
+             VAELoader, ModelSamplingFlux, FluxGuidance), flux-dual-prompt
+             (CLIPTextEncodeFlux, BetaSamplingScheduler) and kontext-edit
+             (LoadImage of a seeded 1024-px reference.png, VAEEncode,
+             ReferenceLatent: 8704 joint tokens). Each as txt2img, one run
+             over HTTP, every loader resolving to the one bundle: the batch
+             [2, 1024, 1024, 3] in [0, 1], image 0 within RERUN_TOLERANCE
+             of the local run at its seed and w1's within RERUN_TOLERANCE +
+             PNG_STEP, the two apart, no collector job left, peak memory a
+             run, launches from `_flux_shapes` (57 D=128 calls an
+             evaluation, the VAE's D=512 decode and encodes), the MMDiT's
+             velocity finite at every evaluation; Kontext at least
+             FLUX_MIN_DIFF from the same run without ReferenceLatent, the
+             dual-prompt image at least FLUX_MIN_DIFF from the
+             custom-sampling one.
    phases  - each phase's seconds and their total.
 5. kernels - one JSON line per the port's kernel contract: entry
              flash_attention over the upscale path (`launches`: the elastic
@@ -222,7 +245,9 @@ Phases, each printing lines tagged with its name:
              image), flash_attention_custom and _custom_dualcfg per PerpNeg
              and DualCFG image (`launches`: their HTTP runs),
              flash_attention_dynamic per frame (`launches`: the HTTP run of 8
-             frames) and flash_attention_inpaint_model per image.
+             frames), flash_attention_inpaint_model per image, and
+             flash_attention_<tag> per image of each Flux workflow
+             (`launches`: its HTTP run).
 
 The card's nvidia-smi line and then {"ok": true, "device": ...} close
 the output. Without a CUDA device, or without the port's package beside
@@ -384,6 +409,26 @@ INPAINT_MODEL_PROMPTS = ("a castle on a hill, wide landscape", "blurry, low qual
 NODES_TOLERANCE = 1e-4
 
 
+# the flux phase: the four bundled Flux workflows, unmodified, at their
+# full width (1024 px), by entry of the kernels line; Kontext's
+# reference.png is a seeded FLUX_IMAGE_PX image
+FLUX_WORKFLOWS = {
+    "flux_schnell": "distributed-txt2img-flux.json",
+    "flux_dev": "distributed-flux-custom-sampling.json",
+    "flux_dual": "distributed-flux-dual-prompt.json",
+    "kontext": "distributed-kontext-edit.json",
+}
+FLUX_IMAGE_PX = 1024
+# Flux's head dim (3072 wide, 24 heads)
+FLUX_HEAD_DIMS = (128,)
+# the joint length of a 1008-px image (63^2 image tokens and 512 text
+# tokens): ragged on D = 128's 64-key tiles
+FLUX_RAGGED_TOKENS = 63 * 63 + 512
+# Kontext against the same run without ReferenceLatent, and the
+# dual-prompt image against the custom-sampling one: one 8-bit level
+FLUX_MIN_DIFF = 1.0 / 255
+
+
 def _require(ok: bool, message: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {message}")
@@ -514,9 +559,9 @@ def _node_id(workflow, class_type: str) -> str:
 
 def _image_px(workflow, image_px: int = IMAGE_PX) -> tuple[int, int]:
     """(height, width) of the workflow's image: its EmptyLatentImage's
-    size, or the LoadImage input's (`image_px` square) where it has none,
+    (or EmptySD3LatentImage's) size, or the LoadImage input's (`image_px` square) where it has none,
     grown by an ImagePadForOutpaint's pads."""
-    latent = _node_ids(workflow, "EmptyLatentImage")
+    latent = _node_ids(workflow, "EmptyLatentImage") or _node_ids(workflow, "EmptySD3LatentImage")
     if latent:
         inputs = workflow[latent[0]]["inputs"]
         return int(inputs["height"]), int(inputs["width"])
@@ -965,7 +1010,8 @@ def _one_ksampler(workflow):
 
 def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int | None = None,
                    expected_by_instance: dict | None = None, runs: int = TXT2IMG_RUNS,
-                   tag: str = "txt2img", image_px: int = IMAGE_PX) -> dict:
+                   tag: str = "txt2img", image_px: int = IMAGE_PX,
+                   pipelines: dict | None = None) -> dict:
     """Seed-parallel generation over HTTP (see the module docstring):
     local references at the master's seed and w1's, then the unmodified
     workflow POSTed `runs` times to a master with worker w1, both servers
@@ -978,9 +1024,12 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
     check reads the grown mask's pixels only; an InpaintModelConditioning
     graph carries 5 concat channels on both sides, changes the outpainted
     region more than the original one, and its images-apart check reads
-    the outpainted pixels. Prints the [tag] lines and
-    returns the last run's attention launches. With `expected_launches`
-    None (no card) the launch counts go unchecked."""
+    the outpainted pixels. `pipelines` (context key → bundle) stands in
+    for {the CheckpointLoaderSimple's name: bundle} where the workflow
+    loads its parts with the component loaders. Prints the [tag] lines
+    and returns the last run's attention launches and the local image at
+    the master's seed (`local`). With `expected_launches` None (no card)
+    the launch counts go unchecked."""
     import numpy as np
 
     from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
@@ -990,7 +1039,9 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
 
     cuda = device.startswith("cuda")
     label = f"[{tag}]"
-    ckpt = workflow[_node_id(workflow, "CheckpointLoaderSimple")]["inputs"]["ckpt_name"]
+    if pipelines is None:
+        ckpt = workflow[_node_id(workflow, "CheckpointLoaderSimple")]["inputs"]["ckpt_name"]
+        pipelines = {ckpt: bundle}
     seed_node = _node_id(workflow, "DistributedSeed")
     collector = _node_id(workflow, "DistributedCollector")
     save = _node_id(workflow, "SaveImage")
@@ -1025,7 +1076,7 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
 
         # local references: the workflow without workers or SaveImage
         context = ExecutionContext(device=device, config={"settings": settings})
-        context.pipelines[ckpt] = bundle
+        context.pipelines.update(pipelines)
         executor = GraphExecutor(context)
 
         def local_run(prompt, what: str):
@@ -1067,8 +1118,7 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
                   f"{PAG_MIN_DIFF:.4f}, one 8-bit level)")
             _require(diff >= PAG_MIN_DIFF, "PAG does not change the image")
 
-        with _serving(tmp, settings, device, {ckpt: bundle}) as (master, worker, base,
-                                                                 worker_port):
+        with _serving(tmp, settings, device, pipelines) as (master, worker, base, worker_port):
             for run in range(1, runs + 1):
                 # every run samples: the servers' node caches would hand a
                 # repeated prompt its last images
@@ -1137,7 +1187,8 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
                          "the master's and w1's images do not differ")
                 check_launches(launches, by_instance, 2)
                 result = {"launches": launches, "launches_by_instance": by_instance,
-                          "images_per_s": out.shape[0] / seconds, "peak_gib": peak / 2**30}
+                          "images_per_s": out.shape[0] / seconds, "peak_gib": peak / 2**30,
+                          "local": local[seed]}
     return result
 
 
@@ -2766,6 +2817,168 @@ def _nodes_phase(torch, device: str) -> dict:
             "max_abs_diff": worst}
 
 
+def _flux_model(workflow) -> str:
+    """The registry name of a Flux workflow's backbone: its
+    CheckpointLoaderSimple's or UNETLoader's."""
+    from comfyui_distributed_tpu_torch.graph.nodes_loaders import _stem
+
+    for cls, key in (("CheckpointLoaderSimple", "ckpt_name"), ("UNETLoader", "unet_name")):
+        ids = _node_ids(workflow, cls)
+        if ids:
+            return _stem(workflow[ids[0]]["inputs"][key])
+    raise RuntimeError("chip_smoke check failed: the workflow loads no diffusion model")
+
+
+def _flux_pipelines(workflow, bundle) -> dict:
+    """The execution-context entries a Flux workflow's loaders resolve, all
+    one bundle: CheckpointLoaderSimple's name, UNETLoader's "unet:<name>"
+    and DualCLIPLoader's "clip:flux:<names>" (the bundle's T5 and CLIP-L;
+    VAELoader builds the VAE the bundle's seed gives it)."""
+    from comfyui_distributed_tpu_torch.graph.nodes_loaders import _stem
+
+    model = _flux_model(workflow)
+    out = {model: bundle, f"unet:{model}": bundle}
+    for node_id in _node_ids(workflow, "DualCLIPLoader"):
+        inputs = workflow[node_id]["inputs"]
+        out["clip:flux:" + ",".join(_stem(inputs[k]) for k in ("clip_name1", "clip_name2"))] = bundle
+    return out
+
+
+def _flux_evals(workflow) -> int:
+    """MMDiT evaluations of one image of a Flux workflow, each at batch 1
+    (a KSampler at cfg 1, a SamplerCustomAdvanced under BasicGuider over a
+    full grid ending at sigma 0)."""
+    from comfyui_distributed_tpu_torch.ops.samplers import model_evals_per_scan
+
+    evals = 0
+    for node_id in _node_ids(workflow, "KSampler"):
+        inputs = workflow[node_id]["inputs"]
+        _require(float(inputs["cfg"]) == 1.0 and float(inputs["denoise"]) == 1.0,
+                 "the Flux shapes assume a KSampler at cfg 1 (batch 1) and denoise 1")
+        evals += model_evals_per_scan(inputs["sampler_name"], int(inputs["steps"]))
+    for node_id in _node_ids(workflow, "SamplerCustomAdvanced"):
+        inputs = workflow[node_id]["inputs"]
+        guider = workflow[str(inputs["guider"][0])]
+        schedule = workflow[str(inputs["sigmas"][0])]
+        _require(guider["class_type"] == "BasicGuider", "the Flux shapes assume BasicGuider")
+        _require(schedule["class_type"] in ("BasicScheduler", "BetaSamplingScheduler")
+                 and float(schedule["inputs"].get("denoise", 1.0)) == 1.0,
+                 f"the Flux shapes assume a full grid, not {schedule['class_type']}'s")
+        sampler = workflow[str(inputs["sampler"][0])]["inputs"]["sampler_name"]
+        evals += model_evals_per_scan(sampler, int(schedule["inputs"]["steps"]))
+    return evals
+
+
+def _flux_shapes(workflow, image_px: int = FLUX_IMAGE_PX):
+    """(label, q shape, M, calls) of one image of a Flux workflow: the
+    joint attention of every double and single block at each evaluation,
+    over T5's 512 tokens, the image's 2x2 patches and each ReferenceLatent's
+    (its LoadImage input of `image_px`), then the 16-channel VAE's
+    mid-block at the decode and at each VAEEncode."""
+    from comfyui_distributed_tpu_torch.models.registry import HIDDEN_POOLED_ENCODERS, get_config
+
+    from comfyui_distributed_tpu_torch.models.pipeline import _family_vae_name
+
+    model = _flux_model(workflow)
+    cfg, vae_cfg = get_config(model), get_config(_family_vae_name(model))
+    t5 = get_config(HIDDEN_POOLED_ENCODERS[model][0])
+    height, width = _image_px(workflow, image_px)
+    _require(height == width == image_px, f"a {height}x{width} image: the shapes assume "
+                                          f"{image_px} square, as the reference")
+    per_token = vae_cfg.downscale * cfg.patch_size  # pixels a side of an image token
+    refs = len(_node_ids(workflow, "ReferenceLatent"))
+    tokens = t5.max_length + (1 + refs) * (height // per_token) ** 2
+    calls = (cfg.double_depth + cfg.single_depth) * _flux_evals(workflow)
+    vae_calls = 1 + len(_node_ids(workflow, "VAEEncode"))
+    return [(f"joint@{tokens}", (1, tokens, cfg.heads, cfg.head_dim), tokens, calls),
+            _vae_shape(vae_cfg, height // vae_cfg.downscale, vae_calls)]
+
+
+def _without_reference(workflow):
+    """The Kontext workflow with its ReferenceLatent node taken out: its
+    consumer takes the node's own conditioning input."""
+    prompt = copy.deepcopy(workflow)
+    ref = _node_id(prompt, "ReferenceLatent")
+    source = prompt.pop(ref)["inputs"]["conditioning"]
+    _relinked(prompt, {(ref, 0): tuple(source)})
+    return prompt
+
+
+def _flux_phase(torch, workflows: dict, device: str, expected: dict | None = None,
+                image_px: int = FLUX_IMAGE_PX) -> dict:
+    """The bundled Flux workflows (tag → workflow), each as txt2img over
+    HTTP (`_txt2img_phase`, one run: master + w1 in this process sharing
+    one bundle, each image against a local run at its seed). Each
+    backbone's bundle is built (seeded on the device) when a workflow
+    first needs it, the last one freed first; the MMDiT's velocity must
+    be finite at every evaluation. Kontext's image must differ from the
+    same run without ReferenceLatent, and the dual-prompt image from the
+    custom-sampling one, by FLUX_MIN_DIFF. `expected` maps a tag to
+    (launches, by instance) an image, unchecked when None (no card)."""
+    import gc
+
+    from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
+    from comfyui_distributed_tpu_torch.models import pipeline as pl
+    from comfyui_distributed_tpu_torch.ops import attention as attn
+    from comfyui_distributed_tpu_torch.utils import image as img_utils
+
+    cuda = device.startswith("cuda")
+
+    def finite(module, inputs, output):
+        _require(bool(torch.isfinite(output).all()), "the MMDiT's velocity is not finite")
+
+    results, bundle = {}, None
+    for tag, workflow in workflows.items():
+        model = _flux_model(workflow)
+        if bundle is None or bundle.model_name != model:
+            bundle = None
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+            started = time.perf_counter()
+            bundle = pl.load_pipeline(model, seed=0, device=device)
+            if cuda:
+                torch.cuda.synchronize()
+            bundle.unet.register_forward_hook(finite)
+            counts = {part: sum(p.numel() for p in module.parameters())
+                      for part, module in bundle.parts().items()}
+            held = torch.cuda.memory_allocated() if cuda else 0
+            print(f"[flux] {model}: parameters by part {counts} ({sum(counts.values()) / 1e9:.3f}B; "
+                  f"encoders {bundle.te_name}, {bundle.te2_name}), seeded random init on the "
+                  f"device in {time.perf_counter() - started:.1f} s; {held / 2**30:.2f} GiB "
+                  "allocated")
+        per_image = None if expected is None else expected[tag]
+        results[tag] = _txt2img_phase(
+            torch, bundle, workflow, device,
+            expected_launches=None if per_image is None else 2 * per_image[0],
+            expected_by_instance=None if per_image is None else
+            {k: 2 * v for k, v in per_image[1].items()},
+            runs=1, tag=tag, image_px=image_px, pipelines=_flux_pipelines(workflow, bundle))
+        if _node_ids(workflow, "ReferenceLatent"):
+            seed = int(workflow[_node_id(workflow, "DistributedSeed")]["inputs"]["seed"])
+            with tempfile.TemporaryDirectory(prefix=f"cdt_{tag}_") as in_dir:
+                # the input _txt2img_phase gave the workflow's LoadImage
+                for load in _node_ids(workflow, "LoadImage"):
+                    with open(os.path.join(in_dir, workflow[load]["inputs"]["image"]), "wb") as fh:
+                        fh.write(img_utils.encode_png(_inpaint_input(image_px, SEED)))
+                executor = GraphExecutor(ExecutionContext(
+                    device=device, pipelines=_flux_pipelines(workflow, bundle),
+                    config={"settings": {"input_dir": in_dir}}))
+                plain, _, _, _ = _local_run(torch, attn, executor, _without_reference(workflow),
+                                            f"[{tag}]", f"seed {seed}, without ReferenceLatent",
+                                            device, (*_image_px(workflow, image_px), 3))
+            diff = float((plain - results[tag]["local"]).abs().max())
+            print(f"[{tag}] seed {seed}: with vs without ReferenceLatent max |diff| {diff:.3g} "
+                  f"(at least {FLUX_MIN_DIFF:.4f})")
+            _require(diff >= FLUX_MIN_DIFF, "the reference latent does not change the image")
+    if {"flux_dev", "flux_dual"} <= set(results):
+        diff = float((results["flux_dual"]["local"] - results["flux_dev"]["local"]).abs().max())
+        print(f"[flux] dual-prompt vs custom-sampling image (seed 7 each) max |diff| {diff:.3g} "
+              f"(at least {FLUX_MIN_DIFF:.4f})")
+        _require(diff >= FLUX_MIN_DIFF, "the dual-prompt image is the custom-sampling one")
+    return results
+
+
 def _rounded(seconds: dict) -> dict:
     return {stage: round(value, 4) for stage, value in sorted(seconds.items())}
 
@@ -2855,6 +3068,10 @@ def main() -> int:
     with open(os.path.join(REPO, "workflows", DYNAMIC_WORKFLOW), encoding="utf-8") as fh:
         video_workflow = json.load(fh)
     inpaint_model_workflow = _inpaint_model_workflow()
+    flux_workflows = {}
+    for tag, name in FLUX_WORKFLOWS.items():
+        with open(os.path.join(REPO, "workflows", name), encoding="utf-8") as fh:
+            flux_workflows[tag] = json.load(fh)
     path_shapes = {"upscale": shapes, "txt2img": t2i_shapes,
                    **{tag: _txt2img_shapes(wf) for tag, wf in sd_workflows.items()},
                    **{path: _txt2img_shapes(wf) for path, wf in ckpt_workflows.items()},
@@ -2865,7 +3082,8 @@ def main() -> int:
                    "custom": custom_shapes["PerpNegGuider"],
                    "custom_dualcfg": custom_shapes["DualCFGGuider"],
                    "dynamic": _dynamic_shapes(_dynamic_workflow(video_workflow)),
-                   "inpaint_model": _txt2img_shapes(inpaint_model_workflow)}
+                   "inpaint_model": _txt2img_shapes(inpaint_model_workflow),
+                   **{tag: _flux_shapes(wf) for tag, wf in flux_workflows.items()}}
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -2923,7 +3141,13 @@ def main() -> int:
     # edges of the wgmma instance's 64-row blocks and key tiles
     checks += [(label, q, m, "bfloat16", units, "contiguous")
                for (label, q, m), units in main_shapes.items() if "upscale" not in units]
-    for d in TXT2IMG_HEAD_DIMS:
+    # Flux's D=128 beyond its main shapes: a ragged joint length (1008 px)
+    # and a short key count at its full 24 heads
+    flux_q = (1, FLUX_RAGGED_TOKENS, 24, 128)
+    checks += [(f"joint@{FLUX_RAGGED_TOKENS} (1008 px)", flux_q, FLUX_RAGGED_TOKENS, "bfloat16",
+                None, "contiguous"),
+               ("joint@4608 x 63 keys", (1, 4608, 24, 128), 63, "bfloat16", None, "contiguous")]
+    for d in TXT2IMG_HEAD_DIMS + FLUX_HEAD_DIMS:
         checks += [
             (f"D{d} ragged 1000x777 f32", (1, 1000, 2, d), 777, "float32", None, "contiguous"),
             (f"D{d} unaligned 300x300", (2, 300, 2, d), 300, "bfloat16", None, "unaligned"),
@@ -2967,8 +3191,12 @@ def main() -> int:
         err = float((out.float() - ref.float()).abs().max())
         rtol, atol = tolerance[dtype]
         ok = bool(torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol))
-        entry = "txt2img" if d in TXT2IMG_HEAD_DIMS and plan.instance == "wgmma" else "upscale"
-        for path in {entry} | {p for p in (units or {}) if p not in ("upscale", "txt2img")}:
+        if d in FLUX_HEAD_DIMS:  # every Flux entry's: one instance carries them all
+            targets = set(FLUX_WORKFLOWS)
+        else:
+            entry = "txt2img" if d in TXT2IMG_HEAD_DIMS and plan.instance == "wgmma" else "upscale"
+            targets = {entry} | {p for p in (units or {}) if p not in ("upscale", "txt2img")}
+        for path in targets:
             max_err[path] = max(max_err[path], err)
         # the edges are many and small: fewer samples
         reps = (3, 3) if layout == "edge" else (15, 10)
@@ -3265,6 +3493,13 @@ def main() -> int:
     del bundle
     torch.cuda.empty_cache()
     phase_seconds["dynamic"] = time.perf_counter() - phase_started
+
+    # --- 4m. flux: the four bundled Flux workflows at full width, master + w1 ---
+    phase_started = time.perf_counter()
+    flux = _flux_phase(torch, flux_workflows, "cuda",
+                       expected={tag: per_unit(path_shapes[tag]) for tag in flux_workflows})
+    torch.cuda.empty_cache()
+    phase_seconds["flux"] = time.perf_counter() - phase_started
     print("[phases] seconds: " + ", ".join(f"{name} {sec:.1f}" for name, sec in
                                            phase_seconds.items())
           + f"; total {sum(phase_seconds.values()):.1f}")
@@ -3290,7 +3525,11 @@ def main() -> int:
           "under DualCFGGuider. flash_attention_dynamic: the same per frame of the video "
           "workflow in dynamic mode (two 448-px SDXL tiles); launches: its run over HTTP of "
           f"{DYNAMIC_FRAMES} frames. flash_attention_inpaint_model: the same per outpainted "
-          "576-px sd15-inpaint image; launches: its run over HTTP")
+          "576-px sd15-inpaint image; launches: its run over HTTP. flash_attention_flux_schnell, "
+          "_flux_dev, _flux_dual and _kontext: the same per 1024-px image of the txt2img-flux "
+          "(4 steps), flux-custom-sampling, flux-dual-prompt and kontext-edit workflows (20 "
+          "steps; Flux's joint attention at D=128, the VAE at D=512); launches: its run over "
+          "HTTP, master and w1 together")
     source = "comfyui_distributed_tpu_torch/csrc/flash_attention.cu"
     replaces = "comfyui_distributed_tpu/ops/attention.py:80"
 
@@ -3400,7 +3639,8 @@ def main() -> int:
         }
         for path, run in (("custom", custom["PerpNegGuider"]),
                           ("custom_dualcfg", custom["DualCFGGuider"]),
-                          ("dynamic", dynamic), ("inpaint_model", inpaint_model))
+                          ("dynamic", dynamic), ("inpaint_model", inpaint_model),
+                          *flux.items())
     ]}
     print(f"[summary] procs: w1 ready {procs['launch_to_ready_s']:.2f} s after its launch; "
           f"fan-out {procs['fan_out_images_per_s']:.4f} images/s, elastic "

@@ -23,6 +23,9 @@
 //   self@1024  [2,1024,8,80]  x 1024  operations   5.4 us (exp2 4.0)
 //   self@256   [2,256,8,160]  x 256   bytes        1.6 us
 //   cross@4096, @1024, @256 (M = 77)  bytes        3.2, 1.7, 1.0 us
+// and of Flux's joint attention at 1024 px (57 calls an evaluation):
+//   joint@4608 [1,4608,24,128] x 4608 operations 264 us (exp2 122)
+//   joint@8704 [1,8704,24,128] x 8704 operations 941 us (Kontext)
 // At D = 40 the softmax's exp2 costs more than the products: the design
 // has to hide it behind them, not only feed the tensor cores. Measured
 // beside these, D = 40 is also bound by its K and V deliveries: with 64
@@ -42,9 +45,10 @@
 // in as a code; an instance or tile shape not compiled here returns -1.
 //
 // flash_attention_fwd_wgmma_kernel<D, KEYS, CONSUMERS>, bf16, D = 40, 64,
-// 80 and 160 (instance 2; the 2800 UNet calls of an SDXL tile at D = 64,
-// the 640 of an SD1.5 image at D = 40/80/160): warp-specialised, on
-// Hopper's asynchronous units.
+// 80, 128 and 160 (instance 2; the 2800 UNet calls of an SDXL tile at D =
+// 64, the 640 of an SD1.5 image at D = 40/80/160, Flux's 57 joint calls
+// an evaluation at D = 128): warp-specialised, on Hopper's asynchronous
+// units.
 //   * A block is CONSUMERS (one or two) consumer warpgroups of 64 query
 //     rows each and one producer warpgroup whose registers setmaxnreg
 //     cuts to 24, handing them to the consumers (232 a thread with one
@@ -58,7 +62,7 @@
 //   * The head dim is cut into column chunks, each its own TMA box and
 //     swizzled with a span of its own width in bytes (HeadChunks): D = 40
 //     [32 cols, 64-byte swizzle | 16, 32-byte], D = 64 [64, 128-byte], D =
-//     80 [64 | 16], D = 160 [64 | 64 | 32]. A wgmma then reads whole swizzled rows, and no product's N
+//     80 [64 | 16], D = 128 [64 | 64], D = 160 [64 | 64 | 32]. A wgmma then reads whole swizzled rows, and no product's N
 //     cuts a swizzle atom. D = 40's last chunk covers columns 40 .. 47,
 //     which TMA fills with zeros (the map's inner extent is 40): Q K^T
 //     gets its k = 48 with nothing written by threads, and P V eight zero
@@ -75,14 +79,14 @@
 //     rows past N or M come in as zeros within their own batch and head.
 //   * S = Q K^T by wgmma m64nKk16 with both operands in shared memory
 //     (K-major), one k-step of 16 columns at a time inside one chunk: 3,
-//     4, 5 and 10 k-steps at D = 40, 64, 80, 160. The online softmax in
+//     4, 5, 8 and 10 k-steps at D = 40, 64, 80, 128, 160. The online softmax in
 //     registers, in exp2 units, the scale folded into each exponent as
 //     one FMA. O += P V by wgmma from registers (P) and
 //     shared memory (V, MN-major, transposed), one product per chunk
-//     group and k-step, N the group's width: 32 + 16, 64, 64 + 16, or
-//     128 (two 64-column chunks through the descriptor's leading byte
-//     offset) + 32; each group accumulates into its own run of one
-//     accumulator laid out as m64n(48|64|80|160).
+//     group and k-step, N the group's width: 32 + 16, 64, 64 + 16, 128
+//     (D = 128: two 64-column chunks through the descriptor's leading
+//     byte offset), or that 128 + 32; each group accumulates into its own
+//     run of one accumulator laid out as m64n(48|64|80|128|160).
 //   * Within a warpgroup the products overlap the softmax: Q K^T of tile
 //     i + 1 runs while the accumulator is rescaled, P V of tile i while
 //     the softmax of tile i + 1 runs. The last tile is peeled off the
@@ -92,7 +96,9 @@
 //     few key slots are masked: M = 77 one tile of 80; M = 4096 and 1024
 //     tiles of 128 (D = 40, 80); M = 256 and 64 tiles of 64 (D = 160,
 //     whose 80 accumulator registers a 128-key tile would crowd); M = 324
-//     and 1296 tiles of 112 and 144 (D = 64).
+//     and 1296 tiles of 112 and 144 (D = 64); Flux's 4481 - 8704 joint
+//     tokens tiles of 64 (D = 128: 64 accumulator registers a thread, 82
+//     KB of shared memory a block, two blocks an SM).
 //   * P goes into P V as two bf16 products, bf16(P) and bf16(P - bf16(P)):
 //     16 bits of P where one bf16 keeps 8, as the TPU kernel keeps P V in
 //     f32. One bf16 P missed the plain version by more than one bf16 step
@@ -145,7 +151,7 @@
 //            52 KB of dynamic shared memory.
 //   D = 40:  128-row Q tile, 2 threads per row (40 = 5 float4 groups of
 //            two threads), 44 KB.
-//   D = 80, 160: as D = 64; 63 KB and 123 KB.
+//   D = 80, 128, 160: as D = 64; 63 KB, 99 KB and 123 KB.
 //   D = 512: the Q tile shrinks to 32 rows with 8 threads per row, each
 //            holding 64 accumulator floats in registers; Q, K and V tiles of
 //            32 x 516 floats take 198 KB of dynamic shared memory. Every
@@ -223,6 +229,11 @@ struct TileShape<64> {
 };
 template <>
 struct TileShape<80> {
+  static constexpr int kQ = 64;
+  static constexpr int kK = 64;
+};
+template <>
+struct TileShape<128> {
   static constexpr int kQ = 64;
   static constexpr int kK = 64;
 };
@@ -459,6 +470,14 @@ struct HeadChunks<80> {  // [64 | 16]
   __host__ __device__ static constexpr int map(int c) { return c; }
   __host__ __device__ static constexpr int group_first(int g) { return g; }
   __host__ __device__ static constexpr int group_chunks(int) { return 1; }
+};
+template <>
+struct HeadChunks<128> {  // [64 | 64]
+  static constexpr int kChunks = 2, kMaps = 1, kGroups = 1;
+  __host__ __device__ static constexpr int cols(int) { return 64; }
+  __host__ __device__ static constexpr int map(int) { return 0; }
+  __host__ __device__ static constexpr int group_first(int) { return 0; }
+  __host__ __device__ static constexpr int group_chunks(int) { return 2; }
 };
 template <>
 struct HeadChunks<160> {  // [64 | 64 | 32]
@@ -1320,6 +1339,8 @@ int dispatch_wgmma(int head_dim, int keys, int rows, const Call& c, int* occupan
         if (keys == 80) return run_wgmma<80, 80, 1>(c, occupancy);
         if (keys == 128) return run_wgmma<80, 128, 1>(c, occupancy);
         return -1;
+      case 128:
+        return keys == 64 ? run_wgmma<128, 64, 1>(c, occupancy) : -1;
       case 160:
         if (keys == 64) return run_wgmma<160, 64, 1>(c, occupancy);
         if (keys == 80) return run_wgmma<160, 80, 1>(c, occupancy);
@@ -1339,6 +1360,7 @@ int dispatch(int instance, int dtype, int head_dim, int keys, int rows, const Ca
       case 40: return dispatch_fma<40>(dtype, keys, rows, c, occupancy);
       case 64: return dispatch_fma<64>(dtype, keys, rows, c, occupancy);
       case 80: return dispatch_fma<80>(dtype, keys, rows, c, occupancy);
+      case 128: return dispatch_fma<128>(dtype, keys, rows, c, occupancy);
       case 160: return dispatch_fma<160>(dtype, keys, rows, c, occupancy);
       case 512: return dispatch_fma<512>(dtype, keys, rows, c, occupancy);
       default: return -1;

@@ -10,9 +10,12 @@ A modifier applies to every entry of a list (ConditioningCombine's
 output). The hint rides on the conditioning and the USDU path windows it
 to each tile (ops/upscale.py::prep_cond_for_tiles, tile_cond).
 
-The Flux and SD3.5 nodes of that file (FluxGuidance, ReferenceLatent,
-SkipLayerGuidanceSD3) come with those families (ROADMAP.md, Queue 1
-item 5); a prompt using one fails as an unknown node.
+The Flux nodes of that file ride here too: FluxGuidance (the distilled
+guidance scale on every entry) and ReferenceLatent (Kontext's reference
+latents, which the tile path windows per tile). SD3.5's
+SkipLayerGuidanceSD3 comes with the SD3 family (ROADMAP.md, Queue 1
+item 5: the SD3, WAN video and audio families); a prompt using it fails
+as an unknown node.
 """
 
 from __future__ import annotations
@@ -315,6 +318,57 @@ class ConditioningSetMask:
     def set_mask(self, conditioning, mask, context=None):
         def patch(cond):
             cond.mask = mask
+            return cond
+
+        return (map_conditioning(conditioning, patch),)
+
+
+@register_node
+class FluxGuidance:
+    """The distilled guidance scale a Flux-dev-class model embeds, on
+    every entry. It is that model's guidance knob; true CFG (the cfg
+    input) doubles the evaluations and is not what it was trained on."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "conditioning": ("CONDITIONING",),
+                "guidance": ("FLOAT", {"default": 3.5}),
+            }
+        }
+
+    RETURN_TYPES = ("CONDITIONING",)
+    FUNCTION = "append"
+
+    def append(self, conditioning, guidance, context=None):
+        def patch(cond):
+            cond.guidance = float(guidance)
+            return cond
+
+        return (map_conditioning(conditioning, patch),)
+
+
+@register_node
+class ReferenceLatent:
+    """Kontext's reference latents, appended to every entry's list: the
+    Flux MMDiT takes them as extra image tokens."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "conditioning": ("CONDITIONING",),
+                "latent": ("LATENT",),
+            }
+        }
+
+    RETURN_TYPES = ("CONDITIONING",)
+    FUNCTION = "append"
+
+    def append(self, conditioning, latent, context=None):
+        def patch(cond):
+            cond.reference_latents = list(cond.reference_latents or []) + [latent["samples"]]
             return cond
 
         return (map_conditioning(conditioning, patch),)

@@ -135,6 +135,31 @@ class CLIPTextEncode:
 
 
 @register_node
+class CLIPTextEncodeFlux:
+    """Flux's two prompts: t5xxl feeds the T5 context, clip_l the CLIP
+    pooled vector, and the distilled guidance rides on the conditioning
+    as FluxGuidance writes it (pl.encode_text_pooled_flux)."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "clip": ("CLIP",),
+                "clip_l": ("STRING", {"default": ""}),
+                "t5xxl": ("STRING", {"default": ""}),
+                "guidance": ("FLOAT", {"default": 3.5}),
+            }
+        }
+
+    RETURN_TYPES = ("CONDITIONING",)
+    FUNCTION = "encode"
+
+    def encode(self, clip, clip_l="", t5xxl="", guidance=3.5, context=None):
+        return (pl.encode_text_pooled_flux(clip, [str(t5xxl)], [str(clip_l)],
+                                           guidance=float(guidance)),)
+
+
+@register_node
 class CLIPTextEncodeSDXL:
     """SDXL's dual-prompt encoding: text_l through the CLIP-L tower,
     text_g through CLIP-G, and the six size ints on the conditioning as

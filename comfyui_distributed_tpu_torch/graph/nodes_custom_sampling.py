@@ -99,7 +99,7 @@ class BasicScheduler:
         if float(denoise) <= 0.0:
             return (torch.zeros((0,), dtype=torch.float32),)
         return (smp.get_model_sigmas(pl.model_schedule_info(model), str(scheduler), int(steps),
-                                     denoise=float(denoise)),)
+                                     denoise=float(denoise), flow_shift=pl.flow_shift(model)),)
 
 
 @register_node
@@ -193,8 +193,9 @@ class BetaSamplingScheduler:
     FUNCTION = "get_sigmas"
 
     def get_sigmas(self, model, steps=20, alpha=0.6, beta=0.6, context=None):
-        pl.model_schedule_info(model)  # the VP table: eps and v models
-        sigmas = smp.beta_spaced_sigmas(np.asarray(smp._vp_sigmas()), int(steps), float(alpha),
+        table = (smp._flow_sigma_table(pl.flow_shift(model))
+                 if pl.model_schedule_info(model) == "flow" else smp._vp_sigmas())
+        sigmas = smp.beta_spaced_sigmas(np.asarray(table), int(steps), float(alpha),
                                         float(beta))
         return (_terminal_zero(np.asarray(sigmas, np.float32)),)
 
@@ -218,7 +219,9 @@ class SDTurboScheduler:
     FUNCTION = "get_sigmas"
 
     def get_sigmas(self, model, steps=1, denoise=1.0, context=None):
-        pl.model_schedule_info(model)
+        if pl.model_schedule_info(model) == "flow":
+            raise ValueError("SDTurboScheduler indexes the VP training table; use "
+                             "BasicScheduler for flow-family models")
         n = int(steps)
         if not 1 <= n <= 10:
             raise ValueError("SDTurboScheduler takes 1-10 steps")

@@ -1,11 +1,16 @@
-"""Model patch nodes.
+"""Component loaders and model patch nodes.
 
-The port's own copy of the SD model patches of comfyui_distributed_tpu/
-graph/nodes_loaders.py: FreeU, FreeU_V2, PerturbedAttentionGuidance,
-SelfAttentionGuidance, RescaleCFG and ModelSamplingDiscrete, with the
-JAX nodes' inputs and defaults. A patch returns a new bundle through `dataclasses.replace`
-(the modules and parameters are shared; FreeU's UNet is a view with its
-own config, `UNet.with_freeu`): the bundle the executor caches for the
+The port's own copy of comfyui_distributed_tpu/graph/nodes_loaders.py's
+SD and Flux nodes, with the JAX nodes' inputs and defaults: the
+component loaders Flux ships for (UNETLoader, CLIPLoader, DualCLIPLoader
+of types sdxl and flux), EmptySD3LatentImage, the schedule patches
+ModelSamplingDiscrete and ModelSamplingFlux, and the SD model patches
+FreeU, FreeU_V2, PerturbedAttentionGuidance, SelfAttentionGuidance and
+RescaleCFG. A loader caches its bundle in the context under the JAX
+package's keys ("unet:<name>", "clip:<layout>:<names>"). A patch
+returns a new bundle through `dataclasses.replace` (the modules and
+parameters are shared; FreeU's UNet is a view with its own config,
+`UNet.with_freeu`): the bundle the executor caches for the
 checkpoint, which other nodes and prompts use, keeps no patch. PAG, SAG
 and RescaleCFG compose the guidance, so at most one of them applies to
 a model.
@@ -14,10 +19,175 @@ a model.
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
+
+import torch
 
 from ..models import pipeline as pl
-from ..models.registry import model_family
+from ..models.registry import MODEL_REGISTRY, model_family
+from .nodes_core import _device
 from .registry import register_node
+
+
+def _stem(name: str) -> str:
+    """A workflow's file name ('clip_l.safetensors') as a registry name:
+    the stem, its underscores made the registry's hyphens where only
+    that form is known."""
+    base = os.path.splitext(str(name))[0]
+    if base in MODEL_REGISTRY:
+        return base
+    hyphenated = base.replace("_", "-")
+    return hyphenated if hyphenated in MODEL_REGISTRY else base
+
+
+def _cached(context, key: str, load):
+    cache = context.pipelines if context is not None else {}
+    if key not in cache:
+        cache[key] = load()
+    return cache[key]
+
+
+@register_node
+class UNETLoader:
+    """A diffusion backbone alone (`pl.load_unet`). weight_dtype takes
+    ComfyUI's values; the compute dtype is the config's, so anything but
+    'default' is accepted and changes nothing."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "unet_name": ("STRING", {"default": "tiny-unet"}),
+                "weight_dtype": ("STRING", {"default": "default"}),
+            }
+        }
+
+    RETURN_TYPES = ("MODEL",)
+    FUNCTION = "load_unet"
+
+    def load_unet(self, unet_name, weight_dtype="default", context=None):
+        name = _stem(unet_name)
+        return (_cached(context, f"unet:{name}",
+                        lambda: pl.load_unet(name, device=_device(context))),)
+
+
+def _load_clip_cached(names: list[str], layout: str, context):
+    return _cached(context, f"clip:{layout}:" + ",".join(names),
+                   lambda: pl.load_clip(names, layout=layout, device=_device(context)))
+
+
+# ComfyUI's type values → load_clip layouts
+_CLIP_TYPE_MAP = {"stable_diffusion": "sd", "sdxl": "sdxl", "flux": "flux", "sd3": "sd3"}
+
+
+@register_node
+class CLIPLoader:
+    """One text encoder (type stable_diffusion)."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "clip_name": ("STRING", {"default": "clip-l"}),
+                "type": ("STRING", {"default": "stable_diffusion"}),
+            }
+        }
+
+    RETURN_TYPES = ("CLIP",)
+    FUNCTION = "load_clip"
+
+    def load_clip(self, clip_name, type="stable_diffusion", context=None):
+        if str(type) != "stable_diffusion":
+            raise ValueError("CLIPLoader loads one encoder; type must be 'stable_diffusion' "
+                             "(use DualCLIPLoader/TripleCLIPLoader for sdxl/flux/sd3 layouts)")
+        return (_load_clip_cached([_stem(clip_name)], "sd", context),)
+
+
+@register_node
+class DualCLIPLoader:
+    """Two text encoders: type sdxl (CLIP-L + CLIP-G) or flux (a CLIP and
+    a T5, either order). Type sd3 waits for the SD3 family."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "clip_name1": ("STRING", {"default": "clip-l"}),
+                "clip_name2": ("STRING", {"default": "clip-g"}),
+                "type": ("STRING", {"default": "sdxl"}),
+            }
+        }
+
+    RETURN_TYPES = ("CLIP",)
+    FUNCTION = "load_clip"
+
+    def load_clip(self, clip_name1, clip_name2, type="sdxl", context=None):
+        layout = _CLIP_TYPE_MAP.get(str(type))
+        if layout is None or layout == "sd":
+            raise ValueError(f"DualCLIPLoader type must be sdxl, flux, or sd3; got {type!r}")
+        if layout == "sd3":
+            raise NotImplementedError("DualCLIPLoader type sd3 is not ported yet (ROADMAP.md, "
+                                      "Queue 1 step 4: SD3 and SD3.5)")
+        return (_load_clip_cached([_stem(clip_name1), _stem(clip_name2)], layout, context),)
+
+
+@register_node
+class EmptySD3LatentImage:
+    """16-channel empty latents (the SD3/Flux workflows' start), with
+    EmptyLatentImage's placeholder marker: KSampler rebuilds them to the
+    bundle's latent layout if it differs."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "width": ("INT", {"default": 1024}),
+                "height": ("INT", {"default": 1024}),
+                "batch_size": ("INT", {"default": 1}),
+            }
+        }
+
+    RETURN_TYPES = ("LATENT",)
+    FUNCTION = "generate"
+
+    def generate(self, width=1024, height=1024, batch_size=1, context=None):
+        samples = torch.zeros((int(batch_size), int(height) // 8, int(width) // 8, 16),
+                              device=_device(context))
+        return ({"samples": samples, "width": int(width), "height": int(height), "empty": True},)
+
+
+@register_node
+class ModelSamplingFlux:
+    """The resolution-dependent flow shift: mu linear in the image tokens
+    (pixels / 16 a side) from base_shift at 256 to max_shift at 4096, the
+    shift exp(mu) (Flux's time_shift(mu, t) is the shifted sigma s t / (1
+    + (s - 1) t) with s = e^mu)."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "model": ("MODEL",),
+                "max_shift": ("FLOAT", {"default": 1.15}),
+                "base_shift": ("FLOAT", {"default": 0.5}),
+                "width": ("INT", {"default": 1024}),
+                "height": ("INT", {"default": 1024}),
+            }
+        }
+
+    RETURN_TYPES = ("MODEL",)
+    FUNCTION = "patch"
+
+    def patch(self, model, max_shift=1.15, base_shift=0.5, width=1024, height=1024,
+              context=None):
+        if pl.model_schedule_info(model) != "flow":
+            raise ValueError(f"ModelSamplingFlux patches flow-matching models (Flux/SD3 class); "
+                             f"{model.model_name!r} is not one")
+        seq = (int(width) // 16) * (int(height) // 16)
+        mu = float(base_shift) + (float(max_shift) - float(base_shift)) * (
+            (seq - 256) / (4096 - 256))
+        return (dataclasses.replace(model, flow_shift_override=math.exp(mu)),)
 
 
 def _require_unet(model: pl.PipelineBundle, node_name: str, what: str) -> None:

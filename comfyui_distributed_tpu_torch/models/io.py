@@ -11,8 +11,10 @@ onto a PyTorch parameter name by rule:
 - anything else (biases, position embeddings, the text projection)
   keeps its name and layout.
 
-One rule carries every tree: the UNet, the VAE, the text encoders, the
-ControlNet and the upscale model.
+One rule carries every tree: the UNet, the VAE, the text encoders
+(CLIP and T5, with its shared `rel_bias` table), the ControlNet, the
+upscale model and the Flux MMDiT (its RMS `scale`s, and the Dense
+kernels of the fused linear1/linear2).
 
 Real single-file SD checkpoints (.safetensors, .ckpt) load through
 models/sd_checkpoint.py, whose key schedules name parameters by the same
@@ -26,6 +28,8 @@ import math
 import numpy as np
 import torch
 from torch import nn
+
+from .layers import RMSNorm
 
 
 def _torch_name_and_value(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
@@ -74,9 +78,9 @@ def from_jax_params(flat: dict[str, np.ndarray], module: nn.Module) -> dict[str,
 @torch.no_grad()
 def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter in place from `generator`, in registration
-    order: Dense/Conv weights N(0, 1/fan_in), biases 0, norm scales 1,
-    embeddings N(0, 1/width), the position table N(0, 0.01^2) and the
-    text projection N(0, 1/width), with the scales of the flax
+    order: Dense/Conv weights N(0, 1/fan_in), biases 0, norm and RMS-norm
+    scales 1, embeddings N(0, 1/width), the position table N(0, 0.01^2)
+    and the text projection N(0, 1/width), with the scales of the flax
     initialisers."""
     device = generator.device
     for name, param in module.named_parameters():
@@ -84,7 +88,7 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         leaf = name.rpartition(".")[2]
         if leaf == "bias":
             param.zero_()
-        elif isinstance(owner, (nn.GroupNorm, nn.LayerNorm)):
+        elif isinstance(owner, (nn.GroupNorm, nn.LayerNorm, RMSNorm)):
             param.fill_(1.0)
         else:
             if isinstance(owner, (nn.Linear, nn.Conv2d)):

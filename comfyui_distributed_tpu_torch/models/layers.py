@@ -97,6 +97,20 @@ class LayerNorm32(nn.LayerNorm):
         return super().forward(x.float()).to(self.out_dtype)
 
 
+class RMSNorm(nn.Module):
+    """flax `nn.RMSNorm(dtype=float32)`: x * rsqrt(mean(x^2) + eps) *
+    weight over the last axis, in f32; the result stays f32."""
+
+    def __init__(self, width: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(width))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        return x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + self.eps) * self.weight
+
+
 class AttentionBlock(nn.Module):
     """Multi-head attention over tokens: self-attention when `context`
     is None, cross-attention otherwise."""

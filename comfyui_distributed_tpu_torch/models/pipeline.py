@@ -2,10 +2,14 @@
 
 Counterpart of the parts of comfyui_distributed_tpu/models/pipeline.py
 that the ported paths run: `load_pipeline` (a single-file SD1.x, SD2.x
-or SDXL checkpoint where one resolves, else seeded random init) and
-`load_vae`, single-tower (SD1.5, SD2.1) and dual-tower (SDXL) text
-encoding with clip-skip, the model function (eps or v prediction, the
-adm vector of pooled text and six Fourier size embeddings), CFG with the
+or SDXL checkpoint, or a Flux file set, where one resolves, else seeded
+random init), `load_vae`, and the component loaders `load_unet` and
+`load_clip` (UNETLoader, CLIPLoader, DualCLIPLoader); single-tower
+(SD1.5, SD2.1), dual-tower (SDXL) and Flux (T5 context, CLIP pooled)
+text encoding with clip-skip, the model function (eps or v prediction
+with the adm vector of pooled text and six Fourier size embeddings, or
+rectified flow: t = sigma, no input scaling, the distilled guidance and
+Kontext's reference latents), CFG with the
 PAG patch, and `img2img_latents` / `img2img_latents_advanced`
 (KSamplerAdvanced's window) / `txt2img`, each with the inpainting noise
 mask. Modules hold their own parameters, so the functions take the
@@ -19,8 +23,9 @@ sigma grid (SamplerCustom and SamplerCustomAdvanced).
 
 Node patches (CLIPSetLastLayer's clip-skip, PerturbedAttentionGuidance's
 PAGSpec, SelfAttentionGuidance's SAGSpec, RescaleCFG's multiplier,
-FreeU's UNet config, PerpNegGuider's PerpNegSpec and DualCFGGuider's
-DualCFGSpec) return a new bundle through `dataclasses.replace`:
+FreeU's UNet config, PerpNegGuider's PerpNegSpec, DualCFGGuider's
+DualCFGSpec and ModelSamplingFlux's shift) return a new bundle through
+`dataclasses.replace`:
 the modules and their parameters are shared, the bundle a graph executor
 caches is never changed.
 
@@ -52,27 +57,38 @@ from ..utils.logging import log
 from . import sd_checkpoint as sdc
 from .io import random_init_
 from .layers import timestep_embedding
+from .mmdit import MMDiT
 from .registry import (
     DEFAULT_TEXT_ENCODERS,
     DUAL_TEXT_ENCODERS,
+    HIDDEN_POOLED_ENCODERS,
     create_model,
     get_config,
     model_family,
 )
+from .t5_encoder import T5Encoder, T5Tokenizer
 from .text_encoder import TextEncoder, Tokenizer
 from .unet import UNet
 from .vae import VAE
 
+# the diffusion families the port runs; the others (sd3, dit, video)
+# raise where a bundle of them is asked for
+PORTED_FAMILIES = ("unet", "mmdit")
+
 
 @dataclasses.dataclass
 class PipelineBundle:
-    """A checkpoint: UNet + VAE + text encoder(s), on one device."""
+    """A checkpoint: diffusion backbone (UNet or Flux MMDiT) + VAE + text
+    encoder(s), on one device. A component loader's bundle leaves out
+    what it does not load (UNETLoader: no VAE or encoders; the CLIP
+    loaders: no backbone or VAE). A Flux bundle's first encoder is the
+    T5 (context), its second the CLIP (pooled)."""
 
     model_name: str
-    unet: UNet
-    vae: VAE
-    text_encoder: TextEncoder
-    tokenizer: Tokenizer
+    unet: UNet | MMDiT | None
+    vae: VAE | None
+    text_encoder: TextEncoder | T5Encoder | None
+    tokenizer: Tokenizer | T5Tokenizer | None
     device: torch.device
     latent_channels: int = 4
     latent_scale: int = 8  # spatial down factor of the VAE
@@ -97,14 +113,15 @@ class PipelineBundle:
     perp_neg: "PerpNegSpec | None" = None
     # ModelSamplingDiscrete: "eps" or "v" in place of the config's
     parameterization_override: str | None = None
+    # ModelSamplingFlux: the flow schedule's shift in place of the config's
+    flow_shift_override: float | None = None
 
     def parts(self) -> dict[str, torch.nn.Module]:
-        """The modules by checkpoint part: unet, vae, te and, for a
-        dual-tower bundle, te2."""
-        parts = {"unet": self.unet, "vae": self.vae, "te": self.text_encoder}
-        if self.text_encoder_2 is not None:
-            parts["te2"] = self.text_encoder_2
-        return parts
+        """The modules the bundle holds, by checkpoint part: unet, vae, te
+        and te2."""
+        parts = {"unet": self.unet, "vae": self.vae, "te": self.text_encoder,
+                 "te2": self.text_encoder_2}
+        return {part: module for part, module in parts.items() if module is not None}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,7 +175,28 @@ class VAEBundle:
 
 
 def _family_vae_name(model_name: str) -> str:
-    return "tiny-vae" if model_name.startswith("tiny") else "vae-sd"
+    """The default VAE of a diffusion model's family."""
+    tiny = model_name.startswith("tiny")
+    if model_family(model_name) == "mmdit":
+        return "tiny-vae-flux" if tiny else "vae-flux"
+    return "tiny-vae" if tiny else "vae-sd"
+
+
+def _require_ported_family(model_name: str) -> str:
+    family = model_family(model_name)
+    if family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"{model_name!r} ({family} family): only UNet (SD) and Flux pipelines are ported so "
+            "far (ROADMAP.md, Queue 1 item 5: the SD3, WAN video and audio families)")
+    return family
+
+
+def _tokenizer(name: str):
+    """The tokenizer of a registry encoder: T5's (folded BPE ids) or CLIP's."""
+    cfg = get_config(name)
+    if model_family(name) == "t5_encoder":
+        return T5Tokenizer(max_length=cfg.max_length, vocab_size=cfg.vocab_size)
+    return Tokenizer(max_length=cfg.max_length, pad_id=cfg.pad_token_id)
 
 
 def _build(name: str, device: torch.device, generator: torch.Generator | None):
@@ -197,25 +235,29 @@ def _loading(path: str, what: str):
         "GB/s)")
 
 
-def _load_te_checkpoint(name: str, module: TextEncoder) -> None:
+def _load_te_checkpoint(name: str, module: TextEncoder | T5Encoder) -> None:
     """Fill a text tower from `CDT_CHECKPOINT_DIR/<name>.*` (a standalone
-    CLIP file), where one resolves."""
+    CLIP or T5 encoder file), where one resolves."""
     path = sdc.find_checkpoint(name)
     if not path:
         return
     with _loading(path, name), sdc.open_checkpoint(path) as state_dict:
-        sdc.load_clip_te_weights(state_dict, get_config(name), module)
+        if model_family(name) == "t5_encoder":
+            sdc.load_t5_weights(state_dict, get_config(name), module)
+        else:
+            sdc.load_clip_te_weights(state_dict, get_config(name), module)
 
 
 def load_pipeline(model_name: str = "tiny-unet", seed: int = 0, device="cuda",
                   checkpoint: str | None = None) -> PipelineBundle:
     """Build a pipeline on `device` (the card unless the caller asks for
-    the CPU). Its weights come from a single-file SD checkpoint where one
+    the CPU). Its weights come from a single-file checkpoint where one
     resolves: `checkpoint`, else `CDT_CHECKPOINT_DIR/<model_name>.*`
     (models/sd_checkpoint.py::find_checkpoint); loading is strict, and a
     file whose UNet takes 9 input channels loads as the family's
-    inpainting model (`sniff_model_name`). A text tower the file does not
-    carry is filled from
+    inpainting model (`sniff_model_name`). A Flux file fills the parts it
+    carries (a published transformer file: the MMDiT only). A text tower
+    the file does not carry is filled from
     `CDT_CHECKPOINT_DIR/<encoder name>.*` where that exists. With no
     checkpoint the weights are seeded random: each module draws from its
     own generator, seeded from `seed`, on the target device."""
@@ -241,57 +283,156 @@ def _assemble(model_name: str, device: torch.device, seed: int, state_dict):
     """load_pipeline's bundle of `model_name` and the towers the checkpoint
     supplied: filled from `state_dict` (an open single-file checkpoint)
     where given, else seeded."""
-    if model_family(model_name) != "unet":
-        raise NotImplementedError(
-            f"{model_name!r}: only UNet-family pipelines are ported so far (ROADMAP.md, "
-            "Queue 1 item 5: other model families)"
-        )
-    if model_name in DUAL_TEXT_ENCODERS:
+    family = _require_ported_family(model_name)
+    if model_name in HIDDEN_POOLED_ENCODERS:
+        te_name, te2_name = HIDDEN_POOLED_ENCODERS[model_name]
+    elif model_name in DUAL_TEXT_ENCODERS:
         te_name, te2_name = DUAL_TEXT_ENCODERS[model_name]
     elif model_name in DEFAULT_TEXT_ENCODERS:
         te_name, te2_name = DEFAULT_TEXT_ENCODERS[model_name], None
     else:
         te_name, te2_name = ("tiny-te" if model_name.startswith("tiny") else "clip-l"), None
     vae_name = _family_vae_name(model_name)
-    # a checkpoint fills every parameter: no random draw for it to replace
+    # a checkpoint fills every parameter: no random draw for it to replace;
+    # a Flux file may carry only some parts, and the others are seeded
     generator = _seed_generators(seed, device)
-    init = (lambda offset: None) if state_dict is not None else generator
+    init = (lambda offset: None) if state_dict is not None and family == "unet" else generator
 
     unet = _build(model_name, device, init(0))
-    if state_dict is None:
+    if state_dict is None and family == "unet":
         # zero-initialised as in the JAX package (its out_conv kernel_init):
         # an untrained UNet predicts eps = 0
         unet.out_conv.weight.zero_()
     vae = _build(vae_name, device, init(1))
     te = _build(te_name, device, init(2))
-    te_cfg = get_config(te_name)
     vae_cfg = get_config(vae_name)
-    te2 = tok2 = None
+    te2 = None
     if te2_name:
         te2 = _build(te2_name, device, init(3))
-        te2_cfg = get_config(te2_name)
-        tok2 = Tokenizer(max_length=te2_cfg.max_length, pad_id=te2_cfg.pad_token_id)
 
     bundle = PipelineBundle(
         model_name=model_name,
         unet=unet,
         vae=vae,
         text_encoder=te,
-        tokenizer=Tokenizer(max_length=te_cfg.max_length, pad_id=te_cfg.pad_token_id),
+        tokenizer=_tokenizer(te_name),
         device=device,
         latent_channels=vae_cfg.latent_channels,
         latent_scale=vae_cfg.downscale,
         text_encoder_2=te2,
-        tokenizer_2=tok2,
+        tokenizer_2=_tokenizer(te2_name) if te2_name else None,
         te_name=te_name,
         te2_name=te2_name,
     )
     supplied: set[str] = set()
-    if state_dict is not None:
-        sdc.load_sd_weights(state_dict, get_config(model_name), vae_cfg, te_cfg, bundle.parts(),
-                            te2_cfg=get_config(te2_name) if te2_name else None)
+    if state_dict is not None and family == "mmdit":
+        supplied = sdc.load_flux_weights(state_dict, get_config(model_name), vae_cfg,
+                                         get_config(te_name), bundle.parts(),
+                                         te2_cfg=get_config(te2_name))
+    elif state_dict is not None:
+        sdc.load_sd_weights(state_dict, get_config(model_name), vae_cfg, get_config(te_name),
+                            bundle.parts(), te2_cfg=get_config(te2_name) if te2_name else None)
         supplied = sdc.supplied_towers(state_dict)
     return bundle, supplied
+
+
+def load_unet(model_name: str, seed: int = 0, device="cuda",
+              checkpoint: str | None = None) -> PipelineBundle:
+    """A backbone-only bundle (UNETLoader: Flux ships its transformer as
+    a file of its own, the VAE and encoders come from VAELoader and the
+    CLIP loaders). Weights from `checkpoint`, else
+    `CDT_CHECKPOINT_DIR/<model_name>.*` (bare Flux keys or the
+    `model.diffusion_model.` layout), else the seeded init load_pipeline
+    gives its backbone at `seed`. The latent geometry is the family VAE's."""
+    family = model_family(model_name)
+    if family not in ("unet", "mmdit", "sd3"):
+        raise ValueError(f"{model_name!r} (family {family!r}) is not an image diffusion "
+                         "backbone; UNETLoader loads unet/mmdit/sd3 models")
+    _require_ported_family(model_name)
+    device = torch.device(device)
+    path = checkpoint or sdc.find_checkpoint(model_name)
+    unet = _build(model_name, device, None if path else _seed_generators(seed, device)(0))
+    if path:
+        with _loading(path, model_name), sdc.open_checkpoint(path) as state_dict:
+            sdc.load_diffusion_weights(state_dict, get_config(model_name), unet, family)
+    elif family == "unet":
+        unet.out_conv.weight.zero_()
+    vae_cfg = get_config(_family_vae_name(model_name))
+    return PipelineBundle(model_name=model_name, unet=unet, vae=None, text_encoder=None,
+                          tokenizer=None, device=device,
+                          latent_channels=vae_cfg.latent_channels,
+                          latent_scale=vae_cfg.downscale)
+
+
+def _order_clip_towers(names: list[str]) -> list[str]:
+    """(CLIP-L, CLIP-G) by tower width (G is the wider), so the sdxl
+    layout takes its two names in either order; equal widths keep it."""
+    if len(names) == 2 and get_config(names[0]).width > get_config(names[1]).width:
+        return [names[1], names[0]]
+    return list(names)
+
+
+# the CLIP loaders' layouts → the registry model whose conditioning
+# composition the bundle applies (None: the first encoder's own)
+_CLIP_LAYOUT_MODELS = {"sd": None, "sdxl": None, "flux": ("tiny-flux", "flux-dev")}
+
+
+def load_clip(te_names: list[str], layout: str = "sd", seed: int = 0,
+              device="cuda") -> PipelineBundle:
+    """An encoder-only bundle (CLIPLoader, DualCLIPLoader): each encoder by
+    registry name, its weights from `CDT_CHECKPOINT_DIR/<name>.*` where
+    that resolves, else seeded as load_pipeline seeds its towers (the
+    first at generator offset 2, the second at 3). `layout`:
+
+      sd    one CLIP tower (hidden and pooled);
+      sdxl  CLIP-L + CLIP-G, either order: context concatenated on
+            features, pooled from G;
+      flux  one T5 and one CLIP, either order: the T5's hidden states,
+            the CLIP's pooled vector.
+
+    The sd3 layout waits for the SD3 family."""
+    names = [str(n) for n in te_names]
+    expected = {"sd": 1, "sdxl": 2, "flux": 2}
+    if layout == "sd3":
+        raise NotImplementedError("the sd3 CLIP layout is not ported yet (ROADMAP.md, Queue 1 "
+                                  "step 4: SD3 and SD3.5)")
+    if layout not in expected:
+        raise ValueError(f"unknown CLIP layout {layout!r}; use {sorted(expected)}")
+    if len(names) != expected[layout]:
+        raise ValueError(f"layout {layout!r} takes {expected[layout]} encoder name(s), "
+                         f"got {names}")
+    t5s = [n for n in names if model_family(n) == "t5_encoder"]
+    clips = [n for n in names if model_family(n) != "t5_encoder"]
+    if layout == "flux":
+        if len(t5s) != 1 or len(clips) != 1:
+            raise ValueError(f"flux layout needs one T5-family and one CLIP-family encoder, "
+                             f"got {names}")
+        ordered = [t5s[0], clips[0]]  # te = T5, te2 = CLIP
+    else:
+        if t5s:
+            raise ValueError(f"layout {layout!r} takes CLIP-family encoders only, got {names}")
+        ordered = _order_clip_towers(names) if layout == "sdxl" else names
+    models = _CLIP_LAYOUT_MODELS[layout]
+    if models is None:
+        bundle_name = ordered[0]
+    else:
+        bundle_name = models[0] if all(n.startswith("tiny") for n in ordered) else models[1]
+    device = torch.device(device)
+    generator = _seed_generators(seed, device)
+    encoders = []
+    for i, name in enumerate(ordered):
+        path = sdc.find_checkpoint(name)
+        module = _build(name, device, None if path else generator(2 + i))
+        _load_te_checkpoint(name, module)
+        encoders.append(module)
+    second = len(ordered) > 1
+    return PipelineBundle(
+        model_name=bundle_name, unet=None, vae=None, text_encoder=encoders[0],
+        tokenizer=_tokenizer(ordered[0]), device=device,
+        text_encoder_2=encoders[1] if second else None,
+        tokenizer_2=_tokenizer(ordered[1]) if second else None,
+        te_name=ordered[0], te2_name=ordered[1] if second else None,
+    )
 
 
 def load_vae(vae_name: str = "vae-sd", seed: int = 0, device="cuda") -> VAEBundle:
@@ -323,12 +464,30 @@ def _encode_tower(encoder: TextEncoder, tokenizer: Tokenizer, texts: list[str], 
 
 
 @torch.no_grad()
+def _encode_flux_parts(bundle: PipelineBundle, texts_t5: list[str], texts_clip: list[str]):
+    """The Flux layout: the T5's hidden states are the context, the CLIP
+    tower's pooled vector the pooled one; no concat, no padding."""
+    if bundle.text_encoder_2 is None or bundle.tokenizer_2 is None:
+        raise ValueError(f"{bundle.model_name}: Flux bundles need text_encoder_2/tokenizer_2 "
+                         "(the CLIP pooled source)")
+    tokens = torch.as_tensor(bundle.tokenizer.encode_batch(texts_t5), dtype=torch.long,
+                             device=bundle.device)
+    hidden, _ = bundle.text_encoder(tokens)
+    _, pooled = _encode_tower(bundle.text_encoder_2, bundle.tokenizer_2, texts_clip,
+                              bundle.device, bundle.clip_skip)
+    return hidden, pooled
+
+
+@torch.no_grad()
 def _encode_raw(bundle: PipelineBundle, texts: list[str], texts_2: list[str] | None = None):
-    """Prompts → (hidden [B, T, context_dim], pooled [B, P]). Dual-tower
-    bundles concatenate both hidden states on features and take the
-    pooled vector from the second (projected) tower, which encodes
-    `texts_2` where given (CLIPTextEncodeSDXL's text_g), else `texts`.
-    The bundle's clip-skip applies to every tower."""
+    """Prompts → (hidden [B, T, context_dim], pooled [B, P]). Flux bundles
+    take `_encode_flux_parts`. Dual-tower bundles concatenate both hidden
+    states on features and take the pooled vector from the second
+    (projected) tower, which encodes `texts_2` where given
+    (CLIPTextEncodeSDXL's text_g), else `texts`. The bundle's clip-skip
+    applies to every CLIP tower."""
+    if model_family(bundle.model_name) == "mmdit":
+        return _encode_flux_parts(bundle, texts, texts)
     hidden, pooled = _encode_tower(bundle.text_encoder, bundle.tokenizer, texts, bundle.device,
                                    bundle.clip_skip)
     if bundle.text_encoder_2 is not None:
@@ -337,7 +496,7 @@ def _encode_raw(bundle: PipelineBundle, texts: list[str], texts_2: list[str] | N
             bundle.device, bundle.clip_skip
         )
         hidden = torch.cat([hidden.float(), hidden2.float()], dim=-1)
-    ctx_dim = get_config(bundle.model_name).context_dim
+    ctx_dim = getattr(get_config(bundle.model_name), "context_dim", hidden.shape[-1])
     if hidden.shape[-1] < ctx_dim:
         hidden = torch.nn.functional.pad(hidden, (0, ctx_dim - hidden.shape[-1]))
     return hidden[..., :ctx_dim], pooled
@@ -352,6 +511,20 @@ def encode_text_pooled(bundle: PipelineBundle, texts: list[str]) -> Conditioning
     """Prompts → Conditioning carrying the pooled vector (SDXL adm)."""
     hidden, pooled = _encode_raw(bundle, texts)
     return Conditioning(context=hidden, pooled=pooled)
+
+
+def encode_text_pooled_flux(bundle: PipelineBundle, texts_t5: list[str], texts_clip: list[str],
+                            guidance: float | None = None) -> Conditioning:
+    """CLIPTextEncodeFlux's encoding: `texts_t5` through the T5 (context),
+    `texts_clip` through the CLIP tower (pooled), and the distilled
+    guidance on the Conditioning (FluxGuidance's slot). With one prompt
+    for both and no guidance it is `encode_text_pooled`."""
+    if model_family(bundle.model_name) != "mmdit":
+        raise ValueError(f"{bundle.model_name}: CLIPTextEncodeFlux needs a Flux-layout "
+                         "(mmdit) bundle")
+    hidden, pooled = _encode_flux_parts(bundle, texts_t5, texts_clip)
+    return Conditioning(context=hidden, pooled=pooled,
+                        guidance=None if guidance is None else float(guidance))
 
 
 def encode_text_pooled_sdxl(bundle: PipelineBundle, texts_g: list[str], texts_l: list[str],
@@ -372,10 +545,19 @@ def encode_text_pooled_sdxl(bundle: PipelineBundle, texts_g: list[str], texts_l:
 def model_schedule_info(bundle: PipelineBundle) -> str:
     """The backbone's parameterization, which picks the sigma table and
     the noising rule: "eps" or "v" (SD2.x-768 class), both on the VP
-    table; ModelSamplingDiscrete's override where it is set."""
+    table, or "flow" (Flux); ModelSamplingDiscrete's override where it is
+    set."""
     param = bundle.parameterization_override or get_config(bundle.model_name).parameterization
-    smp.require_vp(param)
+    smp.require_parameterization(param)
     return param
+
+
+def flow_shift(bundle: PipelineBundle) -> float:
+    """The flow schedule's shift: ModelSamplingFlux's override, else the
+    config's (3.0 where a config has none)."""
+    if bundle.flow_shift_override is not None:
+        return float(bundle.flow_shift_override)
+    return float(getattr(get_config(bundle.model_name), "flow_shift", 3.0))
 
 
 def _adm_vector(bundle: PipelineBundle, cond: Conditioning, x: torch.Tensor) -> torch.Tensor | None:
@@ -415,10 +597,10 @@ def _adm_vector(bundle: PipelineBundle, cond: Conditioning, x: torch.Tensor) -> 
 def percent_converter(bundle: PipelineBundle):
     """The bundle's sampling-progress percent → sigma converter (the
     timestep windows of conditioning and ControlNet hints)."""
-    param = model_schedule_info(bundle)
+    param, shift = model_schedule_info(bundle), flow_shift(bundle)
 
     def p2s(percent: float) -> float:
-        return smp.percent_to_sigma(percent, param)
+        return smp.percent_to_sigma(percent, param, shift)
 
     return p2s
 
@@ -453,6 +635,40 @@ def _concat_channels(concat: torch.Tensor, x_in: torch.Tensor) -> torch.Tensor:
     return extra
 
 
+def _flow_model_fn(bundle: PipelineBundle):
+    """The rectified-flow (Flux) model function: t is sigma, no input
+    scaling, the velocity is eps under the samplers' contract; the
+    entry's distilled guidance (None: the model's default) and Kontext's
+    reference latents go to the MMDiT. ControlNet hints and concat
+    channels raise: the family has no input for them."""
+
+    def model_fn(x: torch.Tensor, sigma_batch: torch.Tensor, cond):
+        entry = cond if isinstance(cond, Conditioning) else None
+        context = entry.context if entry is not None else cond
+        if context.shape[0] != x.shape[0] and x.shape[0] % context.shape[0] == 0:
+            context = context.repeat_interleave(x.shape[0] // context.shape[0], dim=0)
+        y = g = refs = None
+        if entry is not None:
+            if entry.control_hint is not None and entry.control_net is not None:
+                raise ValueError("ControlNet conditioning is not supported for Flux-class models "
+                                 "(Flux ControlNets are a separate architecture)")
+            if entry.concat_latent is not None:
+                raise ValueError("concat-channel inpaint conditioning (InpaintModelConditioning) "
+                                 "applies to SD-class inpaint UNets; flow-family models have no "
+                                 "c_concat input")
+            y = _adm_vector(bundle, entry, x)
+            if entry.guidance is not None:
+                g = torch.full((x.shape[0],), float(entry.guidance), dtype=torch.float32,
+                               device=x.device)
+            if entry.reference_latents:
+                refs = [r.to(device=x.device, dtype=x.dtype) for r in entry.reference_latents]
+        out = bundle.unet(x, smp.on_device(sigma_batch, x), context, y=y, guidance=g,
+                          ref_latents=refs)
+        return out.to(x.dtype)
+
+    return model_fn
+
+
 def _make_model_fn(bundle: PipelineBundle, pag: bool = False, sag_capture: bool = False):
     """eps model function: VP input scaling, sigma → timestep, context
     broadcast to the latent batch, the adm vector and the ControlNet
@@ -462,8 +678,12 @@ def _make_model_fn(bundle: PipelineBundle, pag: bool = False, sag_capture: bool 
     runs the UNet's PAG pass (identity self-attention in the middle
     block). `sag_capture` changes what the function returns: (eps, the
     middle block's self-attention probabilities, (mid_h, mid_w)), the
-    form `sag_cfg_model` consumes. The sigma batch may be on the host."""
-    is_v = model_schedule_info(bundle) == "v"
+    form `sag_cfg_model` consumes. The sigma batch may be on the host.
+    A flow model takes `_flow_model_fn`."""
+    param = model_schedule_info(bundle)
+    if param == "flow":
+        return _flow_model_fn(bundle)
+    is_v = param == "v"
     p2s = percent_converter(bundle)
 
     def model_fn(x: torch.Tensor, sigma_batch: torch.Tensor, cond):
@@ -473,6 +693,9 @@ def _make_model_fn(bundle: PipelineBundle, pag: bool = False, sag_capture: bool 
             context = context.repeat_interleave(x.shape[0] // context.shape[0], dim=0)
         y = control = None
         if entry is not None:
+            if entry.reference_latents:
+                raise ValueError("reference latents are a Flux-Kontext capability; this model "
+                                 "family has no reference token path")
             y = _adm_vector(bundle, entry, x)
             control = _control_residual(entry, x, sigma_batch, p2s)
         t = smp.on_device(smp.sigma_to_timestep(sigma_batch), x)
@@ -598,7 +821,7 @@ def _masked_sample(bundle: PipelineBundle, cfg_scale: float, param: str, latents
         mask = torch.clamp(torch.as_tensor(noise_mask).to(bundle.device, torch.float32), 0.0, 1.0)
         model = smp.masked_inpaint_model(model, param, latents, noise, mask)
     cond = tuple(c if isinstance(c, (list, tuple)) else as_conditioning(c) for c in cond)
-    out = smp.sample(model, x, sigmas, cond, sampler, step_noise)
+    out = smp.sample(model, x, sigmas, cond, sampler, step_noise, flow=param == "flow")
     if noise_mask is not None:
         out = out * mask + latents * (1.0 - mask)
     return out
@@ -632,7 +855,8 @@ def img2img_latents(
     row 0's initial noise (`batch_noise`)."""
     smp.check_sampler_names(sampler, scheduler)
     param = model_schedule_info(bundle)
-    sigmas = smp.get_model_sigmas(param, scheduler, int(steps), denoise=float(denoise))
+    sigmas = smp.get_model_sigmas(param, scheduler, int(steps), denoise=float(denoise),
+                                  flow_shift=flow_shift(bundle))
     latents, noise = _latents_and_noise(bundle, latents, noise, seed, batch_fixed_noise)
     x = smp.noise_latents(param, latents, noise, sigmas[0])
     return _masked_sample(bundle, cfg_scale, param, latents, noise, x, sigmas,
@@ -642,11 +866,12 @@ def img2img_latents(
 
 def advanced_window_sigmas(parameterization: str, scheduler: str, steps: int,
                            start_at_step: int, end_at_step: int,
-                           force_full_denoise: bool) -> torch.Tensor:
-    """KSamplerAdvanced's schedule: the full [steps+1] grid windowed to
-    [start, end] (both clamped to the grid), with the last sigma forced
-    to 0 when the caller wants a full denoise despite stopping early."""
-    full = smp.get_model_sigmas(parameterization, scheduler, int(steps))
+                           force_full_denoise: bool, shift: float = 3.0) -> torch.Tensor:
+    """KSamplerAdvanced's schedule: the full [steps+1] grid (a flow model's
+    at `shift`) windowed to [start, end] (both clamped to the grid), with
+    the last sigma forced to 0 when the caller wants a full denoise
+    despite stopping early."""
+    full = smp.get_model_sigmas(parameterization, scheduler, int(steps), flow_shift=shift)
     start = min(max(int(start_at_step), 0), int(steps))
     end = min(max(int(end_at_step), start), int(steps))
     window = full[start:end + 1].clone()
@@ -683,7 +908,7 @@ def img2img_latents_advanced(
     output keeps the window's leftover noise."""
     smp.check_sampler_names(sampler, scheduler)
     window = advanced_window_sigmas(model_schedule_info(bundle), scheduler, steps, start_at_step,
-                                    end_at_step, force_full_denoise)
+                                    end_at_step, force_full_denoise, flow_shift(bundle))
     return _sample_window(bundle, latents, (context_pos, context_neg), window, sampler,
                           cfg_scale, seed, add_noise, noise_mask, batch_fixed_noise, noise,
                           step_noise)[0]

@@ -5,9 +5,11 @@ registry.py that the ported paths need: `sdxl` with its VAE and two
 text encoders (the upscale workflow), `sd15` with the SD VAE and CLIP-L
 (the txt2img, two-pass, PAG and inpaint workflows), `sd15-inpaint`
 (the 9-channel inpainting UNet of InpaintModelConditioning), `sd21` and
-`sd21-base` with OpenCLIP-H (the SD2.1 workflow), and the tiny
-instances of the same code that the CPU tests hold against the JAX
-package. Other families come with their slices.
+`sd21-base` with OpenCLIP-H (the SD2.1 workflow), `flux-dev` and
+`flux-schnell` with T5-XXL, CLIP-L and the 16-channel Flux VAE (the Flux
+and Kontext workflows), and the tiny instances of the same code that
+the CPU tests hold against the JAX package. Other families come with
+their slices.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Any
 
 from torch import nn
 
+from .mmdit import MMDiT, MMDiTConfig
+from .t5_encoder import T5Encoder, T5EncoderConfig
 from .text_encoder import TextEncoder, TextEncoderConfig
 from .unet import UNet, UNetConfig
 from .vae import VAE, VAEConfig
@@ -134,7 +138,35 @@ MODEL_REGISTRY: dict[str, dict[str, Any]] = {
             parameterization="v",
         ),
     },
+    # Flux-class MMDiT at the published widths. dev: guidance-distilled,
+    # flow shift 3.0 (about the published dynamic shift at 1 MP);
+    # schnell: timestep-distilled, no guidance embedding, unshifted
+    "flux-dev": {"family": "mmdit", "config": MMDiTConfig()},
+    "flux-schnell": {
+        "family": "mmdit",
+        "config": MMDiTConfig(guidance_embed=False, flow_shift=1.0),
+    },
+    "tiny-flux": {
+        "family": "mmdit",
+        "config": MMDiTConfig(
+            hidden_dim=32, double_depth=1, single_depth=1, heads=2, axes_dim=(4, 6, 6),
+            context_dim=64, vec_dim=64, flow_shift=1.0,
+        ),
+    },
     "vae-sd": {"family": "vae", "config": VAEConfig()},
+    # the Flux-class 16-channel AE: (mean - shift) * scale at its boundary,
+    # no 1x1 quant convs in the published layout
+    "vae-flux": {
+        "family": "vae",
+        "config": VAEConfig(latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159,
+                            use_quant_conv=False),
+    },
+    "tiny-vae-flux": {
+        "family": "vae",
+        "config": VAEConfig(base_channels=16, channel_mult=(1, 2), num_res_blocks=1,
+                            latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159,
+                            use_quant_conv=False),
+    },
     "tiny-vae": {
         "family": "vae",
         "config": VAEConfig(base_channels=16, channel_mult=(1, 2), num_res_blocks=1),
@@ -162,6 +194,20 @@ MODEL_REGISTRY: dict[str, dict[str, Any]] = {
             penultimate_hidden=True, proj_dim=1024,
             final_ln_on_hidden=True, pad_token_id=0,
         ),
+    },
+    # classic T5 v1.1 XXL (the Flux text encoder): the stack-shared
+    # relative-position bias, the SentencePiece vocab of 32128, 512 tokens
+    "t5-xxl": {
+        "family": "t5_encoder",
+        "config": T5EncoderConfig(vocab_size=32128, d_model=4096, d_ff=10240, layers=24,
+                                  heads=64, d_kv=64, per_layer_rel_bias=False),
+    },
+    # the tiny shared-bias variant (the Flux layout); its vocab covers the
+    # CLIP-BPE id space
+    "tiny-t5-shared": {
+        "family": "t5_encoder",
+        "config": T5EncoderConfig(vocab_size=49408, d_model=64, d_ff=128, layers=2, heads=2,
+                                  d_kv=32, max_length=16, per_layer_rel_bias=False),
     },
     "tiny-te": {
         "family": "text_encoder",
@@ -196,7 +242,16 @@ DEFAULT_TEXT_ENCODERS: dict[str, str] = {
     "sd21-base": "clip-h",
 }
 
-_CONSTRUCTORS = {"unet": UNet, "vae": VAE, "text_encoder": TextEncoder}
+# Flux-layout conditioning: the hidden states of a T5-class encoder, the
+# pooled vector of a CLIP-class one; no concat, no padding
+HIDDEN_POOLED_ENCODERS: dict[str, tuple[str, str]] = {
+    "flux-dev": ("t5-xxl", "clip-l"),
+    "flux-schnell": ("t5-xxl", "clip-l"),
+    "tiny-flux": ("tiny-t5-shared", "tiny-te"),
+}
+
+_CONSTRUCTORS = {"unet": UNet, "mmdit": MMDiT, "vae": VAE, "text_encoder": TextEncoder,
+                 "t5_encoder": T5Encoder}
 
 
 def _entry(name: str) -> dict[str, Any]:

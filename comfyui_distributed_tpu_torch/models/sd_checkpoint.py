@@ -1,11 +1,16 @@
 """Single-file SD checkpoints: the key schedules, the file reader and
 writer, and the loaders that fill the port's modules.
 
-The port's own copy of the SD-family part of comfyui_distributed_tpu/
-models/sd_checkpoint.py. A single-file SD1.x, SD2.x or SDXL checkpoint
-(`model.diffusion_model.*`, `first_stage_model.*`, and the text towers
-under `cond_stage_model.*` or `conditioner.embedders.*`) loads into the
-UNet, VAE and text encoders of models/.
+The port's own copy of the SD- and Flux-family parts of
+comfyui_distributed_tpu/models/sd_checkpoint.py. A single-file SD1.x,
+SD2.x or SDXL checkpoint (`model.diffusion_model.*`, `first_stage_model.*`,
+and the text towers under `cond_stage_model.*` or `conditioner.embedders.*`)
+loads into the UNet, VAE and text encoders of models/. Flux ships as
+separate files: the transformer (`double_blocks.*`, bare or under
+`model.diffusion_model.`), the AE (bare `encoder.*` or under
+`first_stage_model.`), T5-XXL (`encoder.block.*`, HF layout) and CLIP-L;
+`load_flux_weights` fills whichever parts a file carries. SD3 and WAN
+files are recognised and refused (`checkpoint_layout`).
 
 Each architecture has an enumerable key schedule, config →
 [(sd key prefix, module parameter prefix, kind)], so the mapping is
@@ -21,6 +26,8 @@ loads as it is stored:
     bare_linear_w an nn.Linear text projection [P, W] → the bare
                   [W, P] parameter the encoder uses as x @ proj
     fused_qkv     OpenCLIP's in_proj [3W, W] / [3W] → q, k, v rows
+    rms           an RMS norm's `.weight` (T5's layer norms)
+    rms_scale     an RMS norm stored as `.scale` (Flux's q/k norms)
 
 Loading is strict on the module's side: a parameter no key fills, or a
 shape that differs, raises. Keys the schedule does not name
@@ -314,6 +321,86 @@ def open_clip_schedule(cfg, prefix: str = "conditioner.embedders.1.model") -> li
     return entries
 
 
+def t5_encoder_schedule(cfg, prefix: str = "") -> list[Entry]:
+    """T5 encoder state dict (HF layout: `shared`, `encoder.block.N.
+    layer.{0,1}.*`, the relative_attention_bias of block 0 shared by the
+    stack for T5 v1.1, one a block for UMT5) → T5Encoder."""
+    p = prefix
+    per_layer_bias = getattr(cfg, "per_layer_rel_bias", True)
+    entries: list[Entry] = [(f"{p}shared", "token_embed", "embedding")]
+    if not per_layer_bias:
+        entries.append((f"{p}encoder.block.0.layer.0.SelfAttention.relative_attention_bias",
+                        "rel_bias", "embedding"))
+    for i in range(cfg.layers):
+        sd, pt = f"{p}encoder.block.{i}", f"block_{i}"
+        entries += [
+            (f"{sd}.layer.0.layer_norm", f"{pt}.attn_norm", "rms"),
+            (f"{sd}.layer.0.SelfAttention.q", f"{pt}.q", _LINEAR_NOBIAS),
+            (f"{sd}.layer.0.SelfAttention.k", f"{pt}.k", _LINEAR_NOBIAS),
+            (f"{sd}.layer.0.SelfAttention.v", f"{pt}.v", _LINEAR_NOBIAS),
+            (f"{sd}.layer.0.SelfAttention.o", f"{pt}.o", _LINEAR_NOBIAS),
+        ]
+        if per_layer_bias:
+            entries.append((f"{sd}.layer.0.SelfAttention.relative_attention_bias",
+                            f"{pt}.rel_bias", "embedding"))
+        entries += [
+            (f"{sd}.layer.1.layer_norm", f"{pt}.ffn_norm", "rms"),
+            (f"{sd}.layer.1.DenseReluDense.wi_0", f"{pt}.wi_0", _LINEAR_NOBIAS),
+            (f"{sd}.layer.1.DenseReluDense.wi_1", f"{pt}.wi_1", _LINEAR_NOBIAS),
+            (f"{sd}.layer.1.DenseReluDense.wo", f"{pt}.wo", _LINEAR_NOBIAS),
+        ]
+    entries.append((f"{p}encoder.final_layer_norm", "final_norm", "rms"))
+    return entries
+
+
+def flux_schedule(cfg, prefix: str = "") -> list[Entry]:
+    """Flux transformer state dict (`double_blocks.N.*`, `single_blocks.N.*`,
+    `img_in`, `txt_in`, `time_in`, `vector_in`, `guidance_in`,
+    `final_layer.*`) → MMDiT. `prefix` is `model.diffusion_model.` for a
+    repacked single file; the published flux1-*.safetensors use bare
+    keys."""
+    p = prefix
+    entries: list[Entry] = [
+        (f"{p}img_in", "img_in", _LINEAR),
+        (f"{p}txt_in", "txt_in", _LINEAR),
+        (f"{p}time_in.in_layer", "time_in.in_layer", _LINEAR),
+        (f"{p}time_in.out_layer", "time_in.out_layer", _LINEAR),
+        (f"{p}vector_in.in_layer", "vector_in.in_layer", _LINEAR),
+        (f"{p}vector_in.out_layer", "vector_in.out_layer", _LINEAR),
+    ]
+    if cfg.guidance_embed:
+        entries += [
+            (f"{p}guidance_in.in_layer", "guidance_in.in_layer", _LINEAR),
+            (f"{p}guidance_in.out_layer", "guidance_in.out_layer", _LINEAR),
+        ]
+    for i in range(cfg.double_depth):
+        sd, pt = f"{p}double_blocks.{i}", f"double_blocks_{i}"
+        for s in ("img", "txt"):
+            entries += [
+                (f"{sd}.{s}_mod.lin", f"{pt}.{s}_mod_lin", _LINEAR),
+                (f"{sd}.{s}_attn.qkv", f"{pt}.{s}_attn_qkv", _LINEAR),
+                (f"{sd}.{s}_attn.norm.query_norm", f"{pt}.{s}_attn_norm_q", "rms_scale"),
+                (f"{sd}.{s}_attn.norm.key_norm", f"{pt}.{s}_attn_norm_k", "rms_scale"),
+                (f"{sd}.{s}_attn.proj", f"{pt}.{s}_attn_proj", _LINEAR),
+                (f"{sd}.{s}_mlp.0", f"{pt}.{s}_mlp_0", _LINEAR),
+                (f"{sd}.{s}_mlp.2", f"{pt}.{s}_mlp_2", _LINEAR),
+            ]
+    for i in range(cfg.single_depth):
+        sd, pt = f"{p}single_blocks.{i}", f"single_blocks_{i}"
+        entries += [
+            (f"{sd}.modulation.lin", f"{pt}.modulation_lin", _LINEAR),
+            (f"{sd}.linear1", f"{pt}.linear1", _LINEAR),
+            (f"{sd}.linear2", f"{pt}.linear2", _LINEAR),
+            (f"{sd}.norm.query_norm", f"{pt}.norm_q", "rms_scale"),
+            (f"{sd}.norm.key_norm", f"{pt}.norm_k", "rms_scale"),
+        ]
+    entries += [
+        (f"{p}final_layer.adaLN_modulation.1", "final_layer_adaLN_lin", _LINEAR),
+        (f"{p}final_layer.linear", "final_layer_linear", _LINEAR),
+    ]
+    return entries
+
+
 # --- conversion -----------------------------------------------------------
 
 def _expand(entries: Iterable[Entry]) -> list[tuple[str, str, str]]:
@@ -332,6 +419,10 @@ def _expand(entries: Iterable[Entry]) -> list[tuple[str, str, str]]:
             out.append((f"{sd}.weight", pt, "id"))
         elif kind == "param_bare":  # a bare nn.Parameter, no .weight suffix
             out.append((sd, pt, "id"))
+        elif kind == "rms":  # an RMS norm's weight
+            out.append((f"{sd}.weight", f"{pt}.weight", "id"))
+        elif kind == "rms_scale":  # an RMS norm stored as .scale (Flux QKNorm)
+            out.append((f"{sd}.scale", f"{pt}.weight", "id"))
         elif kind == "bare_linear_w":  # nn.Linear weight [P, W] → bare [W, P]
             out.append((f"{sd}.weight", pt, "transpose"))
         elif kind == "fused_qkv":
@@ -445,10 +536,90 @@ def load_vae_weights(state_dict: Mapping[str, torch.Tensor], cfg, module: nn.Mod
               "VAE checkpoint")
 
 
+def load_t5_weights(state_dict: Mapping[str, torch.Tensor], cfg, module: nn.Module) -> None:
+    """A standalone T5 encoder file (t5xxl_*.safetensors: HF layout, bare
+    `shared` and `encoder.block.*` keys, or nested under a prefix) →
+    `module`, in place."""
+    _raise_if(_merge_into_module(state_dict, t5_encoder_schedule(cfg, _t5_prefix(state_dict)),
+                                 module, "t5"), "T5 checkpoint")
+
+
+def _t5_prefix(state_dict: Mapping[str, torch.Tensor]) -> str:
+    return next((k[: k.index("encoder.block.")] for k in state_dict
+                 if "encoder.block.0.layer.0.SelfAttention.q.weight" in k), "")
+
+
+def _flux_prefix(state_dict: Mapping[str, torch.Tensor]) -> str:
+    nested = any(k.startswith("model.diffusion_model.double_blocks.") for k in state_dict)
+    return "model.diffusion_model." if nested else ""
+
+
+def load_diffusion_weights(state_dict: Mapping[str, torch.Tensor], cfg, module: nn.Module,
+                           family: str) -> None:
+    """A diffusion-model-only file (UNETLoader's: a published
+    flux1-*.safetensors, an extracted SD UNet) → `module`, in place.
+    Bare keys and keys under `model.diffusion_model.` both load."""
+    if family == "mmdit":
+        entries = flux_schedule(cfg, prefix=_flux_prefix(state_dict))
+    else:
+        if not any(k.startswith("model.diffusion_model.") for k in state_dict):
+            # the UNet schedule names the single-file prefix: bare keys gain it
+            state_dict = {f"model.diffusion_model.{k}": v for k, v in state_dict.items()}
+        entries = unet_schedule(cfg)
+    _raise_if(_merge_into_module(state_dict, entries, module, "unet"),
+              "diffusion-model checkpoint")
+
+
+def load_flux_weights(state_dict: Mapping[str, torch.Tensor], unet_cfg, vae_cfg, te_cfg,
+                      modules: dict[str, nn.Module], te2_cfg=None) -> set[str]:
+    """A Flux-class file → the parts of `modules` ({'unet', 'vae', 'te'
+    (T5), 'te2' (CLIP)}) it carries, in place; the others keep their init.
+    Each part the file carries must fill its module strictly. Returns the
+    parts filled; a file that carries none raises."""
+    schedules: dict[str, list[Entry]] = {}
+    prefix = _flux_prefix(state_dict)
+    if any(k.startswith(f"{prefix}double_blocks.") for k in state_dict):
+        schedules["unet"] = flux_schedule(unet_cfg, prefix=prefix)
+    if any(k.startswith("first_stage_model.") for k in state_dict):
+        schedules["vae"] = vae_schedule(vae_cfg)
+    elif any(k.startswith("encoder.conv_in") for k in state_dict):
+        schedules["vae"] = vae_schedule(vae_cfg, prefix="")
+    if any("layer.0.SelfAttention.q.weight" in k for k in state_dict):
+        schedules["te"] = t5_encoder_schedule(te_cfg, prefix=_t5_prefix(state_dict))
+    if te2_cfg is not None and any("text_model.encoder.layers.0" in k for k in state_dict):
+        clip_prefix = next(k[: k.index("text_model.encoder.layers.0")] + "text_model"
+                           for k in state_dict if "text_model.encoder.layers.0" in k)
+        schedules["te2"] = text_encoder_schedule(te2_cfg, prefix=clip_prefix)
+    if not schedules:
+        raise ValueError("flux checkpoint mapping failed: no mappable part found in the file")
+    problems: list[str] = []
+    for part, entries in schedules.items():
+        problems += _merge_into_module(state_dict, entries, modules[part], part)
+    _raise_if(problems, "flux checkpoint")
+    return set(schedules)
+
+
+# families whose files are recognised by their keys but not ported yet
+_UNPORTED_LAYOUTS = {
+    "sd3": (("joint_blocks.", "model.diffusion_model.joint_blocks."),
+            "ROADMAP.md, Queue 1 step 4: SD3 and SD3.5"),
+    "wan": (("blocks.0.self_attn.", "model.diffusion_model.blocks.0.self_attn.",
+             "patch_embedding."), "ROADMAP.md, Queue 1 step 6: WAN video"),
+}
+
+
 def checkpoint_layout(state_dict: Mapping[str, torch.Tensor]) -> str:
-    """A single file's layout by its keys: "sdxl" (`conditioner.
-    embedders.*`), "sd2" (an OpenCLIP tower under
-    `cond_stage_model.model.*`) or "sd1" (HF CLIP)."""
+    """A single file's layout by its keys: "flux" (a Flux transformer,
+    bare or under `model.diffusion_model.`, or a T5 encoder),
+    "sdxl" (`conditioner.embedders.*`), "sd2" (an OpenCLIP tower under
+    `cond_stage_model.model.*`) or "sd1" (HF CLIP). An SD3 or WAN file
+    raises NotImplementedError."""
+    for family, (markers, item) in _UNPORTED_LAYOUTS.items():
+        if any(k.startswith(markers) for k in state_dict):
+            raise NotImplementedError(f"{family} checkpoints are not ported yet ({item})")
+    if any(k.startswith(("double_blocks.", "model.diffusion_model.double_blocks."))
+           or "encoder.block.0.layer.0.SelfAttention" in k for k in state_dict):
+        return "flux"
     if any(k.startswith("conditioner.embedders.") for k in state_dict):
         return "sdxl"
     if any(k.startswith("cond_stage_model.model.") for k in state_dict):
@@ -495,7 +666,11 @@ def load_sd_weights(state_dict: Mapping[str, torch.Tensor], unet_cfg, vae_cfg, t
     ({'unet', 'vae', 'te'[, 'te2']}), in place. Strict: every parameter
     must be filled with a matching shape, or ValueError."""
     problems: list[str] = []
-    schedules = sd_schedules(checkpoint_layout(state_dict), unet_cfg, vae_cfg, te_cfg,
+    layout = checkpoint_layout(state_dict)
+    if layout == "flux":
+        raise ValueError("a Flux-class file, not a single-file SD checkpoint: load it as a "
+                         "flux-* model (load_pipeline, UNETLoader, VAELoader, the CLIP loaders)")
+    schedules = sd_schedules(layout, unet_cfg, vae_cfg, te_cfg,
                              te2_cfg if "te2" in modules else None)
     for part, entries in schedules.items():
         problems += _merge_into_module(state_dict, entries, modules[part], part)

@@ -10,13 +10,14 @@ the other: the device of the input decides.
 The kernel is the port of comfyui_distributed_tpu/ops/attention.py::
 flash_attention. Unlike the TPU kernel it takes ragged N and M, so it
 carries every attention call of the SDXL upscale path (UNet self- and
-cross-attention at D=64, VAE mid-block at D=512) and of SD1.5's txt2img
+cross-attention at D=64, VAE mid-block at D=512), of SD1.5's txt2img
 (D=40, 80 and 160, which the TPU wrapper pads to 128; the softmax scale
-stays 1/sqrt(D) of the real head dim). The source compiles three
-instances; `plan` picks one, with its key tile, query rows per block and
-key splits, for each call:
+stays 1/sqrt(D) of the real head dim) and of Flux's joint attention
+(D=128, the TPU kernel's own width: 4608 or, with a Kontext reference,
+8704 tokens). The source compiles three instances; `plan` picks one,
+with its key tile, query rows per block and key splits, for each call:
 
-- "wgmma": bf16, D=40, 64, 80 or 160, rows 16-byte aligned.
+- "wgmma": bf16, D=40, 64, 80, 128 or 160, rows 16-byte aligned.
   Warp-specialised for Hopper: TMA loads, wgmma products, the head dim
   in column chunks of their own swizzle, 64 query rows per consumer
   warpgroup, the key tile by D that leaves the fewest slots masked
@@ -44,7 +45,7 @@ from .. import _build
 # head dims the kernels are instantiated for (template parameters in
 # csrc/flash_attention.cu); the other model families' head dims are
 # later instantiations
-KERNEL_HEAD_DIMS = (40, 64, 80, 160, 512)
+KERNEL_HEAD_DIMS = (40, 64, 80, 128, 160, 512)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # instance codes of csrc/flash_attention.cu
@@ -54,17 +55,22 @@ INSTANCES = {"fma": 0, "wgmma": 2, "wgmma512": 3}
 # 16. Each D's tiles give its path's key counts few masked slots: M = 77
 # one tile of 80, M = 1024 tiles of 128 (D = 80), M = 256 and 64 tiles of
 # 64 (D = 160, whose registers a 128-key tile would crowd), M = 324 and
-# 1296 (D = 64) tiles of 112 and 144.
-WGMMA_KEY_TILES = {40: (80,), 64: (80, 112, 144), 80: (80, 128), 160: (64, 80)}
+# 1296 (D = 64) tiles of 112 and 144; Flux's joint lengths (D = 128:
+# 4608, 8704, and 4481 at 1008 px) tiles of 64, two blocks an SM.
+WGMMA_KEY_TILES = {40: (80,), 64: (80, 112, 144), 80: (80, 128), 128: (64,),
+                   160: (64, 80)}
 # the wgmma instance with two consumer warpgroups of 64 query rows in one
 # block (one block an SM) taking turns at the tensor cores, so that one's
 # softmax runs under the other's products (FA3's ping-pong), by head dim:
 # its key tile. At D=40, where the softmax's exp2 binds, it beat one
 # consumer a block (two blocks an SM) at self@4096 (PERF.md, PR 6); the
-# router takes it wherever the keys outgrow one consumer's tiles.
+# router takes it wherever the keys outgrow one consumer's tiles. (At
+# D=128, Flux's, two consumers of 64-key tiles measured no faster than
+# one at 4608 keys and slower at 8704: PERF.md, the D=128 findings.)
 WGMMA_PINGPONG_KEYS = {40: 128}
 # compiled tiles of the FMA kernel, by head dim: (keys, query rows)
-_FMA_TILES = {40: (64, 128), 64: (64, 64), 80: (64, 64), 160: (64, 64), 512: (32, 32)}
+_FMA_TILES = {40: (64, 128), 64: (64, 64), 80: (64, 64), 128: (64, 64), 160: (64, 64),
+              512: (32, 32)}
 # query rows per block of the wgmma instances (one consumer warpgroup's)
 WGMMA_ROWS = 64
 # the D=512 instance's key tile: two stages of 32-key K and V tiles and
@@ -169,7 +175,7 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sms: int = H100_SMS)
     `flash_attention` on a card of `sms` SMs.
 
     A pure function of the inputs' dtype, shapes, strides and alignment.
-    Aligned bf16 at D=40, 64, 80 or 160 goes to the wgmma instance, at
+    Aligned bf16 at D=40, 64, 80, 128 or 160 goes to the wgmma instance, at
     D=512 to wgmma512, everything else to the FMA kernel."""
     b, n, h, d = q.shape
     m = k.shape[1]

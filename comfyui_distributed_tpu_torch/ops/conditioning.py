@@ -13,10 +13,12 @@ module: `clone` copies no weights).
 InpaintModelConditioning's concat channels (`concat_latent`: the mask and
 the masked image's latents, joined to a 9-channel UNet's input) ride on
 the entry and follow its batch slices and area crops; the tile path
-refuses them, as the JAX package's does. The Flux-family fields
-(reference latents, distilled guidance, model patches) and unCLIP's are
-not ported: an entry that carries one of them is refused where it is
-sampled (`reject_unported`).
+refuses them, as the JAX package's does. The Flux fields ride on the
+entry too: the distilled `guidance` scale (FluxGuidance,
+CLIPTextEncodeFlux) and Kontext's `reference_latents` (ReferenceLatent),
+which follow batch slices, tile crops and the CFG batch. SD3/WAN's model
+patches and unCLIP's embeddings are not ported: an entry that carries
+one of them is refused where it is sampled (`reject_unported`).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch.nn.functional as F
 from .resize import resize_image
 
 # fields of the JAX package's Conditioning that no ported model consumes yet
-UNPORTED_FIELDS = ("reference_latents", "guidance", "model_patches", "unclip_embeds")
+UNPORTED_FIELDS = ("model_patches", "unclip_embeds")
 
 
 @dataclasses.dataclass
@@ -58,6 +60,10 @@ class Conditioning:
     concat_latent: [B, h, w, 1 + C] latent-resolution channels joined to
         the model input after its VP scaling (InpaintModelConditioning:
         the mask, then the masked image's latents).
+    reference_latents: Kontext's reference images, a list of [B, h, w, C]
+        latents the Flux MMDiT takes as extra image tokens.
+    guidance: the distilled guidance scale a Flux-dev-class model
+        embeds; None takes the model's default.
     """
 
     context: torch.Tensor
@@ -75,6 +81,8 @@ class Conditioning:
     gligen_boxes: Optional[tuple] = None
     gligen_active: Optional[tuple] = None
     concat_latent: Optional[torch.Tensor] = None
+    reference_latents: Optional[list] = None
+    guidance: Optional[float] = None
 
     def clone(self) -> "Conditioning":
         # tensors are never written in place, so a shallow copy suffices;
@@ -86,7 +94,9 @@ class Conditioning:
 # share to ride one batched pass (the JAX pytree's leaves and aux data)
 TENSOR_FIELDS = ("context", "pooled", "control_hint", "mask", "gligen_embs", "concat_latent")
 STATIC_FIELDS = ("control_strength", "control_net", "control_range", "area", "strength",
-                 "timestep_range", "size_cond", "gligen_boxes", "gligen_active")
+                 "timestep_range", "size_cond", "gligen_boxes", "gligen_active", "guidance")
+# a list of tensors, each joined on the batch axis like a tensor field
+LIST_FIELDS = ("reference_latents",)
 
 
 def as_conditioning(value: Any) -> Conditioning:
@@ -104,7 +114,7 @@ def reject_unported(entry: Any) -> None:
         if getattr(entry, name, None) is not None:
             raise NotImplementedError(
                 f"conditioning field {name!r} is not ported yet (ROADMAP.md, Queue 1 item 5: "
-                "other model families)"
+                "the SD3, WAN video and audio families)"
             )
 
 
@@ -188,6 +198,23 @@ def crop_to_tile(cond: Conditioning, y: int, x: int, tile_h: int, tile_w: int,
             active.append(True)
         out.gligen_boxes = tuple(boxes)
         out.gligen_active = tuple(active)
+    if cond.reference_latents is not None:
+        # each reference resized (linear) to the frame's latent grid,
+        # windowed to the tile's latent region, resized to the tile's
+        # latent size
+        k = 8
+        canvas = (image_h // k, image_w // k)
+        t_lat = (max(1, tile_h // k), max(1, tile_w // k))
+        cropped = []
+        for lat in cond.reference_latents:
+            if tuple(lat.shape[1:3]) != canvas:
+                lat = resize_image(lat, canvas[0], canvas[1], "bilinear")
+            y0, x0 = max(0, y) // k, max(0, x) // k
+            y1 = min(canvas[0], (y + tile_h) // k)
+            x1 = min(canvas[1], (x + tile_w) // k)
+            window = lat[:, y0:max(y1, y0 + 1), x0:max(x1, x0 + 1), :]
+            cropped.append(resize_image(window, t_lat[0], t_lat[1], "bilinear"))
+        out.reference_latents = cropped
     return out
 
 
@@ -205,6 +232,8 @@ def slice_batch(cond: Conditioning, start: int, size: int) -> Conditioning:
     out.control_hint = cut(cond.control_hint)
     out.mask = cut(cond.mask)
     out.concat_latent = cut(cond.concat_latent)
+    if cond.reference_latents is not None:
+        out.reference_latents = [cut(lat) for lat in cond.reference_latents]
     return out
 
 
@@ -217,4 +246,9 @@ def concat_batch(first: Conditioning, *rest: Conditioning) -> Conditioning:
         a = getattr(first, name)
         setattr(out, name, None if a is None
                 else torch.cat([a] + [getattr(c, name) for c in rest], dim=0))
+    for name in LIST_FIELDS:
+        a = getattr(first, name)
+        setattr(out, name, None if a is None
+                else [torch.cat(parts, dim=0)
+                      for parts in zip(a, *(getattr(c, name) for c in rest))])
     return out

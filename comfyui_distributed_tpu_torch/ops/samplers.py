@@ -10,9 +10,13 @@ prediction); `denoised(x, sigma) = x - sigma * eps`.
 
 Every sampler and scheduler of the JAX package runs on the VP families:
 eps- and v-prediction share the sigma table and the noising rule (the
-model function converts v to eps). Rectified-flow models are not ported
-(`require_vp`). Guidance: CFG with the per-entry composition of
-multi-entry, area, mask and timestep-window conditioning
+model function converts v to eps). Rectified-flow models (Flux) take the
+shifted flow table (`get_flow_sigmas`, every scheduler) and the
+interpolation noising; their velocity is eps under the contract, so the
+deterministic samplers apply unchanged, euler_ancestral takes the RF
+renoising rule and the other stochastic samplers are refused (their VE
+renoising leaves the flow marginal). Guidance: CFG with the per-entry
+composition of multi-entry, area, mask and timestep-window conditioning
 (`composite_eps`), perturbed-attention guidance (PAG), self-attention
 guidance (SAG), RescaleCFG, perpendicular negative guidance (PerpNeg) and
 dual-conditioning CFG (DualCFG); inpainting pins the unmasked region
@@ -45,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from .conditioning import (
+    LIST_FIELDS,
     STATIC_FIELDS,
     TENSOR_FIELDS,
     as_conditioning,
@@ -242,30 +247,65 @@ def get_sigmas(scheduler: str, steps: int, denoise: float = 1.0) -> torch.Tensor
     return torch.from_numpy(np.concatenate([sigmas, np.zeros((1,))]).astype(np.float32))
 
 
-# the parameterizations of the VP families: one sigma table, one noising
-# rule; the model function turns a v prediction into eps
-VP_PARAMETERIZATIONS = ("eps", "v")
+# the parameterizations of the ported families: eps and v share the VP
+# table and noising rule (the model function turns v into eps); flow is
+# rectified flow (the Flux class)
+PARAMETERIZATIONS = ("eps", "v", "flow")
 
 
-def require_vp(parameterization: str) -> None:
-    if parameterization not in VP_PARAMETERIZATIONS:
+def require_parameterization(parameterization: str) -> None:
+    if parameterization not in PARAMETERIZATIONS:
         raise NotImplementedError(
-            f"{parameterization!r} models are not ported yet (ROADMAP.md, Queue 1 item 5: "
-            "other model families); the PyTorch package runs eps- and v-prediction UNets"
-        )
+            f"{parameterization!r} models are not ported yet (ROADMAP.md, Queue 1 item 5: the "
+            "SD3, WAN video and audio families); the PyTorch package runs eps-, v- and "
+            "flow-parameterized models")
+
+
+def _flow_sigma_table(shift: float, n_training: int = 1000) -> np.ndarray:
+    """Ascending flow sigma table sigma(t) = s t / (1 + (s - 1) t) for t
+    in {1/n, ..., 1} (float64), the flow analogue of `_vp_sigmas`."""
+    t = np.arange(1, n_training + 1, dtype=np.float64) / n_training
+    return shift * t / (1.0 + (shift - 1.0) * t)
+
+
+def get_flow_sigmas(steps: int, denoise: float = 1.0, shift: float = 3.0,
+                    scheduler: str = "simple") -> torch.Tensor:
+    """[steps+1] descending f32 rectified-flow sigmas on the host, through
+    the timestep shift t' = s t / (1 + (s - 1) t). sigma is the flow time:
+    x_t = (1 - sigma) x0 + sigma n. "simple" and "normal" keep the exact
+    uniform-t grid through the shift (the Flux default); every other
+    scheduler spaces the shifted table as it spaces the VP one. `denoise
+    < 1` keeps the tail of a longer schedule, as `get_sigmas` does."""
+    total = steps
+    if denoise < 1.0:
+        total = max(int(steps / max(denoise, 1e-4)), steps)
+    if scheduler in ("normal", "simple"):
+        t = np.linspace(1.0, 0.0, total + 1)
+        t = shift * t / (1.0 + (shift - 1.0) * t)
+        return torch.from_numpy(t[-(steps + 1):].astype(np.float32))
+    sigmas = _spaced_from_table(_flow_sigma_table(shift), scheduler, total)
+    sigmas = sigmas[-steps:] if denoise < 1.0 else sigmas
+    return torch.from_numpy(np.concatenate([sigmas, np.zeros((1,))]).astype(np.float32))
 
 
 def get_model_sigmas(parameterization: str, scheduler: str, steps: int,
-                     denoise: float = 1.0) -> torch.Tensor:
-    """Family-aware schedule: the VP table for eps and v models."""
-    require_vp(parameterization)
+                     denoise: float = 1.0, flow_shift: float = 3.0) -> torch.Tensor:
+    """Family-aware schedule: the shifted flow grid for flow models, the VP
+    table for eps and v models; `scheduler` shapes the spacing of both."""
+    require_parameterization(parameterization)
+    if parameterization == "flow":
+        return get_flow_sigmas(steps, denoise=denoise, shift=flow_shift, scheduler=scheduler)
     return get_sigmas(scheduler, steps, denoise=denoise)
 
 
 def noise_latents(parameterization: str, latents: torch.Tensor, noise: torch.Tensor,
                   sigma0: torch.Tensor) -> torch.Tensor:
-    """img2img/tile noising to the schedule start (VP: z + sigma * n)."""
-    require_vp(parameterization)
+    """img2img/tile noising to the schedule start: VP families add scaled
+    noise (z + sigma n), rectified flow interpolates ((1 - sigma) z +
+    sigma n)."""
+    require_parameterization(parameterization)
+    if parameterization == "flow":
+        return (1.0 - sigma0) * latents + sigma0 * noise
     return latents + noise * sigma0
 
 
@@ -300,15 +340,20 @@ def on_device(sigma_batch: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return sigma_batch.to(device=like.device, non_blocking=True)
 
 
-def percent_to_sigma(percent: float, parameterization: str = "eps") -> float:
+def percent_to_sigma(percent: float, parameterization: str = "eps",
+                     shift: float = 3.0) -> float:
     """Sampling-progress percent (0 = the schedule's start, 1 = its end)
-    → sigma on the VP table: inf at 0, 0 at 1."""
-    require_vp(parameterization)
+    → sigma: inf at 0, 0 at 1; between, the shifted flow time of t = 1 -
+    percent for flow models, else the VP table's entry."""
+    require_parameterization(parameterization)
     p = float(percent)
     if p <= 0.0:
         return float("inf")
     if p >= 1.0:
         return 0.0
+    if parameterization == "flow":
+        t = 1.0 - p
+        return float(shift * t / (1.0 + (shift - 1.0) * t))
     table = _vp_sigmas()
     return float(table[round((1.0 - p) * (len(table) - 1))])
 
@@ -432,6 +477,11 @@ def _conds_batchable(pos, neg) -> bool:
     for name in TENSOR_FIELDS:
         a, b = getattr(pos, name), getattr(neg, name)
         if (a is None) != (b is None) or (a is not None and a.shape != b.shape):
+            return False
+    for name in LIST_FIELDS:
+        a, b = getattr(pos, name), getattr(neg, name)
+        if (a is None) != (b is None) or (a is not None and [t.shape for t in a]
+                                          != [t.shape for t in b]):
             return False
     return True
 
@@ -876,6 +926,28 @@ def _sample_euler_ancestral(model_fn, x, sigmas, cond, noise):
     return x
 
 
+def _sample_euler_ancestral_rf(model_fn, x, sigmas, cond, noise, eta: float = 1.0):
+    """Ancestral Euler for rectified flow: under x_t = (1 - s) x0 + s n the
+    VE renoising leaves the flow marginal, so the step goes down to
+    sigma_down, rescales the signal by alpha_next / alpha_down and
+    renoises by the amount that restores the (1 - s_next, s_next)
+    marginal; the step to sigma 0 returns the denoised sample."""
+    for i, sigma, sigma_next in _pairs(sigmas):
+        den = _denoised(model_fn, x, sigma, cond)
+        if not sigma_next > 0:
+            x = den
+            continue
+        sigma_down = sigma_next * (1.0 + (sigma_next / _floor(sigma) - 1.0) * eta)
+        alpha_next = 1.0 - sigma_next
+        alpha_down = _floor(1.0 - sigma_down)
+        renoise = torch.sqrt(torch.clamp(
+            sigma_next**2 - sigma_down**2 * (alpha_next / alpha_down) ** 2, min=0.0))
+        r = sigma_down / _floor(sigma)
+        x_det = r * x + (1.0 - r) * den
+        x = (alpha_next / alpha_down) * x_det + noise(i, 0, x) * renoise
+    return x
+
+
 def _sample_dpmpp_2m(model_fn, x, sigmas, cond):
     """DPM-Solver++(2M): second-order multistep in log-sigma time; the
     step to sigma = 0 returns the denoised sample."""
@@ -930,16 +1002,24 @@ def model_evals_per_scan(sampler: str, n_pairs: int) -> int:
 
 def sample(model_fn: ModelFn, x_init: torch.Tensor, sigmas: torch.Tensor, cond: Any,
            sampler: str = "euler",
-           noise: StepNoise | None = None) -> torch.Tensor:
+           noise: StepNoise | None = None, flow: bool = False) -> torch.Tensor:
     """Run a sampling trajectory from x_init (already at sigmas[0]).
     `noise` is the stochastic samplers' step noise; they raise without
-    it. Pass `sigmas` on the host: a device copy costs a synchronisation
-    here."""
+    it. `flow` (rectified-flow models): euler_ancestral takes the RF rule,
+    the other stochastic samplers raise. Pass `sigmas` on the host: a
+    device copy costs a synchronisation here."""
     sigmas = sigmas.detach().to("cpu", torch.float32)
     if sampler in _DETERMINISTIC:
         return _DETERMINISTIC[sampler](model_fn, x_init, sigmas, cond)
     if sampler in _STOCHASTIC:
         if noise is None:
             raise ValueError(f"{sampler} requires step noise")
+        if flow:
+            if sampler != "euler_ancestral":
+                raise ValueError(
+                    f"{sampler!r} renoises with the VE rule, which is invalid for rectified-flow "
+                    "models; use a deterministic sampler (euler, ddim, dpmpp_2m, ...) or "
+                    "euler_ancestral")
+            return _sample_euler_ancestral_rf(model_fn, x_init, sigmas, cond, noise)
         return _STOCHASTIC[sampler](model_fn, x_init, sigmas, cond, noise)
     raise ValueError(f"unknown sampler {sampler!r}; use {SAMPLER_NAMES}")

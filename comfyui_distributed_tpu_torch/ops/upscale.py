@@ -23,6 +23,7 @@ from __future__ import annotations
 from typing import Any, Callable
 
 import torch
+import torch.nn.functional as F
 
 from ..models import pipeline as pl
 from . import samplers as smp
@@ -97,6 +98,21 @@ def prep_cond_for_tiles(cond, grid: tile_ops.TileGrid):
     if c.mask is not None:
         mask = resize_image(c.mask[..., None], grid.image_h, grid.image_w, "bilinear")[..., 0]
         c.mask = _pad_plane_for_grid(mask, grid)
+    if c.reference_latents is not None:
+        # as the planes above, in latent units: each reference resized to
+        # the latent grid the tiles cover and edge-padded by the padding,
+        # so a tile's window at (y // 8, x // 8) covers the image region
+        # the tile covers
+        k = 8
+        pk = grid.padding // k
+        cov_h, cov_w = grid.coverage_h // k, grid.coverage_w // k
+        prepped = []
+        for lat in c.reference_latents:
+            if tuple(lat.shape[1:3]) != (cov_h, cov_w):
+                lat = resize_image(lat, cov_h, cov_w, "bilinear")
+            prepped.append(F.pad(lat.permute(0, 3, 1, 2), (pk, pk, pk, pk),
+                                 mode="replicate").permute(0, 2, 3, 1))
+        c.reference_latents = prepped
     return c
 
 
@@ -113,6 +129,11 @@ def tile_cond(cond, y: int, x: int, grid: tile_ops.TileGrid):
         c.control_hint = c.control_hint[:, y:y + grid.padded_h, x:x + grid.padded_w, :]
     if c.mask is not None:
         c.mask = c.mask[:, y:y + grid.padded_h, x:x + grid.padded_w]
+    if c.reference_latents is not None:
+        k = 8
+        th, tw = max(1, grid.padded_h // k), max(1, grid.padded_w // k)
+        c.reference_latents = [lat[:, y // k:y // k + th, x // k:x // k + tw, :]
+                               for lat in c.reference_latents]
     return c
 
 
@@ -168,7 +189,8 @@ def _process_tile_fn(bundle: pl.PipelineBundle, grid: tile_ops.TileGrid, steps: 
     in tiles (ops/tiled_vae.py, its defaults)."""
     smp.check_sampler_names(sampler, scheduler)
     param = pl.model_schedule_info(bundle)
-    sigmas = smp.get_model_sigmas(param, scheduler, steps, denoise=denoise)
+    sigmas = smp.get_model_sigmas(param, scheduler, steps, denoise=denoise,
+                                  flow_shift=pl.flow_shift(bundle))
     model_fn = pl.guided_model(bundle, cfg)
 
     def fn(tile, tile_index, noise, pos, neg, yx):
@@ -178,7 +200,8 @@ def _process_tile_fn(bundle: pl.PipelineBundle, grid: tile_ops.TileGrid, steps: 
         x = smp.noise_latents(param, z, noise(tile_index, tuple(z.shape)).to(z.device), sigmas[0])
         step_noise = getattr(noise, "step_noise", None)
         z_out = smp.sample(model_fn, x, sigmas, (pos_t, neg_t), sampler,
-                           step_noise(tile_index) if step_noise is not None else None)
+                           step_noise(tile_index) if step_noise is not None else None,
+                           flow=param == "flow")
         if tiled_decode:
             return decode_tiled(bundle.vae, z_out)
         return bundle.vae.decode(z_out)

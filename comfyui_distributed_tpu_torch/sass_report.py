@@ -8,7 +8,7 @@ Compiles `csrc/flash_attention.cu` (or the one in DIR) with the flags
 register and spill lines, each C75xx note and their count (C7513 and
 C7514: ptxas serialised the wgmma instructions of a kernel, so their
 pipeline no longer overlaps; C7508: it ignored a setmaxnreg), and
-for each wgmma kernel (the `wgmma` instance at D=40, 64, 80 and 160,
+for each wgmma kernel (the `wgmma` instance at D=40, 64, 80, 128 and 160,
 each key tile and consumer count, and `wgmma512`), from `cuobjdump
 -sass`: its HGMMA and WARPGROUP.DEPBAR counts (a DEPBAR after every
 HGMMA is a serialised pipeline) and the opcodes of its main loop, taken
@@ -37,9 +37,9 @@ _WGMMA_KERNEL = re.compile(r"flash_attention_fwd_(wgmma|wgmma512)_kernelI((?:Li\
 # Q·K^T k-steps of one consumer warpgroup per key tile: 16 columns each,
 # over the head dim's chunks (D=40 runs 48 columns); D=512's consumers
 # take 256 dims each
-_SCORE_STEPS = {40: 3, 64: 4, 80: 5, 160: 10, 512: 16}
+_SCORE_STEPS = {40: 3, 64: 4, 80: 5, 128: 8, 160: 10, 512: 16}
 # P·V's wgmma groups per k-step: one per run of chunks of one width
-_PV_GROUPS = {40: 2, 64: 1, 80: 2, 160: 2, 512: 1}
+_PV_GROUPS = {40: 2, 64: 1, 80: 2, 128: 1, 160: 2, 512: 1}
 
 
 @dataclasses.dataclass(frozen=True)

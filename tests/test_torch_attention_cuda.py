@@ -37,6 +37,12 @@ SHAPES = [
     (2, 256, 77, 8, 160),
     (2, 64, 64, 8, 160),
     (2, 64, 77, 8, 160),
+    # Flux's joint attention at 1024 px (Kontext: 8704 tokens), at 1008 px
+    # (ragged on the 64-key tiles) and at a short key count: D = 128
+    (1, 4608, 4608, 24, 128),
+    (1, 8704, 8704, 24, 128),
+    (1, 4481, 4481, 24, 128),
+    (1, 4608, 63, 24, 128),
 ]
 
 # key counts at the edges of the wgmma instance's key tiles (80, 112, 144)
@@ -54,6 +60,9 @@ EDGE_KEYS_WG = (1, 63, 64, 65, 77, 79, 80, 81, 127, 128, 129)
 EDGE_ROWS_PINGPONG = (1, 63, 64, 65, 127, 128, 129, 200)
 EDGE_KEYS_PINGPONG = (1, 77, 127, 128, 129, 257)
 TXT2IMG_HEAD_DIMS = (40, 80, 160)
+# and the head dims of the wgmma instance's chunked template: those, and
+# Flux's 128
+WG_HEAD_DIMS = TXT2IMG_HEAD_DIMS + (128,)
 
 
 @pytest.fixture
@@ -242,7 +251,7 @@ def _headdim_matches_plain(cuda, q, k, v, p=None):
     )
 
 
-@pytest.mark.parametrize("d", TXT2IMG_HEAD_DIMS)
+@pytest.mark.parametrize("d", WG_HEAD_DIMS)
 @pytest.mark.parametrize("m", EDGE_KEYS_WG)
 @pytest.mark.parametrize("n", EDGE_ROWS_WG)
 def test_wgmma_head_dim_tile_edges(cuda, n, m, d):
@@ -257,7 +266,7 @@ def test_wgmma_head_dim_tile_edges(cuda, n, m, d):
     _headdim_matches_plain(cuda, q, k, v)
 
 
-@pytest.mark.parametrize("d, p", [(d, p) for d in TXT2IMG_HEAD_DIMS for p in attn.wgmma_plans(d)],
+@pytest.mark.parametrize("d, p", [(d, p) for d in WG_HEAD_DIMS for p in attn.wgmma_plans(d)],
                          ids=lambda x: str(x) if isinstance(x, int) else f"k{x.keys_per_tile}"
                                                                       f"r{x.rows_per_cta}")
 def test_wgmma_head_dim_every_compiled_plan(cuda, d, p):
@@ -288,7 +297,7 @@ def test_wgmma_two_consumer_tile_edges(cuda, n, m):
     _headdim_matches_plain(cuda, q, k, v, p)
 
 
-@pytest.mark.parametrize("d", TXT2IMG_HEAD_DIMS)
+@pytest.mark.parametrize("d", WG_HEAD_DIMS)
 def test_wgmma_head_dim_reads_strided_heads(cuda, d):
     # q, k and v as views into one fused [B, N, 3, H, D] buffer: a D = 40
     # head starts 80 bytes after the last
@@ -298,7 +307,7 @@ def test_wgmma_head_dim_reads_strided_heads(cuda, d):
     _headdim_matches_plain(cuda, *fused.unbind(2))
 
 
-@pytest.mark.parametrize("d", TXT2IMG_HEAD_DIMS)
+@pytest.mark.parametrize("d", WG_HEAD_DIMS)
 def test_wgmma_head_dim_reads_rows_on_16_not_128_byte_boundaries(cuda, d):
     # rows start 16 bytes into a (D + 8)-element pitch: TMA's 16-byte rule
     # holds, the swizzle atoms are not aligned to them in device memory
@@ -349,7 +358,7 @@ def test_kernel_matches_plain_at_the_sd_workflow_shapes(cuda, b, n, m, h, d):
     )
 
 
-@pytest.mark.parametrize("d", TXT2IMG_HEAD_DIMS)
+@pytest.mark.parametrize("d", WG_HEAD_DIMS)
 @pytest.mark.parametrize("m", (1, 77, 127, 128, 129, 257))
 @pytest.mark.parametrize("n", (1, 63, 64, 65, 127, 128, 129, 200))
 def test_batch_one_takes_the_plan_of_batch_two_and_matches(cuda, n, m, d):

@@ -148,7 +148,7 @@ def test_a_d40_row_is_five_16_byte_chunks():
     assert not attn._tensor_core_aligned(torch.zeros((2, 10, 4, 41), dtype=torch.bfloat16))
 
 
-@pytest.mark.parametrize("d", NEW_HEAD_DIMS + (64, 512))
+@pytest.mark.parametrize("d", NEW_HEAD_DIMS + (64, 128, 512))
 def test_the_wrapper_takes_the_new_head_dims(d):
     """The head-dim check passes; a CPU tensor then fails the device
     check, and nothing launches."""
@@ -158,7 +158,7 @@ def test_the_wrapper_takes_the_new_head_dims(d):
     assert attn.flash_attention.launches == 0
 
 
-@pytest.mark.parametrize("d", [32, 48, 96, 128])
+@pytest.mark.parametrize("d", [32, 48, 96, 256])
 def test_the_wrapper_rejects_other_head_dims(d):
     q = torch.zeros((1, 8, 2, d), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):

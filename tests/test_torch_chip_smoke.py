@@ -18,7 +18,7 @@ import pytest
 import torch
 
 import chip_smoke
-from comfyui_distributed_tpu_torch.models import layers, vae
+from comfyui_distributed_tpu_torch.models import layers, mmdit, vae
 from comfyui_distributed_tpu_torch.models.registry import create_model, get_config
 from comfyui_distributed_tpu_torch.ops import attention as attn
 from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
@@ -42,6 +42,7 @@ def recorded_calls(monkeypatch):
 
     monkeypatch.setattr(layers, "dot_product_attention", record)
     monkeypatch.setattr(vae, "dot_product_attention", record)
+    monkeypatch.setattr(mmdit, "dot_product_attention", record)
     return calls
 
 
@@ -354,6 +355,7 @@ def counted_calls(monkeypatch):
 
     monkeypatch.setattr(layers, "dot_product_attention", counting(layers.dot_product_attention))
     monkeypatch.setattr(vae, "dot_product_attention", counting(vae.dot_product_attention))
+    monkeypatch.setattr(mmdit, "dot_product_attention", counting(mmdit.dot_product_attention))
     attn.reset_launch_counts()
     yield
     attn.reset_launch_counts()
@@ -829,3 +831,80 @@ def test_nodes_phase_runs_and_checks_on_the_cpu(capsys):
     assert registry_new <= set(result["classes"])
     assert result["max_abs_diff"] == 0.0 and result["tensors"] > 40
     assert "[nodes]" in capsys.readouterr().out
+
+
+TINY_FLUX = {"flux-schnell": "tiny-flux", "flux-dev": "tiny-flux", "clip-l": "tiny-te",
+             "t5-xxl": "tiny-t5-shared", "vae-flux": "tiny-vae-flux"}
+
+
+def _tiny_flux_workflow(tag, px=32, steps=2):
+    """A bundled Flux workflow on the tiny models at `px`, 2 steps."""
+    workflow = _workflow(chip_smoke.FLUX_WORKFLOWS[tag])
+    for node in workflow.values():
+        inputs = node["inputs"]
+        for key in ("ckpt_name", "unet_name", "clip_name1", "clip_name2", "vae_name"):
+            if key in inputs:
+                inputs[key] = TINY_FLUX[inputs[key]]
+        for key in ("width", "height"):
+            if key in inputs:
+                inputs[key] = px
+        if "steps" in inputs:
+            inputs["steps"] = steps
+    return workflow
+
+
+@pytest.mark.parametrize("tag, tokens, calls", [
+    ("flux_schnell", 4608, 57 * 4), ("flux_dev", 4608, 57 * 20), ("flux_dual", 4608, 57 * 20),
+    ("kontext", 8704, 57 * 20),
+])
+def test_flux_shapes_of_the_bundled_workflows(tag, tokens, calls):
+    """At 1024 px: 512 T5 tokens and 64^2 image tokens (Kontext: another
+    64^2 of its reference), 19 + 38 joint calls an evaluation at batch 1,
+    then the VAE's decode (and Kontext's encode) at 128^2 latents."""
+    shapes = chip_smoke._flux_shapes(_workflow(chip_smoke.FLUX_WORKFLOWS[tag]))
+    vae_calls = 2 if tag == "kontext" else 1
+    assert shapes == [(f"joint@{tokens}", (1, tokens, 24, 128), tokens, calls),
+                      ("vae@16384", (1, 16384, 1, 512), 16384, vae_calls)]
+    assert chip_smoke._expected_by_instance(attn, shapes, torch) == {
+        "wgmma": calls, "wgmma512": vae_calls, "fma": 0}
+
+
+def test_flux_shapes_match_one_evaluation_on_meta(recorded_calls):
+    """flux-dev's forward on meta at 1024 px, with and without Kontext's
+    reference: every joint call `_flux_shapes` counts, nothing else."""
+    with torch.device("meta"):
+        model = create_model("flux-dev")
+        x, t, ctx, y = (torch.empty(1, 128, 128, 16), torch.empty(1), torch.empty(1, 512, 4096),
+                        torch.empty(1, 768))
+        model(x, t, ctx, y=y)
+        model(x, t, ctx, y=y, ref_latents=[torch.empty(1, 128, 128, 16)])
+    assert recorded_calls == {((1, 4608, 24, 128), 4608): 57, ((1, 8704, 24, 128), 8704): 57}
+
+
+def test_flux_pipelines_resolve_every_loader():
+    bundle = object()
+    dual = chip_smoke._flux_pipelines(_workflow("distributed-flux-dual-prompt.json"), bundle)
+    assert dual == {"flux-dev": bundle, "unet:flux-dev": bundle,
+                    "clip:flux:clip-l,t5-xxl": bundle}
+    assert chip_smoke._flux_model(_workflow("distributed-txt2img-flux.json")) == "flux-schnell"
+
+
+def test_flux_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread, counted_calls):
+    """The phase as the card runs it, on the tiny Flux models at 32 px and
+    2 steps: each workflow's local references and one HTTP run with the
+    attention calls `_flux_shapes` counts, Kontext without its reference,
+    and the dual-prompt image against the custom-sampling one."""
+    workflows = {tag: _tiny_flux_workflow(tag) for tag in chip_smoke.FLUX_WORKFLOWS}
+    expected = {}
+    for tag, workflow in workflows.items():
+        per_image = sum(count for *_, count in chip_smoke._flux_shapes(workflow, image_px=32))
+        expected[tag] = (per_image, {"fma": per_image, "wgmma": 0, "wgmma512": 0})
+    results = chip_smoke._flux_phase(torch, workflows, "cpu", expected=expected, image_px=32)
+    out = capsys.readouterr().out.splitlines()
+    for tag in workflows:
+        assert results[tag]["launches"] == 2 * expected[tag][0]
+        lines = [line for line in out if line.startswith(f"[{tag}] run 1")]
+        assert "collector jobs left 0" in lines[0] and "image 0 vs the local seed" in lines[1]
+    assert any("with vs without ReferenceLatent" in line for line in out)
+    assert any(line.startswith("[flux] dual-prompt vs custom-sampling") for line in out)
+

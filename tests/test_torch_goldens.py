@@ -31,9 +31,11 @@ largest |x|, floored at 1; gaps measured on a CPU in brackets):
 longer takes as the golden does: the case pins that gap, as
 tests/test_torch_samplers.py::test_sigmas_pinned_by_the_goldens does.
 
-The Flux, SD3, Kontext and video keys wait for their model families
-(ROADMAP.md, Queue 1 item 5): FLUX_SD3_VIDEO_KEYS names them, and a test
-holds the split of the file's keys.
+The Flux keys (tiny-flux txt2img, the same at ModelSamplingFlux's shift
+2.5, and a Kontext edit through ReferenceLatent) run through the bf16
+MMDiT and 16-channel VAE: BF16_BAR. The SD3 and video keys wait for
+their model families (ROADMAP.md, Queue 1 item 5): SD3_VIDEO_KEYS names
+them, and a test holds the split of the file's keys.
 """
 
 import dataclasses
@@ -69,8 +71,7 @@ GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "go
 BF16_BAR = 2.0**-3
 LATENT_BAR = 1e-3
 EXACT_BAR = 1e-6
-FLUX_SD3_VIDEO_KEYS = {"flux_txt2img_32", "flux_shift25_txt2img_32", "kontext_txt2img_32",
-                       "sd3_txt2img_32", "sd35m_txt2img_32", "t2v_5f_32"}
+SD3_VIDEO_KEYS = {"sd3_txt2img_32", "sd35m_txt2img_32", "t2v_5f_32"}
 
 
 @pytest.fixture(scope="module")
@@ -96,7 +97,8 @@ class Bundles:
 
 def port_bundle(jb):
     """The port's bundle of jb.model_name on the CPU, f32, jb's weights."""
-    names = [n for n in (jb.model_name, jb.te_name, jb.te2_name, "tiny-vae") if n]
+    names = [n for n in (jb.model_name, jb.te_name, jb.te2_name,
+                         tpl._family_vae_name(jb.model_name)) if n]
     with pytest.MonkeyPatch.context() as mp:
         for name in names:
             entry = treg.MODEL_REGISTRY[name]
@@ -149,16 +151,16 @@ def _imask():
     return m
 
 
-def _txt2img(s, name, prompt, size, seed, **kw):
-    bundle = s.bundle(name)
+def _txt2img(s, name, prompt, size, seed, cfg_scale=7.0, bundle=None, **kw):
+    bundle = bundle or s.bundle(name)
     if s.is_jax:
         return s.pl.txt2img(bundle, prompt, height=size, width=size, steps=2, seed=seed,
-                            cfg_scale=7.0, **kw)
+                            cfg_scale=cfg_scale, **kw)
     # _txt2img_jit's initial noise: normal(split(key(seed), 3)[1])
     shape = (1, size // bundle.latent_scale, size // bundle.latent_scale, bundle.latent_channels)
     noise = np.array(jax.random.normal(jax.random.split(jax.random.key(seed), 3)[1], shape))
     return s.pl.txt2img(bundle, prompt, height=size, width=size, steps=2, seed=seed,
-                        cfg_scale=7.0, noise=torch.from_numpy(noise), **kw)
+                        cfg_scale=cfg_scale, noise=torch.from_numpy(noise), **kw)
 
 
 def k_txt2img_64(s):
@@ -168,6 +170,27 @@ def k_txt2img_64(s):
 def k_vpred_txt2img_32(s):
     return _txt2img(s, "tiny-unet-v", "a golden vpred image", 32, 55, sampler="euler",
                     scheduler="beta")
+
+
+def k_flux_txt2img_32(s):
+    return _txt2img(s, "tiny-flux", "a golden flux image", 32, 99, cfg_scale=1.0,
+                    sampler="euler", scheduler="simple")
+
+
+def k_flux_shift25_txt2img_32(s):
+    shifted = dataclasses.replace(s.bundle("tiny-flux"), flow_shift_override=2.5)
+    return _txt2img(s, "tiny-flux", "a golden shifted flux image", 32, 99, cfg_scale=1.0,
+                    bundle=shifted, sampler="euler", scheduler="simple")
+
+
+def k_kontext_txt2img_32(s):
+    b = s.bundle("tiny-flux")
+    (ref_lat,) = s.core.VAEEncode().encode(s.array(_pix()), b)
+    (pos,) = s.ctl.ReferenceLatent().append(_pooled(s, b, "golden kontext edit"), ref_lat)
+    (el,) = s.core.EmptyLatentImage().generate(32, 32, 1, **s.kw)
+    (lat,) = s.core.KSampler().sample(b, 21, 2, 1.0, "euler", "simple", pos, _pooled(s, b, ""),
+                                      el, denoise=1.0)
+    return s.core.VAEDecode().decode(lat, b)[0]
 
 
 def k_usdu_64_to_128(s):
@@ -354,8 +377,8 @@ GUIDED = {"guided_pag_8", "guided_sag_8", "guided_perpneg_8", "guided_dualcfg_8"
 def test_the_files_keys_are_these_and_the_other_families():
     with np.load(GOLDENS) as data:
         files = set(data.files)
-    assert files == set(KEYS) | FLUX_SD3_VIDEO_KEYS
-    assert len(KEYS) == 20
+    assert files == set(KEYS) | SD3_VIDEO_KEYS
+    assert len(KEYS) == 23
     assert EXACT | LATENTS | GUIDED < set(KEYS)
 
 

@@ -167,11 +167,8 @@ def test_nodes_keep_the_tensors_device_and_dtype():
 STILL_TO_PORT = {
     "item 4 (LoRA, weight merges)": {"LoraLoader", "LoraLoaderModelOnly", "ModelMergeSimple",
                                      "CLIPMergeSimple"},
-    "item 5 (Flux, SD3, unCLIP)": {"CLIPTextEncodeFlux", "FluxGuidance", "ModelSamplingFlux",
-                                   "ReferenceLatent", "UNETLoader", "CLIPLoader",
-                                   "DualCLIPLoader", "TripleCLIPLoader", "EmptySD3LatentImage",
-                                   "ModelSamplingSD3", "SkipLayerGuidanceSD3", "CLIPVisionLoader",
-                                   "CLIPVisionEncode", "unCLIPConditioning"},
+    "item 5 (SD3, unCLIP)": {"TripleCLIPLoader", "ModelSamplingSD3", "SkipLayerGuidanceSD3",
+                             "CLIPVisionLoader", "CLIPVisionEncode", "unCLIPConditioning"},
     "item 5 (video)": {"EmptyVideoLatent", "VideoCheckpointLoader", "VideoCLIPTextEncode",
                        "VideoFlowSampler", "WanImageToVideo", "SaveAnimatedPNG",
                        "SaveAnimatedWEBP", "SaveVideoFrames"},
@@ -181,8 +178,8 @@ STILL_TO_PORT = {
 
 def test_the_registries_differ_only_by_the_families_still_to_port():
     """Every SD-family node of the JAX package is registered in the port
-    under its name; what is missing belongs to LoRA and weight merges,
-    Flux/SD3/unCLIP, video or audio."""
+    under its name, and so is every Flux node; what is missing belongs to
+    LoRA and weight merges, SD3/unCLIP, video or audio."""
     # each package's own nodes: other test modules register nodes of their
     # own in the same process
     jax_nodes, port_nodes = ({name for name, cls in graph.NODE_REGISTRY.items()
@@ -192,7 +189,9 @@ def test_the_registries_differ_only_by_the_families_still_to_port():
     assert port_nodes <= jax_nodes
     for name in ("KSamplerSelect", "SamplerCustomAdvanced", "PerpNegGuider", "GrowMask",
                  "LatentBatchSeedBehavior", "InpaintModelConditioning", "ImageBatch",
-                 "ModelSamplingDiscrete"):
+                 "ModelSamplingDiscrete", "CLIPTextEncodeFlux", "FluxGuidance",
+                 "ModelSamplingFlux", "ReferenceLatent", "UNETLoader", "CLIPLoader",
+                 "DualCLIPLoader", "EmptySD3LatentImage"):
         assert name in tgraph.NODE_REGISTRY
 
 

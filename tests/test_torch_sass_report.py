@@ -57,6 +57,20 @@ def test_chunked_head_dims_count_every_p_v_group():
     assert kernel.loop == {"HGMMA": 35, "MUFU": 5}
 
 
+def test_flux_head_dim_counts_one_p_v_group_of_128_columns():
+    # D=128 at a 64-key tile: Q·K^T in 8 k-steps over the chunks [64 |
+    # 64]; P·V one 128-column product per k-step (both chunks through the
+    # leading byte offset), each twice (P in two bf16): 2 * 4 = 8 a tile
+    kernel_128 = _KERNEL.replace("ILi64ELi80ELi1EE", "ILi128ELi64ELi1EE")
+    s_step = "HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24, gsb0"
+    pv = "HGMMA.64x128x16.F32.BF16 R56, R184, gdesc[UR8].tnspB, R56, gsb0"
+    body = [s_step] * 8 + [s_step] * 8 + ["MUFU.EX2 R1, R2"] * 4 + [pv] * 8 + [pv] * 8
+    (kernel,) = sass_report.wgmma_loop_mix(_listing(body, kernel_128))
+    assert (kernel.label, kernel.hgmma, kernel.depbar) == ("wgmma D128 k64 c1", 32, 0)
+    # from HGMMA 8 up to HGMMA 8 + 8 + 8: one whole loop tile
+    assert kernel.loop == {"HGMMA": 16, "MUFU": 4}
+
+
 def test_other_kernels_are_skipped():
     assert sass_report.wgmma_loop_mix("\t\tFunction : _Z3fooPf\n  /*0000*/ FADD R1, R2, R3 ;\n") == []
 

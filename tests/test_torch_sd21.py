@@ -142,8 +142,11 @@ def test_v_models_use_the_vp_table_and_noising(denoise):
     np.testing.assert_array_equal(
         tsmp.noise_latents("v", torch.from_numpy(z), torch.from_numpy(n), got[0]).numpy(),
         np.asarray(jsmp.noise_latents("v", jnp.asarray(z), jnp.asarray(n), ref[0])))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tsmp.get_model_sigmas("flow", "karras", 20)
+    # the flow table is another one (ported since Flux), within [0, 1]
+    flow = tsmp.get_model_sigmas("flow", "karras", 20, denoise=denoise)
+    np.testing.assert_array_equal(flow.numpy(), np.asarray(
+        jsmp.get_model_sigmas("flow", "karras", 20, denoise=denoise)))
+    assert float(flow[0]) <= 1.0 and not torch.equal(flow, got)
 
 
 @pytest.fixture(scope="module")

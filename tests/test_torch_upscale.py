@@ -134,9 +134,10 @@ def test_sigma_to_timestep_matches_jax():
 
 
 def test_unported_samplers_and_schedulers_raise():
-    # every VP sampler and scheduler is ported; flow schedules are not
+    # every VP and flow sampler and scheduler is ported; other
+    # parameterizations are not
     with pytest.raises(NotImplementedError, match="flow"):
-        tsmp.get_model_sigmas("flow", "normal", 10)
+        tsmp.get_model_sigmas("edm", "normal", 10)
     with pytest.raises(ValueError, match="unknown scheduler"):
         tsmp.get_sigmas("linear", 10)
     with pytest.raises(ValueError, match="requires step noise"):
