@@ -14,14 +14,18 @@ Phases, each printing lines tagged with its name:
              attention shape of the upscale path and of each seed-parallel
              workflow (bf16; each shape once, with its launches per tile or
              image on every path that runs it);
-             Flux's D=128 also at a ragged joint length (1008 px) and a
-             short key count at 24 heads;
+             Flux's D=128 also at a ragged joint length (1008 px), a
+             short key count and both sides of the router's one-bf16-P
+             threshold (WGMMA_PINGPONG_ABOVE[128]) at 24 heads;
              at D=40, 80, 128 and 160 also f32, an unaligned, a strided and a
              16-not-128-byte aligned view and the edges of the wgmma
              instance's 64-row blocks and key tiles (N in EDGE_ROWS_WG, M
              in EDGE_KEYS_WG, one head of one batch, fewer timing
              samples; at D=40 also those of the two-consumer blocks,
-             EDGE_ROWS_PINGPONG and EDGE_KEYS_PINGPONG); for D=64 and
+             EDGE_ROWS_PINGPONG and EDGE_KEYS_PINGPONG; at D=128 those of
+             the two-consumer one-bf16-P plan's 128-row blocks,
+             EDGE_ROWS_BF16_P, at key counts around its key tiles and the
+             threshold, `_bf16_p_edge_keys`); for D=64 and
              512 also: in f32, on the fused strided qkv view, on small ragged inputs, at the edges of
              the wgmma instance's key tiles (one head of one batch), at
              the edges of the D=512 instance's row blocks and key tiles
@@ -35,8 +39,14 @@ Phases, each printing lines tagged with its name:
              launched, the blocks resident per SM and the waves.
    tiles   - every compiled plan of the wgmma instance (key tile and
              query rows a block) timed at each D=40/64/80/128/160 shape of
-             both paths, and every key split of the D=512 instance at
-             vae@5184, beside the router's choice.
+             both paths and at Flux's ragged joint@4481, and every key
+             split of the D=512 instance at vae@5184, beside the router's
+             choice.
+   threshold - both D=128 plans held to the plain version at 4608 query
+             rows and 24 heads over THRESHOLD_KEYS and both sides of the
+             router's threshold (where one bf16 P misses and where it
+             holds), and the one-bf16-P plan against its emulation
+             (`bf16_p_attention_reference`) at joint@4608.
    host    - the wrapper's host cost per call: 10 x 100 calls timed on the
              host clock while a spin kernel holds the stream.
 4. main    - workflows/distributed-upscale.json through the port's
@@ -308,6 +318,15 @@ EDGE_KEYS_WG = (1, 63, 64, 65, 77, 79, 80, 81, 127, 128, 129)
 # of their 128-row blocks (consumer 1 on rows 64-127) and 128-key tiles
 EDGE_ROWS_PINGPONG = (127, 128, 129)
 EDGE_KEYS_PINGPONG = (257,)
+# and at D = 128, whose keys past WGMMA_PINGPONG_ABOVE[128] take two
+# consumers a block with P rounded once to bf16: the edges of its 128-row
+# blocks (consumer 1 on rows 64-127), at the key counts of
+# `_bf16_p_edge_keys`
+EDGE_ROWS_BF16_P = (1, 63, 64, 65, 127, 128, 129, 200)
+# key counts at which the [threshold] line holds both D = 128 plans to the
+# plain version at Flux's 4608 query rows and 24 heads, besides the
+# threshold and one past it
+THRESHOLD_KEYS = (63, 257, 513)
 # SD1.5's head dims (8 heads at every level of its UNet)
 TXT2IMG_HEAD_DIMS = (40, 80, 160)
 TXT2IMG_RUNS = 2
@@ -617,6 +636,74 @@ def _txt2img_shapes(workflow, image_px: int = IMAGE_PX):
                + 2 * len(_node_ids(workflow, "InpaintModelConditioning")))
     return _attention_shapes(get_config(ckpt), vae_cfg, te_len, height // vae_cfg.downscale,
                              evals, vae_calls=1 + encodes, perturbed_evals=perturbed)
+
+
+def _bf16_p_edge_keys(attn, d: int = 128) -> tuple:
+    """Key counts around the router's one-bf16-P threshold T at head dim
+    D and around each of its key tiles' first multiple past it: T (the
+    split-P plan), T + 1, and each such multiple, one less and one more."""
+    threshold = attn.WGMMA_PINGPONG_ABOVE[d]
+    keys = [threshold, threshold + 1]
+    for tile in attn.WGMMA_PINGPONG_KEYS[d]:
+        edge = -(-(threshold + 1) // tile) * tile
+        keys += [edge - 1, edge, edge + 1]
+    return tuple(sorted(set(keys)))
+
+
+def _flux_extra_checks(attn) -> list:
+    """The D = 128 checks beyond the Flux workflows' shapes, as (label,
+    q shape, M, dtype, launches per unit, layout): a ragged joint length
+    (1008 px), a short key count and both sides of the one-bf16-P
+    threshold at 24 heads, and the two-consumer plan's edges (one head of
+    one batch)."""
+    threshold = attn.WGMMA_PINGPONG_ABOVE[128]
+    checks = [(f"joint@{FLUX_RAGGED_TOKENS} (1008 px)", (1, FLUX_RAGGED_TOKENS, 24, 128),
+               FLUX_RAGGED_TOKENS, "bfloat16", None, "contiguous")]
+    checks += [(f"joint@4608 x {m} keys", (1, 4608, 24, 128), m, "bfloat16", None, "contiguous")
+               for m in (63, threshold, threshold + 1)]
+    checks += [(f"edge D128 {n}x{m} B*H=1", (1, n, 1, 128), m, "bfloat16", None, "edge")
+               for n in EDGE_ROWS_BF16_P for m in _bf16_p_edge_keys(attn)]
+    return checks
+
+
+def _tolerance_ratio(got, ref, rtol: float = 2.0**-7, atol: float = 1e-3) -> float:
+    """The largest |got - ref| over the bf16 tolerance atol + rtol |ref|:
+    at most 1 passes."""
+    got, ref = got.float(), ref.float()
+    return float(((got - ref).abs() / (atol + rtol * ref.abs())).max())
+
+
+def _threshold_line(torch, attn, gen) -> str:
+    """Both D = 128 plans against the plain version at Flux's 4608 query
+    rows and 24 heads over THRESHOLD_KEYS and both sides of the
+    threshold, and the one-bf16-P plan against its emulation at
+    joint@4608. Fails if the router's plan misses anywhere or the plan
+    misses its emulation."""
+    threshold = attn.WGMMA_PINGPONG_ABOVE[128]
+    split_p = attn.Plan("wgmma", attn.WGMMA_KEY_TILES[128][0], attn.WGMMA_ROWS)
+    parts = []
+    for m in THRESHOLD_KEYS + (threshold, threshold + 1, 4608):
+        # the one-bf16-P plan with the key tile the router weighs best at M
+        bf16_p = attn.Plan("wgmma", attn.pingpong_key_tile(128, m), 2 * attn.WGMMA_ROWS)
+        q, k, v = (torch.randn(s, generator=gen, device="cuda").bfloat16()
+                   for s in ((1, 4608, 24, 128), (1, m, 24, 128), (1, m, 24, 128)))
+        ref = attn.flash_attention_reference(q, k, v)
+        ratios = {p: _tolerance_ratio(attn.flash_attention(q, k, v, with_plan=p), ref)
+                  for p in (split_p, bf16_p)}
+        chosen = attn.plan(q, k, v)
+        _require(ratios[chosen] <= 1.0,
+                 f"[threshold] the router's {chosen} misses at {m} keys ({ratios[chosen]:.3g})")
+        parts.append(f"{m}: " + ", ".join(
+            f"{'*' if p == chosen else ''}k{p.keys_per_tile} r{p.rows_per_cta} {r:.3f}"
+            for p, r in ratios.items()))
+    emulated = attn.bf16_p_attention_reference(q, k, v, bf16_p.keys_per_tile)
+    emulation = _tolerance_ratio(attn.flash_attention(q, k, v, with_plan=bf16_p), emulated)
+    _require(emulation <= 1.0, f"[threshold] the one-bf16-P plan misses its emulation "
+                               f"({emulation:.3g})")
+    return (f"[threshold] D=128, 4608 query rows, 24 heads: max |d| / (1e-3 + 2^-7 |ref|) "
+            f"against the f32 plain version by key count (* the router's plan; above 1 "
+            f"misses): " + "; ".join(parts) + f"; the one-bf16-P plan against its emulation "
+            f"at 4608 keys {emulation:.3f}")
 
 
 def _expected_instance(attn, head_dim: int, dtype: str, layout: str) -> str:
@@ -2992,6 +3079,7 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    from comfyui_distributed_tpu_torch import sass_report
     from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
     from comfyui_distributed_tpu_torch.models import pipeline as pl
     from comfyui_distributed_tpu_torch.models.registry import get_config
@@ -3014,9 +3102,8 @@ def main() -> int:
     _, build = attn.load_library()
     print(f"[build] {os.path.relpath(build.path, REPO)}: nvcc {build.seconds:.2f} s, "
           f"load {time.perf_counter() - started:.2f} s")
-    for line in build.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] ptxas: {line.strip()}")
+    for kernel, line in sass_report.ptxas_kernel_lines(build.log):
+        print(f"[build] ptxas: {kernel}: {line}")
 
     # --- 3. kernel vs plain --------------------------------------------------
     phase_started = time.perf_counter()
@@ -3141,12 +3228,10 @@ def main() -> int:
     # edges of the wgmma instance's 64-row blocks and key tiles
     checks += [(label, q, m, "bfloat16", units, "contiguous")
                for (label, q, m), units in main_shapes.items() if "upscale" not in units]
-    # Flux's D=128 beyond its main shapes: a ragged joint length (1008 px)
-    # and a short key count at its full 24 heads
-    flux_q = (1, FLUX_RAGGED_TOKENS, 24, 128)
-    checks += [(f"joint@{FLUX_RAGGED_TOKENS} (1008 px)", flux_q, FLUX_RAGGED_TOKENS, "bfloat16",
-                None, "contiguous"),
-               ("joint@4608 x 63 keys", (1, 4608, 24, 128), 63, "bfloat16", None, "contiguous")]
+    # Flux's D=128 beyond its main shapes: a ragged joint length (1008 px),
+    # a short key count and both sides of the one-bf16-P threshold at its
+    # full 24 heads, the one-bf16-P plan's edges
+    checks += _flux_extra_checks(attn)
     for d in TXT2IMG_HEAD_DIMS + FLUX_HEAD_DIMS:
         checks += [
             (f"D{d} ragged 1000x777 f32", (1, 1000, 2, d), 777, "float32", None, "contiguous"),
@@ -3155,7 +3240,7 @@ def main() -> int:
             (f"D{d} rows 16 bytes off 128", (2, 100, 2, d), 100, "bfloat16", None, "offset"),
         ]
         rows, keys = EDGE_ROWS_WG, EDGE_KEYS_WG
-        if d in attn.WGMMA_PINGPONG_KEYS:
+        if d in attn.WGMMA_PINGPONG_KEYS and d not in attn.WGMMA_BF16_P:
             rows, keys = rows + EDGE_ROWS_PINGPONG, keys + EDGE_KEYS_PINGPONG
         checks += [(f"edge D{d} {n}x{m} B*H=1", (1, n, 1, d), m, "bfloat16", None, "edge")
                    for n in rows for m in keys]
@@ -3219,12 +3304,14 @@ def main() -> int:
               f"masked={plan.masked_share(m):.4f} rows/cta={plan.rows_per_cta} "
               f"splits={plan.splits} ctas={ctas} ctas/sm={per_sm} "
               f"waves={ctas / (per_sm * sms):.3f}")
-        if units and plan.instance == "wgmma":
+        # the paths' shapes, and Flux's ragged joint length
+        joint = d in FLUX_HEAD_DIMS and layout == "contiguous" and n == m
+        if plan.instance == "wgmma" and (units or joint):
             plans = attn.wgmma_plans(d)
             tile_lines.append(_time_plans(torch, attn, label, q, k, v, plans, plan))
             # the largest call of the upscale or txt2img path: the [host]
             # line keeps its shape
-            if {"upscale", "txt2img"} & set(units) and (host_inputs is None
+            if {"upscale", "txt2img"} & set(units or {}) and (host_inputs is None
                                                         or q.numel() > host_inputs[0].numel()):
                 host_inputs = (q, k, v)
         if units and "upscale" in units and plan.instance == "wgmma512":
@@ -3241,6 +3328,7 @@ def main() -> int:
 
     for line in tile_lines:
         print(line)
+    print(_threshold_line(torch, attn, gen))
     print(_host_us_per_call(torch, attn, *host_inputs))
     phase_seconds = {"kernel": time.perf_counter() - phase_started}
 

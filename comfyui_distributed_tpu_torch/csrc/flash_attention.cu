@@ -44,8 +44,8 @@
 // The instance is chosen by the caller (ops/attention.py::plan) and passed
 // in as a code; an instance or tile shape not compiled here returns -1.
 //
-// flash_attention_fwd_wgmma_kernel<D, KEYS, CONSUMERS>, bf16, D = 40, 64,
-// 80, 128 and 160 (instance 2; the 2800 UNet calls of an SDXL tile at D =
+// flash_attention_fwd_wgmma_kernel<D, KEYS, CONSUMERS, SPLIT_P>, bf16, D =
+// 40, 64, 80, 128 and 160 (instance 2; the 2800 UNet calls of an SDXL tile at D =
 // 64, the 640 of an SD1.5 image at D = 40/80/160, Flux's 57 joint calls
 // an evaluation at D = 128): warp-specialised, on Hopper's asynchronous
 // units.
@@ -57,8 +57,9 @@
 //     barriers 1 and 2), so one's softmax runs under the other's
 //     products, and share each K and V tile, which halves the deliveries
 //     per query row. The router takes them at D = 40 wherever the keys
-//     outgrow one 80-key tile (self@4096); elsewhere one consumer, two
-//     blocks an SM.
+//     outgrow one 80-key tile (self@4096) and at D = 128 past 1024 keys
+//     (Flux's joint attention, with P as one bf16, below); elsewhere one
+//     consumer, two blocks an SM.
 //   * The head dim is cut into column chunks, each its own TMA box and
 //     swizzled with a span of its own width in bytes (HeadChunks): D = 40
 //     [32 cols, 64-byte swizzle | 16, 32-byte], D = 64 [64, 128-byte], D =
@@ -96,17 +97,36 @@
 //     few key slots are masked: M = 77 one tile of 80; M = 4096 and 1024
 //     tiles of 128 (D = 40, 80); M = 256 and 64 tiles of 64 (D = 160,
 //     whose 80 accumulator registers a 128-key tile would crowd); M = 324
-//     and 1296 tiles of 112 and 144 (D = 64); Flux's 4481 - 8704 joint
-//     tokens tiles of 64 (D = 128: 64 accumulator registers a thread, 82
-//     KB of shared memory a block, two blocks an SM).
+//     and 1296 tiles of 112 and 144 (D = 64); at D = 128 up to 1024 keys
+//     tiles of 64 (64 accumulator registers a thread, 82 KB of shared
+//     memory a block, two blocks an SM), past them (Flux's 4481 - 8704
+//     joint tokens) the two-consumer plan's tiles of 144 or 176, which
+//     the router weighs by their slots and a per-tile cost: at 176 keys
+//     88 score, 44 P and 64 accumulator registers a thread, Q (32 KB) and
+//     two stages of K and V (44 KB each) in 209 KB of shared memory.
+//     (128 and 160 keys measured no faster at 4608, 8704 and 4481 keys,
+//     and a rescale skipped where no row max moved slower: PERF.md, PR
+//     13.)
 //   * P goes into P V as two bf16 products, bf16(P) and bf16(P - bf16(P)):
-//     16 bits of P where one bf16 keeps 8, as the TPU kernel keeps P V in
-//     f32. One bf16 P missed the plain version by more than one bf16 step
-//     of the output where few keys share the weight (M = 77); the split
-//     costs half again the tensor-core work (at D = 40 about 78 us of
-//     tensor work at peak against the exp2's 64 us). The split is six
+//     16 bits of P where one bf16 keeps 8, near the TPU kernel's f32 P V.
+//     The split costs half again the tensor-core work (at D = 40 about 78
+//     us of tensor work at peak against the exp2's 64 us) and six
 //     instructions a pair of scores (pack, shift, mask, two subtracts,
-//     pack).
+//     pack). Where few keys share the weight, one bf16 P misses the plain
+//     version by more than one bf16 step of the output (M = 77 at D = 64;
+//     at D = 128 over 4608 query rows of 24 heads 2.4 - 4.3 times the
+//     tolerance at 2 - 16 keys, tests/test_torch_attention_d128.py, and
+//     1.56 at 63 keys on the card, PERF.md, PR 13), so every plan keeps
+//     the split but D = 128's two-consumer plans (SPLIT_P false), which
+//     the router takes past 1024 keys: they round P once to bf16 against
+//     the running max, take the row sum from the f32 P, and run P V as
+//     one wgmma chain of m64n128k16 from registers. That departs from the TPU kernel, which multiplies
+//     an f32 P by V (comfyui_distributed_tpu/ops/attention.py:133): with
+//     the split, P V alone would leave joint@4608 a bound of 0.396 ms
+//     against SDPA's 0.419 (94 % of the bf16 peak to meet it), while one
+//     bf16 P holds the tolerance past 1024 keys (0.66 of it at 1025 and
+//     0.49 at 4608 on the card; its emulation is ops/attention.py::
+//     bf16_p_attention_reference).
 //   * The output is stored from registers, 4 bytes a thread per row pair.
 
 // flash_attention_fwd_wgmma512_kernel, bf16, D = 512 (instance 3; the
@@ -413,7 +433,7 @@ int run_fma(const Call& c, int* occupancy) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- warp-specialised kernel: bf16, D = 40, 64, 80, 160 ----------------------
+// ---- warp-specialised kernel: bf16, D = 40, 64, 80, 128, 160 -----------------
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -602,16 +622,26 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[KEYS / 2], float (&row_
     row_sum[r] = row_sum[r] * correction[r] + ((part[r][0] + part[r][1]) + (part[r][2] + part[r][3]));
 }
 
-// P as the A operand of P V, in bf16 head and tail: score columns 16kk ..
-// 16kk + 15 (n-blocks 2kk, 2kk + 1) are the A fragment of k-step kk.
-template <int KEYS>
-__device__ __forceinline__ void split_p(const float (&sc)[KEYS / 2], uint32_t (&head)[KEYS / 16][4],
-                                        uint32_t (&tail)[KEYS / 16][4]) {
+// The tail of a split P: KEYS / 16 fragments, or one unused fragment
+// where P goes in as one bf16.
+template <int KEYS, bool SPLIT_P>
+constexpr int kTailSteps = SPLIT_P ? KEYS / 16 : 1;
+
+// P as the A operand of P V: score columns 16kk .. 16kk + 15 (n-blocks
+// 2kk, 2kk + 1) are the A fragment of k-step kk. SPLIT_P: in bf16 head and
+// tail; else rounded once to bf16 (head alone).
+template <int KEYS, bool SPLIT_P>
+__device__ __forceinline__ void pack_p(const float (&sc)[KEYS / 2], uint32_t (&head)[KEYS / 16][4],
+                                       uint32_t (&tail)[kTailSteps<KEYS, SPLIT_P>][4]) {
 #pragma unroll
   for (int kk = 0; kk < KEYS / 16; ++kk)
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-      split_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], head[kk][r], tail[kk][r]);
+    for (int r = 0; r < 4; ++r) {
+      if constexpr (SPLIT_P)
+        split_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], head[kk][r], tail[kk][r]);
+      else
+        head[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+    }
 }
 
 // S = Q K^T for one key tile: k-steps of 16 columns, each inside one
@@ -636,7 +666,7 @@ __device__ __forceinline__ void issue_scores(float (&sc)[KEYS / 2],
 // (all chunks' columns) accumulator, columns 8j .. 8j + 7 in registers
 // 4j .. 4j + 3, so a group's registers are the run from its first column.
 // V's k-step kk is 16 rows of the group's row bytes on.
-template <int D, int G, int N>
+template <int D, int G, bool SPLIT_P, int N>
 __device__ __forceinline__ void pv_group(float (&acc)[N], const uint32_t (&head)[4],
                                          const uint32_t (&tail)[4], uint64_t v_desc, int kk) {
   using C = HeadChunks<D>;
@@ -644,27 +674,29 @@ __device__ __forceinline__ void pv_group(float (&acc)[N], const uint32_t (&head)
   constexpr int width = C::cols(first) * C::group_chunks(G);
   float(&run)[width / 2] = *reinterpret_cast<float(*)[width / 2]>(acc + chunk_col0<D>(first) / 2);
   const uint64_t desc = v_desc + 2 * C::cols(first) * kk;
-  hopper::WgmmaRS<width>::run(run, tail, desc);
+  if constexpr (SPLIT_P) hopper::WgmmaRS<width>::run(run, tail, desc);
   hopper::WgmmaRS<width>::run(run, head, desc);
 }
 
-// O += P V for one key tile: P from registers (head, then tail added
-// first), V from the tile's stage (`v_stage`), one wgmma per group and
-// k-step, each of the group's width.
-template <int D, int KEYS, int N>
+// O += P V for one key tile: P from registers (with SPLIT_P head, then
+// tail added first; else the head alone), V from the tile's stage
+// (`v_stage`), one wgmma per group, k-step and part of P, each of the
+// group's width.
+template <int D, int KEYS, bool SPLIT_P, int N>
 __device__ __forceinline__ void issue_pv(float (&acc)[N], uint32_t (&head)[KEYS / 16][4],
-                                         uint32_t (&tail)[KEYS / 16][4],
+                                         uint32_t (&tail)[kTailSteps<KEYS, SPLIT_P>][4],
                                          const uint64_t (&v_desc)[HeadChunks<D>::kGroups],
                                          uint32_t v_stage) {
   hopper::fence_registers(acc);
   hopper::fence_registers(head);
-  hopper::fence_registers(tail);
+  if constexpr (SPLIT_P) hopper::fence_registers(tail);
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < KEYS / 16; ++kk) {
-    pv_group<D, 0>(acc, head[kk], tail[kk], v_desc[0] + v_stage, kk);
+    const uint32_t(&t)[4] = tail[SPLIT_P ? kk : 0];
+    pv_group<D, 0, SPLIT_P>(acc, head[kk], t, v_desc[0] + v_stage, kk);
     if constexpr (HeadChunks<D>::kGroups > 1)
-      pv_group<D, 1>(acc, head[kk], tail[kk], v_desc[1] + v_stage, kk);
+      pv_group<D, 1, SPLIT_P>(acc, head[kk], t, v_desc[1] + v_stage, kk);
   }
   hopper::wgmma_commit();
 }
@@ -681,7 +713,7 @@ __device__ __forceinline__ void rescale_rows(float (&acc)[N], const float (&corr
   }
 }
 
-template <int D, int KEYS, int CONSUMERS>
+template <int D, int KEYS, int CONSUMERS, bool SPLIT_P>
 __global__ void __launch_bounds__(WgShape<D, KEYS, CONSUMERS>::kThreads,
                                   WgShape<D, KEYS, CONSUMERS>::kBlocksPerSm)
     flash_attention_fwd_wgmma_kernel(const __grid_constant__ WgMaps<D> maps,
@@ -777,7 +809,8 @@ __global__ void __launch_bounds__(WgShape<D, KEYS, CONSUMERS>::kThreads,
     float row_sum[2] = {0.f, 0.f};  // this lane's columns only, summed at the end
     float correction[2];
     float sc[KEYS / 2];
-    uint32_t head[KEYS / 16][4], tail[KEYS / 16][4];  // P of the tile in flight
+    // P of the tile in flight
+    uint32_t head[KEYS / 16][4], tail[kTailSteps<KEYS, SPLIT_P>][4];
 
     // Several consumers take turns at the tensor cores (FA3's ping-pong):
     // each issues a tile's Q K^T and P V only after the one before it has
@@ -798,7 +831,7 @@ __global__ void __launch_bounds__(WgShape<D, KEYS, CONSUMERS>::kThreads,
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(&k_empty[0]);
     softmax_tile<KEYS>(sc, row_max, row_sum, correction, 0, m, t, scale_log2);
-    split_p<KEYS>(sc, head, tail);
+    pack_p<KEYS, SPLIT_P>(sc, head, tail);
 
     // Tile i: Q K^T of tile i + 1 runs on the tensor cores while the
     // accumulator is rescaled, and P V of tile i while the softmax of tile
@@ -814,7 +847,7 @@ __global__ void __launch_bounds__(WgShape<D, KEYS, CONSUMERS>::kThreads,
       issue_scores<D, KEYS>(sc, q_desc, k_desc, s1 * (STAGE / 16));
       rescale_rows(acc, correction);
       hopper::mbar_wait(&v_full[s], (i / kWgStages) & 1);
-      issue_pv<D, KEYS>(acc, head, tail, v_desc, s * (STAGE / 16));
+      issue_pv<D, KEYS, SPLIT_P>(acc, head, tail, v_desc, s * (STAGE / 16));
       if (kTurns) hopper::named_barrier_arrive<256>(next_turn);
       hopper::wgmma_wait<1>();  // the scores of tile i + 1 are in; P V runs on
       hopper::fence_registers(sc);
@@ -825,14 +858,14 @@ __global__ void __launch_bounds__(WgShape<D, KEYS, CONSUMERS>::kThreads,
       hopper::fence_registers(acc);
       __syncwarp();
       if (lane == 0) hopper::mbar_arrive(&v_empty[s]);
-      split_p<KEYS>(sc, head, tail);
+      pack_p<KEYS, SPLIT_P>(sc, head, tail);
     }
     {
       const int last = tiles - 1;
       rescale_rows(acc, correction);
       hopper::mbar_wait(&v_full[last % kWgStages], (last / kWgStages) & 1);
       if (kTurns) hopper::named_barrier_sync<256>(my_turn);
-      issue_pv<D, KEYS>(acc, head, tail, v_desc, (last % kWgStages) * (STAGE / 16));
+      issue_pv<D, KEYS, SPLIT_P>(acc, head, tail, v_desc, (last % kWgStages) * (STAGE / 16));
       // the last turn of each consumer lets the next take its own; the last
       // consumer's would be one too many (its first arrive was the extra)
       if (kTurns && consumer != CONSUMERS - 1) hopper::named_barrier_arrive<256>(next_turn);
@@ -1076,7 +1109,7 @@ __global__ void __launch_bounds__(kD512Threads, 1)
     if (lane == 0) hopper::mbar_arrive(&k_empty[0]);
     exchange_scores<KEYS>(sc, xs, 0, consumer, tid);
     softmax_tile<KEYS>(sc, row_max, row_sum, correction, first * KEYS, m, t, scale_log2);
-    split_p<KEYS>(sc, head, tail);
+    pack_p<KEYS, true>(sc, head, tail);
 
     // The loop of the D = 64 kernel: Q K^T of tile i + 1 overlaps the
     // rescale, P V of tile i the exchange and softmax of tile i + 1; the
@@ -1102,7 +1135,7 @@ __global__ void __launch_bounds__(kD512Threads, 1)
       hopper::fence_registers(acc);
       __syncwarp();
       if (lane == 0) hopper::mbar_arrive(&v_empty[s]);
-      split_p<KEYS>(sc, head, tail);
+      pack_p<KEYS, true>(sc, head, tail);
     }
     {
       const int last = tiles - 1;
@@ -1230,12 +1263,12 @@ bool encode_map(CUtensorMap* map, const void* ptr, int batch, int rows, int head
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int KEYS, int CONSUMERS>
+template <int D, int KEYS, int CONSUMERS, bool SPLIT_P = true>
 int run_wgmma(const Call& c, int* occupancy) {
   using S = WgShape<D, KEYS, CONSUMERS>;
   using C = HeadChunks<D>;
   static std::atomic<unsigned long long> configured{0};
-  auto kernel = flash_attention_fwd_wgmma_kernel<D, KEYS, CONSUMERS>;
+  auto kernel = flash_attention_fwd_wgmma_kernel<D, KEYS, CONSUMERS, SPLIT_P>;
   cudaError_t err = allow_shared_once(configured, kernel, S::kSmem, c.device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (occupancy)
@@ -1324,7 +1357,8 @@ int dispatch_fma(int dtype, int keys, int rows, const Call& c, int* occupancy) {
 }
 
 // The warp-specialised kernel at head dim D, key tile `keys` and `rows`
-// query rows a block (64 per consumer warpgroup), if compiled.
+// query rows a block (64 per consumer warpgroup), if compiled. Every plan
+// but D = 128's two-consumer ones splits P in two bf16.
 int dispatch_wgmma(int head_dim, int keys, int rows, const Call& c, int* occupancy) {
   if (rows == kWgRows) {
     switch (head_dim) {
@@ -1349,7 +1383,11 @@ int dispatch_wgmma(int head_dim, int keys, int rows, const Call& c, int* occupan
         return -1;
     }
   }
-  if (head_dim == 40 && rows == 2 * kWgRows && keys == 128) return run_wgmma<40, 128, 2>(c, occupancy);
+  if (rows != 2 * kWgRows) return -1;
+  if (head_dim == 40 && keys == 128) return run_wgmma<40, 128, 2>(c, occupancy);
+  // D = 128 past the router's threshold: P rounded once to bf16
+  if (head_dim == 128 && keys == 144) return run_wgmma<128, 144, 2, false>(c, occupancy);
+  if (head_dim == 128 && keys == 176) return run_wgmma<128, 176, 2, false>(c, occupancy);
   return -1;
 }
 

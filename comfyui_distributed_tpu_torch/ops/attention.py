@@ -21,8 +21,11 @@ with its key tile, query rows per block and key splits, for each call:
   Warp-specialised for Hopper: TMA loads, wgmma products, the head dim
   in column chunks of their own swizzle, 64 query rows per consumer
   warpgroup, the key tile by D that leaves the fewest slots masked
-  (WGMMA_KEY_TILES); at D=40, where the keys outgrow that tile, two
-  consumers taking turns at the tensor cores (WGMMA_PINGPONG_KEYS).
+  (WGMMA_KEY_TILES); at D=40 and 128, where the keys pass
+  WGMMA_PINGPONG_ABOVE, two consumers taking turns at the tensor cores
+  (WGMMA_PINGPONG_KEYS). P enters P·V as two bf16 (16 bits of P), but
+  in D=128's two-consumer plan as one bf16 (WGMMA_BF16_P): there the
+  port departs from the TPU kernel, which multiplies an f32 P by V.
 - "wgmma512": bf16, D=512, aligned. Warp-specialised, two consumer
   warpgroups sharing 64 query rows (256 output dims each), 32-key tiles,
   each row block's keys split over as many blocks as fill the card best;
@@ -55,19 +58,39 @@ INSTANCES = {"fma": 0, "wgmma": 2, "wgmma512": 3}
 # 16. Each D's tiles give its path's key counts few masked slots: M = 77
 # one tile of 80, M = 1024 tiles of 128 (D = 80), M = 256 and 64 tiles of
 # 64 (D = 160, whose registers a 128-key tile would crowd), M = 324 and
-# 1296 (D = 64) tiles of 112 and 144; Flux's joint lengths (D = 128:
-# 4608, 8704, and 4481 at 1008 px) tiles of 64, two blocks an SM.
+# 1296 (D = 64) tiles of 112 and 144; at D = 128 tiles of 64 with P split
+# in two bf16 (64 accumulator registers a thread, two blocks an SM), for
+# the key counts up to WGMMA_PINGPONG_ABOVE[128].
 WGMMA_KEY_TILES = {40: (80,), 64: (80, 112, 144), 80: (80, 128), 128: (64,),
                    160: (64, 80)}
 # the wgmma instance with two consumer warpgroups of 64 query rows in one
 # block (one block an SM) taking turns at the tensor cores, so that one's
-# softmax runs under the other's products (FA3's ping-pong), by head dim:
-# its key tile. At D=40, where the softmax's exp2 binds, it beat one
-# consumer a block (two blocks an SM) at self@4096 (PERF.md, PR 6); the
-# router takes it wherever the keys outgrow one consumer's tiles. (At
-# D=128, Flux's, two consumers of 64-key tiles measured no faster than
-# one at 4608 keys and slower at 8704: PERF.md, the D=128 findings.)
-WGMMA_PINGPONG_KEYS = {40: 128}
+# softmax runs under the other's products (FA3's ping-pong), and sharing
+# each K and V tile, by head dim: its key tile. At D=40, where the
+# softmax's exp2 binds, it beat one consumer a block (two blocks an SM)
+# at self@4096 (PERF.md, PR 6). At D=128 (Flux's joint attention) it
+# rounds P once to bf16 (WGMMA_BF16_P): with P split, two consumers of
+# 64-key tiles had measured no faster than one (PERF.md, PR 12); with one
+# bf16 P a thread holds up to 176-key tiles (88 score, 44 P and 64
+# accumulator registers).
+WGMMA_PINGPONG_KEYS = {40: (128,), 128: (144, 176)}
+# what one key tile of a two-consumer plan costs beyond its key slots
+# (turn-taking, barriers, the rescale), in key slots: fitted to D=128's
+# 128-, 144- and 176-key tiles at 8704 keys, where it orders them as
+# measured at 4608, 8704 and 4481 keys too (PERF.md, PR 13)
+PINGPONG_TILE_COST_KEYS = 18
+# the router takes the two-consumer plan for keys past this many: at D=40
+# past its one 80-key tile; at D=128 past 1024. Over Flux's 4608 query
+# rows and 24 heads one bf16 P misses the f32 plain version where few keys
+# share the weight: its emulation (`bf16_p_attention_reference`) by 2.4-4.3
+# times the kernel's tolerance at 2-16 keys and holds at 0.66 of it at
+# 1025 (tests/test_torch_attention_d128.py); the kernel by 1.56 times at 63
+# keys, 0.87 at 257, 0.66 at 1025 (chip_smoke.py's [threshold] line,
+# PERF.md, PR 13)
+WGMMA_PINGPONG_ABOVE = {40: 80, 128: 1024}
+# head dims whose two-consumer plan rounds P once to bf16 for P·V, with the
+# row sum taken from the f32 P; every other wgmma plan splits P in two bf16
+WGMMA_BF16_P = frozenset({128})
 # compiled tiles of the FMA kernel, by head dim: (keys, query rows)
 _FMA_TILES = {40: (64, 128), 64: (64, 64), 80: (64, 64), 128: (64, 64), 160: (64, 64),
               512: (32, 32)}
@@ -117,6 +140,15 @@ class Plan:
 
 
 @functools.lru_cache(maxsize=256)
+def pingpong_key_tile(d: int, m: int) -> int:
+    """The two-consumer key tile compiled at head dim D that takes M in
+    the least time by its slots and per-tile cost; of two as good, the
+    larger."""
+    return min(WGMMA_PINGPONG_KEYS[d],
+               key=lambda t: (-(-m // t) * (t + PINGPONG_TILE_COST_KEYS), -t))
+
+
+@functools.lru_cache(maxsize=256)
 def _wgmma_key_tile(d: int, m: int) -> int:
     """The key tile compiled at head dim D that gives M the fewest key
     slots; of two with as many, the larger (fewer tiles)."""
@@ -125,20 +157,17 @@ def _wgmma_key_tile(d: int, m: int) -> int:
 
 def wgmma_plans(d: int) -> list[Plan]:
     """Every compiled plan of the wgmma instance at head dim D: each key
-    tile with one consumer warpgroup, then the two-consumer variant."""
-    plans = [Plan("wgmma", keys, WGMMA_ROWS) for keys in WGMMA_KEY_TILES[d]]
-    if d in WGMMA_PINGPONG_KEYS:
-        plans.append(Plan("wgmma", WGMMA_PINGPONG_KEYS[d], 2 * WGMMA_ROWS))
-    return plans
+    tile with one consumer warpgroup, then each with two."""
+    return ([Plan("wgmma", keys, WGMMA_ROWS) for keys in WGMMA_KEY_TILES[d]]
+            + [Plan("wgmma", keys, 2 * WGMMA_ROWS) for keys in WGMMA_PINGPONG_KEYS.get(d, ())])
 
 
 def _wgmma_plan(d: int, m: int) -> Plan:
-    """Two consumers a block where D has them and M outgrows one
-    consumer's key tiles; else one consumer with the key tile of the
-    fewest slots."""
-    keys = WGMMA_PINGPONG_KEYS.get(d)
-    if keys and m > max(WGMMA_KEY_TILES[d]):
-        return Plan("wgmma", keys, 2 * WGMMA_ROWS)
+    """Two consumers a block where D has them and M passes
+    WGMMA_PINGPONG_ABOVE, with the key tile of `pingpong_key_tile`; else
+    one consumer with the key tile of the fewest slots."""
+    if d in WGMMA_PINGPONG_KEYS and m > WGMMA_PINGPONG_ABOVE[d]:
+        return Plan("wgmma", pingpong_key_tile(d, m), 2 * WGMMA_ROWS)
     return Plan("wgmma", _wgmma_key_tile(d, m), WGMMA_ROWS)
 
 
@@ -253,6 +282,35 @@ def flash_attention_reference(
     vf = v.float().permute(0, 2, 1, 3)
     probs = torch.softmax(qf @ kf.transpose(-1, -2), dim=-1)
     return (probs @ vf).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def bf16_p_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, keys_per_tile: int,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """The arithmetic of the plans that round P once to bf16
+    (WGMMA_BF16_P), in plain PyTorch: the online softmax over key tiles of
+    `keys_per_tile`, in log2 units; each tile's P = 2^(s scale log2(e) -
+    running max) rounded once to bf16 for P·V (products exact, summed in
+    f32), the row sum taken from the f32 P. Output in q's dtype. Tests hold
+    it against the TPU kernel and the f32 plain version, and chip_smoke.py
+    holds the kernel to it; the port never calls it."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    scale_log2 = scale * math.log2(math.e)
+    row_max = torch.full((*qf.shape[:3], 1), -math.inf, device=qf.device)
+    row_sum = torch.zeros_like(row_max)
+    acc = torch.zeros_like(qf)
+    for start in range(0, kf.shape[2], keys_per_tile):
+        scores = qf @ kf[:, :, start:start + keys_per_tile].transpose(-1, -2) * scale_log2
+        new_max = torch.maximum(row_max, scores.amax(dim=-1, keepdim=True))
+        correction = torch.exp2(row_max - new_max)
+        probs = torch.exp2(scores - new_max)
+        row_sum = row_sum * correction + probs.sum(dim=-1, keepdim=True)
+        acc = acc * correction + probs.bfloat16().float() @ vf[:, :, start:start + keys_per_tile]
+        row_max = new_max
+    return (acc / row_sum).permute(0, 2, 1, 3).to(q.dtype)
 
 
 def key_split_ranges(m: int, keys_per_tile: int, splits: int) -> list[tuple[int, int]]:

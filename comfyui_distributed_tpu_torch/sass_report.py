@@ -5,11 +5,12 @@ it serialised a wgmma pipeline, and the SASS instruction mix.
 
 Compiles `csrc/flash_attention.cu` (or the one in DIR) with the flags
 `_build.py` uses into `build/sass_report/`, then prints ptxas's
-register and spill lines, each C75xx note and their count (C7513 and
-C7514: ptxas serialised the wgmma instructions of a kernel, so their
-pipeline no longer overlaps; C7508: it ignored a setmaxnreg), and
-for each wgmma kernel (the `wgmma` instance at D=40, 64, 80, 128 and 160,
-each key tile and consumer count, and `wgmma512`), from `cuobjdump
+register and spill lines, each under the kernel it is about, each
+C75xx note and their count (C7513 and C7514: ptxas serialised the wgmma
+instructions of a kernel, so their pipeline no longer overlaps; C7508:
+it ignored a setmaxnreg), and for each wgmma kernel (the `wgmma`
+instance at D=40, 64, 80, 128 and 160, each key tile and consumer count,
+"bf16P" where P enters P·V as one bf16, and `wgmma512`), from `cuobjdump
 -sass`: its HGMMA and WARPGROUP.DEPBAR counts (a DEPBAR after every
 HGMMA is a serialised pipeline) and the opcodes of its main loop, taken
 as the instructions from the loop's first Q·K^T up to the last tile's
@@ -31,9 +32,13 @@ import sys
 from . import _build
 
 _OPCODE = re.compile(r"\s*/\*([0-9a-f]+)\*/\s*(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")
-# the mangled template arguments: <D, KEYS, CONSUMERS> of the wgmma
-# instance, <KEYS> of wgmma512
-_WGMMA_KERNEL = re.compile(r"flash_attention_fwd_(wgmma|wgmma512)_kernelI((?:Li\d+E)+)E")
+# the mangled template arguments: <D, KEYS, CONSUMERS, SPLIT_P> of the
+# wgmma instance, <KEYS> of wgmma512
+_WGMMA_KERNEL = re.compile(r"flash_attention_fwd_(wgmma|wgmma512)_kernelI((?:L[ib]\d+E)+)E")
+_ENTRY = re.compile(r"entry function '([^']+)'")
+# the FMA kernel's <T, D> (T bf16 or f32) and the D=512 merge kernel
+_FMA_KERNEL = re.compile(r"flash_attention_fwd_kernelI(13__nv_bfloat16|f)Li(\d+)EE")
+_MERGE_KERNEL = "flash_attention_fwd_merge_kernel"
 # Q·K^T k-steps of one consumer warpgroup per key tile: 16 columns each,
 # over the head dim's chunks (D=40 runs 48 columns); D=512's consumers
 # take 256 dims each
@@ -53,10 +58,57 @@ class WgmmaKernel:
     hgmma: int
     depbar: int
     loop: collections.Counter
+    split_p: bool = True  # P enters P·V as two bf16; else as one
 
     @property
     def label(self) -> str:
-        return f"{self.instance} D{self.head_dim} k{self.keys} c{self.consumers}"
+        return kernel_label(self.instance, self.head_dim, self.keys, self.consumers,
+                            self.split_p)
+
+
+def kernel_label(instance: str, head_dim: int, keys: int, consumers: int,
+                 split_p: bool = True) -> str:
+    label = f"{instance} D{head_dim} k{keys} c{consumers}"
+    return label if split_p else label + " bf16P"
+
+
+def _template_args(name: str):
+    """(instance, D, KEYS, CONSUMERS, SPLIT_P) of a wgmma kernel's mangled
+    name, or None for any other function."""
+    match = _WGMMA_KERNEL.search(name)
+    if not match:
+        return None
+    instance = match.group(1)
+    args = [int(x) for x in re.findall(r"L[ib](\d+)E", match.group(2))]
+    if instance == "wgmma512":
+        return instance, 512, args[0], 2, True
+    head_dim, keys, consumers, *rest = args
+    return instance, head_dim, keys, consumers, bool(rest[0]) if rest else True
+
+
+def entry_label(name: str) -> str:
+    """A kernel's label from its mangled name: `kernel_label` for the
+    wgmma kernels, "fma <dtype> D<head dim>", "merge", else the name."""
+    args = _template_args(name)
+    if args:
+        return kernel_label(*args)
+    fma = _FMA_KERNEL.search(name)
+    if fma:
+        return f"fma {'f32' if fma.group(1) == 'f' else 'bf16'} D{fma.group(2)}"
+    return "merge" if _MERGE_KERNEL in name else name
+
+
+def ptxas_kernel_lines(log: str) -> list[tuple[str, str]]:
+    """ptxas's register and spill lines in a build log, each with the
+    label of the kernel it is about (`entry_label`)."""
+    out, kernel = [], None
+    for line in log.splitlines():
+        entry = _ENTRY.search(line)
+        if entry:
+            kernel = entry_label(entry.group(1))
+        elif kernel and ("registers" in line or "spill" in line):
+            out.append((kernel, line.strip()))
+    return out
 
 
 def ptxas_notes(log: str) -> collections.Counter:
@@ -67,26 +119,24 @@ def ptxas_notes(log: str) -> collections.Counter:
 def wgmma_loop_mix(sass: str) -> list[WgmmaKernel]:
     """Each wgmma kernel in a `cuobjdump -sass` listing, sorted. A
     consumer issues S HGMMAs of Q·K^T in its prologue (S = _SCORE_STEPS),
-    then per loop tile S of Q·K^T and, for each of P·V's G groups, 2 *
-    KEYS / 16 (P in two bf16): the loop is HGMMA S up to HGMMA 2 S + G *
-    KEYS / 8."""
+    then per loop tile S of Q·K^T and, for each of P·V's G groups, KEYS /
+    16 for each part of P (two where P is split in two bf16, else one):
+    the loop is HGMMA S up to HGMMA 2 S + G * parts * KEYS / 16."""
     out = []
     for block in sass.split("Function : ")[1:]:
-        match = _WGMMA_KERNEL.search(block.split("\n", 1)[0])
-        if not match:
+        args = _template_args(block.split("\n", 1)[0])
+        if not args:
             continue
-        instance = match.group(1)
-        args = [int(x) for x in re.findall(r"Li(\d+)E", match.group(2))]
-        head_dim, keys, consumers = args if instance == "wgmma" else (512, args[0], 2)
+        instance, head_dim, keys, consumers, split_p = args
         steps = _SCORE_STEPS[head_dim]
         ops = [m.group(2) for m in map(_OPCODE.match, block.splitlines()) if m]
         hgmma = [i for i, op in enumerate(ops) if op == "HGMMA"]
         depbar = block.count("WARPGROUP.DEPBAR")
-        last = 2 * steps + _PV_GROUPS[head_dim] * keys // 8
+        last = 2 * steps + _PV_GROUPS[head_dim] * (2 if split_p else 1) * keys // 16
         loop = ops[hgmma[steps]:hgmma[last]] if len(hgmma) > last else []
         out.append(WgmmaKernel(instance, head_dim, keys, consumers, len(hgmma), depbar,
-                               collections.Counter(loop)))
-    return sorted(out, key=lambda k: (k.instance, k.head_dim, k.keys, k.consumers))
+                               collections.Counter(loop), split_p))
+    return sorted(out, key=lambda k: (k.instance, k.head_dim, k.keys, k.consumers, k.split_p))
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -103,8 +153,10 @@ def main(argv: list[str] | None = None) -> int:
     if proc.returncode != 0:
         print(log, file=sys.stderr)
         return 1
+    for kernel, line in ptxas_kernel_lines(log):
+        print(f"[ptxas] {kernel}: {line}")
     for line in log.splitlines():
-        if any(word in line for word in ("entry function", "registers", "spill", "C75")):
+        if "C75" in line:
             print(f"[ptxas] {line.strip()[:160]}")
     notes = ptxas_notes(log)
     print(f"[ptxas] C75xx notes for {src}: "

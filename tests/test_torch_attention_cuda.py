@@ -38,11 +38,14 @@ SHAPES = [
     (2, 64, 64, 8, 160),
     (2, 64, 77, 8, 160),
     # Flux's joint attention at 1024 px (Kontext: 8704 tokens), at 1008 px
-    # (ragged on the 64-key tiles) and at a short key count: D = 128
+    # (ragged on the key tiles), at a short key count and on both sides of
+    # the router's one-bf16-P threshold (1024 keys): D = 128
     (1, 4608, 4608, 24, 128),
     (1, 8704, 8704, 24, 128),
     (1, 4481, 4481, 24, 128),
     (1, 4608, 63, 24, 128),
+    (1, 4608, 1024, 24, 128),
+    (1, 4608, 1025, 24, 128),
 ]
 
 # key counts at the edges of the wgmma instance's key tiles (80, 112, 144)
@@ -59,6 +62,15 @@ EDGE_KEYS_WG = (1, 63, 64, 65, 77, 79, 80, 81, 127, 128, 129)
 # rows, consumer 1 on rows 64-127) and 128-key tiles
 EDGE_ROWS_PINGPONG = (1, 63, 64, 65, 127, 128, 129, 200)
 EDGE_KEYS_PINGPONG = (1, 77, 127, 128, 129, 257)
+# query and key counts at the edges of D = 128's two-consumer plans (P as
+# one bf16): their 128-row blocks, and key counts around the router's
+# threshold (1024: the split-P plan; 1025) and the first multiple of each
+# key tile past it (1056 = 6 x 176, 1152 = 8 x 144)
+EDGE_ROWS_BF16_P = (1, 63, 64, 65, 127, 128, 129, 200)
+EDGE_KEYS_BF16_P = (1024, 1025, 1055, 1056, 1057, 1151, 1152, 1153)
+# and key counts of one, two and three of their key tiles (144 or 176) and
+# their edges, where each plan is held to its emulation
+EDGE_KEYS_BF16_P_FORCED = (1, 2, 143, 144, 145, 175, 176, 177, 287, 288, 289, 351, 352, 353)
 TXT2IMG_HEAD_DIMS = (40, 80, 160)
 # and the head dims of the wgmma instance's chunked template: those, and
 # Flux's 128
@@ -293,7 +305,7 @@ def test_wgmma_two_consumer_tile_edges(cuda, n, m):
         torch.randn(s, generator=gen, device=cuda).bfloat16()
         for s in ((1, n, 1, 40), (1, m, 1, 40), (1, m, 1, 40))
     )
-    p = attn.Plan("wgmma", attn.WGMMA_PINGPONG_KEYS[40], 2 * attn.WGMMA_ROWS)
+    p = attn.Plan("wgmma", attn.WGMMA_PINGPONG_KEYS[40][0], 2 * attn.WGMMA_ROWS)
     _headdim_matches_plain(cuda, q, k, v, p)
 
 
@@ -376,3 +388,43 @@ def test_batch_one_takes_the_plan_of_batch_two_and_matches(cuda, n, m, d):
     p = attn.plan(q, k, v)
     assert p == attn.plan(two, two_kv, two_kv)
     _headdim_matches_plain(cuda, q, k, v, p)
+
+
+@pytest.mark.parametrize("m", EDGE_KEYS_BF16_P)
+@pytest.mark.parametrize("n", EDGE_ROWS_BF16_P)
+def test_wgmma_d128_bf16_p_tile_edges(cuda, n, m):
+    # D = 128 on both sides of the router's one-bf16-P threshold, one head
+    # of one batch: consumer 1 with no, some or all rows valid, a last key
+    # tile of one key, of all but one and full, on either key tile
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n * 1021 + m)
+    q, k, v = (
+        torch.randn(s, generator=gen, device=cuda).bfloat16()
+        for s in ((1, n, 1, 128), (1, m, 1, 128), (1, m, 1, 128))
+    )
+    p = attn.plan(q, k, v)
+    two_consumers = m > attn.WGMMA_PINGPONG_ABOVE[128]
+    assert p.rows_per_cta == (2 if two_consumers else 1) * attn.WGMMA_ROWS
+    _headdim_matches_plain(cuda, q, k, v, p)
+
+
+@pytest.mark.parametrize("keys", attn.WGMMA_PINGPONG_KEYS[128])
+@pytest.mark.parametrize("m", EDGE_KEYS_BF16_P_FORCED)
+@pytest.mark.parametrize("n", EDGE_ROWS_BF16_P)
+def test_wgmma_d128_bf16_p_plan_matches_its_emulation(cuda, n, m, keys):
+    # the one-bf16-P plans forced on few keys, where the router does not
+    # take them (one bf16 P misses the f32 plain version there): held to
+    # the plain version of their own arithmetic, over one key tile (the
+    # first is also the last) or several
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n * 1031 + m * 5 + keys)
+    q, k, v = (
+        torch.randn(s, generator=gen, device=cuda).bfloat16()
+        for s in ((1, n, 1, 128), (1, m, 1, 128), (1, m, 1, 128))
+    )
+    p = attn.Plan("wgmma", keys, 2 * attn.WGMMA_ROWS)
+    out = attn.flash_attention(q, k, v, with_plan=p)
+    torch.testing.assert_close(
+        out.float(), attn.bf16_p_attention_reference(q, k, v, keys).float(),
+        rtol=2.0**-7, atol=1e-3,
+    )

@@ -117,7 +117,7 @@ def test_plan_picks_the_key_tile_with_the_fewest_slots(d, m, keys, tiles):
 def test_plan_takes_two_consumers_at_d40_past_one_key_tile(b, n, h, m, rows):
     p = attn.plan(*_meta(b, n, m, h, 40), sms=132)
     assert (p.instance, p.rows_per_cta) == ("wgmma", rows)
-    expected_keys = attn.WGMMA_PINGPONG_KEYS[40] if rows == 2 * attn.WGMMA_ROWS else 80
+    expected_keys = attn.WGMMA_PINGPONG_KEYS[40][0] if rows == 2 * attn.WGMMA_ROWS else 80
     assert p.keys_per_tile == expected_keys
     assert p in attn.wgmma_plans(40)
 

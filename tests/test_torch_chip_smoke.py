@@ -908,3 +908,31 @@ def test_flux_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread, counted
     assert any("with vs without ReferenceLatent" in line for line in out)
     assert any(line.startswith("[flux] dual-prompt vs custom-sampling") for line in out)
 
+
+
+def test_d128_checks_reach_both_plans_at_their_edges():
+    """The kernel phase's D=128 checks beyond the Flux workflows' shapes:
+    the split-P plan at the short key count and the threshold, the
+    one-bf16-P plan one key past it, at the ragged 1008-px length and at
+    the edges of its 128-row blocks and first key tile past the
+    threshold."""
+    threshold = attn.WGMMA_PINGPONG_ABOVE[128]
+    assert chip_smoke._bf16_p_edge_keys(attn) == (
+        threshold, threshold + 1, 1055, 1056, 1057, 1151, 1152, 1153)
+    checks = chip_smoke._flux_extra_checks(attn)
+    plans = {}
+    for label, (b, n, h, d), m, dtype, units, layout in checks:
+        assert (d, dtype, units) == (128, "bfloat16", None)
+        q = torch.empty((b, n, h, d), dtype=torch.bfloat16, device="meta")
+        kv = torch.empty((b, m, h, d), dtype=torch.bfloat16, device="meta")
+        plans[label] = attn.plan(q, kv, kv)
+    split_p, k144, k176 = attn.wgmma_plans(128)
+    assert plans["joint@4608 x 63 keys"] == plans[f"joint@4608 x {threshold} keys"] == split_p
+    assert plans[f"joint@4608 x {threshold + 1} keys"] == k176
+    assert plans[f"joint@{chip_smoke.FLUX_RAGGED_TOKENS} (1008 px)"] == k176
+    edges = {(n, m): plans[f"edge D128 {n}x{m} B*H=1"]
+             for n in chip_smoke.EDGE_ROWS_BF16_P for m in chip_smoke._bf16_p_edge_keys(attn)}
+    assert len(edges) == 64
+    assert all(p == split_p for (_, m), p in edges.items() if m == threshold)
+    # past the threshold both key tiles take some of the edges
+    assert {p for (_, m), p in edges.items() if m > threshold} == {k144, k176}

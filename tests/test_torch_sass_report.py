@@ -71,6 +71,58 @@ def test_flux_head_dim_counts_one_p_v_group_of_128_columns():
     assert kernel.loop == {"HGMMA": 16, "MUFU": 4}
 
 
+def test_flux_two_consumer_plan_counts_one_bf16_p():
+    # D=128 at a 128-key tile with two consumers and P as one bf16
+    # (SPLIT_P false, mangled Lb0E): Q·K^T in 8 k-steps, P·V one
+    # 128-column product per k-step, once: 8 a tile
+    kernel = _KERNEL.replace("ILi64ELi80ELi1EE", "ILi128ELi128ELi2ELb0EE")
+    s_step = "HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24, gsb0"
+    pv = "HGMMA.64x128x16.F32.BF16 R88, R184, gdesc[UR8].tnspB, R88, gsb0"
+    body = [s_step] * 8 + [s_step] * 8 + ["MUFU.EX2 R1, R2"] * 6 + [pv] * 8 + [pv] * 8
+    (k,) = sass_report.wgmma_loop_mix(_listing(body, kernel))
+    assert (k.label, k.hgmma, k.split_p) == ("wgmma D128 k128 c2 bf16P", 32, False)
+    # from HGMMA 8 up to HGMMA 8 + 8 + 8: one whole loop tile
+    assert k.loop == {"HGMMA": 16, "MUFU": 6}
+    # the split plans keep their labels with the flag spelled out (Lb1E)
+    split = _KERNEL_40.replace("ILi40ELi128ELi2EE", "ILi40ELi128ELi2ELb1EE")
+    (k,) = sass_report.wgmma_loop_mix(_listing(["HGMMA.64x128x16.F32.BF16"] * 3, split))
+    assert (k.label, k.split_p) == ("wgmma D40 k128 c2", True)
+
+
+def test_ptxas_lines_are_named_by_their_kernel():
+    kernel = _KERNEL.replace("ILi64ELi80ELi1EE", "ILi128ELi128ELi2ELb0EE")
+    log = (
+        f"ptxas info    : Compiling entry function '{kernel}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {kernel}\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 3 barriers, 80 bytes smem\n"
+        f"ptxas info    : Compiling entry function '{_KERNEL_512}' for 'sm_90a'\n"
+        "ptxas info    : Used 168 registers, used 2 barriers\n"
+        "ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'\n"
+        "ptxas info    : Used 8 registers\n"
+        "ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__b5_18_flash_attention_cu_78926"
+        "flash_attention_fwd_kernelI13__nv_bfloat16Li40EEEvPKT_S4_S4_PS2_iiixxxxxxxxxxxxf'\n"
+        "ptxas info    : Used 128 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__b5_18_flash_attention_cu_78926"
+        "flash_attention_fwd_kernelIfLi512EEEvPKT_S3_S3_PS1_iiixxxxxxxxxxxxf'\n"
+        "ptxas info    : Used 165 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__b5_18_flash_attention_cu_78932"
+        "flash_attention_fwd_merge_kernelEPKfP13__nv_bfloat16iiixxx'\n"
+        "ptxas info    : Used 32 registers, used 0 barriers\n"
+    )
+    assert sass_report.ptxas_kernel_lines(log) == [
+        ("wgmma D128 k128 c2 bf16P",
+         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+        ("wgmma D128 k128 c2 bf16P",
+         "ptxas info    : Used 168 registers, used 3 barriers, 80 bytes smem"),
+        ("wgmma512 D512 k32 c2", "ptxas info    : Used 168 registers, used 2 barriers"),
+        ("_Z3fooPf", "ptxas info    : Used 8 registers"),
+        ("fma bf16 D40", "ptxas info    : Used 128 registers, used 1 barriers"),
+        ("fma f32 D512", "ptxas info    : Used 165 registers, used 1 barriers"),
+        ("merge", "ptxas info    : Used 32 registers, used 0 barriers"),
+    ]
+
+
 def test_other_kernels_are_skipped():
     assert sass_report.wgmma_loop_mix("\t\tFunction : _Z3fooPf\n  /*0000*/ FADD R1, R2, R3 ;\n") == []
 
