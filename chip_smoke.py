@@ -14,6 +14,8 @@ Phases, each printing lines tagged with its name:
              attention shape of the upscale path and of each seed-parallel
              workflow (bf16; each shape once, with its launches per tile or
              image on every path that runs it);
+             SD3's D=64 also at a ragged joint length (1008 px: 63^2 +
+             154 tokens);
              Flux's D=128 also at a ragged joint length (1008 px), a
              short key count and both sides of the router's one-bf16-P
              threshold (WGMMA_PINGPONG_ABOVE[128]) at 24 heads;
@@ -39,7 +41,8 @@ Phases, each printing lines tagged with its name:
              launched, the blocks resident per SM and the waves.
    tiles   - every compiled plan of the wgmma instance (key tile and
              query rows a block) timed at each D=40/64/80/128/160 shape of
-             both paths and at Flux's ragged joint@4481, and every key
+             the paths and at SD3's ragged joint@4123 and Flux's ragged
+             joint@4481, and every key
              split of the D=512 instance at vae@5184, beside the router's
              choice.
    threshold - both D=128 plans held to the plain version at 4608 query
@@ -237,6 +240,27 @@ Phases, each printing lines tagged with its name:
              FLUX_MIN_DIFF from the same run without ReferenceLatent, the
              dual-prompt image at least FLUX_MIN_DIFF from the
              custom-sampling one.
+   sd3     - the two bundled SD3.5 workflows (SD3_WORKFLOWS), unmodified,
+             at full width (`_sd3_phase`): SD3.5-large (8.15B, 38 joint
+             blocks at 38 heads of D=64, QK norm) for txt2img-sd35, then,
+             freed first, SD3.5-medium (MMDiT-X: 24 joint blocks, attn2 in
+             the first 13) for txt2img-sd35m-slg (SkipLayerGuidanceSD3 on
+             blocks 7-9 over progress [0.01, 0.2]); CLIP-L, CLIP-G and
+             T5-XXL at 77 tokens, the 16-channel SD3 VAE, 1024 px, 28 euler
+             steps, CFG-batched; seeded random weights drawn on the card.
+             Each as txt2img, one run over HTTP: the batch [2, 1024, 1024,
+             3] in [0, 1], image 0 within RERUN_TOLERANCE of the local run
+             at its seed and w1's within RERUN_TOLERANCE + PNG_STEP, the two
+             apart, no collector job left, peak memory a run, launches from
+             `_sd3_shapes` (the joint calls over 154 text and 64^2 image
+             tokens, attn2's over the image, the SLG window's batch-1 skip
+             passes, the VAE's decode), the MMDiT's velocity finite at every
+             evaluation. Under SLG: the skip passes equal the steps whose
+             sigma lies in the window on the host schedule, 4 images' worth;
+             the image at least SD3_MIN_DIFF from the same run muted (scale
+             0); the workflow once locally through DualCLIPLoader sd3 (no
+             T5: 77 text tokens), finite, its CLIP tokens those of the triple
+             conditioning exactly, launches from `_sd3_shapes`.
    phases  - each phase's seconds and their total.
 5. kernels - one JSON line per the port's kernel contract: entry
              flash_attention over the upscale path (`launches`: the elastic
@@ -256,8 +280,11 @@ Phases, each printing lines tagged with its name:
              and DualCFG image (`launches`: their HTTP runs),
              flash_attention_dynamic per frame (`launches`: the HTTP run of 8
              frames), flash_attention_inpaint_model per image, and
-             flash_attention_<tag> per image of each Flux workflow
-             (`launches`: its HTTP run).
+             flash_attention_<tag> per image of each Flux workflow and of
+             each SD3.5 workflow (`launches`: its HTTP run), and
+             flash_attention_sd35m_slg_dualclip per image of the SLG
+             workflow through DualCLIPLoader sd3 (`launches`: its local
+             run).
 
 The card's nvidia-smi line and then {"ok": true, "device": ...} close
 the output. Without a CUDA device, or without the port's package beside
@@ -446,6 +473,18 @@ FLUX_RAGGED_TOKENS = 63 * 63 + 512
 # Kontext against the same run without ReferenceLatent, and the
 # dual-prompt image against the custom-sampling one: one 8-bit level
 FLUX_MIN_DIFF = 1.0 / 255
+# the sd3 phase: the two bundled SD3.5 workflows, unmodified, at their full
+# width (1024 px), by entry of the kernels line
+SD3_WORKFLOWS = {
+    "sd35": "distributed-txt2img-sd35.json",
+    "sd35m_slg": "distributed-txt2img-sd35m-slg.json",
+}
+SD3_IMAGE_PX = 1024
+# the joint length of a 1008-px image (63^2 image tokens, 77 CLIP and 77 T5
+# tokens): ragged on D = 64's 64-row blocks and every key tile
+SD3_RAGGED_TOKENS = 63 * 63 + 154
+# the SLG image against the same run with the node muted: one 8-bit level
+SD3_MIN_DIFF = 1.0 / 255
 
 
 def _require(ok: bool, message: str) -> None:
@@ -3066,6 +3105,226 @@ def _flux_phase(torch, workflows: dict, device: str, expected: dict | None = Non
     return results
 
 
+def _sd3_model(workflow) -> str:
+    """The registry name of an SD3 workflow's checkpoint."""
+    from comfyui_distributed_tpu_torch.graph.nodes_loaders import _stem
+
+    return _stem(workflow[_node_id(workflow, "CheckpointLoaderSimple")]["inputs"]["ckpt_name"])
+
+
+def _sd3_slg_window(workflow) -> tuple[tuple, list[int]]:
+    """(the skipped joint blocks, the KSampler's steps whose sigma lies in
+    the SkipLayerGuidanceSD3 window) of a workflow, from the host-side
+    schedule of its model's flow shift (ModelSamplingSD3's where it has
+    one): ((), []) without the node, or with it muted."""
+    from comfyui_distributed_tpu_torch.models.registry import get_config
+    from comfyui_distributed_tpu_torch.ops import samplers as smp
+
+    ids = _node_ids(workflow, "SkipLayerGuidanceSD3")
+    if not ids:
+        return (), []
+    slg = workflow[ids[0]]["inputs"]
+    layers = tuple(sorted({int(p) for p in str(slg["layers"]).split(",") if p.strip()}))
+    if not layers or float(slg["scale"]) == 0.0:
+        return (), []
+    shift = get_config(_sd3_model(workflow)).flow_shift
+    for node_id in _node_ids(workflow, "ModelSamplingSD3"):
+        shift = float(workflow[node_id]["inputs"]["shift"])
+    sampler = workflow[_node_id(workflow, "KSampler")]["inputs"]
+    sigmas = smp.get_model_sigmas("flow", sampler["scheduler"], int(sampler["steps"]),
+                                  float(sampler["denoise"]), flow_shift=shift)
+    start = smp.percent_to_sigma(float(slg["start_percent"]), "flow", shift)
+    end = smp.percent_to_sigma(float(slg["end_percent"]), "flow", shift)
+    return layers, [i for i, sigma in enumerate(sigmas[:-1].tolist())
+                    if smp.in_slg_window(sigma, start, end)]
+
+
+def _sd3_shapes(workflow, image_px: int = SD3_IMAGE_PX):
+    """(label, q shape, M, calls) of one image of an SD3 workflow: at each
+    CFG-batched evaluation (batch 2) every joint block's attention over the
+    text tokens (77 CLIP, and 77 T5 unless a DualCLIPLoader feeds the
+    prompts) and the image's 2x2 patches, and MMDiT-X's image-only attn2;
+    at each step in the SLG window the batch-1 skip pass without the
+    skipped blocks; then the 16-channel VAE's decode."""
+    from comfyui_distributed_tpu_torch.models.pipeline import _family_vae_name
+    from comfyui_distributed_tpu_torch.models.registry import (TRIPLE_TEXT_ENCODERS,
+                                                               get_config)
+    from comfyui_distributed_tpu_torch.ops.samplers import model_evals_per_scan
+
+    model = _sd3_model(workflow)
+    cfg, vae_cfg = get_config(model), get_config(_family_vae_name(model))
+    clip, _, t5 = (get_config(n) for n in TRIPLE_TEXT_ENCODERS[model])
+    height, width = _image_px(workflow, image_px)
+    _require(height == width == image_px, f"a {height}x{width} image: the shapes assume "
+                                          f"{image_px} square, as the reference")
+    sampler = workflow[_node_id(workflow, "KSampler")]["inputs"]
+    _require(float(sampler["cfg"]) != 1.0 and float(sampler["denoise"]) == 1.0,
+             "the SD3 shapes assume a CFG-batched KSampler at denoise 1")
+    evals = model_evals_per_scan(sampler["sampler_name"], int(sampler["steps"]))
+    text = clip.max_length + (0 if _node_ids(workflow, "DualCLIPLoader") else t5.max_length)
+    patches = (height // (vae_cfg.downscale * cfg.patch_size)) ** 2
+    joint, x_only = text + patches, patches
+    q = (cfg.n_heads, cfg.head_dim)
+    shapes = [(f"joint@{joint}", (2, joint, *q), joint, cfg.depth * evals)]
+    if cfg.dual_attn_blocks:
+        shapes.append((f"x-only@{x_only}", (2, x_only, *q), x_only,
+                       cfg.dual_attn_blocks * evals))
+    layers, window = _sd3_slg_window(workflow)
+    if window:
+        kept = [i for i in range(cfg.depth) if i not in layers]
+        shapes.append((f"skip joint@{joint}", (1, joint, *q), joint, len(kept) * len(window)))
+        dual = [i for i in kept if i < cfg.dual_attn_blocks]
+        if dual:
+            shapes.append((f"skip x-only@{x_only}", (1, x_only, *q), x_only,
+                           len(dual) * len(window)))
+    shapes.append(_vae_shape(vae_cfg, height // vae_cfg.downscale, 1))
+    return shapes
+
+
+def _sd3_extra_checks() -> list:
+    """The D = 64 checks of the SD3 path beyond its workflows' shapes, as
+    (label, q shape, M, dtype, launches per unit, layout): a ragged joint
+    length (a 1008-px SD3.5-medium image, batch 1), counted towards both
+    SD3.5 entries' errors with no launches."""
+    return [(f"joint@{SD3_RAGGED_TOKENS} (1008 px)", (1, SD3_RAGGED_TOKENS, 24, 64),
+             SD3_RAGGED_TOKENS, "bfloat16", dict.fromkeys(SD3_WORKFLOWS, 0), "contiguous")]
+
+
+def _sd3_dualclip_workflow(workflow):
+    """The workflow with its prompts encoded by a DualCLIPLoader of type sd3
+    (CLIP-L and CLIP-G of the checkpoint's triple, no T5) in place of the
+    checkpoint's CLIP."""
+    from comfyui_distributed_tpu_torch.models.registry import TRIPLE_TEXT_ENCODERS
+
+    prompt = copy.deepcopy(workflow)
+    ckpt = _node_id(prompt, "CheckpointLoaderSimple")
+    clip_l, clip_g, _ = TRIPLE_TEXT_ENCODERS[_sd3_model(prompt)]
+    node_id = str(max(int(k) for k in prompt) + 1)
+    prompt[node_id] = {"class_type": "DualCLIPLoader", "inputs": {
+        "clip_name1": clip_l, "clip_name2": clip_g, "type": "sd3"}}
+    for encode in _node_ids(prompt, "CLIPTextEncode"):
+        _require(prompt[encode]["inputs"]["clip"] == [ckpt, 1], "a prompt not on the checkpoint")
+        prompt[encode]["inputs"]["clip"] = [node_id, 0]
+    return prompt
+
+
+def _sd3_muted(workflow):
+    """The workflow with its SkipLayerGuidanceSD3 muted (scale 0)."""
+    prompt = copy.deepcopy(workflow)
+    prompt[_node_id(prompt, "SkipLayerGuidanceSD3")]["inputs"]["scale"] = 0.0
+    return prompt
+
+
+def _sd3_phase(torch, workflows: dict, device: str, expected: dict | None = None,
+               image_px: int = SD3_IMAGE_PX) -> dict:
+    """The bundled SD3.5 workflows (tag → workflow), each as txt2img over
+    HTTP (`_txt2img_phase`, one run: master + w1 in this process sharing
+    one bundle seeded on the device, each image against a local run at its
+    seed), each checkpoint's bundle built when a workflow first needs it,
+    the last one freed first. The MMDiT's velocity must be finite at every
+    evaluation. A workflow with SkipLayerGuidanceSD3: its skip passes (the
+    forwards given skip_layers) must be the steps the host-side schedule
+    puts in the window, per image; its image at the master's seed must
+    differ from the same run muted by SD3_MIN_DIFF; and the same workflow
+    with a DualCLIPLoader of type sd3 (no T5) runs once locally, finite,
+    its CLIP tokens those of the triple conditioning exactly. `expected`
+    maps a tag (and "<tag>_dualclip") to (launches, by instance) an image,
+    unchecked when None (no card)."""
+    import gc
+
+    from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
+    from comfyui_distributed_tpu_torch.models import pipeline as pl
+    from comfyui_distributed_tpu_torch.ops import attention as attn
+
+    cuda = device.startswith("cuda")
+    skip_passes = [0]
+
+    def finite(module, inputs, output):
+        _require(bool(torch.isfinite(output).all()), "the MMDiT's velocity is not finite")
+
+    def count_skips(module, args, kwargs):
+        if kwargs.get("skip_layers"):
+            skip_passes[0] += 1
+
+    results, bundle = {}, None
+    for tag, workflow in workflows.items():
+        model = _sd3_model(workflow)
+        if bundle is None or bundle.model_name != model:
+            bundle = None
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+            started = time.perf_counter()
+            bundle = pl.load_pipeline(model, seed=0, device=device)
+            if cuda:
+                torch.cuda.synchronize()
+            bundle.unet.register_forward_hook(finite)
+            bundle.unet.register_forward_pre_hook(count_skips, with_kwargs=True)
+            counts = {part: sum(p.numel() for p in module.parameters())
+                      for part, module in bundle.parts().items()}
+            nbytes = sum(p.numel() * p.element_size() for module in bundle.parts().values()
+                         for p in module.parameters())
+            held = torch.cuda.memory_allocated() if cuda else 0
+            print(f"[sd3] {model}: parameters by part {counts} ({sum(counts.values()) / 1e9:.3f}B, "
+                  f"{nbytes} bytes; encoders {bundle.te_name}, {bundle.te2_name}, "
+                  f"{bundle.te3_name}), seeded random init on the device in "
+                  f"{time.perf_counter() - started:.1f} s; {held / 2**30:.2f} GiB allocated")
+        layers, window = _sd3_slg_window(workflow)
+        steps = int(workflow[_node_id(workflow, "KSampler")]["inputs"]["steps"])
+        if layers:
+            print(f"[{tag}] SLG skips blocks {list(layers)} at the {len(window)} of {steps} "
+                  f"steps whose sigma lies in the window (host schedule): {window}")
+        per_image = None if expected is None else expected[tag]
+        skip_passes[0] = 0
+        results[tag] = _txt2img_phase(
+            torch, bundle, workflow, device,
+            expected_launches=None if per_image is None else 2 * per_image[0],
+            expected_by_instance=None if per_image is None else
+            {k: 2 * v for k, v in per_image[1].items()},
+            runs=1, tag=tag, image_px=image_px, pipelines={model: bundle})
+        # the local runs at the master's seed and w1's, then one of each over HTTP
+        images = 4
+        print(f"[{tag}] skip passes {skip_passes[0]} over {images} images (expected "
+              f"{images} x {len(window)})")
+        _require(skip_passes[0] == images * len(window),
+                 "the skip passes are not the steps in the SLG window")
+        if not layers:
+            continue
+        seed = int(workflow[_node_id(workflow, "DistributedSeed")]["inputs"]["seed"])
+        executor = GraphExecutor(ExecutionContext(device=device, pipelines={model: bundle}))
+        size = (*_image_px(workflow, image_px), 3)
+        muted, _, _, _ = _local_run(torch, attn, executor, _sd3_muted(workflow), f"[{tag}]",
+                                    f"seed {seed}, SkipLayerGuidanceSD3 muted", device, size)
+        diff = float((muted - results[tag]["local"]).abs().max())
+        print(f"[{tag}] seed {seed}: with vs without skip-layer guidance max |diff| {diff:.3g} "
+              f"(at least {SD3_MIN_DIFF:.4f})")
+        _require(diff >= SD3_MIN_DIFF, "skip-layer guidance does not change the image")
+        dual = _sd3_dualclip_workflow(workflow)
+        image, launches, by_instance, seconds = _local_run(
+            torch, attn, executor, dual, f"[{tag}]",
+            f"seed {seed}, DualCLIPLoader sd3 (no T5)", device, size)
+        want = None if expected is None else expected[f"{tag}_dualclip"]
+        if want is not None:
+            _require(launches == want[0] and by_instance == want[1],
+                     f"DualCLIPLoader sd3: launches {launches} by instance {by_instance}, "
+                     f"expected {want}")
+        loader = _node_id(dual, "DualCLIPLoader")
+        clip = executor.last_results[loader][0]
+        prompt = dual[_node_ids(dual, "CLIPTextEncode")[0]]["inputs"]["text"]
+        tokens = clip.tokenizer.max_length
+        with torch.inference_mode():
+            two = pl.encode_text_pooled(clip, [prompt])
+            three = pl.encode_text_pooled(bundle, [prompt])
+        same = bool(torch.equal(two.context, three.context[:, :tokens]))
+        print(f"[{tag}] DualCLIPLoader sd3: context {tuple(two.context.shape)} (the triple's "
+              f"{tuple(three.context.shape)}), its {tokens} CLIP tokens equal to the triple's: "
+              f"{same}; image finite in [{float(image.min()):.4f}, {float(image.max()):.4f}]")
+        _require(same, "the T5-less conditioning is not the triple's CLIP part")
+        results[f"{tag}_dualclip"] = {"launches": launches, "launches_by_instance": by_instance,
+                                      "seconds": seconds}
+    return results
+
+
 def _rounded(seconds: dict) -> dict:
     return {stage: round(value, 4) for stage, value in sorted(seconds.items())}
 
@@ -3159,6 +3418,16 @@ def main() -> int:
     for tag, name in FLUX_WORKFLOWS.items():
         with open(os.path.join(REPO, "workflows", name), encoding="utf-8") as fh:
             flux_workflows[tag] = json.load(fh)
+    sd3_workflows = {}
+    for tag, name in SD3_WORKFLOWS.items():
+        with open(os.path.join(REPO, "workflows", name), encoding="utf-8") as fh:
+            sd3_workflows[tag] = json.load(fh)
+    # each SD3 workflow's image, and the SLG one's with DualCLIPLoader sd3
+    sd3_shapes = {}
+    for tag, wf in sd3_workflows.items():
+        sd3_shapes[tag] = _sd3_shapes(wf)
+        if _node_ids(wf, "SkipLayerGuidanceSD3"):
+            sd3_shapes[f"{tag}_dualclip"] = _sd3_shapes(_sd3_dualclip_workflow(wf))
     path_shapes = {"upscale": shapes, "txt2img": t2i_shapes,
                    **{tag: _txt2img_shapes(wf) for tag, wf in sd_workflows.items()},
                    **{path: _txt2img_shapes(wf) for path, wf in ckpt_workflows.items()},
@@ -3170,7 +3439,8 @@ def main() -> int:
                    "custom_dualcfg": custom_shapes["DualCFGGuider"],
                    "dynamic": _dynamic_shapes(_dynamic_workflow(video_workflow)),
                    "inpaint_model": _txt2img_shapes(inpaint_model_workflow),
-                   **{tag: _flux_shapes(wf) for tag, wf in flux_workflows.items()}}
+                   **{tag: _flux_shapes(wf) for tag, wf in flux_workflows.items()},
+                   **sd3_shapes}
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -3232,6 +3502,8 @@ def main() -> int:
     # a short key count and both sides of the one-bf16-P threshold at its
     # full 24 heads, the one-bf16-P plan's edges
     checks += _flux_extra_checks(attn)
+    # SD3's D=64 beyond its workflows' shapes: a ragged joint length (1008 px)
+    checks += _sd3_extra_checks()
     for d in TXT2IMG_HEAD_DIMS + FLUX_HEAD_DIMS:
         checks += [
             (f"D{d} ragged 1000x777 f32", (1, 1000, 2, d), 777, "float32", None, "contiguous"),
@@ -3588,6 +3860,13 @@ def main() -> int:
                        expected={tag: per_unit(path_shapes[tag]) for tag in flux_workflows})
     torch.cuda.empty_cache()
     phase_seconds["flux"] = time.perf_counter() - phase_started
+
+    # --- 4n. sd3: the two bundled SD3.5 workflows at full width, master + w1 ---
+    phase_started = time.perf_counter()
+    sd3 = _sd3_phase(torch, sd3_workflows, "cuda",
+                     expected={tag: per_unit(shapes_) for tag, shapes_ in sd3_shapes.items()})
+    torch.cuda.empty_cache()
+    phase_seconds["sd3"] = time.perf_counter() - phase_started
     print("[phases] seconds: " + ", ".join(f"{name} {sec:.1f}" for name, sec in
                                            phase_seconds.items())
           + f"; total {sum(phase_seconds.values()):.1f}")
@@ -3617,7 +3896,13 @@ def main() -> int:
           "_flux_dev, _flux_dual and _kontext: the same per 1024-px image of the txt2img-flux "
           "(4 steps), flux-custom-sampling, flux-dual-prompt and kontext-edit workflows (20 "
           "steps; Flux's joint attention at D=128, the VAE at D=512); launches: its run over "
-          "HTTP, master and w1 together")
+          "HTTP, master and w1 together. flash_attention_sd35 and _sd35m_slg: the same per "
+          "1024-px image of the txt2img-sd35 (SD3.5-large) and txt2img-sd35m-slg "
+          "(SD3.5-medium under skip-layer guidance) workflows (28 steps, CFG-batched; the "
+          "joint attention and MMDiT-X's attn2 at D=64, the SLG window's batch-1 skip passes, "
+          "the VAE at D=512); launches: its run over HTTP, master and w1 together; "
+          "flash_attention_sd35m_slg_dualclip: the same with its prompts through "
+          "DualCLIPLoader sd3 (77 text tokens); launches: its one local image")
     source = "comfyui_distributed_tpu_torch/csrc/flash_attention.cu"
     replaces = "comfyui_distributed_tpu/ops/attention.py:80"
 
@@ -3728,7 +4013,7 @@ def main() -> int:
         for path, run in (("custom", custom["PerpNegGuider"]),
                           ("custom_dualcfg", custom["DualCFGGuider"]),
                           ("dynamic", dynamic), ("inpaint_model", inpaint_model),
-                          *flux.items())
+                          *flux.items(), *sd3.items())
     ]}
     print(f"[summary] procs: w1 ready {procs['launch_to_ready_s']:.2f} s after its launch; "
           f"fan-out {procs['fan_out_images_per_s']:.4f} images/s, elastic "

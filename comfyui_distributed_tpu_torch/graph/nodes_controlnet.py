@@ -12,19 +12,21 @@ to each tile (ops/upscale.py::prep_cond_for_tiles, tile_cond).
 
 The Flux nodes of that file ride here too: FluxGuidance (the distilled
 guidance scale on every entry) and ReferenceLatent (Kontext's reference
-latents, which the tile path windows per tile). SD3.5's
-SkipLayerGuidanceSD3 comes with the SD3 family (ROADMAP.md, Queue 1
-item 5: the SD3, WAN video and audio families); a prompt using it fails
-as an unknown node.
+latents, which the tile path windows per tile); and SD3.5's
+SkipLayerGuidanceSD3, a guidance patch on the model
+(models/pipeline.py::SLGSpec, ops/samplers.py::slg_cfg_model).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
+from ..models import pipeline as pl
 from ..models.controlnet import load_controlnet
-from ..models.registry import get_config
+from ..models.registry import get_config, model_family
 from ..ops.conditioning import as_conditioning, map_conditioning
 from .nodes_core import _device
 from .registry import register_node
@@ -372,3 +374,48 @@ class ReferenceLatent:
             return cond
 
         return (map_conditioning(conditioning, patch),)
+
+
+@register_node
+class SkipLayerGuidanceSD3:
+    """Skip-layer guidance for SD3-class models: in the [start_percent,
+    end_percent] window the guided result gains scale * (cond - cond with
+    the listed joint blocks skipped). A muted node (no layers, or scale
+    0) passes the model through unchecked; a reversed window raises, as
+    does a second guidance patch on the model."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "model": ("MODEL",),
+                "layers": ("STRING", {"default": "7, 8, 9"}),
+                "scale": ("FLOAT", {"default": 3.0}),
+                "start_percent": ("FLOAT", {"default": 0.01}),
+                "end_percent": ("FLOAT", {"default": 0.15}),
+            }
+        }
+
+    RETURN_TYPES = ("MODEL",)
+    FUNCTION = "skip_guidance"
+
+    def skip_guidance(self, model, layers="7, 8, 9", scale=3.0, start_percent=0.01,
+                      end_percent=0.15, context=None):
+        if model_family(model.model_name) != "sd3":
+            raise ValueError(f"SkipLayerGuidanceSD3 applies to SD3-class MMDiT models; "
+                             f"{model.model_name!r} is not one")
+        pl.reject_existing_guidance_patches(model, "SkipLayerGuidanceSD3")
+        depth = get_config(model.model_name).depth
+        layer_tuple = tuple(sorted({int(part) for part in str(layers).split(",")
+                                    if part.strip()}))
+        bad = [i for i in layer_tuple if not 0 <= i < depth]
+        if bad:
+            raise ValueError(f"skip layers {bad} out of range for depth-{depth} model")
+        if not layer_tuple or float(scale) == 0.0:
+            return (model,)
+        if float(start_percent) > float(end_percent):
+            raise ValueError(f"start_percent ({start_percent}) must be <= end_percent "
+                             f"({end_percent})")
+        spec = pl.SLGSpec(layers=layer_tuple, scale=float(scale),
+                          start_percent=float(start_percent), end_percent=float(end_percent))
+        return (dataclasses.replace(model, slg=spec),)

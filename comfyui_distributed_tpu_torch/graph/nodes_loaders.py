@@ -1,10 +1,11 @@
 """Component loaders and model patch nodes.
 
 The port's own copy of comfyui_distributed_tpu/graph/nodes_loaders.py's
-SD and Flux nodes, with the JAX nodes' inputs and defaults: the
-component loaders Flux ships for (UNETLoader, CLIPLoader, DualCLIPLoader
-of types sdxl and flux), EmptySD3LatentImage, the schedule patches
-ModelSamplingDiscrete and ModelSamplingFlux, and the SD model patches
+SD, Flux and SD3 nodes, with the JAX nodes' inputs and defaults: the
+component loaders Flux and SD3.5 ship for (UNETLoader, CLIPLoader,
+DualCLIPLoader of types sdxl, flux and sd3, TripleCLIPLoader),
+EmptySD3LatentImage, the schedule patches ModelSamplingDiscrete,
+ModelSamplingFlux and ModelSamplingSD3, and the SD model patches
 FreeU, FreeU_V2, PerturbedAttentionGuidance, SelfAttentionGuidance and
 RescaleCFG. A loader caches its bundle in the context under the JAX
 package's keys ("unet:<name>", "clip:<layout>:<names>"). A patch
@@ -106,8 +107,9 @@ class CLIPLoader:
 
 @register_node
 class DualCLIPLoader:
-    """Two text encoders: type sdxl (CLIP-L + CLIP-G) or flux (a CLIP and
-    a T5, either order). Type sd3 waits for the SD3 family."""
+    """Two text encoders: type sdxl (CLIP-L + CLIP-G), flux (a CLIP and a
+    T5, either order) or sd3 (CLIP-L + CLIP-G without the T5: the SD3
+    composition on the CLIP sequence alone)."""
 
     @classmethod
     def INPUT_TYPES(cls):
@@ -126,10 +128,30 @@ class DualCLIPLoader:
         layout = _CLIP_TYPE_MAP.get(str(type))
         if layout is None or layout == "sd":
             raise ValueError(f"DualCLIPLoader type must be sdxl, flux, or sd3; got {type!r}")
-        if layout == "sd3":
-            raise NotImplementedError("DualCLIPLoader type sd3 is not ported yet (ROADMAP.md, "
-                                      "Queue 1 step 4: SD3 and SD3.5)")
         return (_load_clip_cached([_stem(clip_name1), _stem(clip_name2)], layout, context),)
+
+
+@register_node
+class TripleCLIPLoader:
+    """SD3's three text encoders: CLIP-L, CLIP-G and the T5 (the CLIPs in
+    either order, the T5 found by family)."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "clip_name1": ("STRING", {"default": "clip-l-sd3"}),
+                "clip_name2": ("STRING", {"default": "clip-g"}),
+                "clip_name3": ("STRING", {"default": "t5-xxl-sd3"}),
+            }
+        }
+
+    RETURN_TYPES = ("CLIP",)
+    FUNCTION = "load_clip"
+
+    def load_clip(self, clip_name1, clip_name2, clip_name3, context=None):
+        names = [_stem(clip_name1), _stem(clip_name2), _stem(clip_name3)]
+        return (_load_clip_cached(names, "sd3", context),)
 
 
 @register_node
@@ -157,6 +179,34 @@ class EmptySD3LatentImage:
         return ({"samples": samples, "width": int(width), "height": int(height), "empty": True},)
 
 
+def _require_flow(model: pl.PipelineBundle, node_name: str) -> None:
+    if pl.model_schedule_info(model) != "flow":
+        raise ValueError(f"{node_name} patches flow-matching models (Flux/SD3 class); "
+                         f"{model.model_name!r} is not one")
+
+
+@register_node
+class ModelSamplingSD3:
+    """The rectified-flow schedule's shift, set outright (SD3's 3.0 by
+    default)."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "model": ("MODEL",),
+                "shift": ("FLOAT", {"default": 3.0}),
+            }
+        }
+
+    RETURN_TYPES = ("MODEL",)
+    FUNCTION = "patch"
+
+    def patch(self, model, shift=3.0, context=None):
+        _require_flow(model, "ModelSamplingSD3")
+        return (dataclasses.replace(model, flow_shift_override=float(shift)),)
+
+
 @register_node
 class ModelSamplingFlux:
     """The resolution-dependent flow shift: mu linear in the image tokens
@@ -181,9 +231,7 @@ class ModelSamplingFlux:
 
     def patch(self, model, max_shift=1.15, base_shift=0.5, width=1024, height=1024,
               context=None):
-        if pl.model_schedule_info(model) != "flow":
-            raise ValueError(f"ModelSamplingFlux patches flow-matching models (Flux/SD3 class); "
-                             f"{model.model_name!r} is not one")
+        _require_flow(model, "ModelSamplingFlux")
         seq = (int(width) // 16) * (int(height) // 16)
         mu = float(base_shift) + (float(max_shift) - float(base_shift)) * (
             (seq - 256) / (4096 - 256))

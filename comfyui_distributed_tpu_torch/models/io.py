@@ -13,8 +13,9 @@ onto a PyTorch parameter name by rule:
 
 One rule carries every tree: the UNet, the VAE, the text encoders
 (CLIP and T5, with its shared `rel_bias` table), the ControlNet, the
-upscale model and the Flux MMDiT (its RMS `scale`s, and the Dense
-kernels of the fused linear1/linear2).
+upscale model, the Flux MMDiT (its RMS `scale`s, and the Dense
+kernels of the fused linear1/linear2) and the SD3 MMDiT (its `pos_embed`
+table).
 
 Real single-file SD checkpoints (.safetensors, .ckpt) load through
 models/sd_checkpoint.py, whose key schedules name parameters by the same
@@ -79,9 +80,9 @@ def from_jax_params(flat: dict[str, np.ndarray], module: nn.Module) -> dict[str,
 def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter in place from `generator`, in registration
     order: Dense/Conv weights N(0, 1/fan_in), biases 0, norm and RMS-norm
-    scales 1, embeddings N(0, 1/width), the position table N(0, 0.01^2)
-    and the text projection N(0, 1/width), with the scales of the flax
-    initialisers."""
+    scales 1, embeddings N(0, 1/width), the position table N(0, 0.01^2),
+    the SD3 MMDiT's learned position table N(0, 1/width) and the text
+    projection N(0, 1/width), with the scales of the flax initialisers."""
     device = generator.device
     for name, param in module.named_parameters():
         owner = module.get_submodule(name.rpartition(".")[0])
@@ -95,6 +96,8 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 std = 1.0 / math.sqrt(param[0].numel())
             elif leaf == "position_embedding":
                 std = 0.01
+            elif leaf == "pos_embed":
+                std = 1.0 / math.sqrt(param.shape[-1])
             else:  # token embedding table, text projection
                 std = 1.0 / math.sqrt(param.shape[0] if leaf == "text_projection" else param.shape[1])
             draw = torch.randn(param.shape, generator=generator, device=device) * std

@@ -2,14 +2,17 @@
 
 Counterpart of the parts of comfyui_distributed_tpu/models/pipeline.py
 that the ported paths run: `load_pipeline` (a single-file SD1.x, SD2.x
-or SDXL checkpoint, or a Flux file set, where one resolves, else seeded
-random init), `load_vae`, and the component loaders `load_unet` and
-`load_clip` (UNETLoader, CLIPLoader, DualCLIPLoader); single-tower
-(SD1.5, SD2.1), dual-tower (SDXL) and Flux (T5 context, CLIP pooled)
-text encoding with clip-skip, the model function (eps or v prediction
-with the adm vector of pooled text and six Fourier size embeddings, or
-rectified flow: t = sigma, no input scaling, the distilled guidance and
-Kontext's reference latents), CFG with the
+or SDXL checkpoint, a Flux file set or an SD3 file, where one resolves,
+else seeded random init), `load_vae`, and the component loaders
+`load_unet` and `load_clip` (UNETLoader, CLIPLoader, DualCLIPLoader,
+TripleCLIPLoader); single-tower (SD1.5, SD2.1), dual-tower (SDXL), Flux
+(T5 context, CLIP pooled) and SD3 (CLIP-L and CLIP-G on features, padded
+to the T5 width and joined to the T5's states on the sequence; pooled
+CLIP-L ++ CLIP-G) text encoding with clip-skip, the model function (eps
+or v prediction with the adm vector of pooled text and six Fourier size
+embeddings, or rectified flow: t = sigma, no input scaling, the
+distilled guidance and Kontext's reference latents for Flux, the pooled
+vector and skip-layer guidance's skipped blocks for SD3), CFG with the
 PAG patch, and `img2img_latents` / `img2img_latents_advanced`
 (KSamplerAdvanced's window) / `txt2img`, each with the inpainting noise
 mask. Modules hold their own parameters, so the functions take the
@@ -18,13 +21,14 @@ takes ControlNet hints (gated by their sampling window), the SDXL size
 override of CLIPTextEncodeSDXL, InpaintModelConditioning's concat
 channels (a 9-channel UNet's extra input) and SAG's capture pass;
 `guided_model` composes CFG with one guidance patch: PAG, SAG,
-RescaleCFG, PerpNeg or DualCFG. `sample_custom_sigmas` runs an explicit
+RescaleCFG, PerpNeg, DualCFG or SD3.5's skip-layer guidance. `sample_custom_sigmas` runs an explicit
 sigma grid (SamplerCustom and SamplerCustomAdvanced).
 
 Node patches (CLIPSetLastLayer's clip-skip, PerturbedAttentionGuidance's
 PAGSpec, SelfAttentionGuidance's SAGSpec, RescaleCFG's multiplier,
 FreeU's UNet config, PerpNegGuider's PerpNegSpec, DualCFGGuider's
-DualCFGSpec and ModelSamplingFlux's shift) return a new bundle through
+DualCFGSpec, SkipLayerGuidanceSD3's SLGSpec and ModelSamplingFlux's and
+ModelSamplingSD3's shift) return a new bundle through
 `dataclasses.replace`:
 the modules and their parameters are shared, the bundle a graph executor
 caches is never changed.
@@ -58,10 +62,12 @@ from . import sd_checkpoint as sdc
 from .io import random_init_
 from .layers import timestep_embedding
 from .mmdit import MMDiT
+from .sd3 import SD3MMDiT
 from .registry import (
     DEFAULT_TEXT_ENCODERS,
     DUAL_TEXT_ENCODERS,
     HIDDEN_POOLED_ENCODERS,
+    TRIPLE_TEXT_ENCODERS,
     create_model,
     get_config,
     model_family,
@@ -71,21 +77,22 @@ from .text_encoder import TextEncoder, Tokenizer
 from .unet import UNet
 from .vae import VAE
 
-# the diffusion families the port runs; the others (sd3, dit, video)
-# raise where a bundle of them is asked for
-PORTED_FAMILIES = ("unet", "mmdit")
+# the diffusion families the port runs; the others (dit, video) raise
+# where a bundle of them is asked for
+PORTED_FAMILIES = ("unet", "mmdit", "sd3")
 
 
 @dataclasses.dataclass
 class PipelineBundle:
-    """A checkpoint: diffusion backbone (UNet or Flux MMDiT) + VAE + text
-    encoder(s), on one device. A component loader's bundle leaves out
-    what it does not load (UNETLoader: no VAE or encoders; the CLIP
-    loaders: no backbone or VAE). A Flux bundle's first encoder is the
-    T5 (context), its second the CLIP (pooled)."""
+    """A checkpoint: diffusion backbone (UNet, Flux MMDiT or SD3 MMDiT) +
+    VAE + text encoder(s), on one device. A component loader's bundle
+    leaves out what it does not load (UNETLoader: no VAE or encoders; the
+    CLIP loaders: no backbone or VAE). A Flux bundle's first encoder is
+    the T5 (context), its second the CLIP (pooled); an SD3 bundle's are
+    CLIP-L, CLIP-G and the T5 (none in DualCLIPLoader's sd3 layout)."""
 
     model_name: str
-    unet: UNet | MMDiT | None
+    unet: UNet | MMDiT | SD3MMDiT | None
     vae: VAE | None
     text_encoder: TextEncoder | T5Encoder | None
     tokenizer: Tokenizer | T5Tokenizer | None
@@ -97,6 +104,10 @@ class PipelineBundle:
     tokenizer_2: Tokenizer | None = None
     te_name: str | None = None
     te2_name: str | None = None
+    # SD3-class third encoder (the T5 of the triple layout)
+    text_encoder_3: T5Encoder | None = None
+    tokenizer_3: T5Tokenizer | None = None
+    te3_name: str | None = None
     # clip-skip (CLIPSetLastLayer): how many final blocks the towers'
     # hidden output leaves out; None = each tower's configured default
     clip_skip: int | None = None
@@ -113,14 +124,17 @@ class PipelineBundle:
     perp_neg: "PerpNegSpec | None" = None
     # ModelSamplingDiscrete: "eps" or "v" in place of the config's
     parameterization_override: str | None = None
-    # ModelSamplingFlux: the flow schedule's shift in place of the config's
+    # ModelSamplingFlux / ModelSamplingSD3: the flow schedule's shift in
+    # place of the config's
     flow_shift_override: float | None = None
+    # SkipLayerGuidanceSD3 (SD3 family); None = no skip pass
+    slg: "SLGSpec | None" = None
 
     def parts(self) -> dict[str, torch.nn.Module]:
-        """The modules the bundle holds, by checkpoint part: unet, vae, te
-        and te2."""
+        """The modules the bundle holds, by checkpoint part: unet, vae, te,
+        te2 and te3."""
         parts = {"unet": self.unet, "vae": self.vae, "te": self.text_encoder,
-                 "te2": self.text_encoder_2}
+                 "te2": self.text_encoder_2, "te3": self.text_encoder_3}
         return {part: module for part, module in parts.items() if module is not None}
 
 
@@ -161,6 +175,18 @@ class DualCFGSpec:
     nested: bool = False
 
 
+@dataclasses.dataclass(frozen=True)
+class SLGSpec:
+    """Skip-layer guidance (SkipLayerGuidanceSD3): the guided result gains
+    scale * (cond - cond with the joint blocks `layers` skipped) over a
+    sampling-progress window."""
+
+    layers: tuple
+    scale: float = 3.0
+    start_percent: float = 0.01
+    end_percent: float = 0.15
+
+
 @dataclasses.dataclass
 class VAEBundle:
     """A standalone VAE (VAELoader's output). It has the attributes the
@@ -177,8 +203,11 @@ class VAEBundle:
 def _family_vae_name(model_name: str) -> str:
     """The default VAE of a diffusion model's family."""
     tiny = model_name.startswith("tiny")
-    if model_family(model_name) == "mmdit":
+    family = model_family(model_name)
+    if family == "mmdit":
         return "tiny-vae-flux" if tiny else "vae-flux"
+    if family == "sd3":
+        return "tiny-vae-sd3" if tiny else "vae-sd3"
     return "tiny-vae" if tiny else "vae-sd"
 
 
@@ -186,8 +215,8 @@ def _require_ported_family(model_name: str) -> str:
     family = model_family(model_name)
     if family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{model_name!r} ({family} family): only UNet (SD) and Flux pipelines are ported so "
-            "far (ROADMAP.md, Queue 1 item 5: the SD3, WAN video and audio families)")
+            f"{model_name!r} ({family} family): only UNet (SD), Flux and SD3 pipelines are "
+            "ported so far (ROADMAP.md, Queue 1 item 5: the WAN video and audio families)")
     return family
 
 
@@ -212,7 +241,7 @@ def _build(name: str, device: torch.device, generator: torch.Generator | None):
 
 def _seed_generators(seed: int, device: torch.device):
     """The generator of each module's random init: offset 0 the UNet, 1 the
-    VAE, 2 and 3 the text towers, each seeded from `seed` on `device`."""
+    VAE, 2, 3 and 4 the text towers, each seeded from `seed` on `device`."""
 
     def generator(offset: int) -> torch.Generator:
         gen = torch.Generator(device=device)
@@ -255,8 +284,8 @@ def load_pipeline(model_name: str = "tiny-unet", seed: int = 0, device="cuda",
     resolves: `checkpoint`, else `CDT_CHECKPOINT_DIR/<model_name>.*`
     (models/sd_checkpoint.py::find_checkpoint); loading is strict, and a
     file whose UNet takes 9 input channels loads as the family's
-    inpainting model (`sniff_model_name`). A Flux file fills the parts it
-    carries (a published transformer file: the MMDiT only). A text tower
+    inpainting model (`sniff_model_name`). A Flux or SD3 file fills the
+    parts it carries (a published transformer file: the MMDiT only). A text tower
     the file does not carry is filled from
     `CDT_CHECKPOINT_DIR/<encoder name>.*` where that exists. With no
     checkpoint the weights are seeded random: each module draws from its
@@ -273,7 +302,8 @@ def load_pipeline(model_name: str = "tiny-unet", seed: int = 0, device="cuda",
         bundle, supplied = _assemble(model_name, device, seed, state_dict)
     # a separate text-encoder file fills a tower the checkpoint did not
     # carry (a checkpoint's own, fine-tuned towers win)
-    for part, name in (("te", bundle.te_name), ("te2", bundle.te2_name)):
+    for part, name in (("te", bundle.te_name), ("te2", bundle.te2_name),
+                       ("te3", bundle.te3_name)):
         if name and part not in supplied:
             _load_te_checkpoint(name, bundle.parts()[part])
     return bundle
@@ -284,7 +314,10 @@ def _assemble(model_name: str, device: torch.device, seed: int, state_dict):
     supplied: filled from `state_dict` (an open single-file checkpoint)
     where given, else seeded."""
     family = _require_ported_family(model_name)
-    if model_name in HIDDEN_POOLED_ENCODERS:
+    te3_name = None
+    if model_name in TRIPLE_TEXT_ENCODERS:
+        te_name, te2_name, te3_name = TRIPLE_TEXT_ENCODERS[model_name]
+    elif model_name in HIDDEN_POOLED_ENCODERS:
         te_name, te2_name = HIDDEN_POOLED_ENCODERS[model_name]
     elif model_name in DUAL_TEXT_ENCODERS:
         te_name, te2_name = DUAL_TEXT_ENCODERS[model_name]
@@ -294,7 +327,7 @@ def _assemble(model_name: str, device: torch.device, seed: int, state_dict):
         te_name, te2_name = ("tiny-te" if model_name.startswith("tiny") else "clip-l"), None
     vae_name = _family_vae_name(model_name)
     # a checkpoint fills every parameter: no random draw for it to replace;
-    # a Flux file may carry only some parts, and the others are seeded
+    # a Flux or SD3 file may carry only some parts, and the others are seeded
     generator = _seed_generators(seed, device)
     init = (lambda offset: None) if state_dict is not None and family == "unet" else generator
 
@@ -306,9 +339,11 @@ def _assemble(model_name: str, device: torch.device, seed: int, state_dict):
     vae = _build(vae_name, device, init(1))
     te = _build(te_name, device, init(2))
     vae_cfg = get_config(vae_name)
-    te2 = None
+    te2 = te3 = None
     if te2_name:
         te2 = _build(te2_name, device, init(3))
+    if te3_name:
+        te3 = _build(te3_name, device, init(4))
 
     bundle = PipelineBundle(
         model_name=model_name,
@@ -323,9 +358,17 @@ def _assemble(model_name: str, device: torch.device, seed: int, state_dict):
         tokenizer_2=_tokenizer(te2_name) if te2_name else None,
         te_name=te_name,
         te2_name=te2_name,
+        text_encoder_3=te3,
+        tokenizer_3=_tokenizer(te3_name) if te3_name else None,
+        te3_name=te3_name,
     )
     supplied: set[str] = set()
-    if state_dict is not None and family == "mmdit":
+    if state_dict is not None and family == "sd3":
+        supplied = sdc.load_sd3_weights(state_dict, get_config(model_name), vae_cfg,
+                                        get_config(te_name), bundle.parts(),
+                                        te2_cfg=get_config(te2_name),
+                                        te3_cfg=get_config(te3_name))
+    elif state_dict is not None and family == "mmdit":
         supplied = sdc.load_flux_weights(state_dict, get_config(model_name), vae_cfg,
                                          get_config(te_name), bundle.parts(),
                                          te2_cfg=get_config(te2_name))
@@ -338,10 +381,10 @@ def _assemble(model_name: str, device: torch.device, seed: int, state_dict):
 
 def load_unet(model_name: str, seed: int = 0, device="cuda",
               checkpoint: str | None = None) -> PipelineBundle:
-    """A backbone-only bundle (UNETLoader: Flux ships its transformer as
-    a file of its own, the VAE and encoders come from VAELoader and the
-    CLIP loaders). Weights from `checkpoint`, else
-    `CDT_CHECKPOINT_DIR/<model_name>.*` (bare Flux keys or the
+    """A backbone-only bundle (UNETLoader: Flux and SD3.5 ship their
+    transformer as a file of its own, the VAE and encoders come from
+    VAELoader and the CLIP loaders). Weights from `checkpoint`, else
+    `CDT_CHECKPOINT_DIR/<model_name>.*` (bare Flux or SD3 keys or the
     `model.diffusion_model.` layout), else the seeded init load_pipeline
     gives its backbone at `seed`. The latent geometry is the family VAE's."""
     family = model_family(model_name)
@@ -365,8 +408,9 @@ def load_unet(model_name: str, seed: int = 0, device="cuda",
 
 
 def _order_clip_towers(names: list[str]) -> list[str]:
-    """(CLIP-L, CLIP-G) by tower width (G is the wider), so the sdxl
-    layout takes its two names in either order; equal widths keep it."""
+    """(CLIP-L, CLIP-G) by tower width (G is the wider), so the sdxl and
+    sd3 layouts take their two names in either order; equal widths keep
+    it."""
     if len(names) == 2 and get_config(names[0]).width > get_config(names[1]).width:
         return [names[1], names[0]]
     return list(names)
@@ -374,33 +418,33 @@ def _order_clip_towers(names: list[str]) -> list[str]:
 
 # the CLIP loaders' layouts → the registry model whose conditioning
 # composition the bundle applies (None: the first encoder's own)
-_CLIP_LAYOUT_MODELS = {"sd": None, "sdxl": None, "flux": ("tiny-flux", "flux-dev")}
+_CLIP_LAYOUT_MODELS = {"sd": None, "sdxl": None, "flux": ("tiny-flux", "flux-dev"),
+                       "sd3": ("tiny-sd3", "sd3-medium")}
 
 
 def load_clip(te_names: list[str], layout: str = "sd", seed: int = 0,
               device="cuda") -> PipelineBundle:
-    """An encoder-only bundle (CLIPLoader, DualCLIPLoader): each encoder by
-    registry name, its weights from `CDT_CHECKPOINT_DIR/<name>.*` where
-    that resolves, else seeded as load_pipeline seeds its towers (the
-    first at generator offset 2, the second at 3). `layout`:
+    """An encoder-only bundle (CLIPLoader, DualCLIPLoader,
+    TripleCLIPLoader): each encoder by registry name, its weights from
+    `CDT_CHECKPOINT_DIR/<name>.*` where that resolves, else seeded as
+    load_pipeline seeds its towers (the first at generator offset 2, the
+    second at 3, the third at 4). `layout`:
 
       sd    one CLIP tower (hidden and pooled);
       sdxl  CLIP-L + CLIP-G, either order: context concatenated on
             features, pooled from G;
       flux  one T5 and one CLIP, either order: the T5's hidden states,
-            the CLIP's pooled vector.
-
-    The sd3 layout waits for the SD3 family."""
+            the CLIP's pooled vector;
+      sd3   CLIP-L + CLIP-G (either order) and at most one T5: the SD3
+            composition; without a T5 the CLIP sequence alone, padded to
+            the backbone's context width."""
     names = [str(n) for n in te_names]
-    expected = {"sd": 1, "sdxl": 2, "flux": 2}
-    if layout == "sd3":
-        raise NotImplementedError("the sd3 CLIP layout is not ported yet (ROADMAP.md, Queue 1 "
-                                  "step 4: SD3 and SD3.5)")
+    expected = {"sd": (1,), "sdxl": (2,), "flux": (2,), "sd3": (2, 3)}
     if layout not in expected:
         raise ValueError(f"unknown CLIP layout {layout!r}; use {sorted(expected)}")
-    if len(names) != expected[layout]:
-        raise ValueError(f"layout {layout!r} takes {expected[layout]} encoder name(s), "
-                         f"got {names}")
+    if len(names) not in expected[layout]:
+        raise ValueError(f"layout {layout!r} takes {' or '.join(map(str, expected[layout]))} "
+                         f"encoder name(s), got {names}")
     t5s = [n for n in names if model_family(n) == "t5_encoder"]
     clips = [n for n in names if model_family(n) != "t5_encoder"]
     if layout == "flux":
@@ -408,6 +452,11 @@ def load_clip(te_names: list[str], layout: str = "sd", seed: int = 0,
             raise ValueError(f"flux layout needs one T5-family and one CLIP-family encoder, "
                              f"got {names}")
         ordered = [t5s[0], clips[0]]  # te = T5, te2 = CLIP
+    elif layout == "sd3":
+        if len(clips) != 2 or len(t5s) > 1:
+            raise ValueError(f"sd3 layout needs two CLIP-family encoders and at most one T5, "
+                             f"got {names}")
+        ordered = _order_clip_towers(clips) + t5s  # te = L, te2 = G [, te3 = T5]
     else:
         if t5s:
             raise ValueError(f"layout {layout!r} takes CLIP-family encoders only, got {names}")
@@ -425,13 +474,15 @@ def load_clip(te_names: list[str], layout: str = "sd", seed: int = 0,
         module = _build(name, device, None if path else generator(2 + i))
         _load_te_checkpoint(name, module)
         encoders.append(module)
-    second = len(ordered) > 1
+    # the slots a layout leaves empty: te2 (sd), te3 (all but sd3's triple)
+    names = ordered + [None] * (3 - len(ordered))
+    encoders += [None] * (3 - len(encoders))
+    tokenizers = [_tokenizer(name) if name else None for name in names]
     return PipelineBundle(
-        model_name=bundle_name, unet=None, vae=None, text_encoder=encoders[0],
-        tokenizer=_tokenizer(ordered[0]), device=device,
-        text_encoder_2=encoders[1] if second else None,
-        tokenizer_2=_tokenizer(ordered[1]) if second else None,
-        te_name=ordered[0], te2_name=ordered[1] if second else None,
+        model_name=bundle_name, unet=None, vae=None, device=device,
+        text_encoder=encoders[0], tokenizer=tokenizers[0], te_name=names[0],
+        text_encoder_2=encoders[1], tokenizer_2=tokenizers[1], te2_name=names[1],
+        text_encoder_3=encoders[2], tokenizer_3=tokenizers[2], te3_name=names[2],
     )
 
 
@@ -479,15 +530,50 @@ def _encode_flux_parts(bundle: PipelineBundle, texts_t5: list[str], texts_clip: 
 
 
 @torch.no_grad()
+def _encode_sd3(bundle: PipelineBundle, texts: list[str]):
+    """The SD3 layout: CLIP-L's and CLIP-G's hidden states concatenated on
+    features, zero-padded to the T5's width, then joined to the T5's
+    states on the sequence; pooled = CLIP-L's (projected) pooled ++
+    CLIP-G's. Without a T5 (DualCLIPLoader type sd3) the CLIP sequence
+    alone, padded to the backbone's context width."""
+    if bundle.text_encoder_2 is None:
+        raise ValueError(f"{bundle.model_name}: sd3 bundles need at least the two CLIP encoders "
+                         "(CLIP-L, CLIP-G)")
+    h_l, p_l = _encode_tower(bundle.text_encoder, bundle.tokenizer, texts, bundle.device,
+                             bundle.clip_skip)
+    h_g, p_g = _encode_tower(bundle.text_encoder_2, bundle.tokenizer_2, texts, bundle.device,
+                             bundle.clip_skip)
+    hidden = torch.cat([h_l.float(), h_g.float()], dim=-1)
+    h_t5 = None
+    if bundle.text_encoder_3 is not None:
+        tokens = torch.as_tensor(bundle.tokenizer_3.encode_batch(texts), dtype=torch.long,
+                                 device=bundle.device)
+        h_t5 = bundle.text_encoder_3(tokens)[0].float()
+        width = h_t5.shape[-1]
+    else:
+        width = get_config(bundle.model_name).context_dim
+    if hidden.shape[-1] < width:
+        hidden = torch.nn.functional.pad(hidden, (0, width - hidden.shape[-1]))
+    if h_t5 is not None:
+        hidden = torch.cat([hidden, h_t5], dim=1)
+    return hidden, torch.cat([p_l.float(), p_g.float()], dim=-1)
+
+
+@torch.no_grad()
 def _encode_raw(bundle: PipelineBundle, texts: list[str], texts_2: list[str] | None = None):
     """Prompts → (hidden [B, T, context_dim], pooled [B, P]). Flux bundles
-    take `_encode_flux_parts`. Dual-tower bundles concatenate both hidden
+    take `_encode_flux_parts`, SD3 bundles `_encode_sd3` (but for
+    CLIPTextEncodeSDXL's two prompts, which take the dual-tower path, as
+    in the JAX package). Dual-tower bundles concatenate both hidden
     states on features and take the pooled vector from the second
     (projected) tower, which encodes `texts_2` where given
     (CLIPTextEncodeSDXL's text_g), else `texts`. The bundle's clip-skip
     applies to every CLIP tower."""
-    if model_family(bundle.model_name) == "mmdit":
+    family = model_family(bundle.model_name)
+    if family == "mmdit":
         return _encode_flux_parts(bundle, texts, texts)
+    if family == "sd3" and texts_2 is None:
+        return _encode_sd3(bundle, texts)
     hidden, pooled = _encode_tower(bundle.text_encoder, bundle.tokenizer, texts, bundle.device,
                                    bundle.clip_skip)
     if bundle.text_encoder_2 is not None:
@@ -545,16 +631,16 @@ def encode_text_pooled_sdxl(bundle: PipelineBundle, texts_g: list[str], texts_l:
 def model_schedule_info(bundle: PipelineBundle) -> str:
     """The backbone's parameterization, which picks the sigma table and
     the noising rule: "eps" or "v" (SD2.x-768 class), both on the VP
-    table, or "flow" (Flux); ModelSamplingDiscrete's override where it is
-    set."""
+    table, or "flow" (Flux, SD3); ModelSamplingDiscrete's override where
+    it is set."""
     param = bundle.parameterization_override or get_config(bundle.model_name).parameterization
     smp.require_parameterization(param)
     return param
 
 
 def flow_shift(bundle: PipelineBundle) -> float:
-    """The flow schedule's shift: ModelSamplingFlux's override, else the
-    config's (3.0 where a config has none)."""
+    """The flow schedule's shift: ModelSamplingFlux's or ModelSamplingSD3's
+    override, else the config's (3.0 where a config has none)."""
     if bundle.flow_shift_override is not None:
         return float(bundle.flow_shift_override)
     return float(getattr(get_config(bundle.model_name), "flow_shift", 3.0))
@@ -635,12 +721,15 @@ def _concat_channels(concat: torch.Tensor, x_in: torch.Tensor) -> torch.Tensor:
     return extra
 
 
-def _flow_model_fn(bundle: PipelineBundle):
-    """The rectified-flow (Flux) model function: t is sigma, no input
+def _flow_model_fn(bundle: PipelineBundle, skip_layers: tuple = ()):
+    """The rectified-flow (Flux, SD3) model function: t is sigma, no input
     scaling, the velocity is eps under the samplers' contract; the
-    entry's distilled guidance (None: the model's default) and Kontext's
-    reference latents go to the MMDiT. ControlNet hints and concat
-    channels raise: the family has no input for them."""
+    entry's pooled vector, distilled guidance (None: the model's default)
+    and Kontext's reference latents go to the MMDiT, and an SD3 MMDiT
+    skips the joint blocks `skip_layers` (skip-layer guidance's pass).
+    ControlNet hints and concat channels raise: the families have no
+    input for them."""
+    skip = {"skip_layers": tuple(skip_layers)} if skip_layers else {}
 
     def model_fn(x: torch.Tensor, sigma_batch: torch.Tensor, cond):
         entry = cond if isinstance(cond, Conditioning) else None
@@ -663,13 +752,14 @@ def _flow_model_fn(bundle: PipelineBundle):
             if entry.reference_latents:
                 refs = [r.to(device=x.device, dtype=x.dtype) for r in entry.reference_latents]
         out = bundle.unet(x, smp.on_device(sigma_batch, x), context, y=y, guidance=g,
-                          ref_latents=refs)
+                          ref_latents=refs, **skip)
         return out.to(x.dtype)
 
     return model_fn
 
 
-def _make_model_fn(bundle: PipelineBundle, pag: bool = False, sag_capture: bool = False):
+def _make_model_fn(bundle: PipelineBundle, pag: bool = False, sag_capture: bool = False,
+                   skip_layers: tuple = ()):
     """eps model function: VP input scaling, sigma → timestep, context
     broadcast to the latent batch, the adm vector and the ControlNet
     residual, and an entry's concat channels joined to the scaled input
@@ -679,10 +769,10 @@ def _make_model_fn(bundle: PipelineBundle, pag: bool = False, sag_capture: bool 
     block). `sag_capture` changes what the function returns: (eps, the
     middle block's self-attention probabilities, (mid_h, mid_w)), the
     form `sag_cfg_model` consumes. The sigma batch may be on the host.
-    A flow model takes `_flow_model_fn`."""
+    A flow model takes `_flow_model_fn`, with `skip_layers`."""
     param = model_schedule_info(bundle)
     if param == "flow":
-        return _flow_model_fn(bundle)
+        return _flow_model_fn(bundle, skip_layers)
     is_v = param == "v"
     p2s = percent_converter(bundle)
 
@@ -723,6 +813,7 @@ def _make_model_fn(bundle: PipelineBundle, pag: bool = False, sag_capture: bool 
 def _guidance_patches(bundle: PipelineBundle) -> list[str]:
     """The guidance patch nodes applied to the bundle, by node name."""
     return [name for name, active in (
+        ("SkipLayerGuidanceSD3", bundle.slg is not None),
         ("RescaleCFG", bundle.cfg_rescale is not None),
         ("DualCFGGuider", bundle.dual_cfg is not None),
         ("PerturbedAttentionGuidance", bundle.pag is not None),
@@ -743,8 +834,8 @@ def guided_model(bundle: PipelineBundle, cfg_scale: float):
     """CFG over the bundle's model (with the per-entry composition of
     multi-entry conditioning), plus the one guidance patch the bundle
     carries: PAG, SAG, RescaleCFG, PerpNeg or DualCFG (these two take
-    their three conditionings as ((a, b), c)). A hand-built bundle with
-    two raises."""
+    their three conditionings as ((a, b), c)) or skip-layer guidance. A
+    hand-built bundle with two raises."""
     patches = _guidance_patches(bundle)
     if len(patches) > 1:
         raise ValueError(f"guidance patches cannot combine on one model: {patches}")
@@ -763,6 +854,11 @@ def guided_model(bundle: PipelineBundle, cfg_scale: float):
                                  float(bundle.sag.scale), float(bundle.sag.blur_sigma), p2s=p2s)
     if bundle.cfg_rescale is not None:
         return smp.rescale_cfg_model(base_fn, cfg_scale, float(bundle.cfg_rescale), p2s=p2s)
+    if bundle.slg is not None:
+        slg = bundle.slg
+        return smp.slg_cfg_model(base_fn, _make_model_fn(bundle, skip_layers=slg.layers),
+                                 cfg_scale, float(slg.scale), p2s(slg.start_percent),
+                                 p2s(slg.end_percent), p2s=p2s)
     return smp.cfg_model(base_fn, cfg_scale, p2s=p2s)
 
 

@@ -7,9 +7,11 @@ text encoders (the upscale workflow), `sd15` with the SD VAE and CLIP-L
 (the 9-channel inpainting UNet of InpaintModelConditioning), `sd21` and
 `sd21-base` with OpenCLIP-H (the SD2.1 workflow), `flux-dev` and
 `flux-schnell` with T5-XXL, CLIP-L and the 16-channel Flux VAE (the Flux
-and Kontext workflows), and the tiny instances of the same code that
-the CPU tests hold against the JAX package. Other families come with
-their slices.
+and Kontext workflows), `sd3-medium`, `sd35-large` and `sd35-medium`
+(MMDiT-X) with CLIP-L (projected pooled), CLIP-G, T5-XXL at 77 tokens and
+the 16-channel SD3 VAE (the SD3.5 workflows), and the tiny instances of
+the same code that the CPU tests hold against the JAX package. The WAN
+video and audio families come with their slices.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Any
 from torch import nn
 
 from .mmdit import MMDiT, MMDiTConfig
+from .sd3 import SD3Config, SD3MMDiT
 from .t5_encoder import T5Encoder, T5EncoderConfig
 from .text_encoder import TextEncoder, TextEncoderConfig
 from .unet import UNet, UNetConfig
@@ -153,6 +156,35 @@ MODEL_REGISTRY: dict[str, dict[str, Any]] = {
             context_dim=64, vec_dim=64, flow_shift=1.0,
         ),
     },
+    # SD3-class MMDiT (joint blocks, a learned position table). SD3-medium
+    # (2B): depth 24, so 1536 wide, no QK norm
+    "sd3-medium": {"family": "sd3", "config": SD3Config(depth=24)},
+    # SD3.5-large (8B): depth 38, 2432 wide, 38 heads, per-head RMS QK norm
+    "sd35-large": {
+        "family": "sd3",
+        "config": SD3Config(depth=38, hidden_dim=2432, heads=38, qk_norm=True),
+    },
+    # SD3.5-medium (2.5B, MMDiT-X): depth 24, QK norm, a 384-wide position
+    # table and a second image-only attention (attn2, 9-way adaLN) in the
+    # first 13 x_blocks
+    "sd35-medium": {
+        "family": "sd3",
+        "config": SD3Config(depth=24, qk_norm=True, pos_embed_max=384, dual_attn_blocks=13),
+    },
+    # tiny MMDiT-X: one dual-attention block and one plain
+    "tiny-sd35m": {
+        "family": "sd3",
+        "config": SD3Config(depth=2, hidden_dim=32, heads=2, context_dim=160, pooled_dim=160,
+                            pos_embed_max=32, qk_norm=True, dual_attn_blocks=1,
+                            flow_shift=1.0),
+    },
+    # tiny: context 160 = tiny CLIP-L (64) ++ CLIP-G (96) = the T5 width; the
+    # position table covers USDU's padded 96-px tiles (latent 48, patch 2)
+    "tiny-sd3": {
+        "family": "sd3",
+        "config": SD3Config(depth=2, hidden_dim=32, heads=2, context_dim=160, pooled_dim=160,
+                            pos_embed_max=32, qk_norm=True, flow_shift=1.0),
+    },
     "vae-sd": {"family": "vae", "config": VAEConfig()},
     # the Flux-class 16-channel AE: (mean - shift) * scale at its boundary,
     # no 1x1 quant convs in the published layout
@@ -167,6 +199,18 @@ MODEL_REGISTRY: dict[str, dict[str, Any]] = {
                             latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159,
                             use_quant_conv=False),
     },
+    # the SD3-class 16-channel AE: scale 1.5305, shift 0.0609, no quant convs
+    "vae-sd3": {
+        "family": "vae",
+        "config": VAEConfig(latent_channels=16, scaling_factor=1.5305, shift_factor=0.0609,
+                            use_quant_conv=False),
+    },
+    "tiny-vae-sd3": {
+        "family": "vae",
+        "config": VAEConfig(base_channels=16, channel_mult=(1, 2), num_res_blocks=1,
+                            latent_channels=16, scaling_factor=1.5305, shift_factor=0.0609,
+                            use_quant_conv=False),
+    },
     "tiny-vae": {
         "family": "vae",
         "config": VAEConfig(base_channels=16, channel_mult=(1, 2), num_res_blocks=1),
@@ -176,6 +220,12 @@ MODEL_REGISTRY: dict[str, dict[str, Any]] = {
     "clip-l-sdxl": {
         "family": "text_encoder",
         "config": TextEncoderConfig(penultimate_hidden=True),
+    },
+    # SD3's CLIP-L half: the penultimate hidden state and a PROJECTED pooled
+    # vector (the files bundle CLIPTextModelWithProjection, a 768x768 table)
+    "clip-l-sd3": {
+        "family": "text_encoder",
+        "config": TextEncoderConfig(penultimate_hidden=True, proj_dim=768),
     },
     "clip-g": {
         "family": "text_encoder",
@@ -201,6 +251,18 @@ MODEL_REGISTRY: dict[str, dict[str, Any]] = {
         "family": "t5_encoder",
         "config": T5EncoderConfig(vocab_size=32128, d_model=4096, d_ff=10240, layers=24,
                                   heads=64, d_kv=64, per_layer_rel_bias=False),
+    },
+    # SD3's T5 slot: the same weights, padded to 77 tokens (Flux pads to 512)
+    "t5-xxl-sd3": {
+        "family": "t5_encoder",
+        "config": T5EncoderConfig(vocab_size=32128, d_model=4096, d_ff=10240, layers=24,
+                                  heads=64, d_kv=64, per_layer_rel_bias=False, max_length=77),
+    },
+    # a tiny T5 at the tiny SD3 context width (160 = the tiny CLIP concat)
+    "tiny-t5-sd3": {
+        "family": "t5_encoder",
+        "config": T5EncoderConfig(vocab_size=49408, d_model=160, d_ff=320, layers=2, heads=2,
+                                  d_kv=32, max_length=16, per_layer_rel_bias=False),
     },
     # the tiny shared-bias variant (the Flux layout); its vocab covers the
     # CLIP-BPE id space
@@ -250,8 +312,19 @@ HIDDEN_POOLED_ENCODERS: dict[str, tuple[str, str]] = {
     "tiny-flux": ("tiny-t5-shared", "tiny-te"),
 }
 
-_CONSTRUCTORS = {"unet": UNet, "mmdit": MMDiT, "vae": VAE, "text_encoder": TextEncoder,
-                 "t5_encoder": T5Encoder}
+# SD3-layout conditioning (CLIP-L, CLIP-G, T5): the CLIP hidden states
+# concatenated on features, zero-padded to the T5 width, then joined to the
+# T5's on the sequence; pooled = CLIP-L's pooled ++ CLIP-G's
+TRIPLE_TEXT_ENCODERS: dict[str, tuple[str, str, str]] = {
+    "sd3-medium": ("clip-l-sd3", "clip-g", "t5-xxl-sd3"),
+    "sd35-large": ("clip-l-sd3", "clip-g", "t5-xxl-sd3"),
+    "sd35-medium": ("clip-l-sd3", "clip-g", "t5-xxl-sd3"),
+    "tiny-sd3": ("tiny-te-l", "tiny-te-g", "tiny-t5-sd3"),
+    "tiny-sd35m": ("tiny-te-l", "tiny-te-g", "tiny-t5-sd3"),
+}
+
+_CONSTRUCTORS = {"unet": UNet, "mmdit": MMDiT, "sd3": SD3MMDiT, "vae": VAE,
+                 "text_encoder": TextEncoder, "t5_encoder": T5Encoder}
 
 
 def _entry(name: str) -> dict[str, Any]:

@@ -1,7 +1,7 @@
 """Single-file SD checkpoints: the key schedules, the file reader and
 writer, and the loaders that fill the port's modules.
 
-The port's own copy of the SD- and Flux-family parts of
+The port's own copy of the SD-, Flux- and SD3-family parts of
 comfyui_distributed_tpu/models/sd_checkpoint.py. A single-file SD1.x,
 SD2.x or SDXL checkpoint (`model.diffusion_model.*`, `first_stage_model.*`,
 and the text towers under `cond_stage_model.*` or `conditioner.embedders.*`)
@@ -9,8 +9,12 @@ loads into the UNet, VAE and text encoders of models/. Flux ships as
 separate files: the transformer (`double_blocks.*`, bare or under
 `model.diffusion_model.`), the AE (bare `encoder.*` or under
 `first_stage_model.`), T5-XXL (`encoder.block.*`, HF layout) and CLIP-L;
-`load_flux_weights` fills whichever parts a file carries. SD3 and WAN
-files are recognised and refused (`checkpoint_layout`).
+`load_flux_weights` fills whichever parts a file carries. An SD3 or
+SD3.5 file (`joint_blocks.*`, bare or under `model.diffusion_model.`;
+the `*_incl_clips*` single files add `first_stage_model.*` and
+`text_encoders.{clip_l,clip_g,t5xxl}.transformer.*`) fills its parts
+through `load_sd3_weights`. WAN files are recognised and refused
+(`checkpoint_layout`).
 
 Each architecture has an enumerable key schedule, config →
 [(sd key prefix, module parameter prefix, kind)], so the mapping is
@@ -28,6 +32,8 @@ loads as it is stored:
     fused_qkv     OpenCLIP's in_proj [3W, W] / [3W] → q, k, v rows
     rms           an RMS norm's `.weight` (T5's layer norms)
     rms_scale     an RMS norm stored as `.scale` (Flux's q/k norms)
+    conv2d:p:c    SD3's stride-p patch conv [O, c, p, p] → the Dense
+                  [O, c p p] over (c, ph, pw)-flattened patches
 
 Loading is strict on the module's side: a parameter no key fills, or a
 shape that differs, raises. Keys the schedule does not name
@@ -401,6 +407,54 @@ def flux_schedule(cfg, prefix: str = "") -> list[Entry]:
     return entries
 
 
+def sd3_schedule(cfg, prefix: str = "model.diffusion_model.") -> list[Entry]:
+    """SD3/SD3.5 MMDiT state dict (`joint_blocks.N.{context_block,
+    x_block}.*`, `x_embedder.proj`, `pos_embed`, `context_embedder`, the
+    `t_embedder`/`y_embedder` MLPs, `final_layer.*`) → SD3MMDiT. The last
+    block's context side is pre_only: qkv and a 2-way adaLN, no proj or
+    MLP. SD3.5 configs add the per-head RMS ln_q/ln_k; MMDiT-X's first
+    `dual_attn_blocks` x_blocks add attn2 (their adaLN linear is 9-way:
+    the same key, a wider tensor). `prefix` is empty for a bare
+    transformer file."""
+    p = prefix
+    entries: list[Entry] = [
+        (f"{p}x_embedder.proj", "x_embedder_proj", f"conv2d:{cfg.patch_size}:{cfg.in_channels}"),
+        (f"{p}pos_embed", "pos_embed", "param_bare"),
+        (f"{p}context_embedder", "context_embedder", _LINEAR),
+        (f"{p}t_embedder.mlp.0", "t_embedder_mlp_0", _LINEAR),
+        (f"{p}t_embedder.mlp.2", "t_embedder_mlp_2", _LINEAR),
+        (f"{p}y_embedder.mlp.0", "y_embedder_mlp_0", _LINEAR),
+        (f"{p}y_embedder.mlp.2", "y_embedder_mlp_2", _LINEAR),
+    ]
+    for i in range(cfg.depth):
+        sd, pt = f"{p}joint_blocks.{i}", f"joint_blocks_{i}"
+        pre_only = i == cfg.depth - 1
+        for block, s in (("context_block", "ctx"), ("x_block", "x")):
+            entries.append((f"{sd}.{block}.attn.qkv", f"{pt}.{s}_attn_qkv", _LINEAR))
+            if cfg.qk_norm:
+                entries += [(f"{sd}.{block}.attn.ln_q", f"{pt}.{s}_attn_ln_q", "rms"),
+                            (f"{sd}.{block}.attn.ln_k", f"{pt}.{s}_attn_ln_k", "rms")]
+            entries.append((f"{sd}.{block}.adaLN_modulation.1", f"{pt}.{s}_mod_lin", _LINEAR))
+            if s == "ctx" and pre_only:
+                continue
+            entries += [
+                (f"{sd}.{block}.attn.proj", f"{pt}.{s}_attn_proj", _LINEAR),
+                (f"{sd}.{block}.mlp.fc1", f"{pt}.{s}_mlp_fc1", _LINEAR),
+                (f"{sd}.{block}.mlp.fc2", f"{pt}.{s}_mlp_fc2", _LINEAR),
+            ]
+            if s == "x" and i < cfg.dual_attn_blocks:
+                entries += [(f"{sd}.x_block.attn2.qkv", f"{pt}.x2_attn_qkv", _LINEAR),
+                            (f"{sd}.x_block.attn2.proj", f"{pt}.x2_attn_proj", _LINEAR)]
+                if cfg.qk_norm:
+                    entries += [(f"{sd}.x_block.attn2.ln_q", f"{pt}.x2_attn_ln_q", "rms"),
+                                (f"{sd}.x_block.attn2.ln_k", f"{pt}.x2_attn_ln_k", "rms")]
+    entries += [
+        (f"{p}final_layer.adaLN_modulation.1", "final_layer_adaLN_mod_lin", _LINEAR),
+        (f"{p}final_layer.linear", "final_layer_linear", _LINEAR),
+    ]
+    return entries
+
+
 # --- conversion -----------------------------------------------------------
 
 def _expand(entries: Iterable[Entry]) -> list[tuple[str, str, str]]:
@@ -425,6 +479,9 @@ def _expand(entries: Iterable[Entry]) -> list[tuple[str, str, str]]:
             out.append((f"{sd}.scale", f"{pt}.weight", "id"))
         elif kind == "bare_linear_w":  # nn.Linear weight [P, W] → bare [W, P]
             out.append((f"{sd}.weight", pt, "transpose"))
+        elif kind.startswith("conv2d:"):  # a patch conv → the patchify Dense
+            out.append((f"{sd}.weight", f"{pt}.weight", kind))
+            out.append((f"{sd}.bias", f"{pt}.bias", "id"))
         elif kind == "fused_qkv":
             for slot, name in enumerate(("q", "k", "v")):
                 out.append((f"{sd}_weight", f"{pt}.{name}.weight", f"qkv{slot}"))
@@ -439,6 +496,8 @@ def _transform(value: torch.Tensor, how: str) -> torch.Tensor:
         return value[:, :, 0, 0] if value.ndim == 4 else value  # a 1x1 conv → dense
     if how == "transpose":
         return value.t()
+    if how.startswith("conv2d:"):
+        return value.reshape(value.shape[0], -1)
     if how.startswith("qkv"):
         third = value.shape[0] // 3
         slot = int(how[3])
@@ -473,6 +532,9 @@ def synthesize_state_dict(params: Mapping[str, torch.Tensor], entries: Iterable[
         value = params[name]
         if how.startswith("qkv"):
             fused.setdefault(sd_key, [None, None, None])[int(how[3])] = value
+        elif how.startswith("conv2d:"):
+            p, c = (int(n) for n in how.split(":")[1:])
+            out[sd_key] = value.reshape(value.shape[0], c, p, p)
         else:
             out[sd_key] = value.t() if how == "transpose" else value
     for sd_key, parts in fused.items():
@@ -557,10 +619,13 @@ def _flux_prefix(state_dict: Mapping[str, torch.Tensor]) -> str:
 def load_diffusion_weights(state_dict: Mapping[str, torch.Tensor], cfg, module: nn.Module,
                            family: str) -> None:
     """A diffusion-model-only file (UNETLoader's: a published
-    flux1-*.safetensors, an extracted SD UNet) → `module`, in place.
+    flux1-*.safetensors, an SD3.5 transformer repack, an extracted SD
+    UNet) → `module`, in place.
     Bare keys and keys under `model.diffusion_model.` both load."""
     if family == "mmdit":
         entries = flux_schedule(cfg, prefix=_flux_prefix(state_dict))
+    elif family == "sd3":
+        entries = sd3_schedule(cfg, prefix=_sd3_prefix(state_dict))
     else:
         if not any(k.startswith("model.diffusion_model.") for k in state_dict):
             # the UNet schedule names the single-file prefix: bare keys gain it
@@ -599,24 +664,63 @@ def load_flux_weights(state_dict: Mapping[str, torch.Tensor], unet_cfg, vae_cfg,
     return set(schedules)
 
 
+def _sd3_prefix(state_dict: Mapping[str, torch.Tensor]) -> str:
+    nested = any(k.startswith("model.diffusion_model.joint_blocks.") for k in state_dict)
+    return "model.diffusion_model." if nested else ""
+
+
+def load_sd3_weights(state_dict: Mapping[str, torch.Tensor], unet_cfg, vae_cfg, te_cfg,
+                     modules: dict[str, nn.Module], te2_cfg=None, te3_cfg=None) -> set[str]:
+    """An SD3/SD3.5 file → the parts of `modules` ({'unet', 'vae', 'te'
+    (CLIP-L), 'te2' (CLIP-G), 'te3' (T5)}) it carries, in place: the MMDiT
+    (bare `joint_blocks.*` or under `model.diffusion_model.`), the VAE
+    (`first_stage_model.*`) and, in the `*_incl_clips*` files, the towers
+    under `text_encoders.{clip_l,clip_g,t5xxl}.transformer.` (HF packing:
+    the CLIP projections are nn.Linear). The others keep their init. Each
+    part the file carries must fill its module strictly. Returns the parts
+    filled; a file that carries none raises."""
+    schedules: dict[str, list[Entry]] = {}
+    if any(k.startswith(("joint_blocks.", "model.diffusion_model.joint_blocks."))
+           for k in state_dict):
+        schedules["unet"] = sd3_schedule(unet_cfg, prefix=_sd3_prefix(state_dict))
+    if any(k.startswith("first_stage_model.") for k in state_dict):
+        schedules["vae"] = vae_schedule(vae_cfg)
+    for part, cfg, tower in (("te", te_cfg, "clip_l"), ("te2", te2_cfg, "clip_g")):
+        if cfg is not None and any(k.startswith(f"text_encoders.{tower}.") for k in state_dict):
+            schedules[part] = text_encoder_schedule(
+                cfg, prefix=f"text_encoders.{tower}.transformer.text_model",
+                projection_layout="linear")
+    if te3_cfg is not None and any(k.startswith("text_encoders.t5xxl.") for k in state_dict):
+        schedules["te3"] = t5_encoder_schedule(te3_cfg, prefix="text_encoders.t5xxl.transformer.")
+    if not schedules:
+        raise ValueError("sd3 checkpoint mapping failed: no mappable part found in the file")
+    problems: list[str] = []
+    for part, entries in schedules.items():
+        problems += _merge_into_module(state_dict, entries, modules[part], part)
+    _raise_if(problems, "sd3 checkpoint")
+    return set(schedules)
+
+
 # families whose files are recognised by their keys but not ported yet
 _UNPORTED_LAYOUTS = {
-    "sd3": (("joint_blocks.", "model.diffusion_model.joint_blocks."),
-            "ROADMAP.md, Queue 1 step 4: SD3 and SD3.5"),
     "wan": (("blocks.0.self_attn.", "model.diffusion_model.blocks.0.self_attn.",
              "patch_embedding."), "ROADMAP.md, Queue 1 step 6: WAN video"),
 }
 
 
 def checkpoint_layout(state_dict: Mapping[str, torch.Tensor]) -> str:
-    """A single file's layout by its keys: "flux" (a Flux transformer,
+    """A single file's layout by its keys: "sd3" (an SD3-class MMDiT,
+    bare or under `model.diffusion_model.`), "flux" (a Flux transformer,
     bare or under `model.diffusion_model.`, or a T5 encoder),
     "sdxl" (`conditioner.embedders.*`), "sd2" (an OpenCLIP tower under
-    `cond_stage_model.model.*`) or "sd1" (HF CLIP). An SD3 or WAN file
-    raises NotImplementedError."""
+    `cond_stage_model.model.*`) or "sd1" (HF CLIP). A WAN file raises
+    NotImplementedError."""
     for family, (markers, item) in _UNPORTED_LAYOUTS.items():
         if any(k.startswith(markers) for k in state_dict):
             raise NotImplementedError(f"{family} checkpoints are not ported yet ({item})")
+    if any(k.startswith(("joint_blocks.", "model.diffusion_model.joint_blocks."))
+           for k in state_dict):
+        return "sd3"
     if any(k.startswith(("double_blocks.", "model.diffusion_model.double_blocks."))
            or "encoder.block.0.layer.0.SelfAttention" in k for k in state_dict):
         return "flux"
@@ -670,6 +774,9 @@ def load_sd_weights(state_dict: Mapping[str, torch.Tensor], unet_cfg, vae_cfg, t
     if layout == "flux":
         raise ValueError("a Flux-class file, not a single-file SD checkpoint: load it as a "
                          "flux-* model (load_pipeline, UNETLoader, VAELoader, the CLIP loaders)")
+    if layout == "sd3":
+        raise ValueError("an SD3-class file, not a single-file SD checkpoint: load it as an "
+                         "sd3-medium, sd35-large or sd35-medium model (load_pipeline, UNETLoader)")
     schedules = sd_schedules(layout, unet_cfg, vae_cfg, te_cfg,
                              te2_cfg if "te2" in modules else None)
     for part, entries in schedules.items():
@@ -703,6 +810,7 @@ def synthesize_checkpoint(bundle) -> dict[str, torch.Tensor]:
 TE_MARKERS = {
     "te": ("cond_stage_model.", "conditioner.embedders.0.", "text_encoders.clip_l."),
     "te2": ("conditioner.embedders.1.", "text_encoders.clip_g."),
+    "te3": ("text_encoders.t5xxl.",),
 }
 
 

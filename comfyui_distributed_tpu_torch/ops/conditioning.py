@@ -114,7 +114,7 @@ def reject_unported(entry: Any) -> None:
         if getattr(entry, name, None) is not None:
             raise NotImplementedError(
                 f"conditioning field {name!r} is not ported yet (ROADMAP.md, Queue 1 item 5: "
-                "the SD3, WAN video and audio families)"
+                "the WAN video and audio families)"
             )
 
 

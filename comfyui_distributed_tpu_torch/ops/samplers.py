@@ -257,7 +257,7 @@ def require_parameterization(parameterization: str) -> None:
     if parameterization not in PARAMETERIZATIONS:
         raise NotImplementedError(
             f"{parameterization!r} models are not ported yet (ROADMAP.md, Queue 1 item 5: the "
-            "SD3, WAN video and audio families); the PyTorch package runs eps-, v- and "
+            "WAN video and audio families); the PyTorch package runs eps-, v- and "
             "flow-parameterized models")
 
 
@@ -610,6 +610,35 @@ def pag_cfg_model(model_fn: ModelFn, pag_model_fn: ModelFn, cfg_scale: float,
         pos, _neg = cond
         eps_pos, base = _cfg_eval(model_fn, cfg_scale, x, sigma, cond, p2s)
         return base + _perturbed_delta(pag_model_fn, x, sigma, pos, eps_pos, pag_scale, p2s)
+
+    return guided
+
+
+def in_slg_window(sigma: float, sigma_start: float, sigma_end: float) -> bool:
+    """Whether skip-layer guidance acts at `sigma`: sigma_end <= sigma <=
+    sigma_start, compared in f32 as the JAX package compares its f32
+    sigma with the bounds."""
+    s0 = np.float32(sigma)
+    return bool(np.float32(sigma_end) <= s0 <= np.float32(sigma_start))
+
+
+def slg_cfg_model(model_fn: ModelFn, skip_model_fn: ModelFn, cfg_scale: float,
+                  slg_scale: float, sigma_start: float, sigma_end: float,
+                  p2s=_default_p2s) -> ModelFn:
+    """CFG plus SD3.5's skip-layer guidance (SkipLayerGuidanceSD3): while
+    sigma lies in [sigma_end, sigma_start] the result gains slg_scale *
+    (eps_pos - eps_pos with the listed joint blocks skipped), one more
+    evaluation of the positive conditioning at its own batch; outside the
+    window it is plain CFG and the skip pass does not run. The gate reads
+    sigma_batch[0] (every step broadcasts one sigma), which the sampler
+    hands over on the host from its schedule: no read from the device."""
+
+    def guided(x, sigma, cond):
+        pos, _neg = cond
+        eps_pos, base = _cfg_eval(model_fn, cfg_scale, x, sigma, cond, p2s)
+        if not in_slg_window(float(sigma[0]), sigma_start, sigma_end):
+            return base
+        return base + _perturbed_delta(skip_model_fn, x, sigma, pos, eps_pos, slg_scale, p2s)
 
     return guided
 

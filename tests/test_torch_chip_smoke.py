@@ -18,7 +18,7 @@ import pytest
 import torch
 
 import chip_smoke
-from comfyui_distributed_tpu_torch.models import layers, mmdit, vae
+from comfyui_distributed_tpu_torch.models import layers, mmdit, sd3, vae
 from comfyui_distributed_tpu_torch.models.registry import create_model, get_config
 from comfyui_distributed_tpu_torch.ops import attention as attn
 from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
@@ -43,6 +43,7 @@ def recorded_calls(monkeypatch):
     monkeypatch.setattr(layers, "dot_product_attention", record)
     monkeypatch.setattr(vae, "dot_product_attention", record)
     monkeypatch.setattr(mmdit, "dot_product_attention", record)
+    monkeypatch.setattr(sd3, "dot_product_attention", record)
     return calls
 
 
@@ -356,6 +357,7 @@ def counted_calls(monkeypatch):
     monkeypatch.setattr(layers, "dot_product_attention", counting(layers.dot_product_attention))
     monkeypatch.setattr(vae, "dot_product_attention", counting(vae.dot_product_attention))
     monkeypatch.setattr(mmdit, "dot_product_attention", counting(mmdit.dot_product_attention))
+    monkeypatch.setattr(sd3, "dot_product_attention", counting(sd3.dot_product_attention))
     attn.reset_launch_counts()
     yield
     attn.reset_launch_counts()
@@ -936,3 +938,102 @@ def test_d128_checks_reach_both_plans_at_their_edges():
     assert all(p == split_p for (_, m), p in edges.items() if m == threshold)
     # past the threshold both key tiles take some of the edges
     assert {p for (_, m), p in edges.items() if m > threshold} == {k144, k176}
+
+
+# --- the sd3 phase ------------------------------------------------------------------
+
+def test_sd3_shapes_of_the_bundled_workflows():
+    """At 1024 px, 28 euler steps, CFG-batched: SD3.5-large's 38 joint
+    calls over 154 text and 64^2 image tokens an evaluation (1064 an
+    image); SD3.5-medium's 24 joint and 13 attn2 calls (37 x 28), and in
+    the 5 steps of its SLG window the batch-1 skip pass without blocks 7,
+    8 and 9 (21 joint and 10 attn2 calls); the VAE's decode. With
+    DualCLIPLoader sd3 the text is CLIP's 77 tokens alone."""
+    large = chip_smoke._sd3_shapes(_workflow(chip_smoke.SD3_WORKFLOWS["sd35"]))
+    assert large == [("joint@4250", (2, 4250, 38, 64), 4250, 38 * 28),
+                     ("vae@16384", (1, 16384, 1, 512), 16384, 1)]
+    slg = _workflow(chip_smoke.SD3_WORKFLOWS["sd35m_slg"])
+    assert chip_smoke._sd3_slg_window(slg) == ((7, 8, 9), [1, 2, 3, 4, 5])
+    medium = chip_smoke._sd3_shapes(slg)
+    assert medium == [("joint@4250", (2, 4250, 24, 64), 4250, 24 * 28),
+                      ("x-only@4096", (2, 4096, 24, 64), 4096, 13 * 28),
+                      ("skip joint@4250", (1, 4250, 24, 64), 4250, 21 * 5),
+                      ("skip x-only@4096", (1, 4096, 24, 64), 4096, 10 * 5),
+                      ("vae@16384", (1, 16384, 1, 512), 16384, 1)]
+    assert sum(c for *_, c in medium[:-1]) == 37 * 28 + 31 * 5
+    assert chip_smoke._expected_by_instance(attn, medium, torch) == {
+        "wgmma": 37 * 28 + 31 * 5, "wgmma512": 1, "fma": 0}
+    dual = chip_smoke._sd3_shapes(chip_smoke._sd3_dualclip_workflow(slg))
+    assert [label for label, *_ in dual] == ["joint@4173", "x-only@4096", "skip joint@4173",
+                                            "skip x-only@4096", "vae@16384"]
+    muted = chip_smoke._sd3_muted(slg)
+    assert chip_smoke._sd3_slg_window(muted) == ((), [])
+    (extra,) = chip_smoke._sd3_extra_checks()
+    assert extra[1:4] == ((1, 63 * 63 + 154, 24, 64), 63 * 63 + 154, "bfloat16")
+
+
+def test_sd3_shapes_match_one_evaluation_on_meta(recorded_calls):
+    """SD3.5-large's and SD3.5-medium's forwards on meta at 1024 px (batch
+    2 over 154 text tokens), and SD3.5-medium's skip pass (batch 1, blocks
+    7-9 skipped): every attention call `_sd3_shapes` counts a step,
+    nothing else."""
+    with torch.device("meta"):
+        x, t, ctx, y = (torch.empty(2, 128, 128, 16), torch.empty(2), torch.empty(2, 154, 4096),
+                        torch.empty(2, 2048))
+        create_model("sd35-large")(x, t, ctx, y=y)
+        medium = create_model("sd35-medium")
+        medium(x, t, ctx, y=y)
+        medium(x[:1], t[:1], ctx[:1], y=y[:1], skip_layers=(7, 8, 9))
+    assert recorded_calls == {((2, 4250, 38, 64), 4250): 38, ((2, 4250, 24, 64), 4250): 24,
+                              ((2, 4096, 24, 64), 4096): 13, ((1, 4250, 24, 64), 4250): 21,
+                              ((1, 4096, 24, 64), 4096): 10}
+
+
+TINY_SD3 = {"sd35-large": "tiny-sd3", "sd35-medium": "tiny-sd35m"}
+
+
+def _tiny_sd3_workflow(tag, px=32):
+    """A bundled SD3.5 workflow on its tiny model at `px`: 2 steps, or 8
+    under SLG (one step of the tiny models' unshifted schedule in its
+    window), SLG on block 0 of the tiny model's 2."""
+    workflow = _workflow(chip_smoke.SD3_WORKFLOWS[tag])
+    for node in workflow.values():
+        inputs = node["inputs"]
+        if "ckpt_name" in inputs:
+            inputs["ckpt_name"] = TINY_SD3[inputs["ckpt_name"]]
+        for key in ("width", "height"):
+            if key in inputs:
+                inputs[key] = px
+        if node["class_type"] == "SkipLayerGuidanceSD3":
+            inputs["layers"] = "0"
+    slg = chip_smoke._node_ids(workflow, "SkipLayerGuidanceSD3")
+    workflow[chip_smoke._node_id(workflow, "KSampler")]["inputs"]["steps"] = 8 if slg else 2
+    return workflow
+
+
+def test_sd3_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread, counted_calls):
+    """The phase as the card runs it, on the tiny SD3 models at 32 px: each
+    workflow's local references and one HTTP run with the attention calls
+    `_sd3_shapes` counts; the SLG workflow's skip passes against its host
+    window, against itself muted, and through DualCLIPLoader sd3."""
+    workflows = {tag: _tiny_sd3_workflow(tag) for tag in chip_smoke.SD3_WORKFLOWS}
+    expected = {}
+    for tag, workflow in list(workflows.items()):
+        variants = {tag: workflow}
+        if chip_smoke._node_ids(workflow, "SkipLayerGuidanceSD3"):
+            variants[f"{tag}_dualclip"] = chip_smoke._sd3_dualclip_workflow(workflow)
+        for name, wf in variants.items():
+            per_image = sum(count for *_, count in chip_smoke._sd3_shapes(wf, image_px=32))
+            expected[name] = (per_image, {"fma": per_image, "wgmma": 0, "wgmma512": 0})
+    assert chip_smoke._sd3_slg_window(workflows["sd35m_slg"]) == ((0,), [1])
+    results = chip_smoke._sd3_phase(torch, workflows, "cpu", expected=expected, image_px=32)
+    out = capsys.readouterr().out.splitlines()
+    for tag in workflows:
+        assert results[tag]["launches"] == 2 * expected[tag][0]
+        lines = [line for line in out if line.startswith(f"[{tag}] run 1")]
+        assert "collector jobs left 0" in lines[0] and "image 0 vs the local seed" in lines[1]
+    assert results["sd35m_slg_dualclip"]["launches"] == expected["sd35m_slg_dualclip"][0]
+    assert "[sd35m_slg] skip passes 4 over 4 images (expected 4 x 1)" in out
+    assert any("with vs without skip-layer guidance" in line for line in out)
+    assert any("CLIP tokens equal to the triple's: True" in line for line in out)
+

@@ -326,8 +326,16 @@ def test_flux_patches_and_schedulers_refuse_what_they_do_not_take(pair):
         tnl.ModelSamplingFlux().patch(vp)
     with pytest.raises(ValueError, match="BasicScheduler"):
         tcs.SDTurboScheduler().get_sigmas(tb, 1, 1.0)
-    with pytest.raises(NotImplementedError, match="step 4"):
-        tnl.DualCLIPLoader().load_clip("tiny-te", "tiny-te-g", type="sd3")
+    # DualCLIPLoader's sd3 type now loads: the two CLIPs without a T5, the
+    # CLIP sequence alone at the SD3 backbone's context width
+    from comfyui_distributed_tpu_torch.graph import ExecutionContext
+
+    (sd3,) = tnl.DualCLIPLoader().load_clip("tiny-te-g", "tiny-te-l", type="sd3",
+                                            context=ExecutionContext(device="cpu"))
+    assert (sd3.model_name, sd3.te_name, sd3.te2_name, sd3.text_encoder_3) == (
+        "tiny-sd3", "tiny-te-l", "tiny-te-g", None)
+    cond = tpl.encode_text_pooled(sd3, ["a prompt"])
+    assert tuple(cond.context.shape) == (1, 16, 160) and tuple(cond.pooled.shape) == (1, 160)
 
 
 # --- checkpoint schedules ------------------------------------------------------------
@@ -386,8 +394,10 @@ def test_a_flux_file_set_loads_in_both_packages(pair, tmp_path, monkeypatch):
         for key, value in want.state_dict().items():
             torch.testing.assert_close(got[key], value, rtol=0, atol=0, msg=key)
     assert tsdc.checkpoint_layout(files["tiny-flux"]) == "flux"
-    with pytest.raises(NotImplementedError, match="step 4"):
-        tsdc.checkpoint_layout({"joint_blocks.0.x_block.attn.qkv.weight": None})
+    # an SD3 file is a layout of its own now, bare or nested
+    for key in ("joint_blocks.0.x_block.attn.qkv.weight",
+                "model.diffusion_model.joint_blocks.0.x_block.attn.qkv.weight"):
+        assert tsdc.checkpoint_layout({key: None}) == "sd3"
     with pytest.raises(NotImplementedError, match="step 6"):
         tsdc.checkpoint_layout({"blocks.0.self_attn.q.weight": None})
 

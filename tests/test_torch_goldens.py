@@ -32,10 +32,12 @@ longer takes as the golden does: the case pins that gap, as
 tests/test_torch_samplers.py::test_sigmas_pinned_by_the_goldens does.
 
 The Flux keys (tiny-flux txt2img, the same at ModelSamplingFlux's shift
-2.5, and a Kontext edit through ReferenceLatent) run through the bf16
-MMDiT and 16-channel VAE: BF16_BAR. The SD3 and video keys wait for
-their model families (ROADMAP.md, Queue 1 item 5): SD3_VIDEO_KEYS names
-them, and a test holds the split of the file's keys.
+2.5, and a Kontext edit through ReferenceLatent) and the SD3 keys
+(tiny-sd3 and the MMDiT-X tiny-sd35m: triple-encoder conditioning, true
+CFG at 4 on the flow schedule) run through the bf16 MMDiT and 16-channel
+VAE: BF16_BAR. The video key waits for its model family (ROADMAP.md,
+Queue 1 item 5): VIDEO_KEYS names it, and a test holds the split of the
+file's keys.
 """
 
 import dataclasses
@@ -71,7 +73,7 @@ GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "go
 BF16_BAR = 2.0**-3
 LATENT_BAR = 1e-3
 EXACT_BAR = 1e-6
-SD3_VIDEO_KEYS = {"sd3_txt2img_32", "sd35m_txt2img_32", "t2v_5f_32"}
+VIDEO_KEYS = {"t2v_5f_32"}
 
 
 @pytest.fixture(scope="module")
@@ -97,7 +99,7 @@ class Bundles:
 
 def port_bundle(jb):
     """The port's bundle of jb.model_name on the CPU, f32, jb's weights."""
-    names = [n for n in (jb.model_name, jb.te_name, jb.te2_name,
+    names = [n for n in (jb.model_name, jb.te_name, jb.te2_name, jb.te3_name,
                          tpl._family_vae_name(jb.model_name)) if n]
     with pytest.MonkeyPatch.context() as mp:
         for name in names:
@@ -181,6 +183,16 @@ def k_flux_shift25_txt2img_32(s):
     shifted = dataclasses.replace(s.bundle("tiny-flux"), flow_shift_override=2.5)
     return _txt2img(s, "tiny-flux", "a golden shifted flux image", 32, 99, cfg_scale=1.0,
                     bundle=shifted, sampler="euler", scheduler="simple")
+
+
+def k_sd3_txt2img_32(s):
+    return _txt2img(s, "tiny-sd3", "a golden sd3 image", 32, 77, cfg_scale=4.0,
+                    sampler="euler", scheduler="simple")
+
+
+def k_sd35m_txt2img_32(s):
+    return _txt2img(s, "tiny-sd35m", "a golden mmditx image", 32, 88, cfg_scale=4.0,
+                    sampler="euler", scheduler="simple")
 
 
 def k_kontext_txt2img_32(s):
@@ -377,8 +389,8 @@ GUIDED = {"guided_pag_8", "guided_sag_8", "guided_perpneg_8", "guided_dualcfg_8"
 def test_the_files_keys_are_these_and_the_other_families():
     with np.load(GOLDENS) as data:
         files = set(data.files)
-    assert files == set(KEYS) | SD3_VIDEO_KEYS
-    assert len(KEYS) == 23
+    assert files == set(KEYS) | VIDEO_KEYS
+    assert len(KEYS) == 25
     assert EXACT | LATENTS | GUIDED < set(KEYS)
 
 

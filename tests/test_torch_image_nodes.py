@@ -167,8 +167,7 @@ def test_nodes_keep_the_tensors_device_and_dtype():
 STILL_TO_PORT = {
     "item 4 (LoRA, weight merges)": {"LoraLoader", "LoraLoaderModelOnly", "ModelMergeSimple",
                                      "CLIPMergeSimple"},
-    "item 5 (SD3, unCLIP)": {"TripleCLIPLoader", "ModelSamplingSD3", "SkipLayerGuidanceSD3",
-                             "CLIPVisionLoader", "CLIPVisionEncode", "unCLIPConditioning"},
+    "item 5 (unCLIP)": {"CLIPVisionLoader", "CLIPVisionEncode", "unCLIPConditioning"},
     "item 5 (video)": {"EmptyVideoLatent", "VideoCheckpointLoader", "VideoCLIPTextEncode",
                        "VideoFlowSampler", "WanImageToVideo", "SaveAnimatedPNG",
                        "SaveAnimatedWEBP", "SaveVideoFrames"},
@@ -178,8 +177,8 @@ STILL_TO_PORT = {
 
 def test_the_registries_differ_only_by_the_families_still_to_port():
     """Every SD-family node of the JAX package is registered in the port
-    under its name, and so is every Flux node; what is missing belongs to
-    LoRA and weight merges, SD3/unCLIP, video or audio."""
+    under its name, and so is every Flux and SD3 node; what is missing
+    belongs to LoRA and weight merges, unCLIP, video or audio."""
     # each package's own nodes: other test modules register nodes of their
     # own in the same process
     jax_nodes, port_nodes = ({name for name, cls in graph.NODE_REGISTRY.items()
@@ -191,7 +190,8 @@ def test_the_registries_differ_only_by_the_families_still_to_port():
                  "LatentBatchSeedBehavior", "InpaintModelConditioning", "ImageBatch",
                  "ModelSamplingDiscrete", "CLIPTextEncodeFlux", "FluxGuidance",
                  "ModelSamplingFlux", "ReferenceLatent", "UNETLoader", "CLIPLoader",
-                 "DualCLIPLoader", "EmptySD3LatentImage"):
+                 "DualCLIPLoader", "EmptySD3LatentImage", "TripleCLIPLoader",
+                 "ModelSamplingSD3", "SkipLayerGuidanceSD3"):
         assert name in tgraph.NODE_REGISTRY
 
 

@@ -48,9 +48,10 @@ def seeded_flax_params(module, seed, *args, **kwargs):
     from a trace (a second), where flax's init of a tiny UNet takes a
     minute on one core. Kernels N(0, 1/fan_in), biases N(0, 0.1^2), norm
     scales 1 + N(0, 0.1^2), embedding tables N(0, 1/width), the position
-    table N(0, 0.01^2). Non-zero biases and scales make a mis-mapped
-    parameter show; the UNet's out_conv, zero after flax's init, comes
-    out non-zero like every other kernel, so the UNet's output counts."""
+    table N(0, 0.01^2) (the SD3 MMDiT's N(0, 1/width)). Non-zero biases
+    and scales make a mis-mapped parameter show; the UNet's out_conv, zero
+    after flax's init, comes out non-zero like every other kernel, so the
+    UNet's output counts."""
     shapes = jax.eval_shape(module.init, jax.random.key(0), *args, **kwargs)
     rng = np.random.default_rng(seed)
 
@@ -67,6 +68,8 @@ def seeded_flax_params(module, seed, *args, **kwargs):
             return jnp.asarray(draw / math.sqrt(leaf.shape[-1]))
         if name == "position_embedding":
             return jnp.asarray(draw * 0.01)
+        if name == "pos_embed":  # the SD3 MMDiT's learned table, [1, max^2, width]
+            return jnp.asarray(draw / math.sqrt(leaf.shape[-1]))
         if name == "text_projection":
             return jnp.asarray(draw / math.sqrt(leaf.shape[0]))
         raise KeyError(f"no fill rule for parameter {name!r}")
