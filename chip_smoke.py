@@ -71,6 +71,33 @@ Phases, each printing lines tagged with its name:
              tiles composited the way the elastic master composites
              them (in sorted order, CDT_DETERMINISTIC_BLEND=1; phase 4
              itself takes a weighted average at the seams).
+   adapters - inside the elastic phase's servers, on phase 4's bundle
+             (`_adapters_phase`): a seeded kohya LoRA (ADAPTER_RANK,
+             ADAPTER_ALPHA) over every 2-D backbone target and both text
+             towers, written in f16 by the port's writer into a temporary
+             CDT_LORA_DIR; the workflow locally with a LoraLoader inserted
+             (ADAPTER_STRENGTH on both sides: finite, at least
+             ADAPTER_MIN_DIFF from phase 4's output, phase 4's launches,
+             the cached bundle's 2-D weights torch.equal to before) and
+             with LoraLoaderModelOnly (its output L); the unmodified
+             workflow over HTTP with `adapters` (every tile once, w1 at
+             least one, within RERUN_TOLERANCE of L's tiles composited the
+             elastic way); an unknown adapter answered 400 with no job;
+             then a tile cache installed: cold, warm (every tile settled, 0
+             launches, the cold run's tensor and PNG bytes), strength 0.7
+             and the base model (no hit); a FreeU graph with the cache on
+             (a new view of the bundle: its weights fingerprint finds the
+             digests the cold run remembered); the weights fingerprint of
+             LoraLoaderModelOnly's output for the full LoRA and for an
+             attention-only one (ADAPTER_PARTIAL_NAME, the full LoRA's
+             attn1/attn2 modules), whose merge copies only the weights it
+             covers; then, the cache off, two jobs over HTTP wearing the
+             attention-only adapter (at least ADAPTER_MIN_DIFF from the
+             base model's output, the second within RERUN_TOLERANCE of
+             the first, its operands from the operand cache). Prints the
+             merge, operand, patch and weights-fingerprint seconds,
+             operand bytes, the operand cache's hits and misses, cold and
+             warm tiles/s, peak memory.
    txt2img - seed-parallel generation on SD1.5 at full width (seeded
              random weights, a seeded non-zero out_conv, bf16): phase 4's
              SDXL is freed; workflows/distributed-txt2img.json, unmodified,
@@ -116,7 +143,12 @@ Phases, each printing lines tagged with its name:
              image 0 within RERUN_TOLERANCE of a local run on those rounded
              weights, and apart in max and mean from the same seed on the
              default random init (the file was read); launches as txt2img's
-             and sd21's. The files are deleted.
+             and sd21's. Then SD1.5's state dict as one GGUF file (Q8_0
+             where a tensor's size is a multiple of 32, F16 else), loaded
+             by CheckpointLoaderSimple in a local run: every parameter
+             torch.equal to the plain dequantization in the module's dtype,
+             the image within RERUN_TOLERANCE of the direct run's; its load
+             GB/s (`_gguf_check`). The files are deleted.
    procs   - the deployment users run: the master a DistributedServer in
              this process, w1 its own process launched through POST
              /distributed/launch_worker (type local, cuda_device 0, its own
@@ -206,6 +238,11 @@ Phases, each printing lines tagged with its name:
              (`_nodes_workflow`; a LoadImage/LoadImageMask PNG and literal
              seeded latents) on the card and on the CPU: every output of the
              same shape, dtype and device type, f32 within NODES_TOLERANCE.
+             Then the merges (`_merges_check`) on two SD1.5 bundles seeded
+             at 0 and MERGE_SEED: ModelMergeSimple and CLIPMergeSimple at
+             ratio 1.0 give model1's weights exactly; at MERGE_RATIO, in the
+             txt2img workflow, the image is at least MERGE_MIN_DIFF from
+             each parent's.
    inpaint_model - sd15-inpaint (a 9-channel UNet, seeded) on an outpainting
              graph (`_inpaint_model_workflow`: LoadImage → ImagePadForOutpaint
              → InpaintModelConditioning → KSampler euler/karras 20 →
@@ -264,7 +301,9 @@ Phases, each printing lines tagged with its name:
    phases  - each phase's seconds and their total.
 5. kernels - one JSON line per the port's kernel contract: entry
              flash_attention over the upscale path (`launches`: the elastic
-             run, both participants), entry flash_attention_txt2img over
+             run, both participants), flash_attention_adapters over the same
+             shapes (`launches`: the adapters phase's run over HTTP wearing
+             the LoRA), entry flash_attention_txt2img over
              the txt2img path's D=40/80/160 shapes (`launches`: the last
              txt2img run's wgmma launches, both participants), and an
              entry flash_attention_<workflow> for each of SD_WORKFLOWS over
@@ -453,6 +492,11 @@ INPAINT_MODEL_PROMPTS = ("a castle on a hill, wide landscape", "blurry, low qual
 # the nodes phase: one graph of every image, latent, mask and transform
 # node, on the card and on the CPU; f32 outputs within this of each other
 NODES_TOLERANCE = 1e-4
+# the nodes phase's merges: the second SD1.5 bundle's seed, the ratio the
+# images are made at, and how far each must be from both parents'
+MERGE_SEED = 1
+MERGE_RATIO = 0.5
+MERGE_MIN_DIFF = 1.0 / 255
 
 
 # the flux phase: the four bundled Flux workflows, unmodified, at their
@@ -473,6 +517,17 @@ FLUX_RAGGED_TOKENS = 63 * 63 + 512
 # Kontext against the same run without ReferenceLatent, and the
 # dual-prompt image against the custom-sampling one: one 8-bit level
 FLUX_MIN_DIFF = 1.0 / 255
+# the adapters phase's LoRA (kohya layout, seeded): rank, alpha, the
+# std of up's entries times sqrt(rank), the strength it is worn at, and
+# how far its image must be from the base model's
+ADAPTER_NAME = "chip_smoke_style"
+# the same LoRA's attention modules only (attn1, attn2 of the backbone)
+ADAPTER_PARTIAL_NAME = "chip_smoke_style_attn"
+ADAPTER_RANK = 32
+ADAPTER_ALPHA = 16
+ADAPTER_UP_STD = 0.1
+ADAPTER_STRENGTH = 0.8
+ADAPTER_MIN_DIFF = 1.0 / 255
 # the sd3 phase: the two bundled SD3.5 workflows, unmodified, at their full
 # width (1024 px), by entry of the kernels line
 SD3_WORKFLOWS = {
@@ -922,14 +977,16 @@ def _serving(tmp: str, settings: dict, device: str, pipelines: dict | None = Non
             loop.stop()
 
 
-def _queue(base: str, worker_port: int, workflow) -> tuple[dict, dict, dict]:
+def _queue(base: str, worker_port: int, workflow, extra: dict | None = None
+           ) -> tuple[dict, dict, dict]:
     """POST the workflow to the master's /distributed/queue with workers
-    ["w1"] and wait until the master's and w1's prompts are done: (the
-    queue answer, the master's history, w1's history)."""
+    ["w1"] (and the body keys of `extra`) and wait until the master's and
+    w1's prompts are done: (the queue answer, the master's history, w1's
+    history)."""
     from comfyui_distributed_tpu_torch.utils.network import request_json
 
     status, queued = request_json("POST", f"{base}/distributed/queue", {
-        "prompt": workflow, "client_id": "chip_smoke", "workers": ["w1"],
+        "prompt": workflow, "client_id": "chip_smoke", "workers": ["w1"], **(extra or {}),
     }, timeout=120)
     _require(status == 200, f"/distributed/queue answered {status}: {queued}")
     _require(queued.get("workers") == ["w1"],
@@ -978,13 +1035,16 @@ def _local_run(torch, attn, executor, workflow, label: str, what: str, device: s
 def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device: str,
                    expected_launches: int | None = None, expected_by_instance: dict | None = None,
                    local_tiles_per_s: float | None = None, runs: int = ELASTIC_RUNS,
-                   tag: str = "elastic") -> dict:
+                   tag: str = "elastic", after=None) -> dict:
     """Run the workflow over HTTP on a master and a worker server in this
     process (see the module docstring) and check every run; prints the
     [tag] lines and returns the last run's attention launches. With
     `expected_launches` None (no card) the launch counts go unchecked;
     with `local_out` None the reference is not held against a local run
-    of the workflow (an earlier phase did that)."""
+    of the workflow (an earlier phase did that). `after(servers)`, where
+    given, runs once the runs are checked, on the same servers: servers
+    is {"master", "worker", "base", "worker_port", "input_dir",
+    "output_dir"}; its result is the returned dict's "after"."""
     from comfyui_distributed_tpu_torch.ops import attention as attn
     from comfyui_distributed_tpu_torch.utils import image as img_utils
 
@@ -1078,12 +1138,347 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                              "the elastic output disagrees with the local tiles")
                     result = {"launches": launches, "launches_by_instance": by_instance,
                               "tiles_per_s": n_tiles / seconds}
+                if after is not None:
+                    result["after"] = after({"master": master, "worker": worker, "base": base,
+                                             "worker_port": worker_port, "input_dir": in_dir,
+                                             "output_dir": out_dir})
         finally:
             if blend_env is None:
                 os.environ.pop("CDT_DETERMINISTIC_BLEND", None)
             else:
                 os.environ["CDT_DETERMINISTIC_BLEND"] = blend_env
     _require(tiles_by.get("w1", 0) >= 1, f"w1 completed no tile in {runs} runs: {tiles_by}")
+    return result
+
+
+def _wear_lora(workflow, node: dict) -> dict:
+    """The workflow with `node` (a LoraLoader, LoraLoaderModelOnly or
+    another MODEL patch such as FreeU) as node "lora" after its
+    CheckpointLoaderSimple: every MODEL link (and for LoraLoader every
+    CLIP link) of the loader goes through it."""
+    prompt = copy.deepcopy(workflow)
+    loader = _node_id(prompt, "CheckpointLoaderSimple")
+    outputs = (0, 1) if node["class_type"] == "LoraLoader" else (0,)
+    for other in prompt.values():
+        for name, value in other["inputs"].items():
+            if isinstance(value, list) and value[0] == loader and value[1] in outputs:
+                other["inputs"][name] = ["lora", value[1]]
+    prompt["lora"] = node
+    return prompt
+
+
+def _seeded_lora(torch, bundle, gen) -> dict:
+    """A seeded kohya LoRA (ADAPTER_RANK, alpha ADAPTER_ALPHA) over every
+    2-D weight of the bundle's target map: the backbone and both text
+    towers (CLIP-L as lora_te1, as SDXL tools name it). down N(0, 1/I),
+    up N(0, ADAPTER_UP_STD^2 / rank): a delta a few percent of a random
+    weight's size."""
+    from comfyui_distributed_tpu_torch.models.lora import lora_target_map
+    from comfyui_distributed_tpu_torch.models.registry import get_config
+
+    te2 = get_config(bundle.te2_name) if bundle.te2_name else None
+    targets = lora_target_map(get_config(bundle.model_name), get_config(bundle.te_name), te2)
+    params = {part: dict(module.named_parameters()) for part, module in bundle.parts().items()}
+    state = {}
+    for name, (part, pname) in sorted(targets.items()):
+        weight = params.get(part, {}).get(pname)
+        if weight is None or weight.ndim != 2 or (te2 is not None and name.startswith("lora_te_")):
+            continue
+        dim_out, dim_in = weight.shape
+        state[f"{name}.lora_down.weight"] = torch.randn(
+            (ADAPTER_RANK, dim_in), generator=gen, device=gen.device) / math.sqrt(dim_in)
+        state[f"{name}.lora_up.weight"] = torch.randn(
+            (dim_out, ADAPTER_RANK), generator=gen, device=gen.device) * (
+                ADAPTER_UP_STD / math.sqrt(ADAPTER_RANK))
+        state[f"{name}.alpha"] = torch.tensor(float(ADAPTER_ALPHA))
+    return state
+
+
+def _adapters_phase(torch, bundle, ckpt: str, workflow, image, main_out, servers: dict,
+                    device: str, gen, expected_launches: int | None = None,
+                    expected_by_instance: dict | None = None) -> dict:
+    """The `adapters` phase (see the module docstring), on phase 4's
+    bundle and the elastic phase's master and w1 (`servers`): a seeded
+    LoRA file in a temporary CDT_LORA_DIR; the workflow locally under
+    LoraLoader and under LoraLoaderModelOnly; the unmodified workflow over
+    HTTP with `adapters`; an unknown adapter refused; then the tile cache
+    cold, warm, at another strength and on the base model; the weights
+    fingerprint of a FreeU graph and of LoRA merges; an attention-only
+    adapter over HTTP twice. With `expected_launches` None (no card) the
+    launch counts go unchecked."""
+    from comfyui_distributed_tpu_torch.adapters import cache as tcache
+    from comfyui_distributed_tpu_torch.cache import bundle_fingerprint
+    from comfyui_distributed_tpu_torch.cache import store as tile_store
+    from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
+    from comfyui_distributed_tpu_torch.graph.nodes_core import LoraLoaderModelOnly
+    from comfyui_distributed_tpu_torch.models import sd_checkpoint as sdc
+    from comfyui_distributed_tpu_torch.ops import attention as attn
+    from comfyui_distributed_tpu_torch.utils.network import request_json
+
+    cuda = device.startswith("cuda")
+    label = "[adapters]"
+    smi = _nvidia_smi() if cuda else "no card"
+    master, worker = servers["master"], servers["worker"]
+    base, worker_port = servers["base"], servers["worker_port"]
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    result: dict = {}
+    previous_dir = os.environ.get("CDT_LORA_DIR")
+    with tempfile.TemporaryDirectory(prefix="cdt_lora_") as lora_dir:
+        os.environ["CDT_LORA_DIR"] = lora_dir
+        previous_cache = tile_store.set_tile_cache(None)
+        try:
+            state = _seeded_lora(torch, bundle, gen)
+            nbytes = sdc.save_safetensors(
+                state, os.path.join(lora_dir, ADAPTER_NAME + ".safetensors"), dtype=torch.float16)
+            modules = len(state) // 3
+            partial = {k: v for k, v in state.items() if k.startswith("lora_unet_")
+                       and ("_attn1_" in k or "_attn2_" in k)}
+            partial_bytes = sdc.save_safetensors(
+                partial, os.path.join(lora_dir, ADAPTER_PARTIAL_NAME + ".safetensors"),
+                dtype=torch.float16)
+            partial_modules = len(partial) // 3
+            del state, partial
+            print(f"{label} {ADAPTER_NAME}.safetensors: {modules} kohya modules (rank "
+                  f"{ADAPTER_RANK}, alpha {ADAPTER_ALPHA}; every 2-D backbone target and both "
+                  f"text towers), {nbytes} bytes in f16; {ADAPTER_PARTIAL_NAME}.safetensors: "
+                  f"its {partial_modules} attention modules, {partial_bytes} bytes [{smi}]")
+            _require(0 < partial_modules < modules, "the attention-only LoRA is empty or whole")
+
+            def local(node) -> dict:
+                prompt = _wear_lora(workflow, node)
+                del prompt["4"], prompt["6"]  # LoadImage → the seeded image; no SaveImage
+                prompt[USDU_NODE]["inputs"]["image"] = image
+                context = ExecutionContext(device=device)
+                context.pipelines[ckpt] = bundle
+                executor = GraphExecutor(context)
+                sync()
+                attn.reset_launch_counts()
+                started = time.perf_counter()
+                executor.execute(prompt)
+                out = executor.last_results[USDU_NODE][0]
+                sync()
+                seconds = time.perf_counter() - started
+                launches, by_instance = _launch_counts(attn)
+                return {"out": out.float(), "seconds": seconds, "launches": launches,
+                        "by_instance": by_instance, "lora": executor.last_results["lora"],
+                        "merge_s": executor.last_timings["lora"]}
+
+            def check_launches(what: str, launches: int, by_instance: dict) -> None:
+                if expected_launches is not None:
+                    _require(launches == expected_launches and by_instance == expected_by_instance,
+                             f"{what}: {launches} attention launches by instance {by_instance}, "
+                             f"expected {expected_launches}, {expected_by_instance}")
+
+            # 1. LoraLoader 0.8/0.8 locally; the cached bundle's targeted
+            # weights must come out as they went in
+            targeted = {}
+            for part, module in bundle.parts().items():
+                for pname, param in module.named_parameters():
+                    if param.ndim == 2 and part in ("unet", "te", "te2"):
+                        targeted[(part, pname)] = param.detach().clone()
+            run = local({"class_type": "LoraLoader", "inputs": {
+                "model": ["1", 0], "clip": ["1", 1], "lora_name": ADAPTER_NAME,
+                "strength_model": ADAPTER_STRENGTH, "strength_clip": ADAPTER_STRENGTH}})
+            params = {part: dict(m.named_parameters()) for part, m in bundle.parts().items()}
+            changed = [f"{part}.{pname}" for (part, pname), value in targeted.items()
+                       if not torch.equal(params[part][pname], value)]
+            del targeted
+            out = run["out"]
+            apart = float((out - main_out.float().to(out.device)).abs().max())
+            print(f"{label} LoraLoader {ADAPTER_STRENGTH}/{ADAPTER_STRENGTH} local run: "
+                  f"{run['seconds']:.2f} s, merge (the node) {run['merge_s']:.2f} s; output "
+                  f"{tuple(out.shape)} vs phase 4's max |diff| {apart:.3g} (>= "
+                  f"{ADAPTER_MIN_DIFF:.4f}); flash_attention launches {run['launches']}, by "
+                  f"instance {run['by_instance']}; base bundle weights changed: {len(changed)} "
+                  f"[{smi}]")
+            _require(bool(torch.isfinite(out).all()), "non-finite LoraLoader output")
+            _require(apart >= ADAPTER_MIN_DIFF, "the LoraLoader output is phase 4's")
+            _require(not changed, f"the cached bundle's weights changed: {changed[:5]}")
+            check_launches("LoraLoader", run["launches"], run["by_instance"])
+            del run, out
+
+            # 2. LoraLoaderModelOnly 0.8: the output L and the bundle it ran
+            run = local({"class_type": "LoraLoaderModelOnly", "inputs": {
+                "model": ["1", 0], "lora_name": ADAPTER_NAME,
+                "strength_model": ADAPTER_STRENGTH}})
+            lora_out, (lora_bundle,) = run["out"], run["lora"]
+            print(f"{label} LoraLoaderModelOnly {ADAPTER_STRENGTH} local run: "
+                  f"{run['seconds']:.2f} s, merge (the node) {run['merge_s']:.2f} s; "
+                  f"flash_attention launches {run['launches']} [{smi}]")
+            _require(bool(torch.isfinite(lora_out).all()), "non-finite LoraLoaderModelOnly output")
+            check_launches("LoraLoaderModelOnly", run["launches"], run["by_instance"])
+            reference, reference_avg = _local_reference(torch, lora_bundle, workflow, image)
+            del lora_bundle, run
+            avg_diff = float((reference_avg - lora_out.to(reference_avg.device)).abs().max())
+            _require(avg_diff <= RERUN_TOLERANCE, f"the reference tiles are not L's ({avg_diff})")
+
+            def http(adapters, what: str, prompt=workflow) -> dict:
+                sync()
+                attn.reset_launch_counts()
+                started = time.perf_counter()
+                queued, history, _ = _queue(base, worker_port, prompt,
+                                            {"adapters": adapters} if adapters else None)
+                sync()
+                seconds = time.perf_counter() - started
+                launches, by_instance = _launch_counts(attn)
+                record = master.job_store.finished[queued["job_ids"][USDU_NODE]]
+                out = master.get_job(queued["prompt_id"]).outputs["6"][0]["images"]
+                saved = os.path.join(servers["output_dir"], history["outputs"]["6"]["images"][0])
+                with open(saved, "rb") as fh:
+                    png = fh.read()
+                by = {}
+                for _, who in record["completions"]:
+                    by[who] = by.get(who, 0) + 1
+                run = {"out": out, "png": png, "seconds": seconds, "launches": launches,
+                       "by_instance": by_instance, "record": record, "by": by,
+                       "master": dict(master.execution_context.extras.pop("adapters", {})),
+                       "worker": dict(worker.execution_context.extras.pop("adapters", {})),
+                       "cache": dict(master.execution_context.extras.pop("tile_cache", {}))}
+                n_tiles = record["total"]
+                print(f"{label} {what}: {seconds:.2f} s, {n_tiles / seconds:.4f} tiles/s; tiles "
+                      f"computed: master {by.get('master', 0)}, w1 {by.get('w1', 0)}, settled "
+                      f"from the cache {record['cached']}; flash_attention launches {launches}, "
+                      f"by instance {by_instance}; adapters master {run['master']}, w1 "
+                      f"{run['worker'].get('worker', {})}; tile cache key {run['cache']} [{smi}]")
+                _require(sorted([t for t, _ in record["completions"]] + record["cached"])
+                         == list(range(n_tiles)), f"{what}: tiles {record}")
+                _require(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
+                return run
+
+            wear = [{"name": ADAPTER_NAME, "strength": ADAPTER_STRENGTH}]
+            # 3. the unmodified workflow over HTTP wearing the adapter
+            run = http(wear, f"over HTTP with adapters {wear}")
+            diff = float((run["out"].float() - reference.to(run["out"].device)).abs().max())
+            print(f"{label} over HTTP vs L's tiles composited the elastic way max |diff| "
+                  f"{diff:.3g} (tolerance {RERUN_TOLERANCE}); L's weighted average vs L "
+                  f"{avg_diff:.3g}")
+            _require(run["by"].get("w1", 0) >= 1, f"w1 completed no tile: {run['by']}")
+            _require(run["record"]["adapters"][0]["name"] == ADAPTER_NAME,
+                     f"the job carried no adapter: {run['record']}")
+            for who, role in (("master", "master"), ("w1", "worker")):
+                patched = run["master" if role == "master" else "worker"]
+                _require(not run["by"].get(who) or role in patched,
+                         f"{who} sampled tiles without patching its backbone")
+            _require(diff <= RERUN_TOLERANCE, "the adapter run disagrees with L's tiles")
+            check_launches("over HTTP", run["launches"], run["by_instance"])
+            patches = {**run["master"], **run["worker"]}
+            result.update(launches=run["launches"], launches_by_instance=run["by_instance"],
+                          max_abs_diff=diff,
+                          patch_s={role: record["patch_s"] for role, record in patches.items()},
+                          operand_bytes=next(iter(patches.values()))["operand_bytes"])
+            del reference, reference_avg
+
+            # 4. an unknown adapter: 400, no job
+            jobs_before = set(master.job_store.finished)
+            status, answer = request_json("POST", f"{base}/distributed/queue", {
+                "prompt": workflow, "client_id": "chip_smoke", "workers": ["w1"],
+                "adapters": [{"name": "no-such-adapter"}]}, timeout=60)
+            print(f"{label} unknown adapter: HTTP {status} {answer}")
+            _require(status == 400 and "unknown adapter" in answer.get("error", ""),
+                     f"an unknown adapter was answered {status}: {answer}")
+            _require(not master.job_store.collectors and not master.job_store.tile_jobs
+                     and set(master.job_store.finished) == jobs_before,
+                     "the refused request created a job")
+
+            # 5. the tile cache (RAM), master-side only
+            tile_store.set_tile_cache(tile_store.TileResultCache(disk_dir=None))
+            cold = http(wear, "tile cache cold")
+            _require(cold["record"]["cached"] == [], "the cold run found cached tiles")
+            warm = http(wear, "tile cache warm")
+            n_tiles = warm["record"]["total"]
+            _require(warm["record"]["cached"] == list(range(n_tiles)),
+                     f"the warm run settled {warm['record']['cached']}")
+            _require(warm["launches"] == 0, f"the warm run launched {warm['launches']} times")
+            _require(torch.equal(warm["out"], cold["out"]) and warm["png"] == cold["png"],
+                     "the warm run's output is not the cold run's")
+            other = http([{"name": ADAPTER_NAME, "strength": 0.7}], "tile cache strength 0.7")
+            plain = http(None, "tile cache base model")
+            _require(other["record"]["cached"] == [] and plain["record"]["cached"] == [],
+                     "another strength or the base model hit the cache")
+            stats = tile_store.get_tile_cache().stats()
+            peak = torch.cuda.max_memory_allocated() if cuda else 0
+            print(f"{label} tile cache: cold {n_tiles / cold['seconds']:.4f} tiles/s, warm "
+                  f"{n_tiles / warm['seconds']:.4f} tiles/s ({cold['seconds']:.2f} s, "
+                  f"{warm['seconds']:.2f} s); weights fingerprint cold "
+                  f"{cold['cache'].get('weights_fingerprint_s', 0.0):.3f} s, warm "
+                  f"{warm['cache'].get('weights_fingerprint_s', 0.0):.4f} s; stats {stats}; "
+                  f"peak over the phase {peak / 2**30:.2f} GiB [{smi}]")
+            result.update(cold_tiles_per_s=n_tiles / cold["seconds"],
+                          warm_tiles_per_s=n_tiles / warm["seconds"],
+                          fingerprint_s=cold["cache"].get("weights_fingerprint_s"),
+                          warm_launches=warm["launches"], peak_bytes=peak)
+
+            # 6. the weights fingerprint of graphs that make a new bundle
+            # from the cached one: a FreeU view (over HTTP, the cache on)
+            # and LoraLoaderModelOnly's outputs (timed directly)
+            freeu = http(None, "tile cache FreeU graph", prompt=_wear_lora(workflow, {
+                "class_type": "FreeU", "inputs": {"model": ["1", 0], "b1": 1.1, "b2": 1.2,
+                                                  "s1": 0.9, "s2": 0.2}}))
+            _require(freeu["record"]["cached"] == [], "the FreeU graph hit the base model's tiles")
+            fingerprints = {"FreeU": freeu["cache"].get("weights_fingerprint_s")}
+            base_params = {id(p) for p in bundle.unet.parameters()}
+            new_tensors = {}
+            for name in (ADAPTER_NAME, ADAPTER_PARTIAL_NAME):
+                (merged,) = LoraLoaderModelOnly().load_lora_model_only(
+                    bundle, name, ADAPTER_STRENGTH)
+                fresh = [p for p in merged.unet.parameters() if id(p) not in base_params]
+                new_tensors[name] = (len(fresh), sum(p.numel() * p.element_size() for p in fresh))
+                del fresh
+                sync()
+                started = time.perf_counter()
+                bundle_fingerprint(merged)
+                fingerprints[name] = time.perf_counter() - started
+                del merged
+            print(f"{label} weights fingerprint a job: FreeU graph {fingerprints['FreeU']:.4f} s "
+                  f"(its view shares every parameter); LoraLoaderModelOnly {ADAPTER_NAME} "
+                  f"{fingerprints[ADAPTER_NAME]:.3f} s ({new_tensors[ADAPTER_NAME][0]} new "
+                  f"tensors, {new_tensors[ADAPTER_NAME][1]} bytes), {ADAPTER_PARTIAL_NAME} "
+                  f"{fingerprints[ADAPTER_PARTIAL_NAME]:.3f} s ({new_tensors[ADAPTER_PARTIAL_NAME][0]}"
+                  f" new tensors, {new_tensors[ADAPTER_PARTIAL_NAME][1]} bytes) [{smi}]")
+            _require(0 < new_tensors[ADAPTER_PARTIAL_NAME][0] < new_tensors[ADAPTER_NAME][0],
+                     f"the attention-only merge copied {new_tensors}")
+
+            # 7. the attention-only adapter over HTTP, the cache off: its
+            # operands and its copies are the covered weights' only
+            tile_store.set_tile_cache(None)
+            attn_wear = [{"name": ADAPTER_PARTIAL_NAME, "strength": ADAPTER_STRENGTH}]
+            first = http(attn_wear, "attention-only adapter, first job")
+            second = http(attn_wear, "attention-only adapter, second job")
+            apart = float((first["out"].float() - plain["out"].float()).abs().max())
+            rerun = float((second["out"].float() - first["out"].float()).abs().max())
+            patches = {**second["master"], **second["worker"]}
+            operand_bytes = next(iter(patches.values()))["operand_bytes"]
+            budget = tcache.get_adapter_cache().budget_bytes
+            peak = torch.cuda.max_memory_allocated() if cuda else 0
+            print(f"{label} attention-only adapter: vs the base model's output max |diff| "
+                  f"{apart:.3g} (>= {ADAPTER_MIN_DIFF:.4f}), second job vs first {rerun:.3g} "
+                  f"(tolerance {RERUN_TOLERANCE}); operand bytes {operand_bytes} (budget "
+                  f"{budget}); patch seconds the second job "
+                  f"{_rounded({role: r['patch_s'] for role, r in patches.items()})}; peak over "
+                  f"the phase {peak / 2**30:.2f} GiB [{smi}]")
+            _require(apart >= ADAPTER_MIN_DIFF, "the attention-only adapter changed nothing")
+            _require(rerun <= RERUN_TOLERANCE, "two attention-only jobs disagree")
+            _require(operand_bytes < budget
+                     and not any(r["operand_misses"] for r in patches.values()),
+                     f"the second attention-only job built its operands again: {patches}")
+            result.update(fingerprint_by_graph_s=fingerprints, lora_new_tensors=new_tensors,
+                          partial_operand_bytes=operand_bytes,
+                          partial_patch_s={role: r["patch_s"] for role, r in patches.items()},
+                          partial_tiles_per_s=second["record"]["total"] / second["seconds"],
+                          peak_bytes=peak)
+        finally:
+            tile_store.set_tile_cache(previous_cache)
+            if previous_dir is None:
+                os.environ.pop("CDT_LORA_DIR", None)
+            else:
+                os.environ["CDT_LORA_DIR"] = previous_dir
     return result
 
 
@@ -1455,7 +1850,82 @@ def _ckpt_runs(torch, gen, workflows: dict, device: str, expected: dict | None, 
                      f"{want_launches}, {want_by}")
         results[path_name] = {"launches": launches, "launches_by_instance": by_instance,
                               "file_bytes": nbytes, "load_seconds": loads}
+        if path_name == next(iter(workflows)):
+            results[path_name]["gguf"] = _gguf_check(torch, source, workflow, device, settings,
+                                                     tmp, size)
         del source, direct_context
+
+
+def _gguf_check(torch, source, workflow, device: str, settings: dict, tmp: str,
+                size: tuple) -> dict:
+    """GGUF in the ckpt phase: `source`'s single-file state dict written
+    as one GGUF file (Q8_0 for every float tensor whose size is a multiple
+    of 32, F16 for the rest), loaded by CheckpointLoaderSimple from
+    CDT_CHECKPOINT_DIR in a local run of `workflow`. Every loaded
+    parameter must be torch.equal to the plain dequantization
+    (models/gguf.py::read_gguf) cast to the module's dtype, which is
+    written into `source` for the direct run; the image within
+    RERUN_TOLERANCE of the direct run's. Prints the write and load
+    rates; the file is deleted."""
+    from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
+    from comfyui_distributed_tpu_torch.models import gguf
+    from comfyui_distributed_tpu_torch.models import sd_checkpoint as sdc
+    from comfyui_distributed_tpu_torch.models.registry import get_config
+    from comfyui_distributed_tpu_torch.ops import attention as attn
+
+    label = "[ckpt]"
+    smi = _nvidia_smi() if device.startswith("cuda") else "no card"
+    ckpt = source.model_name
+    loader = _node_id(workflow, "CheckpointLoaderSimple")
+    started = time.perf_counter()
+    tensors = {}
+    for key, value in sdc.synthesize_checkpoint(source).items():
+        arr = value.detach().float().cpu().numpy()
+        tensors[key] = (arr, gguf.GGML_Q8_0 if arr.size % 32 == 0 else gguf.GGML_F16)
+    q8 = sum(1 for _, t in tensors.values() if t == gguf.GGML_Q8_0)
+    gguf_dir = os.path.join(tmp, "gguf")
+    os.makedirs(gguf_dir, exist_ok=True)
+    file = os.path.join(gguf_dir, f"{ckpt}.gguf")
+    nbytes = gguf.write_gguf(file, tensors)
+    write_s = time.perf_counter() - started
+    del tensors
+    plain = {key: torch.from_numpy(arr) for key, arr in gguf.read_gguf(file).items()}
+    te2 = get_config(source.te2_name) if source.te2_name else None
+    sdc.load_sd_weights(plain, get_config(ckpt), source.vae.config, get_config(source.te_name),
+                        source.parts(), te2_cfg=te2)
+    del plain
+    direct_context = ExecutionContext(device=device, config={"settings": settings},
+                                      pipelines={ckpt: source})
+    direct, _, _, _ = _local_run(torch, attn, GraphExecutor(direct_context), workflow, label,
+                                 f"{ckpt} the GGUF file's plain dequantization direct", device,
+                                 size)
+    del direct_context
+    previous = os.environ.get("CDT_CHECKPOINT_DIR")
+    os.environ["CDT_CHECKPOINT_DIR"] = gguf_dir
+    try:
+        context = ExecutionContext(device=device, config={"settings": settings})
+        executor = GraphExecutor(context)
+        image, launches, _, _ = _local_run(torch, attn, executor, workflow, label,
+                                           f"{ckpt} loaded from {os.path.basename(file)}",
+                                           device, size)
+    finally:
+        if previous is None:
+            os.environ.pop("CDT_CHECKPOINT_DIR", None)
+        else:
+            os.environ["CDT_CHECKPOINT_DIR"] = previous
+    load_s = executor.last_timings[loader]
+    wrong = _mismatched_parameters(torch, context.pipelines[ckpt], source)
+    diff = float((image - direct.to(image.device)).abs().max())
+    os.remove(file)
+    print(f"{label} {ckpt} GGUF: {nbytes} bytes ({q8} tensors Q8_0, {len(wrong)} parameters "
+          f"not torch.equal to the plain dequantization) written in {write_s:.2f} s, loaded by "
+          f"CheckpointLoaderSimple in {load_s:.2f} s ({nbytes / load_s / 1e9:.3f} GB/s); image "
+          f"vs the direct run max |diff| {diff:.3g} (tolerance {RERUN_TOLERANCE}); "
+          f"flash_attention launches {launches} [{smi}]")
+    _require(not wrong, f"GGUF-loaded weights differ from the plain dequantization: {wrong[:5]}")
+    _require(diff <= RERUN_TOLERANCE, "the GGUF-loaded image is not the direct run's")
+    return {"file_bytes": nbytes, "load_seconds": load_s, "write_seconds": write_s,
+            "max_abs_diff": diff}
 
 
 def _answers(request_json, url: str) -> bool:
@@ -2943,6 +3413,75 @@ def _nodes_phase(torch, device: str) -> dict:
             "max_abs_diff": worst}
 
 
+def _merges_check(torch, workflow, device: str, gen) -> dict:
+    """Merges in the nodes phase, on two SD1.5 bundles of the txt2img
+    workflow's checkpoint, seeded at 0 and MERGE_SEED (each with a seeded
+    out_conv): ModelMergeSimple and CLIPMergeSimple at ratio 1.0 give
+    model1's (clip1's) weights exactly; at 0.5, in the workflow (a second
+    CheckpointLoaderSimple, the merge node before every MODEL or CLIP
+    link), the image is at least MERGE_MIN_DIFF from each parent's."""
+    from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
+    from comfyui_distributed_tpu_torch.graph.nodes_loaders import (
+        CLIPMergeSimple,
+        ModelMergeSimple,
+    )
+    from comfyui_distributed_tpu_torch.models import pipeline as pl
+    from comfyui_distributed_tpu_torch.ops import attention as attn
+
+    label = "[nodes]"
+    smi = _nvidia_smi() if device.startswith("cuda") else "no card"
+    loader = _node_id(workflow, "CheckpointLoaderSimple")
+    ckpt = workflow[loader]["inputs"]["ckpt_name"]
+    second = f"{ckpt}-merge-b"
+    size = (*_image_px(workflow), 3)
+    parents = []
+    for seed in (0, MERGE_SEED):
+        bundle = pl.load_pipeline(ckpt, seed=seed, device=device)
+        _seed_out_conv(torch, bundle, gen)
+        parents.append(bundle)
+    a, b = parents
+    (whole,) = ModelMergeSimple().merge(a, b, 1.0)
+    (whole_clip,) = CLIPMergeSimple().merge(a, b, 1.0)
+    same = [(m1, m2) for m1, m2 in ((whole.unet, a.unet), (whole_clip.text_encoder,
+                                                           a.text_encoder))
+            if all(torch.equal(p, q) for p, q in zip(m1.parameters(), m2.parameters()))]
+    del whole, whole_clip
+
+    def run(merge: str | None, what: str, ckpt_name: str = ckpt):
+        prompt = copy.deepcopy(workflow)
+        prompt[loader]["inputs"]["ckpt_name"] = ckpt_name
+        if merge is not None:
+            output = 0 if merge == "ModelMergeSimple" else 1
+            for node in prompt.values():
+                for name, value in node["inputs"].items():
+                    if value == [loader, output]:
+                        node["inputs"][name] = ["merge", 0]
+            first, other = ("model1", "model2") if output == 0 else ("clip1", "clip2")
+            prompt["b"] = {"class_type": "CheckpointLoaderSimple",
+                           "inputs": {"ckpt_name": second}}
+            prompt["merge"] = {"class_type": merge, "inputs": {
+                first: [loader, output], other: ["b", output], "ratio": MERGE_RATIO}}
+        context = ExecutionContext(device=device, pipelines={ckpt: a, second: b})
+        executor = GraphExecutor(context)
+        image, _, _, seconds = _local_run(torch, attn, executor, prompt, label, what, device, size)
+        return image, executor.last_timings.get("merge")
+
+    images = {"model1": run(None, f"{ckpt} seed 0")[0],
+              "model2": run(None, f"{ckpt} seed {MERGE_SEED}", second)[0]}
+    result = {"ratio_1_exact": len(same) == 2}
+    for merge in ("ModelMergeSimple", "CLIPMergeSimple"):
+        image, merge_s = run(merge, f"{merge} {MERGE_RATIO}")
+        apart = {parent: float((image - ref.to(image.device)).abs().max())
+                 for parent, ref in images.items()}
+        print(f"{label} {merge}: ratio 1.0 gives model1's weights exactly: "
+              f"{result['ratio_1_exact']}; ratio {MERGE_RATIO} merge {merge_s:.2f} s, the image "
+              f"vs each parent's max |diff| {apart} (>= {MERGE_MIN_DIFF:.4f}) [{smi}]")
+        _require(min(apart.values()) >= MERGE_MIN_DIFF, f"the {merge} image is a parent's")
+        result[merge] = {"merge_s": merge_s, "apart": apart}
+    _require(result["ratio_1_exact"], "a merge at ratio 1.0 is not model1's weights")
+    return result
+
+
 def _flux_model(workflow) -> str:
     """The registry name of a Flux workflow's backbone: its
     CheckpointLoaderSimple's or UNETLoader's."""
@@ -3666,12 +4205,27 @@ def main() -> int:
     # --- 4b. elastic -----------------------------------------------------------
     phase_started = time.perf_counter()
     main_tiles_per_s = n_tiles / seconds
+    adapters_seconds = []
+
+    def adapters_phase(servers):
+        # 4b'. adapters: phase 4's bundle on the elastic phase's servers
+        started = time.perf_counter()
+        try:
+            return _adapters_phase(
+                torch, bundle, ckpt, workflow, prompt["5"]["inputs"]["image"], outputs[1],
+                servers, "cuda", gen, expected_launches=n_tiles * per_tile,
+                expected_by_instance=expected_by_instance)
+        finally:
+            adapters_seconds.append(time.perf_counter() - started)
+
     elastic = _elastic_phase(
         torch, bundle, ckpt, workflow, prompt["5"]["inputs"]["image"], outputs[1], "cuda",
         expected_launches=n_tiles * per_tile, expected_by_instance=expected_by_instance,
-        local_tiles_per_s=n_tiles / seconds,
+        local_tiles_per_s=n_tiles / seconds, after=adapters_phase,
     )
-    phase_seconds["elastic"] = time.perf_counter() - phase_started
+    adapters = elastic["after"]
+    phase_seconds["elastic"] = time.perf_counter() - phase_started - adapters_seconds[0]
+    phase_seconds["adapters"] = adapters_seconds[0]
 
     # --- 4c. txt2img -------------------------------------------------------------
     phase_started = time.perf_counter()
@@ -3826,6 +4380,8 @@ def main() -> int:
     # against the same graph on the CPU --------------------------------------
     phase_started = time.perf_counter()
     nodes = _nodes_phase(torch, "cuda")
+    merges = _merges_check(torch, t2i_workflow, "cuda", gen)
+    torch.cuda.empty_cache()
     phase_seconds["nodes"] = time.perf_counter() - phase_started
 
     # --- 4k. inpaint_model: outpainting on sd15-inpaint (9-channel UNet) ---
@@ -3875,6 +4431,9 @@ def main() -> int:
     print("[kernels] flash_attention: ms, plain_ms, library_ms and bound_ms are per SDXL tile "
           "(each upscale shape's time times its launches per tile, summed); launches: the last "
           "elastic run, master and w1 together (launches_main: phase 4's last run). "
+          "flash_attention_adapters: the same per tile of the upscale wearing the adapters "
+          "phase's LoRA (the same shapes); launches: its run over HTTP with adapters, master "
+          "and w1 together. "
           "flash_attention_txt2img: the same per 512-px SD1.5 image over the D=40/80/160 shapes "
           "the wgmma instance takes; launches: its launches in the last txt2img run, master "
           "and w1 together; bound_by: the largest of the summed operations, bytes and "
@@ -3936,6 +4495,17 @@ def main() -> int:
             "launches_by_instance": txt2img["launches_by_instance"],
             "max_abs_err": max_err["txt2img"],
             **numbers("txt2img"),
+            "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
+        },
+        {
+            "name": "flash_attention_adapters",
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": adapters["launches"],
+            "launches_by_instance": adapters["launches_by_instance"],
+            "max_abs_err": max_err["upscale"],
+            **numbers("upscale"),
             "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
         },
     ] + [
@@ -4015,12 +4585,24 @@ def main() -> int:
                           ("dynamic", dynamic), ("inpaint_model", inpaint_model),
                           *flux.items(), *sd3.items())
     ]}
+    print(f"[summary] adapters: over HTTP with the LoRA max |diff| {adapters['max_abs_diff']:.3g}"
+          f" vs L's tiles; patch seconds a job {adapters['patch_s']}; operand bytes "
+          f"{adapters['operand_bytes']}; tile cache cold {adapters['cold_tiles_per_s']:.4f} "
+          f"tiles/s, warm {adapters['warm_tiles_per_s']:.4f} tiles/s ({adapters['warm_launches']} "
+          f"launches), weights fingerprint {adapters['fingerprint_s']:.3f} s (a job's, by "
+          f"graph: {_rounded(adapters['fingerprint_by_graph_s'])}); attention-only adapter "
+          f"{adapters['partial_operand_bytes']} operand bytes, patch seconds "
+          f"{_rounded(adapters['partial_patch_s'])}, {adapters['partial_tiles_per_s']:.4f} "
+          f"tiles/s; peak "
+          f"{adapters['peak_bytes'] / 2**30:.2f} GiB [{smi}]")
     print(f"[summary] procs: w1 ready {procs['launch_to_ready_s']:.2f} s after its launch; "
           f"fan-out {procs['fan_out_images_per_s']:.4f} images/s, elastic "
           f"{procs['elastic_tiles_per_s']:.4f} tiles/s with w1 its own process")
     print(f"[summary] custom two stages max |diff| {custom['two_stage']['max_abs_diff']:.3g}; "
           f"nodes {nodes['nodes']} ({len(nodes['classes'])} classes) max |diff| "
-          f"{nodes['max_abs_diff']:.3g}; dynamic: w1 took {dynamic['w1_frames']} of "
+          f"{nodes['max_abs_diff']:.3g}; merges at ratio 1.0 exact {merges['ratio_1_exact']}; "
+          f"GGUF load {ckpt_results['ckpt_sd15']['gguf']['load_seconds']:.2f} s for "
+          f"{ckpt_results['ckpt_sd15']['gguf']['file_bytes']} bytes; dynamic: w1 took {dynamic['w1_frames']} of "
           f"{DYNAMIC_FRAMES} frames, {dynamic['frames_per_s']:.4f} frames/s")
     print(json.dumps(kernels))
     print(_nvidia_smi())

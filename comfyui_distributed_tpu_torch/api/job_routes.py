@@ -2,10 +2,13 @@
 cancellation and the media sync's targets.
 
 The port's own copy of comfyui_distributed_tpu/api/job_routes.py,
-without the scheduler's admission lanes and adapters:
+without the scheduler's admission lanes:
 
     POST /distributed/queue         {prompt, client_id, workers, deadline_s?,
-                                    load_balance?, ...} → {status, prompt_id,
+                                    adapters?, load_balance?, ...} →
+                                    400 for an adapter the master's catalog
+                                    cannot resolve (no job is created), else
+                                    {status, prompt_id,
                                     workers, job_ids}, or {status:
                                     "dispatched", mode: "load_balance",
                                     worker} when one worker took it all
@@ -49,6 +52,7 @@ from typing import Any
 
 import torch
 
+from ..adapters.registry import AdapterError, get_adapter_catalog
 from ..graph.io_dirs import resolve_input_path
 from ..utils import image as img_utils
 from ..utils.constants import JOB_INIT_GRACE_SECONDS
@@ -102,6 +106,15 @@ class JobRoutes:
                 payload.deadline_s = parse_deadline_seconds(request.headers.get("x-cdt-deadline"))
         except QueueRequestError as exc:
             return json_response({"error": str(exc)}, 400)
+        if payload.adapters:
+            # names → content hashes against the master's catalog, now: an
+            # unknown adapter is the client's error at admission, never a
+            # worker's mid-job failure
+            try:
+                payload.adapters = await asyncio.to_thread(
+                    get_adapter_catalog().resolve_request, payload.adapters)
+            except AdapterError as exc:
+                return json_response({"error": str(exc)}, 400)
         try:
             result = await orchestrate_distributed_execution(self.server, payload)
         except PromptValidationError as exc:

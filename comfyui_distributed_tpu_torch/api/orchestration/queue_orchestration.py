@@ -13,8 +13,10 @@ theirs; a delegate-only master (settings.master_delegate_only) keeps
 only its collectors and what follows them, unless no worker took a
 prompt.
 
-Not ported: the scheduler's admission lanes, adapters and tracing
-(ROADMAP.md, Queue 1).
+A request's resolved adapter plan is noted in the store per job
+(`note_job_adapters`); a load-balanced prompt runs whole on one worker
+and carries none, as in the JAX package. Not ported: the scheduler's
+admission lanes and tracing (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import asyncio
 import uuid
 from typing import Any
 
+from ...adapters.registry import specs_to_wire
 from ...graph.prompt import (
     ParticipantInfo,
     PromptIndex,
@@ -76,6 +79,11 @@ async def orchestrate_distributed_execution(server, payload: QueueRequestPayload
         await server.job_store.ensure_collector(job_id)
         if payload.deadline_s is not None:
             server.job_store.note_job_deadline(job_id, payload.deadline_s)
+        if payload.adapters:
+            # the resolved plan parks in the store until the master's
+            # init_tile_job stamps it onto the job, from where job_status
+            # serves it to pulling workers
+            server.job_store.note_job_adapters(job_id, specs_to_wire(payload.adapters))
 
     enabled_ids = [str(w.get("id")) for w in active]
     prep_sem = asyncio.Semaphore(settings.get("prep_concurrency", 4))

@@ -1,12 +1,15 @@
 """Queue-request payload parsing and validation.
 
 The port's own copy of comfyui_distributed_tpu/api/queue_request.py,
-without the scheduler's tenant/lane fields and adapters: {"prompt" |
-"workflow": {...}, "workers" | "worker_ids": [...], "client_id": str,
-"deadline_s"?: seconds}; errors name the offending field. Every other
-key of the body lands in `extra` (e.g. "load_balance": true, which the
-orchestration reads), the JAX package's keys excluded as there, so the
-same body gives the same `extra` in both packages.
+without the scheduler's tenant and lane fields: {"prompt" | "workflow":
+{...}, "workers" | "worker_ids": [...], "client_id": str, "deadline_s"?:
+seconds, "adapters"?: [{"name", "strength"}]}; errors name the
+offending field. `adapters` is validated here (at most
+MAX_ADAPTERS_PER_REQUEST, adapters/registry.py) and resolved against the
+catalog by the queue route. Every other key of the body lands in
+`extra` (e.g. "load_balance": true, which the orchestration reads), the
+JAX package's keys excluded as there, so the same body gives the same
+`extra` in both packages.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import dataclasses
 import math
 from typing import Any
 
+from ..adapters.registry import AdapterError, parse_adapter_specs
 from ..utils.exceptions import DistributedError
 
 
@@ -30,6 +34,9 @@ class QueueRequestPayload:
     # end-to-end deadline in seconds from arrival (None = none): rides
     # the job record, which expires overdue work
     deadline_s: float | None = None
+    # the adapter plan (adapters/registry.py AdapterSpecs): validated
+    # here, content hashes stamped by the queue route
+    adapters: list[Any] = dataclasses.field(default_factory=list)
     extra: dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
@@ -68,10 +75,15 @@ def parse_queue_request_payload(body: Any) -> QueueRequestPayload:
         workers = []
     if not isinstance(workers, list) or not all(isinstance(w, (str, int)) for w in workers):
         raise QueueRequestError("'workers' must be a list of ids")
+    try:
+        adapters = parse_adapter_specs(body.get("adapters"))
+    except AdapterError as exc:
+        raise QueueRequestError(str(exc)) from exc
     return QueueRequestPayload(
         prompt=prompt,
         client_id=client_id,
         worker_ids=[str(w) for w in workers],
         deadline_s=parse_deadline_seconds(body.get("deadline_s")),
+        adapters=adapters,
         extra={k: v for k, v in body.items() if k not in _PARSED_KEYS},
     )

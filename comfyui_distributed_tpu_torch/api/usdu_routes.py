@@ -205,9 +205,16 @@ class UsduRoutes:
             # reads as ready before the master's loop creates the tile
             # queue: the worker's first pull parks until it exists. A job
             # already finished reads as ready too: its pull answers
-            # drained at once
+            # drained at once. An adapter plan the orchestration noted
+            # rides this answer too (the JAX route's answer carries none
+            # before the job exists, so a worker that polls early there
+            # samples the base model)
             job_id = str(body["job_id"])
-            return json_response({"ready": job_id in store.collectors or job_id in store.finished})
+            answer = {"ready": job_id in store.collectors or job_id in store.finished}
+            adapters = await store.peek_job_adapters(job_id)
+            if adapters:
+                answer["adapters"] = adapters
+            return json_response(answer)
         return json_response({
             "ready": True,
             "total": job.total_tasks,
@@ -217,4 +224,7 @@ class UsduRoutes:
             "cancel_reason": job.cancel_reason,
             "quarantined_tiles": sorted(job.quarantined_tiles),
             "deadline_remaining": job.deadline_remaining(),
+            # the resolved adapter plan: a pulling worker resolves it
+            # against its own catalog and verifies the hashes
+            "adapters": job.adapters,
         })

@@ -1,4 +1,5 @@
-"""Core workflow nodes: checkpoint (and a standalone VAE) → clip-skip →
+"""Core workflow nodes: checkpoint (a standalone VAE, a LoRA merged
+by LoraLoader or LoraLoaderModelOnly) → clip-skip →
 text encode (CLIPTextEncode, CLIPTextEncodeSDXL with its size override,
 ConditioningConcat) → empty latent or encode (VAEEncode, VAEEncodeTiled,
 VAEEncodeForInpaint, InpaintModelConditioning) → sample (KSampler,
@@ -46,6 +47,7 @@ from ..ops.filters import gaussian_blur
 from ..ops.resize import center_crop_to_aspect, resize_image, resolve_resize_dims, scale_dims
 from ..ops.tiled_vae import decode_tiled, encode_tiled
 from ..utils import image as img_utils
+from ..utils.logging import log
 from .io_dirs import get_output_dir, next_counter, resolve_input_path
 from .registry import register_node
 
@@ -97,6 +99,100 @@ class CheckpointLoaderSimple:
         # strip file extensions so ComfyUI workflow values map to registry names
         bundle = _get_bundle(context, os.path.splitext(str(ckpt_name))[0])
         return (bundle, bundle, bundle)
+
+
+def _lora_file(lora_name) -> tuple[str, dict]:
+    """LoraLoader's file (models/lora.py::read_lora): an absolute path, or
+    CDT_LORA_DIR/<name>[.safetensors]."""
+    from ..adapters.registry import resolve_lora_path
+    from ..models.lora import read_lora
+
+    path = resolve_lora_path(str(lora_name))
+    if path is None:
+        raise FileNotFoundError(f"LoRA not found: {lora_name}")
+    return path, read_lora(path)
+
+
+def _log_unmatched(path: str, unmatched: list[str]) -> None:
+    if unmatched:
+        log(f"LoRA {os.path.basename(path)}: {len(unmatched)} unmatched module(s), "
+            f"e.g. {unmatched[:3]}")
+
+
+@register_node
+class LoraLoader:
+    """Merge a kohya LoRA into the model's backbone and the clip's text
+    towers (models/lora.py). Each output patches its own input (the two
+    may be different bundles); both are new bundles whose patched
+    modules share every untouched parameter, so the cached bundle and
+    other graph branches keep the unpatched weights."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {
+            "model": ("MODEL",),
+            "clip": ("CLIP",),
+            "lora_name": ("STRING", {"default": ""}),
+            "strength_model": ("FLOAT", {"default": 1.0}),
+            "strength_clip": ("FLOAT", {"default": 1.0}),
+        }}
+
+    RETURN_TYPES = ("MODEL", "CLIP")
+    FUNCTION = "load_lora"
+
+    def load_lora(self, model: pl.PipelineBundle, clip: pl.PipelineBundle, lora_name,
+                  strength_model=1.0, strength_clip=1.0, context=None):
+        from ..models.lora import apply_lora
+        from ..models.registry import DUAL_TEXT_ENCODERS, get_config
+
+        path, lora_sd = _lora_file(lora_name)
+        te_name, te2_name = clip.te_name, clip.te2_name
+        if te_name is None:
+            te_name, te2_name = DUAL_TEXT_ENCODERS.get(clip.model_name, (
+                "tiny-te" if clip.model_name.startswith("tiny") else "clip-l", None))
+        parts = {"unet": model.unet, "te": clip.text_encoder}
+        has_te2 = te2_name is not None and clip.text_encoder_2 is not None
+        if has_te2:
+            parts["te2"] = clip.text_encoder_2
+        patched, unmatched = apply_lora(
+            parts, lora_sd, get_config(model.model_name), get_config(te_name),
+            te2_cfg=get_config(te2_name) if has_te2 else None,
+            strength=float(strength_model), te_strength=float(strength_clip))
+        _log_unmatched(path, unmatched)
+        new_clip = dataclasses.replace(clip, text_encoder=patched["te"])
+        if has_te2:
+            new_clip = dataclasses.replace(new_clip, text_encoder_2=patched["te2"])
+        return dataclasses.replace(model, unet=patched["unet"]), new_clip
+
+
+@register_node
+class LoraLoaderModelOnly:
+    """A LoRA merged into the backbone only (for UNETLoader bundles with
+    no text towers); the file's text-tower modules are reported
+    unmatched, not fatal."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {
+            "model": ("MODEL",),
+            "lora_name": ("STRING", {"default": ""}),
+            "strength_model": ("FLOAT", {"default": 1.0}),
+        }}
+
+    RETURN_TYPES = ("MODEL",)
+    FUNCTION = "load_lora_model_only"
+
+    def load_lora_model_only(self, model: pl.PipelineBundle, lora_name, strength_model=1.0,
+                             context=None):
+        from ..models.lora import apply_lora
+        from ..models.registry import get_config
+
+        path, lora_sd = _lora_file(lora_name)
+        patched, unmatched = apply_lora({"unet": model.unet}, lora_sd,
+                                        get_config(model.model_name),
+                                        strength=float(strength_model))
+        _log_unmatched(path, unmatched)
+        return (dataclasses.replace(model, unet=patched["unet"]),)
 
 
 @register_node

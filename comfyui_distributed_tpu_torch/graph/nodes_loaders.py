@@ -14,7 +14,8 @@ parameters are shared; FreeU's UNet is a view with its own config,
 `UNet.with_freeu`): the bundle the executor caches for the
 checkpoint, which other nodes and prompts use, keeps no patch. PAG, SAG
 and RescaleCFG compose the guidance, so at most one of them applies to
-a model.
+a model. ModelMergeSimple and CLIPMergeSimple blend two bundles'
+parameters into new modules; neither input changes.
 """
 
 from __future__ import annotations
@@ -399,3 +400,80 @@ class ModelSamplingDiscrete:
         if zsnr:
             raise ValueError("zsnr rescaling is not implemented in this framework")
         return (dataclasses.replace(model, parameterization_override=mapping[str(sampling)]),)
+
+
+@torch.no_grad()
+def _merge_modules(m1: torch.nn.Module, m2: torch.nn.Module, ratio: float, what: str):
+    """ratio * m1 + (1 - ratio) * m2 over two modules of one architecture
+    (the ComfyUI convention: ratio 1.0 is m1), each floating parameter in
+    f32 and cast back to m1's dtype, the others kept from m1. A new module
+    (models/io.py::with_parameters); neither input changes."""
+    from ..models.io import with_parameters
+
+    p1, p2 = dict(m1.named_parameters()), dict(m2.named_parameters())
+    if list(p1) != list(p2):
+        raise ValueError(f"{what}: parameter trees differ; merging needs two checkpoints of "
+                         "the same architecture")
+    r = float(ratio)
+    merged = {}
+    for name, a in p1.items():
+        b = p2[name]
+        if a.shape != b.shape:
+            raise ValueError(f"{what}: shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
+        if a.is_floating_point():
+            merged[name] = (a.float() * r + b.to(a.device).float() * (1.0 - r)).to(a.dtype)
+    return with_parameters(m1, merged)
+
+
+@register_node
+class ModelMergeSimple:
+    """Weighted average of two diffusion backbones: ratio weights model1.
+    The merged bundle keeps model1's config and patches; only the
+    backbone's parameters blend."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {
+            "model1": ("MODEL",),
+            "model2": ("MODEL",),
+            "ratio": ("FLOAT", {"default": 1.0}),
+        }}
+
+    RETURN_TYPES = ("MODEL",)
+    FUNCTION = "merge"
+
+    def merge(self, model1: pl.PipelineBundle, model2: pl.PipelineBundle, ratio=1.0,
+              context=None):
+        unet = _merge_modules(model1.unet, model2.unet, ratio, "ModelMergeSimple")
+        return (dataclasses.replace(model1, unet=unet),)
+
+
+@register_node
+class CLIPMergeSimple:
+    """Weighted average of two text-encoder stacks: each tower clip1
+    holds (te, te2, te3) blends with clip2's."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {
+            "clip1": ("CLIP",),
+            "clip2": ("CLIP",),
+            "ratio": ("FLOAT", {"default": 1.0}),
+        }}
+
+    RETURN_TYPES = ("CLIP",)
+    FUNCTION = "merge"
+
+    def merge(self, clip1: pl.PipelineBundle, clip2: pl.PipelineBundle, ratio=1.0,
+              context=None):
+        towers = {}
+        for part, field in (("te", "text_encoder"), ("te2", "text_encoder_2"),
+                            ("te3", "text_encoder_3")):
+            mine = getattr(clip1, field)
+            if mine is None:
+                continue
+            theirs = getattr(clip2, field)
+            if theirs is None:
+                raise ValueError(f"CLIPMergeSimple: clip2 has no {part!r} part")
+            towers[field] = _merge_modules(mine, theirs, ratio, f"CLIPMergeSimple[{part}]")
+        return (dataclasses.replace(clip1, **towers),)

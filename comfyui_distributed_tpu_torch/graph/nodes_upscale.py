@@ -4,7 +4,9 @@ Counterpart of comfyui_distributed_tpu/graph/nodes_upscale.py with the
 same node surface (image + model/conditioning/vae + sampling knobs +
 tile geometry in, upscaled image out) and the same routing:
 
-- no workers enabled → ops/upscale.run_upscale on the context's device;
+- no workers enabled → ops/upscale.run_upscale on the context's device,
+  wearing the request's adapter plan where the queue route noted one
+  (the JAX package's local path drops it);
 - a worker's rewritten prompt (is_worker) → graph/usdu_elastic.py::
   run_worker_loop, which pulls tiles from the master over HTTP;
 - a master with enabled workers and a server → run_master_elastic.
@@ -137,4 +139,12 @@ class UltimateSDUpscaleDistributed:
             return (master_fn(job_id=job_id, enabled_worker_ids=enabled,
                               mesh=getattr(context, "mesh", None), **common),)
         del common["context"]
+        store = getattr(getattr(context, "server", None), "job_store", None)
+        wire = store.take_job_adapters(job_id) if store is not None and job_id else []
+        if wire:
+            from ..adapters import get_adapter_catalog, specs_from_wire
+            from .usdu_elastic import patched_bundle
+
+            specs = get_adapter_catalog().resolve(specs_from_wire(wire))
+            common["bundle"] = patched_bundle(model, specs, context, "master")
         return (upscale_ops.run_upscale(mesh=getattr(context, "mesh", None), **common),)

@@ -4,9 +4,9 @@ The port's own copy of comfyui_distributed_tpu/graph/tile_pipeline.py:
 
 - **GrantSampler** runs a grant (a list of tile indices) through the
   per-tile processor, one tile after another: the JAX CPU value of the
-  tile batch, K = 1, and no mesh sharding. K > 1 tile batching is
-  ROADMAP Queue 1 item 4 (step 5); the multi-GPU tier is Queue 1,
-  item 6.
+  tile batch, K = 1, and no mesh sharding. K > 1 tile batching rides
+  the cross-job tier, ROADMAP Queue 1 item 4b; the multi-GPU tier is
+  Queue 1, item 6.
 - **TilePipeline** is a three-stage pipeline over any grant source:
   pull prefetch (one grant ahead), device sampling, and host readback +
   encode + submit flush on an I/O thread, so the next tile's sampling is
@@ -31,7 +31,7 @@ any other failure leaves them to the master's heartbeat timeout, like a
 crashed worker.
 
 `stage_span` times one stage (pull | sample | readback | encode |
-submit | decode | blend) and adds its wall seconds to the StageTotals
+submit | decode | blend | cache.probe | cache.hit) and adds its wall seconds to the StageTotals
 passed as its `totals` attribute; the JAX package's tracer spans are
 not ported yet.
 """

@@ -29,12 +29,24 @@ URLs and composite on the master's host canvas (ops/tiles.py); with
 CDT_DETERMINISTIC_BLEND=1 the canvas composites in sorted tile order, so
 the image does not depend on which participant finished first.
 
+A job's adapter plan (adapters/) rides the readiness answer: the worker
+resolves it against its own catalog (the hashes must match the
+master's), and each participant that samples a tile patches its
+backbone once per job into a copy (`adapters.patch_params`), released
+when the job ends; the bundle it came from, which other jobs read, is
+never written. With the tile cache on (cache/, CDT_CACHE=1 or an
+installed cache) the master keys every tile before it creates the job,
+settles the hits atomically with the job's creation, blends them from
+the cache, and stores every tile it blends, its own and the workers'.
+The cache is the master's alone, and keys its base bundle with the
+plan's content identity. Dynamic mode carries no adapters and no cache,
+as in the JAX package.
+
 Left out, each with its ROADMAP item: the master-URL failover list,
 shard routing and fencing epochs, push grants (`GrantSignal`), the
-fleet-telemetry piggyback, the tile cache, adapters, the cross-job tier,
-the device canvas and the mesh. Both roles prep the conditioning for
-tiles (ControlNet hints and masks windowed per tile) and take
-`tiled_decode`.
+fleet-telemetry piggyback, the cross-job tier, the device canvas and the
+mesh. Both roles prep the conditioning for tiles (ControlNet hints and
+masks windowed per tile) and take `tiled_decode`.
 
 Every function here enters `torch.inference_mode()` on its own thread:
 grad mode is thread-local, and the server runs them on its executor
@@ -139,6 +151,8 @@ class HTTPWorkClient:
         self.master_url = urls[0] if urls else str(master_url)
         self.job_id = job_id
         self.worker_id = worker_id
+        # the job's adapter plan (wire form), read by poll_ready
+        self.adapters: list = []
         # set when a pull response reports the job cancelled; the worker
         # loop's interrupt check reads it
         self.job_cancelled = False
@@ -163,6 +177,7 @@ class HTTPWorkClient:
                                    {"job_id": self.job_id, "worker_id": self.worker_id})
             if not out.get("ready"):
                 raise WorkerError(f"job {self.job_id} not ready", self.worker_id)
+            self.adapters = list(out.get("adapters") or [])
             return True
 
         async def poll():
@@ -296,6 +311,57 @@ def _tile_processor(bundle: pl.PipelineBundle, grid: tile_ops.TileGrid, steps: i
     return fn
 
 
+def _adapter_processor(bundle: pl.PipelineBundle, wire: list, context, role: str,
+                       make_process: Callable) -> tuple[list, Callable]:
+    """(resolved specs, a tile processor wearing the plan `wire`). The
+    specs are resolved now against this process's catalog, so a hash
+    that differs from the master's fails the job before it takes a tile;
+    the operands and the patched copy of the backbone are made at the
+    processor's first call, so a participant that samples no tile (all
+    of them settled from the cache, or taken by others) patches nothing.
+    `make_process(bundle)` builds the processor."""
+    from ..adapters import get_adapter_catalog, specs_from_wire
+
+    specs = get_adapter_catalog().resolve(specs_from_wire(wire))
+    made: list[Callable] = []
+
+    def process(*args):
+        if not made:
+            made.append(make_process(patched_bundle(bundle, specs, context, role)))
+        return made[0](*args)
+
+    return specs, process
+
+
+def patched_bundle(bundle: pl.PipelineBundle, specs: list, context, role: str):
+    """`bundle` with its backbone patched by the resolved plan `specs`
+    (operands from the operand cache). Leaves its seconds, operand bytes
+    and the operand cache's hits and misses in
+    context.extras["adapters"][role]."""
+    from ..adapters import bundle_target_map, get_adapter_cache, operands_for_plan, patch_params
+
+    started = time.perf_counter()
+    cache = get_adapter_cache()
+    before = cache.stats()
+    operands = operands_for_plan(specs, bundle_target_map(bundle), cache=cache)
+    built = time.perf_counter()
+    patched = patch_params(bundle, operands)
+    if bundle.device.type == "cuda":
+        torch.cuda.synchronize(bundle.device)
+    after = cache.stats()
+    if context is not None:
+        context.extras.setdefault("adapters", {})[role] = {
+            "plan": [(s.name, s.strength) for s in specs],
+            "operand_bytes": operands.nbytes, "rank_bucket": operands.rank_bucket,
+            "operands_s": built - started, "patch_s": time.perf_counter() - built,
+            "operand_hits": after["hits"] - before["hits"],
+            "operand_misses": after["misses"] - before["misses"],
+        }
+    log(f"{role}: adapters {[s.name for s in specs]} patched into the backbone "
+        f"({operands.nbytes} operand bytes, rank bucket {operands.rank_bucket})")
+    return patched
+
+
 def _prepare(bundle, image, pos, neg, upscale_by, tile, padding, upscale_method, tile_h,
              mask_blur, uniform):
     image = torch.as_tensor(image, dtype=torch.float32).to(bundle.device)
@@ -354,6 +420,15 @@ def run_worker_loop(
     client = client or HTTPWorkClient(master_url, job_id, worker_id)
     if not client.poll_ready():
         raise WorkerError(f"job {job_id} never became ready", worker_id)
+    adapter_wire = getattr(client, "adapters", None) or []
+    if adapter_wire:
+        # the job's plan: this job samples a patched copy of the backbone
+        _, process = _adapter_processor(
+            bundle, adapter_wire, context, "worker",
+            lambda patched: _tile_processor(patched, grid, steps, sampler, scheduler, cfg,
+                                            denoise, tiled_decode))
+        grant_sampler = GrantSampler(process, extracted, grid.positions, pos, neg,
+                                     grant_sampler.noise)
 
     pending: list[dict] = []
     pending_bytes = 0
@@ -426,6 +501,40 @@ def run_worker_loop(
 # --------------------------------------------------------------------------
 
 
+def _bind_tile_cache(bundle, pos, neg, noise, grid, extracted, context, adapter_key,
+                     **options):
+    """The job's view of the tile cache, or None (no cache, or noise the
+    key cannot name). Leaves the key derivation's seconds (the weights
+    fingerprint apart) in context.extras["tile_cache"]."""
+    from ..cache import (
+        bind_job_cache,
+        bundle_fingerprint,
+        job_key_context,
+        noise_identity,
+        tile_keys_for,
+    )
+
+    base_key = noise_identity(noise)
+    if base_key is None:
+        return None
+
+    def build_keys() -> list[str]:
+        started = time.perf_counter()
+        weights_fp = bundle_fingerprint(bundle)
+        fingerprinted = time.perf_counter()
+        ctx = job_key_context(bundle, pos, neg, base_key, grid, adapter=adapter_key,
+                              weights_fp=weights_fp, **options)
+        keys = tile_keys_for(ctx, extracted, grid)
+        if context is not None:
+            context.extras["tile_cache"] = {
+                "weights_fingerprint_s": fingerprinted - started,
+                "keys_s": time.perf_counter() - fingerprinted,
+            }
+        return keys
+
+    return bind_job_cache(build_keys)
+
+
 @torch.inference_mode()
 def run_master_elastic(
     bundle: pl.PipelineBundle,
@@ -454,7 +563,8 @@ def run_master_elastic(
 ) -> torch.Tensor:
     """The master takes part in the tile queue and collects worker tiles;
     returns the composited [B, H, W, C] image on the bundle's device.
-    Stale workers' tiles are requeued (busy-probe grace) and run locally."""
+    Stale workers' tiles are requeued (busy-probe grace) and run locally.
+    The job's adapter plan and the tile cache: see the module docstring."""
     _check_ported(mesh)
     store = context.server.job_store
     config = getattr(context, "config", None) or {}
@@ -462,8 +572,22 @@ def run_master_elastic(
         bundle, image, pos, neg, upscale_by, tile, padding, upscale_method, tile_h,
         mask_blur, uniform,
     )
-    process = _tile_processor(bundle, grid, steps, sampler, scheduler, cfg, denoise,
-                              tiled_decode)
+    def make_process(model: pl.PipelineBundle) -> Callable:
+        return _tile_processor(model, grid, steps, sampler, scheduler, cfg, denoise, tiled_decode)
+
+    # the plan the orchestration noted (init_tile_job takes it onto the
+    # job): the master samples a patched copy, the cache keys the base
+    # bundle with the plan's content identity
+    adapter_key = None
+    adapter_wire = run_async_in_server_loop(store.peek_job_adapters(job_id), timeout=30)
+    if adapter_wire:
+        from ..adapters import adapter_plan_key
+
+        specs, process = _adapter_processor(bundle, adapter_wire, context, "master",
+                                            make_process)
+        adapter_key = adapter_plan_key(specs)
+    else:
+        process = make_process(bundle)
     noise = noise or upscale_ops.default_noise(seed, bundle.device)
     canvas_cls = (tile_ops.DeterministicHostCanvas if deterministic_blend()
                   else tile_ops.HostIncrementalCanvas)
@@ -471,15 +595,45 @@ def run_master_elastic(
     done_tiles: set[int] = set()
     timeout = worker_timeout_seconds(config)
     totals = StageTotals()
+    cache_binding = _bind_tile_cache(
+        bundle, pos, neg, noise, grid, extracted, context, adapter_key, steps=steps,
+        sampler=sampler, scheduler=scheduler, cfg=cfg, denoise=denoise, upscale_by=upscale_by,
+        upscale_method=upscale_method, mask_blur=mask_blur, uniform=uniform,
+        tiled_decode=tiled_decode)
 
     def blend_local(tile_idx: int, result) -> None:
         with _stage("blend", "master", tile_idx, totals=totals):
             y, x = grid.positions[tile_idx]
+            if cache_binding is not None:
+                cache_binding.populate(tile_idx, result)
             canvas.blend(result, y, x)
             done_tiles.add(tile_idx)
 
-    run_async_in_server_loop(store.init_tile_job(job_id, list(range(grid.num_tiles))),
-                             timeout=30)
+    # probe BEFORE the job exists and settle the hits atomically with its
+    # creation: no puller ever sees them pending. A job that existed
+    # already (creation ignored the list) settles through settle_cached,
+    # which leaves out tiles a worker completed: those must not blend
+    # twice (the canvas accumulates weight)
+    hits: dict[int, Any] = {}
+    if cache_binding is not None:
+        with _stage("cache.probe", "master", totals=totals) as probe_span:
+            hits = cache_binding.probe()
+            probe_span.attrs["hits"] = len(hits)
+    job = run_async_in_server_loop(
+        store.init_tile_job(job_id, list(range(grid.num_tiles)),
+                            cache_settled=sorted(hits) or None),
+        timeout=30)
+    if hits:
+        settled = [t for t in sorted(hits) if t in job.cached_tiles]
+        if not settled:
+            settled = run_async_in_server_loop(store.settle_cached(job_id, sorted(hits)),
+                                               timeout=30)
+        for tile_idx in settled:
+            with _stage("cache.hit", "master", tile_idx, totals=totals):
+                y, x = grid.positions[tile_idx]
+                canvas.blend(hits[tile_idx], y, x)
+                done_tiles.add(tile_idx)
+        cache_binding.cache.note_settled(len(settled))
 
     def drain_results() -> None:
         async def drain():

@@ -2,8 +2,7 @@
 comfyui_distributed_tpu/jobs/models.py that its store keeps).
 
 Left out with the store operations that use them: fencing epochs, the
-journal, preemption checkpoints, the cross-job tier, the cache settle
-and adapters.
+journal, preemption checkpoints and the cross-job tier.
 """
 
 from __future__ import annotations
@@ -71,6 +70,13 @@ class TileJob:
     # the attempt budget is quarantined out of the pull set
     attempts: dict[int, int] = dataclasses.field(default_factory=dict)
     quarantined_tiles: set[int] = dataclasses.field(default_factory=set)
+    # tiles settled from the content-addressed tile cache (cache/): done
+    # without ever entering the pull set
+    cached_tiles: set[int] = dataclasses.field(default_factory=set)
+    # the resolved adapter plan in wire form ([{"name", "strength",
+    # "content_hash"}], adapters/registry.py::specs_to_wire), served by
+    # job_status to pulling workers; [] = the base model
+    adapters: list = dataclasses.field(default_factory=list)
 
     def heartbeat(self, worker_id: str) -> None:
         self.worker_status[worker_id] = time.monotonic()

@@ -27,8 +27,14 @@ semantics:
   created anew. (The JAX package never calls `cleanup_collector`: there
   every collector job and its queue outlive their prompt.)
 
+A job's adapter plan, noted by the orchestration before the master
+creates the job (`note_job_adapters`), is stamped onto it at creation;
+tiles served by the master's tile cache settle atomically with creation
+(`init_tile_job(cache_settled=)`) or later (`settle_cached`), complete
+without ever entering the pull set.
+
 Left out: fencing epochs, the write-ahead journal, preemption, the
-cross-job tier, the cache settle, placement and fault injection.
+cross-job tier, placement and fault injection.
 
 Every accepted completion is recorded with its participant
 (`TileJob.completions`); on cleanup a job's record moves to
@@ -66,12 +72,14 @@ class JobStore:
         # job_id → deadline seconds noted by the orchestration before the
         # master's init_tile_job runs; bounded, popped at init
         self._pending_deadlines: dict[str, float] = {}
+        # job_id → the resolved adapter plan (wire form), noted likewise
+        self._pending_adapters: dict[str, list] = {}
         # job_id → [(loop, future)] waiters parked until creation
         self._tile_waiters: dict[str, list[tuple[Any, Any]]] = {}
         self._collector_waiters: dict[str, list[tuple[Any, Any]]] = {}
         # job_id → the record of a cleaned-up job, oldest evicted first:
-        # {"total", "completions", "duplicates", "received_bytes",
-        # "finished_workers"} of a tile job, {"received", "received_bytes",
+        # {"total", "cached", "adapters", "completions", "duplicates",
+        # "received_bytes", "finished_workers"} of a tile job, {"received", "received_bytes",
         # "finished_workers", "late"} of a collector job
         self.finished: dict[str, dict[str, Any]] = {}
         # ids of cleaned-up collector jobs, oldest evicted first (an
@@ -229,11 +237,51 @@ class JobStore:
             self._pending_deadlines.pop(next(iter(self._pending_deadlines)))
         self._pending_deadlines[job_id] = deadline_s
 
+    def note_job_adapters(self, job_id: str, adapters: Any) -> None:
+        """Record a resolved adapter plan (wire form) for a job not created
+        yet, as note_job_deadline does. A malformed plan is dropped here
+        (the route validated it; this guards direct callers), so a bad
+        record never reaches a worker."""
+        from ..adapters.registry import AdapterError, specs_from_wire, specs_to_wire
+
+        try:
+            specs = specs_from_wire(adapters)
+        except AdapterError as exc:
+            debug_log(f"note_job_adapters({job_id}) rejected: {exc}")
+            return
+        self._pending_adapters.pop(job_id, None)
+        if not specs:
+            return
+        while len(self._pending_adapters) >= PENDING_DEADLINES_KEPT:
+            self._pending_adapters.pop(next(iter(self._pending_adapters)))
+        self._pending_adapters[job_id] = specs_to_wire(specs)
+
+    def take_job_adapters(self, job_id: str) -> list:
+        """Pop a job's noted adapter plan: the master's local path (no
+        worker took part, so no tile job is made) wears it itself."""
+        return list(self._pending_adapters.pop(job_id, []))
+
+    async def peek_job_adapters(self, job_id: str) -> list:
+        """A job's adapter plan without taking it: the job's own once it
+        exists, else the pending note. The master reads it before
+        init_tile_job (it needs the operands and the cache key first);
+        init still pops the note atomically with creation."""
+        async with self.lock:
+            job = self.tile_jobs.get(job_id)
+            if job is not None:
+                return list(job.adapters)
+            return list(self._pending_adapters.get(job_id, []))
+
     async def init_tile_job(self, job_id: str, task_ids: list[int], batched: bool = True,
-                            deadline_s: Optional[float] = None, kind: str = "tile") -> TileJob:
+                            deadline_s: Optional[float] = None, kind: str = "tile",
+                            cache_settled: Optional[list[int]] = None,
+                            adapters: Optional[list] = None) -> TileJob:
         """Create the job: a TileJob of tile indices, or with kind "image"
-        an ImageJob of frame indices (dynamic mode). A job that exists is
-        returned as it is."""
+        an ImageJob of frame indices (dynamic mode). `cache_settled`
+        settles those tiles from the tile cache under the same lock hold,
+        so no puller ever sees them pending; `adapters` (else the noted
+        plan) rides the job. A job that exists is returned as it is (a
+        settle for it goes through settle_cached)."""
         from ..utils.constants import JOB_DEADLINE_DEFAULT_SECONDS
 
         async with self.lock:
@@ -243,16 +291,65 @@ class JobStore:
                 deadline_s = self._pending_deadlines.pop(job_id, None)
             if deadline_s is None and JOB_DEADLINE_DEFAULT_SECONDS > 0:
                 deadline_s = JOB_DEADLINE_DEFAULT_SECONDS
+            noted_adapters = self._pending_adapters.pop(job_id, [])
             cls = TileJob if kind == "tile" else ImageJob
             job = cls(job_id=job_id, total_tasks=len(task_ids), batched=batched)
+            job.adapters = list(noted_adapters if adapters is None else adapters)
             if deadline_s is not None and deadline_s > 0:
                 job.deadline_s = float(deadline_s)
                 job.deadline_at = time.monotonic() + float(deadline_s)
             for tid in task_ids:
                 job.pending.put_nowait(tid)
             self.tile_jobs[job_id] = job
+            if cache_settled:
+                self._settle_cached_locked(job, cache_settled)
             self._wake(self._tile_waiters.pop(job_id, []))
         return job
+
+    async def settle_cached(self, job_id: str, task_ids: list[int]) -> list[int]:
+        """Settle tiles whose results came from the tile cache: they
+        complete without entering the pull set (payload None; the master
+        blends the cached pixels itself). Returns the ids that settled: a
+        tile already completed or quarantined is left out, and the caller
+        must not blend its cached copy on top."""
+        job = await self.get_tile_job(job_id)
+        if job is None:
+            raise JobQueueError(f"no such job {job_id!r}")
+        async with self.lock:
+            return self._settle_cached_locked(job, task_ids)
+
+    def _settle_cached_locked(self, job: TileJob, task_ids: list[int]) -> list[int]:
+        """The settle, under self.lock (settle_cached, and init_tile_job's
+        settle at creation)."""
+        if job.cancelled:
+            return []
+        settled = [int(t) for t in task_ids
+                   if int(t) not in job.completed and int(t) not in job.quarantined_tiles]
+        for tid in settled:
+            job.completed[tid] = None
+            job.cached_tiles.add(tid)
+        # asyncio.Queue has no removal: drain, then put the rest back (no
+        # puller interleaves under the lock)
+        gone = set(settled)
+        survivors = []
+        while True:
+            try:
+                tid = job.pending.get_nowait()
+            except asyncio.QueueEmpty:
+                break
+            if tid not in gone:
+                survivors.append(tid)
+        for tid in survivors:
+            job.pending.put_nowait(tid)
+        return settled
+
+    async def cached_tiles(self, job_id: str) -> list[int]:
+        """The job's tiles settled from the tile cache, sorted."""
+        job = await self.get_tile_job(job_id)
+        if job is None:
+            return []
+        async with self.lock:
+            return sorted(job.cached_tiles)
 
     async def get_tile_job(self, job_id: str) -> Optional[TileJob]:
         async with self.lock:
@@ -386,6 +483,8 @@ class JobStore:
                 return
             self._remember_finished_locked(job_id, {
                 "total": job.total_tasks,
+                "cached": sorted(job.cached_tiles),
+                "adapters": list(job.adapters),
                 "completions": list(job.completions),
                 "duplicates": job.duplicates,
                 "received_bytes": job.received_bytes,

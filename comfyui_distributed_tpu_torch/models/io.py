@@ -20,11 +20,17 @@ table).
 Real single-file SD checkpoints (.safetensors, .ckpt) load through
 models/sd_checkpoint.py, whose key schedules name parameters by the same
 rule.
+
+`with_parameters` is the copy on write that LoRA merges, weight merges
+and per-job adapter patches go through: a new module tree sharing every
+untouched parameter with the one it came from, which stays as it is.
 """
 
 from __future__ import annotations
 
+import copy
 import math
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -103,3 +109,39 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             draw = torch.randn(param.shape, generator=generator, device=device) * std
             param.copy_(draw)
     return module
+
+
+def with_parameters(module: nn.Module, replaced: Mapping[str, torch.Tensor]) -> nn.Module:
+    """A copy of `module` in which each parameter named in `replaced` is
+    that tensor (a Parameter without grad); every other parameter and
+    every module off the replaced parameters' paths is shared with
+    `module` by reference. Only the modules on those paths are copied,
+    shallowly (their parameter and submodule tables), so `module` and
+    whoever holds it see no change."""
+    copies: dict[str, nn.Module] = {}
+
+    def copied(prefix: str) -> nn.Module:
+        if prefix in copies:
+            return copies[prefix]
+        parent_prefix, _, name = prefix.rpartition(".")
+        parent = copied(parent_prefix) if prefix else None
+        source = parent._modules[name] if parent is not None else module
+        new = copy.copy(source)
+        new._parameters = dict(source._parameters)
+        new._modules = dict(source._modules)
+        if parent is not None:
+            parent._modules[name] = new
+        copies[prefix] = new
+        return new
+
+    root = copied("")
+    for name, value in replaced.items():
+        owner_path, _, leaf = name.rpartition(".")
+        owner = copied(owner_path)
+        old = owner._parameters.get(leaf)
+        if old is None:
+            raise KeyError(f"{type(module).__name__} has no parameter {name}")
+        if tuple(value.shape) != tuple(old.shape):
+            raise ValueError(f"{name}: shape {tuple(value.shape)} replaces {tuple(old.shape)}")
+        owner._parameters[leaf] = nn.Parameter(value.detach(), requires_grad=False)
+    return root

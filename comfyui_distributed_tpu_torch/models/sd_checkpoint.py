@@ -45,7 +45,8 @@ an optional __metadata__), then raw bytes. Tensors are read through
 mmap one at a time and cast straight into the module's parameter on its
 device, so no f32 copy of the whole file is made (SDXL in f16 is
 6.9 GB). Torch `.ckpt` files go through `torch.load(weights_only=True)`.
-GGUF files are not ported (ROADMAP.md, Queue 1 item 4).
+A GGUF file (models/gguf.py) is dequantized on the host to f32 whole,
+then cast into the modules like any other.
 """
 
 from __future__ import annotations
@@ -925,11 +926,12 @@ def _read_torch_ckpt(path: str) -> dict[str, torch.Tensor]:
 @contextlib.contextmanager
 def open_checkpoint(path: str) -> Iterator[Mapping[str, torch.Tensor]]:
     """A single-file checkpoint (.safetensors mmapped, torch .ckpt
-    loaded) as a mapping of tensors in the file's dtypes."""
+    loaded, .gguf dequantized to f32) as a mapping of tensors."""
     if path.endswith(".gguf"):
-        raise NotImplementedError(
-            f"{path}: GGUF checkpoints are not ported yet (ROADMAP.md, Queue 1 item 4: "
-            "models/gguf.py)")
+        from .gguf import read_gguf
+
+        yield {key: torch.from_numpy(arr) for key, arr in read_gguf(path).items()}
+        return
     if path.endswith(".safetensors"):
         reader = SafetensorsFile(path)
         try:

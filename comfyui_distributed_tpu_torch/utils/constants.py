@@ -109,3 +109,34 @@ def deterministic_blend() -> bool:
     """CDT_DETERMINISTIC_BLEND=1 composites the master's canvas in sorted
     tile order at the end instead of in arrival order (read per job)."""
     return os.environ.get("CDT_DETERMINISTIC_BLEND") == "1"
+
+
+# --- content-addressed tile result cache (cache/) --------------------------
+# CDT_CACHE=1 makes the elastic master consult its tile cache before it
+# creates a job (hits settle straight into the job and never reach a
+# worker) and populate it as tiles blend. Read per job.
+def cache_enabled() -> bool:
+    return _env_int("CDT_CACHE", 0) == 1
+
+
+# RAM LRU budget for tile results (MB); an entry larger than the whole
+# budget lives on disk only
+CACHE_RAM_MB = _env_float("CDT_CACHE_RAM_MB", 256.0)
+# disk tier budget (MB): the oldest files by mtime go past it; 0 = none
+CACHE_DISK_MB = _env_float("CDT_CACHE_DISK_MB", 1024.0)
+CACHE_DIR_DISABLED_VALUES = ("0", "off", "none")
+
+
+def cache_dir() -> str | None:
+    """The disk tier's directory (CDT_CACHE_DIR); None = RAM only."""
+    raw = os.environ.get("CDT_CACHE_DIR", "").strip()
+    if not raw or raw.lower() in CACHE_DIR_DISABLED_VALUES:
+        return None
+    return raw
+
+
+# --- adapter plane (adapters/) ----------------------------------------------
+def adapter_cache_mb() -> float:
+    """The operand cache's budget (MB) for decoded adapter operands."""
+    return _env_float("CDT_ADAPTER_CACHE_MB", 256.0)
+

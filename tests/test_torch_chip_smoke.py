@@ -187,6 +187,63 @@ def test_elastic_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread):
     assert all("stage seconds: master" in line for line in lines[2::3])
 
 
+def test_adapters_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread):
+    """The adapters phase as the card runs it, on tiny-unet after the
+    elastic phase's runs, on its servers: the LoRA file, LoraLoader and
+    LoraLoaderModelOnly locally, the adapter over HTTP against L's tiles,
+    the unknown adapter's 400, the tile cache cold, warm (every tile
+    settled, no launch, the cold run's bytes), at 0.7 and on the base
+    model, the weights fingerprint of a FreeU graph and of LoRA merges,
+    and an attention-only adapter over HTTP twice. On the CPU no kernel
+    launches, so the launch checks are off."""
+    workflow = _tiny_workflow()
+    bundle = tpl.load_pipeline("tiny-unet", seed=0, device="cpu")
+    with torch.no_grad():
+        weight = bundle.unet.out_conv.weight
+        weight.copy_(torch.randn(weight.shape, generator=torch.Generator().manual_seed(0)) * 0.1)
+    rng = np.random.default_rng(1)
+    image = torch.from_numpy(timg.u8_to_f32(timg.f32_to_u8(
+        rng.random((1, 64, 64, 3), dtype=np.float32))))
+    prompt = copy.deepcopy(workflow)
+    del prompt["4"], prompt["6"]
+    prompt["5"]["inputs"]["image"] = image
+    context = ExecutionContext(device="cpu")
+    context.pipelines["tiny-unet"] = bundle
+    executor = GraphExecutor(context)
+    executor.execute(prompt)
+    local = executor.last_results["5"][0]
+    gen = torch.Generator().manual_seed(chip_smoke.SEED)
+    result = chip_smoke._elastic_phase(
+        torch, bundle, "tiny-unet", workflow, image, local, "cpu", runs=1,
+        after=lambda servers: chip_smoke._adapters_phase(
+            torch, bundle, "tiny-unet", workflow, image, local, servers, "cpu", gen))
+    adapters = result["after"]
+    lines = [line for line in capsys.readouterr().out.splitlines()
+             if line.startswith("[adapters]")]
+    assert len(lines) == 16, lines
+    assert adapters["warm_launches"] == 0 and adapters["max_abs_diff"] <= 1.0 / 255 + 1e-6
+    assert set(adapters["patch_s"]) <= {"master", "worker"} and adapters["operand_bytes"] > 0
+    assert "HTTP 400" in lines[5] and "settled from the cache [0, 1, 2, 3]" in lines[7]
+    assert "FreeU graph" in lines[11] and "weights fingerprint a job" in lines[12]
+    assert set(adapters["fingerprint_by_graph_s"]) == {
+        "FreeU", chip_smoke.ADAPTER_NAME, chip_smoke.ADAPTER_PARTIAL_NAME}
+    assert 0 < adapters["partial_operand_bytes"] < adapters["operand_bytes"]
+    assert os.environ.get("CDT_LORA_DIR") is None
+
+
+def test_the_lora_is_worn_by_every_model_and_clip_link():
+    workflow = _tiny_workflow()
+    both = chip_smoke._wear_lora(workflow, {"class_type": "LoraLoader", "inputs": {}})
+    model_only = chip_smoke._wear_lora(workflow, {"class_type": "LoraLoaderModelOnly",
+                                                  "inputs": {}})
+    links = [v for node in both.values() for v in node["inputs"].values()
+             if isinstance(v, list) and v[0] in ("1", "lora")]
+    assert sorted(links) == [["1", 2], ["lora", 0], ["lora", 1], ["lora", 1]]
+    assert model_only["5"]["inputs"]["model"] == ["lora", 0]
+    assert all(v[0] == "1" for node in model_only.values() for v in node["inputs"].values()
+               if isinstance(v, list) and v[1] == 1)
+
+
 def test_elastic_phase_fails_when_the_worker_is_not_dispatched(monkeypatch,
                                                                one_torch_thread):
     """A worker the probe finds offline makes the phase fail, not fall
@@ -504,7 +561,8 @@ def test_ckpt_phase_writes_loads_and_checks_on_the_cpu(capsys, monkeypatch, one_
     SD1.x's layout and tiny-unet-v with an OpenCLIP tower in SD2.x's, each
     written in f16 by the port's writer, read and loaded by a fresh master
     and w1 over HTTP: the weights equal, the image the direct run's and
-    not the default init's, the launches `_txt2img_shapes`'."""
+    not the default init's, the launches `_txt2img_shapes`'; then
+    tiny-unet's state dict as a GGUF file, loaded locally."""
     from comfyui_distributed_tpu_torch.models import registry as treg
 
     monkeypatch.setitem(treg.DEFAULT_TEXT_ENCODERS, "tiny-unet-v", "tiny-te-g")
@@ -521,6 +579,10 @@ def test_ckpt_phase_writes_loads_and_checks_on_the_cpu(capsys, monkeypatch, one_
     assert sum("not torch.equal to the written weights: master 0, w1 0" in line
                for line in lines) == 2
     assert sum("wrote" in line and "(f16" in line for line in lines) == 2
+    # GGUF: the SD1.5 path's state dict, Q8_0 and F16, loaded locally
+    gguf = [line for line in lines if " GGUF: " in line]
+    assert len(gguf) == 1 and "0 parameters not torch.equal" in gguf[0]
+    assert results["ckpt_sd15"]["gguf"]["max_abs_diff"] <= chip_smoke.RERUN_TOLERANCE
     assert os.environ["CDT_CHECKPOINT_DIR"] == "/nonexistent-elsewhere"
 
 
@@ -687,6 +749,19 @@ def test_guidance_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread, cou
 
 
 # --- the custom, dynamic, inpaint_model and nodes phases ------------------------------------
+
+def test_the_merges_run_and_check_on_the_cpu(capsys, one_torch_thread):
+    """The nodes phase's merges on two tiny-unet bundles at 32 px: at
+    ratio 1.0 model1's weights exactly, at 0.5 an image apart from each
+    parent's, for ModelMergeSimple and CLIPMergeSimple."""
+    result = chip_smoke._merges_check(torch, _tiny_txt2img_workflow(), "cpu",
+                                      torch.Generator().manual_seed(0))
+    lines = [line for line in capsys.readouterr().out.splitlines()
+             if line.startswith("[nodes] ") and "ratio 1.0 gives" in line]
+    assert result["ratio_1_exact"] and len(lines) == 2
+    for merge in ("ModelMergeSimple", "CLIPMergeSimple"):
+        assert min(result[merge]["apart"].values()) >= chip_smoke.MERGE_MIN_DIFF
+
 
 def _flux_custom():
     return _workflow(chip_smoke.CUSTOM_WORKFLOW)

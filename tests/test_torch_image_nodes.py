@@ -165,8 +165,6 @@ def test_nodes_keep_the_tensors_device_and_dtype():
 # the JAX package's nodes the port does not register yet, by the ROADMAP
 # item that brings them (Queue 1)
 STILL_TO_PORT = {
-    "item 4 (LoRA, weight merges)": {"LoraLoader", "LoraLoaderModelOnly", "ModelMergeSimple",
-                                     "CLIPMergeSimple"},
     "item 5 (unCLIP)": {"CLIPVisionLoader", "CLIPVisionEncode", "unCLIPConditioning"},
     "item 5 (video)": {"EmptyVideoLatent", "VideoCheckpointLoader", "VideoCLIPTextEncode",
                        "VideoFlowSampler", "WanImageToVideo", "SaveAnimatedPNG",
@@ -177,8 +175,8 @@ STILL_TO_PORT = {
 
 def test_the_registries_differ_only_by_the_families_still_to_port():
     """Every SD-family node of the JAX package is registered in the port
-    under its name, and so is every Flux and SD3 node; what is missing
-    belongs to LoRA and weight merges, unCLIP, video or audio."""
+    under its name, and so is every Flux and SD3 node, LoRA loader and
+    weight merge; what is missing belongs to unCLIP, video or audio."""
     # each package's own nodes: other test modules register nodes of their
     # own in the same process
     jax_nodes, port_nodes = ({name for name, cls in graph.NODE_REGISTRY.items()
@@ -191,7 +189,8 @@ def test_the_registries_differ_only_by_the_families_still_to_port():
                  "ModelSamplingDiscrete", "CLIPTextEncodeFlux", "FluxGuidance",
                  "ModelSamplingFlux", "ReferenceLatent", "UNETLoader", "CLIPLoader",
                  "DualCLIPLoader", "EmptySD3LatentImage", "TripleCLIPLoader",
-                 "ModelSamplingSD3", "SkipLayerGuidanceSD3"):
+                 "ModelSamplingSD3", "SkipLayerGuidanceSD3", "LoraLoader",
+                 "LoraLoaderModelOnly", "ModelMergeSimple", "CLIPMergeSimple"):
         assert name in tgraph.NODE_REGISTRY
 
 

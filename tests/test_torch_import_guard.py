@@ -60,7 +60,10 @@ def test_the_server_and_the_elastic_tier_are_among_the_imported_modules():
                    "graph/nodes_distributed.py", "parallel/collective.py",
                    "models/sd_checkpoint.py", "models/controlnet.py", "models/upscaler.py",
                    "ops/tiled_vae.py", "ops/filters.py", "ops/resize.py",
-                   "graph/nodes_controlnet.py", "models/sd3.py"):
+                   "graph/nodes_controlnet.py", "models/sd3.py", "models/lora.py",
+                   "models/gguf.py", "adapters/registry.py", "adapters/segmented.py",
+                   "adapters/cache.py", "cache/keys.py", "cache/store.py",
+                   "cache/integration.py"):
         assert os.path.join("comfyui_distributed_tpu_torch", module) in names
 
 

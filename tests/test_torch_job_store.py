@@ -139,6 +139,8 @@ def test_store_records_each_tiles_participant_and_archives_it():
     record = asyncio.run(run())
     assert record == {
         "total": 3,
+        "cached": [],
+        "adapters": [],
         "completions": [(0, "w1"), (1, "master"), (2, "w1")],
         "duplicates": 1,
         "received_bytes": 30,

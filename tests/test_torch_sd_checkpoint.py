@@ -188,10 +188,16 @@ def test_find_checkpoint_rules(tmp_path, monkeypatch):
 
 
 def test_gguf_files_raise_with_their_roadmap_item(tmp_path):
+    """A .gguf checkpoint goes through models/gguf.py (ROADMAP Queue 1
+    item 4a, done): a file cut after its magic raises as the JAX
+    reader's does."""
+    from comfyui_distributed_tpu.models.gguf import read_gguf as jax_read_gguf
+
     path = tmp_path / "tiny-unet.gguf"
     path.write_bytes(b"GGUF")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        _read(str(path))
+    for read in (_read, jax_read_gguf):
+        with pytest.raises(ValueError, match="truncated GGUF file"):
+            read(str(path))
 
 
 # --- tiny bundles through both packages -------------------------------------------
