@@ -1,9 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the root of a checkout
+    python3 chip_smoke.py                 # from the root of a checkout: every phase
+    python3 chip_smoke.py --phases wan    # some phases (PHASES; comma-separated)
 
-Phases, each printing lines tagged with its name:
+Phases, each printing lines tagged with its name (and, on a [phases]
+line, when it starts). `--phases` runs only the named ones, with the
+kernel checks of their shapes (`kernel` runs all the checks, the
+threshold and host lines); a phase that reads an earlier one's bundle
+builds its own, and `elastic` runs `main`. The main path (main, elastic,
+txt2img) and the other phases run the published depths; Flux, SD3.5 and
+the UNets of CUT_PHASES run at the depths of the [cuts] line
+(FLUX_DEPTH_CUT, SD3_DEPTH_CUT, SDXL_DEPTH_CUT, UNET_RES_BLOCKS_CUT; full
+width), so that every phase fits the run's time limit.
 
 1. device  - the card's name and power limit (nvidia-smi); TF32 is
              turned off for matmuls and convolutions, so f32 checks are
@@ -16,6 +25,12 @@ Phases, each printing lines tagged with its name:
              image on every path that runs it);
              SD3's D=64 also at a ragged joint length (1008 px: 63^2 +
              154 tokens);
+             WAN's D=128 and CLIP vision's D=80 at their main shapes (self
+             at 8100 and 28350 tokens past the one-bf16-P threshold, also
+             against its emulation; text and image cross at 77 and 257
+             keys; all ragged on their row blocks and key tiles), the plain
+             version at them timed with fewer samples (PLAIN_REPS_LARGE,
+             at the other paths' shapes PLAIN_REPS);
              Flux's D=128 also at a ragged joint length (1008 px), a
              short key count and both sides of the router's one-bf16-P
              threshold (WGMMA_PINGPONG_ABOVE[128]) at 24 heads;
@@ -71,13 +86,15 @@ Phases, each printing lines tagged with its name:
              tiles composited the way the elastic master composites
              them (in sorted order, CDT_DETERMINISTIC_BLEND=1; phase 4
              itself takes a weighted average at the seams).
-   adapters - inside the elastic phase's servers, on phase 4's bundle
-             (`_adapters_phase`): a seeded kohya LoRA (ADAPTER_RANK,
+   adapters - on SDXL at the cut depth, served as the elastic phase
+             serves it (a master and w1 in this process; its base output
+             the local tiles' weighted average) (`_adapters_phase`): a
+             seeded kohya LoRA (ADAPTER_RANK,
              ADAPTER_ALPHA) over every 2-D backbone target and both text
              towers, written in f16 by the port's writer into a temporary
              CDT_LORA_DIR; the workflow locally with a LoraLoader inserted
              (ADAPTER_STRENGTH on both sides: finite, at least
-             ADAPTER_MIN_DIFF from phase 4's output, phase 4's launches,
+             ADAPTER_MIN_DIFF from the base output, the cut path's launches,
              the cached bundle's 2-D weights torch.equal to before) and
              with LoraLoaderModelOnly (its output L); the unmodified
              workflow over HTTP with `adapters` (every tile once, w1 at
@@ -298,12 +315,35 @@ Phases, each printing lines tagged with its name:
              0); the workflow once locally through DualCLIPLoader sd3 (no
              T5: 77 text tokens), finite, its CLIP tokens those of the triple
              conditioning exactly, launches from `_sd3_shapes`.
+   wan     - the three bundled WAN workflows (WAN_WORKFLOWS), unmodified, at
+             full width and depth (`_wan_phase`): wan-1.3b (33 frames of
+             480x480, 30 steps), wan-14b (81 frames of 720x480, 30 steps),
+             wan-14b-i2v (WanImageToVideo, 81 frames, 20 steps; its
+             LoadImage reads a seeded 720x480 first_frame.png), CLIP-L, the
+             causal WAN VAE, CLIP ViT-H for i2v; seeded random weights on
+             the card, one bundle at a time, the last freed first. Each
+             one run over HTTP, master + w1 in this process: the batch [2
+             F, H, W, 3] in [0, 1], the participants apart, launches from
+             `_wan_shapes` (two D=128 calls a block, three with i2v's
+             image tokens, CLIP vision's 31 D=80 calls), the DiT's velocity
+             finite at every evaluation, w1's F envelopes, no collector job
+             left, SaveVideoFrames' 2 F PNGs (the frames' 8-bit values) and
+             manifest at 16 fps. wan-1.3b also against local runs at seeds
+             0 and 1, its DiT loaded back from a bf16 file in the original
+             blocks.N.* layout (every parameter equal to the written one),
+             and the chunked VAE decode of a seeded latent against the whole
+             clip (WAN_CHUNK_TOLERANCE); the 14B workflows through each
+             participant's first evaluation (its noise exactly the draw at
+             its seed, w1's velocity within WAN_FIRST_EVAL_TOLERANCE of one
+             here, and for i2v the same with the CLIP tokens zeroed at least
+             WAN_IMAGE_BRANCH_MIN apart). Seconds, videos/s, peak memory and
+             parameters by part per workflow.
    phases  - each phase's seconds and their total.
 5. kernels - one JSON line per the port's kernel contract: entry
              flash_attention over the upscale path (`launches`: the elastic
              run, both participants), flash_attention_adapters over the same
-             shapes (`launches`: the adapters phase's run over HTTP wearing
-             the LoRA), entry flash_attention_txt2img over
+             shapes on the cut SDXL (`launches`: the adapters phase's run
+             over HTTP wearing the LoRA), entry flash_attention_txt2img over
              the txt2img path's D=40/80/160 shapes (`launches`: the last
              txt2img run's wgmma launches, both participants), and an
              entry flash_attention_<workflow> for each of SD_WORKFLOWS over
@@ -323,7 +363,9 @@ Phases, each printing lines tagged with its name:
              each SD3.5 workflow (`launches`: its HTTP run), and
              flash_attention_sd35m_slg_dualclip per image of the SLG
              workflow through DualCLIPLoader sd3 (`launches`: its local
-             run).
+             run), and flash_attention_wan, _wan_14b and _wan_i2v per video
+             (`launches`: its HTTP run). With `--phases` only the entries
+             of the phases that ran.
 
 The card's nvidia-smi line and then {"ok": true, "device": ...} close
 the output. Without a CUDA device, or without the port's package beside
@@ -357,7 +399,7 @@ PEAK_BYTES = 3.35e12
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput): every score of the softmax costs one
 EXP2_PER_CLOCK_PER_SM = 16
-SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's 1.98 GHz boost clock
+SPIN_CYCLES = 6_000_000  # ~3 ms at the H100's 1.98 GHz boost clock
 # key counts at the edges of the wgmma instance's key tiles (80, 112, 144)
 EDGE_KEYS = (1, 77, 79, 80, 81, 143, 144, 145, 324, 1296)
 # query and key counts at the edges of the wgmma512 instance's 64-row
@@ -540,6 +582,61 @@ SD3_IMAGE_PX = 1024
 SD3_RAGGED_TOKENS = 63 * 63 + 154
 # the SLG image against the same run with the node muted: one 8-bit level
 SD3_MIN_DIFF = 1.0 / 255
+# the wan phase: the three bundled WAN workflows, unmodified, at full width
+# and depth, by entry of the kernels line
+WAN_WORKFLOWS = {
+    "wan": "distributed-wan.json",
+    "wan_14b": "distributed-wan-2.2-14b-t2v.json",
+    "wan_i2v": "distributed-wan-i2v.json",
+}
+# the i2v workflow's LoadImage input (first_frame.png): a seeded frame of the
+# t2v-14B size (height, width), so its DiT runs at 21 x 30 x 45 tokens
+WAN_I2V_FRAME_HW = (480, 720)
+# a participant's first DiT evaluation against one evaluation here on its
+# seed's noise: |d| <= WAN_FIRST_EVAL_TOLERANCE * max |ref|
+WAN_FIRST_EVAL_TOLERANCE = 1e-2
+# the i2v velocity with the CLIP-vision tokens zeroed moves by at least
+# 1/255 of its max (the image branch is live)
+WAN_IMAGE_BRANCH_MIN = 1.0 / 255
+# the chunked VAE decode of one wan-1.3b latent against the whole clip
+WAN_CHUNK_TOLERANCE = 1e-3
+# a WAN run over HTTP: two 14B videos share the card
+WAN_RUN_TIMEOUT_S = 900.0
+# samples x calls, and warm-up calls, of the plain version's timing at a
+# path's shape (its check's call has run it once); past PLAIN_SCORES_TIMED
+# scores (WAN's 28350 tokens, ~2 s a call) PLAIN_REPS_LARGE
+PLAIN_REPS = ((2, 3), 1)
+PLAIN_SCORES_TIMED = 2**30
+PLAIN_REPS_LARGE = ((2, 1), 0)
+# samples x calls of each timing of a kernel check: at a path's shape, at a
+# check off every path (f32, views, ragged lengths), and of each plan on a
+# [tiles] line (a CUDA-event median; few samples, so that the wan phase
+# fits the run's time limit)
+MAIN_REPS = (3, 10)
+OFF_PATH_REPS = (2, 5)
+TILES_REPS = (3, 10)
+# kernel and SDPA calls bound past this many ms are timed at LARGE_REPS
+LARGE_CALL_MS = 5.0
+LARGE_REPS = (5, 2)
+# earlier paths cut in depth (full width) so that the wan phase fits the
+# run's time limit: Flux (double, single blocks; published 19, 38) and the
+# SD3.5 joint blocks (published 38 large; 24 medium, attn2 in the first 13,
+# SLG on blocks 7-9)
+FLUX_DEPTH_CUT = (2, 4)
+SD3_DEPTH_CUT = {"sd35-large": (4, 0), "sd35-medium": (10, 5)}
+# then the SDXL, SD1.5 and SD2.1 UNets of the phases that repeat a path the
+# main path covers (host-bound on their launches): SDXL's transformer blocks
+# per level (published (0, 2, 10)) and every UNet's residual blocks per level
+# (published 2). The main path (main, elastic, txt2img) and the other phases
+# keep the published depths; procs's worker loads published files.
+SDXL_DEPTH_CUT = (0, 1, 1)
+UNET_RES_BLOCKS_CUT = 1
+UNET_CUTS = ("sdxl", "sd15", "sd21")
+CUT_PHASES = ("adapters", "ckpt", "samplers", "usdu_full", "guidance", "custom", "dynamic")
+# every phase, in run order; `--phases` picks a subset
+PHASES = ("kernel", "main", "elastic", "adapters", "txt2img", "sd", "ckpt", "procs", "samplers",
+          "usdu_full", "guidance", "custom", "nodes", "inpaint_model", "dynamic", "flux",
+          "sd3", "wan")
 
 
 def _require(ok: bool, message: str) -> None:
@@ -560,14 +657,14 @@ def _max_sm_clock_mhz() -> float:
     return float(_nvidia_smi("clocks.max.sm").split()[0])
 
 
-def _time_ms(torch, fn, reps: int = 15, inner: int = 10) -> float:
+def _time_ms(torch, fn, reps: int = 15, inner: int = 10, warmup: int = 3) -> float:
     """Median over `reps` of the device time per call, after warm-up.
 
     Each sample's `inner` calls queue behind a spin kernel of ~10 ms, so
     they are all on the stream before the first one starts: the CUDA
     events then time the device's work back to back, not the rate at
     which the host launches it (which bounds calls of a few µs)."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     samples = []
@@ -841,7 +938,7 @@ def _time_plans(torch, attn, label, q, k, v, plans, chosen) -> str:
     m = k.shape[1]
     parts = []
     for plan in plans:
-        ms = _time_ms(torch, lambda: attn.flash_attention(q, k, v, with_plan=plan))
+        ms = _time_ms(torch, lambda: attn.flash_attention(q, k, v, with_plan=plan), *TILES_REPS)
         mark = "*" if plan == chosen else ""
         parts.append(f"{mark}k{plan.keys_per_tile} r{plan.rows_per_cta} s{plan.splits} {ms:.5f} ms "
                      f"{plan.masked_share(m):.3f} masked ctas={plan.ctas(*q.shape[:3])}")
@@ -975,14 +1072,17 @@ def _serving(tmp: str, settings: dict, device: str, pipelines: dict | None = Non
             asyncio.run_coroutine_threadsafe(teardown(), loop.loop).result(timeout=60)
         finally:
             loop.stop()
+            # a stopped server keeps no bundle alive (the next phase's may not fit)
+            for server in (master, worker):
+                server.execution_context.pipelines.clear()
 
 
-def _queue(base: str, worker_port: int, workflow, extra: dict | None = None
-           ) -> tuple[dict, dict, dict]:
+def _queue(base: str, worker_port: int, workflow, extra: dict | None = None,
+           timeout: float = ELASTIC_RUN_TIMEOUT_S) -> tuple[dict, dict, dict]:
     """POST the workflow to the master's /distributed/queue with workers
-    ["w1"] (and the body keys of `extra`) and wait until the master's and
-    w1's prompts are done: (the queue answer, the master's history, w1's
-    history)."""
+    ["w1"] (and the body keys of `extra`) and wait, at most `timeout`
+    seconds, until the master's and w1's prompts are done: (the queue
+    answer, the master's history, w1's history)."""
     from comfyui_distributed_tpu_torch.utils.network import request_json
 
     status, queued = request_json("POST", f"{base}/distributed/queue", {
@@ -991,7 +1091,7 @@ def _queue(base: str, worker_port: int, workflow, extra: dict | None = None
     _require(status == 200, f"/distributed/queue answered {status}: {queued}")
     _require(queued.get("workers") == ["w1"],
              f"w1 was not dispatched (probe or dispatch failed): {queued}")
-    deadline = time.monotonic() + ELASTIC_RUN_TIMEOUT_S
+    deadline = time.monotonic() + timeout
     history = _wait_done(request_json, f"{base}/history/{queued['prompt_id']}", deadline)
     worker_history = _wait_done(
         request_json, f"http://127.0.0.1:{worker_port}/history/{queued['trace_id']}_w0", deadline)
@@ -1044,7 +1144,9 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
     of the workflow (an earlier phase did that). `after(servers)`, where
     given, runs once the runs are checked, on the same servers: servers
     is {"master", "worker", "base", "worker_port", "input_dir",
-    "output_dir"}; its result is the returned dict's "after"."""
+    "output_dir", "reference_avg"} (the local tiles' weighted average, as
+    phase 4 composites them); its result is the returned dict's "after".
+    With `runs` 0 the servers only serve `after`."""
     from comfyui_distributed_tpu_torch.ops import attention as attn
     from comfyui_distributed_tpu_torch.utils import image as img_utils
 
@@ -1141,13 +1243,15 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                 if after is not None:
                     result["after"] = after({"master": master, "worker": worker, "base": base,
                                              "worker_port": worker_port, "input_dir": in_dir,
-                                             "output_dir": out_dir})
+                                             "output_dir": out_dir,
+                                             "reference_avg": reference_avg})
         finally:
             if blend_env is None:
                 os.environ.pop("CDT_DETERMINISTIC_BLEND", None)
             else:
                 os.environ["CDT_DETERMINISTIC_BLEND"] = blend_env
-    _require(tiles_by.get("w1", 0) >= 1, f"w1 completed no tile in {runs} runs: {tiles_by}")
+    _require(not runs or tiles_by.get("w1", 0) >= 1,
+             f"w1 completed no tile in {runs} runs: {tiles_by}")
     return result
 
 
@@ -1197,8 +1301,8 @@ def _seeded_lora(torch, bundle, gen) -> dict:
 def _adapters_phase(torch, bundle, ckpt: str, workflow, image, main_out, servers: dict,
                     device: str, gen, expected_launches: int | None = None,
                     expected_by_instance: dict | None = None) -> dict:
-    """The `adapters` phase (see the module docstring), on phase 4's
-    bundle and the elastic phase's master and w1 (`servers`): a seeded
+    """The `adapters` phase (see the module docstring), on `bundle` served
+    by a master and w1 (`servers`), `main_out` its base output: a seeded
     LoRA file in a temporary CDT_LORA_DIR; the workflow locally under
     LoraLoader and under LoraLoaderModelOnly; the unmodified workflow over
     HTTP with `adapters`; an unknown adapter refused; then the tile cache
@@ -1294,12 +1398,12 @@ def _adapters_phase(torch, bundle, ckpt: str, workflow, image, main_out, servers
             apart = float((out - main_out.float().to(out.device)).abs().max())
             print(f"{label} LoraLoader {ADAPTER_STRENGTH}/{ADAPTER_STRENGTH} local run: "
                   f"{run['seconds']:.2f} s, merge (the node) {run['merge_s']:.2f} s; output "
-                  f"{tuple(out.shape)} vs phase 4's max |diff| {apart:.3g} (>= "
+                  f"{tuple(out.shape)} vs the base output's max |diff| {apart:.3g} (>= "
                   f"{ADAPTER_MIN_DIFF:.4f}); flash_attention launches {run['launches']}, by "
                   f"instance {run['by_instance']}; base bundle weights changed: {len(changed)} "
                   f"[{smi}]")
             _require(bool(torch.isfinite(out).all()), "non-finite LoraLoader output")
-            _require(apart >= ADAPTER_MIN_DIFF, "the LoraLoader output is phase 4's")
+            _require(apart >= ADAPTER_MIN_DIFF, "the LoraLoader output is the base output")
             _require(not changed, f"the cached bundle's weights changed: {changed[:5]}")
             check_launches("LoraLoader", run["launches"], run["by_instance"])
             del run, out
@@ -3864,16 +3968,511 @@ def _sd3_phase(torch, workflows: dict, device: str, expected: dict | None = None
     return results
 
 
+def _depth_cuts():
+    """The registry configs cut in depth to fit the run's time limit, each at
+    its published width: name → config. Flux's and SD3.5's (FLUX_DEPTH_CUT,
+    SD3_DEPTH_CUT) hold for the whole run, the UNets' (UNET_CUTS:
+    SDXL_DEPTH_CUT, UNET_RES_BLOCKS_CUT) in CUT_PHASES only."""
+    import dataclasses
+
+    from comfyui_distributed_tpu_torch.models.registry import get_config
+
+    out = {}
+    for name in ("flux-dev", "flux-schnell"):
+        out[name] = dataclasses.replace(get_config(name), double_depth=FLUX_DEPTH_CUT[0],
+                                        single_depth=FLUX_DEPTH_CUT[1])
+    for name, (depth, dual) in SD3_DEPTH_CUT.items():
+        cfg = get_config(name)
+        out[name] = dataclasses.replace(cfg, depth=depth, hidden_dim=cfg.width,
+                                        heads=cfg.n_heads, dual_attn_blocks=dual)
+    out["sdxl"] = dataclasses.replace(get_config("sdxl"), transformer_depth=SDXL_DEPTH_CUT,
+                                      num_res_blocks=UNET_RES_BLOCKS_CUT)
+    for name in ("sd15", "sd21"):
+        out[name] = dataclasses.replace(get_config(name), num_res_blocks=UNET_RES_BLOCKS_CUT)
+    return out
+
+
+@contextlib.contextmanager
+def _installed(configs: dict):
+    """The port's registry holding `configs` (name → config) inside the
+    block."""
+    from comfyui_distributed_tpu_torch.models.registry import MODEL_REGISTRY
+
+    saved = {name: MODEL_REGISTRY[name] for name in configs}
+    try:
+        for name, cfg in configs.items():
+            MODEL_REGISTRY[name] = {**saved[name], "config": cfg}
+        yield
+    finally:
+        MODEL_REGISTRY.update(saved)
+
+
+def _wan_model(workflow) -> str:
+    """The registry name of a WAN workflow's VideoCheckpointLoader."""
+    from comfyui_distributed_tpu_torch.graph.nodes_video import video_model_name
+
+    return video_model_name(
+        workflow[_node_id(workflow, "VideoCheckpointLoader")]["inputs"]["ckpt_name"])
+
+
+def _wan_video(workflow, frame_hw: tuple = WAN_I2V_FRAME_HW) -> dict:
+    """A WAN workflow's video: frames, height, width, steps, cfg, seed, its
+    sampler node and whether it is WanImageToVideo, whose size is its
+    image's, `frame_hw` (the seeded first_frame.png)."""
+    ids = _node_ids(workflow, "WanImageToVideo")
+    if ids:
+        node, (height, width) = ids[0], frame_hw
+        inputs = workflow[node]["inputs"]
+        frames = inputs["frames"]
+    else:
+        node = _node_id(workflow, "VideoFlowSampler")
+        inputs = workflow[node]["inputs"]
+        latent = workflow[_node_id(workflow, "EmptyVideoLatent")]["inputs"]
+        height, width, frames = int(latent["height"]), int(latent["width"]), latent["frames"]
+    seed = workflow[_node_id(workflow, "DistributedSeed")]["inputs"]["seed"]
+    return {"frames": int(frames), "height": height, "width": width,
+            "steps": int(inputs["steps"]), "cfg": float(inputs["cfg"]), "seed": int(seed),
+            "node": node, "i2v": bool(ids)}
+
+
+def _wan_shapes(workflow, frame_hw: tuple = WAN_I2V_FRAME_HW):
+    """(label, q shape, M, calls) of one video of a WAN workflow: at each
+    flow step (one CFG-batched evaluation, batch 2) every block's
+    self-attention over the latent's (1, 2, 2) patches and its
+    cross-attention over CLIP-L's 77 tokens, in the i2v layout also over
+    CLIP vision's 257; then (i2v) the CLIP-vision tower's penultimate
+    blocks over its 257 tokens. The WAN VAE's mid attention is plain
+    PyTorch: no launch."""
+    from comfyui_distributed_tpu_torch.models.registry import get_config
+    from comfyui_distributed_tpu_torch.models.video_pipeline import default_parts
+
+    model = _wan_model(workflow)
+    cfg = get_config(model)
+    vae_name, te_name, cv_name = default_parts(model)
+    vae_cfg, te = get_config(vae_name), get_config(te_name)
+    video = _wan_video(workflow, frame_hw)
+    frames = (video["frames"] - 1) // getattr(vae_cfg, "temporal_downscale", 1) + 1
+    side = vae_cfg.downscale * cfg.patch_size[1]
+    tokens = frames * (video["height"] // side) * (video["width"] // side)
+    batch = 1 if video["cfg"] == 1.0 else 2
+    calls = cfg.depth * video["steps"]
+    q = (batch, tokens, cfg.heads, cfg.head_dim)
+    shapes = [(f"wan_self@{tokens}", q, tokens, calls),
+              (f"wan_text@{te.max_length}", q, te.max_length, calls)]
+    if cv_name is not None:
+        cv = get_config(cv_name)
+        shapes += [(f"wan_img@{cv.tokens}", q, cv.tokens, calls),
+                   (f"clipvis@{cv.tokens}", (1, cv.tokens, cv.heads, cv.width // cv.heads),
+                    cv.tokens, cv.layers - 1)]
+    return shapes
+
+
+def _wan_capture(torch, dit):
+    """Hooks on a DiT: every output must be finite; each thread's first
+    evaluation (a participant's: the master and w1 each run in a thread of
+    their own) keeps its inputs and output. Returns the state the hooks
+    fill ({"evals": n, "first": {thread: (args, output)}}) and their
+    handles."""
+    import threading
+
+    state = {"evals": 0, "first": {}, "pending": {}}
+
+    def before(module, args):
+        key = threading.get_ident()
+        if key not in state["first"] and key not in state["pending"]:
+            state["pending"][key] = tuple(None if a is None else a.detach().clone()
+                                          for a in args)
+
+    def after(module, args, output):
+        _require(bool(torch.isfinite(output).all()), "the DiT's velocity is not finite")
+        state["evals"] += 1
+        key = threading.get_ident()
+        if key in state["pending"]:
+            state["first"][key] = (state["pending"].pop(key), output.detach().clone())
+
+    return state, (dit.register_forward_pre_hook(before), dit.register_forward_hook(after))
+
+
+def _wan_first_eval_check(torch, vp, bundle, workflow, video, first: dict, label: str) -> dict:
+    """Each participant's first evaluation: its noise equals a generator
+    draw at the seed or the seed + 1 exactly, one each; w1's velocity is
+    within WAN_FIRST_EVAL_TOLERANCE x max |ref| of one evaluation here on
+    its seed's draw and the workflow's prompts (the i2v mask and clip
+    latent channels and the CLIP tokens taken from w1's input); in the
+    i2v layout w1's evaluation with those tokens zeroed moves by
+    WAN_IMAGE_BRANCH_MIN of its max."""
+    from comfyui_distributed_tpu_torch.ops import samplers as smp
+
+    _require(len(first) == 2, f"{len(first)} participants evaluated the DiT, expected 2")
+    seeds = {}
+    for (x, t, ctx, *rest), out in first.values():
+        noise = x[: x.shape[0] // 2, ..., : bundle.latent_channels]
+        for s in (video["seed"], video["seed"] + 1):
+            if torch.equal(noise, vp.video_noise(bundle, s, tuple(noise.shape))):
+                seeds[s] = (x, t, ctx, rest[0] if rest else None, out)
+    print(f"{label} first evaluations: the noise equals the draw at seeds {sorted(seeds)} "
+          f"(expected {video['seed']} and {video['seed'] + 1}); DiT input "
+          f"{tuple(next(iter(first.values()))[0][0].shape)}")
+    _require(sorted(seeds) == [video["seed"], video["seed"] + 1],
+             "a participant's noise is not the generator draw at its effective seed")
+    x, t, ctx, embeds, out = seeds[video["seed"] + 1]
+    inputs = workflow[video["node"]]["inputs"]
+    if video["i2v"]:
+        texts = (inputs["prompt"], inputs["negative_prompt"])
+    else:
+        texts = tuple(workflow[str(inputs[side][0])]["inputs"]["text"]
+                      for side in ("positive", "negative"))
+    pos, neg = (vp.encode_video_text(bundle, [text]) for text in texts)
+    noise = vp.video_noise(bundle, video["seed"] + 1,
+                           (1,) + tuple(x.shape[1:-1]) + (bundle.latent_channels,))
+    here = torch.cat([noise, x[:1, ..., bundle.latent_channels:]], dim=-1)
+    t0 = smp.get_flow_timesteps(video["steps"], bundle.flow_shift)[0] * 1000.0
+    result = {}
+    with torch.no_grad():
+        ref = bundle.dit(torch.cat([here, here]), t0.expand(2).to(x.device),
+                         torch.cat([pos, neg]), embeds)
+        diff, scale = float((out - ref).abs().max()), float(ref.abs().max())
+        print(f"{label} w1's first evaluation against one here at seed {video['seed'] + 1}: "
+              f"max |diff| {diff:.3g} of max |v| {scale:.3g} (at most "
+              f"{WAN_FIRST_EVAL_TOLERANCE:g} x); t x 1000 {float(t[0]):.3f} (here "
+              f"{float(t0):.3f})")
+        _require(diff <= WAN_FIRST_EVAL_TOLERANCE * scale,
+                 "w1's first evaluation is not its seed's and prompts'")
+        result["first_eval_max_abs_diff"] = diff
+        if embeds is not None:
+            moved = float((bundle.dit(x, t, ctx, torch.zeros_like(embeds)) - out).abs().max())
+            top = float(out.abs().max())
+            print(f"{label} w1's first evaluation with the CLIP-vision tokens zeroed moves the "
+                  f"velocity by {moved:.3g} (at least {WAN_IMAGE_BRANCH_MIN:.4f} x {top:.3g})")
+            _require(moved >= WAN_IMAGE_BRANCH_MIN * top,
+                     "the i2v image branch does not move the velocity")
+            result["image_branch_moves"] = moved
+    return result
+
+
+def _wan_file_check(torch, vp, bundle, device: str, tmp: str) -> dict:
+    """The bundle's DiT written in the original `blocks.N.*` layout in bf16,
+    then loaded by load_video_pipeline(checkpoint=): every parameter
+    torch.equal to the written one (the seeded weight through bf16, into
+    the parameter's dtype). The file is deleted."""
+    from comfyui_distributed_tpu_torch.models import sd_checkpoint as sdc
+    from comfyui_distributed_tpu_torch.models.registry import get_config
+
+    path = os.path.join(tmp, f"{bundle.model_name}.safetensors")
+    started = time.perf_counter()
+    state = sdc.synthesize_state_dict(bundle.dit.state_dict(),
+                                      sdc.wan_schedule(get_config(bundle.model_name)))
+    nbytes = sdc.save_safetensors(state, path, dtype=torch.bfloat16)
+    written = time.perf_counter() - started
+    started = time.perf_counter()
+    loaded = vp.load_video_pipeline(bundle.model_name, checkpoint=path, device=device)
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - started
+    want = bundle.dit.state_dict()
+    got = loaded.dit.state_dict()
+    bad = [name for name, p in got.items()
+           if not torch.equal(p, want[name].to(torch.bfloat16).to(p.dtype))]
+    print(f"[wan] {bundle.model_name} DiT in the original layout: {len(state)} tensors, "
+          f"{nbytes} bytes (bf16) written in {written:.2f} s; load_video_pipeline(checkpoint=) "
+          f"{seconds:.2f} s ({nbytes / max(seconds, 1e-9) / 1e9:.2f} GB/s); parameters equal "
+          f"to the written ones: {len(got) - len(bad)} of {len(got)}")
+    _require(not bad, f"{len(bad)} parameters differ from the file's, e.g. {bad[:3]}")
+    del loaded, got
+    os.remove(path)
+    return {"file_bytes": nbytes, "file_load_seconds": seconds}
+
+
+def _wan_chunk_check(torch, bundle, video: dict, gen) -> dict:
+    """The chunked decode of one seeded latent of the video's size against
+    the whole-clip decode (f32, TF32 off): within WAN_CHUNK_TOLERANCE."""
+    cuda = bundle.device.type == "cuda"
+    shape = (1, bundle.latent_frames(video["frames"]), video["height"] // bundle.latent_scale,
+             video["width"] // bundle.latent_scale, bundle.latent_channels)
+    z = torch.randn(shape, generator=gen, device=bundle.device)
+    out, seconds = {}, {}
+    with torch.no_grad():
+        for chunked in (True, False):
+            if cuda:
+                torch.cuda.synchronize()
+            started = time.perf_counter()
+            out[chunked] = bundle.vae.decode(z, chunked=chunked)
+            if cuda:
+                torch.cuda.synchronize()
+            seconds[chunked] = time.perf_counter() - started
+    diff = float((out[True] - out[False]).abs().max())
+    print(f"[wan] the chunked VAE decode of a seeded {shape} latent against the whole clip: "
+          f"max |diff| {diff:.3g} (at most {WAN_CHUNK_TOLERANCE:g}); chunked {seconds[True]:.2f} "
+          f"s, whole {seconds[False]:.2f} s")
+    _require(diff <= WAN_CHUNK_TOLERANCE, "the chunked VAE decode is not the whole clip's")
+    return {"chunk_max_abs_diff": diff}
+
+
+def _wan_local(torch, attn, executor, workflow, seed: int, label: str, size: tuple):
+    """One local run of a WAN workflow at `seed` (no SaveVideoFrames, every
+    node run): (its frames as f32, launches, by instance, seconds)."""
+    prompt = copy.deepcopy(workflow)
+    del prompt[_node_id(prompt, "SaveVideoFrames")]
+    prompt[_node_id(prompt, "DistributedSeed")]["inputs"]["seed"] = seed
+    cuda = str(executor.context.device).startswith("cuda")
+    executor.context.extras.pop("node_cache", None)
+    if cuda:
+        torch.cuda.synchronize()
+    attn.reset_launch_counts()
+    started = time.perf_counter()
+    executor.execute(prompt)
+    frames = executor.last_results[_node_id(prompt, "DistributedCollector")][0]
+    if cuda:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - started
+    launches, by_instance = _launch_counts(attn)
+    print(f"{label} local run, seed {seed}: {seconds:.2f} s; flash_attention launches "
+          f"{launches}, by instance {by_instance}; node times {executor.last_timings}")
+    _require(tuple(frames.shape) == size, f"local output shape {tuple(frames.shape)}")
+    _require(bool(torch.isfinite(frames).all()), "non-finite local output")
+    return frames.float(), launches, by_instance, seconds
+
+
+def _wan_phase(torch, workflows: dict, device: str, expected: dict | None = None,
+               frame_hw: tuple = WAN_I2V_FRAME_HW, gen=None,
+               local_tags: tuple = ("wan",)) -> dict:
+    """The bundled WAN workflows (tag → workflow), unmodified, one run each
+    over HTTP: master + w1 DistributedServers in this process sharing one
+    bundle, built (seeded on the device) when a workflow first needs it,
+    the last one freed first; every DiT output must be finite. Per run:
+    the collector's batch [2 F, H, W, 3] in [0, 1], the participants'
+    frames apart in max and mean (RERUN_TOLERANCE), launches as `expected`
+    (tag → (launches, by instance) a video; unchecked when None), no
+    collector job left, w1's F envelopes, SaveVideoFrames' 2 F PNGs and
+    manifest at the workflow's fps, the PNGs the frames' 8-bit values.
+    The workflows of `local_tags` (distributed-wan, wan-1.3b) are also
+    held against local runs at the seed and the seed + 1
+    (the master's frames within RERUN_TOLERANCE, w1's within it +
+    PNG_STEP), its DiT loaded from a file in the original layout
+    (`_wan_file_check`) and, with `gen`, its chunked decode against the
+    whole clip (`_wan_chunk_check`); the other workflows through each
+    participant's first evaluation (`_wan_first_eval_check`). Prints
+    seconds and videos/s, parameters by part, init seconds and peak
+    memory."""
+    import gc
+
+    import numpy as np
+
+    from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
+    from comfyui_distributed_tpu_torch.models import video_pipeline as vp
+    from comfyui_distributed_tpu_torch.ops import attention as attn
+    from comfyui_distributed_tpu_torch.utils import image as img_utils
+
+    cuda = device.startswith("cuda")
+    if cuda:
+        print(f"[wan] memory allocated at the phase's start "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    def run_workflow(tag, workflow, video, model, label, init_s, counts):
+        """One workflow's checks; its servers, executors and frames go with
+        its frame, so the next bundle finds the card free."""
+        size = (video["frames"], video["height"], video["width"], 3)
+        n = video["frames"]
+        per_video = None if expected is None else expected[tag]
+        pipelines = {f"video:{model}": bundle}
+        result = {"init_seconds": init_s, "parameters": counts}
+        with tempfile.TemporaryDirectory(prefix=f"cdt_{tag}_") as tmp:
+            in_dir, out_dir = os.path.join(tmp, "input"), os.path.join(tmp, "output")
+            os.makedirs(in_dir)
+            settings = {"input_dir": in_dir, "output_dir": out_dir}
+            for load in _node_ids(workflow, "LoadImage"):
+                rgb = np.random.default_rng(SEED).random((1, *frame_hw, 3), dtype=np.float32)
+                with open(os.path.join(in_dir, workflow[load]["inputs"]["image"]), "wb") as fh:
+                    fh.write(img_utils.encode_png(rgb))
+            local = {}
+            if tag in local_tags:
+                result.update(_wan_file_check(torch, vp, bundle, device, tmp))
+                if gen is not None:
+                    result.update(_wan_chunk_check(torch, bundle, video, gen))
+                executor = GraphExecutor(ExecutionContext(
+                    device=device, pipelines=dict(pipelines), config={"settings": settings}))
+                for s in (video["seed"], video["seed"] + 1):
+                    local[s], launches, by_instance, seconds = _wan_local(
+                        torch, attn, executor, workflow, s, label, size)
+                    result[f"local_seconds_seed_{s}"] = seconds
+                    if per_video is not None:
+                        _require(launches == per_video[0] and by_instance == per_video[1],
+                                 f"local launches {launches} by instance {by_instance}, "
+                                 f"expected {per_video}")
+            with _serving(tmp, settings, device, pipelines) as (master, worker, base, worker_port):
+                state["first"].clear()
+                state["pending"].clear()
+                state["evals"] = 0
+                if cuda:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                attn.reset_launch_counts()
+                started = time.perf_counter()
+                queued, history, worker_history = _queue(base, worker_port, workflow,
+                                                         timeout=WAN_RUN_TIMEOUT_S)
+                if cuda:
+                    torch.cuda.synchronize()
+                seconds = time.perf_counter() - started
+                launches, by_instance = _launch_counts(attn)
+                peak = torch.cuda.max_memory_allocated() if cuda else 0
+                collector = _node_id(workflow, "DistributedCollector")
+                save = _node_id(workflow, "SaveVideoFrames")
+                record = master.job_store.finished[queued["job_ids"][collector]]
+                out = master.get_job(queued["prompt_id"]).outputs[save][0]["images"]
+                print(f"{label} run over HTTP: {seconds:.2f} s, {2 / seconds:.5f} videos/s; node "
+                      f"seconds: master {history['timings']}, w1 {worker_history['timings']}; "
+                      f"DiT evaluations {state['evals']}; flash_attention launches {launches}, "
+                      f"by instance {by_instance}; peak {peak / 2**30:.2f} GiB; w1 envelopes "
+                      f"{record['received']}, bytes received {record['received_bytes']}; "
+                      f"collector jobs left {len(master.job_store.collectors)}")
+                _require(tuple(out.shape) == (2 * n, *size[1:]), f"output shape {tuple(out.shape)}")
+                _require(out.device.type == torch.device(device).type,
+                         f"the output was computed on {out.device}, not {device}")
+                _require(bool(torch.isfinite(out).all()), "non-finite output")
+                _require(float(out.min()) >= 0.0 and float(out.max()) <= 1.0,
+                         "output outside [0, 1]")
+                _require(record["received"] == {"w1": n} and record["finished_workers"] == ["w1"],
+                         f"w1's envelopes: {record['received']}, finished "
+                         f"{record['finished_workers']}")
+                _require(not master.job_store.collectors, "collector jobs outlive their prompts")
+                if per_video is not None:
+                    want = {k: 2 * v for k, v in per_video[1].items()}
+                    _require(launches == 2 * per_video[0] and by_instance == want,
+                             f"launches {launches} by instance {by_instance}, expected "
+                             f"{2 * per_video[0]}, {want}")
+                saved = history["outputs"][save]["images"]
+                prefix = workflow[save]["inputs"]["filename_prefix"]
+                with open(os.path.join(out_dir, f"{prefix}_manifest.json"),
+                          encoding="utf-8") as fh:
+                    manifest = json.load(fh)
+                _require(len(saved) == 2 * n and manifest["frames"] == saved
+                         and manifest["fps"] == int(workflow[save]["inputs"]["fps"]),
+                         f"saved {len(saved)} frames, the manifest's fps {manifest.get('fps')}")
+                u8 = img_utils.f32_to_u8(img_utils.ensure_numpy(out))
+                for i, name in enumerate(saved):
+                    with open(os.path.join(out_dir, name), "rb") as fh:
+                        _require(np.array_equal(img_utils.decode_png_u8(fh.read()), u8[i]),
+                                 f"{name} is not frame {i}")
+                d01 = (out[:n] - out[n:]).float().abs()
+                print(f"{label} output {tuple(out.shape)} in [{float(out.min()):.4f}, "
+                      f"{float(out.max()):.4f}]; the participants' frames apart by max "
+                      f"{float(d01.max()):.3g} and mean {float(d01.mean()):.3g} (each > "
+                      f"{RERUN_TOLERANCE}); {len(saved)} PNGs equal to the frames and the "
+                      f"manifest at {manifest['fps']} fps")
+                _require(float(d01.max()) > RERUN_TOLERANCE
+                         and float(d01.mean()) > RERUN_TOLERANCE,
+                         "the master's and w1's videos do not differ")
+                if local:
+                    d0 = float((out[:n].float() - local[video["seed"]].to(out.device)).abs().max())
+                    d1 = float((out[n:].float()
+                                - local[video["seed"] + 1].to(out.device)).abs().max())
+                    print(f"{label} the master's frames vs the local seed {video['seed']} max "
+                          f"|diff| {d0:.3g} (tolerance {RERUN_TOLERANCE}), w1's vs the local "
+                          f"seed {video['seed'] + 1} {d1:.3g} (tolerance "
+                          f"{RERUN_TOLERANCE + PNG_STEP:.4f})")
+                    _require(d0 <= RERUN_TOLERANCE, "the master's video is not the local seed's")
+                    _require(d1 <= RERUN_TOLERANCE + PNG_STEP,
+                             "w1's video is not the local seed's")
+                else:
+                    result.update(_wan_first_eval_check(torch, vp, bundle, workflow, video,
+                                                        state["first"], label))
+                result.update({"launches": launches, "launches_by_instance": by_instance,
+                               "seconds": seconds, "videos_per_s": 2 / seconds,
+                               "peak_gib": peak / 2**30})
+        return result
+
+    results, bundle, hooks = {}, None, ()
+    for tag, workflow in workflows.items():
+        label = f"[{tag}]"
+        model = _wan_model(workflow)
+        video = _wan_video(workflow, frame_hw)
+        if bundle is None or bundle.model_name != model:
+            for handle in hooks:
+                handle.remove()
+            bundle = None
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+                print(f"[wan] memory allocated before {model}'s bundle "
+                      f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+            started = time.perf_counter()
+            bundle = vp.load_video_pipeline(model, seed=0, device=device)
+            if cuda:
+                torch.cuda.synchronize()
+            init_s = time.perf_counter() - started
+            counts = {part: sum(p.numel() for p in module.parameters())
+                      for part, module in bundle.parts().items()}
+            nbytes = sum(p.numel() * p.element_size() for module in bundle.parts().values()
+                         for p in module.parameters())
+            held = torch.cuda.memory_allocated() if cuda else 0
+            print(f"[wan] {model}: parameters by part {counts} ({sum(counts.values()) / 1e9:.3f}B"
+                  f", {nbytes} bytes; text {bundle.te_name}, VAE {bundle.vae_name}), seeded "
+                  f"random init on the device in {init_s:.1f} s; {held / 2**30:.2f} GiB "
+                  "allocated")
+            state, hooks = _wan_capture(torch, bundle.dit)
+        results[tag] = run_workflow(tag, workflow, video, model, label, init_s, counts)
+    for handle in hooks:
+        handle.remove()
+    return results
+
+
 def _rounded(seconds: dict) -> dict:
     return {stage: round(value, 4) for stage, value in sorted(seconds.items())}
 
 
-def main() -> int:
+def _parse_phases(argv) -> set:
+    """`--phases a,b,...` (default every phase of PHASES): the phases to
+    run. A phase that reads an earlier one's bundle or output builds its
+    own when that one is left out; "elastic" runs "main" too."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help=f"comma-separated phases to run, of {', '.join(PHASES)}")
+    args = parser.parse_args(argv)
+    phases = {name.strip() for name in args.phases.split(",") if name.strip()}
+    unknown = phases - set(PHASES)
+    if unknown:
+        parser.error(f"unknown phases {sorted(unknown)}; use {', '.join(PHASES)}")
+    if "elastic" in phases:
+        phases.add("main")
+    return phases
+
+
+def main(argv=()) -> int:
     import torch
 
+    phases = _parse_phases(list(argv))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU", file=sys.stderr)
         return 1
+    from comfyui_distributed_tpu_torch.models.registry import get_config
+
+    cuts = _depth_cuts()
+    unet_cuts = {name: cuts.pop(name) for name in UNET_CUTS}
+    print("[cuts] depth cut at full width, so the wan phase fits the run's time limit: "
+          + "; ".join(f"{name} {_depth_of(get_config(name))} -> {_depth_of(cfg)}"
+                      for name, cfg in cuts.items())
+          + f"; in the phases {', '.join(CUT_PHASES)} only: "
+          + "; ".join(f"{name} {_depth_of(get_config(name))} -> {_depth_of(cfg)}"
+                      for name, cfg in unet_cuts.items()))
+    with _installed(cuts):
+        return _run(torch, phases, unet_cuts)
+
+
+def _depth_of(cfg) -> str:
+    if hasattr(cfg, "transformer_depth"):
+        return (f"transformer blocks per level {tuple(cfg.transformer_depth)}, "
+                f"{cfg.num_res_blocks} residual blocks")
+    if hasattr(cfg, "double_depth"):
+        return f"{cfg.double_depth} double + {cfg.single_depth} single blocks"
+    return f"{cfg.depth} joint blocks ({cfg.dual_attn_blocks} with attn2)"
+
+
+def _run(torch, phases: set, unet_cuts: dict) -> int:
+    """Every phase of `phases`, in PHASES order (see the module docstring),
+    with Flux's and SD3.5's depth cuts installed; `unet_cuts` holds the
+    UNets' cut configs, installed for CUT_PHASES."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -3887,6 +4486,7 @@ def main() -> int:
     from comfyui_distributed_tpu_torch.utils import image as img_utils
 
     # --- 1. device ---------------------------------------------------------
+    run_started = time.perf_counter()
     smi = _nvidia_smi()
     print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi name, power.limit: {smi}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -3915,9 +4515,20 @@ def main() -> int:
     pairs = get_sigmas(usdu["scheduler"], int(usdu["steps"]), float(usdu["denoise"])).shape[0] - 1
     shapes = _attention_shapes(sdxl, vae_cfg, te_len, tile_px // vae_cfg.downscale,
                                model_evals_per_scan(usdu["sampler_name"], pairs))
-    # the samplers phase's elastic run: the same workflow on HTTP_SAMPLER
-    http_sampler_shapes = _attention_shapes(sdxl, vae_cfg, te_len, tile_px // vae_cfg.downscale,
-                                            model_evals_per_scan(HTTP_SAMPLER, pairs))
+
+    def cut():
+        """The registry with the UNets of CUT_PHASES at their cut depths."""
+        return _installed(unet_cuts)
+
+    with cut():
+        # the adapters phase's tile, and the samplers phase's elastic run:
+        # the same workflow on HTTP_SAMPLER
+        adapters_shapes = _attention_shapes(get_config("sdxl"), vae_cfg, te_len,
+                                            tile_px // vae_cfg.downscale,
+                                            model_evals_per_scan(usdu["sampler_name"], pairs))
+        http_sampler_shapes = _attention_shapes(get_config("sdxl"), vae_cfg, te_len,
+                                                tile_px // vae_cfg.downscale,
+                                                model_evals_per_scan(HTTP_SAMPLER, pairs))
     per_tile = sum(count for *_, count in shapes)
     n_tiles = plan_grid(IMAGE_PX, IMAGE_PX, float(usdu["upscale_by"]), int(usdu["tile_width"]),
                         int(usdu["tile_padding"]), int(usdu["tile_height"]))[2].num_tiles
@@ -3928,8 +4539,6 @@ def main() -> int:
     for tag, name in SD_WORKFLOWS.items():
         with open(os.path.join(REPO, "workflows", name), encoding="utf-8") as fh:
             sd_workflows[tag] = json.load(fh)
-    # every main-path unit's shapes: the SDXL upscale's tile, each seed-
-    # parallel workflow's image
     ckpt_workflows = {}
     for path, name in CKPT_WORKFLOWS.items():
         with open(os.path.join(REPO, "workflows", name), encoding="utf-8") as fh:
@@ -3937,19 +4546,8 @@ def main() -> int:
     t2i_sampler = _node_id(t2i_workflow, "KSampler")
     samplers_entry_workflow = copy.deepcopy(t2i_workflow)
     samplers_entry_workflow[t2i_sampler]["inputs"]["sampler_name"] = SAMPLERS_ENTRY_SAMPLER
-    # a usdu_full tile, a SAG image and an area image of the
-    # guidance phase (its FreeU and RescaleCFG images have txt2img's shapes)
-    guidance_shapes = {name: _guidance_shapes(name, t2i_workflow)
-                       for name in _guidance_variants(t2i_workflow)}
-    # the custom phase's images by guider (PerpNeg and DualCFG at batch 3),
-    # a dynamic-mode frame of the video workflow, an outpainted
-    # sd15-inpaint image
     with open(os.path.join(REPO, "workflows", CUSTOM_WORKFLOW), encoding="utf-8") as fh:
         flux_custom = json.load(fh)
-    custom_shapes = {guider: _custom_shapes(_custom_workflow(flux_custom, guider))
-                     for guider in CUSTOM_GUIDERS}
-    custom_shapes["two_stage"] = _custom_shapes(_custom_two_stage(
-        _custom_workflow(flux_custom, "CFGGuider")))
     with open(os.path.join(REPO, "workflows", DYNAMIC_WORKFLOW), encoding="utf-8") as fh:
         video_workflow = json.load(fh)
     inpaint_model_workflow = _inpaint_model_workflow()
@@ -3957,6 +4555,10 @@ def main() -> int:
     for tag, name in FLUX_WORKFLOWS.items():
         with open(os.path.join(REPO, "workflows", name), encoding="utf-8") as fh:
             flux_workflows[tag] = json.load(fh)
+    wan_workflows = {}
+    for tag, name in WAN_WORKFLOWS.items():
+        with open(os.path.join(REPO, "workflows", name), encoding="utf-8") as fh:
+            wan_workflows[tag] = json.load(fh)
     sd3_workflows = {}
     for tag, name in SD3_WORKFLOWS.items():
         with open(os.path.join(REPO, "workflows", name), encoding="utf-8") as fh:
@@ -3967,19 +4569,48 @@ def main() -> int:
         sd3_shapes[tag] = _sd3_shapes(wf)
         if _node_ids(wf, "SkipLayerGuidanceSD3"):
             sd3_shapes[f"{tag}_dualclip"] = _sd3_shapes(_sd3_dualclip_workflow(wf))
-    path_shapes = {"upscale": shapes, "txt2img": t2i_shapes,
-                   **{tag: _txt2img_shapes(wf) for tag, wf in sd_workflows.items()},
-                   **{path: _txt2img_shapes(wf) for path, wf in ckpt_workflows.items()},
-                   "samplers": _txt2img_shapes(samplers_entry_workflow),
-                   "usdu_full": _usdu_full_shapes(workflow),
-                   "guidance": guidance_shapes["SelfAttentionGuidance"],
-                   "guidance_area": guidance_shapes["area"],
-                   "custom": custom_shapes["PerpNegGuider"],
-                   "custom_dualcfg": custom_shapes["DualCFGGuider"],
-                   "dynamic": _dynamic_shapes(_dynamic_workflow(video_workflow)),
-                   "inpaint_model": _txt2img_shapes(inpaint_model_workflow),
-                   **{tag: _flux_shapes(wf) for tag, wf in flux_workflows.items()},
-                   **sd3_shapes}
+    sd_shapes = {tag: _txt2img_shapes(wf) for tag, wf in sd_workflows.items()}
+    inpaint_model_shapes = _txt2img_shapes(inpaint_model_workflow)
+    with cut():
+        # a SAG image and an area image of the guidance phase (its FreeU and
+        # RescaleCFG images have the samplers' shapes); the custom phase's
+        # images by guider (PerpNeg and DualCFG at batch 3)
+        guidance_shapes = {name: _guidance_shapes(name, t2i_workflow)
+                           for name in _guidance_variants(t2i_workflow)}
+        custom_shapes = {guider: _custom_shapes(_custom_workflow(flux_custom, guider))
+                         for guider in CUSTOM_GUIDERS}
+        custom_shapes["two_stage"] = _custom_shapes(_custom_two_stage(
+            _custom_workflow(flux_custom, "CFGGuider")))
+        # every path's unit: the SDXL upscale's tile (the main path's and the
+        # adapters phase's), each seed-parallel workflow's image, a usdu_full
+        # tile, a dynamic-mode frame of the video workflow, an outpainted
+        # sd15-inpaint image, a Flux, SD3.5 or WAN workflow's image or video;
+        # CUT_PHASES' at their cut depths
+        path_shapes = {"upscale": shapes, "txt2img": t2i_shapes, "adapters": adapters_shapes,
+                       **sd_shapes,
+                       **{path: _txt2img_shapes(wf) for path, wf in ckpt_workflows.items()},
+                       "samplers": _txt2img_shapes(samplers_entry_workflow),
+                       "usdu_full": _usdu_full_shapes(workflow),
+                       "guidance": guidance_shapes["SelfAttentionGuidance"],
+                       "guidance_area": guidance_shapes["area"],
+                       "custom": custom_shapes["PerpNegGuider"],
+                       "custom_dualcfg": custom_shapes["DualCFGGuider"],
+                       "dynamic": _dynamic_shapes(_dynamic_workflow(video_workflow)),
+                       "inpaint_model": inpaint_model_shapes,
+                       **{tag: _flux_shapes(wf) for tag, wf in flux_workflows.items()},
+                       **sd3_shapes,
+                       **{tag: _wan_shapes(wf) for tag, wf in wan_workflows.items()}}
+    # the paths each phase's runs hold launch counts of
+    phase_paths = {"main": {"upscale"}, "elastic": {"upscale"}, "adapters": {"adapters"},
+                   "txt2img": {"txt2img"},
+                   "sd": set(SD_WORKFLOWS), "ckpt": set(CKPT_WORKFLOWS),
+                   "samplers": {"samplers"}, "usdu_full": {"usdu_full"},
+                   "guidance": {"guidance", "guidance_area"},
+                   "custom": {"custom", "custom_dualcfg"}, "inpaint_model": {"inpaint_model"},
+                   "dynamic": {"dynamic"}, "flux": set(FLUX_WORKFLOWS), "sd3": set(sd3_shapes),
+                   "wan": set(WAN_WORKFLOWS)}
+    selected_paths = set().union(*(phase_paths.get(name, set()) for name in phases))
+    wan_paths = set(WAN_WORKFLOWS)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -4055,6 +4686,9 @@ def main() -> int:
             rows, keys = rows + EDGE_ROWS_PINGPONG, keys + EDGE_KEYS_PINGPONG
         checks += [(f"edge D{d} {n}x{m} B*H=1", (1, n, 1, d), m, "bfloat16", None, "edge")
                    for n in rows for m in keys]
+    if "kernel" not in phases:
+        # only the selected paths' own shapes
+        checks = [c for c in checks if c[4] and set(c[4]) & selected_paths]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock_mhz = _max_sm_clock_mhz()
     print(f"[device] {sms} SMs, maximum SM clock {clock_mhz:g} MHz (nvidia-smi clocks.max.sm): "
@@ -4087,21 +4721,39 @@ def main() -> int:
         err = float((out.float() - ref.float()).abs().max())
         rtol, atol = tolerance[dtype]
         ok = bool(torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol))
-        if d in FLUX_HEAD_DIMS:  # every Flux entry's: one instance carries them all
+        if units and set(units) <= wan_paths:
+            targets = set(units)
+        elif d in FLUX_HEAD_DIMS:  # every Flux entry's: one instance carries them all
             targets = set(FLUX_WORKFLOWS)
         else:
             entry = "txt2img" if d in TXT2IMG_HEAD_DIMS and plan.instance == "wgmma" else "upscale"
             targets = {entry} | {p for p in (units or {}) if p not in ("upscale", "txt2img")}
         for path in targets:
             max_err[path] = max(max_err[path], err)
-        # the edges are many and small: fewer samples
-        reps = (3, 3) if layout == "edge" else (15, 10)
-        kernel_ms = _time_ms(torch, lambda: attn.flash_attention(q, k, v), *reps)
-        plain_ms = _time_ms(torch, lambda: attn.flash_attention_reference(q, k, v), *reps)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), *reps)
+        emulation = None
+        if units and set(units) <= wan_paths and m > attn.WGMMA_PINGPONG_ABOVE.get(d, m):
+            # the one-bf16-P plan against its emulation, as at joint@4608
+            emulation = _tolerance_ratio(
+                out, attn.bf16_p_attention_reference(q, k, v, plan.keys_per_tile))
+            _require(emulation <= 1.0, f"{label}: the one-bf16-P plan misses its emulation "
+                                       f"({emulation:.3g})")
         terms = _bounds(q.shape, k.shape[1], dtype, sms, clock_mhz)
         bound_ms = max(terms.values())
+        # the edges are many and small: fewer samples; so are WAN's long calls
+        # and the checks off the paths (no launches a unit)
+        reps = (OFF_PATH_REPS if layout == "edge" else LARGE_REPS if bound_ms > LARGE_CALL_MS
+                else MAIN_REPS if units else OFF_PATH_REPS)
+        plain_reps = PLAIN_REPS_LARGE if b * h * n * m > PLAIN_SCORES_TIMED else PLAIN_REPS
+        kernel_ms = _time_ms(torch, lambda: attn.flash_attention(q, k, v), *reps)
+        # the plain version's and SDPA's times feed the kernels line's
+        # entries, which read the paths' shapes only
+        plain_ms = library_ms = math.nan
+        if units:
+            plain_ms = _time_ms(torch, lambda: attn.flash_attention_reference(q, k, v),
+                                *plain_reps[0], warmup=plain_reps[1])
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                                  *reps)
         per_sm = attn.blocks_per_sm(plan, q.dtype, d)
         ctas = plan.ctas(b, n, h)
         print(f"[kernel] {label} {dtype} q={tuple(q.shape)} M={k.shape[1]} "
@@ -4114,10 +4766,12 @@ def main() -> int:
               f"instance={plan.instance} keys/tile={plan.keys_per_tile} "
               f"masked={plan.masked_share(m):.4f} rows/cta={plan.rows_per_cta} "
               f"splits={plan.splits} ctas={ctas} ctas/sm={per_sm} "
-              f"waves={ctas / (per_sm * sms):.3f}")
+              f"waves={ctas / (per_sm * sms):.3f}"
+              + ("" if emulation is None else
+                 f" bf16P-emulation={emulation:.3f} (max |d| / tolerance)"))
         # the paths' shapes, and Flux's ragged joint length
         joint = d in FLUX_HEAD_DIMS and layout == "contiguous" and n == m
-        if plan.instance == "wgmma" and (units or joint):
+        if plan.instance == "wgmma" and (units or joint) and not set(units or {}) <= wan_paths:
             plans = attn.wgmma_plans(d)
             tile_lines.append(_time_plans(torch, attn, label, q, k, v, plans, plan))
             # the largest call of the upscale or txt2img path: the [host]
@@ -4139,290 +4793,348 @@ def main() -> int:
 
     for line in tile_lines:
         print(line)
-    print(_threshold_line(torch, attn, gen))
-    print(_host_us_per_call(torch, attn, *host_inputs))
+    if "kernel" in phases:
+        print(_threshold_line(torch, attn, gen))
+        print(_host_us_per_call(torch, attn, *host_inputs))
     phase_seconds = {"kernel": time.perf_counter() - phase_started}
+
+    def per_unit(shapes_):
+        """(launches, by instance) of one image, frame or video of `shapes_`."""
+        return (sum(count for *_, count in shapes_), _expected_by_instance(attn, shapes_, torch))
+
+    def run(name: str) -> bool:
+        if name in phases:
+            print(f"[phases] {name}: starts {time.perf_counter() - run_started:.1f} s into the run")
+            return True
+        print(f"[phases] {name}: not selected")
+        return False
+
+    results = {}
 
     # --- 4. main path --------------------------------------------------------
     phase_started = time.perf_counter()
-    prompt = copy.deepcopy(workflow)
-    del prompt["4"], prompt["6"]  # LoadImage → a seeded image; no SaveImage
     rng = np.random.default_rng(SEED)
     # on 8-bit levels, so the elastic phase's input.png holds exactly this
     seeded = img_utils.u8_to_f32(img_utils.f32_to_u8(
         rng.random((1, IMAGE_PX, IMAGE_PX, 3), dtype=np.float32)))
-    prompt["5"]["inputs"]["image"] = torch.from_numpy(seeded).to("cuda")
-    ckpt = prompt["1"]["inputs"]["ckpt_name"]
-    started = time.perf_counter()
-    bundle = pl.load_pipeline(ckpt, seed=0, device="cuda")
-    _seed_out_conv(torch, bundle, gen)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for m in (bundle.unet, bundle.vae, bundle.text_encoder,
-                                       bundle.text_encoder_2) for p in m.parameters())
-    print(f"[main] {ckpt}: {n_params / 1e9:.3f}B parameters, seeded random init on the card "
-          f"in {time.perf_counter() - started:.1f} s (compute dtype {sdxl.dtype})")
-    context = ExecutionContext(device="cuda")
-    context.pipelines[ckpt] = bundle  # CheckpointLoaderSimple resolves it here
-    executor = GraphExecutor(context)
-    outputs = []
-    launches = 0
+    ckpt = workflow["1"]["inputs"]["ckpt_name"]
+    t2i_ckpt = t2i_workflow["1"]["inputs"]["ckpt_name"]
+    main_tiles_per_s = None
     expected_by_instance = {
         name: n_tiles * count
         for name, count in _expected_by_instance(attn, shapes, torch).items()
     }
-    for run in (1, 2):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        attn.reset_launch_counts()
+    if run("main"):
+        prompt = copy.deepcopy(workflow)
+        del prompt["4"], prompt["6"]  # LoadImage → a seeded image; no SaveImage
+        prompt["5"]["inputs"]["image"] = torch.from_numpy(seeded).to("cuda")
         started = time.perf_counter()
-        executor.execute(prompt)
-        image = executor.last_results["5"][0]
+        bundle = pl.load_pipeline(ckpt, seed=0, device="cuda")
+        _seed_out_conv(torch, bundle, gen)
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - started
-        launches = attn.flash_attention.launches
-        by_instance = dict(attn.flash_attention.launches_by_instance)
-        peak = torch.cuda.max_memory_allocated()
-        print(f"[main] run {run}: {seconds:.2f} s, {n_tiles / seconds:.4f} tiles/s, "
-              f"peak {peak / 2**30:.2f} GiB, flash_attention launches {launches} "
-              f"(expected {n_tiles} x {per_tile}), by instance {by_instance} "
-              f"(expected {expected_by_instance}), node times {executor.last_timings}")
-        out_px = 2 * IMAGE_PX
-        _require(tuple(image.shape) == (1, out_px, out_px, 3), f"output shape {tuple(image.shape)}")
-        _require(bool(torch.isfinite(image).all()), "non-finite output")
-        _require(float(image.min()) >= 0.0 and float(image.max()) <= 1.0, "output outside [0, 1]")
-        _require(launches == n_tiles * per_tile,
-                 f"{launches} attention launches, expected {n_tiles * per_tile}")
-        _require(by_instance == expected_by_instance,
-                 f"launches by instance {by_instance}, expected {expected_by_instance}")
-        outputs.append(image)
-    rerun_diff = float((outputs[0] - outputs[1]).abs().max())
-    print(f"[main] output {tuple(outputs[1].shape)} in [{float(outputs[1].min()):.4f}, "
-          f"{float(outputs[1].max()):.4f}], mean {float(outputs[1].mean()):.4f}; "
-          f"run 1 vs run 2 max |diff| {rerun_diff:.3g}")
-    _require(rerun_diff <= RERUN_TOLERANCE, "two runs of one seed disagree")
-    phase_seconds["main"] = time.perf_counter() - phase_started
+        n_params = sum(p.numel() for m in (bundle.unet, bundle.vae, bundle.text_encoder,
+                                           bundle.text_encoder_2) for p in m.parameters())
+        print(f"[main] {ckpt}: {n_params / 1e9:.3f}B parameters, seeded random init on the card "
+              f"in {time.perf_counter() - started:.1f} s (compute dtype {sdxl.dtype})")
+        context = ExecutionContext(device="cuda")
+        context.pipelines[ckpt] = bundle  # CheckpointLoaderSimple resolves it here
+        executor = GraphExecutor(context)
+        outputs = []
+        launches = 0
+        for run_index in (1, 2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            attn.reset_launch_counts()
+            started = time.perf_counter()
+            executor.execute(prompt)
+            image = executor.last_results["5"][0]
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - started
+            launches = attn.flash_attention.launches
+            by_instance = dict(attn.flash_attention.launches_by_instance)
+            peak = torch.cuda.max_memory_allocated()
+            print(f"[main] run {run_index}: {seconds:.2f} s, {n_tiles / seconds:.4f} tiles/s, "
+                  f"peak {peak / 2**30:.2f} GiB, flash_attention launches {launches} "
+                  f"(expected {n_tiles} x {per_tile}), by instance {by_instance} "
+                  f"(expected {expected_by_instance}), node times {executor.last_timings}")
+            out_px = 2 * IMAGE_PX
+            _require(tuple(image.shape) == (1, out_px, out_px, 3),
+                     f"output shape {tuple(image.shape)}")
+            _require(bool(torch.isfinite(image).all()), "non-finite output")
+            _require(float(image.min()) >= 0.0 and float(image.max()) <= 1.0,
+                     "output outside [0, 1]")
+            _require(launches == n_tiles * per_tile,
+                     f"{launches} attention launches, expected {n_tiles * per_tile}")
+            _require(by_instance == expected_by_instance,
+                     f"launches by instance {by_instance}, expected {expected_by_instance}")
+            outputs.append(image)
+        rerun_diff = float((outputs[0] - outputs[1]).abs().max())
+        print(f"[main] output {tuple(outputs[1].shape)} in [{float(outputs[1].min()):.4f}, "
+              f"{float(outputs[1].max()):.4f}], mean {float(outputs[1].mean()):.4f}; "
+              f"run 1 vs run 2 max |diff| {rerun_diff:.3g}")
+        _require(rerun_diff <= RERUN_TOLERANCE, "two runs of one seed disagree")
+        main_tiles_per_s = n_tiles / seconds
+        results["main"] = {"launches": launches, "launches_by_instance": by_instance}
+        phase_seconds["main"] = time.perf_counter() - phase_started
 
     # --- 4b. elastic -----------------------------------------------------------
-    phase_started = time.perf_counter()
-    main_tiles_per_s = n_tiles / seconds
-    adapters_seconds = []
+    if run("elastic"):
+        phase_started = time.perf_counter()
+        results["elastic"] = _elastic_phase(
+            torch, bundle, ckpt, workflow, prompt["5"]["inputs"]["image"], outputs[1], "cuda",
+            expected_launches=n_tiles * per_tile, expected_by_instance=expected_by_instance,
+            local_tiles_per_s=main_tiles_per_s,
+        )
+        phase_seconds["elastic"] = time.perf_counter() - phase_started
+    # phase 4's SDXL is not needed again
+    bundle = context = executor = outputs = image = prompt = None
+    torch.cuda.empty_cache()
 
-    def adapters_phase(servers):
-        # 4b'. adapters: phase 4's bundle on the elastic phase's servers
+    # --- 4b'. adapters: SDXL at the cut depth on a master and w1, served as
+    # the elastic phase serves it; the base output is its local tiles' weighted
+    # average ---------------------------------------------------------------------
+    if run("adapters"):
+        phase_started = time.perf_counter()
+        image = torch.from_numpy(seeded).to("cuda")
+        with cut():
+            bundle = pl.load_pipeline(ckpt, seed=0, device="cuda")
+            _seed_out_conv(torch, bundle, gen)
+            adapters_expected = {name: n_tiles * count for name, count in
+                                 _expected_by_instance(attn, adapters_shapes, torch).items()}
+            results["adapters"] = _elastic_phase(
+                torch, bundle, ckpt, workflow, image, None, "cuda", runs=0, tag="adapters",
+                after=lambda servers: _adapters_phase(
+                    torch, bundle, ckpt, workflow, image, servers["reference_avg"], servers,
+                    "cuda", gen, expected_launches=sum(adapters_expected.values()),
+                    expected_by_instance=adapters_expected))["after"]
+        bundle = image = None
+        torch.cuda.empty_cache()
+        phase_seconds["adapters"] = time.perf_counter() - phase_started
+
+    def sd15_bundle(name):
         started = time.perf_counter()
-        try:
-            return _adapters_phase(
-                torch, bundle, ckpt, workflow, prompt["5"]["inputs"]["image"], outputs[1],
-                servers, "cuda", gen, expected_launches=n_tiles * per_tile,
-                expected_by_instance=expected_by_instance)
-        finally:
-            adapters_seconds.append(time.perf_counter() - started)
-
-    elastic = _elastic_phase(
-        torch, bundle, ckpt, workflow, prompt["5"]["inputs"]["image"], outputs[1], "cuda",
-        expected_launches=n_tiles * per_tile, expected_by_instance=expected_by_instance,
-        local_tiles_per_s=n_tiles / seconds, after=adapters_phase,
-    )
-    adapters = elastic["after"]
-    phase_seconds["elastic"] = time.perf_counter() - phase_started - adapters_seconds[0]
-    phase_seconds["adapters"] = adapters_seconds[0]
+        out = pl.load_pipeline(name, seed=0, device="cuda")
+        _seed_out_conv(torch, out, gen)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - started
 
     # --- 4c. txt2img -------------------------------------------------------------
-    phase_started = time.perf_counter()
-    # SDXL's weights are not needed again
-    del bundle, context, executor, outputs, image, prompt
-    torch.cuda.empty_cache()
-    t2i_ckpt = t2i_workflow["1"]["inputs"]["ckpt_name"]
-    started = time.perf_counter()
-    t2i_bundle = pl.load_pipeline(t2i_ckpt, seed=0, device="cuda")
-    _seed_out_conv(torch, t2i_bundle, gen)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for m in (t2i_bundle.unet, t2i_bundle.vae, t2i_bundle.text_encoder)
-                   for p in m.parameters())
-    print(f"[txt2img] {t2i_ckpt}: {n_params / 1e9:.3f}B parameters, seeded random init on the "
-          f"card in {time.perf_counter() - started:.1f} s (compute dtype "
-          f"{get_config(t2i_ckpt).dtype})")
-    per_image = sum(count for *_, count in t2i_shapes)
-    t2i_expected = {name: 2 * count for name, count in
-                    _expected_by_instance(attn, t2i_shapes, torch).items()}
-    txt2img = _txt2img_phase(torch, t2i_bundle, t2i_workflow, "cuda",
-                             expected_launches=2 * per_image, expected_by_instance=t2i_expected)
-    phase_seconds["txt2img"] = time.perf_counter() - phase_started
+    t2i_bundle = None
+    if run("txt2img"):
+        phase_started = time.perf_counter()
+        t2i_bundle, init_s = sd15_bundle(t2i_ckpt)
+        n_params = sum(p.numel() for m in (t2i_bundle.unet, t2i_bundle.vae,
+                                           t2i_bundle.text_encoder) for p in m.parameters())
+        print(f"[txt2img] {t2i_ckpt}: {n_params / 1e9:.3f}B parameters, seeded random init on "
+              f"the card in {init_s:.1f} s (compute dtype {get_config(t2i_ckpt).dtype})")
+        per_image = sum(count for *_, count in t2i_shapes)
+        t2i_expected = {name: 2 * count for name, count in
+                        _expected_by_instance(attn, t2i_shapes, torch).items()}
+        results["txt2img"] = _txt2img_phase(torch, t2i_bundle, t2i_workflow, "cuda",
+                                            expected_launches=2 * per_image,
+                                            expected_by_instance=t2i_expected)
+        phase_seconds["txt2img"] = time.perf_counter() - phase_started
 
     # --- 4d. the other seed-parallel SD workflows ----------------------------------
     # two-pass, PAG and inpaint on the same SD1.5 weights; then SD2.1-768-v
     # on its own, seeded like the others, SD1.5 freed first
-    sd_results = {}
-    bundle = t2i_bundle
-    del t2i_bundle
-    for tag, wf in sd_workflows.items():
-        phase_started = time.perf_counter()
-        ckpt = wf[_node_id(wf, "CheckpointLoaderSimple")]["inputs"]["ckpt_name"]
-        if ckpt != bundle.model_name:
-            del bundle
-            torch.cuda.empty_cache()
-            started = time.perf_counter()
-            bundle = pl.load_pipeline(ckpt, seed=0, device="cuda")
-            _seed_out_conv(torch, bundle, gen)
-            torch.cuda.synchronize()
-            n_params = sum(p.numel() for m in (bundle.unet, bundle.vae, bundle.text_encoder)
-                           for p in m.parameters())
-            print(f"[{tag}] {ckpt}: {n_params / 1e9:.3f}B parameters, seeded random init on "
-                  f"the card in {time.perf_counter() - started:.1f} s (compute dtype "
-                  f"{get_config(ckpt).dtype}, text encoder {bundle.te_name})")
-        per_image = sum(count for *_, count in path_shapes[tag])
-        expected = {name: 2 * count for name, count in
-                    _expected_by_instance(attn, path_shapes[tag], torch).items()}
-        sd_results[tag] = _txt2img_phase(torch, bundle, wf, "cuda", 2 * per_image, expected,
-                                         runs=SD_WORKFLOW_RUNS, tag=tag)
-        phase_seconds[tag] = time.perf_counter() - phase_started
-    del bundle
+    if run("sd"):
+        bundle = t2i_bundle
+        for tag, wf in sd_workflows.items():
+            phase_started = time.perf_counter()
+            ckpt_ = wf[_node_id(wf, "CheckpointLoaderSimple")]["inputs"]["ckpt_name"]
+            if bundle is None or ckpt_ != bundle.model_name:
+                bundle = None
+                torch.cuda.empty_cache()
+                bundle, init_s = sd15_bundle(ckpt_)
+                n_params = sum(p.numel() for m in (bundle.unet, bundle.vae, bundle.text_encoder)
+                               for p in m.parameters())
+                print(f"[{tag}] {ckpt_}: {n_params / 1e9:.3f}B parameters, seeded random init "
+                      f"on the card in {init_s:.1f} s (compute dtype "
+                      f"{get_config(ckpt_).dtype}, text encoder {bundle.te_name})")
+            per_image = sum(count for *_, count in path_shapes[tag])
+            expected = {name: 2 * count for name, count in
+                        _expected_by_instance(attn, path_shapes[tag], torch).items()}
+            results[tag] = _txt2img_phase(torch, bundle, wf, "cuda", 2 * per_image, expected,
+                                          runs=SD_WORKFLOW_RUNS, tag=tag)
+            phase_seconds[tag] = time.perf_counter() - phase_started
+    bundle = t2i_bundle = None
     torch.cuda.empty_cache()
 
     # --- 4e. ckpt: real single-file checkpoints over HTTP ------------------------
-    phase_started = time.perf_counter()
+    if run("ckpt"):
+        phase_started = time.perf_counter()
+        with cut():
+            def per_run(path_name):
+                """(launches, by instance) of one run of a path: two images."""
+                return (2 * sum(count for *_, count in path_shapes[path_name]),
+                        {name: 2 * count for name, count in
+                         _expected_by_instance(attn, path_shapes[path_name], torch).items()})
 
-    def per_run(path_name):
-        """(launches, by instance) of one run of a path: two images."""
-        return (2 * sum(count for *_, count in path_shapes[path_name]),
-                {name: 2 * count for name, count in
-                 _expected_by_instance(attn, path_shapes[path_name], torch).items()})
-
-    ckpt_results = _ckpt_phase(torch, gen, ckpt_workflows, "cuda",
-                               {path: per_run(path) for path in ckpt_workflows})
-    torch.cuda.empty_cache()
-    phase_seconds["ckpt"] = time.perf_counter() - phase_started
+            results["ckpt"] = _ckpt_phase(torch, gen, ckpt_workflows, "cuda",
+                                          {path: per_run(path) for path in ckpt_workflows})
+            results.update(results["ckpt"])
+            torch.cuda.empty_cache()
+        phase_seconds["ckpt"] = time.perf_counter() - phase_started
 
     # --- 4e'. procs: the master here, w1 its own process launched through
     # /distributed/launch_worker, on SD1.5 and SDXL files --------------------------
-    phase_started = time.perf_counter()
-    procs = _procs_phase(
-        torch, gen, {"txt2img": t2i_workflow, "inpaint": sd_workflows["inpaint"],
-                     "upscale": workflow}, torch.from_numpy(seeded).to("cuda"), "cuda",
-        expected=(sum(count for *_, count in t2i_shapes),
-                  _expected_by_instance(attn, t2i_shapes, torch)),
-        rates={"txt2img": txt2img["images_per_s"], "elastic": elastic["tiles_per_s"],
-               "main": main_tiles_per_s})
-    phase_seconds["procs"] = time.perf_counter() - phase_started
+    if run("procs"):
+        phase_started = time.perf_counter()
+        procs_shapes = _txt2img_shapes(t2i_workflow)
+        results["procs"] = _procs_phase(
+            torch, gen, {"txt2img": t2i_workflow, "inpaint": sd_workflows["inpaint"],
+                         "upscale": workflow}, torch.from_numpy(seeded).to("cuda"), "cuda",
+            expected=(sum(count for *_, count in procs_shapes),
+                      _expected_by_instance(attn, procs_shapes, torch)),
+            rates={"txt2img": results.get("txt2img", {}).get("images_per_s"),
+                   "elastic": results.get("elastic", {}).get("tiles_per_s"),
+                   "main": main_tiles_per_s})
+        phase_seconds["procs"] = time.perf_counter() - phase_started
 
     # --- 4f. samplers: every sampler and scheduler on SD1.5; HTTP_SAMPLER over
     # the collector and over the elastic upscale ----------------------------------
-    phase_started = time.perf_counter()
-    bundle = pl.load_pipeline(t2i_ckpt, seed=0, device="cuda")
-    _seed_out_conv(torch, bundle, gen)
-    sampler_runs = [_samplers_phase(torch, bundle, t2i_workflow, "cuda", check_launches=True)]
-    http_workflow = copy.deepcopy(t2i_workflow)
-    http_workflow[t2i_sampler]["inputs"]["sampler_name"] = HTTP_SAMPLER
-    http_shapes = _txt2img_shapes(http_workflow)
-    sampler_runs.append(_txt2img_phase(
-        torch, bundle, http_workflow, "cuda", 2 * sum(count for *_, count in http_shapes),
-        {name: 2 * count for name, count in _expected_by_instance(attn, http_shapes, torch).items()},
-        runs=1, tag="samplers"))
-    del bundle
-    torch.cuda.empty_cache()
     upscale_ckpt = workflow["1"]["inputs"]["ckpt_name"]
-    bundle = pl.load_pipeline(upscale_ckpt, seed=0, device="cuda")
-    _seed_out_conv(torch, bundle, gen)
-    http_upscale = copy.deepcopy(workflow)
-    http_upscale[USDU_NODE]["inputs"]["sampler_name"] = HTTP_SAMPLER
-    sampler_runs.append(_elastic_phase(
-        torch, bundle, upscale_ckpt, http_upscale, torch.from_numpy(seeded).to("cuda"), None,
-        "cuda", expected_launches=n_tiles * sum(count for *_, count in http_sampler_shapes),
-        expected_by_instance={name: n_tiles * count for name, count in _expected_by_instance(
-            attn, http_sampler_shapes, torch).items()}, runs=1, tag="samplers"))
-    samplers_launches = sum(r["launches"] for r in sampler_runs)
-    samplers_by_instance = {name: sum(r["launches_by_instance"].get(name, 0) for r in sampler_runs)
-                            for name in attn.INSTANCES}
-    print(f"[samplers] seconds by run: {_rounded(sampler_runs[0]['seconds'])}; flash_attention "
-          f"launches over the phase {samplers_launches}, by instance {samplers_by_instance}")
-    phase_seconds["samplers"] = time.perf_counter() - phase_started
+    bundle = None
+    if run("samplers"):
+        phase_started = time.perf_counter()
+        with cut():
+            bundle, _ = sd15_bundle(t2i_ckpt)
+            sampler_runs = [_samplers_phase(torch, bundle, t2i_workflow, "cuda",
+                                            check_launches=True)]
+            http_workflow = copy.deepcopy(t2i_workflow)
+            http_workflow[t2i_sampler]["inputs"]["sampler_name"] = HTTP_SAMPLER
+            http_shapes = _txt2img_shapes(http_workflow)
+            sampler_runs.append(_txt2img_phase(
+                torch, bundle, http_workflow, "cuda", 2 * sum(count for *_, count in http_shapes),
+                {name: 2 * count for name, count in
+                 _expected_by_instance(attn, http_shapes, torch).items()},
+                runs=1, tag="samplers"))
+            bundle = None
+            torch.cuda.empty_cache()
+            bundle, _ = sd15_bundle(upscale_ckpt)
+            http_upscale = copy.deepcopy(workflow)
+            http_upscale[USDU_NODE]["inputs"]["sampler_name"] = HTTP_SAMPLER
+            sampler_runs.append(_elastic_phase(
+                torch, bundle, upscale_ckpt, http_upscale, torch.from_numpy(seeded).to("cuda"),
+                None, "cuda",
+                expected_launches=n_tiles * sum(count for *_, count in http_sampler_shapes),
+                expected_by_instance={name: n_tiles * count for name, count in
+                                      _expected_by_instance(attn, http_sampler_shapes,
+                                                            torch).items()},
+                runs=1, tag="samplers"))
+            samplers_launches = sum(r["launches"] for r in sampler_runs)
+            samplers_by_instance = {name: sum(r["launches_by_instance"].get(name, 0)
+                                              for r in sampler_runs) for name in attn.INSTANCES}
+            print(f"[samplers] seconds by run: {_rounded(sampler_runs[0]['seconds'])}; "
+                  f"flash_attention launches over the phase {samplers_launches}, by instance "
+                  f"{samplers_by_instance}")
+            results["samplers"] = sampler_runs[0]
+        phase_seconds["samplers"] = time.perf_counter() - phase_started
 
     # --- 4g. usdu_full: the upscale workflow with an upscale model, ControlNet
     # tile, CLIPTextEncodeSDXL and tiled decode, on the samplers phase's SDXL ---
-    phase_started = time.perf_counter()
-    full_shapes = path_shapes["usdu_full"]
-    usdu_full = _usdu_full_phase(
-        torch, bundle, workflow, torch.from_numpy(seeded).to("cuda"), gen, "cuda",
-        expected_launches=n_tiles * sum(count for *_, count in full_shapes),
-        expected_by_instance={name: n_tiles * count for name, count in _expected_by_instance(
-            attn, full_shapes, torch).items()},
-        tiled_tolerance=TILED_DECODE_TOLERANCE)
-    del bundle
+    if run("usdu_full"):
+        phase_started = time.perf_counter()
+        with cut():
+            if bundle is None:
+                bundle, _ = sd15_bundle(upscale_ckpt)
+            full_shapes = path_shapes["usdu_full"]
+            results["usdu_full"] = _usdu_full_phase(
+                torch, bundle, workflow, torch.from_numpy(seeded).to("cuda"), gen, "cuda",
+                expected_launches=n_tiles * sum(count for *_, count in full_shapes),
+                expected_by_instance={name: n_tiles * count for name, count in
+                                      _expected_by_instance(attn, full_shapes, torch).items()},
+                tiled_tolerance=TILED_DECODE_TOLERANCE)
+        phase_seconds["usdu_full"] = time.perf_counter() - phase_started
+    bundle = None
     torch.cuda.empty_cache()
-    phase_seconds["usdu_full"] = time.perf_counter() - phase_started
 
     # --- 4h. guidance: FreeU, FreeU_V2, SAG, RescaleCFG and an area entry on SD1.5 ---
-    phase_started = time.perf_counter()
-    bundle = pl.load_pipeline(t2i_ckpt, seed=0, device="cuda")
-    _seed_out_conv(torch, bundle, gen)
-    guidance = _guidance_phase(torch, bundle, t2i_workflow, "cuda", expected={
-        name: (sum(count for *_, count in shapes_),
-               _expected_by_instance(attn, shapes_, torch))
-        for name, shapes_ in guidance_shapes.items()})
-    # the custom phase runs on this SD1.5 bundle
-    phase_seconds["guidance"] = time.perf_counter() - phase_started
-
-    def per_unit(shapes_):
-        """(launches, by instance) of one image or frame of `shapes_`."""
-        return (sum(count for *_, count in shapes_), _expected_by_instance(attn, shapes_, torch))
+    if run("guidance"):
+        phase_started = time.perf_counter()
+        with cut():
+            bundle, _ = sd15_bundle(t2i_ckpt)
+            results["guidance"] = _guidance_phase(torch, bundle, t2i_workflow, "cuda", expected={
+                name: per_unit(shapes_) for name, shapes_ in guidance_shapes.items()})
+            # the custom phase runs on this SD1.5 bundle
+        phase_seconds["guidance"] = time.perf_counter() - phase_started
 
     # --- 4i. custom: the custom-sampling workflow on SD1.5 under CFGGuider,
     # PerpNegGuider and DualCFGGuider over HTTP, and split in two stages ---
-    phase_started = time.perf_counter()
-    custom = _custom_phase(torch, bundle, flux_custom, "cuda",
-                           expected={name: per_unit(shapes_)
-                                     for name, shapes_ in custom_shapes.items()})
-    del bundle
+    if run("custom"):
+        phase_started = time.perf_counter()
+        with cut():
+            if bundle is None:
+                bundle, _ = sd15_bundle(t2i_ckpt)
+            results["custom"] = _custom_phase(torch, bundle, flux_custom, "cuda",
+                                              expected={name: per_unit(shapes_)
+                                                        for name, shapes_ in custom_shapes.items()})
+            results["custom_dualcfg"] = results["custom"]["DualCFGGuider"]
+        phase_seconds["custom"] = time.perf_counter() - phase_started
+    bundle = None
     torch.cuda.empty_cache()
-    phase_seconds["custom"] = time.perf_counter() - phase_started
 
     # --- 4j. nodes: every image, latent, mask and transform node on the card
     # against the same graph on the CPU --------------------------------------
-    phase_started = time.perf_counter()
-    nodes = _nodes_phase(torch, "cuda")
-    merges = _merges_check(torch, t2i_workflow, "cuda", gen)
-    torch.cuda.empty_cache()
-    phase_seconds["nodes"] = time.perf_counter() - phase_started
+    if run("nodes"):
+        phase_started = time.perf_counter()
+        results["nodes"] = _nodes_phase(torch, "cuda")
+        results["merges"] = _merges_check(torch, t2i_workflow, "cuda", gen)
+        torch.cuda.empty_cache()
+        phase_seconds["nodes"] = time.perf_counter() - phase_started
 
     # --- 4k. inpaint_model: outpainting on sd15-inpaint (9-channel UNet) ---
-    phase_started = time.perf_counter()
-    bundle = pl.load_pipeline(INPAINT_MODEL_CKPT, seed=0, device="cuda")
-    _seed_out_conv(torch, bundle, gen)
-    print(f"[inpaint_model] {INPAINT_MODEL_CKPT}: UNet input conv "
-          f"{tuple(bundle.unet.input_conv.weight.shape)}")
-    launches_, by_instance_ = per_unit(path_shapes["inpaint_model"])
-    inpaint_model = _txt2img_phase(torch, bundle, inpaint_model_workflow, "cuda", 2 * launches_,
-                                   {k: 2 * v for k, v in by_instance_.items()}, runs=1,
-                                   tag="inpaint_model")
-    del bundle
-    torch.cuda.empty_cache()
-    phase_seconds["inpaint_model"] = time.perf_counter() - phase_started
+    if run("inpaint_model"):
+        phase_started = time.perf_counter()
+        bundle, _ = sd15_bundle(INPAINT_MODEL_CKPT)
+        print(f"[inpaint_model] {INPAINT_MODEL_CKPT}: UNet input conv "
+              f"{tuple(bundle.unet.input_conv.weight.shape)}")
+        launches_, by_instance_ = per_unit(path_shapes["inpaint_model"])
+        results["inpaint_model"] = _txt2img_phase(
+            torch, bundle, inpaint_model_workflow, "cuda", 2 * launches_,
+            {k: 2 * v for k, v in by_instance_.items()}, runs=1, tag="inpaint_model")
+        bundle = None
+        torch.cuda.empty_cache()
+        phase_seconds["inpaint_model"] = time.perf_counter() - phase_started
 
     # --- 4l. dynamic: the video workflow's frames, whole, over HTTP on SDXL ---
-    phase_started = time.perf_counter()
-    dynamic_ckpt = video_workflow[_node_id(video_workflow, "CheckpointLoaderSimple")]["inputs"][
-        "ckpt_name"]
-    bundle = pl.load_pipeline(dynamic_ckpt, seed=0, device="cuda")
-    _seed_out_conv(torch, bundle, gen)
-    dynamic = _dynamic_phase(torch, bundle, video_workflow, "cuda",
-                             expected=per_unit(path_shapes["dynamic"]))
-    del bundle
-    torch.cuda.empty_cache()
-    phase_seconds["dynamic"] = time.perf_counter() - phase_started
+    if run("dynamic"):
+        phase_started = time.perf_counter()
+        with cut():
+            dynamic_ckpt = video_workflow[_node_id(video_workflow, "CheckpointLoaderSimple")][
+                "inputs"]["ckpt_name"]
+            bundle, _ = sd15_bundle(dynamic_ckpt)
+            results["dynamic"] = _dynamic_phase(torch, bundle, video_workflow, "cuda",
+                                                expected=per_unit(path_shapes["dynamic"]))
+            bundle = None
+            torch.cuda.empty_cache()
+        phase_seconds["dynamic"] = time.perf_counter() - phase_started
 
     # --- 4m. flux: the four bundled Flux workflows at full width, master + w1 ---
-    phase_started = time.perf_counter()
-    flux = _flux_phase(torch, flux_workflows, "cuda",
-                       expected={tag: per_unit(path_shapes[tag]) for tag in flux_workflows})
-    torch.cuda.empty_cache()
-    phase_seconds["flux"] = time.perf_counter() - phase_started
+    if run("flux"):
+        phase_started = time.perf_counter()
+        results.update(_flux_phase(torch, flux_workflows, "cuda", expected={
+            tag: per_unit(path_shapes[tag]) for tag in flux_workflows}))
+        torch.cuda.empty_cache()
+        phase_seconds["flux"] = time.perf_counter() - phase_started
 
     # --- 4n. sd3: the two bundled SD3.5 workflows at full width, master + w1 ---
-    phase_started = time.perf_counter()
-    sd3 = _sd3_phase(torch, sd3_workflows, "cuda",
-                     expected={tag: per_unit(shapes_) for tag, shapes_ in sd3_shapes.items()})
-    torch.cuda.empty_cache()
-    phase_seconds["sd3"] = time.perf_counter() - phase_started
+    if run("sd3"):
+        phase_started = time.perf_counter()
+        results.update(_sd3_phase(torch, sd3_workflows, "cuda", expected={
+            tag: per_unit(shapes_) for tag, shapes_ in sd3_shapes.items()}))
+        torch.cuda.empty_cache()
+        phase_seconds["sd3"] = time.perf_counter() - phase_started
+
+    # --- 4o. wan: the three bundled WAN workflows at full width and depth,
+    # master + w1 ---------------------------------------------------------------
+    if run("wan"):
+        phase_started = time.perf_counter()
+        results.update(_wan_phase(torch, wan_workflows, "cuda", expected={
+            tag: per_unit(path_shapes[tag]) for tag in wan_workflows}, gen=gen))
+        torch.cuda.empty_cache()
+        phase_seconds["wan"] = time.perf_counter() - phase_started
     print("[phases] seconds: " + ", ".join(f"{name} {sec:.1f}" for name, sec in
                                            phase_seconds.items())
           + f"; total {sum(phase_seconds.values()):.1f}")
@@ -4432,8 +5144,8 @@ def main() -> int:
           "(each upscale shape's time times its launches per tile, summed); launches: the last "
           "elastic run, master and w1 together (launches_main: phase 4's last run). "
           "flash_attention_adapters: the same per tile of the upscale wearing the adapters "
-          "phase's LoRA (the same shapes); launches: its run over HTTP with adapters, master "
-          "and w1 together. "
+          "phase's LoRA (the same shapes on the cut SDXL); launches: its run over HTTP with "
+          "adapters, master and w1 together. "
           "flash_attention_txt2img: the same per 512-px SD1.5 image over the D=40/80/160 shapes "
           "the wgmma instance takes; launches: its launches in the last txt2img run, master "
           "and w1 together; bound_by: the largest of the summed operations, bytes and "
@@ -4461,7 +5173,14 @@ def main() -> int:
           "joint attention and MMDiT-X's attn2 at D=64, the SLG window's batch-1 skip passes, "
           "the VAE at D=512); launches: its run over HTTP, master and w1 together; "
           "flash_attention_sd35m_slg_dualclip: the same with its prompts through "
-          "DualCLIPLoader sd3 (77 text tokens); launches: its one local image")
+          "DualCLIPLoader sd3 (77 text tokens); launches: its one local image. "
+          "flash_attention_wan, _wan_14b and _wan_i2v: the same per video of the "
+          "distributed-wan (wan-1.3b, 33 frames of 480x480, 30 steps), -wan-2.2-14b-t2v "
+          "(wan-14b, 81 frames of 720x480, 30 steps) and -wan-i2v (wan-14b-i2v, 81 frames of "
+          "720x480, 20 steps, CLIP vision's 31 blocks at D=80) workflows, CFG-batched, at D=128; "
+          "launches: its run over HTTP, master and w1 together. The Flux, SD3.5, adapters, "
+          "ckpt, samplers, usdu_full, guidance, custom and dynamic entries' models run at the "
+          "depths of the [cuts] line")
     source = "comfyui_distributed_tpu_torch/csrc/flash_attention.cu"
     replaces = "comfyui_distributed_tpu/ops/attention.py:80"
 
@@ -4472,138 +5191,83 @@ def main() -> int:
                                                                "exponentials")}),
                 "library_ms": t["library_ms"]}
 
-    kernels = {"kernels": [
-        {
-            "name": "flash_attention",
-            "route": "cuda",
-            "source": source,
-            "replaces": replaces,
-            "launches": elastic["launches"],
-            "launches_by_instance": elastic["launches_by_instance"],
-            "launches_main": launches,
-            "launches_by_instance_main": by_instance,
-            "max_abs_err": max_err["upscale"],
-            **numbers("upscale"),
-            "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
-        },
-        {
-            "name": "flash_attention_txt2img",
-            "route": "cuda",
-            "source": source,
-            "replaces": replaces,
-            "launches": txt2img["launches_by_instance"]["wgmma"],
-            "launches_by_instance": txt2img["launches_by_instance"],
-            "max_abs_err": max_err["txt2img"],
-            **numbers("txt2img"),
-            "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
-        },
-        {
-            "name": "flash_attention_adapters",
-            "route": "cuda",
-            "source": source,
-            "replaces": replaces,
-            "launches": adapters["launches"],
-            "launches_by_instance": adapters["launches_by_instance"],
-            "max_abs_err": max_err["upscale"],
-            **numbers("upscale"),
-            "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
-        },
-    ] + [
-        {
-            "name": f"flash_attention_{tag}",
-            "route": "cuda",
-            "source": source,
-            "replaces": replaces,
-            "launches": sd_results[tag]["launches"],
-            "launches_by_instance": sd_results[tag]["launches_by_instance"],
-            "max_abs_err": max_err[tag],
-            **numbers(tag),
-            "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
-        }
-        for tag in sd_workflows
-    ] + [
-        {
-            "name": f"flash_attention_{path}",
-            "route": "cuda",
-            "source": source,
-            "replaces": replaces,
-            "launches": ckpt_results[path]["launches"],
-            "launches_by_instance": ckpt_results[path]["launches_by_instance"],
-            "max_abs_err": max_err[path],
-            **numbers(path),
-            "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
-        }
-        for path in ckpt_workflows
-    ] + [
-        {
-            "name": "flash_attention_samplers",
-            "route": "cuda",
-            "source": source,
-            "replaces": replaces,
-            "launches": sampler_runs[0]["entry_launches"],
-            "launches_by_instance": sampler_runs[0]["entry_by_instance"],
-            "max_abs_err": max_err["samplers"],
-            **numbers("samplers"),
-            "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
-        },
-        {
-            "name": "flash_attention_usdu_full",
-            "route": "cuda",
-            "source": source,
-            "replaces": replaces,
-            "launches": usdu_full["launches"],
-            "launches_by_instance": usdu_full["launches_by_instance"],
-            "max_abs_err": max_err["usdu_full"],
-            **numbers("usdu_full"),
-            "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
-        },
-        {
-            "name": "flash_attention_guidance",
-            "route": "cuda",
-            "source": source,
-            "replaces": replaces,
-            "launches": guidance["SelfAttentionGuidance"]["launches"],
-            "launches_by_instance": guidance["SelfAttentionGuidance"]["launches_by_instance"],
-            "max_abs_err": max_err["guidance"],
-            **numbers("guidance"),
-            "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
-        },
-    ] + [
-        {
-            "name": f"flash_attention_{path}",
-            "route": "cuda",
-            "source": source,
-            "replaces": replaces,
-            "launches": run["launches"],
-            "launches_by_instance": run["launches_by_instance"],
-            "max_abs_err": max_err[path],
-            **numbers(path),
-            "check": f"ok: {len(checks)} shapes within tolerance of the plain version",
-        }
-        for path, run in (("custom", custom["PerpNegGuider"]),
-                          ("custom_dualcfg", custom["DualCFGGuider"]),
-                          ("dynamic", dynamic), ("inpaint_model", inpaint_model),
-                          *flux.items(), *sd3.items())
-    ]}
-    print(f"[summary] adapters: over HTTP with the LoRA max |diff| {adapters['max_abs_diff']:.3g}"
-          f" vs L's tiles; patch seconds a job {adapters['patch_s']}; operand bytes "
-          f"{adapters['operand_bytes']}; tile cache cold {adapters['cold_tiles_per_s']:.4f} "
-          f"tiles/s, warm {adapters['warm_tiles_per_s']:.4f} tiles/s ({adapters['warm_launches']} "
-          f"launches), weights fingerprint {adapters['fingerprint_s']:.3f} s (a job's, by "
-          f"graph: {_rounded(adapters['fingerprint_by_graph_s'])}); attention-only adapter "
-          f"{adapters['partial_operand_bytes']} operand bytes, patch seconds "
-          f"{_rounded(adapters['partial_patch_s'])}, {adapters['partial_tiles_per_s']:.4f} "
-          f"tiles/s; peak "
-          f"{adapters['peak_bytes'] / 2**30:.2f} GiB [{smi}]")
-    print(f"[summary] procs: w1 ready {procs['launch_to_ready_s']:.2f} s after its launch; "
-          f"fan-out {procs['fan_out_images_per_s']:.4f} images/s, elastic "
-          f"{procs['elastic_tiles_per_s']:.4f} tiles/s with w1 its own process")
-    print(f"[summary] custom two stages max |diff| {custom['two_stage']['max_abs_diff']:.3g}; "
-          f"nodes {nodes['nodes']} ({len(nodes['classes'])} classes) max |diff| "
-          f"{nodes['max_abs_diff']:.3g}; merges at ratio 1.0 exact {merges['ratio_1_exact']}; "
-          f"GGUF load {ckpt_results['ckpt_sd15']['gguf']['load_seconds']:.2f} s for "
-          f"{ckpt_results['ckpt_sd15']['gguf']['file_bytes']} bytes; dynamic: w1 took {dynamic['w1_frames']} of "
-          f"{DYNAMIC_FRAMES} frames, {dynamic['frames_per_s']:.4f} frames/s")
+    def entry(name: str, path: str, res: dict, launches_key: str = "launches",
+              **extra) -> dict:
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": res[launches_key],
+                "launches_by_instance": res["launches_by_instance"],
+                "max_abs_err": max_err[path], **numbers(path), **extra,
+                "check": f"ok: {len(checks)} shapes within tolerance of the plain version"}
+
+    # each entry whose phase ran: (name, path of its numbers, its run's result)
+    entries = []
+    if "main" in results:
+        upscale = results.get("elastic", results["main"])
+        entries.append(entry("flash_attention", "upscale", upscale,
+                             launches_main=results["main"]["launches"],
+                             launches_by_instance_main=results["main"]["launches_by_instance"]))
+    if "txt2img" in results:
+        t2i = results["txt2img"]
+        entries.append(entry("flash_attention_txt2img", "txt2img",
+                             {**t2i, "launches": t2i["launches_by_instance"]["wgmma"]}))
+    if "adapters" in results:
+        entries.append(entry("flash_attention_adapters", "adapters", results["adapters"]))
+    for tag in (*sd_workflows, *ckpt_workflows):
+        if tag in results:
+            entries.append(entry(f"flash_attention_{tag}", tag, results[tag]))
+    if "samplers" in results:
+        samplers = results["samplers"]
+        entries.append(entry("flash_attention_samplers", "samplers",
+                             {"launches": samplers["entry_launches"],
+                              "launches_by_instance": samplers["entry_by_instance"]}))
+    if "usdu_full" in results:
+        entries.append(entry("flash_attention_usdu_full", "usdu_full", results["usdu_full"]))
+    if "guidance" in results:
+        entries.append(entry("flash_attention_guidance", "guidance",
+                             results["guidance"]["SelfAttentionGuidance"]))
+    if "custom" in results:
+        entries.append(entry("flash_attention_custom", "custom",
+                             results["custom"]["PerpNegGuider"]))
+    for tag in ("custom_dualcfg", "dynamic", "inpaint_model", *flux_workflows, *sd3_shapes,
+                *wan_workflows):
+        if tag in results:
+            entries.append(entry(f"flash_attention_{tag}", tag, results[tag]))
+    kernels = {"kernels": entries}
+    if "adapters" in results:
+        adapters = results["adapters"]
+        print(f"[summary] adapters: over HTTP with the LoRA max |diff| "
+              f"{adapters['max_abs_diff']:.3g} vs L's tiles; patch seconds a job "
+              f"{adapters['patch_s']}; operand bytes {adapters['operand_bytes']}; tile cache cold "
+              f"{adapters['cold_tiles_per_s']:.4f} tiles/s, warm "
+              f"{adapters['warm_tiles_per_s']:.4f} tiles/s ({adapters['warm_launches']} "
+              f"launches), weights fingerprint {adapters['fingerprint_s']:.3f} s (a job's, by "
+              f"graph: {_rounded(adapters['fingerprint_by_graph_s'])}); attention-only adapter "
+              f"{adapters['partial_operand_bytes']} operand bytes, patch seconds "
+              f"{_rounded(adapters['partial_patch_s'])}, "
+              f"{adapters['partial_tiles_per_s']:.4f} tiles/s; peak "
+              f"{adapters['peak_bytes'] / 2**30:.2f} GiB [{smi}]")
+    if "procs" in results:
+        procs = results["procs"]
+        print(f"[summary] procs: w1 ready {procs['launch_to_ready_s']:.2f} s after its launch; "
+              f"fan-out {procs['fan_out_images_per_s']:.4f} images/s, elastic "
+              f"{procs['elastic_tiles_per_s']:.4f} tiles/s with w1 its own process")
+    if {"custom", "nodes", "ckpt", "dynamic"} <= set(results):
+        custom, nodes, merges = results["custom"], results["nodes"], results["merges"]
+        dynamic, gguf = results["dynamic"], results["ckpt_sd15"]["gguf"]
+        print(f"[summary] custom two stages max |diff| "
+              f"{custom['two_stage']['max_abs_diff']:.3g}; nodes {nodes['nodes']} "
+              f"({len(nodes['classes'])} classes) max |diff| {nodes['max_abs_diff']:.3g}; "
+              f"merges at ratio 1.0 exact {merges['ratio_1_exact']}; GGUF load "
+              f"{gguf['load_seconds']:.2f} s for {gguf['file_bytes']} bytes; dynamic: w1 took "
+              f"{dynamic['w1_frames']} of {DYNAMIC_FRAMES} frames, "
+              f"{dynamic['frames_per_s']:.4f} frames/s")
+    for tag in wan_workflows:
+        if tag in results:
+            wan = results[tag]
+            print(f"[summary] {tag}: {wan['seconds']:.2f} s a run of two videos, "
+                  f"{wan['videos_per_s']:.5f} videos/s, peak {wan['peak_gib']:.2f} GiB, bundle "
+                  f"init {wan['init_seconds']:.1f} s, launches {wan['launches']} "
+                  f"{wan['launches_by_instance']} [{smi}]")
     print(json.dumps(kernels))
     print(_nvidia_smi())
     print(json.dumps({"ok": True, "device": {
@@ -4614,4 +5278,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -4,13 +4,17 @@ Each source under `csrc/` compiles with nvcc for Hopper (`sm_90a`) into
 `build/` (listed in .gitignore). The library is named by the source's
 content hash and that of every other file under `csrc/` (the headers it
 includes), so an edited source or header rebuilds and an unchanged tree
-loads as is. Nothing here runs at import time: a kernel builds on its first
-launch, which is why `python3 chip_smoke.py` from a fresh checkout
-builds everything it needs.
+loads as is. A source of PARTS compiles as that many objects at once, one
+nvcc each with `-DCDT_PARTS=n -DCDT_PART=k` (the source keeps group k of
+its instances in object k), then links them into the one library: the
+build takes its slowest group's time, not the sum. Nothing here runs at
+import time: a kernel builds on its first launch, which is why `python3
+chip_smoke.py` from a fresh checkout builds everything it needs.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import hashlib
 import os
@@ -29,6 +33,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# sources compiled as this many objects at once (the groups of their
+# instances, CDT_PARTS in the source)
+PARTS = {"flash_attention.cu": 8}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,15 +89,34 @@ def build(source_name: str) -> BuildResult:
     # unique per process and thread: two builders never write one file
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     started = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-        capture_output=True, text=True, check=False,
-    )
+    parts = PARTS.get(source_name, 1)
+    if parts == 1:
+        log = _nvcc([*NVCC_FLAGS, "-o", tmp, src], src)
+    else:
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        objects = [f"{tmp}.{k}.o" for k in range(1, parts + 1)]
+        try:
+            with concurrent.futures.ThreadPoolExecutor(parts) as pool:
+                logs = list(pool.map(
+                    lambda k: _nvcc([*compile_flags, "-c", f"-DCDT_PARTS={parts}",
+                                     f"-DCDT_PART={k}", "-o", objects[k - 1], src], src),
+                    range(1, parts + 1)))
+            log = "".join(logs) + _nvcc(["-shared", "-o", tmp, *objects], src)
+        finally:
+            for obj in objects:
+                if os.path.exists(obj):
+                    os.remove(obj)
+    # rename last, so a concurrent process never loads a partial file
+    os.replace(tmp, out)
+    return BuildResult(out, time.perf_counter() - started, log)
+
+
+def _nvcc(args: list[str], src: str) -> str:
+    """One nvcc run; its output, or RuntimeError with it."""
+    proc = subprocess.run([nvcc_path(), *args], capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed with exit code {proc.returncode} for {src}:\n"
             f"{proc.stdout}{proc.stderr}"
         )
-    # rename last, so a concurrent process never loads a partial file
-    os.replace(tmp, out)
-    return BuildResult(out, time.perf_counter() - started, proc.stdout + proc.stderr)
+    return proc.stdout + proc.stderr

@@ -39,7 +39,7 @@ Queue 3.)
 
 The deadline may also come as the X-CDT-Deadline header. An envelope
 with `audio` answers 501: audio payloads are not ported (ROADMAP.md,
-Queue 1 item 5).
+Queue 1 step 6b).
 """
 
 from __future__ import annotations
@@ -148,7 +148,7 @@ class JobRoutes:
             return json_response({"error": f"undecodable image: {exc}"}, 400)
         if body.get("audio") is not None:
             return json_response({"error": "audio payloads are not ported (ROADMAP.md, Queue 1 "
-                                           "item 5)"}, 501)
+                                           "step 6b)"}, 501)
         job_id = str(body["job_id"])
         store = self.server.job_store
         await store.wait_for_collector(job_id, JOB_INIT_GRACE_SECONDS)

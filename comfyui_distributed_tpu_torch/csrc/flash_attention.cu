@@ -189,6 +189,18 @@
 
 #include "hopper.cuh"
 
+// The build (_build.py) compiles this file as CDT_PARTS objects at once,
+// object CDT_PART = g keeping group g of the instances below (CDT_IN), and
+// links them into one library whose entry points, in object 1, ask each
+// group in turn. Without the macros one object holds every instance
+// (sass_report.py).
+#ifndef CDT_PARTS
+#define CDT_PARTS 1
+#define CDT_PART 1
+#endif
+static_assert(CDT_PARTS == 1 || CDT_PARTS == 8, "the instances form one group or eight");
+#define CDT_IN(group) (CDT_PARTS == 1 || CDT_PART == (group))
+
 namespace {
 
 // Instance codes, shared with ops/attention.py (INSTANCES).
@@ -1362,38 +1374,53 @@ int dispatch_fma(int dtype, int keys, int rows, const Call& c, int* occupancy) {
 int dispatch_wgmma(int head_dim, int keys, int rows, const Call& c, int* occupancy) {
   if (rows == kWgRows) {
     switch (head_dim) {
+#if CDT_IN(5)
       case 40:
         return keys == 80 ? run_wgmma<40, 80, 1>(c, occupancy) : -1;
+#endif
+#if CDT_IN(6)
       case 64:
         if (keys == 80) return run_wgmma<64, 80, 1>(c, occupancy);
         if (keys == 112) return run_wgmma<64, 112, 1>(c, occupancy);
         if (keys == 144) return run_wgmma<64, 144, 1>(c, occupancy);
         return -1;
+#endif
+#if CDT_IN(7)
       case 80:
         if (keys == 80) return run_wgmma<80, 80, 1>(c, occupancy);
         if (keys == 128) return run_wgmma<80, 128, 1>(c, occupancy);
         return -1;
       case 128:
         return keys == 64 ? run_wgmma<128, 64, 1>(c, occupancy) : -1;
+#endif
+#if CDT_IN(8)
       case 160:
         if (keys == 64) return run_wgmma<160, 64, 1>(c, occupancy);
         if (keys == 80) return run_wgmma<160, 80, 1>(c, occupancy);
         return -1;
+#endif
       default:
         return -1;
     }
   }
   if (rows != 2 * kWgRows) return -1;
+#if CDT_IN(5)
   if (head_dim == 40 && keys == 128) return run_wgmma<40, 128, 2>(c, occupancy);
+#endif
   // D = 128 past the router's threshold: P rounded once to bf16
+#if CDT_IN(2)
   if (head_dim == 128 && keys == 144) return run_wgmma<128, 144, 2, false>(c, occupancy);
+#endif
+#if CDT_IN(3)
   if (head_dim == 128 && keys == 176) return run_wgmma<128, 176, 2, false>(c, occupancy);
+#endif
   return -1;
 }
 
 int dispatch(int instance, int dtype, int head_dim, int keys, int rows, const Call& c,
              int* occupancy) {
   if (instance == kInstanceFma) {
+#if CDT_IN(1)
     switch (head_dim) {
       case 40: return dispatch_fma<40>(dtype, keys, rows, c, occupancy);
       case 64: return dispatch_fma<64>(dtype, keys, rows, c, occupancy);
@@ -1403,11 +1430,16 @@ int dispatch(int instance, int dtype, int head_dim, int keys, int rows, const Ca
       case 512: return dispatch_fma<512>(dtype, keys, rows, c, occupancy);
       default: return -1;
     }
+#else
+    return -1;
+#endif
   }
   if (dtype != 1) return -1;
   if (!occupancy && !tensor_core_aligned(c)) return -3;
+#if CDT_IN(4)
   if (instance == kInstanceWgmma512 && head_dim == kD512 && rows == kD512Rows && keys == 32)
     return run_wgmma512<32>(c, occupancy);
+#endif
   if (instance == kInstanceWgmma) return dispatch_wgmma(head_dim, keys, rows, c, occupancy);
   return -1;
 }
@@ -1421,6 +1453,52 @@ cudaError_t use_device(int device) {
 
 }  // namespace
 
+#define CDT_FWD_PARAMS                                                                    \
+  int instance, const void *q, const void *k, const void *v, void *o, void *scratch, int dtype, \
+      int head_dim, int device, int batch, int n, int m, int heads, const long long *strides,   \
+      float scale, int keys_per_tile, int rows_per_block, int splits, void *stream
+#define CDT_FWD_ARGS                                                                         \
+  instance, q, k, v, o, scratch, dtype, head_dim, device, batch, n, m, heads, strides, scale, \
+      keys_per_tile, rows_per_block, splits, stream
+#define CDT_OCC_PARAMS \
+  int instance, int dtype, int head_dim, int keys_per_tile, int rows_per_block, int device
+#define CDT_OCC_ARGS instance, dtype, head_dim, keys_per_tile, rows_per_block, device
+#define CDT_CAT2(a, b) a##b
+#define CDT_CAT(a, b) CDT_CAT2(a, b)
+#define CDT_GROUP_FWD(group) CDT_CAT(cdt_flash_attention_fwd_group, group)
+#define CDT_GROUP_OCC(group) CDT_CAT(cdt_flash_attention_blocks_per_sm_group, group)
+
+// This object's groups; -1 for a plan none of them compiled.
+extern "C" int CDT_GROUP_FWD(CDT_PART)(CDT_FWD_PARAMS) {
+  const cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Call c{q, k, v, o, scratch, device, batch, n, m, heads, splits, strides, scale,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch(instance, dtype, head_dim, keys_per_tile, rows_per_block, c, nullptr);
+}
+
+extern "C" int CDT_GROUP_OCC(CDT_PART)(CDT_OCC_PARAMS) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const Call c{nullptr, nullptr, nullptr, nullptr, nullptr, device, 0, 0, 0, 0, 1,
+               nullptr, 0.f, nullptr};
+  int blocks = 0;
+  const int rc = dispatch(instance, dtype, head_dim, keys_per_tile, rows_per_block, c, &blocks);
+  if (rc != 0) return rc < 0 ? rc : -rc;
+  return blocks;
+}
+
+#if CDT_PART == 1
+#if CDT_PARTS == 1
+#define CDT_GROUPS(X) X(1)
+#else
+#define CDT_GROUPS(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
+#endif
+#define CDT_DECLARE(group)                                    \
+  extern "C" int CDT_GROUP_FWD(group)(CDT_FWD_PARAMS);        \
+  extern "C" int CDT_GROUP_OCC(group)(CDT_OCC_PARAMS);
+CDT_GROUPS(CDT_DECLARE)
+
 // q: [B, N, H, D], k and v: [B, M, H, D], o: [B, N, H, D], all with a
 // contiguous last dim; `strides` holds the batch, token and head strides (in
 // elements) of q, k, v and o, in that order. dtype 0 = float32, 1 = bfloat16.
@@ -1432,30 +1510,22 @@ cudaError_t use_device(int device) {
 // -2 when a TMA tensor map cannot be encoded, or -3 for a view the planned
 // tensor-core instance cannot read. Launches on `stream` and does not
 // synchronise.
-extern "C" int cdt_flash_attention_fwd(int instance, const void* q, const void* k, const void* v,
-                                       void* o, void* scratch, int dtype, int head_dim,
-                                       int device, int batch, int n, int m, int heads,
-                                       const long long* strides, float scale, int keys_per_tile,
-                                       int rows_per_block, int splits, void* stream) {
-  const cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Call c{q, k, v, o, scratch, device, batch, n, m, heads, splits, strides, scale,
-               static_cast<cudaStream_t>(stream)};
-  return dispatch(instance, dtype, head_dim, keys_per_tile, rows_per_block, c, nullptr);
+extern "C" int cdt_flash_attention_fwd(CDT_FWD_PARAMS) {
+  int rc = -1;
+#define CDT_TRY_FWD(group) \
+  if (rc == -1) rc = CDT_GROUP_FWD(group)(CDT_FWD_ARGS);
+  CDT_GROUPS(CDT_TRY_FWD)
+  return rc;
 }
 
 // Blocks of the planned instance that fit on one SM of `device` at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 for a plan not
 // compiled here, or minus a cudaError_t.
-extern "C" int cdt_flash_attention_blocks_per_sm(int instance, int dtype, int head_dim,
-                                                 int keys_per_tile, int rows_per_block,
-                                                 int device) {
-  cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  const Call c{nullptr, nullptr, nullptr, nullptr, nullptr, device, 0, 0, 0, 0, 1,
-               nullptr, 0.f, nullptr};
-  int blocks = 0;
-  const int rc = dispatch(instance, dtype, head_dim, keys_per_tile, rows_per_block, c, &blocks);
-  if (rc != 0) return rc < 0 ? rc : -rc;
-  return blocks;
+extern "C" int cdt_flash_attention_blocks_per_sm(CDT_OCC_PARAMS) {
+  int rc = -1;
+#define CDT_TRY_OCC(group) \
+  if (rc == -1) rc = CDT_GROUP_OCC(group)(CDT_OCC_ARGS);
+  CDT_GROUPS(CDT_TRY_OCC)
+  return rc;
 }
+#endif

@@ -12,6 +12,7 @@ from . import (  # noqa: F401
     nodes_mask,
     nodes_transform,
     nodes_upscale,
+    nodes_video,
 )
 from .executor import ExecutionContext, GraphExecutor, validate_prompt
 from .registry import NODE_REGISTRY, register_node

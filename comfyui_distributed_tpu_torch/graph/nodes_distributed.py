@@ -29,7 +29,7 @@ which the orchestration reads (api/orchestration/queue_orchestration.py).
 
 Not ported, each raising with its ROADMAP item: the mesh branch (a
 per-participant SeedSpec; Queue 1 item 6) and audio payloads
-(`utils/audio_payload.py`, AudioBatchDivider; Queue 1 item 5).
+(`utils/audio_payload.py`, AudioBatchDivider; Queue 1 step 6b).
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ from .nodes_core import _MESH_UNPORTED, SeedSpec
 from .registry import register_node
 
 _AUDIO_UNPORTED = ("AUDIO through the collector is not ported yet (utils/audio_payload.py; "
-                   "ROADMAP.md, Queue 1 item 5)")
+                   "ROADMAP.md, Queue 1 step 6b)")
 
 
 @register_node

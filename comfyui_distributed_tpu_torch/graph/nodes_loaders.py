@@ -15,7 +15,11 @@ parameters are shared; FreeU's UNet is a view with its own config,
 checkpoint, which other nodes and prompts use, keeps no patch. PAG, SAG
 and RescaleCFG compose the guidance, so at most one of them applies to
 a model. ModelMergeSimple and CLIPMergeSimple blend two bundles'
-parameters into new modules; neither input changes.
+parameters into new modules; neither input changes. CLIPVisionLoader
+(cached under "clip_vision:<name>") and CLIPVisionEncode run WAN i2v's
+image tower (models/clip_vision.py); unCLIPConditioning attaches its
+tokens to the conditioning, where a sampler refuses them as the JAX
+package does (no backbone has an unCLIP adm head).
 """
 
 from __future__ import annotations
@@ -477,3 +481,95 @@ class CLIPMergeSimple:
                 raise ValueError(f"CLIPMergeSimple: clip2 has no {part!r} part")
             towers[field] = _merge_modules(mine, theirs, ratio, f"CLIPMergeSimple[{part}]")
         return (dataclasses.replace(clip1, **towers),)
+
+
+@register_node
+class CLIPVisionLoader:
+    """A standalone CLIP-vision tower by registry name (clip-vision-h,
+    tiny-clip-vision), its weights from CDT_CHECKPOINT_DIR/<name>.* where
+    that resolves, as the i2v bundle's."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {"clip_name": ("STRING", {"default": "clip-vision-h"})}}
+
+    RETURN_TYPES = ("CLIP_VISION",)
+    FUNCTION = "load_clip"
+
+    def load_clip(self, clip_name: str, context=None):
+        from ..models.clip_vision import load_clip_vision
+
+        name = _stem(clip_name)
+        return (_cached(context, f"clip_vision:{name}",
+                        lambda: load_clip_vision(name, device=_device(context))),)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipVisionOutput:
+    """A CLIP_VISION_OUTPUT value: the hidden-state tokens [B, T, width],
+    class token first. No pooled accessor: the towers stop at the
+    penultimate layer (no last block, post LN or projection), so a raw
+    class token would be a plausible, wrong stand-in for CLIP's pooled
+    embedding."""
+
+    tokens: object
+
+
+@register_node
+class CLIPVisionEncode:
+    """An image batch through a CLIP-vision tower: the tower's own
+    preprocessing is short-side scale and centre crop, so crop 'center'
+    only."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "clip_vision": ("CLIP_VISION",),
+                "image": ("IMAGE",),
+                "crop": ("STRING", {"default": "center"}),
+            }
+        }
+
+    RETURN_TYPES = ("CLIP_VISION_OUTPUT",)
+    FUNCTION = "encode"
+
+    def encode(self, clip_vision, image, crop="center", context=None):
+        if str(crop) != "center":
+            raise ValueError("only crop='center' is implemented (the tower's preprocessing is "
+                             "short-side scale + center crop)")
+        return (ClipVisionOutput(tokens=clip_vision.encode(image)),)
+
+
+@register_node(name="unCLIPConditioning")
+class UnCLIPConditioning:
+    """CLIP-vision tokens onto the conditioning (ComfyUI's
+    unCLIPConditioning shape). No backbone has an unCLIP adm head, so a
+    sampler given such conditioning raises (ops/conditioning.py::
+    reject_unported) instead of dropping the image condition."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "conditioning": ("CONDITIONING",),
+                "clip_vision_output": ("CLIP_VISION_OUTPUT",),
+                "strength": ("FLOAT", {"default": 1.0}),
+                "noise_augmentation": ("FLOAT", {"default": 0.0}),
+            }
+        }
+
+    RETURN_TYPES = ("CONDITIONING",)
+    FUNCTION = "apply_adm"
+
+    def apply_adm(self, conditioning, clip_vision_output, strength=1.0, noise_augmentation=0.0,
+                  context=None):
+        from ..ops.conditioning import map_conditioning
+
+        def patch(cond):
+            cond.unclip_embeds = clip_vision_output.tokens
+            cond.unclip_strength = float(strength)
+            cond.unclip_noise_aug = float(noise_augmentation)
+            return cond
+
+        return (map_conditioning(conditioning, patch),)

@@ -6,7 +6,8 @@ onto a PyTorch parameter name by rule:
 
 - "/" becomes "."; a leading "params/" collection is dropped;
 - a Dense `kernel` [in, out] becomes `weight` [out, in];
-- a Conv `kernel` HWIO becomes `weight` OIHW;
+- a Conv `kernel` HWIO becomes `weight` OIHW (a 3-D one THWIO becomes
+  OITHW);
 - a norm's `scale` and an Embed's `embedding` become `weight`;
 - anything else (biases, position embeddings, the text projection)
   keeps its name and layout.
@@ -14,8 +15,9 @@ onto a PyTorch parameter name by rule:
 One rule carries every tree: the UNet, the VAE, the text encoders
 (CLIP and T5, with its shared `rel_bias` table), the ControlNet, the
 upscale model, the Flux MMDiT (its RMS `scale`s, and the Dense
-kernels of the fused linear1/linear2) and the SD3 MMDiT (its `pos_embed`
-table).
+kernels of the fused linear1/linear2), the SD3 MMDiT (its `pos_embed`
+table), the WAN video DiT (its bare `modulation` tables), the causal
+video VAE (its Conv3d kernels) and the CLIP-vision tower.
 
 Real single-file SD checkpoints (.safetensors, .ckpt) load through
 models/sd_checkpoint.py, whose key schedules name parameters by the same
@@ -37,6 +39,7 @@ import torch
 from torch import nn
 
 from .layers import RMSNorm
+from .video_vae import _RMSNormChannels
 
 
 def _torch_name_and_value(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
@@ -49,6 +52,8 @@ def _torch_name_and_value(path: str, value: np.ndarray) -> tuple[str, np.ndarray
             value = value.T
         elif value.ndim == 4:
             value = value.transpose(3, 2, 0, 1)
+        elif value.ndim == 5:
+            value = value.transpose(4, 3, 0, 1, 2)
         else:
             raise ValueError(f"{path}: kernel of rank {value.ndim}")
         leaf = "weight"
@@ -87,19 +92,26 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter in place from `generator`, in registration
     order: Dense/Conv weights N(0, 1/fan_in), biases 0, norm and RMS-norm
     scales 1, embeddings N(0, 1/width), the position table N(0, 0.01^2),
-    the SD3 MMDiT's learned position table N(0, 1/width) and the text
-    projection N(0, 1/width), with the scales of the flax initialisers."""
+    the SD3 MMDiT's learned position table N(0, 1/width), the text
+    projection N(0, 1/width), the video DiT's modulation tables N(0,
+    1/width) and the CLIP-vision class and position embeddings N(0,
+    0.02^2), with the scales of the flax initialisers."""
     device = generator.device
     for name, param in module.named_parameters():
         owner = module.get_submodule(name.rpartition(".")[0])
         leaf = name.rpartition(".")[2]
         if leaf == "bias":
             param.zero_()
-        elif isinstance(owner, (nn.GroupNorm, nn.LayerNorm, RMSNorm)):
+        elif isinstance(owner, (nn.GroupNorm, nn.LayerNorm, RMSNorm, _RMSNormChannels)):
             param.fill_(1.0)
         else:
-            if isinstance(owner, (nn.Linear, nn.Conv2d)):
+            if isinstance(owner, (nn.Linear, nn.Conv2d, nn.Conv3d)):
                 std = 1.0 / math.sqrt(param[0].numel())
+            elif leaf in ("modulation", "head_modulation"):
+                std = 1.0 / math.sqrt(param.shape[-1])
+            elif leaf == "class_embedding" or (leaf == "position_embedding"
+                                               and hasattr(owner, "class_embedding")):
+                std = 0.02
             elif leaf == "position_embedding":
                 std = 0.01
             elif leaf == "pos_embed":

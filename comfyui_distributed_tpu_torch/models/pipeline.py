@@ -77,9 +77,11 @@ from .text_encoder import TextEncoder, Tokenizer
 from .unet import UNet
 from .vae import VAE
 
-# the diffusion families the port runs; the others (dit, video) raise
-# where a bundle of them is asked for
-PORTED_FAMILIES = ("unet", "mmdit", "sd3")
+# the families load_pipeline builds a bundle around, as the JAX package's
+# does (a video DiT there takes the family VAE and a CLIP tower; its own
+# stack is models/video_pipeline.py); a part (a VAE, an encoder, a vision
+# tower) raises the JAX package's AttributeError
+PORTED_FAMILIES = ("unet", "mmdit", "sd3", "dit")
 
 
 @dataclasses.dataclass
@@ -214,9 +216,10 @@ def _family_vae_name(model_name: str) -> str:
 def _require_ported_family(model_name: str) -> str:
     family = model_family(model_name)
     if family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{model_name!r} ({family} family): only UNet (SD), Flux and SD3 pipelines are "
-            "ported so far (ROADMAP.md, Queue 1 item 5: the WAN video and audio families)")
+        raise AttributeError(
+            f"'{type(get_config(model_name)).__name__}' object has no attribute 'context_dim': "
+            f"{model_name!r} ({family} family) is a part of a pipeline, not a diffusion "
+            "backbone")
     return family
 
 

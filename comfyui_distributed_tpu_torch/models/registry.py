@@ -9,9 +9,10 @@ text encoders (the upscale workflow), `sd15` with the SD VAE and CLIP-L
 `flux-schnell` with T5-XXL, CLIP-L and the 16-channel Flux VAE (the Flux
 and Kontext workflows), `sd3-medium`, `sd35-large` and `sd35-medium`
 (MMDiT-X) with CLIP-L (projected pooled), CLIP-G, T5-XXL at 77 tokens and
-the 16-channel SD3 VAE (the SD3.5 workflows), and the tiny instances of
-the same code that the CPU tests hold against the JAX package. The WAN
-video and audio families come with their slices.
+the 16-channel SD3 VAE (the SD3.5 workflows), `wan-1.3b`, `wan-14b` and
+`wan-14b-i2v` with the causal `wan-vae` and `clip-vision-h` (the WAN
+workflows), and the tiny instances of the same code that the CPU tests
+hold against the JAX package. The audio family comes with its slice.
 """
 
 from __future__ import annotations
@@ -20,12 +21,15 @@ from typing import Any
 
 from torch import nn
 
+from .clip_vision import ClipVisionConfig, ClipVisionEncoder
+from .dit import DiTConfig, VideoDiT
 from .mmdit import MMDiT, MMDiTConfig
 from .sd3 import SD3Config, SD3MMDiT
 from .t5_encoder import T5Encoder, T5EncoderConfig
 from .text_encoder import TextEncoder, TextEncoderConfig
 from .unet import UNet, UNetConfig
 from .vae import VAE, VAEConfig
+from .video_vae import VideoVAE, VideoVAEConfig
 
 MODEL_REGISTRY: dict[str, dict[str, Any]] = {
     # SD1.5: 8 heads at every level, so head dims 40, 80 and 160 (the JAX
@@ -185,6 +189,31 @@ MODEL_REGISTRY: dict[str, dict[str, Any]] = {
         "config": SD3Config(depth=2, hidden_dim=32, heads=2, context_dim=160, pooled_dim=160,
                             pos_embed_max=32, qk_norm=True, flow_shift=1.0),
     },
+    # video DiT backbones (WAN 2.x checkpoint-faithful widths; head dim 128)
+    "wan-1.3b": {
+        "family": "dit",
+        "config": DiTConfig(hidden_dim=1536, ffn_dim=8960, depth=30, heads=12, context_dim=4096),
+    },
+    "wan-14b": {
+        "family": "dit",
+        "config": DiTConfig(hidden_dim=5120, ffn_dim=13824, depth=40, heads=40, context_dim=4096),
+    },
+    "tiny-dit": {
+        "family": "dit",
+        "config": DiTConfig(hidden_dim=64, depth=2, heads=2, context_dim=64),
+    },
+    # i2v: [noise 16 | mask 4 | cond latent 16] = 36 input channels, 16 out;
+    # the image cross-attention over CLIP ViT-H's penultimate tokens
+    "wan-14b-i2v": {
+        "family": "dit",
+        "config": DiTConfig(hidden_dim=5120, ffn_dim=13824, depth=40, heads=40,
+                            context_dim=4096, in_channels=36, out_channels=16, i2v=True),
+    },
+    "tiny-dit-i2v": {
+        "family": "dit",
+        "config": DiTConfig(hidden_dim=64, depth=2, heads=2, context_dim=64, in_channels=36,
+                            out_channels=16, i2v=True, img_dim=48),
+    },
     "vae-sd": {"family": "vae", "config": VAEConfig()},
     # the Flux-class 16-channel AE: (mean - shift) * scale at its boundary,
     # no 1x1 quant convs in the published layout
@@ -214,6 +243,44 @@ MODEL_REGISTRY: dict[str, dict[str, Any]] = {
     "tiny-vae": {
         "family": "vae",
         "config": VAEConfig(base_channels=16, channel_mult=(1, 2), num_res_blocks=1),
+    },
+    # a 16-channel per-frame 2D VAE (the tiny video stack's)
+    "vae-video": {
+        "family": "vae",
+        "config": VAEConfig(latent_channels=16, scaling_factor=1.0),
+    },
+    "tiny-vae-video": {
+        "family": "vae",
+        "config": VAEConfig(base_channels=16, channel_mult=(1, 2), num_res_blocks=1,
+                            latent_channels=16, scaling_factor=1.0),
+    },
+    # the causal 3D WAN VAE: 8x spatial, 4x temporal, 4n+1 frames; the
+    # per-channel constants the official Wan2.1 wrapper normalizes with
+    "wan-vae": {
+        "family": "video_vae",
+        "config": VideoVAEConfig(
+            latents_mean=(
+                -0.7571, -0.7089, -0.9113, 0.1075, -0.1745, 0.9653,
+                -0.1517, 1.5508, 0.4134, -0.0715, 0.5517, -0.3632,
+                -0.1922, -0.9497, 0.2503, -0.2921,
+            ),
+            latents_std=(
+                2.8184, 1.4541, 2.3275, 2.5017, 2.3632, 2.0435,
+                3.3086, 3.0723, 2.0365, 1.9887, 2.6244, 2.0905,
+                2.3852, 1.4049, 2.5648, 2.7630,
+            ),
+        ),
+    },
+    "tiny-video-vae-3d": {
+        "family": "video_vae",
+        "config": VideoVAEConfig(base_dim=16, dim_mult=(1, 2), num_res_blocks=1,
+                                 temporal_down=(True,)),
+    },
+    # CLIP vision towers (WAN i2v's image conditioning; ViT-H/14)
+    "clip-vision-h": {"family": "clip_vision", "config": ClipVisionConfig()},
+    "tiny-clip-vision": {
+        "family": "clip_vision",
+        "config": ClipVisionConfig(image_size=32, patch_size=8, width=48, layers=3, heads=2),
     },
     # single-tower UNets' encoder: the final layer and the final LayerNorm
     "clip-l": {"family": "text_encoder", "config": TextEncoderConfig()},
@@ -323,8 +390,9 @@ TRIPLE_TEXT_ENCODERS: dict[str, tuple[str, str, str]] = {
     "tiny-sd35m": ("tiny-te-l", "tiny-te-g", "tiny-t5-sd3"),
 }
 
-_CONSTRUCTORS = {"unet": UNet, "mmdit": MMDiT, "sd3": SD3MMDiT, "vae": VAE,
-                 "text_encoder": TextEncoder, "t5_encoder": T5Encoder}
+_CONSTRUCTORS = {"unet": UNet, "mmdit": MMDiT, "sd3": SD3MMDiT, "dit": VideoDiT, "vae": VAE,
+                 "video_vae": VideoVAE, "text_encoder": TextEncoder, "t5_encoder": T5Encoder,
+                 "clip_vision": ClipVisionEncoder}
 
 
 def _entry(name: str) -> dict[str, Any]:

@@ -13,8 +13,12 @@ separate files: the transformer (`double_blocks.*`, bare or under
 SD3.5 file (`joint_blocks.*`, bare or under `model.diffusion_model.`;
 the `*_incl_clips*` single files add `first_stage_model.*` and
 `text_encoders.{clip_l,clip_g,t5xxl}.transformer.*`) fills its parts
-through `load_sd3_weights`. WAN files are recognised and refused
-(`checkpoint_layout`).
+through `load_sd3_weights`. The WAN stack ships as separate files: the
+video DiT (`blocks.N.*`, bare or under `model.diffusion_model.`;
+`load_wan_weights`), the Wan2.1 VAE (`encoder.downsamples.N.*`,
+`decoder.upsamples.N.*`; `load_wan_vae_weights`) and the CLIP-vision
+tower of i2v (HF CLIPVisionModel, `vision_model.*`;
+`load_clip_vision_weights`).
 
 Each architecture has an enumerable key schedule, config →
 [(sd key prefix, module parameter prefix, kind)], so the mapping is
@@ -34,6 +38,11 @@ loads as it is stored:
     rms_scale     an RMS norm stored as `.scale` (Flux's q/k norms)
     conv2d:p:c    SD3's stride-p patch conv [O, c, p, p] → the Dense
                   [O, c p p] over (c, ph, pw)-flattened patches
+    conv3d:pf:ph:pw:c  WAN's patch conv [O, c, pf, ph, pw] → the Dense
+                  [O, pf ph pw c] over (pf, ph, pw, c)-flattened patches
+    causal3       a Conv3d [O, I, kt, kh, kw], weight and bias as stored
+    gamma3, gamma2  the Wan VAE's RMS gamma [C, 1, 1(, 1)] → [C]
+    conv_nobias   a conv weight alone, as stored
 
 Loading is strict on the module's side: a parameter no key fills, or a
 shape that differs, raises. Keys the schedule does not name
@@ -456,6 +465,164 @@ def sd3_schedule(cfg, prefix: str = "model.diffusion_model.") -> list[Entry]:
     return entries
 
 
+def wan_schedule(cfg, prefix: str = "") -> list[Entry]:
+    """WAN 2.x video DiT state dict (`blocks.N.*`, `patch_embedding`,
+    `time_embedding`, `time_projection`, `text_embedding`, `head.*`, and
+    for i2v `img_emb.proj.*` and the blocks' `k_img`/`v_img`) → VideoDiT.
+    `prefix` is `model.diffusion_model.` for a ComfyUI-repacked file."""
+    p = prefix
+    pf, ph, pw = cfg.patch_size
+    entries: list[Entry] = [
+        (f"{p}patch_embedding", "patch_embed", f"conv3d:{pf}:{ph}:{pw}:{cfg.in_channels}"),
+        (f"{p}text_embedding.0", "text_embed_0", _LINEAR),
+        (f"{p}text_embedding.2", "text_embed_2", _LINEAR),
+        (f"{p}time_embedding.0", "time_embed_0", _LINEAR),
+        (f"{p}time_embedding.2", "time_embed_2", _LINEAR),
+        (f"{p}time_projection.1", "time_proj", _LINEAR),
+    ]
+    for i in range(cfg.depth):
+        sd, pt = f"{p}blocks.{i}", f"block_{i}"
+        for attn in ("self_attn", "cross_attn"):
+            for leaf in ("q", "k", "v", "o"):
+                entries.append((f"{sd}.{attn}.{leaf}", f"{pt}.{attn}_{leaf}", _LINEAR))
+            for leaf in ("norm_q", "norm_k"):
+                entries.append((f"{sd}.{attn}.{leaf}", f"{pt}.{attn}_{leaf}", "rms"))
+        if cfg.i2v:
+            entries += [
+                (f"{sd}.cross_attn.k_img", f"{pt}.cross_attn_k_img", _LINEAR),
+                (f"{sd}.cross_attn.v_img", f"{pt}.cross_attn_v_img", _LINEAR),
+                (f"{sd}.cross_attn.norm_k_img", f"{pt}.cross_attn_norm_k_img", "rms"),
+            ]
+        entries += [
+            (f"{sd}.norm3", f"{pt}.norm3", _NORM),
+            (f"{sd}.ffn.0", f"{pt}.ffn_0", _LINEAR),
+            (f"{sd}.ffn.2", f"{pt}.ffn_2", _LINEAR),
+            (f"{sd}.modulation", f"{pt}.modulation", "param_bare"),
+        ]
+    if cfg.i2v:
+        entries += [
+            (f"{p}img_emb.proj.0", "img_emb_norm_in", _NORM),
+            (f"{p}img_emb.proj.1", "img_emb_fc1", _LINEAR),
+            (f"{p}img_emb.proj.3", "img_emb_fc2", _LINEAR),
+            (f"{p}img_emb.proj.4", "img_emb_norm_out", _NORM),
+        ]
+    entries += [
+        (f"{p}head.head", "head", _LINEAR),
+        (f"{p}head.modulation", "head_modulation", "param_bare"),
+    ]
+    return entries
+
+
+def _wan_vae_resblock(sd: str, pt: str, in_dim: int, out_dim: int) -> list[Entry]:
+    entries = [
+        (f"{sd}.residual.0", f"{pt}.residual_0", "gamma3"),
+        (f"{sd}.residual.2", f"{pt}.residual_2.conv", "causal3"),
+        (f"{sd}.residual.3", f"{pt}.residual_3", "gamma3"),
+        (f"{sd}.residual.6", f"{pt}.residual_6.conv", "causal3"),
+    ]
+    if in_dim != out_dim:
+        entries.append((f"{sd}.shortcut", f"{pt}.shortcut.conv", "causal3"))
+    return entries
+
+
+def _wan_vae_attn(sd: str, pt: str) -> list[Entry]:
+    return [
+        (f"{sd}.norm", f"{pt}.norm", "gamma2"),
+        (f"{sd}.to_qkv", f"{pt}.to_qkv", _CONV),
+        (f"{sd}.proj", f"{pt}.proj", _CONV),
+    ]
+
+
+def wan_vae_schedule(cfg) -> list[Entry]:
+    """Official Wan2.1 VAE state dict → VideoVAE: `encoder.downsamples.N`
+    and `decoder.upsamples.N` run over the residual blocks and resamples
+    in construction order; the RMS gammas are bare `.gamma` tensors with
+    trailing unit dims."""
+    entries: list[Entry] = []
+    enc_dims = [cfg.base_dim * m for m in (1,) + tuple(cfg.dim_mult)]
+    entries.append(("encoder.conv1", "encoder.conv1.conv", "causal3"))
+    idx, in_dim = 0, enc_dims[0]
+    for level in range(len(cfg.dim_mult)):
+        out_dim = enc_dims[level + 1]
+        for _ in range(cfg.num_res_blocks):
+            entries += _wan_vae_resblock(f"encoder.downsamples.{idx}", f"encoder.down_{idx}",
+                                         in_dim, out_dim)
+            in_dim = out_dim
+            idx += 1
+        if level != len(cfg.dim_mult) - 1:
+            sd, pt = f"encoder.downsamples.{idx}", f"encoder.down_{idx}"
+            entries.append((f"{sd}.resample.1", f"{pt}.resample_1", _CONV))
+            if cfg.temporal_down[level]:
+                entries.append((f"{sd}.time_conv", f"{pt}.time_conv.conv", "causal3"))
+            idx += 1
+    top = enc_dims[-1]
+    entries += _wan_vae_resblock("encoder.middle.0", "encoder.middle_0", top, top)
+    entries += _wan_vae_attn("encoder.middle.1", "encoder.middle_1")
+    entries += _wan_vae_resblock("encoder.middle.2", "encoder.middle_2", top, top)
+    entries += [
+        ("encoder.head.0", "encoder.head_0", "gamma3"),
+        ("encoder.head.2", "encoder.head_2.conv", "causal3"),
+        ("conv1", "conv1_q.conv", "causal3"),
+        ("conv2", "conv2_q.conv", "causal3"),
+    ]
+    rev = tuple(reversed(cfg.dim_mult))
+    dec_dims = [cfg.base_dim * m for m in (rev[0],) + rev]
+    temporal_up = tuple(reversed(cfg.temporal_down))
+    entries.append(("decoder.conv1", "decoder.conv1.conv", "causal3"))
+    top = dec_dims[0]
+    entries += _wan_vae_resblock("decoder.middle.0", "decoder.middle_0", top, top)
+    entries += _wan_vae_attn("decoder.middle.1", "decoder.middle_1")
+    entries += _wan_vae_resblock("decoder.middle.2", "decoder.middle_2", top, top)
+    idx, in_dim = 0, dec_dims[0]
+    for level in range(len(cfg.dim_mult)):
+        out_dim = dec_dims[level + 1]
+        for _ in range(cfg.num_res_blocks + 1):
+            entries += _wan_vae_resblock(f"decoder.upsamples.{idx}", f"decoder.up_{idx}",
+                                         in_dim, out_dim)
+            in_dim = out_dim
+            idx += 1
+        if level != len(cfg.dim_mult) - 1:
+            sd, pt = f"decoder.upsamples.{idx}", f"decoder.up_{idx}"
+            entries.append((f"{sd}.resample.1", f"{pt}.resample_1", _CONV))
+            if temporal_up[level]:
+                entries.append((f"{sd}.time_conv", f"{pt}.time_conv.conv", "causal3"))
+            idx += 1
+            in_dim = out_dim // 2  # an upsample halves the channels
+    entries += [
+        ("decoder.head.0", "decoder.head_0", "gamma3"),
+        ("decoder.head.2", "decoder.head_2.conv", "causal3"),
+    ]
+    return entries
+
+
+def clip_vision_schedule(cfg, prefix: str = "vision_model") -> list[Entry]:
+    """HF CLIPVisionModel state dict → ClipVisionEncoder (the HF spelling
+    `pre_layrnorm`). Penultimate configs leave the last layer and the
+    post LN out: those keys go unused."""
+    p = prefix
+    entries: list[Entry] = [
+        (f"{p}.embeddings.class_embedding", "class_embedding", "param_bare"),
+        (f"{p}.embeddings.patch_embedding", "patch_embedding", "conv_nobias"),
+        (f"{p}.embeddings.position_embedding", "position_embedding", "position"),
+        (f"{p}.pre_layrnorm", "pre_ln", _NORM),
+    ]
+    for i in range(cfg.layers - 1 if cfg.penultimate_hidden else cfg.layers):
+        sd, pt = f"{p}.encoder.layers.{i}", f"block_{i}"
+        entries += [
+            (f"{sd}.layer_norm1", f"{pt}.LayerNorm_0", _NORM),
+            (f"{sd}.self_attn.q_proj", f"{pt}.q", _LINEAR),
+            (f"{sd}.self_attn.k_proj", f"{pt}.k", _LINEAR),
+            (f"{sd}.self_attn.v_proj", f"{pt}.v", _LINEAR),
+            (f"{sd}.self_attn.out_proj", f"{pt}.proj", _LINEAR),
+            (f"{sd}.layer_norm2", f"{pt}.LayerNorm_1", _NORM),
+            (f"{sd}.mlp.fc1", f"{pt}.fc1", _LINEAR),
+            (f"{sd}.mlp.fc2", f"{pt}.fc2", _LINEAR),
+        ]
+    if not cfg.penultimate_hidden:
+        entries.append((f"{p}.post_layernorm", "post_ln", _NORM))
+    return entries
+
+
 # --- conversion -----------------------------------------------------------
 
 def _expand(entries: Iterable[Entry]) -> list[tuple[str, str, str]]:
@@ -480,9 +647,16 @@ def _expand(entries: Iterable[Entry]) -> list[tuple[str, str, str]]:
             out.append((f"{sd}.scale", f"{pt}.weight", "id"))
         elif kind == "bare_linear_w":  # nn.Linear weight [P, W] → bare [W, P]
             out.append((f"{sd}.weight", pt, "transpose"))
-        elif kind.startswith("conv2d:"):  # a patch conv → the patchify Dense
+        elif kind.startswith(("conv2d:", "conv3d:")):  # a patch conv → the patchify Dense
             out.append((f"{sd}.weight", f"{pt}.weight", kind))
             out.append((f"{sd}.bias", f"{pt}.bias", "id"))
+        elif kind == "causal3":  # a Conv3d, weight and bias as stored
+            out.append((f"{sd}.weight", f"{pt}.weight", "id"))
+            out.append((f"{sd}.bias", f"{pt}.bias", "id"))
+        elif kind in ("gamma3", "gamma2"):  # a bare RMS gamma with unit dims
+            out.append((f"{sd}.gamma", f"{pt}.weight", kind))
+        elif kind == "conv_nobias":
+            out.append((f"{sd}.weight", f"{pt}.weight", "id"))
         elif kind == "fused_qkv":
             for slot, name in enumerate(("q", "k", "v")):
                 out.append((f"{sd}_weight", f"{pt}.{name}.weight", f"qkv{slot}"))
@@ -499,6 +673,10 @@ def _transform(value: torch.Tensor, how: str) -> torch.Tensor:
         return value.t()
     if how.startswith("conv2d:"):
         return value.reshape(value.shape[0], -1)
+    if how.startswith("conv3d:"):  # [O, c, pf, ph, pw] → [O, (pf ph pw c)]
+        return value.permute(0, 2, 3, 4, 1).reshape(value.shape[0], -1)
+    if how in ("gamma3", "gamma2"):
+        return value.reshape(-1)
     if how.startswith("qkv"):
         third = value.shape[0] // 3
         slot = int(how[3])
@@ -536,6 +714,11 @@ def synthesize_state_dict(params: Mapping[str, torch.Tensor], entries: Iterable[
         elif how.startswith("conv2d:"):
             p, c = (int(n) for n in how.split(":")[1:])
             out[sd_key] = value.reshape(value.shape[0], c, p, p)
+        elif how.startswith("conv3d:"):
+            pf, ph, pw, c = (int(n) for n in how.split(":")[1:])
+            out[sd_key] = value.reshape(value.shape[0], pf, ph, pw, c).permute(0, 4, 1, 2, 3)
+        elif how in ("gamma3", "gamma2"):
+            out[sd_key] = value.reshape((-1,) + (1,) * (3 if how == "gamma3" else 2))
         else:
             out[sd_key] = value.t() if how == "transpose" else value
     for sd_key, parts in fused.items():
@@ -702,23 +885,47 @@ def load_sd3_weights(state_dict: Mapping[str, torch.Tensor], unet_cfg, vae_cfg, 
     return set(schedules)
 
 
-# families whose files are recognised by their keys but not ported yet
-_UNPORTED_LAYOUTS = {
-    "wan": (("blocks.0.self_attn.", "model.diffusion_model.blocks.0.self_attn.",
-             "patch_embedding."), "ROADMAP.md, Queue 1 step 6: WAN video"),
-}
+def _wan_prefix(state_dict: Mapping[str, torch.Tensor]) -> str:
+    return ("model.diffusion_model."
+            if any(k.startswith("model.diffusion_model.blocks.") for k in state_dict) else "")
+
+
+def load_wan_weights(state_dict: Mapping[str, torch.Tensor], cfg, module: nn.Module) -> None:
+    """A WAN DiT file (the original bare `blocks.N.*` layout or a
+    ComfyUI repack under `model.diffusion_model.`) → VideoDiT, in place,
+    strictly."""
+    problems = _merge_into_module(state_dict, wan_schedule(cfg, prefix=_wan_prefix(state_dict)),
+                                  module, "dit")
+    _raise_if(problems, "WAN checkpoint")
+
+
+def load_wan_vae_weights(state_dict: Mapping[str, torch.Tensor], cfg, module: nn.Module) -> None:
+    """An official Wan2.1 VAE file → VideoVAE, in place, strictly."""
+    _raise_if(_merge_into_module(state_dict, wan_vae_schedule(cfg), module, "video_vae"),
+              "WAN VAE checkpoint")
+
+
+def load_clip_vision_weights(state_dict: Mapping[str, torch.Tensor], cfg,
+                             module: nn.Module) -> None:
+    """An HF CLIPVisionModel file → ClipVisionEncoder, in place, strictly."""
+    _raise_if(_merge_into_module(state_dict, clip_vision_schedule(cfg), module, "clip_vision"),
+              "CLIP-vision checkpoint")
+
+
+# the WAN DiT's keys, bare or in a ComfyUI repack
+WAN_MARKERS = ("blocks.0.self_attn.", "model.diffusion_model.blocks.0.self_attn.",
+               "patch_embedding.")
 
 
 def checkpoint_layout(state_dict: Mapping[str, torch.Tensor]) -> str:
-    """A single file's layout by its keys: "sd3" (an SD3-class MMDiT,
-    bare or under `model.diffusion_model.`), "flux" (a Flux transformer,
-    bare or under `model.diffusion_model.`, or a T5 encoder),
-    "sdxl" (`conditioner.embedders.*`), "sd2" (an OpenCLIP tower under
-    `cond_stage_model.model.*`) or "sd1" (HF CLIP). A WAN file raises
-    NotImplementedError."""
-    for family, (markers, item) in _UNPORTED_LAYOUTS.items():
-        if any(k.startswith(markers) for k in state_dict):
-            raise NotImplementedError(f"{family} checkpoints are not ported yet ({item})")
+    """A single file's layout by its keys: "wan" (a WAN video DiT, bare or
+    under `model.diffusion_model.`), "sd3" (an SD3-class MMDiT, bare or
+    under `model.diffusion_model.`), "flux" (a Flux transformer, bare or
+    under `model.diffusion_model.`, or a T5 encoder), "sdxl"
+    (`conditioner.embedders.*`), "sd2" (an OpenCLIP tower under
+    `cond_stage_model.model.*`) or "sd1" (HF CLIP)."""
+    if any(k.startswith(WAN_MARKERS) for k in state_dict):
+        return "wan"
     if any(k.startswith(("joint_blocks.", "model.diffusion_model.joint_blocks."))
            for k in state_dict):
         return "sd3"
@@ -778,6 +985,9 @@ def load_sd_weights(state_dict: Mapping[str, torch.Tensor], unet_cfg, vae_cfg, t
     if layout == "sd3":
         raise ValueError("an SD3-class file, not a single-file SD checkpoint: load it as an "
                          "sd3-medium, sd35-large or sd35-medium model (load_pipeline, UNETLoader)")
+    if layout == "wan":
+        raise ValueError("a WAN video DiT file, not a single-file SD checkpoint: load it as a "
+                         "wan-* model (load_video_pipeline, VideoCheckpointLoader)")
     schedules = sd_schedules(layout, unet_cfg, vae_cfg, te_cfg,
                              te2_cfg if "te2" in modules else None)
     for part, entries in schedules.items():

@@ -270,18 +270,37 @@ def dot_product_attention(
     return flash_attention(q, k, v)
 
 
+# the most f32 scores [B, H, rows, M] the plain version forms at once; past
+# it the query rows go in chunks (rows are independent, so the result is
+# the same): WAN's 14B self-attention, [2, 28350, 40, 128], would be
+# 257 GB of scores whole
+REFERENCE_CHUNK_ELEMENTS = 2**28
+
+
+def _query_row_chunks(q: torch.Tensor, m: int) -> list[slice]:
+    """Slices of q's rows (dim 1) whose [B, H, rows, M] scores stay within
+    REFERENCE_CHUNK_ELEMENTS; one slice when the whole fits."""
+    b, n, h, _ = q.shape
+    rows = max(1, REFERENCE_CHUNK_ELEMENTS // max(1, b * h * m))
+    return [slice(start, min(start + rows, n)) for start in range(0, n, rows)]
+
+
 def flash_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None
 ) -> torch.Tensor:
     """The kernel's plain version: softmax((q*scale) k^T) v with both
-    products in f32, output in q's dtype."""
+    products in f32, output in q's dtype; past REFERENCE_CHUNK_ELEMENTS
+    scores in chunks of query rows."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    qf = q.float().permute(0, 2, 1, 3) * scale
     kf = k.float().permute(0, 2, 1, 3)
     vf = v.float().permute(0, 2, 1, 3)
-    probs = torch.softmax(qf @ kf.transpose(-1, -2), dim=-1)
-    return (probs @ vf).permute(0, 2, 1, 3).to(q.dtype)
+    parts = []
+    for rows in _query_row_chunks(q, k.shape[1]):
+        qf = q[:, rows].float().permute(0, 2, 1, 3) * scale
+        probs = torch.softmax(qf @ kf.transpose(-1, -2), dim=-1)
+        parts.append((probs @ vf).permute(0, 2, 1, 3).to(q.dtype))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 def bf16_p_attention_reference(
@@ -292,11 +311,17 @@ def bf16_p_attention_reference(
     (WGMMA_BF16_P), in plain PyTorch: the online softmax over key tiles of
     `keys_per_tile`, in log2 units; each tile's P = 2^(s scale log2(e) -
     running max) rounded once to bf16 for P·V (products exact, summed in
-    f32), the row sum taken from the f32 P. Output in q's dtype. Tests hold
+    f32), the row sum taken from the f32 P. Output in q's dtype; query
+    rows in chunks whose one tile's scores stay within
+    REFERENCE_CHUNK_ELEMENTS (rows are independent). Tests hold
     it against the TPU kernel and the f32 plain version, and chip_smoke.py
     holds the kernel to it; the port never calls it."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    chunks = _query_row_chunks(q, keys_per_tile)
+    if len(chunks) > 1:
+        return torch.cat([bf16_p_attention_reference(q[:, rows], k, v, keys_per_tile, scale)
+                          for rows in chunks], dim=1)
     qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
     scale_log2 = scale * math.log2(math.e)
     row_max = torch.full((*qf.shape[:3], 1), -math.inf, device=qf.device)

@@ -16,9 +16,12 @@ the entry and follow its batch slices and area crops; the tile path
 refuses them, as the JAX package's does. The Flux fields ride on the
 entry too: the distilled `guidance` scale (FluxGuidance,
 CLIPTextEncodeFlux) and Kontext's `reference_latents` (ReferenceLatent),
-which follow batch slices, tile crops and the CFG batch. SD3/WAN's model
-patches and unCLIP's embeddings are not ported: an entry that carries
-one of them is refused where it is sampled (`reject_unported`).
+which follow batch slices, tile crops and the CFG batch. unCLIP's image
+embeddings (unCLIPConditioning) ride on the entry as in the JAX package,
+where no backbone consumes them: sampling such an entry raises the JAX
+package's ValueError. Model patches, a field of the JAX package's
+Conditioning that none of its nodes sets, are refused where an entry is
+sampled (`reject_unported`).
 """
 
 from __future__ import annotations
@@ -31,8 +34,9 @@ import torch.nn.functional as F
 
 from .resize import resize_image
 
-# fields of the JAX package's Conditioning that no ported model consumes yet
-UNPORTED_FIELDS = ("model_patches", "unclip_embeds")
+# fields of the JAX package's Conditioning that no node of either package
+# sets and no model consumes
+UNPORTED_FIELDS = ("model_patches",)
 
 
 @dataclasses.dataclass
@@ -64,6 +68,9 @@ class Conditioning:
         latents the Flux MMDiT takes as extra image tokens.
     guidance: the distilled guidance scale a Flux-dev-class model
         embeds; None takes the model's default.
+    unclip_embeds / unclip_strength / unclip_noise_aug: unCLIPConditioning's
+        CLIP-vision tokens [B, T, width] and their weights; no backbone
+        has an unCLIP adm head, so sampling them raises.
     """
 
     context: torch.Tensor
@@ -83,6 +90,9 @@ class Conditioning:
     concat_latent: Optional[torch.Tensor] = None
     reference_latents: Optional[list] = None
     guidance: Optional[float] = None
+    unclip_embeds: Optional[torch.Tensor] = None
+    unclip_strength: float = 1.0
+    unclip_noise_aug: float = 0.0
 
     def clone(self) -> "Conditioning":
         # tensors are never written in place, so a shallow copy suffices;
@@ -92,9 +102,11 @@ class Conditioning:
 
 # the fields a batch concatenation joins, and the ones two entries must
 # share to ride one batched pass (the JAX pytree's leaves and aux data)
-TENSOR_FIELDS = ("context", "pooled", "control_hint", "mask", "gligen_embs", "concat_latent")
+TENSOR_FIELDS = ("context", "pooled", "control_hint", "mask", "gligen_embs", "concat_latent",
+                 "unclip_embeds")
 STATIC_FIELDS = ("control_strength", "control_net", "control_range", "area", "strength",
-                 "timestep_range", "size_cond", "gligen_boxes", "gligen_active", "guidance")
+                 "timestep_range", "size_cond", "gligen_boxes", "gligen_active", "guidance",
+                 "unclip_strength", "unclip_noise_aug")
 # a list of tensors, each joined on the batch axis like a tensor field
 LIST_FIELDS = ("reference_latents",)
 
@@ -106,16 +118,25 @@ def as_conditioning(value: Any) -> Conditioning:
     return Conditioning(context=value)
 
 
+# the JAX package's error for unCLIP embeds at a sampler
+# (comfyui_distributed_tpu/ops/samplers.py::_reject_unsupported_cond)
+UNCLIP_UNSUPPORTED = (
+    "unCLIP image conditioning (unCLIPConditioning node) reached a model without an unCLIP "
+    "adm head — no registered backbone consumes it yet; remove the node or use an "
+    "i2v-native path (WAN i2v)")
+
+
 def reject_unported(entry: Any) -> None:
-    """NotImplementedError for an entry carrying a field of the JAX
-    package's Conditioning that no ported model consumes: dropping it
-    would render a plausible, wrong image."""
+    """Refuse an entry a sampler must not drop silently (a plausible,
+    wrong image): ValueError for unCLIP embeds, which no backbone
+    consumes (the JAX package's error); NotImplementedError for model
+    patches, which no node sets."""
+    if getattr(entry, "unclip_embeds", None) is not None:
+        raise ValueError(UNCLIP_UNSUPPORTED)
     for name in UNPORTED_FIELDS:
         if getattr(entry, name, None) is not None:
             raise NotImplementedError(
-                f"conditioning field {name!r} is not ported yet (ROADMAP.md, Queue 1 item 5: "
-                "the WAN video and audio families)"
-            )
+                f"conditioning field {name!r} is not supported: no node sets it")
 
 
 def resolve_area(area, image_h: int, image_w: int):

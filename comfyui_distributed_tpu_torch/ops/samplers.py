@@ -8,6 +8,11 @@ PyTorch runs eagerly.
 Model contract: `model_fn(x, sigma_batch, cond) -> eps` (VP noise
 prediction); `denoised(x, sigma) = x - sigma * eps`.
 
+The video DiT family samples on its own flow grid (`get_flow_timesteps`,
+`sample_flow`, `cfg_flow_model`, `sample_flow_masked`): Euler steps of
+the predicted velocity in flow time t from 1 (noise) to 0 (data), the
+model called with t x 1000.
+
 Every sampler and scheduler of the JAX package runs on the VP families:
 eps- and v-prediction share the sigma table and the noising rule (the
 model function converts v to eps). Rectified-flow models (Flux) take the
@@ -254,11 +259,12 @@ PARAMETERIZATIONS = ("eps", "v", "flow")
 
 
 def require_parameterization(parameterization: str) -> None:
+    """NotImplementedError for a parameterization outside PARAMETERIZATIONS:
+    every family the JAX package registers is one of them."""
     if parameterization not in PARAMETERIZATIONS:
         raise NotImplementedError(
-            f"{parameterization!r} models are not ported yet (ROADMAP.md, Queue 1 item 5: the "
-            "WAN video and audio families); the PyTorch package runs eps-, v- and "
-            "flow-parameterized models")
+            f"{parameterization!r} models are not supported: every model family is eps-, v- "
+            "or flow-parameterized")
 
 
 def _flow_sigma_table(shift: float, n_training: int = 1000) -> np.ndarray:
@@ -1052,3 +1058,71 @@ def sample(model_fn: ModelFn, x_init: torch.Tensor, sigmas: torch.Tensor, cond: 
             return _sample_euler_ancestral_rf(model_fn, x_init, sigmas, cond, noise)
         return _STOCHASTIC[sampler](model_fn, x_init, sigmas, cond, noise)
     raise ValueError(f"unknown sampler {sampler!r}; use {SAMPLER_NAMES}")
+
+
+# --- flow matching for the video DiT family -------------------------------
+
+def get_flow_timesteps(steps: int, shift: float = 3.0) -> torch.Tensor:
+    """[steps+1] descending flow times in [1, 0] as f32 on the host, through
+    the timestep shift t' = s t / (1 + (s - 1) t)."""
+    t = np.linspace(1.0, 0.0, steps + 1)
+    t = shift * t / (1.0 + (shift - 1.0) * t)
+    return torch.from_numpy(t.astype(np.float32))
+
+
+def _t_batch(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The model's [B] timestep, t x 1000 in f32 on the host."""
+    return (t * 1000.0).expand(x.shape[0]).clone()
+
+
+def sample_flow(model_fn: ModelFn, x: torch.Tensor, timesteps: torch.Tensor, cond: Any
+                ) -> torch.Tensor:
+    """Euler ODE of velocity-prediction flow matching: noise at t = 1,
+    data at t = 0; x_{t'} = x + v (t' - t), `model_fn(x, t_batch x 1000,
+    cond) -> v` (the batch on the host)."""
+    timesteps = timesteps.detach().to("cpu", torch.float32)
+    for t, t_next in zip(timesteps[:-1], timesteps[1:]):
+        x = x + model_fn(x, _t_batch(t, x), cond) * (t_next - t)
+    return x
+
+
+def _cond_pair_batchable(pos, neg) -> bool:
+    """Whether two text conditionings (tensors) ride one 2B-batched pass."""
+    return (isinstance(pos, torch.Tensor) and isinstance(neg, torch.Tensor)
+            and pos.shape == neg.shape)
+
+
+def cfg_flow_model(model_fn: ModelFn, cfg_scale: float) -> ModelFn:
+    """CFG for velocity models; cond is (positive, negative), joined into
+    one 2B-batched pass where they batch."""
+    if cfg_scale == 1.0:
+        def passthrough(x, t, cond):
+            return model_fn(x, t, cond[0])
+        return passthrough
+
+    def guided(x, t, cond):
+        pos, neg = cond
+        if _cond_pair_batchable(pos, neg):
+            v_pos, v_neg = model_fn(torch.cat([x, x], dim=0), torch.cat([t, t], dim=0),
+                                    torch.cat([pos, neg], dim=0)).chunk(2, dim=0)
+        else:
+            v_pos, v_neg = model_fn(x, t, pos), model_fn(x, t, neg)
+        return v_neg + cfg_scale * (v_pos - v_neg)
+
+    return guided
+
+
+def sample_flow_masked(model_fn: ModelFn, x: torch.Tensor, timesteps: torch.Tensor, cond: Any,
+                       known: torch.Tensor, mask: torch.Tensor, noise: torch.Tensor
+                       ) -> torch.Tensor:
+    """Flow sampling with clamped known regions (i2v's fallback): where
+    mask is 1 the latent is reset after every step onto the straight path
+    (1 - t) known + t noise, elsewhere it evolves freely."""
+    timesteps = timesteps.detach().to("cpu", torch.float32)
+    t0 = timesteps[0]
+    x = x * (1.0 - mask) + ((1.0 - t0) * known + t0 * noise) * mask
+    for t, t_next in zip(timesteps[:-1], timesteps[1:]):
+        x = x + model_fn(x, _t_batch(t, x), cond) * (t_next - t)
+        clamped = (1.0 - t_next) * known + t_next * noise
+        x = x * (1.0 - mask) + clamped * mask
+    return x

@@ -6,6 +6,9 @@ Arrays are channel-last float [H, W, C] (or [1, H, W, C]) in [0, 1];
 PNG files are 8-bit greyscale (C = 1), RGB or RGBA, not interlaced.
 The encoder writes every row unfiltered; the decoder undoes all five
 PNG row filters, so it reads what PIL and other encoders write.
+`encode_apng_u8` writes an animated PNG (acTL, fcTL and fdAT chunks,
+every frame whole and unfiltered) where the JAX package calls PIL's
+save_all.
 
 The float → uint8 rule is the JAX package's `f32_to_u8`
 (comfyui_distributed_tpu/native/__init__.py), reproduced exactly:
@@ -65,16 +68,46 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 def encode_png_u8(u8: np.ndarray, compress_level: int = 0) -> bytes:
     """[H, W, C] uint8 → PNG bytes, every row with filter type 0."""
     h, w, c = u8.shape
-    rows = np.empty((h, 1 + w * c), dtype=np.uint8)
-    rows[:, 0] = 0
-    rows[:, 1:] = u8.reshape(h, w * c)
     header = struct.pack(">IIBBBBB", w, h, 8, _CHANNEL_COLOR_TYPE[c], 0, 0, 0)
     return b"".join((
         PNG_SIGNATURE,
         _chunk(b"IHDR", header),
-        _chunk(b"IDAT", zlib.compress(rows.tobytes(), compress_level)),
+        _chunk(b"IDAT", zlib.compress(_rows(u8), compress_level)),
         _chunk(b"IEND", b""),
     ))
+
+
+def _rows(u8: np.ndarray) -> bytes:
+    """[H, W, C] uint8 → the scanlines, each with filter type 0."""
+    h, w, c = u8.shape
+    rows = np.empty((h, 1 + w * c), dtype=np.uint8)
+    rows[:, 0] = 0
+    rows[:, 1:] = u8.reshape(h, w * c)
+    return rows.tobytes()
+
+
+def encode_apng_u8(frames: np.ndarray, duration_ms: int, compress_level: int = 4,
+                   loop: int = 0) -> bytes:
+    """[N, H, W, C] uint8 → an animated PNG: every frame the whole canvas
+    (dispose none, blend source), shown `duration_ms` ms (delay
+    duration_ms/1000), played `loop` times (0: forever). Frame 0 is the
+    IDAT image, so a plain PNG reader sees it."""
+    n, h, w, c = frames.shape
+    header = struct.pack(">IIBBBBB", w, h, 8, _CHANNEL_COLOR_TYPE[c], 0, 0, 0)
+    chunks = [PNG_SIGNATURE, _chunk(b"IHDR", header), _chunk(b"acTL", struct.pack(">II", n, loop))]
+    seq = 0
+    for i in range(n):
+        chunks.append(_chunk(b"fcTL", struct.pack(">IIIIIHHBB", seq, w, h, 0, 0,
+                                                 int(duration_ms), 1000, 0, 0)))
+        seq += 1
+        data = zlib.compress(_rows(frames[i]), compress_level)
+        if i == 0:
+            chunks.append(_chunk(b"IDAT", data))
+        else:
+            chunks.append(_chunk(b"fdAT", struct.pack(">I", seq) + data))
+            seq += 1
+    chunks.append(_chunk(b"IEND", b""))
+    return b"".join(chunks)
 
 
 def encode_png(image, compress_level: int = 0) -> bytes:

@@ -159,13 +159,14 @@ def test_launch_counts_lose_nothing_under_threads():
 
 def _fake_nvcc(monkeypatch, tmp_path, gate=None):
     """nvcc stand-in: records each output name and writes an empty file
-    there, after `gate` (a barrier) lets it through."""
+    there; a link (`-shared`) waits until `gate` (a barrier) lets it
+    through."""
     from comfyui_distributed_tpu_torch import _build
 
     outputs = []
 
     def fake_run(cmd, **kwargs):
-        if gate is not None:
+        if gate is not None and "-shared" in cmd:
             gate.wait(timeout=10)
         outputs.append(cmd[cmd.index("-o") + 1])
         open(outputs[-1], "wb").close()
@@ -213,13 +214,17 @@ def test_kernel_library_loads_once_for_racing_threads(monkeypatch, tmp_path):
         loaded.append(attn.load_library())
 
     _in_threads(first_launch, 4)
-    assert len(outputs) == 1 and len(loads) == 1
+    from comfyui_distributed_tpu_torch import _build
+
+    # one build: each group's object, then the link
+    assert len(outputs) == _build.PARTS["flash_attention.cu"] + 1 and len(loads) == 1
     assert len(loaded) == 4 and all(result is loaded[0] for result in loaded)
 
 
 def test_two_builders_in_one_process_write_separate_temporary_files(monkeypatch, tmp_path):
-    """Two threads inside nvcc at once (each build runs until both are
-    there) write different temporary files, then one library lands."""
+    """Two threads inside nvcc at once (each build's link runs until both
+    are there) write different temporary files, their groups' objects
+    too, then one library lands and no object is left."""
     import threading
 
     from comfyui_distributed_tpu_torch import _build
@@ -227,7 +232,60 @@ def test_two_builders_in_one_process_write_separate_temporary_files(monkeypatch,
     outputs = _fake_nvcc(monkeypatch, tmp_path, gate=threading.Barrier(2))
     results = []
     _in_threads(lambda: results.append(_build.build("flash_attention.cu")), 2)
-    assert len(set(outputs)) == 2
-    assert all(f".{os.getpid()}." in name and name.endswith(".tmp") for name in outputs)
+    parts = _build.PARTS["flash_attention.cu"]
+    assert len(set(outputs)) == len(outputs) == 2 * (parts + 1)
+    assert all(f".{os.getpid()}." in name for name in outputs)
+    assert sum(name.endswith(".tmp") for name in outputs) == 2
+    assert sum(name.endswith(".o") for name in outputs) == 2 * parts
     assert results[0].path == results[1].path and os.path.exists(results[0].path)
     assert sorted(os.listdir(tmp_path)) == [os.path.basename(results[0].path)]
+
+
+def test_the_grouped_build_compiles_each_group_once_then_links(monkeypatch, tmp_path):
+    """The kernel source's instances form PARTS groups (CDT_PARTS in the
+    source): one nvcc -c per group with its CDT_PART, then one link of
+    their objects; a source of one group compiles in one run."""
+    from comfyui_distributed_tpu_torch import _build
+
+    outputs = _fake_nvcc(monkeypatch, tmp_path)
+    calls = []
+    fake_run = _build.subprocess.run
+    monkeypatch.setattr(_build.subprocess, "run",
+                        lambda cmd, **kw: calls.append(cmd) or fake_run(cmd, **kw))
+    parts = _build.PARTS["flash_attention.cu"]
+    library = _build.build("flash_attention.cu").path
+    compiles, link = calls[:-1], calls[-1]
+    assert sorted(a for c in compiles for a in c if a.startswith("-DCDT_PART=")) == \
+        sorted(f"-DCDT_PART={k}" for k in range(1, parts + 1))
+    assert all("-c" in c and f"-DCDT_PARTS={parts}" in c and "-shared" not in c
+               for c in compiles)
+    assert "-shared" in link and sorted(link[-parts:]) == sorted(outputs[:parts])
+    src = open(os.path.join(_build.CSRC_DIR, "flash_attention.cu")).read()
+    assert f"CDT_PARTS == {parts}" in src
+    os.remove(library)
+    calls.clear()
+    monkeypatch.setitem(_build.PARTS, "flash_attention.cu", 1)
+    _build.build("flash_attention.cu")
+    assert len(calls) == 1 and "-shared" in calls[0] and "-c" not in calls[0]
+
+
+@pytest.mark.parametrize("chunk_elements", [2 * 3 * 37 * 5, 2 * 3 * 37, 1])
+def test_the_plain_version_takes_query_row_chunks(chunk_elements, monkeypatch):
+    """Past REFERENCE_CHUNK_ELEMENTS scores the plain versions go in
+    chunks of query rows (WAN's [2, 28350, 40, 128] self-attention would be
+    257 GB of f32 scores whole); rows are independent, so the result is the
+    whole one's within f32 rounding (a one-row product takes another CPU
+    kernel: measured ~1e-7)."""
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(2, 37, 3, 64, generator=gen) for _ in range(3))
+    whole = attn.flash_attention_reference(q, k, v)
+    emulated = attn.bf16_p_attention_reference(q, k, v, 16)
+    assert attn._query_row_chunks(q, 37) == [slice(0, 37)]
+    monkeypatch.setattr(attn, "REFERENCE_CHUNK_ELEMENTS", chunk_elements)
+    chunks = attn._query_row_chunks(q, 37)
+    assert len(chunks) > 1 and chunks[-1].stop == 37
+    torch.testing.assert_close(attn.flash_attention_reference(q, k, v), whole, rtol=0, atol=1e-6)
+    torch.testing.assert_close(attn.bf16_p_attention_reference(q, k, v, 16), emulated,
+                               rtol=0, atol=1e-6)
+    monkeypatch.setattr(attn, "REFERENCE_CHUNK_ELEMENTS", 2 * 3 * 37 * 37)
+    assert attn._query_row_chunks(q, 37) == [slice(0, 37)]

@@ -64,6 +64,31 @@ def test_attention_shapes_match_one_sdxl_tile_on_meta(recorded_calls):
     assert sum(per_tile for *_, per_tile in shapes) == 2802
 
 
+def test_attention_shapes_match_one_cut_sdxl_tile_on_meta(recorded_calls):
+    """The adapters, samplers, usdu_full and dynamic phases' SDXL at the
+    cut depth: the counts the phases assert are the UNet's calls."""
+    evals = get_sigmas("karras", 20, 0.35).shape[0] - 1
+    cuts = chip_smoke._depth_cuts()
+    with chip_smoke._installed({name: cuts[name] for name in chip_smoke.UNET_CUTS}):
+        cfg = get_config("sdxl")
+        with torch.device("meta"):
+            unet = create_model("sdxl")
+            for _ in range(2):
+                unet(torch.empty(2, 72, 72, 4), torch.empty(2), torch.empty(2, 77, 2048),
+                     y=torch.empty(2, 2816))
+        shapes = chip_smoke._attention_shapes(cfg, get_config("vae-sd"), 77, 72, evals)
+    expected = collections.Counter()
+    for _label, q, m, per_tile in shapes:
+        if q[0] == 2:
+            expected[(q, m)] += per_tile * 2 // evals
+    assert recorded_calls == expected
+    assert get_config("sdxl").num_res_blocks == 2  # the cut is gone outside the block
+    unet_calls = sum(per_tile for _label, q, *_, per_tile in shapes if q[0] == 2)
+    # 7 transformer blocks an evaluation (3 at level 1; 3 and the middle one's at
+    # level 2), a self- and a cross-attention each
+    assert unet_calls == 20 * 7 * 2
+
+
 def test_expected_launches_by_instance_follow_the_shapes():
     """The main phase asserts these per tile: the UNet's 2800 D=64 calls
     on the wgmma instance, the VAE's 2 D=512 calls on wgmma512."""
@@ -188,8 +213,9 @@ def test_elastic_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread):
 
 
 def test_adapters_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread):
-    """The adapters phase as the card runs it, on tiny-unet after the
-    elastic phase's runs, on its servers: the LoRA file, LoraLoader and
+    """The adapters phase as the card runs it, on tiny-unet served as the
+    elastic phase serves it (no elastic runs), its base output the local
+    tiles' weighted average: the LoRA file, LoraLoader and
     LoraLoaderModelOnly locally, the adapter over HTTP against L's tiles,
     the unknown adapter's 400, the tile cache cold, warm (every tile
     settled, no launch, the cold run's bytes), at 0.7 and on the base
@@ -213,11 +239,18 @@ def test_adapters_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread):
     executor.execute(prompt)
     local = executor.last_results["5"][0]
     gen = torch.Generator().manual_seed(chip_smoke.SEED)
-    result = chip_smoke._elastic_phase(
-        torch, bundle, "tiny-unet", workflow, image, local, "cpu", runs=1,
-        after=lambda servers: chip_smoke._adapters_phase(
-            torch, bundle, "tiny-unet", workflow, image, local, servers, "cpu", gen))
+    bases = []
+
+    def adapters_phase(servers):
+        bases.append(servers["reference_avg"])
+        return chip_smoke._adapters_phase(torch, bundle, "tiny-unet", workflow, image,
+                                          servers["reference_avg"], servers, "cpu", gen)
+
+    result = chip_smoke._elastic_phase(torch, bundle, "tiny-unet", workflow, image, None, "cpu",
+                                       runs=0, tag="adapters", after=adapters_phase)
     adapters = result["after"]
+    # the base output the phase holds LoraLoader's against is the local run's
+    assert float((bases[0] - local).abs().max()) <= chip_smoke.RERUN_TOLERANCE
     lines = [line for line in capsys.readouterr().out.splitlines()
              if line.startswith("[adapters]")]
     assert len(lines) == 16, lines
@@ -1112,3 +1145,150 @@ def test_sd3_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread, counted_
     assert any("with vs without skip-layer guidance" in line for line in out)
     assert any("CLIP tokens equal to the triple's: True" in line for line in out)
 
+
+
+# --- the wan phase ------------------------------------------------------------------
+
+def test_wan_shapes_of_the_bundled_workflows():
+    """wan-1.3b at 480x480x33 (9 x 30 x 30 = 8100 tokens, 12 heads, 30
+    blocks, 30 steps) and wan-14b at 720x480x81 (21 x 30 x 45 = 28350, 40
+    heads, 40 blocks, 30 steps), CFG-batched at D=128 over CLIP-L's 77
+    tokens; the i2v workflow's 20 steps add the image cross-attention over
+    257 CLIP tokens and CLIP vision's 31 D=80 blocks. A run is two videos:
+    3600, 4800 and 4862 launches, every one on the wgmma instance."""
+    wan = chip_smoke._wan_shapes(_workflow(chip_smoke.WAN_WORKFLOWS["wan"]))
+    assert wan == [("wan_self@8100", (2, 8100, 12, 128), 8100, 30 * 30),
+                   ("wan_text@77", (2, 8100, 12, 128), 77, 30 * 30)]
+    t2v = chip_smoke._wan_shapes(_workflow(chip_smoke.WAN_WORKFLOWS["wan_14b"]))
+    assert t2v == [("wan_self@28350", (2, 28350, 40, 128), 28350, 40 * 30),
+                   ("wan_text@77", (2, 28350, 40, 128), 77, 40 * 30)]
+    i2v = chip_smoke._wan_shapes(_workflow(chip_smoke.WAN_WORKFLOWS["wan_i2v"]))
+    assert i2v == [("wan_self@28350", (2, 28350, 40, 128), 28350, 40 * 20),
+                   ("wan_text@77", (2, 28350, 40, 128), 77, 40 * 20),
+                   ("wan_img@257", (2, 28350, 40, 128), 257, 40 * 20),
+                   ("clipvis@257", (1, 257, 16, 80), 257, 31)]
+    for shapes, per_run in ((wan, 3600), (t2v, 4800), (i2v, 4862)):
+        per_video = sum(count for *_, count in shapes)
+        assert 2 * per_video == per_run
+        assert chip_smoke._expected_by_instance(attn, shapes, torch) == {
+            "wgmma": per_video, "wgmma512": 0, "fma": 0}
+    video = chip_smoke._wan_video(_workflow(chip_smoke.WAN_WORKFLOWS["wan_i2v"]))
+    assert (video["frames"], video["steps"], video["seed"], video["i2v"]) == (81, 20, 42, True)
+
+
+def test_wan_shapes_match_one_evaluation_on_meta(monkeypatch):
+    """wan-14b-i2v's CFG-batched forward and CLIP vision on meta at the
+    i2v workflow's size: every attention call `_wan_shapes` counts a
+    step, nothing else."""
+    from comfyui_distributed_tpu_torch.models import clip_vision, dit
+
+    calls = collections.Counter()
+
+    def record(q, k, v):
+        calls[(tuple(q.shape), k.shape[1])] += 1
+        return torch.empty_like(q)
+
+    monkeypatch.setattr(dit, "dot_product_attention", record)
+    monkeypatch.setattr(clip_vision, "dot_product_attention", record)
+    with torch.device("meta"):
+        create_model("wan-14b-i2v")(torch.empty(2, 21, 60, 90, 36), torch.empty(2),
+                                    torch.empty(2, 77, 4096), torch.empty(2, 257, 1280))
+        create_model("clip-vision-h")(torch.empty(1, 224, 224, 3))
+    want = {(q, m): count // 20 for _, q, m, count in
+            chip_smoke._wan_shapes(_workflow(chip_smoke.WAN_WORKFLOWS["wan_i2v"]))[:3]}
+    want[((1, 257, 16, 80), 257)] = 31
+    assert calls == want
+
+
+def test_phase_selection_and_the_depth_cuts():
+    assert chip_smoke._parse_phases([]) == set(chip_smoke.PHASES)
+    assert chip_smoke._parse_phases(["--phases", "wan"]) == {"wan"}
+    assert chip_smoke._parse_phases(["--phases", "elastic,wan"]) == {"main", "elastic", "wan"}
+    with pytest.raises(SystemExit):
+        chip_smoke._parse_phases(["--phases", "nope"])
+    assert chip_smoke._parse_phases(["--phases", "adapters"]) == {"adapters"}
+    # the main path keeps its published depths; only phases that repeat it are cut
+    assert set(chip_smoke.CUT_PHASES) < set(chip_smoke.PHASES)
+    assert not {"main", "elastic", "txt2img", "procs", "wan"} & set(chip_smoke.CUT_PHASES)
+    cuts = chip_smoke._depth_cuts()
+    assert set(chip_smoke.UNET_CUTS) <= set(cuts)
+    for name, cfg in cuts.items():
+        full = get_config(name)
+        if name.startswith("flux"):
+            assert (cfg.double_depth, cfg.single_depth) == chip_smoke.FLUX_DEPTH_CUT
+            assert cfg.hidden_dim == full.hidden_dim and cfg.heads == full.heads
+        elif name in chip_smoke.UNET_CUTS:
+            cut = (tuple(cfg.transformer_depth), cfg.num_res_blocks)
+            assert cut == ((chip_smoke.SDXL_DEPTH_CUT if name == "sdxl"
+                            else tuple(full.transformer_depth)), chip_smoke.UNET_RES_BLOCKS_CUT)
+            assert (cfg.model_channels, cfg.channel_mult, cfg.head_dim, cfg.num_heads) == (
+                full.model_channels, full.channel_mult, full.head_dim, full.num_heads)
+        else:
+            assert (cfg.depth, cfg.dual_attn_blocks) == chip_smoke.SD3_DEPTH_CUT[name]
+            assert (cfg.width, cfg.n_heads, cfg.head_dim) == (full.width, full.n_heads,
+                                                             full.head_dim)
+    slg = _workflow(chip_smoke.SD3_WORKFLOWS["sd35m_slg"])
+    with chip_smoke._installed(cuts):
+        assert get_config("flux-dev").double_depth == chip_smoke.FLUX_DEPTH_CUT[0]
+        layers_, _ = chip_smoke._sd3_slg_window(slg)
+        assert max(layers_) < get_config("sd35-medium").depth  # SLG's blocks survive the cut
+    assert get_config("flux-dev").double_depth == 19
+
+
+def _tiny_wan_workflow(tag, px=32, frames=5, steps=2):
+    """A bundled WAN workflow on tiny-dit / tiny-dit-i2v at `px`."""
+    workflow = _workflow(chip_smoke.WAN_WORKFLOWS[tag])
+    for node in workflow.values():
+        inputs = node["inputs"]
+        if node["class_type"] == "VideoCheckpointLoader":
+            inputs["ckpt_name"] = "tiny-dit-i2v" if tag == "wan_i2v" else "tiny-dit"
+        if node["class_type"] == "EmptyVideoLatent":
+            inputs.update(width=px, height=px)
+        if "frames" in inputs:
+            inputs["frames"] = frames
+        if "steps" in inputs:
+            inputs["steps"] = steps
+    return workflow
+
+
+def test_wan_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread, counted_calls,
+                                              monkeypatch):
+    """The phase as the card runs it, on the tiny video stacks at 32 px, 5
+    frames and 2 steps: tiny-dit's file load, local runs and HTTP run
+    and chunked decode (the distributed-wan checks), the same workflows'
+    first-evaluation checks (the 14B ones) and the i2v one's image branch;
+    the launches `_wan_shapes` counts. The tiny stacks take the causal
+    tiny-video-vae-3d here, as the WAN ones take wan-vae."""
+    from comfyui_distributed_tpu_torch.models import clip_vision, dit
+    from comfyui_distributed_tpu_torch.models import video_pipeline as tvp
+
+    # the tiny stacks on the causal tiny-video-vae-3d, as the WAN ones on wan-vae
+    parts = tvp.default_parts
+    monkeypatch.setattr(tvp, "default_parts", lambda name: (
+        "tiny-video-vae-3d", *parts(name)[1:]) if name.startswith("tiny") else parts(name))
+    for module in (dit, clip_vision):
+        real = module.dot_product_attention
+
+        def counting(q, k, v, real=real):
+            attn.count_launch("fma")
+            return real(q, k, v)
+
+        monkeypatch.setattr(module, "dot_product_attention", counting)
+    workflows = {tag: _tiny_wan_workflow(tag) for tag in chip_smoke.WAN_WORKFLOWS}
+    expected = {}
+    for tag, workflow in workflows.items():
+        per_video = sum(count for *_, count in chip_smoke._wan_shapes(workflow, (32, 32)))
+        expected[tag] = (per_video, {"fma": per_video, "wgmma": 0, "wgmma512": 0})
+    assert expected["wan_i2v"][0] == 2 * 2 * 3 + 2
+    results = chip_smoke._wan_phase(torch, workflows, "cpu", expected=expected,
+                                    frame_hw=(32, 32), gen=torch.Generator().manual_seed(0),
+                                    local_tags=("wan",))
+    out = capsys.readouterr().out
+    for tag in workflows:
+        assert results[tag]["launches"] == 2 * expected[tag][0]
+    assert "parameters equal to the written ones: " in out
+    assert "the chunked VAE decode of a seeded (1, 3, 16, 16, 16) latent" in out
+    assert "the master's frames vs the local seed 0" in out
+    assert out.count("first evaluations: the noise equals the draw at seeds") == 2
+    assert "CLIP-vision tokens zeroed moves the velocity" in out
+    assert "collector jobs left 0" in out

@@ -160,8 +160,8 @@ def test_clone_shares_the_controlnet_module():
 
 def test_an_unported_field_is_refused_naming_its_item():
     cond = tcond.Conditioning(context=torch.zeros(1, 1, 2))
-    cond.model_patches = {"patch": torch.zeros(1, 2, 2, 4)}  # SD3/WAN's
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    cond.model_patches = {"patch": torch.zeros(1, 2, 2, 4)}  # no node sets it
+    with pytest.raises(NotImplementedError, match="'model_patches' is not supported"):
         tsmp.cfg_model(lambda x, s, c: x, 2.0)(torch.zeros(1, 2, 2, 4), torch.ones(1),
                                                 (cond, tcond.Conditioning(torch.zeros(1, 1, 2))))
 

@@ -35,9 +35,10 @@ The Flux keys (tiny-flux txt2img, the same at ModelSamplingFlux's shift
 2.5, and a Kontext edit through ReferenceLatent) and the SD3 keys
 (tiny-sd3 and the MMDiT-X tiny-sd35m: triple-encoder conditioning, true
 CFG at 4 on the flow schedule) run through the bf16 MMDiT and 16-channel
-VAE: BF16_BAR. The video key waits for its model family (ROADMAP.md,
-Queue 1 item 5): VIDEO_KEYS names it, and a test holds the split of the
-file's keys.
+VAE: BF16_BAR. So does the video key (`t2v_5f_32`: tiny-dit's bf16 DiT
+and the causal tiny-video-vae-3d, 5 frames of 32 px, 2 flow steps under
+CFG 5), the port fed the JAX package's noise for seed 42. A test holds
+the file's keys to these.
 """
 
 import dataclasses
@@ -53,6 +54,7 @@ from comfyui_distributed_tpu.graph import nodes_controlnet as jctl
 from comfyui_distributed_tpu.graph import nodes_core as jnc
 from comfyui_distributed_tpu.graph import nodes_custom_sampling as jcs
 from comfyui_distributed_tpu.models import pipeline as jpl
+from comfyui_distributed_tpu.models import video_pipeline as jvp
 from comfyui_distributed_tpu.models.io import flatten_params
 from comfyui_distributed_tpu.ops import samplers as jsmp
 from comfyui_distributed_tpu.ops import upscale as jup
@@ -62,6 +64,7 @@ from comfyui_distributed_tpu_torch.graph import nodes_core as tnc
 from comfyui_distributed_tpu_torch.graph import nodes_custom_sampling as tcs
 from comfyui_distributed_tpu_torch.models import pipeline as tpl
 from comfyui_distributed_tpu_torch.models import registry as treg
+from comfyui_distributed_tpu_torch.models import video_pipeline as tvp
 from comfyui_distributed_tpu_torch.models.io import from_jax_params
 from comfyui_distributed_tpu_torch.ops import samplers as tsmp
 from comfyui_distributed_tpu_torch.ops import upscale as tup
@@ -73,7 +76,6 @@ GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "go
 BF16_BAR = 2.0**-3
 LATENT_BAR = 1e-3
 EXACT_BAR = 1e-6
-VIDEO_KEYS = {"t2v_5f_32"}
 
 
 @pytest.fixture(scope="module")
@@ -88,6 +90,24 @@ class Bundles:
 
     def __init__(self):
         self.jax, self.port = {}, {}
+
+    def video(self):
+        """gen_goldens.py's video bundle (tiny-dit, tiny-video-vae-3d at
+        seed 0) and the port's in f32 with its weights."""
+        key = "video:tiny-dit"
+        if key not in self.jax:
+            jb = jvp.load_video_pipeline("tiny-dit", vae_name="tiny-video-vae-3d")
+            with pytest.MonkeyPatch.context() as mp:
+                for name in ("tiny-dit", "tiny-video-vae-3d", "tiny-te"):
+                    entry = treg.MODEL_REGISTRY[name]
+                    mp.setitem(treg.MODEL_REGISTRY, name,
+                               {**entry, "config": f32(entry["config"])})
+                tb = tvp.load_video_pipeline("tiny-dit", vae_name="tiny-video-vae-3d",
+                                             device="cpu")
+            for part, module in tb.parts().items():
+                module.load_state_dict(from_jax_params(flatten_params(jb.params[part]), module))
+            self.jax[key], self.port[key] = jb, tb
+        return self.jax[key], self.port[key]
 
     def pair(self, name):
         if name not in self.jax:
@@ -378,6 +398,17 @@ def k_guided_dualcfg_8(s):
     return _guided(s, dual_cfg=s.pl.DualCFGSpec(cfg_cond2_negative=3.0))
 
 
+def k_t2v_5f_32(s):
+    jb, tb = s._bundles.video()
+    kw = dict(frames=5, height=32, width=32, steps=2)
+    if s.is_jax:
+        return jvp.t2v(jb, "a golden test clip", seed=42, **kw)
+    shape = (1, tb.latent_frames(5), 32 // tb.latent_scale, 32 // tb.latent_scale,
+             tb.latent_channels)
+    noise = np.array(jax.random.normal(jax.random.key(42), shape))
+    return tvp.t2v(tb, "a golden test clip", noise=torch.from_numpy(noise), **kw)
+
+
 KEYS = {name[2:]: fn for name, fn in globals().items() if name.startswith("k_")}
 EXACT = {"sigmas_kl_optimal_12", "outpaint_pad_32", "outpaint_mask_32", "sharpen_32"}
 LATENTS = {"custom_stage1_32", "custom_stage1_denoised_32", "custom_stage2_32",
@@ -389,8 +420,8 @@ GUIDED = {"guided_pag_8", "guided_sag_8", "guided_perpneg_8", "guided_dualcfg_8"
 def test_the_files_keys_are_these_and_the_other_families():
     with np.load(GOLDENS) as data:
         files = set(data.files)
-    assert files == set(KEYS) | VIDEO_KEYS
-    assert len(KEYS) == 25
+    assert files == set(KEYS)
+    assert len(KEYS) == 26
     assert EXACT | LATENTS | GUIDED < set(KEYS)
 
 

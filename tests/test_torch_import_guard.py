@@ -63,7 +63,9 @@ def test_the_server_and_the_elastic_tier_are_among_the_imported_modules():
                    "graph/nodes_controlnet.py", "models/sd3.py", "models/lora.py",
                    "models/gguf.py", "adapters/registry.py", "adapters/segmented.py",
                    "adapters/cache.py", "cache/keys.py", "cache/store.py",
-                   "cache/integration.py"):
+                   "cache/integration.py", "models/dit.py", "models/video_vae.py",
+                   "models/clip_vision.py", "models/video_pipeline.py",
+                   "graph/nodes_video.py"):
         assert os.path.join("comfyui_distributed_tpu_torch", module) in names
 
 

@@ -48,7 +48,9 @@ def seeded_flax_params(module, seed, *args, **kwargs):
     from a trace (a second), where flax's init of a tiny UNet takes a
     minute on one core. Kernels N(0, 1/fan_in), biases N(0, 0.1^2), norm
     scales 1 + N(0, 0.1^2), embedding tables N(0, 1/width), the position
-    table N(0, 0.01^2) (the SD3 MMDiT's N(0, 1/width)). Non-zero biases
+    table N(0, 0.01^2) (the SD3 MMDiT's N(0, 1/width)), the video DiT's
+    modulation tables N(0, 1/width), the CLIP-vision class embedding
+    N(0, 0.02^2). Non-zero biases
     and scales make a mis-mapped parameter show; the UNet's out_conv, zero
     after flax's init, comes out non-zero like every other kernel, so the
     UNet's output counts."""
@@ -72,6 +74,10 @@ def seeded_flax_params(module, seed, *args, **kwargs):
             return jnp.asarray(draw / math.sqrt(leaf.shape[-1]))
         if name == "text_projection":
             return jnp.asarray(draw / math.sqrt(leaf.shape[0]))
+        if name in ("modulation", "head_modulation"):  # the video DiT's [1, k, width]
+            return jnp.asarray(draw / math.sqrt(leaf.shape[-1]))
+        if name == "class_embedding":  # the CLIP-vision tower's
+            return jnp.asarray(draw * 0.02)
         raise KeyError(f"no fill rule for parameter {name!r}")
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
