@@ -85,7 +85,29 @@ width), so that every phase fits the run's time limit.
              attention kernel as phase 4 does, and agree with phase 4's
              tiles composited the way the elastic master composites
              them (in sorted order, CDT_DETERMINISTIC_BLEND=1; phase 4
-             itself takes a weighted average at the seams).
+             itself takes a weighted average at the seams). Each run's
+             telemetry is held to the run on [telemetry] lines
+             (`_Telemetry`): the master's /distributed/metrics answers
+             the Prometheus content type and every sample parses;
+             cdt_tiles_processed_total rises by the run's tiles, split
+             by role as the store's completions; pulls that handed out a
+             task are completions plus requeues; cdt_tile_stage_seconds
+             has one sample a tile of each role for sample, dispatch and
+             readback, one a w1 tile for encode and one a flush for
+             submit; the execution's /distributed/trace/{trace_id} is one
+             tree holding the orchestration, the dispatch to w1, the
+             master's rpc spans of w1's pulls and submits and the tile
+             spans of every tile; the transfer ledger's device-execute
+             seconds are positive, its D2H bytes every tile's output
+             bytes and each role's host-tax ratio in (0, 1] (printed:
+             the host share of the bracketed tile time, not the card's
+             idle share); the usage meter's conservation identity holds
+             exactly in integer ns, and its dispatch nanoseconds and the
+             job's chip seconds equal the transfer ledger's dispatch
+             nanoseconds this run (two sinks fed by separate calls, so a
+             dropped or doubled dispatch shows); cdt_device_memory_bytes
+             equals torch.cuda.memory_allocated and max_memory_allocated
+             read right after the scrape.
    adapters - on SDXL at the cut depth, served as the elastic phase
              serves it (a master and w1 in this process; its base output
              the local tiles' weighted average) (`_adapters_phase`): a
@@ -190,7 +212,12 @@ width), so that every phase fits the run's time limit.
              nothing); the unmodified upscale workflow twice on SDXL (every
              tile once, w1 at least one, each output within RERUN_TOLERANCE
              of the local tiles composited the elastic way; tiles/s beside
-             the elastic phase's and phase 4's); a running elastic job
+             the elastic phase's and phase 4's; each run's [telemetry]
+             lines as the elastic phase's, with w1's own
+             /distributed/metrics and /distributed/trace/{trace_id}
+             holding its role's series and tile spans, and the usage
+             check on the master's role, whose meter is in this
+             process); a running elastic job
              cancelled through /distributed/cancel/{job_id} (every pending
              and in-flight tile refunded, the master's prompt ends
              JobCancelled, an unknown job answers 404); clear_memory on w1
@@ -380,6 +407,7 @@ import copy
 import json
 import math
 import os
+import re
 import shutil
 import socket
 import statistics
@@ -1104,6 +1132,263 @@ def _launch_counts(attn) -> tuple[int, dict]:
     return attn.flash_attention.launches, dict(attn.flash_attention.launches_by_instance)
 
 
+PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+# the stages whose wall time is host work in the transfer ledger's buckets
+HOST_STAGES = ("readback", "encode", "decode", "submit")
+_LABEL_RE = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+
+
+def _scrape(base: str) -> tuple[str, list]:
+    """GET {base}/distributed/metrics: (content type, [(name, labels,
+    value)]). Every sample line must parse as `name{labels} value`."""
+    import urllib.request
+
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    with opener.open(f"{base}/distributed/metrics", timeout=60) as resp:
+        content_type = resp.headers.get("Content-Type")
+        body = resp.read().decode("utf-8")
+    samples = []
+    for line in body.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name_part, _, value = line.rpartition(" ")
+        name, brace, rest = name_part.partition("{")
+        _require(bool(name) and (not brace or rest.endswith("}")),
+                 f"{base}: unparsable sample line {line!r}")
+        try:
+            number = float(value)
+        except ValueError:
+            number = None
+        _require(number is not None, f"{base}: sample value of {line!r} is not a number")
+        samples.append((name, dict(_LABEL_RE.findall(rest)), number))
+    return content_type, samples
+
+
+def _total(samples: list, name: str, **labels) -> float:
+    """The sum of `name`'s samples whose labels include `labels`."""
+    return sum(value for sample, got, value in samples
+               if sample == name and all(got.get(k) == str(v) for k, v in labels.items()))
+
+
+def _spans_of(tree: list) -> list:
+    """The spans of a /distributed/trace answer's tree, flat."""
+    out = []
+    for node in tree:
+        out.append(node)
+        out.extend(_spans_of(node["children"]))
+    return out
+
+
+def _tile_output_bytes(workflow, image) -> int:
+    """The bytes of one processed tile read back to the host: [B, padded
+    h, padded w, 3] float32."""
+    from comfyui_distributed_tpu_torch.ops.upscale import plan_grid
+
+    o = _usdu_options(workflow)
+    _, _, grid = plan_grid(int(image.shape[1]), int(image.shape[2]), float(o["upscale_by"]),
+                           int(o["tile_width"]), int(o["tile_padding"]), int(o["tile_height"]),
+                           mask_blur=int(o["mask_blur"]), uniform=bool(o["force_uniform_tiles"]))
+    return int(image.shape[0]) * grid.padded_h * grid.padded_w * 3 * 4
+
+
+class _Telemetry:
+    """One elastic run's telemetry, read before the run (`start`) and held
+    to it after (`check`), on [telemetry] lines; any miss fails the run.
+    `bases` are the /distributed/metrics of every process with a registry
+    of its own: the master alone when w1 shares its process (the elastic
+    phase), the master and w1 in procs, where `w1_base` also serves w1's
+    own trace. The usage meter and the transfer ledger read here are this
+    process's: both roles' in the elastic phase, the master's in procs.
+    The process's cdt_host_tax_ratio gauge is one number for every role
+    it hosts; the per-role ratio is computed here from the stage and
+    device-execute sums."""
+
+    def __init__(self, torch, label: str, master_base: str, w1_base: str | None = None,
+                 cuda: bool = True):
+        self.torch = torch
+        self.label = label
+        # on the CPU (a rehearsal) no dispatch is device time: the ledger
+        # then reads host-tax 1.0 and there is no card memory to read
+        self.cuda = cuda
+        self.master_base = master_base
+        self.w1_base = w1_base
+        self.bases = [master_base] + ([w1_base] if w1_base else [])
+        self.usage_roles = ("master",) if w1_base else ("master", "worker")
+
+    def _samples(self) -> tuple[list, int]:
+        samples = []
+        for base in self.bases:
+            content_type, got = _scrape(base)
+            _require(content_type == PROMETHEUS_CONTENT_TYPE,
+                     f"{base}/distributed/metrics answered {content_type!r}")
+            samples.extend(got)
+        return samples, len(samples)
+
+    def start(self) -> None:
+        from comfyui_distributed_tpu_torch.telemetry import get_transfer_ledger, get_usage_meter
+
+        self.before, _ = self._samples()
+        self.usage_before = get_usage_meter().totals()
+        self.ledger_before = get_transfer_ledger().snapshot()
+
+    def _trace(self, base: str, trace_id: str) -> tuple[list, list]:
+        from comfyui_distributed_tpu_torch.utils.network import request_json
+
+        status, answer = request_json("GET", f"{base}/distributed/trace/{trace_id}", timeout=60)
+        _require(status == 200, f"{base}/distributed/trace/{trace_id} answered {status}")
+        return answer["tree"], _spans_of(answer["tree"])
+
+    def check(self, run: int, queued: dict, record: dict, tile_bytes: int) -> dict:
+        """The [telemetry] checks of one run; returns the stage seconds by
+        role and the host-tax ratios."""
+        from comfyui_distributed_tpu_torch.telemetry import get_transfer_ledger, get_usage_meter
+
+        torch, label = self.torch, self.label
+        after, n_samples = self._samples()
+
+        def delta(name, **labels):
+            return _total(after, name, **labels) - _total(self.before, name, **labels)
+
+        completions = record["completions"]
+        tiles = {"master": [t for t, who in completions if who == "master"],
+                 "worker": [t for t, who in completions if who == "w1"]}
+        n = len(completions)
+        _require(n + len(record.get("cached", [])) == record["total"],
+                 f"completions {completions} and cached {record.get('cached')} are not the job")
+        # --- counters ---
+        processed = {role: delta("cdt_tiles_processed_total", role=role) for role in tiles}
+        _require(processed == {role: len(idx) for role, idx in tiles.items()},
+                 f"cdt_tiles_processed_total rose by {processed}; the store's completions are "
+                 f"{ {role: len(idx) for role, idx in tiles.items()} }")
+        pulled, requeued = delta("cdt_store_pulls_total", outcome="task"), delta(
+            "cdt_store_requeued_tasks_total")
+        _require(pulled == n + requeued, f"pulls that handed out a task rose by {pulled}, not "
+                 f"{n} completions + {requeued} requeues")
+        stages = {}
+        for role, idx in tiles.items():
+            counts = {stage: delta("cdt_tile_stage_seconds_count", stage=stage, role=role)
+                      for stage in ("sample", "dispatch", "readback", "encode", "submit")}
+            stages[role] = counts
+            for stage in ("sample", "dispatch", "readback") + (("encode",) if role == "worker"
+                                                                 else ()):
+                _require(counts[stage] == len(idx), f"cdt_tile_stage_seconds{{stage={stage}, "
+                         f"role={role}}} has {counts[stage]} samples for {len(idx)} tiles")
+        # --- the trace ---
+        trace_id = queued["trace_id"]
+        tree, spans = self._trace(self.master_base, trace_id)
+        names = {s["name"] for s in spans}
+        _require(len(tree) == 1 and tree[0]["name"] == "queue_orchestration",
+                 f"trace {trace_id} is not one tree under queue_orchestration: roots "
+                 f"{[root['name'] for root in tree]}")
+        from_w1 = lambda name: [s for s in spans if s["name"] == name  # noqa: E731
+                                and s["attrs"].get("worker_id") == "w1"]
+        dispatches, pulls, submits = (from_w1("dispatch"), from_w1("rpc.request_image"),
+                                      from_w1("rpc.submit_tiles"))
+        _require(len(dispatches) == 1 and pulls and submits,
+                 f"trace {trace_id}: {len(dispatches)} dispatch spans to w1, {len(pulls)} "
+                 f"rpc.request_image and {len(submits)} rpc.submit_tiles spans from w1")
+        _require(stages["worker"]["submit"] == len(submits),
+                 f"w1 observed {stages['worker']['submit']} submits, the master served "
+                 f"{len(submits)}")
+        worker_spans, worker_tree = spans, tree
+        if self.w1_base:
+            worker_tree, worker_spans = self._trace(self.w1_base, trace_id)
+            _require(len(worker_tree) == 1, f"w1's trace {trace_id} is not one tree: roots "
+                     f"{[root['name'] for root in worker_tree]}")
+        for role, role_spans in (("master", spans), ("worker", worker_spans)):
+            for name in ("tile.sample", "tile.dispatch", "tile.readback"):
+                have = sorted(s["attrs"].get("tile_idx") for s in role_spans
+                              if s["name"] == name and s["attrs"].get("role") == role)
+                _require(have == sorted(tiles[role]), f"trace {trace_id}: {name} spans of "
+                         f"role {role} for tiles {have}, completions {sorted(tiles[role])}")
+        print(f"{label} run {run}: /distributed/metrics of {len(self.bases)} process(es) "
+              f"answered {PROMETHEUS_CONTENT_TYPE!r}, {n_samples} samples parsed; tiles "
+              f"processed +{sum(processed.values()):g} ({ {r: int(v) for r, v in processed.items()} }"
+              f" = the store's completions); pulls that handed out a task +{pulled:g} = {n} "
+              f"completions + {requeued:g} requeues; stage samples "
+              f"{ {r: {k: int(v) for k, v in c.items()} for r, c in stages.items()} }")
+        print(f"{label} run {run} trace {trace_id}: one tree of {len(spans)} spans on the master "
+              f"under queue_orchestration ({len(names)} span names); the dispatch to w1, "
+              f"{len(pulls)} rpc.request_image and {len(submits)} rpc.submit_tiles spans of w1's; "
+              f"tile spans of the master's tiles {sorted(tiles['master'])} and w1's "
+              f"{sorted(tiles['worker'])}"
+              + (f" (w1's own trace: one tree of {len(worker_spans)} spans)" if self.w1_base
+                 else ""))
+        # --- the transfer ledger ---
+        d2h = delta("cdt_transfer_bytes_total", direction="d2h")
+        _require(d2h == n * tile_bytes, f"D2H bytes rose by {d2h:g}, not {n} tiles x "
+                 f"{tile_bytes}")
+        taxes, device_s = {}, {}
+        for role, idx in tiles.items():
+            device_s[role] = delta("cdt_device_execute_seconds_sum", role=role, tier="scan")
+            dispatched = delta("cdt_device_execute_seconds_count", role=role, tier="scan")
+            expected = len(idx) if self.cuda else 0
+            _require(dispatched == expected, f"{role}: {dispatched:g} device-execute samples for "
+                     f"{len(idx)} tiles (is CDT_PROFILING off?)")
+            if not idx or not self.cuda:
+                continue
+            host = sum(delta("cdt_tile_stage_seconds_sum", stage=stage, role=role)
+                       for stage in HOST_STAGES)
+            _require(device_s[role] > 0, f"{role}: no device-execute seconds")
+            taxes[role] = host / (host + device_s[role])
+            _require(0 < taxes[role] <= 1, f"{role}: host-tax ratio {taxes[role]}")
+        gauges = {labels.get("role"): value for name, labels, value in after
+                  if name == "cdt_host_tax_ratio"}
+        print(f"{label} run {run} ledger: device-execute seconds "
+              f"{ {r: round(v, 4) for r, v in device_s.items()} }; D2H bytes +{int(d2h)} = {n} "
+              f"tiles x {tile_bytes}; host-tax ratio this run, per participant "
+              f"{ {r: round(v, 4) for r, v in taxes.items()} } (host = readback + encode + "
+              f"decode + submit seconds of the role; the ledger's cumulative gauge "
+              f"{ {r: round(v, 4) for r, v in gauges.items()} })")
+        _require(gauges and all(0 < v <= 1 if self.cuda else v == 1.0 for v in gauges.values()),
+                 f"cdt_host_tax_ratio {gauges}")
+        # --- the usage meter ---
+        meter = get_usage_meter()
+        usage = meter.totals()
+        moved = {key: usage[key] - self.usage_before[key] for key in (
+            "dispatch_chip_ns", "attributed_ns", "dispatch_waste_ns", "overhead_ns")}
+        _require(usage["conserved"] and moved["attributed_ns"] + moved["dispatch_waste_ns"]
+                 + moved["overhead_ns"] == moved["dispatch_chip_ns"],
+                 f"the usage meter's identity fails: {usage}, this run {moved}")
+        # the ledger's dispatch brackets: device time on the card, host
+        # time on the CPU (a rehearsal)
+        kind = "device_ns" if self.cuda else "eager_ns"
+        ledger_ns = get_transfer_ledger().snapshot()[kind] - self.ledger_before[kind]
+        job_id = queued["job_ids"][USDU_NODE]
+        chip_s = meter.rollup(self.usage_roles)["jobs"].get(job_id, {}).get("chip_s", 0.0)
+        _require(moved["dispatch_chip_ns"] == ledger_ns and round(chip_s * 1e9) == ledger_ns,
+                 f"the usage meter's dispatch chip ns +{moved['dispatch_chip_ns']} and job "
+                 f"{job_id}'s chip seconds {chip_s} against the transfer ledger's {kind} "
+                 f"+{ledger_ns}")
+        print(f"{label} run {run} usage: dispatch chip ns +{moved['dispatch_chip_ns']} = "
+              f"attributed {moved['attributed_ns']} + waste {moved['dispatch_waste_ns']} + "
+              f"overhead {moved['overhead_ns']} (exact) = the transfer ledger's {kind} "
+              f"+{ledger_ns}; job {job_id} chip seconds of role(s) {list(self.usage_roles)} "
+              f"{chip_s:.9f} (exact)")
+        # --- the card's memory, when both servers share this process ---
+        if self.cuda and not self.w1_base:
+            for attempt in range(1, 4):
+                _, scraped = _scrape(self.master_base)
+                allocated = torch.cuda.memory_allocated(0)
+                peak = torch.cuda.max_memory_allocated(0)
+                got = {labels.get("stat"): value for name, labels, value in scraped
+                       if name == "cdt_device_memory_bytes" and labels.get("device") == "gpu:0"}
+                if (got.get("bytes_in_use"), got.get("peak_bytes_in_use")) == (allocated, peak):
+                    break
+            print(f"{label} run {run} memory: cdt_device_memory_bytes{{device=\"gpu:0\"}} "
+                  f"bytes_in_use {got.get('bytes_in_use')} vs torch.cuda.memory_allocated "
+                  f"{allocated}, peak_bytes_in_use {got.get('peak_bytes_in_use')} vs "
+                  f"max_memory_allocated {peak} (scrape {attempt} of at most 3)")
+            _require((got.get("bytes_in_use"), got.get("peak_bytes_in_use")) == (allocated, peak),
+                     "cdt_device_memory_bytes disagrees with torch.cuda")
+        return {"stage_seconds": {role: {stage: delta("cdt_tile_stage_seconds_sum", stage=stage,
+                                                      role=role)
+                                         for stage in ("pull", "sample", "dispatch", "readback",
+                                                       "encode", "submit", "decode", "blend")}
+                                  for role in tiles},
+                "host_tax": taxes}
+
+
 def _local_run(torch, attn, executor, workflow, label: str, what: str, device: str,
                size: tuple):
     """One local run of a seed-parallel workflow through `executor`,
@@ -1171,7 +1456,10 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
         try:
             with _serving(tmp, {"input_dir": in_dir, "output_dir": out_dir}, device,
                           {ckpt: bundle}) as (master, worker, base, worker_port):
+                telemetry = _Telemetry(torch, f"[telemetry] {tag}", base, cuda=cuda)
+                tile_bytes = _tile_output_bytes(workflow, image)
                 for run in range(1, runs + 1):
+                    telemetry.start()
                     if cuda:
                         torch.cuda.synchronize()
                         torch.cuda.reset_peak_memory_stats()
@@ -1190,8 +1478,6 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                     for _, who in record["completions"]:
                         by[who] = by.get(who, 0) + 1
                         tiles_by[who] = tiles_by.get(who, 0) + 1
-                    stages = master.execution_context.extras.get("stage_seconds", {})
-                    worker_stages = worker.execution_context.extras.get("stage_seconds", {})
                     rate = f"{n_tiles / seconds:.4f} tiles/s"
                     if local_tiles_per_s is not None:
                         rate += f" (phase 4: {local_tiles_per_s:.4f})"
@@ -1201,9 +1487,10 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                           f" flash_attention launches {launches}, by instance {by_instance}; "
                           f"peak {peak / 2**30:.2f} GiB; worker tile bytes received "
                           f"{record['received_bytes']}")
-                    print(f"{label} run {run} stage seconds: master "
-                          f"{_rounded(stages.get('master', {}))}; w1 "
-                          f"{_rounded(worker_stages.get('worker', {}))}")
+                    read = telemetry.check(run, queued, record, tile_bytes)
+                    print(f"{label} run {run} stage seconds (cdt_tile_stage_seconds): master "
+                          f"{_rounded(read['stage_seconds']['master'])}; w1 "
+                          f"{_rounded(read['stage_seconds']['worker'])}")
                     _require(sorted(done) == list(range(n_tiles)),
                              f"tiles completed {sorted(done)}, expected each of {n_tiles} once")
                     _require(set(by) <= {"master", "w1"}, f"unexpected participants {sorted(by)}")
@@ -1239,7 +1526,7 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                     _require(diff <= RERUN_TOLERANCE,
                              "the elastic output disagrees with the local tiles")
                     result = {"launches": launches, "launches_by_instance": by_instance,
-                              "tiles_per_s": n_tiles / seconds}
+                              "tiles_per_s": n_tiles / seconds, "host_tax": read["host_tax"]}
                 if after is not None:
                     result["after"] = after({"master": master, "worker": worker, "base": base,
                                              "worker_port": worker_port, "input_dir": in_dir,
@@ -2084,7 +2371,8 @@ def _procs_phase(torch, gen, workflows: dict, image, device: str,
 
     cuda = device.startswith("cuda")
     label = "[procs]"
-    rates = rates or {}
+    # the rates of the phases that ran (a phase left out by --phases has none)
+    rates = {name: rate for name, rate in (rates or {}).items() if rate is not None}
     results: dict = {}
     saved_env = {k: os.environ.get(k) for k in ("CDT_CHECKPOINT_DIR", "CDT_LOG_DIR",
                                                 "CDT_DETERMINISTIC_BLEND")}
@@ -2372,7 +2660,10 @@ def _procs_phase(torch, gen, workflows: dict, image, device: str,
             fh.write(img_utils.encode_png(image[0].float().cpu().numpy()))
         os.environ["CDT_DETERMINISTIC_BLEND"] = "1"
         outs, tiles_by = [], {}
+        telemetry = _Telemetry(torch, "[telemetry] procs", base, w1_base, cuda=cuda)
+        tile_bytes = _tile_output_bytes(up, image)
         for attempt in (1, 2):
+            telemetry.start()
             queued, history, worker_history, out, seconds, launches, by_instance = run(
                 up, f"elastic run {attempt}")
             record = master.job_store.finished[queued["job_ids"][USDU_NODE]]
@@ -2392,8 +2683,13 @@ def _procs_phase(torch, gen, workflows: dict, image, device: str,
             _require(sorted(t for t, _ in record["completions"]) == list(range(n_tiles)),
                      f"tiles completed {record['completions']}, expected each once")
             _require(set(by) <= {"master", "w1"}, f"unexpected participants {sorted(by)}")
+            read = telemetry.check(attempt, queued, record, tile_bytes)
+            print(f"{label} elastic run {attempt} stage seconds (cdt_tile_stage_seconds): "
+                  f"master {_rounded(read['stage_seconds']['master'])}; w1 "
+                  f"{_rounded(read['stage_seconds']['worker'])}")
             outs.append(out)
             results["elastic_tiles_per_s"] = n_tiles / seconds
+            results["host_tax"] = read["host_tax"]
         _require(tiles_by.get("w1", 0) >= 1, f"w1 completed no tile: {tiles_by}")
         reference, _ = _local_reference(torch, master.execution_context.pipelines[ckpts["upscale"]],
                                         up, image)

@@ -7,7 +7,7 @@ Decoding a kohya file and laying out rank-bucketed operands is host work
 worth redoing once per adapter, not once per job: this LRU holds
 `SegmentOperands` per (content hash, target map, rank-bucket set) under a
 byte budget (CDT_ADAPTER_CACHE_MB), counting hits, misses and
-evictions.
+evictions, in its stats and in the ``cdt_adapter_cache_*`` metrics.
 """
 
 from __future__ import annotations
@@ -18,6 +18,16 @@ from typing import Any, Callable
 
 from .registry import AdapterError, AdapterSpec, get_adapter_catalog
 from .segmented import SegmentOperands, build_operands, compose_operands, rank_buckets
+
+
+def _metrics():
+    from ..telemetry.instruments import (
+        adapter_cache_bytes,
+        adapter_cache_evictions_total,
+        adapter_cache_lookups_total,
+    )
+
+    return adapter_cache_lookups_total(), adapter_cache_evictions_total(), adapter_cache_bytes()
 
 
 class AdapterOperandCache:
@@ -43,6 +53,7 @@ class AdapterOperandCache:
             _, ops = self._entries.popitem(last=False)
             self.bytes -= ops.nbytes
             self.evictions += 1
+            _metrics()[1].inc()
 
     def get_or_build(self, key: tuple,
                      build: Callable[[], SegmentOperands]) -> tuple[SegmentOperands, bool]:
@@ -54,19 +65,24 @@ class AdapterOperandCache:
             if cached is not None:
                 self._entries.move_to_end(key)
                 self.hits += 1
+                _metrics()[0].inc(outcome="hit")
                 return cached, True
         ops = build()
+        lookups, _, bytes_gauge = _metrics()
         with self._lock:
             raced = self._entries.get(key)
             if raced is not None:
                 self._entries.move_to_end(key)
                 self.hits += 1
+                lookups.inc(outcome="hit")
                 return raced, True
             self.misses += 1
+            lookups.inc(outcome="miss")
             if ops.nbytes <= self.budget_bytes:
                 self._entries[key] = ops
                 self.bytes += ops.nbytes
                 self._evict_until_fits()
+            bytes_gauge.set(float(self.bytes))
         return ops, False
 
     def stats(self) -> dict[str, Any]:

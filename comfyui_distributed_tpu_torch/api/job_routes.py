@@ -39,7 +39,9 @@ Queue 3.)
 
 The deadline may also come as the X-CDT-Deadline header. An envelope
 with `audio` answers 501: audio payloads are not ported (ROADMAP.md,
-Queue 1 step 6b).
+Queue 1 step 6b). A cancel or an envelope carrying the X-CDT-Trace-Id
+header is a span (`rpc.cancel_job`, `rpc.job_complete`) of that trace;
+every queued envelope counts in cdt_collector_results_total.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ import torch
 
 from ..adapters.registry import AdapterError, get_adapter_catalog
 from ..graph.io_dirs import resolve_input_path
+from ..telemetry.instruments import collector_results_total
 from ..utils import image as img_utils
 from ..utils.constants import JOB_INIT_GRACE_SECONDS
 from ..utils.exceptions import PromptValidationError
@@ -62,6 +65,7 @@ from .httpd import Request, Response, Router, json_response, parse_multipart
 from .orchestration.media_sync import file_md5
 from .orchestration.queue_orchestration import orchestrate_distributed_execution
 from .queue_request import QueueRequestError, parse_deadline_seconds, parse_queue_request_payload
+from .telemetry_routes import rpc_span
 
 
 def register(router: Router, server) -> None:
@@ -129,7 +133,8 @@ class JobRoutes:
         body = request.json()
         reason = str(body["reason"]) if isinstance(body, dict) and body.get("reason") else "client"
         started = time.monotonic()
-        accounting = await self.server.job_store.cancel_job(job_id, reason=reason)
+        with rpc_span(request, "rpc.cancel_job", job_id=str(job_id)):
+            accounting = await self.server.job_store.cancel_job(job_id, reason=reason)
         if accounting is None:
             return json_response({"error": "no such job"}, 404)
         accounting["status"] = "cancelled"
@@ -150,15 +155,20 @@ class JobRoutes:
             return json_response({"error": "audio payloads are not ported (ROADMAP.md, Queue 1 "
                                            "step 6b)"}, 501)
         job_id = str(body["job_id"])
+        worker_id = str(body["worker_id"])
         store = self.server.job_store
-        await store.wait_for_collector(job_id, JOB_INIT_GRACE_SECONDS)
-        queued = await store.put_collector_result(job_id, {
-            "tensor": tensor,
-            "worker_id": str(body["worker_id"]),
-            "batch_idx": int(body["batch_idx"]),
-            "is_last": bool(body.get("is_last", False)),
-            "empty": bool(body.get("empty", False)),
-        }, received_bytes=len(body["image"]))
+        with rpc_span(request, "rpc.job_complete", worker_id=worker_id, job_id=job_id,
+                      batch_idx=int(body["batch_idx"])):
+            await store.wait_for_collector(job_id, JOB_INIT_GRACE_SECONDS)
+            queued = await store.put_collector_result(job_id, {
+                "tensor": tensor,
+                "worker_id": worker_id,
+                "batch_idx": int(body["batch_idx"]),
+                "is_last": bool(body.get("is_last", False)),
+                "empty": bool(body.get("empty", False)),
+            }, received_bytes=len(body["image"]))
+            if queued:
+                collector_results_total().inc(worker_id=worker_id)
         return json_response({"status": "ok" if queued else "late"})
 
     async def prepare_job(self, request: Request) -> Response:

@@ -13,7 +13,12 @@ aiohttp:
   a rejection, over either, is never sent the prompt again;
 - the circuit breaker (resilience/health.py): every probe and dispatch
   outcome is recorded, a quarantined worker is neither probed nor sent
-  anything until its cooldown ends, and then one half-open probe decides.
+  anything until its cooldown ends, and then one half-open probe decides;
+- telemetry: each dispatch is a `dispatch` span, its latency a sample of
+  cdt_dispatch_seconds by outcome (ok|rejected|unreachable|error), and
+  the active trace id rides it (the X-CDT-Trace-Id header over HTTP, the
+  message's trace_id over the websocket) so the worker's execution joins
+  the master's span tree.
 """
 
 from __future__ import annotations
@@ -21,10 +26,13 @@ from __future__ import annotations
 import asyncio
 import itertools
 import json
+import time
 from typing import Any, Optional
 
 from ...resilience.health import get_health_registry
 from ...resilience.policy import http_policy, retry_async, transport_errors
+from ...telemetry import TRACE_HEADER, current_trace_id, get_tracer
+from ...telemetry.instruments import dispatch_seconds
 from ...utils.constants import DISPATCH_TIMEOUT_SECONDS, PROBE_CONCURRENCY
 from ...utils.exceptions import WorkerNotAvailableError, WorkerUnreachableError
 from ...utils.logging import debug_log, log
@@ -101,27 +109,39 @@ async def dispatch_worker_prompt(worker: dict[str, Any], prompt: dict[str, Any],
     if not registry.allow(wid):
         raise WorkerNotAvailableError(f"worker {wid} is quarantined (circuit open); "
                                       "not dispatching", wid)
-    try:
-        if use_websocket:
-            try:
-                await _dispatch_ws(worker, prompt, prompt_id, extra_data)
-                registry.record_success(wid)
-                return
-            except WorkerNotAvailableError as exc:
-                if not isinstance(exc, WorkerUnreachableError):
-                    raise  # the worker's answer: never sent again over HTTP
-                debug_log(f"websocket dispatch to {wid} unreachable ({exc}); trying HTTP")
-            except Exception as exc:  # noqa: BLE001 - falls back to HTTP
-                debug_log(f"websocket dispatch to {wid} failed ({type(exc).__name__}: {exc}); "
-                          "trying HTTP")
-        await _dispatch_http(worker, prompt, prompt_id, extra_data)
-    except WorkerUnreachableError:
-        registry.record_failure(wid)
-        raise
-    except WorkerNotAvailableError:
-        # a rejection: the worker is alive, its failure chain resets
-        registry.record_success(wid)
-        raise
+    started = time.monotonic()
+    # pessimistic: a cancellation or an unexpected exception must not
+    # record an "ok" sample; only the success paths flip it
+    outcome = "error"
+    with get_tracer().span("dispatch", worker_id=wid, prompt_id=prompt_id):
+        try:
+            if use_websocket:
+                try:
+                    await _dispatch_ws(worker, prompt, prompt_id, extra_data)
+                    registry.record_success(wid)
+                    outcome = "ok"
+                    return
+                except WorkerNotAvailableError as exc:
+                    if not isinstance(exc, WorkerUnreachableError):
+                        raise  # the worker's answer: never sent again over HTTP
+                    debug_log(f"websocket dispatch to {wid} unreachable ({exc}); trying HTTP")
+                except Exception as exc:  # noqa: BLE001 - falls back to HTTP
+                    debug_log(f"websocket dispatch to {wid} failed ({type(exc).__name__}: "
+                              f"{exc}); trying HTTP")
+            await _dispatch_http(worker, prompt, prompt_id, extra_data)
+            outcome = "ok"
+        except WorkerUnreachableError:
+            registry.record_failure(wid)
+            outcome = "unreachable"
+            raise
+        except WorkerNotAvailableError:
+            # a rejection: the worker is alive, its failure chain resets
+            registry.record_success(wid)
+            outcome = "rejected"
+            raise
+        finally:
+            dispatch_seconds().observe(time.monotonic() - started, worker_id=wid,
+                                       outcome=outcome)
     registry.record_success(wid)
 
 
@@ -130,10 +150,15 @@ async def _dispatch_http(worker, prompt, prompt_id, extra_data) -> None:
     payload = {"prompt": prompt, "prompt_id": prompt_id}
     if extra_data:
         payload["extra_data"] = extra_data
+    # the worker's executor joins this execution's span tree through the
+    # header (api/server.handle_post_prompt)
+    trace_id = current_trace_id()
+    headers = {TRACE_HEADER: trace_id} if trace_id else None
 
     async def attempt():
         status, body = await request_json_async("POST", url, payload,
-                                                timeout=DISPATCH_TIMEOUT_SECONDS)
+                                                timeout=DISPATCH_TIMEOUT_SECONDS,
+                                                headers=headers)
         if status != 200:
             raise WorkerNotAvailableError(
                 f"dispatch to {worker.get('id')} failed: HTTP {status} {str(body)[:200]}",
@@ -154,7 +179,7 @@ async def _dispatch_ws(worker, prompt, prompt_id, extra_data) -> None:
         "http://", "ws://", 1).replace("https://", "wss://", 1)
     async with connect_websocket(url, timeout=DISPATCH_TIMEOUT_SECONDS) as ws:
         await ws.send_json({"type": "dispatch_prompt", "prompt": prompt, "prompt_id": prompt_id,
-                            "extra_data": extra_data or {}})
+                            "extra_data": extra_data or {}, "trace_id": current_trace_id()})
 
         async def await_ack() -> bool:
             async for text in ws:

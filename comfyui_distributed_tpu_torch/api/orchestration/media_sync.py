@@ -8,7 +8,9 @@ extension), ask the worker for each file's md5 (POST
 (multipart POST /upload/image, the field "image" as the JAX uploader's
 FormData writes it), and rewrite path separators to the worker's
 (its /distributed/system_info `path_separator`). A file missing here is
-skipped; a failed upload is logged and dispatch goes on.
+skipped; a failed upload is logged and dispatch goes on. Each upload
+counts in cdt_media_sync_uploads_total by outcome, and each sync's wall
+time is a sample of cdt_media_sync_seconds.
 """
 
 from __future__ import annotations
@@ -17,9 +19,11 @@ import asyncio
 import hashlib
 import os
 import re
+import time
 from typing import Any
 
 from ...resilience.policy import http_policy, retry_async, transport_errors
+from ...telemetry.instruments import media_sync_seconds, media_sync_uploads_total
 from ...utils.constants import MEDIA_SYNC_TIMEOUT_SECONDS
 from ...utils.logging import debug_log, log
 from ...utils.network import build_worker_url, request_bytes, request_json_async
@@ -113,6 +117,8 @@ async def sync_worker_media(worker: dict[str, Any], prompt: dict[str, Any], inpu
     refs = find_media_references(prompt)
     if not refs:
         return prompt
+    worker_id = str(worker.get("id"))
+    started = time.monotonic()
     sep = await _worker_path_separator(worker)
 
     async def sync_one(node_id: str, key: str, filename: str) -> None:
@@ -122,12 +128,17 @@ async def sync_worker_media(worker: dict[str, Any], prompt: dict[str, Any], inpu
             return
         digest = await asyncio.to_thread(file_md5, local)
         if not await _check_file(worker, filename, digest):
-            if await _upload_file(worker, local, filename):
+            ok = await _upload_file(worker, local, filename)
+            media_sync_uploads_total().inc(worker_id=worker_id, outcome="ok" if ok else "failed")
+            if ok:
                 log(f"synced {filename} to worker {worker.get('id')}")
             else:
                 log(f"FAILED to sync {filename} to worker {worker.get('id')}")
         if sep != os.sep:
             prompt[node_id]["inputs"][key] = filename.replace(os.sep, sep)
 
-    await asyncio.wait_for(asyncio.gather(*(sync_one(*ref) for ref in refs)), timeout)
+    try:
+        await asyncio.wait_for(asyncio.gather(*(sync_one(*ref) for ref in refs)), timeout)
+    finally:
+        media_sync_seconds().observe(time.monotonic() - started, worker_id=worker_id)
     return prompt

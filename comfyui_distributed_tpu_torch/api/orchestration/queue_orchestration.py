@@ -15,14 +15,21 @@ prompt.
 
 A request's resolved adapter plan is noted in the store per job
 (`note_job_adapters`); a load-balanced prompt runs whole on one worker
-and carries none, as in the JAX package. Not ported: the scheduler's
-admission lanes and tracing (ROADMAP.md, Queue 1).
+and carries none, as in the JAX package.
+
+The execution is one trace: its id is the caller's `trace_id`, else a
+fresh `exec_*` id (utils/trace_logger.py), and the `queue_orchestration`
+span is the root of its tree; under it `probe_workers`, one `media_sync`
+and one `dispatch` span per worker (the dispatch carries the id in the
+X-CDT-Trace-Id header, so each worker's execution joins it), and the
+master's own execution. Every orchestration counts in
+cdt_orchestrations_total by mode. Not ported: the scheduler's admission
+lanes (ROADMAP.md, Queue 1 step 7).
 """
 
 from __future__ import annotations
 
 import asyncio
-import uuid
 from typing import Any
 
 from ...adapters.registry import specs_to_wire
@@ -35,10 +42,13 @@ from ...graph.prompt import (
     prune_prompt_for_worker,
 )
 from ...resilience.health import get_health_registry
+from ...telemetry import get_tracer
+from ...telemetry.instruments import orchestrations_total
 from ...utils import config as config_mod
 from ...utils.exceptions import WorkerNotAvailableError
 from ...utils.logging import log
 from ...utils.network import build_master_callback_url
+from ...utils.trace_logger import generate_trace_id, trace_info
 from ..queue_request import QueueRequestPayload
 from .dispatch import dispatch_worker_prompt, select_active_workers, select_least_busy_worker
 from .media_sync import sync_worker_media
@@ -46,15 +56,26 @@ from .media_sync import sync_worker_media
 
 async def orchestrate_distributed_execution(server, payload: QueueRequestPayload
                                             ) -> dict[str, Any]:
+    trace_id = payload.trace_id or generate_trace_id()
+    # the root span of the whole distributed execution: dispatches,
+    # worker executions (joined via the header), tile pulls and
+    # collector ingestion all parent into this tree
+    with get_tracer().span("queue_orchestration", trace_id=trace_id,
+                           client_id=payload.client_id):
+        return await _orchestrate(server, payload, trace_id)
+
+
+async def _orchestrate(server, payload: QueueRequestPayload, trace_id: str) -> dict[str, Any]:
+    tracer = get_tracer()
     config = config_mod.load_config(server.config_path)
     settings = config.get("settings", {})
     use_ws = settings.get("websocket_orchestration", True)
     configured = {str(w.get("id")): w for w in config.get("workers", [])}
     requested = [configured[w] for w in payload.worker_ids if w in configured]
     index = PromptIndex(payload.prompt)
-    active = await select_active_workers(requested, settings.get("probe_concurrency", 8))
-    # names this execution's prompts on every participant
-    trace_id = f"exec_{uuid.uuid4().hex[:12]}"
+    trace_info(trace_id, f"orchestrating: {len(requested)} worker(s) requested")
+    with tracer.span("probe_workers", requested=len(requested)):
+        active = await select_active_workers(requested, settings.get("probe_concurrency", 8))
 
     # --- load-balanced single placement ---
     if payload.extra.get("load_balance") and active:
@@ -69,7 +90,8 @@ async def orchestrate_distributed_execution(server, payload: QueueRequestPayload
             worker_prompt = apply_participant_overrides(
                 prune_prompt_for_worker(payload.prompt, index), participant)
             await dispatch_worker_prompt(target, worker_prompt, f"{trace_id}_lb", use_ws)
-            log(f"load-balanced to worker {target.get('id')}")
+            trace_info(trace_id, f"load-balanced to worker {target.get('id')}")
+            orchestrations_total().inc(mode="load_balance")
             return {"status": "dispatched", "trace_id": trace_id, "mode": "load_balance",
                     "worker": target.get("id")}
 
@@ -100,10 +122,16 @@ async def orchestrate_distributed_execution(server, payload: QueueRequestPayload
             worker_prompt = apply_participant_overrides(
                 prune_prompt_for_worker(payload.prompt, index), participant)
             async with media_sem:
-                try:
-                    await sync_worker_media(worker, worker_prompt, input_dir)
-                except Exception as exc:  # noqa: BLE001 - sync is best effort
-                    log(f"media sync to {worker.get('id')} failed: {exc}")
+                with tracer.span("media_sync", trace_id=trace_id,
+                                 worker_id=str(worker.get("id"))) as sync_span:
+                    try:
+                        await sync_worker_media(worker, worker_prompt, input_dir)
+                    except Exception as exc:  # noqa: BLE001 - sync is best effort
+                        # swallowed (dispatch proceeds), but the trace
+                        # still shows the sync failed
+                        sync_span.status = "error"
+                        sync_span.attrs["error"] = f"{type(exc).__name__}: {exc}"
+                        log(f"media sync to {worker.get('id')} failed: {exc}")
         await dispatch_worker_prompt(worker, worker_prompt, f"{trace_id}_w{position}", use_ws)
 
     results = await asyncio.gather(
@@ -126,11 +154,14 @@ async def orchestrate_distributed_execution(server, payload: QueueRequestPayload
     delegate = settings.get("master_delegate_only", False)
     if delegate and dispatched:
         master_prompt = prepare_delegate_master_prompt(master_prompt)
-        log("delegate mode: master pruned to its collectors and what follows them")
+        trace_info(trace_id, "delegate mode: master pruned to its collectors and what follows "
+                             "them")
     elif delegate:
-        log("delegate mode requested but no worker took a prompt; the master participates")
-    job = server.queue_prompt(master_prompt, f"{trace_id}_master")
-    log(f"dispatched to {dispatched}; master queued {job.prompt_id}")
+        trace_info(trace_id, "delegate mode requested but no worker took a prompt; the master "
+                             "participates")
+    job = server.queue_prompt(master_prompt, f"{trace_id}_master", trace_id=trace_id)
+    trace_info(trace_id, f"dispatched to {dispatched}; master queued {job.prompt_id}")
+    orchestrations_total().inc(mode="fan_out")
     return {"status": "queued", "trace_id": trace_id, "prompt_id": job.prompt_id,
             "workers": dispatched, "job_ids": job_ids}
 

@@ -2,14 +2,16 @@
 
 The port's own copy of comfyui_distributed_tpu/api/queue_request.py,
 without the scheduler's tenant and lane fields: {"prompt" | "workflow":
-{...}, "workers" | "worker_ids": [...], "client_id": str, "deadline_s"?:
-seconds, "adapters"?: [{"name", "strength"}]}; errors name the
+{...}, "workers" | "worker_ids": [...], "client_id": str, "trace_id"?:
+str, "deadline_s"?: seconds, "adapters"?: [{"name", "strength"}]};
+errors name the
 offending field. `adapters` is validated here (at most
 MAX_ADAPTERS_PER_REQUEST, adapters/registry.py) and resolved against the
 catalog by the queue route. Every other key of the body lands in
 `extra` (e.g. "load_balance": true, which the orchestration reads), the
 JAX package's keys excluded as there, so the same body gives the same
-`extra` in both packages.
+`extra` in both packages (a caller's "trace_id" lands there too, as in
+the JAX package).
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ class QueueRequestPayload:
     prompt: dict[str, Any]
     client_id: str
     worker_ids: list[str]
+    # the caller's trace id for the execution (None = the orchestration
+    # makes one)
+    trace_id: str | None = None
     # end-to-end deadline in seconds from arrival (None = none): rides
     # the job record, which expires overdue work
     deadline_s: float | None = None
@@ -83,6 +88,7 @@ def parse_queue_request_payload(body: Any) -> QueueRequestPayload:
         prompt=prompt,
         client_id=client_id,
         worker_ids=[str(w) for w in workers],
+        trace_id=body.get("trace_id") or None,
         deadline_s=parse_deadline_seconds(body.get("deadline_s")),
         adapters=adapters,
         extra={k: v for k, v in body.items() if k not in _PARSED_KEYS},

@@ -6,13 +6,17 @@ api/httpd.py instead of aiohttp. It owns:
 - the HTTP server with GET/POST /prompt, POST /interrupt,
   GET /history/{prompt_id}, and the /distributed/* routes: the jobs
   (api/job_routes.py), the elastic tier (api/usdu_routes.py), the worker
-  processes, websocket dispatch and host info (api/worker_routes.py) and
-  the config (api/config_routes.py);
+  processes, websocket dispatch and host info (api/worker_routes.py),
+  the config (api/config_routes.py) and the telemetry
+  (api/telemetry_routes.py);
 - the prompt queue, consumed by one executor thread running the graph
   executor, so compute never blocks the loop; every prompt shares the
   server's `execution_context.pipelines` (loaded models) and `extras`
-  (the node cache, the elastic loops' stage times);
-- the JobStore of the elastic tier.
+  (the node cache). A prompt joins the trace its X-CDT-Trace-Id header
+  (or the orchestration) names, else its prompt id, and runs under an
+  `execute_prompt` span;
+- the JobStore of the elastic tier, and the scrape-time collectors of
+  its live state, bound at start and unbound at stop.
 
 The same server runs on master and workers; a prompt's hidden inputs
 (written by the orchestration) decide each node's role. `device` is
@@ -42,9 +46,12 @@ from .httpd import HTTPServer, Request, Response, Router, json_response
 
 
 class PromptJob:
-    def __init__(self, prompt_id: str, prompt: dict):
+    def __init__(self, prompt_id: str, prompt: dict, trace_id: str | None = None):
         self.prompt_id = prompt_id
         self.prompt = prompt
+        # the execution joins this trace; prompt_id is the fallback so a
+        # standalone execution still gets a span tree
+        self.trace_id = trace_id or prompt_id
         self.done = threading.Event()
         self.outputs: dict[str, Any] | None = None
         self.error: str | None = None
@@ -74,6 +81,7 @@ class DistributedServer:
         self.execution_context = ExecutionContext(device=self.device)
         # prompts taken over /distributed/worker_ws (not the HTTP fallback)
         self.ws_prompts = 0
+        self._unbind_telemetry: Any = lambda: None
         self._register_routes()
 
     # --- config ----------------------------------------------------------
@@ -94,7 +102,7 @@ class DistributedServer:
     # --- routes ----------------------------------------------------------
 
     def _register_routes(self) -> None:
-        from . import config_routes, job_routes, usdu_routes, worker_routes
+        from . import config_routes, job_routes, telemetry_routes, usdu_routes, worker_routes
 
         self.router.add_get("/prompt", self.handle_get_prompt)
         self.router.add_post("/prompt", self.handle_post_prompt)
@@ -104,6 +112,7 @@ class DistributedServer:
         usdu_routes.register(self.router, self)
         worker_routes.register(self.router, self)
         config_routes.register(self.router, self)
+        telemetry_routes.register(self.router, self)
 
     # --- prompt queue ----------------------------------------------------
 
@@ -124,8 +133,11 @@ class DistributedServer:
         if not isinstance(prompt, dict):
             return json_response({"error": "missing prompt"}, 400)
         prompt_id = body.get("prompt_id") or f"prompt_{len(self._history)}_{os.getpid()}"
+        from ..telemetry import TRACE_HEADER
+
+        trace_id = request.headers.get(TRACE_HEADER.lower()) or None
         try:
-            job = self.queue_prompt(prompt, str(prompt_id))
+            job = self.queue_prompt(prompt, str(prompt_id), trace_id=trace_id)
         except PromptValidationError as exc:
             return json_response({"error": str(exc), "node_errors": exc.node_errors}, 400)
         return json_response({"prompt_id": job.prompt_id, "number": 0})
@@ -151,16 +163,18 @@ class DistributedServer:
         """A queued prompt with its outputs once done (None if unknown)."""
         return self._history.get(prompt_id)
 
-    def queue_prompt(self, prompt: dict, prompt_id: str) -> PromptJob:
+    def queue_prompt(self, prompt: dict, prompt_id: str,
+                     trace_id: str | None = None) -> PromptJob:
         """Validate, then enqueue; validation errors reach the caller.
         Idempotent per prompt_id: a retried dispatch whose first delivery
-        landed does not run the prompt twice."""
+        landed does not run the prompt twice. The execution joins
+        `trace_id` (else the prompt id)."""
         existing = self._history.get(prompt_id)
         if existing is not None:
             debug_log(f"prompt {prompt_id} already queued; duplicate dropped")
             return existing
         validate_prompt(prompt)
-        job = PromptJob(prompt_id, prompt)
+        job = PromptJob(prompt_id, prompt, trace_id=trace_id)
         self._history[prompt_id] = job
         self._prompt_queue.put(job)
         return job
@@ -190,15 +204,25 @@ class DistributedServer:
             pipelines=self.execution_context.pipelines,
             extras=self.execution_context.extras,  # the node cache persists
         )
+        from ..telemetry import get_tracer
+
+        tracer = get_tracer()
+        # this thread joins the prompt's trace: every span opened while it
+        # executes (tile pulls, sampler stages) attaches to the
+        # distributed execution's tree
+        token = tracer.activate(job.trace_id)
         try:
             debug_log(f"executing prompt {job.prompt_id}")
-            executor = GraphExecutor(ctx)
-            job.outputs = executor.execute(job.prompt)
-            job.timings = executor.last_timings
+            with tracer.span("execute_prompt", prompt_id=job.prompt_id,
+                             role="worker" if self.is_worker else "master"):
+                executor = GraphExecutor(ctx)
+                job.outputs = executor.execute(job.prompt)
+                job.timings = executor.last_timings
         except Exception as exc:  # noqa: BLE001 - reported to the client
             job.error = f"{type(exc).__name__}: {exc}"
             log(f"prompt {job.prompt_id} failed: {job.error}")
         finally:
+            tracer.deactivate(token)
             self._executing.clear()
             job.done.set()
 
@@ -214,6 +238,11 @@ class DistributedServer:
         self._executor_thread.start()
         self.http = HTTPServer(self.router)
         await self.http.start(self.host, self.port)
+        # live-state gauges (queue depths, breaker states) are filled at
+        # /distributed/metrics scrape time from this server
+        from ..telemetry import bind_server_collectors
+
+        self._unbind_telemetry = bind_server_collectors(self)
         log(f"{'worker' if self.is_worker else 'master'} server listening on "
             f"{self.host}:{self.port} (device {self.device})")
 
@@ -223,6 +252,8 @@ class DistributedServer:
         if self.http is not None:
             await self.http.stop()
             self.http = None
+        self._unbind_telemetry()
+        self._unbind_telemetry = lambda: None
         self._prompt_queue.put(None)
         if self._executor_thread is not None:
             self.interrupt()

@@ -1,0 +1,129 @@
+"""Telemetry routes: the Prometheus scrape, span trees, the tile cache.
+
+The port's own copy of the observability routes of
+comfyui_distributed_tpu/api/telemetry_routes.py, on api/httpd.py:
+
+    GET  /distributed/metrics           Prometheus text exposition
+    GET  /distributed/trace/{trace_id}  span tree JSON for one execution
+    GET  /distributed/traces            paginated trace-id listing
+    GET  /distributed/cache             tile-cache stats
+    POST /distributed/cache/clear       drop both tile-cache tiers
+
+The metrics body is the process-global registry: counters and
+histograms pushed by the instrumented layers, live-state gauges filled
+at scrape time by each server's collectors (telemetry/instruments.py)
+and the runtime gauges (telemetry/runtime.py). A master and a worker in
+one process share it; the `role`, `worker_id` and `server` labels keep
+their series apart.
+
+Not registered, so they answer 404 as the port's other unported routes
+do, each with its ROADMAP.md item (Queue 1 step 7): /distributed/events
+(with push grants), /distributed/usage, /distributed/fleet and
+/distributed/alerts (the fleet plane), /distributed/durability and the
+profiler-capture routes.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any
+
+from ..telemetry import TRACE_HEADER, get_metrics_registry, get_tracer
+from .httpd import Request, Response, Router, json_response
+
+PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+DEFAULT_TRACE_PAGE = 50
+
+
+@contextlib.contextmanager
+def rpc_span(request: Request, name: str, **attrs: Any):
+    """Attach a server-side span for one inbound RPC to the trace the
+    X-CDT-Trace-Id header names; no-op (yields None) when the caller did
+    not propagate a trace. Shared by every route module that receives
+    trace-propagated worker RPCs (usdu_routes, job_routes)."""
+    trace_id = request.headers.get(TRACE_HEADER.lower())
+    if not trace_id:
+        yield None
+        return
+    with get_tracer().span(name, trace_id=trace_id, **attrs) as span:
+        yield span
+
+
+def register(router: Router, server) -> None:
+    routes = TelemetryRoutes(server)
+    router.add_get("/distributed/metrics", routes.metrics)
+    router.add_get("/distributed/trace/{trace_id}", routes.trace)
+    router.add_get("/distributed/traces", routes.traces)
+    router.add_get("/distributed/cache", routes.cache)
+    router.add_post("/distributed/cache/clear", routes.cache_clear)
+
+
+class TelemetryRoutes:
+    def __init__(self, server):
+        self.server = server
+
+    async def metrics(self, request: Request) -> Response:
+        body = get_metrics_registry().render()
+        return Response.raw(body.encode("utf-8"), PROMETHEUS_CONTENT_TYPE)
+
+    async def trace(self, request: Request) -> Response:
+        trace_id = request.match_info["trace_id"]
+        tracer = get_tracer()
+        spans = tracer.spans(trace_id)
+        if not spans:
+            return json_response({"error": "no such trace"}, 404)
+        return json_response({
+            "trace_id": trace_id,
+            "span_count": len(spans),
+            "tree": tracer.tree(trace_id, spans),
+        })
+
+    async def traces(self, request: Request) -> Response:
+        """Paginated listing, most-recently-active first. The page size is
+        clamped to the tracer's retention bound."""
+        tracer = get_tracer()
+        try:
+            limit = int(request.query.get("limit", DEFAULT_TRACE_PAGE))
+            offset = int(request.query.get("offset", 0))
+        except (TypeError, ValueError):
+            return json_response({"error": "limit/offset must be integers"}, 400)
+        if limit <= 0 or offset < 0:
+            return json_response({"error": "limit must be > 0 and offset >= 0"}, 400)
+        limit = min(limit, tracer.max_traces)
+        ids = tracer.trace_ids()
+        ids.reverse()  # storage order is LRU: last = most recently active
+        return json_response({
+            "traces": ids[offset:offset + limit],
+            "total": len(ids),
+            "limit": limit,
+            "offset": offset,
+        })
+
+    async def cache(self, request: Request) -> Response:
+        """Tile-cache stats: tier sizes, hit/miss/corrupt counters and
+        the derived hit rate."""
+        from ..cache.store import get_tile_cache
+
+        tile_cache = get_tile_cache()
+        if tile_cache is None:
+            return json_response({
+                "enabled": False,
+                "hint": "tile result cache runs on masters with CDT_CACHE=1 "
+                        "(CDT_CACHE_DIR adds the disk tier)"})
+        payload = tile_cache.stats()
+        payload["enabled"] = True
+        return json_response(payload)
+
+    async def cache_clear(self, request: Request) -> Response:
+        """Drop both cache tiers (the lever for a suspected-stale cache,
+        e.g. after weights were edited in place); returns what went."""
+        from ..cache.store import get_tile_cache
+
+        tile_cache = get_tile_cache()
+        if tile_cache is None:
+            return json_response({"enabled": False,
+                                  "hint": "tile result cache runs on masters with CDT_CACHE=1"})
+        payload = tile_cache.clear()
+        payload["enabled"] = True
+        return json_response(payload)

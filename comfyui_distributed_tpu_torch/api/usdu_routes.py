@@ -18,8 +18,13 @@ once (the JAX routes answer 404 after the creation grace, which the
 worker's pull policy retries for minutes). Handlers
 await the store directly on the loop; they never go through
 run_async_in_server_loop, which would deadlock the loop they run on.
-Left out: fencing epochs (409 stale_epoch), the standby gate, the
-fleet-telemetry piggyback, cross-job grants and preemption.
+A pull, a submit and a hand-back carrying the X-CDT-Trace-Id header are
+spans of that trace (`rpc.request_image` with the tile it handed out,
+`rpc.submit_tiles` with the tiles and how many were accepted,
+`rpc.submit_image`, `rpc.return_tiles`), so a worker's RPCs sit in the
+master's tree of the execution. Left out: fencing epochs (409
+stale_epoch), the standby gate, the fleet-telemetry piggyback (ROADMAP.md,
+Queue 1 step 7), cross-job grants and preemption.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from ..utils.constants import JOB_INIT_GRACE_SECONDS, QUEUE_POLL_INTERVAL_SECOND
 from ..utils.exceptions import JobQueueError
 from ..utils.logging import debug_log
 from .httpd import Request, Response, Router, json_response
+from .telemetry_routes import rpc_span
 
 
 def register(router: Router, server) -> None:
@@ -79,13 +85,16 @@ class UsduRoutes:
             return json_response(_MISSING_IDS, 400)
         job_id, worker_id = ids
         store = self.server.job_store
-        job = await self._live_job(job_id)
-        if job is not None:
-            try:
-                task_id = await store.pull_task(job_id, worker_id,
-                                                timeout=QUEUE_POLL_INTERVAL_SECONDS)
-            except JobQueueError:  # cleaned up since
-                job = None
+        with rpc_span(request, "rpc.request_image", worker_id=worker_id, job_id=job_id) as span:
+            job = await self._live_job(job_id)
+            if job is not None:
+                try:
+                    task_id = await store.pull_task(job_id, worker_id,
+                                                    timeout=QUEUE_POLL_INTERVAL_SECONDS)
+                except JobQueueError:  # cleaned up since
+                    job = None
+            if span is not None and job is not None and task_id is not None:
+                span.attrs["tile_idx"] = int(task_id)
         if job is None:
             if job_id in store.finished:
                 return json_response({"tile_idx": None, "estimated_remaining": 0,
@@ -126,13 +135,17 @@ class UsduRoutes:
             grouped.setdefault(int(entry["tile_idx"]), []).append(entry)
             received += len(entry["image"])
         store = self.server.job_store
-        job = await self._live_job(job_id)
-        if job is not None:
-            try:
-                accepted = await store.submit_flush(job_id, worker_id, grouped,
-                                                    received_bytes=received)
-            except JobQueueError:  # cleaned up since
-                job = None
+        with rpc_span(request, "rpc.submit_tiles", worker_id=worker_id, job_id=job_id) as span:
+            job = await self._live_job(job_id)
+            if job is not None:
+                try:
+                    accepted = await store.submit_flush(job_id, worker_id, grouped,
+                                                        received_bytes=received)
+                except JobQueueError:  # cleaned up since
+                    job = None
+            if span is not None and job is not None:
+                span.attrs["tiles"] = sorted(grouped)
+                span.attrs["accepted"] = accepted
         if job is None:
             if store.drop_late(job_id, len(grouped)):
                 return json_response({"status": "ok", "accepted": 0})
@@ -159,14 +172,16 @@ class UsduRoutes:
             return json_response({"error": "image_idx must be an int"}, 400)
         job_id, worker_id = ids
         store = self.server.job_store
-        job = await self._live_job(job_id)
-        if job is not None:
-            try:
-                payload = [{"batch_idx": 0, "image": body["image"], "whole_image": True}]
-                accepted = await store.submit_flush(job_id, worker_id, {image_idx: payload},
-                                                    received_bytes=len(body["image"]))
-            except JobQueueError:  # cleaned up since
-                job = None
+        with rpc_span(request, "rpc.submit_image", worker_id=worker_id, job_id=job_id,
+                      image_idx=image_idx):
+            job = await self._live_job(job_id)
+            if job is not None:
+                try:
+                    payload = [{"batch_idx": 0, "image": body["image"], "whole_image": True}]
+                    accepted = await store.submit_flush(job_id, worker_id, {image_idx: payload},
+                                                        received_bytes=len(body["image"]))
+                except JobQueueError:  # cleaned up since
+                    job = None
         if job is None:
             if store.drop_late(job_id, 1):
                 return json_response({"status": "ok", "accepted": 0})
@@ -191,7 +206,10 @@ class UsduRoutes:
             idxs = None
         if idxs is None:
             return json_response({"error": "tile_idxs must be a list of ints"}, 400)
-        released = await self.server.job_store.release_tasks(*ids, idxs)
+        with rpc_span(request, "rpc.return_tiles", worker_id=ids[1], job_id=ids[0]) as span:
+            released = await self.server.job_store.release_tasks(*ids, idxs)
+            if span is not None:
+                span.attrs["released"] = released
         return json_response({"status": "ok", "released": released})
 
     async def job_status(self, request: Request) -> Response:

@@ -4,7 +4,7 @@ The port's own copy of comfyui_distributed_tpu/api/worker_routes.py, on
 api/httpd.py instead of aiohttp:
 
     GET  /distributed/worker_ws        websocket: {type: dispatch_prompt,
-                                       prompt, prompt_id} → {type:
+                                       prompt, prompt_id, trace_id?} → {type:
                                        dispatch_ack, prompt_id, ok, error?};
                                        {type: ping} → {type: pong,
                                        queue_remaining}
@@ -92,7 +92,8 @@ class WorkerRoutes:
                     prompt_id = str(data.get("prompt_id", ""))
                     try:
                         new = self.server.get_job(prompt_id) is None
-                        self.server.queue_prompt(data.get("prompt", {}), prompt_id)
+                        self.server.queue_prompt(data.get("prompt", {}), prompt_id,
+                                                 trace_id=data.get("trace_id") or None)
                         if new:
                             self.server.ws_prompts += 1
                         await ws.send_json({"type": "dispatch_ack", "prompt_id": prompt_id,

@@ -57,6 +57,9 @@ class TileResultCache:
         self._evictions = 0
         self._corrupt = 0
         self._settled = 0
+        # scrape-time delta marks of the mirrored counters
+        # (telemetry/instruments.bind_server_collectors)
+        self.scrape_mirrored: dict[str, int] = {}
         if self._disk_dir:
             os.makedirs(self._disk_dir, exist_ok=True)
             self._disk_bytes = self._scan_disk_bytes()
@@ -215,6 +218,32 @@ class TileResultCache:
         return total
 
     # -- management --------------------------------------------------------
+
+    def clear(self) -> dict:
+        """Drop both tiers; returns what was dropped (the answer of
+        POST /distributed/cache/clear)."""
+        with self._lock:
+            dropped_entries = len(self._ram)
+            dropped_bytes = self._ram_bytes
+            self._ram.clear()
+            self._ram_bytes = 0
+        disk_entries = 0
+        if self._disk_dir:
+            for sub in list(os.scandir(self._disk_dir)):
+                if not sub.is_dir():
+                    continue
+                for ent in list(os.scandir(sub.path)):
+                    if ent.is_file() and ent.name.endswith(".tile"):
+                        with contextlib.suppress(OSError):
+                            dropped_bytes += ent.stat().st_size
+                            os.unlink(ent.path)
+                            disk_entries += 1
+            with self._lock:
+                self._disk_bytes = 0
+        return {
+            "dropped_entries": dropped_entries + disk_entries,
+            "dropped_bytes": dropped_bytes,
+        }
 
     def stats(self) -> dict:
         with self._lock:

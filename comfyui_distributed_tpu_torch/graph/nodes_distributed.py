@@ -8,7 +8,9 @@ DistributedCollector.
 - Workers POST one envelope per image to the master's
   /distributed/job_complete ({job_id, worker_id, batch_idx, image as a
   base64 PNG data URL, is_last}; an empty batch still sends one `empty`
-  envelope marked is_last), over `urllib` under the shared RetryPolicy.
+  envelope marked is_last), over `urllib` under the shared RetryPolicy,
+  with the executing prompt's trace id in the X-CDT-Trace-Id header so
+  the master's `rpc.job_complete` spans join the execution's tree.
 - The master's collector drains its collector job's queue with sliced
   waits, probes the missing workers when they stall (busy ⇒ grace),
   drops repeated (worker, batch_idx) envelopes, and orders the batch:
@@ -236,9 +238,16 @@ class DistributedCollector:
         retry under the HTTP policy (the master drops a repeated
         envelope); a 4xx is the master's verdict and raises."""
         url = f"{master_url.rstrip('/')}/distributed/job_complete"
+        # the trace is active on this (executor) thread, not on the server
+        # loop that sends
+        from ..telemetry import TRACE_HEADER, current_trace_id
+
+        trace_id = current_trace_id()
+        headers = {TRACE_HEADER: trace_id} if trace_id else None
 
         async def post(envelope):
-            status, out = await request_json_async("POST", url, envelope, timeout=120.0)
+            status, out = await request_json_async("POST", url, envelope, timeout=120.0,
+                                                   headers=headers)
             if status >= 500:
                 raise TransientServerError(f"job_complete -> HTTP {status}: {out}", worker_id)
             if status != 200:

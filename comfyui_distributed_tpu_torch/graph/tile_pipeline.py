@@ -30,10 +30,28 @@ on an interrupt (InterruptedError) so they requeue at once;
 any other failure leaves them to the master's heartbeat timeout, like a
 crashed worker.
 
-`stage_span` times one stage (pull | sample | readback | encode |
-submit | decode | blend | cache.probe | cache.hit) and adds its wall seconds to the StageTotals
-passed as its `totals` attribute; the JAX package's tracer spans are
-not ported yet.
+Telemetry, at the JAX package's seams:
+
+- `stage_span` opens a tracer span ``tile.<stage>`` (pull | sample |
+  dispatch | readback | encode | submit | decode | blend | cache.probe
+  | cache.hit) and observes ``cdt_tile_stage_seconds{stage, role}``; an
+  empty pull is left out of the histogram. Readback, encode, decode and
+  submit wall time also lands in the transfer ledger's gather, encode
+  and ship buckets.
+- `GrantSampler.sample` brackets each dispatch in a ``tile.dispatch``
+  span and hands its wall time to the usage meter (one real slot a
+  tile, ``tier="scan"``, ``chips=1``) and to the ledger. While the
+  ledger is on (CDT_PROFILING) and the tile ran on the card, the
+  bracket ends with a CUDA event recorded on the sampler's stream after
+  the tile's launches and waited on with `event.synchronize()`, so the
+  bracket is the card's execution, as `jax.block_until_ready` makes it
+  in the JAX package; only that stream is waited on, never the whole
+  device, so the I/O thread's readback of the previous tile is not
+  serialised with it. A failed wait raises. On the CPU nothing is
+  waited on and the dispatch is host time (``device=False``).
+- `GrantSampler.collect` notes the readback's bytes as D2H.
+- The pipeline's puller and I/O threads join their caller's trace, so
+  their spans land in the same tree.
 """
 
 from __future__ import annotations
@@ -44,49 +62,39 @@ import threading
 import time
 from typing import Any, Callable, Optional, Sequence
 
+from ..telemetry import current_trace_id, get_tracer
+from ..telemetry.instruments import pipeline_batches_total, pipeline_inflight, tile_stage_seconds
+from ..telemetry.profiling import D2H, STAGE_HOST_BUCKETS, ledger_if_enabled
 from ..utils.constants import HEARTBEAT_INTERVAL_SECONDS, PIPELINE_DEPTH, PIPELINE_PREFETCH
 from ..utils.logging import debug_log
 
 
-class StageTotals:
-    """Wall seconds per stage, summed over one participant's run of a
-    job; thread-safe (the pipeline's threads all add to it)."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._seconds: dict[str, float] = {}
-
-    def add(self, stage: str, seconds: float) -> None:
-        with self._lock:
-            self._seconds[stage] = self._seconds.get(stage, 0.0) + seconds
-
-    def seconds(self) -> dict[str, float]:
-        with self._lock:
-            return dict(self._seconds)
-
-
-class _Span:
-    def __init__(self, attrs: dict[str, Any]):
-        self.attrs = attrs
-
-
 @contextlib.contextmanager
 def stage_span(stage: str, role: str, tile_idx: int | None = None, **attrs):
-    """Time one tile stage. The yielded span's `attrs` are free to
-    annotate; a pull that drained empty (the caller sets
-    attrs["outcome"] = "empty") is not counted, since an empty poll
-    lasts its full timeout by construction. `totals`, if given, is the
-    StageTotals the wall time is added to."""
-    totals: Optional[StageTotals] = attrs.pop("totals", None)
-    span = _Span({"stage": stage, "role": role, **attrs})
+    """Span + latency histogram around one tile stage. The yielded span's
+    `attrs` are free to annotate; a pull that drained empty (the caller
+    sets attrs["outcome"] = "empty") stays out of the histogram and the
+    ledger, since an empty poll lasts its full timeout by construction
+    (cdt_store_pulls_total{outcome="empty"} counts them). The span clock
+    is the tracer's (injectable); the histogram uses the monotonic wall
+    clock."""
+    span_attrs: dict[str, Any] = {"stage": stage, "role": role, **attrs}
     if tile_idx is not None:
-        span.attrs["tile_idx"] = int(tile_idx)
+        span_attrs["tile_idx"] = int(tile_idx)
     started = time.monotonic()
+    span = None
     try:
-        yield span
+        with get_tracer().span(f"tile.{stage}", **span_attrs) as span:
+            yield span
     finally:
-        if totals is not None and span.attrs.get("outcome") != "empty":
-            totals.add(stage, time.monotonic() - started)
+        if span is None or span.attrs.get("outcome") != "empty":
+            elapsed = time.monotonic() - started
+            tile_stage_seconds().observe(elapsed, stage=stage, role=role)
+            bucket = STAGE_HOST_BUCKETS.get(stage)
+            if bucket is not None:
+                ledger = ledger_if_enabled()
+                if ledger is not None:
+                    ledger.note_host(bucket, elapsed)
 
 
 class GrantSampler:
@@ -97,34 +105,104 @@ class GrantSampler:
     processor (ops/upscale.py::_process_tile_fn); `noise(tile_index,
     shape)` draws a tile's noise from its global index. `sample(idxs)`
     returns the processed tiles [n, B, th, tw, C] on the processor's
-    device; `collect` reads them back to the host."""
+    device; `collect` reads them back to the host. `role` and `job_id`
+    label the dispatch's span, histogram and usage record (the process's
+    usage meter, while CDT_USAGE is on)."""
 
     def __init__(self, process: Callable, extracted: Any, positions: Sequence[tuple[int, int]],
-                 pos: Any, neg: Any, noise: Callable):
+                 pos: Any, neg: Any, noise: Callable, role: str = "worker", job_id: str = ""):
+        from ..telemetry.usage import get_usage_meter
+        from ..utils.constants import USAGE_ENABLED
+
         self.process = process
         self.extracted = extracted
         self.positions = positions
         self.pos = pos
         self.neg = neg
         self.noise = noise
+        self.role = role
+        self.job_id = str(job_id)
+        self.usage = get_usage_meter() if USAGE_ENABLED else None
+        # a dispatch on the card is device time; on the CPU it is host
+        # work, and the run's host-tax reads 1.0
+        self._device = bool(getattr(extracted, "is_cuda", False))
 
     def chunks(self, grant: Sequence[int]) -> list[list[int]]:
         """Split a grant into dispatch-sized chunks (one tile each)."""
         return [[int(t)] for t in grant]
 
+    def _dispatch_span(self, idxs: Sequence[int], real: int):
+        """One ``tile.dispatch`` span per device dispatch, with the JAX
+        package's attributes."""
+        attrs: dict[str, Any] = {"real": int(real), "bucket": int(real), "jobs": 1,
+                                 "device": self._device}
+        if self.job_id:
+            attrs["slot_jobs"] = {self.job_id: int(real)}
+        return stage_span("dispatch", self.role, int(idxs[0]), **attrs)
+
+    def _wait_for_card(self) -> None:
+        """Block until the card has run every launch this thread made so
+        far on the tiles' device: an event recorded on the current stream,
+        then waited on. Raises if the wait fails."""
+        import torch
+
+        stream = torch.cuda.current_stream(self.extracted.device)
+        event = torch.cuda.Event()
+        event.record(stream)
+        event.synchronize()
+
     def sample(self, idxs: Sequence[int]):
         import torch
 
-        return torch.stack([
-            self.process(self.extracted[i], i, self.noise, self.pos, self.neg, self.positions[i])
-            for i in (int(t) for t in idxs)
-        ])
+        idxs = [int(t) for t in idxs]
+        n = len(idxs)
+        pipeline_batches_total().inc(n, role=self.role, bucket="1")
+        started = time.monotonic()
+        with self._dispatch_span(idxs, real=n):
+            out = torch.stack([
+                self.process(self.extracted[i], i, self.noise, self.pos, self.neg,
+                             self.positions[i])
+                for i in idxs
+            ])
+            if self._device and ledger_if_enabled() is not None:
+                # launches are asynchronous: the ledger wants the card's
+                # execution, so the bracket ends when the card is done
+                self._wait_for_card()
+        elapsed = time.monotonic() - started
+        self._note_usage(elapsed, real=n)
+        self._note_profiling(elapsed, real=n)
+        return out
+
+    def _note_usage(self, elapsed_s: float, real: int) -> None:
+        """The dispatch's slot-exact attribution record: every slot is a
+        real tile of this job (no padding at K = 1), and each real slot
+        is a finished tile."""
+        if self.usage is None:
+            return
+        from ..telemetry.usage import SLOT_REAL
+
+        self.usage.note_dispatch(tier="scan", role=self.role, elapsed_s=elapsed_s, chips=1,
+                                 slots=[{"job_id": self.job_id, "kind": SLOT_REAL}] * int(real))
+        self.usage.note_tiles(self.role, self.job_id, int(real))
+
+    def _note_profiling(self, elapsed_s: float, real: int) -> None:
+        ledger = ledger_if_enabled()
+        if ledger is None:
+            return
+        ledger.note_dispatch(elapsed_s, tier="scan", role=self.role, device=self._device)
+        ledger.note_tiles(int(real))
 
     def collect(self, result):
-        """Read a sample() result back to the host as float32 numpy."""
+        """Read a sample() result back to the host as float32 numpy; the
+        bytes and the wall time are the ledger's D2H transfer."""
         from ..utils import image as img_utils
 
-        return img_utils.ensure_numpy(result)
+        ledger = ledger_if_enabled()
+        started = time.monotonic()
+        host = img_utils.ensure_numpy(result)
+        if ledger is not None:
+            ledger.note_transfer(D2H, int(host.nbytes), time.monotonic() - started)
+        return host
 
 
 class _Stop:
@@ -165,7 +243,7 @@ class TilePipeline:
         prefetch: bool | None = None,
         threaded: bool = True,
         role: str = "worker",
-        stage_totals: StageTotals | None = None,
+        span_attrs: dict[str, Any] | None = None,
     ) -> None:
         self._pull = pull
         self._sample = sample
@@ -181,7 +259,8 @@ class TilePipeline:
         prefetch = PIPELINE_PREFETCH if prefetch is None else bool(prefetch)
         self.prefetch = prefetch and self.threaded
         self.role = role
-        self.stage_totals = stage_totals if stage_totals is not None else StageTotals()
+        # extra attributes of every stage span (the worker's id)
+        self.span_attrs = dict(span_attrs or {})
         self._stop = threading.Event()
         self._errors: list[BaseException] = []
         self._error_lock = threading.Lock()
@@ -220,7 +299,7 @@ class TilePipeline:
     # --- stages -----------------------------------------------------------
 
     def _pull_grant(self) -> Optional[list[int]]:
-        with stage_span("pull", self.role, totals=self.stage_totals) as span:
+        with stage_span("pull", self.role, **self.span_attrs) as span:
             grant = self._pull()
             if not grant:
                 span.attrs["outcome"] = "empty"
@@ -229,7 +308,9 @@ class TilePipeline:
             span.attrs["tile_idx"] = grant[0]
         return grant
 
-    def _puller_body(self, grant_q: queue.Queue) -> None:
+    def _puller_body(self, grant_q: queue.Queue, trace_id: Optional[str]) -> None:
+        tracer = get_tracer()
+        token = tracer.activate(trace_id) if trace_id else None
         try:
             while not self._stop.is_set():
                 grant = self._pull_grant()
@@ -243,8 +324,13 @@ class TilePipeline:
             self._record_error(exc)
             with contextlib.suppress(queue.Full):
                 grant_q.put_nowait(_STOP)
+        finally:
+            if token is not None:
+                tracer.deactivate(token)
 
-    def _io_body(self, work_q: queue.Queue) -> None:
+    def _io_body(self, work_q: queue.Queue, trace_id: Optional[str]) -> None:
+        tracer = get_tracer()
+        token = tracer.activate(trace_id) if trace_id else None
         try:
             while True:
                 try:
@@ -260,21 +346,27 @@ class TilePipeline:
                 if isinstance(item, _Stop):
                     return
                 idxs, result = item
+                # +1: the tile just popped is sampled but not read back
+                pipeline_inflight().set(work_q.qsize() + 1, role=self.role)
                 try:
                     self._drain_item(idxs, result)
                 finally:
                     work_q.task_done()
+                    pipeline_inflight().set(work_q.qsize(), role=self.role)
         except BaseException as exc:  # noqa: BLE001 - forwarded to run()
             self._record_error(exc)
+        finally:
+            if token is not None:
+                tracer.deactivate(token)
 
     def _drain_item(self, idxs: list[int], result: Any) -> None:
         """Readback + per-tile encode + flush for one device result. The
         flush callback is consulted after every tile (it applies its size
         thresholds itself)."""
-        with stage_span("readback", self.role, idxs[0], totals=self.stage_totals):
+        with stage_span("readback", self.role, idxs[0], batch=list(idxs), **self.span_attrs):
             host = self._to_host(result)
         for i, tile_idx in enumerate(idxs):
-            with stage_span("encode", self.role, tile_idx, totals=self.stage_totals):
+            with stage_span("encode", self.role, tile_idx, **self.span_attrs):
                 self._emit(tile_idx, host[i])
             self._emitted.add(int(tile_idx))
             self.tiles += 1
@@ -283,7 +375,7 @@ class TilePipeline:
             self._flush(False)
 
     def _sample_chunk(self, chunk: list[int]) -> Any:
-        with stage_span("sample", self.role, chunk[0], totals=self.stage_totals):
+        with stage_span("sample", self.role, chunk[0], batch=list(chunk), **self.span_attrs):
             result = self._sample(chunk)
         self.batches += 1
         return result
@@ -305,14 +397,16 @@ class TilePipeline:
                 self._drain_item(list(chunk), self._sample_chunk(chunk))
 
     def _run_threaded(self) -> None:
+        # the stage threads join this thread's trace
+        trace_id = current_trace_id()
         work_q: queue.Queue = queue.Queue(maxsize=self.depth)
-        io_thread = threading.Thread(target=self._io_body, args=(work_q,), name="cdt-tile-io",
-                                     daemon=True)
+        io_thread = threading.Thread(target=self._io_body, args=(work_q, trace_id),
+                                     name="cdt-tile-io", daemon=True)
         io_thread.start()
         grant_q: queue.Queue = queue.Queue(maxsize=1)
         puller: Optional[threading.Thread] = None
         if self.prefetch:
-            puller = threading.Thread(target=self._puller_body, args=(grant_q,),
+            puller = threading.Thread(target=self._puller_body, args=(grant_q, trace_id),
                                       name="cdt-tile-pull", daemon=True)
             puller.start()
         try:
@@ -357,6 +451,7 @@ class TilePipeline:
             io_thread.join(timeout=30)
             if puller is not None:
                 puller.join(timeout=30)
+            pipeline_inflight().set(0, role=self.role)
 
     def run(self) -> dict[str, Any]:
         """Run until the grant source drains; returns summary stats.

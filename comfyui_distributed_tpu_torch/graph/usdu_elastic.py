@@ -42,11 +42,22 @@ The cache is the master's alone, and keys its base bundle with the
 plan's content identity. Dynamic mode carries no adapters and no cache,
 as in the JAX package.
 
+Telemetry, as in the JAX package: the worker's RPCs carry the trace id
+active where its client was made (the X-CDT-Trace-Id header), so the
+master's `rpc.*` spans join the execution's tree; each tile of either
+role runs its stages under `tile.*` spans (graph/tile_pipeline.py:
+both roles dispatch through a `GrantSampler`, which feeds the usage
+meter and the transfer ledger); finished tiles count in
+cdt_tiles_processed_total{role}, a job wearing adapters in
+cdt_adapter_jobs_total, a worker's failed master RPCs in
+cdt_worker_master_errors_total{op}, and the master charges tiles the
+cache settled to the usage meter's `cached` bucket.
+
 Left out, each with its ROADMAP item: the master-URL failover list,
 shard routing and fencing epochs, push grants (`GrantSignal`), the
-fleet-telemetry piggyback, the cross-job tier, the device canvas and the
-mesh. Both roles prep the conditioning for tiles (ControlNet hints and
-masks windowed per tile) and take `tiled_decode`.
+fleet-telemetry piggyback (Queue 1 step 7), the cross-job tier, the
+device canvas and the mesh. Both roles prep the conditioning for tiles
+(ControlNet hints and masks windowed per tile) and take `tiled_decode`.
 
 Every function here enters `torch.inference_mode()` on its own thread:
 grad mode is thread-local, and the server runs them on its executor
@@ -71,6 +82,13 @@ from ..resilience.policy import (
     transport_errors,
     work_pull_policy,
 )
+from ..telemetry import TRACE_HEADER, current_trace_id
+from ..telemetry.instruments import (
+    adapter_jobs_total,
+    tiles_processed_total,
+    worker_master_errors_total,
+)
+from ..utils import constants
 from ..utils import image as img_utils
 from ..utils.async_helpers import run_async_in_server_loop
 from ..utils.config import worker_timeout_seconds
@@ -85,7 +103,7 @@ from ..utils.constants import (
 from ..utils.exceptions import JobCancelled, JobPoisoned, TransientServerError, WorkerError
 from ..utils.logging import debug_log, log
 from ..utils.network import build_worker_url, parse_master_urls, probe_worker, request_json_async
-from .tile_pipeline import GrantSampler, StageTotals, TilePipeline
+from .tile_pipeline import GrantSampler, TilePipeline
 from .tile_pipeline import stage_span as _stage
 
 _MESH_UNPORTED = ("the multi-device tile tier is not ported yet (ROADMAP.md, Queue 1 item 6: "
@@ -126,13 +144,6 @@ def _busy_probe(config: dict):
     return probe_busy
 
 
-def _publish_stage_totals(context, role: str, totals: StageTotals) -> None:
-    """Leave the run's stage wall times where the caller can read them:
-    context.extras["stage_seconds"][role]."""
-    if context is not None:
-        context.extras.setdefault("stage_seconds", {})[role] = totals.seconds()
-
-
 # --------------------------------------------------------------------------
 # worker side
 # --------------------------------------------------------------------------
@@ -142,8 +153,10 @@ class HTTPWorkClient:
     """Worker → master RPCs over `urllib` (utils/network.py), each through
     the shared RetryPolicy: a fixed interval for the readiness poll, a
     patient capped backoff for the pull, the default HTTP policy for
-    submits (safe: the master drops duplicate results). One master URL;
-    the failover list, shard routing and fencing epochs are ROADMAP
+    submits (safe: the master drops duplicate results). Every RPC carries
+    the trace id active where the client was made, and a failed one
+    counts in cdt_worker_master_errors_total by operation. One master
+    URL; the failover list, shard routing and fencing epochs are ROADMAP
     Queue 1, item 3."""
 
     def __init__(self, master_url: str, job_id: str, worker_id: str):
@@ -151,6 +164,10 @@ class HTTPWorkClient:
         self.master_url = urls[0] if urls else str(master_url)
         self.job_id = job_id
         self.worker_id = worker_id
+        # captured here, on the executor thread where the dispatched
+        # prompt's trace is active; the RPCs run on the server loop,
+        # where it is not
+        self.trace_id = current_trace_id()
         # the job's adapter plan (wire form), read by poll_ready
         self.adapters: list = []
         # set when a pull response reports the job cancelled; the worker
@@ -161,11 +178,18 @@ class HTTPWorkClient:
         self._hb_failures = 0
         self._hb_suppressed_until = 0.0
 
-    async def _post(self, path: str, payload: dict, timeout: float = 60.0) -> dict:
-        status, out = await request_json_async(
-            "POST", f"{self.master_url}{path}", payload, timeout=timeout
-        )
+    async def _post(self, path: str, payload: dict, timeout: float = 60.0,
+                    op: str = "transport") -> dict:
+        headers = {TRACE_HEADER: self.trace_id} if self.trace_id else None
+        try:
+            status, out = await request_json_async(
+                "POST", f"{self.master_url}{path}", payload, timeout=timeout, headers=headers
+            )
+        except transport_errors():
+            worker_master_errors_total().inc(op=op)
+            raise
         if status >= 500:
+            worker_master_errors_total().inc(op=op)
             raise TransientServerError(f"{path} -> HTTP {status}", self.worker_id)
         if status != 200:
             raise WorkerError(f"{path} -> HTTP {status}", self.worker_id)
@@ -174,7 +198,8 @@ class HTTPWorkClient:
     def poll_ready(self) -> bool:
         async def attempt():
             out = await self._post("/distributed/job_status",
-                                   {"job_id": self.job_id, "worker_id": self.worker_id})
+                                   {"job_id": self.job_id, "worker_id": self.worker_id},
+                                   op="status")
             if not out.get("ready"):
                 raise WorkerError(f"job {self.job_id} not ready", self.worker_id)
             self.adapters = list(out.get("adapters") or [])
@@ -197,7 +222,8 @@ class HTTPWorkClient:
             try:
                 return await retry_async(
                     lambda: self._post("/distributed/request_image",
-                                       {"job_id": self.job_id, "worker_id": self.worker_id}),
+                                       {"job_id": self.job_id, "worker_id": self.worker_id},
+                                       op="pull"),
                     work_pull_policy(), label=f"request_tile:{self.worker_id}",
                 )
             except (WorkerError,) + transport_errors() as exc:
@@ -225,7 +251,7 @@ class HTTPWorkClient:
                     "/distributed/submit_tiles",
                     {"job_id": self.job_id, "worker_id": self.worker_id, "tiles": entries,
                      "is_final_flush": is_final},
-                    timeout=300.0,
+                    timeout=300.0, op="submit",
                 ),
                 http_policy(), retryable=transport_errors() + (TransientServerError,),
                 label=f"submit_tiles:{self.worker_id}",
@@ -242,7 +268,7 @@ class HTTPWorkClient:
                     "/distributed/submit_image",
                     {"job_id": self.job_id, "worker_id": self.worker_id,
                      "image_idx": int(image_idx), "image": data_url, "is_last": bool(is_last)},
-                    timeout=300.0,
+                    timeout=300.0, op="submit",
                 ),
                 http_policy(), retryable=transport_errors() + (TransientServerError,),
                 label=f"submit_image:{self.worker_id}",
@@ -260,7 +286,7 @@ class HTTPWorkClient:
             try:
                 await self._post("/distributed/heartbeat",
                                  {"job_id": self.job_id, "worker_id": self.worker_id},
-                                 timeout=30.0)
+                                 timeout=30.0, op="heartbeat")
             except (WorkerError,) + transport_errors() as exc:
                 self._hb_failures += 1
                 backoff = min(HEARTBEAT_BACKOFF_BASE_SECONDS * 2.0 ** (self._hb_failures - 1),
@@ -282,7 +308,8 @@ class HTTPWorkClient:
             try:
                 await self._post("/distributed/return_tiles",
                                  {"job_id": self.job_id, "worker_id": self.worker_id,
-                                  "tile_idxs": [int(t) for t in tile_idxs]}, timeout=30.0)
+                                  "tile_idxs": [int(t) for t in tile_idxs]}, timeout=30.0,
+                                 op="release")
             except (WorkerError,) + transport_errors() as exc:
                 debug_log(f"return_tiles failed: {exc}")
 
@@ -415,7 +442,7 @@ def run_worker_loop(
                               tiled_decode)
     grant_sampler = GrantSampler(
         process, extracted, grid.positions, pos, neg,
-        noise or upscale_ops.default_noise(seed, bundle.device),
+        noise or upscale_ops.default_noise(seed, bundle.device), role="worker", job_id=job_id,
     )
     client = client or HTTPWorkClient(master_url, job_id, worker_id)
     if not client.poll_ready():
@@ -428,7 +455,8 @@ def run_worker_loop(
             lambda patched: _tile_processor(patched, grid, steps, sampler, scheduler, cfg,
                                             denoise, tiled_decode))
         grant_sampler = GrantSampler(process, extracted, grid.positions, pos, neg,
-                                     grant_sampler.noise)
+                                     grant_sampler.noise, role="worker", job_id=job_id)
+        adapter_jobs_total().inc(tier="elastic")
 
     pending: list[dict] = []
     pending_bytes = 0
@@ -448,8 +476,7 @@ def run_worker_loop(
                 "image": encoded,
             })
             pending_bytes += len(encoded)
-
-    totals = StageTotals()
+        tiles_processed_total().inc(role="worker")
 
     def flush(is_final: bool) -> None:
         """Ship when the payload budget or the tile batch fills, or on the
@@ -459,7 +486,8 @@ def run_worker_loop(
                 and pending_bytes < _flush_threshold_bytes():
             return
         if pending or is_final:
-            with _stage("submit", "worker", totals=totals):
+            # worker_id groups this span with the worker's other stages
+            with _stage("submit", "worker", worker_id=worker_id):
                 client.submit_tiles(pending, is_final)
         pending, pending_bytes = [], 0
 
@@ -484,7 +512,7 @@ def run_worker_loop(
         to_host=grant_sampler.collect, emit=emit, flush=flush,
         heartbeat=client.heartbeat, check_interrupted=check_abort,
         release=getattr(client, "return_tiles", None), role="worker",
-        threaded=PIPELINE_ENABLED, stage_totals=totals,
+        threaded=PIPELINE_ENABLED, span_attrs={"worker_id": worker_id},
     )
     try:
         pipeline.run()
@@ -492,8 +520,6 @@ def run_worker_loop(
         if not getattr(client, "job_cancelled", False):
             raise  # a real interrupt
         log(f"worker {worker_id}: job {job_id} cancelled; aborted cleanly")
-    finally:
-        _publish_stage_totals(context, "worker", totals)
 
 
 # --------------------------------------------------------------------------
@@ -586,15 +612,17 @@ def run_master_elastic(
         specs, process = _adapter_processor(bundle, adapter_wire, context, "master",
                                             make_process)
         adapter_key = adapter_plan_key(specs)
+        adapter_jobs_total().inc(tier="elastic")
     else:
         process = make_process(bundle)
     noise = noise or upscale_ops.default_noise(seed, bundle.device)
+    grant_sampler = GrantSampler(process, extracted, grid.positions, pos, neg, noise,
+                                 role="master", job_id=job_id)
     canvas_cls = (tile_ops.DeterministicHostCanvas if deterministic_blend()
                   else tile_ops.HostIncrementalCanvas)
     canvas = canvas_cls(upscaled, grid)
     done_tiles: set[int] = set()
     timeout = worker_timeout_seconds(config)
-    totals = StageTotals()
     cache_binding = _bind_tile_cache(
         bundle, pos, neg, noise, grid, extracted, context, adapter_key, steps=steps,
         sampler=sampler, scheduler=scheduler, cfg=cfg, denoise=denoise, upscale_by=upscale_by,
@@ -602,7 +630,7 @@ def run_master_elastic(
         tiled_decode=tiled_decode)
 
     def blend_local(tile_idx: int, result) -> None:
-        with _stage("blend", "master", tile_idx, totals=totals):
+        with _stage("blend", "master", tile_idx):
             y, x = grid.positions[tile_idx]
             if cache_binding is not None:
                 cache_binding.populate(tile_idx, result)
@@ -616,7 +644,7 @@ def run_master_elastic(
     # twice (the canvas accumulates weight)
     hits: dict[int, Any] = {}
     if cache_binding is not None:
-        with _stage("cache.probe", "master", totals=totals) as probe_span:
+        with _stage("cache.probe", "master") as probe_span:
             hits = cache_binding.probe()
             probe_span.attrs["hits"] = len(hits)
     job = run_async_in_server_loop(
@@ -629,11 +657,15 @@ def run_master_elastic(
             settled = run_async_in_server_loop(store.settle_cached(job_id, sorted(hits)),
                                                timeout=30)
         for tile_idx in settled:
-            with _stage("cache.hit", "master", tile_idx, totals=totals):
+            with _stage("cache.hit", "master", tile_idx):
                 y, x = grid.positions[tile_idx]
                 canvas.blend(hits[tile_idx], y, x)
                 done_tiles.add(tile_idx)
         cache_binding.cache.note_settled(len(settled))
+        if settled and constants.USAGE_ENABLED:
+            from ..telemetry.usage import get_usage_meter
+
+            get_usage_meter().note_cached("master", job_id, len(settled))
 
     def drain_results() -> None:
         async def drain():
@@ -646,7 +678,7 @@ def run_master_elastic(
         for tile_idx, payload in run_async_in_server_loop(drain(), timeout=30):
             if tile_idx in done_tiles or payload is None:
                 continue  # payload None: a master-local tile, blended already
-            with _stage("decode", "master", tile_idx, totals=totals):
+            with _stage("decode", "master", tile_idx):
                 batch = np.stack([
                     img_utils.decode_image_data_url(e["image"])
                     for e in sorted(payload, key=lambda e: e["batch_idx"])
@@ -654,24 +686,26 @@ def run_master_elastic(
             blend_local(tile_idx, batch)
 
     def run_local(tile_idx: int):
-        with _stage("sample", "master", tile_idx, totals=totals):
-            result = process(extracted[tile_idx], tile_idx, noise, pos, neg,
-                             grid.positions[tile_idx])
-        with _stage("readback", "master", tile_idx, totals=totals):
-            return img_utils.ensure_numpy(result)
+        """One tile through the master's sampler: [B, h, w, C] on the host."""
+        with _stage("sample", "master", tile_idx, batch=[tile_idx]):
+            result = grant_sampler.sample([tile_idx])
+        with _stage("readback", "master", tile_idx, batch=[tile_idx]):
+            return grant_sampler.collect(result)[0]
 
     # --- main pull/process loop ---
     empty_pulls = 0
     while empty_pulls < 2:
         if context is not None:
             context.check_interrupted()
-        with _stage("pull", "master", totals=totals) as pull_span:
+        with _stage("pull", "master") as pull_span:
             grant = run_async_in_server_loop(
                 store.pull_tasks(job_id, "master", timeout=QUEUE_POLL_INTERVAL_SECONDS),
                 timeout=30,
             )
             if not grant:
                 pull_span.attrs["outcome"] = "empty"
+            else:
+                pull_span.attrs["tile_idx"] = int(grant[0])
         if not grant:
             empty_pulls += 1
             drain_results()
@@ -684,6 +718,7 @@ def run_master_elastic(
             run_async_in_server_loop(
                 store.submit_flush(job_id, "master", {int(tile_idx): None}), timeout=30
             )
+            tiles_processed_total().inc(role="master")
             blend_local(int(tile_idx), result)
             drain_results()
 
@@ -714,13 +749,15 @@ def run_master_elastic(
             # claim requeued tiles through the same pull path workers use,
             # so a surviving worker may still take some first
             while True:
-                with _stage("pull", "master", totals=totals) as pull_span:
+                with _stage("pull", "master") as pull_span:
                     tile_idx = run_async_in_server_loop(
                         store.pull_task(job_id, "master", timeout=QUEUE_POLL_INTERVAL_SECONDS),
                         timeout=30,
                     )
                     if tile_idx is None:
                         pull_span.attrs["outcome"] = "empty"
+                    else:
+                        pull_span.attrs["tile_idx"] = int(tile_idx)
                 if tile_idx is None:
                     break
                 if tile_idx in done_tiles:
@@ -729,6 +766,7 @@ def run_master_elastic(
                 run_async_in_server_loop(
                     store.submit_result(job_id, "master", tile_idx, None), timeout=30
                 )
+                tiles_processed_total().inc(role="master")
                 blend_local(tile_idx, result)
         if len(done_tiles | quarantined) >= grid.num_tiles:
             break
@@ -738,13 +776,14 @@ def run_master_elastic(
             missing = sorted(set(range(grid.num_tiles)) - done_tiles - quarantined)
             log(f"USDU: deadline hit; locally processing {len(missing)} tile(s)")
             for tile_idx in missing:
-                blend_local(tile_idx, run_local(tile_idx))
+                result = run_local(tile_idx)
+                tiles_processed_total().inc(role="master")
+                blend_local(tile_idx, result)
             break
         time.sleep(QUEUE_POLL_INTERVAL_SECONDS)
 
     state = lifecycle()
     _finish_job(store, job_id)
-    _publish_stage_totals(context, "master", totals)
     if state["cancelled"]:
         raise JobCancelled(job_id, state["cancel_reason"] or "cancel")
     poisoned = sorted(set(state["quarantined"]) - done_tiles)

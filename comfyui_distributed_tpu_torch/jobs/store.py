@@ -39,6 +39,18 @@ cross-job tier, placement and fault injection.
 Every accepted completion is recorded with its participant
 (`TileJob.completions`); on cleanup a job's record moves to
 `finished`, which keeps the last FINISHED_KEPT jobs of both kinds.
+
+Telemetry, as in the JAX store: pulls count by outcome
+(task|empty|cancelled) and submissions by outcome
+(accepted|duplicate|cancelled) in cdt_store_pulls_total and
+cdt_store_submits_total, every recorded heartbeat (pulls and submits
+heartbeat too) in cdt_store_heartbeats_total, requeues by reason
+(timeout|released), cancellations, refunds, quarantines and cache
+settles in their counters; a created job publishes `job_ready` and a
+cancelled one `job_cancelled` on the event bus; and the usage meter
+learns each job's tenant and adapter plan at creation and the measured
+assignment time of a failed delivery attempt (`poison_retry` waste).
+`stats_unlocked` serves the scrape-time gauges.
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ import asyncio
 import time
 from typing import Any, Awaitable, Callable, Optional
 
+from ..telemetry import instruments
 from ..utils.exceptions import JobQueueError
 from ..utils.logging import debug_log, log
 from .models import CollectorJob, ImageJob, TileJob
@@ -57,6 +70,21 @@ FINISHED_KEPT = 64
 CLEANED_COLLECTORS_KEPT = 4096
 # deadlines noted for jobs not created yet (job ids arrive from the network)
 PENDING_DEADLINES_KEPT = 512
+
+
+def _note_usage(record: Callable[[Any], None]) -> None:
+    """Hand the usage meter to `record` while metering is on (CDT_USAGE).
+    Advisory: metering must never fail a store mutation."""
+    from ..utils.constants import USAGE_ENABLED
+
+    if not USAGE_ENABLED:
+        return
+    try:
+        from ..telemetry.usage import get_usage_meter
+
+        record(get_usage_meter())
+    except Exception as exc:  # noqa: BLE001 - observability only
+        debug_log(f"usage note failed: {exc}")
 
 
 class JobStore:
@@ -85,6 +113,12 @@ class JobStore:
         # ids of cleaned-up collector jobs, oldest evicted first (an
         # ordered set): an envelope for one of them is late
         self._cleaned_collectors: dict[str, None] = {}
+
+    def _record_heartbeat(self, job: TileJob, worker_id: str) -> None:
+        """A heartbeat of `worker_id` on `job`, counted. Caller holds
+        self.lock."""
+        job.heartbeat(worker_id)
+        instruments.store_heartbeats_total().inc(worker_id=worker_id)
 
     # --- creation signalling ----------------------------------------------
 
@@ -301,9 +335,27 @@ class JobStore:
             for tid in task_ids:
                 job.pending.put_nowait(tid)
             self.tile_jobs[job_id] = job
+            settled_at_init: list[int] = []
             if cache_settled:
-                self._settle_cached_locked(job, cache_settled)
+                settled_at_init = self._settle_cached_locked(job, cache_settled)
             self._wake(self._tile_waiters.pop(job_id, []))
+        # outside the lock: lifecycle signals and attribution, not state
+        from ..telemetry.events import get_event_bus
+
+        get_event_bus().publish("job_ready", job_id=job_id, tasks=len(task_ids))
+        if settled_at_init:
+            instruments.cache_settled_total().inc(len(settled_at_init))
+        adapter_plan = "+".join(f"{a.get('content_hash', '')}:{float(a.get('strength', 1.0)):g}"
+                                for a in job.adapters)
+
+        def note(meter) -> None:
+            # the default tenant, no lane: the scheduler's tenants and
+            # lanes are not ported (ROADMAP.md, Queue 1 step 7)
+            meter.note_job_attrs(job_id, "", "")
+            if adapter_plan:
+                meter.note_job_adapter(job_id, adapter_plan)
+
+        _note_usage(note)
         return job
 
     async def settle_cached(self, job_id: str, task_ids: list[int]) -> list[int]:
@@ -316,7 +368,10 @@ class JobStore:
         if job is None:
             raise JobQueueError(f"no such job {job_id!r}")
         async with self.lock:
-            return self._settle_cached_locked(job, task_ids)
+            settled = self._settle_cached_locked(job, task_ids)
+        if settled:
+            instruments.cache_settled_total().inc(len(settled))
+        return settled
 
     def _settle_cached_locked(self, job: TileJob, task_ids: list[int]) -> list[int]:
         """The settle, under self.lock (settle_cached, and init_tile_job's
@@ -367,7 +422,8 @@ class JobStore:
             await self.cancel_job(job_id, reason="deadline")
         if job.cancelled:
             async with self.lock:
-                job.heartbeat(worker_id)
+                self._record_heartbeat(job, worker_id)
+            instruments.store_pulls_total().inc(worker_id=worker_id, outcome="cancelled")
             return None
         try:
             task_id = await asyncio.wait_for(job.pending.get(), timeout)
@@ -376,14 +432,18 @@ class JobStore:
                 task_id = job.pending.get_nowait()
         except (asyncio.TimeoutError, asyncio.QueueEmpty):
             async with self.lock:
-                job.heartbeat(worker_id)
+                self._record_heartbeat(job, worker_id)
+            instruments.store_pulls_total().inc(worker_id=worker_id, outcome="empty")
             return None
         async with self.lock:
-            job.heartbeat(worker_id)
+            self._record_heartbeat(job, worker_id)
             if job.cancelled:
-                return None  # raced the cancel: the task is part of the refund
+                # raced the cancel: the task is part of the refund
+                instruments.store_pulls_total().inc(worker_id=worker_id, outcome="cancelled")
+                return None
             job.assigned.setdefault(worker_id, set()).add(task_id)
             job.assigned_at[(worker_id, task_id)] = time.monotonic()
+        instruments.store_pulls_total().inc(worker_id=worker_id, outcome="task")
         return task_id
 
     async def pull_tasks(self, job_id: str, worker_id: str, timeout: float = 0.1,
@@ -400,15 +460,18 @@ class JobStore:
         if job is None:
             raise JobQueueError(f"no such job {job_id!r}")
         async with self.lock:
-            job.heartbeat(worker_id)
+            self._record_heartbeat(job, worker_id)
             if job.cancelled:
+                instruments.store_submits_total().inc(worker_id=worker_id, outcome="cancelled")
                 return False
             job.assigned.get(worker_id, set()).discard(task_id)
             job.assigned_at.pop((worker_id, task_id), None)
             if task_id in job.completed:
                 job.duplicates += 1
                 debug_log(f"duplicate result for {job_id}:{task_id} from {worker_id}")
+                instruments.store_submits_total().inc(worker_id=worker_id, outcome="duplicate")
                 return False
+            instruments.store_submits_total().inc(worker_id=worker_id, outcome="accepted")
             job.completed[task_id] = payload
             job.completions.append((int(task_id), worker_id))
             # a late copy finishing after its tile was quarantined
@@ -445,7 +508,7 @@ class JobStore:
         if job is None:
             return False
         async with self.lock:
-            job.heartbeat(worker_id)
+            self._record_heartbeat(job, worker_id)
         return True
 
     async def remaining(self, job_id: str) -> int:
@@ -530,6 +593,16 @@ class JobStore:
             job.assigned.clear()
             job.assigned_at.clear()
             in_flight_refunded = sum(len(v) for v in in_flight.values())
+        instruments.jobs_cancelled_total().inc(reason=str(reason))
+        if pending_refunded or in_flight_refunded:
+            instruments.cancel_refunded_tiles_total().inc(pending_refunded, kind="pending")
+            instruments.cancel_refunded_tiles_total().inc(in_flight_refunded, kind="in_flight")
+        from ..telemetry.events import get_event_bus
+
+        get_event_bus().publish("job_cancelled", job_id=job_id, reason=str(reason),
+                                pending_refunded=pending_refunded,
+                                in_flight_refunded=in_flight_refunded,
+                                workers=sorted(in_flight))
         log(f"job {job_id} cancelled ({reason}): refunded {pending_refunded} pending + "
             f"{in_flight_refunded} in-flight tile(s) across {len(in_flight)} worker(s)")
         return {"job_id": job_id, "reason": str(reason), "already_cancelled": False,
@@ -593,9 +666,21 @@ class JobStore:
         if job.cancelled:
             return []
         tasks = job.assigned.pop(worker_id, set())
+        attempt_waste = 0.0
+        now = time.monotonic()
         for tid in tasks:
-            job.assigned_at.pop((worker_id, tid), None)
+            assigned_at = job.assigned_at.pop((worker_id, tid), None)
+            if assigned_at is not None and tid not in job.completed:
+                # a failed delivery attempt: the assignment window is
+                # measured fleet time that produced nothing
+                attempt_waste += max(0.0, now - assigned_at)
+        if attempt_waste > 0:
+            job_id = job.job_id
+            _note_usage(lambda meter: meter.note_waste("master", "poison_retry", attempt_waste,
+                                                       job_id=job_id))
         incomplete = sorted(t for t in tasks if t not in job.completed)
+        if not incomplete:
+            return incomplete
         poisoned = []
         for tid in incomplete:
             job.attempts[tid] = job.attempts.get(tid, 0) + 1
@@ -603,11 +688,14 @@ class JobStore:
                 poisoned.append(tid)
         if poisoned:
             job.quarantined_tiles.update(poisoned)
+            instruments.poison_quarantined_tiles_total().inc(len(poisoned))
             log(f"POISON: tile(s) {poisoned} on job {job.job_id} exhausted {self.max_attempts} "
                 f"attempt(s); quarantined out of the pull set (policy={self.poison_policy})")
         requeued = [t for t in incomplete if t not in poisoned]
         for tid in requeued:
             job.pending.put_nowait(tid)
+        instruments.store_requeued_tasks_total().inc(len(incomplete), worker_id=worker_id,
+                                                     reason="timeout")
         if requeued:
             log(f"requeued {len(requeued)} task(s) from worker {worker_id} on job {job.job_id}")
         return incomplete
@@ -631,20 +719,30 @@ class JobStore:
                     job.pending.put_nowait(tid)
                     released.append(tid)
         if released:
+            instruments.store_requeued_tasks_total().inc(len(released), worker_id=worker_id,
+                                                         reason="released")
             log(f"worker {worker_id} returned {len(released)} task(s) on job {job_id}: {released}")
         return released
 
     # --- observability --------------------------------------------------------
 
+    def stats_unlocked(self) -> dict[str, int]:
+        """Best-effort live counts WITHOUT the asyncio lock, for the sync
+        scrape-time collectors (iteration over snapshots; the numbers may
+        be one mutation stale)."""
+        tile_jobs = list(self.tile_jobs.values())
+        in_flight = sum(
+            len([t for t in list(tasks) if t not in job.completed])
+            for job in tile_jobs for tasks in list(job.assigned.values())
+        )
+        return {
+            "tile_jobs": len(tile_jobs),
+            "collectors": len(self.collectors),
+            "queue_depth": sum(job.pending.qsize() for job in tile_jobs),
+            "in_flight": in_flight,
+        }
+
     async def stats(self) -> dict[str, int]:
+        """The same counts, taken under the lock."""
         async with self.lock:
-            in_flight = sum(
-                len([t for t in tasks if t not in job.completed])
-                for job in self.tile_jobs.values() for tasks in job.assigned.values()
-            )
-            return {
-                "tile_jobs": len(self.tile_jobs),
-                "collectors": len(self.collectors),
-                "queue_depth": sum(job.pending.qsize() for job in self.tile_jobs.values()),
-                "in_flight": in_flight,
-            }
+            return self.stats_unlocked()

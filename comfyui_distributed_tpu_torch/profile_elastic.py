@@ -1,6 +1,7 @@
 """Tiles per second of the upscale workflow on one card, three ways.
 
     python -m comfyui_distributed_tpu_torch.profile_elastic [--runs N]
+    python -m comfyui_distributed_tpu_torch.profile_elastic --profiling-ab [--runs N]
 
 Queues workflows/distributed-upscale.json (SDXL, seeded random weights,
 a seeded 512x512 input.png, four 576-px padded tiles) on a master
@@ -15,16 +16,31 @@ three modes:
                --worker` in its own process, with its own copy of the
                same seeded weights, on the same card.
 
-One warm-up run per mode, then the modes in turns (local, in-process,
-subprocess, subprocess, in-process, local, ...) until each has --runs
+Warm-up runs per mode (up to WARMUPS, until its worker has taken a
+tile), then the modes in turns (local, in-process, subprocess,
+subprocess, in-process, local, ...) until each has --runs
 timed runs: the host clock from the POST to the master's finished
 history. Prints the card (name and power limit), each run's wall,
-tiles/s and tiles per participant, and each mode's median. Both elastic
-modes composite in sorted tile order (CDT_DETERMINISTIC_BLEND=1), so
-their outputs must agree within 0.05; the local mode's weighted-average
-blend differs at the seams and is not compared. `--platform cpu` with
-`--model tiny-unet --image-px 64 --tile 64 --padding 16 --steps 1`
-rehearses it without a card.
+tiles/s and tiles per participant, each elastic run's stage seconds by
+role and its host-tax ratio by role (read from the participants'
+/distributed/metrics: the cdt_tile_stage_seconds and
+cdt_device_execute_seconds sums the run added; host = readback, encode,
+decode and submit), and each mode's median. Both elastic modes
+composite in sorted tile order (CDT_DETERMINISTIC_BLEND=1), so their
+outputs must agree within 0.05; the local mode's weighted-average blend
+differs at the seams and is not compared.
+
+`--profiling-ab` measures what the transfer ledger costs instead, in
+the subprocess mode, where the worker's sampler thread could otherwise
+queue its next tile's launches while the card runs the current one: two
+worker processes on the same card, w2 started with CDT_PROFILING=1 (the
+default, which waits for the card at the end of every tile's dispatch)
+and w3 with CDT_PROFILING=0, taken in turns, the master's ledger
+switched to match (`utils.constants.PROFILING_ENABLED` is read at every
+dispatch).
+
+`--platform cpu` with `--model tiny-unet --image-px 64 --tile 64
+--padding 16 --steps 1` rehearses it without a card.
 """
 
 from __future__ import annotations
@@ -33,6 +49,7 @@ import argparse
 import asyncio
 import json
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -47,14 +64,24 @@ from .api.server import DistributedServer
 from .models import pipeline as pl
 from .ops.upscale import plan_grid
 from .utils import config as config_mod
+from .utils import constants
 from .utils import image as img_utils
 from .utils.async_helpers import ServerLoopThread
-from .utils.network import request_json
+from .utils.network import request_bytes, request_json
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 20261016
 MODES = {"local": None, "in-process": "w1", "subprocess": "w2"}
+# --profiling-ab: the subprocess mode with the transfer ledger on and off
+PROFILING_MODES = {"ledger on": "w2", "ledger off (CDT_PROFILING=0)": "w3"}
+# the worker processes, and their CDT_PROFILING under --profiling-ab
+WORKER_PROCESSES = {"w2": "1", "w3": "0"}
+HOST_STAGES = ("readback", "encode", "decode", "submit")
+_SAMPLE_RE = re.compile(r'^(cdt_tile_stage_seconds_sum|cdt_device_execute_seconds_sum)'
+                        r'\{(.*)\} (\S+)$')
+_LABEL_RE = re.compile(r'(\w+)="([^"]*)"')
 RUN_TIMEOUT_S = 600.0
+WARMUPS = 3
 TOLERANCE = 0.05
 
 
@@ -97,6 +124,39 @@ def _card(device: str) -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     return smi.stdout.strip().splitlines()[0]
+
+
+def _stage_sums(bases: list[str]) -> dict[tuple[str, str, str], float]:
+    """{(family, role, stage or tier): seconds} of the stage and
+    device-execute histograms, summed over the /distributed/metrics of
+    `bases` (each process with a registry of its own)."""
+    sums: dict[tuple[str, str, str], float] = {}
+    for base in bases:
+        status, body = request_bytes("GET", f"{base}/distributed/metrics", timeout=60)
+        if status != 200:
+            raise RuntimeError(f"{base}/distributed/metrics answered {status}")
+        for line in body.decode("utf-8").splitlines():
+            match = _SAMPLE_RE.match(line)
+            if match:
+                labels = dict(_LABEL_RE.findall(match.group(2)))
+                key = (match.group(1), labels["role"], labels.get("stage", labels.get("tier")))
+                sums[key] = sums.get(key, 0.0) + float(match.group(3))
+    return sums
+
+
+def _stage_report(before: dict, after: dict) -> str:
+    """Each role's stage seconds and host-tax ratio over one run."""
+    moved = {key: after[key] - before.get(key, 0.0) for key in after}
+    parts = []
+    for role in ("master", "worker"):
+        stages = {stage: round(v, 4) for (family, r, stage), v in sorted(moved.items())
+                  if r == role and family == "cdt_tile_stage_seconds_sum" and v > 0}
+        device = sum(v for (family, r, _), v in moved.items()
+                     if r == role and family == "cdt_device_execute_seconds_sum")
+        host = sum(stages.get(stage, 0.0) for stage in HOST_STAGES)
+        tax = f"{host / (host + device):.4f}" if device > 0 else "no device time"
+        parts.append(f"{role} {stages}, host-tax {tax}")
+    return "; ".join(parts)
 
 
 def _run_once(base: str, master, workflow: dict, workers: list[str], device: str,
@@ -150,7 +210,18 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--tile", type=int, default=None)
     parser.add_argument("--padding", type=int, default=None)
     parser.add_argument("--steps", type=int, default=None)
+    parser.add_argument("--profiling-ab", action="store_true",
+                        help="the subprocess mode with the transfer ledger on and off, in turns")
     args = parser.parse_args(argv)
+    modes = PROFILING_MODES if args.profiling_ab else MODES
+    profiling = constants.PROFILING_ENABLED
+    try:
+        return _profile(args, modes)
+    finally:
+        constants.PROFILING_ENABLED = profiling
+
+
+def _profile(args, modes: dict) -> int:
     device = args.platform
     if device == "cuda" and not torch.cuda.is_available():
         print("profile_elastic: no CUDA device", file=sys.stderr)
@@ -170,22 +241,29 @@ def main(argv: list[str] | None = None) -> int:
         os.makedirs(in_dir)
         with open(os.path.join(in_dir, workflow["4"]["inputs"]["image"]), "wb") as fh:
             fh.write(img_utils.encode_png(pixels))
-        ports = {name: _free_port() for name in ("master", "w1", "w2")}
+        ports = {name: _free_port() for name in ("master", "w1", *WORKER_PROCESSES)}
         config_path = os.path.join(tmp, "config.json")
         config_mod.save_config({
             "master": {"host": "127.0.0.1"},
             "workers": [{"id": wid, "name": wid, "type": "local", "host": "127.0.0.1",
-                         "port": ports[wid], "enabled": True} for wid in ("w1", "w2")],
+                         "port": ports[wid], "enabled": True}
+                        for wid in ("w1", *WORKER_PROCESSES)],
             "settings": {"input_dir": in_dir, "output_dir": os.path.join(tmp, "output")},
         }, config_path)
-        log_path = os.path.join(tmp, "w2.log")
-        log = open(log_path, "wb")
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "comfyui_distributed_tpu_torch", "--port", str(ports["w2"]),
-             "--worker", "--config", config_path, "--platform", device],
-            cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
-            env={**os.environ, "PYTHONPATH": REPO},
-        )
+        procs: dict[str, tuple[subprocess.Popen, str]] = {}
+        for wid, profiling in WORKER_PROCESSES.items():
+            if wid not in modes.values():
+                continue
+            log_path = os.path.join(tmp, f"{wid}.log")
+            env = {**os.environ, "PYTHONPATH": REPO}
+            if args.profiling_ab:
+                env["CDT_PROFILING"] = profiling
+            with open(log_path, "wb") as log:
+                procs[wid] = (subprocess.Popen(
+                    [sys.executable, "-m", "comfyui_distributed_tpu_torch", "--port",
+                     str(ports[wid]), "--worker", "--config", config_path, "--platform", device],
+                    cwd=REPO, stdout=log, stderr=subprocess.STDOUT, env=env,
+                ), log_path)
         loop = ServerLoopThread()
         loop.start()
         master = DistributedServer(port=ports["master"], is_worker=False,
@@ -201,17 +279,36 @@ def main(argv: list[str] | None = None) -> int:
 
             asyncio.run_coroutine_threadsafe(boot(), loop.loop).result(timeout=60)
             base = f"http://127.0.0.1:{ports['master']}"
-            _wait(lambda: request_json("GET", f"http://127.0.0.1:{ports['w2']}/prompt",
-                                       timeout=5)[0] == 200, "worker w2 start", 300, proc)
-            names = list(MODES)
+            for wid, (proc, _) in procs.items():
+                url = f"http://127.0.0.1:{ports[wid]}/prompt"
+                _wait(lambda url=url: request_json("GET", url, timeout=5)[0] == 200,
+                      f"worker {wid} start", 300, proc)
+            names = list(modes)
 
             def run(name):
-                worker = MODES[name]
-                return _run_once(base, master, workflow, [worker] if worker else [], device,
-                                 f"http://127.0.0.1:{ports[worker]}" if worker else None)
+                worker = modes[name]
+                if args.profiling_ab:
+                    constants.PROFILING_ENABLED = name == names[0]
+                worker_base = f"http://127.0.0.1:{ports[worker]}" if worker else None
+                # a worker process keeps its stages in its own registry; w1
+                # shares the master's
+                bases = [base] + ([worker_base] if worker in procs else [])
+                before = _stage_sums(bases)
+                out = _run_once(base, master, workflow, [worker] if worker else [], device,
+                                worker_base)
+                if worker:
+                    print(f"[stages] {name}: {_stage_report(before, _stage_sums(bases))}")
+                return out
 
-            for name in names:  # warm-up: first launches, allocator, cuDNN plans
-                print(f"[warm-up] {name}: {run(name)[0]:.2f} s")
+            # warm-up: first launches, allocator, cuDNN plans, on every
+            # participant (a worker that took no tile is warmed again)
+            for name in names:
+                for _ in range(WARMUPS):
+                    seconds, completions, _ = run(name)
+                    print(f"[warm-up] {name}: {seconds:.2f} s, tiles by "
+                          f"{sorted(who for _, who in completions)}")
+                    if not modes[name] or any(who == modes[name] for _, who in completions):
+                        break
             order = []
             while len(order) < args.runs * len(names):
                 order += names if len(order) // len(names) % 2 == 0 else names[::-1]
@@ -225,16 +322,16 @@ def main(argv: list[str] | None = None) -> int:
                 by = {}
                 for _, who in completions:
                     by[who] = by.get(who, 0) + 1
-                worker_tiles[name] += by.get(MODES[name], 0)
+                worker_tiles[name] += by.get(modes[name], 0)
                 print(f"[run] {name}: {seconds:.3f} s, {n_tiles / seconds:.4f} tiles/s, "
                       f"tiles by {by or {'master': f'{n_tiles} (local path)'}}")
-            diff = float((outputs["in-process"].float() - outputs["subprocess"].float())
-                         .abs().max())
-            print(f"[check] in-process vs subprocess output max |diff| {diff:.3g} "
+            first, second = [name for name in names if modes[name]][:2]
+            diff = float((outputs[first].float() - outputs[second].float()).abs().max())
+            print(f"[check] {first} vs {second} output max |diff| {diff:.3g} "
                   f"(tolerance {TOLERANCE})")
             if diff > TOLERANCE:
                 raise RuntimeError("the two elastic modes disagree")
-            for name, worker in MODES.items():
+            for name, worker in modes.items():
                 if worker and not worker_tiles[name]:
                     raise RuntimeError(f"{worker} completed no tile in the {name} runs: they "
                                        "measured the master alone")
@@ -252,16 +349,16 @@ def main(argv: list[str] | None = None) -> int:
                 asyncio.run_coroutine_threadsafe(teardown(), loop.loop).result(timeout=60)
             finally:
                 loop.stop()
-                proc.terminate()
-                try:
-                    proc.wait(timeout=30)
-                except subprocess.TimeoutExpired:
-                    proc.kill()
-                    proc.wait(timeout=30)
-                log.close()
-                if proc.returncode not in (0, -15):
-                    with open(log_path, "rb") as fh:
-                        print(fh.read()[-4000:].decode(errors="replace"), file=sys.stderr)
+                for proc, log_path in procs.values():
+                    proc.terminate()
+                    try:
+                        proc.wait(timeout=30)
+                    except subprocess.TimeoutExpired:
+                        proc.kill()
+                        proc.wait(timeout=30)
+                    if proc.returncode not in (0, -15):
+                        with open(log_path, "rb") as fh:
+                            print(fh.read()[-4000:].decode(errors="replace"), file=sys.stderr)
     return 0
 
 

@@ -1,7 +1,6 @@
 """Per-worker health state machine and circuit breaker.
 
-The port's own copy of comfyui_distributed_tpu/resilience/health.py,
-without its metrics and event-bus publication::
+The port's own copy of comfyui_distributed_tpu/resilience/health.py::
 
             consecutive failures            cooldown elapsed
     HEALTHY ---------> SUSPECT ---------> QUARANTINED ---------> PROBING
@@ -16,7 +15,9 @@ without its metrics and event-bus publication::
   `try_half_open` then admits exactly one probe (PROBING): the `/prompt`
   busy probe of worker selection. Its success re-admits the worker
   (RECOVERED), its failure re-opens the circuit with a fresh cooldown.
-- Transition listeners run outside the registry's lock.
+- Transition listeners run outside the registry's lock. Every
+  transition counts in cdt_worker_breaker_transitions_total and is
+  published on the event bus as ``health_transition``.
 
 The thresholds are CDT_CIRCUIT_SUSPECT_AFTER, CDT_CIRCUIT_FAILURES and
 CDT_CIRCUIT_COOLDOWN (utils/constants.py); the clock is injectable.
@@ -86,8 +87,18 @@ class HealthRegistry:
             self._listeners.append(listener)
 
     def _fire(self, worker_id: str, old: WorkerState, new: WorkerState) -> None:
+        """Count and publish the transition, then call the listeners,
+        all outside the lock; listener errors are logged, never
+        propagated into the transport path."""
         if old is new:
             return
+        from ..telemetry import instruments
+        from ..telemetry.events import get_event_bus
+
+        instruments.breaker_transitions_total().inc(
+            worker_id=worker_id, from_state=old.value, to_state=new.value)
+        get_event_bus().publish("health_transition", worker_id=worker_id,
+                                from_state=old.value, to_state=new.value)
         with self._lock:
             listeners = list(self._listeners)
         for listener in listeners:

@@ -4,7 +4,8 @@ The port's own copy of comfyui_distributed_tpu/resilience/policy.py:
 one `RetryPolicy` (exponential backoff, multiplicative jitter, an
 overall deadline) and one `retry_async`, with the same canonical
 policies and parameters. `retry_async` re-raises the last failure, so
-callers keep their own exception types. The transport errors are
+callers keep their own exception types; every retry counts in
+cdt_retries_total by operation. The transport errors are
 urllib's and the socket's (utils/network.py), not aiohttp's.
 """
 
@@ -71,6 +72,12 @@ async def retry_async(
                 debug_log(f"retry[{label}]: deadline {policy.deadline}s exhausted "
                           f"after {attempt + 1} attempt(s)")
                 raise
+            # one counter labelled by the operation part of the label
+            # ("dispatch:w1" → op="dispatch"): retry pressure without
+            # per-target series
+            from ..telemetry import instruments
+
+            instruments.retries_total().inc(op=label.split(":", 1)[0] if label else "unlabeled")
             debug_log(f"retry[{label}]: attempt {attempt + 1}/{attempts} failed "
                       f"({type(exc).__name__}: {exc}); backing off {delay:.2f}s")
         await asyncio.sleep(delay)

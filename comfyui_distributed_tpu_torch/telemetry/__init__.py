@@ -1,0 +1,79 @@
+"""Telemetry core: metrics, tracing, live events, runtime, the transfer
+ledger and the usage meter.
+
+The port's own copy of the observability layer of
+comfyui_distributed_tpu/telemetry/ (each module says what of its
+original it holds):
+
+- `metrics`: zero-dependency Counter/Gauge/Histogram registry with
+  Prometheus text exposition (cardinality-capped per metric), served
+  by `/distributed/metrics`;
+- `tracing`: span trees keyed by the ``exec_*`` trace ids, propagated
+  master→worker via the ``X-CDT-Trace-Id`` header and served by
+  `/distributed/trace/{trace_id}`;
+- `instruments`: every metric name and label vocabulary the port
+  counts, plus `bind_server_collectors` for live-state gauges;
+- `events`: the event bus (metric deltas, span open/close, health
+  transitions, job lifecycle);
+- `runtime`: the card's memory and host RSS on the scrape;
+- `profiling`: the transfer ledger (device-execute time, transfer
+  bytes, host buckets, the host-tax ratio);
+- `usage`: chip-time attribution per dispatch with exact integer
+  conservation.
+
+Not ported yet, each with its ROADMAP.md item (Queue 1 step 7): the
+watchdog, the fleet plane (`fleet`, `timeseries`, `slo`, the usage
+aggregator), the flight recorder and incidents, and the profiler
+capture. All clocks are injectable so tests run deterministically on
+the CPU.
+"""
+
+from __future__ import annotations
+
+from .instruments import BREAKER_STATE_CODES, bind_server_collectors
+from .metrics import (
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    get_metrics_registry,
+    reset_metrics_registry,
+)
+from .tracing import (
+    TRACE_HEADER,
+    Span,
+    Tracer,
+    current_trace_id,
+    get_tracer,
+    reset_tracer,
+    set_tracer,
+)
+from .events import EventBus, get_event_bus, reset_event_bus
+from .profiling import TransferLedger, get_transfer_ledger, ledger_if_enabled
+from .usage import UsageMeter, get_usage_meter
+
+__all__ = [
+    "BREAKER_STATE_CODES",
+    "Counter",
+    "EventBus",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
+    "Span",
+    "TRACE_HEADER",
+    "Tracer",
+    "TransferLedger",
+    "UsageMeter",
+    "bind_server_collectors",
+    "current_trace_id",
+    "get_event_bus",
+    "get_metrics_registry",
+    "get_tracer",
+    "get_transfer_ledger",
+    "get_usage_meter",
+    "ledger_if_enabled",
+    "reset_event_bus",
+    "reset_metrics_registry",
+    "reset_tracer",
+    "set_tracer",
+]

@@ -140,3 +140,16 @@ def adapter_cache_mb() -> float:
     """The operand cache's budget (MB) for decoded adapter operands."""
     return _env_float("CDT_ADAPTER_CACHE_MB", 256.0)
 
+
+
+# --- telemetry (telemetry/) -------------------------------------------------
+# The transfer ledger (telemetry/profiling.py): 0 turns off the
+# per-dispatch device/host split, the transfer bytes and the host-tax
+# ratio. While it is on, each tile's dispatch waits for the card inside
+# its bracket. Read at every dispatch (ledger_if_enabled), so a profiler
+# may flip the attribute between runs.
+PROFILING_ENABLED = os.environ.get("CDT_PROFILING", "1") != "0"
+# The usage meter (telemetry/usage.py): 0 turns off the per-dispatch
+# chip-time attribution records and the store's usage notes. Read at
+# each use.
+USAGE_ENABLED = os.environ.get("CDT_USAGE", "1") != "0"

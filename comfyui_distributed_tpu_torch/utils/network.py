@@ -35,12 +35,15 @@ TRANSPORT_ERRORS: tuple[type[BaseException], ...] = (
 _OPENER = urllib.request.build_opener(urllib.request.ProxyHandler({}))
 
 
-def request_json(method: str, url: str, payload: Any = None, timeout: float = 30.0
-                 ) -> tuple[int, Any]:
-    """One blocking HTTP request with a JSON body (or none); returns
-    (status, decoded JSON body or None). Raises only transport errors."""
+def request_json(method: str, url: str, payload: Any = None, timeout: float = 30.0,
+                 headers: dict[str, str] | None = None) -> tuple[int, Any]:
+    """One blocking HTTP request with a JSON body (or none) and the
+    extra `headers` (a propagated trace id); returns (status, decoded
+    JSON body or None). Raises only transport errors."""
     data = None if payload is None else json.dumps(payload).encode("utf-8")
-    headers = {"Content-Type": "application/json"} if data is not None else {}
+    headers = dict(headers or {})
+    if data is not None:
+        headers["Content-Type"] = "application/json"
     req = urllib.request.Request(url, data=data, headers=headers, method=method)
     try:
         with _OPENER.open(req, timeout=timeout) as resp:
@@ -70,9 +73,10 @@ def request_bytes(method: str, url: str, data: bytes | None = None,
 
 
 async def request_json_async(method: str, url: str, payload: Any = None,
-                             timeout: float = 30.0) -> tuple[int, Any]:
+                             timeout: float = 30.0, headers: dict[str, str] | None = None
+                             ) -> tuple[int, Any]:
     """`request_json` on a worker thread, so the event loop never blocks."""
-    return await asyncio.to_thread(request_json, method, url, payload, timeout)
+    return await asyncio.to_thread(request_json, method, url, payload, timeout, headers)
 
 
 def parse_master_urls(raw) -> list[str]:

@@ -203,13 +203,101 @@ def test_elastic_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread):
     executor.execute(prompt)
     local = executor.last_results["5"][0]
     result = chip_smoke._elastic_phase(torch, bundle, "tiny-unet", workflow, image, local, "cpu")
-    lines = [line for line in capsys.readouterr().out.splitlines()
-             if line.startswith("[elastic]")]
+    out = capsys.readouterr().out.splitlines()
+    lines = [line for line in out if line.startswith("[elastic]")]
     assert result["launches"] == 0
     assert len(lines) == 1 + 3 * chip_smoke.ELASTIC_RUNS
     assert "max |diff| 0" in lines[0]  # the reference tiles are phase 4's
     assert all("tiles completed: master" in line for line in lines[1::3])
-    assert all("stage seconds: master" in line for line in lines[2::3])
+    assert all("stage seconds (cdt_tile_stage_seconds): master" in line
+               for line in lines[2::3])
+    # the [telemetry] checks of every run: counters, trace, ledger, usage
+    # (no card: no memory line, and the ledger reads host-tax 1.0)
+    telemetry = [line for line in out if line.startswith("[telemetry] elastic run")]
+    assert len(telemetry) == 4 * chip_smoke.ELASTIC_RUNS
+    assert all("= the store's completions" in line for line in telemetry[0::4])
+    assert all("one tree of" in line and "rpc.submit_tiles" in line for line in telemetry[1::4])
+    assert all("D2H bytes" in line for line in telemetry[2::4])
+    assert all("(exact)" in line for line in telemetry[3::4])
+
+
+def _elastic_on_tiny():
+    """chip_smoke's elastic phase on tiny-unet on the CPU, one run."""
+    workflow = _tiny_workflow()
+    bundle = tpl.load_pipeline("tiny-unet", seed=0, device="cpu")
+    image = torch.zeros((1, 64, 64, 3))
+    return chip_smoke._elastic_phase(torch, bundle, "tiny-unet", workflow, image, None, "cpu",
+                                     runs=1)
+
+
+def test_the_telemetry_checks_fail_when_tiles_are_not_counted(monkeypatch, one_torch_thread):
+    """A tile pipeline that does not count its tiles fails the run."""
+    from comfyui_distributed_tpu_torch.graph import usdu_elastic
+    from comfyui_distributed_tpu_torch.telemetry.metrics import Counter
+
+    monkeypatch.setattr(usdu_elastic, "tiles_processed_total",
+                        lambda: Counter("cdt_unscraped_total", "not in the registry", ("role",)))
+    with pytest.raises(RuntimeError, match="cdt_tiles_processed_total rose by"):
+        _elastic_on_tiny()
+
+
+def test_the_telemetry_checks_fail_when_the_trace_is_not_propagated(monkeypatch,
+                                                                   one_torch_thread):
+    """A worker whose RPCs carry no trace id leaves the master's tree
+    without w1's pulls and submits, and fails the run."""
+    from comfyui_distributed_tpu_torch.graph import usdu_elastic
+
+    monkeypatch.setattr(usdu_elastic, "current_trace_id", lambda: None)
+    with pytest.raises(RuntimeError, match="rpc.request_image"):
+        _elastic_on_tiny()
+
+
+def test_the_telemetry_checks_fail_when_the_ledger_misses_a_readback(monkeypatch,
+                                                                    one_torch_thread):
+    """A readback the ledger does not note fails the run on its D2H
+    bytes."""
+    from comfyui_distributed_tpu_torch.graph import tile_pipeline
+    from comfyui_distributed_tpu_torch.utils import image as img_utils
+
+    monkeypatch.setattr(tile_pipeline.GrantSampler, "collect",
+                        lambda self, result: img_utils.ensure_numpy(result))
+    with pytest.raises(RuntimeError, match="D2H bytes rose by"):
+        _elastic_on_tiny()
+
+
+@pytest.mark.parametrize("fault", ["drops", "doubles"])
+def test_the_telemetry_checks_fail_when_the_meter_miscounts_a_dispatch(monkeypatch, fault,
+                                                                      one_torch_thread):
+    """A usage meter that drops or double-counts the dispatches fails the
+    run against the transfer ledger's brackets, which are fed apart."""
+    from comfyui_distributed_tpu_torch.graph import tile_pipeline
+
+    note = tile_pipeline.GrantSampler._note_usage
+
+    def miscount(self, elapsed_s, real):
+        for _ in range({"drops": 0, "doubles": 2}[fault]):
+            note(self, elapsed_s, real=real)
+
+    monkeypatch.setattr(tile_pipeline.GrantSampler, "_note_usage", miscount)
+    with pytest.raises(RuntimeError, match="the usage meter's dispatch chip ns"):
+        _elastic_on_tiny()
+
+
+def test_scraped_samples_parse_and_sum_by_label():
+    body_samples = [("cdt_x_total", {"role": "master", "stage": "a"}, 2.0),
+                    ("cdt_x_total", {"role": "worker", "stage": "a"}, 3.0),
+                    ("cdt_y_total", {"role": "master"}, 7.0)]
+    assert chip_smoke._total(body_samples, "cdt_x_total") == 5.0
+    assert chip_smoke._total(body_samples, "cdt_x_total", role="worker") == 3.0
+    assert chip_smoke._total(body_samples, "cdt_x_total", role="nobody") == 0.0
+    assert chip_smoke._LABEL_RE.findall('a="x",b="q\\"uote"') == [("a", "x"), ("b", 'q\\"uote')]
+    tree = [{"name": "root", "children": [{"name": "a", "children": []},
+                                          {"name": "b", "children": [{"name": "c",
+                                                                      "children": []}]}]}]
+    assert [s["name"] for s in chip_smoke._spans_of(tree)] == ["root", "a", "b", "c"]
+    workflow = _tiny_workflow()
+    assert chip_smoke._tile_output_bytes(workflow, torch.zeros((1, 64, 64, 3))) == (
+        96 * 96 * 3 * 4)
 
 
 def test_adapters_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread):

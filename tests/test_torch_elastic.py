@@ -34,7 +34,7 @@ from comfyui_distributed_tpu.models.io import flatten_params
 from comfyui_distributed_tpu.ops import tiles as jtiles
 from comfyui_distributed_tpu_torch.graph import ExecutionContext
 from comfyui_distributed_tpu_torch.graph import prompt as tprompt
-from comfyui_distributed_tpu_torch.graph.tile_pipeline import StageTotals, TilePipeline, stage_span
+from comfyui_distributed_tpu_torch.graph.tile_pipeline import TilePipeline, stage_span
 from comfyui_distributed_tpu_torch.graph.usdu_elastic import (
     _tile_processor,
     run_master_elastic,
@@ -46,6 +46,8 @@ from comfyui_distributed_tpu_torch.models import registry as treg
 from comfyui_distributed_tpu_torch.models.io import from_jax_params
 from comfyui_distributed_tpu_torch.ops import tiles as ttiles
 from comfyui_distributed_tpu_torch.ops import upscale as tup
+from comfyui_distributed_tpu_torch.telemetry import instruments as tinstruments
+from comfyui_distributed_tpu_torch.telemetry import reset_metrics_registry
 from comfyui_distributed_tpu_torch.utils import image as timg
 from comfyui_distributed_tpu_torch.utils.async_helpers import run_async_in_server_loop
 from test_torch_parity import f32, seeded_flax_params
@@ -273,6 +275,7 @@ def test_master_with_a_worker_thread_matches_the_local_tiles(tiny_pair, port_loo
     tiles composited the same way (the worker's tiles pass through 8-bit
     PNG); the local tiles' weighted average is run_upscale's output."""
     monkeypatch.setenv("CDT_DETERMINISTIC_BLEND", "1")
+    reset_metrics_registry()
     _, tb, conds = tiny_pair
     img = _image(7, (1, 64, 64, 3))
     pos, neg, store, context = _master_setup(tb, conds)
@@ -319,8 +322,10 @@ def test_master_with_a_worker_thread_matches_the_local_tiles(tiny_pair, port_loo
         reference.blend(tile, *grid.positions[g])
     assert out.shape == (1, 128, 128, 3)
     np.testing.assert_allclose(out.numpy(), reference.result().numpy(), atol=1.0 / 255, rtol=0)
-    stages = context.extras["stage_seconds"]["master"]
-    assert {"pull", "sample", "readback", "decode", "blend"} <= set(stages)
+    stages = _stage_seconds("master")
+    assert {"pull", "sample", "dispatch", "readback", "decode", "blend"} <= set(stages)
+    master_tiles = sum(1 for _, who in record["completions"] if who == "master")
+    assert stages["sample"][0] == stages["dispatch"][0] == master_tiles
 
 
 def test_a_silent_worker_is_requeued_and_the_output_is_bit_equal(tiny_pair, port_loop,
@@ -356,10 +361,45 @@ def test_a_silent_worker_is_requeued_and_the_output_is_bit_equal(tiny_pair, port
     np.testing.assert_array_equal(recovered.numpy(), fault_free.numpy())
 
 
+@pytest.mark.parametrize("metering", [True, False], ids=["CDT_USAGE=1", "CDT_USAGE=0"])
+def test_the_usage_meter_follows_cdt_usage(tiny_pair, port_loop, monkeypatch, metering):
+    """A cold and a warm master run (the warm one settles every tile from
+    the tile cache) on a fresh meter: with metering on, the meter holds
+    the cold run's four dispatches, the warm run's four cached tiles and
+    both jobs; with CDT_USAGE=0 it stays untouched."""
+    from comfyui_distributed_tpu_torch.cache import store as cstore
+    from comfyui_distributed_tpu_torch.telemetry import usage as tusage
+    from comfyui_distributed_tpu_torch.utils import constants as tconstants
+
+    monkeypatch.setenv("CDT_DETERMINISTIC_BLEND", "1")
+    monkeypatch.setattr(tconstants, "USAGE_ENABLED", metering)
+    monkeypatch.setattr(tusage, "_METER", None)
+    _, tb, conds = tiny_pair
+    img = _image(9, (1, 64, 64, 3))
+    pos, neg, store, context = _master_setup(tb, conds)
+    previous = cstore.set_tile_cache(cstore.TileResultCache(ram_mb=64, disk_dir=None))
+    try:
+        for job_id in ("cold", "warm"):
+            run_master_elastic(tb, img, pos, neg, job_id=job_id, enabled_worker_ids=[],
+                               context=context, **GEOMETRY)
+    finally:
+        cstore.set_tile_cache(previous)
+    assert store.finished["warm"]["cached"] == [0, 1, 2, 3]
+    totals, jobs = tusage.get_usage_meter().totals(), tusage.get_usage_meter().rollup()["jobs"]
+    assert totals["conserved"]
+    if metering:
+        assert totals["dispatches"] == 4 and totals["dispatch_chip_ns"] > 0
+        assert totals["cached_tiles"] == 4 and set(jobs) == {"cold", "warm"}
+    else:
+        assert totals["dispatches"] == totals["dispatch_chip_ns"] == 0
+        assert totals["cached_tiles"] == 0 and jobs == {}
+
+
 @pytest.mark.parametrize("threaded", [True, False])
 def test_pipeline_releases_unsubmitted_tiles_on_interrupt(threaded):
     """An interrupt between tiles flushes what was encoded and hands the
-    rest of the claimed grants back; stage times land in the totals."""
+    rest of the claimed grants back; stage times land in
+    cdt_tile_stage_seconds."""
     grants = [[0], [1], [2]]
     released, emitted, flushes = [], [], []
 
@@ -370,23 +410,31 @@ def test_pipeline_releases_unsubmitted_tiles_on_interrupt(threaded):
         if len(emitted) >= 1:
             raise InterruptedError("stop")
 
-    totals = StageTotals()
+    reset_metrics_registry()
     pipeline = TilePipeline(
         pull=lambda: grants.pop(0) if grants else None, sample=sample,
         emit=lambda t, arr: emitted.append(t), flush=flushes.append,
         check_interrupted=interrupted, release=released.extend, threaded=threaded,
-        prefetch=False, stage_totals=totals,
+        prefetch=False,
     )
     with pytest.raises(InterruptedError):
         pipeline.run()
     assert emitted[0] == 0 and flushes[-1] is True
     assert sorted(set(emitted) | set(released)) == list(range(3 - len(grants)))
     assert not set(emitted) & set(released)
-    assert {"pull", "sample", "readback", "encode"} <= set(totals.seconds())
-    pulled = totals.seconds()["pull"]
-    with stage_span("pull", "worker", totals=totals) as span:
+    assert {"pull", "sample", "readback", "encode"} <= set(_stage_seconds("worker"))
+    pulled = _stage_seconds("worker")["pull"]
+    with stage_span("pull", "worker") as span:
         span.attrs["outcome"] = "empty"  # empty polls are not counted
         time.sleep(0.01)
-    with stage_span("submit", "worker", 3, totals=totals) as span:
+    with stage_span("submit", "worker", 3) as span:
         assert span.attrs["tile_idx"] == 3
-    assert totals.seconds()["pull"] == pulled and totals.seconds()["submit"] > 0
+    stages = _stage_seconds("worker")
+    assert stages["pull"] == pulled and stages["submit"][0] == 1 and stages["submit"][1] > 0
+
+
+def _stage_seconds(role: str) -> dict[str, tuple[int, float]]:
+    """{stage: (samples, seconds)} of cdt_tile_stage_seconds for `role`."""
+    return {stage: (series["count"], series["sum"])
+            for (stage, who), series in tinstruments.tile_stage_seconds().series_snapshot().items()
+            if who == role}

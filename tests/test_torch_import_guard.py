@@ -65,7 +65,10 @@ def test_the_server_and_the_elastic_tier_are_among_the_imported_modules():
                    "adapters/cache.py", "cache/keys.py", "cache/store.py",
                    "cache/integration.py", "models/dit.py", "models/video_vae.py",
                    "models/clip_vision.py", "models/video_pipeline.py",
-                   "graph/nodes_video.py"):
+                   "graph/nodes_video.py", "telemetry/__init__.py", "telemetry/metrics.py",
+                   "telemetry/tracing.py", "telemetry/events.py", "telemetry/instruments.py",
+                   "telemetry/runtime.py", "telemetry/profiling.py", "telemetry/usage.py",
+                   "utils/trace_logger.py", "api/telemetry_routes.py"):
         assert os.path.join("comfyui_distributed_tpu_torch", module) in names
 
 
