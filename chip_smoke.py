@@ -97,7 +97,8 @@ width), so that every phase fits the run's time limit.
              submit; the execution's /distributed/trace/{trace_id} is one
              tree holding the orchestration, the dispatch to w1, the
              master's rpc spans of w1's pulls and submits and the tile
-             spans of every tile; the transfer ledger's device-execute
+             spans of every tile, all under the admission wait
+             (sched.wait); the transfer ledger's device-execute
              seconds are positive, its D2H bytes every tile's output
              bytes and each role's host-tax ratio in (0, 1] (printed:
              the host share of the bracketed tile time, not the card's
@@ -107,7 +108,17 @@ width), so that every phase fits the run's time limit.
              nanoseconds this run (two sinks fed by separate calls, so a
              dropped or doubled dispatch shows); cdt_device_memory_bytes
              equals torch.cuda.memory_allocated and max_memory_allocated
-             read right after the scrape.
+             read right after the scrape. Each run's control plane on
+             a [sched] line (`_Sched`): the queue answer's scheduler
+             block and its queue-wait seconds, one admission and one
+             grant with no slot held afterwards, each participant's
+             grant sizes (the master's placement policy sizes them, two
+             tiles while more than CDT_SCHED_TAIL_TILES remain) adding
+             up to its tiles, and no watchdog verdict (straggler, stall,
+             speculative requeue) and w1's breaker closed on the
+             healthy fleet. Before the last run the scheduler is drained
+             (`_drain_check`): the queue answers 503 with Retry-After,
+             makes no job and launches nothing; then it resumes.
    adapters - on SDXL at the cut depth, served as the elastic phase
              serves it (a master and w1 in this process; its base output
              the local tiles' weighted average) (`_adapters_phase`): a
@@ -217,7 +228,15 @@ width), so that every phase fits the run's time limit.
              /distributed/metrics and /distributed/trace/{trace_id}
              holding its role's series and tile spans, and the usage
              check on the master's role, whose meter is in this
-             process); a running elastic job
+             process; the [sched] line as the elastic phase's; and on a
+             [fleet] line (`_fleet_check`) the master's fleet plane: w1
+             (launched with CDT_FLEET_SNAPSHOT_SECONDS =
+             PROCS_FLEET_SNAPSHOT_S, a snapshot on every pull and
+             heartbeat) listed by /distributed/fleet with devices 1 and
+             its card's nonzero memory peak, /distributed/usage
+             attributing the job's chip seconds with w1's part equal to
+             w1's meter and w1's transfer ledger over the run, and no
+             alert firing on /distributed/alerts); a running elastic job
              cancelled through /distributed/cancel/{job_id} (every pending
              and in-flight tile refunded, the master's prompt ends
              JobCancelled, an unknown job answers 404); clear_memory on w1
@@ -496,6 +515,10 @@ CKPT_SEED = 7
 # torch, makes a CUDA context, finds the kernel library), and one run
 PROCS_LAUNCH_TIMEOUT_S = 240.0
 PROCS_RUN_TIMEOUT_S = 300.0
+# w1's CDT_FLEET_SNAPSHOT_SECONDS in the procs phase: each of its pulls and
+# heartbeats piggybacks a fleet snapshot, so the heartbeat after its last
+# tile carries the run's final usage to the master
+PROCS_FLEET_SNAPSHOT_S = 1e-6
 # the samplers phase: the stochastic sampler its HTTP runs take (txt2img
 # through the collector, the elastic upscale), and the sampler whose
 # image its kernels-line entry sums (second order: 39 evaluations)
@@ -1277,9 +1300,10 @@ class _Telemetry:
         trace_id = queued["trace_id"]
         tree, spans = self._trace(self.master_base, trace_id)
         names = {s["name"] for s in spans}
-        _require(len(tree) == 1 and tree[0]["name"] == "queue_orchestration",
-                 f"trace {trace_id} is not one tree under queue_orchestration: roots "
-                 f"{[root['name'] for root in tree]}")
+        _require(len(tree) == 1 and tree[0]["name"] == "sched.wait"
+                 and "queue_orchestration" in {c["name"] for c in tree[0]["children"]},
+                 f"trace {trace_id} is not one tree under the admission wait sched.wait with "
+                 f"the orchestration below it: roots {[root['name'] for root in tree]}")
         from_w1 = lambda name: [s for s in spans if s["name"] == name  # noqa: E731
                                 and s["attrs"].get("worker_id") == "w1"]
         dispatches, pulls, submits = (from_w1("dispatch"), from_w1("rpc.request_image"),
@@ -1308,7 +1332,8 @@ class _Telemetry:
               f"completions + {requeued:g} requeues; stage samples "
               f"{ {r: {k: int(v) for k, v in c.items()} for r, c in stages.items()} }")
         print(f"{label} run {run} trace {trace_id}: one tree of {len(spans)} spans on the master "
-              f"under queue_orchestration ({len(names)} span names); the dispatch to w1, "
+              f"under sched.wait and queue_orchestration ({len(names)} span names); the dispatch "
+              f"to w1, "
               f"{len(pulls)} rpc.request_image and {len(submits)} rpc.submit_tiles spans of w1's; "
               f"tile spans of the master's tiles {sorted(tiles['master'])} and w1's "
               f"{sorted(tiles['worker'])}"
@@ -1386,7 +1411,220 @@ class _Telemetry:
                                          for stage in ("pull", "sample", "dispatch", "readback",
                                                        "encode", "submit", "decode", "blend")}
                                   for role in tiles},
-                "host_tax": taxes}
+                "host_tax": taxes, "spans": spans}
+
+
+def _post_answer(url: str, body: dict) -> tuple[int, dict, dict]:
+    """POST JSON: (status, response headers in lower case, JSON body), an
+    error status included (the Retry-After of a 429 or 503 is a header)."""
+    import urllib.error
+    import urllib.request
+
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    request = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST",
+                                     headers={"Content-Type": "application/json"})
+    try:
+        with opener.open(request, timeout=60) as resp:
+            return resp.status, {k.lower(): v for k, v in resp.headers.items()}, json.loads(
+                resp.read() or b"null")
+    except urllib.error.HTTPError as err:
+        with err:
+            return err.code, {k.lower(): v for k, v in err.headers.items()}, json.loads(
+                err.read() or b"null")
+
+
+class _Sched:
+    """One elastic run's control plane on the master, read before the run
+    (`start`) and held to it after (`check`), on a [sched] line; any miss
+    fails the run: the queue answer's `scheduler` block, one admission
+    and one grant (cdt_sched_admissions_total{outcome="admitted"},
+    cdt_sched_grants_total) and no slot held afterwards
+    (cdt_sched_active), the trace's sched.wait root on this ticket, each
+    participant's grants (the master's tile.pull spans, w1's
+    rpc.request_image spans: a grant's tiles in `batch`) adding up to its
+    completions, and a healthy fleet for the watchdog: no straggler, no
+    stall, no speculative requeue (its counters and its verdict lists),
+    w1's breaker closed."""
+
+    def __init__(self, label: str, master, base: str):
+        self.label = label
+        self.master = master
+        self.base = base
+        self.server = f"master:{master.port}"
+
+    def start(self) -> None:
+        self.before = _scrape(self.base)[1]
+
+    def check(self, run: int, queued: dict, record: dict, spans: list) -> dict:
+        from comfyui_distributed_tpu_torch.resilience.health import get_health_registry
+
+        after = _scrape(self.base)[1]
+
+        def delta(name, **labels):
+            return _total(after, name, **labels) - _total(self.before, name, **labels)
+
+        block = queued.get("scheduler")
+        _require(isinstance(block, dict) and block.get("queue_wait_seconds") is not None,
+                 f"the queue answer carries no scheduler block: {queued}")
+        admitted = delta("cdt_sched_admissions_total", outcome="admitted")
+        granted = delta("cdt_sched_grants_total")
+        active = _total(after, "cdt_sched_active", server=self.server)
+        _require((admitted, granted, active) == (1, 1, 0),
+                 f"admissions +{admitted:g}, grants +{granted:g}, active {active:g}: not one "
+                 f"admission and one grant with the slot released")
+        roots = [s for s in spans if s["name"] == "sched.wait"]
+        _require(len(roots) == 1 and roots[0]["attrs"].get("ticket_id") == block["ticket_id"],
+                 f"sched.wait spans {[r['attrs'] for r in roots]}, ticket {block['ticket_id']}")
+        grants = {
+            "master": [len(s["attrs"].get("batch") or [0]) for s in spans
+                       if s["name"] == "tile.pull" and s["attrs"].get("role") == "master"
+                       and "tile_idx" in s["attrs"]],
+            "w1": [len(s["attrs"].get("batch") or [0]) for s in spans
+                   if s["name"] == "rpc.request_image" and s["attrs"].get("worker_id") == "w1"
+                   and "tile_idx" in s["attrs"]],
+        }
+        done = {who: sum(1 for _, w in record["completions"] if w == who) for who in grants}
+        _require({who: sum(sizes) for who, sizes in grants.items()} == done,
+                 f"grants {grants} are not the completions {done}")
+        watchdog = {
+            "stragglers": delta("cdt_watchdog_stragglers_total"),
+            "stalls": delta("cdt_watchdog_stalls_total"),
+            "speculative": delta("cdt_store_requeued_tasks_total", reason="speculative"),
+        }
+        wd = self.master.watchdog
+        verdicts = (list(wd.stragglers_flagged), list(wd.stalls_detected), dict(wd.speculated))
+        breaker = get_health_registry().state("w1").value
+        print(f"{self.label} run {run}: queue wait {block['queue_wait_seconds']:.6f} s (ticket "
+              f"{block['ticket_id']}, lane {block['lane']}, tenant {block['tenant']}); "
+              f"admissions +{admitted:g}, grants +{granted:g}, cdt_sched_active {active:g} "
+              f"after; the trace's root sched.wait on this ticket; grants by participant (tiles "
+              f"a grant) master {grants['master']}, w1 {grants['w1']}; watchdog stragglers "
+              f"+{watchdog['stragglers']:g}, stalls +{watchdog['stalls']:g}, speculative "
+              f"requeues +{watchdog['speculative']:g} (verdicts so far {verdicts}); w1's "
+              f"breaker {breaker}")
+        _require(not any(watchdog.values()) and verdicts == ([], [], {}),
+                 f"the watchdog acted on a healthy fleet: {watchdog}, verdicts {verdicts}")
+        _require(breaker == "healthy", f"w1's breaker is {breaker}")
+        return {"queue_wait_s": block["queue_wait_seconds"], "grants": grants}
+
+
+def _drain_check(label: str, master, base: str, workflow) -> dict:
+    """POST /distributed/scheduler/drain, then a queue request: it must
+    answer 503 with a Retry-After, create no job and launch no attention
+    kernel; then resume. Prints a [sched] line."""
+    from comfyui_distributed_tpu_torch.ops import attention as attn
+
+    store = master.job_store
+
+    def jobs():
+        return (sorted(store.tile_jobs), sorted(store.finished), sorted(store.collectors),
+                len(master._history))
+
+    status, _, drained = _post_answer(f"{base}/distributed/scheduler/drain", {})
+    _require(status == 200 and drained == {"state": "draining"}, f"drain answered {status}: "
+             f"{drained}")
+    before = jobs()
+    attn.reset_launch_counts()
+    started = time.perf_counter()
+    status, headers, answer = _post_answer(f"{base}/distributed/queue", {
+        "prompt": workflow, "client_id": "chip_smoke", "workers": ["w1"]})
+    seconds = time.perf_counter() - started
+    launches, _ = _launch_counts(attn)
+    after = jobs()
+    resumed = _post_answer(f"{base}/distributed/scheduler/resume", {})
+    print(f"{label} drain: the queue answered {status} in {seconds * 1000:.1f} ms with "
+          f"Retry-After {headers.get('retry-after')} ({answer}); jobs, records, collectors and "
+          f"prompts before {before[3]} prompt(s), unchanged {before == after}; attention "
+          f"launches {launches}; resume answered {resumed[0]} {resumed[2]}")
+    _require(status == 503 and int(headers.get("retry-after", "0")) >= 1,
+             f"a drained scheduler answered {status}, Retry-After {headers.get('retry-after')}")
+    _require(before == after and launches == 0, "a drained scheduler's request made a job or "
+             "launched a kernel")
+    _require(resumed[0] == 200 and resumed[2] == {"state": "running"}, f"resume: {resumed}")
+    return {"status": status, "retry_after": headers.get("retry-after")}
+
+
+def _fleet_readings(base: str, w1_base: str | None, cuda: bool) -> dict:
+    """w1's transfer ledger as the master's fleet holds it (its last
+    snapshot's dispatch-bracket ns; 0 before its first snapshot) and, when
+    w1 is its own process, its own scrape of
+    cdt_device_execute_seconds_sum: read before a run, held to the run by
+    `_fleet_check`."""
+    from comfyui_distributed_tpu_torch.utils.network import request_json
+
+    _, fleet = request_json("GET", f"{base}/distributed/fleet", timeout=60)
+    entry = fleet.get("workers", {}).get("w1")
+    kind = "device_ns" if cuda else "eager_ns"
+    readings = {"ledger_ns": int(entry["snapshot"]["profiling"][kind]) if entry else 0}
+    if w1_base:
+        readings["scraped_s"] = _total(_scrape(w1_base)[1], "cdt_device_execute_seconds_sum",
+                                       role="worker", tier="scan")
+    return readings
+
+
+def _fleet_check(label: str, base: str, w1_base: str | None, queued: dict, run: int,
+                 interval: float, cuda: bool, before: dict) -> None:
+    """The master's fleet plane after one elastic run, on a [fleet] line;
+    any miss fails the run. /distributed/fleet lists w1 with the
+    snapshot's schema version, `devices` 1 and, on the card, a nonzero
+    `hbm_peak_bytes` (w1's own reading of its card); /distributed/usage
+    attributes the job's chip seconds, w1's part adopted from its
+    snapshots and equal to w1's meter as it reported it; when w1 is its
+    own process (`w1_base`), that equals w1's transfer ledger over the run
+    (`before` from `_fleet_readings`): the ledger's dispatch-bracket ns
+    in its snapshot within 1 ns, and on the card w1's own scrape of
+    cdt_device_execute_seconds_sum within 1e-6 s; /distributed/alerts has
+    no alert firing."""
+    from comfyui_distributed_tpu_torch.telemetry import get_usage_meter
+    from comfyui_distributed_tpu_torch.utils.network import request_json
+
+    status, fleet = request_json("GET", f"{base}/distributed/fleet", timeout=60)
+    _require(status == 200 and fleet.get("enabled") is True, f"/distributed/fleet: {status}")
+    entry = fleet["workers"].get("w1")
+    _require(entry is not None, f"/distributed/fleet does not list w1: {sorted(fleet['workers'])}")
+    snap = entry["snapshot"]
+    hbm = int(snap.get("mem", {}).get("hbm_peak_bytes") or 0)
+    _require(snap.get("v") == fleet["version"] and snap.get("devices") == 1
+             and (hbm > 0 or not cuda),
+             f"w1's snapshot: version {snap.get('v')}, devices {snap.get('devices')}, "
+             f"hbm_peak_bytes {hbm}")
+    job_id = queued["job_ids"][USDU_NODE]
+    status, usage = request_json("GET", f"{base}/distributed/usage", timeout=60)
+    _require(status == 200 and usage.get("enabled") is True, f"/distributed/usage: {status}")
+    job = usage["rollup"]["jobs"].get(job_id)
+    _require(job is not None and "worker(adopted)" in job["roles"],
+             f"/distributed/usage holds no adopted usage of job {job_id}: {job}")
+    local = get_usage_meter().rollup(("master",))["jobs"].get(job_id, {}).get("chip_s", 0.0)
+    adopted = job["chip_s"] - local
+    reported = snap["usage"]["jobs"].get(job_id, {}).get("chip_s", 0.0)
+    _require(adopted > 0 and abs(adopted - reported) <= 1e-6,
+             f"job {job_id}: w1's adopted chip seconds {adopted} against its meter's {reported}")
+    ledger_line = ""
+    if w1_base:
+        after = _fleet_readings(base, w1_base, cuda)
+        ledger_ns = after["ledger_ns"] - before["ledger_ns"]
+        scraped_s = after["scraped_s"] - before["scraped_s"]
+        kind = "device_ns" if cuda else "eager_ns"
+        ledger_line = (f"; w1's transfer ledger over the run {ledger_ns} ns (its snapshot's "
+                       f"{kind}) and {scraped_s:.9f} s (w1's own /distributed/metrics)")
+        _require(abs(round(reported * 1e9) - ledger_ns) <= 1
+                 and (abs(scraped_s - reported) <= 1e-6 or not cuda),
+                 f"job {job_id}: w1's meter {reported} s against its ledger {ledger_ns} ns and "
+                 f"its scrape {scraped_s} s")
+    status, alerts = request_json("GET", f"{base}/distributed/alerts", timeout=60)
+    _require(status == 200 and alerts.get("enabled") is True and alerts["active"] == [],
+             f"/distributed/alerts: {status}, firing {alerts.get('active')}")
+    print(f"{label} run {run}: /distributed/fleet lists w1 (snapshot v{snap['v']}, devices "
+          f"{snap['devices']}, hbm_peak_bytes {hbm}, rss_bytes "
+          f"{snap.get('mem', {}).get('rss_bytes')}, seen {entry['seen_ago_s']} s ago; the "
+          f"monitor's last rollup {fleet['rollup']['workers']} worker(s), "
+          f"{fleet['rollup']['devices']} device(s)); w1 "
+          f"runs with CDT_FLEET_SNAPSHOT_SECONDS={interval:g}, so each of its pulls and "
+          f"heartbeats carries a snapshot, the heartbeat after its last tile the run's last; "
+          f"/distributed/usage job {job_id} chip seconds {job['chip_s']:.9f} = master "
+          f"{local:.9f} + w1 adopted {adopted:.9f}; w1's meter as it reported it "
+          f"{reported:.9f}{ledger_line}; /distributed/alerts: none firing of "
+          f"{len(alerts['alerts'])} SLOs")
 
 
 def _local_run(torch, attn, executor, workflow, label: str, what: str, device: str,
@@ -1420,7 +1658,8 @@ def _local_run(torch, attn, executor, workflow, label: str, what: str, device: s
 def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device: str,
                    expected_launches: int | None = None, expected_by_instance: dict | None = None,
                    local_tiles_per_s: float | None = None, runs: int = ELASTIC_RUNS,
-                   tag: str = "elastic", after=None) -> dict:
+                   tag: str = "elastic", after=None, drain: bool = False,
+                   fleet_interval: float | None = None) -> dict:
     """Run the workflow over HTTP on a master and a worker server in this
     process (see the module docstring) and check every run; prints the
     [tag] lines and returns the last run's attention launches. With
@@ -1431,7 +1670,12 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
     is {"master", "worker", "base", "worker_port", "input_dir",
     "output_dir", "reference_avg"} (the local tiles' weighted average, as
     phase 4 composites them); its result is the returned dict's "after".
-    With `runs` 0 the servers only serve `after`."""
+    With `runs` 0 the servers only serve `after`. Every run is held to
+    the control plane on a [sched] line (`_Sched`); with `drain` the last
+    run follows a drained scheduler's 503 and a resume (`_drain_check`).
+    With `fleet_interval` (a CPU rehearsal of the procs phase's [fleet]
+    checks) the in-process w1 piggybacks a snapshot at that interval and
+    every run is held to `_fleet_check`."""
     from comfyui_distributed_tpu_torch.ops import attention as attn
     from comfyui_distributed_tpu_torch.utils import image as img_utils
 
@@ -1453,13 +1697,22 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
             fh.write(img_utils.encode_png(image[0]))
         blend_env = os.environ.get("CDT_DETERMINISTIC_BLEND")
         os.environ["CDT_DETERMINISTIC_BLEND"] = "1"
+        from comfyui_distributed_tpu_torch.utils import constants
+
+        snapshot_seconds = constants.FLEET_SNAPSHOT_SECONDS
+        if fleet_interval is not None:
+            constants.FLEET_SNAPSHOT_SECONDS = fleet_interval
         try:
             with _serving(tmp, {"input_dir": in_dir, "output_dir": out_dir}, device,
                           {ckpt: bundle}) as (master, worker, base, worker_port):
                 telemetry = _Telemetry(torch, f"[telemetry] {tag}", base, cuda=cuda)
+                sched = _Sched(f"[sched] {tag}", master, base)
                 tile_bytes = _tile_output_bytes(workflow, image)
                 for run in range(1, runs + 1):
+                    if drain and run == runs:
+                        result["drain"] = _drain_check(f"[sched] {tag}", master, base, workflow)
                     telemetry.start()
+                    sched.start()
                     if cuda:
                         torch.cuda.synchronize()
                         torch.cuda.reset_peak_memory_stats()
@@ -1491,6 +1744,10 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                     print(f"{label} run {run} stage seconds (cdt_tile_stage_seconds): master "
                           f"{_rounded(read['stage_seconds']['master'])}; w1 "
                           f"{_rounded(read['stage_seconds']['worker'])}")
+                    control = sched.check(run, queued, record, read["spans"])
+                    if fleet_interval is not None:
+                        _fleet_check(f"[fleet] {tag}", base, None, queued, run, fleet_interval,
+                                     cuda, {})
                     _require(sorted(done) == list(range(n_tiles)),
                              f"tiles completed {sorted(done)}, expected each of {n_tiles} once")
                     _require(set(by) <= {"master", "w1"}, f"unexpected participants {sorted(by)}")
@@ -1525,14 +1782,17 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                           f"{RERUN_TOLERANCE}){versus}")
                     _require(diff <= RERUN_TOLERANCE,
                              "the elastic output disagrees with the local tiles")
-                    result = {"launches": launches, "launches_by_instance": by_instance,
-                              "tiles_per_s": n_tiles / seconds, "host_tax": read["host_tax"]}
+                    result.update({"launches": launches, "launches_by_instance": by_instance,
+                                   "tiles_per_s": n_tiles / seconds, "host_tax": read["host_tax"],
+                                   "queue_wait_s": control["queue_wait_s"],
+                                   "grants": control["grants"]})
                 if after is not None:
                     result["after"] = after({"master": master, "worker": worker, "base": base,
                                              "worker_port": worker_port, "input_dir": in_dir,
                                              "output_dir": out_dir,
                                              "reference_avg": reference_avg})
         finally:
+            constants.FLEET_SNAPSHOT_SECONDS = snapshot_seconds
             if blend_env is None:
                 os.environ.pop("CDT_DETERMINISTIC_BLEND", None)
             else:
@@ -2375,7 +2635,8 @@ def _procs_phase(torch, gen, workflows: dict, image, device: str,
     rates = {name: rate for name, rate in (rates or {}).items() if rate is not None}
     results: dict = {}
     saved_env = {k: os.environ.get(k) for k in ("CDT_CHECKPOINT_DIR", "CDT_LOG_DIR",
-                                                "CDT_DETERMINISTIC_BLEND")}
+                                                "CDT_DETERMINISTIC_BLEND",
+                                                "CDT_FLEET_SNAPSHOT_SECONDS")}
 
     def sync():
         if cuda:
@@ -2433,7 +2694,8 @@ def _procs_phase(torch, gen, workflows: dict, image, device: str,
         asyncio.run_coroutine_threadsafe(master.start(), loop.loop).result(timeout=60)
         base, w1_base = f"http://127.0.0.1:{master_port}", f"http://127.0.0.1:{worker_port}"
 
-        # --- 1. launch ---
+        # --- 1. launch (w1 inherits this environment) ---
+        os.environ["CDT_FLEET_SNAPSHOT_SECONDS"] = repr(PROCS_FLEET_SNAPSHOT_S)
         started = time.perf_counter()
         status, launched = request_json("POST", f"{base}/distributed/launch_worker",
                                         {"worker_id": "w1"}, timeout=60)
@@ -2661,9 +2923,12 @@ def _procs_phase(torch, gen, workflows: dict, image, device: str,
         os.environ["CDT_DETERMINISTIC_BLEND"] = "1"
         outs, tiles_by = [], {}
         telemetry = _Telemetry(torch, "[telemetry] procs", base, w1_base, cuda=cuda)
+        sched = _Sched("[sched] procs", master, base)
         tile_bytes = _tile_output_bytes(up, image)
         for attempt in (1, 2):
             telemetry.start()
+            sched.start()
+            fleet_before = _fleet_readings(base, w1_base, cuda)
             queued, history, worker_history, out, seconds, launches, by_instance = run(
                 up, f"elastic run {attempt}")
             record = master.job_store.finished[queued["job_ids"][USDU_NODE]]
@@ -2687,6 +2952,11 @@ def _procs_phase(torch, gen, workflows: dict, image, device: str,
             print(f"{label} elastic run {attempt} stage seconds (cdt_tile_stage_seconds): "
                   f"master {_rounded(read['stage_seconds']['master'])}; w1 "
                   f"{_rounded(read['stage_seconds']['worker'])}")
+            control = sched.check(attempt, queued, record, read["spans"])
+            _fleet_check("[fleet] procs", base, w1_base, queued, attempt,
+                         PROCS_FLEET_SNAPSHOT_S, cuda, fleet_before)
+            results["grants"] = control["grants"]
+            results["queue_wait_s"] = control["queue_wait_s"]
             outs.append(out)
             results["elastic_tiles_per_s"] = n_tiles / seconds
             results["host_tax"] = read["host_tax"]
@@ -5179,7 +5449,7 @@ def _run(torch, phases: set, unet_cuts: dict) -> int:
         results["elastic"] = _elastic_phase(
             torch, bundle, ckpt, workflow, prompt["5"]["inputs"]["image"], outputs[1], "cuda",
             expected_launches=n_tiles * per_tile, expected_by_instance=expected_by_instance,
-            local_tiles_per_s=main_tiles_per_s,
+            local_tiles_per_s=main_tiles_per_s, drain=True,
         )
         phase_seconds["elastic"] = time.perf_counter() - phase_started
     # phase 4's SDXL is not needed again

@@ -10,10 +10,16 @@ item 4b):
 - ``segmented`` rank-bucketed (down, up) operands for the backbone
   weights an adapter covers, and the whole-grant weight patch
   (`patch_params`, through the merge LoraLoader uses too);
-- ``cache``     the host LRU of decoded operands under a byte budget.
+- ``cache``     the host LRU of decoded operands under a byte budget,
+  and the scheduler's cold-adapter admission cost.
 """
 
-from .cache import AdapterOperandCache, get_adapter_cache, operands_for_plan  # noqa: F401
+from .cache import (  # noqa: F401
+    AdapterOperandCache,
+    adapter_admission_cost,
+    get_adapter_cache,
+    operands_for_plan,
+)
 from .registry import (  # noqa: F401
     MAX_ADAPTERS_PER_REQUEST,
     AdapterCatalog,

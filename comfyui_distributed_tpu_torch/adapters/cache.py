@@ -1,13 +1,14 @@
 """The host-side adapter operand cache.
 
-The port's own copy of comfyui_distributed_tpu/adapters/cache.py, less
-the scheduler's admission-cost seam (`adapter_admission_cost`, which
-waits for the scheduler's DRR admission: ROADMAP.md, Queue 1 step 7).
+The port's own copy of comfyui_distributed_tpu/adapters/cache.py.
 Decoding a kohya file and laying out rank-bucketed operands is host work
 worth redoing once per adapter, not once per job: this LRU holds
 `SegmentOperands` per (content hash, target map, rank-bucket set) under a
 byte budget (CDT_ADAPTER_CACHE_MB), counting hits, misses and
 evictions, in its stats and in the ``cdt_adapter_cache_*`` metrics.
+`adapter_admission_cost` is the scheduler's seam into it: a request
+whose adapters are not all resident pays CDT_ADAPTER_COLD_COST at DRR
+admission.
 """
 
 from __future__ import annotations
@@ -85,6 +86,12 @@ class AdapterOperandCache:
             bytes_gauge.set(float(self.bytes))
         return ops, False
 
+    def contains_hash(self, content_hash: str) -> bool:
+        """Whether operands of the adapter with this content hash are
+        resident (under any target map or bucket set)."""
+        with self._lock:
+            return any(key[1] == content_hash for key in self._entries)
+
     def stats(self) -> dict[str, Any]:
         with self._lock:
             return {"entries": len(self._entries), "bytes": int(self.bytes),
@@ -128,3 +135,25 @@ def operands_for_plan(specs: list[AdapterSpec], target_map: dict, *, catalog: An
     if len(parts) == 1:
         return parts[0]._replace(scale=float(specs[0].strength))
     return compose_operands(parts, [float(s.strength) for s in specs])
+
+
+def adapter_admission_cost(hashes: Any) -> float:
+    """DRR admission multiplier for a plan's content hashes: 1.0 when the
+    knob is off, the plan is empty or every adapter's operands are
+    resident; CDT_ADAPTER_COLD_COST otherwise. Advisory: an error here
+    never blocks admission."""
+    try:
+        hashes = tuple(hashes or ())
+        if not hashes:
+            return 1.0
+        from ..utils.constants import adapter_cold_cost
+
+        cost = float(adapter_cold_cost())
+        if cost == 1.0:
+            return 1.0
+        cache = get_adapter_cache()
+        if all(cache.contains_hash(h) for h in hashes):
+            return 1.0
+        return cost
+    except Exception:  # noqa: BLE001 - advisory seam
+        return 1.0

@@ -10,12 +10,14 @@ The port's own copy of comfyui_distributed_tpu/api/config_routes.py:
     POST   /distributed/config/master         {host?, cuda_device?}
     DELETE /distributed/config/worker/{id}    404 for an unknown worker
     GET    /distributed/queue_status/{job_id} the job's collector and tile counts,
-                                              the queue depth and the breakers
+                                              the queue depth, the breakers and
+                                              the scheduler's view
 
 Every write goes through `config_transaction`, the mutex the process
 manager's PID records share. A worker's card is `cuda_device` (an index
-or a list), where the JAX package has `tpu_chips`; the queue status has
-no scheduler view (the scheduler is not ported).
+or a list), where the JAX package has `tpu_chips`. The queue status's
+scheduler view is the triage an operator polls beside a job's progress:
+lane depths, per-tenant deficits, tenant and worker weights.
 """
 
 from __future__ import annotations
@@ -156,10 +158,22 @@ class ConfigRoutes:
         tile_job = store.tile_jobs.get(job_id)
         tile_view = None
         if tile_job is not None:
-            in_flight = sum(len([t for t in tasks if t not in tile_job.completed])
-                            for tasks in list(tile_job.assigned.values()))
             tile_view = {"total": tile_job.total_tasks, "completed": len(tile_job.completed),
-                         "pending": tile_job.pending.qsize(), "in_flight": in_flight}
+                         **store.tile_job_stats(tile_job)}
+        scheduler = getattr(self.server, "scheduler", None)
+        sched_view = None
+        if scheduler is not None:
+            admission = scheduler.queue.snapshot()
+            sched_view = {
+                "state": admission["state"],
+                "active": admission["active"],
+                "queued": admission["queued"],
+                "lanes": {lane["name"]: {"depth": lane["depth"], "max_depth": lane["max_depth"],
+                                         "tenants": lane["tenants"]}
+                          for lane in admission["lanes"]},
+                "tenant_weights": admission["tenant_weights"],
+                "worker_weights": scheduler.placement.weights(),
+            }
         return json_response({
             "exists": collector is not None or tile_job is not None,
             "collector": None if collector is None else {
@@ -168,5 +182,5 @@ class ConfigRoutes:
             "tile_job": tile_view,
             "queue_remaining": self.server.queue_remaining,
             "breakers": get_health_registry().snapshot(),
-            "scheduler": None,
+            "scheduler": sched_view,
         })

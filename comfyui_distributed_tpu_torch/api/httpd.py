@@ -2,7 +2,8 @@
 
 It serves what the port's routes need: JSON request and response
 bodies sized by Content-Length, raw response bodies (a served image),
-path parameters (`/history/{prompt_id}`) and query strings, a 413
+path parameters (`/history/{prompt_id}`) and query strings, extra
+response headers (Retry-After), a 413
 answer for a body past MAX_PAYLOAD_SIZE, and a clean shutdown that
 cancels the handlers still running. Each connection carries one request
 (`Connection: close`): the elastic tier's clients open one connection
@@ -34,7 +35,8 @@ from ..utils.websocket import WebSocket, accept_key
 
 _REASONS = {101: "Switching Protocols", 200: "OK", 400: "Bad Request", 404: "Not Found",
             405: "Method Not Allowed", 409: "Conflict", 411: "Length Required",
-            413: "Payload Too Large", 500: "Internal Server Error", 502: "Bad Gateway",
+            413: "Payload Too Large", 429: "Too Many Requests", 500: "Internal Server Error",
+            502: "Bad Gateway",
             503: "Service Unavailable"}
 # the request line and headers of one request
 MAX_HEADER_BYTES = 64 * 1024
@@ -66,10 +68,13 @@ class Request:
 
 
 class Response:
-    def __init__(self, body: Any = None, status: int = 200):
+    def __init__(self, body: Any = None, status: int = 200,
+                 headers: dict[str, str] | None = None):
         self.status = status
         self.body = b"" if body is None else json.dumps(body).encode("utf-8")
         self.content_type = "application/json"
+        # extra response headers (Retry-After on a 429 or 503)
+        self.headers = dict(headers or {})
         # the handler wrote to the connection itself (a websocket)
         self.detached = False
 
@@ -86,8 +91,9 @@ class Response:
         return response
 
 
-def json_response(body: Any, status: int = 200) -> Response:
-    return Response(body, status)
+def json_response(body: Any, status: int = 200,
+                  headers: dict[str, str] | None = None) -> Response:
+    return Response(body, status, headers)
 
 
 Handler = Callable[[Request], Awaitable[Response]]
@@ -223,6 +229,7 @@ class HTTPServer:
         head = [f"HTTP/1.1 {response.status} {reason}",
                 f"Content-Type: {response.content_type}",
                 f"Content-Length: {len(response.body)}",
+                *(f"{name}: {value}" for name, value in response.headers.items()),
                 "Connection: close"]
         writer.write(("\r\n".join(head) + "\r\n\r\n").encode("latin-1") + response.body)
         await writer.drain()

@@ -1,17 +1,20 @@
 """Job routes: the orchestration entry point, the collector's results,
 cancellation and the media sync's targets.
 
-The port's own copy of comfyui_distributed_tpu/api/job_routes.py,
-without the scheduler's admission lanes:
+The port's own copy of comfyui_distributed_tpu/api/job_routes.py:
 
-    POST /distributed/queue         {prompt, client_id, workers, deadline_s?,
-                                    adapters?, load_balance?, ...} →
+    POST /distributed/queue         {prompt, client_id, workers, tenant?,
+                                    lane?, deadline_s?, adapters?,
+                                    estimated_tiles?, load_balance?, ...} →
                                     400 for an adapter the master's catalog
-                                    cannot resolve (no job is created), else
-                                    {status, prompt_id,
-                                    workers, job_ids}, or {status:
+                                    cannot resolve (no job is created); the
+                                    scheduler's admission answers below;
+                                    else {status, prompt_id, workers,
+                                    job_ids, scheduler: {ticket_id, tenant,
+                                    lane, queue_wait_seconds}}, or {status:
                                     "dispatched", mode: "load_balance",
-                                    worker} when one worker took it all
+                                    worker, scheduler} when one worker took
+                                    it all
     POST /distributed/cancel/{job_id} {reason?} → the store's refund
                                     accounting with status "cancelled" and
                                     cancel_latency_ms; 404 for an unknown job
@@ -37,6 +40,18 @@ or CDT_INPUT_DIR): where its LoadImage reads. (The JAX routes read the
 environment's or the default directory and ignore the config's; ROADMAP
 Queue 3.)
 
+Admission (scheduler/): a request is admitted into its lane (a budget
+tenant's request without a lane rides the cheap lane, CDT_BUDGET_TENANTS
+and CDT_CHEAP_LANE) and waits for a grant under a `sched.wait` span,
+the root of the execution's trace (the route fixes the trace id). A
+shed lane (brownout), a full lane, a grant wait past
+CDT_SCHED_GRANT_TIMEOUT, a deadline the estimated queue wait already
+misses and a deadline that expired while queued answer 429, a draining
+scheduler 503, all with Retry-After; a ticket withdrawn while queued
+(DELETE /distributed/queue/{ticket_id}) answers 409. What rides into the
+job is the deadline's remainder after the wait. Every exit hands the
+ticket back: a queued one is cancelled, a granted one released.
+
 The deadline may also come as the X-CDT-Deadline header. An envelope
 with `audio` answers 501: audio payloads are not ported (ROADMAP.md,
 Queue 1 step 6b). A cancel or an envelope carrying the X-CDT-Trace-Id
@@ -56,16 +71,30 @@ import torch
 
 from ..adapters.registry import AdapterError, get_adapter_catalog
 from ..graph.io_dirs import resolve_input_path
+from ..scheduler import (
+    AdmissionClosed,
+    DeadlineUnmeetable,
+    SchedulerOverloaded,
+    SchedulerSaturated,
+)
+from ..telemetry import get_tracer
 from ..telemetry.instruments import collector_results_total
 from ..utils import image as img_utils
-from ..utils.constants import JOB_INIT_GRACE_SECONDS
+from ..utils import constants
+from ..utils.constants import JOB_INIT_GRACE_SECONDS, budget_tenants, cheap_lane
 from ..utils.exceptions import PromptValidationError
 from ..utils.logging import log
+from ..utils.trace_logger import generate_trace_id
 from .httpd import Request, Response, Router, json_response, parse_multipart
 from .orchestration.media_sync import file_md5
 from .orchestration.queue_orchestration import orchestrate_distributed_execution
 from .queue_request import QueueRequestError, parse_deadline_seconds, parse_queue_request_payload
 from .telemetry_routes import rpc_span
+
+
+# what scheduler.submit_payload refuses with (SchedulerSaturated covers
+# its overloaded and deadline subclasses)
+AdmissionRejected = (SchedulerSaturated, AdmissionClosed)
 
 
 def register(router: Router, server) -> None:
@@ -78,6 +107,27 @@ def register(router: Router, server) -> None:
     router.add_post("/distributed/check_file", routes.check_file)
     router.add_get("/distributed/load_image", routes.load_image)
     router.add_post("/upload/image", routes.upload_image)
+
+
+def _retry_after(seconds: float) -> dict[str, str]:
+    return {"Retry-After": str(int(seconds))}
+
+
+def _admission_answer(exc: Exception) -> Response:
+    """The queue route's answer to a refused admission: 429 for a lane
+    the scheduler cannot serve now, 503 while it drains."""
+    if isinstance(exc, DeadlineUnmeetable):
+        return json_response({"error": str(exc), "lane": exc.lane,
+                              "reason": "deadline_unmeetable", "deadline_s": exc.deadline_s,
+                              "estimated_wait_seconds": round(exc.estimated_wait, 2)},
+                             429, _retry_after(exc.retry_after))
+    if isinstance(exc, SchedulerOverloaded):
+        return json_response({"error": str(exc), "lane": exc.lane, "reason": "shed"}, 429,
+                             _retry_after(exc.retry_after))
+    if isinstance(exc, SchedulerSaturated):
+        return json_response({"error": str(exc), "lane": exc.lane}, 429,
+                             _retry_after(exc.retry_after))
+    return json_response({"error": str(exc)}, 503, _retry_after(exc.retry_after))
 
 
 def validate_envelope(body: Any) -> list[str]:
@@ -101,6 +151,7 @@ class JobRoutes:
         self.server = server
 
     async def queue(self, request: Request) -> Response:
+        arrived_at = time.monotonic()
         body = request.json()
         if body is None:
             return json_response({"error": "invalid json"}, 400)
@@ -119,11 +170,64 @@ class JobRoutes:
                     get_adapter_catalog().resolve_request, payload.adapters)
             except AdapterError as exc:
                 return json_response({"error": str(exc)}, 400)
+        if payload.lane is None and payload.tenant in budget_tenants():
+            payload.lane = cheap_lane()
+        scheduler = getattr(self.server, "scheduler", None)
+        ticket = None
+        if scheduler is not None:
+            # the trace id is fixed here so the sched.wait span and the
+            # execution share one tree
+            payload.trace_id = payload.trace_id or generate_trace_id()
+            try:
+                ticket = scheduler.submit_payload(payload)
+            except AdmissionRejected as exc:
+                return _admission_answer(exc)
+        # every exit below (grant timeout, validation error, a client gone)
+        # hands the ticket back: a leaked one holds a grant slot for good
         try:
-            result = await orchestrate_distributed_execution(self.server, payload)
-        except PromptValidationError as exc:
-            return json_response({"error": str(exc), "node_errors": exc.node_errors}, 400)
-        return json_response(result)
+            if ticket is not None:
+                try:
+                    with get_tracer().span("sched.wait", trace_id=payload.trace_id,
+                                           lane=ticket.lane, tenant=ticket.tenant,
+                                           ticket_id=ticket.ticket_id):
+                        await asyncio.wait_for(ticket.granted(),
+                                               constants.SCHED_GRANT_TIMEOUT_SECONDS)
+                except asyncio.TimeoutError:
+                    return json_response(
+                        {"error": "grant wait expired; scheduler saturated", "lane": ticket.lane},
+                        429, _retry_after(scheduler.queue.estimate_retry_after(ticket.lane)))
+                if ticket.state == "cancelled":
+                    # withdrawn while queued: unwind now, not at the timeout
+                    return json_response({"error": "ticket cancelled before grant",
+                                          "ticket_id": ticket.ticket_id}, 409)
+            if payload.deadline_s is not None:
+                # the deadline is end to end: the queue wait counts, and
+                # the job gets the remainder
+                remaining = payload.deadline_s - (time.monotonic() - arrived_at)
+                if remaining <= 0:
+                    return json_response({"error": "deadline expired while queued",
+                                          "reason": "deadline_expired",
+                                          "deadline_s": payload.deadline_s}, 429,
+                                         _retry_after(1))
+                payload.deadline_s = remaining
+            try:
+                result = await orchestrate_distributed_execution(self.server, payload)
+            except PromptValidationError as exc:
+                return json_response({"error": str(exc), "node_errors": exc.node_errors}, 400)
+            if ticket is not None:
+                result["scheduler"] = {
+                    "ticket_id": ticket.ticket_id,
+                    "tenant": ticket.tenant,
+                    "lane": ticket.lane,
+                    "queue_wait_seconds": ticket.queue_wait_seconds,
+                }
+            return json_response(result)
+        finally:
+            if ticket is not None:
+                if ticket.state == "queued":
+                    scheduler.queue.cancel(ticket)
+                else:
+                    scheduler.queue.release(ticket)  # a no-op unless granted
 
     async def cancel_job(self, request: Request) -> Response:
         """Cancel a running tile job: every pending and in-flight tile is

@@ -13,18 +13,19 @@ theirs; a delegate-only master (settings.master_delegate_only) keeps
 only its collectors and what follows them, unless no worker took a
 prompt.
 
-A request's resolved adapter plan is noted in the store per job
-(`note_job_adapters`); a load-balanced prompt runs whole on one worker
-and carries none, as in the JAX package.
+A request's resolved adapter plan, and its admission lane (resolved by
+the scheduler) and tenant, are noted in the store per job
+(`note_job_adapters`, `note_job_priority`); a load-balanced prompt runs
+whole on one worker and carries no adapters, as in the JAX package.
 
-The execution is one trace: its id is the caller's `trace_id`, else a
-fresh `exec_*` id (utils/trace_logger.py), and the `queue_orchestration`
-span is the root of its tree; under it `probe_workers`, one `media_sync`
+The execution is one trace: its id is the caller's `trace_id`, else the
+one the queue route fixed for its admission (`sched.wait`, the root of
+the tree), else a fresh `exec_*` id (utils/trace_logger.py). Under it
+the `queue_orchestration` span, with `probe_workers`, one `media_sync`
 and one `dispatch` span per worker (the dispatch carries the id in the
 X-CDT-Trace-Id header, so each worker's execution joins it), and the
 master's own execution. Every orchestration counts in
-cdt_orchestrations_total by mode. Not ported: the scheduler's admission
-lanes (ROADMAP.md, Queue 1 step 7).
+cdt_orchestrations_total by mode.
 """
 
 from __future__ import annotations
@@ -101,6 +102,12 @@ async def _orchestrate(server, payload: QueueRequestPayload, trace_id: str) -> d
         await server.job_store.ensure_collector(job_id)
         if payload.deadline_s is not None:
             server.job_store.note_job_deadline(job_id, payload.deadline_s)
+        # the resolved lane, not the raw field: a request without one
+        # lands on the default lane, and '' would rank it below every
+        # lane for preemption
+        scheduler = getattr(server, "scheduler", None)
+        lane = scheduler.resolve_lane(payload.lane) if scheduler is not None else payload.lane
+        server.job_store.note_job_priority(job_id, lane, payload.tenant)
         if payload.adapters:
             # the resolved plan parks in the store until the master's
             # init_tile_job stamps it onto the job, from where job_status

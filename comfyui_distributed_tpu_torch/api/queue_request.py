@@ -1,11 +1,11 @@
 """Queue-request payload parsing and validation.
 
-The port's own copy of comfyui_distributed_tpu/api/queue_request.py,
-without the scheduler's tenant and lane fields: {"prompt" | "workflow":
-{...}, "workers" | "worker_ids": [...], "client_id": str, "trace_id"?:
-str, "deadline_s"?: seconds, "adapters"?: [{"name", "strength"}]};
-errors name the
-offending field. `adapters` is validated here (at most
+The port's own copy of comfyui_distributed_tpu/api/queue_request.py:
+{"prompt" | "workflow": {...}, "workers" | "worker_ids": [...],
+"client_id": str, "trace_id"?: str, "tenant"?: str (the fair-share
+key, default "default"), "lane"?: str (the admission class; an unknown
+lane falls back server-side), "deadline_s"?: seconds, "adapters"?:
+[{"name", "strength"}]}; errors name the offending field. `adapters` is validated here (at most
 MAX_ADAPTERS_PER_REQUEST, adapters/registry.py) and resolved against the
 catalog by the queue route. Every other key of the body lands in
 `extra` (e.g. "load_balance": true, which the orchestration reads), the
@@ -28,14 +28,21 @@ class QueueRequestError(DistributedError):
     pass
 
 
+DEFAULT_TENANT = "default"
+
+
 @dataclasses.dataclass
 class QueueRequestPayload:
     prompt: dict[str, Any]
     client_id: str
     worker_ids: list[str]
-    # the caller's trace id for the execution (None = the orchestration
+    # the caller's trace id for the execution (None = the queue route
     # makes one)
     trace_id: str | None = None
+    # the fair-share accounting key and the admission lane (None = the
+    # scheduler's default lane, or the cheap lane for a budget tenant)
+    tenant: str = DEFAULT_TENANT
+    lane: str | None = None
     # end-to-end deadline in seconds from arrival (None = none): rides
     # the job record, which expires overdue work
     deadline_s: float | None = None
@@ -80,6 +87,12 @@ def parse_queue_request_payload(body: Any) -> QueueRequestPayload:
         workers = []
     if not isinstance(workers, list) or not all(isinstance(w, (str, int)) for w in workers):
         raise QueueRequestError("'workers' must be a list of ids")
+    tenant = body.get("tenant", DEFAULT_TENANT)
+    if not isinstance(tenant, str) or not tenant:
+        raise QueueRequestError("'tenant' must be a non-empty string")
+    lane = body.get("lane")
+    if lane is not None and (not isinstance(lane, str) or not lane):
+        raise QueueRequestError("'lane' must be a non-empty string")
     try:
         adapters = parse_adapter_specs(body.get("adapters"))
     except AdapterError as exc:
@@ -89,6 +102,8 @@ def parse_queue_request_payload(body: Any) -> QueueRequestPayload:
         client_id=client_id,
         worker_ids=[str(w) for w in workers],
         trace_id=body.get("trace_id") or None,
+        tenant=tenant,
+        lane=lane,
         deadline_s=parse_deadline_seconds(body.get("deadline_s")),
         adapters=adapters,
         extra={k: v for k, v in body.items() if k not in _PARSED_KEYS},

@@ -7,8 +7,8 @@ api/httpd.py instead of aiohttp. It owns:
   GET /history/{prompt_id}, and the /distributed/* routes: the jobs
   (api/job_routes.py), the elastic tier (api/usdu_routes.py), the worker
   processes, websocket dispatch and host info (api/worker_routes.py),
-  the config (api/config_routes.py) and the telemetry
-  (api/telemetry_routes.py);
+  the config (api/config_routes.py), the telemetry
+  (api/telemetry_routes.py) and the scheduler (api/scheduler_routes.py);
 - the prompt queue, consumed by one executor thread running the graph
   executor, so compute never blocks the loop; every prompt shares the
   server's `execution_context.pipelines` (loaded models) and `extras`
@@ -16,7 +16,18 @@ api/httpd.py instead of aiohttp. It owns:
   (or the orchestration) names, else its prompt id, and runs under an
   `execute_prompt` span;
 - the JobStore of the elastic tier, and the scrape-time collectors of
-  its live state, bound at start and unbound at stop.
+  its live state, bound at start and unbound at stop;
+- the control plane, as the JAX server wires it by default: the
+  `SchedulerControl` (admission lanes and fair share in front of the
+  orchestration, its placement policy sizing the store's grants, the
+  brownout controller), the `PreemptionCoordinator`, the poison pardon
+  into the breaker, the store's latency fan-out (placement, watchdog,
+  the tile-latency SLO) and settle sink, the straggler and stall
+  `Watchdog` (CDT_WATCHDOG=0 turns it off entirely), and on a master
+  the fleet plane (CDT_FLEET=0 turns it off): the `FleetRegistry` with
+  its usage aggregator, the `SLOEngine` and the `FleetMonitor`. The
+  watchdog and fleet-monitor threads start with the server and stop
+  with it, each woken from its interval wait by the stop.
 
 The same server runs on master and workers; a prompt's hidden inputs
 (written by the orchestration) decide each node's role. `device` is
@@ -70,6 +81,7 @@ class DistributedServer:
         self.config_path = config_path
         self.device = device or "cuda"
         self.job_store = JobStore()
+        self._wire_control_plane()
         self.router = Router()
         self.http: Optional[HTTPServer] = None
         self.loop: Optional[asyncio.AbstractEventLoop] = None
@@ -83,6 +95,69 @@ class DistributedServer:
         self.ws_prompts = 0
         self._unbind_telemetry: Any = lambda: None
         self._register_routes()
+
+    def _wire_control_plane(self) -> None:
+        """The scheduler, preemption, watchdog and fleet plane, wired to
+        the store as the JAX server wires them (without the region plane,
+        the journal and the incident plane)."""
+        from ..resilience.health import get_health_registry
+        from ..scheduler import PreemptionCoordinator, SchedulerControl
+        from ..telemetry.watchdog import Watchdog
+        from ..utils.constants import FLEET_ENABLED
+
+        health = get_health_registry()
+        store = self.job_store
+        # CDT_WATCHDOG=0: no latency feed, no thread, no final pass
+        self._watchdog_enabled = os.environ.get("CDT_WATCHDOG", "1") != "0"
+        self.watchdog = Watchdog(store=store, health=health)
+        self.scheduler = SchedulerControl(health=health)
+        store.placement = self.scheduler.placement
+        self.preempt = PreemptionCoordinator(self.scheduler.queue.lane_order, store)
+        store.preempt_policy = self.preempt
+
+        def brownout_evict(level: int, shed_lanes: list) -> None:
+            # evaluate() runs on the server loop (admission): schedule the
+            # eviction sweep without blocking admission
+            try:
+                asyncio.get_running_loop().create_task(self.preempt.on_brownout(level, shed_lanes))
+            except RuntimeError:
+                pass
+
+        self.scheduler.brownout.preempt_hook = brownout_evict
+
+        def poison_pardon(worker_ids: list) -> None:
+            for wid in worker_ids:
+                health.pardon(str(wid))
+
+        store.poison_pardon = poison_pardon
+        sinks = [self.scheduler.placement.record_latency]
+        if self._watchdog_enabled:
+            sinks.append(self.watchdog.record_latency)
+
+        def latency_fan_out(worker_id: str, seconds: float) -> None:
+            for sink in sinks:
+                sink(worker_id, seconds)
+
+        store.latency_sink = latency_fan_out
+        store.settle_sink = self.scheduler.note_cache_settled
+        self.fleet = None
+        self.slo = None
+        self._fleet_monitor = None
+        if FLEET_ENABLED and not self.is_worker:
+            from ..telemetry.fleet import FleetMonitor, FleetRegistry
+            from ..telemetry.slo import SLOEngine
+
+            self.slo = SLOEngine()
+            self.fleet = FleetRegistry()
+            self.fleet.bind_master(scheduler=self.scheduler, job_store=store, slo=self.slo)
+            self._fleet_monitor = FleetMonitor(self.fleet, slo=self.slo)
+            slo_engine = self.slo
+            sinks.append(lambda _wid, sec: slo_engine.note_latency("tile_latency", sec))
+            # a worker the placement policy forgets leaves the fleet view
+            self.scheduler.placement.on_forget = self.fleet.forget_worker
+            if self.fleet.usage is not None:
+                # CDT_USAGE_COST: DRR cost meters a tenant's measured burn
+                self.scheduler.usage_cost = self.fleet.usage.cost_ratio
 
     # --- config ----------------------------------------------------------
 
@@ -102,7 +177,14 @@ class DistributedServer:
     # --- routes ----------------------------------------------------------
 
     def _register_routes(self) -> None:
-        from . import config_routes, job_routes, telemetry_routes, usdu_routes, worker_routes
+        from . import (
+            config_routes,
+            job_routes,
+            scheduler_routes,
+            telemetry_routes,
+            usdu_routes,
+            worker_routes,
+        )
 
         self.router.add_get("/prompt", self.handle_get_prompt)
         self.router.add_post("/prompt", self.handle_post_prompt)
@@ -113,6 +195,7 @@ class DistributedServer:
         worker_routes.register(self.router, self)
         config_routes.register(self.router, self)
         telemetry_routes.register(self.router, self)
+        scheduler_routes.register(self.router, self)
 
     # --- prompt queue ----------------------------------------------------
 
@@ -243,6 +326,10 @@ class DistributedServer:
         from ..telemetry import bind_server_collectors
 
         self._unbind_telemetry = bind_server_collectors(self)
+        if self._watchdog_enabled:
+            self.watchdog.start()
+        if self._fleet_monitor is not None:
+            self._fleet_monitor.start()
         log(f"{'worker' if self.is_worker else 'master'} server listening on "
             f"{self.host}:{self.port} (device {self.device})")
 
@@ -252,6 +339,13 @@ class DistributedServer:
         if self.http is not None:
             await self.http.stop()
             self.http = None
+        # joined off the loop: a speculation pass in flight blocks the
+        # watchdog thread on a coroutine scheduled on this loop
+        if self._watchdog_enabled:
+            await asyncio.to_thread(self.watchdog.stop)
+        if self._fleet_monitor is not None:
+            # its step touches only the series store and the bus
+            self._fleet_monitor.stop()
         self._unbind_telemetry()
         self._unbind_telemetry = lambda: None
         self._prompt_queue.put(None)

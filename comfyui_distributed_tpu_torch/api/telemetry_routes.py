@@ -6,6 +6,12 @@ comfyui_distributed_tpu/api/telemetry_routes.py, on api/httpd.py:
     GET  /distributed/metrics           Prometheus text exposition
     GET  /distributed/trace/{trace_id}  span tree JSON for one execution
     GET  /distributed/traces            paginated trace-id listing
+    GET  /distributed/fleet             fleet rollup and per-worker drill-down
+                                        (?since=SECONDS adds history,
+                                        ?worker=ID scopes it)
+    GET  /distributed/alerts            SLO burn rates and alert state
+    GET  /distributed/usage             chip-time attribution by tenant,
+                                        lane and job (?since=, ?tenant=)
     GET  /distributed/cache             tile-cache stats
     POST /distributed/cache/clear       drop both tile-cache tiers
 
@@ -16,16 +22,18 @@ and the runtime gauges (telemetry/runtime.py). A master and a worker in
 one process share it; the `role`, `worker_id` and `server` labels keep
 their series apart.
 
+The fleet, alerts and usage routes answer `{"enabled": false, "hint"}`
+on a server without the fleet plane (a worker, or CDT_FLEET=0).
 Not registered, so they answer 404 as the port's other unported routes
 do, each with its ROADMAP.md item (Queue 1 step 7): /distributed/events
-(with push grants), /distributed/usage, /distributed/fleet and
-/distributed/alerts (the fleet plane), /distributed/durability and the
-profiler-capture routes.
+(with push grants), /distributed/durability and the profiler-capture
+routes.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Any
 
 from ..telemetry import TRACE_HEADER, get_metrics_registry, get_tracer
@@ -55,6 +63,9 @@ def register(router: Router, server) -> None:
     router.add_get("/distributed/metrics", routes.metrics)
     router.add_get("/distributed/trace/{trace_id}", routes.trace)
     router.add_get("/distributed/traces", routes.traces)
+    router.add_get("/distributed/fleet", routes.fleet)
+    router.add_get("/distributed/alerts", routes.alerts)
+    router.add_get("/distributed/usage", routes.usage)
     router.add_get("/distributed/cache", routes.cache)
     router.add_post("/distributed/cache/clear", routes.cache_clear)
 
@@ -66,6 +77,62 @@ class TelemetryRoutes:
     async def metrics(self, request: Request) -> Response:
         body = get_metrics_registry().render()
         return Response.raw(body.encode("utf-8"), PROMETHEUS_CONTENT_TYPE)
+
+    @staticmethod
+    def _since(request: Request) -> tuple[float | None, Response | None]:
+        """The `since` query parameter: (seconds or None, None), or
+        (None, a 400 answer) when it is not a finite number >= 0."""
+        since_param = request.query.get("since")
+        if since_param is None:
+            return None, None
+        try:
+            since_s = float(since_param)
+        except (TypeError, ValueError):
+            return None, json_response({"error": "since must be a number of seconds"}, 400)
+        # NaN and Infinity would serialize as non-standard JSON tokens
+        if not math.isfinite(since_s) or since_s < 0:
+            return None, json_response({"error": "since must be a finite number >= 0"}, 400)
+        return since_s, None
+
+    async def fleet(self, request: Request) -> Response:
+        """Fleet rollups and per-worker drill-down (telemetry/fleet.py)."""
+        registry = getattr(self.server, "fleet", None)
+        if registry is None:
+            return json_response({"enabled": False,
+                                  "hint": "fleet plane runs on masters with CDT_FLEET=1"})
+        since_s, error = self._since(request)
+        if error is not None:
+            return error
+        payload = registry.status(since_s=since_s, worker=request.query.get("worker"))
+        payload["enabled"] = True
+        return json_response(payload)
+
+    async def usage(self, request: Request) -> Response:
+        """Chip-time attribution from the master's usage aggregator: the
+        fleet rollup by tenant, lane and job, the waste breakdown, the
+        conservation identity and the measured cost model."""
+        fleet = getattr(self.server, "fleet", None)
+        aggregator = getattr(fleet, "usage", None) if fleet else None
+        if aggregator is None:
+            return json_response({"enabled": False,
+                                  "hint": "usage metering runs on masters with CDT_FLEET=1 "
+                                          "and CDT_USAGE=1"})
+        since_s, error = self._since(request)
+        if error is not None:
+            return error
+        return json_response(aggregator.status(since_s=since_s,
+                                               tenant=request.query.get("tenant")))
+
+    async def alerts(self, request: Request) -> Response:
+        """The SLO engine: every spec's burn rates, the open alerts and
+        the bounded transition history."""
+        engine = getattr(self.server, "slo", None)
+        if engine is None:
+            return json_response({"enabled": False,
+                                  "hint": "SLO engine runs on masters with CDT_FLEET=1"})
+        payload = engine.status()
+        payload["enabled"] = True
+        return json_response(payload)
 
     async def trace(self, request: Request) -> Response:
         trace_id = request.match_info["trace_id"]

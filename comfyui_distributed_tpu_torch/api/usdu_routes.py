@@ -22,9 +22,18 @@ A pull, a submit and a hand-back carrying the X-CDT-Trace-Id header are
 spans of that trace (`rpc.request_image` with the tile it handed out,
 `rpc.submit_tiles` with the tiles and how many were accepted,
 `rpc.submit_image`, `rpc.return_tiles`), so a worker's RPCs sit in the
-master's tree of the execution. Left out: fencing epochs (409
-stale_epoch), the standby gate, the fleet-telemetry piggyback (ROADMAP.md,
-Queue 1 step 7), cross-job grants and preemption.
+master's tree of the execution.
+
+The control plane, as in the JAX routes: a pull or heartbeat carrying
+`devices` advertises the worker's chip count to the placement policy,
+and one carrying `telemetry` (the worker's fleet snapshot,
+telemetry/fleet.py::local_snapshot) is merged into the master's fleet
+registry. A pull with `batch_max` > 1 takes a grant sized by the
+placement policy and answers `tile_idxs` beside `tile_idx` (its first
+element). A pull or heartbeat of a preempted job answers `preempt: true`
+and `preempt_reason`. Left out: fencing epochs (409 stale_epoch), the
+standby gate, cross-job grants (`any_job`) and preemption checkpoints
+(ROADMAP.md, Queue 1 steps 7 and 7b).
 """
 
 from __future__ import annotations
@@ -60,6 +69,24 @@ class UsduRoutes:
     def __init__(self, server):
         self.server = server
 
+    def _note_worker(self, worker_id: str, body: dict) -> None:
+        """A work RPC's advisory fields: the advertised capacity and the
+        piggybacked fleet snapshot (merged only on a master running the
+        fleet registry; a malformed one is counted and dropped, never an
+        RPC error)."""
+        if "devices" in body:
+            self.server.job_store.note_worker_capacity(worker_id, body["devices"])
+        registry = getattr(self.server, "fleet", None)
+        snapshot = body.get("telemetry")
+        if registry is not None and snapshot is not None:
+            registry.note_snapshot(worker_id, snapshot)
+
+    @staticmethod
+    def _note_preempt(response: dict, job) -> None:
+        if job is not None and job.preempt_requested:
+            response["preempt"] = True
+            response["preempt_reason"] = job.preempt_reason
+
     async def _live_job(self, job_id: str):
         """The job, parking up to the creation grace for one not created
         yet; None at once for a job that finished."""
@@ -69,49 +96,72 @@ class UsduRoutes:
         return await store.wait_for_tile_job(job_id, JOB_INIT_GRACE_SECONDS)
 
     async def heartbeat(self, request: Request) -> Response:
-        ids = _job_and_worker(request.json())
+        body = request.json()
+        ids = _job_and_worker(body)
         if ids is None:
             return json_response(_MISSING_IDS, 400)
-        ok = await self.server.job_store.heartbeat(*ids)
-        return json_response({"status": "ok" if ok else "unknown_job"})
+        self._note_worker(ids[1], body)
+        store = self.server.job_store
+        ok = await store.heartbeat(*ids)
+        response = {"status": "ok" if ok else "unknown_job"}
+        # the eviction side channel for a worker mid-grant
+        self._note_preempt(response, await store.get_tile_job(ids[0]))
+        return json_response(response)
 
     async def request_image(self, request: Request) -> Response:
         """Pull work: {tile_idx | None, estimated_remaining,
         batched_static} (`image_idx` in place of `tile_idx` for a
-        dynamic-mode job's frame), plus `cancelled`/`cancel_reason` when the job was
-        cancelled and `deadline_remaining` when it has a deadline."""
-        ids = _job_and_worker(request.json())
+        dynamic-mode job's frame), plus `tile_idxs` when the pull asked
+        for a grant (`batch_max` > 1), `cancelled`/`cancel_reason` when
+        the job was cancelled, `deadline_remaining` when it has a
+        deadline and `preempt`/`preempt_reason` while it is preempted."""
+        body = request.json()
+        ids = _job_and_worker(body)
         if ids is None:
             return json_response(_MISSING_IDS, 400)
         job_id, worker_id = ids
+        try:
+            batch_max = max(1, int(body.get("batch_max", 1)))
+        except (TypeError, ValueError):
+            batch_max = 1
+        self._note_worker(worker_id, body)
         store = self.server.job_store
+        task_ids: list[int] = []
         with rpc_span(request, "rpc.request_image", worker_id=worker_id, job_id=job_id) as span:
             job = await self._live_job(job_id)
             if job is not None:
                 try:
-                    task_id = await store.pull_task(job_id, worker_id,
-                                                    timeout=QUEUE_POLL_INTERVAL_SECONDS)
+                    task_ids = await store.pull_tasks(job_id, worker_id,
+                                                      timeout=QUEUE_POLL_INTERVAL_SECONDS,
+                                                      limit=batch_max)
                 except JobQueueError:  # cleaned up since
                     job = None
-            if span is not None and job is not None and task_id is not None:
-                span.attrs["tile_idx"] = int(task_id)
+            if span is not None and task_ids:
+                span.attrs["tile_idx"] = int(task_ids[0])
+                if len(task_ids) > 1:
+                    span.attrs["batch"] = [int(t) for t in task_ids]
         if job is None:
             if job_id in store.finished:
-                return json_response({"tile_idx": None, "estimated_remaining": 0,
-                                      "batched_static": True})
+                answer = {"tile_idx": None, "estimated_remaining": 0, "batched_static": True}
+                if batch_max > 1:
+                    answer["tile_idxs"] = []
+                return json_response(answer)
             return json_response({"error": "no such job"}, 404)
         key = "image_idx" if isinstance(job, ImageJob) else "tile_idx"
         response = {
-            key: task_id,
+            key: task_ids[0] if task_ids else None,
             "estimated_remaining": await store.remaining(job_id),
             "batched_static": job.batched,
         }
+        if batch_max > 1:
+            response["tile_idxs"] = task_ids
         if job.cancelled:
             response["cancelled"] = True
             response["cancel_reason"] = job.cancel_reason
         deadline_remaining = job.deadline_remaining()
         if deadline_remaining is not None:
             response["deadline_remaining"] = round(deadline_remaining, 3)
+        self._note_preempt(response, job)
         return json_response(response)
 
     async def submit_tiles(self, request: Request) -> Response:

@@ -306,6 +306,8 @@ class TilePipeline:
                 return None
             grant = [int(t) for t in grant]
             span.attrs["tile_idx"] = grant[0]
+            if len(grant) > 1:
+                span.attrs["batch"] = list(grant)
         return grant
 
     def _puller_body(self, grant_q: queue.Queue, trace_id: Optional[str]) -> None:

@@ -53,9 +53,18 @@ cdt_adapter_jobs_total, a worker's failed master RPCs in
 cdt_worker_master_errors_total{op}, and the master charges tiles the
 cache settled to the usage meter's `cached` bucket.
 
+The control plane, as in the JAX package: a worker's pull asks for a
+grant of up to CDT_SCHED_MAX_PULL_BATCH tiles (the master's placement
+policy sizes it) and runs its tiles one after another through the K = 1
+pipeline, one stage span and one usage record a tile; its pulls and
+heartbeats advertise one device and piggyback this process's fleet
+snapshot (telemetry/fleet.py::local_snapshot) at most once per
+CDT_FLEET_SNAPSHOT_SECONDS; a `preempt` answer ends its pulls for the
+job, as a drained answer does.
+
 Left out, each with its ROADMAP item: the master-URL failover list,
-shard routing and fencing epochs, push grants (`GrantSignal`), the
-fleet-telemetry piggyback (Queue 1 step 7), the cross-job tier, the
+shard routing and fencing epochs, push grants (`GrantSignal`) (Queue 1
+step 7), the cross-job tier and preemption checkpoints (step 7b), the
 device canvas and the mesh. Both roles prep the conditioning for tiles
 (ControlNet hints and masks windowed per tile) and take `tiled_decode`.
 
@@ -155,8 +164,11 @@ class HTTPWorkClient:
     patient capped backoff for the pull, the default HTTP policy for
     submits (safe: the master drops duplicate results). Every RPC carries
     the trace id active where the client was made, and a failed one
-    counts in cdt_worker_master_errors_total by operation. One master
-    URL; the failover list, shard routing and fencing epochs are ROADMAP
+    counts in cdt_worker_master_errors_total by operation. Pulls and
+    heartbeats advertise `devices` (one card) and piggyback the fleet
+    snapshot; their answers' `preempt` flag is tracked (absence clears
+    it: it is live scheduling pressure, not a latch). One master URL;
+    the failover list, shard routing and fencing epochs are ROADMAP
     Queue 1, item 3."""
 
     def __init__(self, master_url: str, job_id: str, worker_id: str):
@@ -174,9 +186,51 @@ class HTTPWorkClient:
         # loop's interrupt check reads it
         self.job_cancelled = False
         self.cancel_reason = ""
+        # the master's preemption flag on this job, from the last pull or
+        # heartbeat answer
+        self.preempt_requested = False
+        self.preempt_reason = ""
+        # the advertised grant capacity: one card a worker (the mesh is
+        # ROADMAP Queue 1 item 6)
+        self.devices = 1
+        # the fleet snapshot rides at most one RPC per interval (<= 0:
+        # never)
+        self._telemetry_interval = constants.FLEET_SNAPSHOT_SECONDS
+        self._telemetry_last = 0.0
         # heartbeats run on one thread (the pipeline's I/O stage)
         self._hb_failures = 0
         self._hb_suppressed_until = 0.0
+
+    def _maybe_telemetry(self) -> Optional[dict]:
+        """The fleet snapshot to piggyback on this RPC, or None when one
+        rode recently (or the piggyback is off). Never raises: telemetry
+        must not break the work protocol."""
+        if self._telemetry_interval <= 0:
+            return None
+        now = time.monotonic()
+        if now - self._telemetry_last < self._telemetry_interval:
+            return None
+        self._telemetry_last = now
+        try:
+            from ..telemetry.fleet import local_snapshot
+
+            return local_snapshot(role="worker")
+        except Exception as exc:  # noqa: BLE001 - an advisory payload
+            debug_log(f"fleet snapshot build failed: {exc}")
+            return None
+
+    def _work_payload(self) -> dict:
+        """The fields of a pull or heartbeat: the ids, the advertised
+        capacity and, when one is due, the fleet snapshot."""
+        payload = {"job_id": self.job_id, "worker_id": self.worker_id, "devices": self.devices}
+        snapshot = self._maybe_telemetry()
+        if snapshot is not None:
+            payload["telemetry"] = snapshot
+        return payload
+
+    def _learn_preempt(self, out: dict) -> None:
+        self.preempt_requested = bool(out.get("preempt"))
+        self.preempt_reason = str(out.get("preempt_reason", ""))
 
     async def _post(self, path: str, payload: dict, timeout: float = 60.0,
                     op: str = "transport") -> dict:
@@ -214,16 +268,19 @@ class HTTPWorkClient:
 
         return run_async_in_server_loop(poll(), timeout=None)
 
-    def request_tile(self) -> Optional[dict]:
-        """Pull the next tile; None when drained (or the master stayed
-        unreachable through the whole pull policy)."""
+    def request_tile(self, batch_max: int = 1) -> Optional[dict]:
+        """Pull the next work; None when drained (or the master stayed
+        unreachable through the whole pull policy). `batch_max` > 1 asks
+        for a grant the master's placement policy sizes: the answer then
+        carries `tile_idxs` beside `tile_idx`."""
+        payload = self._work_payload()
+        if batch_max > 1:
+            payload["batch_max"] = int(batch_max)
 
         async def pull():
             try:
                 return await retry_async(
-                    lambda: self._post("/distributed/request_image",
-                                       {"job_id": self.job_id, "worker_id": self.worker_id},
-                                       op="pull"),
+                    lambda: self._post("/distributed/request_image", payload, op="pull"),
                     work_pull_policy(), label=f"request_tile:{self.worker_id}",
                 )
             except (WorkerError,) + transport_errors() as exc:
@@ -237,6 +294,7 @@ class HTTPWorkClient:
             self.job_cancelled = True
             self.cancel_reason = str(out.get("cancel_reason", ""))
             return None
+        self._learn_preempt(out)
         if out.get("tile_idx") is None and out.get("image_idx") is None:
             return None
         return out
@@ -282,11 +340,14 @@ class HTTPWorkClient:
         if time.monotonic() < self._hb_suppressed_until:
             return
 
+        payload = self._work_payload()
+
         async def beat():
             try:
-                await self._post("/distributed/heartbeat",
-                                 {"job_id": self.job_id, "worker_id": self.worker_id},
-                                 timeout=30.0, op="heartbeat")
+                # the eviction side channel: a worker mid-grant may be a
+                # tile away from its next pull
+                self._learn_preempt(await self._post("/distributed/heartbeat", payload,
+                                                     timeout=30.0, op="heartbeat"))
             except (WorkerError,) + transport_errors() as exc:
                 self._hb_failures += 1
                 backoff = min(HEARTBEAT_BACKOFF_BASE_SECONDS * 2.0 ** (self._hb_failures - 1),
@@ -460,6 +521,9 @@ def run_worker_loop(
 
     pending: list[dict] = []
     pending_bytes = 0
+    # a grant of up to CDT_SCHED_MAX_PULL_BATCH tiles a device, which the
+    # master's placement policy sizes
+    pull_cap = constants.SCHED_MAX_PULL_BATCH * max(1, int(getattr(client, "devices", 1)))
 
     def emit(tile_idx: int, arr) -> None:
         """One processed tile (host-side [B, h, w, C]) → pending entries;
@@ -492,10 +556,15 @@ def run_worker_loop(
         pending, pending_bytes = [], 0
 
     def pull() -> Optional[list[int]]:
-        if getattr(client, "job_cancelled", False):
+        """The next grant's tile ids; None once the job is cancelled or
+        preempted (a preempted job's pulls read as drained)."""
+        if getattr(client, "job_cancelled", False) or getattr(client, "preempt_requested",
+                                                              False):
             return None
-        work = client.request_tile()
-        return None if work is None else [int(work["tile_idx"])]
+        work = client.request_tile(batch_max=pull_cap)
+        if work is None:
+            return None
+        return [int(t) for t in (work.get("tile_idxs") or [work["tile_idx"]])]
 
     def check_abort() -> None:
         """Between tiles: the prompt's interrupt, or a cancellation the
@@ -706,6 +775,8 @@ def run_master_elastic(
                 pull_span.attrs["outcome"] = "empty"
             else:
                 pull_span.attrs["tile_idx"] = int(grant[0])
+                if len(grant) > 1:
+                    pull_span.attrs["batch"] = [int(t) for t in grant]
         if not grant:
             empty_pulls += 1
             drain_results()

@@ -53,8 +53,14 @@ class TileJob:
     worker_status: dict[str, float] = dataclasses.field(default_factory=dict)
     # worker_id → task ids currently assigned (for requeue)
     assigned: dict[str, set[int]] = dataclasses.field(default_factory=dict)
-    # (worker_id, task_id) → assignment monotonic time
+    # (worker_id, task_id) → assignment monotonic time: the pull-to-submit
+    # latency the watchdog and the placement policy consume
     assigned_at: dict[tuple[str, int], float] = dataclasses.field(default_factory=dict)
+    # worker_id → monotonic time of its last submit to this job: bounds
+    # the service time of tiles pulled in one grant
+    last_submit: dict[str, float] = dataclasses.field(default_factory=dict)
+    # task ids the stall watchdog speculatively re-enqueued (once each)
+    speculated: set[int] = dataclasses.field(default_factory=set)
     finished_workers: set[str] = dataclasses.field(default_factory=set)
     created_at: float = dataclasses.field(default_factory=time.monotonic)
     # batched static mode: one task id covers the whole image batch
@@ -69,6 +75,9 @@ class TileJob:
     # task id → failed delivery attempts (timeout requeues); a task at
     # the attempt budget is quarantined out of the pull set
     attempts: dict[int, int] = dataclasses.field(default_factory=dict)
+    # task id → workers whose crash charged an attempt: pardoned when
+    # the tile turns out to be poison
+    attempt_workers: dict[int, list[str]] = dataclasses.field(default_factory=dict)
     quarantined_tiles: set[int] = dataclasses.field(default_factory=set)
     # tiles settled from the content-addressed tile cache (cache/): done
     # without ever entering the pull set
@@ -77,6 +86,15 @@ class TileJob:
     # "content_hash"}], adapters/registry.py::specs_to_wire), served by
     # job_status to pulling workers; [] = the base model
     adapters: list = dataclasses.field(default_factory=list)
+    # the admission lane and tenant the job was queued under: the
+    # preemption coordinator ranks jobs by lane, the usage meter
+    # attributes them by tenant and lane
+    lane: str = ""
+    tenant: str = "default"
+    # a preemption request of the scheduler's coordinator: pulls read as
+    # drained and pull/heartbeat answers carry `preempt` until it lifts
+    preempt_requested: bool = False
+    preempt_reason: str = ""
 
     def heartbeat(self, worker_id: str) -> None:
         self.worker_status[worker_id] = time.monotonic()

@@ -7,14 +7,31 @@ semantics:
 - a job is created by the master's loop (`init_tile_job`); a worker's
   pull or submit that arrives first parks on a per-job creation future
   up to a grace period, never a poll loop;
-- pulls pop one task id (no placement policy: a batch is one tile); an
-  EMPTY pull still heartbeats, since a worker draining the tail is alive;
+- a pull pops one task id, and a grant (`pull_tasks`) as many as the
+  placement policy sizes for the worker (scheduler/placement.py:
+  `batch_size` from its speed EWMA and advertised capacity, 1 without a
+  policy); the policy may deny a slow or suspect worker the job's tail
+  (`may_pull`: the pull reads as drained, outcome "trimmed"). An EMPTY
+  pull still heartbeats, since a worker draining the tail is alive;
+- every completion's pull-to-submit service time (measured from the
+  later of its assignment and the worker's previous submit, to ANY job;
+  a flush's interval split evenly over its tiles) feeds
+  cdt_worker_tile_seconds and the `latency_sink` (the server fans it out
+  to the placement policy, the watchdog and the tile-latency SLO);
 - completions are idempotent: the first result wins and duplicates (a
   requeued-then-recovered worker's late submission) are dropped;
 - the timeout scan snapshots under the lock and probes stale workers
   outside it (a worker busy on a tile is given grace); their tiles go
   back to the queue, and a tile that exhausts its attempt budget is
-  quarantined instead;
+  quarantined instead, the workers charged for it pardoned through the
+  `poison_pardon` hook (the breaker's `pardon`) outside the lock;
+- the stall watchdog's speculative requeue (`speculate_in_flight`)
+  enqueues copies of in-flight tiles without revoking them: the first
+  result wins, and the loser's measured time is `speculation` waste;
+- preemption (scheduler/preempt.py drives `request_preemption`,
+  `clear_preemption` and `preempt_victims`): a flagged job's pulls read
+  as drained (outcome "preempted") until the flags lift; the
+  coordinator hears of every creation, cleanup and cancellation;
 - cancellation refunds every pending and in-flight tile; later pulls
   read as drained and later submissions drop;
 - a collector job gathers workers' image envelopes in a queue; an
@@ -27,14 +44,17 @@ semantics:
   created anew. (The JAX package never calls `cleanup_collector`: there
   every collector job and its queue outlive their prompt.)
 
-A job's adapter plan, noted by the orchestration before the master
-creates the job (`note_job_adapters`), is stamped onto it at creation;
+A job's adapter plan and its admission lane and tenant, noted by the
+orchestration before the master creates the job (`note_job_adapters`,
+`note_job_priority`), are stamped onto it at creation;
 tiles served by the master's tile cache settle atomically with creation
 (`init_tile_job(cache_settled=)`) or later (`settle_cached`), complete
-without ever entering the pull set.
+without ever entering the pull set, and each settle tells the
+`settle_sink` (the scheduler's admission-gap accounting).
 
-Left out: fencing epochs, the write-ahead journal, preemption, the
-cross-job tier, placement and fault injection.
+Left out: fencing epochs, the write-ahead journal, preemption
+checkpoints (their take, retain and resume), the cross-job tier and its
+multi-job grants, push-grant notifications and fault injection.
 
 Every accepted completion is recorded with its participant
 (`TileJob.completions`); on cleanup a job's record moves to
@@ -48,8 +68,11 @@ heartbeat too) in cdt_store_heartbeats_total, requeues by reason
 (timeout|released), cancellations, refunds, quarantines and cache
 settles in their counters; a created job publishes `job_ready` and a
 cancelled one `job_cancelled` on the event bus; and the usage meter
-learns each job's tenant and adapter plan at creation and the measured
-assignment time of a failed delivery attempt (`poison_retry` waste).
+learns each job's tenant, lane and adapter plan at creation, the
+measured assignment time of a failed delivery attempt (`poison_retry`
+waste) and a lost speculative race (`speculation` waste); preemption
+requests count in cdt_preempt_total and pardons in
+cdt_poison_pardons_total.
 `stats_unlocked` serves the scrape-time gauges.
 """
 
@@ -70,6 +93,8 @@ FINISHED_KEPT = 64
 CLEANED_COLLECTORS_KEPT = 4096
 # deadlines noted for jobs not created yet (job ids arrive from the network)
 PENDING_DEADLINES_KEPT = 512
+# workers whose last submit time is kept (cross-job service times)
+WORKER_LAST_SUBMIT_KEPT = 1024
 
 
 def _note_usage(record: Callable[[Any], None]) -> None:
@@ -113,6 +138,66 @@ class JobStore:
         # ids of cleaned-up collector jobs, oldest evicted first (an
         # ordered set): an envelope for one of them is late
         self._cleaned_collectors: dict[str, None] = {}
+        # job_id → (lane, tenant) noted likewise, stamped at init
+        self._pending_priorities: dict[str, tuple[str, str]] = {}
+        # worker_id → monotonic time of its last submit to ANY job: a
+        # tile's service time starts no earlier (bounded, oldest evicted)
+        self._worker_last_submit: dict[str, float] = {}
+        # the scheduler's seams, wired by the server (None = off):
+        # placement (PlacementPolicy: may_pull, batch_size, set_capacity),
+        # the (worker_id, seconds) latency sink, the (tenant, tiles)
+        # settle sink, the preemption coordinator, and the poison pardon
+        # called with the worker ids a quarantined tile charged
+        self.placement: Any = None
+        self.latency_sink: Optional[Callable[[str, float], None]] = None
+        self.settle_sink: Optional[Callable[[str, int], None]] = None
+        self.preempt_policy: Any = None
+        self.poison_pardon: Optional[Callable[[list[str]], None]] = None
+        self._poison_notices: list[tuple[str, list[int], list[str]]] = []
+        # worker_id → advertised chip count (a pull's or heartbeat's
+        # `devices`), bounded like the placement policy's table
+        self.worker_capacity: dict[str, int] = {}
+
+    def note_worker_capacity(self, worker_id: str, devices: Any) -> None:
+        """Record a worker's advertised chip count and hand it to the
+        placement policy. `devices` is an untrusted RPC field that
+        multiplies grant caps: clamped to MAX_WORKER_DEVICES; a malformed
+        value is ignored (capacity never fails a work RPC)."""
+        from ..scheduler.placement import MAX_TRACKED_WORKERS, MAX_WORKER_DEVICES
+
+        try:
+            devices = max(1, min(int(devices), MAX_WORKER_DEVICES))
+        except (TypeError, ValueError):
+            return
+        if worker_id in self.worker_capacity:
+            self.worker_capacity.pop(worker_id)  # to the end: oldest advertised evicts first
+        elif len(self.worker_capacity) >= MAX_TRACKED_WORKERS:
+            self.worker_capacity.pop(next(iter(self.worker_capacity)))
+        self.worker_capacity[worker_id] = devices
+        placement = self.placement
+        if placement is None:
+            return
+        try:
+            # against the policy's own state: a worker it forgot must
+            # land again
+            if placement.capacity(worker_id) != devices:
+                placement.set_capacity(worker_id, devices)
+        except Exception as exc:  # noqa: BLE001 - placement is advisory
+            debug_log(f"placement set_capacity({worker_id}) failed: {exc}")
+
+    def _note_worker_submit_locked(self, worker_id: str, job: TileJob, now: float
+                                   ) -> Optional[float]:
+        """The worker's previous submit mark, the later of its per-job and
+        cross-job marks, then both advanced to `now`. Caller holds
+        self.lock."""
+        prev_job = job.last_submit.get(worker_id)
+        prev_any = self._worker_last_submit.pop(worker_id, None)
+        job.last_submit[worker_id] = now
+        while len(self._worker_last_submit) >= WORKER_LAST_SUBMIT_KEPT:
+            self._worker_last_submit.pop(next(iter(self._worker_last_submit)))
+        self._worker_last_submit[worker_id] = now
+        marks = [m for m in (prev_job, prev_any) if m is not None]
+        return max(marks) if marks else None
 
     def _record_heartbeat(self, job: TileJob, worker_id: str) -> None:
         """A heartbeat of `worker_id` on `job`, counted. Caller holds
@@ -271,6 +356,16 @@ class JobStore:
             self._pending_deadlines.pop(next(iter(self._pending_deadlines)))
         self._pending_deadlines[job_id] = deadline_s
 
+    def note_job_priority(self, job_id: str, lane: Any, tenant: Any) -> None:
+        """Record the admission lane and tenant of a job not created yet,
+        as note_job_deadline does; init stamps them onto the job."""
+        lane = str(lane) if lane else ""
+        tenant = str(tenant) if tenant else "default"
+        self._pending_priorities.pop(job_id, None)
+        while len(self._pending_priorities) >= PENDING_DEADLINES_KEPT:
+            self._pending_priorities.pop(next(iter(self._pending_priorities)))
+        self._pending_priorities[job_id] = (lane, tenant)
+
     def note_job_adapters(self, job_id: str, adapters: Any) -> None:
         """Record a resolved adapter plan (wire form) for a job not created
         yet, as note_job_deadline does. A malformed plan is dropped here
@@ -309,13 +404,16 @@ class JobStore:
     async def init_tile_job(self, job_id: str, task_ids: list[int], batched: bool = True,
                             deadline_s: Optional[float] = None, kind: str = "tile",
                             cache_settled: Optional[list[int]] = None,
-                            adapters: Optional[list] = None) -> TileJob:
+                            adapters: Optional[list] = None, lane: Optional[str] = None,
+                            tenant: Optional[str] = None) -> TileJob:
         """Create the job: a TileJob of tile indices, or with kind "image"
         an ImageJob of frame indices (dynamic mode). `cache_settled`
         settles those tiles from the tile cache under the same lock hold,
-        so no puller ever sees them pending; `adapters` (else the noted
-        plan) rides the job. A job that exists is returned as it is (a
-        settle for it goes through settle_cached)."""
+        so no puller ever sees them pending; `adapters`, `lane` and
+        `tenant` (else the noted ones) ride the job. A job that exists is
+        returned as it is (a settle for it goes through settle_cached).
+        The preemption coordinator hears of the new job after it is
+        created."""
         from ..utils.constants import JOB_DEADLINE_DEFAULT_SECONDS
 
         async with self.lock:
@@ -326,9 +424,12 @@ class JobStore:
             if deadline_s is None and JOB_DEADLINE_DEFAULT_SECONDS > 0:
                 deadline_s = JOB_DEADLINE_DEFAULT_SECONDS
             noted_adapters = self._pending_adapters.pop(job_id, [])
+            noted_lane, noted_tenant = self._pending_priorities.pop(job_id, ("", "default"))
             cls = TileJob if kind == "tile" else ImageJob
             job = cls(job_id=job_id, total_tasks=len(task_ids), batched=batched)
             job.adapters = list(noted_adapters if adapters is None else adapters)
+            job.lane = str(lane) if lane is not None else noted_lane
+            job.tenant = (str(tenant) if tenant is not None else noted_tenant) or "default"
             if deadline_s is not None and deadline_s > 0:
                 job.deadline_s = float(deadline_s)
                 job.deadline_at = time.monotonic() + float(deadline_s)
@@ -345,17 +446,25 @@ class JobStore:
         get_event_bus().publish("job_ready", job_id=job_id, tasks=len(task_ids))
         if settled_at_init:
             instruments.cache_settled_total().inc(len(settled_at_init))
+            self._note_settle_sink(job.tenant, len(settled_at_init))
         adapter_plan = "+".join(f"{a.get('content_hash', '')}:{float(a.get('strength', 1.0)):g}"
                                 for a in job.adapters)
 
         def note(meter) -> None:
-            # the default tenant, no lane: the scheduler's tenants and
-            # lanes are not ported (ROADMAP.md, Queue 1 step 7)
-            meter.note_job_attrs(job_id, "", "")
+            meter.note_job_attrs(job_id, job.tenant, job.lane)
             if adapter_plan:
                 meter.note_job_adapter(job_id, adapter_plan)
 
         _note_usage(note)
+        # a premium-lane arrival may flag running lower-lane work; after
+        # the creation committed (the coordinator takes the lock itself),
+        # and advisory: a broken policy never fails a creation
+        policy = self.preempt_policy
+        if policy is not None:
+            try:
+                await policy.on_job_init(job_id)
+            except Exception as exc:  # noqa: BLE001 - preemption is advisory
+                debug_log(f"preempt on_job_init({job_id}) failed: {exc}")
         return job
 
     async def settle_cached(self, job_id: str, task_ids: list[int]) -> list[int]:
@@ -371,7 +480,16 @@ class JobStore:
             settled = self._settle_cached_locked(job, task_ids)
         if settled:
             instruments.cache_settled_total().inc(len(settled))
+            self._note_settle_sink(job.tenant, len(settled))
         return settled
+
+    def _note_settle_sink(self, tenant: str, count: int) -> None:
+        if self.settle_sink is None:
+            return
+        try:
+            self.settle_sink(tenant, count)
+        except Exception as exc:  # noqa: BLE001 - accounting is advisory
+            debug_log(f"jobs: settle sink failed: {exc}")
 
     def _settle_cached_locked(self, job: TileJob, task_ids: list[int]) -> list[int]:
         """The settle, under self.lock (settle_cached, and init_tile_job's
@@ -410,10 +528,29 @@ class JobStore:
         async with self.lock:
             return self.tile_jobs.get(job_id)
 
+    def _may_pull(self, job: TileJob, worker_id: str) -> bool:
+        """The placement policy's tail trimming; advisory: a policy error
+        lets the pull through."""
+        placement = self.placement
+        if placement is None:
+            return True
+        try:
+            return bool(placement.may_pull(worker_id, job.pending.qsize()))
+        except Exception as exc:  # noqa: BLE001 - placement is advisory
+            debug_log(f"placement may_pull({worker_id}) failed: {exc}")
+            return True
+
+    async def _answer_drained(self, job: TileJob, worker_id: str, outcome: str) -> None:
+        """A pull that reads as drained: heartbeat, count its outcome."""
+        async with self.lock:
+            self._record_heartbeat(job, worker_id)
+        instruments.store_pulls_total().inc(worker_id=worker_id, outcome=outcome)
+
     async def pull_task(self, job_id: str, worker_id: str, timeout: float = 0.1) -> Optional[int]:
         """Pop the next pending task id for a worker (None = drained).
         Records the assignment and a heartbeat; an empty pull heartbeats
-        too."""
+        too. A cancelled job, a preempted one, and a pull the placement
+        policy trims all read as drained."""
         job = await self.get_tile_job(job_id)
         if job is None:
             raise JobQueueError(f"no such job {job_id!r}")
@@ -421,9 +558,15 @@ class JobStore:
             # the overdue job expires the moment anyone asks it for work
             await self.cancel_job(job_id, reason="deadline")
         if job.cancelled:
-            async with self.lock:
-                self._record_heartbeat(job, worker_id)
-            instruments.store_pulls_total().inc(worker_id=worker_id, outcome="cancelled")
+            await self._answer_drained(job, worker_id, "cancelled")
+            return None
+        if job.preempt_requested:
+            # a preempted job answers as a drained one until the flags
+            # lift; its workers learn why from the `preempt` field
+            await self._answer_drained(job, worker_id, "preempted")
+            return None
+        if not self._may_pull(job, worker_id):
+            await self._answer_drained(job, worker_id, "trimmed")
             return None
         try:
             task_id = await asyncio.wait_for(job.pending.get(), timeout)
@@ -431,9 +574,7 @@ class JobStore:
             while task_id in job.quarantined_tiles:
                 task_id = job.pending.get_nowait()
         except (asyncio.TimeoutError, asyncio.QueueEmpty):
-            async with self.lock:
-                self._record_heartbeat(job, worker_id)
-            instruments.store_pulls_total().inc(worker_id=worker_id, outcome="empty")
+            await self._answer_drained(job, worker_id, "empty")
             return None
         async with self.lock:
             self._record_heartbeat(job, worker_id)
@@ -448,35 +589,159 @@ class JobStore:
 
     async def pull_tasks(self, job_id: str, worker_id: str, timeout: float = 0.1,
                          limit: Optional[int] = None) -> list[int]:
-        """A grant: without a placement policy it is one task, exactly
-        `pull_task` (the JAX store's behaviour without placement)."""
+        """A grant: the first task waits up to `timeout` (exactly
+        `pull_task`), more pending tasks are claimed without waiting, up to
+        the placement policy's batch size for this worker (and `limit`).
+        Without a policy a grant is one task."""
         first = await self.pull_task(job_id, worker_id, timeout)
-        return [] if first is None else [first]
+        if first is None:
+            return []
+        tasks = [first]
+        job = await self.get_tile_job(job_id)
+        size = 1
+        if self.placement is not None and job is not None:
+            try:
+                size = int(self.placement.batch_size(worker_id, job.pending.qsize() + 1))
+            except Exception as exc:  # noqa: BLE001 - placement is advisory
+                debug_log(f"placement batch_size({worker_id}) failed: {exc}")
+        if limit is not None:
+            size = min(size, int(limit))
+        if job is not None and size > 1:
+            async with self.lock:
+                while len(tasks) < size and not job.cancelled:
+                    try:
+                        task_id = job.pending.get_nowait()
+                    except asyncio.QueueEmpty:
+                        break
+                    if task_id in job.quarantined_tiles:
+                        continue  # a stale speculated copy of poison
+                    job.assigned.setdefault(worker_id, set()).add(task_id)
+                    job.assigned_at[(worker_id, task_id)] = time.monotonic()
+                    instruments.store_pulls_total().inc(worker_id=worker_id, outcome="task")
+                    tasks.append(task_id)
+        return tasks
 
-    async def submit_result(self, job_id: str, worker_id: str, task_id: int, payload: Any) -> bool:
+    # --- preemption (scheduler/preempt.py drives these) ---------------------
+
+    def _lane_rank(self, lane: str) -> int:
+        """A lane's priority rank (lower = more urgent), from the
+        preemption coordinator; unknown lanes rank last."""
+        policy = self.preempt_policy
+        if policy is not None:
+            try:
+                return int(policy.lane_rank(lane))
+            except Exception:  # noqa: BLE001 - advisory ranking
+                pass
+        return 1 << 20
+
+    async def request_preemption(self, job_ids: list[str], reason: str = "manual") -> list[str]:
+        """Flag jobs for preemption: their pulls read as drained and every
+        pull or heartbeat answer carries `preempt: true`. Returns the jobs
+        newly flagged."""
+        flagged: list[str] = []
+        async with self.lock:
+            for job_id in sorted(str(j) for j in job_ids):
+                job = self.tile_jobs.get(job_id)
+                if job is None or job.cancelled or job.preempt_requested:
+                    continue
+                job.preempt_requested = True
+                job.preempt_reason = str(reason)
+                flagged.append(job_id)
+        if flagged:
+            instruments.preempt_total().inc(len(flagged), reason=str(reason))
+            from ..telemetry.events import get_event_bus
+
+            get_event_bus().publish("preempt_requested", job_ids=flagged, reason=str(reason))
+            log(f"preemption requested ({reason}) for job(s) {', '.join(flagged)}")
+        return flagged
+
+    async def clear_preemption(self, job_ids: list[str]) -> list[str]:
+        """Lift preemption flags: the jobs are pullable again."""
+        cleared: list[str] = []
+        async with self.lock:
+            for job_id in sorted(str(j) for j in job_ids):
+                job = self.tile_jobs.get(job_id)
+                if job is None or not job.preempt_requested:
+                    continue
+                job.preempt_requested = False
+                job.preempt_reason = ""
+                cleared.append(job_id)
+        if cleared:
+            from ..telemetry.events import get_event_bus
+
+            get_event_bus().publish("preempt_cleared", job_ids=cleared)
+        return cleared
+
+    async def preempt_victims(self, premium_rank: int, include_flagged: bool = False
+                              ) -> list[str]:
+        """Jobs that should yield to an arrival of rank `premium_rank`:
+        active, ranked strictly lower, with outstanding work, oldest
+        first. `include_flagged` lists jobs already flagged too (the
+        coordinator records them as a second premium's claims)."""
+        async with self.lock:
+            return [
+                job.job_id
+                for job in sorted(self.tile_jobs.values(), key=lambda j: (j.created_at, j.job_id))
+                if not job.cancelled
+                and (include_flagged or not job.preempt_requested)
+                and self._lane_rank(job.lane) > premium_rank
+                and (job.pending.qsize() > 0
+                     or any(t not in job.completed for tasks in job.assigned.values()
+                            for t in tasks))
+            ]
+
+    async def submit_result(self, job_id: str, worker_id: str, task_id: int, payload: Any,
+                            service_seconds: Optional[float] = None) -> bool:
         """Record one completed task; False if it is a duplicate (already
-        done: first result wins) or the job was cancelled."""
+        done: first result wins) or the job was cancelled. Its service
+        time (`service_seconds`, else measured from the later of its
+        assignment and the worker's previous submit) is observed in
+        cdt_worker_tile_seconds and handed to the latency sink, a
+        duplicate's too: the losing worker did the work."""
         job = await self.get_tile_job(job_id)
         if job is None:
             raise JobQueueError(f"no such job {job_id!r}")
+        now = time.monotonic()
         async with self.lock:
             self._record_heartbeat(job, worker_id)
             if job.cancelled:
                 instruments.store_submits_total().inc(worker_id=worker_id, outcome="cancelled")
                 return False
             job.assigned.get(worker_id, set()).discard(task_id)
-            job.assigned_at.pop((worker_id, task_id), None)
-            if task_id in job.completed:
+            started = job.assigned_at.pop((worker_id, task_id), None)
+            prev_done = self._note_worker_submit_locked(worker_id, job, now)
+            duplicate = task_id in job.completed
+            if duplicate:
                 job.duplicates += 1
-                debug_log(f"duplicate result for {job_id}:{task_id} from {worker_id}")
-                instruments.store_submits_total().inc(worker_id=worker_id, outcome="duplicate")
-                return False
-            instruments.store_submits_total().inc(worker_id=worker_id, outcome="accepted")
-            job.completed[task_id] = payload
-            job.completions.append((int(task_id), worker_id))
-            # a late copy finishing after its tile was quarantined
-            # settles it for real
-            job.quarantined_tiles.discard(task_id)
+            else:
+                job.completed[task_id] = payload
+                job.completions.append((int(task_id), worker_id))
+                # a late copy finishing after its tile was quarantined
+                # settles it for real
+                job.quarantined_tiles.discard(task_id)
+        elapsed: Optional[float] = None
+        if service_seconds is not None:
+            elapsed = service_seconds
+        elif started is not None:
+            elapsed = now - (started if prev_done is None else max(started, prev_done))
+        if elapsed is not None:
+            instruments.worker_tile_seconds().observe(elapsed, worker_id=worker_id)
+            sink = self.latency_sink
+            if sink is not None:
+                try:
+                    sink(worker_id, elapsed)
+                except Exception as exc:  # noqa: BLE001 - observability only
+                    debug_log(f"latency sink failed for {worker_id}: {exc}")
+        if duplicate:
+            debug_log(f"duplicate result for {job_id}:{task_id} from {worker_id}")
+            if elapsed is not None and elapsed > 0 and task_id in job.speculated:
+                # the losing side of a speculative race: measured work
+                # on a tile already won
+                _note_usage(lambda meter: meter.note_waste("master", "speculation", elapsed,
+                                                           job_id=job_id))
+            instruments.store_submits_total().inc(worker_id=worker_id, outcome="duplicate")
+            return False
+        instruments.store_submits_total().inc(worker_id=worker_id, outcome="accepted")
         await job.results.put((task_id, payload))
         return True
 
@@ -484,15 +749,30 @@ class JobStore:
                            received_bytes: int = 0) -> int:
         """Record several tiles that travelled in one submit request;
         returns how many were accepted. `received_bytes` counts the
-        request's tile payloads."""
+        request's tile payloads. Each tile's service time is the flush
+        interval (since the worker's previous submit to any job, or its
+        earliest assignment in the flush) divided evenly: the arrival gaps
+        within one request would read as near-zero latencies."""
         job = await self.get_tile_job(job_id)
         if job is None:
             raise JobQueueError(f"no such job {job_id!r}")
+        now = time.monotonic()
         async with self.lock:
             job.received_bytes += int(received_bytes)
+            marks = [m for m in (job.last_submit.get(worker_id),
+                                 self._worker_last_submit.get(worker_id)) if m is not None]
+            starteds = [s for s in (job.assigned_at.get((worker_id, int(t))) for t in grouped)
+                        if s is not None]
+        share: Optional[float] = None
+        if starteds:
+            base = min(starteds)
+            if marks:
+                base = max(base, max(marks))
+            share = max(now - base, 1e-6) / len(grouped)
         accepted = 0
         for task_id, payload in grouped.items():
-            if await self.submit_result(job_id, worker_id, int(task_id), payload):
+            if await self.submit_result(job_id, worker_id, int(task_id), payload,
+                                        service_seconds=share):
                 accepted += 1
         return accepted
 
@@ -553,6 +833,17 @@ class JobStore:
                 "received_bytes": job.received_bytes,
                 "finished_workers": sorted(job.finished_workers),
             })
+        await self._preempt_settled(job_id)
+
+    async def _preempt_settled(self, job_id: str) -> None:
+        """A settled (finished or cancelled) premium job lifts the
+        preemption flags it raised; advisory."""
+        policy = self.preempt_policy
+        if policy is not None:
+            try:
+                await policy.on_job_settled(job_id)
+            except Exception as exc:  # noqa: BLE001 - preemption is advisory
+                debug_log(f"preempt on_job_settled({job_id}) failed: {exc}")
 
     def drop_late(self, job_id: str, n_tiles: int) -> bool:
         """Count a submission for a job already cleaned up as `n_tiles`
@@ -592,6 +883,8 @@ class JobStore:
                     in_flight[wid] = incomplete
             job.assigned.clear()
             job.assigned_at.clear()
+            # a preemption flag does not outlive the terminal state
+            job.preempt_requested = False
             in_flight_refunded = sum(len(v) for v in in_flight.values())
         instruments.jobs_cancelled_total().inc(reason=str(reason))
         if pending_refunded or in_flight_refunded:
@@ -605,6 +898,7 @@ class JobStore:
                                 workers=sorted(in_flight))
         log(f"job {job_id} cancelled ({reason}): refunded {pending_refunded} pending + "
             f"{in_flight_refunded} in-flight tile(s) across {len(in_flight)} worker(s)")
+        await self._preempt_settled(job_id)
         return {"job_id": job_id, "reason": str(reason), "already_cancelled": False,
                 "pending_refunded": pending_refunded, "in_flight_refunded": in_flight_refunded,
                 "workers": sorted(in_flight)}
@@ -657,12 +951,15 @@ class JobStore:
                     debug_log(f"worker {wid} busy on probe; heartbeat grace")
                     continue
                 requeued.extend(self._requeue_worker_locked(job, wid))
+            self._flush_poison_notices()
         return requeued
 
     def _requeue_worker_locked(self, job: TileJob, worker_id: str) -> list[int]:
         """Put a dead worker's incomplete tasks back on the queue, each
         charged one attempt; a task at the attempt budget is quarantined
-        instead. Caller holds self.lock."""
+        instead, and the workers its attempts charged are noted for a
+        pardon (`_flush_poison_notices`, after the lock). Caller holds
+        self.lock."""
         if job.cancelled:
             return []
         tasks = job.assigned.pop(worker_id, set())
@@ -684,10 +981,13 @@ class JobStore:
         poisoned = []
         for tid in incomplete:
             job.attempts[tid] = job.attempts.get(tid, 0) + 1
+            job.attempt_workers.setdefault(tid, []).append(worker_id)
             if job.attempts[tid] >= max(1, self.max_attempts):
                 poisoned.append(tid)
         if poisoned:
             job.quarantined_tiles.update(poisoned)
+            victims = sorted({w for t in poisoned for w in job.attempt_workers.get(t, [])})
+            self._poison_notices.append((job.job_id, poisoned, victims))
             instruments.poison_quarantined_tiles_total().inc(len(poisoned))
             log(f"POISON: tile(s) {poisoned} on job {job.job_id} exhausted {self.max_attempts} "
                 f"attempt(s); quarantined out of the pull set (policy={self.poison_policy})")
@@ -699,6 +999,24 @@ class JobStore:
         if requeued:
             log(f"requeued {len(requeued)} task(s) from worker {worker_id} on job {job.job_id}")
         return incomplete
+
+    def _flush_poison_notices(self) -> None:
+        """A quarantine's side effects, outside the store lock: the
+        `tile_quarantined` event and the pardon hook (a breaker transition
+        fires listeners that may call back into this store)."""
+        notices, self._poison_notices = self._poison_notices, []
+        from ..telemetry.events import get_event_bus
+
+        for job_id, tiles, victims in notices:
+            get_event_bus().publish("tile_quarantined", job_id=job_id,
+                                    task_ids=[int(t) for t in tiles], pardoned_workers=victims)
+            pardon = self.poison_pardon
+            if pardon is not None and victims:
+                try:
+                    pardon(victims)
+                    instruments.poison_pardons_total().inc(len(victims))
+                except Exception as exc:  # noqa: BLE001 - pardon is advisory
+                    debug_log(f"poison pardon for {victims} failed: {exc}")
 
     async def release_tasks(self, job_id: str, worker_id: str, task_ids: list[int]) -> list[int]:
         """Hand back claimed-but-unprocessed tasks (an interrupted worker's
@@ -724,22 +1042,61 @@ class JobStore:
             log(f"worker {worker_id} returned {len(released)} task(s) on job {job_id}: {released}")
         return released
 
+    async def speculate_in_flight(self, job_id: str) -> list[int]:
+        """The stall watchdog's recovery (MapReduce's backup tasks):
+        enqueue COPIES of every in-flight incomplete task without revoking
+        the original assignment. The first submission wins and the other
+        drops as a duplicate; a tile's noise comes from its global index,
+        so both give the same pixels. Each task is speculated once."""
+        job = await self.get_tile_job(job_id)
+        if job is None:
+            return []
+        per_worker: dict[str, list[int]] = {}
+        async with self.lock:
+            if job.cancelled:
+                return []
+            for wid, tasks in sorted(job.assigned.items()):
+                for tid in sorted(tasks):
+                    if tid in job.completed or tid in job.speculated:
+                        continue
+                    per_worker.setdefault(wid, []).append(tid)
+            for tids in per_worker.values():
+                for tid in tids:
+                    job.speculated.add(tid)
+                    job.pending.put_nowait(tid)
+        speculated = sorted(t for tids in per_worker.values() for t in tids)
+        if speculated:
+            for wid, tids in per_worker.items():
+                instruments.store_requeued_tasks_total().inc(len(tids), worker_id=wid,
+                                                             reason="speculative")
+            from ..telemetry.events import get_event_bus
+
+            get_event_bus().publish("speculative_requeue", job_id=job_id, task_ids=speculated)
+            log(f"speculatively re-enqueued {len(speculated)} in-flight task(s) on job "
+                f"{job_id}: {speculated}")
+        return speculated
+
     # --- observability --------------------------------------------------------
+
+    @staticmethod
+    def tile_job_stats(job: TileJob) -> dict[str, int]:
+        """Live pending and in-flight counts of one job: the one
+        definition the scrape and the watchdog share."""
+        in_flight = sum(len([t for t in list(tasks) if t not in job.completed])
+                        for tasks in list(job.assigned.values()))
+        return {"pending": job.pending.qsize(), "in_flight": in_flight}
 
     def stats_unlocked(self) -> dict[str, int]:
         """Best-effort live counts WITHOUT the asyncio lock, for the sync
         scrape-time collectors (iteration over snapshots; the numbers may
         be one mutation stale)."""
         tile_jobs = list(self.tile_jobs.values())
-        in_flight = sum(
-            len([t for t in list(tasks) if t not in job.completed])
-            for job in tile_jobs for tasks in list(job.assigned.values())
-        )
+        per_job = [self.tile_job_stats(job) for job in tile_jobs]
         return {
             "tile_jobs": len(tile_jobs),
             "collectors": len(self.collectors),
-            "queue_depth": sum(job.pending.qsize() for job in tile_jobs),
-            "in_flight": in_flight,
+            "queue_depth": sum(j["pending"] for j in per_job),
+            "in_flight": sum(j["in_flight"] for j in per_job),
         }
 
     async def stats(self) -> dict[str, int]:

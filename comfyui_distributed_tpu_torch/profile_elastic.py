@@ -2,6 +2,7 @@
 
     python -m comfyui_distributed_tpu_torch.profile_elastic [--runs N]
     python -m comfyui_distributed_tpu_torch.profile_elastic --profiling-ab [--runs N]
+    python -m comfyui_distributed_tpu_torch.profile_elastic --grants-ab [--runs N]
 
 Queues workflows/distributed-upscale.json (SDXL, seeded random weights,
 a seeded 512x512 input.png, four 576-px padded tiles) on a master
@@ -21,7 +22,10 @@ tile), then the modes in turns (local, in-process, subprocess,
 subprocess, in-process, local, ...) until each has --runs
 timed runs: the host clock from the POST to the master's finished
 history. Prints the card (name and power limit), each run's wall,
-tiles/s and tiles per participant, each elastic run's stage seconds by
+tiles/s and tiles per participant, each elastic run's grants by
+participant (tiles a grant, from the master's trace of the run: its
+tile.pull spans and the rpc.request_image spans it served the worker),
+each elastic run's stage seconds by
 role and its host-tax ratio by role (read from the participants'
 /distributed/metrics: the cdt_tile_stage_seconds and
 cdt_device_execute_seconds sums the run added; host = readback, encode,
@@ -38,6 +42,13 @@ default, which waits for the card at the end of every tile's dispatch)
 and w3 with CDT_PROFILING=0, taken in turns, the master's ledger
 switched to match (`utils.constants.PROFILING_ENABLED` is read at every
 dispatch).
+
+`--grants-ab` measures what grants of several tiles do instead, also in
+the subprocess mode: one worker process, w2, and the master's placement
+policy sizing grants from CDT_SCHED_BASE_PULL_BATCH's default (2) and
+from 1, taken in turns (`PlacementPolicy.base_batch` is read at every
+pull). Tile noise is seeded by the global tile index, so the two must
+give the same output.
 
 `--platform cpu` with `--model tiny-unet --image-px 64 --tile 64
 --padding 16 --steps 1` rehearses it without a card.
@@ -74,6 +85,9 @@ SEED = 20261016
 MODES = {"local": None, "in-process": "w1", "subprocess": "w2"}
 # --profiling-ab: the subprocess mode with the transfer ledger on and off
 PROFILING_MODES = {"ledger on": "w2", "ledger off (CDT_PROFILING=0)": "w3"}
+# --grants-ab: the subprocess mode under two base grant sizes
+GRANT_MODES = {f"base grant {constants.SCHED_BASE_PULL_BATCH} (default)": "w2",
+               "base grant 1 (CDT_SCHED_BASE_PULL_BATCH=1)": "w2"}
 # the worker processes, and their CDT_PROFILING under --profiling-ab
 WORKER_PROCESSES = {"w2": "1", "w3": "0"}
 HOST_STAGES = ("readback", "encode", "decode", "submit")
@@ -144,6 +158,33 @@ def _stage_sums(bases: list[str]) -> dict[tuple[str, str, str], float]:
     return sums
 
 
+def _spans(tree: list) -> list:
+    """The spans of a /distributed/trace answer's tree, flat."""
+    out = []
+    for node in tree:
+        out.append(node)
+        out.extend(_spans(node["children"]))
+    return out
+
+
+def _grants(base: str, trace_id: str, worker: str) -> dict[str, list[int]]:
+    """Each participant's grants in one run (tiles a grant), from the
+    master's trace: its tile.pull spans and the rpc.request_image spans
+    it served `worker` (a grant's tiles in `batch`)."""
+    status, answer = request_json("GET", f"{base}/distributed/trace/{trace_id}", timeout=60)
+    if status != 200:
+        raise RuntimeError(f"{base}/distributed/trace/{trace_id} answered {status}")
+    spans = _spans(answer["tree"])
+    return {
+        "master": [len(s["attrs"].get("batch") or [0]) for s in spans
+                   if s["name"] == "tile.pull" and s["attrs"].get("role") == "master"
+                   and "tile_idx" in s["attrs"]],
+        worker: [len(s["attrs"].get("batch") or [0]) for s in spans
+                 if s["name"] == "rpc.request_image" and s["attrs"].get("worker_id") == worker
+                 and "tile_idx" in s["attrs"]],
+    }
+
+
 def _stage_report(before: dict, after: dict) -> str:
     """Each role's stage seconds and host-tax ratio over one run."""
     moved = {key: after[key] - before.get(key, 0.0) for key in after}
@@ -161,8 +202,8 @@ def _stage_report(before: dict, after: dict) -> str:
 
 def _run_once(base: str, master, workflow: dict, workers: list[str], device: str,
               worker_base: str | None):
-    """One queued workflow: (seconds, completions, output tensor). With a
-    worker, its prompt must finish too, without an error."""
+    """One queued workflow: (seconds, completions, output tensor, trace
+    id). With a worker, its prompt must finish too, without an error."""
     if device.startswith("cuda"):
         torch.cuda.synchronize()
     started = time.perf_counter()
@@ -198,7 +239,7 @@ def _run_once(base: str, master, workflow: dict, workers: list[str], device: str
     if record and sorted(t for t, _ in completions) != list(range(record["total"])):
         raise RuntimeError(f"tiles not completed exactly once: {completions}")
     out = master.get_job(queued["prompt_id"]).outputs["6"][0]["images"]
-    return seconds, completions, out
+    return seconds, completions, out, queued["trace_id"]
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -210,10 +251,14 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--tile", type=int, default=None)
     parser.add_argument("--padding", type=int, default=None)
     parser.add_argument("--steps", type=int, default=None)
-    parser.add_argument("--profiling-ab", action="store_true",
-                        help="the subprocess mode with the transfer ledger on and off, in turns")
+    ab = parser.add_mutually_exclusive_group()
+    ab.add_argument("--profiling-ab", action="store_true",
+                    help="the subprocess mode with the transfer ledger on and off, in turns")
+    ab.add_argument("--grants-ab", action="store_true",
+                    help="the subprocess mode with base grants of 2 and 1 tiles, in turns")
     args = parser.parse_args(argv)
-    modes = PROFILING_MODES if args.profiling_ab else MODES
+    modes = (PROFILING_MODES if args.profiling_ab else GRANT_MODES if args.grants_ab
+             else MODES)
     profiling = constants.PROFILING_ENABLED
     try:
         return _profile(args, modes)
@@ -289,16 +334,20 @@ def _profile(args, modes: dict) -> int:
                 worker = modes[name]
                 if args.profiling_ab:
                     constants.PROFILING_ENABLED = name == names[0]
+                if args.grants_ab:
+                    master.scheduler.placement.base_batch = (
+                        constants.SCHED_BASE_PULL_BATCH if name == names[0] else 1)
                 worker_base = f"http://127.0.0.1:{ports[worker]}" if worker else None
                 # a worker process keeps its stages in its own registry; w1
                 # shares the master's
                 bases = [base] + ([worker_base] if worker in procs else [])
                 before = _stage_sums(bases)
-                out = _run_once(base, master, workflow, [worker] if worker else [], device,
-                                worker_base)
+                seconds, completions, out, trace_id = _run_once(
+                    base, master, workflow, [worker] if worker else [], device, worker_base)
                 if worker:
                     print(f"[stages] {name}: {_stage_report(before, _stage_sums(bases))}")
-                return out
+                    print(f"[grants] {name}: {_grants(base, trace_id, worker)}")
+                return seconds, completions, out
 
             # warm-up: first launches, allocator, cuDNN plans, on every
             # participant (a worker that took no tile is warmed again)
@@ -337,8 +386,12 @@ def _profile(args, modes: dict) -> int:
                                        "measured the master alone")
             for name in names:
                 median = statistics.median(walls[name])
+                # the walls' quartiles, as tiles/s (the slow quartile first)
+                quartiles = (statistics.quantiles(walls[name], n=4, method="inclusive")
+                             if len(walls[name]) > 1 else [median] * 3)
                 print(f"[summary] {name}: median {median:.3f} s over {len(walls[name])} runs, "
-                      f"{n_tiles / median:.4f} tiles/s (walls "
+                      f"{n_tiles / median:.4f} tiles/s (quartiles "
+                      f"{n_tiles / quartiles[2]:.4f}-{n_tiles / quartiles[0]:.4f}; walls "
                       f"{', '.join(f'{w:.3f}' for w in walls[name])})")
         finally:
             async def teardown():

@@ -182,6 +182,45 @@ class HealthRegistry:
         self._fire(worker_id, old, new)
         return new
 
+    def mark_suspect(self, worker_id: str) -> WorkerState:
+        """Degradation seen from outside (the watchdog's straggler
+        verdict): a HEALTHY or RECOVERED worker becomes SUSPECT, its
+        failure counters untouched (latency is not a transport failure
+        and must not count toward quarantine). QUARANTINED and PROBING
+        workers are left alone; a SUSPECT one is a no-op."""
+        with self._lock:
+            health = self._ensure(worker_id)
+            old = health.state
+            if old in (WorkerState.HEALTHY, WorkerState.RECOVERED):
+                health.state = WorkerState.SUSPECT
+            new = health.state
+        if new is WorkerState.SUSPECT and old is not WorkerState.SUSPECT:
+            log(f"worker {worker_id} marked suspect (watchdog straggler)")
+        self._fire(worker_id, old, new)
+        return new
+
+    def pardon(self, worker_id: str) -> WorkerState:
+        """Exonerate a worker whose failures traced to a poison tile (the
+        payload was at fault, not the worker): its failure streak clears
+        and it is HEALTHY at once, no cooldown, no probe; totals stay.
+        The store's poison quarantine drives this through the server's
+        `poison_pardon` hook, so one bad payload cannot quarantine
+        worker after worker."""
+        with self._lock:
+            health = self._workers.get(worker_id)
+            if health is None:
+                return WorkerState.HEALTHY
+            old = health.state
+            health.consecutive_failures = 0
+            health.quarantined_at = None
+            health.probing_since = None
+            health.state = WorkerState.HEALTHY
+            new = health.state
+        if old is not new:
+            log(f"worker {worker_id} pardoned (poison tile); circuit closed")
+        self._fire(worker_id, old, new)
+        return new
+
     def try_half_open(self, worker_id: str) -> bool:
         """If quarantined and cooled down, move to PROBING and return True:
         the caller owns the one probe. A probe lease older than a cooldown

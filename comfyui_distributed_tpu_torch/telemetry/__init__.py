@@ -19,13 +19,16 @@ original it holds):
 - `profiling`: the transfer ledger (device-execute time, transfer
   bytes, host buckets, the host-tax ratio);
 - `usage`: chip-time attribution per dispatch with exact integer
-  conservation.
+  conservation, and the master's `UsageAggregator`;
+- `watchdog`: stragglers, stalls with speculative requeue, the deadline
+  sweep;
+- `timeseries`, `slo`, `fleet`: the master's fleet plane (bounded
+  series, burn-rate SLO alerts, worker snapshots and rollups, the
+  monitor thread).
 
 Not ported yet, each with its ROADMAP.md item (Queue 1 step 7): the
-watchdog, the fleet plane (`fleet`, `timeseries`, `slo`, the usage
-aggregator), the flight recorder and incidents, and the profiler
-capture. All clocks are injectable so tests run deterministically on
-the CPU.
+flight recorder and incidents, and the profiler capture. All clocks are
+injectable so tests run deterministically on the CPU.
 """
 
 from __future__ import annotations
@@ -50,20 +53,31 @@ from .tracing import (
 )
 from .events import EventBus, get_event_bus, reset_event_bus
 from .profiling import TransferLedger, get_transfer_ledger, ledger_if_enabled
-from .usage import UsageMeter, get_usage_meter
+from .usage import UsageAggregator, UsageMeter, get_usage_meter
+from .timeseries import SeriesStore
+from .slo import SLOEngine, SLOSpec
+from .fleet import FleetMonitor, FleetRegistry, local_snapshot
+from .watchdog import Watchdog
 
 __all__ = [
     "BREAKER_STATE_CODES",
     "Counter",
     "EventBus",
+    "FleetMonitor",
+    "FleetRegistry",
     "Gauge",
     "Histogram",
     "MetricsRegistry",
+    "SLOEngine",
+    "SLOSpec",
+    "SeriesStore",
     "Span",
     "TRACE_HEADER",
     "Tracer",
     "TransferLedger",
+    "UsageAggregator",
     "UsageMeter",
+    "Watchdog",
     "bind_server_collectors",
     "current_trace_id",
     "get_event_bus",
@@ -72,6 +86,7 @@ __all__ = [
     "get_transfer_ledger",
     "get_usage_meter",
     "ledger_if_enabled",
+    "local_snapshot",
     "reset_event_bus",
     "reset_metrics_registry",
     "reset_tracer",

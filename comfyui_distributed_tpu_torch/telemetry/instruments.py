@@ -6,10 +6,13 @@ help texts and label names are the JAX package's, letter for letter, so
 a dashboard built against a JAX master reads a port master unchanged.
 The JAX families the port does not register yet are listed, by the
 ROADMAP step that brings each, in tests/test_torch_telemetry.py
-(STILL_TO_PORT): the scheduler, the watchdog, the fleet plane and its
-usage aggregation, durability, the mesh, the cross-job tier, the
-incident plane, the profiler capture, and the `cdt_jax_*` compile
-gauges, which have no counterpart here.
+(STILL_TO_PORT): push grants and the event stream, durability, the
+mesh, the cross-job tier, the incident plane, the profiler capture, and
+the `cdt_jax_*` compile gauges, which have no counterpart here. One
+help text is worded apart from the JAX package's
+(`cdt_cache_unsettled_admission_cost`: the JAX text cites the
+package's change history and a runbook); its name, kind and labels are
+the JAX family's.
 
 Accessors are get-or-create against the CURRENT global registry, so a
 test that resets the registry gets fresh instruments transparently.
@@ -84,6 +87,39 @@ def cancel_refunded_tiles_total() -> Counter:
         "cdt_cancel_refunded_tiles_total",
         "Tiles refunded by job cancellation by kind (pending|in_flight)",
         ("kind",),
+    )
+
+
+def poison_pardons_total() -> Counter:
+    return get_metrics_registry().counter(
+        "cdt_poison_pardons_total",
+        "Breaker pardons issued to workers whose failures traced to a "
+        "poison-quarantined tile",
+    )
+
+
+def shed_total() -> Counter:
+    return get_metrics_registry().counter(
+        "cdt_shed_total",
+        "Admissions shed by the brownout controller, by lane",
+        ("lane",),
+    )
+
+
+def brownout_level() -> Gauge:
+    return get_metrics_registry().gauge(
+        "cdt_brownout_level",
+        "Current brownout level (number of lowest-priority lanes shed)",
+    )
+
+
+def preempt_total() -> Counter:
+    return get_metrics_registry().counter(
+        "cdt_preempt_total",
+        "Step-level preemption requests raised by the scheduler "
+        "coordinator against running lower-lane jobs, by reason "
+        "(premium_arrival|brownout|manual)",
+        ("reason",),
     )
 
 
@@ -391,6 +427,205 @@ def collector_jobs_active() -> Gauge:
     )
 
 
+# --- watchdog (telemetry/watchdog.py) -------------------------------------
+
+def worker_tile_seconds() -> Histogram:
+    return get_metrics_registry().histogram(
+        "cdt_worker_tile_seconds",
+        "Pull-to-submit latency per worker (the straggler-detection "
+        "signal; cardinality-capped per the registry's series bound)",
+        ("worker_id",),
+    )
+
+
+def watchdog_stragglers_total() -> Counter:
+    return get_metrics_registry().counter(
+        "cdt_watchdog_stragglers_total",
+        "Workers flagged as stragglers (rolling-median tile latency "
+        "above k x the global rolling median)",
+        ("worker_id",),
+    )
+
+
+def watchdog_stalls_total() -> Counter:
+    return get_metrics_registry().counter(
+        "cdt_watchdog_stalls_total",
+        "Stalled executions detected (no completion progress for the "
+        "stall window while tiles were in flight)",
+    )
+
+
+# --- scheduler control plane (scheduler/) ---------------------------------
+
+# Scheduler states in gauge encoding.
+SCHED_STATE_CODES = {"running": 0, "paused": 1, "draining": 2}
+
+
+def sched_admissions_total() -> Counter:
+    return get_metrics_registry().counter(
+        "cdt_sched_admissions_total",
+        "Admission decisions by outcome (admitted|rejected_full|"
+        "rejected_draining|cancelled)",
+        ("lane", "tenant", "outcome"),
+    )
+
+
+def sched_grants_total() -> Counter:
+    return get_metrics_registry().counter(
+        "cdt_sched_grants_total",
+        "Requests granted an orchestration slot per lane/tenant",
+        ("lane", "tenant"),
+    )
+
+
+def sched_wait_seconds() -> Histogram:
+    return get_metrics_registry().histogram(
+        "cdt_sched_wait_seconds",
+        "Queue wait from admission to grant per lane/tenant",
+        ("lane", "tenant"),
+    )
+
+
+def sched_lane_depth() -> Gauge:
+    return get_metrics_registry().gauge(
+        "cdt_sched_lane_depth",
+        "Requests queued (admitted, not yet granted) per lane per server",
+        ("lane", "server"),
+    )
+
+
+def sched_active() -> Gauge:
+    return get_metrics_registry().gauge(
+        "cdt_sched_active",
+        "Granted orchestrations currently holding a slot per server",
+        ("server",),
+    )
+
+
+def sched_state() -> Gauge:
+    return get_metrics_registry().gauge(
+        "cdt_sched_state",
+        "Scheduler state per server (0=running 1=paused 2=draining)",
+        ("server",),
+    )
+
+
+def sched_worker_speed_ratio() -> Gauge:
+    return get_metrics_registry().gauge(
+        "cdt_sched_worker_speed_ratio",
+        "Placement speed weight per worker (1.0 = fleet mean; pull "
+        "batches scale with it)",
+        ("worker_id", "server"),
+    )
+
+
+def cache_unsettled_admission_cost() -> Gauge:
+    return get_metrics_registry().gauge(
+        "cdt_cache_unsettled_admission_cost",
+        "Cumulative DRR admission cost charged for tiles that later "
+        "settled free from the tile cache at grant time — the "
+        "full-cost-until-settle gap, surfaced so operators can see how "
+        "much fair-share weight cached tenants are over-paying",
+        ("server",),
+    )
+
+
+# --- fleet plane (telemetry/fleet.py, telemetry/slo.py) -------------------
+
+def fleet_snapshots_total() -> Counter:
+    return get_metrics_registry().counter(
+        "cdt_fleet_snapshots_total",
+        "Worker telemetry snapshots received piggybacked on "
+        "heartbeat/request_image RPCs, by outcome "
+        "(accepted|bad_version|malformed)",
+        ("outcome",),
+    )
+
+
+def fleet_evictions_total() -> Counter:
+    return get_metrics_registry().counter(
+        "cdt_fleet_evictions_total",
+        "Workers evicted from the fleet registry by reason "
+        "(ttl|forgotten|capacity) — every eviction drops the worker's "
+        "retained series",
+        ("reason",),
+    )
+
+
+def fleet_workers() -> Gauge:
+    return get_metrics_registry().gauge(
+        "cdt_fleet_workers",
+        "Workers currently tracked by the fleet registry (snapshotting "
+        "within the CDT_FLEET_TTL window)",
+    )
+
+
+def fleet_series() -> Gauge:
+    return get_metrics_registry().gauge(
+        "cdt_fleet_series",
+        "Retained time-series count in the fleet store (bounded per "
+        "name by CDT_METRIC_MAX_SERIES)",
+    )
+
+
+def alert_active() -> Gauge:
+    return get_metrics_registry().gauge(
+        "cdt_alert_active",
+        "1 while the named SLO's burn-rate alert is open, 0 otherwise "
+        "(transitions also publish alert_fired/alert_resolved events)",
+        ("slo",),
+    )
+
+
+def slo_burn_rate() -> Gauge:
+    return get_metrics_registry().gauge(
+        "cdt_slo_burn_rate",
+        "Error-budget burn rate per SLO over each rule's LONG window "
+        "(1.0 = burning exactly at budget-exhaustion rate)",
+        ("slo", "window"),
+    )
+
+
+# --- usage attribution, mirrored from the master's aggregator -------------
+
+def usage_chip_seconds_total() -> Counter:
+    return get_metrics_registry().counter(
+        "cdt_usage_chip_seconds_total",
+        "Measured chip-seconds attributed to each (tenant, lane) by the "
+        "usage meter's dispatch records (mirrored from the aggregator "
+        "at scrape time; cardinality bounded by the usage key cap)",
+        ("tenant", "lane"),
+    )
+
+
+def usage_tiles_total() -> Counter:
+    return get_metrics_registry().counter(
+        "cdt_usage_tiles_total",
+        "Tiles finished per (tenant, lane) as metered by the usage "
+        "attribution plane",
+        ("tenant", "lane"),
+    )
+
+
+def usage_waste_seconds_total() -> Counter:
+    return get_metrics_registry().counter(
+        "cdt_usage_waste_seconds_total",
+        "Measured chip-seconds charged to waste buckets by reason "
+        "(padding|preempt_recompute|speculation|poison_retry)",
+        ("reason",),
+    )
+
+
+def usage_cached_tiles_total() -> Counter:
+    return get_metrics_registry().counter(
+        "cdt_usage_cached_tiles_total",
+        "Tiles settled from the content-addressed tile cache per "
+        "(tenant, lane) — the `cached` attribution bucket: they count "
+        "toward the tenant's tiles at ~zero chip-time",
+        ("tenant", "lane"),
+    )
+
+
 _LIVE_GAUGES = (
     prompt_queue_depth,
     tile_jobs_active,
@@ -432,8 +667,29 @@ def bind_server_collectors(server) -> Callable[[], None]:
         transfer_bytes_total()
         device_execute_seconds()
         host_tax_ratio()
+    # the fleet plane's instruments from the first scrape on a master
+    # that runs it, before any worker snapshotted
+    fleet = getattr(server, "fleet", None)
+    if fleet is not None:
+        fleet_snapshots_total()
+        fleet_evictions_total()
+        fleet_workers()
+        fleet_series()
+        alert_active()
+        slo_burn_rate()
+        if getattr(fleet, "usage", None) is not None:
+            usage_chip_seconds_total()
+            usage_tiles_total()
+            usage_waste_seconds_total()
+            usage_cached_tiles_total()
+    if getattr(server, "scheduler", None) is not None:
+        cache_unsettled_admission_cost()
 
     label = f"{'worker' if server.is_worker else 'master'}:{server.port}"
+    # worker ids this server's placement policy last reported: stale
+    # series are removed per server (a global clear would clobber a
+    # co-hosted server's series between its scrapes)
+    speed_series_seen: set[str] = set()
 
     def collect() -> None:
         prompt_queue_depth().set(server.queue_remaining, server=label)
@@ -442,6 +698,71 @@ def bind_server_collectors(server) -> Callable[[], None]:
         tile_queue_depth().set(stats["queue_depth"], server=label)
         tiles_in_flight().set(stats["in_flight"], server=label)
         collector_jobs_active().set(stats["collectors"], server=label)
+        scheduler = getattr(server, "scheduler", None)
+        if scheduler is not None:
+            queue = scheduler.queue
+            sched_state().set(SCHED_STATE_CODES.get(queue.state, -1), server=label)
+            sched_active().set(len(queue.active), server=label)
+            for lane_name in queue.lane_order:
+                sched_lane_depth().set(queue.lanes[lane_name].depth(), lane=lane_name,
+                                       server=label)
+            speed_gauge = sched_worker_speed_ratio()
+            weights = scheduler.placement.weights()
+            # dropped workers must not freeze a series
+            for worker_id in speed_series_seen - weights.keys():
+                speed_gauge.remove(worker_id=worker_id, server=label)
+            speed_series_seen.clear()
+            speed_series_seen.update(weights)
+            for worker_id, ratio in weights.items():
+                speed_gauge.set(ratio, worker_id=worker_id, server=label)
+            # the DRR admission-cost gap: cost charged at admission for
+            # tiles the cache later settled free
+            cache_unsettled_admission_cost().set(
+                float(getattr(scheduler, "unsettled_admission_cost", 0.0)), server=label)
+        slo = getattr(server, "slo", None)
+        if slo is not None:
+            # alert gauges reflect the engine's current state even if no
+            # transition fired since the last step; burn rates ride along
+            active_gauge = alert_active()
+            burn_gauge = slo_burn_rate()
+            for spec_name in slo.specs:
+                active_gauge.set(1.0 if slo.is_active(spec_name) else 0.0, slo=spec_name)
+                try:
+                    verdict = slo.evaluate(spec_name)
+                except Exception:  # noqa: BLE001 - the scrape survives an evaluation
+                    continue
+                for rule in verdict["rules"]:
+                    burn_gauge.set(rule["burn_long"], slo=spec_name,
+                                   window=f"{int(rule['long_s'])}s")
+        # Usage attribution counters mirror the aggregator's cumulative
+        # rollup by DELTA against its own high-water marks (shared by
+        # co-hosted servers' collectors, so a chip-second counts once).
+        usage = getattr(fleet, "usage", None) if fleet is not None else None
+        if usage is not None:
+            rollup = usage.rollup()
+            marks = usage.scrape_mirrored
+            # exact (tenant, lane) slices from the aggregator's monotonic
+            # pair view (live + retired)
+            by_pair = usage.pair_totals()
+            for (tenant, lane) in sorted(by_pair):
+                pair_stats = by_pair[(tenant, lane)]
+                for key, value, counter in (
+                    (f"chip:{tenant}:{lane}", pair_stats["chip_s"], usage_chip_seconds_total()),
+                    (f"tiles:{tenant}:{lane}", pair_stats["tiles"], usage_tiles_total()),
+                    (f"cached:{tenant}:{lane}", pair_stats.get("cached", 0.0),
+                     usage_cached_tiles_total()),
+                ):
+                    delta = value - marks.get(key, 0.0)
+                    if delta > 0:
+                        counter.inc(delta, tenant=tenant, lane=lane)
+                        marks[key] = value
+            waste_counter = usage_waste_seconds_total()
+            for reason in sorted(rollup["totals"]["waste_s"]):
+                value = rollup["totals"]["waste_s"][reason]
+                delta = value - marks.get(f"waste:{reason}", 0.0)
+                if delta > 0:
+                    waste_counter.inc(delta, reason=reason)
+                    marks[f"waste:{reason}"] = value
         # Tile-cache stats: gauges set directly, counters mirrored by
         # DELTA against the cache's own high-water marks (shared across
         # co-hosted collectors so a lookup is counted exactly once).
@@ -500,5 +821,19 @@ def bind_server_collectors(server) -> Callable[[], None]:
         unregister()
         for accessor in _LIVE_GAUGES:
             accessor().remove(server=label)
+        slo = getattr(server, "slo", None)
+        if slo is not None:
+            for spec_name in slo.specs:
+                alert_active().remove(slo=spec_name)
+            slo_burn_rate().clear()
+        scheduler = getattr(server, "scheduler", None)
+        if scheduler is not None:
+            cache_unsettled_admission_cost().remove(server=label)
+            sched_state().remove(server=label)
+            sched_active().remove(server=label)
+            for lane_name in scheduler.queue.lane_order:
+                sched_lane_depth().remove(lane=lane_name, server=label)
+            for worker_id in speed_series_seen:
+                sched_worker_speed_ratio().remove(worker_id=worker_id, server=label)
 
     return unbind

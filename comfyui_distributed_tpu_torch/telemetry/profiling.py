@@ -202,9 +202,8 @@ class TransferLedger:
         return host / float(host + device)
 
     def snapshot(self, role: str = "worker") -> dict[str, Any]:
-        """The cumulative block (the fleet snapshot piggyback carries
-        it once the fleet plane is ported). All integers except the
-        derived ratio."""
+        """The cumulative block the fleet snapshot piggyback carries.
+        All integers except the derived ratio."""
         with self._lock:
             return {
                 "role": role,

@@ -89,6 +89,21 @@ def collect_runtime_gauges() -> None:
             gauge.set(value, device=device["id"], stat=stat)
 
 
+def runtime_snapshot() -> dict[str, Any]:
+    """The same readings as a plain dict in the JAX package's shape
+    (the fleet snapshot's memory block reads it): the compile tallies
+    are zeros, nothing here is compiled by XLA."""
+    out: dict[str, Any] = {"compiles": 0, "compile_time_s": 0.0, "cache_hits": 0,
+                           "cache_misses": 0}
+    rss = _host_rss_bytes()
+    if rss is not None:
+        out["host_rss_bytes"] = rss
+    devices = _device_memory()
+    if devices:
+        out["devices"] = devices
+    return out
+
+
 def ensure_runtime_collectors() -> None:
     """Bind `collect_runtime_gauges` to the current global registry
     (idempotent per registry: a test reset re-binds on the next call)."""

@@ -38,11 +38,14 @@ Attribution order is a pure function of the slot sequence and every
 exported mapping is sorted, so two replays of the same dispatch stream
 give identical rollups.
 
-Not ported: the master's `UsageAggregator`, which adopts the workers'
-meters through the fleet snapshot, and the `cdt_usage_*` scrape
-families it feeds; they come with the fleet plane (ROADMAP.md, Queue 1
-step 7). Until then each process's meter is read in-process
-(`get_usage_meter().rollup()` / `totals()`).
+- **master-side aggregation** — `UsageAggregator` (owned by the
+  master's FleetRegistry, telemetry/fleet.py) holds the master's own
+  records and adopts each worker's cumulative meter from the snapshot
+  the worker piggybacks on its pulls and heartbeats, by delta with a
+  counter-reset clamp (a worker that restarted starts a fresh
+  baseline). It serves ``GET /distributed/usage``, mirrors into the
+  ``cdt_usage_*`` families at scrape time, and gives the scheduler
+  each tenant's measured cost ratio (CDT_USAGE_COST).
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ from __future__ import annotations
 import threading
 import time
 from typing import Any, Callable, Optional
+
+from ..utils.logging import debug_log
 
 # The waste taxonomy. Dispatch-family reasons participate in the per-dispatch conservation
 # identity; store-family reasons are measured on the master's clock.
@@ -374,8 +379,8 @@ class UsageMeter:
 
     def snapshot(self, role: str = "worker") -> dict[str, Any]:
         """This process's cumulative usage for one role — the compact
-        block the fleet telemetry snapshot carries once the fleet plane
-        is ported (floats; ns precision is a process-local concern)."""
+        block the fleet telemetry snapshot carries (floats; ns precision
+        is a process-local concern)."""
         with self._lock:
             jobs = {
                 job_id: entry.as_dict()
@@ -622,3 +627,535 @@ def set_usage_meter(meter: Optional[UsageMeter]) -> Optional[UsageMeter]:
     with _METER_LOCK:
         previous, _METER = _METER, meter
         return previous
+
+
+# --- master-side aggregation --------------------------------------------------
+
+# Series names retained in the fleet SeriesStore (label vocabulary:
+# tenant / reason only — per-job history stays in the live drill-down).
+S_TENANT_CHIP_S = "usage_tenant_chip_s"
+S_TENANT_TILES = "usage_tenant_tiles"
+S_WASTE_S = "usage_waste_s"
+
+# cost_ratio clamp: a measured-cost tenant can weigh at most 10x / at
+# least 0.1x the fleet mean in DRR admission accounting.
+COST_RATIO_MIN = 0.1
+COST_RATIO_MAX = 10.0
+_EWMA_ALPHA = 0.3
+
+
+class _AdoptedJob:
+    __slots__ = (
+        "chip_ns", "steps", "tiles", "waste_ns", "cached_tiles",
+        "cached_ns", "last_active",
+    )
+
+    def __init__(self) -> None:
+        self.chip_ns = 0
+        self.steps = 0
+        self.tiles = 0
+        self.waste_ns = 0
+        self.cached_tiles = 0
+        self.cached_ns = 0
+        self.last_active = 0.0
+
+
+class UsageAggregator:
+    """Fleet-wide usage on the master: the local meter's records
+    (master role) plus worker meters adopted by delta from their
+    piggybacked snapshots. Owned by the FleetRegistry; read by
+    ``GET /distributed/usage``, the scrape mirror, the ``usage_rollup``
+    event and the scheduler's measured-cost hook."""
+
+    def __init__(
+        self,
+        meter: Optional[UsageMeter] = None,
+        store: Any = None,
+        clock: Callable[[], float] = time.time,
+        ttl: Optional[float] = None,
+        max_keys: int = MAX_TRACKED_KEYS,
+    ) -> None:
+        from ..utils import constants
+
+        self.meter = meter if meter is not None else get_usage_meter()
+        self.store = store  # telemetry/timeseries.SeriesStore (optional)
+        self.clock = clock
+        self.ttl = ttl if ttl is not None else constants.USAGE_TTL_SECONDS
+        self.max_keys = int(max_keys)
+        self._lock = threading.Lock()
+        # adopted worker usage: job_id -> _AdoptedJob (fleet-cumulative)
+        self._adopted_jobs: dict[str, _AdoptedJob] = {}
+        # adopted waste: reason -> ns
+        self._adopted_waste: dict[str, int] = {}
+        # adopted exact dispatch-family totals
+        self._adopted_dispatch_ns = 0
+        self._adopted_attributed_ns = 0
+        self._adopted_overhead_ns = 0
+        self._adopted_dispatches = 0
+        # counter-reset clamp state: worker_id -> path -> last seen
+        self._worker_prev: dict[str, dict[str, float]] = {}
+        # tenant cost model: tenant -> {"ewma", "prev_chip_ns", "prev_tiles"}
+        self._cost: dict[str, dict[str, float]] = {}
+        self._cost_global: Optional[float] = None
+        # retired adopted counters (evicted jobs), keyed by the
+        # (tenant, lane) resolved at eviction time — keeps the tenant
+        # rollup and the per-pair scrape counters monotonic. Bounded:
+        # overflow folds into the default pair.
+        self._retired: dict[tuple[str, str], dict[str, int]] = {}
+        # scrape mirror high-water marks (instruments.py counts deltas
+        # against these so co-hosted servers' collectors never double-
+        # count): path -> last mirrored value
+        self.scrape_mirrored: dict[str, float] = {}
+        # fired when an idle tenant departs (fleet wires series eviction)
+        self.on_evict_tenant: Optional[Callable[[str], None]] = None
+
+    # --- adoption ---------------------------------------------------------
+
+    @staticmethod
+    def _delta(prev: dict[str, float], path: str, value: float) -> float:
+        """Cumulative-counter delta with the reset clamp: a value below
+        the last seen one means the worker restarted — adopt the new
+        total as a fresh baseline (never a negative delta)."""
+        last = prev.get(path)
+        prev[path] = value
+        if last is None or value < last:
+            return max(0.0, value)
+        return value - last
+
+    def adopt(self, worker_id: str, usage: Any) -> bool:
+        """Merge one worker's cumulative usage snapshot by delta.
+        Malformed payloads are dropped (False); the snapshot rode an
+        unauthenticated RPC."""
+        if not isinstance(usage, dict):
+            return False
+        worker_id = str(worker_id)
+        now = self.clock()
+        with self._lock:
+            prev = self._worker_prev.get(worker_id)
+            if prev is None:
+                if len(self._worker_prev) >= self.max_keys:
+                    self._worker_prev.pop(next(iter(self._worker_prev)))
+                prev = {}
+                self._worker_prev[worker_id] = prev
+            jobs = usage.get("jobs")
+            if isinstance(jobs, dict):
+                # prune baselines for jobs the worker's own (bounded)
+                # meter no longer reports — they cannot reappear in a
+                # later snapshot, so keeping their paths would grow
+                # this map one entry per job id served, forever
+                current_ids = {str(j) for j in jobs}
+                for path in [p for p in prev if p.startswith("job:")]:
+                    if path[4:].rsplit(":", 1)[0] not in current_ids:
+                        del prev[path]
+                for job_id in sorted(jobs):
+                    stats = jobs[job_id]
+                    if not isinstance(stats, dict):
+                        continue
+                    entry = self._adopted_job(str(job_id), now)
+                    entry.chip_ns += _to_ns(self._delta(
+                        prev, f"job:{job_id}:chip_s",
+                        _as_float(stats.get("chip_s")),
+                    ))
+                    entry.waste_ns += _to_ns(self._delta(
+                        prev, f"job:{job_id}:waste_s",
+                        _as_float(stats.get("waste_s")),
+                    ))
+                    entry.steps += int(self._delta(
+                        prev, f"job:{job_id}:steps",
+                        _as_float(stats.get("steps")),
+                    ))
+                    entry.tiles += int(self._delta(
+                        prev, f"job:{job_id}:tiles",
+                        _as_float(stats.get("tiles")),
+                    ))
+                    # version-tolerant: a pre-cache worker's snapshot
+                    # simply lacks the fields (delta from 0 of 0)
+                    entry.cached_tiles += int(self._delta(
+                        prev, f"job:{job_id}:cached_tiles",
+                        _as_float(stats.get("cached_tiles")),
+                    ))
+                    entry.cached_ns += _to_ns(self._delta(
+                        prev, f"job:{job_id}:cached_s",
+                        _as_float(stats.get("cached_s")),
+                    ))
+            waste = usage.get("waste_s")
+            if isinstance(waste, dict):
+                for reason in sorted(waste):
+                    delta = self._delta(
+                        prev, f"waste:{reason}", _as_float(waste[reason])
+                    )
+                    self._adopted_waste[str(reason)] = (
+                        self._adopted_waste.get(str(reason), 0)
+                        + _to_ns(delta)
+                    )
+            self._adopted_dispatch_ns += _to_ns(self._delta(
+                prev, "dispatch_chip_s",
+                _as_float(usage.get("dispatch_chip_s")),
+            ))
+            self._adopted_attributed_ns += _to_ns(self._delta(
+                prev, "attributed_chip_s",
+                _as_float(usage.get("attributed_chip_s")),
+            ))
+            self._adopted_overhead_ns += _to_ns(self._delta(
+                prev, "overhead_s", _as_float(usage.get("overhead_s")),
+            ))
+            self._adopted_dispatches += int(self._delta(
+                prev, "dispatches", _as_float(usage.get("dispatches")),
+            ))
+        return True
+
+    def _adopted_job(self, job_id: str, now: float) -> _AdoptedJob:
+        entry = self._adopted_jobs.get(job_id)
+        if entry is None:
+            if len(self._adopted_jobs) >= self.max_keys:
+                victim = min(
+                    self._adopted_jobs,
+                    key=lambda j: self._adopted_jobs[j].last_active,
+                )
+                self._retire(victim, self._adopted_jobs.pop(victim))
+            entry = _AdoptedJob()
+            self._adopted_jobs[job_id] = entry
+        entry.last_active = now
+        return entry
+
+    def _retire(self, job_id: str, entry: _AdoptedJob) -> None:
+        tenant, lane = self.meter.job_attrs(job_id)
+        key = (tenant, lane)
+        if key not in self._retired and len(self._retired) >= self.max_keys:
+            key = (DEFAULT_TENANT, "")
+        bucket = self._retired.setdefault(
+            key, {"chip_ns": 0, "tiles": 0, "steps": 0, "waste_ns": 0,
+                  "cached_tiles": 0, "cached_ns": 0},
+        )
+        bucket["chip_ns"] += entry.chip_ns
+        bucket["tiles"] += entry.tiles
+        bucket["steps"] += entry.steps
+        bucket["waste_ns"] += entry.waste_ns
+        bucket["cached_tiles"] += entry.cached_tiles
+        bucket["cached_ns"] += entry.cached_ns
+
+    def forget_worker(self, worker_id: str) -> None:
+        """Drop a departed worker's reset-clamp baselines (its adopted
+        counters stay — usage already burned doesn't un-burn)."""
+        with self._lock:
+            self._worker_prev.pop(str(worker_id), None)
+
+    # --- sampling (FleetRegistry.sample calls this) ------------------------
+
+    def sample(self) -> dict[str, Any]:
+        """One aggregation pass: update the tenant cost EWMAs, record
+        the retained series, sweep idle entries, and return the rollup
+        (published as the ``usage_rollup`` bus event)."""
+        rollup = self.rollup()
+        now = self.clock()
+        with self._lock:
+            self._update_cost_locked(rollup)
+        if self.store is not None:
+            for tenant in sorted(rollup["tenants"]):
+                stats = rollup["tenants"][tenant]
+                self.store.record(
+                    S_TENANT_CHIP_S, stats["chip_s"], ts=now, tenant=tenant
+                )
+                self.store.record(
+                    S_TENANT_TILES, stats["tiles"], ts=now, tenant=tenant
+                )
+            for reason in sorted(rollup["totals"]["waste_s"]):
+                self.store.record(
+                    S_WASTE_S, rollup["totals"]["waste_s"][reason],
+                    ts=now, reason=reason,
+                )
+        self._sweep(now)
+        return rollup
+
+    def _update_cost_locked(self, rollup: dict[str, Any]) -> None:
+        """Per-tenant chip-seconds-per-tile EWMA from the rollup's
+        cumulative counters: each pass samples delta(chip)/delta(tiles)
+        since the previous pass."""
+        global_dchip = 0.0
+        global_dtiles = 0.0
+        for tenant in sorted(rollup["tenants"]):
+            stats = rollup["tenants"][tenant]
+            state = self._cost.setdefault(
+                tenant, {"ewma": 0.0, "prev_chip_s": 0.0, "prev_tiles": 0.0}
+            )
+            dchip = max(0.0, stats["chip_s"] - state["prev_chip_s"])
+            dtiles = max(0.0, stats["tiles"] - state["prev_tiles"])
+            state["prev_chip_s"] = stats["chip_s"]
+            state["prev_tiles"] = stats["tiles"]
+            global_dchip += dchip
+            global_dtiles += dtiles
+            if dtiles > 0:
+                sample = dchip / dtiles
+                state["ewma"] = (
+                    sample if state["ewma"] <= 0.0
+                    else (1 - _EWMA_ALPHA) * state["ewma"]
+                    + _EWMA_ALPHA * sample
+                )
+        if global_dtiles > 0:
+            sample = global_dchip / global_dtiles
+            self._cost_global = (
+                sample if not self._cost_global
+                else (1 - _EWMA_ALPHA) * self._cost_global
+                + _EWMA_ALPHA * sample
+            )
+
+    def _sweep(self, now: float) -> None:
+        """TTL eviction: fold idle adopted jobs into the retired
+        aggregate and drop idle tenant cost entries, firing the series
+        eviction seam for each departed tenant."""
+        self.meter.sweep(self.ttl)
+        departed: list[str] = []
+        with self._lock:
+            stale = sorted(
+                j for j, e in self._adopted_jobs.items()
+                if now - e.last_active > self.ttl
+            )
+            for job_id in stale:
+                self._retire(job_id, self._adopted_jobs.pop(job_id))
+            # a tenant with no surviving jobs in either source departs
+            # the cost model (its series evict through the seam)
+            live_tenants = {
+                self.meter.job_attrs(j)[0]
+                for j in list(self._adopted_jobs)
+            }
+        live_tenants |= {
+            self.meter.job_attrs(j)[0]
+            for j in self.meter.rollup()["jobs"]
+        }
+        with self._lock:
+            for tenant in sorted(self._cost):
+                if tenant not in live_tenants and tenant != DEFAULT_TENANT:
+                    del self._cost[tenant]
+                    departed.append(tenant)
+        for tenant in departed:
+            seam = self.on_evict_tenant
+            if seam is not None:
+                try:
+                    seam(tenant)
+                except Exception as exc:  # noqa: BLE001 - advisory seam
+                    debug_log(f"usage tenant eviction seam failed: {exc}")
+
+    # --- the measured cost model -------------------------------------------
+
+    def cost_ratio(self, tenant: str) -> float:
+        """Measured chip-s-per-tile of `tenant` relative to the fleet
+        mean, clamped to [0.1, 10]; 1.0 until both EWMAs have samples.
+        The CDT_USAGE_COST admission hook multiplies DRR cost by it."""
+        with self._lock:
+            state = self._cost.get(str(tenant))
+            if (
+                state is None
+                or state["ewma"] <= 0.0
+                or not self._cost_global
+            ):
+                return 1.0
+            ratio = state["ewma"] / self._cost_global
+        return min(COST_RATIO_MAX, max(COST_RATIO_MIN, ratio))
+
+    # --- export -----------------------------------------------------------
+
+    def rollup(self) -> dict[str, Any]:
+        """Fleet-wide per-tenant/per-lane/per-job usage: the local
+        meter's rollup plus the adopted worker counters, every job
+        resolved through the meter's (store-fed) attrs map."""
+        local = self.meter.rollup(roles=("master",))
+        tenants = {
+            t: dict(stats) for t, stats in local["tenants"].items()
+        }
+        lanes = {ln: dict(stats) for ln, stats in local["lanes"].items()}
+        jobs = {j: dict(stats) for j, stats in local["jobs"].items()}
+        with self._lock:
+            adopted_jobs = sorted(self._adopted_jobs.items())
+            adopted_waste = dict(self._adopted_waste)
+            adopted_retired = {
+                key: dict(bucket)
+                for key, bucket in sorted(self._retired.items())
+            }
+            adopted = {
+                "dispatch_ns": self._adopted_dispatch_ns,
+                "attributed_ns": self._adopted_attributed_ns,
+                "overhead_ns": self._adopted_overhead_ns,
+                "dispatches": self._adopted_dispatches,
+            }
+        for job_id, entry in adopted_jobs:
+            tenant, lane = self.meter.job_attrs(job_id)
+            t = tenants.setdefault(
+                tenant, {"chip_s": 0.0, "tiles": 0, "steps": 0,
+                         "waste_s": 0.0, "cached_tiles": 0}
+            )
+            t["chip_s"] += _s(entry.chip_ns)
+            t["tiles"] += entry.tiles
+            t["steps"] += entry.steps
+            t["waste_s"] += _s(entry.waste_ns)
+            t["cached_tiles"] = t.get("cached_tiles", 0) + entry.cached_tiles
+            ln = lanes.setdefault(lane, {"chip_s": 0.0, "tiles": 0})
+            ln["chip_s"] += _s(entry.chip_ns)
+            ln["tiles"] += entry.tiles
+            job_out = jobs.setdefault(
+                job_id,
+                {"tenant": tenant, "lane": lane, "chip_s": 0.0, "tiles": 0,
+                 "steps": 0, "waste_s": 0.0, "cached_tiles": 0,
+                 "roles": []},
+            )
+            job_out["chip_s"] += _s(entry.chip_ns)
+            job_out["tiles"] += entry.tiles
+            job_out["steps"] += entry.steps
+            job_out["waste_s"] += _s(entry.waste_ns)
+            job_out["cached_tiles"] = (
+                job_out.get("cached_tiles", 0) + entry.cached_tiles
+            )
+            if "worker(adopted)" not in job_out["roles"]:
+                job_out["roles"].append("worker(adopted)")
+        for (tenant, lane), bucket in adopted_retired.items():
+            t = tenants.setdefault(
+                tenant,
+                {"chip_s": 0.0, "tiles": 0, "steps": 0, "waste_s": 0.0,
+                 "cached_tiles": 0},
+            )
+            t["chip_s"] += _s(bucket["chip_ns"])
+            t["tiles"] += bucket["tiles"]
+            t["steps"] += bucket["steps"]
+            t["waste_s"] += _s(bucket["waste_ns"])
+            t["cached_tiles"] = (
+                t.get("cached_tiles", 0) + bucket.get("cached_tiles", 0)
+            )
+            ln = lanes.setdefault(lane, {"chip_s": 0.0, "tiles": 0})
+            ln["chip_s"] += _s(bucket["chip_ns"])
+            ln["tiles"] += bucket["tiles"]
+        totals = dict(local["totals"])
+        totals["chip_s"] += _s(adopted["dispatch_ns"])
+        totals["attributed_s"] += _s(adopted["attributed_ns"])
+        totals["overhead_s"] += _s(adopted["overhead_ns"])
+        totals["dispatches"] += adopted["dispatches"]
+        totals["cached_tiles"] = totals.get("cached_tiles", 0) + sum(
+            entry.cached_tiles for _, entry in adopted_jobs
+        ) + sum(
+            bucket.get("cached_tiles", 0)
+            for bucket in adopted_retired.values()
+        )
+        totals["cached_s"] = totals.get("cached_s", 0.0) + _s(sum(
+            entry.cached_ns for _, entry in adopted_jobs
+        ) + sum(
+            bucket.get("cached_ns", 0)
+            for bucket in adopted_retired.values()
+        ))
+        waste_all = dict(totals["waste_s"])
+        for reason, ns in sorted(adopted_waste.items()):
+            waste_all[reason] = waste_all.get(reason, 0.0) + _s(ns)
+        totals["waste_s"] = {r: waste_all[r] for r in sorted(waste_all)}
+        total_chip = totals["chip_s"]
+        for stats in tenants.values():
+            stats["chip_share"] = (
+                round(stats["chip_s"] / total_chip, 6) if total_chip else 0.0
+            )
+        dispatch_waste = sum(
+            totals["waste_s"].get(r, 0.0) for r in DISPATCH_WASTE_REASONS
+        )
+        totals["waste_share"] = (
+            round(dispatch_waste / total_chip, 6) if total_chip else 0.0
+        )
+        return {
+            "tenants": {t: tenants[t] for t in sorted(tenants)},
+            "lanes": {ln: lanes[ln] for ln in sorted(lanes)},
+            "jobs": jobs,
+            "totals": totals,
+        }
+
+    def pair_totals(self) -> dict[tuple[str, str], dict[str, float]]:
+        """Monotonic cumulative (tenant, lane) -> {chip_s, tiles}: the
+        local meter's master-role pairs plus adopted live AND retired
+        counters. Job eviction moves counters between the live and
+        retired folds without changing a pair's sum, so the scrape
+        mirror's high-water deltas never undercount after a sweep."""
+        out = self.meter.pair_totals(roles=("master",))
+        with self._lock:
+            live = [
+                (job_id, entry.chip_ns, entry.tiles, entry.cached_tiles)
+                for job_id, entry in sorted(self._adopted_jobs.items())
+            ]
+            retired = [
+                (key, bucket["chip_ns"], bucket["tiles"],
+                 bucket.get("cached_tiles", 0))
+                for key, bucket in sorted(self._retired.items())
+            ]
+        for job_id, chip_ns, tiles, cached in live:
+            pair = self.meter.job_attrs(job_id)
+            agg = out.setdefault(
+                pair, {"chip_s": 0.0, "tiles": 0.0, "cached": 0.0}
+            )
+            agg["chip_s"] += _s(chip_ns)
+            agg["tiles"] += tiles
+            agg["cached"] = agg.get("cached", 0.0) + cached
+        for pair, chip_ns, tiles, cached in retired:
+            agg = out.setdefault(
+                pair, {"chip_s": 0.0, "tiles": 0.0, "cached": 0.0}
+            )
+            agg["chip_s"] += _s(chip_ns)
+            agg["tiles"] += tiles
+            agg["cached"] = agg.get("cached", 0.0) + cached
+        return out
+
+    def cost_snapshot(self) -> dict[str, Any]:
+        with self._lock:
+            return {
+                "global_chip_s_per_tile": self._cost_global,
+                "tenants": {
+                    t: {
+                        "chip_s_per_tile": state["ewma"],
+                        "cost_ratio": None,
+                    }
+                    for t, state in sorted(self._cost.items())
+                },
+            }
+
+    def status(
+        self, since_s: Optional[float] = None, tenant: Optional[str] = None
+    ) -> dict[str, Any]:
+        """The GET /distributed/usage payload: rollup + per-tenant
+        drill-down (+ windowed series history with ``?since=``)."""
+        rollup = self.rollup()
+        if tenant is not None:
+            rollup["tenants"] = {
+                t: s for t, s in rollup["tenants"].items() if t == tenant
+            }
+            rollup["jobs"] = {
+                j: s for j, s in rollup["jobs"].items()
+                if s.get("tenant") == tenant
+            }
+        cost = self.cost_snapshot()
+        for t, entry in cost["tenants"].items():
+            entry["cost_ratio"] = self.cost_ratio(t)
+        out: dict[str, Any] = {
+            "enabled": True,
+            "rollup": rollup,
+            "cost_model": cost,
+            "conservation": self.meter.totals(),
+        }
+        if since_s is not None and self.store is not None:
+            history: dict[str, Any] = {"tenants": {}, "waste": {}}
+            for t in self.store.label_values(S_TENANT_CHIP_S, "tenant"):
+                if tenant is not None and t != tenant:
+                    continue
+                history["tenants"][t] = {
+                    S_TENANT_CHIP_S: self.store.window(
+                        S_TENANT_CHIP_S, since_s, tenant=t
+                    ),
+                    S_TENANT_TILES: self.store.window(
+                        S_TENANT_TILES, since_s, tenant=t
+                    ),
+                }
+            for reason in self.store.label_values(S_WASTE_S, "reason"):
+                history["waste"][reason] = self.store.window(
+                    S_WASTE_S, since_s, reason=reason
+                )
+            out["history"] = history
+            out["since_seconds"] = float(since_s)
+        return out
+
+
+def _as_float(value: Any) -> float:
+    try:
+        out = float(value)
+    except (TypeError, ValueError):
+        return 0.0
+    return out if out == out and out not in (float("inf"), float("-inf")) else 0.0

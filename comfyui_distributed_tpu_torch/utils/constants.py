@@ -65,6 +65,59 @@ POISON_POLICY = os.environ.get("CDT_POISON_POLICY", "degrade")
 # Default end-to-end job deadline in seconds when a request names none
 # (0 = none).
 JOB_DEADLINE_DEFAULT_SECONDS = _env_float("CDT_JOB_DEADLINE_DEFAULT", 0.0)
+# Brownout (scheduler/brownout.py): when the queue-wait p95 crosses its
+# threshold, admission sheds one more lowest-priority lane (never the
+# top one); a level steps at most once a cooldown and steps back once
+# the signals fall under half their thresholds.
+SHED_WAIT_P95_SECONDS = _env_float("CDT_SHED_WAIT_P95", 20.0)
+SHED_WINDOW_SAMPLES = _env_int("CDT_SHED_WINDOW", 64)
+SHED_COOLDOWN_SECONDS = _env_float("CDT_SHED_COOLDOWN", 5.0)
+
+# --- watchdog (telemetry/watchdog.py) --------------------------------------
+# A worker whose rolling-median tile latency exceeds STRAGGLER_FACTOR x
+# the global rolling median (with MIN_SAMPLES completions in its window)
+# is flagged suspect; a job with no completion for STALL seconds while
+# tiles are in flight gets them speculatively re-enqueued. CDT_WATCHDOG=0
+# turns the server's watchdog off entirely.
+WATCHDOG_INTERVAL_SECONDS = _env_float("CDT_WATCHDOG_INTERVAL", 2.0)
+WATCHDOG_STRAGGLER_FACTOR = _env_float("CDT_WATCHDOG_STRAGGLER_FACTOR", 4.0)
+WATCHDOG_MIN_SAMPLES = _env_int("CDT_WATCHDOG_MIN_SAMPLES", 3)
+WATCHDOG_STALL_SECONDS = _env_float("CDT_WATCHDOG_STALL_SECONDS", 30.0)
+WATCHDOG_LATENCY_WINDOW = _env_int("CDT_WATCHDOG_LATENCY_WINDOW", 64)
+
+# --- scheduler control plane (scheduler/) ----------------------------------
+# Admission lanes in strict priority order as "name:depth"; a request
+# lands in its payload's `lane` (default SCHED_DEFAULT_LANE). A full lane
+# answers 429 with Retry-After.
+SCHED_LANES = os.environ.get("CDT_SCHED_LANES", "interactive:64,batch:256,background:1024")
+SCHED_DEFAULT_LANE = os.environ.get("CDT_SCHED_DEFAULT_LANE", "interactive")
+# Orchestrations running at once; the rest wait in their lane
+# (deficit round robin over tenants) for a grant.
+SCHED_MAX_ACTIVE = _env_int("CDT_SCHED_MAX_ACTIVE", 4)
+# DRR quantum in cost units a tenant visit; a tenant's replenishment is
+# quantum x its weight ("tenantA=3,tenantB=1"; unlisted tenants weigh 1).
+SCHED_QUANTUM = _env_float("CDT_SCHED_QUANTUM", 1.0)
+SCHED_TENANT_WEIGHTS = os.environ.get("CDT_SCHED_TENANT_WEIGHTS", "")
+# How long the queue route parks a request for its grant before 429.
+SCHED_GRANT_TIMEOUT_SECONDS = _env_float("CDT_SCHED_GRANT_TIMEOUT", 120.0)
+# Placement (scheduler/placement.py): an EWMA over each worker's
+# pull-to-submit tile latency; a grant scales with the worker's relative
+# speed (BASE_PULL_BATCH at 1.0, at most MAX_PULL_BATCH); in the last
+# TAIL_TILES of a job, suspect workers and workers slower than
+# TRIM_RATIO x the mean are denied pulls.
+SCHED_EWMA_ALPHA = _env_float("CDT_SCHED_EWMA_ALPHA", 0.25)
+SCHED_MIN_SAMPLES = _env_int("CDT_SCHED_MIN_SAMPLES", 2)
+SCHED_BASE_PULL_BATCH = _env_int("CDT_SCHED_BASE_PULL_BATCH", 2)
+SCHED_MAX_PULL_BATCH = _env_int("CDT_SCHED_MAX_PULL_BATCH", 8)
+SCHED_TAIL_TILES = _env_int("CDT_SCHED_TAIL_TILES", 2)
+SCHED_TRIM_RATIO = _env_float("CDT_SCHED_TRIM_RATIO", 0.5)
+# Preemption (scheduler/preempt.py): 1 lets a higher-lane arrival flag
+# running lower-lane jobs (their pulls read as drained until the flags
+# lift); inert while every job shares one lane. PREEMPT_BROWNOUT_LEVEL
+# is the brownout level from which shed lanes' running jobs are flagged
+# too (0 = never).
+PREEMPT_ENABLED = _env_int("CDT_PREEMPT", 1)
+PREEMPT_BROWNOUT_LEVEL = _env_int("CDT_PREEMPT_BROWNOUT_LEVEL", 0)
 
 # --- elastic tile pipeline (graph/tile_pipeline.py) ----------------------
 # CDT_PIPELINE=0 runs the pull/sample/encode/submit stages serially on
@@ -141,6 +194,36 @@ def adapter_cache_mb() -> float:
     return _env_float("CDT_ADAPTER_CACHE_MB", 256.0)
 
 
+def adapter_cold_cost() -> float:
+    """DRR admission cost multiplier of a job whose adapter operands are
+    not in the operand cache; 1.0 (the default) leaves cost unchanged."""
+    return _env_float("CDT_ADAPTER_COLD_COST", 1.0)
+
+
+def budget_tenants() -> tuple[str, ...]:
+    """CDT_BUDGET_TENANTS: tenants whose requests without a lane ride
+    the cheap lane."""
+    raw = os.environ.get("CDT_BUDGET_TENANTS", "")
+    return tuple(sorted({t.strip() for t in raw.split(",") if t.strip()}))
+
+
+def cheap_lane() -> str:
+    """The lane budget tenants ride (CDT_CHEAP_LANE, default background)."""
+    return os.environ.get("CDT_CHEAP_LANE", "background").strip() or "background"
+
+
+def cache_cost_enabled() -> bool:
+    """CDT_CACHE_COST=1 discounts a tenant's DRR admission cost by its
+    recent share of tiles settled from the tile cache; 0 (the default)
+    keeps admission cost blind to hits."""
+    return _env_int("CDT_CACHE_COST", 0) == 1
+
+
+def cache_cost_floor() -> float:
+    """The least fraction of full cost a discounted admission pays
+    (CDT_CACHE_COST_FLOOR, default 0.25)."""
+    return min(1.0, max(0.0, _env_float("CDT_CACHE_COST_FLOOR", 0.25)))
+
 
 # --- telemetry (telemetry/) -------------------------------------------------
 # The transfer ledger (telemetry/profiling.py): 0 turns off the
@@ -153,3 +236,22 @@ PROFILING_ENABLED = os.environ.get("CDT_PROFILING", "1") != "0"
 # chip-time attribution records and the store's usage notes. Read at
 # each use.
 USAGE_ENABLED = os.environ.get("CDT_USAGE", "1") != "0"
+# 1 multiplies a request's DRR admission cost by its tenant's measured
+# chip seconds a tile over the fleet mean (the master's usage
+# aggregator).
+USAGE_COST_ENABLED = _env_int("CDT_USAGE_COST", 0) == 1
+# Usage entries idle this long fold into retired aggregates and their
+# series leave the store.
+USAGE_TTL_SECONDS = _env_float("CDT_USAGE_TTL", 3600.0)
+
+# --- fleet plane (telemetry/fleet.py, telemetry/slo.py) ---------------------
+# 0 turns the master's fleet plane off (its routes answer enabled=false).
+FLEET_ENABLED = os.environ.get("CDT_FLEET", "1") != "0"
+# Seconds between the master's sampling passes (sweep, rollup, SLO burn).
+FLEET_INTERVAL_SECONDS = _env_float("CDT_FLEET_INTERVAL", 10.0)
+# Least seconds between a worker's piggybacked snapshots (<= 0: none).
+FLEET_SNAPSHOT_SECONDS = _env_float("CDT_FLEET_SNAPSHOT_SECONDS", 10.0)
+# A worker silent this long leaves the fleet view with its series.
+FLEET_TTL_SECONDS = _env_float("CDT_FLEET_TTL", 120.0)
+# SLO latency target: the tile pull-to-submit p95.
+SLO_TILE_P95_SECONDS = _env_float("CDT_SLO_TILE_P95", 5.0)

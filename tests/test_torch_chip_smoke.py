@@ -219,6 +219,34 @@ def test_elastic_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread):
     assert all("one tree of" in line and "rpc.submit_tiles" in line for line in telemetry[1::4])
     assert all("D2H bytes" in line for line in telemetry[2::4])
     assert all("(exact)" in line for line in telemetry[3::4])
+    # the [sched] checks of every run: admission, grants, the watchdog
+    sched = [line for line in out if line.startswith("[sched] elastic run")]
+    assert len(sched) == chip_smoke.ELASTIC_RUNS
+    assert all("admissions +1, grants +1, cdt_sched_active 0" in line
+               and "stalls +0" in line and "breaker healthy" in line for line in sched)
+    assert result["grants"]["master"] and sum(map(sum, result["grants"].values())) == 4
+
+
+def test_the_control_plane_checks_drain_and_the_fleet_on_the_cpu(capsys, one_torch_thread):
+    """The drain check before the last run and the procs phase's [fleet]
+    checks, rehearsed with w1 in this process piggybacking a snapshot on
+    every RPC: the 503 with its Retry-After, w1 in the master's fleet,
+    its adopted chip seconds equal to its meter's, no alert."""
+    workflow = _tiny_workflow()
+    bundle = tpl.load_pipeline("tiny-unet", seed=0, device="cpu")
+    result = chip_smoke._elastic_phase(torch, bundle, "tiny-unet", workflow,
+                                       torch.zeros((1, 64, 64, 3)), None, "cpu", runs=2,
+                                       drain=True, fleet_interval=1e-6)
+    out = capsys.readouterr().out.splitlines()
+    drained = [line for line in out if line.startswith("[sched] elastic drain:")]
+    assert len(drained) == 1 and "answered 503" in drained[0] and "launches 0" in drained[0]
+    assert result["drain"] == {"status": 503, "retry_after": "1"}
+    fleet = [line for line in out if line.startswith("[fleet] elastic run")]
+    assert len(fleet) == 2
+    assert all("lists w1 (snapshot v3, devices 1" in line and "none firing" in line
+               for line in fleet)
+    # the drain sits between the runs: the last run follows it
+    assert out.index(drained[0]) < out.index(fleet[1])
 
 
 def _elastic_on_tiny():
@@ -281,6 +309,51 @@ def test_the_telemetry_checks_fail_when_the_meter_miscounts_a_dispatch(monkeypat
     monkeypatch.setattr(tile_pipeline.GrantSampler, "_note_usage", miscount)
     with pytest.raises(RuntimeError, match="the usage meter's dispatch chip ns"):
         _elastic_on_tiny()
+
+
+def test_the_control_plane_checks_fail_when_the_watchdog_acts(monkeypatch, one_torch_thread):
+    """A watchdog that flags a stall on the healthy run fails it."""
+    from comfyui_distributed_tpu_torch.telemetry.watchdog import Watchdog
+
+    record = Watchdog.record_latency
+
+    def flagging(self, worker_id, seconds):
+        record(self, worker_id, seconds)
+        self.stalls_detected.append("job")
+
+    monkeypatch.setattr(Watchdog, "record_latency", flagging)
+    with pytest.raises(RuntimeError, match="the watchdog acted on a healthy fleet"):
+        _elastic_on_tiny()
+
+
+def test_the_control_plane_checks_fail_without_admission(monkeypatch, one_torch_thread):
+    """A master whose queue route admits nothing (no scheduler in front of
+    the orchestration: no admission, no grant, no scheduler block) fails
+    the run."""
+    from comfyui_distributed_tpu_torch.api.server import DistributedServer
+
+    wire = DistributedServer._wire_control_plane
+
+    def without_admission(self):
+        wire(self)
+        self.scheduler = None
+
+    monkeypatch.setattr(DistributedServer, "_wire_control_plane", without_admission)
+    # the trace lacks its sched.wait root: the first check to see it
+    with pytest.raises(RuntimeError, match="not one tree under the admission wait sched.wait"):
+        _elastic_on_tiny()
+
+
+def test_the_fleet_check_fails_without_the_worker_snapshot(monkeypatch, one_torch_thread):
+    """A worker that piggybacks no snapshot leaves the master's fleet
+    without w1, and the [fleet] check fails."""
+    workflow = _tiny_workflow()
+    bundle = tpl.load_pipeline("tiny-unet", seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="does not list w1"):
+        # an interval longer than the run: no snapshot is due
+        chip_smoke._elastic_phase(torch, bundle, "tiny-unet", workflow,
+                                  torch.zeros((1, 64, 64, 3)), None, "cpu", runs=1,
+                                  fleet_interval=1e9)
 
 
 def test_scraped_samples_parse_and_sum_by_label():

@@ -32,6 +32,7 @@ from comfyui_distributed_tpu.api import job_routes as jjob_routes
 from comfyui_distributed_tpu.api import worker_routes as jworker_routes
 from comfyui_distributed_tpu.jobs.store import JobStore as JaxJobStore
 from comfyui_distributed_tpu.resilience import health as jhealth
+from comfyui_distributed_tpu.scheduler import SchedulerControl as JaxSchedulerControl
 from comfyui_distributed_tpu.utils import config as jconfig
 from comfyui_distributed_tpu_torch.api import job_routes as tjob_routes
 from comfyui_distributed_tpu_torch.api.httpd import encode_multipart
@@ -64,6 +65,8 @@ class _JaxServer:
     def __init__(self, config_path: str):
         self.config_path = config_path
         self.job_store = JaxJobStore()
+        # the queue status's scheduler view, as a JAX master serves it
+        self.scheduler = JaxSchedulerControl(health=jhealth.get_health_registry())
         self.queue_remaining = 0
         self.execution_context = types.SimpleNamespace(pipelines={"tiny-unet": object()})
 

@@ -160,7 +160,7 @@ class ScriptedClient:
     def poll_ready(self):
         return True
 
-    def request_tile(self):
+    def request_tile(self, batch_max=1):
         if not self.tile_ids:
             return None
         return {"tile_idx": self.tile_ids.pop(0), "estimated_remaining": len(self.tile_ids)}

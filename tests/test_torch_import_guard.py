@@ -68,7 +68,11 @@ def test_the_server_and_the_elastic_tier_are_among_the_imported_modules():
                    "graph/nodes_video.py", "telemetry/__init__.py", "telemetry/metrics.py",
                    "telemetry/tracing.py", "telemetry/events.py", "telemetry/instruments.py",
                    "telemetry/runtime.py", "telemetry/profiling.py", "telemetry/usage.py",
-                   "utils/trace_logger.py", "api/telemetry_routes.py"):
+                   "utils/trace_logger.py", "api/telemetry_routes.py",
+                   "scheduler/__init__.py", "scheduler/queue.py", "scheduler/placement.py",
+                   "scheduler/brownout.py", "scheduler/control.py", "scheduler/preempt.py",
+                   "telemetry/watchdog.py", "telemetry/timeseries.py", "telemetry/slo.py",
+                   "telemetry/fleet.py", "api/scheduler_routes.py"):
         assert os.path.join("comfyui_distributed_tpu_torch", module) in names
 
 

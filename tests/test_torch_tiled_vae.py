@@ -146,7 +146,7 @@ class StoreClient:
     def poll_ready(self):
         return self._run(self.store.wait_for_tile_job(self.job_id, 10.0)) is not None
 
-    def request_tile(self):
+    def request_tile(self, batch_max=1):
         tile = self._run(self.store.pull_task(self.job_id, self.worker_id, timeout=0.5))
         return None if tile is None else {"tile_idx": tile}
 

@@ -1,10 +1,11 @@
 """End-to-end trace-id propagation through the port, beside the JAX
 package (tests/api/test_trace_propagation.py is the JAX package's own):
 
-master `queue_orchestration` → dispatch with the trace id (the
-X-CDT-Trace-Id header over HTTP, the message's trace_id over the
-websocket) → the worker's executor → the worker client's tile RPCs →
-collector ingestion, as ONE connected span tree per execution.
+the master's admission wait `sched.wait` (the root) → its
+`queue_orchestration` → dispatch with the trace id (the X-CDT-Trace-Id
+header over HTTP, the message's trace_id over the websocket) → the
+worker's executor → the worker client's tile RPCs → collector
+ingestion, as ONE connected span tree per execution.
 
 Master and worker are real DistributedServers on loopback sockets
 sharing this process, so the process-global tracer sees both sides of
@@ -178,19 +179,24 @@ def test_trace_propagates_master_to_worker_to_tile_rpcs_and_collector(tmp_path, 
                                                                       websocket):
     spans, served = _propagate("port", tmp_path, websocket, monkeypatch)
     names = {s["name"] for s in spans}
-    assert {"queue_orchestration", "probe_workers", "dispatch", "execute_prompt",
-            "rpc.request_image", "rpc.submit_tiles", "rpc.return_tiles",
+    assert {"sched.wait", "queue_orchestration", "probe_workers", "dispatch",
+            "execute_prompt", "rpc.request_image", "rpc.submit_tiles", "rpc.return_tiles",
             "rpc.job_complete"} <= names
     # both roles executed under the SAME trace
     assert {s["attrs"].get("role") for s in spans if s["name"] == "execute_prompt"} == {
         "master", "worker"}
     index = {s["span_id"]: s for s in spans}
+    # the admission wait is the trace's first span, so its root; the
+    # orchestration parents into it (as in the JAX package)
     (root,) = [s for s in spans if s["parent_id"] is None]
-    assert root["name"] == "queue_orchestration"
+    assert root["name"] == "sched.wait"
+    assert root["attrs"]["lane"] == "interactive" and root["attrs"]["tenant"] == "default"
+    (orchestration,) = [s for s in spans if s["name"] == "queue_orchestration"]
+    assert orchestration["parent_id"] == root["span_id"]
     for span in spans:
         assert _connected_to_root(span, index, root["span_id"]), span["name"]
     assert served["span_count"] == len(spans) and len(served["tree"]) == 1
-    assert served["tree"][0]["name"] == "queue_orchestration"
+    assert served["tree"][0]["name"] == "sched.wait"
     pulls = [s for s in spans if s["name"] == "rpc.request_image"]
     assert any("tile_idx" in s["attrs"] for s in pulls)
     (submit,) = [s for s in spans if s["name"] == "rpc.submit_tiles"]
@@ -198,20 +204,20 @@ def test_trace_propagates_master_to_worker_to_tile_rpcs_and_collector(tmp_path, 
     (released,) = [s for s in spans if s["name"] == "rpc.return_tiles"]
     assert len(released["attrs"]["released"]) == 1
     (dispatch,) = [s for s in spans if s["name"] == "dispatch"]
-    assert dispatch["attrs"]["worker_id"] == "w1" and dispatch["parent_id"] == root["span_id"]
-    logs = [e["attrs"]["message"] for e in root["events"] if e["name"] == "log"]
+    assert (dispatch["attrs"]["worker_id"] == "w1"
+            and dispatch["parent_id"] == orchestration["span_id"])
+    logs = [e["attrs"]["message"] for e in orchestration["events"] if e["name"] == "log"]
     assert any(m.startswith("dispatched to ['w1']") for m in logs)
 
 
 def test_the_port_records_the_span_names_the_jax_package_records(tmp_path, monkeypatch):
     """The same scenario over HTTP dispatch through both packages: one
-    connected tree in each, and no span name of the port's that the JAX
-    package does not use. (The JAX tree's root is its scheduler's
-    admission wait, sched.wait, which the port has not ported.)"""
+    connected tree in each, rooted at the scheduler's admission wait
+    (sched.wait) in both, and the same span names."""
     port_spans, _ = _propagate("port", tmp_path / "port", False, monkeypatch)
     jax_spans, jax_served = _propagate("jax", tmp_path / "jax", False, monkeypatch)
     assert len(jax_served["tree"]) == 1
+    assert jax_served["tree"][0]["name"] == "sched.wait"
     port_names = {s["name"] for s in port_spans} - {"rpc.submit_tiles", "rpc.return_tiles"}
     jax_names = {s["name"] for s in jax_spans}
-    assert port_names <= jax_names, port_names - jax_names
-    assert jax_names - port_names <= {"sched.wait"}
+    assert port_names == jax_names, port_names ^ jax_names
