@@ -116,7 +116,16 @@ width), so that every phase fits the run's time limit.
              tiles while more than CDT_SCHED_TAIL_TILES remain) adding
              up to its tiles, and no watchdog verdict (straggler, stall,
              speculative requeue) and w1's breaker closed on the
-             healthy fleet. Before the last run the scheduler is drained
+             healthy fleet. Each run's push grants on a [push] line
+             (`_Push`): the master's cdt_push_grants_total rises by the
+             tiles the job made pending plus every requeued tile; w1's
+             GrantSignal (`grant_signal` in its /distributed/system_info)
+             connected to /distributed/events for the job, parked after
+             its empty pull and was woken by a pushed frame (a stream that
+             is down fails the run: the pull loop would hide it); its
+             frames and parks, and what ended the last, are printed; the
+             master's event bus has its subscribers of before the run.
+             Before the last run the scheduler is drained
              (`_drain_check`): the queue answers 503 with Retry-After,
              makes no job and launches nothing; then it resumes.
    adapters - on SDXL at the cut depth, served as the elastic phase
@@ -161,7 +170,16 @@ width), so that every phase fits the run's time limit.
              kernel 1282 times (640 wgmma and 1 wgmma512 per
              participant). The master's collector must leave no job
              behind; w1's envelope counts are read from its finished
-             record.
+             record. Then the collector's audio on the same servers, on
+             an [audio] line (`_audio_check`, `_audio_workflow`, no
+             model): each participant's LoadAudio reads its own seeded
+             16-bit WAV (AUDIO_CHANNELS at AUDIO_RATE, AUDIO_SECONDS)
+             into DistributedCollector's `audio` beside an EmptyImage; the
+             master's combined waveform must equal its own followed by
+             w1's exactly, at the sample rate, on the card;
+             AudioBatchDivider's AUDIO_PARTS parts concatenate back to it
+             and SaveAudio's files hold what each node saved; w1's
+             payload bytes and the seconds are printed.
    2pass, pag, inpaint, sd21
            - the other bundled seed-parallel workflows (SD_WORKFLOWS), each
              as txt2img but POSTed once, its nodes found by class: two-pass
@@ -228,7 +246,8 @@ width), so that every phase fits the run's time limit.
              /distributed/metrics and /distributed/trace/{trace_id}
              holding its role's series and tile spans, and the usage
              check on the master's role, whose meter is in this
-             process; the [sched] line as the elastic phase's; and on a
+             process; the [sched] and [push] lines as the elastic
+             phase's, the stream over a real socket; and on a
              [fleet] line (`_fleet_check`) the master's fleet plane: w1
              (launched with CDT_FLEET_SNAPSHOT_SECONDS =
              PROCS_FLEET_SNAPSHOT_S, a snapshot on every pull and
@@ -236,7 +255,16 @@ width), so that every phase fits the run's time limit.
              its card's nonzero memory peak, /distributed/usage
              attributing the job's chip seconds with w1's part equal to
              w1's meter and w1's transfer ledger over the run, and no
-             alert firing on /distributed/alerts); a running elastic job
+             alert firing on /distributed/alerts); one more upscale run
+             in which the master's breaker quarantines w1 as soon as it
+             holds a grant (`_quarantine_run`, a [quarantine] line and
+             its [push] line): w1's tiles back on the queue when the
+             quarantine returns, counted under
+             cdt_store_requeued_tasks_total{reason="quarantine"} and
+             announced by a grant_available, every tile completed once
+             with w1's copies dropped as duplicates, the output within
+             RERUN_TOLERANCE of the local tiles; w1 pardoned after; a
+             running elastic job
              cancelled through /distributed/cancel/{job_id} (every pending
              and in-flight tile refunded, the master's prompt ends
              JobCancelled, an unknown job answers 404); clear_memory on w1
@@ -382,8 +410,14 @@ width), so that every phase fits the run's time limit.
              participant's first evaluation (its noise exactly the draw at
              its seed, w1's velocity within WAN_FIRST_EVAL_TOLERANCE of one
              here, and for i2v the same with the CLIP tokens zeroed at least
-             WAN_IMAGE_BRANCH_MIN apart). Seconds, videos/s, peak memory and
-             parameters by part per workflow.
+             WAN_IMAGE_BRANCH_MIN apart). wan-1.3b's master video also
+             through SaveAnimatedWEBP with no sampling, on a [webp] line
+             (`_webp_check`): the RIFF size, the VP8X canvas and animation
+             flag, loop 0, one ANMF a frame at the workflow's fps and a
+             VP8L header of the frame's size in each (the pixels are held
+             exact on the CPU by tests/test_torch_webp.py); bytes and
+             seconds. Seconds, videos/s, peak memory and parameters by
+             part per workflow.
    phases  - each phase's seconds and their total.
 5. kernels - one JSON line per the port's kernel contract: entry
              flash_attention over the upscale path (`launches`: the elastic
@@ -434,6 +468,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
@@ -485,6 +520,13 @@ THRESHOLD_KEYS = (63, 257, 513)
 # SD1.5's head dims (8 heads at every level of its UNet)
 TXT2IMG_HEAD_DIMS = (40, 80, 160)
 TXT2IMG_RUNS = 2
+# the txt2img phase's [audio] graph: a seeded 16-bit WAV a participant,
+# AUDIO_SECONDS of AUDIO_CHANNELS at AUDIO_RATE, the collector's combined
+# audio split AUDIO_PARTS ways
+AUDIO_RATE = 44100
+AUDIO_CHANNELS = 2
+AUDIO_SECONDS = 3
+AUDIO_PARTS = 3
 # the seed-parallel workflows after txt2img, each run once over HTTP, by
 # phase: two-pass (CLIPSetLastLayer, KSamplerAdvanced), PAG, inpaint
 # (LoadImage's input.png with a transparent square) and SD2.1-768-v
@@ -1508,6 +1550,81 @@ class _Sched:
         return {"queue_wait_s": block["queue_wait_seconds"], "grants": grants}
 
 
+class _Push:
+    """One elastic run's push grants, read before the run (`start`) and
+    held to it after (`check`) on a [push] line; any miss fails the run.
+    The master's cdt_push_grants_total rises by the tiles the job's
+    creation made pending plus every tile requeued since (a requeue
+    refills the queue, and each refill is announced); w1's GrantSignal
+    (its `grant_signal` in w1's /distributed/system_info) connected to
+    the master's /distributed/events for this job and received the
+    stream's hello frame (a stream that is down, or delivers nothing,
+    would leave w1 on the pure pull loop unseen); w1 parked after its
+    empty pull (unless the job's job_complete reached it first), at most
+    once until the CDT_PUSH_WAIT timeout, which then ended its pulls; and
+    the master's event bus holds as many subscribers after the run as
+    before it (the stream let go of w1's subscription when w1 closed
+    it). Whether a pushed frame woke each park is printed: a park that
+    starts more than CDT_PUSH_WAIT before the master finishes its own
+    tiles ends on the timeout, as on a JAX worker."""
+
+    def __init__(self, label: str, base: str, w1_base: str):
+        self.label = label
+        self.base = base
+        self.w1_base = w1_base
+
+    def start(self) -> None:
+        from comfyui_distributed_tpu_torch.telemetry import get_event_bus
+
+        self.before = _scrape(self.base)[1]
+        self.subscribers = get_event_bus().subscriber_count
+
+    def check(self, run, queued: dict, record: dict) -> dict:
+        from comfyui_distributed_tpu_torch.telemetry import get_event_bus
+        from comfyui_distributed_tpu_torch.utils.network import request_json
+
+        after = _scrape(self.base)[1]
+
+        def delta(name, **labels):
+            return _total(after, name, **labels) - _total(self.before, name, **labels)
+
+        job_id = queued["job_ids"][USDU_NODE]
+        pushed, requeued = delta("cdt_push_grants_total"), delta("cdt_store_requeued_tasks_total")
+        made_pending = record["total"] - len(record.get("cached", []))
+        _, info = request_json("GET", f"{self.w1_base}/distributed/system_info", timeout=10)
+        signal = info["status"].get("grant_signal") or {}
+        parks = signal.get("parks", [])
+        bus = get_event_bus()
+        deadline = time.monotonic() + 5.0
+        while bus.subscriber_count != self.subscribers and time.monotonic() < deadline:
+            time.sleep(0.01)
+        print(f"{self.label} run {run}: cdt_push_grants_total +{pushed:g} (the {made_pending} "
+              f"tiles made pending + {requeued:g} requeued); w1's grant signal for job "
+              f"{signal.get('job_id')}: connections {signal.get('connects')}, frames "
+              f"{signal.get('frames')}, parks (seconds, ended by) {parks}, the last ended on "
+              f"{parks[-1][1] if parks else None}, job_complete seen "
+              f"{signal.get('job_complete')}; the master's event-bus subscribers "
+              f"{bus.subscriber_count} after the run, {self.subscribers} before")
+        _require(pushed == made_pending + requeued,
+                 f"cdt_push_grants_total rose by {pushed:g}, not {made_pending} + {requeued:g}")
+        from comfyui_distributed_tpu_torch.utils.constants import PUSH_WAIT_SECONDS
+
+        frames = signal.get("frames") or {}
+        timeouts = [seconds for seconds, how in parks if how == "timeout"]
+        _require(signal.get("job_id") == job_id and signal.get("connects", 0) >= 1
+                 and frames.get("hello", 0) >= 1,
+                 f"w1's grant signal never connected for job {job_id}, or its stream "
+                 f"delivered nothing: {signal}")
+        _require(parks or frames.get("job_complete"), f"w1 never parked: {signal}")
+        _require(len(timeouts) <= 1 and (not timeouts or parks[-1][1] == "timeout")
+                 and all(seconds >= 0.99 * PUSH_WAIT_SECONDS for seconds in timeouts),
+                 f"w1's parks {parks}: more than one CDT_PUSH_WAIT, or one cut short unseen")
+        _require(bus.subscriber_count == self.subscribers,
+                 f"event-bus subscribers {bus.subscriber_count} after the run, "
+                 f"{self.subscribers} before: w1's stream was not let go")
+        return {"pushed": pushed, "frames": signal.get("frames"), "parks": parks}
+
+
 def _drain_check(label: str, master, base: str, workflow) -> dict:
     """POST /distributed/scheduler/drain, then a queue request: it must
     answer 503 with a Retry-After, create no job and launch no attention
@@ -1668,8 +1785,9 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
     of the workflow (an earlier phase did that). `after(servers)`, where
     given, runs once the runs are checked, on the same servers: servers
     is {"master", "worker", "base", "worker_port", "input_dir",
-    "output_dir", "reference_avg"} (the local tiles' weighted average, as
-    phase 4 composites them); its result is the returned dict's "after".
+    "output_dir", "reference" (the local tiles composited as the elastic
+    master composites them), "reference_avg"} (the local tiles' weighted
+    average, as phase 4 composites them); its result is the returned dict's "after".
     With `runs` 0 the servers only serve `after`. Every run is held to
     the control plane on a [sched] line (`_Sched`); with `drain` the last
     run follows a drained scheduler's 503 and a resume (`_drain_check`).
@@ -1707,12 +1825,14 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                           {ckpt: bundle}) as (master, worker, base, worker_port):
                 telemetry = _Telemetry(torch, f"[telemetry] {tag}", base, cuda=cuda)
                 sched = _Sched(f"[sched] {tag}", master, base)
+                push = _Push(f"[push] {tag}", base, f"http://127.0.0.1:{worker_port}")
                 tile_bytes = _tile_output_bytes(workflow, image)
                 for run in range(1, runs + 1):
                     if drain and run == runs:
                         result["drain"] = _drain_check(f"[sched] {tag}", master, base, workflow)
                     telemetry.start()
                     sched.start()
+                    push.start()
                     if cuda:
                         torch.cuda.synchronize()
                         torch.cuda.reset_peak_memory_stats()
@@ -1745,6 +1865,7 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                           f"{_rounded(read['stage_seconds']['master'])}; w1 "
                           f"{_rounded(read['stage_seconds']['worker'])}")
                     control = sched.check(run, queued, record, read["spans"])
+                    result["push"] = push.check(run, queued, record)
                     if fleet_interval is not None:
                         _fleet_check(f"[fleet] {tag}", base, None, queued, run, fleet_interval,
                                      cuda, {})
@@ -1789,7 +1910,7 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                 if after is not None:
                     result["after"] = after({"master": master, "worker": worker, "base": base,
                                              "worker_port": worker_port, "input_dir": in_dir,
-                                             "output_dir": out_dir,
+                                             "output_dir": out_dir, "reference": reference,
                                              "reference_avg": reference_avg})
         finally:
             constants.FLEET_SNAPSHOT_SECONDS = snapshot_seconds
@@ -2183,7 +2304,7 @@ def _one_ksampler(workflow):
 def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int | None = None,
                    expected_by_instance: dict | None = None, runs: int = TXT2IMG_RUNS,
                    tag: str = "txt2img", image_px: int = IMAGE_PX,
-                   pipelines: dict | None = None) -> dict:
+                   pipelines: dict | None = None, audio: bool = False) -> dict:
     """Seed-parallel generation over HTTP (see the module docstring):
     local references at the master's seed and w1's, then the unmodified
     workflow POSTed `runs` times to a master with worker w1, both servers
@@ -2201,7 +2322,8 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
     loads its parts with the component loaders. Prints the [tag] lines
     and returns the last run's attention launches and the local image at
     the master's seed (`local`). With `expected_launches` None (no card)
-    the launch counts go unchecked."""
+    the launch counts go unchecked. With `audio`, the same servers then
+    run the collector's audio graph (`_audio_check`, an [audio] line)."""
     import numpy as np
 
     from comfyui_distributed_tpu_torch.graph import ExecutionContext, GraphExecutor
@@ -2361,7 +2483,110 @@ def _txt2img_phase(torch, bundle, workflow, device: str, expected_launches: int 
                 result = {"launches": launches, "launches_by_instance": by_instance,
                           "images_per_s": out.shape[0] / seconds, "peak_gib": peak / 2**30,
                           "local": local[seed]}
+            if audio:
+                result["audio"] = _audio_check(master, base, worker_port, in_dir, out_dir, device)
     return result
+
+
+def _audio_workflow(parts: int = AUDIO_PARTS) -> dict:
+    """A model-free graph of the collector's audio path: DistributedValue
+    names each participant's WAV (the master's "master.wav", w1's
+    "w1.wav"), LoadAudio reads it, DistributedCollector gathers it beside
+    an EmptyImage, AudioBatchDivider splits the combined audio `parts`
+    ways, and SaveAudio writes the combined audio and each part."""
+    workflow = {
+        "1": {"class_type": "DistributedValue",
+              "inputs": {"value": "master.wav", "overrides": {"_type": "STRING", "1": "w1.wav"}}},
+        "2": {"class_type": "LoadAudio", "inputs": {"audio": ["1", 0]}},
+        "3": {"class_type": "EmptyImage",
+              "inputs": {"width": 64, "height": 64, "batch_size": 1, "color": 0x336699}},
+        "4": {"class_type": "DistributedCollector", "inputs": {"images": ["3", 0],
+                                                               "audio": ["2", 0]}},
+        "5": {"class_type": "AudioBatchDivider", "inputs": {"audio": ["4", 1],
+                                                            "divide_by": parts}},
+        "6": {"class_type": "SaveAudio", "inputs": {"audio": ["4", 1],
+                                                    "filename_prefix": "combined"}},
+    }
+    for i in range(parts):
+        workflow[str(7 + i)] = {"class_type": "SaveAudio",
+                                "inputs": {"audio": ["5", i], "filename_prefix": f"part{i}"}}
+    return workflow
+
+
+def _write_wav(path: str, seed: int, seconds: float = AUDIO_SECONDS) -> None:
+    """A seeded 16-bit PCM WAV of AUDIO_CHANNELS channels at AUDIO_RATE."""
+    import wave
+
+    import numpy as np
+
+    pcm = np.random.default_rng(seed).integers(-32767, 32768, (int(seconds * AUDIO_RATE),
+                                                              AUDIO_CHANNELS), dtype=np.int16)
+    with wave.open(path, "wb") as wf:
+        wf.setnchannels(AUDIO_CHANNELS)
+        wf.setsampwidth(2)
+        wf.setframerate(AUDIO_RATE)
+        wf.writeframes(pcm.tobytes())
+
+
+def _audio_check(master, base: str, worker_port: int, in_dir: str, out_dir: str,
+                 device: str) -> dict:
+    """The collector's audio path over HTTP on a master and w1 in this
+    process (`_audio_workflow`), on an [audio] line; any miss fails the
+    run: the master's combined waveform is exactly its own WAV followed by
+    w1's (LoadAudio's reading of each file), at their sample rate;
+    AudioBatchDivider's parts concatenate back to it; every SaveAudio
+    file holds what its node saved."""
+    import numpy as np
+
+    from comfyui_distributed_tpu_torch.graph import ExecutionContext
+    from comfyui_distributed_tpu_torch.graph.nodes_audio import LoadAudio
+    from comfyui_distributed_tpu_torch.utils import audio_payload
+    from comfyui_distributed_tpu_torch.utils import image as img_utils
+
+    workflow = _audio_workflow()
+    for name, seed in (("master.wav", SEED), ("w1.wav", SEED + 1)):
+        _write_wav(os.path.join(in_dir, name), seed)
+    context = ExecutionContext(device=device)
+    loaded = {name: LoadAudio().load(os.path.join(in_dir, name), context)[0]
+              for name in ("master.wav", "w1.wav")}
+    wave = {name: img_utils.ensure_numpy(a["waveform"]) for name, a in loaded.items()}
+    started = time.perf_counter()
+    queued, history, _ = _queue(base, worker_port, workflow)
+    seconds = time.perf_counter() - started
+    outputs = master.get_job(queued["prompt_id"]).outputs
+    combined = outputs["6"][0]["audio"]
+    got = img_utils.ensure_numpy(combined["waveform"])
+    want = np.concatenate([wave["master.wav"], wave["w1.wav"]], axis=-1)
+    parts = [img_utils.ensure_numpy(outputs[str(7 + i)][0]["audio"]["waveform"])
+             for i in range(AUDIO_PARTS)]
+    files = {}
+    for node in ["6"] + [str(7 + i) for i in range(AUDIO_PARTS)]:
+        name = history["outputs"][node]["audio"][0]
+        with np.load(os.path.join(out_dir, name)) as saved:
+            files[name] = (np.asarray(saved["waveform"]), int(saved["sample_rate"]))
+    envelope = len(audio_payload.encode_audio_payload(wave["w1.wav"], AUDIO_RATE)["data"])
+    where = getattr(combined["waveform"], "device", None)
+    print(f"[audio] the collector's audio over HTTP, master + w1: {seconds:.2f} s; the master's "
+          f"waveform {tuple(wave['master.wav'].shape)} and w1's {tuple(wave['w1.wav'].shape)} "
+          f"at {AUDIO_RATE} Hz combined to {tuple(got.shape)} at {combined['sample_rate']} Hz on "
+          f"{where}, equal to the master's then w1's: {np.array_equal(got, want)}; w1's audio "
+          f"payload {envelope} base64 bytes on its last envelope; AudioBatchDivider's "
+          f"{AUDIO_PARTS} parts {[p.shape[-1] for p in parts]} samples, concatenated equal: "
+          f"{np.array_equal(np.concatenate(parts, axis=-1), got)}; SaveAudio files "
+          f"{sorted(files)}")
+    _require(np.array_equal(got, want), "the combined audio is not the master's then w1's")
+    _require(combined["sample_rate"] == AUDIO_RATE, f"sample rate {combined['sample_rate']}")
+    _require(where is not None and where.type == device.split(":")[0],
+             f"the combined audio is on {where}, not {device}")
+    _require(np.array_equal(np.concatenate(parts, axis=-1), got),
+             "AudioBatchDivider's parts do not concatenate back to its input")
+    _require(all(len(p.shape) == 3 and p.shape[-1] > 0 for p in parts),
+             f"AudioBatchDivider's parts {[p.shape for p in parts]}")
+    saved_all = [files[history["outputs"][node]["audio"][0]]
+                 for node in ["6"] + [str(7 + i) for i in range(AUDIO_PARTS)]]
+    _require(all(np.array_equal(w, expect) and rate == AUDIO_RATE for (w, rate), expect in
+                 zip(saved_all, [got] + parts)), "a SaveAudio file does not hold its audio")
+    return {"seconds": seconds, "envelope_bytes": envelope, "samples": int(got.shape[-1])}
 
 
 def _mismatched_parameters(torch, bundle, reference) -> list[str]:
@@ -2924,10 +3149,12 @@ def _procs_phase(torch, gen, workflows: dict, image, device: str,
         outs, tiles_by = [], {}
         telemetry = _Telemetry(torch, "[telemetry] procs", base, w1_base, cuda=cuda)
         sched = _Sched("[sched] procs", master, base)
+        push = _Push("[push] procs", base, w1_base)
         tile_bytes = _tile_output_bytes(up, image)
         for attempt in (1, 2):
             telemetry.start()
             sched.start()
+            push.start()
             fleet_before = _fleet_readings(base, w1_base, cuda)
             queued, history, worker_history, out, seconds, launches, by_instance = run(
                 up, f"elastic run {attempt}")
@@ -2953,6 +3180,7 @@ def _procs_phase(torch, gen, workflows: dict, image, device: str,
                   f"master {_rounded(read['stage_seconds']['master'])}; w1 "
                   f"{_rounded(read['stage_seconds']['worker'])}")
             control = sched.check(attempt, queued, record, read["spans"])
+            results["push"] = push.check(attempt, queued, record)
             _fleet_check("[fleet] procs", base, w1_base, queued, attempt,
                          PROCS_FLEET_SNAPSHOT_S, cuda, fleet_before)
             results["grants"] = control["grants"]
@@ -2969,6 +3197,12 @@ def _procs_phase(torch, gen, workflows: dict, image, device: str,
                   f"local tiles composited alike {diff:.3g} (tolerance {RERUN_TOLERANCE})")
             _require(tuple(out.shape) == tuple(reference.shape), "elastic output shape")
             _require(diff <= RERUN_TOLERANCE, "the elastic output disagrees with the local tiles")
+        def quarantine_run():
+            queued_, _, _, out_, seconds_, _, _ = run(up, "quarantine run")
+            return queued_, out_, seconds_
+
+        results["quarantine"] = _quarantine_run(master, base, w1_base, quarantine_run, reference,
+                                                push)
         os.environ.pop("CDT_DETERMINISTIC_BLEND", None)
 
         # --- 7. cancel a running elastic job; clear_memory ---
@@ -3051,6 +3285,112 @@ def _procs_phase(torch, gen, workflows: dict, image, device: str,
         shutil.rmtree(tmp, ignore_errors=True)
         if cuda:
             torch.cuda.empty_cache()
+
+
+def _quarantine_run(master, base: str, w1_base: str, run, reference, push: _Push) -> dict:
+    """One more elastic run (`run()`: queue the upscale workflow with
+    workers ["w1"] and wait, → (queue answer, the master's output,
+    seconds)) in which the master's breaker
+    quarantines w1 (record_failure up to its threshold) as soon as w1
+    holds a grant, on a [quarantine] line; any miss fails the run. w1's
+    in-flight tiles must be back on the queue when the quarantine returns
+    (the breaker's requeue binding, off the loop, waits for it): counted
+    in cdt_store_requeued_tasks_total{reason="quarantine"} by then, and
+    announced by a grant_available event (w1 may pull again at once: the
+    breaker trims a quarantined worker only from the job's tail); every tile is completed once, w1's copies
+    of the requeued tiles count as dropped duplicates (first result
+    wins), the output is within RERUN_TOLERANCE of `reference` (the local
+    tiles composited alike), and the run's [push] checks hold. w1 is
+    pardoned afterwards, whatever happened."""
+    import threading
+
+    from comfyui_distributed_tpu_torch.resilience.health import get_health_registry
+    from comfyui_distributed_tpu_torch.telemetry import get_event_bus
+
+    label = "[quarantine]"
+    store = master.job_store
+    registry = get_health_registry()
+    announced: list = []
+    remove_tap = get_event_bus().add_tap(
+        lambda event: announced.append(event["data"]) if event["type"] == "grant_available"
+        else None, name="chip_smoke")
+    done: dict = {}
+
+    def queue_and_wait():
+        try:
+            done["run"] = run()
+        except BaseException as exc:  # noqa: BLE001 - raised on the main thread
+            done["error"] = exc
+
+    async def w1_tiles():
+        for job in store.tile_jobs.values():
+            held = sorted(t for t in job.assigned.get("w1", ()) if t not in job.completed)
+            if held:
+                return job.job_id, held
+        return None
+
+    before = _scrape(base)[1]
+    push.start()
+    thread = threading.Thread(target=queue_and_wait, name="chip-smoke-quarantine")
+    try:
+        thread.start()
+        held = None
+        deadline = time.monotonic() + PROCS_RUN_TIMEOUT_S
+        while held is None and thread.is_alive() and time.monotonic() < deadline:
+            held = asyncio.run_coroutine_threadsafe(w1_tiles(), master.loop).result(timeout=30)
+            if held is None:
+                time.sleep(0.005)
+        _require(held is not None, "w1 never held a grant in the quarantine run")
+        job_id, in_flight = held
+        started = time.perf_counter()
+        for _ in range(registry.failure_threshold):
+            registry.record_failure("w1")
+        quarantine_s = time.perf_counter() - started
+        state = registry.state("w1").value
+        requeued = _total(_scrape(base)[1], "cdt_store_requeued_tasks_total", worker_id="w1",
+                          reason="quarantine") - _total(before, "cdt_store_requeued_tasks_total",
+                                                        worker_id="w1", reason="quarantine")
+        left = asyncio.run_coroutine_threadsafe(w1_tiles(), master.loop).result(timeout=30)
+        after_quarantine = [a for a in announced if a.get("job_id") == job_id]
+        thread.join(timeout=PROCS_RUN_TIMEOUT_S)
+        _require(not thread.is_alive(), "the quarantine run did not finish")
+        if "error" in done:
+            raise done["error"]
+    finally:
+        remove_tap()
+        registry.pardon("w1")
+    queued, out, seconds = done["run"]
+    record = store.finished[queued["job_ids"][USDU_NODE]]
+    by = {}
+    for _, who in record["completions"]:
+        by[who] = by.get(who, 0) + 1
+    diff = float((out.float() - reference.to(out.device)).abs().max())
+    print(f"{label} w1 held tiles {in_flight} of job {job_id} when the breaker quarantined it "
+          f"({registry.failure_threshold} failures in {quarantine_s:.4f} s, state {state}); "
+          f"cdt_store_requeued_tasks_total{{worker_id=\"w1\",reason=\"quarantine\"}} "
+          f"+{requeued:g} when they returned; held by w1 next: {left}; grant_available events for the job "
+          f"{after_quarantine}; run {seconds:.2f} s, tiles completed: master "
+          f"{by.get('master', 0)}, w1 {by.get('w1', 0)} (order {record['completions']}), "
+          f"duplicates dropped {record['duplicates']}; output max |diff| vs the local tiles "
+          f"composited alike {diff:.3g} (tolerance {RERUN_TOLERANCE}); w1 pardoned, now "
+          f"{registry.state('w1').value}")
+    _require(state == "quarantined", f"w1's breaker is {state} after the failures")
+    _require(requeued == len(in_flight),
+             f"{requeued:g} tiles requeued for the quarantine, w1 held {in_flight}")
+    _require(any(a.get("tasks") == len(in_flight) for a in after_quarantine),
+             f"no grant_available announced the requeued tiles: {after_quarantine}")
+    _require(sorted(t for t, _ in record["completions"]) == list(range(record["total"])),
+             f"tiles completed {record['completions']}, expected each once")
+    _require(record["duplicates"] == len(in_flight),
+             f"{record['duplicates']} duplicates dropped, expected w1's {len(in_flight)} "
+             f"late copies")
+    _require(tuple(out.shape) == tuple(reference.shape) and diff <= RERUN_TOLERANCE,
+             "the quarantine run's output disagrees with the local tiles")
+    _require(registry.state("w1").value == "healthy", "w1 was not pardoned")
+    result = {"requeued": requeued, "in_flight": in_flight, "seconds": seconds,
+              "duplicates": record["duplicates"]}
+    result["push"] = push.check("quarantine", queued, record)
+    return result
 
 
 def _samplers_phase(torch, bundle, workflow, device: str, check_launches: bool = False) -> dict:
@@ -4799,6 +5139,46 @@ def _wan_local(torch, attn, executor, workflow, seed: int, label: str, size: tup
     return frames.float(), launches, by_instance, seconds
 
 
+def _webp_check(frames, fps: int, out_dir: str, label: str = "[webp]") -> dict:
+    """SaveAnimatedWEBP on `frames` (an IMAGE batch) at `fps` into
+    `out_dir`, its container held to the frames on a [webp] line; any miss
+    fails the run: the RIFF size is the file's less 8, the VP8X canvas the
+    frames' size with the animation flag, ANIM loops forever, one ANMF a
+    frame at offset 0 and round(1000 / fps) ms, each holding a VP8L
+    bitstream whose header carries the frame's size. (No decoder here:
+    the pixels are held exact by the CPU tests, tests/test_torch_webp.py.)"""
+    from comfyui_distributed_tpu_torch.graph import NODE_REGISTRY
+    from comfyui_distributed_tpu_torch.utils import webp
+
+    n, height, width = (int(d) for d in frames.shape[:3])
+    started = time.perf_counter()
+    ui = NODE_REGISTRY["SaveAnimatedWEBP"]().save(
+        frames, filename_prefix="chip_smoke", fps=fps,
+        context=types.SimpleNamespace(config={"settings": {"output_dir": out_dir}}))[0]["ui"]
+    seconds = time.perf_counter() - started
+    with open(os.path.join(out_dir, ui["images"][0]), "rb") as fh:
+        data = fh.read()
+    info = webp.read_container(data)
+    duration = int(round(1000.0 / max(int(fps), 1)))
+    frames_seen = info["frames"]
+    print(f"{label} SaveAnimatedWEBP of {n} frames of {width}x{height} at {fps} fps: "
+          f"{ui['images'][0]}, {len(data)} bytes in {seconds:.2f} s; RIFF size "
+          f"{info['riff_size']} (file {info['file_size']}), VP8X flags {info.get('flags'):#04x}, "
+          f"canvas {info.get('canvas')}, loop {info.get('loop')}, {len(frames_seen)} ANMF "
+          f"frames, durations {sorted({f['duration'] for f in frames_seen})} ms, VP8L headers "
+          f"{sorted({f['vp8l_header'] for f in frames_seen})}, VP8L bytes a frame "
+          f"{min(f['vp8l_size'] for f in frames_seen)}-{max(f['vp8l_size'] for f in frames_seen)}")
+    _require(info["riff_size"] == len(data) - 8, "the RIFF size is not the file's less 8")
+    _require(info.get("flags", 0) & 0x02 and info.get("canvas") == (width, height)
+             and info.get("loop") == 0, f"VP8X/ANIM: flags {info.get('flags')}, canvas "
+             f"{info.get('canvas')}, loop {info.get('loop')}")
+    _require(len(frames_seen) == n, f"{len(frames_seen)} ANMF frames, not {n}")
+    _require(all(f["x"] == f["y"] == 0 and f["size"] == (width, height)
+                 and f["duration"] == duration and f["vp8l_header"] == (width, height, 0, 0)
+                 for f in frames_seen), "an ANMF frame's placement, duration or VP8L header")
+    return {"bytes": len(data), "seconds": seconds, "frames": n}
+
+
 def _wan_phase(torch, workflows: dict, device: str, expected: dict | None = None,
                frame_hw: tuple = WAN_I2V_FRAME_HW, gen=None,
                local_tags: tuple = ("wan",)) -> dict:
@@ -4928,6 +5308,10 @@ def _wan_phase(torch, workflows: dict, device: str, expected: dict | None = None
                 _require(float(d01.max()) > RERUN_TOLERANCE
                          and float(d01.mean()) > RERUN_TOLERANCE,
                          "the master's and w1's videos do not differ")
+                if tag in local_tags:
+                    # the master's video through SaveAnimatedWEBP, no sampling
+                    result["webp"] = _webp_check(out[:n], int(workflow[save]["inputs"]["fps"]),
+                                                 out_dir)
                 if local:
                     d0 = float((out[:n].float() - local[video["seed"]].to(out.device)).abs().max())
                     d1 = float((out[n:].float()
@@ -5498,7 +5882,7 @@ def _run(torch, phases: set, unet_cuts: dict) -> int:
                         _expected_by_instance(attn, t2i_shapes, torch).items()}
         results["txt2img"] = _txt2img_phase(torch, t2i_bundle, t2i_workflow, "cuda",
                                             expected_launches=2 * per_image,
-                                            expected_by_instance=t2i_expected)
+                                            expected_by_instance=t2i_expected, audio=True)
         phase_seconds["txt2img"] = time.perf_counter() - phase_started
 
     # --- 4d. the other seed-parallel SD workflows ----------------------------------

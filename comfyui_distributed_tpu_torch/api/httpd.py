@@ -57,6 +57,13 @@ class Request:
         self.reader = reader
         self.writer = writer
 
+    @property
+    def remote(self) -> Optional[str]:
+        """The peer's host, as aiohttp's `request.remote`; None without a
+        connection."""
+        peer = self.writer.get_extra_info("peername") if self.writer is not None else None
+        return str(peer[0]) if peer else None
+
     def json(self) -> Any:
         """The body decoded as JSON; None when it is empty or malformed."""
         if not self.body:

@@ -52,9 +52,9 @@ scheduler 503, all with Retry-After; a ticket withdrawn while queued
 job is the deadline's remainder after the wait. Every exit hands the
 ticket back: a queued one is cancelled, a granted one released.
 
-The deadline may also come as the X-CDT-Deadline header. An envelope
-with `audio` answers 501: audio payloads are not ported (ROADMAP.md,
-Queue 1 step 6b). A cancel or an envelope carrying the X-CDT-Trace-Id
+The deadline may also come as the X-CDT-Deadline header. An envelope's
+`audio` payload (utils/audio_payload.py) is decoded onto the queued
+result, and one that does not decode answers 400. A cancel or an envelope carrying the X-CDT-Trace-Id
 header is a span (`rpc.cancel_job`, `rpc.job_complete`) of that trace;
 every queued envelope counts in cdt_collector_results_total.
 """
@@ -79,8 +79,9 @@ from ..scheduler import (
 )
 from ..telemetry import get_tracer
 from ..telemetry.instruments import collector_results_total
-from ..utils import image as img_utils
+from ..utils import audio_payload as audio_utils
 from ..utils import constants
+from ..utils import image as img_utils
 from ..utils.constants import JOB_INIT_GRACE_SECONDS, budget_tenants, cheap_lane
 from ..utils.exceptions import PromptValidationError
 from ..utils.logging import log
@@ -255,9 +256,12 @@ class JobRoutes:
             tensor = img_utils.decode_image_data_url(body["image"])
         except Exception as exc:  # noqa: BLE001 - boundary validation
             return json_response({"error": f"undecodable image: {exc}"}, 400)
+        audio = None
         if body.get("audio") is not None:
-            return json_response({"error": "audio payloads are not ported (ROADMAP.md, Queue 1 "
-                                           "step 6b)"}, 501)
+            try:
+                audio = audio_utils.decode_audio_payload(body["audio"])
+            except Exception as exc:  # noqa: BLE001 - boundary validation
+                return json_response({"error": f"undecodable audio: {exc}"}, 400)
         job_id = str(body["job_id"])
         worker_id = str(body["worker_id"])
         store = self.server.job_store
@@ -270,6 +274,7 @@ class JobRoutes:
                 "batch_idx": int(body["batch_idx"]),
                 "is_last": bool(body.get("is_last", False)),
                 "empty": bool(body.get("empty", False)),
+                "audio": audio,
             }, received_bytes=len(body["image"]))
             if queued:
                 collector_results_total().inc(worker_id=worker_id)

@@ -16,7 +16,13 @@ api/httpd.py instead of aiohttp. It owns:
   (or the orchestration) names, else its prompt id, and runs under an
   `execute_prompt` span;
 - the JobStore of the elastic tier, and the scrape-time collectors of
-  its live state, bound at start and unbound at stop;
+  its live state, bound at start and unbound at stop; the breaker's
+  quarantine requeue (a quarantined worker's in-flight tiles go back on
+  the queue at once), bound with the store and unbound at stop; on a
+  master, push grants (CDT_PUSH_GRANTS, on by default): the store's
+  refills call the placement policy's `notify_grants`, which publishes
+  the `grant_available` events workers wait on over
+  /distributed/events;
 - the control plane, as the JAX server wires it by default: the
   `SchedulerControl` (admission lanes and fair share in front of the
   orchestration, its placement policy sizing the store's grants, the
@@ -81,6 +87,11 @@ class DistributedServer:
         self.config_path = config_path
         self.device = device or "cuda"
         self.job_store = JobStore()
+        from ..resilience import bind_quarantine_requeue
+        from ..resilience.health import get_health_registry
+
+        # breaker → store: a quarantined worker's tiles requeue at once
+        self._unbind_health = bind_quarantine_requeue(get_health_registry(), self.job_store)
         self._wire_control_plane()
         self.router = Router()
         self.http: Optional[HTTPServer] = None
@@ -316,6 +327,11 @@ class DistributedServer:
         loop."""
         self.loop = asyncio.get_running_loop()
         set_server_loop(self.loop)
+        from ..utils.constants import PUSH_GRANTS_ENABLED
+
+        placement = self.job_store.placement  # the scheduler's placement policy
+        if PUSH_GRANTS_ENABLED and not self.is_worker and placement is not None:
+            self.job_store.grant_notifier = placement.notify_grants
         self._executor_thread = threading.Thread(target=self._executor_loop,
                                                  name="cdt-executor", daemon=True)
         self._executor_thread.start()
@@ -348,6 +364,8 @@ class DistributedServer:
             self._fleet_monitor.stop()
         self._unbind_telemetry()
         self._unbind_telemetry = lambda: None
+        self._unbind_health()
+        self._unbind_health = lambda: None
         self._prompt_queue.put(None)
         if self._executor_thread is not None:
             self.interrupt()

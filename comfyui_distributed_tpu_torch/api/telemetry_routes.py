@@ -12,6 +12,8 @@ comfyui_distributed_tpu/api/telemetry_routes.py, on api/httpd.py:
     GET  /distributed/alerts            SLO burn rates and alert state
     GET  /distributed/usage             chip-time attribution by tenant,
                                         lane and job (?since=, ?tenant=)
+    GET  /distributed/events            live event stream (WebSocket;
+                                        ?types=a,b filters bus-side)
     GET  /distributed/cache             tile-cache stats
     POST /distributed/cache/clear       drop both tile-cache tiers
 
@@ -24,20 +26,28 @@ their series apart.
 
 The fleet, alerts and usage routes answer `{"enabled": false, "hint"}`
 on a server without the fleet plane (a worker, or CDT_FLEET=0).
+The event stream is the event bus (telemetry/events.py) over a
+WebSocket: its first frame is `hello` (the breaker snapshot and the
+store's counts), then every event the bus fans out to the connection's
+subscription, an `events_dropped` notice before the first event after
+the subscription's queue dropped some, until the client closes. Push
+grants ride it (graph/usdu_elastic.py::GrantSignal).
 Not registered, so they answer 404 as the port's other unported routes
-do, each with its ROADMAP.md item (Queue 1 step 7): /distributed/events
-(with push grants), /distributed/durability and the profiler-capture
-routes.
+do, each with its ROADMAP.md item (Queue 1 step 7):
+/distributed/durability and the profiler-capture routes.
 """
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
+import json
 import math
 from typing import Any
 
 from ..telemetry import TRACE_HEADER, get_metrics_registry, get_tracer
-from .httpd import Request, Response, Router, json_response
+from ..telemetry.events import get_event_bus
+from .httpd import Request, Response, Router, accept_websocket, json_response
 
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
@@ -66,6 +76,7 @@ def register(router: Router, server) -> None:
     router.add_get("/distributed/fleet", routes.fleet)
     router.add_get("/distributed/alerts", routes.alerts)
     router.add_get("/distributed/usage", routes.usage)
+    router.add_get("/distributed/events", routes.events)
     router.add_get("/distributed/cache", routes.cache)
     router.add_post("/distributed/cache/clear", routes.cache_clear)
 
@@ -133,6 +144,64 @@ class TelemetryRoutes:
         payload = engine.status()
         payload["enabled"] = True
         return json_response(payload)
+
+    async def events(self, request: Request) -> Response:
+        """The live event stream over a WebSocket (see the module
+        docstring). The handler waits on the subscription and on the
+        socket at once: the stream is one-way, so anything the client
+        sends, or its close, ends it, and the subscription goes with it
+        (waiting on the subscription alone would keep a departed client's
+        queue on the bus until the next event)."""
+        types_param = request.query.get("types")
+        types = ({t.strip() for t in types_param.split(",") if t.strip()} if types_param
+                 else None)
+        ws = await accept_websocket(request)
+        if ws is None:
+            return json_response({"error": "websocket handshake expected"}, 400)
+        bus = get_event_bus()
+        # named per remote: the scrape's per-subscriber depth and drops
+        sub = bus.subscribe(types=types, name=f"ws:{request.remote or 'events'}")
+        from ..resilience.health import get_health_registry
+
+        hello = {
+            "type": "hello", "seq": None, "ts": None,
+            "data": {
+                "server": f"{'worker' if self.server.is_worker else 'master'}:{self.server.port}",
+                "subscribed": sorted(types) if types else "all",
+                "health": get_health_registry().snapshot(),
+                "store": self.server.job_store.stats_unlocked(),
+            },
+        }
+        receiver = asyncio.ensure_future(ws.receive())
+        getter: asyncio.Future | None = None
+        reported_drops = 0
+        try:
+            await ws.send_text(json.dumps(hello, default=str))
+            while True:
+                getter = asyncio.ensure_future(sub.get())
+                done, _ = await asyncio.wait({getter, receiver},
+                                             return_when=asyncio.FIRST_COMPLETED)
+                if receiver in done:
+                    break  # the client closed (or sent something)
+                event = getter.result()
+                getter = None
+                if sub.dropped > reported_drops:
+                    # a connection-local notice: it never rode the bus
+                    await ws.send_text(json.dumps({
+                        "type": "events_dropped", "seq": None, "ts": None,
+                        "data": {"count": sub.dropped - reported_drops}}))
+                    reported_drops = sub.dropped
+                await ws.send_text(json.dumps(event, default=str))
+        except ConnectionError:
+            pass  # the client went away mid-send
+        finally:
+            bus.unsubscribe(sub)
+            if getter is not None:
+                getter.cancel()
+            receiver.cancel()
+            with contextlib.suppress(Exception):
+                await ws.close()
+        return Response.detached_response()
 
     async def trace(self, request: Request) -> Response:
         trace_id = request.match_info["trace_id"]

@@ -197,7 +197,8 @@ class UsduRoutes:
                 span.attrs["tiles"] = sorted(grouped)
                 span.attrs["accepted"] = accepted
         if job is None:
-            if store.drop_late(job_id, len(grouped)):
+            final = worker_id if body.get("is_final_flush") else None
+            if store.drop_late(job_id, len(grouped), finished_worker=final):
                 return json_response({"status": "ok", "accepted": 0})
             return json_response({"error": "no such job"}, 404)
         if body.get("is_final_flush"):

@@ -22,7 +22,8 @@ api/httpd.py instead of aiohttp:
 
 `status.ws_prompts` of system_info counts the prompts this server took
 over its websocket, so a run can tell a websocket dispatch from the HTTP
-fallback.
+fallback; `status.grant_signal` is what the push-grant signal of the
+last elastic job this server worked on saw (None before one).
 """
 
 from __future__ import annotations
@@ -220,6 +221,9 @@ class WorkerRoutes:
                 "breakers": get_health_registry().snapshot(),
                 "ws_prompts": self.server.ws_prompts,
                 "pipelines": sorted(self.server.execution_context.pipelines),
+                # the last elastic job's push-grant signal, as the worker
+                # loop left it (graph/usdu_elastic.py::GrantSignal.summary)
+                "grant_signal": self.server.execution_context.extras.get("grant_signal"),
             },
         })
 

@@ -4,6 +4,7 @@ Importing the package registers the ported nodes.
 """
 
 from . import (  # noqa: F401
+    nodes_audio,
     nodes_controlnet,
     nodes_core,
     nodes_custom_sampling,

@@ -2,20 +2,25 @@
 
 The port's own copy of comfyui_distributed_tpu/graph/nodes_distributed.py
 on the elastic (HTTP) tier: DistributedSeed, DistributedValue,
-DistributedModelName, ImageBatchDivider, DistributedEmptyImage and
-DistributedCollector.
+DistributedModelName, ImageBatchDivider, AudioBatchDivider,
+DistributedEmptyImage and DistributedCollector.
 
 - Workers POST one envelope per image to the master's
   /distributed/job_complete ({job_id, worker_id, batch_idx, image as a
   base64 PNG data URL, is_last}; an empty batch still sends one `empty`
-  envelope marked is_last), over `urllib` under the shared RetryPolicy,
+  envelope marked is_last; a worker's audio rides its last envelope as
+  an `audio` payload, utils/audio_payload.py), over `urllib` under the
+  shared RetryPolicy,
   with the executing prompt's trace id in the X-CDT-Trace-Id header so
   the master's `rpc.job_complete` spans join the execution's tree.
 - The master's collector drains its collector job's queue with sliced
   waits, probes the missing workers when they stall (busy ⇒ grace),
   drops repeated (worker, batch_idx) envelopes, and orders the batch:
   its own images first, then enabled workers in configured order, then
-  stragglers; images of another size than the first are dropped.
+  stragglers; images of another size than the first are dropped. Its
+  own audio and the workers' concatenate along the samples axis, its
+  own first, then the workers' in the order their envelopes arrived (as
+  the JAX collector does), under one sample rate.
 
 Unlike the JAX drain, which stops as soon as every worker has sent its
 last envelope, this one also empties the queue first: a worker's earlier
@@ -29,9 +34,8 @@ The collector's `load_balance` widget is accepted and has no effect,
 as in the JAX node: load balancing is a field of the queue request,
 which the orchestration reads (api/orchestration/queue_orchestration.py).
 
-Not ported, each raising with its ROADMAP item: the mesh branch (a
-per-participant SeedSpec; Queue 1 item 6) and audio payloads
-(`utils/audio_payload.py`, AudioBatchDivider; Queue 1 step 6b).
+Not ported, raising with its ROADMAP item: the mesh branch (a
+per-participant SeedSpec; Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import torch
 
 from ..parallel.collective import reorder_participant_first
 from ..resilience.policy import http_policy, retry_async, transport_errors
+from ..utils import audio_payload as audio_utils
 from ..utils import image as img_utils
 from ..utils.async_helpers import run_async_in_server_loop
 from ..utils.config import worker_timeout_seconds
@@ -54,10 +59,6 @@ from ..utils.logging import debug_log, log
 from ..utils.network import build_worker_url, probe_worker, request_json_async
 from .nodes_core import _MESH_UNPORTED, SeedSpec
 from .registry import register_node
-
-_AUDIO_UNPORTED = ("AUDIO through the collector is not ported yet (utils/audio_payload.py; "
-                   "ROADMAP.md, Queue 1 step 6b)")
-
 
 @register_node
 class DistributedSeed:
@@ -163,6 +164,28 @@ class ImageBatchDivider:
 
 
 @register_node
+class AudioBatchDivider:
+    """Split AUDIO into up to 10 contiguous chunks along the samples
+    axis; the outputs past `divide_by` are empty waveforms."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {"required": {"audio": ("AUDIO",), "divide_by": ("INT", {"default": 2})}}
+
+    RETURN_TYPES = tuple(["AUDIO"] * MAX_DIVIDER_OUTPUTS)
+    FUNCTION = "divide"
+
+    def divide(self, audio, divide_by=2, context=None):
+        wave, rate = audio["waveform"], audio["sample_rate"]
+        parts = max(1, min(int(divide_by), MAX_DIVIDER_OUTPUTS))
+        outs = [{"waveform": wave[..., start:end], "sample_rate": rate}
+                for start, end in _chunk_bounds(wave.shape[-1], parts)]
+        outs += [{"waveform": wave[..., 0:0], "sample_rate": rate}
+                 for _ in range(MAX_DIVIDER_OUTPUTS - len(outs))]
+        return tuple(outs)
+
+
+@register_node
 class DistributedEmptyImage:
     """A zero-batch IMAGE placeholder (a delegate-only master's input to
     its collector)."""
@@ -180,9 +203,9 @@ class DistributedEmptyImage:
 
 @register_node
 class DistributedCollector:
-    """The gather: on a worker, send every image to the master; on the
-    master, return its own images followed by the workers' (see the
-    module docstring)."""
+    """The gather: on a worker, send every image (and its audio) to the
+    master; on the master, return its own images followed by the
+    workers', and the audio combined alike (see the module docstring)."""
 
     @classmethod
     def INPUT_TYPES(cls):
@@ -207,33 +230,40 @@ class DistributedCollector:
 
     def run(self, images, audio=None, pass_through=False, load_balance=False, is_worker=False,
             worker_id="", master_url="", job_id="", enabled_worker_ids=None, context=None):
-        if audio is not None:
-            raise NotImplementedError(_AUDIO_UNPORTED)
         if pass_through:
-            return (images, None)
+            return (images, audio)
         if is_worker:
-            self._send_to_master(images, str(worker_id), str(master_url), str(job_id))
-            return (images, None)
-        return self._collect_master(images, str(job_id), enabled_worker_ids or [], context)
+            self._send_to_master(images, audio, str(worker_id), str(master_url), str(job_id))
+            return (images, audio)
+        return self._collect_master(images, audio, str(job_id), enabled_worker_ids or [],
+                                    context)
 
     # --- worker side ------------------------------------------------------
 
     @staticmethod
-    def envelopes(images, worker_id: str, job_id: str) -> list[dict[str, Any]]:
+    def envelopes(images, worker_id: str, job_id: str, audio=None) -> list[dict[str, Any]]:
         """One envelope per image, `is_last` on the last; an empty batch
         gives one 1-px placeholder marked `empty` and is_last, so the
-        master does not wait a timeout for this worker."""
+        master does not wait a timeout for this worker. The audio, if
+        any, rides the last envelope."""
         arr = img_utils.ensure_numpy(images)
         if arr.shape[0] == 0:
-            return [{"job_id": job_id, "worker_id": worker_id, "batch_idx": 0,
-                     "image": img_utils.encode_image_data_url(np.zeros((1, 1, 3), np.float32)),
-                     "is_last": True, "empty": True}]
-        return [{"job_id": job_id, "worker_id": worker_id, "batch_idx": idx,
-                 "image": img_utils.encode_image_data_url(arr[idx]),
-                 "is_last": idx == arr.shape[0] - 1}
-                for idx in range(arr.shape[0])]
+            envelopes = [{"job_id": job_id, "worker_id": worker_id, "batch_idx": 0,
+                          "image": img_utils.encode_image_data_url(
+                              np.zeros((1, 1, 3), np.float32)),
+                          "is_last": True, "empty": True}]
+        else:
+            envelopes = [{"job_id": job_id, "worker_id": worker_id, "batch_idx": idx,
+                          "image": img_utils.encode_image_data_url(arr[idx]),
+                          "is_last": idx == arr.shape[0] - 1}
+                         for idx in range(arr.shape[0])]
+        if audio is not None:
+            envelopes[-1]["audio"] = audio_utils.encode_audio_payload(audio["waveform"],
+                                                                      audio["sample_rate"])
+        return envelopes
 
-    def _send_to_master(self, images, worker_id: str, master_url: str, job_id: str) -> None:
+    def _send_to_master(self, images, audio, worker_id: str, master_url: str,
+                        job_id: str) -> None:
         """POST the envelopes in order. Transport failures and 5xx answers
         retry under the HTTP policy (the master drops a repeated
         envelope); a 4xx is the master's verdict and raises."""
@@ -254,7 +284,7 @@ class DistributedCollector:
                 raise WorkerError(f"job_complete -> HTTP {status}: {out}", worker_id)
 
         async def send_all():
-            for envelope in self.envelopes(images, worker_id, job_id):
+            for envelope in self.envelopes(images, worker_id, job_id, audio):
                 await retry_async(lambda: post(envelope), http_policy(),
                                   retryable=transport_errors() + (TransientServerError,),
                                   label=f"job_complete:{worker_id}")
@@ -263,13 +293,14 @@ class DistributedCollector:
 
     # --- master side --------------------------------------------------------
 
-    def _collect_master(self, images, job_id: str, enabled_worker_ids: list[str], context):
+    def _collect_master(self, images, audio, job_id: str, enabled_worker_ids: list[str],
+                        context):
         server = getattr(context, "server", None)
         if server is None:
-            return (images, None)
+            return (images, audio)
         try:
             if not enabled_worker_ids:
-                return (images, None)
+                return (images, audio)
             collected = self._drain_worker_results(server, job_id, enabled_worker_ids, context)
         finally:
             # the orchestration made this job for the prompt: it ends here
@@ -277,7 +308,13 @@ class DistributedCollector:
         batches: dict[int, np.ndarray] = {0: img_utils.ensure_numpy(images)}
         order = {wid: i + 1 for i, wid in enumerate(enabled_worker_ids)}
         per_worker: dict[str, list[tuple[int, np.ndarray]]] = {}
+        audio_parts: list[tuple[np.ndarray, int]] = []
+        if audio is not None:
+            audio_parts.append((img_utils.ensure_numpy(audio["waveform"]),
+                                int(audio["sample_rate"])))
         for item in collected:
+            if item.get("audio") is not None:
+                audio_parts.append(item["audio"])
             if item.get("empty"):
                 continue  # zero-batch marker: the worker finished with no images
             per_worker.setdefault(str(item["worker_id"]), []).append(
@@ -298,10 +335,16 @@ class DistributedCollector:
             log(f"collector: mismatched image sizes {sorted({a.shape[1:] for a in nonempty})}; "
                 f"keeping {target}")
             nonempty = [a for a in nonempty if a.shape[1:] == target]
+        combined_audio = None
+        if audio_parts:
+            wave, rate = audio_utils.combine_audio(audio_parts)
+            device = getattr(audio["waveform"], "device", images.device) if audio is not None \
+                else images.device
+            combined_audio = {"waveform": torch.from_numpy(wave).to(device), "sample_rate": rate}
         if not nonempty:
-            return (images, None)
+            return (images, combined_audio)
         combined = torch.from_numpy(np.concatenate(nonempty, axis=0))
-        return (combined.to(images.device), None)
+        return (combined.to(images.device), combined_audio)
 
     def _drain_worker_results(self, server, job_id: str, enabled_worker_ids: list[str],
                               context) -> list[dict[str, Any]]:

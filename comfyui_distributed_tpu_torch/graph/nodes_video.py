@@ -3,15 +3,18 @@
 Counterpart of comfyui_distributed_tpu/graph/nodes_video.py: a video
 checkpoint loader, the video text encoder, an empty video latent, the
 flow-matching video sampler, WanImageToVideo, a frame-sequence saver and
-the animated-PNG saver. VIDEO_LATENT carries the size the sampler
-allocates ({"samples": None, "width", "height", "frames",
+the animated-PNG and animated-WEBP savers. VIDEO_LATENT carries the size
+the sampler allocates ({"samples": None, "width", "height", "frames",
 "batch_size"}); the samplers return the frames as one IMAGE batch
 [B F, H, W, 3], which the DistributedCollector gathers frame by frame.
 
 Per-participant seeds on a device mesh (VideoFlowSampler's SPMD branch)
-belong to the multi-GPU tier and raise. SaveAnimatedWEBP waits for a
-WEBP writer of the port's own (ROADMAP.md, Queue 1 step 6b): the card's
-machine has no PIL.
+belong to the multi-GPU tier and raise. SaveAnimatedWEBP writes through
+the port's own encoder (utils/webp.py; the card's machine has no PIL,
+which the JAX node calls): frames are lossless VP8L whatever `lossless`
+says, so `lossless=False` gives the exact pixels in a larger file than
+libwebp's lossy one (ROADMAP.md, Queue 3), and `quality` is accepted
+for the JAX node's inputs and unused.
 """
 
 from __future__ import annotations
@@ -20,9 +23,12 @@ import json
 import os
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
+
 from ..models import video_pipeline as vp
 from ..models.registry import MODEL_REGISTRY, get_config
 from ..utils import image as img_utils
+from ..utils import webp
 from ..utils.logging import log
 from .io_dirs import get_output_dir, next_counter
 from .nodes_core import _MESH_UNPORTED, _device, resolve_seed
@@ -251,4 +257,41 @@ class SaveAnimatedPNG:
         duration_ms = int(round(1000.0 / max(int(fps), 1)))
         with open(os.path.join(out_dir, name), "wb") as fh:
             fh.write(img_utils.encode_apng_u8(frames, duration_ms, int(compress_level)))
+        return ({"ui": {"images": [name], "fps": int(fps)}, "images": images},)
+
+
+@register_node
+class SaveAnimatedWEBP:
+    """One animated WEBP of every frame, looping forever, each shown
+    round(1000 / fps) ms; the name counter-scanned like SaveImage's.
+    Lossless always (see the module docstring)."""
+
+    @classmethod
+    def INPUT_TYPES(cls):
+        return {
+            "required": {
+                "images": ("IMAGE",),
+                "filename_prefix": ("STRING", {"default": "animated"}),
+                "fps": ("INT", {"default": 8}),
+                "lossless": ("BOOLEAN", {"default": True}),
+                "quality": ("INT", {"default": 80}),
+            }
+        }
+
+    RETURN_TYPES = ()
+    FUNCTION = "save"
+    OUTPUT_NODE = True
+
+    def save(self, images, filename_prefix="animated", fps=8, lossless=True, quality=80,
+             context=None):
+        out_dir = get_output_dir(context)
+        os.makedirs(out_dir, exist_ok=True)
+        prefix = str(filename_prefix)
+        name = f"{prefix}_{next_counter(out_dir, prefix, 'webp'):05d}.webp"
+        frames = img_utils.f32_to_u8(img_utils.ensure_numpy(images))
+        if frames.shape[-1] == 1:  # a gray batch, as PIL writes an "L" frame
+            frames = np.repeat(frames, 3, axis=-1)
+        duration_ms = int(round(1000.0 / max(int(fps), 1)))
+        with open(os.path.join(out_dir, name), "wb") as fh:
+            fh.write(webp.encode_animated_webp(frames, duration_ms))
         return ({"ui": {"images": [name], "fps": int(fps)}, "images": images},)

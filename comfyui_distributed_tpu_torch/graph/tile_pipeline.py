@@ -266,6 +266,8 @@ class TilePipeline:
         self._error_lock = threading.Lock()
         self._claimed: list[int] = []
         self._emitted: set[int] = set()
+        # notified as each tile is encoded (wait_emitted)
+        self._emitted_cond = threading.Condition()
         self.batches = 0
         self.tiles = 0
 
@@ -370,11 +372,24 @@ class TilePipeline:
         for i, tile_idx in enumerate(idxs):
             with stage_span("encode", self.role, tile_idx, **self.span_attrs):
                 self._emit(tile_idx, host[i])
-            self._emitted.add(int(tile_idx))
+            with self._emitted_cond:
+                self._emitted.add(int(tile_idx))
+                self._emitted_cond.notify_all()
             self.tiles += 1
             if self._heartbeat is not None:
                 self._heartbeat()
             self._flush(False)
+
+    def wait_emitted(self) -> bool:
+        """Block until every tile claimed so far has been encoded (handed
+        to `emit`), or the pipeline stopped; True when they all were. A
+        worker about to park for more work calls it from `pull` before it
+        ships what it holds: the sampling and I/O stages run on other
+        threads, and the puller's wait does not hold them up."""
+        with self._emitted_cond:
+            while not self._stop.is_set() and not set(self._claimed) <= self._emitted:
+                self._emitted_cond.wait(0.1)
+            return set(self._claimed) <= self._emitted
 
     def _sample_chunk(self, chunk: list[int]) -> Any:
         with stage_span("sample", self.role, chunk[0], batch=list(chunk), **self.span_attrs):

@@ -62,11 +62,26 @@ snapshot (telemetry/fleet.py::local_snapshot) at most once per
 CDT_FLEET_SNAPSHOT_SECONDS; a `preempt` answer ends its pulls for the
 job, as a drained answer does.
 
+Push grants (CDT_PUSH_GRANTS, on by default), as in the JAX package: a
+worker holds the master's /distributed/events stream (`GrantSignal`)
+and, after an empty pull, parks up to CDT_PUSH_WAIT seconds on it
+before it concludes the queue is drained, so a tile requeued or
+speculated after its last pull can still reach it; a pushed
+`job_complete` ends the park and a pushed `job_cancelled` aborts
+between tiles. It is an accelerator over the pull protocol: a stream
+that is down leaves the pure pull loop. Unlike the JAX worker, this one
+ships the tiles it has encoded before it parks: the master cannot finish
+the job while a worker holds finished tiles, so a park that no earlier
+frame cuts short would end on its timeout. What the signal saw (frames,
+parks, how each ended) lands in the worker's
+`context.extras["grant_signal"]` (None for a job run pull-only), which
+/distributed/system_info reports.
+
 Left out, each with its ROADMAP item: the master-URL failover list,
-shard routing and fencing epochs, push grants (`GrantSignal`) (Queue 1
-step 7), the cross-job tier and preemption checkpoints (step 7b), the
-device canvas and the mesh. Both roles prep the conditioning for tiles
-(ControlNet hints and masks windowed per tile) and take `tiled_decode`.
+shard routing and fencing epochs (Queue 1 step 7), the cross-job tier
+and preemption checkpoints (step 7b), the device canvas and the mesh.
+Both roles prep the conditioning for tiles (ControlNet hints and masks
+windowed per tile) and take `tiled_decode`.
 
 Every function here enters `torch.inference_mode()` on its own thread:
 grad mode is thread-local, and the server runs them on its executor
@@ -75,6 +90,9 @@ thread.
 
 from __future__ import annotations
 
+import asyncio
+import json
+import threading
 import time
 from typing import Any, Callable, Optional
 
@@ -106,6 +124,8 @@ from ..utils.constants import (
     MAX_TILE_BATCH,
     PAYLOAD_HEADROOM,
     PIPELINE_ENABLED,
+    PUSH_GRANTS_ENABLED,
+    PUSH_WAIT_SECONDS,
     QUEUE_POLL_INTERVAL_SECONDS,
     deterministic_blend,
 )
@@ -377,6 +397,144 @@ class HTTPWorkClient:
         run_async_in_server_loop(send(), timeout=60)
 
 
+class GrantSignal:
+    """Push-mode grant wakeups (CDT_PUSH_GRANTS): the worker holds the
+    master's `/distributed/events` WebSocket, filtered to this job's
+    `grant_available`, `job_ready`, `job_complete` and `job_cancelled`
+    frames, and a thread Event flips whenever grants land, so a parked
+    pull loop wakes the moment work exists.
+
+    An accelerator over the pull protocol only: grants still transfer
+    through request_image (a push carries availability, never an
+    assignment, so placement, sizing and first-result-wins are
+    untouched), and every failure (the handshake refused, the stream
+    dropped) degrades to the pull behaviour. The socket follows the
+    client's `master_url` through `url_provider`, and reconnects a
+    second after a drop.
+
+    Beside the JAX signal it keeps what it saw for the worker's summary
+    (`summary`): connections, the stream's `hello` frames and the frames
+    of this job by type, and each park with its seconds and what ended it
+    (the waking frame's type, or "timeout")."""
+
+    EVENT_TYPES = ("grant_available", "job_ready", "job_complete", "job_cancelled")
+
+    def __init__(self, url_provider: Callable[[], str], job_id: str):
+        self.url_provider = url_provider
+        self.job_id = job_id
+        self._event = threading.Event()
+        self._stopped = threading.Event()
+        self.connected = False
+        self._complete = False
+        self._cancelled = False
+        self._future: Any = None
+        self.connects = 0
+        self.frames: dict[str, int] = {}
+        self.parks: list[tuple[float, str]] = []
+        self._woken_by = ""
+
+    # --- worker-thread side ------------------------------------------------
+
+    def wait_for_grant(self, timeout: float) -> bool:
+        """Park until a frame wakes the signal (True) or `timeout` passes
+        (False); clears the flag, so the next wait needs a new push. Never
+        waits while the stream is down: the pull fallback."""
+        if not self.connected:
+            return False
+        started = time.monotonic()
+        fired = self._event.wait(timeout)
+        self._event.clear()
+        self.parks.append((time.monotonic() - started, self._woken_by if fired else "timeout"))
+        return fired
+
+    @property
+    def job_complete(self) -> bool:
+        return self._complete
+
+    @property
+    def job_cancelled(self) -> bool:
+        """A pushed `job_cancelled` arrived: the worker's interrupt check
+        aborts between tiles without waiting for its next pull."""
+        return self._cancelled
+
+    def start(self) -> None:
+        from ..utils.async_helpers import get_server_loop
+
+        loop = get_server_loop()
+        if loop is None or not loop.is_running():
+            return  # no loop, no stream: pure pull mode
+        self._future = asyncio.run_coroutine_threadsafe(self._run(), loop)
+
+    def stop(self) -> None:
+        self._stopped.set()
+        future, self._future = self._future, None
+        if future is not None:
+            future.cancel()
+
+    def summary(self) -> dict[str, Any]:
+        return {
+            "job_id": self.job_id,
+            "connects": self.connects,
+            "frames": dict(sorted(self.frames.items())),
+            "parks": [[round(seconds, 6), how] for seconds, how in self.parks],
+            "job_complete": self._complete,
+            "job_cancelled": self._cancelled,
+        }
+
+    # --- server-loop side --------------------------------------------------
+
+    def _on_frame(self, frame: dict) -> bool:
+        """Take one frame; True when the stream has nothing more to say
+        to this job. The `hello` that opens a stream is counted and wakes
+        nothing: it shows the stream delivers."""
+        data = frame.get("data") or {}
+        if data.get("job_id") not in (None, self.job_id):
+            return False
+        kind = frame.get("type")
+        if kind not in self.EVENT_TYPES + ("hello",):
+            return False
+        self.frames[kind] = self.frames.get(kind, 0) + 1
+        if kind == "hello":
+            return False
+        if kind == "job_cancelled":
+            self._cancelled = True
+        if kind in ("job_complete", "job_cancelled"):
+            self._complete = True
+        self._woken_by = kind
+        self._event.set()
+        return self._complete
+
+    async def _run(self) -> None:
+        from ..utils.websocket import connect_websocket
+
+        while not self._stopped.is_set():
+            url = self.url_provider()
+            ws_url = "ws" + url[len("http"):] if url.startswith("http") else url
+            try:
+                async with connect_websocket(
+                        f"{ws_url}/distributed/events?types={','.join(self.EVENT_TYPES)}") as ws:
+                    self.connected = True
+                    self.connects += 1
+                    async for text in ws:
+                        if self._stopped.is_set():
+                            return
+                        try:
+                            frame = json.loads(text)
+                        except ValueError:
+                            continue
+                        if isinstance(frame, dict) and self._on_frame(frame):
+                            return
+            except Exception as exc:  # noqa: BLE001 - advisory: degrade to pull
+                debug_log(f"grant signal stream to {url} failed: {exc}")
+            finally:
+                self.connected = False
+            if self._stopped.is_set():
+                return
+            # the pull path works meanwhile; the next attempt follows the
+            # client's current master address
+            await asyncio.sleep(1.0)
+
+
 def _flush_threshold_bytes() -> int:
     return MAX_PAYLOAD_SIZE - PAYLOAD_HEADROOM
 
@@ -521,6 +679,9 @@ def run_worker_loop(
 
     pending: list[dict] = []
     pending_bytes = 0
+    # the I/O stage flushes after each tile, and a puller about to park
+    # forces a flush: one lock keeps the two apart
+    pending_lock = threading.Lock()
     # a grant of up to CDT_SCHED_MAX_PULL_BATCH tiles a device, which the
     # master's placement policy sizes
     pull_cap = constants.SCHED_MAX_PULL_BATCH * max(1, int(getattr(client, "devices", 1)))
@@ -530,49 +691,77 @@ def run_worker_loop(
         runs on the pipeline's I/O stage."""
         nonlocal pending_bytes
         y, x = grid.positions[tile_idx]
+        entries = []
         for batch_idx in range(arr.shape[0]):
-            encoded = img_utils.encode_image_data_url(arr[batch_idx])
-            pending.append({
+            entries.append({
                 "tile_idx": tile_idx, "batch_idx": batch_idx,
                 "global_idx": tile_idx * arr.shape[0] + batch_idx,
                 "x": int(x), "y": int(y),
                 "extracted_w": grid.padded_w, "extracted_h": grid.padded_h,
-                "image": encoded,
+                "image": img_utils.encode_image_data_url(arr[batch_idx]),
             })
-            pending_bytes += len(encoded)
+        with pending_lock:
+            pending.extend(entries)
+            pending_bytes += sum(len(e["image"]) for e in entries)
         tiles_processed_total().inc(role="worker")
 
-    def flush(is_final: bool) -> None:
-        """Ship when the payload budget or the tile batch fills, or on the
-        final flush (an empty final flush still marks this worker done)."""
+    def flush(is_final: bool, force: bool = False) -> None:
+        """Ship when the payload budget or the tile batch fills, when
+        `force`d with anything pending, or on the final flush (an empty
+        final flush still marks this worker done)."""
         nonlocal pending, pending_bytes
-        if not is_final and len(pending) < MAX_TILE_BATCH \
-                and pending_bytes < _flush_threshold_bytes():
-            return
-        if pending or is_final:
+        with pending_lock:
+            if not (is_final or (force and pending) or len(pending) >= MAX_TILE_BATCH
+                    or pending_bytes >= _flush_threshold_bytes()):
+                return
             # worker_id groups this span with the worker's other stages
             with _stage("submit", "worker", worker_id=worker_id):
                 client.submit_tiles(pending, is_final)
-        pending, pending_bytes = [], 0
+            pending, pending_bytes = [], 0
+
+    # Push grants: hold the master's event stream and, after an empty
+    # pull, park up to CDT_PUSH_WAIT on it before reading the queue as
+    # drained. Scripted clients (no master_url) and CDT_PUSH_GRANTS=0
+    # keep the pure pull protocol.
+    push: Optional[GrantSignal] = None
+    if PUSH_GRANTS_ENABLED and getattr(client, "master_url", None):
+        push = GrantSignal(lambda: client.master_url, job_id)
+
+    def cancelled() -> bool:
+        return bool(getattr(client, "job_cancelled", False)
+                    or (push is not None and push.job_cancelled))
+
+    def grant_ids(work: dict) -> list[int]:
+        return [int(t) for t in (work.get("tile_idxs") or [work["tile_idx"]])]
 
     def pull() -> Optional[list[int]]:
-        """The next grant's tile ids; None once the job is cancelled or
+        """The next grant's tile ids; None once the queue reads drained
+        (after a park, with push grants), or the job is cancelled or
         preempted (a preempted job's pulls read as drained)."""
-        if getattr(client, "job_cancelled", False) or getattr(client, "preempt_requested",
-                                                              False):
+        if cancelled() or getattr(client, "preempt_requested", False):
             return None
         work = client.request_tile(batch_max=pull_cap)
-        if work is None:
-            return None
-        return [int(t) for t in (work.get("tile_idxs") or [work["tile_idx"]])]
+        if work is not None:
+            return grant_ids(work)
+        if push is not None and push.connected and not push.job_complete:
+            # ship the encoded tiles first: the job cannot complete while
+            # this worker holds finished ones
+            if pipeline.wait_emitted():
+                flush(False, force=True)
+            if push.wait_for_grant(PUSH_WAIT_SECONDS) and not push.job_complete:
+                work = client.request_tile(batch_max=pull_cap)
+                if work is not None:
+                    return grant_ids(work)
+        return None
 
     def check_abort() -> None:
         """Between tiles: the prompt's interrupt, or a cancellation the
-        master reported. InterruptedError takes the pipeline's graceful
-        path: flush what is encoded, hand the rest back."""
+        master reported (on a pull answer or pushed). InterruptedError
+        takes the pipeline's graceful path: flush what is encoded, hand
+        the rest back."""
         if context is not None:
             context.check_interrupted()
-        if getattr(client, "job_cancelled", False):
+        if cancelled():
             reason = getattr(client, "cancel_reason", "") or "cancelled"
             raise InterruptedError(f"job {job_id} cancelled by master ({reason})")
 
@@ -584,11 +773,21 @@ def run_worker_loop(
         threaded=PIPELINE_ENABLED, span_attrs={"worker_id": worker_id},
     )
     try:
+        if push is not None:
+            push.start()
         pipeline.run()
     except InterruptedError:
-        if not getattr(client, "job_cancelled", False):
+        if not cancelled():
             raise  # a real interrupt
         log(f"worker {worker_id}: job {job_id} cancelled; aborted cleanly")
+    finally:
+        summary = None
+        if push is not None:
+            push.stop()
+            summary = push.summary()
+            debug_log(f"worker {worker_id}: grant signal of job {job_id}: {summary}")
+        if context is not None:
+            context.extras["grant_signal"] = summary  # None: the job ran pull-only
 
 
 # --------------------------------------------------------------------------

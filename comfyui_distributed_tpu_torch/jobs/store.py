@@ -25,6 +25,14 @@ semantics:
   back to the queue, and a tile that exhausts its attempt budget is
   quarantined instead, the workers charged for it pardoned through the
   `poison_pardon` hook (the breaker's `pardon`) outside the lock;
+- the breaker's quarantine of a worker (resilience/__init__.py::
+  bind_quarantine_requeue) requeues its in-flight tiles of every job at
+  once (`requeue_worker_tasks`), charged as attempts like a timeout;
+- every refill of a job's pending queue (creation, a timeout or
+  quarantine requeue, a release, a lifted preemption, speculation)
+  calls the `grant_notifier` with the job and the count (the server
+  wires the placement policy's `notify_grants`: push grants), outside
+  any wait and never failing the mutation;
 - the stall watchdog's speculative requeue (`speculate_in_flight`)
   enqueues copies of in-flight tiles without revoking them: the first
   result wins, and the loser's measured time is `speculation` waste;
@@ -54,7 +62,7 @@ without ever entering the pull set, and each settle tells the
 
 Left out: fencing epochs, the write-ahead journal, preemption
 checkpoints (their take, retain and resume), the cross-job tier and its
-multi-job grants, push-grant notifications and fault injection.
+multi-job grants, and fault injection.
 
 Every accepted completion is recorded with its participant
 (`TileJob.completions`); on cleanup a job's record moves to
@@ -65,9 +73,10 @@ Telemetry, as in the JAX store: pulls count by outcome
 (accepted|duplicate|cancelled) in cdt_store_pulls_total and
 cdt_store_submits_total, every recorded heartbeat (pulls and submits
 heartbeat too) in cdt_store_heartbeats_total, requeues by reason
-(timeout|released), cancellations, refunds, quarantines and cache
-settles in their counters; a created job publishes `job_ready` and a
-cancelled one `job_cancelled` on the event bus; and the usage meter
+(timeout|quarantine|speculative|released), cancellations, refunds,
+quarantines and cache settles in their counters; a created job
+publishes `job_ready`, a cleaned-up one `job_complete` and a cancelled
+one `job_cancelled` on the event bus; and the usage meter
 learns each job's tenant, lane and adapter plan at creation, the
 measured assignment time of a failed delivery attempt (`poison_retry`
 waste) and a lost speculative race (`speculation` waste); preemption
@@ -157,6 +166,17 @@ class JobStore:
         # worker_id → advertised chip count (a pull's or heartbeat's
         # `devices`), bounded like the placement policy's table
         self.worker_capacity: dict[str, int] = {}
+        # push grants: called with (job_id, task count) on every refill of
+        # a pending queue; must not block (None = off)
+        self.grant_notifier: Optional[Callable[[str, int], None]] = None
+
+    def _notify_grants(self, job_id: str, count: int) -> None:
+        notifier = self.grant_notifier
+        if notifier is not None and count > 0:
+            try:
+                notifier(job_id, int(count))
+            except Exception as exc:  # noqa: BLE001 - a push is advisory
+                debug_log(f"grant notifier failed for {job_id}: {exc}")
 
     def note_worker_capacity(self, worker_id: str, devices: Any) -> None:
         """Record a worker's advertised chip count and hand it to the
@@ -456,6 +476,7 @@ class JobStore:
                 meter.note_job_adapter(job_id, adapter_plan)
 
         _note_usage(note)
+        self._notify_grants(job_id, len(task_ids) - len(settled_at_init))
         # a premium-lane arrival may flag running lower-lane work; after
         # the creation committed (the coordinator takes the lock itself),
         # and advisory: a broken policy never fails a creation
@@ -658,6 +679,7 @@ class JobStore:
     async def clear_preemption(self, job_ids: list[str]) -> list[str]:
         """Lift preemption flags: the jobs are pullable again."""
         cleared: list[str] = []
+        refill: list[tuple[str, int]] = []
         async with self.lock:
             for job_id in sorted(str(j) for j in job_ids):
                 job = self.tile_jobs.get(job_id)
@@ -666,6 +688,11 @@ class JobStore:
                 job.preempt_requested = False
                 job.preempt_reason = ""
                 cleared.append(job_id)
+                if job.pending.qsize():
+                    refill.append((job_id, job.pending.qsize()))
+        for job_id, pending in refill:
+            # the job is pullable again: parked workers learn it now
+            self._notify_grants(job_id, pending)
         if cleared:
             from ..telemetry.events import get_event_bus
 
@@ -833,6 +860,10 @@ class JobStore:
                 "received_bytes": job.received_bytes,
                 "finished_workers": sorted(job.finished_workers),
             })
+        from ..telemetry.events import get_event_bus
+
+        # workers parked on the grant signal stop waiting at once
+        get_event_bus().publish("job_complete", job_id=job_id)
         await self._preempt_settled(job_id)
 
     async def _preempt_settled(self, job_id: str) -> None:
@@ -845,13 +876,20 @@ class JobStore:
             except Exception as exc:  # noqa: BLE001 - preemption is advisory
                 debug_log(f"preempt on_job_settled({job_id}) failed: {exc}")
 
-    def drop_late(self, job_id: str, n_tiles: int) -> bool:
+    def drop_late(self, job_id: str, n_tiles: int, finished_worker: Optional[str] = None
+                  ) -> bool:
         """Count a submission for a job already cleaned up as `n_tiles`
-        dropped duplicates; False if the job is not among the finished."""
+        dropped duplicates, and a late final flush's worker among the
+        record's finished workers (a worker that parked on its grant
+        signal shipped its tiles first and flushes last); False if the
+        job is not among the finished."""
         record = self.finished.get(job_id)
         if record is None:
             return False
         record["duplicates"] += int(n_tiles)
+        if finished_worker is not None:
+            record["finished_workers"] = sorted(set(record["finished_workers"])
+                                                | {finished_worker})
         return True
 
     # --- lifecycle: cancel + deadline sweep ---------------------------------
@@ -954,11 +992,15 @@ class JobStore:
             self._flush_poison_notices()
         return requeued
 
-    def _requeue_worker_locked(self, job: TileJob, worker_id: str) -> list[int]:
-        """Put a dead worker's incomplete tasks back on the queue, each
-        charged one attempt; a task at the attempt budget is quarantined
-        instead, and the workers its attempts charged are noted for a
-        pardon (`_flush_poison_notices`, after the lock). Caller holds
+    def _requeue_worker_locked(self, job: TileJob, worker_id: str,
+                               reason: str = "timeout") -> list[int]:
+        """Put a worker's incomplete tasks back on the queue, each charged
+        one failed delivery attempt (`reason`: the worker went silent,
+        "timeout", or the breaker quarantined it, "quarantine"; a release
+        or a speculative copy requeues elsewhere, uncharged); a task at
+        the attempt budget is quarantined instead, and the workers its
+        attempts charged are noted for a pardon (`_flush_poison_notices`,
+        after the lock). Returns the incomplete tasks. Caller holds
         self.lock."""
         if job.cancelled:
             return []
@@ -995,8 +1037,11 @@ class JobStore:
         for tid in requeued:
             job.pending.put_nowait(tid)
         instruments.store_requeued_tasks_total().inc(len(incomplete), worker_id=worker_id,
-                                                     reason="timeout")
+                                                     reason=reason)
         if requeued:
+            # non-blocking (the lock is held): the requeued tiles are the
+            # grants parked workers should race the master's fallback for
+            self._notify_grants(job.job_id, len(requeued))
             log(f"requeued {len(requeued)} task(s) from worker {worker_id} on job {job.job_id}")
         return incomplete
 
@@ -1017,6 +1062,24 @@ class JobStore:
                     instruments.poison_pardons_total().inc(len(victims))
                 except Exception as exc:  # noqa: BLE001 - pardon is advisory
                     debug_log(f"poison pardon for {victims} failed: {exc}")
+
+    async def requeue_worker_tasks(self, worker_id: str, job_id: Optional[str] = None
+                                   ) -> dict[str, list[int]]:
+        """Requeue a worker's incomplete tasks at once, with no staleness
+        check: the breaker's quarantine path. Every active job, or only
+        `job_id`. Returns {job_id: [task ids]} of the jobs it touched."""
+        out: dict[str, list[int]] = {}
+        async with self.lock:
+            if job_id is not None:
+                jobs = [j] if (j := self.tile_jobs.get(job_id)) else []
+            else:
+                jobs = list(self.tile_jobs.values())
+            for job in jobs:
+                incomplete = self._requeue_worker_locked(job, worker_id, reason="quarantine")
+                if incomplete:
+                    out[job.job_id] = incomplete
+        self._flush_poison_notices()
+        return out
 
     async def release_tasks(self, job_id: str, worker_id: str, task_ids: list[int]) -> list[int]:
         """Hand back claimed-but-unprocessed tasks (an interrupted worker's
@@ -1039,6 +1102,7 @@ class JobStore:
         if released:
             instruments.store_requeued_tasks_total().inc(len(released), worker_id=worker_id,
                                                          reason="released")
+            self._notify_grants(job_id, len(released))
             log(f"worker {worker_id} returned {len(released)} task(s) on job {job_id}: {released}")
         return released
 
@@ -1072,6 +1136,7 @@ class JobStore:
             from ..telemetry.events import get_event_bus
 
             get_event_bus().publish("speculative_requeue", job_id=job_id, task_ids=speculated)
+            self._notify_grants(job_id, len(speculated))
             log(f"speculatively re-enqueued {len(speculated)} in-flight task(s) on job "
                 f"{job_id}: {speculated}")
         return speculated

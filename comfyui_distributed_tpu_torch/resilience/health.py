@@ -86,6 +86,11 @@ class HealthRegistry:
         with self._lock:
             self._listeners.append(listener)
 
+    def remove_listener(self, listener: TransitionListener) -> None:
+        with self._lock:
+            if listener in self._listeners:
+                self._listeners.remove(listener)
+
     def _fire(self, worker_id: str, old: WorkerState, new: WorkerState) -> None:
         """Count and publish the transition, then call the listeners,
         all outside the lock; listener errors are logged, never

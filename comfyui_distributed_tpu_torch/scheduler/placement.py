@@ -1,8 +1,7 @@
 """Cost-aware work placement: who pulls how much, and who sits out.
 
-The port's own copy of comfyui_distributed_tpu/scheduler/placement.py,
-without push grants (`notify_grants`, with /distributed/events in
-ROADMAP.md Queue 1 step 7). The elastic tile queue is pull-based — workers claim work at their own
+The port's own copy of comfyui_distributed_tpu/scheduler/placement.py.
+The elastic tile queue is pull-based — workers claim work at their own
 pace — which self-balances in the mean but wastes the tail: a slow or
 suspect worker that claims one of the last tiles holds the whole job's
 latency hostage (the straggler problem the watchdog *detects* after
@@ -19,6 +18,10 @@ the fact). This policy closes the loop *before* assignment:
   fast workers amortize RPC overhead over more tiles, slow workers
   stay at 1 so a requeue never orphans a big batch. A worker runs
   the tiles of a grant one after another (the tile pipeline is K = 1);
+- **push grants** — ``notify_grants`` announces every refill of a
+  job's pending queue as a ``grant_available`` event, so workers parked
+  on /distributed/events pull at once (graph/usdu_elastic.py:
+  GrantSignal);
 - **tail trimming** — inside the last ``CDT_SCHED_TAIL_TILES`` pending
   tiles, workers that are SUSPECT/QUARANTINED in the health registry
   or slower than ``CDT_SCHED_TRIM_RATIO`` x the mean speed are denied
@@ -358,3 +361,22 @@ class PlacementPolicy:
             return {}
         mean = sum(speeds.values()) / len(speeds)
         return {wid: round(s / mean, 4) for wid, s in sorted(speeds.items())}
+
+    # --- push-mode grants (CDT_PUSH_GRANTS) -------------------------------
+
+    def notify_grants(self, job_id: str, count: int) -> None:
+        """Announce that `count` tasks just became pullable on `job_id`: a
+        `grant_available` event on the process bus, counted in
+        cdt_push_grants_total. The JobStore fires it on every refill of a
+        job's pending queue (creation, a timeout or quarantine requeue, a
+        release, a lifted preemption, speculation). Never blocks: the bus
+        is lock-light and a no-op without subscribers; a count of 0 is
+        ignored."""
+        from ..telemetry import instruments
+        from ..telemetry.events import get_event_bus
+
+        count = max(0, int(count))
+        if count == 0:
+            return
+        instruments.push_grants_total().inc(count)
+        get_event_bus().publish("grant_available", job_id=job_id, tasks=count)

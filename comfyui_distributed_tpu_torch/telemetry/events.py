@@ -8,12 +8,14 @@ process-global, thread-safe `EventBus` that fans out
 - ``span_open`` / ``span_close`` — span lifecycle (telemetry.tracing),
 - ``health_transition``  — circuit-breaker state changes
                            (resilience.health),
-- ``job_ready`` / ``job_cancelled`` — the JobStore's lifecycle,
+- ``job_ready`` / ``job_complete`` / ``job_cancelled`` — the JobStore's
+                           lifecycle,
+- ``grant_available``    — tasks that became pullable (the placement
+                           policy's push grants),
 
 to asyncio subscribers, each holding a bounded queue on its own event
-loop, and to synchronous taps. The `/distributed/events` WebSocket
-stream that serves it is not ported yet (ROADMAP.md, Queue 1 step 7:
-it comes with push grants); until then a subscriber is in-process.
+loop (the `/distributed/events` WebSocket stream of
+api/telemetry_routes.py holds one per client), and to synchronous taps.
 
 Design constraints:
 
@@ -37,11 +39,7 @@ import threading
 import time
 from typing import Any, Iterable, Optional
 
-# Per-subscriber queue bound: a consumer slower than the event rate
-# loses its oldest events. The JAX package reads it from
-# CDT_EVENT_QUEUE_SIZE; the port has no subscriber yet (the
-# /distributed/events stream comes with step 7's push grants).
-EVENT_QUEUE_SIZE = 512
+from ..utils.constants import EVENT_QUEUE_SIZE
 
 
 class Subscription:

@@ -6,9 +6,9 @@ help texts and label names are the JAX package's, letter for letter, so
 a dashboard built against a JAX master reads a port master unchanged.
 The JAX families the port does not register yet are listed, by the
 ROADMAP step that brings each, in tests/test_torch_telemetry.py
-(STILL_TO_PORT): push grants and the event stream, durability, the
-mesh, the cross-job tier, the incident plane, the profiler capture, and
-the `cdt_jax_*` compile gauges, which have no counterpart here. One
+(STILL_TO_PORT): durability, the mesh, the cross-job tier, the
+incident plane, the profiler capture, and the `cdt_jax_*` compile
+gauges, which have no counterpart here. One
 help text is worded apart from the JAX package's
 (`cdt_cache_unsettled_admission_cost`: the JAX text cites the
 package's change history and a runbook); its name, kind and labels are
@@ -198,6 +198,15 @@ def breaker_state() -> Gauge:
         "Circuit-breaker state per worker "
         "(0=healthy 1=suspect 2=quarantined 3=probing 4=recovered)",
         ("worker_id",),
+    )
+
+
+def push_grants_total() -> Counter:
+    return get_metrics_registry().counter(
+        "cdt_push_grants_total",
+        "Tasks announced over pushed grant_available events "
+        "(CDT_PUSH_GRANTS; workers wake on these instead of "
+        "pull-polling)",
     )
 
 
@@ -452,6 +461,27 @@ def watchdog_stalls_total() -> Counter:
         "cdt_watchdog_stalls_total",
         "Stalled executions detected (no completion progress for the "
         "stall window while tiles were in flight)",
+    )
+
+
+# --- the event bus (telemetry/events.py) -----------------------------------
+
+
+def event_subscriber_queue_depth() -> Gauge:
+    return get_metrics_registry().gauge(
+        "cdt_event_subscriber_queue_depth",
+        "Events queued per event-bus subscriber at scrape time "
+        "(bounded by CDT_EVENT_QUEUE_SIZE)",
+        ("subscriber",),
+    )
+
+
+def event_subscriber_dropped() -> Gauge:
+    return get_metrics_registry().gauge(
+        "cdt_event_subscriber_dropped",
+        "Cumulative drop-oldest evictions per event-bus subscriber "
+        "(a slow consumer loses its oldest events, never the bus)",
+        ("subscriber",),
     )
 
 
@@ -806,6 +836,18 @@ def bind_server_collectors(server) -> Callable[[], None]:
                 lsnap["host_tax"],
                 role="worker" if server.is_worker else "master",
             )
+        # Event-bus consumers (a /distributed/events client is a queue):
+        # depth and cumulative drops per subscriber, cleared then refilled
+        # so a departed subscriber's series drops instead of freezing.
+        from .events import get_event_bus
+
+        depth_gauge = event_subscriber_queue_depth()
+        drop_gauge = event_subscriber_dropped()
+        depth_gauge.clear()
+        drop_gauge.clear()
+        for sub_stats in get_event_bus().stats()["subscribers"]:
+            depth_gauge.set(sub_stats["queue_depth"], subscriber=sub_stats["name"])
+            drop_gauge.set(sub_stats["dropped"], subscriber=sub_stats["name"])
         gauge = breaker_state()
         # Clear-then-refill: a worker removed from the registry must drop
         # its series, not freeze at its last state.
@@ -821,6 +863,8 @@ def bind_server_collectors(server) -> Callable[[], None]:
         unregister()
         for accessor in _LIVE_GAUGES:
             accessor().remove(server=label)
+        event_subscriber_queue_depth().clear()
+        event_subscriber_dropped().clear()
         slo = getattr(server, "slo", None)
         if slo is not None:
             for spec_name in slo.specs:

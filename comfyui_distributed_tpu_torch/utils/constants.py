@@ -45,6 +45,8 @@ HEARTBEAT_TIMEOUT_SECONDS = _env_float("CDT_HEARTBEAT_TIMEOUT", 60.0)
 MAX_PAYLOAD_SIZE = _env_int("CDT_MAX_PAYLOAD_SIZE", 50 * 1024 * 1024)
 PAYLOAD_HEADROOM = 1024 * 1024
 MAX_TILE_BATCH = _env_int("CDT_MAX_BATCH", 20)
+# The largest audio waveform an envelope carries (its float32 bytes).
+MAX_AUDIO_PAYLOAD_BYTES = _env_int("CDT_MAX_AUDIO_PAYLOAD_BYTES", 256 * 1024 * 1024)
 
 # --- probes / retries ----------------------------------------------------
 PROBE_TIMEOUT_SECONDS = _env_float("CDT_PROBE_TIMEOUT", 5.0)
@@ -243,6 +245,18 @@ USAGE_COST_ENABLED = _env_int("CDT_USAGE_COST", 0) == 1
 # Usage entries idle this long fold into retired aggregates and their
 # series leave the store.
 USAGE_TTL_SECONDS = _env_float("CDT_USAGE_TTL", 3600.0)
+# Per-subscriber bound of the event bus (telemetry/events.py): a
+# /distributed/events consumer slower than the event rate loses its
+# oldest events.
+EVENT_QUEUE_SIZE = _env_int("CDT_EVENT_QUEUE_SIZE", 512)
+
+# --- push grants (graph/usdu_elastic.py::GrantSignal) -----------------------
+# Workers hold the master's /distributed/events stream and wake on
+# pushed grant_available frames; 0 keeps the pure pull protocol.
+PUSH_GRANTS_ENABLED = os.environ.get("CDT_PUSH_GRANTS", "1") != "0"
+# How long a worker parks on the grant signal after an empty pull before
+# it concludes the queue is drained.
+PUSH_WAIT_SECONDS = _env_float("CDT_PUSH_WAIT", 1.0)
 
 # --- fleet plane (telemetry/fleet.py, telemetry/slo.py) ---------------------
 # 0 turns the master's fleet plane off (its routes answer enabled=false).

@@ -1453,3 +1453,145 @@ def test_wan_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread, counted_
     assert out.count("first evaluations: the noise equals the draw at seeds") == 2
     assert "CLIP-vision tokens zeroed moves the velocity" in out
     assert "collector jobs left 0" in out
+
+
+# --- push grants, the quarantine run, audio and WEBP ---------------------------
+
+
+def test_the_push_checks_of_the_elastic_phase_on_the_cpu(capsys, one_torch_thread):
+    """Each elastic run's [push] line: cdt_push_grants_total rose by the
+    4 tiles the job made pending, w1's grant signal connected and got the
+    stream's hello, parked at most once until the timeout, and the bus
+    let go of its stream."""
+    result = _elastic_on_tiny()
+    lines = [line for line in capsys.readouterr().out.splitlines()
+             if line.startswith("[push] elastic run")]
+    assert len(lines) == 1
+    assert "cdt_push_grants_total +4 (the 4 tiles made pending + 0 requeued)" in lines[0]
+    assert "connections 1" in lines[0] and "subscribers 0 after the run, 0 before" in lines[0]
+    push = result["push"]
+    assert push["pushed"] == 4 and push["parks"] and push["frames"]["hello"] == 1
+    assert [how for _, how in push["parks"]].count("timeout") <= 1
+
+
+def test_the_push_checks_fail_when_the_event_stream_is_down(monkeypatch, one_torch_thread):
+    """A worker whose grant signal never connects runs the pure pull loop
+    and the output is right: the [push] check must still fail the run."""
+    from comfyui_distributed_tpu_torch.graph import usdu_elastic
+
+    monkeypatch.setattr(usdu_elastic.GrantSignal, "start", lambda self: None)
+    with pytest.raises(RuntimeError, match="grant signal never connected"):
+        _elastic_on_tiny()
+
+
+def test_the_push_checks_fail_when_grants_are_not_announced(monkeypatch, one_torch_thread):
+    from comfyui_distributed_tpu_torch.scheduler import placement
+
+    monkeypatch.setattr(placement.PlacementPolicy, "notify_grants",
+                        lambda self, job_id, count: None)
+    with pytest.raises(RuntimeError, match="cdt_push_grants_total rose by 0"):
+        _elastic_on_tiny()
+
+
+def _quarantine_on_tiny(monkeypatch=None):
+    """The procs phase's quarantine run, with w1 in this process."""
+    import time
+
+    workflow = _tiny_workflow()
+    bundle = tpl.load_pipeline("tiny-unet", seed=0, device="cpu")
+    image = torch.zeros((1, 64, 64, 3))
+
+    def after(servers):
+        master, base, port = servers["master"], servers["base"], servers["worker_port"]
+        w1_base = f"http://127.0.0.1:{port}"
+
+        def run():
+            started = time.perf_counter()
+            queued, _, _ = chip_smoke._queue(base, port, workflow)
+            out = master.get_job(queued["prompt_id"]).outputs["6"][0]["images"]
+            return queued, out, time.perf_counter() - started
+
+        return chip_smoke._quarantine_run(master, base, w1_base, run, servers["reference"],
+                                          chip_smoke._Push("[push] elastic", base, w1_base))
+
+    return chip_smoke._elastic_phase(torch, bundle, "tiny-unet", workflow, image, None, "cpu",
+                                     runs=0, after=after)["after"]
+
+
+def test_the_quarantine_run_on_the_cpu(capsys, one_torch_thread):
+    """w1 quarantined as soon as it holds a grant: its tiles requeued at
+    once with reason quarantine and announced, every tile completed once,
+    w1's copies dropped as duplicates, the output right, w1 pardoned."""
+    from comfyui_distributed_tpu_torch.resilience.health import get_health_registry
+
+    result = _quarantine_on_tiny()
+    out = capsys.readouterr().out.splitlines()
+    line = [line for line in out if line.startswith("[quarantine]")]
+    assert len(line) == 1 and "state quarantined" in line[0] and "now healthy" in line[0]
+    assert result["requeued"] == len(result["in_flight"]) == result["duplicates"] >= 1
+    assert result["push"]["pushed"] == 4 + result["requeued"]
+    assert result["push"]["frames"].get("grant_available", 0) >= 1
+    assert get_health_registry().state("w1").value == "healthy"
+
+
+def test_the_quarantine_run_fails_without_the_requeue_binding(monkeypatch, one_torch_thread):
+    """A breaker that is not bound to the store leaves w1's tiles to the
+    heartbeat timeout: the run must fail, and w1 is still pardoned."""
+    from comfyui_distributed_tpu_torch import resilience
+    from comfyui_distributed_tpu_torch.resilience.health import get_health_registry
+
+    monkeypatch.setattr(resilience, "bind_quarantine_requeue", lambda registry, store: (
+        lambda: None))
+    with pytest.raises(RuntimeError, match="tiles requeued for the quarantine"):
+        _quarantine_on_tiny()
+    assert get_health_registry().state("w1").value == "healthy"
+
+
+def test_the_audio_graph_runs_and_checks_on_the_cpu(tmp_path, capsys, one_torch_thread):
+    in_dir, out_dir = str(tmp_path / "in"), str(tmp_path / "out")
+    os.makedirs(in_dir)
+    with chip_smoke._serving(str(tmp_path), {"input_dir": in_dir, "output_dir": out_dir},
+                             "cpu") as (master, _worker, base, worker_port):
+        result = chip_smoke._audio_check(master, base, worker_port, in_dir, out_dir, "cpu")
+    line = [line for line in capsys.readouterr().out.splitlines() if line.startswith("[audio]")]
+    assert len(line) == 1 and "equal to the master's then w1's: True" in line[0]
+    assert result["samples"] == 2 * chip_smoke.AUDIO_SECONDS * chip_smoke.AUDIO_RATE
+    assert result["envelope_bytes"] == 4 * (chip_smoke.AUDIO_SECONDS * chip_smoke.AUDIO_RATE
+                                            * chip_smoke.AUDIO_CHANNELS * 4) // 3
+    assert sorted(os.listdir(out_dir)) == ["combined.npz"] + [
+        f"part{i}.npz" for i in range(chip_smoke.AUDIO_PARTS)]
+
+
+def test_the_audio_check_fails_when_the_workers_audio_is_lost(tmp_path, monkeypatch,
+                                                              one_torch_thread):
+    from comfyui_distributed_tpu_torch.graph.nodes_distributed import DistributedCollector
+
+    envelopes = DistributedCollector.envelopes
+    monkeypatch.setattr(DistributedCollector, "envelopes", staticmethod(
+        lambda images, worker_id, job_id, audio=None: envelopes(images, worker_id, job_id)))
+    in_dir, out_dir = str(tmp_path / "in"), str(tmp_path / "out")
+    os.makedirs(in_dir)
+    with chip_smoke._serving(str(tmp_path), {"input_dir": in_dir, "output_dir": out_dir},
+                             "cpu") as (master, _worker, base, worker_port):
+        with pytest.raises(RuntimeError, match="not the master's then w1's"):
+            chip_smoke._audio_check(master, base, worker_port, in_dir, out_dir, "cpu")
+
+
+def test_the_webp_check_on_a_small_batch(tmp_path, capsys):
+    frames = torch.rand((5, 24, 40, 3), generator=torch.Generator().manual_seed(0))
+    result = chip_smoke._webp_check(frames, 16, str(tmp_path))
+    line = capsys.readouterr().out.splitlines()
+    assert len(line) == 1 and line[0].startswith("[webp] SaveAnimatedWEBP of 5 frames of 40x24")
+    assert "durations [62] ms" in line[0] and "canvas (40, 24), loop 0" in line[0]
+    assert result["frames"] == 5 and result["bytes"] == os.path.getsize(
+        tmp_path / "chip_smoke_00000.webp")
+
+
+def test_the_webp_check_fails_on_a_wrong_container(tmp_path, monkeypatch):
+    from comfyui_distributed_tpu_torch.utils import webp
+
+    encode = webp.encode_animated_webp
+    monkeypatch.setattr(webp, "encode_animated_webp",
+                        lambda frames, duration_ms, loop=0: encode(frames[1:], duration_ms, loop))
+    with pytest.raises(RuntimeError, match="4 ANMF frames, not 5"):
+        chip_smoke._webp_check(torch.rand((5, 8, 8, 3)), 16, str(tmp_path))

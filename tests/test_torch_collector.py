@@ -447,8 +447,9 @@ def test_reorder_participant_first_equals_the_jax_packages(batches, order):
 def test_unported_branches_raise_and_the_small_nodes_work():
     collector = DistributedCollector()
     images = torch.zeros((1, 8, 8, 3))
-    with pytest.raises(NotImplementedError, match="audio_payload"):
-        collector.run(images, audio={"waveform": torch.zeros(1, 1, 4), "sample_rate": 8})
+    # audio is ported: with no server the master's own audio comes back
+    audio = {"waveform": torch.zeros(1, 1, 4), "sample_rate": 8}
+    assert collector.run(images, audio=audio)[1] is audio
     # the load_balance widget is accepted and has no effect, as in the JAX
     # node: the same images come out of both packages' collectors
     from comfyui_distributed_tpu.graph.nodes_distributed import (

@@ -163,18 +163,15 @@ def test_nodes_keep_the_tensors_device_and_dtype():
 
 
 # the JAX package's nodes the port does not register yet, by the ROADMAP
-# item that brings them (Queue 1)
-STILL_TO_PORT = {
-    "step 6b (WEBP)": {"SaveAnimatedWEBP"},
-    "step 6b (audio)": {"LoadAudio", "SaveAudio", "AudioBatchDivider"},
-}
+# item that brings them (Queue 1): none since step 6b
+STILL_TO_PORT: dict[str, set[str]] = {}
 
 
 def test_the_registries_differ_only_by_the_families_still_to_port():
     """Every SD-family node of the JAX package is registered in the port
     under its name, and so is every Flux and SD3 node, LoRA loader and
-    weight merge, every video, CLIP-vision and unCLIP node; what is
-    missing is SaveAnimatedWEBP and the audio nodes (129 of 133)."""
+    weight merge, every video, CLIP-vision and unCLIP node, SaveAnimatedWEBP
+    and the audio nodes: all 133."""
     # each package's own nodes: other test modules register nodes of their
     # own in the same process
     jax_nodes, port_nodes = ({name for name, cls in graph.NODE_REGISTRY.items()
@@ -191,9 +188,10 @@ def test_the_registries_differ_only_by_the_families_still_to_port():
                  "LoraLoaderModelOnly", "ModelMergeSimple", "CLIPMergeSimple",
                  "VideoCheckpointLoader", "VideoCLIPTextEncode", "EmptyVideoLatent",
                  "VideoFlowSampler", "WanImageToVideo", "SaveVideoFrames", "SaveAnimatedPNG",
-                 "CLIPVisionLoader", "CLIPVisionEncode", "unCLIPConditioning"):
+                 "CLIPVisionLoader", "CLIPVisionEncode", "unCLIPConditioning",
+                 "SaveAnimatedWEBP", "LoadAudio", "SaveAudio", "AudioBatchDivider"):
         assert name in tgraph.NODE_REGISTRY
-    assert len(jax_nodes) == 133 and len(port_nodes) == 129
+    assert len(jax_nodes) == 133 and len(port_nodes) == 133
 
 
 def test_a_graph_of_image_nodes_runs_through_the_executor():

@@ -13,7 +13,8 @@
   brings them (STILL_TO_PORT).
 - The routes: /distributed/metrics of a port master and a JAX master
   after the same store operations; trace, traces, cache, fleet, alerts
-  and usage (with their `since` checks); the unported telemetry routes
+  and usage (with their `since` checks); a plain GET of the event stream
+  is refused with the JAX route's status; the unported telemetry routes
   answer 404.
 - The same tiny-unet elastic upscale, master + w1 on loopback through
   each package's own servers, twice with a tile cache installed (the
@@ -56,10 +57,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The JAX package's metric families the port does not register yet, by
 # the ROADMAP step that brings each.
 STILL_TO_PORT = {
-    "step 7: /distributed/events with push grants": {
-        "cdt_event_subscriber_queue_depth", "cdt_event_subscriber_dropped",
-        "cdt_push_grants_total",
-    },
     "step 7: flight recorder and incidents": {
         "cdt_incidents_total", "cdt_incident_capture_seconds", "cdt_flight_dropped_total",
     },
@@ -670,9 +667,14 @@ def test_cache_routes_and_the_unported_routes(single_masters, monkeypatch):
     assert plane["port"]["fleet?since=x"][0] == plane["port"]["usage?since=inf"][0] == 400
     assert set(plane["port"]["usage"][1]["rollup"]) == set(plane["jax"]["usage"][1]["rollup"])
     base = f"http://127.0.0.1:{port_master.port}/distributed"
-    for path in ("events", "durability", "profile"):
+    for path in ("durability", "profile"):
         assert _get(f"{base}/{path}")[0] == 404, path
     assert _post(f"{base}/profile/start", {})[0] == 404
+    # the event stream is a WebSocket: a plain GET is refused as the JAX
+    # route refuses it
+    events = {side: _get(f"http://127.0.0.1:{server.port}/distributed/events")[0]
+              for side, server in (("jax", jax_master), ("port", port_master))}
+    assert events["port"] == events["jax"] == 400
 
 
 # --------------------------------------------------------------------------
