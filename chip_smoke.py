@@ -10,9 +10,10 @@ kernel checks of their shapes (`kernel` runs all the checks, the
 threshold and host lines); a phase that reads an earlier one's bundle
 builds its own, and `elastic` runs `main`. The main path (main, elastic,
 txt2img) and the other phases run the published depths; Flux, SD3.5 and
-the UNets of CUT_PHASES run at the depths of the [cuts] line
-(FLUX_DEPTH_CUT, SD3_DEPTH_CUT, SDXL_DEPTH_CUT, UNET_RES_BLOCKS_CUT; full
-width), so that every phase fits the run's time limit.
+the UNets of CUT_PHASES and the 14B WAN DiTs run at the depths of the
+[cuts] line (FLUX_DEPTH_CUT, SD3_DEPTH_CUT, SDXL_DEPTH_CUT,
+UNET_RES_BLOCKS_CUT, WAN_DEPTH_CUT; full width), so that every phase fits
+the run's time limit.
 
 1. device  - the card's name and power limit (nvidia-smi); TF32 is
              turned off for matmuls and convolutions, so f32 checks are
@@ -128,6 +129,28 @@ width), so that every phase fits the run's time limit.
              Before the last run the scheduler is drained
              (`_drain_check`): the queue answers 503 with Retry-After,
              makes no job and launches nothing; then it resumes.
+             The incident plane (`_Incident`): the master runs with
+             CDT_INCIDENT_DIR and CDT_PROFILE_DIR in the phase's
+             temporary directory; each run prints the flight recorder's
+             appended and dropped events and span closes ([flight]). The
+             second run is profiled: a torch.profiler capture posted to
+             /distributed/profile/start once the run's first attention
+             kernel launched, stopped after PROFILE_WINDOW_S while the run
+             goes on; its Chrome trace must parse and hold CUDA kernel
+             events among which the attention kernel's wgmma instance,
+             cdt_profile_captures_total must count it and GET
+             /distributed/profile list it ([profile]; the run's rate is
+             printed as profiled, compared with nothing). Then a manual
+             incident bundle naming the run's trace id must validate, hold
+             a span close of every span of the run's trace in its flight
+             section and that trace in its trace section, the resolved
+             knobs, and store, placement, scheduler, health, fleet, usage
+             and SLO sections without an error; cdt_incidents_total
+             {trigger="manual"} +1; listed and fetched by id; the scraped
+             cdt_flight_dropped_total equal to the recorder's drops; w1
+             with the recorder and no incident manager ([incident]). The
+             taps' host cost: TAP_PUBLISHES publishes ([flight]). The
+             host µs a launch, before and after the capture ([profile]).
    adapters - on SDXL at the cut depth, served as the elastic phase
              serves it (a master and w1 in this process; its base output
              the local tiles' weighted average) (`_adapters_phase`): a
@@ -390,7 +413,8 @@ width), so that every phase fits the run's time limit.
              T5: 77 text tokens), finite, its CLIP tokens those of the triple
              conditioning exactly, launches from `_sd3_shapes`.
    wan     - the three bundled WAN workflows (WAN_WORKFLOWS), unmodified, at
-             full width and depth (`_wan_phase`): wan-1.3b (33 frames of
+             full width, the 14B DiTs at WAN_DEPTH_CUT's depth
+             (`_wan_phase`): wan-1.3b (33 frames of
              480x480, 30 steps), wan-14b (81 frames of 720x480, 30 steps),
              wan-14b-i2v (WanImageToVideo, 81 frames, 20 steps; its
              LoadImage reads a seeded 720x480 first_frame.png), CLIP-L, the
@@ -467,6 +491,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 
@@ -498,6 +523,14 @@ VAE_1024_TOKENS = 136 * 136
 RERUN_TOLERANCE = 0.05
 ELASTIC_RUNS = 2
 ELASTIC_RUN_TIMEOUT_S = 300.0
+# the elastic phase's profiled run (`_Incident`): a torch.profiler capture
+# asked for PROFILE_DURATION_S, stopped after PROFILE_WINDOW_S of the run;
+# the bus's tap cost is timed over TAP_PUBLISHES publishes, and the host
+# cost of a launch before and after the capture over LAUNCH_PROBES launches
+PROFILE_DURATION_S = 2.0
+PROFILE_WINDOW_S = 1.0
+TAP_PUBLISHES = 10000
+LAUNCH_PROBES = 5000
 USDU_NODE = "5"
 # query and key counts at the edges of the wgmma instance's 64-row blocks
 # and of its key tiles at D = 40, 80 and 160 (64, 80, 128; M = 77, the
@@ -717,6 +750,10 @@ LARGE_REPS = (5, 2)
 # SLG on blocks 7-9)
 FLUX_DEPTH_CUT = (2, 4)
 SD3_DEPTH_CUT = {"sd35-large": (4, 0), "sd35-medium": (10, 5)}
+# and the 14B WAN DiTs' blocks (published 40): two of their videos at full
+# depth took half the run's time limit, and the whole run took 1068-1216 s
+# as the host varied; 10 blocks fewer take ~120 s off; wan-1.3b keeps its 30
+WAN_DEPTH_CUT = {"wan-14b": 30, "wan-14b-i2v": 30}
 # then the SDXL, SD1.5 and SD2.1 UNets of the phases that repeat a path the
 # main path covers (host-bound on their launches): SDXL's transformer blocks
 # per level (published (0, 2, 10)) and every UNet's residual blocks per level
@@ -1625,6 +1662,278 @@ class _Push:
         return {"pushed": pushed, "frames": signal.get("frames"), "parks": parks}
 
 
+class _Incident:
+    """The incident plane on the elastic phase (`incident=True`): the
+    master runs with CDT_INCIDENT_DIR and CDT_PROFILE_DIR in the phase's
+    temporary directory. Every run prints its [flight] line (the
+    recorder's appended and dropped events and span closes). One run is
+    profiled (`profiled_queue`): once the run is under way (its first
+    attention launch on the card, its tile job on the CPU) a POST
+    /distributed/profile/start of PROFILE_DURATION_S, then /stop after
+    PROFILE_WINDOW_S, both while the run goes on; `check_profile` holds
+    the capture on a [profile] line: started and stopped, its Chrome trace
+    parses, holds CUDA kernel events among which the attention kernel's
+    wgmma instance, at most CDT_PROFILE_MAX_MB, cdt_profile_captures_total
+    started and stopped +1 each, the capture listed by GET
+    /distributed/profile and none active after the run. Then
+    `check_incident` POSTs /distributed/incidents/capture with the run's
+    trace id and holds the bundle on an [incident] line: it passes
+    `validate_bundle`, its flight spans hold a span_close frame of every
+    span of the run's trace, its trace section is that trace, its knobs
+    are `resolved_knobs()`, the store, placement, scheduler, health,
+    fleet, usage and SLO sections carry no error,
+    cdt_incidents_total{trigger="manual"} rose by one, GET
+    /distributed/incidents lists it and GET by its id returns it; with the
+    recorder's tap lifted, the scraped cdt_flight_dropped_total equals the
+    recorder's drops; w1 has the recorder and no incident manager.
+    `tap_cost` times TAP_PUBLISHES publishes on the bus with the taps on
+    and on a bus with no listener; `launch_us`, read before the profiled
+    run and after its capture, the host cost of a launch. Any miss fails the run; the profiled
+    run's rate is printed as profiled."""
+
+    def __init__(self, tag: str, master, worker, base: str, worker_base: str, cuda: bool,
+                 card: str):
+        self.tag = tag
+        self.master = master
+        self.worker = worker
+        self.base = base
+        self.worker_base = worker_base
+        self.cuda = cuda
+        self.card = card
+        self.profile: dict = {}
+        self.launch_before: float | None = None
+
+    def start_run(self) -> None:
+        self.flight_before = self.master.flight.status()
+
+    def end_run(self, run: int) -> dict:
+        after = self.master.flight.status()
+        moved = {key: {stream: after[key][stream] - self.flight_before[key][stream]
+                       for stream in after[key]} for key in ("appended", "dropped")}
+        print(f"[flight] {self.tag} run {run}: the recorder appended {moved['appended']} and "
+              f"dropped {moved['dropped']} (events, span closes); retained {after['retained']} "
+              f"of {after['capacity']} ({self.card})")
+        _require(after["installed"] and moved["appended"]["spans"] > 0,
+                 f"the flight recorder saw no span close this run: {after}")
+        return moved
+
+    def profiled_queue(self, attn, worker_port: int, workflow) -> tuple[dict, dict, dict]:
+        """`_queue` on a thread, with a capture inside the run."""
+        from comfyui_distributed_tpu_torch.utils.network import request_json
+
+        before = _scrape(self.base)[1]
+        done: dict = {}
+
+        def run_queue():
+            try:
+                done["result"] = _queue(self.base, worker_port, workflow)
+            except BaseException as exc:  # noqa: BLE001 - re-raised on the main thread
+                done["error"] = exc
+
+        thread = threading.Thread(target=run_queue, name="chip-smoke-queue", daemon=True)
+        thread.start()
+        deadline = time.monotonic() + ELASTIC_RUN_TIMEOUT_S
+        while thread.is_alive() and time.monotonic() < deadline:
+            underway = (attn.flash_attention.launches > 0 if self.cuda
+                        else self.master.job_store.stats_unlocked()["tile_jobs"] > 0)
+            if underway:
+                break
+            time.sleep(0.005)
+        profile = f"{self.base}/distributed/profile"
+        status, started = request_json("POST", f"{profile}/start",
+                                       {"duration_s": PROFILE_DURATION_S, "tag": self.tag},
+                                       timeout=120)
+        launches_at_start = attn.flash_attention.launches
+        time.sleep(PROFILE_WINDOW_S)
+        stop_posted = time.perf_counter()
+        stop_status, stopped = request_json("POST", f"{profile}/stop", timeout=900)
+        stop_s = time.perf_counter() - stop_posted
+        run_went_on = thread.is_alive()
+        thread.join(ELASTIC_RUN_TIMEOUT_S)
+        if "error" in done:
+            raise done["error"]
+        _require("result" in done, "the profiled run did not finish")
+        self.profile = {"before": before, "status": status, "started": started,
+                        "stop_status": stop_status, "stopped": stopped, "stop_s": stop_s,
+                        "launches_at_start": launches_at_start, "run_went_on": run_went_on}
+        return done["result"]
+
+    def check_profile(self, run: int, tiles_per_s: float) -> dict:
+        from comfyui_distributed_tpu_torch.utils import constants
+        from comfyui_distributed_tpu_torch.utils.network import request_json
+
+        p = self.profile
+        launch_after = self.launch_us()
+        _require(p["status"] == 200 and p["started"].get("started") is True,
+                 f"the capture did not start: {p['status']} {p['started']}")
+        _require(p["stop_status"] == 200 and p["stopped"].get("stopped") is True,
+                 f"the capture did not stop cleanly: {p['stop_status']} {p['stopped']}")
+        stopped = p["stopped"]
+        path = os.path.join(stopped["path"], "trace.json")
+        parse_started = time.perf_counter()
+        with open(path, "rb") as fh:
+            trace = json.load(fh)
+        parse_s = time.perf_counter() - parse_started
+        events = trace.get("traceEvents")
+        _require(isinstance(events, list), f"{path} holds no traceEvents list")
+        cats: dict = {}
+        for event in events:
+            cats[event.get("cat")] = cats.get(event.get("cat"), 0) + 1
+        kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        wgmma = [name for name in kernels if "flash_attention_fwd_wgmma_kernel<" in name]
+        after = _scrape(self.base)[1]
+        moved = {outcome: _total(after, "cdt_profile_captures_total", outcome=outcome)
+                 - _total(p["before"], "cdt_profile_captures_total", outcome=outcome)
+                 for outcome in ("started", "stopped", "busy", "errors", "auto_stopped")}
+        _, listing = request_json("GET", f"{self.base}/distributed/profile", timeout=60)
+        listed = [c["id"] for c in listing.get("captures", [])]
+        print(f"[profile] {self.tag} run {run}: capture {stopped['id']} started "
+              f"{p['launches_at_start']} attention launches into the run (duration "
+              f"{p['started']['duration_s']:g} s), stopped after {stopped['elapsed_s']:.3f} s "
+              f"while the run went on: {p['run_went_on']}; the stop answered in "
+              f"{p['stop_s']:.3f} s, of which export {stopped['export_s']:.3f} s; trace "
+              f"{stopped['bytes']} bytes, parsed in {parse_s:.3f} s: {len(events)} events by "
+              f"category {dict(sorted(cats.items(), key=lambda kv: str(kv[0])))}, "
+              f"{len(kernels)} CUDA kernels of which {len(wgmma)} the attention kernel's wgmma "
+              f"instance (e.g. {wgmma[0][:80] if wgmma else None!r}); "
+              f"cdt_profile_captures_total {moved}; listed {stopped['id'] in listed}; the "
+              f"profiled run {tiles_per_s:.4f} tiles/s as profiled; host us a launch "
+              f"({LAUNCH_PROBES} one-element adds) before the capture {self.launch_before}, "
+              f"after it {launch_after} ({self.card})")
+        _require(stopped["bytes"] <= constants.PROFILE_MAX_MB * 1024 * 1024,
+                 f"the trace's {stopped['bytes']} bytes pass CDT_PROFILE_MAX_MB")
+        if self.cuda:
+            _require(kernels, "the trace holds no CUDA kernel event")
+            _require(wgmma, "the trace holds no launch of the attention kernel's wgmma instance")
+        _require(moved["started"] == 1 and moved["stopped"] == 1 and moved["errors"] == 0,
+                 f"cdt_profile_captures_total moved {moved}, not started and stopped +1")
+        _require(stopped["id"] in listed, f"GET /distributed/profile lists {listed}")
+        _require(listing["capture"]["active"] is None, "a capture outlived its run")
+        return {"bytes": stopped["bytes"], "export_s": stopped["export_s"],
+                "stop_s": p["stop_s"], "parse_s": parse_s, "events": len(events),
+                "kernels": len(kernels), "wgmma": len(wgmma),
+                "launch_us": (self.launch_before, launch_after)}
+
+    def check_incident(self, run: int, trace_id: str, spans: list) -> dict:
+        from comfyui_distributed_tpu_torch.telemetry.incidents import (
+            resolved_knobs,
+            validate_bundle,
+        )
+        from comfyui_distributed_tpu_torch.utils.network import request_json
+
+        incidents = f"{self.base}/distributed/incidents"
+        before = _scrape(self.base)[1]
+        posted = time.perf_counter()
+        status, captured = request_json("POST", f"{incidents}/capture", {
+            "key": "chip_smoke", "context": {"trace_id": trace_id, "phase": self.tag}},
+            timeout=300)
+        capture_s = time.perf_counter() - posted
+        _require(status == 200 and captured.get("captured") is True,
+                 f"the manual capture answered {status}: {captured}")
+        after = _scrape(self.base)[1]
+        manual = (_total(after, "cdt_incidents_total", trigger="manual")
+                  - _total(before, "cdt_incidents_total", trigger="manual"))
+        _, listing = request_json("GET", incidents, timeout=60)
+        listed = [entry["id"] for entry in listing.get("incidents", [])]
+        got_status, bundle = request_json("GET", f"{incidents}/{captured['id']}", timeout=120)
+        _require(got_status == 200 and isinstance(bundle, dict) and bundle.get("id")
+                 == captured["id"], f"GET {captured['id']} answered {got_status}")
+        problems = validate_bundle(bundle)
+        run_span_ids = {s["span_id"] for s in spans}
+        closed = {e["data"]["span_id"] for e in bundle["flight"]["spans"]
+                  if e["data"].get("trace_id") == trace_id}
+        trace = bundle.get("trace") or {}
+        trace_ids = {s["span_id"] for s in trace.get("spans", [])}
+        sections = ("store", "placement", "scheduler", "health", "fleet", "usage", "slo")
+        in_error = [name for name in sections
+                    if not isinstance(bundle.get(name), dict) or "error" in bundle[name]]
+        knobs_equal = bundle["knobs"] == resolved_knobs()
+        # the scrape mirrors the recorder's drops by delta: with the tap
+        # lifted nothing publishes into the rings while the scrape runs
+        recorder = self.master.flight
+        recorder.uninstall()
+        try:
+            drops = recorder.drop_totals()
+            scraped = _scrape(self.base)[1]
+        finally:
+            recorder.install()
+        scraped_drops = {stream: _total(scraped, "cdt_flight_dropped_total", stream=stream)
+                         for stream in drops}
+        _, w1_listing = request_json("GET", f"{self.worker_base}/distributed/incidents",
+                                     timeout=60)
+        flight = bundle["flight"]
+        print(f"[incident] {self.tag} run {run}: bundle {captured['id']}, {captured['bytes']} "
+              f"bytes, captured in {capture_s:.3f} s (the POST); schema problems {problems}; "
+              f"flight: {len(flight['events'])} events and {len(flight['spans'])} span closes "
+              f"retained, appended {flight['appended']}, dropped {flight['dropped']}; span "
+              f"closes of the run's trace {trace_id}: {len(closed & run_span_ids)} of its "
+              f"{len(run_span_ids)} spans; trace section {trace.get('trace_id')} with "
+              f"{len(trace_ids)} spans (truncated {trace.get('truncated_spans')}); "
+              f"{len(bundle['knobs'])} knobs, equal to resolved_knobs(): {knobs_equal}; "
+              f"sections in error {in_error} of {list(sections)}; "
+              f"cdt_incidents_total{{trigger=\"manual\"}} +{manual:g}; listed "
+              f"{captured['id'] in listed}; scraped cdt_flight_dropped_total {scraped_drops}, "
+              f"the recorder's {drops}; w1: recorder {self.worker.flight is recorder}, incident "
+              f"manager {self.worker.incidents}, its route enabled "
+              f"{(w1_listing or {}).get('enabled')} ({self.card})")
+        _require(not problems, f"the bundle fails validate_bundle: {problems}")
+        _require(run_span_ids and run_span_ids <= closed,
+                 f"the bundle's flight spans miss {len(run_span_ids - closed)} of the run's "
+                 f"{len(run_span_ids)} span closes")
+        _require(trace.get("trace_id") == trace_id and trace_ids == run_span_ids
+                 and trace.get("truncated_spans") == 0,
+                 f"the bundle's trace section is not the run's execution tree: "
+                 f"{trace.get('trace_id')}, {len(trace_ids)} spans")
+        _require(knobs_equal, "the bundle's knobs are not resolved_knobs()")
+        _require(not in_error, f"bundle sections in error: "
+                 f"{ {name: bundle.get(name) for name in in_error} }")
+        _require(manual == 1, f"cdt_incidents_total{{trigger=\"manual\"}} rose by {manual:g}")
+        _require(listed and listed[0] == captured["id"],
+                 f"GET /distributed/incidents lists {listed}")
+        _require(scraped_drops == {k: float(v) for k, v in drops.items()},
+                 f"scraped cdt_flight_dropped_total {scraped_drops}, the recorder {drops}")
+        _require(self.worker.flight is recorder and self.worker.incidents is None
+                 and (w1_listing or {}).get("enabled") is False,
+                 "w1 lacks the flight recorder, or has an incident manager")
+        return {"bytes": captured["bytes"], "capture_s": capture_s,
+                "run_spans": len(run_span_ids), "dropped": drops}
+
+    def launch_us(self) -> float | None:
+        """Host µs a launch of a one-element add on the card, over
+        LAUNCH_PROBES launches (None on the CPU)."""
+        if not self.cuda:
+            return None
+        import torch
+
+        x = torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        for _ in range(LAUNCH_PROBES):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+        return round((time.perf_counter() - started) / LAUNCH_PROBES * 1e6, 3)
+
+    def tap_cost(self) -> dict:
+        """Host seconds a tapped publish, against one with no listener."""
+        from comfyui_distributed_tpu_torch.telemetry.events import EventBus, get_event_bus
+
+        bus = get_event_bus()
+        taps = bus.stats()["taps"]
+        seconds = {}
+        for name, target in (("taps", bus), ("none", EventBus())):
+            started = time.perf_counter()
+            for i in range(TAP_PUBLISHES):
+                target.publish("metric_delta", metric="cdt_tap_cost", kind="counter",
+                               labels={"n": "x"}, value=i)
+            seconds[name] = time.perf_counter() - started
+        per = {name: s / TAP_PUBLISHES for name, s in seconds.items()}
+        print(f"[flight] {self.tag} tap cost: {TAP_PUBLISHES} publishes on the bus with the "
+              f"taps {taps} took {seconds['taps']:.4f} s, {per['taps'] * 1e6:.3f} us an event; "
+              f"on a bus with no listener {per['none'] * 1e6:.3f} us (host clock, {self.card})")
+        _require("flight" in taps, f"the bus's taps {taps} lack the flight recorder")
+        return per
+
+
 def _drain_check(label: str, master, base: str, workflow) -> dict:
     """POST /distributed/scheduler/drain, then a queue request: it must
     answer 503 with a Retry-After, create no job and launch no attention
@@ -1776,7 +2085,7 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                    expected_launches: int | None = None, expected_by_instance: dict | None = None,
                    local_tiles_per_s: float | None = None, runs: int = ELASTIC_RUNS,
                    tag: str = "elastic", after=None, drain: bool = False,
-                   fleet_interval: float | None = None) -> dict:
+                   fleet_interval: float | None = None, incident: bool = False) -> dict:
     """Run the workflow over HTTP on a master and a worker server in this
     process (see the module docstring) and check every run; prints the
     [tag] lines and returns the last run's attention launches. With
@@ -1793,7 +2102,11 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
     run follows a drained scheduler's 503 and a resume (`_drain_check`).
     With `fleet_interval` (a CPU rehearsal of the procs phase's [fleet]
     checks) the in-process w1 piggybacks a snapshot at that interval and
-    every run is held to `_fleet_check`."""
+    every run is held to `_fleet_check`. With `incident` the master runs
+    with CDT_INCIDENT_DIR and CDT_PROFILE_DIR, every run prints its
+    [flight] line, the second run (the only one when `runs` is 1) is
+    profiled, and after it the incident plane is held on [profile],
+    [incident] and [flight] lines (`_Incident`)."""
     from comfyui_distributed_tpu_torch.ops import attention as attn
     from comfyui_distributed_tpu_torch.utils import image as img_utils
 
@@ -1820,12 +2133,25 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
         snapshot_seconds = constants.FLEET_SNAPSHOT_SECONDS
         if fleet_interval is not None:
             constants.FLEET_SNAPSHOT_SECONDS = fleet_interval
+        from comfyui_distributed_tpu_torch.telemetry import profiling
+
+        plane_env = {name: os.environ.get(name) for name in ("CDT_INCIDENT_DIR",
+                                                             "CDT_PROFILE_DIR")}
+        if incident:
+            os.environ["CDT_INCIDENT_DIR"] = os.path.join(tmp, "incidents")
+            os.environ["CDT_PROFILE_DIR"] = os.path.join(tmp, "profile")
+            profiling.set_profiler_capture(None)  # made anew in this phase's directory
+        profiled_run = min(2, runs) if incident else 0
         try:
             with _serving(tmp, {"input_dir": in_dir, "output_dir": out_dir}, device,
                           {ckpt: bundle}) as (master, worker, base, worker_port):
                 telemetry = _Telemetry(torch, f"[telemetry] {tag}", base, cuda=cuda)
                 sched = _Sched(f"[sched] {tag}", master, base)
                 push = _Push(f"[push] {tag}", base, f"http://127.0.0.1:{worker_port}")
+                plane = (_Incident(tag, master, worker, base, f"http://127.0.0.1:{worker_port}",
+                                   cuda, _nvidia_smi() if cuda else "CPU") if incident else None)
+                _require(not incident or master.incidents is not None,
+                         "the master has no incident manager with CDT_INCIDENT_DIR set")
                 tile_bytes = _tile_output_bytes(workflow, image)
                 for run in range(1, runs + 1):
                     if drain and run == runs:
@@ -1833,12 +2159,18 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                     telemetry.start()
                     sched.start()
                     push.start()
+                    if plane is not None:
+                        plane.start_run()
                     if cuda:
                         torch.cuda.synchronize()
                         torch.cuda.reset_peak_memory_stats()
                     attn.reset_launch_counts()
                     started = time.perf_counter()
-                    queued, history, _ = _queue(base, worker_port, workflow)
+                    if run == profiled_run:
+                        plane.launch_before = plane.launch_us()
+                        queued, history, _ = plane.profiled_queue(attn, worker_port, workflow)
+                    else:
+                        queued, history, _ = _queue(base, worker_port, workflow)
                     if cuda:
                         torch.cuda.synchronize()
                     seconds = time.perf_counter() - started
@@ -1852,7 +2184,9 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                         by[who] = by.get(who, 0) + 1
                         tiles_by[who] = tiles_by.get(who, 0) + 1
                     rate = f"{n_tiles / seconds:.4f} tiles/s"
-                    if local_tiles_per_s is not None:
+                    if run == profiled_run:
+                        rate += " as profiled (not comparable)"
+                    elif local_tiles_per_s is not None:
                         rate += f" (phase 4: {local_tiles_per_s:.4f})"
                     print(f"{label} run {run}: {seconds:.2f} s, {rate}; tiles completed: master "
                           f"{by.get('master', 0)}, w1 {by.get('w1', 0)} (order "
@@ -1904,9 +2238,19 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                     _require(diff <= RERUN_TOLERANCE,
                              "the elastic output disagrees with the local tiles")
                     result.update({"launches": launches, "launches_by_instance": by_instance,
-                                   "tiles_per_s": n_tiles / seconds, "host_tax": read["host_tax"],
+                                   "host_tax": read["host_tax"],
                                    "queue_wait_s": control["queue_wait_s"],
                                    "grants": control["grants"]})
+                    if run != profiled_run:
+                        result["tiles_per_s"] = n_tiles / seconds
+                    if plane is not None:
+                        result.setdefault("flight", []).append(plane.end_run(run))
+                    if run == profiled_run:
+                        result["profile"] = plane.check_profile(run, n_tiles / seconds)
+                        result["incident"] = plane.check_incident(run, queued["trace_id"],
+                                                                  read["spans"])
+                if plane is not None:
+                    result["tap_cost"] = plane.tap_cost()
                 if after is not None:
                     result["after"] = after({"master": master, "worker": worker, "base": base,
                                              "worker_port": worker_port, "input_dir": in_dir,
@@ -1914,6 +2258,13 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                                              "reference_avg": reference_avg})
         finally:
             constants.FLEET_SNAPSHOT_SECONDS = snapshot_seconds
+            if incident:
+                profiling.set_profiler_capture(None)
+                for name, value in plane_env.items():
+                    if value is None:
+                        os.environ.pop(name, None)
+                    else:
+                        os.environ[name] = value
             if blend_env is None:
                 os.environ.pop("CDT_DETERMINISTIC_BLEND", None)
             else:
@@ -4876,8 +5227,8 @@ def _sd3_phase(torch, workflows: dict, device: str, expected: dict | None = None
 
 def _depth_cuts():
     """The registry configs cut in depth to fit the run's time limit, each at
-    its published width: name → config. Flux's and SD3.5's (FLUX_DEPTH_CUT,
-    SD3_DEPTH_CUT) hold for the whole run, the UNets' (UNET_CUTS:
+    its published width: name → config. Flux's, SD3.5's and the 14B WAN
+    DiTs' (FLUX_DEPTH_CUT, SD3_DEPTH_CUT, WAN_DEPTH_CUT) hold for the whole run, the UNets' (UNET_CUTS:
     SDXL_DEPTH_CUT, UNET_RES_BLOCKS_CUT) in CUT_PHASES only."""
     import dataclasses
 
@@ -4891,6 +5242,8 @@ def _depth_cuts():
         cfg = get_config(name)
         out[name] = dataclasses.replace(cfg, depth=depth, hidden_dim=cfg.width,
                                         heads=cfg.n_heads, dual_attn_blocks=dual)
+    for name, depth in WAN_DEPTH_CUT.items():
+        out[name] = dataclasses.replace(get_config(name), depth=depth)
     out["sdxl"] = dataclasses.replace(get_config("sdxl"), transformer_depth=SDXL_DEPTH_CUT,
                                       num_res_blocks=UNET_RES_BLOCKS_CUT)
     for name in ("sd15", "sd21"):
@@ -5400,7 +5753,7 @@ def main(argv=()) -> int:
 
     cuts = _depth_cuts()
     unet_cuts = {name: cuts.pop(name) for name in UNET_CUTS}
-    print("[cuts] depth cut at full width, so the wan phase fits the run's time limit: "
+    print("[cuts] depth cut at full width, so the run fits its time limit: "
           + "; ".join(f"{name} {_depth_of(get_config(name))} -> {_depth_of(cfg)}"
                       for name, cfg in cuts.items())
           + f"; in the phases {', '.join(CUT_PHASES)} only: "
@@ -5416,6 +5769,8 @@ def _depth_of(cfg) -> str:
                 f"{cfg.num_res_blocks} residual blocks")
     if hasattr(cfg, "double_depth"):
         return f"{cfg.double_depth} double + {cfg.single_depth} single blocks"
+    if hasattr(cfg, "ffn_dim"):
+        return f"{cfg.depth} DiT blocks"
     return f"{cfg.depth} joint blocks ({cfg.dual_attn_blocks} with attn2)"
 
 
@@ -5833,7 +6188,7 @@ def _run(torch, phases: set, unet_cuts: dict) -> int:
         results["elastic"] = _elastic_phase(
             torch, bundle, ckpt, workflow, prompt["5"]["inputs"]["image"], outputs[1], "cuda",
             expected_launches=n_tiles * per_tile, expected_by_instance=expected_by_instance,
-            local_tiles_per_s=main_tiles_per_s, drain=True,
+            local_tiles_per_s=main_tiles_per_s, drain=True, incident=True,
         )
         phase_seconds["elastic"] = time.perf_counter() - phase_started
     # phase 4's SDXL is not needed again
@@ -6077,8 +6432,8 @@ def _run(torch, phases: set, unet_cuts: dict) -> int:
         torch.cuda.empty_cache()
         phase_seconds["sd3"] = time.perf_counter() - phase_started
 
-    # --- 4o. wan: the three bundled WAN workflows at full width and depth,
-    # master + w1 ---------------------------------------------------------------
+    # --- 4o. wan: the three bundled WAN workflows at full width (the 14B DiTs
+    # at WAN_DEPTH_CUT's depth), master + w1 --------------------------------------
     if run("wan"):
         phase_started = time.perf_counter()
         results.update(_wan_phase(torch, wan_workflows, "cuda", expected={
@@ -6129,8 +6484,8 @@ def _run(torch, phases: set, unet_cuts: dict) -> int:
           "(wan-14b, 81 frames of 720x480, 30 steps) and -wan-i2v (wan-14b-i2v, 81 frames of "
           "720x480, 20 steps, CLIP vision's 31 blocks at D=80) workflows, CFG-batched, at D=128; "
           "launches: its run over HTTP, master and w1 together. The Flux, SD3.5, adapters, "
-          "ckpt, samplers, usdu_full, guidance, custom and dynamic entries' models run at the "
-          "depths of the [cuts] line")
+          "ckpt, samplers, usdu_full, guidance, custom, dynamic, wan_14b and wan_i2v entries' "
+          "models run at the depths of the [cuts] line")
     source = "comfyui_distributed_tpu_torch/csrc/flash_attention.cu"
     replaces = "comfyui_distributed_tpu/ops/attention.py:80"
 

@@ -8,7 +8,9 @@ api/httpd.py instead of aiohttp. It owns:
   (api/job_routes.py), the elastic tier (api/usdu_routes.py), the worker
   processes, websocket dispatch and host info (api/worker_routes.py),
   the config (api/config_routes.py), the telemetry
-  (api/telemetry_routes.py) and the scheduler (api/scheduler_routes.py);
+  (api/telemetry_routes.py), the incidents and the profiler capture
+  (api/incident_routes.py, api/profile_routes.py) and the scheduler
+  (api/scheduler_routes.py);
 - the prompt queue, consumed by one executor thread running the graph
   executor, so compute never blocks the loop; every prompt shares the
   server's `execution_context.pipelines` (loaded models) and `extras`
@@ -33,7 +35,15 @@ api/httpd.py instead of aiohttp. It owns:
   the fleet plane (CDT_FLEET=0 turns it off): the `FleetRegistry` with
   its usage aggregator, the `SLOEngine` and the `FleetMonitor`. The
   watchdog and fleet-monitor threads start with the server and stop
-  with it, each woken from its interval wait by the stop.
+  with it, each woken from its interval wait by the stop;
+- the incident plane, as the JAX server wires it: every server, master
+  and worker, installs the process's flight recorder on the event bus at
+  construction (CDT_FLIGHT=0 opts out), and a master with
+  CDT_INCIDENT_DIR gets an `IncidentManager` bound to its store,
+  scheduler, breakers and fleet plane, whose trigger tap and writer
+  thread start with the server and stop with it. The incident and
+  profiler-capture routes (api/incident_routes.py,
+  api/profile_routes.py) answer on every server.
 
 The same server runs on master and workers; a prompt's hidden inputs
 (written by the orchestration) decide each node's role. `device` is
@@ -93,6 +103,7 @@ class DistributedServer:
         # breaker → store: a quarantined worker's tiles requeue at once
         self._unbind_health = bind_quarantine_requeue(get_health_registry(), self.job_store)
         self._wire_control_plane()
+        self._wire_incident_plane()
         self.router = Router()
         self.http: Optional[HTTPServer] = None
         self.loop: Optional[asyncio.AbstractEventLoop] = None
@@ -109,8 +120,8 @@ class DistributedServer:
 
     def _wire_control_plane(self) -> None:
         """The scheduler, preemption, watchdog and fleet plane, wired to
-        the store as the JAX server wires them (without the region plane,
-        the journal and the incident plane)."""
+        the store as the JAX server wires them (without the region plane
+        and the journal)."""
         from ..resilience.health import get_health_registry
         from ..scheduler import PreemptionCoordinator, SchedulerControl
         from ..telemetry.watchdog import Watchdog
@@ -170,6 +181,21 @@ class DistributedServer:
                 # CDT_USAGE_COST: DRR cost meters a tenant's measured burn
                 self.scheduler.usage_cost = self.fleet.usage.cost_ratio
 
+    def _wire_incident_plane(self) -> None:
+        """The flight recorder on every server; on a master with
+        CDT_INCIDENT_DIR, an incident manager built after the scheduler,
+        the fleet and the SLO engine it reads. Its tap and writer thread
+        attach in start() and detach in stop()."""
+        from ..telemetry import IncidentManager, get_flight_recorder
+        from ..utils.constants import incident_dir_from_env
+
+        self.flight = get_flight_recorder()
+        self.incidents: Optional[IncidentManager] = None
+        incident_dir = incident_dir_from_env()
+        if incident_dir and not self.is_worker:
+            self.incidents = IncidentManager(incident_dir)
+            self.incidents.bind_server(self)
+
     # --- config ----------------------------------------------------------
 
     @property
@@ -190,7 +216,9 @@ class DistributedServer:
     def _register_routes(self) -> None:
         from . import (
             config_routes,
+            incident_routes,
             job_routes,
+            profile_routes,
             scheduler_routes,
             telemetry_routes,
             usdu_routes,
@@ -206,6 +234,8 @@ class DistributedServer:
         worker_routes.register(self.router, self)
         config_routes.register(self.router, self)
         telemetry_routes.register(self.router, self)
+        incident_routes.register(self.router, self)
+        profile_routes.register(self.router, self)
         scheduler_routes.register(self.router, self)
 
     # --- prompt queue ----------------------------------------------------
@@ -346,6 +376,8 @@ class DistributedServer:
             self.watchdog.start()
         if self._fleet_monitor is not None:
             self._fleet_monitor.start()
+        if self.incidents is not None:
+            self.incidents.start()
         log(f"{'worker' if self.is_worker else 'master'} server listening on "
             f"{self.host}:{self.port} (device {self.device})")
 
@@ -362,6 +394,9 @@ class DistributedServer:
         if self._fleet_monitor is not None:
             # its step touches only the series store and the bus
             self._fleet_monitor.stop()
+        if self.incidents is not None:
+            # joined off the loop: the writer may be mid-capture
+            await asyncio.to_thread(self.incidents.stop)
         self._unbind_telemetry()
         self._unbind_telemetry = lambda: None
         self._unbind_health()

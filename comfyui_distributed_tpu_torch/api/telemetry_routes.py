@@ -32,9 +32,10 @@ store's counts), then every event the bus fans out to the connection's
 subscription, an `events_dropped` notice before the first event after
 the subscription's queue dropped some, until the client closes. Push
 grants ride it (graph/usdu_elastic.py::GrantSignal).
-Not registered, so they answer 404 as the port's other unported routes
-do, each with its ROADMAP.md item (Queue 1 step 7):
-/distributed/durability and the profiler-capture routes.
+Not registered, so it answers 404 as the port's other unported routes
+do: /distributed/durability (ROADMAP.md, Queue 1 step 7f). The
+profiler-capture routes are api/profile_routes.py, the incident routes
+api/incident_routes.py.
 """
 
 from __future__ import annotations

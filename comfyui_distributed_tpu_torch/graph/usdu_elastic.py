@@ -92,6 +92,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import math
 import threading
 import time
 from typing import Any, Callable, Optional
@@ -214,9 +215,10 @@ class HTTPWorkClient:
         # ROADMAP Queue 1 item 6)
         self.devices = 1
         # the fleet snapshot rides at most one RPC per interval (<= 0:
-        # never)
+        # never); the first RPC always carries one, however recently the
+        # host's monotonic clock started
         self._telemetry_interval = constants.FLEET_SNAPSHOT_SECONDS
-        self._telemetry_last = 0.0
+        self._telemetry_last = -math.inf
         # heartbeats run on one thread (the pipeline's I/O stage)
         self._hb_failures = 0
         self._hb_suppressed_until = 0.0

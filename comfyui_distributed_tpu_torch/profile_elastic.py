@@ -3,6 +3,7 @@
     python -m comfyui_distributed_tpu_torch.profile_elastic [--runs N]
     python -m comfyui_distributed_tpu_torch.profile_elastic --profiling-ab [--runs N]
     python -m comfyui_distributed_tpu_torch.profile_elastic --grants-ab [--runs N]
+    python -m comfyui_distributed_tpu_torch.profile_elastic --flight-ab [--runs N]
 
 Queues workflows/distributed-upscale.json (SDXL, seeded random weights,
 a seeded 512x512 input.png, four 576-px padded tiles) on a master
@@ -50,6 +51,13 @@ from 1, taken in turns (`PlacementPolicy.base_batch` is read at every
 pull). Tile noise is seeded by the global tile index, so the two must
 give the same output.
 
+`--flight-ab` measures what the flight recorder's bus tap costs
+instead (telemetry/flight.py; every server installs it unless
+CDT_FLIGHT=0), in both elastic modes: in-process with the recorder's
+tap on the shared bus and lifted, and subprocess with w2 (CDT_FLIGHT=1)
+and w3 (CDT_FLIGHT=0), the master's tap lifted to match, all four in
+turns.
+
 `--platform cpu` with `--model tiny-unet --image-px 64 --tile 64
 --padding 16 --steps 1` rehearses it without a card.
 """
@@ -88,7 +96,12 @@ PROFILING_MODES = {"ledger on": "w2", "ledger off (CDT_PROFILING=0)": "w3"}
 # --grants-ab: the subprocess mode under two base grant sizes
 GRANT_MODES = {f"base grant {constants.SCHED_BASE_PULL_BATCH} (default)": "w2",
                "base grant 1 (CDT_SCHED_BASE_PULL_BATCH=1)": "w2"}
-# the worker processes, and their CDT_PROFILING under --profiling-ab
+# --flight-ab: both elastic modes with the recorder's tap on and lifted
+FLIGHT_MODES = {"in-process, recorder on": "w1", "in-process, recorder off": "w1",
+                "subprocess, recorder on": "w2", "subprocess, CDT_FLIGHT=0": "w3"}
+FLIGHT_OFF = ("in-process, recorder off", "subprocess, CDT_FLIGHT=0")
+# the worker processes, and the A/B's variable (CDT_PROFILING under
+# --profiling-ab, CDT_FLIGHT under --flight-ab) each runs with
 WORKER_PROCESSES = {"w2": "1", "w3": "0"}
 HOST_STAGES = ("readback", "encode", "decode", "submit")
 _SAMPLE_RE = re.compile(r'^(cdt_tile_stage_seconds_sum|cdt_device_execute_seconds_sum)'
@@ -256,9 +269,11 @@ def main(argv: list[str] | None = None) -> int:
                     help="the subprocess mode with the transfer ledger on and off, in turns")
     ab.add_argument("--grants-ab", action="store_true",
                     help="the subprocess mode with base grants of 2 and 1 tiles, in turns")
+    ab.add_argument("--flight-ab", action="store_true",
+                    help="both elastic modes with the flight recorder on and off, in turns")
     args = parser.parse_args(argv)
     modes = (PROFILING_MODES if args.profiling_ab else GRANT_MODES if args.grants_ab
-             else MODES)
+             else FLIGHT_MODES if args.flight_ab else MODES)
     profiling = constants.PROFILING_ENABLED
     try:
         return _profile(args, modes)
@@ -296,13 +311,13 @@ def _profile(args, modes: dict) -> int:
             "settings": {"input_dir": in_dir, "output_dir": os.path.join(tmp, "output")},
         }, config_path)
         procs: dict[str, tuple[subprocess.Popen, str]] = {}
-        for wid, profiling in WORKER_PROCESSES.items():
+        for wid, value in WORKER_PROCESSES.items():
             if wid not in modes.values():
                 continue
             log_path = os.path.join(tmp, f"{wid}.log")
             env = {**os.environ, "PYTHONPATH": REPO}
-            if args.profiling_ab:
-                env["CDT_PROFILING"] = profiling
+            if args.profiling_ab or args.flight_ab:
+                env["CDT_PROFILING" if args.profiling_ab else "CDT_FLIGHT"] = value
             with open(log_path, "wb") as log:
                 procs[wid] = (subprocess.Popen(
                     [sys.executable, "-m", "comfyui_distributed_tpu_torch", "--port",
@@ -337,6 +352,12 @@ def _profile(args, modes: dict) -> int:
                 if args.grants_ab:
                     master.scheduler.placement.base_batch = (
                         constants.SCHED_BASE_PULL_BATCH if name == names[0] else 1)
+                if args.flight_ab:
+                    # w1 shares the master's bus, so one tap serves both
+                    if name in FLIGHT_OFF:
+                        master.flight.uninstall()
+                    else:
+                        master.flight.install()
                 worker_base = f"http://127.0.0.1:{ports[worker]}" if worker else None
                 # a worker process keeps its stages in its own registry; w1
                 # shares the master's
@@ -380,10 +401,6 @@ def _profile(args, modes: dict) -> int:
                   f"(tolerance {TOLERANCE})")
             if diff > TOLERANCE:
                 raise RuntimeError("the two elastic modes disagree")
-            for name, worker in modes.items():
-                if worker and not worker_tiles[name]:
-                    raise RuntimeError(f"{worker} completed no tile in the {name} runs: they "
-                                       "measured the master alone")
             for name in names:
                 median = statistics.median(walls[name])
                 # the walls' quartiles, as tiles/s (the slow quartile first)
@@ -393,6 +410,11 @@ def _profile(args, modes: dict) -> int:
                       f"{n_tiles / median:.4f} tiles/s (quartiles "
                       f"{n_tiles / quartiles[2]:.4f}-{n_tiles / quartiles[0]:.4f}; walls "
                       f"{', '.join(f'{w:.3f}' for w in walls[name])})")
+            # after the summaries, so that a refused A/B still shows its runs
+            for name, worker in modes.items():
+                if worker and not worker_tiles[name]:
+                    raise RuntimeError(f"{worker} completed no tile in the {name} runs: they "
+                                       "measured the master alone")
         finally:
             async def teardown():
                 await master.stop()

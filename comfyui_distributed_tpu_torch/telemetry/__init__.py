@@ -24,11 +24,14 @@ original it holds):
   sweep;
 - `timeseries`, `slo`, `fleet`: the master's fleet plane (bounded
   series, burn-rate SLO alerts, worker snapshots and rollups, the
-  monitor thread).
+  monitor thread);
+- `flight`, `incidents`: the incident plane (the always-on flight
+  recorder on the bus, the master's incident bundles), and
+  `profiling.ProfilerCapture`, the on-demand torch.profiler capture.
 
-Not ported yet, each with its ROADMAP.md item (Queue 1 step 7): the
-flight recorder and incidents, and the profiler capture. All clocks are
-injectable so tests run deterministically on the CPU.
+Not ported yet: the durability journal's families and status (ROADMAP.md,
+Queue 1 step 7f). All clocks are injectable so tests run
+deterministically on the CPU.
 """
 
 from __future__ import annotations
@@ -52,12 +55,25 @@ from .tracing import (
     set_tracer,
 )
 from .events import EventBus, get_event_bus, reset_event_bus
-from .profiling import TransferLedger, get_transfer_ledger, ledger_if_enabled
+from .profiling import (
+    ProfilerCapture,
+    TransferLedger,
+    get_profiler_capture,
+    get_transfer_ledger,
+    ledger_if_enabled,
+)
 from .usage import UsageAggregator, UsageMeter, get_usage_meter
 from .timeseries import SeriesStore
 from .slo import SLOEngine, SLOSpec
 from .fleet import FleetMonitor, FleetRegistry, local_snapshot
 from .watchdog import Watchdog
+from .flight import (
+    FlightRecorder,
+    get_flight_recorder,
+    peek_flight_recorder,
+    reset_flight_recorder,
+)
+from .incidents import IncidentManager
 
 __all__ = [
     "BREAKER_STATE_CODES",
@@ -65,9 +81,12 @@ __all__ = [
     "EventBus",
     "FleetMonitor",
     "FleetRegistry",
+    "FlightRecorder",
     "Gauge",
     "Histogram",
+    "IncidentManager",
     "MetricsRegistry",
+    "ProfilerCapture",
     "SLOEngine",
     "SLOSpec",
     "SeriesStore",
@@ -81,13 +100,17 @@ __all__ = [
     "bind_server_collectors",
     "current_trace_id",
     "get_event_bus",
+    "get_flight_recorder",
     "get_metrics_registry",
+    "get_profiler_capture",
     "get_tracer",
     "get_transfer_ledger",
     "get_usage_meter",
     "ledger_if_enabled",
     "local_snapshot",
+    "peek_flight_recorder",
     "reset_event_bus",
+    "reset_flight_recorder",
     "reset_metrics_registry",
     "reset_tracer",
     "set_tracer",

@@ -6,13 +6,13 @@ help texts and label names are the JAX package's, letter for letter, so
 a dashboard built against a JAX master reads a port master unchanged.
 The JAX families the port does not register yet are listed, by the
 ROADMAP step that brings each, in tests/test_torch_telemetry.py
-(STILL_TO_PORT): durability, the mesh, the cross-job tier, the
-incident plane, the profiler capture, and the `cdt_jax_*` compile
-gauges, which have no counterpart here. One
-help text is worded apart from the JAX package's
+(STILL_TO_PORT): durability, the mesh, the cross-job tier and the
+`cdt_jax_*` compile gauges, which have no counterpart here. Two help
+texts are worded apart from the JAX package's
 (`cdt_cache_unsettled_admission_cost`: the JAX text cites the
-package's change history and a runbook); its name, kind and labels are
-the JAX family's.
+package's change history and a runbook; `cdt_profile_captures_total`
+names torch.profiler where the JAX text names jax.profiler); their
+names, kinds and labels are the JAX families'.
 
 Accessors are get-or-create against the CURRENT global registry, so a
 test that resets the registry gets fresh instruments transparently.
@@ -351,6 +351,44 @@ def host_tax_ratio() -> Gauge:
     )
 
 
+def profile_captures_total() -> Counter:
+    return get_metrics_registry().counter(
+        "cdt_profile_captures_total",
+        "On-demand torch.profiler captures by outcome "
+        "(started|stopped|busy|errors|auto_stopped), mirrored by delta "
+        "from the capture manager's counters at scrape time",
+        ("outcome",),
+    )
+
+
+# --- incident plane (telemetry/flight.py, telemetry/incidents.py) ---------
+
+def incidents_total() -> Counter:
+    return get_metrics_registry().counter(
+        "cdt_incidents_total",
+        "Incident debug bundles captured, by trigger "
+        "(alert_fired|tile_quarantined|job_deadline|failover|manual)",
+        ("trigger",),
+    )
+
+
+def incident_capture_seconds() -> Histogram:
+    return get_metrics_registry().histogram(
+        "cdt_incident_capture_seconds",
+        "Wall time of one incident-bundle capture (gather + serialize "
+        "+ atomic write + prune) on the single-flight writer thread",
+    )
+
+
+def flight_dropped_total() -> Counter:
+    return get_metrics_registry().counter(
+        "cdt_flight_dropped_total",
+        "Flight-recorder ring evictions by stream (events|spans) — "
+        "history lost to the bounded window before any capture",
+        ("stream",),
+    )
+
+
 # --- USDU tile pipeline ---------------------------------------------------
 
 def tile_stage_seconds() -> Histogram:
@@ -674,7 +712,8 @@ def bind_server_collectors(server) -> Callable[[], None]:
     from ..cache.store import get_tile_cache
     from ..resilience.health import get_health_registry
     from ..utils import constants
-    from .profiling import peek_transfer_ledger
+    from .flight import peek_flight_recorder
+    from .profiling import get_profiler_capture, peek_transfer_ledger
     from .runtime import ensure_runtime_collectors
 
     # host RSS and the card's memory ride the same scrape;
@@ -714,6 +753,17 @@ def bind_server_collectors(server) -> Callable[[], None]:
             usage_cached_tiles_total()
     if getattr(server, "scheduler", None) is not None:
         cache_unsettled_admission_cost()
+    # the incident plane's instruments from the first scrape: the flight
+    # drops wherever a recorder exists, the capture instruments on a
+    # master with an incident manager, the profiler captures wherever
+    # CDT_PROFILE_DIR turns them on
+    if peek_flight_recorder() is not None:
+        flight_dropped_total()
+    if getattr(server, "incidents", None) is not None:
+        incidents_total()
+        incident_capture_seconds()
+    if get_profiler_capture() is not None:
+        profile_captures_total()
 
     label = f"{'worker' if server.is_worker else 'master'}:{server.port}"
     # worker ids this server's placement policy last reported: stale
@@ -836,6 +886,28 @@ def bind_server_collectors(server) -> Callable[[], None]:
                 lsnap["host_tax"],
                 role="worker" if server.is_worker else "master",
             )
+        # The flight recorder's drops and the profiler capture's outcomes
+        # are plain ints on their owners (the recorder's tap must not
+        # touch a metric: it runs inside publish); the counters mirror
+        # them by DELTA against the owners' own marks, shared by
+        # co-hosted servers' collectors so each counts once.
+        recorder = peek_flight_recorder()
+        if recorder is not None:
+            drop_counter = flight_dropped_total()
+            for stream, dropped in recorder.drop_totals().items():
+                delta = dropped - recorder.scrape_mirrored.get(stream, 0)
+                if delta > 0:
+                    drop_counter.inc(delta, stream=stream)
+                    recorder.scrape_mirrored[stream] = dropped
+        capture = get_profiler_capture()
+        if capture is not None:
+            capture_counter = profile_captures_total()
+            for outcome in sorted(capture.counters):
+                value = capture.counters[outcome]
+                delta = value - capture.scrape_mirrored.get(outcome, 0)
+                if delta > 0:
+                    capture_counter.inc(delta, outcome=outcome)
+                    capture.scrape_mirrored[outcome] = value
         # Event-bus consumers (a /distributed/events client is a queue):
         # depth and cumulative drops per subscriber, cleared then refilled
         # so a departed subscriber's series drops instead of freezing.

@@ -269,3 +269,51 @@ FLEET_SNAPSHOT_SECONDS = _env_float("CDT_FLEET_SNAPSHOT_SECONDS", 10.0)
 FLEET_TTL_SECONDS = _env_float("CDT_FLEET_TTL", 120.0)
 # SLO latency target: the tile pull-to-submit p95.
 SLO_TILE_P95_SECONDS = _env_float("CDT_SLO_TILE_P95", 5.0)
+
+# --- profiler capture (telemetry/profiling.py::ProfilerCapture) -------------
+# A torch.profiler capture asked for more seconds than this is clamped;
+# an unstopped capture auto-stops at its duration.
+PROFILE_MAX_SECONDS = _env_float("CDT_PROFILE_MAX_SECONDS", 30.0)
+# Retention under CDT_PROFILE_DIR: the oldest trace directories go past
+# this many or this many MB (never the newest capture).
+PROFILE_MAX_CAPTURES = _env_int("CDT_PROFILE_MAX", 8)
+PROFILE_MAX_MB = _env_float("CDT_PROFILE_MAX_MB", 512.0)
+# 1 lets every incident bundle take a short capture of its own on the
+# incident writer thread, lasting PROFILE_AUTO_SECONDS.
+PROFILE_AUTO_ENABLED = _env_int("CDT_PROFILE_AUTO", 0) == 1
+PROFILE_AUTO_SECONDS = _env_float("CDT_PROFILE_AUTO_SECONDS", 2.0)
+
+
+def profile_dir_from_env() -> str | None:
+    """CDT_PROFILE_DIR, read at each call; unset or empty turns the
+    profiler capture and its routes off."""
+    raw = os.environ.get("CDT_PROFILE_DIR", "").strip()
+    return raw or None
+
+
+# --- incident plane (telemetry/flight.py, telemetry/incidents.py) ----------
+# The flight recorder: an event-bus tap that keeps the last events and
+# span closes in bounded drop-oldest rings, so a bundle captured after a
+# trigger holds what came before it. 0 turns it off.
+FLIGHT_ENABLED = os.environ.get("CDT_FLIGHT", "1") != "0"
+FLIGHT_EVENT_CAPACITY = _env_int("CDT_FLIGHT_EVENTS", 2048)
+FLIGHT_SPAN_CAPACITY = _env_int("CDT_FLIGHT_SPANS", 2048)
+# Incident bundles, written into CDT_INCIDENT_DIR (unset: no incident
+# manager) on alert_fired, a quarantined tile, a deadline cancel, a
+# failover or a manual POST. A trigger key re-firing inside DEBOUNCE
+# seconds captures nothing; any two automatic captures are at least
+# MIN_INTERVAL seconds apart.
+INCIDENT_DEBOUNCE_SECONDS = _env_float("CDT_INCIDENT_DEBOUNCE", 300.0)
+INCIDENT_MIN_INTERVAL_SECONDS = _env_float("CDT_INCIDENT_MIN_INTERVAL", 10.0)
+# Retention: the oldest bundles go past this many or this many MB.
+INCIDENT_MAX_BUNDLES = _env_int("CDT_INCIDENT_MAX", 32)
+INCIDENT_MAX_MB = _env_float("CDT_INCIDENT_MAX_MB", 64.0)
+# Seconds of fleet and usage history a bundle takes around its trigger.
+INCIDENT_WINDOW_SECONDS = _env_float("CDT_INCIDENT_WINDOW", 600.0)
+
+
+def incident_dir_from_env() -> str | None:
+    """CDT_INCIDENT_DIR, read at each call; unset or empty turns the
+    incident manager off."""
+    raw = os.environ.get("CDT_INCIDENT_DIR", "").strip()
+    return raw or None

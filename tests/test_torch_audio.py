@@ -3,7 +3,9 @@
 - the float32 base64 envelope (tests/test_codecs.py's round trip, bad
   envelopes and combine) and the size cap, with equal envelopes;
 - LoadAudio (a PCM WAV of 8, 16 and 32 bits, and a .npz) and SaveAudio
-  against the JAX nodes;
+  against the JAX nodes; 8-bit and 24-bit WAVs read at their true levels
+  where the JAX node reads 8-bit samples as signed and refuses 24-bit
+  ones (a recorded divergence);
 - AudioBatchDivider's parts against the JAX node's;
 - /distributed/job_complete decoding an envelope's audio, and answering
   400 on one that does not decode, as the JAX route does;
@@ -113,7 +115,8 @@ def test_combine_concatenates_the_samples_axis_as_the_jax_combine():
 
 
 def _write_wav(path, width, channels=2, frames=300, seed=4):
-    dtype = {1: np.int8, 2: np.int16, 4: np.int32}[width]
+    # 8-bit PCM WAV samples are unsigned around 128
+    dtype = {1: np.uint8, 2: np.int16, 4: np.int32}[width]
     info = np.iinfo(dtype)
     pcm = np.random.default_rng(seed).integers(info.min, info.max, (frames, channels),
                                                dtype=dtype, endpoint=True)
@@ -133,7 +136,54 @@ def test_load_audio_reads_a_wav_as_the_jax_node(tmp_path, width):
     assert port["sample_rate"] == jax_["sample_rate"] == 22050
     assert isinstance(port["waveform"], torch.Tensor) and port["waveform"].device.type == "cpu"
     assert port["waveform"].shape == (1, 2, 300)
+    if width == 1:
+        # a recorded divergence: the JAX node reads 8-bit samples as
+        # signed int8, the port as unsigned around 128
+        with wave.open(path, "rb") as wf:
+            raw = np.frombuffer(wf.readframes(wf.getnframes()), np.uint8)
+        np.testing.assert_array_equal(port["waveform"].numpy()[0].T.reshape(-1),
+                                      (raw.astype(np.float32) - 128) / 128)
+        np.testing.assert_array_equal(jax_["waveform"][0].T.reshape(-1),
+                                      raw.view(np.int8).astype(np.float32) / 127)
+        return
     np.testing.assert_array_equal(port["waveform"].numpy(), jax_["waveform"])
+
+
+def _write_pcm(path, width, pcm_bytes, channels=1):
+    with wave.open(path, "wb") as wf:
+        wf.setnchannels(channels)
+        wf.setsampwidth(width)
+        wf.setframerate(8000)
+        wf.writeframes(pcm_bytes)
+
+
+def test_8_and_24_bit_wavs_load_at_their_levels_where_the_jax_node_misreads_them(tmp_path):
+    # 8-bit: silence is 0x80; the extremes and a quarter level (exact in f32)
+    levels8 = np.array([128, 128, 0, 255, 160, 96], np.uint8)
+    path8 = str(tmp_path / "u8.wav")
+    _write_pcm(path8, 1, levels8.tobytes())
+    (port8,) = nodes_audio.LoadAudio().load(path8, CPU)
+    (jax8,) = jnodes_audio.LoadAudio().load(path8)
+    np.testing.assert_array_equal(port8["waveform"].numpy()[0, 0],
+                                  [0.0, 0.0, -1.0, 127 / 128, 0.25, -0.25])
+    # the JAX node reads them as signed: silence at -128 / 127
+    np.testing.assert_array_equal(jax8["waveform"][0, 0, :2], np.float32(-128) / np.float32(127))
+    # 24-bit: little-endian three-byte signed samples over 2^23, seeded
+    rng = np.random.default_rng(24)
+    ints = np.concatenate([[0, -(1 << 23), (1 << 23) - 1, 1 << 21, -(1 << 21)],
+                           rng.integers(-(1 << 23), 1 << 23, 95)]).astype(np.int32)
+    raw24 = np.stack([(ints >> s) & 0xFF for s in (0, 8, 16)], axis=1).astype(np.uint8)
+    path24 = str(tmp_path / "s24.wav")
+    _write_pcm(path24, 3, raw24.tobytes(), channels=2)
+    (port24,) = nodes_audio.LoadAudio().load(path24, CPU)
+    assert port24["waveform"].shape == (1, 2, 50) and port24["sample_rate"] == 8000
+    # every 24-bit level is exact in f32: compared exactly
+    np.testing.assert_array_equal(port24["waveform"].numpy()[0].T.reshape(-1),
+                                  ints.astype(np.float32) / (1 << 23))
+    np.testing.assert_array_equal(port24["waveform"].numpy()[0, :, :3].T.reshape(-1)[:5],
+                                  [0.0, -1.0, 1 - 2.0**-23, 0.25, -0.25])
+    with pytest.raises(KeyError):
+        jnodes_audio.LoadAudio().load(path24)
 
 
 def test_save_then_load_audio_as_the_jax_nodes(tmp_path):

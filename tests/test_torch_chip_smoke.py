@@ -350,10 +350,12 @@ def test_the_fleet_check_fails_without_the_worker_snapshot(monkeypatch, one_torc
     workflow = _tiny_workflow()
     bundle = tpl.load_pipeline("tiny-unet", seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="does not list w1"):
-        # an interval longer than the run: no snapshot is due
+        # the piggyback off (an interval <= 0): no snapshot is ever sent
+        # (a long interval no longer does it: the first RPC always
+        # carries one)
         chip_smoke._elastic_phase(torch, bundle, "tiny-unet", workflow,
                                   torch.zeros((1, 64, 64, 3)), None, "cpu", runs=1,
-                                  fleet_interval=1e9)
+                                  fleet_interval=0.0)
 
 
 def test_scraped_samples_parse_and_sum_by_label():
@@ -1378,6 +1380,10 @@ def test_phase_selection_and_the_depth_cuts():
         if name.startswith("flux"):
             assert (cfg.double_depth, cfg.single_depth) == chip_smoke.FLUX_DEPTH_CUT
             assert cfg.hidden_dim == full.hidden_dim and cfg.heads == full.heads
+        elif name in chip_smoke.WAN_DEPTH_CUT:
+            assert cfg.depth == chip_smoke.WAN_DEPTH_CUT[name] < full.depth
+            assert (cfg.hidden_dim, cfg.heads, cfg.ffn_dim, cfg.i2v) == (
+                full.hidden_dim, full.heads, full.ffn_dim, full.i2v)
         elif name in chip_smoke.UNET_CUTS:
             cut = (tuple(cfg.transformer_depth), cfg.num_res_blocks)
             assert cut == ((chip_smoke.SDXL_DEPTH_CUT if name == "sdxl"
@@ -1394,6 +1400,7 @@ def test_phase_selection_and_the_depth_cuts():
         layers_, _ = chip_smoke._sd3_slg_window(slg)
         assert max(layers_) < get_config("sd35-medium").depth  # SLG's blocks survive the cut
     assert get_config("flux-dev").double_depth == 19
+    assert get_config("wan-14b").depth == 40 and "wan-1.3b" not in cuts
 
 
 def _tiny_wan_workflow(tag, px=32, frames=5, steps=2):

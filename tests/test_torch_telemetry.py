@@ -57,10 +57,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The JAX package's metric families the port does not register yet, by
 # the ROADMAP step that brings each.
 STILL_TO_PORT = {
-    "step 7: flight recorder and incidents": {
-        "cdt_incidents_total", "cdt_incident_capture_seconds", "cdt_flight_dropped_total",
-    },
-    "step 7: profiler capture (torch.profiler)": {"cdt_profile_captures_total"},
     "durability and standby masters": {
         "cdt_journal_appends_total", "cdt_journal_fsync_seconds", "cdt_snapshots_total",
         "cdt_snapshot_age_seconds", "cdt_recovery_replayed_records",
@@ -83,13 +79,16 @@ STILL_TO_PORT = {
 
 # The port's families whose help text is worded apart from the JAX
 # package's (the JAX text cites the package's change history and a
-# runbook the port does not carry); name, kind and labels are the JAX
-# family's.
+# runbook the port does not carry; the port's captures are torch.profiler
+# ones); name, kind and labels are the JAX family's.
 REWORDED_HELP = {
     "cdt_cache_unsettled_admission_cost":
         "Cumulative DRR admission cost charged for tiles that later settled free from the "
         "tile cache at grant time — the full-cost-until-settle gap, surfaced so operators "
         "can see how much fair-share weight cached tenants are over-paying",
+    "cdt_profile_captures_total":
+        "On-demand torch.profiler captures by outcome (started|stopped|busy|errors|"
+        "auto_stopped), mirrored by delta from the capture manager's counters at scrape time",
 }
 
 
@@ -667,9 +666,17 @@ def test_cache_routes_and_the_unported_routes(single_masters, monkeypatch):
     assert plane["port"]["fleet?since=x"][0] == plane["port"]["usage?since=inf"][0] == 400
     assert set(plane["port"]["usage"][1]["rollup"]) == set(plane["jax"]["usage"][1]["rollup"])
     base = f"http://127.0.0.1:{port_master.port}/distributed"
-    for path in ("durability", "profile"):
-        assert _get(f"{base}/{path}")[0] == 404, path
-    assert _post(f"{base}/profile/start", {})[0] == 404
+    assert _get(f"{base}/durability")[0] == 404
+    # the profiler-capture routes are ported: without CDT_PROFILE_DIR they
+    # answer the JAX routes' disabled statuses and keys
+    profile = {}
+    for side, server in (("jax", jax_master), ("port", port_master)):
+        side_base = f"http://127.0.0.1:{server.port}/distributed"
+        status, _, body = _get(f"{side_base}/profile")
+        profile[side] = ((status, set(json.loads(body))),
+                         _post(f"{side_base}/profile/start", {}))
+    assert profile["port"] == profile["jax"]
+    assert profile["port"][0][0] == 200 and profile["port"][1][0] == 400
     # the event stream is a WebSocket: a plain GET is refused as the JAX
     # route refuses it
     events = {side: _get(f"http://127.0.0.1:{server.port}/distributed/events")[0]
@@ -971,3 +978,36 @@ def test_loopback_port_usage_conserves_and_matches_its_dispatch_spans(loopback_r
     assert snap["host_ns"]["gather"] > 0 and snap["host_ns"]["encode"] > 0
     assert snap["host_ns"]["ship"] > 0
     assert run["samples"]['cdt_transfer_bytes_total{direction="d2h"}'] == 4 * 96 * 96 * 3 * 4
+
+
+# --------------------------------------------------------------------------
+# the worker's first fleet snapshot (a recorded divergence)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("uptime", [500.0, 5000.0])
+def test_the_first_rpc_carries_a_snapshot_however_recently_the_clock_started(monkeypatch,
+                                                                            uptime):
+    """The JAX client starts its last-snapshot time at 0, so while the
+    host's monotonic clock reads under the interval its first RPC carries
+    no snapshot; the port's first RPC always carries one. Past the
+    interval both do; the second RPC inside the interval carries none in
+    either package."""
+    import types
+
+    from comfyui_distributed_tpu.graph import usdu_elastic as jelastic
+    from comfyui_distributed_tpu_torch.graph import usdu_elastic as telastic
+
+    clock = types.SimpleNamespace(monotonic=lambda: uptime)
+    first = {}
+    for side, module in (("jax", jelastic), ("port", telastic)):
+        monkeypatch.setattr(module, "time", clock)
+        client = module.HTTPWorkClient("http://127.0.0.1:1", "job", "w1")
+        client._telemetry_interval = 1000.0
+        first[side] = client._maybe_telemetry()
+        assert client._maybe_telemetry() is None  # within the interval
+    assert isinstance(first["port"], dict) and first["port"]["v"] == 3
+    if uptime < 1000.0:
+        assert first["jax"] is None
+    else:
+        assert isinstance(first["jax"], dict) and set(first["jax"]) == set(first["port"])
