@@ -151,6 +151,29 @@ the run's time limit.
              with the recorder and no incident manager ([incident]). The
              taps' host cost: TAP_PUBLISHES publishes ([flight]). The
              host µs a launch, before and after the capture ([profile]).
+             Then the [faults] run: one more run under
+             ELASTIC_FAULT_PLAN, its injector installed with
+             set_fault_injector (w1's transport) and on the master's
+             store for the run only (`_fault_plan`): a connection error
+             on w1's first flush, a 500 on its second pull, an injected
+             fault raised in the store at the flush's retry and three
+             of w1's heartbeats dropped. Held to every run's checks
+             (its rpc.submit_tiles span in error counted apart) and to
+             `_faults_check`'s: every rule fired as scheduled, w1 with a
+             tile, the store's fault answered 500 (httpd's answer to an
+             uncaught exception) and retried, w1's
+             cdt_worker_master_errors_total and cdt_retries_total up by
+             exactly the faults, no injector left installed; prints its
+             seconds and max |diff| against the last fault-free run.
+   chaos   - the port's chaos harness (resilience/chaos.py) with its
+             tensors on the card (`_chaos_phase`): run_chaos_usdu
+             fault-free twice and under CHAOS_SCENARIOS (crash after
+             pull, both workers crash, dropped heartbeats, the
+             watchdog's stall speculation), each faulted canvas
+             bit-equal to the fault-free one and each rule fired as
+             scheduled; run_chaos_poison under "degrade": three crashes,
+             the tile quarantined, every breaker pardoned, the canvas
+             bit-equal outside the tile. One [chaos] line a scenario.
    adapters - on SDXL at the cut depth, served as the elastic phase
              serves it (a master and w1 in this process; its base output
              the local tiles' weighted average) (`_adapters_phase`): a
@@ -523,6 +546,32 @@ VAE_1024_TOKENS = 136 * 136
 RERUN_TOLERANCE = 0.05
 ELASTIC_RUNS = 2
 ELASTIC_RUN_TIMEOUT_S = 300.0
+# the elastic phase's [faults] run (`_elastic_phase(faults=True)`): one
+# more run of the upscale under this plan, installed process-wide (w1's
+# transport in this process) and on the master's store. Each rule's
+# occurrences lie within what every run makes: w1's first flush (its
+# retry is the store's first submit of w1, which raises), its second pull,
+# its first three beats (a pull, a heartbeat and a submit a tile)
+ELASTIC_FAULT_PLAN = ("seed=22;connect_error@http:POST:/distributed/submit_tiles#1;"
+                      "http500@http:POST:/distributed/request_image#2;"
+                      "connect_error@store:submit:w1#1;drop@store:heartbeat:w1#1-3")
+# the chaos phase (`_chaos_phase`): the port's harness on the card at the
+# JAX chaos tests' sizes and plans; the master's first pulls are slowed so
+# that the workers win tiles. (name, plan, keywords, the workers that
+# must crash); each faulted canvas bit-equal to the fault-free one
+CHAOS_SEED = 11
+CHAOS_SLOW_MASTER = "latency(0.15)@store:pull:master#1-3"
+CHAOS_SCENARIOS = (
+    ("crash after pull", f"seed=11;{CHAOS_SLOW_MASTER};crash@chaos:w1:pulled#1", {}, ["w1"]),
+    ("both workers crash",
+     f"seed=11;{CHAOS_SLOW_MASTER};crash@chaos:w1:pulled#1;crash@chaos:w2:pulled#1", {},
+     ["w1", "w2"]),
+    ("dropped heartbeats",
+     f"seed=11;{CHAOS_SLOW_MASTER};drop@store:heartbeat:w1#*;latency(0.8)@chaos:w1:submit#1",
+     {"worker_timeout": 0.4}, []),
+    ("stall speculation", f"seed=11;{CHAOS_SLOW_MASTER};crash@chaos:w1:pulled#1",
+     {"worker_timeout": 10.0, "watchdog": {}}, ["w1"]),
+)
 # the elastic phase's profiled run (`_Incident`): a torch.profiler capture
 # asked for PROFILE_DURATION_S, stopped after PROFILE_WINDOW_S of the run;
 # the bus's tap cost is timed over TAP_PUBLISHES publishes, and the host
@@ -764,7 +813,7 @@ UNET_RES_BLOCKS_CUT = 1
 UNET_CUTS = ("sdxl", "sd15", "sd21")
 CUT_PHASES = ("adapters", "ckpt", "samplers", "usdu_full", "guidance", "custom", "dynamic")
 # every phase, in run order; `--phases` picks a subset
-PHASES = ("kernel", "main", "elastic", "adapters", "txt2img", "sd", "ckpt", "procs", "samplers",
+PHASES = ("kernel", "main", "elastic", "chaos", "adapters", "txt2img", "sd", "ckpt", "procs", "samplers",
           "usdu_full", "guidance", "custom", "nodes", "inpaint_model", "dynamic", "flux",
           "sd3", "wan")
 
@@ -1272,6 +1321,116 @@ def _total(samples: list, name: str, **labels) -> float:
                if sample == name and all(got.get(k) == str(v) for k, v in labels.items()))
 
 
+def _fired_as_scheduled(label: str, plan: str, fired: list, matches: list) -> dict:
+    """Each rule of `plan` held to the actions that fired under it (the
+    first rule of their kind whose pattern matches the op), given the ops
+    it matched (`matches`, FaultInjector.matches): a rule fired at every
+    occurrence of its schedule that was reached (`#*` at every match; none
+    is `#1`), and at least once. Returns {rule: (fires, matches)}; a miss
+    fails the run."""
+    from comfyui_distributed_tpu_torch.resilience.faults import parse_fault_plan
+
+    _, rules = parse_fault_plan(plan)
+    _require(len(matches) == len(rules), f"{label}: {len(matches)} match counts, "
+             f"{len(rules)} rules in {plan!r}")
+    counts = [0] * len(rules)
+    for action in fired:
+        idx = next((i for i, rule in enumerate(rules)
+                    if rule.kind == action.kind and rule.matches(action.op)), None)
+        _require(idx is not None, f"{label}: {action} fired under no rule of {plan!r}")
+        counts[idx] += 1
+    out = {}
+    for idx, (rule, n, seen) in enumerate(zip(rules, counts, matches)):
+        _require(rule.probability is None, f"{label}: {rule} has no schedule to hold")
+        want = seen if rule.all_matches else sum(
+            1 for occurrence in (rule.occurrences or {1}) if occurrence <= seen)
+        out[f"{idx}:{rule.kind}@{rule.pattern}"] = (n, seen)
+        _require(n == want and n >= 1,
+                 f"{label}: {rule.kind}@{rule.pattern} fired {n} times in {seen} matches, "
+                 f"scheduled {want} (and at least once); fired {fired}")
+    return out
+
+
+@contextlib.contextmanager
+def _fault_plan(master, plan: str | None):
+    """With `plan`, its injector for the block: installed process-wide
+    (the transport of w1, which shares this process) and on the master's
+    store; both restored in a finally. Without a plan, nothing."""
+    if plan is None:
+        yield None
+        return
+    from comfyui_distributed_tpu_torch.resilience import faults
+
+    injector = faults.FaultInjector(plan)
+    store = master.job_store
+    previous = store.fault_injector
+    faults.set_fault_injector(injector)
+    store.fault_injector = injector
+    try:
+        yield injector
+    finally:
+        store.fault_injector = previous
+        faults.reset_fault_injector()
+
+
+def _faults_check(torch, label: str, master, base: str, injector, before: list,
+                  spans: list, by: dict, out, clean_out, seconds: float) -> dict:
+    """The [faults] run's own checks, after every elastic run's: each rule
+    of ELASTIC_FAULT_PLAN fired as scheduled; no injector left installed,
+    the master's store back on its own; w1 completed a tile; the route's
+    answer to a FaultInjected raised in the store: httpd answers the
+    uncaught exception 500 (the rpc.submit_tiles span closes in error),
+    which w1's http_policy retries like its transport's connection error,
+    so w1's cdt_worker_master_errors_total and cdt_retries_total rose by
+    exactly the faults that failed its submits and pulls."""
+    from comfyui_distributed_tpu_torch.resilience import faults
+
+    fires = _fired_as_scheduled(label, injector.plan, injector.fired, injector.matches())
+    _require(faults.get_fault_injector() is None,
+             "an injector is still installed after the [faults] run")
+    _require(master.job_store.fault_injector is None,
+             "the master's store still consults the [faults] run's injector")
+    after = _scrape(base)[1]
+
+    def delta(name, **labels):
+        return _total(after, name, **labels) - _total(before, name, **labels)
+
+    failing = [a for a in injector.fired if a.kind not in ("latency", "drop")]
+    expected = {
+        "submit": sum(1 for a in failing if a.op in ("http:POST:/distributed/submit_tiles",
+                                                     "store:submit:w1")),
+        "pull": sum(1 for a in failing if a.op in ("http:POST:/distributed/request_image",
+                                                   "store:pull:w1")),
+    }
+    errors = {op: delta("cdt_worker_master_errors_total", op=op) for op in expected}
+    retries = {op: delta("cdt_retries_total", op=rpc) for op, rpc in
+               (("submit", "submit_tiles"), ("pull", "request_tile"))}
+    raised = [s for s in spans if s["name"] == "rpc.submit_tiles"
+              and s["attrs"].get("worker_id") == "w1" and s.get("status") == "error"]
+    diff = None if clean_out is None else float(
+        (out.float() - clean_out.float().to(out.device)).abs().max())
+    print(f"{label}: plan {injector.plan!r}; fired by rule {fires} ({len(injector.fired)} "
+          f"faults: {[(a.kind, a.op) for a in injector.fired]}); {seconds:.2f} s; tiles "
+          f"master {by.get('master', 0)}, w1 {by.get('w1', 0)}; a FaultInjected raised in "
+          f"the store answered 500: {len(raised)} rpc.submit_tiles span(s) in error "
+          f"{[s['attrs'].get('error') for s in raised]}, w1's errors by op "
+          f"{ {op: int(v) for op, v in errors.items()} } and retries "
+          f"{ {op: int(v) for op, v in retries.items()} } (expected {expected}); injector "
+          f"after the run: {faults.get_fault_injector()}; max |diff| vs the phase's fault-free "
+          f"elastic output {'n/a (no fault-free run)' if diff is None else f'{diff:.3g}'}")
+    _require(by.get("w1", 0) >= 1, f"w1 completed no tile in the [faults] run: {by}")
+    _require(len(raised) == sum(1 for a in failing if a.op == "store:submit:w1")
+             and all(str(s["attrs"].get("error", "")).startswith("FaultInjected")
+                     for s in raised),
+             f"rpc.submit_tiles spans in error {[s['attrs'] for s in raised]}, not the store's "
+             f"injected faults")
+    _require(errors == expected and retries == expected,
+             f"w1's errors {errors} and retries {retries}, not the faults {expected}: a fault "
+             f"was not answered 5xx, or not retried")
+    return {"seconds": seconds, "fires": fires, "errors": errors, "retries": retries,
+            "max_abs_diff_vs_fault_free": diff}
+
+
 def _spans_of(tree: list) -> list:
     """The spans of a /distributed/trace answer's tree, flat."""
     out = []
@@ -1340,9 +1499,13 @@ class _Telemetry:
         _require(status == 200, f"{base}/distributed/trace/{trace_id} answered {status}")
         return answer["tree"], _spans_of(answer["tree"])
 
-    def check(self, run: int, queued: dict, record: dict, tile_bytes: int) -> dict:
+    def check(self, run: int, queued: dict, record: dict, tile_bytes: int,
+              raised_submits: int = 0) -> dict:
         """The [telemetry] checks of one run; returns the stage seconds by
-        role and the host-tax ratios."""
+        role and the host-tax ratios. `raised_submits`: w1's submits the
+        master's store failed with an injected fault (the [faults] run),
+        whose rpc.submit_tiles spans close in error and which w1 sends
+        again within one observed submit."""
         from comfyui_distributed_tpu_torch.telemetry import get_transfer_ledger, get_usage_meter
 
         torch, label = self.torch, self.label
@@ -1390,9 +1553,11 @@ class _Telemetry:
         _require(len(dispatches) == 1 and pulls and submits,
                  f"trace {trace_id}: {len(dispatches)} dispatch spans to w1, {len(pulls)} "
                  f"rpc.request_image and {len(submits)} rpc.submit_tiles spans from w1")
-        _require(stages["worker"]["submit"] == len(submits),
+        failed = [s for s in submits if s.get("status") == "error"]
+        _require(stages["worker"]["submit"] == len(submits) - len(failed)
+                 and len(failed) == raised_submits,
                  f"w1 observed {stages['worker']['submit']} submits, the master served "
-                 f"{len(submits)}")
+                 f"{len(submits)}, {len(failed)} of them failed ({raised_submits} injected)")
         worker_spans, worker_tree = spans, tree
         if self.w1_base:
             worker_tree, worker_spans = self._trace(self.w1_base, trace_id)
@@ -2085,7 +2250,8 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                    expected_launches: int | None = None, expected_by_instance: dict | None = None,
                    local_tiles_per_s: float | None = None, runs: int = ELASTIC_RUNS,
                    tag: str = "elastic", after=None, drain: bool = False,
-                   fleet_interval: float | None = None, incident: bool = False) -> dict:
+                   fleet_interval: float | None = None, incident: bool = False,
+                   faults: bool = False) -> dict:
     """Run the workflow over HTTP on a master and a worker server in this
     process (see the module docstring) and check every run; prints the
     [tag] lines and returns the last run's attention launches. With
@@ -2106,7 +2272,10 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
     with CDT_INCIDENT_DIR and CDT_PROFILE_DIR, every run prints its
     [flight] line, the second run (the only one when `runs` is 1) is
     profiled, and after it the incident plane is held on [profile],
-    [incident] and [flight] lines (`_Incident`)."""
+    [incident] and [flight] lines (`_Incident`). With `faults` one more
+    run follows the others: the [faults] run, under ELASTIC_FAULT_PLAN
+    (`_fault_plan`), held to every run's checks and to `_faults_check`'s
+    on a [faults] line; its result is the returned dict's "faults"."""
     from comfyui_distributed_tpu_torch.ops import attention as attn
     from comfyui_distributed_tpu_torch.utils import image as img_utils
 
@@ -2153,7 +2322,9 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                 _require(not incident or master.incidents is not None,
                          "the master has no incident manager with CDT_INCIDENT_DIR set")
                 tile_bytes = _tile_output_bytes(workflow, image)
-                for run in range(1, runs + 1):
+                clean_out = None  # the last fault-free run's output
+                for run in range(1, runs + 1 + int(faults)):
+                    faulted = run > runs
                     if drain and run == runs:
                         result["drain"] = _drain_check(f"[sched] {tag}", master, base, workflow)
                     telemetry.start()
@@ -2164,15 +2335,18 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                     if cuda:
                         torch.cuda.synchronize()
                         torch.cuda.reset_peak_memory_stats()
+                    faults_before = _scrape(base)[1] if faulted else None
                     attn.reset_launch_counts()
                     started = time.perf_counter()
-                    if run == profiled_run:
-                        plane.launch_before = plane.launch_us()
-                        queued, history, _ = plane.profiled_queue(attn, worker_port, workflow)
-                    else:
-                        queued, history, _ = _queue(base, worker_port, workflow)
-                    if cuda:
-                        torch.cuda.synchronize()
+                    with _fault_plan(master, ELASTIC_FAULT_PLAN if faulted else None) as injector:
+                        if run == profiled_run:
+                            plane.launch_before = plane.launch_us()
+                            queued, history, _ = plane.profiled_queue(attn, worker_port,
+                                                                      workflow)
+                        else:
+                            queued, history, _ = _queue(base, worker_port, workflow)
+                        if cuda:
+                            torch.cuda.synchronize()
                     seconds = time.perf_counter() - started
                     launches, by_instance = _launch_counts(attn)
                     peak = torch.cuda.max_memory_allocated() if cuda else 0
@@ -2186,6 +2360,8 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                     rate = f"{n_tiles / seconds:.4f} tiles/s"
                     if run == profiled_run:
                         rate += " as profiled (not comparable)"
+                    elif faulted:
+                        rate += " under ELASTIC_FAULT_PLAN (not comparable)"
                     elif local_tiles_per_s is not None:
                         rate += f" (phase 4: {local_tiles_per_s:.4f})"
                     print(f"{label} run {run}: {seconds:.2f} s, {rate}; tiles completed: master "
@@ -2194,7 +2370,10 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                           f" flash_attention launches {launches}, by instance {by_instance}; "
                           f"peak {peak / 2**30:.2f} GiB; worker tile bytes received "
                           f"{record['received_bytes']}")
-                    read = telemetry.check(run, queued, record, tile_bytes)
+                    raised_submits = 0 if injector is None else sum(
+                        1 for a in injector.fired
+                        if a.op == "store:submit:w1" and a.kind not in ("latency", "drop"))
+                    read = telemetry.check(run, queued, record, tile_bytes, raised_submits)
                     print(f"{label} run {run} stage seconds (cdt_tile_stage_seconds): master "
                           f"{_rounded(read['stage_seconds']['master'])}; w1 "
                           f"{_rounded(read['stage_seconds']['worker'])}")
@@ -2241,7 +2420,13 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                                    "host_tax": read["host_tax"],
                                    "queue_wait_s": control["queue_wait_s"],
                                    "grants": control["grants"]})
-                    if run != profiled_run:
+                    if faulted:
+                        result["faults"] = _faults_check(
+                            torch, "[faults] " + tag, master, base, injector, faults_before,
+                            read["spans"], by, out, clean_out, seconds)
+                    else:
+                        clean_out = out
+                    if run != profiled_run and not faulted:
                         result["tiles_per_s"] = n_tiles / seconds
                     if plane is not None:
                         result.setdefault("flight", []).append(plane.end_run(run))
@@ -2271,6 +2456,93 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                 os.environ["CDT_DETERMINISTIC_BLEND"] = blend_env
     _require(not runs or tiles_by.get("w1", 0) >= 1,
              f"w1 completed no tile in {runs} runs: {tiles_by}")
+    return result
+
+
+def _chaos_phase(torch, device: str) -> dict:
+    """The port's chaos harness (resilience/chaos.py) with its tensors on
+    `device`: run_chaos_usdu fault-free twice, then each of
+    CHAOS_SCENARIOS, then run_chaos_poison under poison_policy "degrade"
+    beside a fault-free run at its geometry. One [chaos] line a scenario
+    (plan, fires by rule, crashed workers, seconds, max |diff| against
+    the fault-free canvas); any miss fails the run: a faulted canvas not
+    bit-equal to the fault-free one (the poison run's outside its
+    quarantined tile), a scripted rule that did not fire as scheduled,
+    other workers crashing than the scenario's, a stall scenario without
+    a stall and a speculative re-dispatch, or the poison tile not
+    quarantined after three crashes with every breaker pardoned."""
+    import numpy as np
+
+    from comfyui_distributed_tpu_torch.resilience import faults
+    from comfyui_distributed_tpu_torch.resilience.chaos import run_chaos_poison, run_chaos_usdu
+
+    def timed(fn, **kwargs):
+        if device.startswith("cuda"):
+            torch.cuda.synchronize()
+        started = time.perf_counter()
+        out = fn(seed=CHAOS_SEED, device=device, **kwargs)
+        return out, time.perf_counter() - started
+
+    def max_diff(a, b) -> float:
+        return float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
+
+    result = {"seconds": {}}
+    clean, first_s = timed(run_chaos_usdu)
+    again, again_s = timed(run_chaos_usdu)
+    baseline = clean.output
+    print(f"[chaos] fault-free ({device}): output {baseline.shape} in "
+          f"[{float(baseline.min()):.4f}, {float(baseline.max()):.4f}], tiles by participant "
+          f"{clean.tiles_by_worker}; {first_s:.2f} s, again {again_s:.2f} s ("
+          f"{again.tiles_by_worker}), max |diff| {max_diff(baseline, again.output):.3g}")
+    _require(baseline.shape == (1, 128, 128, 3) and bool(np.isfinite(baseline).all()),
+             f"the fault-free chaos canvas is {baseline.shape} or not finite")
+    _require(np.array_equal(baseline, again.output), "two fault-free chaos runs differ")
+    _require(sum(clean.tiles_by_worker.values()) == 4, f"tiles {clean.tiles_by_worker}")
+    result["seconds"]["fault-free"] = first_s + again_s
+    for name, plan, kwargs, crashing in CHAOS_SCENARIOS:
+        got, seconds = timed(run_chaos_usdu, fault_plan=plan, **kwargs)
+        fires = _fired_as_scheduled(f"[chaos] {name}", plan, got.fired, got.rule_matches)
+        speculated = sorted(t for tiles in got.speculated.values() for t in tiles)
+        print(f"[chaos] {name}: plan {plan!r}; fired by rule {fires}; crashed "
+              f"{got.crashed_workers}; stalls {got.stalls}, speculated {speculated}; tiles by "
+              f"participant {got.tiles_by_worker}; {seconds:.2f} s; max |diff| vs the fault-free "
+              f"canvas {max_diff(baseline, got.output):.3g}")
+        _require(sorted(got.crashed_workers) == crashing,
+                 f"[chaos] {name}: crashed {got.crashed_workers}, expected {crashing}")
+        _require(np.array_equal(baseline, got.output),
+                 f"[chaos] {name}: the faulted canvas is not the fault-free one")
+        if "watchdog" in kwargs:
+            _require(got.stalls and speculated,
+                     f"[chaos] {name}: no stall ({got.stalls}) or no speculation {speculated}")
+        result["seconds"][name] = seconds
+    poison, seconds = timed(run_chaos_poison, poison_policy="degrade")
+    geometry, clean_s = timed(run_chaos_usdu, image_hw=(96, 96), tile=48, padding=16,
+                              job_id="chaos-poison-baseline")
+    y, x, th, tw = poison.poison_rect
+    outside = np.ones(poison.output.shape, bool)
+    outside[:, y:y + th, x:x + tw, :] = False
+    region = (slice(None), slice(y, y + th), slice(x, x + tw))
+    inside = max_diff(poison.output[region], geometry.output[region])
+    states = {wid: snap["state"] for wid, snap in poison.health_after.items()}
+    print(f"[chaos] poison (degrade): crashed {poison.crashed_workers}, attempts "
+          f"{poison.attempts}, quarantined {poison.quarantined}, pardons {poison.pardons}, "
+          f"breakers after {states}; {seconds:.2f} s (fault-free at its geometry {clean_s:.2f} "
+          f"s); max |diff| vs the fault-free canvas outside tile {poison.poison_tile} "
+          f"{max_diff(poison.output[outside], geometry.output[outside]):.3g}, inside "
+          f"{inside:.3g} (the base image)")
+    _require(poison.crashed_workers == ["w1", "w2", "w3"]
+             and poison.attempts.get(poison.poison_tile) == 3
+             and poison.poison_tile in poison.quarantined,
+             f"[chaos] poison: crashed {poison.crashed_workers}, attempts {poison.attempts}, "
+             f"quarantined {poison.quarantined}")
+    _require(sorted(poison.pardons) == ["w1", "w2", "w3"]
+             and set(states.values()) == {"healthy"},
+             f"[chaos] poison: pardons {poison.pardons}, breakers {states}")
+    _require(np.array_equal(poison.output[outside], geometry.output[outside]) and inside > 0,
+             "[chaos] poison: the unaffected tiles are not the fault-free ones, or the "
+             "quarantined tile is not degraded")
+    _require(faults.get_fault_injector() is None, "[chaos] an injector is left installed")
+    result["seconds"]["poison"] = seconds + clean_s
     return result
 
 
@@ -3680,6 +3952,17 @@ def _quarantine_run(master, base: str, w1_base: str, run, reference, push: _Push
                 return job.job_id, held
         return None
 
+    # what the breaker's requeue moved, read under the store's lock when it
+    # ran: w1 may pull again between the read above and the quarantine
+    # (the next grant while its tile ships), so that read is a lower bound
+    moved: dict = {}
+    requeue = store.requeue_worker_tasks
+
+    async def recorded_requeue(worker_id, job_id=None):
+        out = await requeue(worker_id, job_id)
+        moved.update(out)
+        return out
+
     before = _scrape(base)[1]
     push.start()
     thread = threading.Thread(target=queue_and_wait, name="chip-smoke-quarantine")
@@ -3692,11 +3975,16 @@ def _quarantine_run(master, base: str, w1_base: str, run, reference, push: _Push
             if held is None:
                 time.sleep(0.005)
         _require(held is not None, "w1 never held a grant in the quarantine run")
-        job_id, in_flight = held
+        job_id, seen = held
+        store.requeue_worker_tasks = recorded_requeue
         started = time.perf_counter()
-        for _ in range(registry.failure_threshold):
-            registry.record_failure("w1")
-        quarantine_s = time.perf_counter() - started
+        try:
+            for _ in range(registry.failure_threshold):
+                registry.record_failure("w1")
+        finally:
+            quarantine_s = time.perf_counter() - started
+            del store.requeue_worker_tasks  # the class's method again
+        in_flight = sorted(set(seen) | set(moved.get(job_id, [])))
         state = registry.state("w1").value
         requeued = _total(_scrape(base)[1], "cdt_store_requeued_tasks_total", worker_id="w1",
                           reason="quarantine") - _total(before, "cdt_store_requeued_tasks_total",
@@ -3717,6 +4005,7 @@ def _quarantine_run(master, base: str, w1_base: str, run, reference, push: _Push
         by[who] = by.get(who, 0) + 1
     diff = float((out.float() - reference.to(out.device)).abs().max())
     print(f"{label} w1 held tiles {in_flight} of job {job_id} when the breaker quarantined it "
+          f"(seen held before: {seen}) "
           f"({registry.failure_threshold} failures in {quarantine_s:.4f} s, state {state}); "
           f"cdt_store_requeued_tasks_total{{worker_id=\"w1\",reason=\"quarantine\"}} "
           f"+{requeued:g} when they returned; held by w1 next: {left}; grant_available events for the job "
@@ -3728,6 +4017,8 @@ def _quarantine_run(master, base: str, w1_base: str, run, reference, push: _Push
     _require(state == "quarantined", f"w1's breaker is {state} after the failures")
     _require(requeued == len(in_flight),
              f"{requeued:g} tiles requeued for the quarantine, w1 held {in_flight}")
+    _require({job: sorted(tiles) for job, tiles in moved.items()} == {job_id: in_flight},
+             f"the quarantine requeued {moved}, w1 was seen holding {seen} of job {job_id}")
     _require(any(a.get("tasks") == len(in_flight) for a in after_quarantine),
              f"no grant_available announced the requeued tiles: {after_quarantine}")
     _require(sorted(t for t, _ in record["completions"]) == list(range(record["total"])),
@@ -6188,12 +6479,18 @@ def _run(torch, phases: set, unet_cuts: dict) -> int:
         results["elastic"] = _elastic_phase(
             torch, bundle, ckpt, workflow, prompt["5"]["inputs"]["image"], outputs[1], "cuda",
             expected_launches=n_tiles * per_tile, expected_by_instance=expected_by_instance,
-            local_tiles_per_s=main_tiles_per_s, drain=True, incident=True,
+            local_tiles_per_s=main_tiles_per_s, drain=True, incident=True, faults=True,
         )
         phase_seconds["elastic"] = time.perf_counter() - phase_started
     # phase 4's SDXL is not needed again
     bundle = context = executor = outputs = image = prompt = None
     torch.cuda.empty_cache()
+
+    # --- 4b''. chaos: the port's chaos harness, its tensors on the card ----------
+    if run("chaos"):
+        phase_started = time.perf_counter()
+        results["chaos"] = _chaos_phase(torch, "cuda")
+        phase_seconds["chaos"] = time.perf_counter() - phase_started
 
     # --- 4b'. adapters: SDXL at the cut depth on a master and w1, served as
     # the elastic phase serves it; the base output is its local tiles' weighted
@@ -6551,6 +6848,13 @@ def _run(torch, phases: set, unet_cuts: dict) -> int:
               f"{_rounded(adapters['partial_patch_s'])}, "
               f"{adapters['partial_tiles_per_s']:.4f} tiles/s; peak "
               f"{adapters['peak_bytes'] / 2**30:.2f} GiB [{smi}]")
+    if "chaos" in results or "faults" in results.get("elastic", {}):
+        faults_s = results.get("elastic", {}).get("faults", {}).get("seconds")
+        print(f"[summary] fault plans: the chaos phase "
+              + (f"{phase_seconds['chaos']:.1f} s ({_rounded(results['chaos']['seconds'])})"
+                 if "chaos" in results else "not run")
+              + "; the elastic phase's [faults] run "
+              + (f"{faults_s:.2f} s" if faults_s is not None else "not run") + f" [{smi}]")
     if "procs" in results:
         procs = results["procs"]
         print(f"[summary] procs: w1 ready {procs['launch_to_ready_s']:.2f} s after its launch; "

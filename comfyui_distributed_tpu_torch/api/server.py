@@ -17,7 +17,10 @@ api/httpd.py instead of aiohttp. It owns:
   (the node cache). A prompt joins the trace its X-CDT-Trace-Id header
   (or the orchestration) names, else its prompt id, and runs under an
   `execute_prompt` span;
-- the JobStore of the elastic tier, and the scrape-time collectors of
+- the JobStore of the elastic tier, built with the process's fault
+  injector (CDT_FAULT_PLAN: its pull, submit and heartbeat sites run
+  under the plan; a FaultInjected raised there answers 500, which a
+  worker's retry policies retry), and the scrape-time collectors of
   its live state, bound at start and unbound at stop; the breaker's
   quarantine requeue (a quarantined worker's in-flight tiles go back on
   the queue at once), bound with the store and unbound at stop; on a
@@ -96,9 +99,12 @@ class DistributedServer:
                           else os.environ.get(WORKER_ENV_FLAG) == "1")
         self.config_path = config_path
         self.device = device or "cuda"
-        self.job_store = JobStore()
-        from ..resilience import bind_quarantine_requeue
+        from ..resilience import bind_quarantine_requeue, get_fault_injector
         from ..resilience.health import get_health_registry
+
+        # the process's fault plan (CDT_FAULT_PLAN), consulted at the
+        # store's pull, submit and heartbeat sites; None without one
+        self.job_store = JobStore(fault_injector=get_fault_injector())
 
         # breaker → store: a quarantined worker's tiles requeue at once
         self._unbind_health = bind_quarantine_requeue(get_health_registry(), self.job_store)

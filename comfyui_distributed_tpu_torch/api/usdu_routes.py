@@ -89,9 +89,12 @@ class UsduRoutes:
 
     async def _live_job(self, job_id: str):
         """The job, parking up to the creation grace for one not created
-        yet; None at once for a job that finished."""
+        yet; None at once for a job that finished. A live job comes before
+        a finished record of its id: the master removes the collector job
+        announced for it (whose record lands in `finished` under the same
+        id) an instant before the job itself."""
         store = self.server.job_store
-        if job_id in store.finished:
+        if job_id in store.finished and job_id not in store.tile_jobs:
             return None
         return await store.wait_for_tile_job(job_id, JOB_INIT_GRACE_SECONDS)
 

@@ -60,9 +60,14 @@ tiles served by the master's tile cache settle atomically with creation
 without ever entering the pull set, and each settle tells the
 `settle_sink` (the scheduler's admission-gap accounting).
 
+A fault plan (resilience/faults.py; the server passes the process's
+injector) is consulted as in the JAX store: store:pull:<id> once a pull
+RPC, store:submit:<id> once a submitted tile, and store:heartbeat:<id>
+wherever a heartbeat is recorded (a `drop` there swallows the beat).
+
 Left out: fencing epochs, the write-ahead journal, preemption
-checkpoints (their take, retain and resume), the cross-job tier and its
-multi-job grants, and fault injection.
+checkpoints (their take, retain and resume), and the cross-job tier and
+its multi-job grants (with their fault site in `pull_tasks_any`).
 
 Every accepted completion is recorded with its participant
 (`TileJob.completions`); on cleanup a job's record moves to
@@ -122,13 +127,16 @@ def _note_usage(record: Callable[[Any], None]) -> None:
 
 
 class JobStore:
-    def __init__(self, max_attempts: Optional[int] = None,
+    def __init__(self, fault_injector: Any = None, max_attempts: Optional[int] = None,
                  poison_policy: Optional[str] = None) -> None:
         from ..utils import constants
 
         self.lock = asyncio.Lock()
         self.collectors: dict[str, CollectorJob] = {}
         self.tile_jobs: dict[str, TileJob] = {}
+        # resilience/faults.py's FaultInjector (None = no plan): consulted
+        # at store:pull:<id>, store:submit:<id> and store:heartbeat:<id>
+        self.fault_injector = fault_injector
         self.max_attempts = constants.TILE_MAX_ATTEMPTS if max_attempts is None else max_attempts
         self.poison_policy = constants.POISON_POLICY if poison_policy is None else poison_policy
         # job_id → deadline seconds noted by the orchestration before the
@@ -219,9 +227,27 @@ class JobStore:
         marks = [m for m in (prev_job, prev_any) if m is not None]
         return max(marks) if marks else None
 
+    # --- fault injection ------------------------------------------------
+
+    async def _fault(self, op: str, worker_id: str) -> None:
+        """Sleep or raise FaultInjected where the active fault plan targets
+        `store:<op>:<worker_id>`."""
+        if self.fault_injector is not None:
+            await self.fault_injector.check(f"store:{op}:{worker_id}")
+
+    def _heartbeat_dropped(self, worker_id: str) -> bool:
+        """True when a `drop@store:heartbeat:<id>` fault swallows this beat
+        (the worker thinks it beat; the master never saw it)."""
+        if self.fault_injector is None:
+            return False
+        action = self.fault_injector.hit(f"store:heartbeat:{worker_id}")
+        return action is not None and action.kind == "drop"
+
     def _record_heartbeat(self, job: TileJob, worker_id: str) -> None:
-        """A heartbeat of `worker_id` on `job`, counted. Caller holds
-        self.lock."""
+        """A heartbeat of `worker_id` on `job`, counted, unless a fault plan
+        drops it. Caller holds self.lock."""
+        if self._heartbeat_dropped(worker_id):
+            return
         job.heartbeat(worker_id)
         instruments.store_heartbeats_total().inc(worker_id=worker_id)
 
@@ -571,7 +597,9 @@ class JobStore:
         """Pop the next pending task id for a worker (None = drained).
         Records the assignment and a heartbeat; an empty pull heartbeats
         too. A cancelled job, a preempted one, and a pull the placement
-        policy trims all read as drained."""
+        policy trims all read as drained. The fault site store:pull:<id>
+        is consulted once a pull RPC (`pull_tasks` comes through here)."""
+        await self._fault("pull", worker_id)
         job = await self.get_tile_job(job_id)
         if job is None:
             raise JobQueueError(f"no such job {job_id!r}")
@@ -724,7 +752,9 @@ class JobStore:
         time (`service_seconds`, else measured from the later of its
         assignment and the worker's previous submit) is observed in
         cdt_worker_tile_seconds and handed to the latency sink, a
-        duplicate's too: the losing worker did the work."""
+        duplicate's too: the losing worker did the work. The fault site
+        store:submit:<id> is consulted once a tile, a flushed one's too."""
+        await self._fault("submit", worker_id)
         job = await self.get_tile_job(job_id)
         if job is None:
             raise JobQueueError(f"no such job {job_id!r}")

@@ -1,7 +1,11 @@
 """Retry and backoff of the cross-host RPCs (resilience/policy.py), the
 per-worker circuit breaker (resilience/health.py) and its binding to the
 job store: a quarantined worker's in-flight tiles go back on the queue
-at once (`bind_quarantine_requeue`)."""
+at once (`bind_quarantine_requeue`); the seeded fault injector scripted
+by CDT_FAULT_PLAN, consulted by the HTTP transport and the JobStore
+(resilience/faults.py); and the in-process chaos harness that runs the
+elastic tier under a fault plan (resilience/chaos.py, imported on use).
+"""
 
 from __future__ import annotations
 
@@ -9,7 +13,32 @@ import asyncio
 from typing import Callable
 
 from ..utils.logging import debug_log, log
-from .health import HealthRegistry, WorkerState
+from .faults import (
+    FaultInjected,
+    FaultInjector,
+    get_fault_injector,
+    reset_fault_injector,
+    set_fault_injector,
+)
+from .health import HealthRegistry, WorkerState, get_health_registry, reset_health_registry
+from .policy import RetryPolicy, http_policy, retry_async, work_pull_policy
+
+__all__ = [
+    "FaultInjected",
+    "FaultInjector",
+    "HealthRegistry",
+    "RetryPolicy",
+    "WorkerState",
+    "bind_quarantine_requeue",
+    "get_fault_injector",
+    "get_health_registry",
+    "http_policy",
+    "reset_fault_injector",
+    "reset_health_registry",
+    "retry_async",
+    "set_fault_injector",
+    "work_pull_policy",
+]
 
 
 def bind_quarantine_requeue(registry: HealthRegistry, store) -> Callable[[], None]:

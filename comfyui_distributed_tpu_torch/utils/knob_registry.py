@@ -74,10 +74,13 @@ KNOBS: tuple[Knob, ...] = (
          "Failure threshold that opens the circuit (quarantine + tile requeue)."),
     Knob("CDT_CIRCUIT_COOLDOWN", "30.0", "resilience",
          "Seconds a quarantined worker waits before a half-open probe."),
+    Knob("CDT_FAULT_PLAN", "unset", "resilience",
+         "Seeded fault-injection plan (e.g. `seed=3;latency(0.2)@request_image%0.5`) "
+         "wrapping HTTP transport and the job store; unset = no injection."),
     Knob("CDT_DETERMINISTIC_BLEND", "unset", "resilience",
          "`1` forces sorted-order deferred compositing so the blended canvas is "
-         "bit-identical regardless of tile arrival order (chip_smoke.py and "
-         "profile_elastic.py set it)."),
+         "bit-identical regardless of tile arrival order (chip_smoke.py, "
+         "profile_elastic.py and the chaos harness set it)."),
     # --- lifecycle ---------------------------------------------------------
     Knob("CDT_JOB_DEADLINE_DEFAULT", "0.0", "lifecycle",
          "Default end-to-end job deadline in seconds applied when a request names none; 0 "

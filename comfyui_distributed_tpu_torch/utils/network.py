@@ -7,6 +7,17 @@ whose `queue_remaining` is the busy-ness metric. The JAX package pools
 aiohttp sessions; here each request is one blocking `urllib` call,
 which coroutines run on a worker thread (`asyncio.to_thread`), never on
 the loop.
+
+Every GET and POST of the port goes through `request_json` or
+`request_bytes`, so these two are the fault-injection seam the JAX
+package puts in its wrapper of the pooled aiohttp client
+(`FaultingClientSession`): under an active fault plan (CDT_FAULT_PLAN,
+or an injector installed with resilience.faults.set_fault_injector)
+each consults the injector with op `http:<METHOD>:<path>` before it
+touches the network. `latency` sleeps,
+then sends; `connect_error` and `crash` raise a transport error;
+`http500` answers 500 and `drop` an empty 200 without sending. The
+websocket connections (utils/websocket.py) are not faulted.
 """
 
 from __future__ import annotations
@@ -15,9 +26,11 @@ import asyncio
 import http.client
 import ipaddress
 import json
+import time
 import urllib.error
+import urllib.parse
 import urllib.request
-from typing import Any
+from typing import Any, Optional
 
 from .constants import DEFAULT_MASTER_PORT, PROBE_TIMEOUT_SECONDS
 from .logging import debug_log
@@ -35,11 +48,38 @@ TRANSPORT_ERRORS: tuple[type[BaseException], ...] = (
 _OPENER = urllib.request.build_opener(urllib.request.ProxyHandler({}))
 
 
+def _injected(method: str, url: str) -> Optional[str]:
+    """Consult the process's fault injector for this request: None to
+    send it, else the kind of the answer to give without sending
+    ("http500" or "drop"). Sleeps for `latency`; raises for
+    `connect_error` and `crash`. Only GET and POST are faulted."""
+    from ..resilience.faults import get_fault_injector
+
+    injector = get_fault_injector()
+    if injector is None or method not in ("GET", "POST"):
+        return None
+    path = urllib.parse.urlsplit(url).path or "/"
+    action = injector.hit(f"http:{method}:{path}")
+    if action is None:
+        return None
+    if action.kind == "latency":
+        time.sleep(action.arg or 0.0)
+        return None
+    if action.kind in ("connect_error", "crash"):
+        # a member of TRANSPORT_ERRORS, retried as a real one (the JAX
+        # seam raises aiohttp's ClientConnectionError)
+        raise urllib.error.URLError(f"injected {action.kind} at {path}")
+    return action.kind
+
+
 def request_json(method: str, url: str, payload: Any = None, timeout: float = 30.0,
                  headers: dict[str, str] | None = None) -> tuple[int, Any]:
     """One blocking HTTP request with a JSON body (or none) and the
     extra `headers` (a propagated trace id); returns (status, decoded
     JSON body or None). Raises only transport errors."""
+    injected = _injected(method, url)
+    if injected is not None:
+        return (500, None) if injected == "http500" else (200, {})
     data = None if payload is None else json.dumps(payload).encode("utf-8")
     headers = dict(headers or {})
     if data is not None:
@@ -62,6 +102,11 @@ def request_bytes(method: str, url: str, data: bytes | None = None,
                   ) -> tuple[int, bytes]:
     """One blocking HTTP request with a raw body; returns (status, the
     response's bytes). Raises only transport errors."""
+    injected = _injected(method, url)
+    if injected == "http500":
+        return 500, f"injected fault response (500) for {url}".encode("utf-8")
+    if injected == "drop":
+        return 200, b""
     req = urllib.request.Request(url, data=data, headers=headers or {}, method=method)
     try:
         with _OPENER.open(req, timeout=timeout) as resp:

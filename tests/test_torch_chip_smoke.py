@@ -249,13 +249,82 @@ def test_the_control_plane_checks_drain_and_the_fleet_on_the_cpu(capsys, one_tor
     assert out.index(drained[0]) < out.index(fleet[1])
 
 
-def _elastic_on_tiny():
-    """chip_smoke's elastic phase on tiny-unet on the CPU, one run."""
+def _elastic_on_tiny(runs: int = 1, faults: bool = False):
+    """chip_smoke's elastic phase on tiny-unet on the CPU, `runs` runs (and
+    the [faults] run with `faults`)."""
     workflow = _tiny_workflow()
     bundle = tpl.load_pipeline("tiny-unet", seed=0, device="cpu")
     image = torch.zeros((1, 64, 64, 3))
     return chip_smoke._elastic_phase(torch, bundle, "tiny-unet", workflow, image, None, "cpu",
-                                     runs=1)
+                                     runs=runs, faults=faults)
+
+
+# --- fault plans: the elastic phase's [faults] run and the chaos phase ---------
+
+
+def test_the_faults_run_of_the_elastic_phase_on_the_cpu(capsys, one_torch_thread):
+    """A fault-free run, then the [faults] run under ELASTIC_FAULT_PLAN:
+    held to every run's checks, every rule fired as scheduled, the
+    store's injected fault answered 500 and retried by w1 as its
+    transport's faults are, w1 with a tile, no injector left."""
+    from comfyui_distributed_tpu_torch.resilience import faults
+
+    result = _elastic_on_tiny(runs=1, faults=True)
+    out = capsys.readouterr().out.splitlines()
+    assert len([line for line in out if line.startswith("[telemetry] elastic run")]) == 8
+    assert len([line for line in out if line.startswith("[sched] elastic run")]) == 2
+    lines = [line for line in out if line.startswith("[faults] elastic:")]
+    assert len(lines) == 1
+    assert "1 rpc.submit_tiles span(s) in error" in lines[0]
+    assert "injector after the run: None" in lines[0]
+    got = result["faults"]
+    assert got["errors"] == got["retries"] == {"submit": 2, "pull": 1}
+    assert [fires for fires, _ in got["fires"].values()] == [1, 1, 1, 3]
+    assert got["max_abs_diff_vs_fault_free"] <= chip_smoke.RERUN_TOLERANCE
+    assert faults.get_fault_injector() is None
+
+
+def test_the_chaos_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread):
+    """The chaos phase on the CPU: two fault-free runs, each scenario's
+    canvas bit-equal to them with its rules fired as scheduled, and the
+    poison run degraded only in its quarantined tile."""
+    result = chip_smoke._chaos_phase(torch, "cpu")
+    lines = [line for line in capsys.readouterr().out.splitlines()
+             if line.startswith("[chaos]")]
+    assert len(lines) == 2 + len(chip_smoke.CHAOS_SCENARIOS)
+    assert all(line.endswith("vs the fault-free canvas 0") for line in lines[1:-1])
+    assert "outside tile 0 0, inside" in lines[-1]
+    assert set(result["seconds"]) == {"fault-free", "poison",
+                                      *(name for name, *_ in chip_smoke.CHAOS_SCENARIOS)}
+
+
+@pytest.mark.parametrize("where", ["chaos", "faults"])
+def test_a_scripted_rule_that_never_fires_fails_the_run(where, monkeypatch, one_torch_thread):
+    never = "http500@http:POST:/distributed/never#1"
+    if where == "chaos":
+        name, plan, kwargs, crashing = chip_smoke.CHAOS_SCENARIOS[0]
+        monkeypatch.setattr(chip_smoke, "CHAOS_SCENARIOS",
+                            ((name, f"{plan};{never}", kwargs, crashing),))
+        with pytest.raises(RuntimeError, match="never fired 0 times in 0 matches"):
+            chip_smoke._chaos_phase(torch, "cpu")
+    else:
+        monkeypatch.setattr(chip_smoke, "ELASTIC_FAULT_PLAN",
+                            f"{chip_smoke.ELASTIC_FAULT_PLAN};{never}")
+        with pytest.raises(RuntimeError, match="never fired 0 times in 0 matches"):
+            _elastic_on_tiny(runs=0, faults=True)
+
+
+def test_an_injector_left_installed_fails_the_faults_run(monkeypatch, one_torch_thread):
+    from comfyui_distributed_tpu_torch.resilience import faults
+
+    monkeypatch.setattr(faults, "reset_fault_injector", lambda: None)
+    try:
+        with pytest.raises(RuntimeError, match="an injector is still installed"):
+            _elastic_on_tiny(runs=0, faults=True)
+    finally:
+        monkeypatch.undo()
+        faults.reset_fault_injector()
+    assert faults.get_fault_injector() is None
 
 
 def test_the_telemetry_checks_fail_when_tiles_are_not_counted(monkeypatch, one_torch_thread):

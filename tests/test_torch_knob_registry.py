@@ -69,6 +69,9 @@ def test_the_registry_lists_exactly_the_knobs_the_port_reads():
             "CDT_INCIDENT_MAX_MB", "CDT_INCIDENT_WINDOW", "CDT_PROFILE_DIR",
             "CDT_PROFILE_MAX_SECONDS", "CDT_PROFILE_MAX", "CDT_PROFILE_MAX_MB",
             "CDT_PROFILE_AUTO", "CDT_PROFILE_AUTO_SECONDS"} <= set(declared)
+    # the fault plan (resilience/faults.py), read by the transport and the
+    # job store's seams
+    assert "CDT_FAULT_PLAN" in declared and len(declared) == 106
 
 
 def _literal(node):

@@ -250,6 +250,36 @@ def test_cli_starts_answers_and_exits_on_sigterm(tmp_path):
         proc.stdout.close()
 
 
+def test_a_flush_between_the_collector_and_the_job_cleanup_is_taken(cluster, port_loop):
+    """The master removes a job's announced collector, then the job
+    (`usdu_elastic._finish_job`): a flush that lands in between, when
+    `finished` holds the collector's record under the job's id, is
+    served by the live job, not dropped against the collector's record
+    (which has no duplicate count: the route answered 500)."""
+    master, _, _ = cluster
+    store = master.job_store
+
+    async def between_the_cleanups():
+        await store.ensure_collector("racing")
+        await store.init_tile_job("racing", [0, 1])
+        assert await store.pull_tasks("racing", "w1", timeout=1.0) == [0]
+        await store.cleanup_collector("racing")
+
+    asyncio.run_coroutine_threadsafe(between_the_cleanups(), port_loop.loop).result(10)
+    assert "racing" in store.finished and "racing" in store.tile_jobs
+    base = f"http://127.0.0.1:{master.port}/distributed"
+    tile = {"tile_idx": 0, "batch_idx": 0, "image": timg.encode_image_data_url(
+        np.zeros((4, 4, 3), np.float32))}
+    assert request_json("POST", f"{base}/submit_tiles", {
+        "job_id": "racing", "worker_id": "w1", "tiles": [tile], "is_final_flush": True,
+    }, timeout=10) == (200, {"status": "ok", "accepted": 1})
+    assert request_json("POST", f"{base}/request_image",
+                        {"job_id": "racing", "worker_id": "w1"}, timeout=10)[1]["tile_idx"] == 1
+    asyncio.run_coroutine_threadsafe(store.cleanup_tile_job("racing"), port_loop.loop).result(10)
+    assert store.finished["racing"]["completions"] == [(0, "w1")]
+    assert store.finished["racing"]["finished_workers"] == ["w1"]
+
+
 def test_a_late_worker_finds_a_finished_job_drained_at_once(cluster, port_loop, monkeypatch):
     """A worker that arrives after the master cleaned the job up pulls
     nothing and its final flush is accepted as duplicates, both without
