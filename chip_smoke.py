@@ -165,15 +165,39 @@ the run's time limit.
              cdt_worker_master_errors_total and cdt_retries_total up by
              exactly the faults, no injector left installed; prints its
              seconds and max |diff| against the last fault-free run.
+             Then the [durable] runs (`_durable_runs`): a second master
+             built with CDT_JOURNAL_DIR (CDT_JOURNAL_FSYNC=1) beside the
+             phase's, sharing w1, runs the workflow once, held to every
+             run's checks and to its journal: records by type equal to
+             the store's transitions, w1's payloads durable and the
+             master's null, replay idempotent, /distributed/durability
+             and cdt_journal_appends_total equal to the records, one
+             fsync an append, the brownout's journal p95 above 0 at an
+             unchanged level, and tensors and arrays journaled as null;
+             it prints the run's seconds beside run 1's, the bytes
+             appended and the fsync p50/p95. A fresh journaling master
+             on the directory recovers with the epoch one above. Then
+             the SDXL upscale's master is killed at its first submit
+             (run_chaos_master_crash with the real tile processor,
+             KILL_MASTER_PLAN) and recovered: w1's tile restored, the
+             master's requeued, replay idempotent, the canvas within
+             0.05 of the reference and 0.01 of the journaled run, 2802
+             launches a recomputed tile.
    chaos   - the port's chaos harness (resilience/chaos.py) with its
              tensors on the card (`_chaos_phase`): run_chaos_usdu
              fault-free twice and under CHAOS_SCENARIOS (crash after
              pull, both workers crash, dropped heartbeats, the
              watchdog's stall speculation), each faulted canvas
              bit-equal to the fault-free one and each rule fired as
-             scheduled; run_chaos_poison under "degrade": three crashes,
-             the tile quarantined, every breaker pardoned, the canvas
-             bit-equal outside the tile. One [chaos] line a scenario.
+             scheduled; run_chaos_master_crash at the JAX soak's three
+             kill points (CHAOS_MASTER_CRASH_PLANS), each recovered
+             canvas bit-equal and its replay idempotent;
+             run_chaos_cancel: every tile refunded, the job terminal,
+             no job left in the journal or the standby replica;
+             run_chaos_poison (journaled) under "degrade": three
+             crashes, the tile quarantined in the store and the
+             journal, every breaker pardoned, the canvas bit-equal
+             outside the tile. One [chaos] line a scenario.
    adapters - on SDXL at the cut depth, served as the elastic phase
              serves it (a master and w1 in this process; its base output
              the local tiles' weighted average) (`_adapters_phase`): a
@@ -572,6 +596,30 @@ CHAOS_SCENARIOS = (
     ("stall speculation", f"seed=11;{CHAOS_SLOW_MASTER};crash@chaos:w1:pulled#1",
      {"worker_timeout": 10.0, "watchdog": {}}, ["w1"]),
 )
+# the kill-the-master runs of the chaos phase: the JAX soak's three kill
+# points (scripts/durability_soak.py), each canvas bit-equal to the
+# fault-free one
+CHAOS_MASTER_CRASH_PLANS = (
+    ("after_pull", "latency(1.5)@store:pull:w1#1;latency(1.5)@store:pull:w2#1;"
+                   "crash@store:submit:master#1"),
+    ("after_partial_submit", "latency(1.5)@store:pull:w1#1;latency(1.5)@store:pull:w2#1;"
+                             "crash@store:submit:master#2"),
+    ("mid_drain", "latency(0.3)@store:pull:master#1;crash@store:pull:master#2"),
+)
+# the elastic phase's [durable] runs (`_elastic_phase(durable=True)`): a
+# journaling master's run, its restart, then the SDXL upscale's master
+# killed at its first submit (run_chaos_master_crash with the real tile
+# processor, master + w1). The master's first pull waits KILL_MASTER_HOLD
+# seconds, so w1 takes tile 0 and its flush lands in the journal about
+# that long before the master's first tile is done; w1's second pull is
+# held until after the kill, so the master has a tile to die on however
+# fast w1 is. Phase 2 recomputes every tile but w1's restored ones.
+KILL_MASTER_HOLD = 1.0
+KILL_MASTER_PLAN = (f"latency({KILL_MASTER_HOLD})@store:pull:master#1;"
+                    "latency(3.0)@store:pull:w1#2;crash@store:submit:master#1")
+# the SDXL kill run's canvas against the uninterrupted [durable] run's:
+# tiles that cross w1's 8-bit PNG in one run and not in the other
+KILL_MASTER_VS_DURABLE = 0.01
 # the elastic phase's profiled run (`_Incident`): a torch.profiler capture
 # asked for PROFILE_DURATION_S, stopped after PROFILE_WINDOW_S of the run;
 # the bus's tap cost is timed over TAP_PUBLISHES publishes, and the host
@@ -2251,7 +2299,7 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                    local_tiles_per_s: float | None = None, runs: int = ELASTIC_RUNS,
                    tag: str = "elastic", after=None, drain: bool = False,
                    fleet_interval: float | None = None, incident: bool = False,
-                   faults: bool = False) -> dict:
+                   faults: bool = False, durable: bool = False) -> dict:
     """Run the workflow over HTTP on a master and a worker server in this
     process (see the module docstring) and check every run; prints the
     [tag] lines and returns the last run's attention launches. With
@@ -2275,7 +2323,11 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
     [incident] and [flight] lines (`_Incident`). With `faults` one more
     run follows the others: the [faults] run, under ELASTIC_FAULT_PLAN
     (`_fault_plan`), held to every run's checks and to `_faults_check`'s
-    on a [faults] line; its result is the returned dict's "faults"."""
+    on a [faults] line; its result is the returned dict's "faults". With
+    `durable` the [durable] runs follow, on a journaling master beside the
+    phase's and its w1 (`_durable_runs`): one more run held to every run's
+    checks and to the journal, the journaling master's restart, and the
+    kill-the-master run; their result is the returned dict's "durable"."""
     from comfyui_distributed_tpu_torch.ops import attention as attn
     from comfyui_distributed_tpu_torch.utils import image as img_utils
 
@@ -2323,14 +2375,21 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                          "the master has no incident manager with CDT_INCIDENT_DIR set")
                 tile_bytes = _tile_output_bytes(workflow, image)
                 clean_out = None  # the last fault-free run's output
-                for run in range(1, runs + 1 + int(faults)):
-                    faulted = run > runs
+                run_seconds: dict[int, float] = {}
+
+                def run_once(run: int, kind: str, master, base, telemetry, sched, push) -> dict:
+                    """One run of the workflow on (master, base), held to every
+                    check; `kind` "plain", "faults" (under ELASTIC_FAULT_PLAN) or
+                    "durable" (a journaling master's run)."""
+                    nonlocal clean_out
+                    faulted = kind == "faults"
+                    journaled = kind == "durable"
                     if drain and run == runs:
                         result["drain"] = _drain_check(f"[sched] {tag}", master, base, workflow)
                     telemetry.start()
                     sched.start()
                     push.start()
-                    if plane is not None:
+                    if plane is not None and not journaled:
                         plane.start_run()
                     if cuda:
                         torch.cuda.synchronize()
@@ -2362,6 +2421,9 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                         rate += " as profiled (not comparable)"
                     elif faulted:
                         rate += " under ELASTIC_FAULT_PLAN (not comparable)"
+                    elif journaled:
+                        rate += (" journaled, CDT_JOURNAL_FSYNC=1 (not comparable; run 1 "
+                                 f"took {run_seconds.get(1, 0.0):.2f} s)")
                     elif local_tiles_per_s is not None:
                         rate += f" (phase 4: {local_tiles_per_s:.4f})"
                     print(f"{label} run {run}: {seconds:.2f} s, {rate}; tiles completed: master "
@@ -2426,14 +2488,22 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                             read["spans"], by, out, clean_out, seconds)
                     else:
                         clean_out = out
-                    if run != profiled_run and not faulted:
+                    if run != profiled_run and kind == "plain":
                         result["tiles_per_s"] = n_tiles / seconds
-                    if plane is not None:
+                    run_seconds[run] = seconds
+                    if plane is not None and not journaled:
                         result.setdefault("flight", []).append(plane.end_run(run))
                     if run == profiled_run:
                         result["profile"] = plane.check_profile(run, n_tiles / seconds)
                         result["incident"] = plane.check_incident(run, queued["trace_id"],
                                                                   read["spans"])
+                    return {"out": out, "seconds": seconds, "record": record, "by": by,
+                            "grants": control["grants"], "n_tiles": n_tiles,
+                            "job_id": queued["job_ids"][USDU_NODE]}
+
+                for run in range(1, runs + 1 + int(faults)):
+                    run_once(run, "faults" if run > runs else "plain", master, base, telemetry,
+                             sched, push)
                 if plane is not None:
                     result["tap_cost"] = plane.tap_cost()
                 if after is not None:
@@ -2441,6 +2511,11 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
                                              "worker_port": worker_port, "input_dir": in_dir,
                                              "output_dir": out_dir, "reference": reference,
                                              "reference_avg": reference_avg})
+                if durable:
+                    result["durable"] = _durable_runs(
+                        torch, tag, master, worker_port, tmp, device, run_once,
+                        runs + 1 + int(faults), run_seconds, bundle, workflow, image, reference,
+                        expected_launches)
         finally:
             constants.FLEET_SNAPSHOT_SECONDS = snapshot_seconds
             if incident:
@@ -2459,22 +2534,345 @@ def _elastic_phase(torch, bundle, ckpt: str, workflow, image, local_out, device:
     return result
 
 
+def _journaling_master(master, journal_dir: str, device: str):
+    """A second master beside the phase's, built with CDT_JOURNAL_DIR (and
+    without the phase's incident directory) on its config and its loop,
+    sharing its loaded models and its w1; started (lease, recovery, the
+    write-ahead seam) and returned."""
+    from comfyui_distributed_tpu_torch.api.server import DistributedServer
+
+    saved = {name: os.environ.get(name) for name in ("CDT_JOURNAL_DIR", "CDT_INCIDENT_DIR")}
+    os.environ["CDT_JOURNAL_DIR"] = journal_dir
+    os.environ.pop("CDT_INCIDENT_DIR", None)
+    try:
+        server = DistributedServer(port=_free_port(), is_worker=False,
+                                   config_path=master.config_path, device=device)
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+    server.execution_context.pipelines.update(master.execution_context.pipelines)
+    asyncio.run_coroutine_threadsafe(server.start(), master.loop).result(timeout=120)
+    return server
+
+
+def _stop_on(loop, server) -> None:
+    asyncio.run_coroutine_threadsafe(server.stop(), loop).result(timeout=120)
+
+
+def _histogram_quantile(samples: list, name: str, q: float) -> float:
+    """Prometheus's histogram_quantile over the `{name}_bucket` samples
+    (cumulative, `le` bounds): linear within the bucket the rank falls in."""
+    buckets = sorted(((float("inf") if labels["le"] == "+Inf" else float(labels["le"]), value)
+                      for sample, labels, value in samples if sample == f"{name}_bucket"))
+    total = buckets[-1][1] if buckets else 0.0
+    if total <= 0:
+        return 0.0
+    rank, lower, below = q * total, 0.0, 0.0
+    for bound, count in buckets:
+        if count >= rank:
+            if bound == float("inf"):
+                return lower
+            return lower + (bound - lower) * ((rank - below) / max(count - below, 1e-12))
+        lower, below = bound, count
+    return lower
+
+
+def _delta_samples(before: list, after: list) -> list:
+    """`after`'s samples less `before`'s, series by series."""
+    prior = {(name, tuple(sorted(labels.items()))): value for name, labels, value in before}
+    return [(name, labels, value - prior.get((name, tuple(sorted(labels.items()))), 0.0))
+            for name, labels, value in after]
+
+
+def _volatile_payloads(torch, tmp: str, device: str) -> list[str]:
+    """What the journal seam makes of the payloads it cannot serialize (a
+    tensor on `device`, a CPU tensor, a numpy array): each submit must
+    journal with payload null. Returns their names; a miss fails the run."""
+    import numpy as np
+
+    from comfyui_distributed_tpu_torch.durability import DurabilityManager, replay_journal
+
+    directory = os.path.join(tmp, "volatile")
+    manager = DurabilityManager(directory, fsync_every=1)
+    payloads = {f"{device} tensor": torch.ones(2, 3, device=device),
+                "cpu tensor": torch.ones(2, 3), "numpy array": np.ones((2, 3), np.float32)}
+    for task, payload in enumerate(payloads.values()):
+        manager.record({"type": "submit", "job": "v", "worker": "master", "task": task,
+                        "payload": payload})
+    manager.close()
+    records = replay_journal(directory).records
+    _require([r["payload"] for r in records] == [None] * len(payloads),
+             f"[durable] a non-JSON payload journaled as {[r['payload'] for r in records]}")
+    return list(payloads)
+
+
+def _durable_runs(torch, tag: str, master, worker_port: int, tmp: str, device: str, run_once,
+                  run: int, run_seconds: dict, bundle, workflow, image, reference,
+                  expected_launches: int | None) -> dict:
+    """The elastic phase's [durable] runs, on the phase's servers' loop and
+    w1: (1) the workflow on a journaling master (`_journaling_master`,
+    CDT_JOURNAL_FSYNC=1), held to every elastic run's checks (`run_once`)
+    and to the journal: its records by type are the store's transitions
+    (one job_init, each tile pulled once in its grant's records, one
+    submit a tile by its participant, w1's worker_done when its final
+    flush reached the live job, one cleanup), w1's payloads durable and
+    the master's null, replay idempotent, /distributed/durability and the
+    scrape's families agreeing with the records, one fsync an append, the
+    brownout's journal p95 above 0 at an unchanged level; (2) its restart:
+    a fresh journaling master on the directory recovers with the epoch
+    one above; (3) the SDXL kill-the-master run (`_kill_master_run`).
+    Prints [durable] lines; any miss fails the run."""
+    import collections
+
+    from comfyui_distributed_tpu_torch.durability import replay_journal
+    from comfyui_distributed_tpu_torch.durability.recovery import verify_idempotent_replay
+    from comfyui_distributed_tpu_torch.utils.network import request_json
+
+    cuda = device.startswith("cuda")
+    label = f"[durable] {tag}"
+    loop = master.loop
+    journal_dir = os.path.join(tmp, "journal")
+    jmaster = _journaling_master(master, journal_dir, device)
+    try:
+        _require(jmaster.durability is not None, f"{label}: the master built no journal")
+        jbase = f"http://127.0.0.1:{jmaster.port}"
+        status, first = request_json("GET", f"{jbase}/distributed/durability", timeout=30)
+        _require(status == 200 and first.get("enabled") is True and first["epoch"] >= 1,
+                 f"{label}: /distributed/durability answered {status} {first}")
+        appends_ms: list[float] = []
+        sink = jmaster.durability.append_latency_sink
+
+        def timed_sink(seconds: float) -> None:
+            appends_ms.append(seconds * 1e3)
+            sink(seconds)
+
+        jmaster.durability.append_latency_sink = timed_sink
+        level = jmaster.scheduler.brownout.level
+        before = _scrape(jbase)[1]
+        got = run_once(run, "durable", jmaster, jbase,
+                       _Telemetry(torch, f"[telemetry] {tag}", jbase, cuda=cuda),
+                       _Sched(f"[sched] {tag}", jmaster, jbase),
+                       _Push(f"[push] {tag}", jbase, f"http://127.0.0.1:{worker_port}"))
+        samples = _delta_samples(before, _scrape(jbase)[1])
+        record, job_id, n_tiles = got["record"], got["job_id"], got["n_tiles"]
+        per_tile = None if expected_launches is None else expected_launches // n_tiles
+        records = replay_journal(journal_dir).records
+        by_type = collections.Counter(r["type"] for r in records)
+        grants = got["grants"]
+        pulls = collections.Counter(r["worker"] for r in records if r["type"] == "pull")
+        pulled = sorted(t for r in records if r["type"] == "pull" for t in r["tasks"])
+        submits = [r for r in records if r["type"] == "submit"]
+        done = [r["worker"] for r in records if r["type"] == "worker_done"]
+        late = not done  # w1's final flush came after the cleanup (drop_late)
+        payload_bytes = sum(len(json.dumps(r["payload"])) for r in submits if r["payload"])
+        journal_bytes = sum(os.path.getsize(os.path.join(journal_dir, name))
+                            for name in os.listdir(journal_dir) if name.endswith(".wal"))
+        status, durability = request_json("GET", f"{jbase}/distributed/durability", timeout=30)
+        brownout = jmaster.scheduler.brownout.snapshot()
+        appended = {kind: _total(samples, "cdt_journal_appends_total", record=kind)
+                    for kind in by_type}
+        fsyncs = _total(samples, "cdt_journal_fsync_seconds_count")
+        p50, p95 = (_histogram_quantile(samples, "cdt_journal_fsync_seconds", q) * 1e3
+                    for q in (0.5, 0.95))
+        appends_sorted = sorted(appends_ms)
+        print(f"{label} run {run}: {got['seconds']:.2f} s journaled against run 1's "
+              f"{run_seconds.get(1, 0.0):.2f} s unjournaled (no claim); records by type "
+              f"{dict(sorted(by_type.items()))} for {n_tiles} tiles, grants by participant "
+              f"{grants}; {journal_bytes} bytes appended ({payload_bytes} of them w1's tile "
+              f"payloads); fsync p50 {p50:.3f} ms, p95 {p95:.3f} ms (histogram_quantile over "
+              f"{int(fsyncs)} cdt_journal_fsync_seconds observations); append (frame, write, "
+              f"fsync) p50 {appends_sorted[len(appends_sorted) // 2]:.3f} ms, max "
+              f"{appends_sorted[-1]:.3f} ms; brownout journal p95 "
+              f"{brownout['journal_p95_seconds']} s (threshold "
+              f"{brownout['journal_p95_threshold']}), level {level} -> {brownout['level']}; "
+              f"w1's worker_done {'dropped late (its final flush came after the cleanup)' if late else 'journaled'}")
+        _require(set(by_type) <= {"job_init", "pull", "submit", "worker_done", "cleanup"}
+                 and by_type["job_init"] == by_type["cleanup"] == 1,
+                 f"{label}: records by type {dict(by_type)}")
+        _require(all(r.get("job") == job_id for r in records),
+                 f"{label}: a record of another job than {job_id}")
+        # a grant journals its first tile, then the rest in one record
+        want_pulls = {who: sum(1 if size == 1 else 2 for size in sizes)
+                      for who, sizes in grants.items() if sizes}
+        _require(dict(pulls) == want_pulls and pulled == list(range(n_tiles)),
+                 f"{label}: pull records {dict(pulls)} of tiles {pulled}, grants {grants}")
+        _require(sorted((r["task"], r["worker"]) for r in submits)
+                 == sorted(tuple(c) for c in record["completions"]),
+                 f"{label}: submit records {[(r['task'], r['worker']) for r in submits]}, "
+                 f"completions {record['completions']}")
+        _require(all((r["payload"] is None) == (r["worker"] == "master") for r in submits)
+                 and all(e["image"].startswith("data:image/png;base64,")
+                         for r in submits if r["payload"] for e in r["payload"]),
+                 f"{label}: a master payload is not null or a w1 payload not its envelopes")
+        _require(done == ["w1"] or (late and "w1" in record["finished_workers"]),
+                 f"{label}: worker_done records {done}, finished {record['finished_workers']}")
+        _require(verify_idempotent_replay(journal_dir), f"{label}: replay is not idempotent")
+        _require(status == 200 and durability.get("enabled") is True
+                 and durability.get("role") == "active" and durability["epoch"] >= 1
+                 and durability["appends"] == len(records),
+                 f"{label}: /distributed/durability answered {status} {durability} for "
+                 f"{len(records)} records")
+        _require(appended == dict(by_type) and fsyncs == len(records),
+                 f"{label}: cdt_journal_appends_total {appended}, fsyncs {fsyncs}, records "
+                 f"{dict(by_type)}")
+        _require(brownout["journal_p95_seconds"] > 0 and brownout["level"] == level,
+                 f"{label}: brownout {brownout}, level before {level}")
+        volatile = _volatile_payloads(torch, tmp, device)
+        print(f"{label}: /distributed/durability role {durability['role']}, epoch "
+              f"{durability['epoch']}, appends {durability['appends']}; replay idempotent; "
+              f"payloads journaled as null: {', '.join(volatile)}")
+    finally:
+        _stop_on(loop, jmaster)
+    restart = _restart_check(label, master, journal_dir, device, durability["epoch"],
+                             len(records))
+    kill = _kill_master_run(torch, label, bundle, workflow, image, reference, got["out"], tmp,
+                            n_tiles, per_tile)
+    return {"seconds": got["seconds"], "records": dict(by_type), "journal_bytes": journal_bytes,
+            "fsync_ms": (p50, p95), "restart": restart, "kill": kill}
+
+
+def _restart_check(label: str, master, journal_dir: str, device: str, epoch: int,
+                   records: int) -> dict:
+    """A fresh journaling master on `journal_dir`: its recovery is
+    performed with nothing to resume (the job was cleaned up), its epoch
+    one above `epoch`, and /distributed/durability reports both."""
+    from comfyui_distributed_tpu_torch.durability.snapshot import list_snapshots
+    from comfyui_distributed_tpu_torch.utils.network import request_json
+
+    started = time.perf_counter()
+    restarted = _journaling_master(master, journal_dir, device)
+    seconds = time.perf_counter() - started
+    try:
+        report = restarted.durability.report.as_json()
+        status, answer = request_json(
+            "GET", f"http://127.0.0.1:{restarted.port}/distributed/durability", timeout=30)
+        snapshots = list_snapshots(journal_dir)
+        snapshot_bytes = os.path.getsize(snapshots[-1][1]) if snapshots else 0
+        print(f"{label} restart: recovery {report}; epoch {epoch} -> {answer.get('epoch')}; "
+              f"start (lease, recovery, a {snapshot_bytes}-byte snapshot) {seconds:.3f} s")
+        _require(report["performed"] and report["jobs_recovered"] == 0
+                 and report["last_lsn"] == records,
+                 f"{label} restart: recovery report {report} for {records} records")
+        _require(status == 200 and answer.get("epoch") == epoch + 1
+                 and answer.get("recovery") == report,
+                 f"{label} restart: /distributed/durability answered {status} {answer}")
+    finally:
+        _stop_on(master.loop, restarted)
+    return {"report": report, "epoch": answer.get("epoch"), "seconds": seconds}
+
+
+def _kill_master_run(torch, label: str, bundle, workflow, image, reference, uninterrupted,
+                     tmp: str, n_tiles: int, per_tile: int | None) -> dict:
+    """The SDXL upscale's master killed at its first submit, master + w1
+    (run_chaos_master_crash with the real tile processor, KILL_MASTER_PLAN,
+    CDT_JOURNAL_FSYNC=1), then recovered by a fresh master that drains the
+    job. Held to: the crash fired as scheduled; the recovery found the
+    job, requeued its in-flight tiles and restored w1's durable ones;
+    replay idempotent; the canvas within RERUN_TOLERANCE of the local
+    reference and within KILL_MASTER_VS_DURABLE of the uninterrupted
+    journaled run's; phase 2's attention launches `per_tile` a recomputed
+    tile (unchecked with `per_tile` None)."""
+    from comfyui_distributed_tpu_torch.durability.recovery import verify_idempotent_replay
+    from comfyui_distributed_tpu_torch.durability.snapshot import list_snapshots
+    from comfyui_distributed_tpu_torch.models import pipeline as pl
+    from comfyui_distributed_tpu_torch.ops import attention as attn
+    from comfyui_distributed_tpu_torch.resilience.chaos import TileWork, run_chaos_master_crash
+
+    o = _usdu_options(workflow)
+    with torch.inference_mode():
+        pos, neg = (pl.encode_text_pooled(
+            bundle, [workflow[workflow[USDU_NODE]["inputs"][side][0]]["inputs"]["text"]])
+            for side in ("positive", "negative"))
+    options = dict(upscale_by=float(o["upscale_by"]), tile=int(o["tile_width"]),
+                   tile_h=int(o["tile_height"]), padding=int(o["tile_padding"]),
+                   steps=int(o["steps"]), sampler=o["sampler_name"], scheduler=o["scheduler"],
+                   cfg=float(o["cfg"]), denoise=float(o["denoise"]), seed=int(o["seed"]),
+                   upscale_method=o["upscale_method"], mask_blur=int(o["mask_blur"]),
+                   tiled_decode=bool(o["tiled_decode"]), uniform=bool(o["force_uniform_tiles"]))
+    journal_dir = os.path.join(tmp, "kill-journal")
+    cuda = bundle.device.type == "cuda"
+
+    def on_phase(name: str) -> None:
+        if name == "phase 2":
+            if cuda:
+                torch.cuda.synchronize()
+            attn.reset_launch_counts()
+
+    result = run_chaos_master_crash(
+        seed=int(o["seed"]), crash_plan=KILL_MASTER_PLAN, journal_dir=journal_dir,
+        workers=("w1",), worker_timeout=ELASTIC_RUN_TIMEOUT_S, job_id="chip-smoke-kill",
+        snapshot_every=256, fsync_every=1, work=TileWork(bundle, image, pos, neg, options),
+        on_phase=on_phase)
+    launches = attn.flash_attention.launches
+    plan = f"seed={int(o['seed'])};{KILL_MASTER_PLAN}"
+    fires = _fired_as_scheduled(f"{label} kill", plan, result.fired, result.rule_matches)
+    report = result.report
+    out = torch.from_numpy(result.output)
+    recomputed = n_tiles - int(report["tasks_restored"])
+    vs_reference = float((out.float() - reference.float().cpu()).abs().max())
+    vs_uninterrupted = float((out.float() - uninterrupted.float().cpu()).abs().max())
+    snapshots = list_snapshots(journal_dir)
+    snapshot_bytes = os.path.getsize(snapshots[-1][1]) if snapshots else 0
+    idempotent = verify_idempotent_replay(journal_dir)
+    print(f"{label} kill the master: plan {plan!r}, fired by rule {fires} ("
+          f"{result.crash_error}); recovery {report}; phase 1 "
+          f"{result.phase_seconds['phase 1']:.2f} s, phase 2 "
+          f"{result.phase_seconds['phase 2']:.2f} s (its recovery and a {snapshot_bytes}-byte "
+          f"snapshot {result.phase_seconds['recovery']:.3f} s); phase 2 attention launches "
+          f"{launches} for {recomputed} recomputed tile(s); replay idempotent {idempotent}; "
+          f"max |diff| vs the local tiles composited alike {vs_reference:.3g} (tolerance "
+          f"{RERUN_TOLERANCE}), vs the uninterrupted journaled run {vs_uninterrupted:.3g} "
+          f"(bound {KILL_MASTER_VS_DURABLE})")
+    _require("crash" in result.fired_kinds(), f"{label}: the master was never killed")
+    _require(report["performed"] and report["jobs_recovered"] == 1
+             and report["tasks_requeued"] >= 1 and report["tasks_restored"] >= 1,
+             f"{label}: recovery {report}: not the job with w1's durable tile(s) restored and "
+             "the master's in-flight tile requeued")
+    _require(idempotent, f"{label}: the kill run's replay is not idempotent")
+    _require(tuple(out.shape) == tuple(reference.shape) and bool(torch.isfinite(out).all()),
+             f"{label}: the recovered canvas is {tuple(out.shape)} or not finite")
+    _require(vs_reference <= RERUN_TOLERANCE,
+             f"{label}: the recovered canvas disagrees with the local tiles")
+    _require(vs_uninterrupted < KILL_MASTER_VS_DURABLE,
+             f"{label}: the recovered canvas is {vs_uninterrupted:.3g} from the uninterrupted run")
+    if per_tile is not None:
+        _require(launches == per_tile * recomputed,
+                 f"{label}: phase 2 launched attention {launches} times, expected {per_tile} x "
+                 f"{recomputed} recomputed tiles")
+    return {"report": report, "phase_seconds": result.phase_seconds, "launches": launches,
+            "vs_uninterrupted": vs_uninterrupted, "snapshot_bytes": snapshot_bytes}
+
+
 def _chaos_phase(torch, device: str) -> dict:
     """The port's chaos harness (resilience/chaos.py) with its tensors on
     `device`: run_chaos_usdu fault-free twice, then each of
-    CHAOS_SCENARIOS, then run_chaos_poison under poison_policy "degrade"
-    beside a fault-free run at its geometry. One [chaos] line a scenario
-    (plan, fires by rule, crashed workers, seconds, max |diff| against
-    the fault-free canvas); any miss fails the run: a faulted canvas not
-    bit-equal to the fault-free one (the poison run's outside its
-    quarantined tile), a scripted rule that did not fire as scheduled,
-    other workers crashing than the scenario's, a stall scenario without
-    a stall and a speculative re-dispatch, or the poison tile not
-    quarantined after three crashes with every breaker pardoned."""
+    CHAOS_SCENARIOS, then run_chaos_master_crash at each of
+    CHAOS_MASTER_CRASH_PLANS, run_chaos_cancel, and run_chaos_poison
+    (journaled) under poison_policy "degrade" beside a fault-free run at
+    its geometry. One [chaos] line a scenario (plan, fires by rule,
+    crashed workers, seconds, max |diff| against the fault-free canvas);
+    any miss fails the run: a faulted or recovered canvas not bit-equal to
+    the fault-free one (the poison run's outside its quarantined tile), a
+    scripted rule that did not fire as scheduled, other workers crashing
+    than the scenario's, a stall scenario without a stall and a
+    speculative re-dispatch, a master crash that did not fire or a replay
+    that is not idempotent, a cancel that leaves a tile unrefunded or a
+    job in the journal or the replica, or the poison tile not quarantined
+    after three crashes (in the store and in the journal) with every
+    breaker pardoned."""
     import numpy as np
 
+    from comfyui_distributed_tpu_torch.durability.recovery import verify_idempotent_replay
     from comfyui_distributed_tpu_torch.resilience import faults
-    from comfyui_distributed_tpu_torch.resilience.chaos import run_chaos_poison, run_chaos_usdu
+    from comfyui_distributed_tpu_torch.resilience.chaos import (
+        run_chaos_cancel,
+        run_chaos_master_crash,
+        run_chaos_poison,
+        run_chaos_usdu,
+    )
 
     def timed(fn, **kwargs):
         if device.startswith("cuda"):
@@ -2515,7 +2913,46 @@ def _chaos_phase(torch, device: str) -> dict:
             _require(got.stalls and speculated,
                      f"[chaos] {name}: no stall ({got.stalls}) or no speculation {speculated}")
         result["seconds"][name] = seconds
-    poison, seconds = timed(run_chaos_poison, poison_policy="degrade")
+    with tempfile.TemporaryDirectory(prefix="cdt_chaos_") as tmp:
+        for name, plan in CHAOS_MASTER_CRASH_PLANS:
+            journal_dir = os.path.join(tmp, name)
+            got, seconds = timed(run_chaos_master_crash, crash_plan=plan, journal_dir=journal_dir)
+            fires = _fired_as_scheduled(f"[chaos] master-crash {name}",
+                                        f"seed={CHAOS_SEED};{plan}", got.fired, got.rule_matches)
+            idempotent = verify_idempotent_replay(journal_dir)
+            print(f"[chaos] master-crash {name}: plan {plan!r}; fired by rule {fires}; recovery "
+                  f"{got.report}; replay idempotent {idempotent}; {seconds:.2f} s; max |diff| vs "
+                  f"the fault-free canvas {max_diff(baseline, got.output):.3g}")
+            _require("crash" in got.fired_kinds() and got.report["jobs_recovered"] == 1,
+                     f"[chaos] master-crash {name}: fired {got.fired}, recovery {got.report}")
+            _require(idempotent, f"[chaos] master-crash {name}: replay is not idempotent")
+            _require(np.array_equal(baseline, got.output),
+                     f"[chaos] master-crash {name}: the recovered canvas is not the fault-free one")
+            result["seconds"][f"master-crash {name}"] = seconds
+        cancel, seconds = timed(run_chaos_cancel, journal_dir=os.path.join(tmp, "cancel"))
+        refund = cancel.accounting
+        print(f"[chaos] cancel: {cancel.raised} ({cancel.reason}) after "
+              f"{cancel.completed_before_cancel} tile(s); refunded "
+              f"{refund.get('pending_refunded')} pending + {refund.get('in_flight_refunded')} in "
+              f"flight in {cancel.cancel_latency_ms:.3f} ms; store after {cancel.stats_after}; "
+              f"jobs after it: journal {cancel.journal_jobs_after}, replica "
+              f"{cancel.replica_jobs_after} (the replica saw the cancel: "
+              f"{cancel.replica_saw_cancel}); replay idempotent {cancel.idempotent_replay}; "
+              f"{seconds:.2f} s")
+        _require(cancel.raised == "JobCancelled" and cancel.completed_before_cancel >= 2
+                 and refund.get("pending_refunded", 0) + refund.get("in_flight_refunded", 0) > 0
+                 and cancel.stats_after.get("in_flight") == 0
+                 and cancel.stats_after.get("queue_depth") == 0,
+                 f"[chaos] cancel: raised {cancel.raised!r}, refund {refund}, store after "
+                 f"{cancel.stats_after}")
+        _require(cancel.journal_jobs_after == {} and cancel.replica_jobs_after == {}
+                 and cancel.replica_saw_cancel and cancel.idempotent_replay,
+                 f"[chaos] cancel: journal {cancel.journal_jobs_after}, replica "
+                 f"{cancel.replica_jobs_after}, replica saw it {cancel.replica_saw_cancel}, "
+                 f"replay idempotent {cancel.idempotent_replay}")
+        result["seconds"]["cancel"] = seconds
+        poison, seconds = timed(run_chaos_poison, poison_policy="degrade",
+                                journal_dir=os.path.join(tmp, "poison"))
     geometry, clean_s = timed(run_chaos_usdu, image_hw=(96, 96), tile=48, padding=16,
                               job_id="chaos-poison-baseline")
     y, x, th, tw = poison.poison_rect
@@ -2525,16 +2962,18 @@ def _chaos_phase(torch, device: str) -> dict:
     inside = max_diff(poison.output[region], geometry.output[region])
     states = {wid: snap["state"] for wid, snap in poison.health_after.items()}
     print(f"[chaos] poison (degrade): crashed {poison.crashed_workers}, attempts "
-          f"{poison.attempts}, quarantined {poison.quarantined}, pardons {poison.pardons}, "
+          f"{poison.attempts}, quarantined {poison.quarantined} (journal "
+          f"{poison.journal_quarantined}), pardons {poison.pardons}, "
           f"breakers after {states}; {seconds:.2f} s (fault-free at its geometry {clean_s:.2f} "
           f"s); max |diff| vs the fault-free canvas outside tile {poison.poison_tile} "
           f"{max_diff(poison.output[outside], geometry.output[outside]):.3g}, inside "
           f"{inside:.3g} (the base image)")
     _require(poison.crashed_workers == ["w1", "w2", "w3"]
              and poison.attempts.get(poison.poison_tile) == 3
-             and poison.poison_tile in poison.quarantined,
+             and poison.poison_tile in poison.quarantined
+             and poison.journal_quarantined == poison.quarantined,
              f"[chaos] poison: crashed {poison.crashed_workers}, attempts {poison.attempts}, "
-             f"quarantined {poison.quarantined}")
+             f"quarantined {poison.quarantined}, in the journal {poison.journal_quarantined}")
     _require(sorted(poison.pardons) == ["w1", "w2", "w3"]
              and set(states.values()) == {"healthy"},
              f"[chaos] poison: pardons {poison.pardons}, breakers {states}")
@@ -6480,6 +6919,7 @@ def _run(torch, phases: set, unet_cuts: dict) -> int:
             torch, bundle, ckpt, workflow, prompt["5"]["inputs"]["image"], outputs[1], "cuda",
             expected_launches=n_tiles * per_tile, expected_by_instance=expected_by_instance,
             local_tiles_per_s=main_tiles_per_s, drain=True, incident=True, faults=True,
+            durable=True,
         )
         phase_seconds["elastic"] = time.perf_counter() - phase_started
     # phase 4's SDXL is not needed again

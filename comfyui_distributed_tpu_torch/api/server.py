@@ -46,7 +46,21 @@ api/httpd.py instead of aiohttp. It owns:
   scheduler, breakers and fleet plane, whose trigger tap and writer
   thread start with the server and stop with it. The incident and
   profiler-capture routes (api/incident_routes.py,
-  api/profile_routes.py) answer on every server.
+  api/profile_routes.py) answer on every server;
+- the durable control plane, as the JAX server wires it: a master with
+  CDT_JOURNAL_DIR builds a `DurabilityManager` (a worker never
+  journals), whose append latency feeds the brownout's and the SLO
+  engine's journal windows. Before the listener opens, `start()` takes
+  the master lease (`quorum_lease_from_env` under CDT_LEASE_PEERS, else
+  the flock'd `Lease` on the journal directory; forced, epoch + 1),
+  recovers the store from the journal and attaches the write-ahead seam
+  (`journal_sink`, `on_worker_seen`), then renews the lease every ttl/3
+  on the loop; a `LeaseLost` deposes the server (`deposed`, the
+  `master_deposed` event) and the seam's fencing refuses every later
+  append. `stop()` detaches the seam and closes the journal last, after
+  the listener and the executor, off the loop, then releases the lease.
+  The store's RPCs are not gated on the lease's epoch yet (ROADMAP Queue
+  1 step 7g).
 
 The same server runs on master and workers; a prompt's hidden inputs
 (written by the orchestration) decide each node's role. `device` is
@@ -56,6 +70,7 @@ where the nodes run: the card unless the caller asks for the CPU.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import os
 import queue as thread_queue
 import threading
@@ -109,6 +124,8 @@ class DistributedServer:
         # breaker → store: a quarantined worker's tiles requeue at once
         self._unbind_health = bind_quarantine_requeue(get_health_registry(), self.job_store)
         self._wire_control_plane()
+        # before the incident plane: its manager binds the durability status
+        self._wire_durability()
         self._wire_incident_plane()
         self.router = Router()
         self.http: Optional[HTTPServer] = None
@@ -126,8 +143,8 @@ class DistributedServer:
 
     def _wire_control_plane(self) -> None:
         """The scheduler, preemption, watchdog and fleet plane, wired to
-        the store as the JAX server wires them (without the region plane
-        and the journal)."""
+        the store as the JAX server wires them (without the region plane;
+        the journal is `_wire_durability`'s)."""
         from ..resilience.health import get_health_registry
         from ..scheduler import PreemptionCoordinator, SchedulerControl
         from ..telemetry.watchdog import Watchdog
@@ -186,6 +203,91 @@ class DistributedServer:
             if self.fleet.usage is not None:
                 # CDT_USAGE_COST: DRR cost meters a tenant's measured burn
                 self.scheduler.usage_cost = self.fleet.usage.cost_ratio
+
+    def _wire_durability(self) -> None:
+        """On a master with CDT_JOURNAL_DIR, the DurabilityManager (files
+        and the lease come in start()), its append latency fanned out to
+        the brownout's journal window and, with the fleet plane, to the
+        journal_latency SLO."""
+        from ..durability import DurabilityManager, journal_dir_from_env
+
+        self.durability: Optional[DurabilityManager] = None
+        # the lease renewal task, and whether a LeaseLost deposed this server
+        self._lease_task: Optional[asyncio.Task] = None
+        self.deposed = False
+        journal_dir = journal_dir_from_env()
+        if not journal_dir or self.is_worker:
+            return
+        self.durability = DurabilityManager(journal_dir, scheduler=self.scheduler)
+        sinks = [self.scheduler.brownout.note_journal_append]
+        if self.slo is not None:
+            slo_engine = self.slo
+            sinks.append(lambda seconds: slo_engine.note_latency("journal_latency", seconds))
+
+        def journal_latency_fan_out(seconds: float) -> None:
+            for sink in sinks:
+                sink(seconds)
+
+        self.durability.append_latency_sink = journal_latency_fan_out
+
+    async def _start_durability(self) -> None:
+        """Take the lease (epoch + 1: the newest claimant on the journal
+        directory wins; a deposed holder is fenced by the bump), recover
+        the store from the journal, attach the seam, start renewing."""
+        from ..durability import Lease, quorum_lease_from_env
+
+        manager = self.durability
+        owner = f"master:{self.host}:{self.port}:{os.getpid()}"
+        lease = quorum_lease_from_env(owner) or Lease(manager.directory, owner=owner)
+        await asyncio.to_thread(lease.acquire, True)
+        manager.lease = lease
+        # on the loop, as nothing serves yet: the store's jobs and queues
+        # are made where they will be used
+        manager.recover(self.job_store, scheduler=self.scheduler)
+        self.job_store.journal_sink = manager.record
+        self.job_store.on_worker_seen = manager.note_worker_activity
+        self._lease_task = asyncio.get_running_loop().create_task(
+            self._renew_lease_loop(), name="cdt-lease-renew")
+
+    async def _renew_lease_loop(self) -> None:
+        """Renew the lease every ttl/3, off the loop. A LeaseLost (another
+        claimant took it) deposes this master: renewal stops and the
+        journal seam's fencing refuses every later append; any other
+        failure is retried."""
+        from ..durability import LeaseLost
+
+        lease = self.durability.lease
+        while True:
+            await asyncio.sleep(max(0.1, lease.ttl / 3.0))
+            try:
+                await asyncio.to_thread(lease.renew)
+            except LeaseLost as exc:
+                self.deposed = True
+                log(f"master DEPOSED: {exc}; journal appends are fenced, this process serves "
+                    "no further authoritative writes")
+                from ..telemetry.events import get_event_bus
+
+                get_event_bus().publish("master_deposed", owner=lease.owner, port=self.port)
+                return
+            except Exception as exc:  # noqa: BLE001 - renewal retries
+                debug_log(f"lease renewal failed (will retry): {exc}")
+
+    async def _stop_durability(self) -> None:
+        """Detach the seam and close the journal (off the loop: it may
+        fsync), then release the lease so the next claimant need not wait
+        out its TTL. A failure here is logged, not raised."""
+        manager = self.durability
+        self.job_store.journal_sink = None
+        self.job_store.on_worker_seen = None
+        try:
+            await asyncio.to_thread(manager.close)
+        except Exception as exc:  # noqa: BLE001 - reported, not fatal
+            log(f"durability close failed during shutdown: {exc}")
+        if manager.lease is not None:
+            try:
+                await asyncio.to_thread(manager.lease.release)
+            except Exception as exc:  # noqa: BLE001 - best effort
+                debug_log(f"lease release failed during shutdown: {exc}")
 
     def _wire_incident_plane(self) -> None:
         """The flight recorder on every server; on a master with
@@ -368,6 +470,10 @@ class DistributedServer:
         placement = self.job_store.placement  # the scheduler's placement policy
         if PUSH_GRANTS_ENABLED and not self.is_worker and placement is not None:
             self.job_store.grant_notifier = placement.notify_grants
+        if self.durability is not None:
+            # before the executor and the listener: no transition races
+            # the replay, and every one after it is journaled
+            await self._start_durability()
         self._executor_thread = threading.Thread(target=self._executor_loop,
                                                  name="cdt-executor", daemon=True)
         self._executor_thread.start()
@@ -389,7 +495,13 @@ class DistributedServer:
 
     async def stop(self) -> None:
         """Stop listening, then let the executor finish its prompt and exit
-        (joined off the loop: a prompt in flight still needs the loop)."""
+        (joined off the loop: a prompt in flight still needs the loop);
+        the journal closes last."""
+        if self._lease_task is not None:
+            self._lease_task.cancel()
+            with contextlib.suppress(asyncio.CancelledError, Exception):
+                await self._lease_task
+            self._lease_task = None
         if self.http is not None:
             await self.http.stop()
             self.http = None
@@ -414,6 +526,10 @@ class DistributedServer:
             if self._executor_thread.is_alive():
                 log("executor thread still running 30 s after stop")
             self._executor_thread = None
+        if self.durability is not None:
+            # last: every transition acknowledged during shutdown (late
+            # worker RPCs, the prompt's cleanup) was journaled
+            await self._stop_durability()
 
 
 def _jsonable_outputs(outputs: dict | None) -> dict:

@@ -32,10 +32,12 @@ store's counts), then every event the bus fans out to the connection's
 subscription, an `events_dropped` notice before the first event after
 the subscription's queue dropped some, until the client closes. Push
 grants ride it (graph/usdu_elastic.py::GrantSignal).
-Not registered, so it answers 404 as the port's other unported routes
-do: /distributed/durability (ROADMAP.md, Queue 1 step 7f). The
-profiler-capture routes are api/profile_routes.py, the incident routes
-api/incident_routes.py.
+/distributed/durability is the durable control plane's status
+(durability/manager.py::DurabilityManager.status): `{"enabled": false,
+"hint"}` on a server without a journal, `role` "deposed" once a lost
+lease deposed the server. The standby's view of it comes with ROADMAP
+Queue 1 step 7g. The profiler-capture routes are api/profile_routes.py,
+the incident routes api/incident_routes.py.
 """
 
 from __future__ import annotations
@@ -77,6 +79,7 @@ def register(router: Router, server) -> None:
     router.add_get("/distributed/fleet", routes.fleet)
     router.add_get("/distributed/alerts", routes.alerts)
     router.add_get("/distributed/usage", routes.usage)
+    router.add_get("/distributed/durability", routes.durability)
     router.add_get("/distributed/events", routes.events)
     router.add_get("/distributed/cache", routes.cache)
     router.add_post("/distributed/cache/clear", routes.cache_clear)
@@ -89,6 +92,19 @@ class TelemetryRoutes:
     async def metrics(self, request: Request) -> Response:
         body = get_metrics_registry().render()
         return Response.raw(body.encode("utf-8"), PROMETHEUS_CONTENT_TYPE)
+
+    async def durability(self, request: Request) -> Response:
+        """The journal's head and segments, the last snapshot's lsn and
+        age, the post-recovery admission hold, the last recovery's report,
+        the lease's `role` (active | deposed) and fencing `epoch`, and the
+        replication subscriptions."""
+        manager = getattr(self.server, "durability", None)
+        if manager is None:
+            return json_response({"enabled": False, "hint": "set CDT_JOURNAL_DIR to enable"})
+        status = manager.status()
+        if getattr(self.server, "deposed", False):
+            status["role"] = "deposed"
+        return json_response(status)
 
     @staticmethod
     def _since(request: Request) -> tuple[float | None, Response | None]:

@@ -1,8 +1,10 @@
 """Job state dataclasses (the port's own copy of the fields of
 comfyui_distributed_tpu/jobs/models.py that its store keeps).
 
-Left out with the store operations that use them: fencing epochs, the
-journal, preemption checkpoints and the cross-job tier.
+Left out with the store operations that use them: fencing epochs (ROADMAP
+Queue 1 step 7g), preemption checkpoints and the cross-job tier. A job
+recovered from the journal is built here by durability/state.py::
+materialize.
 """
 
 from __future__ import annotations

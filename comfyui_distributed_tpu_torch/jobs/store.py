@@ -65,9 +65,25 @@ injector) is consulted as in the JAX store: store:pull:<id> once a pull
 RPC, store:submit:<id> once a submitted tile, and store:heartbeat:<id>
 wherever a heartbeat is recorded (a `drop` there swallows the beat).
 
-Left out: fencing epochs, the write-ahead journal, preemption
+Every state transition emits one typed record into the optional
+`journal_sink` (durability/manager.py::DurabilityManager.record) under
+the store lock, at the point it commits and before it is acknowledged:
+`job_init`, `pull` (a grant's first task, then one record for the rest
+of it), `submit` (the first result only: a duplicate journals nothing),
+`cache_settle`, `worker_done`, `cleanup`, `cancel` (after which the
+job's late submissions, releases and requeues journal nothing),
+`requeue` (reason timeout, quarantine or released), `tile_quarantine`
+and `speculate`; the records and their fields are the JAX store's. A
+sink failure propagates: nothing is acknowledged that was not made
+durable. `on_worker_seen` (not journaled) hears of every recorded
+heartbeat, so a recovered master resumes admission when a worker shows
+life. Port-only paths journal nothing, as the JAX store has no such
+transition: `drop_late`, the route's answer for a finished job.
+
+Left out: fencing epochs (ROADMAP Queue 1 step 7g), preemption
 checkpoints (their take, retain and resume), and the cross-job tier and
-its multi-job grants (with their fault site in `pull_tasks_any`).
+its multi-job grants (with their fault site and `pull` record in
+`pull_tasks_any`).
 
 Every accepted completion is recorded with its participant
 (`TileJob.completions`); on cleanup a job's record moves to
@@ -177,6 +193,17 @@ class JobStore:
         # push grants: called with (job_id, task count) on every refill of
         # a pending queue; must not block (None = off)
         self.grant_notifier: Optional[Callable[[str, int], None]] = None
+        # the write-ahead seam: called with one typed record a committed
+        # transition, before it is acknowledged (None = no journal)
+        self.journal_sink: Optional[Callable[[dict[str, Any]], None]] = None
+        # called with the worker id of every recorded heartbeat (not
+        # journaled; None = off)
+        self.on_worker_seen: Optional[Callable[[str], None]] = None
+
+    def _journal(self, record: dict[str, Any]) -> None:
+        sink = self.journal_sink
+        if sink is not None:
+            sink(record)
 
     def _notify_grants(self, job_id: str, count: int) -> None:
         notifier = self.grant_notifier
@@ -250,6 +277,12 @@ class JobStore:
             return
         job.heartbeat(worker_id)
         instruments.store_heartbeats_total().inc(worker_id=worker_id)
+        seen = self.on_worker_seen
+        if seen is not None:
+            try:
+                seen(worker_id)
+            except Exception as exc:  # noqa: BLE001 - liveness is advisory
+                debug_log(f"on_worker_seen({worker_id}) failed: {exc}")
 
     # --- creation signalling ----------------------------------------------
 
@@ -479,6 +512,9 @@ class JobStore:
             if deadline_s is not None and deadline_s > 0:
                 job.deadline_s = float(deadline_s)
                 job.deadline_at = time.monotonic() + float(deadline_s)
+            self._journal({"type": "job_init", "job": job_id, "kind": kind, "batched": batched,
+                           "tasks": [int(t) for t in task_ids], "deadline_s": job.deadline_s,
+                           "lane": job.lane, "tenant": job.tenant, "adapters": job.adapters})
             for tid in task_ids:
                 job.pending.put_nowait(tid)
             self.tile_jobs[job_id] = job
@@ -545,6 +581,9 @@ class JobStore:
             return []
         settled = [int(t) for t in task_ids
                    if int(t) not in job.completed and int(t) not in job.quarantined_tiles]
+        if not settled:
+            return []
+        self._journal({"type": "cache_settle", "job": job.job_id, "tasks": settled})
         for tid in settled:
             job.completed[tid] = None
             job.cached_tiles.add(tid)
@@ -628,9 +667,12 @@ class JobStore:
         async with self.lock:
             self._record_heartbeat(job, worker_id)
             if job.cancelled:
-                # raced the cancel: the task is part of the refund
+                # raced the cancel: the task is part of the refund (and
+                # journals nothing after the cancel record)
                 instruments.store_pulls_total().inc(worker_id=worker_id, outcome="cancelled")
                 return None
+            self._journal({"type": "pull", "job": job_id, "worker": worker_id,
+                           "tasks": [int(task_id)]})
             job.assigned.setdefault(worker_id, set()).add(task_id)
             job.assigned_at[(worker_id, task_id)] = time.monotonic()
         instruments.store_pulls_total().inc(worker_id=worker_id, outcome="task")
@@ -657,6 +699,7 @@ class JobStore:
             size = min(size, int(limit))
         if job is not None and size > 1:
             async with self.lock:
+                extra: list[int] = []
                 while len(tasks) < size and not job.cancelled:
                     try:
                         task_id = job.pending.get_nowait()
@@ -668,6 +711,12 @@ class JobStore:
                     job.assigned_at[(worker_id, task_id)] = time.monotonic()
                     instruments.store_pulls_total().inc(worker_id=worker_id, outcome="task")
                     tasks.append(task_id)
+                    extra.append(int(task_id))
+                if extra:
+                    # one record for the rest of the grant, under the lock
+                    # its claims were made in
+                    self._journal({"type": "pull", "job": job_id, "worker": worker_id,
+                                   "tasks": extra})
         return tasks
 
     # --- preemption (scheduler/preempt.py drives these) ---------------------
@@ -771,6 +820,9 @@ class JobStore:
             if duplicate:
                 job.duplicates += 1
             else:
+                # the winner alone is journaled, at the instant it wins
+                self._journal({"type": "submit", "job": job_id, "worker": worker_id,
+                               "task": int(task_id), "payload": payload})
                 job.completed[task_id] = payload
                 job.completions.append((int(task_id), worker_id))
                 # a late copy finishing after its tile was quarantined
@@ -838,6 +890,8 @@ class JobStore:
         if job is None:
             return
         async with self.lock:
+            if worker_id not in job.finished_workers and not job.cancelled:
+                self._journal({"type": "worker_done", "job": job_id, "worker": worker_id})
             job.finished_workers.add(worker_id)
 
     async def heartbeat(self, job_id: str, worker_id: str) -> bool:
@@ -881,6 +935,7 @@ class JobStore:
             job = self.tile_jobs.pop(job_id, None)
             if job is None:
                 return
+            self._journal({"type": "cleanup", "job": job_id})
             self._remember_finished_locked(job_id, {
                 "total": job.total_tasks,
                 "cached": sorted(job.cached_tiles),
@@ -935,6 +990,9 @@ class JobStore:
             if job.cancelled:
                 return {"job_id": job_id, "reason": job.cancel_reason, "already_cancelled": True,
                         "pending_refunded": 0, "in_flight_refunded": 0, "workers": []}
+            # before any refund is acknowledged: replaying the record
+            # refunds everything itself
+            self._journal({"type": "cancel", "job": job_id, "reason": str(reason)})
             job.cancelled = True
             job.cancel_reason = str(reason)
             pending_refunded = 0
@@ -1050,6 +1108,8 @@ class JobStore:
         incomplete = sorted(t for t in tasks if t not in job.completed)
         if not incomplete:
             return incomplete
+        self._journal({"type": "requeue", "job": job.job_id, "worker": worker_id,
+                       "tasks": incomplete, "reason": reason})
         poisoned = []
         for tid in incomplete:
             job.attempts[tid] = job.attempts.get(tid, 0) + 1
@@ -1057,6 +1117,9 @@ class JobStore:
             if job.attempts[tid] >= max(1, self.max_attempts):
                 poisoned.append(tid)
         if poisoned:
+            # after the requeue record, as the live store orders them
+            self._journal({"type": "tile_quarantine", "job": job.job_id,
+                           "tasks": [int(t) for t in poisoned]})
             job.quarantined_tiles.update(poisoned)
             victims = sorted({w for t in poisoned for w in job.attempt_workers.get(t, [])})
             self._poison_notices.append((job.job_id, poisoned, victims))
@@ -1123,12 +1186,16 @@ class JobStore:
             if job.cancelled:
                 return []
             assigned = job.assigned.get(worker_id, set())
-            for tid in sorted(int(t) for t in task_ids):
-                if tid in assigned and tid not in job.completed:
-                    assigned.discard(tid)
-                    job.assigned_at.pop((worker_id, tid), None)
-                    job.pending.put_nowait(tid)
-                    released.append(tid)
+            claimable = [tid for tid in sorted(int(t) for t in task_ids)
+                         if tid in assigned and tid not in job.completed]
+            if claimable:
+                self._journal({"type": "requeue", "job": job_id, "worker": worker_id,
+                               "tasks": claimable, "reason": "released"})
+            for tid in claimable:
+                assigned.discard(tid)
+                job.assigned_at.pop((worker_id, tid), None)
+                job.pending.put_nowait(tid)
+                released.append(tid)
         if released:
             instruments.store_requeued_tasks_total().inc(len(released), worker_id=worker_id,
                                                          reason="released")
@@ -1154,6 +1221,9 @@ class JobStore:
                     if tid in job.completed or tid in job.speculated:
                         continue
                     per_worker.setdefault(wid, []).append(tid)
+            flat = sorted(t for tids in per_worker.values() for t in tids)
+            if flat:
+                self._journal({"type": "speculate", "job": job_id, "tasks": flat})
             for tids in per_worker.values():
                 for tid in tids:
                     job.speculated.add(tid)

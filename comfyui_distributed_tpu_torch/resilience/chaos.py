@@ -2,11 +2,12 @@
 scripted fault plan, hermetic (no sockets, no model).
 
 The port's own copy of the scenarios of comfyui_distributed_tpu/
-resilience/chaos.py whose modules the port has: `run_chaos_usdu` and
-`run_chaos_poison`. The harness runs `run_master_elastic` against worker
-THREADS that pull from the same JobStore (the production protocol
-shape) while a seeded `FaultInjector` kills workers mid-tile, injects
-latency, or drops heartbeats on a scripted schedule. The assertion chaos
+resilience/chaos.py whose modules the port has: `run_chaos_usdu`,
+`run_chaos_poison`, `run_chaos_master_crash` and `run_chaos_cancel`. The
+harness runs `run_master_elastic` against worker THREADS that pull from
+the same JobStore (the production protocol shape) while a seeded
+`FaultInjector` kills workers mid-tile, injects latency, or drops
+heartbeats on a scripted schedule. The assertion chaos
 tests make is strong: the blended output of a faulted run is
 BIT-IDENTICAL to the fault-free run.
 
@@ -37,13 +38,24 @@ Fault-plan op names the harness exposes (resilience/faults.py grammar):
                             master never sees the beat)
     store:pull:<id> / store:submit:<id>   JobStore RPC surfaces
 
+`run_chaos_master_crash` extends the harness to the MASTER's own death:
+phase 1 runs the elastic loop with the write-ahead journal attached and
+a fault plan that kills the master mid-job (after a pull, or after a
+partial submit: `crash@store:pull:master#k` / `crash@store:submit:
+master#k`); phase 2 is the restarted process, a fresh JobStore recovered
+from the journal directory, which drains the job. The acceptance is the
+same bit-identical canvas the worker-crash scenarios give. Its `work`
+keyword (port-only) runs a real model's tile processor instead of the
+stub, as the card's smoke run does on SDXL. `run_chaos_cancel` cancels a
+job mid-flight with the journal attached and a standby replica teed in.
+
 Tensors live on `device`: the card unless the caller asks for the CPU
 (the tests do). Arguments whose modules the port has not got yet raise
 NotImplementedError naming the ROADMAP step that brings them back:
 `tile_batch` > 1 (step 7b: the port's GrantSampler is K = 1),
-`mesh_devices` > 1 (step 8), `journal_dir` (step 7f) and `device_canvas`
-(step 7j). The JAX harness's master-crash, failover, region, cancel and
-cross-job scenarios come back with the steps that port their modules.
+`mesh_devices` > 1 (step 8) and `device_canvas` (step 7j). The JAX
+harness's failover, region and cross-job scenarios come back with the
+steps that port their modules.
 """
 
 from __future__ import annotations
@@ -68,7 +80,6 @@ _WAITING = {
     "tile_batch": "step 7b (the cross-job tier: the port's GrantSampler runs one tile a "
                   "dispatch, K = 1)",
     "mesh_devices": "step 8 (the mesh tier)",
-    "journal_dir": "step 7f (durability/: the write-ahead journal)",
     "device_canvas": "step 7j (DeviceCanvas)",
 }
 
@@ -309,13 +320,15 @@ def run_chaos_usdu(
     `prefetch=True` enables the one-grant-ahead pull stage. Defaults keep
     claim timing deterministic (no prefetch).
 
+    `journal_dir`: the store journals every transition into a
+    DurabilityManager on that directory (closed when the run ends).
+
     Every run restores the process-wide tracer, usage meter, tile cache
     and environment, also when it raises; the injector it builds is the
     store's and the harness's own, never installed process-wide.
     """
     _refuse_waiting(tile_batch=(tile_batch, int(tile_batch) > 1),
                     mesh_devices=(mesh_devices, int(mesh_devices) > 1),
-                    journal_dir=(journal_dir, bool(journal_dir)),
                     device_canvas=(device_canvas, bool(device_canvas)))
     from ..graph import ExecutionContext
     from ..graph import usdu_elastic as elastic
@@ -330,6 +343,13 @@ def run_chaos_usdu(
     dev = torch.device(device)
     injector = FaultInjector(fault_plan) if fault_plan else None
     store = JobStore(fault_injector=injector)
+    durability = None
+    if journal_dir:
+        # the standard scenarios with the write-ahead seam attached
+        from ..durability import DurabilityManager
+
+        durability = DurabilityManager(journal_dir)
+        store.journal_sink = durability.record
     wd = None
     wd_health = None
     latency_sinks: list[Callable[[str, float], None]] = []
@@ -567,6 +587,8 @@ def run_chaos_usdu(
         raise
     finally:
         set_tracer(previous_tracer)
+        if durability is not None:
+            durability.close()
     if slo_engine is not None and slo_engine.is_active("tile_latency"):
         # the straggler is quarantined and the job is done: no new bad
         # samples can arrive, so evaluation must resolve the alert once
@@ -620,6 +642,258 @@ def run_chaos_usdu(
 
 
 # --------------------------------------------------------------------------
+# kill-the-master scenarios (durable control plane acceptance)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TileWork:
+    """A real model's tile work for `run_chaos_master_crash(work=...)`, in
+    place of the stub processor: the bundle, the [B, H, W, C] input, the
+    conditioning as the USDU node receives it, and the node's sampling
+    arguments as run_master_elastic takes them (upscale_by, tile, tile_h,
+    padding, steps, sampler, scheduler, cfg, denoise, seed,
+    upscale_method, mask_blur, tiled_decode, uniform)."""
+
+    bundle: Any
+    image: Any
+    pos: Any
+    neg: Any
+    options: dict
+
+
+@dataclasses.dataclass
+class MasterCrashResult:
+    """Outcome of a two-phase kill-the-master run: the recovered
+    canvas, what recovery found, and proof the crash actually fired."""
+
+    output: np.ndarray
+    report: dict
+    crash_error: str
+    fired: list[FaultAction]
+    # seconds of the dying master's run (to its crash, the workers joined),
+    # of the restarted master's drain, and of its recovery within it (the
+    # replay and the snapshot it writes)
+    phase_seconds: dict = dataclasses.field(default_factory=dict)
+    # the ops each rule of the plan matched, in plan order
+    rule_matches: list[int] = dataclasses.field(default_factory=list)
+
+    def fired_kinds(self) -> set[str]:
+        return {a.kind for a in self.fired}
+
+
+def run_chaos_master_crash(
+    seed: int = 0,
+    crash_plan: str = "crash@store:pull:master#3",
+    *,
+    journal_dir: str,
+    workers: Sequence[str] = ("w1", "w2"),
+    image_hw: tuple[int, int] = (64, 64),
+    tile: int = 64,
+    padding: int = 16,
+    upscale_by: float = 2.0,
+    worker_timeout: float = 0.6,
+    job_id: str = "chaos-crash-job",
+    snapshot_every: int = 4,
+    fsync_every: int = 0,
+    device: str = "cuda",
+    noise: Optional[Callable[[int, tuple], Any]] = None,
+    work: Optional[TileWork] = None,
+    on_phase: Optional[Callable[[str], None]] = None,
+) -> MasterCrashResult:
+    """SIGKILL-the-master simulation, in process and deterministic.
+
+    Phase 1 (the process that dies): the elastic USDU loop runs with the
+    write-ahead journal attached (`journal_dir`) under a fault plan that
+    raises out of one of the MASTER's own store RPCs
+    (`crash@store:pull:master#k` = killed after k-1 successful pulls,
+    `crash@store:submit:master#k` = killed after a partial submit). The
+    abandoned JobStore, like the dead process's memory, is discarded
+    with its journal seam detached; worker threads are orphaned
+    mid-flight as a real master SIGKILL orphans them, then drained out.
+
+    Phase 2 (the restarted process): a FRESH JobStore is recovered from
+    `journal_dir` (snapshot + WAL tail; in-flight and master-volatile
+    tiles requeue, durable worker payloads restore to the results queue)
+    and a fresh master loop drains the job with no workers.
+
+    Per-tile noise by global tile index makes recomputed tiles reproduce
+    exactly; restored worker tiles travel the PNG envelope (lossless for
+    the stub's 1/255 grid); the deterministic blend makes compositing
+    order irrelevant. So the canvas equals an uninterrupted run's.
+
+    `device` and `noise` as in run_chaos_usdu. `work` (port-only) runs
+    the given model's tile processor on the bundle's device instead of
+    the stub, with its image, conditioning and sampling arguments
+    (`image_hw`, `tile`, `padding`, `upscale_by`, `seed`'s noise and
+    `device` are then the work's). `on_phase(name)` is called with
+    "phase 1" and "phase 2" just before each phase starts.
+    """
+    from ..durability import DurabilityManager
+    from ..graph import ExecutionContext
+    from ..graph import usdu_elastic as elastic
+    from ..graph.tile_pipeline import GrantSampler, TilePipeline
+    from ..jobs import JobStore
+    from ..ops import upscale as upscale_ops
+    from ..utils import image as img_utils
+    from ..utils.async_helpers import run_async_in_server_loop
+    from ..utils.exceptions import JobQueueError
+
+    if work is None:
+        dev = torch.device(device)
+        h, w = image_hw
+        image = _seeded_image(seed, h, w, dev)
+        pos = neg = torch.zeros((1, 4, 8), dtype=torch.float32, device=dev)
+        bundle = _stub_bundle(dev)
+        options = dict(upscale_by=upscale_by, tile=tile, padding=padding, steps=1,
+                       sampler="euler", scheduler="karras", cfg=1.0, denoise=0.3, seed=seed)
+        tile_noise = noise or upscale_ops.default_noise(seed, dev)
+        grid, extracted = _worker_tiles(image, upscale_by, tile, padding)
+        process, worker_pos, worker_neg = _stub_process, None, None
+    else:
+        bundle, image, pos, neg = work.bundle, work.image, work.pos, work.neg
+        options = dict(work.options)
+        tile_noise = noise or upscale_ops.default_noise(int(options["seed"]), bundle.device)
+        with torch.inference_mode():
+            _, grid, extracted, worker_pos, worker_neg = elastic._prepare(
+                bundle, image, pos, neg, float(options["upscale_by"]), int(options["tile"]),
+                int(options["padding"]), options.get("upscale_method", "bicubic"),
+                options.get("tile_h"), int(options.get("mask_blur", 0)),
+                bool(options.get("uniform", True)))
+        process = elastic._tile_processor(
+            bundle, grid, int(options["steps"]), options["sampler"], options["scheduler"],
+            float(options["cfg"]), float(options["denoise"]),
+            bool(options.get("tiled_decode", False)))
+    ready = threading.Barrier(len(workers) + 1, timeout=60)
+
+    def worker_body(store: Any, wid: str) -> None:
+        ready.wait()
+        job = run_async_in_server_loop(store.wait_for_tile_job(job_id, grace_seconds=20),
+                                       timeout=30)
+        if job is None:
+            return
+        sampler = GrantSampler(process, extracted, grid.positions, worker_pos, worker_neg,
+                               tile_noise, role="worker", job_id=job_id)
+        flush_pending: dict[int, list] = {}
+
+        def pull():
+            return run_async_in_server_loop(
+                store.pull_tasks(job_id, wid, timeout=0.2), timeout=10) or None
+
+        def sample(chunk):
+            with torch.inference_mode():
+                return sampler.sample(chunk)
+
+        def emit(tile_idx, arr):
+            flush_pending[int(tile_idx)] = [
+                {"batch_idx": i, "image": img_utils.encode_image_data_url(arr[i])}
+                for i in range(arr.shape[0])
+            ]
+
+        def flush(is_final):
+            if not flush_pending:
+                return
+            grouped = dict(flush_pending)
+            flush_pending.clear()
+            run_async_in_server_loop(store.submit_flush(job_id, wid, grouped), timeout=10)
+
+        def heartbeat():
+            try:
+                run_async_in_server_loop(store.heartbeat(job_id, wid), timeout=10)
+            except Exception:  # noqa: BLE001 - liveness is best effort
+                pass
+
+        try:
+            TilePipeline(pull=pull, sample=sample, chunks=sampler.chunks,
+                         to_host=sampler.collect, emit=emit, flush=flush, heartbeat=heartbeat,
+                         role="worker", span_attrs={"worker_id": wid}, threaded=False).run()
+        except JobQueueError:
+            pass  # the dead master's job was torn down under us
+
+    def run_master(store: Any) -> torch.Tensor:
+        ctx = ExecutionContext(
+            device=str(bundle.device), server=types.SimpleNamespace(job_store=store),
+            config={"workers": [], "settings": {"worker_timeout_seconds": worker_timeout}})
+        return elastic.run_master_elastic(bundle, image, pos, neg, job_id=job_id,
+                                          enabled_worker_ids=[], context=ctx,
+                                          noise=tile_noise, **options)
+
+    injector = FaultInjector(f"seed={seed};{crash_plan}")
+    crash_error = ""
+    phase_seconds: dict[str, float] = {}
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_ensure_server_loop())
+        if work is None:
+            _elastic_patches(stack, elastic)
+        else:
+            stack.enter_context(mock.patch.dict(os.environ, {"CDT_DETERMINISTIC_BLEND": "1"}))
+
+        # --- phase 1: the master that dies ---------------------------------
+        if on_phase is not None:
+            on_phase("phase 1")
+        started = time.perf_counter()
+        store1 = JobStore(fault_injector=injector)
+        manager1 = DurabilityManager(journal_dir, snapshot_every=snapshot_every,
+                                     fsync_every=fsync_every)
+        store1.journal_sink = manager1.record
+        threads = [threading.Thread(target=worker_body, args=(store1, wid), daemon=True)
+                   for wid in workers]
+        for t in threads:
+            t.start()
+        try:
+            ready.wait()
+            run_master(store1)
+            raise RuntimeError(f"master crash plan {crash_plan!r} never fired; the scenario "
+                               "would be vacuous")
+        except FaultInjected as exc:
+            crash_error = str(exc)
+            debug_log(f"chaos master died: {exc}")
+        finally:
+            # the dead process takes its journal seam with it: late worker
+            # submissions against the abandoned store are lost as they would
+            # be against a closed socket (recovery requeues them)
+            store1.journal_sink = None
+
+            async def _teardown():
+                async with store1.lock:
+                    store1.tile_jobs.pop(job_id, None)
+
+            run_async_in_server_loop(_teardown(), timeout=10)
+            for t in threads:
+                t.join(timeout=60)
+            manager1.close()
+        phase_seconds["phase 1"] = time.perf_counter() - started
+
+        # --- phase 2: the restarted master ---------------------------------
+        if on_phase is not None:
+            on_phase("phase 2")
+        started = time.perf_counter()
+        store2 = JobStore()
+        manager2 = DurabilityManager(journal_dir, snapshot_every=snapshot_every,
+                                     fsync_every=fsync_every)
+        recovering = time.perf_counter()
+        report = manager2.recover(store2)
+        phase_seconds["recovery"] = time.perf_counter() - recovering
+        store2.journal_sink = manager2.record
+        try:
+            out = run_master(store2)
+        finally:
+            manager2.close()
+        if bundle.device.type == "cuda":
+            torch.cuda.synchronize(bundle.device)
+        phase_seconds["phase 2"] = time.perf_counter() - started
+
+    return MasterCrashResult(
+        output=out.detach().to("cpu").numpy(),
+        report=report.as_json(),
+        crash_error=crash_error,
+        fired=list(injector.fired),
+        phase_seconds=phase_seconds,
+        rule_matches=injector.matches(),
+    )
+
+
+# --------------------------------------------------------------------------
 # poison-tile quarantine
 # --------------------------------------------------------------------------
 
@@ -634,6 +908,216 @@ class _TrimMaster:
 
     def batch_size(self, worker_id: str, pending: int) -> int:
         return 1
+
+
+@dataclasses.dataclass
+class CancelResult:
+    """Outcome of a cancel-mid-job run: the refund accounting, the leak
+    check, and the terminal-state parity evidence."""
+
+    raised: str                    # exception type the master died with
+    reason: str                    # cancel reason it carried
+    accounting: dict               # cancel_job's refund accounting
+    completed_before_cancel: int
+    stats_after: dict              # store stats right after cancel
+    state_after_cancel: dict       # manager shadow at cancel time
+    journal_jobs_after: dict       # jobs left in the journal at the end
+    replica_jobs_after: dict       # jobs left in the replica at the end
+    replica_saw_cancel: bool       # the cancel record reached the standby
+    idempotent_replay: bool
+    cancel_latency_ms: float       # cancel call -> all tiles refunded
+
+
+def run_chaos_cancel(
+    seed: int = 0,
+    *,
+    journal_dir: str,
+    workers: Sequence[str] = ("w1", "w2"),
+    image_hw: tuple[int, int] = (96, 96),
+    tile: int = 48,
+    padding: int = 16,
+    upscale_by: float = 2.0,
+    worker_timeout: float = 5.0,
+    job_id: str = "chaos-cancel-job",
+    cancel_after: int = 2,
+    tile_delay: float = 0.08,
+    reason: str = "chaos",
+    device: str = "cuda",
+    noise: Optional[Callable[[int, tuple], Any]] = None,
+) -> CancelResult:
+    """Cancel-mid-job acceptance: the elastic USDU loop runs with the
+    write-ahead journal attached and a live standby replica teed in; once
+    `cancel_after` tiles have completed, a canceller thread fires
+    `JobStore.cancel_job` mid-flight, with tiles pending AND assigned.
+    The run then shows:
+
+    - the refund accounting balances (no in-flight assignment survives
+      the cancel: `stats_after`);
+    - the master loop settles with a terminal JobCancelled instead of
+      blending a partial canvas; workers' later submissions drop;
+    - the cancel round-trips the journal: the shadow state at cancel
+      time shows the job terminally drained, the standby replica applied
+      the same record, and replay is idempotent.
+
+    Workers are slowed by `tile_delay` a tile (and the master is trimmed
+    out of the pull set) so the cancel lands while work is in flight.
+    `device` and `noise` as in run_chaos_usdu.
+    """
+    from ..durability import DurabilityManager, StandbyReplica
+    from ..durability import state as dstate
+    from ..durability.recovery import recover_state, verify_idempotent_replay
+    from ..graph import ExecutionContext
+    from ..graph import usdu_elastic as elastic
+    from ..graph.tile_pipeline import GrantSampler, TilePipeline
+    from ..jobs import JobStore
+    from ..ops import upscale as upscale_ops
+    from ..utils import image as img_utils
+    from ..utils.async_helpers import run_async_in_server_loop
+    from ..utils.exceptions import JobCancelled, JobQueueError
+
+    dev = torch.device(device)
+    h, w = image_hw
+    image = _seeded_image(seed, h, w, dev)
+    pos = neg = torch.zeros((1, 4, 8), dtype=torch.float32, device=dev)
+    bundle = _stub_bundle(dev)
+    tile_noise = noise or upscale_ops.default_noise(seed, dev)
+
+    store = JobStore()
+    store.placement = _TrimMaster()
+    manager = DurabilityManager(journal_dir, snapshot_every=64, fsync_every=0)
+    store.journal_sink = manager.record
+
+    # live standby: an attach-consistent subscription and the replica's tail
+    sub = manager.subscribe_replica()
+    replica = StandbyReplica()
+    replica.reset(sub.snapshot_state, sub.head_lsn, sub.epoch)
+    tail_stop = threading.Event()
+
+    def tail_body() -> None:
+        while not tail_stop.is_set():
+            sub.wait(0.02)
+            for record in sub.pop():
+                replica.apply(record)
+
+    tail = threading.Thread(target=tail_body, name="chaos-cancel-standby", daemon=True)
+    tail.start()
+    grid, extracted = _worker_tiles(image, upscale_by, tile, padding)
+
+    def worker_body(wid: str) -> None:
+        job = run_async_in_server_loop(store.wait_for_tile_job(job_id, grace_seconds=20),
+                                       timeout=30)
+        if job is None:
+            return
+        sampler = GrantSampler(_stub_process, extracted, grid.positions, None, None, tile_noise,
+                               role="worker", job_id=job_id)
+        flush_pending: dict[int, list] = {}
+
+        def pull():
+            try:
+                return run_async_in_server_loop(
+                    store.pull_tasks(job_id, wid, timeout=0.2), timeout=10) or None
+            except JobQueueError:
+                return None
+
+        def sample(chunk):
+            time.sleep(tile_delay)  # keep work in flight at cancel time
+            with torch.inference_mode():
+                return sampler.sample(chunk)
+
+        def emit(tile_idx, arr):
+            flush_pending[int(tile_idx)] = [
+                {"batch_idx": i, "image": img_utils.encode_image_data_url(arr[i])}
+                for i in range(arr.shape[0])
+            ]
+
+        def flush(is_final):
+            if not flush_pending:
+                return
+            grouped = dict(flush_pending)
+            flush_pending.clear()
+            try:
+                run_async_in_server_loop(store.submit_flush(job_id, wid, grouped), timeout=10)
+            except JobQueueError:
+                pass  # cancelled and cleaned up under us
+
+        try:
+            TilePipeline(pull=pull, sample=sample, chunks=sampler.chunks,
+                         to_host=sampler.collect, emit=emit, flush=flush, role="worker",
+                         span_attrs={"worker_id": wid}, threaded=False).run()
+        except JobQueueError:
+            pass
+
+    cancel_outcome: dict[str, Any] = {}
+
+    def canceller_body() -> None:
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            job = run_async_in_server_loop(store.get_tile_job(job_id), timeout=10)
+            if job is not None and len(job.completed) >= cancel_after:
+                started = time.monotonic()
+                accounting = run_async_in_server_loop(store.cancel_job(job_id, reason=reason),
+                                                      timeout=10)
+                cancel_outcome["latency_ms"] = (time.monotonic() - started) * 1000.0
+                cancel_outcome["accounting"] = accounting
+                cancel_outcome["completed"] = len(job.completed)
+                with manager._lock:
+                    cancel_outcome["state"] = dstate.clone(manager._state)
+                cancel_outcome["stats"] = store.stats_unlocked()
+                return
+            time.sleep(0.005)
+
+    raised = ""
+    got_reason = ""
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_ensure_server_loop())
+        _elastic_patches(stack, elastic)
+        ctx = ExecutionContext(
+            device=str(dev), server=types.SimpleNamespace(job_store=store),
+            config={"workers": [], "settings": {"worker_timeout_seconds": worker_timeout}})
+        threads = [threading.Thread(target=worker_body, args=(wid,), daemon=True)
+                   for wid in workers]
+        canceller = threading.Thread(target=canceller_body, daemon=True)
+        for t in threads:
+            t.start()
+        canceller.start()
+        try:
+            elastic.run_master_elastic(
+                bundle, image, pos, neg, job_id=job_id, enabled_worker_ids=list(workers),
+                upscale_by=upscale_by, tile=tile, padding=padding, steps=1, sampler="euler",
+                scheduler="karras", cfg=1.0, denoise=0.3, seed=seed, context=ctx,
+                noise=tile_noise,
+            )
+        except JobCancelled as exc:
+            raised = type(exc).__name__
+            got_reason = exc.reason
+        finally:
+            for t in threads:
+                t.join(timeout=30)
+            canceller.join(timeout=30)
+            # the replication tee's last records, then the tail stops
+            for record in sub.pop(max_items=100000):
+                replica.apply(record)
+            tail_stop.set()
+            tail.join(timeout=10)
+            manager.close()
+
+    journal_state, _ = recover_state(journal_dir)
+    replica_state = dstate.clone(replica._state)
+    state_after_cancel = cancel_outcome.get("state", {})
+    job_at_cancel = state_after_cancel.get("jobs", {}).get(job_id, {})
+    return CancelResult(
+        raised=raised,
+        reason=got_reason,
+        accounting=cancel_outcome.get("accounting") or {},
+        completed_before_cancel=int(cancel_outcome.get("completed", 0)),
+        stats_after=cancel_outcome.get("stats") or {},
+        state_after_cancel=job_at_cancel,
+        journal_jobs_after=dict(journal_state.get("jobs", {})),
+        replica_jobs_after=dict(replica_state.get("jobs", {})),
+        replica_saw_cancel=bool(job_at_cancel.get("cancelled", False)),
+        idempotent_replay=verify_idempotent_replay(journal_dir),
+        cancel_latency_ms=float(cancel_outcome.get("latency_ms", 0.0)),
+    )
 
 
 class _PoisonCrash(RuntimeError):
@@ -654,7 +1138,9 @@ class PoisonResult:
     pardons: list[str]
     health_after: dict
     charged_states: list[str]  # breaker states right after each crash
-    journal_quarantined: list[int]  # [] until step 7f brings the journal
+    # the tiles the journal's tile_quarantine records of the job name
+    # ([] without a journal)
+    journal_quarantined: list[int]
 
 
 def run_chaos_poison(
@@ -686,8 +1172,13 @@ def run_chaos_poison(
     The master is trimmed out of the pull set (`_TrimMaster`) so the
     poison can only travel through workers; its deadline fallback covers
     whatever healthy tiles the dead fleet left behind, skipping the
-    quarantined one. `journal_dir` waits for step 7f."""
-    _refuse_waiting(journal_dir=(journal_dir, bool(journal_dir)))
+    quarantined one.
+
+    `journal_dir`: the store journals into a DurabilityManager there
+    (write-behind), and `journal_quarantined` lists the tiles its
+    tile_quarantine records name. The JAX harness reads the recovered
+    state instead, after the master's cleanup record removed the job, so
+    its list is always empty."""
     from ..graph import ExecutionContext
     from ..graph import usdu_elastic as elastic
     from ..graph.tile_pipeline import GrantSampler, TilePipeline
@@ -712,6 +1203,12 @@ def run_chaos_poison(
 
     store = JobStore(max_attempts=max_attempts, poison_policy=poison_policy)
     store.placement = _TrimMaster()
+    manager = None
+    if journal_dir:
+        from ..durability import DurabilityManager
+
+        manager = DurabilityManager(journal_dir, snapshot_every=64, fsync_every=0)
+        store.journal_sink = manager.record
 
     def pardon(worker_ids: list) -> None:
         # runs at quarantine time: snapshot the job's final attempt and
@@ -844,7 +1341,17 @@ def run_chaos_poison(
                 t.join(timeout=30)
             monitor_stop.set()
             monitor.join(timeout=10)
+            if manager is not None:
+                manager.close()
 
+    journal_quarantined: list[int] = []
+    if journal_dir:
+        from ..durability import replay_journal
+
+        journal_quarantined = sorted({
+            int(t) for record in replay_journal(journal_dir).records
+            if record.get("type") == "tile_quarantine" and record.get("job") == job_id
+            for t in record.get("tasks", [])})
     _, _, grid = upscale_ops.plan_grid(h, w, upscale_by, tile, padding, None)
     y, x = grid.positions[int(poison_tile)]
     return PoisonResult(
@@ -857,5 +1364,5 @@ def run_chaos_poison(
         pardons=list(pardons),
         health_after=health.snapshot(),
         charged_states=charged_states,
-        journal_quarantined=[],
+        journal_quarantined=journal_quarantined,
     )

@@ -1,11 +1,10 @@
 """Brownout: progressive load shedding above the admission lanes.
 
 The port's own copy of comfyui_distributed_tpu/scheduler/brownout.py.
-The port has no write-ahead journal yet (durability, ROADMAP.md Queue 1
-step 7), so its journal window stays unfed and reads 0, as on a JAX
-master without CDT_JOURNAL_DIR, and its threshold is the plain
-constant JOURNAL_P95_SECONDS until that journal comes (the JAX knob
-CDT_SHED_JOURNAL_P95 comes back with it). The failure the controller
+A master with CDT_JOURNAL_DIR feeds its journal window from the
+DurabilityManager's appends (api/server.py), under the threshold
+CDT_SHED_JOURNAL_P95; without a journal the window stays unfed and
+reads 0, as on a JAX master without one. The failure the controller
 prevents: under sustained overload the admission queue keeps accepting
 work into every lane, queue waits climb unboundedly, the journal fsync path saturates, and the master
 tips over for EVERYONE — premium tenants included. The brownout
@@ -41,11 +40,6 @@ from ..telemetry import instruments
 from ..telemetry.events import get_event_bus
 from ..utils import constants
 from ..utils.logging import log
-
-# Journal-append p95 seconds above which one more lane is shed: the JAX
-# CDT_SHED_JOURNAL_P95 default.
-JOURNAL_P95_SECONDS = 0.25
-
 
 def _p95(samples: Sequence[float]) -> float:
     if not samples:
@@ -83,7 +77,7 @@ class BrownoutController:
         self.journal_p95_threshold = (
             journal_p95_threshold
             if journal_p95_threshold is not None
-            else JOURNAL_P95_SECONDS
+            else constants.SHED_JOURNAL_P95_SECONDS
         )
         window = window if window is not None else constants.SHED_WINDOW_SAMPLES
         self.cooldown = (

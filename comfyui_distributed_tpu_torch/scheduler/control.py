@@ -40,8 +40,9 @@ class SchedulerControl:
         self.queue = queue or AdmissionQueue(clock=clock)
         self.placement = placement or PlacementPolicy(health=health)
         # Load-shed controller above the lanes: fed queue waits by the
-        # admission queue (its journal window stays unfed: the port has
-        # no write-ahead journal yet); consulted before every submit.
+        # admission queue and, on a journaling master, append latencies by
+        # the DurabilityManager (api/server.py); consulted before every
+        # submit.
         self.brownout = brownout or BrownoutController(
             self.queue.lane_order, clock=clock
         )

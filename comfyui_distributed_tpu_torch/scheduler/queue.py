@@ -519,8 +519,8 @@ class AdmissionQueue:
 
     def export_state(self) -> dict:
         """The aggregates worth carrying over a master restart (the
-        durable control plane that would persist them is ROADMAP Queue 1
-        step 7): tenant DRR
+        durable control plane samples them into every snapshot,
+        durability/manager.py): tenant DRR
         deficits (fair-share position), live tenant weights (operator
         retunes via /distributed/scheduler/reprioritize), and the
         admission totals. Queued TICKETS are deliberately absent — they

@@ -29,9 +29,11 @@ original it holds):
   recorder on the bus, the master's incident bundles), and
   `profiling.ProfilerCapture`, the on-demand torch.profiler capture.
 
-Not ported yet: the durability journal's families and status (ROADMAP.md,
-Queue 1 step 7f). All clocks are injectable so tests run
-deterministically on the CPU.
+The durable control plane's families (the journal, snapshots, recovery,
+failovers) are registered here too, and counted by durability/. Not
+ported yet: the standby's replication-lag gauges (ROADMAP.md, Queue 1
+step 7g). All clocks are injectable so tests run deterministically on
+the CPU.
 """
 
 from __future__ import annotations

@@ -17,9 +17,9 @@ atomically written JSON bundle under ``CDT_INCIDENT_DIR``:
   port reads);
 - the job store's counts.
 
-The port has no journal yet (ROADMAP.md, Queue 1 step 7f), so no
-bundle has a ``durability`` section; the JAX manager leaves it out on a
-master without one too.
+A journaling master's bundle has a ``durability`` section (the
+DurabilityManager's status: role, epoch, journal, last recovery); a
+master without CDT_JOURNAL_DIR has none, as in the JAX package.
 
 - **Off the serving loop**: `trigger()` is a debounce check and a queue
   put; gathering, serializing and the fsync run on a single-flight

@@ -6,8 +6,8 @@ help texts and label names are the JAX package's, letter for letter, so
 a dashboard built against a JAX master reads a port master unchanged.
 The JAX families the port does not register yet are listed, by the
 ROADMAP step that brings each, in tests/test_torch_telemetry.py
-(STILL_TO_PORT): durability, the mesh, the cross-job tier and the
-`cdt_jax_*` compile gauges, which have no counterpart here. Two help
+(STILL_TO_PORT): the standby's replication lag, the mesh, the cross-job
+tier and the `cdt_jax_*` compile gauges, which have no counterpart here. Two help
 texts are worded apart from the JAX package's
 (`cdt_cache_unsettled_admission_cost`: the JAX text cites the
 package's change history and a runbook; `cdt_profile_captures_total`
@@ -218,6 +218,69 @@ def worker_master_errors_total() -> Counter:
         "exponentially so a master outage never becomes a log/request "
         "flood",
         ("op",),
+    )
+
+
+# --- durable control plane (durability/) ----------------------------------
+
+# the JAX package's store-latency buckets, which its journal fsync
+# histogram observes into
+STORE_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0)
+
+
+def journal_appends_total() -> Counter:
+    return get_metrics_registry().counter(
+        "cdt_journal_appends_total",
+        "Write-ahead-journal records appended by record type",
+        ("record",),
+    )
+
+
+def journal_fsync_seconds() -> Histogram:
+    return get_metrics_registry().histogram(
+        "cdt_journal_fsync_seconds",
+        "fsync latency of journal appends (CDT_JOURNAL_FSYNC policy)",
+        buckets=STORE_BUCKETS,
+    )
+
+
+def snapshots_total() -> Counter:
+    return get_metrics_registry().counter(
+        "cdt_snapshots_total",
+        "Control-plane snapshots written (periodic + post-recovery)",
+    )
+
+
+def snapshot_age_seconds() -> Gauge:
+    return get_metrics_registry().gauge(
+        "cdt_snapshot_age_seconds",
+        "Seconds since the last control-plane snapshot was written "
+        "(bounds the WAL tail a restart must replay)",
+    )
+
+
+def recovery_replayed_records() -> Gauge:
+    return get_metrics_registry().gauge(
+        "cdt_recovery_replayed_records",
+        "Journal records replayed beyond the snapshot by the last "
+        "recovery on this process",
+    )
+
+
+def recovery_requeued_tasks() -> Gauge:
+    return get_metrics_registry().gauge(
+        "cdt_recovery_requeued_tasks",
+        "In-flight/volatile tiles the last recovery requeued for "
+        "bit-identical recompute",
+    )
+
+
+def failover_total() -> Counter:
+    return get_metrics_registry().counter(
+        "cdt_failover_total",
+        "Master failovers by role: standby = promotions performed, "
+        "worker = client re-points to another master address",
+        ("role",),
     )
 
 
@@ -764,6 +827,17 @@ def bind_server_collectors(server) -> Callable[[], None]:
         incident_capture_seconds()
     if get_profiler_capture() is not None:
         profile_captures_total()
+    # the durability instruments from the first scrape on a journaling
+    # master, and the snapshot-age gauge refreshed at every scrape
+    durability = getattr(server, "durability", None)
+    if durability is not None:
+        journal_appends_total()
+        journal_fsync_seconds()
+        snapshots_total()
+        snapshot_age_seconds()
+        recovery_replayed_records()
+        recovery_requeued_tasks()
+        failover_total()
 
     label = f"{'worker' if server.is_worker else 'master'}:{server.port}"
     # worker ids this server's placement policy last reported: stale
@@ -799,6 +873,8 @@ def bind_server_collectors(server) -> Callable[[], None]:
             # tiles the cache later settled free
             cache_unsettled_admission_cost().set(
                 float(getattr(scheduler, "unsettled_admission_cost", 0.0)), server=label)
+        if durability is not None:
+            durability.collect_metrics()
         slo = getattr(server, "slo", None)
         if slo is not None:
             # alert gauges reflect the engine's current state even if no

@@ -1,10 +1,9 @@
 """Declarative SLOs evaluated with multi-window burn-rate alerting.
 
-The port's own copy of comfyui_distributed_tpu/telemetry/slo.py. The
-port has no write-ahead journal yet, so its journal_latency SLO never
-sees a sample, and its target is the plain constant JOURNAL_P95_SECONDS
-until that journal comes (the JAX knob CDT_SLO_JOURNAL_P95 comes back
-with it). The Google SRE-workbook alerting idiom, built in-process and zero-dep:
+The port's own copy of comfyui_distributed_tpu/telemetry/slo.py. Its
+journal_latency SLO takes a sample a journal append on a master with
+CDT_JOURNAL_DIR (api/server.py), against the target CDT_SLO_JOURNAL_P95.
+The Google SRE-workbook alerting idiom, built in-process and zero-dep:
 an **SLO** declares what fraction of events must be *good* (the
 objective — e.g. 99.9% of admissions not shed, 95% of tiles under the
 latency threshold). The **error budget** is ``1 - objective``; the
@@ -57,10 +56,6 @@ from .timeseries import SeriesStore
 # Series names the engine records under (label `slo` = spec name).
 BAD_SERIES = "slo_bad_total"
 TOTAL_SERIES = "slo_total_total"
-
-# The journal_latency SLO's append target in seconds: the JAX
-# CDT_SLO_JOURNAL_P95 default.
-JOURNAL_P95_SECONDS = 0.25
 
 # Bounded transition history served by /distributed/alerts.
 HISTORY_LIMIT = 256
@@ -138,10 +133,11 @@ def default_slos() -> tuple[SLOSpec, ...]:
         SLOSpec(
             name="journal_latency",
             description="write-ahead journal appends under the latency "
-                        f"target ({JOURNAL_P95_SECONDS:g}s)",
+                        f"target ({constants.SLO_JOURNAL_P95_SECONDS:g}s, "
+                        "CDT_SLO_JOURNAL_P95)",
             objective=0.99,
             kind="latency",
-            threshold_s=JOURNAL_P95_SECONDS,
+            threshold_s=constants.SLO_JOURNAL_P95_SECONDS,
         ),
     )
 

@@ -67,11 +67,13 @@ POISON_POLICY = os.environ.get("CDT_POISON_POLICY", "degrade")
 # Default end-to-end job deadline in seconds when a request names none
 # (0 = none).
 JOB_DEADLINE_DEFAULT_SECONDS = _env_float("CDT_JOB_DEADLINE_DEFAULT", 0.0)
-# Brownout (scheduler/brownout.py): when the queue-wait p95 crosses its
-# threshold, admission sheds one more lowest-priority lane (never the
-# top one); a level steps at most once a cooldown and steps back once
-# the signals fall under half their thresholds.
+# Brownout (scheduler/brownout.py): when the queue-wait p95 or the
+# journal-append p95 crosses its threshold, admission sheds one more
+# lowest-priority lane (never the top one); a level steps at most once a
+# cooldown and steps back once both signals fall under half their
+# thresholds.
 SHED_WAIT_P95_SECONDS = _env_float("CDT_SHED_WAIT_P95", 20.0)
+SHED_JOURNAL_P95_SECONDS = _env_float("CDT_SHED_JOURNAL_P95", 0.25)
 SHED_WINDOW_SAMPLES = _env_int("CDT_SHED_WINDOW", 64)
 SHED_COOLDOWN_SECONDS = _env_float("CDT_SHED_COOLDOWN", 5.0)
 
@@ -258,6 +260,22 @@ PUSH_GRANTS_ENABLED = os.environ.get("CDT_PUSH_GRANTS", "1") != "0"
 # it concludes the queue is drained.
 PUSH_WAIT_SECONDS = _env_float("CDT_PUSH_WAIT", 1.0)
 
+# --- the durable control plane's lease and replication (durability/) --------
+# The active master holds an epoch-numbered lease in its journal
+# directory (durability/lease.py): a deposed holder keeps serving at most
+# this long before its next journal append raises FencedOut.
+LEASE_TTL_SECONDS = _env_float("CDT_LEASE_TTL", 10.0)
+# Records a replication subscription buffers (durability/replicate.py);
+# overflow marks the stream lost (never a hole) and the standby re-syncs.
+STANDBY_BUFFER_RECORDS = _env_int("CDT_STANDBY_BUFFER", 4096)
+# Quorum lease peers (durability/quorum.py): a comma-separated list of
+# peer register directories; non-empty replaces the flock'd lease file
+# with majority agreement across them. Empty keeps the file lease.
+LEASE_PEERS = [
+    p.strip() for p in os.environ.get("CDT_LEASE_PEERS", "").split(",")
+    if p.strip()
+]
+
 # --- fleet plane (telemetry/fleet.py, telemetry/slo.py) ---------------------
 # 0 turns the master's fleet plane off (its routes answer enabled=false).
 FLEET_ENABLED = os.environ.get("CDT_FLEET", "1") != "0"
@@ -267,8 +285,10 @@ FLEET_INTERVAL_SECONDS = _env_float("CDT_FLEET_INTERVAL", 10.0)
 FLEET_SNAPSHOT_SECONDS = _env_float("CDT_FLEET_SNAPSHOT_SECONDS", 10.0)
 # A worker silent this long leaves the fleet view with its series.
 FLEET_TTL_SECONDS = _env_float("CDT_FLEET_TTL", 120.0)
-# SLO latency target: the tile pull-to-submit p95.
+# SLO latency targets: the tile pull-to-submit p95 ...
 SLO_TILE_P95_SECONDS = _env_float("CDT_SLO_TILE_P95", 5.0)
+# ... and the journal-append target of the journal_latency SLO.
+SLO_JOURNAL_P95_SECONDS = _env_float("CDT_SLO_JOURNAL_P95", 0.25)
 
 # --- profiler capture (telemetry/profiling.py::ProfilerCapture) -------------
 # A torch.profiler capture asked for more seconds than this is clamped;

@@ -52,8 +52,9 @@ def atomic_write_bytes(path: str, data: bytes) -> None:
     fsync_dir(directory)
 
 
-def atomic_write_json(path: str, data: Any, indent: int | None = 2) -> None:
+def atomic_write_json(path: str, data: Any, indent: int | None = 2,
+                      sort_keys: bool = False) -> None:
     """Atomically replace `path` with `data` as JSON. Serialisation comes
     first, so an unserialisable value raises before the disk is touched."""
-    payload = json.dumps(data, indent=indent) + "\n"
+    payload = json.dumps(data, indent=indent, sort_keys=sort_keys) + "\n"
     atomic_write_bytes(path, payload.encode("utf-8"))

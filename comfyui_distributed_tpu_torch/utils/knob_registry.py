@@ -90,6 +90,9 @@ KNOBS: tuple[Knob, ...] = (
          "image; `fail` raises a terminal JobPoisoned error."),
     Knob("CDT_SHED_COOLDOWN", "5.0", "lifecycle",
          "Seconds between brownout level steps (hysteresis against flapping)."),
+    Knob("CDT_SHED_JOURNAL_P95", "0.25", "lifecycle",
+         "Journal-append p95 seconds above which the brownout controller sheds one more "
+         "lowest-priority lane."),
     Knob("CDT_SHED_WAIT_P95", "20.0", "lifecycle",
          "Queue-wait p95 seconds above which the brownout controller sheds one more "
          "lowest-priority lane (the premium lane never sheds)."),
@@ -153,13 +156,40 @@ KNOBS: tuple[Knob, ...] = (
          "In-flight device batches the sampler may run ahead of the I/O stage."),
     Knob("CDT_PIPELINE_PREFETCH", "1", "pipeline",
          "`0` disables claiming the next grant while the device samples the current one."),
+    # --- durability --------------------------------------------------------
+    Knob("CDT_JOURNAL_DIR", "unset", "durability",
+         "Directory for the control-plane write-ahead journal + snapshots; unset disables "
+         "the durable control plane entirely (master-only)."),
+    Knob("CDT_JOURNAL_FSYNC", "1", "durability",
+         "Journal fsync policy: 1 syncs every append before acknowledging (power-cut "
+         "safe), N>1 syncs every N appends, 0 is write-behind via a dedicated writer "
+         "thread (the <5% overhead mode; a SIGKILL may lose the last in-flight records, "
+         "which recovery then recomputes bit-identically)."),
+    Knob("CDT_JOURNAL_SEGMENT_BYTES", "4194304", "durability",
+         "Journal segment size before fsync'd rotation (4 MiB default)."),
+    Knob("CDT_SNAPSHOT_EVERY", "256", "durability",
+         "Journal appends between control-plane snapshots; each snapshot prunes the "
+         "segments it supersedes."),
     # --- ha ----------------------------------------------------------------
+    Knob("CDT_LEASE_TTL", "10.0", "ha",
+         "Master lease TTL in seconds (durability/lease.py): the standby promotes itself "
+         "once the lease has been expired this long; also bounds the zombie window before "
+         "epoch fencing bites."),
     Knob("CDT_PUSH_GRANTS", "1", "ha",
          "`0` disables push-mode grants: workers then pull-poll instead of waking on "
          "pushed grant_available events over /distributed/events."),
     Knob("CDT_PUSH_WAIT", "1.0", "ha",
          "Seconds a push-mode worker parks on the grant signal after an empty pull before "
          "concluding the queue is drained."),
+    Knob("CDT_STANDBY_BUFFER", "4096", "ha",
+         "Per-standby replication buffer in records; overflow marks the stream lost and "
+         "the standby re-syncs from a fresh snapshot frame."),
+    # --- region ------------------------------------------------------------
+    Knob("CDT_LEASE_PEERS", "empty", "region",
+         "Comma-separated lease-peer register directories; non-empty switches the master "
+         "lease from the shared-filesystem flock sidecar to majority agreement across "
+         "these registers (durability/quorum.py) — epoch fencing and FencedOut semantics "
+         "carry over unchanged."),
     # --- telemetry ---------------------------------------------------------
     Knob("CDT_METRIC_MAX_SERIES", "128", "telemetry",
          "Per-metric label-series cap; excess series collapse into `_overflow`."),
@@ -198,6 +228,9 @@ KNOBS: tuple[Knob, ...] = (
          "h2d/d2h byte accounting) on the elastic tier and its fleet-snapshot piggyback."),
     Knob("CDT_SLO_TILE_P95", "5.0", "telemetry",
          "Tile pull-to-submit latency target the tile_latency SLO classifies samples "
+         "against (seconds)."),
+    Knob("CDT_SLO_JOURNAL_P95", "0.25", "telemetry",
+         "Journal-append latency target the journal_latency SLO classifies samples "
          "against (seconds)."),
     Knob("CDT_USAGE", "1", "telemetry",
          "`0` disables chip-time attribution records on the elastic tier and the "

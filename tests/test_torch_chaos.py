@@ -12,9 +12,11 @@ package's per-tile noise), and the crash-after-pull plan fires the same
 faults on the same sites.
 
 The JAX scenarios that need tile_batch > 1 (step 7b), mesh_devices > 1
-(step 8), journal_dir (7f) or device_canvas (7j) are not replayed: each
-such argument raises NotImplementedError naming its step, tested below.
-Runs on the CPU at the JAX tests' tiny sizes.
+(step 8) or device_canvas (7j) are not replayed: each such argument
+raises NotImplementedError naming its step, tested below. journal_dir
+(step 7f) is served: its scenarios are in
+tests/test_torch_chaos_durability.py. Runs on the CPU at the JAX tests'
+tiny sizes.
 """
 
 import asyncio
@@ -422,9 +424,16 @@ def test_the_crash_after_pull_plan_fires_alike_in_both_packages():
     ("journal_dir", "wal", "7f"),
     ("device_canvas", True, "7j"),
 ])
-def test_each_waiting_argument_names_its_step(argument, value, step, tmp_path):
+def test_each_waiting_argument_names_its_step(argument, value, step, tmp_path, baseline):
     if argument == "journal_dir":
+        # step 7f brought the journal: the run journals into the directory
+        # and its canvas is the fault-free one
+        from comfyui_distributed_tpu_torch.durability.recovery import verify_idempotent_replay
+
         value = str(tmp_path / value)
+        np.testing.assert_array_equal(baseline, run(seed=11, **{argument: value}).output)
+        assert verify_idempotent_replay(value)
+        return
     with pytest.raises(NotImplementedError, match=step):
         run(seed=11, **{argument: value})
     assert not (tmp_path / "wal").exists()

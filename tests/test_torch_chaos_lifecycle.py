@@ -5,10 +5,12 @@ are pardoned on the workers' breakers, and the job completes degraded
 with every other tile bit-identical to a clean run, or, under
 poison_policy "fail", ends in the port's JobPoisoned.
 
-The JAX scenarios run the poison harness with a write-ahead journal; the
-port's waits for step 7f (`journal_dir` raises NotImplementedError, tested
-below), and its `journal_quarantined` stays empty. The cancel scenarios
-(`run_chaos_cancel`) wait for the same step. Runs on the CPU.
+As in the JAX scenarios, the poison harness runs with a write-ahead
+journal; the port's `journal_quarantined` lists the tiles the journal's
+tile_quarantine records name (the JAX harness reads them from the state
+after the job's cleanup record, where its list is always empty). The
+cancel scenarios are in tests/test_torch_chaos_durability.py. Runs on the
+CPU.
 """
 
 import numpy as np
@@ -24,11 +26,12 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")
-def poison_result():
+def poison_result(tmp_path_factory):
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        return run_chaos_poison(seed=11, device="cpu")
+        return run_chaos_poison(seed=11, journal_dir=str(tmp_path_factory.mktemp("poison-wal")),
+                                device="cpu")
     finally:
         torch.set_num_threads(threads)
 
@@ -38,7 +41,8 @@ def test_poison_tile_quarantined_after_three_crashes(poison_result):
     assert r.crashed_workers == ["w1", "w2", "w3"]
     assert r.attempts.get(r.poison_tile) == 3
     assert r.poison_tile in r.quarantined
-    assert r.journal_quarantined == []  # the journal waits for step 7f
+    # the journal's tile_quarantine record names the same tile
+    assert r.journal_quarantined == r.quarantined == [r.poison_tile]
 
 
 def test_poison_crash_not_charged_to_the_workers(poison_result):
@@ -74,6 +78,16 @@ def test_poison_policy_fail_raises_terminal_error():
 
 
 def test_the_poison_journal_waits_for_step_7f(tmp_path):
-    with pytest.raises(NotImplementedError, match="7f"):
-        run_chaos_poison(seed=11, journal_dir=str(tmp_path / "wal"), device="cpu")
-    assert not (tmp_path / "wal").exists()
+    """Step 7f brought the journal: without `journal_dir` the poison run
+    journals nothing and its `journal_quarantined` is empty; with it the
+    directory holds the run's records, replayable twice alike."""
+    from comfyui_distributed_tpu_torch.durability.recovery import verify_idempotent_replay
+
+    result = run_chaos_poison(seed=11, job_id="poison-no-journal", device="cpu")
+    assert result.journal_quarantined == []
+    assert result.quarantined == [0]
+    journal_dir = str(tmp_path / "wal")
+    journaled = run_chaos_poison(seed=11, journal_dir=journal_dir, job_id="poison-journal",
+                                 device="cpu")
+    assert journaled.journal_quarantined == journaled.quarantined == [0]
+    assert verify_idempotent_replay(journal_dir)

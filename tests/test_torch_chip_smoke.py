@@ -249,14 +249,14 @@ def test_the_control_plane_checks_drain_and_the_fleet_on_the_cpu(capsys, one_tor
     assert out.index(drained[0]) < out.index(fleet[1])
 
 
-def _elastic_on_tiny(runs: int = 1, faults: bool = False):
+def _elastic_on_tiny(runs: int = 1, faults: bool = False, durable: bool = False):
     """chip_smoke's elastic phase on tiny-unet on the CPU, `runs` runs (and
-    the [faults] run with `faults`)."""
+    the [faults] run with `faults`, the [durable] runs with `durable`)."""
     workflow = _tiny_workflow()
     bundle = tpl.load_pipeline("tiny-unet", seed=0, device="cpu")
     image = torch.zeros((1, 64, 64, 3))
     return chip_smoke._elastic_phase(torch, bundle, "tiny-unet", workflow, image, None, "cpu",
-                                     runs=runs, faults=faults)
+                                     runs=runs, faults=faults, durable=durable)
 
 
 # --- fault plans: the elastic phase's [faults] run and the chaos phase ---------
@@ -291,11 +291,44 @@ def test_the_chaos_phase_runs_and_checks_on_the_cpu(capsys, one_torch_thread):
     result = chip_smoke._chaos_phase(torch, "cpu")
     lines = [line for line in capsys.readouterr().out.splitlines()
              if line.startswith("[chaos]")]
-    assert len(lines) == 2 + len(chip_smoke.CHAOS_SCENARIOS)
-    assert all(line.endswith("vs the fault-free canvas 0") for line in lines[1:-1])
+    crashes = len(chip_smoke.CHAOS_MASTER_CRASH_PLANS)
+    assert len(lines) == 3 + len(chip_smoke.CHAOS_SCENARIOS) + crashes
+    assert all(line.endswith("vs the fault-free canvas 0") for line in lines[1:-2])
+    assert all("replay idempotent True" in line for line in lines[-2 - crashes:-2])
+    assert lines[-2].startswith("[chaos] cancel: JobCancelled (chaos)")
+    assert "journal {}, replica {}" in lines[-2]
+    assert "quarantined [0] (journal [0])" in lines[-1]
     assert "outside tile 0 0, inside" in lines[-1]
-    assert set(result["seconds"]) == {"fault-free", "poison",
-                                      *(name for name, *_ in chip_smoke.CHAOS_SCENARIOS)}
+    assert set(result["seconds"]) == {
+        "fault-free", "poison", "cancel", *(name for name, *_ in chip_smoke.CHAOS_SCENARIOS),
+        *(f"master-crash {name}" for name, _ in chip_smoke.CHAOS_MASTER_CRASH_PLANS)}
+
+
+def test_the_durable_runs_of_the_elastic_phase_on_the_cpu(capsys, one_torch_thread):
+    """A fault-free run, then the [durable] runs: a journaling master's run
+    held to every run's checks and to its journal (records by type against
+    the store's transitions, payloads, replay, the route, the scrape, the
+    brownout), its restart with the epoch one above, and the master killed
+    at its first submit with w1's tile restored and the rest recomputed."""
+    result = _elastic_on_tiny(runs=1, durable=True)
+    out = capsys.readouterr().out.splitlines()
+    assert len([line for line in out if line.startswith("[telemetry] elastic run")]) == 8
+    assert len([line for line in out if line.startswith("[sched] elastic run")]) == 2
+    lines = [line for line in out if line.startswith("[durable] elastic")]
+    assert len(lines) == 4
+    assert "journaled against run 1's" in lines[0] and "level 0 -> 0" in lines[0]
+    assert "role active, epoch 1" in lines[1] and "replay idempotent" in lines[1]
+    assert "epoch 1 -> 2" in lines[2]
+    assert "kill the master" in lines[3] and "replay idempotent True" in lines[3]
+    durable = result["durable"]
+    assert durable["records"]["job_init"] == durable["records"]["cleanup"] == 1
+    assert durable["records"]["submit"] == 4
+    assert durable["restart"]["epoch"] == 2
+    assert durable["restart"]["report"]["jobs_recovered"] == 0
+    kill = durable["kill"]["report"]
+    assert kill["jobs_recovered"] == 1 and kill["tasks_restored"] >= 1
+    assert kill["tasks_requeued"] >= 1
+    assert durable["kill"]["vs_uninterrupted"] < chip_smoke.KILL_MASTER_VS_DURABLE
 
 
 @pytest.mark.parametrize("where", ["chaos", "faults"])

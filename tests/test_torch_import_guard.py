@@ -72,7 +72,10 @@ def test_the_server_and_the_elastic_tier_are_among_the_imported_modules():
                    "scheduler/__init__.py", "scheduler/queue.py", "scheduler/placement.py",
                    "scheduler/brownout.py", "scheduler/control.py", "scheduler/preempt.py",
                    "telemetry/watchdog.py", "telemetry/timeseries.py", "telemetry/slo.py",
-                   "telemetry/fleet.py", "api/scheduler_routes.py"):
+                   "telemetry/fleet.py", "api/scheduler_routes.py",
+                   "durability/__init__.py", "durability/journal.py", "durability/state.py",
+                   "durability/snapshot.py", "durability/recovery.py", "durability/lease.py",
+                   "durability/quorum.py", "durability/replicate.py", "durability/manager.py"):
         assert os.path.join("comfyui_distributed_tpu_torch", module) in names
 
 

@@ -5,7 +5,9 @@
   overflow, closed) and the same counters: compared exactly.
 - A bound port master's bundle has the JAX master's bundle keys (neither
   master journals, so neither has `durability`), the same keys in each
-  section the two share, and passes both packages' `validate_bundle`.
+  section the two share, and passes both packages' `validate_bundle`;
+  with CDT_JOURNAL_DIR both bundles have a `durability` section, with the
+  same keys.
 - Retention prunes the oldest bundles by count and by bytes, never the
   newest, as the JAX manager does; ids are equal on one clock.
 - The three incident routes answer the JAX routes' statuses and keys,
@@ -219,9 +221,13 @@ def masters(tmp_path, monkeypatch, port_loop):
         jconfig._cache.path = jconfig._cache.mtime = jconfig._cache.data = None
     started = []
 
-    def make(enabled: bool = True):
+    def make(enabled: bool = True, journal: bool = False):
         servers = {}
         for side in ("jax", "port"):
+            if journal:
+                monkeypatch.setenv("CDT_JOURNAL_DIR", str(tmp_path / f"{side}_wal"))
+            else:
+                monkeypatch.delenv("CDT_JOURNAL_DIR", raising=False)
             if enabled:
                 monkeypatch.setenv("CDT_INCIDENT_DIR", str(tmp_path / f"{side}_incidents"))
             else:
@@ -269,6 +275,21 @@ def test_a_bound_port_master_s_bundle_has_the_jax_bundle_s_keys(masters):
     assert jincidents.validate_bundle(port) == []
     assert set(port["knobs"]) <= set(jax_["knobs"])
     assert port["knobs"] == tincidents.resolved_knobs()
+
+
+def test_a_journaling_master_s_bundle_has_the_durability_section(masters):
+    servers = masters(journal=True)
+    bundles = {}
+    for side, server in servers.items():
+        assert server.durability is not None
+        result = server.incidents.capture_now(key="drill", context={"why": "durability"})
+        bundles[side] = server.incidents.read_bundle(result["id"])
+    port, jax_ = bundles["port"], bundles["jax"]
+    assert set(port) == set(jax_)
+    assert set(port["durability"]) == set(jax_["durability"])
+    assert port["durability"]["enabled"] is True and port["durability"]["role"] == "active"
+    assert port["durability"]["epoch"] == jax_["durability"]["epoch"] == 1
+    assert tincidents.validate_bundle(port) == []
 
 
 def test_the_incident_routes_answer_as_the_jax_routes(masters):

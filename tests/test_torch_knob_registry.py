@@ -71,7 +71,13 @@ def test_the_registry_lists_exactly_the_knobs_the_port_reads():
             "CDT_PROFILE_AUTO", "CDT_PROFILE_AUTO_SECONDS"} <= set(declared)
     # the fault plan (resilience/faults.py), read by the transport and the
     # job store's seams
-    assert "CDT_FAULT_PLAN" in declared and len(declared) == 106
+    assert "CDT_FAULT_PLAN" in declared
+    # the durable control plane (durability/, the journal knobs of the
+    # brownout and the SLO engine)
+    assert {"CDT_JOURNAL_DIR", "CDT_JOURNAL_FSYNC", "CDT_JOURNAL_SEGMENT_BYTES",
+            "CDT_SNAPSHOT_EVERY", "CDT_LEASE_TTL", "CDT_LEASE_PEERS", "CDT_STANDBY_BUFFER",
+            "CDT_SHED_JOURNAL_P95", "CDT_SLO_JOURNAL_P95"} <= set(declared)
+    assert len(declared) == 115
 
 
 def _literal(node):

@@ -14,8 +14,8 @@
 - The routes: /distributed/metrics of a port master and a JAX master
   after the same store operations; trace, traces, cache, fleet, alerts
   and usage (with their `since` checks); a plain GET of the event stream
-  is refused with the JAX route's status; the unported telemetry routes
-  answer 404.
+  is refused with the JAX route's status; /distributed/durability
+  answers a master without a journal as the JAX route does.
 - The same tiny-unet elastic upscale, master + w1 on loopback through
   each package's own servers, twice with a tile cache installed (the
   second run settles every tile from the cache), gives the same families
@@ -57,11 +57,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The JAX package's metric families the port does not register yet, by
 # the ROADMAP step that brings each.
 STILL_TO_PORT = {
-    "durability and standby masters": {
-        "cdt_journal_appends_total", "cdt_journal_fsync_seconds", "cdt_snapshots_total",
-        "cdt_snapshot_age_seconds", "cdt_recovery_replayed_records",
-        "cdt_recovery_requeued_tasks", "cdt_replication_lag_records",
-        "cdt_replication_lag_seconds", "cdt_failover_total",
+    "step 7g: standby masters (their replication lag)": {
+        "cdt_replication_lag_records", "cdt_replication_lag_seconds",
     },
     "item 6: the multi-GPU tier (mesh)": {
         "cdt_mesh_devices", "cdt_mesh_batch_share", "cdt_mesh_gather_seconds",
@@ -666,7 +663,13 @@ def test_cache_routes_and_the_unported_routes(single_masters, monkeypatch):
     assert plane["port"]["fleet?since=x"][0] == plane["port"]["usage?since=inf"][0] == 400
     assert set(plane["port"]["usage"][1]["rollup"]) == set(plane["jax"]["usage"][1]["rollup"])
     base = f"http://127.0.0.1:{port_master.port}/distributed"
-    assert _get(f"{base}/durability")[0] == 404
+    # the durability route is ported (step 7f): without CDT_JOURNAL_DIR it
+    # answers the JAX route's disabled body
+    durability = {side: _get(f"http://127.0.0.1:{server.port}/distributed/durability")
+                  for side, server in (("jax", jax_master), ("port", port_master))}
+    assert durability["port"][0] == durability["jax"][0] == 200
+    assert json.loads(durability["port"][2]) == json.loads(durability["jax"][2]) == {
+        "enabled": False, "hint": "set CDT_JOURNAL_DIR to enable"}
     # the profiler-capture routes are ported: without CDT_PROFILE_DIR they
     # answer the JAX routes' disabled statuses and keys
     profile = {}
